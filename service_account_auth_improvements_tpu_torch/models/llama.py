@@ -1,0 +1,318 @@
+"""Llama-3 family decoder-only transformer (port of ``models/llama.py``).
+
+Parameters are a plain dict of tensors in the reference's layout: stacked
+``layers`` leaves ``[L, ...]`` and weights ``[in, out]`` used as
+``x @ W``, so a test can load parameters the JAX package initialised
+(``models/params.py``) without transposes. The forward is functions on
+tensors; the reference's ``lax.scan`` over layers is a Python loop, and
+``jax.checkpoint`` has no counterpart (the serving path runs under
+``torch.inference_mode()``). ``shard_constraint`` is the identity on one
+device and is not ported. Mixture-of-experts raises until the MoE slice
+(ROADMAP queue 1, "MoE"). The port has no mesh, so pipeline parallelism
+(ROADMAP queue 1, "parallel") cannot be requested at all.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from service_account_auth_improvements_tpu_torch.ops.attention import (
+    multi_head_attention,
+)
+from service_account_auth_improvements_tpu_torch.ops.norms import rms_norm
+from service_account_auth_improvements_tpu_torch.ops.rotary import (
+    apply_rope,
+    rope_table,
+)
+from service_account_auth_improvements_tpu_torch.utils.device import (
+    resolve_device,
+)
+
+_MOE_TODO = ("mixture-of-experts layers are not ported yet (ROADMAP queue "
+             "1, \"MoE\")")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Field for field the reference's ``LlamaConfig``; the fields for
+    features the port does not run yet (remat, scan, iota embedding,
+    MoE, loss chunking, pipelining) are kept so presets and
+    ``param_count``/``flops_per_token`` stay identical."""
+    vocab_size: int = 128_256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    mlp_dim: int = 14_336
+    rope_theta: float = 500_000.0
+    rope_scaling_factor: float = 0.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_seq: int = 8192
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"     # master parameter dtype
+    remat: bool = True
+    scan_layers: bool = True
+    attn_impl: str = "dense"         # dense | flash | ring | ulysses
+    iota_embed: bool = False
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_dropless: bool = False
+    moe_aux_weight: float = 0.01
+    moe_group_size: int = 1024
+    loss_chunk: int = 0
+    remat_policy: str = "full"
+    pp_microbatches: int = 0
+
+    def rope_scaling(self) -> dict | None:
+        """kwargs for ``rope_table(scaling=...)``; None when unscaled."""
+        if not self.rope_scaling_factor:
+            return None
+        return {
+            "factor": self.rope_scaling_factor,
+            "low_freq_factor": self.rope_low_freq_factor,
+            "high_freq_factor": self.rope_high_freq_factor,
+            "original_max_seq": self.rope_original_max_seq,
+        }
+
+    def moe_cap(self, group: int) -> int:
+        if self.moe_dropless:
+            return group
+        return max(1, int(self.moe_capacity_factor * self.moe_top_k
+                          * group / self.moe_experts))
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        if self.moe_experts:
+            ffn = (self.dim * self.moe_experts
+                   + 3 * self.moe_experts * self.dim * self.mlp_dim)
+        else:
+            ffn = 3 * self.dim * self.mlp_dim
+        per_layer = (
+            2 * self.dim
+            + self.dim * self.q_dim
+            + 2 * self.dim * self.kv_dim
+            + self.q_dim * self.dim
+            + ffn
+        )
+        return (self.vocab_size * self.dim + self.n_layers * per_layer
+                + self.dim + self.dim * self.vocab_size)
+
+    def matmul_param_count(self) -> int:
+        """Params in matmuls: all but the token-embedding gather."""
+        return self.param_count() - self.vocab_size * self.dim
+
+    def active_matmul_param_count(self) -> int:
+        total = self.matmul_param_count()
+        if self.moe_experts:
+            total -= (self.n_layers * 3
+                      * (self.moe_experts - self.moe_top_k)
+                      * self.dim * self.mlp_dim)
+        return total
+
+    def flops_per_token(self, seq_len: int | None = None) -> int:
+        """Approx training FLOPs/token, as the reference counts them."""
+        flops = 6 * self.active_matmul_param_count()
+        if seq_len:
+            flops += 6 * self.n_layers * self.n_heads * self.head_dim * seq_len
+        if self.moe_experts:
+            group = min(self.moe_group_size, seq_len or self.moe_group_size)
+            flops += (3 * 2 * 2 * self.n_layers
+                      * self.moe_experts * self.moe_cap(group) * self.dim)
+        return flops
+
+
+# The reference's presets, unchanged (its notes on each live there).
+PRESETS: dict[str, LlamaConfig] = {
+    "tiny": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=16, mlp_dim=128, max_seq_len=128, rope_theta=10_000.0,
+    ),
+    "smoke": LlamaConfig(
+        vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=4,
+        head_dim=16, mlp_dim=256, max_seq_len=256, rope_theta=10_000.0,
+    ),
+    "bench_400m": LlamaConfig(
+        vocab_size=32_768, dim=1024, n_layers=24, n_heads=8, n_kv_heads=4,
+        head_dim=128, mlp_dim=4096, max_seq_len=2048, attn_impl="flash",
+        loss_chunk=512,
+    ),
+    "bench_800m": LlamaConfig(
+        vocab_size=32_768, dim=1536, n_layers=20, n_heads=12, n_kv_heads=4,
+        head_dim=128, mlp_dim=6144, max_seq_len=2048, attn_impl="flash",
+        loss_chunk=512,
+    ),
+    "bench_moe": LlamaConfig(
+        vocab_size=32_768, dim=1024, n_layers=24, n_heads=8, n_kv_heads=4,
+        head_dim=128, mlp_dim=2048, max_seq_len=2048, attn_impl="flash",
+        loss_chunk=512, moe_experts=4,
+    ),
+    "moe_smoke": LlamaConfig(
+        vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=4,
+        head_dim=16, mlp_dim=256, max_seq_len=256, rope_theta=10_000.0,
+        moe_experts=4,
+    ),
+    "moe2_smoke": LlamaConfig(
+        vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=4,
+        head_dim=16, mlp_dim=256, max_seq_len=256, rope_theta=10_000.0,
+        moe_experts=4, moe_top_k=2,
+    ),
+    "mixtral_8x7b": LlamaConfig(
+        vocab_size=32_000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        head_dim=128, mlp_dim=14_336, max_seq_len=32_768,
+        rope_theta=1_000_000.0, moe_experts=8, moe_top_k=2,
+    ),
+    "moe_8x1b": LlamaConfig(
+        vocab_size=128_256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+        head_dim=64, mlp_dim=8192, max_seq_len=8192, moe_experts=8,
+    ),
+    "llama3_1b": LlamaConfig(
+        vocab_size=128_256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+        head_dim=64, mlp_dim=8192, max_seq_len=8192,
+        rope_scaling_factor=32.0, rope_original_max_seq=8192,
+    ),
+    "llama3_8b": LlamaConfig(
+        rope_scaling_factor=8.0, rope_original_max_seq=8192,
+    ),
+    "llama3_70b": LlamaConfig(
+        dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, head_dim=128,
+        mlp_dim=28_672,
+        rope_scaling_factor=8.0, rope_original_max_seq=8192,
+    ),
+}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` (config dtypes are strings)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def init(cfg: LlamaConfig, generator: torch.Generator, device=None):
+    """Master params in ``param_dtype`` on ``device`` (the card unless
+    ``"cpu"``), drawn from ``generator`` in the reference's order. The
+    residual-out projections are scaled by 1/sqrt(2·n_layers). The draws
+    differ from ``jax.random``'s; tests that need the reference's weights
+    bridge them with ``models/params.py``."""
+    if cfg.moe_experts:
+        raise NotImplementedError(_MOE_TODO)
+    dev = resolve_device(device)
+    pdt = dtype_of(cfg.param_dtype)
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * std).to(device=dev, dtype=pdt)
+
+    L = cfg.n_layers
+    std = 0.02
+    out_std = 0.02 / (2 * L) ** 0.5
+    params = {
+        "tok_embed": normal((cfg.vocab_size, cfg.dim), std),
+        "layers": {
+            "attn_norm": torch.ones((L, cfg.dim), dtype=pdt, device=dev),
+            "wq": normal((L, cfg.dim, cfg.q_dim), std),
+            "wk": normal((L, cfg.dim, cfg.kv_dim), std),
+            "wv": normal((L, cfg.dim, cfg.kv_dim), std),
+            "wo": normal((L, cfg.q_dim, cfg.dim), out_std),
+            "mlp_norm": torch.ones((L, cfg.dim), dtype=pdt, device=dev),
+            "w_gate": normal((L, cfg.dim, cfg.mlp_dim), std),
+            "w_up": normal((L, cfg.dim, cfg.mlp_dim), std),
+            "w_down": normal((L, cfg.mlp_dim, cfg.dim), out_std),
+        },
+        "final_norm": torch.ones((cfg.dim,), dtype=pdt, device=dev),
+    }
+    params["lm_head"] = normal((cfg.dim, cfg.vocab_size), std)
+    return params
+
+
+def layer_params(params, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked ``layers`` leaves (views)."""
+    return {name: leaf[i] for name, leaf in params["layers"].items()}
+
+
+def embed(cfg: LlamaConfig, params, tokens):
+    """Token embedding in the compute dtype. Out-of-range ids clamp, as
+    the reference's ``mode="clip"`` gather does (its ``iota_embed``
+    one-hot path is bit-identical to this gather)."""
+    ids = tokens.clamp(0, cfg.vocab_size - 1)
+    return params["tok_embed"][ids].to(dtype_of(cfg.dtype))
+
+
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, segment_ids=None):
+    """One decoder block. x: [b, s, dim] in compute dtype. (The
+    reference also returns the MoE load-balance term; MoE is not ported,
+    so dense layers have none.)"""
+    if cfg.moe_experts:
+        raise NotImplementedError(_MOE_TODO)
+    b, s, _ = x.shape
+    cdt = dtype_of(cfg.dtype)
+
+    h = rms_norm(x, lp["attn_norm"].to(cdt), cfg.norm_eps)
+    q = (h @ lp["wq"].to(cdt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"].to(cdt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ lp["wv"].to(cdt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attn = multi_head_attention(q, k, v, impl=cfg.attn_impl,
+                                segment_ids=segment_ids)
+    x = x + attn.reshape(b, s, cfg.q_dim) @ lp["wo"].to(cdt)
+
+    h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
+    gate = F.silu(h @ lp["w_gate"].to(cdt))
+    up = h @ lp["w_up"].to(cdt)
+    return x + (gate * up) @ lp["w_down"].to(cdt)
+
+
+def _backbone(cfg: LlamaConfig, params, tokens,
+              return_layer_inputs: bool = False, segment_ids=None):
+    """Embed + decoder stack + final norm: tokens [b, s] → x [b, s, dim]
+    in compute dtype. With ``return_layer_inputs`` also the per-layer
+    input hidden states [L, b, s, dim], the KV-cache prefill source
+    (models/generate.py)."""
+    cdt = dtype_of(cfg.dtype)
+    s = tokens.shape[1]
+    x = embed(cfg, params, tokens)
+    cos, sin = rope_table(s, cfg.head_dim, cfg.rope_theta,
+                          scaling=cfg.rope_scaling(), device=x.device)
+    inputs = []
+    for i in range(cfg.n_layers):
+        if return_layer_inputs:
+            inputs.append(x)
+        x = _layer(cfg, x, layer_params(params, i), cos, sin, segment_ids)
+    x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+    if return_layer_inputs:
+        return x, torch.stack(inputs)
+    return x
+
+
+def lm_logits(cfg: LlamaConfig, params, x):
+    """x [..., dim] compute dtype → f32 logits [..., vocab]. The operands
+    are rounded to the compute dtype and multiplied in f32 — the
+    reference's ``preferred_element_type=float32``; a bf16 matmul would
+    round the logits to bf16 and flip greedy argmaxes."""
+    head = params["lm_head"].to(dtype_of(cfg.dtype)).float()
+    return x.float() @ head
+
+
+def apply(cfg: LlamaConfig, params, tokens, segment_ids=None):
+    """Forward pass: tokens [b, s] int → logits [b, s, vocab] f32.
+    ``segment_ids`` [b, s] blocks attention across packed documents
+    (dense attention only)."""
+    return lm_logits(cfg, params, _backbone(cfg, params, tokens,
+                                            segment_ids=segment_ids))

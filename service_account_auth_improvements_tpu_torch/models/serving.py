@@ -1,0 +1,432 @@
+"""Minimal generation server: the KV-cache decode path over HTTP (port of
+``models/serving.py``).
+
+Serves ``POST /v1/completions`` (ids in → ids out, OpenAI-shaped body,
+one-shot or SSE), ``/healthz``, ``/v1/models`` and ``/metrics`` from a
+stdlib ThreadingHTTPServer, with the reference's validation, bounds and
+power-of-two buckets (max_new_tokens and top_k run at the next power of
+two; completions are truncated to the requested n). Generation is
+serialized under a lock (one card); open streams are bounded by a
+semaphore (429 past it).
+
+Prompts go through the fixed-window chunked prefill by default
+(``DEFAULT_PREFILL_WINDOW``); ``prefill_window=0``/None selects the
+per-length prefill, the path that runs flash attention — the Hopper
+kernel — under ``attn_impl="flash"`` presets.
+
+Not ported yet, and refused with an error that names the ROADMAP item:
+int8 weights, tp/fsdp meshes, speculative decoding, checkpoint loading.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
+
+from service_account_auth_improvements_tpu_torch.models import generate, llama
+from service_account_auth_improvements_tpu_torch.utils.device import (
+    resolve_device,
+)
+from service_account_auth_improvements_tpu_torch.utils.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+)
+
+
+class BadRequest(ValueError):
+    pass
+
+
+class TooBusy(RuntimeError):
+    """Concurrent-stream cap reached → HTTP 429."""
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+#: prompt-length bucket for the default chunked prefill
+DEFAULT_PREFILL_WINDOW = 512
+
+
+def _scalar(body: dict, name: str, cast, default, lo=None, hi=None):
+    """Coerce and range-check an optional scalar field; malformed or
+    out-of-range input is the CLIENT's error (400). JSON null stands for
+    "absent" only when the default is None; booleans are never numbers;
+    a fractional float is not an int."""
+    v = body.get(name, default)
+    if v is None:
+        if default is None:
+            return None
+        raise BadRequest(f"{name} must be a {cast.__name__}, not null")
+    if isinstance(v, bool):
+        raise BadRequest(f"{name} must be a {cast.__name__}, not a "
+                         f"boolean")
+    if not isinstance(v, (int, float)):
+        raise BadRequest(f"{name} must be a {cast.__name__}")
+    if cast is int and isinstance(v, float) and not v.is_integer():
+        raise BadRequest(f"{name} must be an integer")
+    try:
+        v = cast(v)
+    except (TypeError, ValueError, OverflowError):
+        raise BadRequest(f"{name} must be a {cast.__name__}")
+    if not math.isfinite(v):
+        raise BadRequest(f"{name} must be finite")
+    if (lo is not None and v < lo) or (hi is not None and v > hi):
+        raise BadRequest(f"{name} must be in [{lo}, {hi}]")
+    return v
+
+
+class GenerationService:
+    """Validates requests and runs the decode; thread-safe."""
+
+    STREAM_CHUNK = 16
+
+    def __init__(self, cfg: llama.LlamaConfig, params,
+                 max_new_cap: int = 512, max_batch: int = 8,
+                 max_streams: int = 4, name: str = "llama",
+                 prefill_window: int | None = DEFAULT_PREFILL_WINDOW,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.prefill_window = prefill_window or None
+        self.max_new_cap = max_new_cap
+        self.max_batch = max_batch
+        self.name = name
+        self._lock = threading.Lock()
+        # each open stream pins a KV cache between chunks (the lock wraps
+        # only the decodes): bound them
+        self._streams = threading.Semaphore(max_streams)
+        self.registry = Registry()
+        self.m_requests = Counter(
+            "serving_requests_total", "completion requests by outcome",
+            labels=("mode", "code"), registry=self.registry)
+        self.m_tokens = Counter(
+            "serving_completion_tokens_total", "tokens generated",
+            registry=self.registry)
+        self.m_latency = Histogram(
+            "serving_request_seconds", "one-shot completion latency",
+            buckets=Histogram.DEFAULT_BUCKETS, registry=self.registry)
+        self.m_streams = Gauge(
+            "serving_streams_active", "open SSE streams",
+            registry=self.registry)
+
+    def info(self) -> dict:
+        return {
+            "id": self.name,
+            "vocab_size": self.cfg.vocab_size,
+            "max_seq_len": self.cfg.max_seq_len,
+            "params": self.cfg.param_count(),
+            "max_new_tokens_cap": self.max_new_cap,
+            "max_batch": self.max_batch,
+        }
+
+    def _parse(self, body: dict):
+        """Validate a completions request → (toks, s, n, n_run, sampling
+        kwargs, generator). Raises BadRequest."""
+        prompts = body.get("prompt_ids")
+        if isinstance(prompts, list) and prompts and isinstance(
+                prompts[0], int):
+            prompts = [prompts]
+        if (not isinstance(prompts, list) or not prompts
+                or not all(isinstance(p, list) and p for p in prompts)):
+            raise BadRequest("prompt_ids must be a non-empty id list "
+                             "or list of id lists")
+        if len(prompts) > self.max_batch:
+            raise BadRequest(f"at most {self.max_batch} prompts "
+                             f"per request")
+        s = len(prompts[0])
+        if any(len(p) != s for p in prompts):
+            raise BadRequest("all prompts must have equal length "
+                             "(bucket or pad upstream)")
+        flat = [t for p in prompts for t in p]
+        if not all(isinstance(t, int) and 0 <= t < self.cfg.vocab_size
+                   for t in flat):
+            raise BadRequest(f"token ids must be ints in "
+                             f"[0, {self.cfg.vocab_size})")
+        n = _scalar(body, "max_new_tokens", int, 16,
+                    lo=1, hi=self.max_new_cap)
+        if s + n > self.cfg.max_seq_len:
+            raise BadRequest(f"prompt+completion exceeds max_seq_len "
+                             f"{self.cfg.max_seq_len}")
+        temperature = _scalar(body, "temperature", float, 0.0,
+                              lo=0.0, hi=100.0)
+        top_k = _scalar(body, "top_k", int, 0,
+                        lo=0, hi=min(1024, self.cfg.vocab_size))
+        if top_k:
+            top_k = min(_next_pow2(top_k), self.cfg.vocab_size)
+        top_p = _scalar(body, "top_p", float, 0.0, lo=0.0, hi=1.0)
+        eos_id = _scalar(body, "eos_id", int, None,
+                         lo=0, hi=self.cfg.vocab_size - 1)
+        seed = _scalar(body, "seed", int, 0, lo=0, hi=2**32 - 1)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        # run the next power of two and truncate; near the context limit,
+        # clamp to the remaining window
+        n_run = min(_next_pow2(n), self.cfg.max_seq_len - s)
+        sampling = {"temperature": temperature, "top_k": top_k,
+                    "top_p": top_p, "eos_id": eos_id}
+        toks = torch.tensor(prompts, dtype=torch.long, device=self.device)
+        return toks, s, n, n_run, sampling, generator
+
+    def complete(self, body: dict) -> dict:
+        toks, s, n, n_run, sampling, generator = self._parse(body)
+        t0 = time.perf_counter()
+        # the chunked decode path the SSE streams use: chunks truncate at
+        # eos and stop early once every row is done
+        completion = [[] for _ in range(toks.shape[0])]
+        for chunk in self._stream_chunks(toks, n, n_run, sampling,
+                                         generator):
+            for row, ids in zip(completion, chunk):
+                row.extend(ids)
+        n_tokens = sum(len(r) for r in completion)
+        self.m_latency.observe(time.perf_counter() - t0)
+        self.m_tokens.inc(n_tokens)
+        return {
+            "model": self.name,
+            "completion_ids": completion,
+            # the EFFECTIVE top_k: pow-2 bucketed, 0 for greedy requests
+            "top_k": (0 if sampling["temperature"] == 0.0
+                      else sampling["top_k"]),
+            "usage": {
+                "prompt_tokens": toks.shape[0] * s,
+                "completion_tokens": n_tokens,
+            },
+        }
+
+    def stream_events(self, body: dict):
+        """Validate eagerly, then return an iterator of per-chunk token
+        lists (``[rows][tokens]``) for SSE. Raises TooBusy (429) at the
+        concurrent-stream cap."""
+        toks, s, n, n_run, sampling, generator = self._parse(body)
+        gen = self._stream_iter(toks, n, n_run, sampling, generator)
+        # prime to the sentinel: TooBusy raises HERE, before any header
+        # goes out, and the started generator's close() always runs its
+        # finally (releasing the stream slot)
+        next(gen)
+        return gen
+
+    def _stream_iter(self, toks, n, n_run, sampling, generator):
+        if not self._streams.acquire(blocking=False):
+            raise TooBusy("too many concurrent streams; retry")
+        self.m_streams.inc()
+        try:
+            yield None  # primed sentinel (consumed by stream_events)
+            for chunk in self._stream_chunks(toks, n, n_run, sampling,
+                                             generator):
+                self.m_tokens.inc(sum(len(r) for r in chunk))
+                yield chunk
+        finally:
+            self._streams.release()
+            self.m_streams.inc(-1)
+
+    def _stream_chunks(self, toks, n, n_run, sampling, generator):
+        # the lock wraps each DECODE, never a client write
+        eos_id = sampling["eos_id"]
+        with self._lock:
+            state, first = generate.start_stream(
+                self.cfg, self.params, toks, n_run, generator=generator,
+                prefill_window=self.prefill_window, device=self.device,
+                **sampling
+            )
+            first = first.tolist()  # one bulk transfer, not per token
+        yield [[t] for t in first]
+        row_done = ([t == eos_id for t in first] if eos_id is not None
+                    else [False] * len(first))
+        remaining, produced = n - 1, 0
+        # the done check is a device->host sync: skipped when no eos is set
+        while remaining > 0 and not (
+                eos_id is not None and bool(state.done.all())):
+            # bucket the tail chunk by remaining's power of two
+            c = min(self.STREAM_CHUNK, n_run - produced,
+                    _next_pow2(remaining))
+            with self._lock:
+                state, out = generate.stream_decode(
+                    self.cfg, self.params, state, c, device=self.device,
+                    **sampling
+                )
+                out = out.tolist()
+            produced += c
+            emit = min(c, remaining)
+            chunk = []
+            for i, row in enumerate(out):
+                ids = [] if row_done[i] else row[:emit]
+                if eos_id is not None and eos_id in ids:
+                    ids = ids[: ids.index(eos_id) + 1]
+                    row_done[i] = True
+                chunk.append(ids)
+            yield chunk
+            remaining -= emit
+
+
+def make_server(service: GenerationService, host: str = "127.0.0.1",
+                port: int = 0) -> ThreadingHTTPServer:
+    """Bind (but do not serve) an HTTP server for ``service``; callers
+    run ``serve_forever()`` and MUST ``shutdown()``/``server_close()``."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, obj: dict):
+            data = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"ok": True})
+            elif self.path == "/v1/models":
+                self._reply(200, {"data": [service.info()]})
+            elif self.path == "/metrics":
+                data = service.registry.render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            else:
+                self._reply(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/v1/completions":
+                self._reply(404, {"error": "not found"})
+                return
+            mode = "oneshot"  # until the stream flag parses
+            try:
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                except (TypeError, ValueError):
+                    raise BadRequest("invalid Content-Length")
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(body, dict):
+                    raise BadRequest("body must be a JSON object")
+                stream = body.get("stream", False)
+                if not isinstance(stream, bool):
+                    raise BadRequest("stream must be a boolean")
+                mode = "stream" if stream else "oneshot"
+                if stream:
+                    self._stream(service.stream_events(body))
+                else:
+                    self._reply(200, service.complete(body))
+                # counted after the reply went out: a failed write must
+                # not record a phantom 200 next to the 500
+                service.m_requests.labels(mode, 200).inc()
+            except BadRequest as e:
+                service.m_requests.labels(mode, 400).inc()
+                self._reply(400, {"error": str(e)})
+            except TooBusy as e:
+                service.m_requests.labels(mode, 429).inc()
+                self._reply(429, {"error": str(e)})
+            except json.JSONDecodeError:
+                service.m_requests.labels(mode, 400).inc()
+                self._reply(400, {"error": "invalid JSON"})
+            except Exception as e:  # surface, don't kill the thread
+                service.m_requests.labels(mode, 500).inc()
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _stream(self, events):
+            """SSE: one `data:` event per decode chunk, then [DONE].
+            Once the 200 is out, errors can only be signalled in-band."""
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-store")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            try:
+                for chunk in events:
+                    self.wfile.write(
+                        b"data: " + json.dumps({"ids": chunk}).encode()
+                        + b"\n\n"
+                    )
+                    self.wfile.flush()
+                self.wfile.write(b"data: [DONE]\n\n")
+            except BrokenPipeError:
+                pass  # client went away mid-stream
+            except Exception as e:
+                try:
+                    self.wfile.write(
+                        b"data: " + json.dumps(
+                            {"error": f"{type(e).__name__}: {e}"}
+                        ).encode() + b"\n\n"
+                    )
+                except OSError:
+                    pass
+            finally:
+                events.close()  # deterministic stream-slot release
+
+        def log_message(self, *a):
+            pass
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="llama3_1b")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    help="default cuda; the CPU only when asked for")
+    ap.add_argument("--max-new-cap", type=int, default=512)
+    ap.add_argument("--prefill-window", type=int,
+                    default=DEFAULT_PREFILL_WINDOW,
+                    help="prompt-length bucket (fixed-window chunked "
+                         "prefill); 0 selects the per-length prefill, "
+                         "which runs flash attention")
+    # the reference's other flags, refused until their ROADMAP items land
+    ap.add_argument("--checkpoint-dir", help="not ported yet")
+    ap.add_argument("--int8", action="store_true", help="not ported yet")
+    ap.add_argument("--tp", type=int, default=1, help="not ported yet")
+    ap.add_argument("--fsdp", type=int, default=1, help="not ported yet")
+    ap.add_argument("--draft-preset", help="not ported yet")
+    args = ap.parse_args(argv)
+    refused = [
+        (args.checkpoint_dir, "--checkpoint-dir: checkpoint loading",
+         "train: data, checkpoint"),
+        (args.int8, "--int8: int8 weights", "inference extras"),
+        (args.tp != 1 or args.fsdp != 1, "--tp/--fsdp: sharded serving",
+         "parallel"),
+        (args.draft_preset, "--draft-preset: speculative decoding",
+         "inference extras"),
+    ]
+    for given, what, item in refused:
+        if given:
+            raise NotImplementedError(f"{what} is not in the PyTorch port "
+                                      f"yet (ROADMAP queue 1, {item!r})")
+    if args.prefill_window < 0:
+        ap.error("--prefill-window must be >= 0 (0 disables)")
+    device = resolve_device(args.device)
+
+    import dataclasses
+
+    cfg = dataclasses.replace(llama.PRESETS[args.preset],
+                              param_dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = llama.init(cfg, gen, device=device)
+    service = GenerationService(cfg, params, max_new_cap=args.max_new_cap,
+                                name=args.preset,
+                                prefill_window=args.prefill_window,
+                                device=device)
+    httpd = make_server(service, args.host, args.port)
+    print(f"serving {args.preset} on {httpd.server_address} ({device})")
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -50,6 +50,11 @@ def pytest_configure(config):
         "explicitly or via the CI steps that invoke the same tool "
         "directly (e.g. schedsim --mutations)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels have no "
+        "CPU mode); skips without one",
+    )
 
 
 def pytest_sessionfinish(session, exitstatus):

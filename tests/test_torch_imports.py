@@ -1,0 +1,99 @@
+"""Import discipline of the port: no module of it, nor chip_smoke.py,
+imports ``jax`` or the JAX package; its entry points refuse to run
+without CUDA unless asked for the CPU."""
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = "service_account_auth_improvements_tpu_torch"
+
+# A meta-path finder that refuses jax and the JAX package. Python 3.12
+# calls only find_spec (never find_module). The JAX package's name is a
+# prefix of the port's, so it is matched exactly, not by prefix.
+BLOCKER = textwrap.dedent("""
+    import importlib, pathlib, sys
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if (name == "jax" or name.startswith("jax.")
+                    or name == "jaxlib" or name.startswith("jaxlib.")
+                    or name == "service_account_auth_improvements_tpu"
+                    or name.startswith(
+                        "service_account_auth_improvements_tpu.")):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for mod in [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib")]:
+        del sys.modules[mod]
+    sys.meta_path.insert(0, Blocker())
+    repo = pathlib.Path(sys.argv[1])
+    sys.path.insert(0, str(repo))
+    names = sorted(
+        ".".join(p.relative_to(repo).with_suffix("").parts)
+        for p in (repo / "%s").rglob("*.py"))
+    for name in names:
+        importlib.import_module(name.removesuffix(".__init__"))
+    importlib.import_module("chip_smoke")
+    leaked = [m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "service_account_auth_improvements_tpu")]
+    assert not leaked, leaked
+    print("imported", len(names) + 1)
+""" % PORT)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    out = subprocess.run([sys.executable, "-c", BLOCKER, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    n = len(list((REPO / PORT).rglob("*.py"))) + 1
+    assert out.stdout.strip() == f"imported {n}"
+
+
+def test_blocker_blocks():
+    """The finder really refuses the JAX package (and not the port)."""
+    probe = BLOCKER.replace('importlib.import_module("chip_smoke")',
+                            'importlib.import_module('
+                            '"service_account_auth_improvements_tpu.ops")')
+    out = subprocess.run([sys.executable, "-c", probe, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode != 0
+    assert "blocked import of service_account_auth_improvements_tpu" \
+        in out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        serving,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.PRESETS["tiny"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama.init(cfg, torch.Generator())
+    params = llama.init(cfg, torch.Generator(), device="cpu")
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    for call in (
+        lambda: generate.prefill(cfg, params, toks, 8),
+        lambda: generate.prefill_chunked(cfg, params, toks, 8, window=4),
+        lambda: generate.generate(cfg, params, toks, 2),
+        lambda: generate.start_stream(cfg, params, toks, 2),
+        lambda: serving.GenerationService(cfg, params),
+        lambda: serving.main(["--preset", "tiny", "--port", "0"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    state, _ = generate.start_stream(cfg, params, toks, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.stream_decode(cfg, params, state, 1)

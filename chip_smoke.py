@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and hold its
-kernels against their plain versions.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and hold its kernels against their plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` at first use) and
 no network. Phases, each of which raises on failure:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: every kernel of the path, timed;
+2. build: every kernel source, one nvcc each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in bf16 and f32, with stated tolerances,
-   timed beside the plain version and a library call of the same function;
+   the main paths' shapes, in bf16 and f32, with stated tolerances, timed
+   beside the plain version and a library call of the same function:
+   K1 (flash forward) at the serving and training shapes, K2 (dQ) and K3
+   (dK/dV) at the training shape and ragged, MHA, non-causal and d 64
+   shapes;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
    the kernel launch counts of that run; ``llama.apply`` with flash
-   attention against dense attention.
+   attention against dense attention;
+5. training: ``make_train_step`` at ``bench_800m`` (batch 8, seq 2048,
+   remat "full", f32 master params) on one fixed batch: a finite loss
+   that falls, exact launch counts per step, step time, tokens/s, MFU and
+   peak memory; a profile of one step; the lm_head and optimizer times;
+   flash against dense gradients at full width; the ``train.loop`` CLI.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -45,9 +53,29 @@ PEAK_BYTES = 3.35e12
 # rounding of P; f32: only the summation order differs.
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 LSE_ATOL = 1e-3
+# K2/K3 vs plain: dS is rounded to bf16 on both sides from f32 values that
+# differ in summation order (a product rounds to the neighbouring bf16
+# value now and then), and the outputs round to bf16: a bf16 ulp of the
+# largest gradients (|d| ~ 10, ulp 2^-5) plus the relative term. f32:
+# summation order only.
+BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 
 # serving path: bench_800m, batch 4, a 1000-token prompt, 64 new tokens
 PRESET, BATCH, PROMPT, NEW = "bench_800m", 4, 1000, 64
+# training path: bench_800m (bench.py's headline configuration), batch 8,
+# seq 2048; TRAIN_STEPS counted steps on one fixed batch, the first of
+# them a warm-up outside the step clock
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+# one step with flash against one with dense attention at full width
+# (b 2, s 512), compared on loss, grad norm (relative) and the largest
+# per-leaf gradient difference over that leaf's largest gradient. f32:
+# summation order through 20 layers (largest seen on the H100: loss 1e-6,
+# leaf 7.1e-6); bf16: the two paths round P and O at different points and
+# the residual stream carries it (seen: loss 7.3e-4, grad norm 2.9e-4,
+# leaf 4.1e-2).
+GRAD_TOL = {"f32": dict(loss=1e-4, gnorm=1e-4, leaf=1e-4),
+            "bf16": dict(loss=1e-2, gnorm=1e-2, leaf=1e-1)}
 # llama.apply logits (std ~0.8), flash attention against dense attention at
 # full width. bf16: the two attention paths round P and O to bf16 at
 # different points and 20 layers of bf16 residual stream carry the
@@ -90,17 +118,23 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
+    """Every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from service_account_auth_improvements_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("flash_fwd")
-    _log(f"build: flash_fwd in {time.perf_counter() - t0:.1f} s")
-    log = lib.with_name(lib.name + ".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
-                _log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(_build.build, KERNEL_SOURCES))
+    _log(f"build: {', '.join(KERNEL_SOURCES)} in "
+         f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        log = lib.with_name(lib.name + ".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
+                    _log(f"  ptxas: {line.strip()}")
 
 
 def _qkv(b, s, h, hkv, d, dtype, gen):
@@ -123,16 +157,24 @@ def _check(name, got, want, atol, rtol) -> float:
     return float(err.max())
 
 
-def kernel_bound(b, h, hkv, sq, sk, d, dtype, causal) -> tuple[float, str]:
-    """Least time for one flash forward: its flops (the causal pairs this
-    call really has) over the peak for the dtype, or its bytes (q, k, v
-    read once; o, lse written once) over the HBM rate, whichever is
+def kernel_bound(b, h, hkv, sq, sk, d, dtype, causal,
+                 kernel="fwd") -> tuple[float, str]:
+    """Least time for one flash kernel: its flops (the causal pairs this
+    call really has, 2·d flops per pair for each of its products: K1's
+    QKᵀ and PV, K2's QKᵀ, dO·Vᵀ and dS·K, K3's QKᵀ, dO·Vᵀ, Pᵀ·dO and
+    dSᵀ·Q) over the peak for the dtype, or its bytes (each input read
+    once, each output written once) over the HBM rate, whichever is
     larger; and which of the two it is."""
     pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    flops = 4 * b * h * d * pairs
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    flops = 2 * products * b * h * d * pairs
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * b * h * sq * d + 2 * b * hkv * sk * d) * item \
-        + 4 * b * h * sq
+    q_rows, kv_rows = b * h * sq * d, b * hkv * sk * d
+    nbytes = {
+        "fwd": (2 * q_rows + 2 * kv_rows) * item + 4 * b * h * sq,
+        "dq": (3 * q_rows + 2 * kv_rows) * item + 8 * b * h * sq,
+        "dkv": (2 * q_rows + 4 * kv_rows) * item + 8 * b * h * sq,
+    }[kernel]
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -186,10 +228,11 @@ def phase_kernels() -> dict:
         _log(f"kernel {name}: max abs err {err:.3e} "
              f"(atol {atol}, rtol {rtol})")
 
-    # timing at the serving path's shape, and at s 1024
+    # timing at the serving path's shape, at s 1024, and at the training
+    # path's shape
     timed = {}
-    for s in (PROMPT, 1024):
-        b, h, hkv, d, dtype = BATCH, 12, 4, 128, torch.bfloat16
+    for b, s in ((BATCH, PROMPT), (BATCH, 1024), (TRAIN_BATCH, TRAIN_SEQ)):
+        h, hkv, d, dtype = 12, 4, 128, torch.bfloat16
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True))
@@ -206,7 +249,147 @@ def phase_kernels() -> dict:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5)
     _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms")
-    return dict(max_abs_err=worst, **timed[PROMPT])
+    return dict(max_abs_err=worst, **timed[TRAIN_SEQ])
+
+
+def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
+    """[b, h, s, d] views of model-layout q/k/v/dO on the card and the
+    forward's o and lse (K1)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = (t.transpose(1, 2) for t in _qkv(b, s, h, hkv, d, dtype, gen))
+    do = _qkv(b, s, h, h, d, dtype, gen)[0].transpose(1, 2)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    return q, k, v, do, o, lse
+
+
+def phase_bwd_kernels() -> dict:
+    """K2 and K3 against flash_bwd_dq_reference/flash_bwd_dkv_reference
+    on the card, directly and (ragged lengths) through autograd over the
+    public ``flash_attention``; timed at the training shape beside their
+    plain versions and SDPA's backward. Returns {"flash_bwd_dq": {...},
+    "flash_bwd_dkv": {...}} with the numbers of the training shape."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        # name, b, s, h, hkv, d, dtype, causal
+        ("train gqa s2048 bf16", TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128,
+         torch.bfloat16, True),
+        ("train gqa s2048 f32", TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128,
+         torch.float32, True),
+        ("mha s512 bf16", 2, 512, 8, 8, 128, torch.bfloat16, True),
+        ("non-causal s512 bf16", 2, 512, 12, 4, 128, torch.bfloat16, False),
+        ("non-causal s512 f32", 2, 512, 12, 4, 128, torch.float32, False),
+        ("gqa s384 d64 bf16", 2, 384, 8, 2, 64, torch.bfloat16, True),
+        ("gqa s384 d64 f32", 2, 384, 8, 2, 64, torch.float32, True),
+    ]
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for name, b, s, h, hkv, d, dtype, causal in cases:
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
+                                          causal)
+        delta = fa.flash_bwd_delta(o, do)
+        atol, rtol = BWD_TOL[dtype]
+        before = (fa.dq_launches, fa.dkv_launches)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        if (fa.dq_launches, fa.dkv_launches) != (before[0] + 1,
+                                                 before[1] + 1):
+            raise AssertionError(f"{name}: K2/K3 did not launch")
+        want_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+        e = _check(f"{name} dq", dq, want_dq, atol, rtol)
+        del want_dq
+        want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                      delta, causal)
+        ek = _check(f"{name} dk", dk, want_dk, atol, rtol)
+        ev = _check(f"{name} dv", dv, want_dv, atol, rtol)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e)
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
+        _log(f"kernel {name}: dq max abs err {e:.3e}, dk {ek:.3e}, dv "
+             f"{ev:.3e} (atol {atol}, rtol {rtol})")
+        del want_dk, want_dv, q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    # ragged lengths through the public wrapper: autograd over
+    # flash_attention on model-layout tensors (K1, then K2 and K3 from
+    # the FlashAttention Function), against flash_bwd_reference
+    for b, s in ((2, 1000), (1, 2047)):
+        h, hkv, d, dtype = 12, 4, 128, torch.bfloat16
+        q, k, v = (t.requires_grad_(True)
+                   for t in _qkv(b, s, h, hkv, d, dtype, gen))
+        do = _qkv(b, s, h, h, d, dtype, gen)[0]
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        o = fa.flash_attention(q, k, v, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        if (fa.launches, fa.dq_launches, fa.dkv_launches) != tuple(
+                n + 1 for n in before):
+            raise AssertionError(f"ragged s{s}: K1/K2/K3 did not launch")
+        qt, kt, vt = (t.detach().transpose(1, 2) for t in (q, k, v))
+        ro, rlse = fa.flash_fwd_reference(qt, kt, vt, True)
+        want = fa.flash_bwd_reference(qt, kt, vt, ro, rlse,
+                                      do.transpose(1, 2), True)
+        atol, rtol = BWD_TOL[dtype]
+        errs = [_check(f"ragged s{s} d{n}", t.grad.transpose(1, 2), w,
+                       atol, rtol)
+                for t, w, n in zip((q, k, v), want, "qkv")]
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], *errs[1:])
+        _log(f"kernel ragged s{s} bf16 through flash_attention autograd: "
+             f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}")
+        del q, k, v, do, o, want, ro, rlse
+
+    # timing at the training shape: each kernel, its plain version, and
+    # SDPA's backward (one call for dQ, dK and dV together: the backward
+    # of one autograd graph, timed as a yardstick for both rows)
+    b, s, h, hkv, d, dtype = TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128, \
+        torch.bfloat16
+    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+    delta = fa.flash_bwd_delta(o, do)
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), do, retain_graph=True), iters=10)
+    delta_ms = _time_ms(lambda: fa.flash_bwd_delta(o, do), iters=10)
+    out = {}
+    for name, kern, plain, kind in (
+            ("flash_bwd_dq",
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               True), "dq"),
+            ("flash_bwd_dkv",
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                True), "dkv")):
+        ms = _time_ms(kern)
+        plain_ms = _time_ms(plain, iters=5, warmup=1)
+        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, dtype, True,
+                                          kind)
+        _log(f"time {name} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+             f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    _log(f"time delta = rowsum(dO*O) (torch ops) b{b} s{s}: "
+         f"{delta_ms:.4f} ms")
+    q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
+                                                  torch.float32, gen, True)
+    d32 = fa.flash_bwd_delta(o32, do32)
+    for name, fn in (
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(
+                q32, k32, v32, do32, lse32, d32, True)),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
+                q32, k32, v32, do32, lse32, d32, True))):
+        _log(f"time {name} b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel "
+             f"{_time_ms(fn, iters=5):.4f} ms")
+    return out
 
 
 def _http(base: str, path: str, body: dict | None = None):
@@ -395,28 +578,250 @@ def _profile_request(cfg, params, toks, generate) -> None:
              f"{e.key[:90]}")
 
 
+def phase_training() -> dict:
+    """The port's training path: ``make_train_step`` at ``bench_800m``,
+    batch 8, seq 2048, f32 master params, bf16 compute, remat "full",
+    ``loss_chunk`` 512, flash attention, on one fixed batch. Returns the
+    kernel launch counts of exactly the counted run, and its numbers."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+    from service_account_auth_improvements_tpu_torch.train.mfu import (
+        chip_peak_flops,
+        mfu,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    if not (cfg.remat and cfg.remat_policy == "full" and cfg.loss_chunk
+            and cfg.attn_impl == "flash" and cfg.param_dtype == "float32"):
+        raise AssertionError(f"{PRESET} is not the training configuration")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    state = step_mod.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    step = step_mod.make_train_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2), device="cuda")
+    mask = torch.ones_like(tokens)
+    torch.cuda.synchronize()
+    _log(f"training: {PRESET} ({cfg.param_count() / 1e6:.1f}M params, "
+         f"f32 master, bf16 compute), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    losses, norms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0  # counted run
+    for i in range(TRAIN_STEPS):
+        if i == 1:  # the first step is the warm-up
+            start.record()
+        state, m = step(state, tokens, mask)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    end.record()
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}  # read just after
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+    peak_mem = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS,
+            "flash_bwd_dq": L * TRAIN_STEPS,
+            "flash_bwd_dkv": L * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{want} (per step: K1 2x{L}, K2 and K3 {L})")
+    _log(f"training: launches {launches} = per step K1 {2 * L} "
+         f"(forward + recompute), K2 {L}, K3 {L}, over {TRAIN_STEPS} steps")
+    _log(f"training: losses {[round(x, 4) for x in losses]}, grad norms "
+         f"{[round(x, 4) for x in norms]}")
+    if not all(map(torch.isfinite, map(torch.tensor, losses + norms))):
+        raise AssertionError("non-finite loss or grad norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on the repeated batch: "
+                             f"{losses}")
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    tok_s = tokens_per_step / (step_ms / 1e3)
+    peak = chip_peak_flops()
+    util = mfu(cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step,
+                       step_ms / 1e3, 1, peak)
+    _log(f"training: step {step_ms:.2f} ms (CUDA events, mean of "
+         f"{TRAIN_STEPS - 1} steps after one warm-up), {tok_s:.1f} tokens/s, "
+         f"mfu {util:.4f} (peak {peak / 1e12:.0f} TF/s bf16), peak memory "
+         f"{peak_mem / 2**30:.2f} GiB")
+
+    _profile_step(step, state, tokens, mask)
+    parts = _time_step_parts(cfg, state, tokens, step_mod)
+    for name, ms in parts.items():
+        _log(f"training part {name}: {ms:.2f} ms ({ms / step_ms:.3f} of "
+             f"the step)")
+    del state, step, m
+    torch.cuda.empty_cache()
+    _grads_flash_vs_dense(cfg, step_mod)
+    _loop_cli()
+    return dict(launches=launches, step_ms=step_ms, tokens_per_sec=tok_s,
+                mfu=util, peak_mem=peak_mem)
+
+
+def _profile_step(step, state, tokens, mask) -> None:
+    """One train step under torch.profiler: the card's busy time by
+    kernel and its idle share of the step's wall time (the profiler's
+    own overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, tokens, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        _log("profile: the profiler saw no device time (not measured)")
+        return
+    _log(f"profile train step: wall {wall_ms:.1f} ms, device busy "
+         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    groups = {"K1 flash_fwd": "flash_fwd_", "K2 dq": "dq_bf16",
+              "K3 dkv": "dkv_bf16"}
+    for label, key in groups.items():
+        ms = sum(e.self_device_time_total for e in kernels
+                 if key in e.key) / 1e3
+        _log(f"  {label}: {ms:.2f} ms of device time "
+             f"({ms / busy_ms:.3f} of busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        _log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+             f"{e.key[:90]}")
+
+
+def _time_step_parts(cfg, state, tokens, step_mod) -> dict:
+    """The step's parts that are no kernel of the port, on the card's
+    clock: the chunked lm_head loss (f32 logits from bf16 operands,
+    forward, chunk recompute and backward) and the AdamW update (on zero
+    gradients: the same work)."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    cdt = llama.dtype_of(cfg.dtype)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ - 1, cfg.dim), device="cuda",
+                    dtype=cdt, requires_grad=True)
+    head = state.params["lm_head"].detach().requires_grad_(True)
+    targets = tokens[:, 1:]
+
+    def lm_head_loss():
+        nll = llama._chunked_nll(cfg, x, head.to(cdt), targets)
+        torch.autograd.grad(nll.mean(), (x, head))
+
+    zeros = step_mod._map(torch.zeros_like, state.params)
+    opt = step_mod.make_optimizer()
+    return {"lm_head loss fwd+bwd": _time_ms(lm_head_loss, iters=3,
+                                             warmup=1),
+            "adamw update": _time_ms(
+                lambda: opt.apply(zeros, state.opt_state, state.params),
+                iters=3, warmup=1)}
+
+
+def _grads_flash_vs_dense(cfg, step_mod) -> None:
+    """Outside the counted run: one step's loss and gradients with flash
+    against dense attention at full width (all layers), b 2, s 512, in
+    f32 and bf16 compute, from one init."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(4))
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        out = {}
+        for impl in ("flash", "dense"):
+            c = dataclasses.replace(cfg, dtype=dtype, attn_impl=impl)
+            leaves = dict(step_mod._leaves(params))
+            req = {k: v.detach().requires_grad_(True)
+                   for k, v in leaves.items()}
+            loss = llama.next_token_loss(c, step_mod._rebuild(params, req),
+                                         tokens)
+            grads = torch.autograd.grad(loss, list(req.values()))
+            out[impl] = (float(loss.detach()), dict(zip(req, grads)))
+        (lf, gf), (ld, gd) = out["flash"], out["dense"]
+        nf = float(step_mod.global_norm(gf))
+        nd = float(step_mod.global_norm(gd))
+        leaf = max(float((gf[k] - gd[k]).abs().max()
+                         / gd[k].abs().max().clamp_min(1e-30)) for k in gd)
+        tol = GRAD_TOL[name]
+        _log(f"train grads flash vs dense (b 2, s 512, {name}): loss "
+             f"{lf:.6f} vs {ld:.6f}, grad norm {nf:.6f} vs {nd:.6f}, largest "
+             f"per-leaf grad difference {leaf:.3e} of the leaf's max "
+             f"(tolerances {tol})")
+        if not (abs(lf - ld) <= tol["loss"]
+                and abs(nf - nd) <= tol["gnorm"] * nd
+                and leaf <= tol["leaf"] and all(
+                    torch.isfinite(g).all() for g in gf.values())):
+            raise AssertionError(f"{name}: flash and dense train grads "
+                                 "differ beyond the tolerances")
+        del out, gf, gd
+    del params
+    torch.cuda.empty_cache()
+
+
+def _loop_cli() -> None:
+    """The training entry point a user runs, ``train.loop``'s CLI, for a
+    few steps at bench_800m: its log records carry tokens/s and MFU."""
+    from service_account_auth_improvements_tpu_torch.train import loop
+
+    history = loop.main(["--preset", PRESET, "--batch", str(TRAIN_BATCH),
+                         "--seq", str(TRAIN_SEQ), "--steps", "3",
+                         "--log-every", "1"])
+    if len(history) != 3 or not all(
+            r["tokens_per_sec"] > 0 and 0 < r.get("mfu", 0) < 1
+            for r in history):
+        raise AssertionError(f"train.loop history lacks tokens/s or mfu: "
+                             f"{history}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    k1 = phase_kernels()
-    launches = phase_serving()
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/flash_fwd.cu",
-        "replaces": "service_account_auth_improvements_tpu/ops/"
-                    "flash_attention.py:113",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]}), flush=True)
+    numbers = {"flash_fwd": phase_kernels(), **phase_bwd_kernels()}
+    serving = phase_serving()
+    training = phase_training()
+    sources = {"flash_fwd": ("flash_fwd.cu", 113),
+               "flash_bwd_dq": ("flash_bwd.cu", 212),
+               "flash_bwd_dkv": ("flash_bwd.cu", 261)}
+    kernels = []
+    for name, (src, line) in sources.items():
+        n = numbers[name]
+        by_path = {"serving": serving.get(name, 0),
+                   "training": training["launches"][name]}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/{src}",
+            "replaces": "service_account_auth_improvements_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "shape": f"b{TRAIN_BATCH} s{TRAIN_SEQ} h12 hkv4 d128 bf16 "
+                     "causal",
+            "max_abs_err": n["max_abs_err"],
+            "ms": n["ms"],
+            "plain_ms": n["plain_ms"],
+            "bound_ms": n["bound_ms"],
+            "bound_by": n["bound_by"],
+            "library_ms": n["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,20 +4,30 @@ Parameters are a plain dict of tensors in the reference's layout: stacked
 ``layers`` leaves ``[L, ...]`` and weights ``[in, out]`` used as
 ``x @ W``, so a test can load parameters the JAX package initialised
 (``models/params.py``) without transposes. The forward is functions on
-tensors; the reference's ``lax.scan`` over layers is a Python loop, and
-``jax.checkpoint`` has no counterpart (the serving path runs under
-``torch.inference_mode()``). ``shard_constraint`` is the identity on one
-device and is not ported. Mixture-of-experts raises until the MoE slice
-(ROADMAP queue 1, "MoE"). The port has no mesh, so pipeline parallelism
-(ROADMAP queue 1, "parallel") cannot be requested at all.
+tensors; the reference's ``lax.scan`` over layers is a Python loop.
+``jax.checkpoint`` becomes ``torch.utils.checkpoint`` (non-reentrant):
+per layer with ``remat_policy="full"``, selective (matmul outputs saved)
+with ``"dots_saveable"``, and per loss chunk in ``scan_seq_chunks``; it
+only acts while autograd records, so the serving path (under
+``torch.inference_mode()``) runs plain. ``shard_constraint`` is the
+identity on one device and is not ported. Mixture-of-experts raises
+until the MoE slice (ROADMAP queue 1, "MoE"). The port has no mesh, so
+pipeline parallelism (ROADMAP queue 1, "parallel") cannot be requested at
+all.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from service_account_auth_improvements_tpu_torch.ops.attention import (
     multi_head_attention,
@@ -38,9 +48,12 @@ _MOE_TODO = ("mixture-of-experts layers are not ported yet (ROADMAP queue "
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Field for field the reference's ``LlamaConfig``; the fields for
-    features the port does not run yet (remat, scan, iota embedding,
-    MoE, loss chunking, pipelining) are kept so presets and
-    ``param_count``/``flops_per_token`` stay identical."""
+    features the port does not run yet (scan, iota embedding, MoE,
+    pipelining) are kept so presets and ``param_count``/
+    ``flops_per_token`` stay identical. ``scan_layers`` and
+    ``iota_embed`` change nothing here: the layers are a Python loop
+    either way, and the reference's one-hot embedding is bit-identical
+    to the gather."""
     vocab_size: int = 128_256
     dim: int = 4096
     n_layers: int = 32
@@ -255,10 +268,12 @@ def embed(cfg: LlamaConfig, params, tokens):
     return params["tok_embed"][ids].to(dtype_of(cfg.dtype))
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, segment_ids=None):
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
+           segment_ids=None):
     """One decoder block. x: [b, s, dim] in compute dtype. (The
-    reference also returns the MoE load-balance term; MoE is not ported,
-    so dense layers have none.)"""
+    reference also returns the MoE load-balance term, and reads
+    ``token_mask`` only for MoE routing; MoE is not ported, so dense
+    layers ignore the mask and have no such term.)"""
     if cfg.moe_experts:
         raise NotImplementedError(_MOE_TODO)
     b, s, _ = x.shape
@@ -279,22 +294,67 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, segment_ids=None):
     return x + (gate * up) @ lp["w_down"].to(cdt)
 
 
-def _backbone(cfg: LlamaConfig, params, tokens,
+# the ops whose outputs ``dots_saveable`` keeps: every matrix product
+# (``x @ W`` lowers to mm, the attention einsums to bmm). The flash
+# kernels are launched through ctypes, so the policy cannot see them and
+# they are recomputed, as JAX recomputes a pallas_call under this policy.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: LlamaConfig, fn):
+    """``fn`` under the config's rematerialisation (the reference's
+    ``jax.checkpoint`` of each layer): "full" saves only the layer's
+    inputs and recomputes the rest in the backward pass, "dots_saveable"
+    also saves the matmul outputs, "none" (or ``remat=False``) saves
+    everything. Only while autograd records."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("full", "dots_saveable"):
+        raise ValueError(
+            f"remat_policy={cfg.remat_policy!r}: expected one of "
+            "['dots_saveable', 'full'] or 'none'"
+        )
+    if not torch.is_grad_enabled():
+        return fn
+    kwargs = {"use_reentrant": False}
+    if cfg.remat_policy == "dots_saveable":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, **kwargs)
+
+
+def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
               return_layer_inputs: bool = False, segment_ids=None):
     """Embed + decoder stack + final norm: tokens [b, s] → x [b, s, dim]
-    in compute dtype. With ``return_layer_inputs`` also the per-layer
-    input hidden states [L, b, s, dim], the KV-cache prefill source
-    (models/generate.py)."""
+    in compute dtype (the lm_head is the caller's: ``apply`` for full
+    logits, ``next_token_loss`` in chunks). ``token_mask`` is the
+    reference's MoE validity mask, unused by dense layers. With
+    ``return_layer_inputs`` also the per-layer input hidden states
+    [L, b, s, dim], the KV-cache prefill source (models/generate.py)."""
     cdt = dtype_of(cfg.dtype)
     s = tokens.shape[1]
     x = embed(cfg, params, tokens)
     cos, sin = rope_table(s, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling(), device=x.device)
+    layer_fn = _remat(cfg, functools.partial(_layer, cfg))
+    # unbind, not per-layer indexing: the backward of unbind stacks the
+    # layers' gradients once, where L index views would each build a
+    # zero-filled gradient of the whole stacked leaf and sum L of them
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
     inputs = []
-    for i in range(cfg.n_layers):
+    for leaves in per_layer:
         if return_layer_inputs:
             inputs.append(x)
-        x = _layer(cfg, x, layer_params(params, i), cos, sin, segment_ids)
+        x = layer_fn(x, dict(zip(names, leaves)), cos, sin, token_mask,
+                     segment_ids)
     x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
     if return_layer_inputs:
         return x, torch.stack(inputs)
@@ -316,3 +376,86 @@ def apply(cfg: LlamaConfig, params, tokens, segment_ids=None):
     (dense attention only)."""
     return lm_logits(cfg, params, _backbone(cfg, params, tokens,
                                             segment_ids=segment_ids))
+
+
+def _nll(cfg: LlamaConfig, x, lm_head, targets):
+    """Per-position next-token NLL from hidden states: x [b, t, d] compute
+    dtype, lm_head [d, vocab] compute dtype, targets [b, t] (already
+    clipped) → nll [b, t] f32.
+
+    The logits are the reference's: compute-dtype operands multiplied in
+    f32 into f32 logits (``preferred_element_type=float32``). The target
+    logit is read with a gather; the reference's one-hot contraction (a
+    choice for its vocab-sharded logits) gives the same number exactly,
+    and the gather never builds a [b, t, vocab] one-hot."""
+    logits = x.float() @ lm_head.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets[..., None])[..., 0]
+    return logz - target_logit
+
+
+def scan_seq_chunks(fn, c: int, *arrays):
+    """Run ``fn`` over ``c``-position sequence chunks of [b, t, ...]
+    ``arrays``, each chunk under ``torch.utils.checkpoint`` while
+    autograd records: per-chunk intermediates (the [b, c, vocab] logits
+    blocks) are produced, reduced, and recomputed in the backward pass
+    instead of being saved. The tail chunk is padded with each array's
+    own prefix — the padded outputs are sliced off, and real data keeps
+    the gather well-defined. ``fn`` maps chunk views to a [b, c] tensor
+    or a tuple of them; returns the same with [b, t] leaves."""
+    b, t = arrays[0].shape[:2]
+    pad = (-t) % c
+    if pad:
+        arrays = tuple(torch.cat([a, a[:, :pad]], dim=1) for a in arrays)
+    chunk = fn
+    if torch.is_grad_enabled():
+        chunk = functools.partial(checkpoint, fn, use_reentrant=False)
+    outs = [chunk(*(a[:, i:i + c] for a in arrays))
+            for i in range(0, t + pad, c)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o, dim=1)[:, :t] for o in zip(*outs))
+    return torch.cat(outs, dim=1)[:, :t]
+
+
+def _chunked_nll(cfg: LlamaConfig, x, lm_head, targets):
+    """``_nll`` computed ``cfg.loss_chunk`` positions at a time — the
+    [b, t, vocab] logits never exist (see ``scan_seq_chunks``). Same
+    math to the ULP (each position's logsumexp is independent)."""
+    c = min(cfg.loss_chunk, x.shape[1])
+    return scan_seq_chunks(
+        lambda xc, tc: _nll(cfg, xc, lm_head, tc), c, x, targets
+    )
+
+
+_SAME_AS_MASK = object()
+
+
+def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
+                    include_aux: bool = True,
+                    token_mask=_SAME_AS_MASK, segment_ids=None):
+    """Mean next-token cross-entropy (f32 scalar). tokens [b, s]; mask
+    [b, s] optional (1 where the *target* position counts). With
+    ``cfg.loss_chunk`` the vocab projection and log-softmax run in
+    sequence chunks (``_chunked_nll``). ``include_aux`` adds the MoE
+    load-balance term, which dense models do not have (MoE raises).
+
+    ``token_mask`` is the validity mask the backbone would feed MoE
+    routing; by default it follows ``mask`` (right padding); packed
+    corpora pass ``None``. The backbone runs on the full sequence and the
+    last hidden state is dropped after, as in the reference."""
+    if token_mask is _SAME_AS_MASK:
+        token_mask = mask
+    x = _backbone(cfg, params, tokens, token_mask=token_mask,
+                  segment_ids=segment_ids)
+    x = x[:, :-1]
+    # clip like the embedding path: an out-of-range target has no logit
+    targets = tokens[:, 1:].clamp(0, cfg.vocab_size - 1)
+    lm_head = params["lm_head"].to(dtype_of(cfg.dtype))
+    if cfg.loss_chunk:
+        nll = _chunked_nll(cfg, x, lm_head, targets)
+    else:
+        nll = _nll(cfg, x, lm_head, targets)
+    if mask is None:
+        return nll.mean()
+    m = mask[:, 1:].to(nll.dtype)
+    return (nll * m).sum() / m.sum().clamp_min(1.0)

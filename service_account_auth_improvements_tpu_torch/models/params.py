@@ -30,3 +30,20 @@ def from_numpy(tree, cfg: LlamaConfig, device=None, dtype=None):
             device=dev, dtype=dt)
 
     return conv(tree)
+
+
+def train_state_from_numpy(cfg: LlamaConfig, params, mu, nu, count: int = 0,
+                           step: int = 0, device=None, mu_dtype=None):
+    """A JAX ``TrainState``'s contents, as numpy trees, to the port's
+    ``train.step.TrainState``: ``params`` and ``nu`` in
+    ``cfg.param_dtype``, ``mu`` in ``mu_dtype`` (default the param
+    dtype, as optax keeps it), the Adam update ``count`` and ``step``."""
+    from service_account_auth_improvements_tpu_torch.train.step import (
+        AdamState,
+        TrainState,
+    )
+
+    mdt = dtype_of(mu_dtype) if mu_dtype else None
+    return TrainState(step, from_numpy(params, cfg, device),
+                      AdamState(count, from_numpy(mu, cfg, device, mdt),
+                                from_numpy(nu, cfg, device)))

@@ -1,25 +1,30 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version (port of K1, ``_fwd_kernel``/``_flash_fwd`` in
+"""Flash attention: the hand-written Hopper kernels and their plain
+versions (port of K1 ``_fwd_kernel``/``_flash_fwd``, K2 ``_dq_kernel`` and
+K3 ``_dkv_kernel``/``_flash_bwd``, and the ``_flash`` custom VJP in
 ``service_account_auth_improvements_tpu/ops/flash_attention.py``).
 
 Routes: on a CUDA tensor ``flash_fwd`` launches the sm_90a kernel in
-``csrc/flash_fwd.cu`` (built at first use by ``ops/_build.py``); on a CPU
-tensor it runs ``flash_fwd_reference``, the plain PyTorch version of the
-same arithmetic. There is no other route: a CUDA tensor the kernel cannot
-take raises, it never falls back. ``launches`` counts kernel launches.
+``csrc/flash_fwd.cu`` and ``flash_bwd_dq``/``flash_bwd_dkv`` launch those
+in ``csrc/flash_bwd.cu`` (built at first use by ``ops/_build.py``); on a
+CPU tensor they run ``flash_fwd_reference`` and
+``flash_bwd_dq_reference``/``flash_bwd_dkv_reference``, the plain PyTorch
+versions of the same arithmetic. There is no other route: a CUDA tensor a
+kernel cannot take raises, it never falls back. ``launches``,
+``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
+
+Gradients: when autograd records and an input requires grad,
+``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
+whose forward runs K1 and saves q, k, v, o and lse, and whose backward
+computes delta = rowsum(dO * O) in f32 and runs K2 and K3 (``flash_bwd``).
 
 The public ``flash_attention`` keeps the reference's dispatch rules
 (``_use_pallas``): non-bf16/f32 dtypes, ``d % 64 != 0``, causal
 ``sq != sk`` and non-causal unaligned shapes go to the dense path. The
 reference zero-pads ragged causal inputs to 128 and slices the output
-back; here the kernel (and its plain version) mask the ragged tail
+back; here the kernels (and their plain versions) mask the ragged tail
 themselves, which is the same computation on the real rows without the
 copies. The reference's ``SATPU_FLASH_*`` block overrides are a TPU sweep
-knob and are not ported: the Hopper kernel picks its own tiles.
-
-Only the forward exists in the port so far: with autograd recording and
-inputs that require grad, ``flash_fwd`` raises (the backward kernels K2/K3
-are ROADMAP queue 2).
+knob and are not ported: the Hopper kernels pick their own tiles.
 """
 
 from __future__ import annotations
@@ -39,9 +44,14 @@ from service_account_auth_improvements_tpu_torch.ops.attention import (
 BLOCK_Q = 128
 BLOCK_K = 128
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+#: head dims the backward kernels (K2, K3) are built for
+BWD_HEAD_DIMS = (64, 128)
 
-#: kernel launches since the last reset (tests and chip_smoke.py read it)
+#: kernel launches since the last reset (tests and chip_smoke.py read
+#: them): K1 (forward), K2 (dQ) and K3 (dK/dV)
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 def _use_kernel(q, k, causal: bool) -> bool:
@@ -104,11 +114,11 @@ def flash_fwd(q, k, v, causal: bool):
         )
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward in the port yet (kernels "
-            "K2/K3, ROADMAP queue 2); run under torch.inference_mode() "
-            "or use attn_impl='dense'"
-        )
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+def _forward(q, k, v, causal: bool):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
     if q.device.type == "cuda":
@@ -116,28 +126,70 @@ def flash_fwd(q, k, v, causal: bool):
     raise ValueError(f"flash_fwd: unsupported device {q.device}")
 
 
-def _library():
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: forward K1, backward K2 and
+    K3 from the saved q, k, v, o and lse. Returns (o, lse); lse carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise ValueError(f"the flash backward kernels support head_dim "
+                             f"in {BWD_HEAD_DIMS} (got {q.shape[-1]})")
+        o, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def _library(name: str, fn_name: str, argtypes):
+    fn = getattr(_build.load(name), fn_name)
     if fn.argtypes is None:
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 5 + [i] * 7 + [i64] * 12
-                       + [i, ctypes.c_float, p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FWD_ARGS = [_P] * 5 + [_I] * 7 + [_I64] * 12 + [_I, ctypes.c_float, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+
+
+def _check_layout(name, ts, dtype):
+    """The kernels' input contract: one device, one dtype (bf16 or f32), a
+    contiguous head dim and 16-byte aligned rows (the bf16 kernels move
+    rows in 16-byte vectors)."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: inputs must be on one device")
+    if dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != dtype for t in ts):
+        raise ValueError(f"{name} kernel takes bf16 or f32 inputs of one "
+                         f"dtype (got {[t.dtype for t in ts]})")
+    for t in ts:
+        if not _aligned(t):
+            raise ValueError(f"{name} kernel needs a contiguous head dim "
+                             "and 16-byte aligned rows")
+
+
+def _aligned(t) -> bool:
+    align = 8 if t.dtype == torch.bfloat16 else 1
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % align for s in t.stride()[:3]))
 
 
 def _launch(q, k, v, causal: bool):
     global launches
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    ts = (q, k, v)
-    if any(t.device != q.device for t in ts):
-        raise ValueError("flash_fwd: q, k and v must be on one device")
-    if q.dtype not in (torch.bfloat16, torch.float32) or any(
-            t.dtype != q.dtype for t in ts):
-        raise ValueError("flash_fwd kernel takes bf16 or f32 q/k/v of "
-                         f"one dtype (got {[t.dtype for t in ts]})")
+    _check_layout("flash_fwd", (q, k, v), q.dtype)
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_fwd kernel supports head_dim in "
                          f"{KERNEL_HEAD_DIMS} (got {d})")
@@ -145,18 +197,10 @@ def _launch(q, k, v, causal: bool):
             or h % hkv):
         raise ValueError(f"flash_fwd: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    # the bf16 kernel moves K/V rows in 16-byte vectors: every row must
-    # start on a 16-byte boundary
-    align = 8 if q.dtype == torch.bfloat16 else 1
-    for t in ts:
-        if t.stride(3) != 1 or any(s % align for s in t.stride()[:3]) or (
-                t.data_ptr() % 16):
-            raise ValueError("flash_fwd kernel needs a contiguous head dim "
-                             "and 16-byte aligned rows")
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _library()
+    fn = _library("flash_fwd", "flash_fwd", _FWD_ARGS)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, hkv,
@@ -168,6 +212,149 @@ def _launch(q, k, v, causal: bool):
                            f"{err}")
     launches += 1
     return o, lse
+
+
+# ---------------------------------------------------------------- backward
+
+def _scores(q, k, lse, causal: bool):
+    """The backward's recompute, shared by both plain versions: q
+    [b,h,sq,d] grouped as [b,hkv,g,sq,d], S = scale·QKᵀ in f32 from
+    input-dtype operands with the start-aligned causal mask of -2e38, and
+    P = exp(S - lse) in f32."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * d ** -0.5
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(rows < cols, NEG_INF)
+    return qg, torch.exp(s - lse.reshape(b, hkv, h // hkv, sq, 1))
+
+
+def flash_bwd_delta(o, do):
+    """delta = rowsum(dO * O) in f32, [b,h,sq] contiguous: the reference
+    computes it in jnp, outside its kernels (``_flash_bwd``)."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool):
+    """Plain PyTorch version of K2: dq [b,h,sq,d] in q.dtype.
+
+    P stays f32; dS = P·(dO·Vᵀ - delta) is rounded to K's dtype before
+    dS·K, and dq = scale·(dS·K) is rounded to q's dtype at the end."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    _, p = _scores(q, k, lse, causal)
+    dog = do.reshape(b, hkv, h // hkv, sq, d).float()
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    ds = (p * (dp - delta.reshape(b, hkv, h // hkv, sq, 1))).to(k.dtype)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds.float(), k.float())
+    return (dq * d ** -0.5).to(q.dtype).reshape(b, h, sq, d)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool):
+    """Plain PyTorch version of K3: (dk, dv) [b,hkv,sk,d] in k's and v's
+    dtypes, summed over the group's query heads and all query rows.
+
+    P is rounded to dO's dtype first and that P serves both dV = Pᵀ·dO
+    and (upcast again) dS = P·(dO·Vᵀ - delta), rounded to q's dtype
+    before dK = scale·dSᵀ·Q."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    qg, p = _scores(q, k, lse, causal)
+    p = p.to(do.dtype).float()
+    dog = do.reshape(b, hkv, h // hkv, sq, d).float()
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    ds = (p * (dp - delta.reshape(b, hkv, h // hkv, sq, 1))).to(q.dtype)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds.float(), qg.float())
+    return (dk * d ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, causal: bool):
+    """Plain PyTorch version of the whole backward (``_flash_bwd``):
+    delta, then K2's and K3's recompute arithmetic step by step (not
+    autograd over ``flash_fwd_reference``) → (dq, dk, dv)."""
+    delta = flash_bwd_delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """K2 on CUDA tensors (``dq_launches`` counts it), its plain version
+    on CPU tensors → dq in q's layout and dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    global dq_launches
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, dq, None, None,
+                causal)
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """K3 on CUDA tensors (``dkv_launches`` counts it), its plain version
+    on CPU tensors → (dk, dv) in k's and v's layouts and dtypes."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    global dkv_launches
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, None, dk, dv,
+                causal)
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool):
+    """The backward of ``flash_fwd`` → (dq, dk, dv): delta in f32, then K2
+    and K3 on CUDA tensors (their plain versions on CPU tensors). dO as
+    autograd hands it over may have zero strides (the gradient of a sum)
+    or a strided head dim; such a dO is copied to a contiguous tensor
+    first."""
+    if do.device.type == "cuda" and (
+            0 in do.stride() or not _aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
+    delta = flash_bwd_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
+                causal: bool):
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    outs = [t for t in (dq, dk, dv) if t is not None]
+    _check_layout(fn_name, (q, k, v, do, *outs), q.dtype)
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{fn_name} kernel supports head_dim in "
+                         f"{BWD_HEAD_DIMS} (got {d})")
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or h % hkv or do.shape != q.shape):
+        raise ValueError(f"{fn_name}: bad shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"do {tuple(do.shape)}")
+    for t in (lse, delta):
+        if (t.dtype != torch.float32 or t.shape != (b, h, sq)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{fn_name}: lse and delta must be f32 "
+                             f"[b, h, sq] contiguous on the card")
+    strides = (ctypes.c_int64 * 21)(*(
+        s for t in (q, k, v, do, dq, dk, dv)
+        for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
+    ptr = [t.data_ptr() if t is not None else None
+           for t in (q, k, v, do, lse, delta, dq, dk, dv)]
+    fn = _library("flash_bwd", fn_name, _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        err = fn(*ptr, strides, int(q.dtype == torch.bfloat16), b, h, hkv,
+                 sq, sk, d, int(causal), d ** -0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
+                           f"{err}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

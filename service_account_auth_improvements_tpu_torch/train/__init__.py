@@ -1,0 +1,16 @@
+"""Training of the port: the train step and hand-written AdamW
+(``step.py``), MFU accounting (``mfu.py``), token batches (``data.py``)
+and the loop (``loop.py``). Checkpointing, evaluation, LoRA and
+distillation are ROADMAP queue 1 items 4 and 7."""
+
+from service_account_auth_improvements_tpu_torch.train.step import (  # noqa: F401
+    TrainState,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+    init_train_state,
+)
+from service_account_auth_improvements_tpu_torch.train.mfu import (  # noqa: F401
+    chip_peak_flops,
+    mfu,
+)

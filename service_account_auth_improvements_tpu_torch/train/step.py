@@ -1,0 +1,287 @@
+"""Training step for the Llama workload (port of ``train/step.py``).
+
+``make_train_step`` returns ``step(state, tokens, mask)``: next-token loss
+→ gradients by autograd → clipped AdamW, written by hand to match the
+reference's optax chain (``clip_by_global_norm`` then ``adamw``) rule for
+rule; ``torch.optim.AdamW`` and ``clip_grad_norm_`` differ from it. The
+reference donates the previous state so XLA reuses its buffers; here the
+update writes the parameters and moments in place instead, and the
+returned state holds the same tensors. A mesh (sharded training) waits
+for the parallel slice (ROADMAP queue 1, item 8) and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.utils.device import (
+    resolve_device,
+)
+
+_MESH_TODO = ("sharded training (mesh/rules) is not ported yet (ROADMAP "
+              "queue 1, item 8, \"parallel\")")
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the update count and the moments, as
+    dicts shaped like the params (``mu`` in ``mu_dtype``, ``nu`` in the
+    param dtype, as optax keeps them)."""
+    count: int
+    mu: Any
+    nu: Any
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Any
+    opt_state: AdamState
+
+
+def _leaves(tree, prefix=""):
+    """(path, tensor) pairs of a nested dict, in a fixed order."""
+    for name in sorted(tree):
+        node = tree[name]
+        if isinstance(node, dict):
+            yield from _leaves(node, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", node
+
+
+def _map(fn, tree, *rest):
+    """The nested dict ``tree`` with each leaf replaced by ``fn(leaf,
+    *leaves of rest at the same place)``."""
+    return {name: (_map(fn, node, *(r[name] for r in rest))
+                   if isinstance(node, dict)
+                   else fn(node, *(r[name] for r in rest)))
+            for name, node in tree.items()}
+
+
+def _linear(init: float, end: float, steps: int):
+    """optax ``linear_schedule``: ``init`` → ``end`` over ``steps``
+    counts, then held (constant ``init`` when ``steps <= 0``)."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        frac = 1 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return schedule
+
+
+def make_lr_schedule(peak_lr: float = 3e-4, warmup_steps: int = 0,
+                     decay_steps: int = 0, min_lr_ratio: float = 0.1):
+    """Linear warmup → cosine decay → ``peak_lr * min_lr_ratio`` floor, as
+    the reference builds it from optax's ``warmup_cosine_decay_schedule``;
+    with no ``decay_steps`` warmup-then-constant, or the constant
+    ``peak_lr`` (a float) when neither is given. A schedule maps the
+    optimizer's pre-increment update count to a learning rate."""
+    if not decay_steps:
+        if warmup_steps:
+            warm = _linear(0.0, peak_lr, warmup_steps)
+            return lambda count: (warm(count) if count < warmup_steps
+                                  else peak_lr)
+        return peak_lr
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError("decay_steps must exceed warmup_steps")
+    init = 0.0 if warmup_steps else peak_lr
+    warm = _linear(init, peak_lr, warmup_steps)
+    end = peak_lr * min_lr_ratio
+    alpha = 0.0 if peak_lr == 0.0 else end / peak_lr
+    span = decay_steps - warmup_steps
+
+    def schedule(count):
+        if count < warmup_steps:
+            return warm(count)
+        t = min(count - warmup_steps, span)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / span))
+        return peak_lr * ((1 - alpha) * cosine + alpha)
+    return schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax ``chain(clip_by_global_norm(grad_clip), adamw(...))``, written
+    out. Per update, with g the gradients:
+
+    1. the global norm of g (f32); when it is not below ``grad_clip``,
+       each leaf becomes ``(g / norm) * grad_clip``;
+    2. ``scale_by_adam``: mu = (1-b1)·g + b1·mu, nu = (1-b2)·g² + b2·nu,
+       count += 1, u = mu/(1-b1^count) / (sqrt(nu/(1-b2^count)) + eps)
+       (``eps_root`` 0; the corrections in f32, as optax computes them);
+    3. ``add_decayed_weights`` on every leaf: u += weight_decay·p;
+    4. ``scale_by_learning_rate``: u *= -lr, the schedule read at the
+       pre-increment count (with warmup the first update has lr 0);
+    5. ``apply_updates``: p = (p + u) cast back to p's dtype; mu is
+       stored in ``mu_dtype`` (cast on write).
+
+    ``apply`` does all of that in place, leaf by leaf."""
+    learning_rate: float | Callable[[int], float] = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    mu_dtype: str | None = None
+
+    def init(self, params) -> AdamState:
+        mdt = (llama.dtype_of(self.mu_dtype) if self.mu_dtype else None)
+        return AdamState(
+            0,
+            _map(lambda p: torch.zeros_like(p, dtype=mdt or p.dtype),
+                 params),
+            _map(torch.zeros_like, params),
+        )
+
+    def lr(self, count: int) -> float:
+        if callable(self.learning_rate):
+            return self.learning_rate(count)
+        return self.learning_rate
+
+    @torch.no_grad()
+    def apply(self, grads, state: AdamState, params, norm=None):
+        """One update of ``params`` and ``state`` in place; returns
+        ``(params, new_state)``. ``norm`` is ``global_norm(grads)`` when
+        the caller has it already."""
+        if norm is None:
+            norm = global_norm(grads)
+        clip = norm >= self.grad_clip
+        count = state.count + 1
+        # optax: 1 - decay**count in f32 (a python float and an int32
+        # array), cast to the moment's dtype in the division
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
+        lr = self.lr(state.count)
+        for (name, p), (_, g), (_, mu), (_, nu) in zip(
+                _leaves(params), _leaves(grads), _leaves(state.mu),
+                _leaves(state.nu)):
+            g = torch.where(clip, (g / norm.to(g.dtype)) * self.grad_clip,
+                            g)
+            m = g * (1 - self.b1) + mu * self.b1
+            v = (g * g) * (1 - self.b2) + nu * self.b2
+            u = (m / _as(bc1, m)) / (torch.sqrt(v / _as(bc2, v)) + self.eps)
+            u = u + p * self.weight_decay
+            u = u * _as(-lr, u)
+            p.copy_((p + u).to(p.dtype))
+            mu.copy_(m)
+            nu.copy_(v)
+        return params, AdamState(count, state.mu, state.nu)
+
+
+def _as(x: float, like):
+    """A python scalar in ``like``'s dtype, as optax casts its step size
+    and bias corrections to the leaf dtype before multiplying. (A fill,
+    not a host-to-device copy, so the update never waits on the card.)"""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def global_norm(tree):
+    """sqrt of the sum of squares of every leaf, in f32 (optax
+    ``global_norm``; for f32 leaves the same sum)."""
+    return torch.sqrt(sum(torch.sum(t.float() * t.float())
+                          for _, t in _leaves(tree)))
+
+
+def make_optimizer(learning_rate=3e-4, weight_decay: float = 0.1,
+                   b1: float = 0.9, b2: float = 0.95, grad_clip: float = 1.0,
+                   mu_dtype=None) -> AdamW:
+    """AdamW with global-norm clipping, the reference's hyper-parameters.
+    ``learning_rate`` may be a float or a schedule (``make_lr_schedule``).
+    ``mu_dtype="bfloat16"`` stores the first moment in bf16."""
+    return AdamW(learning_rate, weight_decay, b1, b2, 1e-8, grad_clip,
+                 mu_dtype)
+
+
+def init_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
+                     optimizer: AdamW | None = None,
+                     device=None) -> TrainState:
+    """Master params from ``generator`` (``llama.init``) on ``device``
+    (the card unless ``"cpu"``), zero moments, step 0."""
+    optimizer = optimizer or make_optimizer()
+    params = llama.init(cfg, generator, device=resolve_device(device))
+    return TrainState(0, params, optimizer.init(params))
+
+
+def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
+                    mesh=None, rules=None, grad_accum: int = 1,
+                    packed: bool = False,
+                    segment_eos_id: int | None = None):
+    """Return ``step(state, tokens, mask) -> (state, metrics)``; metrics
+    are the loss and the pre-clip ``grad_norm`` as f32 scalar tensors (no
+    host sync).
+
+    ``grad_accum > 1`` splits the batch into that many STRIDED
+    micro-batches (rows i, i+A, i+2A, … as the reference takes them),
+    sums their gradients in f32 and divides once, casting to the param
+    dtype after the division; the loss is the mean of the micro-batch
+    losses. ``packed=True`` makes the mask a pure loss mask (the backbone
+    sees every token as real). ``segment_eos_id`` derives segment ids
+    from the tokens (count of EOS tokens strictly before a position) and
+    blocks attention across documents — dense attention only."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(_MESH_TODO)
+    optimizer = optimizer or make_optimizer()
+
+    def loss_fn(params, tokens, mask):
+        segment_ids = None
+        if segment_eos_id is not None:
+            prev_eos = torch.zeros_like(tokens, dtype=torch.int32)
+            prev_eos[:, 1:] = (tokens[:, :-1] == segment_eos_id).int()
+            segment_ids = torch.cumsum(prev_eos, dim=1)
+        return llama.next_token_loss(
+            cfg, params, tokens, mask,
+            token_mask=None if packed else mask,
+            segment_ids=segment_ids,
+        )
+
+    def value_and_grad(params, tokens, mask):
+        leaves = {name: p.detach().requires_grad_(True)
+                  for name, p in _leaves(params)}
+        with torch.enable_grad():
+            loss = loss_fn(_rebuild(params, leaves), tokens, mask)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), _rebuild(params, dict(zip(leaves, grads)))
+
+    def step(state: TrainState, tokens, mask):
+        if grad_accum == 1:
+            loss, grads = value_and_grad(state.params, tokens, mask)
+        else:
+            b = tokens.shape[0]
+            if b % grad_accum:
+                raise ValueError(
+                    f"batch={b} not divisible by grad_accum={grad_accum}"
+                )
+            acc = _map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       state.params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tokens.device)
+            for i in range(grad_accum):
+                l, g = value_and_grad(state.params, tokens[i::grad_accum],
+                                      mask[i::grad_accum])
+                loss = loss + l
+                _map(lambda a, x: a.add_(x.float()), acc, g)
+            loss = loss / grad_accum
+            grads = _map(lambda a, p: (a / grad_accum).to(p.dtype), acc,
+                         state.params)
+        gnorm = global_norm(grads)
+        params, opt_state = optimizer.apply(grads, state.opt_state,
+                                            state.params, gnorm)
+        return (TrainState(state.step + 1, params, opt_state),
+                {"loss": loss, "grad_norm": gnorm})
+
+    return step
+
+
+def _rebuild(like, flat: dict):
+    """The nested dict shaped like ``like`` whose leaves are
+    ``flat[path]``."""
+    def go(node, prefix):
+        return {name: (go(child, f"{prefix}{name}/")
+                       if isinstance(child, dict) else flat[prefix + name])
+                for name, child in node.items()}
+    return go(like, "")

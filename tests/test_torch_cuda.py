@@ -6,7 +6,7 @@ there, skip the suite's conftest (which configures JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-chip_smoke.py holds the same kernels at the serving path's full shapes.
+chip_smoke.py holds the same kernels at the main paths' full shapes.
 """
 
 import dataclasses
@@ -85,3 +85,95 @@ def test_greedy_generate_flash_equals_dense_on_cuda(cuda):
     want = generate.generate(dataclasses.replace(cfg, attn_impl="dense"),
                              params, prompt, 12)
     assert torch.equal(got, want)
+
+
+# K2/K3 vs plain. bf16: dS is rounded to bf16 on both sides from f32 values
+# that differ in summation order, and the outputs round to bf16 (one ulp is
+# 2^-8 relative); f32: summation order only.
+BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h,hkv,d,causal", [
+    (300, 4, 2, 128, True),    # ragged causal tail, GQA
+    (256, 4, 4, 64, True),     # MHA, d 64
+    (256, 4, 1, 128, False),   # non-causal, aligned
+])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, s, h, hkv, d, causal):
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = _qkv(2, s, h, hkv, d, dtype)
+    do = _qkv(2, s, h, h, d, dtype, seed=1)[0]
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = fa.flash_bwd_delta(o, do)
+    before = (fa.dq_launches, fa.dkv_launches)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    want_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  causal)
+    atol, rtol = BWD_TOL[dtype]
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,remat_policy", [
+    ("float32", "full"), ("bfloat16", "full"),
+    ("float32", "dots_saveable"), ("float32", "none")])
+def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
+    """A small model with head_dim 128: three train steps with flash
+    attention (K1 forward, K1 again in the recompute, K2, K3) against
+    dense attention from the same init. f32: summation order only; bf16:
+    the two paths round P and O at different points, so loss and grad
+    norm agree to bf16 noise. Under "dots_saveable" the kernel is
+    invisible to the policy and recomputed, as under "full"; "none"
+    launches K1 once per layer."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import step
+
+    cfg = dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
+        head_dim=128, dtype=dtype, attn_impl="flash", loss_chunk=48,
+        remat_policy=remat_policy)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to("cuda")
+    mask = torch.ones_like(tokens)
+    metrics = {}
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        state = step.init_train_state(
+            c, torch.Generator(device="cuda").manual_seed(0))
+        fn = step.make_train_step(c)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        losses = []
+        for _ in range(3):
+            state, m = fn(state, tokens, mask)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        per_step = [(a - b) // 3 for a, b in zip(after, before)]
+        if impl == "flash":
+            # forward (+ recompute unless "none") per layer, K2, K3
+            k1 = c.n_layers * (1 if remat_policy == "none" else 2)
+            assert per_step == [k1, c.n_layers, c.n_layers]
+        else:
+            assert per_step == [0, 0, 0]
+        metrics[impl] = losses
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for (lf, gf), (ld, gd) in zip(metrics["flash"], metrics["dense"]):
+        assert abs(lf - ld) <= tol * max(1.0, abs(ld))
+        assert abs(gf - gd) <= tol * max(1.0, abs(gd))
+    assert metrics["flash"][-1][0] < metrics["flash"][0][0]

@@ -1,11 +1,12 @@
-"""Port parity: the flash-attention forward (plain version on the CPU)
-against the JAX Pallas kernel in interpret mode.
+"""Port parity: flash attention (plain versions on the CPU) against the
+JAX Pallas kernels in interpret mode, forward and backward.
 
-On a CPU tensor the port runs ``flash_fwd_reference``, the plain version
-of its Hopper kernel; the kernel itself runs only on the card
-(chip_smoke.py and tests/test_torch_cuda.py). f32 unless a test says
-otherwise: tolerances are the reference's own interpret-vs-dense ones
-(tests/test_flash.py).
+On a CPU tensor the port runs ``flash_fwd_reference`` and
+``flash_bwd_dq_reference``/``flash_bwd_dkv_reference``, the plain versions
+of its Hopper kernels K1, K2 and K3; the kernels themselves run only on
+the card (chip_smoke.py and tests/test_torch_cuda.py). f32 unless a test
+says otherwise: tolerances are the reference's own interpret-vs-dense
+ones (tests/test_flash.py).
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from service_account_auth_improvements_tpu.ops import (  # noqa: E402
@@ -46,9 +48,10 @@ CASES = {
 
 @pytest.fixture
 def counter():
-    tfa.launches = 0
+    tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
     yield
-    assert tfa.launches == 0, "no kernel may launch for CPU tensors"
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (0, 0, 0), \
+        "no kernel may launch for CPU tensors"
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -132,10 +135,130 @@ def test_flash_fwd_raises_like_the_forced_path(counter):
         tfa.flash_fwd(q2, k2, v2, False)
 
 
-def test_grad_required_raises_not_implemented(counter):
+def test_grads_flow_on_cpu_without_launches(counter):
+    """With autograd recording, ``flash_attention`` goes through the
+    ``FlashAttention`` Function: the forward equals the no-grad path, the
+    gradients of every input exist and are finite, and on CPU tensors
+    only the plain versions run (the fixture checks all three counters;
+    q/k/v as the model hands them over, [b, s, h, d])."""
     q, k, v = (torch.tensor(a) for a in _qkv(sq=128, sk=128))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        tfa.flash_attention(q, k, v, causal=True)
     with torch.inference_mode():
-        assert tfa.flash_attention(q.detach(), k, v).shape == q.shape
+        want = tfa.flash_attention(q, k, v, causal=True)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = tfa.flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is not None
+    np.testing.assert_array_equal(o.detach().numpy(), want.numpy())
+    o.sum().backward()  # a zero-stride dO, as the gradient of a sum
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert torch.isfinite(t.grad).all()
+
+
+def _jax_grads(q, k, v, causal, dtype=jnp.float32):
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=causal, interpret=True)
+        o = o.astype(jnp.float32)
+        return jnp.sum(o * jnp.cos(o))
+    args = tuple(jnp.asarray(a, dtype) for a in (q, k, v))
+    return [np.asarray(g, np.float32)
+            for g in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+def _port_grads(q, k, v, causal, dtype=torch.float32):
+    ts = [torch.tensor(a).to(dtype).requires_grad_(True) for a in (q, k, v)]
+    o = tfa.flash_attention(*ts, causal=causal).float()
+    (o * torch.cos(o)).sum().backward()
+    return [t.grad.float().numpy() for t in ts]
+
+
+# the reference's gradient cases (tests/test_flash.py): grads of
+# sum(o * cos o); 5e-4 for one block, 1e-3 multi-block, as there
+GRAD_CASES = {
+    "gqa-causal": (dict(b=1, sq=128, sk=128, h=2, hkv=1), True, False, 5e-4),
+    "gqa-noncausal": (dict(sq=256, sk=256), False, False, 5e-4),
+    "mha-causal": (dict(b=1, sq=256, sk=256, h=4, hkv=4), True, False, 5e-4),
+    "multiblock-causal": (dict(b=1, sq=384, sk=384, h=2, hkv=1), True, True,
+                          1e-3),
+    "multiblock-noncausal": (dict(b=1, sq=384, sk=384, h=2, hkv=1), False,
+                             True, 1e-3),
+    "unaligned-127": (dict(sq=127, sk=127), True, False, 5e-4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_flash_grads_match_jax_interpret(name, counter, monkeypatch):
+    """Grads through the port's Function (plain K1/K2/K3 on the CPU)
+    against ``jax.grad`` of the Pallas kernels in interpret mode. The
+    multi-block cases force the reference's blocks to 128 (its own
+    test's monkeypatch), so its kernels carry state across grid steps;
+    the ragged case is padded to 128 by the reference and masked in the
+    port."""
+    shape, causal, multiblock, atol = GRAD_CASES[name]
+    if multiblock:
+        monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
+    q, k, v = _qkv(**shape)
+    want = _jax_grads(q, k, v, causal)
+    got = _port_grads(q, k, v, causal)
+    for w, g, n in zip(want, got, "qkv"):
+        np.testing.assert_allclose(g, w, atol=atol, err_msg=f"d{n}")
+
+
+def test_flash_grads_bf16_match_jax_interpret(counter):
+    """bf16 q/k/v: both sides round P, dS and the outputs to bf16 at the
+    same points; the tolerance is a few bf16 ulps of the gradients
+    (|d·| up to ~8, one ulp 2^-5 there) for tile-order differences."""
+    q, k, v = _qkv(b=1, sq=128, sk=128, h=2, hkv=1)
+    want = _jax_grads(q, k, v, True, jnp.bfloat16)
+    got = _port_grads(q, k, v, True, torch.bfloat16)
+    for w, g, n in zip(want, got, "qkv"):
+        np.testing.assert_allclose(g, w, atol=6e-2, rtol=2e-2,
+                                   err_msg=f"d{n}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_reference_matches_jax_flash_bwd(causal, counter, monkeypatch):
+    """``flash_bwd_reference`` (the step-by-step recompute the kernels
+    implement) against ``_flash_bwd(..., interpret=True)`` on the same
+    o/lse/dO, multi-block (blocks forced to 128) with GQA."""
+    monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
+    q, k, v = (np.swapaxes(a, 1, 2)
+               for a in _qkv(b=1, sq=256, sk=256, h=4, hkv=2))
+    do = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, interpret=True)
+    want = jfa._flash_bwd(*(jnp.asarray(a) for a in (q, k, v)), jo, jlse,
+                          jnp.asarray(do), causal=causal, interpret=True)
+    to, tlse = tfa.flash_fwd_reference(
+        *(torch.tensor(a) for a in (q, k, v)), causal)
+    got = tfa.flash_bwd_reference(*(torch.tensor(a) for a in (q, k, v)),
+                                  to, tlse, torch.tensor(do), causal)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   err_msg=f"d{n}")
+    # the wrapper takes the plain route on CPU tensors
+    again = tfa.flash_bwd(*(torch.tensor(a) for a in (q, k, v)), to, tlse,
+                          torch.tensor(do), causal)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+def test_bwd_reference_rounds_like_the_kernels(counter):
+    """bf16: K2 forms dS from the f32 P, K3 from P rounded to dO's dtype
+    (the reference keeps both); both outputs come back in the inputs'
+    dtypes and agree with the JAX kernels within bf16 rounding."""
+    q, k, v = (np.swapaxes(a, 1, 2)
+               for a in _qkv(b=1, sq=128, sk=128, h=2, hkv=1))
+    do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jo, jlse = jfa._flash_fwd(jq, jk, jv, causal=True, interpret=True)
+    want = jfa._flash_bwd(jq, jk, jv, jo, jlse, jdo, causal=True,
+                          interpret=True)
+    tq, tk, tv, tdo = (torch.tensor(a).bfloat16() for a in (q, k, v, do))
+    to, tlse = tfa.flash_fwd_reference(tq, tk, tv, True)
+    got = tfa.flash_bwd_reference(tq, tk, tv, to, tlse, tdo, True)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), atol=6e-2,
+                                   rtol=2e-2, err_msg=f"d{n}")

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -77,6 +78,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         llama,
         serving,
     )
+    from service_account_auth_improvements_tpu_torch.train import (
+        data,
+        loop,
+        step,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.PRESETS["tiny"]
@@ -91,6 +97,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: generate.start_stream(cfg, params, toks, 2),
         lambda: serving.GenerationService(cfg, params),
         lambda: serving.main(["--preset", "tiny", "--port", "0"]),
+        lambda: step.init_train_state(cfg, torch.Generator()),
+        lambda: data.TokenBatches(np.zeros(64, np.int32),
+                                  data.DataConfig(batch=1, seq=8)),
+        lambda: loop.fit(cfg, None, np.zeros(64, np.int32),
+                         data.DataConfig(batch=1, seq=8),
+                         loop.LoopConfig(steps=1)),
+        lambda: loop.main(["--preset", "tiny", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -127,3 +127,155 @@ def test_from_numpy_casts_to_param_dtype():
     # bf16 leaves crossed as f32 exactly, so the cast back is lossless
     np.testing.assert_array_equal(got["lm_head"].float().numpy(),
                                   tree["lm_head"])
+
+
+def _flat(tree):
+    """{path: numpy} of a nested dict of tensors or arrays."""
+    out = {}
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update({f"{name}/{k}": v for k, v in _flat(node).items()})
+        else:
+            out[name] = np.asarray(node.detach() if hasattr(node, "detach")
+                                   else node, np.float32)
+    return out
+
+
+def _port_loss_and_grads(cfg, tree, tokens, mask=None, **kw):
+    params = tparams.from_numpy(tree, cfg, "cpu")
+    leaves = [p.requires_grad_(True) for p in _leaf_list(params)]
+    loss = tllama.next_token_loss(port_cfg(cfg), params, tokens,
+                                  mask=mask, **kw)
+    loss.backward()
+    assert all(p.grad is not None for p in leaves)
+    return float(loss.detach()), _flat(_map_grad(params))
+
+
+def _leaf_list(tree):
+    for node in tree.values():
+        if isinstance(node, dict):
+            yield from _leaf_list(node)
+        else:
+            yield node
+
+
+def _map_grad(tree):
+    return {k: (_map_grad(v) if isinstance(v, dict) else v.grad)
+            for k, v in tree.items()}
+
+
+# f32 next-token loss and its gradients against jax.value_and_grad:
+# summation order only (the largest leaf-gradient difference seen is ~1e-7
+# on gradients of ~1e-2)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("chunk", [0, 10])   # 23 targets: 23 % 10 != 0
+def test_next_token_loss_and_grads_match_jax(masked, chunk):
+    cfg = dataclasses.replace(jllama.PRESETS["tiny"], dtype="float32",
+                              loss_chunk=chunk)
+    tree = jax_params(cfg)
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    tokens[1, 5] = cfg.vocab_size + 3   # out-of-range target: clipped
+    mask = (rng.random((2, 24)) > 0.3).astype(np.float32) if masked else None
+    want, jgrads = jax.value_and_grad(
+        lambda p: jllama.next_token_loss(cfg, p, tokens, mask))(
+            jax.tree.map(np.asarray, tree))
+    got, tgrads = _port_loss_and_grads(
+        cfg, tree, torch.tensor(tokens, dtype=torch.long),
+        None if mask is None else torch.tensor(mask))
+    assert abs(got - float(want)) < 1e-5
+    jflat = _flat(jgrads)
+    assert sorted(jflat) == sorted(tgrads)
+    for name, g in jflat.items():
+        np.testing.assert_allclose(tgrads[name], g, atol=2e-6, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_chunked_loss_equals_unchunked():
+    """The chunked loss is the same per-position math (the tail chunk is
+    padded with the sequence's own prefix and sliced off)."""
+    cfg = dataclasses.replace(tllama.PRESETS["tiny"], dtype="float32")
+    params = tllama.init(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30),
+                           generator=torch.Generator().manual_seed(1))
+    whole = tllama.next_token_loss(cfg, params, tokens)
+    for c in (7, 29, 64):
+        part = tllama.next_token_loss(
+            dataclasses.replace(cfg, loss_chunk=c), params, tokens)
+        torch.testing.assert_close(part, whole, atol=1e-6, rtol=0)
+
+
+def test_bf16_loss_matches_jax():
+    """bf16 compute: the logits are bf16 operands multiplied in f32 on
+    both sides; the loss differs by bf16 rounding in the residual stream
+    (largest seen 3e-4 on a loss of ~5.5)."""
+    cfg = dataclasses.replace(jllama.PRESETS["smoke"], loss_chunk=16)
+    tree = jax_params(cfg)
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    want = float(jllama.next_token_loss(cfg, jax.tree.map(np.asarray, tree),
+                                        tokens))
+    got = tllama.next_token_loss(port_cfg(cfg),
+                                 tparams.from_numpy(tree, cfg, "cpu"),
+                                 torch.tensor(tokens, dtype=torch.long))
+    assert got.dtype == torch.float32
+    assert abs(float(got) - want) < 5e-3
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_remat_policies_give_the_same_grads(impl):
+    """remat "full" (checkpoint per layer), "dots_saveable" (selective
+    checkpointing that saves the matmul outputs) and "none" differ only
+    in what is saved: loss and gradients agree (recompute is
+    deterministic). head_dim 64 so that flash takes the kernels' plain
+    versions on the CPU, with their launch counters still at 0."""
+    base = dataclasses.replace(tllama.PRESETS["tiny"], dtype="float32",
+                               head_dim=64, n_heads=2, n_kv_heads=1,
+                               attn_impl=impl, loss_chunk=16)
+    params = tllama.init(base, torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = torch.randint(0, base.vocab_size, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
+    results = {}
+    for policy, remat in (("full", True), ("dots_saveable", True),
+                          ("none", True), ("full", False)):
+        cfg = dataclasses.replace(base, remat_policy=policy, remat=remat)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in _flat_tensors(params).items()}
+        loss = tllama.next_token_loss(cfg, _unflat(leaves), tokens)
+        loss.backward()
+        results[(policy, remat)] = (float(loss),
+                                    {k: v.grad for k, v in leaves.items()})
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (0, 0, 0)
+    ref_loss, ref_grads = results[("none", True)]
+    for key, (loss, grads) in results.items():
+        assert loss == ref_loss, key
+        for name, g in grads.items():
+            torch.testing.assert_close(g, ref_grads[name], atol=1e-7,
+                                       rtol=1e-6, msg=f"{key} {name}")
+    with pytest.raises(ValueError, match="remat_policy"):
+        tllama.next_token_loss(
+            dataclasses.replace(base, remat_policy="bogus"), params, tokens)
+
+
+def _flat_tensors(tree, prefix=""):
+    out = {}
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update(_flat_tensors(node, f"{prefix}{name}/"))
+        else:
+            out[prefix + name] = node
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for path, t in flat.items():
+        *dirs, leaf = path.split("/")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = t
+    return tree

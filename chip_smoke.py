@@ -10,10 +10,12 @@ no network. Phases, each of which raises on failure:
 2. build: every kernel source, one nvcc each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
-   beside the plain version and a library call of the same function:
-   K1 (flash forward) at the serving and training shapes, K2 (dQ) and K3
-   (dK/dV) at the training shape and ragged, MHA, non-causal and d 64
-   shapes;
+   beside the plain version and a library call of the same function, with
+   the achieved TF/s and the share of the bound: K1 (flash forward) at the
+   serving and training shapes and ragged (s 1, 65, 127, 1000, 2047), GQA
+   group 1 to 4, non-causal and d 64 shapes, K2 (dQ) and K3 (dK/dV) at the
+   training shape and ragged, MHA, non-causal and d 64 shapes; K3 launched
+   twice on one input must agree bit for bit;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -87,12 +89,24 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# cycles of a spin on the card (about 10 ms on an H100) queued ahead of a
+# kernel's timed run: the host enqueues the run's launches meanwhile, so the
+# events time the card and not the host (a K1 call's host path, measured
+# below, is as long as the kernel itself at the serving shape). Paths whose
+# host time is part of what a user waits for (prefill, decode, the step's
+# parts) are timed without it.
+QUEUE_AHEAD_CYCLES = 20_000_000
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3,
+             queue_ahead: bool = False) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -133,7 +147,7 @@ def phase_build() -> None:
         if log.exists():
             for line in log.read_text().splitlines():
                 if any(w in line for w in ("entry function", "registers",
-                                           "spill")):
+                                           "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
 
 
@@ -157,17 +171,24 @@ def _check(name, got, want, atol, rtol) -> float:
     return float(err.max())
 
 
-def kernel_bound(b, h, hkv, sq, sk, d, dtype, causal,
-                 kernel="fwd") -> tuple[float, str]:
-    """Least time for one flash kernel: its flops (the causal pairs this
-    call really has, 2·d flops per pair for each of its products: K1's
+def kernel_flops(b, h, sq, sk, d, causal, kernel="fwd") -> int:
+    """The flops one flash kernel's function needs: the causal pairs this
+    call really has, 2·d flops per pair for each of its products (K1's
     QKᵀ and PV, K2's QKᵀ, dO·Vᵀ and dS·K, K3's QKᵀ, dO·Vᵀ, Pᵀ·dO and
-    dSᵀ·Q) over the peak for the dtype, or its bytes (each input read
-    once, each output written once) over the HBM rate, whichever is
-    larger; and which of the two it is."""
+    dSᵀ·Q). A kernel that recomputes a product (K3 forms QKᵀ twice) is
+    held to this count."""
     pairs = sq * (sq + 1) // 2 if causal else sq * sk
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
-    flops = 2 * products * b * h * d * pairs
+    return 2 * products * b * h * d * pairs
+
+
+def kernel_bound(b, h, hkv, sq, sk, d, dtype, causal,
+                 kernel="fwd") -> tuple[float, str]:
+    """Least time for one flash kernel: its flops (``kernel_flops``) over
+    the peak for the dtype, or its bytes (each input read once, each
+    output written once) over the HBM rate, whichever is larger; and which
+    of the two it is."""
+    flops = kernel_flops(b, h, sq, sk, d, causal, kernel)
     item = torch.tensor([], dtype=dtype).element_size()
     q_rows, kv_rows = b * h * sq * d, b * hkv * sk * d
     nbytes = {
@@ -190,6 +211,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
         # name, b, s, h, hkv, d, dtype, causal, through the public wrapper
+        ("train gqa s2048 bf16", TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128,
+         torch.bfloat16, True, False),
         ("gqa s1024 bf16", 4, 1024, 12, 4, 128, torch.bfloat16, True, False),
         ("gqa s1024 f32", 4, 1024, 12, 4, 128, torch.float32, True, False),
         ("gqa s1000 bf16 wrapper", 4, 1000, 12, 4, 128, torch.bfloat16,
@@ -204,6 +227,11 @@ def phase_kernels() -> dict:
         ("non-causal s512 f32", 2, 512, 12, 4, 128, torch.float32, False,
          False),
         ("gqa s384 d64 bf16", 2, 384, 8, 2, 64, torch.bfloat16, True, False),
+        ("g3 s1 bf16", 2, 1, 6, 2, 128, torch.bfloat16, True, False),
+        ("g3 s65 bf16", 2, 65, 6, 2, 128, torch.bfloat16, True, False),
+        ("g2 s127 bf16 wrapper", 2, 127, 8, 4, 128, torch.bfloat16, True,
+         True),
+        ("mha s129 d64 bf16", 2, 129, 8, 8, 64, torch.bfloat16, True, False),
     ]
     worst = 0.0
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
@@ -235,19 +263,40 @@ def phase_kernels() -> dict:
         h, hkv, d, dtype = 12, 4, 128, torch.bfloat16
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True))
-        plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True))
+        ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True),
+                      queue_ahead=True)
+        plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
+                            queue_ahead=True)
         lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
         bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, dtype, True)
+        tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
         _log(f"time b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+             f"{ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
+             f"bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
              f"bound {bound_ms:.4f} ms ({bound_by})")
         timed[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
+                        bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                        bound_share=bound_ms / ms)
+    # the host side of one K1 call (wrapper checks, output allocation, the
+    # ctypes call, tensor maps, launch) at a size where the card is idle
+    # most of the time: what a caller that does not queue ahead waits for
+    q, k, v = _qkv(1, 128, 1, 1, 128, torch.bfloat16, gen)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    for _ in range(10):
+        fa.flash_fwd(qt, kt, vt, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fa.flash_fwd(qt, kt, vt, True)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    _log(f"time K1 host path per call (b1 s128 h1 hkv1, host clock, 200 "
+         f"calls): {host_us:.1f} us")
     q, k, v = _qkv(2, PROMPT, 12, 4, 128, torch.float32, gen)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5)
+    ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5,
+                  queue_ahead=True)
     _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms")
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ])
 
@@ -312,6 +361,15 @@ def phase_bwd_kernels() -> dict:
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
         _log(f"kernel {name}: dq max abs err {e:.3e}, dk {ek:.3e}, dv "
              f"{ev:.3e} (atol {atol}, rtol {rtol})")
+        if dtype == torch.bfloat16:
+            # K3 sums in a fixed order with no atomics: a second launch on
+            # the same inputs gives the same bits
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                raise AssertionError(f"{name}: K3 is not deterministic")
+            _log(f"kernel {name}: K3 twice on one input, bitwise equal")
+            del dk2, dv2
         del want_dk, want_dv, q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
@@ -355,8 +413,9 @@ def phase_bwd_kernels() -> dict:
     so = torch.nn.functional.scaled_dot_product_attention(
         sq, sk, sv, is_causal=True, enable_gqa=True)
     lib_ms = _time_ms(lambda: torch.autograd.grad(
-        so, (sq, sk, sv), do, retain_graph=True), iters=10)
-    delta_ms = _time_ms(lambda: fa.flash_bwd_delta(o, do), iters=10)
+        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
+    delta_ms = _time_ms(lambda: fa.flash_bwd_delta(o, do), iters=10,
+                        queue_ahead=True)
     out = {}
     for name, kern, plain, kind in (
             ("flash_bwd_dq",
@@ -367,16 +426,19 @@ def phase_bwd_kernels() -> dict:
              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
              lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                 True), "dkv")):
-        ms = _time_ms(kern)
-        plain_ms = _time_ms(plain, iters=5, warmup=1)
+        ms = _time_ms(kern, queue_ahead=True)
+        plain_ms = _time_ms(plain, iters=5, warmup=1, queue_ahead=True)
         bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, dtype, True,
                                           kind)
+        tflops = kernel_flops(b, h, s, s, d, True, kind) / ms / 1e9
         _log(f"time {name} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+             f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} "
+             f"of bound), plain {plain_ms:.4f} ms, sdpa backward "
              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         out[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         bound_by=bound_by, tflops=tflops,
+                         bound_share=bound_ms / ms)
     _log(f"time delta = rowsum(dO*O) (torch ops) b{b} s{s}: "
          f"{delta_ms:.4f} ms")
     q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
@@ -388,7 +450,7 @@ def phase_bwd_kernels() -> dict:
             ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
                 q32, k32, v32, do32, lse32, d32, True))):
         _log(f"time {name} b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel "
-             f"{_time_ms(fn, iters=5):.4f} ms")
+             f"{_time_ms(fn, iters=5, queue_ahead=True):.4f} ms")
     return out
 
 
@@ -689,7 +751,7 @@ def _profile_step(step, state, tokens, mask) -> None:
     _log(f"profile train step: wall {wall_ms:.1f} ms, device busy "
          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     groups = {"K1 flash_fwd": "flash_fwd_", "K2 dq": "dq_bf16",
-              "K3 dkv": "dkv_bf16"}
+              "K3 dkv": "dkv_wgmma"}
     for label, key in groups.items():
         ms = sum(e.self_device_time_total for e in kernels
                  if key in e.key) / 1e3
@@ -820,6 +882,8 @@ def main() -> int:
             "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"],
             "library_ms": n["library_ms"],
+            "tflops": n["tflops"],
+            "bound_share": n["bound_share"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

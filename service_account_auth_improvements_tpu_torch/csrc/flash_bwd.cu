@@ -24,8 +24,9 @@
 //   K2: one block per (batch, head, 64-row query tile), looping over the key
 //       tiles up to the diagonal (causal tiles wholly in the future are
 //       skipped, as in K1);
-//   K3: one block per (batch, KV head, 64-key tile), looping over the g query
-//       heads of the group and over the query tiles from the diagonal on.
+//   K3: one block per (batch, KV head, 128-key tile), looping over the g
+//       query heads of the group and over the query tiles from the diagonal
+//       on (heaviest key tiles launch first).
 // Each sum is taken inside one block in a fixed order: deterministic, no
 // atomics, and dQ and dK/dV stay two passes, as in the reference.
 //
@@ -38,17 +39,23 @@
 //
 // What bounds it on an H100: at the training shape (s 2048, d 128) K2 does
 // 3 and K3 4 products of 2 s^2 d / 2 flops per (b, h) against ~6 s d bytes:
-// hundreds of flops per byte, so both are bound by operations. The bf16
-// kernels run every product on the tensor cores with mma.sync m16n8k16 (f32
-// accumulate). K2 keeps Q and dO as A fragments in registers for the whole key
-// loop; K3 keeps its K/V tile in shared memory and streams Q/dO tiles through
-// it. The key (K2) or query (K3) tile is walked in 16-wide chunks: S and dP of
-// one chunk are re-packed in registers as the A operand of the next product,
-// so no score tile ever reaches shared or global memory. This first version
-// is simple on purpose: no cp.async/TMA pipelining, no wgmma.
+// hundreds of flops per byte, so both are bound by operations.
+// - K3 in bf16 (`dkv_wgmma`, d 64 and 128) is built for Hopper: a producer
+//   warpgroup that streams Q and dO by TMA (lse and delta by its lanes)
+//   through a ring of shared-memory stages tracked by mbarriers, and two
+//   consumer warpgroups (setmaxnreg 232) that run every product on wgmma,
+//   dV in a first pass and dK in a second; see the note above the kernel.
+// - K2 in bf16 (`dq_bf16`) is still the first version: mma.sync m16n8k16
+//   (f32 accumulate), Q and dO held as A fragments in registers for the
+//   whole key loop, K/V tiles staged through registers with no pipelining;
+//   the key tile is walked in 16-wide chunks whose S and dP are re-packed
+//   in registers as the A operand of the next product, so no score tile
+//   reaches shared or global memory.
 //
 // float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
 // f32 parity with the reference holds.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +99,7 @@ __device__ __forceinline__ T* head_ptr_mut(void* base, const int64_t (&s)[3],
 // ------------------------------------------------ bf16: tensor cores
 
 constexpr int TC_BQ = 64;  // query rows per tile
-constexpr int TC_BK = 64;  // keys per tile (K3's tile equals K2's)
+constexpr int TC_BK = 64;  // keys per tile
 constexpr int TC_THREADS = 128;
 
 using bf16 = __nv_bfloat16;
@@ -259,143 +266,352 @@ __global__ void __launch_bounds__(TC_THREADS) dq_bf16(const Params p) {
   }
 }
 
-// K3: dK and dV for one (b, KV head, 64-key tile). Warp w owns keys
-// k0 + 16w + {g, g + 8}; the block walks the group's query heads and the
-// query tiles from the diagonal on, accumulating in registers.
+// K3, bf16: dK and dV for one (b, KV head, 128-key tile), on wgmma.
+//
+// Warp specialisation: warpgroup 0 is the producer (40 registers): one
+// thread loads K and V of the block's keys once by TMA, to stay in shared
+// memory, and streams Q and dO for 128 query rows at a time by TMA through a
+// ring of DKV_STAGES stages, while the warp's 32 lanes copy the rows' lse
+// and delta beside them (a TMA box of those would start off a 16-byte
+// boundary whenever s_q is odd). It walks the group's query heads and, for
+// each, the query tiles from the diagonal on, and does so twice. Warpgroups
+// 1 and 2 are consumers that own 64 keys each (232 registers) and make two
+// passes over that sequence, one accumulator in f32 registers per pass:
+//   dV pass:  S^T = K Q^T                 wgmma m64n128k16, both from shared
+//             P^T = exp2(S^T scale log2e - lse log2e), masked, rounded to
+//             bf16
+//             dV += P^T dO                 wgmma m64nDk16, A = P^T from
+//                                          registers (the S^T fragment
+//                                          re-packed), B = dO read MN-major
+//   dK pass:  per 64-query half of the stage:
+//             S^T = K Q^T, dP^T = V dO^T   both wgmma m64n64k16
+//             dS^T = P^T (dP^T - delta), P rounded first, dS rounded to bf16
+//             dK += dS^T Q                 as dV
+// What ptxas allowed shaped this (measured on the H100 with -Xptxas -v and
+// the SASS): holding dK and dV together (128 registers at d 128) beside
+// S^T, dP^T and the A fragments made it spill and serialise every wgmma;
+// so does any branch around a wgmma that depends on the warpgroup (a
+// causal tile wholly before a warpgroup's keys is therefore computed, with
+// P = 0, not skipped), and so does leaving a product in flight across the
+// next tile's scores. Two passes cost one more product (S^T again) and a
+// second stream of Q and dO (from L2); 128-row stages halve the waits per
+// query row and make the dV pass's S^T an m64n128 product, which shared
+// memory can feed at the tensor cores' rate (m64n64 with both operands in
+// shared memory cannot).
+// dK is scaled once, at the end. Every sum runs in one block in a fixed
+// order: deterministic.
+
+constexpr int WG = 128;             // threads per warpgroup
+constexpr int DKV_BK = 128;         // keys per block: 64 per consumer
+constexpr int DKV_BQ = 128;         // query rows per stage
+constexpr int DKV_STAGES = 2;
+constexpr int DKV_THREADS = 3 * WG;  // producer + two consumers
+
+struct DkvArgs {
+  CUtensorMap tq, tdo;     // boxes of 64 columns x DKV_BQ rows
+  CUtensorMap tk, tv;      // boxes of 64 columns x DKV_BK rows
+  const float* lse;        // [b, h, sq] contiguous
+  const float* delta;
+  void* dk;
+  void* dv;
+  int64_t dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+  int h, hkv, batch, sq, sk, causal;
+  float scale, scale_log2;
+};
+
+// Shared memory: K, V (the block's keys), the Q and dO stages, the lse and
+// delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
+// (rows x 128 bytes).
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS) dkv_bf16(const Params p) {
-  constexpr int LDS = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TC_BK * LDS;
-  bf16* Qs = Vs + TC_BK * LDS;
-  bf16* Os = Qs + TC_BQ * LDS;  // dO
-  float* Ls = reinterpret_cast<float*>(Os + TC_BQ * LDS);
-  float* Ds = Ls + TC_BQ;
+struct DkvSmem {
+  static constexpr int KV_CB = DKV_BK * 128;  // column block stride
+  static constexpr int QT_CB = DKV_BQ * 128;
+  static constexpr int KV_BYTES = DKV_BK * D * 2;
+  static constexpr int QT_BYTES = DKV_BQ * D * 2;
+  static constexpr int ROW_BYTES = DKV_BQ * 4;  // lse or delta of a tile
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + DKV_STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + DKV_STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + DKV_STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = DL_OFF + DKV_STAGES * ROW_BYTES;
+  // mbarriers: kv_full, full[S], empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DKV_STAGES) + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ikv = blockIdx.y, ib = blockIdx.z;
-  const int group = p.h / p.hkv;
-  const int k0 = blockIdx.x * TC_BK;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-
-  load_tile<D>(Ks, head_ptr<bf16>(p.k, p.st[K], ib, ikv), p.st[K][2], k0,
-               p.sk, TC_BK, tid);
-  load_tile<D>(Vs, head_ptr<bf16>(p.v, p.st[V], ib, ikv), p.st[V][2], k0,
-               p.sk, TC_BK, tid);
-
-  float dk[D / 8][4], dv[D / 8][4];
+// Per consumer thread, from an S^T accumulator of NQ queries (columns):
+// P^T = exp2(S^T scale log2e - lse log2e), masked (queries past sq, and keys
+// after the query under causal masking, get 0). ls holds the queries' lse,
+// q0 is the first query.
+template <int NQ>
+__device__ __forceinline__ void dkv_probs(float (&p)[NQ / 2],
+                                          const float (&st)[NQ / 2],
+                                          const float* ls, const DkvArgs& a,
+                                          int q0, int key0, int key1, int tq,
+                                          bool need_mask) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
-  }
-
-  const int nq = (p.sq + TC_BQ - 1) / TC_BQ;
-  // causal: query tiles whose last row reaches this tile's first key
-  const int iq0 = p.causal ? k0 / TC_BQ : 0;
-  const bf16* ka = Ks + (warp * 16 + g) * LDS + 2 * t;
-  const bf16* va = Vs + (warp * 16 + g) * LDS + 2 * t;
-  for (int hg = 0; hg < group; ++hg) {
-    const int ih = ikv * group + hg;
-    const bf16* q = head_ptr<bf16>(p.q, p.st[Q], ib, ih);
-    const bf16* dout = head_ptr<bf16>(p.dout, p.st[DO], ib, ih);
-    const int64_t rowbase = (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
-    for (int iq = iq0; iq < nq; ++iq) {
-      const int q0 = iq * TC_BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D>(Qs, q, p.st[Q][2], q0, p.sq, TC_BQ, tid);
-      load_tile<D>(Os, dout, p.st[DO][2], q0, p.sq, TC_BQ, tid);
-      for (int r = tid; r < TC_BQ; r += TC_THREADS) {
-        const bool in = q0 + r < p.sq;
-        Ls[r] = in ? p.lse[rowbase + q0 + r] : 0.f;
-        Ds[r] = in ? p.delta[rowbase + q0 + r] : 0.f;
+  for (int j = 0; j < NQ / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    const float2 lj = *reinterpret_cast<const float2*>(ls + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse = (e & 1) ? lj.y : lj.x;
+      float x = hopper::fast_exp2(
+          fmaf(st[4 * j + e], a.scale_log2, -lse * hopper::kLog2e));
+      if (need_mask) {
+        const int query = q0 + col + (e & 1);
+        const int key = e < 2 ? key0 : key1;
+        if (query >= a.sq || (a.causal && key > query)) x = 0.f;
       }
-      __syncthreads();
+      p[4 * j + e] = x;
+    }
+  }
+}
 
+// The bf16 A fragments (keys x 16-query chunks) of an accumulator-shaped
+// tile v of NQ queries: 8-query chunk j holds registers 2 (j % 2) and
+// 2 (j % 2) + 1 of chunk j / 2.
+template <int NQ>
+__device__ __forceinline__ void dkv_pack(uint32_t (&f)[NQ / 16][4],
+                                         const float (&v)[NQ / 2]) {
+#pragma unroll
+  for (int j = 0; j < NQ / 8; ++j) {
+    f[j / 2][2 * (j % 2)] = hopper::pack_bf16x2(v[4 * j], v[4 * j + 1]);
+    f[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16x2(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// Write a consumer's 64 keys x D accumulator, times `scale`, as bf16 rows
+// of `out` (element row stride `ss`), skipping keys at or past sk.
+template <int D>
+__device__ __forceinline__ void dkv_store(bf16* out, int64_t ss,
+                                          const float (&acc)[D / 2],
+                                          float scale, int key0, int key1,
+                                          int sk, int tq) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (key0 < sk)
+      *reinterpret_cast<uint32_t*>(out + key0 * ss + col) = hopper::pack_bf16x2(
+          acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (key1 < sk)
+      *reinterpret_cast<uint32_t*>(out + key1 * ss + col) = hopper::pack_bf16x2(
+          acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
+// One consumer pass over the block's stage sequence (`tiles` stages of
+// DKV_BQ queries, ring positions from i0), one f32 accumulator:
+//   PASS 0, dV: S^T of the whole stage (m64n128), P^T, dV += P^T dO;
+//   PASS 1, dK: per 64-query half, S^T and dP^T (m64n64), dS^T,
+//               dK += dS^T Q.
+// No branch encloses a wgmma (ptxas serialises wgmma on paths it cannot
+// prove uniform), so a causal half wholly before this warpgroup's keys is
+// computed, with P = 0.
+template <int D, int PASS>
+__device__ __forceinline__ void dkv_pass(const DkvArgs& a, uint32_t base,
+                                         const unsigned char* smem, int i0,
+                                         int tiles, int nqt, int iq0, int kw0,
+                                         int key0, int key1, int tq,
+                                         bf16* out, int64_t ss) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  constexpr int H = 64;  // queries per half in the dK pass
+  const uint32_t full = base + L::BAR_OFF + 8,
+                 empty = full + 8 * DKV_STAGES;
+  const uint32_t k_addr = base + L::K_OFF + (kw0 % DKV_BK) * 128;
+  const uint32_t v_addr = base + L::V_OFF + (kw0 % DKV_BK) * 128;
+  float acc[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
 #pragma unroll 1
-      for (int j = 0; j < TC_BQ / 16; ++j) {
-        // S^T = K Q^T and dP^T = V dO^T for 16 keys x query rows
-        // q0 + 16j .. + 15
-        float s[2][4], dp[2][4];
+  for (int n = 0; n < tiles; ++n) {
+    const int i = i0 + n;
+    const int s = i % DKV_STAGES;
+    const int q0 = (iq0 + n % nqt) * DKV_BQ;
+    const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
+    const uint32_t do_addr = base + L::DO_OFF + s * L::QT_BYTES;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+    const float* dl =
+        reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+    mbar_wait(full + 8 * s, (i / DKV_STAGES) & 1);
+
+    if constexpr (PASS == 0) {
+      const bool need_mask =
+          (a.causal && q0 < kw0 + 64) || q0 + DKV_BQ > a.sq;
+      float st[DKV_BQ / 2];
+      wgmma_fence();
+      wgmma_ss<DKV_BQ, D / 16, L::KV_CB, L::QT_CB>(
+          st, desc_sw128(k_addr, 16, 1024), desc_sw128(q_addr, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      dkv_probs<DKV_BQ>(st, st, ls, a, q0, key0, key1, tq, need_mask);
+      uint32_t f[DKV_BQ / 16][4];
+      dkv_pack<DKV_BQ>(f, st);  // rounds P to dO's dtype
+      fence_regs(acc);
+      fence_regs(f);
+      wgmma_fence();
+      wgmma_rs_t<D, DKV_BQ / 16>(acc, f,
+                                 desc_sw128(do_addr, L::QT_CB, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-          dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+      for (int h = 0; h < DKV_BQ / H; ++h) {
+        const int qh = q0 + h * H;
+        const bool need_mask = (a.causal && qh < kw0 + 64) || qh + H > a.sq;
+        float st[H / 2], dpt[H / 2];
+        wgmma_fence();
+        wgmma_ss<H, D / 16, L::KV_CB, L::QT_CB>(
+            st, desc_sw128(k_addr, 16, 1024),
+            desc_sw128(q_addr + h * H * 128, 16, 1024));
+        wgmma_ss<H, D / 16, L::KV_CB, L::QT_CB>(
+            dpt, desc_sw128(v_addr, 16, 1024),
+            desc_sw128(do_addr + h * H * 128, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        // dS^T = P^T (dP^T - delta), P rounded to dO's dtype first; packing
+        // rounds dS to Q's dtype
+        dkv_probs<H>(st, st, ls + h * H, a, qh, key0, key1, tq, need_mask);
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j) {
+          const float2 dj =
+              *reinterpret_cast<const float2*>(dl + h * H + 8 * j + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * j + e] = round_bf16(st[4 * j + e]) *
+                            (dpt[4 * j + e] - ((e & 1) ? dj.y : dj.x));
         }
+        uint32_t f[H / 16][4];
+        dkv_pack<H>(f, st);
+        fence_regs(acc);
+        fence_regs(f);
+        wgmma_fence();
+        wgmma_rs_t<D, H / 16>(acc, f,
+                              desc_sw128(q_addr + h * H * 128, L::QT_CB, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+    }
+    mbar_arrive(empty + 8 * s);
+  }
+  dkv_store<D>(out, ss, acc, PASS == 1 ? a.scale : 1.f, key0, key1, a.sk,
+               tq);
+}
+
+template <int D>
+__device__ __forceinline__ void dkv_consumer(const DkvArgs& a, uint32_t base,
+                                             const unsigned char* smem,
+                                             int k0, int ikv, int ib) {
+  const int c = threadIdx.x / WG - 1;  // this warpgroup's 64 keys
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int kw0 = k0 + 64 * c;
+  const int key0 = kw0 + 16 * w + g, key1 = key0 + 8;
+  const int nq = (a.sq + DKV_BQ - 1) / DKV_BQ;
+  const int iq0 = a.causal ? k0 / DKV_BQ : 0;
+  const int tiles = a.h / a.hkv * (nq - iq0);  // per pass
+
+  hopper::mbar_wait(base + DkvSmem<D>::BAR_OFF, 0);  // K and V
+  dkv_pass<D, 0>(a, base, smem, 0, tiles, nq - iq0, iq0, kw0, key0, key1,
+                 tq, static_cast<bf16*>(a.dv) + ib * a.dv_sb + ikv * a.dv_sh,
+                 a.dv_ss);
+  dkv_pass<D, 1>(a, base, smem, tiles, tiles, nq - iq0, iq0, kw0, key0, key1,
+                 tq, static_cast<bf16*>(a.dk) + ib * a.dk_sb + ikv * a.dk_sh,
+                 a.dk_ss);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+dkv_wgmma(const __grid_constant__ DkvArgs a) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t kv_full = bar, full = bar + 8,
+                 empty = full + 8 * DKV_STAGES;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const int hb = a.hkv * a.batch;
+  const int ik = static_cast<int>(blockIdx.x) / hb;
+  const int ikv = static_cast<int>(blockIdx.x) % hb % a.hkv;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.hkv;
+  const int k0 = ik * DKV_BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {  // producer warpgroup: its first warp loads
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t kf[4] = {
-              ld32(ka + kk * 16), ld32(ka + 8 * LDS + kk * 16),
-              ld32(ka + kk * 16 + 8), ld32(ka + 8 * LDS + kk * 16 + 8)};
-          const uint32_t vf[4] = {
-              ld32(va + kk * 16), ld32(va + 8 * LDS + kk * 16),
-              ld32(va + kk * 16 + 8), ld32(va + 8 * LDS + kk * 16 + 8)};
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_4d(base + L::K_OFF + cb * L::KV_CB, &a.tk, kv_full,
+                      cb * 64, k0, ikv, ib);
+          tma_load_4d(base + L::V_OFF + cb * L::KV_CB, &a.tv, kv_full,
+                      cb * 64, k0, ikv, ib);
+        }
+      }
+      const int group = a.h / a.hkv;
+      const int nq = (a.sq + DKV_BQ - 1) / DKV_BQ;
+      const int iq0 = a.causal ? k0 / DKV_BQ : 0;
+      int i = 0;
+      for (int pass = 0; pass < 2; ++pass)  // the consumers' dV, then dK pass
+      for (int hg = 0; hg < group; ++hg) {
+        const int ih = ikv * group + hg;
+        const int64_t row = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+        for (int iq = iq0; iq < nq; ++iq, ++i) {
+          const int s = i % DKV_STAGES;
+          const uint32_t fb = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((i / DKV_STAGES) & 1) ^ 1);
+          if (lane == 0) {  // Q and dO by TMA
+            mbar_expect_tx(fb, 2 * L::QT_BYTES);
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const int r = (j * 16 + nt * 8 + g) * LDS + kk * 16 + 2 * t;
-            mma_bf16(s[nt], kf, ld32(Qs + r), ld32(Qs + r + 8));
-            mma_bf16(dp[nt], vf, ld32(Os + r), ld32(Os + r + 8));
+            for (int cb = 0; cb < D / 64; ++cb) {
+              tma_load_4d(base + L::Q_OFF + s * L::QT_BYTES + cb * L::QT_CB,
+                          &a.tq, fb, cb * 64, iq * DKV_BQ, ih, ib);
+              tma_load_4d(base + L::DO_OFF + s * L::QT_BYTES + cb * L::QT_CB,
+                          &a.tdo, fb, cb * 64, iq * DKV_BQ, ih, ib);
+            }
           }
-        }
-        // P rounded to dO's dtype; dS = P * (dP - delta) from that P
+          // lse and delta by the warp's lanes (rows past sq read as 0),
+          // then every lane arrives: the stage is full once all 32 have
+          // and the TMA bytes have landed
+          float* ls = reinterpret_cast<float*>(smem + L::L_OFF +
+                                               s * L::ROW_BYTES);
+          float* dl = reinterpret_cast<float*>(smem + L::DL_OFF +
+                                               s * L::ROW_BYTES);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ql = j * 16 + nt * 8 + 2 * t + (e & 1);
-            const int key = e < 2 ? key0 : key1;
-            float x = s[nt][e] * p.scale;
-            if (q0 + ql >= p.sq || (p.causal && key > q0 + ql)) x = kNegInf;
-            const float pr =
-                __bfloat162float(__float2bfloat16_rn(expf(x - Ls[ql])));
-            s[nt][e] = pr;
-            dp[nt][e] = pr * (dp[nt][e] - Ds[ql]);
+          for (int r = lane; r < DKV_BQ; r += 32) {
+            const int q = iq * DKV_BQ + r;
+            ls[r] = q < a.sq ? a.lse[row + q] : 0.f;
+            dl[r] = q < a.sq ? a.delta[row + q] : 0.f;
           }
-        }
-        const uint32_t pa[4] = {
-            pack_f32(s[0][0], s[0][1]), pack_f32(s[0][2], s[0][3]),
-            pack_f32(s[1][0], s[1][1]), pack_f32(s[1][2], s[1][3]),
-        };
-        const uint32_t da[4] = {
-            pack_f32(dp[0][0], dp[0][1]), pack_f32(dp[0][2], dp[0][3]),
-            pack_f32(dp[1][0], dp[1][1]), pack_f32(dp[1][2], dp[1][3]),
-        };
-        // dV += P^T dO, dK += dS^T Q over these 16 query rows
-        const bf16* oc = Os + (j * 16 + 2 * t) * LDS + g;
-        const bf16* qc = Qs + (j * 16 + 2 * t) * LDS + g;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const bf16* o = oc + dt * 8;
-          const bf16* c = qc + dt * 8;
-          mma_bf16(dv[dt], pa, pack_bf16(o[0], o[LDS]),
-                   pack_bf16(o[8 * LDS], o[9 * LDS]));
-          mma_bf16(dk[dt], da, pack_bf16(c[0], c[LDS]),
-                   pack_bf16(c[8 * LDS], c[9 * LDS]));
+          mbar_arrive(fb);
         }
       }
     }
-  }
-
-  bf16* dkp = head_ptr_mut<bf16>(p.dk, p.st[DK], ib, ikv);
-  bf16* dvp = head_ptr_mut<bf16>(p.dv, p.st[DV], ib, ikv);
-  const int64_t dk_ss = p.st[DK][2], dv_ss = p.st[DV][2];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (key0 < p.sk) {
-      *reinterpret_cast<uint32_t*>(dkp + key0 * dk_ss + c) =
-          pack_f32(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvp + key0 * dv_ss + c) =
-          pack_f32(dv[dt][0], dv[dt][1]);
-    }
-    if (key1 < p.sk) {
-      *reinterpret_cast<uint32_t*>(dkp + key1 * dk_ss + c) =
-          pack_f32(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvp + key1 * dv_ss + c) =
-          pack_f32(dv[dt][2], dv[dt][3]);
-    }
+  } else {
+    setmaxnreg_inc<232>();
+    dkv_consumer<D>(a, base, smem, k0, ikv, ib);
   }
 }
 
@@ -616,10 +832,39 @@ template <int D>
 cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
                     cudaStream_t stream) {
   if (bf16_in) {
-    const dim3 grid((p.sk + TC_BK - 1) / TC_BK, p.hkv, batch);
-    const size_t smem = (2 * TC_BK + 2 * TC_BQ) * (D + 8) * sizeof(bf16) +
-                        2 * TC_BQ * sizeof(float);
-    return launch(dkv_bf16<D>, grid, TC_THREADS, smem, stream, p);
+    DkvArgs a;
+    const int64_t(&st)[NSTRIDE][3] = p.st;
+    cudaError_t err;
+    if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, st[Q][2],
+                                 st[Q][1], st[Q][0], DKV_BQ)) ||
+        (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
+                                 st[DO][2], st[DO][1], st[DO][0], DKV_BQ)) ||
+        (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
+                                 st[K][1], st[K][0], DKV_BK)) ||
+        (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
+                                 st[V][1], st[V][0], DKV_BK)))
+      return err;
+    a.lse = p.lse;
+    a.delta = p.delta;
+    a.dk = p.dk;
+    a.dv = p.dv;
+    a.dk_sb = st[DK][0];
+    a.dk_sh = st[DK][1];
+    a.dk_ss = st[DK][2];
+    a.dv_sb = st[DV][0];
+    a.dv_sh = st[DV][1];
+    a.dv_ss = st[DV][2];
+    a.h = p.h;
+    a.hkv = p.hkv;
+    a.batch = batch;
+    a.sq = p.sq;
+    a.sk = p.sk;
+    a.causal = p.causal;
+    a.scale = p.scale;
+    a.scale_log2 = p.scale * hopper::kLog2e;
+    const int blocks = (p.sk + DKV_BK - 1) / DKV_BK * p.hkv * batch;
+    return hopper::launch(dkv_wgmma<D>, blocks, DKV_THREADS,
+                          DkvSmem<D>::BYTES, stream, a);
   }
   const dim3 grid((p.sk + SC_BK - 1) / SC_BK, p.hkv, batch);
   const size_t smem = ((2 * SC_BK + 2 * SC_BQ) * (D + 1) +

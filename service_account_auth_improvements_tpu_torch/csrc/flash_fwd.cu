@@ -20,30 +20,47 @@
 //
 // Ragged tails: the TPU wrapper zero-pads causal inputs to 128 and slices
 // the output. Here the kernel masks the tail itself: key rows past s_k load
-// as zero and score -2e38, query rows past s_q are neither loaded nor
+// as zero and score -2e38, query rows past s_q load as zero and are not
 // written. On the real rows that is the padded computation exactly.
 //
 // Parallelism: the TPU runs the key axis as a sequential grid dimension with
 // the softmax state in VMEM scratch. Here one thread block owns one
 // (b, h, query tile) and loops over the key tiles itself, holding m, l and
 // acc in registers; blocks are independent. Causal key tiles wholly in the
-// future of the block's last row are skipped; the diagonal tile is masked
-// from the block's own indices. Every processed row sees key 0 in the first
-// tile, so no row is ever fully masked (the reference relies on this too).
+// future of the block's last row are skipped; the tiles that cross the
+// diagonal or the ragged end are masked, the others are not. Every
+// processed row sees key 0 in the first tile, so no row is ever fully
+// masked (the reference relies on this too).
 //
-// What bounds it on an H100: at the serving shapes (s ~ 1000, d 128,
-// 12 query heads) a causal forward does ~2 s^2 d flops per (b, h) against
-// 4 s d bytes of q/k/v/o, i.e. hundreds of flops per byte: it is bound by
-// operations, so the bf16 path runs its products on the tensor cores with
-// mma.sync m16n8k16 (f32 accumulate). Q stays in registers for the whole
-// key loop, K/V tiles are staged once per block in padded shared memory
-// (conflict-free fragment reads), and S never leaves registers: its
-// accumulator fragment is re-packed in place as the A operand of PV.
-// This first version is simple on purpose: no cp.async/TMA pipelining, no
-// wgmma, no warp specialisation; those are later work.
+// What bounds it on an H100: at the serving and training shapes (s 1000 and
+// 2048, d 128, 12 query heads) a causal forward does ~2 s^2 d flops per
+// (b, h) against 4 s d bytes of q/k/v/o, hundreds of flops per byte: it is
+// bound by the tensor cores. The bf16 kernel for d 64 and 128
+// (`flash_fwd_wgmma`) is built for them:
+// - a block owns 128 query rows: one producer warpgroup and two consumer
+//   warpgroups of 64 rows each (one wgmma M tile); setmaxnreg gives the
+//   producer 24 registers and each consumer thread 240;
+// - one producer thread issues TMA loads: Q once, then K and V tiles of 128
+//   keys into a 2-stage ring of shared memory, each stage with `full`
+//   mbarriers (K and V apart, so QK^T starts before V lands) and an `empty`
+//   mbarrier the consumers release;
+// - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   (K-major, 128-byte swizzle); the online softmax runs in registers with
+//   exp2 and log2(e) folded into the scale, the row max over a quad of
+//   lanes, and the row sum reduced across lanes only once, at the end;
+// - P is rounded to bf16 and re-packed in registers as the A operand of
+//   O += P V (wgmma m64nDk16, V read MN-major from shared memory): S never
+//   reaches shared memory;
+// - heaviest causal query tiles launch first, and neighbouring blocks take
+//   the heads of one KV group, which then share K/V in L2.
+// bf16 d 192 and 256 (no preset uses them) keep the first kernel,
+// `flash_fwd_bf16` (mma.sync m16n8k16, one 64-row tile per 4-warp block,
+// K/V staged through registers): the entry point dispatches on d.
 //
-// float32 inputs take a second, scalar kernel: true f32 FMA on CUDA cores,
+// float32 inputs take a third, scalar kernel: true f32 FMA on CUDA cores,
 // no TF32, so f32 parity with the reference holds.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +94,232 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0, int bq,
   return nk;
 }
 
-// ------------------------------------------------ bf16: tensor cores
+// ------------------------------------------------ bf16, d 64 and 128: wgmma
+
+constexpr int WG = 128;            // threads per warpgroup
+constexpr int FWD_BQ = 128;        // query rows per block: 64 per consumer
+constexpr int FWD_BK = 128;        // keys per K/V stage
+constexpr int FWD_STAGES = 2;
+constexpr int FWD_THREADS = 3 * WG;  // producer + two consumers
+
+struct FwdArgs {
+  CUtensorMap tq, tk, tv;  // boxes of 64 columns x 128 rows
+  void* o;
+  float* lse;
+  int64_t o_sb, o_sh, o_ss;
+  int h, hkv, batch, sq, sk, causal, nq;
+  float scale, scale_log2;
+};
+
+// Shared memory: Q, then the K stages, the V stages and the mbarriers. Each
+// tile is D / 64 column blocks of (rows x 128 bytes).
+template <int D>
+struct FwdSmem {
+  static constexpr int Q_CB = FWD_BQ * 128;   // column block stride
+  static constexpr int KV_CB = FWD_BK * 128;
+  static constexpr int Q_BYTES = FWD_BQ * D * 2;
+  static constexpr int KV_BYTES = FWD_BK * D * 2;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + FWD_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + FWD_STAGES * KV_BYTES;
+  // mbarriers: q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * FWD_STAGES) + 1024;
+};
+
+template <int D>
+__device__ __forceinline__ void fwd_consumer(const FwdArgs& a, uint32_t base,
+                                             int q0, int ih, int ib, int nk) {
+  using namespace hopper;
+  using L = FwdSmem<D>;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * FWD_STAGES,
+                 empty = v_full + 8 * FWD_STAGES;
+  const int c = threadIdx.x / WG - 1;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + L::Q_OFF + c * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % FWD_STAGES;
+    const uint32_t ph = (i / FWD_STAGES) & 1;
+    const int k0 = i * FWD_BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+
+    // S = Q K^T: 64 rows x 128 keys
+    float sc[FWD_BK / 2];
+    mbar_wait(k_full + 8 * s, ph);
+    wgmma_fence();
+    wgmma_ss<FWD_BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // mask (only tiles that cross the diagonal or the ragged end)
+    if ((a.causal && k0 + FWD_BK - 1 > r0) || k0 + FWD_BK > a.sk) {
+#pragma unroll
+      for (int j = 0; j < FWD_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = kNegInf;
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < FWD_BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float alpha0 = fast_exp2((m0 - mx0) * a.scale_log2);
+    const float alpha1 = fast_exp2((m1 - mx1) * a.scale_log2);
+    const float ms0 = mx0 * a.scale_log2, ms1 = mx1 * a.scale_log2;
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < FWD_BK / 8; ++j) {
+      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
+      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
+      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
+      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
+      sum0 += sc[4 * j] + sc[4 * j + 1];
+      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+
+    // P in V's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t pf[FWD_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FWD_BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pf[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
+    }
+
+    // O += P V
+    mbar_wait(v_full + 8 * s, ph);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_rs_t<D, FWD_BK / 16>(o, pf, desc_sw128(v_addr, L::KV_CB, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  __nv_bfloat16* op =
+      static_cast<__nv_bfloat16*>(a.o) + ib * a.o_sb + ih * a.o_sh;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (row0 < a.sq)
+      *reinterpret_cast<uint32_t*>(op + row0 * a.o_ss + col) =
+          pack_bf16x2(o[4 * j] / l0, o[4 * j + 1] / l0);
+    if (row1 < a.sq)
+      *reinterpret_cast<uint32_t*>(op + row1 * a.o_ss + col) =
+          pack_bf16x2(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+  }
+  if (tq == 0) {
+    float* lse = a.lse + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    if (row0 < a.sq) lse[row0] = m0 * a.scale + logf(l0);
+    if (row1 < a.sq) lse[row1] = m1 * a.scale + logf(l1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ FwdArgs a) {
+  using namespace hopper;
+  using L = FwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * FWD_STAGES,
+                 empty = v_full + 8 * FWD_STAGES;
+
+  // heaviest query tiles first; neighbouring blocks share a KV group
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int q0 = iq * FWD_BQ;
+  int nk = (a.sk + FWD_BK - 1) / FWD_BK;
+  if (a.causal) nk = min(nk, (q0 + FWD_BQ + FWD_BK - 1) / FWD_BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {  // producer warpgroup: one thread issues TMA
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int ikv = ih / (a.h / a.hkv);
+      mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_load_4d(base + L::Q_OFF + cb * L::Q_CB, &a.tq, q_full, cb * 64,
+                    q0, ih, ib);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % FWD_STAGES;
+        mbar_wait(empty + 8 * s, ((i / FWD_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, L::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(base + L::K_OFF + s * L::KV_BYTES + cb * L::KV_CB,
+                      &a.tk, k_full + 8 * s, cb * 64, i * FWD_BK, ikv, ib);
+        mbar_arrive_expect_tx(v_full + 8 * s, L::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(base + L::V_OFF + s * L::KV_BYTES + cb * L::KV_CB,
+                      &a.tv, v_full + 8 * s, cb * 64, i * FWD_BK, ikv, ib);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    fwd_consumer<D>(a, base, q0, ih, ib, nk);
+  }
+}
+
+// ---------------------------------------------- bf16, d 192 and 256: mma.sync
 
 constexpr int TC_BQ = 64;   // query rows per block: 16 per warp
 constexpr int TC_BK = 64;   // keys per tile
@@ -382,8 +624,39 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 }
 
 template <int D>
+cudaError_t run_wgmma(const Params& p, int batch, cudaStream_t stream) {
+  FwdArgs a;
+  cudaError_t err;
+  if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, p.q_ss,
+                               p.q_sh, p.q_sb, FWD_BQ)) ||
+      (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, p.k_ss,
+                               p.k_sh, p.k_sb, FWD_BK)) ||
+      (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, p.v_ss,
+                               p.v_sh, p.v_sb, FWD_BK)))
+    return err;
+  a.o = p.o;
+  a.lse = p.lse;
+  a.o_sb = p.o_sb;
+  a.o_sh = p.o_sh;
+  a.o_ss = p.o_ss;
+  a.h = p.h;
+  a.hkv = p.hkv;
+  a.batch = batch;
+  a.sq = p.sq;
+  a.sk = p.sk;
+  a.causal = p.causal;
+  a.nq = (p.sq + FWD_BQ - 1) / FWD_BQ;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * hopper::kLog2e;
+  return hopper::launch(flash_fwd_wgmma<D>, a.nq * p.h * batch, FWD_THREADS,
+                        FwdSmem<D>::BYTES, stream, a);
+}
+
+template <int D>
 cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
-  if (bf16) {
+  if constexpr (D == 64 || D == 128) {
+    if (bf16) return run_wgmma<D>(p, batch, stream);
+  } else if (bf16) {
     const dim3 grid((p.sq + TC_BQ - 1) / TC_BQ, p.h, batch);
     const size_t smem = 2 * TC_BK * (D + 8) * sizeof(__nv_bfloat16);
     return launch(flash_fwd_bf16<D>, grid, TC_THREADS, smem, stream, p);

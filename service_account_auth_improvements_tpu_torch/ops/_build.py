@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed
-in ``.gitignore``), named by the hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads the library already there. The
+in ``.gitignore``), named by the hash of its source, of every header under
+``csrc/`` it may include (``*.cuh``, ``*.h``) and of the flags, so an edited
+source or shared header rebuilds and an unchanged one loads the library
+already there. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<lib>.log``.
 """
@@ -39,12 +41,22 @@ def _nvcc() -> str:
                        "build the port's kernels")
 
 
+def library_path(name: str, csrc: Path = CSRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of ``<csrc>/<name>.cu`` is built: named by the
+    hash of the source, of the headers beside it (by name and content, in
+    sorted order) and of the flags."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted((*csrc.glob("*.cuh"), *csrc.glob("*.h"))):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library's path. Raises with nvcc's output on failure."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

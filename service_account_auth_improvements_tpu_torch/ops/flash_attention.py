@@ -12,6 +12,15 @@ versions of the same arithmetic. There is no other route: a CUDA tensor a
 kernel cannot take raises, it never falls back. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
 
+Inside each library the entry point picks the kernel by dtype and head
+dim, never by catching an error: bf16 K1 at d 64 and 128 is
+``flash_fwd_wgmma`` and bf16 K3 is ``dkv_wgmma`` (TMA loads into an
+mbarrier ring, a producer warp, consumer warpgroups on wgmma, with the
+pieces in ``csrc/hopper.cuh``); bf16 K1 at d 192 and 256, which no preset
+uses, keeps the first ``mma.sync`` kernel ``flash_fwd_bf16``; K2 is
+``dq_bf16`` (``mma.sync``); float32 runs the scalar kernels. All count
+under the same counters.
+
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
 whose forward runs K1 and saves q, k, v, o and lse, and whose backward
@@ -164,8 +173,9 @@ _BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
 
 def _check_layout(name, ts, dtype):
     """The kernels' input contract: one device, one dtype (bf16 or f32), a
-    contiguous head dim and 16-byte aligned rows (the bf16 kernels move
-    rows in 16-byte vectors)."""
+    contiguous head dim and 16-byte aligned rows: the bf16 kernels move
+    rows in 16-byte vectors or by TMA, whose tensor maps need a 16-byte
+    aligned base and strides that are multiples of 16 bytes."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError(f"{name}: inputs must be on one device")

@@ -36,20 +36,33 @@ def _qkv(b, s, h, hkv, d, dtype, seed=0):
 # f32: summation order only
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 
+# (b, s, h, hkv, d, causal) for K1, K2 and K3: ragged lengths (the kernels
+# mask the tail themselves), GQA groups 1 to 4, d 64 and 128, non-causal
+# aligned inputs, and the training path's shape
+SHAPES = [
+    (2, 300, 4, 2, 128, True),     # ragged causal tail, group 2
+    (2, 256, 4, 4, 64, True),      # MHA, d 64
+    (2, 256, 4, 1, 128, False),    # non-causal, aligned, group 4
+    (2, 1, 6, 2, 128, True),       # one row, group 3
+    (2, 65, 6, 2, 128, True),
+    (2, 127, 8, 2, 128, True),     # group 4
+    (2, 129, 8, 8, 64, True),      # MHA, d 64, one row past a tile
+    (1, 1000, 12, 4, 128, True),   # the serving prompt length
+    (1, 2047, 12, 4, 128, True),
+    (8, 2048, 12, 4, 128, True),   # the training shape
+]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,hkv,d,causal", [
-    (300, 4, 2, 128, True),    # ragged causal tail, GQA
-    (256, 4, 4, 64, True),     # MHA, d 64
-    (256, 4, 1, 128, False),   # non-causal, aligned
-])
-def test_flash_fwd_kernel_matches_plain(cuda, dtype, s, h, hkv, d, causal):
+@pytest.mark.parametrize("b,s,h,hkv,d,causal", SHAPES)
+def test_flash_fwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d,
+                                        causal):
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(2, s, h, hkv, d, dtype)
+    q, k, v = _qkv(b, s, h, hkv, d, dtype)
     before = fa.launches
     o, lse = fa.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -95,18 +108,15 @@ BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h,hkv,d,causal", [
-    (300, 4, 2, 128, True),    # ragged causal tail, GQA
-    (256, 4, 4, 64, True),     # MHA, d 64
-    (256, 4, 1, 128, False),   # non-causal, aligned
-])
-def test_flash_bwd_kernels_match_plain(cuda, dtype, s, h, hkv, d, causal):
+@pytest.mark.parametrize("b,s,h,hkv,d,causal", SHAPES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
+                                       causal):
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(2, s, h, hkv, d, dtype)
-    do = _qkv(2, s, h, h, d, dtype, seed=1)[0]
+    q, k, v = _qkv(b, s, h, hkv, d, dtype)
+    do = _qkv(b, s, h, h, d, dtype, seed=1)[0]
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = fa.flash_bwd_delta(o, do)
     before = (fa.dq_launches, fa.dkv_launches)
@@ -123,6 +133,53 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, s, h, hkv, d, causal):
         assert got.dtype == dtype and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
+                                         (8, 2048, 12, 4, 128)])
+def test_flash_bwd_dkv_kernel_is_deterministic(cuda, b, s, h, hkv, d):
+    """K3 sums over the group's heads and the query tiles inside one block,
+    in a fixed order, with no atomics: two launches give the same bits."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16)
+    do = _qkv(b, s, h, h, d, torch.bfloat16, seed=1)[0]
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_bwd_delta(o, do)
+    first = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    second = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+def test_kernels_refuse_a_strided_head_dim(cuda, kernel):
+    """A CUDA input whose head dim is not contiguous (the kernels' TMA
+    maps and vector loads need it) raises; nothing falls back and nothing
+    launches."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = _qkv(2, 128, 4, 2, 128, torch.bfloat16)
+    strided = _qkv(2, 128, 4, 2, 256, torch.bfloat16)[0][..., ::2]
+    assert strided.shape == q.shape and strided.stride(3) == 2
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        if kernel == "flash_fwd":
+            fa.flash_fwd(strided, k, v, True)
+        else:
+            o, lse = fa.flash_fwd(q, k, v, True)
+            before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            delta = fa.flash_bwd_delta(o, q)
+            getattr(fa, kernel)(strided, k, v, q, lse, delta, True)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
 
 
 @pytest.mark.cuda

@@ -14,8 +14,8 @@ no network. Phases, each of which raises on failure:
    the achieved TF/s and the share of the bound: K1 (flash forward) at the
    serving and training shapes and ragged (s 1, 65, 127, 1000, 2047), GQA
    group 1 to 4, non-causal and d 64 shapes, K2 (dQ) and K3 (dK/dV) at the
-   training shape and ragged, MHA, non-causal and d 64 shapes; K3 launched
-   twice on one input must agree bit for bit;
+   training shape and ragged, MHA, non-causal and d 64 shapes; K2 and K3
+   launched twice on one input must each agree bit for bit;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -62,6 +62,16 @@ LSE_ATOL = 1e-3
 # summation order only.
 BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+# each kernel of the main paths: its source under csrc/, and the TPU kernel
+# it replaces, by function name and line in the JAX package's
+# ops/flash_attention.py
+KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
+           "flash_bwd_dq": ("flash_bwd.cu", "_dq_kernel", 212),
+           "flash_bwd_dkv": ("flash_bwd.cu", "_dkv_kernel", 261)}
+# the profile's kernel groups: a __global__ kernel of csrc/ (matched as a
+# substring of the profiler's kernel name) and its label
+PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
+                   "dkv_wgmma": "K3 dkv"}
 
 # serving path: bench_800m, batch 4, a 1000-token prompt, 64 new tokens
 PRESET, BATCH, PROMPT, NEW = "bench_800m", 4, 1000, 64
@@ -362,14 +372,18 @@ def phase_bwd_kernels() -> dict:
         _log(f"kernel {name}: dq max abs err {e:.3e}, dk {ek:.3e}, dv "
              f"{ev:.3e} (atol {atol}, rtol {rtol})")
         if dtype == torch.bfloat16:
-            # K3 sums in a fixed order with no atomics: a second launch on
-            # the same inputs gives the same bits
+            # K2 and K3 sum in a fixed order with no atomics: a second
+            # launch on the same inputs gives the same bits
+            dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
             dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
             torch.cuda.synchronize()
+            if not torch.equal(dq, dq2):
+                raise AssertionError(f"{name}: K2 is not deterministic")
             if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 raise AssertionError(f"{name}: K3 is not deterministic")
-            _log(f"kernel {name}: K3 twice on one input, bitwise equal")
-            del dk2, dv2
+            _log(f"kernel {name}: K2 and K3 twice on one input, bitwise "
+                 "equal")
+            del dq2, dk2, dv2
         del want_dk, want_dv, q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
@@ -750,9 +764,7 @@ def _profile_step(step, state, tokens, mask) -> None:
         return
     _log(f"profile train step: wall {wall_ms:.1f} ms, device busy "
          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    groups = {"K1 flash_fwd": "flash_fwd_", "K2 dq": "dq_bf16",
-              "K3 dkv": "dkv_wgmma"}
-    for label, key in groups.items():
+    for key, label in PROFILE_KERNELS.items():
         ms = sum(e.self_device_time_total for e in kernels
                  if key in e.key) / 1e3
         _log(f"  {label}: {ms:.2f} ms of device time "
@@ -858,11 +870,8 @@ def main() -> int:
     numbers = {"flash_fwd": phase_kernels(), **phase_bwd_kernels()}
     serving = phase_serving()
     training = phase_training()
-    sources = {"flash_fwd": ("flash_fwd.cu", 113),
-               "flash_bwd_dq": ("flash_bwd.cu", 212),
-               "flash_bwd_dkv": ("flash_bwd.cu", 261)}
     kernels = []
-    for name, (src, line) in sources.items():
+    for name, (src, _, line) in KERNELS.items():
         n = numbers[name]
         by_path = {"serving": serving.get(name, 0),
                    "training": training["launches"][name]}

@@ -21,9 +21,9 @@
 // Parallelism: the TPU carries the f32 accumulators across sequential grid
 // steps in VMEM scratch. Here one thread block owns one output tile and loops
 // over the other axis itself, with the accumulator in registers:
-//   K2: one block per (batch, head, 64-row query tile), looping over the key
-//       tiles up to the diagonal (causal tiles wholly in the future are
-//       skipped, as in K1);
+//   K2: one block per (batch, head, 128-row query tile), looping over the
+//       key tiles up to the diagonal of the block's last row (heaviest
+//       query tiles launch first, as in K1);
 //   K3: one block per (batch, KV head, 128-key tile), looping over the g
 //       query heads of the group and over the query tiles from the diagonal
 //       on (heaviest key tiles launch first).
@@ -33,24 +33,17 @@
 // Layout and ragged tails as in csrc/flash_fwd.cu: element strides for the
 // batch, head and sequence axes (head dim contiguous), so the model's
 // [b, s, h, d] tensors are read and written in place; rows past s load as
-// zero, keys past s score -2e38, query rows past s get P = 0 in K3 and are
+// zero, keys past s get P = 0, query rows past s get P = 0 in K3 and are
 // not written by K2. On the real rows that is the reference's zero-padded
 // computation exactly (its padded rows have dO = 0 and delta = 0).
 //
 // What bounds it on an H100: at the training shape (s 2048, d 128) K2 does
 // 3 and K3 4 products of 2 s^2 d / 2 flops per (b, h) against ~6 s d bytes:
-// hundreds of flops per byte, so both are bound by operations.
-// - K3 in bf16 (`dkv_wgmma`, d 64 and 128) is built for Hopper: a producer
-//   warpgroup that streams Q and dO by TMA (lse and delta by its lanes)
-//   through a ring of shared-memory stages tracked by mbarriers, and two
-//   consumer warpgroups (setmaxnreg 232) that run every product on wgmma,
-//   dV in a first pass and dK in a second; see the note above the kernel.
-// - K2 in bf16 (`dq_bf16`) is still the first version: mma.sync m16n8k16
-//   (f32 accumulate), Q and dO held as A fragments in registers for the
-//   whole key loop, K/V tiles staged through registers with no pipelining;
-//   the key tile is walked in 16-wide chunks whose S and dP are re-packed
-//   in registers as the A operand of the next product, so no score tile
-//   reaches shared or global memory.
+// hundreds of flops per byte, so both are bound by operations. In bf16 (d 64
+// and 128) both are built for Hopper, as K1 is: a producer warpgroup streams
+// tiles by TMA through a ring of shared-memory stages tracked by mbarriers,
+// and two consumer warpgroups run every product on wgmma with the scores in
+// registers; see the notes above `dq_wgmma` and `dkv_wgmma`.
 //
 // float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
 // f32 parity with the reference holds.
@@ -96,173 +89,234 @@ __device__ __forceinline__ T* head_ptr_mut(void* base, const int64_t (&s)[3],
   return static_cast<T*>(base) + ib * s[0] + ih * s[1];
 }
 
-// ------------------------------------------------ bf16: tensor cores
-
-constexpr int TC_BQ = 64;  // query rows per tile
-constexpr int TC_BK = 64;  // keys per tile
-constexpr int TC_THREADS = 128;
+// ------------------------------------------------ bf16: wgmma
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x (low) = lo
-  return *reinterpret_cast<uint32_t*>(&t);
-}
+constexpr int WG = 128;  // threads per warpgroup
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+// K2, bf16: dQ for one (b, head, 128-row query tile), on wgmma.
+//
+// Warp specialisation, as K1 (csrc/flash_fwd.cu): warpgroup 0 is the
+// producer (24 registers): one thread loads Q and dO of the block's rows
+// once by TMA, to stay in shared memory, and streams K and V tiles of DQ_BK
+// keys by TMA through a ring of DQ_STAGES stages, one full and one empty
+// mbarrier per stage. Warpgroups 1 and 2 are consumers that own 64 query
+// rows each (240 registers); each thread holds the lse (times log2 e) and
+// delta of its two rows in registers. Per key tile:
+//   S = Q K^T, dP = dO V^T    wgmma m64nBKk16, both operands from shared
+//                             memory (K-major), one commit and one wait
+//   P = exp2(S scale log2e - lse log2e) in f32 (masked only on the tiles
+//       that cross the diagonal or the ragged end), dS = P (dP - delta),
+//       rounded to bf16 and re-packed in place as A fragments
+//   dQ += dS K                wgmma m64nDk16, A from registers, K read
+//                             MN-major (as K1 reads V), one wait
+// so no score tile reaches shared or global memory. The key tiles run up to
+// the diagonal of the block's last row for both consumers: a tile wholly in
+// the future of consumer 0's rows is computed with P = 0, never skipped,
+// since ptxas serialises every wgmma of a kernel with a branch around one
+// that depends on the warpgroup. The dQ product is waited for before the
+// next tile's scores, for the same reason. dQ is scaled once, at the end,
+// and each block writes its own rows: deterministic, no atomics.
+// What ptxas and the card allowed shaped this (kernel_variants.py builds
+// and times the alternatives; PERF.md has their numbers): 64-key stages
+// hold S and dP in 32 registers each beside dQ's D / 2 and compile clean;
+// 128-key stages (m64n128 score products) hold 64 each, spill and serialise
+// every wgmma. Issuing S as soon as K lands, with dP in a second commit
+// group once V has, is no faster than one group for both: with four stages
+// in the ring V has landed long before.
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int DQ_BQ = 128;           // query rows per block: 64 per consumer
+constexpr int DQ_BK = 64;            // keys per K/V stage
+constexpr int DQ_STAGES = 256 / DQ_BK;  // 4 of 64 keys or 2 of 128
+constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
 
-// c += a (16x16, row-major fragment) * b (16x8, column-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct DqArgs {
+  CUtensorMap tq, tdo;  // boxes of 64 columns x DQ_BQ rows
+  CUtensorMap tk, tv;   // boxes of 64 columns x DQ_BK rows
+  const float* lse;     // [b, h, sq] contiguous
+  const float* delta;
+  void* dq;
+  int64_t dq_sb, dq_sh, dq_ss;
+  int h, hkv, batch, sq, sk, causal, nq;
+  float scale, scale_log2;
+};
 
-// Copy `rows` rows of D bf16 (stride `ss` elements) into shared memory with
-// row pitch LDS, zero-filling rows at or past `limit`.
+// Shared memory: Q, dO, the K stages, the V stages and the mbarriers. Each
+// tile is D / 64 column blocks of (rows x 128 bytes).
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t ss, int r0, int limit,
-                                          int rows, int tid) {
-  constexpr int LDS = D + 8;
-  for (int c = tid; c < rows * D / 8; c += TC_THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      x = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + col);
-    *reinterpret_cast<uint4*>(dst + r * LDS + col) = x;
+struct DqSmem {
+  static constexpr int Q_CB = DQ_BQ * 128;  // column block stride
+  static constexpr int KV_CB = DQ_BK * 128;
+  static constexpr int Q_BYTES = DQ_BQ * D * 2;
+  static constexpr int KV_BYTES = DQ_BK * D * 2;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * KV_BYTES;
+  // mbarriers: q_full, full[S], empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + 1024;
+};
+
+template <int D>
+__device__ __forceinline__ void dq_consumer(const DqArgs& a, uint32_t base,
+                                            int q0, int ih, int ib, int nk) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, full = bar + 8, empty = full + 8 * DQ_STAGES;
+  const int c = threadIdx.x / WG - 1;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + L::Q_OFF + c * 64 * 128;
+  const uint32_t do_addr = base + L::DO_OFF + c * 64 * 128;
+
+  // rows past sq read lse = delta = 0 (and Q = dO = 0): dS = 0 there, and
+  // those rows are not written
+  const int64_t rows = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  const float ls0 = row0 < a.sq ? a.lse[rows + row0] * kLog2e : 0.f;
+  const float ls1 = row1 < a.sq ? a.lse[rows + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < a.sq ? a.delta[rows + row0] : 0.f;
+  const float dl1 = row1 < a.sq ? a.delta[rows + row1] : 0.f;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % DQ_STAGES;
+    const uint32_t ph = (i / DQ_STAGES) & 1;
+    const int k0 = i * DQ_BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x DQ_BK keys each
+    float sc[DQ_BK / 2], dp[DQ_BK / 2];
+    mbar_wait(full + 8 * s, ph);
+    wgmma_fence();
+    wgmma_ss<DQ_BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_ss<DQ_BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) with P = exp2(S scale log2e - lse log2e) in f32,
+    // in place in sc; P = 0 past sk and (causal) after the row
+    const bool need_mask =
+        (a.causal && k0 + DQ_BK - 1 > r0) || k0 + DQ_BK > a.sk;
+#pragma unroll
+    for (int j = 0; j < DQ_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(sc[4 * j + e], a.scale_log2,
+                                 -(e < 2 ? ls0 : ls1)));
+        if (need_mask) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          if (col >= a.sk || (a.causal && col > (e < 2 ? row0 : row1)))
+            p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[DQ_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // dQ += dS K
+    fence_regs(dq);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t<D, DQ_BK / 16>(dq, f, desc_sw128(k_addr, L::KV_CB, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  bf16* out = static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (row0 < a.sq)
+      *reinterpret_cast<uint32_t*>(out + row0 * a.dq_ss + col) = pack_bf16x2(
+          dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
+    if (row1 < a.sq)
+      *reinterpret_cast<uint32_t*>(out + row1 * a.dq_ss + col) = pack_bf16x2(
+          dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
   }
 }
 
-// Fragment ownership (PTX m16n8k16): lane = 4 * g + t. In a 16x8 f32
-// accumulator, c[0], c[1] are row g, columns 2t, 2t+1 and c[2], c[3] are row
-// g + 8. An A fragment holds rows g and g + 8, columns 2t, 2t+1 and
-// 2t+8, 2t+9; a B fragment holds column g, rows 2t, 2t+1 and 2t+8, 2t+9.
-
-// K2: dQ for one (b, h, 64-row query tile). Warp w owns query rows
-// q0 + 16w + {g, g + 8}.
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS) dq_bf16(const Params p) {
-  constexpr int LDS = D + 8;  // padded shared row: conflict-free fragments
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TC_BK * LDS;
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+dq_wgmma(const __grid_constant__ DqArgs a) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, full = bar + 8, empty = full + 8 * DQ_STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ih = blockIdx.y, ib = blockIdx.z;
-  const int ikv = ih / (p.h / p.hkv);
-  const int q0 = blockIdx.x * TC_BQ;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const bool in0 = row0 < p.sq, in1 = row1 < p.sq;
+  // heaviest query tiles first; neighbouring blocks share a KV head
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int q0 = iq * DQ_BQ;
+  // the same key tiles for both consumers: up to the diagonal of the
+  // block's last row (the reference's `ik * bk < (iq + 1) * bq`)
+  int nk = (a.sk + DQ_BK - 1) / DQ_BK;
+  if (a.causal) nk = min(nk, (q0 + DQ_BQ + DQ_BK - 1) / DQ_BK);
 
-  const bf16* q = head_ptr<bf16>(p.q, p.st[Q], ib, ih);
-  const bf16* dout = head_ptr<bf16>(p.dout, p.st[DO], ib, ih);
-  const bf16* k = head_ptr<bf16>(p.k, p.st[K], ib, ikv);
-  const bf16* v = head_ptr<bf16>(p.v, p.st[V], ib, ikv);
-  const int64_t q_ss = p.st[Q][2], o_ss = p.st[DO][2];
-
-  // Q and dO as A fragments for the whole head dim, in registers.
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = in0 ? ld32(q + row0 * q_ss + c) : 0u;
-    qf[kk][1] = in1 ? ld32(q + row1 * q_ss + c) : 0u;
-    qf[kk][2] = in0 ? ld32(q + row0 * q_ss + c + 8) : 0u;
-    qf[kk][3] = in1 ? ld32(q + row1 * q_ss + c + 8) : 0u;
-    of[kk][0] = in0 ? ld32(dout + row0 * o_ss + c) : 0u;
-    of[kk][1] = in1 ? ld32(dout + row1 * o_ss + c) : 0u;
-    of[kk][2] = in0 ? ld32(dout + row0 * o_ss + c + 8) : 0u;
-    of[kk][3] = in1 ? ld32(dout + row1 * o_ss + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
   }
-  const int64_t rowbase = (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
-  const float lse0 = in0 ? p.lse[rowbase + row0] : 0.f;
-  const float lse1 = in1 ? p.lse[rowbase + row1] : 0.f;
-  const float dl0 = in0 ? p.delta[rowbase + row0] : 0.f;
-  const float dl1 = in1 ? p.delta[rowbase + row1] : 0.f;
+  __syncthreads();
 
-  float acc[D / 8][4];
+  if (threadIdx.x < WG) {  // producer warpgroup: one thread issues TMA
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int ikv = ih / (a.h / a.hkv);
+      mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  int nk = (p.sk + TC_BK - 1) / TC_BK;
-  if (p.causal) nk = min(nk, (q0 + TC_BQ + TC_BK - 1) / TC_BK);
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * TC_BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(Ks, k, p.st[K][2], k0, p.sk, TC_BK, tid);
-    load_tile<D>(Vs, v, p.st[V][2], k0, p.sk, TC_BK, tid);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < TC_BK / 16; ++j) {
-      // S and dP for this warp's 16 rows and keys k0 + 16j .. + 15
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        const bf16* kr = Ks + (j * 16 + nt * 8 + g) * LDS + 2 * t;
-        const bf16* vr = Vs + (j * 16 + nt * 8 + g) * LDS + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          mma_bf16(s[nt], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-          mma_bf16(dp[nt], of[kk], ld32(vr + kk * 16),
-                   ld32(vr + kk * 16 + 8));
-        }
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_4d(base + L::Q_OFF + cb * L::Q_CB, &a.tq, q_full, cb * 64,
+                    q0, ih, ib);
+        tma_load_4d(base + L::DO_OFF + cb * L::Q_CB, &a.tdo, q_full,
+                    cb * 64, q0, ih, ib);
       }
-      // dS = P (f32) * (dP - delta), then rounded to K's dtype as the A
-      // operand of dS K
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % DQ_STAGES;
+        const uint32_t fb = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((i / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(fb, 2 * L::KV_BYTES);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 16 + nt * 8 + 2 * t + (e & 1);
-          const bool hi = e >= 2;
-          const int row = hi ? row1 : row0;
-          float x = s[nt][e] * p.scale;
-          if (col >= p.sk || (p.causal && col > row)) x = kNegInf;
-          const float pr = expf(x - (hi ? lse1 : lse0));
-          s[nt][e] = pr * (dp[nt][e] - (hi ? dl1 : dl0));
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_4d(base + L::K_OFF + s * L::KV_BYTES + cb * L::KV_CB,
+                      &a.tk, fb, cb * 64, i * DQ_BK, ikv, ib);
+          tma_load_4d(base + L::V_OFF + s * L::KV_BYTES + cb * L::KV_CB,
+                      &a.tv, fb, cb * 64, i * DQ_BK, ikv, ib);
         }
-      }
-      const uint32_t a[4] = {
-          pack_f32(s[0][0], s[0][1]), pack_f32(s[0][2], s[0][3]),
-          pack_f32(s[1][0], s[1][1]), pack_f32(s[1][2], s[1][3]),
-      };
-      const bf16* kc = Ks + (j * 16 + 2 * t) * LDS + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* c = kc + dt * 8;
-        mma_bf16(acc[dt], a, pack_bf16(c[0], c[LDS]),
-                 pack_bf16(c[8 * LDS], c[9 * LDS]));
       }
     }
-  }
-
-  bf16* dq = head_ptr_mut<bf16>(p.dq, p.st[DQ], ib, ih);
-  const int64_t dq_ss = p.st[DQ][2];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0)
-      *reinterpret_cast<uint32_t*>(dq + row0 * dq_ss + c) =
-          pack_f32(acc[dt][0] * p.scale, acc[dt][1] * p.scale);
-    if (in1)
-      *reinterpret_cast<uint32_t*>(dq + row1 * dq_ss + c) =
-          pack_f32(acc[dt][2] * p.scale, acc[dt][3] * p.scale);
+  } else {
+    setmaxnreg_inc<240>();
+    dq_consumer<D>(a, base, q0, ih, ib, nk);
   }
 }
 
@@ -301,7 +355,6 @@ __global__ void __launch_bounds__(TC_THREADS) dq_bf16(const Params p) {
 // dK is scaled once, at the end. Every sum runs in one block in a fixed
 // order: deterministic.
 
-constexpr int WG = 128;             // threads per warpgroup
 constexpr int DKV_BK = 128;         // keys per block: 64 per consumer
 constexpr int DKV_BQ = 128;         // query rows per stage
 constexpr int DKV_STAGES = 2;
@@ -817,9 +870,35 @@ template <int D>
 cudaError_t run_dq(const Params& p, int batch, int bf16_in,
                    cudaStream_t stream) {
   if (bf16_in) {
-    const dim3 grid((p.sq + TC_BQ - 1) / TC_BQ, p.h, batch);
-    const size_t smem = 2 * TC_BK * (D + 8) * sizeof(bf16);
-    return launch(dq_bf16<D>, grid, TC_THREADS, smem, stream, p);
+    DqArgs a;
+    const int64_t(&st)[NSTRIDE][3] = p.st;
+    cudaError_t err;
+    if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, st[Q][2],
+                                 st[Q][1], st[Q][0], DQ_BQ)) ||
+        (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
+                                 st[DO][2], st[DO][1], st[DO][0], DQ_BQ)) ||
+        (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
+                                 st[K][1], st[K][0], DQ_BK)) ||
+        (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
+                                 st[V][1], st[V][0], DQ_BK)))
+      return err;
+    a.lse = p.lse;
+    a.delta = p.delta;
+    a.dq = p.dq;
+    a.dq_sb = st[DQ][0];
+    a.dq_sh = st[DQ][1];
+    a.dq_ss = st[DQ][2];
+    a.h = p.h;
+    a.hkv = p.hkv;
+    a.batch = batch;
+    a.sq = p.sq;
+    a.sk = p.sk;
+    a.causal = p.causal;
+    a.nq = (p.sq + DQ_BQ - 1) / DQ_BQ;
+    a.scale = p.scale;
+    a.scale_log2 = p.scale * hopper::kLog2e;
+    return hopper::launch(dq_wgmma<D>, a.nq * p.h * batch, DQ_THREADS,
+                          DqSmem<D>::BYTES, stream, a);
   }
   const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ, p.h, batch);
   const size_t smem =

@@ -13,13 +13,13 @@ kernel cannot take raises, it never falls back. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
 
 Inside each library the entry point picks the kernel by dtype and head
-dim, never by catching an error: bf16 K1 at d 64 and 128 is
-``flash_fwd_wgmma`` and bf16 K3 is ``dkv_wgmma`` (TMA loads into an
-mbarrier ring, a producer warp, consumer warpgroups on wgmma, with the
-pieces in ``csrc/hopper.cuh``); bf16 K1 at d 192 and 256, which no preset
-uses, keeps the first ``mma.sync`` kernel ``flash_fwd_bf16``; K2 is
-``dq_bf16`` (``mma.sync``); float32 runs the scalar kernels. All count
-under the same counters.
+dim, never by catching an error: in bf16, K1 at d 64 and 128 is
+``flash_fwd_wgmma``, K2 is ``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA
+loads into an mbarrier ring, a producer warp, consumer warpgroups on
+wgmma, with the pieces in ``csrc/hopper.cuh``); bf16 K1 at d 192 and 256,
+which no preset uses and the backward does not take, keeps the first
+``mma.sync`` kernel ``flash_fwd_bf16``; float32 runs the scalar kernels.
+All count under the same counters.
 
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``

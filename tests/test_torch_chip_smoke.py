@@ -1,0 +1,63 @@
+"""The tables of chip_smoke.py and kernel_variants.py, read on the CPU.
+
+chip_smoke.py's profile groups its device time by kernel name, and its
+``kernels`` line names the TPU kernel each port kernel replaces, by line
+in the JAX package's ops/flash_attention.py: both go stale silently when
+a kernel is renamed or that file moves, so they are checked here against
+the sources (the JAX file is read as text, not imported).
+kernel_variants.py rebuilds K2 with text edits of its committed source,
+which must each still match exactly once.
+"""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "service_account_auth_improvements_tpu_torch" / "csrc"
+JAX_FLASH = (ROOT / "service_account_auth_improvements_tpu" / "ops"
+             / "flash_attention.py")
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _script("chip_smoke")
+kernel_variants = _script("kernel_variants")
+
+
+def _global_kernels():
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                         r"\s+)?(\w+)\s*\(")
+    return {m.group(1) for cu in CSRC.glob("*.cu")
+            for m in pattern.finditer(cu.read_text())}
+
+
+@pytest.mark.parametrize("kernel", sorted(chip_smoke.PROFILE_KERNELS))
+def test_profile_groups_name_a_global_kernel(kernel):
+    assert kernel in _global_kernels()
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.KERNELS))
+def test_replaces_points_at_the_tpu_kernel(name):
+    source, fn, line = chip_smoke.KERNELS[name]
+    assert (CSRC / source).is_file()
+    assert re.fullmatch(r"_\w+_kernel|_flash_\w+", fn)
+    text = JAX_FLASH.read_text().splitlines()[line - 1]
+    assert text.startswith(f"def {fn}("), text
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
+def test_kernel_variant_edits_match_the_source(variant):
+    src = (CSRC / f"{kernel_variants.SOURCE}.cu").read_text()
+    out = kernel_variants.variant_source(variant, src)
+    for old, new in kernel_variants.VARIANTS[variant][1]:
+        assert new in out
+    with pytest.raises(ValueError, match="exactly once"):
+        kernel_variants.variant_source(variant, src + src)

@@ -136,11 +136,13 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128)])
-def test_flash_bwd_dkv_kernel_is_deterministic(cuda, b, s, h, hkv, d):
-    """K3 sums over the group's heads and the query tiles inside one block,
-    in a fixed order, with no atomics: two launches give the same bits."""
+def test_flash_bwd_kernel_is_deterministic(cuda, kernel, b, s, h, hkv, d):
+    """K2 sums over the key tiles and K3 over the group's heads and the
+    query tiles inside one block, in a fixed order, with no atomics: two
+    launches give the same bits."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -149,9 +151,12 @@ def test_flash_bwd_dkv_kernel_is_deterministic(cuda, b, s, h, hkv, d):
     do = _qkv(b, s, h, h, d, torch.bfloat16, seed=1)[0]
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.flash_bwd_delta(o, do)
-    first = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
-    second = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    fn = getattr(fa, kernel)
+    first = fn(q, k, v, do, lse, delta, True)
+    second = fn(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
+    if kernel == "flash_bwd_dq":
+        first, second = (first,), (second,)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
 

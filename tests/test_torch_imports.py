@@ -1,6 +1,6 @@
-"""Import discipline of the port: no module of it, nor chip_smoke.py,
-imports ``jax`` or the JAX package; its entry points refuse to run
-without CUDA unless asked for the CPU."""
+"""Import discipline of the port: no module of it, nor chip_smoke.py or
+kernel_variants.py, imports ``jax`` or the JAX package; its entry points
+refuse to run without CUDA unless asked for the CPU."""
 
 import pathlib
 import subprocess
@@ -43,10 +43,11 @@ BLOCKER = textwrap.dedent("""
     for name in names:
         importlib.import_module(name.removesuffix(".__init__"))
     importlib.import_module("chip_smoke")
+    importlib.import_module("kernel_variants")
     leaked = [m for m in sys.modules if m.split(".")[0] in
               ("jax", "jaxlib", "service_account_auth_improvements_tpu")]
     assert not leaked, leaked
-    print("imported", len(names) + 1)
+    print("imported", len(names) + 2)
 """ % PORT)
 
 
@@ -55,7 +56,7 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
-    n = len(list((REPO / PORT).rglob("*.py"))) + 1
+    n = len(list((REPO / PORT).rglob("*.py"))) + 2
     assert out.stdout.strip() == f"imported {n}"
 
 

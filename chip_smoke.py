@@ -25,7 +25,19 @@ no network. Phases, each of which raises on failure:
    remat "full", f32 master params) on one fixed batch: a finite loss
    that falls, exact launch counts per step, step time, tokens/s, MFU and
    peak memory; a profile of one step; the lm_head and optimizer times;
-   flash against dense gradients at full width; the ``train.loop`` CLI.
+   flash against dense gradients at full width;
+6. lifecycle, all at ``bench_800m``: ``train.loop.fit`` 4 steps straight
+   against 2 steps into a checkpoint directory and a resumed fit to 4
+   (every param and Adam moment bit-equal, exact launch counts per step),
+   with periodic evaluation on held-out batches; the checkpoint served by
+   ``GenerationService`` (params only, ``opt.pt`` hidden) and its
+   completions against direct ``generate``; int8 weights (error bound on
+   every leaf, logits against bf16, prefill and decode times); speculative
+   decoding with a ``bench_400m`` draft and with the target as its own
+   draft (f32: token-identical to plain greedy; bf16: over HTTP, with
+   acceptance and latency); the ``train.loop`` CLI resuming from its
+   ``--workdir`` and the serving CLI with ``--checkpoint-dir --int8
+   --draft-preset`` as a subprocess.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -35,6 +47,7 @@ repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +107,22 @@ GRAD_TOL = {"f32": dict(loss=1e-4, gnorm=1e-4, leaf=1e-4),
 # difference (largest seen on the H100: 0.13). f32: summation order only.
 APPLY_ATOL = {"bf16": 0.25, "f32": 2e-3}
 
+# lifecycle path, bench_800m at the training shape: run A trains
+# LIFECYCLE_STEPS steps straight; run B trains RESUME_AT steps into a
+# checkpoint directory and a fresh fit resumes it to LIFECYCLE_STEPS,
+# evaluating EVAL_BATCHES held-out batches every RESUME_AT steps
+LIFECYCLE_STEPS, RESUME_AT, EVAL_BATCHES = 4, 2, 2
+# the speculative draft (the same vocabulary as PRESET) and its proposals
+# per verify round
+DRAFT, GAMMA = "bench_400m", 4
+# int8 against bf16 prefill logits: the reference's weight-only budget
+# (tests/test_quantize.py: max |Δ| / max(max |logit|, 1) < 0.05)
+INT8_REL_TOL = 0.05
+# checkpoint directories under the gitignored build/, deleted at the end
+WORKDIR = ROOT / "build" / "chip_smoke_lifecycle"
+CLI_WORKDIR = ROOT / "build" / "chip_smoke_cli"
+DEV = "cuda"
+
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
@@ -106,6 +135,14 @@ def _log(msg: str) -> None:
 # host time is part of what a user waits for (prefill, decode, the step's
 # parts) are timed without it.
 QUEUE_AHEAD_CYCLES = 20_000_000
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3,
@@ -479,6 +516,23 @@ def _http(base: str, path: str, body: dict | None = None):
         return r.read()
 
 
+def _served(svc):
+    """``svc`` behind ``make_server`` on 127.0.0.1: (base URL, stop)."""
+    import threading
+
+    from service_account_auth_improvements_tpu_torch.models import serving
+
+    httpd = serving.make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return "http://%s:%d" % httpd.server_address, stop
+
+
 def _assert_completion(name, out, vocab):
     rows = out["completion_ids"]
     if len(rows) != BATCH or any(len(r) != NEW for r in rows):
@@ -496,7 +550,6 @@ def phase_serving() -> dict:
     weights from a seed, per-length prefill) behind make_server. Returns
     the kernel launch counts of exactly that run."""
     import dataclasses
-    import threading
 
     from service_account_auth_improvements_tpu_torch.models import (
         generate,
@@ -519,10 +572,7 @@ def phase_serving() -> dict:
     prompts = prompts.tolist()
     svc = serving.GenerationService(cfg, params, prefill_window=0,
                                     device="cuda", name=PRESET)
-    httpd = serving.make_server(svc, "127.0.0.1", 0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = "http://%s:%d" % httpd.server_address
+    base, stop = _served(svc)
     greedy = {"prompt_ids": prompts, "max_new_tokens": NEW}
     sampled = dict(greedy, temperature=0.8, top_k=40, top_p=0.95, seed=1234)
     timings = {}
@@ -565,9 +615,7 @@ def phase_serving() -> dict:
                 raise AssertionError(f"/metrics lacks {want!r}")
     finally:
         launches = {"flash_fwd": fa.launches}  # read just after the run
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=30)
+        stop()
     prefills = 4  # one per-length prefill per completion request
     if launches["flash_fwd"] != cfg.n_layers * prefills:
         raise AssertionError(
@@ -738,7 +786,6 @@ def phase_training() -> dict:
     del state, step, m
     torch.cuda.empty_cache()
     _grads_flash_vs_dense(cfg, step_mod)
-    _loop_cli()
     return dict(launches=launches, step_ms=step_ms, tokens_per_sec=tok_s,
                 mfu=util, peak_mem=peak_mem)
 
@@ -845,36 +892,563 @@ def _grads_flash_vs_dense(cfg, step_mod) -> None:
     torch.cuda.empty_cache()
 
 
-def _loop_cli() -> None:
-    """The training entry point a user runs, ``train.loop``'s CLI, for a
-    few steps at bench_800m: its log records carry tokens/s and MFU."""
+def _counts(fa) -> dict:
+    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+            "flash_bwd_dkv": fa.dkv_launches}
+
+
+def _zero(fa) -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+class _FitLog:
+    """``fit``'s ``log``: echoes each line with the kernel launches since
+    the line before it, so that each step and each eval is counted on its
+    own (a step's line follows its step; an eval's line its eval)."""
+
+    def __init__(self, fa):
+        self.fa, self.lines = fa, []
+        self.last = tuple(_counts(fa).values())
+
+    def __call__(self, line: str) -> None:
+        now = tuple(_counts(self.fa).values())
+        delta = tuple(a - b for a, b in zip(now, self.last))
+        self.last = now
+        self.lines.append((line, delta))
+        _log(f"  fit: {line} [since the line before: K1 {delta[0]}, K2 "
+             f"{delta[1]}, K3 {delta[2]}]")
+
+
+def _disk(path: Path) -> str:
+    return f"{shutil.disk_usage(path).free / 1e9:.1f} GB free"
+
+
+def phase_lifecycle() -> dict:
+    """The notebook lifecycle at PRESET: train, checkpoint, resume,
+    evaluate, serve the checkpoint (bf16, int8, speculative), and the two
+    CLIs. Returns the kernel launches of each counted path."""
+    try:
+        WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+        shutil.rmtree(WORKDIR, ignore_errors=True)
+        launches, params = _timed("lifecycle train, resume, eval",
+                                  _lifecycle_train)
+        launches["serving checkpoint"] = _timed(
+            "lifecycle serve checkpoint", _serve_checkpoint, params)
+        _timed("lifecycle int8", _int8, params)
+        launches["speculative"] = _timed("lifecycle speculative",
+                                         _speculative, params)
+        del params
+        shutil.rmtree(WORKDIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+        launches["train.loop CLI"] = _timed("lifecycle entry points",
+                                            _entry_points)
+        return launches
+    finally:
+        shutil.rmtree(WORKDIR, ignore_errors=True)
+        shutil.rmtree(CLI_WORKDIR, ignore_errors=True)
+
+
+def _lifecycle_train():
+    """Run A (LIFECYCLE_STEPS straight) against run B (RESUME_AT steps into
+    WORKDIR, then a fresh fit resuming to LIFECYCLE_STEPS) with evaluation
+    every RESUME_AT steps: launches per step and per eval, bit-equal
+    state, the eval records, checkpoint bytes and times. Returns the
+    launches of the counted run and B's final params."""
+    import numpy as np
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
+        evaluate,
+        loop,
+        step,
+    )
+    from service_account_auth_improvements_tpu_torch.train.data import (
+        DataConfig,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    L = cfg.n_layers
+    rng = np.random.default_rng(5)
+    corpus = rng.integers(0, cfg.vocab_size, TRAIN_BATCH * TRAIN_SEQ
+                          * (LIFECYCLE_STEPS + 1), dtype=np.int32)
+    held_out = [torch.tensor(rng.integers(0, cfg.vocab_size,
+                                          (TRAIN_BATCH, TRAIN_SEQ)),
+                             device=DEV) for _ in range(EVAL_BATCHES)]
+    data_cfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    _log(f"lifecycle: {PRESET} b{TRAIN_BATCH} s{TRAIN_SEQ}; run A "
+         f"{LIFECYCLE_STEPS} steps straight, run B {RESUME_AT} steps into "
+         f"{WORKDIR.relative_to(ROOT)} and a resumed fit to "
+         f"{LIFECYCLE_STEPS}, eval every {RESUME_AT} steps on "
+         f"{EVAL_BATCHES} held-out batches; {_disk(WORKDIR.parent)}")
+
+    def fit(steps, log, **kw):
+        eval_data = held_out if kw.get("eval_every") else None
+        return loop.fit(cfg, None, corpus, data_cfg,
+                        loop.LoopConfig(steps=steps, log_every=1, **kw),
+                        log=log, eval_data=eval_data, device=DEV)
+
+    _zero(fa)  # the counted run starts here
+    log = _FitLog(fa)
+    t0 = time.perf_counter()
+    state_a, _ = fit(LIFECYCLE_STEPS, log)
+    b_kw = dict(workdir=str(WORKDIR), ckpt_every=RESUME_AT,
+                eval_every=RESUME_AT)
+    _, hist_b1 = fit(RESUME_AT, log, **b_kw)
+    free_between = _disk(WORKDIR)
+    state_b, hist_b2 = fit(LIFECYCLE_STEPS, log, **b_kw)
+    torch.cuda.synchronize()
+    launches = {"lifecycle training": _counts(fa)}  # read just after
+    _log(f"lifecycle: runs A and B in {time.perf_counter() - t0:.1f} s")
+
+    steps = evals = 0
+    for line, delta in log.lines:
+        if " eval loss=" in line:
+            want, evals = (L * EVAL_BATCHES, 0, 0), evals + 1
+        elif line.startswith("step "):
+            want, steps = (2 * L, L, L), steps + 1
+        else:  # resumed / saved
+            want = (0, 0, 0)
+        if delta != want:
+            raise AssertionError(f"{line!r}: launches {delta}, expected "
+                                 f"{want}")
+    n_evals = LIFECYCLE_STEPS // RESUME_AT
+    if (steps, evals) != (2 * LIFECYCLE_STEPS, n_evals):
+        raise AssertionError(f"{steps} step and {evals} eval lines")
+    if not any(line.startswith(f"resumed from step {RESUME_AT}")
+               for line, _ in log.lines):
+        raise AssertionError("run B did not log its resume")
+    _log(f"lifecycle: launches exactly K1 {2 * L}, K2 {L}, K3 {L} in each "
+         f"of {steps} steps (before and after the resume) and K1 "
+         f"{L * EVAL_BATCHES}, K2 0, K3 0 in each of {evals} evals "
+         f"({L} per eval batch)")
+
+    if (state_b.step, state_b.opt_state.count) != (
+            state_a.step, state_a.opt_state.count):
+        raise AssertionError("run B ended at another step or count")
+    worst, unequal = 0.0, []
+    for what in ("params", "mu", "nu"):
+        trees = [s.params if what == "params" else
+                 getattr(s.opt_state, what) for s in (state_a, state_b)]
+        for (name, a), (_, b) in zip(step._leaves(trees[0]),
+                                     step._leaves(trees[1])):
+            worst = max(worst, (a.float() - b.float()).abs().max().item())
+            if not torch.equal(a, b):
+                unequal.append(f"{what}/{name}")
+    _log(f"lifecycle: resumed against uninterrupted after "
+         f"{LIFECYCLE_STEPS} steps: largest difference {worst:.3e} over "
+         f"params, mu and nu; "
+         + ("bitwise equal" if not unequal else
+            f"{len(unequal)} leaves differ: {unequal[:6]}"))
+    if unequal:
+        raise AssertionError("resumed training is not bit-equal to "
+                             "uninterrupted training")
+
+    records = [r for r in hist_b1 + hist_b2 if "eval_loss" in r]
+    tokens = EVAL_BATCHES * TRAIN_BATCH * (TRAIN_SEQ - 1)
+    if ([r["step"] for r in records] != list(
+            range(RESUME_AT, LIFECYCLE_STEPS + 1, RESUME_AT))
+            or any(r["eval_tokens"] != tokens for r in records)):
+        raise AssertionError(f"eval records {records}")
+    t0 = time.perf_counter()
+    ev = evaluate.evaluate(cfg, state_a.params, held_out, device=DEV)
+    eval_ms = (time.perf_counter() - t0) * 1e3 / EVAL_BATCHES
+    _log(f"lifecycle: eval records {records}; evaluate of run A's final "
+         f"params: loss {ev['loss']:.6f}, perplexity "
+         f"{ev['perplexity']:.2f}, {ev['tokens']} tokens; "
+         f"{eval_ms:.2f} ms per eval batch (host clock, one sync)")
+    if round(ev["loss"], 4) != records[-1]["eval_loss"]:
+        raise AssertionError("evaluate of A's params differs from B's "
+                             "last eval record")
+
+    step_dir = WORKDIR / str(checkpoint.latest_step(WORKDIR))
+    sizes = {f.name: f.stat().st_size for f in step_dir.iterdir()}
+    n_params = cfg.param_count()
+    on_disk = sorted(p.name for p in WORKDIR.iterdir())
+    _log(f"lifecycle: checkpoint {step_dir.name}: {sum(sizes.values())} "
+         f"bytes on disk ({sizes}; {n_params} params x 12 bytes = "
+         f"{n_params * 12}); steps on disk {on_disk}; {free_between} "
+         f"after the first save, {_disk(WORKDIR)} now")
+    params = state_b.params
+    del state_a, state_b
+    torch.cuda.empty_cache()
+    return launches, params
+
+
+def _serve_checkpoint(trained) -> dict:
+    """restore_params of WORKDIR (opt.pt hidden first) behind make_server:
+    the greedy and sampled requests of the serving phase, against direct
+    ``generate`` from the same params. Returns the requests' launches."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
+        step,
+    )
+
+    cfg = dataclasses.replace(llama.PRESETS[PRESET], param_dtype="bfloat16")
+    step_dir = WORKDIR / str(checkpoint.latest_step(WORKDIR))
+    (step_dir / "opt.pt").rename(step_dir / "opt.pt.hidden")
+    t0 = time.perf_counter()
+    params = checkpoint.restore_params(WORKDIR, None, cfg, device=DEV)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        step._leaves(params), step._leaves(trained)))
+    _log(f"serve checkpoint: restore_params of step {step_dir.name} in "
+         f"{restore_s:.2f} s with opt.pt renamed away (never opened); "
+         f"dtype {params['lm_head'].dtype}; equal to the trained params: "
+         f"{same}")
+    if not same:
+        raise AssertionError("restore_params differs from the saved params")
+
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    greedy = {"prompt_ids": prompts.tolist(), "max_new_tokens": NEW}
+    # top_k 40 runs as the service's pow-2 bucket, 64
+    sampled = dict(greedy, temperature=0.8, top_k=40, top_p=0.95, seed=1234)
+    svc = serving.GenerationService(cfg, params, prefill_window=0,
+                                    device=DEV, name=PRESET)
+    base, stop = _served(svc)
+    got = {}
+    _zero(fa)  # the counted run starts here
+    try:
+        for name, body in (("greedy", greedy), ("sampled", sampled)):
+            t0 = time.perf_counter()
+            got[name] = json.loads(_http(base, "/v1/completions", body))
+            _assert_completion(name, got[name], cfg.vocab_size)
+            _log(f"serve checkpoint {name}: "
+                 f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    finally:
+        launches = _counts(fa)  # read just after the run
+        stop()
+    if launches != {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        raise AssertionError(f"serve checkpoint launches {launches}, "
+                             f"expected K1 {cfg.n_layers} per request")
+    toks = prompts.to(DEV)
+    for name, kw in (("greedy", {}), ("sampled", dict(
+            generator=torch.Generator(device=DEV).manual_seed(1234),
+            temperature=0.8, top_k=64, top_p=0.95))):
+        want = generate.generate(cfg, params, toks, NEW, device=DEV, **kw)
+        if want[:, PROMPT:].tolist() != got[name]["completion_ids"]:
+            raise AssertionError(f"served {name} completions differ from "
+                                 "direct generate")
+    _log(f"serve checkpoint: launches {launches} (K1 {cfg.n_layers} per "
+         f"request); greedy and sampled completions equal direct "
+         f"generate.generate from the restored params")
+    return launches
+
+
+def _int8(params) -> None:
+    """quantize_params of the restored params: bytes, the error bound on
+    every quantized leaf, one greedy request, logits against bf16 weights,
+    and prefill and decode times."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        quantize,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.train import step
+
+    cfg = dataclasses.replace(llama.PRESETS[PRESET], param_dtype="bfloat16")
+    bf16 = step._map(lambda t: t.to(torch.bfloat16), params)
+    t0 = time.perf_counter()
+    q = quantize.quantize_params(params)
+    torch.cuda.synchronize()
+    _log(f"int8: quantize_params in {time.perf_counter() - t0:.2f} s; "
+         f"{quantize.quantized_bytes(q)} bytes against "
+         f"{quantize.quantized_bytes(bf16)} in bf16 and "
+         f"{quantize.quantized_bytes(params)} in f32")
+    worst = 0.0
+    leaves = [("lm_head", params["lm_head"], q["lm_head"])] + [
+        (f"layers/{k}", params["layers"][k], q["layers"][k])
+        for k in sorted(q["layers"]) if k in quantize._QUANT_KEYS]
+    for name, w, qa in leaves:
+        if not isinstance(qa, quantize.QuantizedTensor):
+            raise AssertionError(f"{name} is not quantized")
+        err = (w.float() - qa.to(torch.float32)).abs()
+        scale = qa.scale.unsqueeze(-2)
+        if not torch.all(err <= scale / 2 + 1e-7):
+            raise AssertionError(f"{name}: |w - dequant(w)| > scale/2")
+        worst = max(worst, (err / scale).max().item())
+        del err
+    _log(f"int8: |w - dequant(w)| <= scale/2 on all {len(leaves)} "
+         f"quantized leaves (largest |w - dequant(w)| / scale "
+         f"{worst:.4f}); tok_embed and norms kept in "
+         f"{q['tok_embed'].dtype}")
+
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    toks = prompts.to(DEV)
+    svc = serving.GenerationService(cfg, q, prefill_window=0, device=DEV)
+    t0 = time.perf_counter()
+    out = svc.complete({"prompt_ids": prompts.tolist(),
+                        "max_new_tokens": NEW})
+    ms = (time.perf_counter() - t0) * 1e3
+    _assert_completion("int8 greedy", out, cfg.vocab_size)
+    with torch.inference_mode():
+        want = generate.generate(cfg, bf16, toks, NEW, device=DEV)
+        agree = (torch.tensor(out["completion_ids"], device=DEV)
+                 == want[:, PROMPT:]).float().mean().item()
+        _, lq = generate.prefill(cfg, q, toks, PROMPT + NEW, device=DEV)
+        _, lb = generate.prefill(cfg, bf16, toks, PROMPT + NEW, device=DEV)
+        rel = ((lq - lb).abs().max() / lb.abs().max().clamp_min(1.0)).item()
+        top1 = (llama.apply(cfg, q, toks).argmax(-1)
+                == llama.apply(cfg, bf16, toks).argmax(-1)).float().mean()
+    _log(f"int8 greedy request: {ms:.1f} ms; completion tokens equal to "
+         f"bf16 weights' {agree:.4f}; last prefill logits max |int8 - "
+         f"bf16| {(lq - lb).abs().max().item():.4e} = {rel:.4f} of the "
+         f"largest bf16 logit (tolerance {INT8_REL_TOL}); top-1 agreement "
+         f"over all {BATCH * PROMPT} prompt positions "
+         f"{top1.item():.4f}")
+    if not torch.isfinite(lq).all() or rel >= INT8_REL_TOL:
+        raise AssertionError(f"int8 logits {rel:.4f} of the largest bf16 "
+                             f"logit off (tolerance {INT8_REL_TOL})")
+    with torch.inference_mode():
+        for name, p in (("bf16", bf16), ("int8", q)):
+            prefill_ms = _time_ms(lambda: generate.prefill(
+                cfg, p, toks, PROMPT + NEW, device=DEV), iters=3, warmup=1)
+            cache, _ = generate.prefill(cfg, p, toks, PROMPT + NEW,
+                                        device=DEV)
+            cos, sin = generate._rope(cfg, PROMPT + NEW, toks.device)
+            decode_ms = _time_ms(lambda: generate._decode_step(
+                cfg, p, cache._replace(length=PROMPT), toks[:, -1], cos,
+                sin), iters=10, warmup=2)
+            _log(f"time {name} weights: prefill b{BATCH} s{PROMPT} "
+                 f"{prefill_ms:.2f} ms, decode step b{BATCH} cache "
+                 f"{PROMPT + NEW} {decode_ms:.2f} ms")
+            del cache
+    del bf16, q
+    torch.cuda.empty_cache()
+
+
+def _speculative(params) -> dict:
+    """f32: greedy spec_generate with a DRAFT draft and with the target as
+    its own draft against plain greedy generate; bf16: single-prompt
+    greedy requests over HTTP, plain, DRAFT-drafted and self-drafted.
+    Returns the launches of the bf16 requests."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        serving,
+        speculative,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    cfg = dataclasses.replace(llama.PRESETS[PRESET], param_dtype="bfloat16")
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT),
+                           generator=torch.Generator().manual_seed(7))
+    toks = prompt.to(DEV)
+
+    # f32 compute (K1 runs its f32 kernel in the prefills)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    d32 = dataclasses.replace(llama.PRESETS[DRAFT], dtype="float32")
+    dparams = llama.init(d32, torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV)
+    want = generate.generate(cfg32, params, toks, NEW, device=DEV)
+    for name, dcfg, dp in ((DRAFT, d32, dparams),
+                           ("self-draft", cfg32, params)):
+        t0 = time.perf_counter()
+        got, stats = speculative.spec_generate(cfg32, params, dcfg, dp, toks,
+                                               NEW, gamma=GAMMA, device=DEV)
+        ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(got, want)
+        _log(f"speculative f32 {name}: token-identical to plain greedy: "
+             f"{same}; {stats}; {ms:.1f} ms")
+        if not same:
+            first = int((got != want).nonzero()[0, 1]) - PROMPT
+            raise AssertionError(f"f32 speculative ({name}) differs from "
+                                 f"plain greedy at new token {first}")
+        if name == "self-draft" and stats["acceptance_rate"] != 1.0:
+            raise AssertionError("self-draft did not accept every proposal")
+    del dparams, want
+    torch.cuda.empty_cache()
+
+    # bf16, through the service over HTTP
+    dcfg = dataclasses.replace(llama.PRESETS[DRAFT], param_dtype="bfloat16")
+    dparams = llama.init(dcfg, torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV)
+    body = {"prompt_ids": prompt.tolist(), "max_new_tokens": NEW}
+    L = cfg.n_layers
+    plain_ids = plain_ms = None
+    total = dict.fromkeys(_counts(fa), 0)
+    for name, draft, k1 in (
+            ("plain", None, L),
+            (f"{DRAFT} draft (random weights)", (dcfg, dparams),
+             L + dcfg.n_layers),
+            ("self-draft", (cfg, params), 2 * L)):
+        svc = serving.GenerationService(cfg, params, prefill_window=0,
+                                        draft=draft, gamma=GAMMA,
+                                        device=DEV)
+        base, stop = _served(svc)
+        _zero(fa)  # this request's counted run
+        try:
+            t0 = time.perf_counter()
+            out = json.loads(_http(base, "/v1/completions", body))
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            counts = _counts(fa)  # read just after
+            stop()
+        total = {k: total[k] + counts[k] for k in total}
+        ids = out["completion_ids"][0]
+        if len(ids) != NEW or counts != {"flash_fwd": k1, "flash_bwd_dq": 0,
+                                         "flash_bwd_dkv": 0}:
+            raise AssertionError(f"{name}: {len(ids)} ids, launches "
+                                 f"{counts}, expected K1 {k1}")
+        stats = out.get("speculative")
+        if draft is None:
+            plain_ids, plain_ms = ids, ms
+            _log(f"speculative bf16 plain greedy request: {ms:.1f} ms for "
+                 f"1 x ({PROMPT} + {NEW}); K1 {k1}; target forwards per "
+                 f"token 1.000 (prefill + {NEW - 1} decode steps)")
+            continue
+        if stats is None:
+            raise AssertionError(f"{name}: no speculative stats")
+        forwards = (1 + stats["proposed"] // GAMMA) / NEW
+        agree = sum(a == b for a, b in zip(ids, plain_ids)) / NEW
+        _log(f"speculative bf16 {name}: {ms:.1f} ms ({ms / plain_ms:.2f}x "
+             f"plain); acceptance {stats['acceptance_rate']:.4f} "
+             f"({stats['accepted']} of {stats['proposed']}); target "
+             f"forwards per token {forwards:.3f} (prefill + verify "
+             f"rounds); tokens equal to plain greedy {agree:.4f}; K1 {k1} "
+             f"({L} target + {k1 - L} draft prefill)")
+    del dparams
+    torch.cuda.empty_cache()
+    return total
+
+
+def _entry_points() -> dict:
+    """The entry points a user runs: ``train.loop``'s CLI twice on one
+    ``--workdir`` (the second run resumes), then the serving CLI on that
+    checkpoint with ``--int8`` and a draft as a subprocess, answering one
+    single-prompt greedy request. Returns the CLI runs' launches."""
+    import contextlib
+    import io
+    import socket
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
     from service_account_auth_improvements_tpu_torch.train import loop
 
-    history = loop.main(["--preset", PRESET, "--batch", str(TRAIN_BATCH),
-                         "--seq", str(TRAIN_SEQ), "--steps", "3",
-                         "--log-every", "1"])
-    if len(history) != 3 or not all(
+    cfg = llama.PRESETS[PRESET]
+    shutil.rmtree(CLI_WORKDIR, ignore_errors=True)
+    argv = ["--preset", PRESET, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--log-every", "1", "--device", DEV,
+            "--workdir", str(CLI_WORKDIR)]
+    _zero(fa)  # the counted run starts here
+    histories, outs = [], []
+    for steps in (2, 3):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            histories.append(loop.main(argv + ["--steps", str(steps)]))
+        outs.append(buf.getvalue())
+        for line in outs[-1].splitlines():
+            _log(f"  train.loop --steps {steps}: {line}")
+    launches = _counts(fa)  # read just after
+    L, n = cfg.n_layers, 3  # 3 steps over both calls
+    if launches != {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+                    "flash_bwd_dkv": L * n}:
+        raise AssertionError(f"train.loop CLI launches {launches}")
+    if "resumed from step 2" not in outs[1]:
+        raise AssertionError("the second train.loop run did not resume")
+    if [len(h) for h in histories] != [2, 1] or not all(
             r["tokens_per_sec"] > 0 and 0 < r.get("mfu", 0) < 1
-            for r in history):
-        raise AssertionError(f"train.loop history lacks tokens/s or mfu: "
-                             f"{history}")
+            for h in histories for r in h):
+        raise AssertionError(f"train.loop histories lack tokens/s or mfu: "
+                             f"{histories}")
     torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", f"{PKG}.models.serving", "--preset", PRESET,
+           "--checkpoint-dir", str(CLI_WORKDIR), "--int8", "--draft-preset",
+           DRAFT, "--prefill-window", "0", "--host", "127.0.0.1", "--port",
+           str(port), "--device", DEV]
+    log_path = CLI_WORKDIR / "serving.log"
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the serving CLI exited with "
+                                     f"{proc.returncode}")
+            try:
+                _http(base, "/healthz")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("the serving CLI did not come up")
+                time.sleep(1)
+        up_s = time.perf_counter() - t0
+        prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT),
+                               generator=torch.Generator().manual_seed(7))
+        t0 = time.perf_counter()
+        out = json.loads(_http(base, "/v1/completions", {
+            "prompt_ids": prompt.tolist(), "max_new_tokens": NEW}))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        for line in log_path.read_text().splitlines():
+            _log(f"  serving CLI: {line}")
+    if len(out["completion_ids"][0]) != NEW or "speculative" not in out:
+        raise AssertionError(f"serving CLI reply {out}")
+    _log(f"serving CLI (--checkpoint-dir --int8 --draft-preset {DRAFT} "
+         f"--prefill-window 0): up in {up_s:.1f} s, one greedy request "
+         f"{ms:.1f} ms, speculative {out['speculative']}; stopped")
+    shutil.rmtree(CLI_WORKDIR, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     phase_device()
-    phase_build()
-    numbers = {"flash_fwd": phase_kernels(), **phase_bwd_kernels()}
-    serving = phase_serving()
-    training = phase_training()
+    _timed("build", phase_build)
+    numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
+               **_timed("kernels K2 and K3", phase_bwd_kernels)}
+    serving = _timed("serving", phase_serving)
+    training = _timed("training", phase_training)
+    lifecycle = phase_lifecycle()
+    _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():
         n = numbers[name]
         by_path = {"serving": serving.get(name, 0),
-                   "training": training["launches"][name]}
+                   "training": training["launches"][name],
+                   **{path: counts.get(name, 0)
+                      for path, counts in lifecycle.items()}}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -209,6 +209,41 @@ PRESETS: dict[str, LlamaConfig] = {
 }
 
 
+def logical_axes(cfg: LlamaConfig) -> dict:
+    """Nested dict (same structure as the params) of logical-axis tuples,
+    as the reference names them. The port shards nothing yet (ROADMAP
+    queue 1, item 8); the names say which params a config has, and
+    ``train.checkpoint.restore_params`` checks a checkpoint against
+    them."""
+    if cfg.moe_experts:
+        ffn = {
+            "router": ("layers", "embed", "expert"),
+            "moe_gate": ("layers", "expert", "embed", "mlp"),
+            "moe_up": ("layers", "expert", "embed", "mlp"),
+            "moe_down": ("layers", "expert", "mlp", "embed"),
+        }
+    else:
+        ffn = {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        }
+    return {
+        "tok_embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "norm"),
+            **ffn,
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def dtype_of(name: str) -> torch.dtype:
     """``"bfloat16"`` → ``torch.bfloat16`` (config dtypes are strings)."""
     dt = getattr(torch, name, None)

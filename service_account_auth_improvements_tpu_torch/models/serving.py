@@ -14,8 +14,12 @@ Prompts go through the fixed-window chunked prefill by default
 per-length prefill, the path that runs flash attention — the Hopper
 kernel — under ``attn_impl="flash"`` presets.
 
-Not ported yet, and refused with an error that names the ROADMAP item:
-int8 weights, tp/fsdp meshes, speculative decoding, checkpoint loading.
+The server completes the train → checkpoint → serve lifecycle: ``main``
+loads a training checkpoint's params (``--checkpoint-dir``), optionally
+as int8 weights (``--int8``, models/quantize.py), and with a draft model
+(``--draft-preset``) decodes single-prompt requests speculatively
+(models/speculative.py). Not ported yet, and refused with an error that
+names the ROADMAP item: tp/fsdp meshes.
 """
 
 from __future__ import annotations
@@ -29,7 +33,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-from service_account_auth_improvements_tpu_torch.models import generate, llama
+from service_account_auth_improvements_tpu_torch.models import (
+    generate,
+    llama,
+    quantize,
+    speculative,
+)
+from service_account_auth_improvements_tpu_torch.train import checkpoint
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -94,10 +104,17 @@ class GenerationService:
                  max_new_cap: int = 512, max_batch: int = 8,
                  max_streams: int = 4, name: str = "llama",
                  prefill_window: int | None = DEFAULT_PREFILL_WINDOW,
-                 device=None):
+                 draft: tuple | None = None, gamma: int = 4, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        # (draft_cfg, draft_params): single-prompt requests without top-k
+        # or top-p decode speculatively — the same output distribution,
+        # fewer target forwards (models/speculative.py)
+        if draft is not None and draft[0].vocab_size != cfg.vocab_size:
+            raise ValueError("draft vocab must match the target's")
+        self.draft = draft
+        self.gamma = gamma
         self.prefill_window = prefill_window or None
         self.max_new_cap = max_new_cap
         self.max_batch = max_batch
@@ -180,13 +197,29 @@ class GenerationService:
     def complete(self, body: dict) -> dict:
         toks, s, n, n_run, sampling, generator = self._parse(body)
         t0 = time.perf_counter()
-        # the chunked decode path the SSE streams use: chunks truncate at
-        # eos and stop early once every row is done
-        completion = [[] for _ in range(toks.shape[0])]
-        for chunk in self._stream_chunks(toks, n, n_run, sampling,
-                                         generator):
-            for row, ids in zip(completion, chunk):
-                row.extend(ids)
+        spec_stats = None
+        if (self.draft is not None and toks.shape[0] == 1
+                and not sampling["top_k"] and not sampling["top_p"]):
+            dcfg, dparams = self.draft
+            # the requested n bounds the decode; the caches get the pow-2
+            # bucket, as the other paths do
+            with self._lock:
+                out, spec_stats = speculative.spec_generate(
+                    self.cfg, self.params, dcfg, dparams, toks, n,
+                    gamma=self.gamma, generator=generator,
+                    temperature=sampling["temperature"],
+                    eos_id=sampling["eos_id"], alloc_tokens=n_run,
+                    prefill_window=self.prefill_window, device=self.device)
+            # spec_generate stops at (and includes) the first eos
+            completion = out[:, s:s + n].tolist()
+        else:
+            # the chunked decode path the SSE streams use: chunks truncate
+            # at eos and stop early once every row is done
+            completion = [[] for _ in range(toks.shape[0])]
+            for chunk in self._stream_chunks(toks, n, n_run, sampling,
+                                             generator):
+                for row, ids in zip(completion, chunk):
+                    row.extend(ids)
         n_tokens = sum(len(r) for r in completion)
         self.m_latency.observe(time.perf_counter() - t0)
         self.m_tokens.inc(n_tokens)
@@ -200,6 +233,7 @@ class GenerationService:
                 "prompt_tokens": toks.shape[0] * s,
                 "completion_tokens": n_tokens,
             },
+            **({"speculative": spec_stats} if spec_stats else {}),
         }
 
     def stream_events(self, body: dict):
@@ -377,48 +411,71 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", choices=("cuda", "cpu"),
                     help="default cuda; the CPU only when asked for")
+    ap.add_argument("--checkpoint-dir",
+                    help="checkpoint directory from train/checkpoint.py "
+                         "(its newest step); random init when omitted "
+                         "(demo mode)")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 (models/quantize.py)")
     ap.add_argument("--max-new-cap", type=int, default=512)
+    ap.add_argument("--tp", type=int, default=1, help="not ported yet")
+    ap.add_argument("--fsdp", type=int, default=1, help="not ported yet")
+    ap.add_argument("--draft-preset",
+                    help="enable speculative decoding with this draft "
+                         "model (same vocab) for single-prompt requests")
+    ap.add_argument("--draft-checkpoint-dir",
+                    help="checkpoint for the draft model (random init "
+                         "without it — demo only: a random draft accepts "
+                         "~nothing and SLOWS serving down)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="draft tokens proposed per verify round")
     ap.add_argument("--prefill-window", type=int,
                     default=DEFAULT_PREFILL_WINDOW,
                     help="prompt-length bucket (fixed-window chunked "
                          "prefill); 0 selects the per-length prefill, "
                          "which runs flash attention")
-    # the reference's other flags, refused until their ROADMAP items land
-    ap.add_argument("--checkpoint-dir", help="not ported yet")
-    ap.add_argument("--int8", action="store_true", help="not ported yet")
-    ap.add_argument("--tp", type=int, default=1, help="not ported yet")
-    ap.add_argument("--fsdp", type=int, default=1, help="not ported yet")
-    ap.add_argument("--draft-preset", help="not ported yet")
     args = ap.parse_args(argv)
-    refused = [
-        (args.checkpoint_dir, "--checkpoint-dir: checkpoint loading",
-         "train: data, checkpoint"),
-        (args.int8, "--int8: int8 weights", "inference extras"),
-        (args.tp != 1 or args.fsdp != 1, "--tp/--fsdp: sharded serving",
-         "parallel"),
-        (args.draft_preset, "--draft-preset: speculative decoding",
-         "inference extras"),
-    ]
-    for given, what, item in refused:
-        if given:
-            raise NotImplementedError(f"{what} is not in the PyTorch port "
-                                      f"yet (ROADMAP queue 1, {item!r})")
+    if args.tp != 1 or args.fsdp != 1:
+        raise NotImplementedError(
+            "--tp/--fsdp: sharded serving is not in the PyTorch port yet "
+            "(ROADMAP queue 1, 'parallel')")
+    if args.gamma < 1:
+        ap.error("--gamma must be >= 1")
     if args.prefill_window < 0:
         ap.error("--prefill-window must be >= 0 (0 disables)")
     device = resolve_device(args.device)
 
     import dataclasses
 
-    cfg = dataclasses.replace(llama.PRESETS[args.preset],
-                              param_dtype="bfloat16")
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = llama.init(cfg, gen, device=device)
+    def load(preset, checkpoint_dir, seed):
+        cfg = dataclasses.replace(llama.PRESETS[preset],
+                                  param_dtype="bfloat16")
+        if checkpoint_dir:
+            # params only: the optimizer moments are never read
+            params = checkpoint.restore_params(checkpoint_dir, None, cfg,
+                                               device=device)
+        else:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = llama.init(cfg, gen, device=device)
+        if args.int8:
+            params = quantize.quantize_params(params)
+        return cfg, params
+
+    cfg, params = load(args.preset, args.checkpoint_dir, 0)
+    draft = None
+    if args.draft_preset:
+        if not args.draft_checkpoint_dir:
+            print("WARNING: random-init draft (no --draft-checkpoint-dir) "
+                  "— demo only, acceptance will be ~0")
+        draft = load(args.draft_preset, args.draft_checkpoint_dir, 1)
     service = GenerationService(cfg, params, max_new_cap=args.max_new_cap,
                                 name=args.preset,
                                 prefill_window=args.prefill_window,
+                                draft=draft, gamma=args.gamma,
                                 device=device)
     httpd = make_server(service, args.host, args.port)
-    print(f"serving {args.preset} on {httpd.server_address} ({device})")
+    print(f"serving {args.preset} on {httpd.server_address} ({device})",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,16 +1,19 @@
-"""The training loop: data → step → logs (port of ``train/loop.py``).
+"""The training loop: data → step → checkpoint/resume → logs (port of
+``train/loop.py``).
 
 ``fit`` runs ``make_train_step`` over deterministic ``TokenBatches`` on one
-card and logs loss, tokens/s and MFU. Runnable as a module:
-``python -m service_account_auth_improvements_tpu_torch.train.loop
---preset bench_800m --batch 8 --seq 2048 --steps 10`` (on the card; add
+card, restores the latest checkpoint of its ``workdir`` if there is one,
+checkpoints every ``ckpt_every`` steps (and at the end), evaluates held-out
+batches every ``eval_every`` steps, and logs loss, tokens/s and MFU. A
+culled or preempted notebook resumes exactly where it left off, data order
+included. Runnable as a module: ``python -m
+service_account_auth_improvements_tpu_torch.train.loop --preset bench_800m
+--batch 8 --seq 2048 --steps 10 --workdir <dir>`` (on the card; add
 ``--device cpu`` only with a small preset).
 
-Not ported yet, and raising with their ROADMAP items when asked for:
-checkpointing and resume (``workdir``, ``ckpt_every``) and periodic
-evaluation (``eval_data``, ``eval_every``), queue 1 item 4; LoRA
-fine-tuning (``lora``, ``base_params``), item 7; a mesh and the mesh-axis
-flags, item 8.
+Not ported yet, and raising with their ROADMAP items when asked for: LoRA
+fine-tuning (``lora``, ``base_params``), queue 1 item 7; a mesh and the
+mesh-axis flags, item 8.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ import numpy as np
 import torch
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.train import (
+    checkpoint as ckpt,
+    evaluate,
+)
 from service_account_auth_improvements_tpu_torch.train.data import (
     DataConfig,
     TokenBatches,
@@ -39,9 +46,6 @@ from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
 
-_CKPT_TODO = ("checkpointing, resume and evaluation are not ported yet "
-              "(ROADMAP queue 1, item 4)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LoopConfig:
@@ -55,20 +59,29 @@ class LoopConfig:
 def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         loop: LoopConfig, optimizer=None, log=print, eval_data=None,
         lora=None, base_params=None, device=None):
-    """Train for ``loop.steps`` optimizer steps from a fresh init (seed 0)
-    on ``device`` (the card unless ``"cpu"``); returns (state, history).
+    """Train until ``loop.steps`` optimizer steps on ``device`` (the card
+    unless ``"cpu"``); returns (state, history).
+
+    Resume: if ``loop.workdir`` holds a checkpoint, its state is restored
+    into a fresh init's tensors and training continues from its step; the
+    batches are pure in the step, so the run equals one that never
+    stopped. Otherwise training starts from a fresh init (seed 0).
+
+    ``eval_data``: held-out batches (tokens, or (tokens, mask) pairs);
+    with ``loop.eval_every`` set, a perplexity eval runs on that cadence
+    and lands in history as ``eval_loss``/``eval_perplexity`` records
+    (without it, ``eval_data`` is ignored, as in the reference).
+
     History records carry ``step``, ``loss``, ``tokens_per_sec`` and, on
     a card with a known peak, ``mfu``. The clock starts after the first
     step, which carries the kernel builds and library warm-up; a record
-    logged before any later step has finished times that first step."""
+    logged before any later step has finished times that first step. Eval
+    and checkpoint writes are kept out of the clock: tokens/s and MFU
+    describe train steps."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded training (mesh) is not ported yet (ROADMAP queue 1, "
             "item 8, \"parallel\")")
-    if loop.workdir is not None or loop.ckpt_every:
-        raise NotImplementedError(_CKPT_TODO)
-    if eval_data is not None or loop.eval_every:
-        raise NotImplementedError(_CKPT_TODO)
     if lora is not None or base_params is not None:
         raise NotImplementedError(
             "LoRA fine-tuning is not ported yet (ROADMAP queue 1, item 7)")
@@ -78,6 +91,13 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
     state = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(0), optimizer,
         device=dev)
+    start = 0
+    if loop.workdir is not None and ckpt.latest_step(loop.workdir) is not None:
+        t = time.perf_counter()
+        state = ckpt.restore(loop.workdir, None, cfg, state)
+        start = state.step
+        log(f"resumed from step {start} (restored in "
+            f"{time.perf_counter() - t:.2f} s)")
     packed = data_cfg.eos_id is not None
     step_fn = make_train_step(
         cfg, optimizer=optimizer, packed=packed,
@@ -86,12 +106,25 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         segment_eos_id=(data_cfg.eos_id
                         if packed and cfg.attn_impl == "dense" else None),
     )
+    eval_step = None
+    if loop.eval_every and eval_data is not None:
+        eval_step = evaluate.make_eval_step(cfg, packed=packed)
+        # the eval set is iterated at every cadence: a generator would be
+        # exhausted after the first eval
+        eval_data = list(eval_data)
     peak = chip_peak_flops(dev)
     history = []
     tokens_per_step = data_cfg.batch * (data_cfg.seq - 1)
     t0 = timed_from = None
     t_first = time.perf_counter()
-    for i in range(loop.steps):
+
+    def save():
+        t = time.perf_counter()
+        ckpt.save(loop.workdir, state)
+        log(f"saved checkpoint step {state.step} in "
+            f"{time.perf_counter() - t:.2f} s")
+
+    for i in range(start, loop.steps):
         batch, mask = data.masked_batch_at(i)
         state, metrics = step_fn(state, batch, mask)
         if t0 is None:
@@ -117,6 +150,28 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
                 f"({step_s:.2f}s/step, {tok_s:,.0f} tok/s"
                 + (f", mfu={rec['mfu']:.3f}" if "mfu" in rec else "")
                 + ")")
+        do_eval = eval_step is not None and (i + 1) % loop.eval_every == 0
+        do_save = (loop.workdir is not None and loop.ckpt_every
+                   and (i + 1) % loop.ckpt_every == 0)
+        if do_eval or do_save:
+            # the step's queued work finishes before the pause is timed
+            metrics["loss"].item()
+            t_pause = time.perf_counter()
+            if do_eval:
+                ev = evaluate.evaluate(cfg, state.params, eval_data,
+                                       step=eval_step, device=dev)
+                history.append({"step": i + 1,
+                                "eval_loss": round(ev["loss"], 4),
+                                "eval_perplexity": ev["perplexity"],
+                                "eval_tokens": ev["tokens"]})
+                log(f"step {i + 1}/{loop.steps} eval "
+                    f"loss={ev['loss']:.4f} ppl={ev['perplexity']:.1f}")
+            if do_save:
+                save()
+            t0 += time.perf_counter() - t_pause
+    if (loop.workdir is not None and state.step > start
+            and ckpt.latest_step(loop.workdir) != state.step):
+        save()
     return state, history
 
 

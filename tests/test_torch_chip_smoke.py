@@ -61,3 +61,20 @@ def test_kernel_variant_edits_match_the_source(variant):
         assert new in out
     with pytest.raises(ValueError, match="exactly once"):
         kernel_variants.variant_source(variant, src + src)
+
+
+def test_lifecycle_settings():
+    """The lifecycle phase's draft shares the target's vocabulary, resumes
+    mid-run, and keeps its checkpoints under the gitignored build/."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    target = llama.PRESETS[chip_smoke.PRESET]
+    draft = llama.PRESETS[chip_smoke.DRAFT]
+    assert draft.vocab_size == target.vocab_size
+    assert draft.attn_impl == target.attn_impl == "flash"
+    assert 0 < chip_smoke.RESUME_AT < chip_smoke.LIFECYCLE_STEPS
+    assert chip_smoke.LIFECYCLE_STEPS % chip_smoke.RESUME_AT == 0
+    ignored = (ROOT / ".gitignore").read_text().splitlines()
+    assert "/build/" in ignored
+    for workdir in (chip_smoke.WORKDIR, chip_smoke.CLI_WORKDIR):
+        assert workdir.parent == ROOT / "build"

@@ -239,3 +239,118 @@ def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
         assert abs(lf - ld) <= tol * max(1.0, abs(ld))
         assert abs(gf - gd) <= tol * max(1.0, abs(gd))
     assert metrics["flash"][-1][0] < metrics["flash"][0][0]
+
+
+def _small_flash_cfg(dtype="bfloat16"):
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    return dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
+        head_dim=128, dtype=dtype, attn_impl="flash", loss_chunk=48)
+
+
+@pytest.mark.cuda
+def test_fit_resume_equals_uninterrupted_on_cuda(cuda, tmp_path):
+    """A small flash config on the card: 4 steps straight against 2 into
+    a workdir and a resumed fit of 4. K2 and K3 are deterministic and the
+    batches pure in the step, so every param and moment is bit-equal."""
+    from service_account_auth_improvements_tpu_torch.train import (
+        loop,
+        step,
+    )
+    from service_account_auth_improvements_tpu_torch.train.data import (
+        DataConfig,
+    )
+
+    cfg = _small_flash_cfg()
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 2 * 100 * 8).astype(np.int32)
+    data = DataConfig(batch=2, seq=100)
+
+    def fit(steps, workdir=None):
+        logs = []
+        state, _ = loop.fit(cfg, None, tokens, data,
+                            loop.LoopConfig(steps=steps, log_every=1,
+                                            workdir=workdir),
+                            log=logs.append)
+        return state, logs
+
+    straight, _ = fit(4)
+    fit(2, str(tmp_path))
+    resumed, logs = fit(4, str(tmp_path))
+    assert any(line.startswith("resumed from step 2") for line in logs)
+    for tree in ("params", "mu", "nu"):
+        a = (straight.params if tree == "params"
+             else getattr(straight.opt_state, tree))
+        b = (resumed.params if tree == "params"
+             else getattr(resumed.opt_state, tree))
+        for (name, x), (_, y) in zip(step._leaves(a), step._leaves(b)):
+            assert torch.equal(x, y), (tree, name)
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_cuda_loads_to_cpu_and_cuda(cuda, tmp_path):
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
+        step,
+    )
+
+    cfg = _small_flash_cfg()
+    opt = step.make_optimizer(mu_dtype="bfloat16")
+    state = step.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), opt)
+    checkpoint.save(tmp_path, state._replace(step=3))
+    for dev in ("cpu", "cuda"):
+        params = checkpoint.restore_params(tmp_path, None, cfg, device=dev)
+        for (name, a), (_, b) in zip(step._leaves(params),
+                                     step._leaves(state.params)):
+            assert a.device.type == dev and torch.equal(a.cpu(), b.cpu())
+        like = step.init_train_state(cfg, torch.Generator().manual_seed(1),
+                                     opt, device=dev)
+        got = checkpoint.restore(tmp_path, None, cfg, like)
+        assert got.step == 3
+        assert got.opt_state.mu["lm_head"].dtype == torch.bfloat16
+        assert got.opt_state.mu["lm_head"].device.type == dev
+
+
+@pytest.mark.cuda
+def test_quantized_tensor_dequantizes_on_cuda_within_bound(cuda):
+    from service_account_auth_improvements_tpu_torch.models import quantize
+
+    w = torch.randn((3, 256, 384), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    qa = quantize.quantize_array(w)
+    assert qa.device.type == "cuda" and qa.values.dtype == torch.int8
+    err = (w - qa.to(torch.float32)).abs()
+    assert torch.all(err <= qa.scale.unsqueeze(-2) / 2 + 1e-7)
+    cpu = quantize.quantize_array(w.cpu())
+    assert torch.equal(cpu.values, qa.values.cpu())
+    assert torch.equal(cpu.scale, qa.scale.cpu())
+
+
+@pytest.mark.cuda
+def test_greedy_speculative_equals_plain_greedy_on_cuda(cuda):
+    """f32, a flash target (K1 in both prefills) and a smaller draft:
+    speculative greedy ids equal plain greedy ids; self-draft accepts
+    every proposal."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        speculative,
+    )
+
+    cfg = _small_flash_cfg("float32")
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    dparams = llama.init(dcfg,
+                         torch.Generator(device="cuda").manual_seed(1))
+    prompt = torch.randint(0, cfg.vocab_size, (1, 70), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    want = generate.generate(cfg, params, prompt, 24)
+    got, stats = speculative.spec_generate(cfg, params, dcfg, dparams,
+                                           prompt, 24, gamma=3)
+    assert torch.equal(got, want) and stats["proposed"] > 0
+    got, stats = speculative.spec_generate(cfg, params, cfg, params,
+                                           prompt, 24, gamma=4)
+    assert torch.equal(got, want) and stats["acceptance_rate"] == 1.0

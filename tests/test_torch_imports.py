@@ -60,6 +60,26 @@ def test_port_and_chip_smoke_import_without_jax():
     assert out.stdout.strip() == f"imported {n}"
 
 
+# the lifecycle slice's modules, each imported alone under the blocker
+LIFECYCLE = ["train.checkpoint", "train.evaluate", "models.quantize",
+             "models.speculative"]
+
+
+@pytest.mark.parametrize("module", LIFECYCLE)
+def test_lifecycle_module_imports_without_jax(module):
+    probe = BLOCKER.replace(
+        "for name in names:\n"
+        "    importlib.import_module(name.removesuffix(\".__init__\"))\n",
+        f"names = [{PORT + '.' + module!r}]\n"
+        "importlib.import_module(names[0])\n")
+    assert probe != BLOCKER
+    out = subprocess.run([sys.executable, "-c", probe, str(REPO)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported 3"
+
+
 def test_blocker_blocks():
     """The finder really refuses the JAX package (and not the port)."""
     probe = BLOCKER.replace('importlib.import_module("chip_smoke")',
@@ -73,14 +93,17 @@ def test_blocker_blocks():
         in out.stderr
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from service_account_auth_improvements_tpu_torch.models import (
         generate,
         llama,
         serving,
+        speculative,
     )
     from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
         data,
+        evaluate,
         loop,
         step,
     )
@@ -91,6 +114,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         llama.init(cfg, torch.Generator())
     params = llama.init(cfg, torch.Generator(), device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
+    ck = tmp_path / "ck"
+    checkpoint.save(ck, step.init_train_state(cfg, torch.Generator(),
+                                              device="cpu"))
     for call in (
         lambda: generate.prefill(cfg, params, toks, 8),
         lambda: generate.prefill_chunked(cfg, params, toks, 8, window=4),
@@ -105,6 +131,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                          data.DataConfig(batch=1, seq=8),
                          loop.LoopConfig(steps=1)),
         lambda: loop.main(["--preset", "tiny", "--steps", "1"]),
+        lambda: checkpoint.restore_params(ck, None, cfg),
+        lambda: evaluate.evaluate(cfg, params, [toks]),
+        lambda: speculative.spec_generate(cfg, params, cfg, params, toks, 2),
+        lambda: serving.main(["--preset", "tiny", "--port", "0",
+                              "--checkpoint-dir", str(ck), "--int8"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

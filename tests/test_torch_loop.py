@@ -1,5 +1,6 @@
 """The port's training loop (train/loop.py) on the CPU: it trains, logs,
-and refuses what is not ported yet with the ROADMAP item to look at."""
+checkpoints, resumes bit for bit, evaluates on its cadence, and refuses
+what is not ported yet with the ROADMAP item to look at."""
 
 import dataclasses
 
@@ -50,10 +51,6 @@ def test_fit_packed_flash_config_runs():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(loop_cfg=dict(workdir="/nonexistent")), "item 4"),
-    (dict(loop_cfg=dict(ckpt_every=5)), "item 4"),
-    (dict(loop_cfg=dict(eval_every=5)), "item 4"),
-    (dict(eval_data=[]), "item 4"),
     (dict(lora=object()), "item 7"),
     (dict(mesh=object()), "item 8"),
 ])
@@ -73,5 +70,76 @@ def test_main_cli(capsys):
     assert "step 1/2 loss=" in out and "step 2/2 loss=" in out
     with pytest.raises(NotImplementedError, match="item 8"):
         loop.main(["--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        loop.main(["--workdir", "/nonexistent", "--device", "cpu"])
+
+
+def _fit(steps, logs, **kw):
+    eval_data = kw.pop("eval_data", None)
+    return loop.fit(CFG, None, TOKENS, DataConfig(batch=4, seq=64),
+                    loop.LoopConfig(steps=steps, log_every=1, **kw),
+                    log=logs.append, eval_data=eval_data, device="cpu")
+
+
+def _leaves(state):
+    from service_account_auth_improvements_tpu_torch.train.step import (
+        _leaves,
+    )
+
+    return [t for tree in (state.params, state.opt_state.mu,
+                           state.opt_state.nu) for _, t in _leaves(tree)]
+
+
+def test_fit_resumes_from_its_workdir_bitwise(tmp_path):
+    """4 steps straight against 2 steps into a workdir and a fresh fit of
+    4 on it: the second fit logs the resume, runs steps 3 and 4 only, and
+    ends with the same bits in every param and moment."""
+    straight, _ = _fit(4, [])
+    logs = []
+    half, _ = _fit(2, logs, workdir=str(tmp_path), ckpt_every=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["2"]
+    resumed, history = _fit(4, logs, workdir=str(tmp_path), ckpt_every=2)
+    assert any(line.startswith("resumed from step 2") for line in logs)
+    assert [r["step"] for r in history] == [3, 4]
+    assert (resumed.step, resumed.opt_state.count) == (4, 4)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(resumed),
+                                                 _leaves(straight)))
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["2", "4"]
+    # the end-of-run save of step 4 coincided with ckpt_every: one write
+    assert sum("saved checkpoint step 4" in line for line in logs) == 1
+    # nothing left to do: no step runs and nothing is written
+    again, history = _fit(4, logs, workdir=str(tmp_path))
+    assert history == [] and again.step == 4
+
+
+def test_fit_periodic_eval_records():
+    held_out = [TOKENS[:256].reshape(4, 64),
+                (TOKENS[256:512].reshape(4, 64), np.ones((4, 64), np.int32))]
+    logs = []
+    _, history = _fit(4, logs, eval_every=2, eval_data=iter(held_out))
+    evals = [r for r in history if "eval_loss" in r]
+    assert [r["step"] for r in evals] == [2, 4]
+    for r in evals:
+        assert set(r) == {"step", "eval_loss", "eval_perplexity",
+                          "eval_tokens"}
+        assert r["eval_tokens"] == 2 * 4 * 63
+        assert r["eval_perplexity"] == pytest.approx(
+            np.exp(r["eval_loss"]), rel=1e-3)
+    assert evals[1]["eval_loss"] < evals[0]["eval_loss"]  # it learns
+    assert sum(" eval loss=" in line for line in logs) == 2
+
+
+def test_fit_accepts_eval_data_without_eval_every():
+    """The reference accepts eval_data with eval_every 0 and ignores it."""
+    _, history = _fit(2, [], eval_data=[TOKENS[:128].reshape(2, 64)])
+    assert [r["step"] for r in history] == [1, 2]
+
+
+def test_main_cli_resumes_from_workdir(tmp_path, capsys):
+    argv = ["--preset", "tiny", "--batch", "2", "--seq", "16",
+            "--log-every", "1", "--device", "cpu", "--workdir",
+            str(tmp_path)]
+    loop.main(argv + ["--steps", "1"])
+    history = loop.main(argv + ["--steps", "2", "--ckpt-every", "1"])
+    out = capsys.readouterr().out
+    assert "resumed from step 1" in out and "step 2/2 loss=" in out
+    assert [r["step"] for r in history] == [2]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["1", "2"]

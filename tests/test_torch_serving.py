@@ -2,7 +2,9 @@
 
 Greedy completions of the port's GenerationService must equal the JAX
 service's, ids for ids, for the same body (float32, tiny preset), both
-with the per-length prefill (prefill_window None) and the chunked one.
+with the per-length prefill (prefill_window None) and the chunked one,
+with and without a speculative draft. ``main`` serves a training
+checkpoint, int8 weights and a draft model.
 """
 
 import dataclasses
@@ -141,7 +143,105 @@ def test_http_round_trip(weights):
 
 
 def test_main_refuses_unported_flags():
-    for argv in (["--int8"], ["--tp", "2"], ["--draft-preset", "tiny"],
-                 ["--checkpoint-dir", "/nonexistent"]):
+    for argv in (["--tp", "2"],):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserving.main(["--preset", "tiny", "--device", "cpu", *argv])
+
+
+def _draft_cfg(cfg):
+    return dataclasses.replace(cfg, n_layers=1, dim=32, n_heads=2,
+                               n_kv_heads=2, head_dim=16, mlp_dim=64)
+
+
+def test_speculative_service_matches_plain(weights):
+    """With a draft wired in, single-prompt greedy completions equal the
+    plain service's, ids for ids (the speculative guarantee), and the JAX
+    speculative service's, acceptance stats included; batch > 1 and top-k
+    requests take the plain path (no stats)."""
+    dcfg = _draft_cfg(CFG)
+    dtree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                         jllama.init(dcfg, jax.random.key(9)))
+    tdcfg = tllama.LlamaConfig(**dataclasses.asdict(dcfg))
+    draft = (tdcfg, tparams.from_numpy(dtree, tdcfg, "cpu"))
+    body = {"prompt_ids": [[3, 1, 4, 1]], "max_new_tokens": 8}
+    plain = port_service(weights).complete(dict(body))
+    for window in (None, 8):
+        spec = port_service(weights, draft=draft, gamma=3,
+                            prefill_window=window)
+        got = spec.complete(dict(body))
+        want = jserving.GenerationService(
+            CFG, weights[0], max_new_cap=32, name="tiny",
+            draft=(dcfg, dtree), gamma=3,
+            prefill_window=window).complete(dict(body))
+        assert got["completion_ids"] == plain["completion_ids"]
+        assert got == want
+        assert 0.0 <= got["speculative"]["acceptance_rate"] <= 1.0
+    multi = spec.complete({"prompt_ids": [[1, 2], [3, 4]],
+                           "max_new_tokens": 4})
+    assert "speculative" not in multi
+    top_k = spec.complete(dict(body, temperature=0.7, top_k=4))
+    assert "speculative" not in top_k
+    with pytest.raises(ValueError, match="vocab"):
+        port_service(weights, draft=(dataclasses.replace(
+            tdcfg, vocab_size=CFG.vocab_size + 1), draft[1]))
+
+
+@pytest.fixture
+def served(monkeypatch):
+    """main()'s GenerationService, captured instead of served."""
+    got = {}
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    def make_server(service, host, port):
+        got["service"] = service
+        return Server()
+
+    monkeypatch.setattr(tserving, "make_server", make_server)
+    return got
+
+
+def test_main_serves_checkpoint_int8_and_draft(tmp_path, served):
+    """--checkpoint-dir restores the params a training run saved (f32
+    master weights, opt.pt unread), --int8 quantizes target and draft,
+    --draft-preset turns single-prompt requests speculative."""
+    from service_account_auth_improvements_tpu_torch.models import quantize
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
+        step,
+    )
+
+    cfg = tllama.PRESETS["tiny"]
+    state = step.init_train_state(cfg, torch.Generator().manual_seed(3),
+                                  device="cpu")
+    checkpoint.save(tmp_path / "ck", state)
+    (tmp_path / "ck" / "0" / "opt.pt").unlink()
+    argv = ["--preset", "tiny", "--device", "cpu", "--checkpoint-dir",
+            str(tmp_path / "ck"), "--prefill-window", "0"]
+    assert tserving.main(argv) == 0
+    svc = served["service"]
+    assert svc.draft is None and svc.prefill_window is None
+    assert torch.equal(svc.params["lm_head"], state.params["lm_head"])
+    assert svc.params["lm_head"].dtype == torch.float32
+
+    assert tserving.main(argv + ["--int8", "--draft-preset", "tiny",
+                                 "--gamma", "3"]) == 0
+    svc = served["service"]
+    assert isinstance(svc.params["lm_head"], quantize.QuantizedTensor)
+    want = quantize.quantize_array(state.params["lm_head"])
+    assert torch.equal(svc.params["lm_head"].values, want.values)
+    dcfg, dparams = svc.draft
+    assert dcfg.param_dtype == "bfloat16" and svc.gamma == 3
+    assert isinstance(dparams["layers"]["wq"], quantize.QuantizedTensor)
+    out = svc.complete({"prompt_ids": [[5, 6, 7]], "max_new_tokens": 6})
+    assert len(out["completion_ids"][0]) == 6
+    assert out["speculative"]["proposed"] > 0
+    with pytest.raises(SystemExit):
+        tserving.main(argv + ["--gamma", "0"])

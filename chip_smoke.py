@@ -37,7 +37,15 @@ no network. Phases, each of which raises on failure:
    draft (f32: token-identical to plain greedy; bf16: over HTTP, with
    acceptance and latency); the ``train.loop`` CLI resuming from its
    ``--workdir`` and the serving CLI with ``--checkpoint-dir --int8
-   --draft-preset`` as a subprocess.
+   --draft-preset`` as a subprocess;
+7. mixture of experts at ``bench_moe`` (4 experts, switch top-1) and its
+   Mixtral top-2 row: ``make_train_step`` at batch 8, seq 2048 with exact
+   launch counts per step, a falling finite loss, the aux loss per step,
+   step time, tokens/s, MFU, peak memory and a profile grouped into
+   routing, dispatch and combine, expert products and the kernels; one
+   step twice from one state, bitwise equal; flash against dense at full
+   width (the share of routing choices that agree, and the gradients);
+   ``GenerationService`` over HTTP with per-length and windowed prefill.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -122,6 +130,30 @@ INT8_REL_TOL = 0.05
 WORKDIR = ROOT / "build" / "chip_smoke_lifecycle"
 CLI_WORKDIR = ROOT / "build" / "chip_smoke_cli"
 DEV = "cuda"
+
+# MoE path: bench.py's MoE row (bench_moe: 4 experts, switch top-1, the
+# 400m attention geometry) trains TRAIN_STEPS steps at the training shape;
+# its top-k routing row (moe_top_k=2, as bench.py builds bench_moe_top2)
+# MOE_TOP2_STEPS. Both serve as the serving path does.
+MOE_PRESET, MOE_TOP2_STEPS = "bench_moe", 3
+# its query and KV heads: the kernel checks hold K1/K2/K3 against their
+# plain versions at the shapes its training and prefill give them
+MOE_HEADS, MOE_KV_HEADS = 8, 4
+# flash against dense attention at full width (b 2, s 512, f32): routing
+# is discontinuous, so a summation-order difference can move a near-tie
+# token to another expert (and, under capacity, shift its group's later
+# claims). At least MOE_ROUTING_AGREE of the top-k choices must agree.
+# The gradients are held to the dense model's f32 tolerances when every
+# choice agrees; a moved token changes two experts' gradients by its own
+# contribution, so then the leaf bound is the bf16 one (GRAD_TOL).
+MOE_ROUTING_AGREE = 0.999
+# the profile's MoE routing group: the aten ops (by exact name) of the
+# router softmax and its backward, the top-k sort, the capacity cumsum and
+# the one-hots (one_hot fills by scatter_; the capacity one-hot is an eq)
+MOE_ROUTING_OPS = frozenset({
+    "aten::softmax", "aten::_softmax", "aten::_softmax_backward_data",
+    "aten::sort", "aten::cumsum", "aten::one_hot", "aten::scatter_",
+    "aten::eq"})
 
 
 def _log(msg: str) -> None:
@@ -260,6 +292,11 @@ def phase_kernels() -> dict:
         # name, b, s, h, hkv, d, dtype, causal, through the public wrapper
         ("train gqa s2048 bf16", TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128,
          torch.bfloat16, True, False),
+        # MOE_PRESET's training and per-length prefill shapes
+        ("moe train gqa s2048 bf16", TRAIN_BATCH, TRAIN_SEQ, MOE_HEADS,
+         MOE_KV_HEADS, 128, torch.bfloat16, True, False),
+        ("moe prefill s1000 bf16 wrapper", BATCH, PROMPT, MOE_HEADS,
+         MOE_KV_HEADS, 128, torch.bfloat16, True, True),
         ("gqa s1024 bf16", 4, 1024, 12, 4, 128, torch.bfloat16, True, False),
         ("gqa s1024 f32", 4, 1024, 12, 4, 128, torch.float32, True, False),
         ("gqa s1000 bf16 wrapper", 4, 1000, 12, 4, 128, torch.bfloat16,
@@ -378,6 +415,9 @@ def phase_bwd_kernels() -> dict:
          torch.bfloat16, True),
         ("train gqa s2048 f32", TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128,
          torch.float32, True),
+        # MOE_PRESET's training shape
+        ("moe train gqa s2048 bf16", TRAIN_BATCH, TRAIN_SEQ, MOE_HEADS,
+         MOE_KV_HEADS, 128, torch.bfloat16, True),
         ("mha s512 bf16", 2, 512, 8, 8, 128, torch.bfloat16, True),
         ("non-causal s512 bf16", 2, 512, 12, 4, 128, torch.bfloat16, False),
         ("non-causal s512 f32", 2, 512, 12, 4, 128, torch.float32, False),
@@ -677,14 +717,16 @@ def phase_serving() -> dict:
 def _profile_request(cfg, params, toks, generate) -> None:
     """One greedy request's work (per-length prefill + NEW - 1 decode
     steps) under torch.profiler: the card's busy time by kernel, and its
-    idle share of the wall time (the profiler's own overhead included)."""
+    idle share of the wall time (the profiler's own overhead included).
+    It records the card's kernels only: an eager MoE request runs about
+    a million host ops, whose post-processing alone would take minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate.generate(cfg, params, toks, NEW, device="cuda")
+        generate.generate(cfg, params, toks, NEW,
+                          device=toks.device.type)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1429,6 +1471,380 @@ def _entry_points() -> dict:
     return launches
 
 
+def phase_moe() -> dict:
+    """The mixture-of-experts path at MOE_PRESET: training (top-1 and
+    top-2), one step twice from one state, flash against dense, serving.
+    Returns the kernel launches of each counted path."""
+    import dataclasses
+    import gc
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the lifecycle's tensors are gone
+    cfg = llama.PRESETS[MOE_PRESET]
+    if not (cfg.moe_experts and cfg.moe_top_k == 1 and cfg.remat
+            and cfg.remat_policy == "full" and cfg.loss_chunk
+            and cfg.attn_impl == "flash" and cfg.param_dtype == "float32"):
+        raise AssertionError(f"{MOE_PRESET} is not the MoE configuration")
+    launches = {"moe_training": _timed("moe training", _moe_training, cfg)}
+    top2 = dataclasses.replace(cfg, moe_top_k=2)
+    launches["moe_training_top2"] = _timed(
+        "moe training top-2", lambda: _moe_train(top2, MOE_TOP2_STEPS,
+                                                 "top-2")[0])
+    _timed("moe flash vs dense", _moe_flash_vs_dense, cfg)
+    launches["moe_serving"] = _timed("moe serving", _moe_serving, cfg)
+    return launches
+
+
+def _moe_train(cfg, steps, name):
+    """``steps`` train steps of ``cfg`` at batch TRAIN_BATCH x TRAIN_SEQ
+    on one fixed batch, the first a warm-up outside the clock. Each
+    step's aux loss is read from the step's own MoE layers (their aux,
+    detached, recorded as they run: no forward of its own; the first L
+    calls of a step are its forward, any after them the remat
+    recompute). Checks the launches of every step, a falling finite loss
+    and a finite aux.
+    Returns (launches of the run, step ms, state, step, tokens, mask)."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+    from service_account_auth_improvements_tpu_torch.train.mfu import (
+        chip_peak_flops,
+        mfu,
+    )
+
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    state = step_mod.init_train_state(
+        cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    step = step_mod.make_train_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=torch.Generator(device=DEV)
+                           .manual_seed(2), device=DEV)
+    mask = torch.ones_like(tokens)
+    g = min(cfg.moe_group_size, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    _log(f"moe {name}: {MOE_PRESET} ({cfg.param_count() / 1e6:.1f}M params, "
+         f"{cfg.active_matmul_param_count() / 1e6:.1f}M matmul-active, "
+         f"{cfg.moe_experts} experts, top-{cfg.moe_top_k}), batch "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_BATCH * TRAIN_SEQ // g} "
+         f"routing groups of {g}, capacity {cfg.moe_cap(g)}")
+    events, metrics, per_step, layer_aux, firsts = [], [], [], [], []
+    host = []  # host seconds to issue each step (the step does not sync)
+    moe_ffn = llama._moe_ffn
+
+    def recording(*args, **kwargs):
+        out, aux = moe_ffn(*args, **kwargs)
+        layer_aux.append(aux.detach())
+        return out, aux
+
+    llama._moe_ffn = recording
+    try:
+        _zero(fa)  # the counted run starts here
+        for _ in range(steps):
+            firsts.append(len(layer_aux))
+            before = tuple(_counts(fa).values())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            state, m = step(state, tokens, mask)
+            host.append(time.perf_counter() - t0)
+            end.record()
+            per_step.append(tuple(a - b for a, b in
+                                  zip(_counts(fa).values(), before)))
+            events.append((start, end))
+            metrics.append(m)
+        torch.cuda.synchronize()
+        launches = _counts(fa)  # read just after the run
+    finally:
+        llama._moe_ffn = moe_ffn
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    want = (2 * L, L, L)
+    if any(d != want for d in per_step):
+        raise AssertionError(f"moe {name} launches per step {per_step}, "
+                             f"expected K1 {2 * L}, K2 {L}, K3 {L}")
+    if launches != {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                    "flash_bwd_dkv": L * steps}:
+        raise AssertionError(f"moe {name} launches {launches}")
+    auxes = [float(torch.stack(layer_aux[i:i + L]).sum()) for i in firsts]
+    step_ms = sum(s.elapsed_time(e) for s, e in events[1:]) / (steps - 1)
+    host_ms = sum(host[1:]) / (steps - 1) * 1e3
+    tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    tok_s = tokens_per_step / (step_ms / 1e3)
+    flops = cfg.flops_per_token(TRAIN_SEQ)
+    util = mfu(flops * tokens_per_step, step_ms / 1e3, 1, chip_peak_flops())
+    _log(f"moe {name}: launches {launches} = per step exactly K1 {2 * L} "
+         f"(forward + recompute), K2 {L}, K3 {L} in each of {steps} steps")
+    _log(f"moe {name}: losses {[round(x, 4) for x in losses]}, grad norms "
+         f"{[round(x, 4) for x in norms]}, aux of each step per layer "
+         f"{[round(x / L, 4) for x in auxes]} (the sum over {L} layers / "
+         f"{L}; 1 = balanced)")
+    if not all(map(torch.isfinite, map(torch.tensor,
+                                       losses + norms + auxes))):
+        raise AssertionError(f"moe {name}: non-finite loss, norm or aux")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe {name}: loss did not fall: {losses}")
+    _log(f"moe {name}: step {step_ms:.2f} ms (CUDA events, mean of "
+         f"{steps - 1} steps after one warm-up), {tok_s:.1f} tokens/s, mfu "
+         f"{util:.4f} ({flops / 1e9:.4f} GFLOP/token, "
+         f"{flops * tokens_per_step / 1e12:.2f} TFLOP/step), peak memory "
+         f"{peak_mem / 2**30:.2f} GiB; the host issued a step in "
+         f"{host_ms:.2f} ms (host clock, the same steps)")
+    return launches, step_ms, state, step, tokens, mask
+
+
+def _moe_training(cfg) -> dict:
+    """MOE_PRESET's counted training run (TRAIN_STEPS steps), a grouped
+    profile of one step, and one step twice from one copied state."""
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    launches, step_ms, state, step, tokens, mask = _moe_train(
+        cfg, TRAIN_STEPS, "top-1")
+    _profile_moe_step(cfg, step, state, tokens, mask, step_ms)
+    copy = step_mod.TrainState(
+        state.step, step_mod._map(torch.clone, state.params),
+        step_mod.AdamState(state.opt_state.count,
+                           step_mod._map(torch.clone, state.opt_state.mu),
+                           step_mod._map(torch.clone, state.opt_state.nu)))
+    a, _ = step(state, tokens, mask)
+    b, _ = step(copy, tokens, mask)
+    torch.cuda.synchronize()
+    unequal = [f"{what}/{n}" for what, x, y in (
+        ("params", a.params, b.params),
+        ("mu", a.opt_state.mu, b.opt_state.mu),
+        ("nu", a.opt_state.nu, b.opt_state.nu))
+        for (n, p), (_, q) in zip(step_mod._leaves(x), step_mod._leaves(y))
+        if not torch.equal(p, q)]
+    _log("moe top-1: one step twice from one copied state: "
+         + ("params, mu and nu bitwise equal" if not unequal else
+            f"{len(unequal)} leaves differ: {unequal[:6]}"))
+    if unequal:
+        raise AssertionError("a MoE step is not deterministic (routing "
+                             "recomputed under remat, or the products)")
+    del state, copy, a, b, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_moe_step(cfg, step, state, tokens, mask, step_ms) -> None:
+    """One MoE train step under torch.profiler (with input shapes): the
+    card's busy time grouped by the aten op that launched each kernel,
+    into routing (MOE_ROUTING_OPS, and the one-hot products over every
+    token of every group), dispatch and combine (products batched over
+    the G routing groups), expert products (batched over the E experts),
+    the port's kernels (by kernel name), and the rest; and the idle
+    share of the step's wall time (the profiler's overhead included) and
+    of ``step_ms``, the step's time without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = min(cfg.moe_group_size, TRAIN_SEQ)
+    G = TRAIN_BATCH * TRAIN_SEQ // g
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step(state, tokens, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        _log("profile: the profiler saw no device time (not measured)")
+        return
+    groups = dict.fromkeys(("routing: softmax, sort, cumsum, one-hots",
+                            "dispatch + combine products",
+                            "expert products", "K1/K2/K3"), 0.0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        ms = e.self_device_time_total / 1e3
+        if e.device_type != DeviceType.CPU or not ms:
+            continue
+        batch = (e.input_shapes[0][0] if e.key == "aten::bmm"
+                 and e.input_shapes and e.input_shapes[0] else None)
+        if batch == cfg.moe_experts:
+            groups["expert products"] += ms
+        elif batch == G:
+            groups["dispatch + combine products"] += ms
+        elif batch == G * g or e.key in MOE_ROUTING_OPS:
+            groups["routing: softmax, sort, cumsum, one-hots"] += ms
+    groups["K1/K2/K3"] = sum(e.self_device_time_total for e in kernels
+                             if any(k in e.key for k in PROFILE_KERNELS)
+                             ) / 1e3
+    groups["the rest (lm_head, attention projections, norms, AdamW, "
+           "elementwise)"] = busy_ms - sum(groups.values())
+    _log(f"profile moe train step: wall {wall_ms:.1f} ms, device busy "
+         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f} (the "
+         f"profiler's input shapes included; against the unprofiled "
+         f"{step_ms:.2f} ms step {1 - busy_ms / step_ms:.3f})")
+    for label, ms in groups.items():
+        _log(f"  {label}: {ms:.2f} ms ({ms / busy_ms:.3f} of busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        _log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+             f"{e.key[:90]}")
+
+
+def _moe_flash_vs_dense(cfg) -> None:
+    """Outside the counted runs: MOE_PRESET at full width (all layers), b
+    2, s 512, f32, flash against dense attention from one init: the share
+    of top-k routing choices that agree (each layer's choices recorded
+    in a forward), then the loss and gradients of one step."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    params = llama.init(cfg, torch.Generator(device=DEV).manual_seed(3),
+                        device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device=DEV,
+                           generator=torch.Generator(device=DEV)
+                           .manual_seed(4))
+    moe_ffn = llama._moe_ffn
+    out = {}
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, dtype="float32", attn_impl=impl)
+        choices = []
+
+        def recording(cfg_, h, lp, token_mask=None):
+            probs = torch.softmax(h.float() @ lp["router"].float(), dim=-1)
+            choices.append(torch.sort(probs, dim=-1, descending=True,
+                                      stable=True).indices[..., :cfg_
+                                                           .moe_top_k])
+            return moe_ffn(cfg_, h, lp, token_mask)
+
+        llama._moe_ffn = recording
+        try:
+            with torch.inference_mode():
+                llama._backbone(c, params, tokens)
+        finally:
+            llama._moe_ffn = moe_ffn
+        leaves = dict(step_mod._leaves(params))
+        req = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        loss = llama.next_token_loss(c, step_mod._rebuild(params, req),
+                                     tokens)
+        grads = torch.autograd.grad(loss, list(req.values()))
+        out[impl] = (torch.stack(choices), float(loss.detach()),
+                     dict(zip(req, grads)))
+    (rf, lf, gf), (rd, ld, gd) = out["flash"], out["dense"]
+    agree = (rf == rd).float().mean().item()
+    nf = float(step_mod.global_norm(gf))
+    nd = float(step_mod.global_norm(gd))
+    leaf = max(float((gf[k] - gd[k]).abs().max()
+                     / gd[k].abs().max().clamp_min(1e-30)) for k in gd)
+    tol = GRAD_TOL["f32" if agree == 1.0 else "bf16"]
+    _log(f"moe flash vs dense ({MOE_PRESET}, b 2, s 512, f32): routing "
+         f"choices agree {agree:.6f} of {rf.numel()} (required >= "
+         f"{MOE_ROUTING_AGREE}); loss {lf:.6f} vs {ld:.6f}, grad norm "
+         f"{nf:.6f} vs {nd:.6f}, largest per-leaf grad difference "
+         f"{leaf:.3e} of the leaf's max (tolerances {tol})")
+    if agree < MOE_ROUTING_AGREE:
+        raise AssertionError(f"moe flash vs dense routing agreement "
+                             f"{agree:.6f} < {MOE_ROUTING_AGREE}")
+    if not (abs(lf - ld) <= tol["loss"] and abs(nf - nd) <= tol["gnorm"] * nd
+            and leaf <= tol["leaf"]
+            and all(torch.isfinite(g).all() for g in gf.values())):
+        raise AssertionError("moe flash and dense train grads differ "
+                             "beyond the tolerances")
+    del out, gf, gd, params
+    torch.cuda.empty_cache()
+
+
+def _moe_serving(cfg) -> dict:
+    """GenerationService at MOE_PRESET (bf16 weights from a seed) behind
+    make_server: a greedy BATCH x (PROMPT + NEW) request with per-length
+    prefill (K1 once per layer, counted) and one with the server's
+    default windowed prefill (no K1); prefill and decode-step times and
+    the idle share of one request. Returns the requests' launches."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    params = llama.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    body = {"prompt_ids": prompts.tolist(), "max_new_tokens": NEW}
+    icfg = generate._inference_cfg(cfg)
+    slots = BATCH * cfg.moe_experts * icfg.moe_cap(PROMPT)
+    claims = BATCH * PROMPT * cfg.moe_top_k
+    _log(f"moe serving: {MOE_PRESET} bf16, dropless routing: a per-length "
+         f"prefill of {BATCH} x {PROMPT} routes {BATCH} groups of "
+         f"{PROMPT} at capacity {icfg.moe_cap(PROMPT)}, so the expert "
+         f"products run {slots} slots for {claims} claims "
+         f"({slots / claims:.0f}x)")
+    k1 = {}
+    _zero(fa)  # the counted run starts here
+    for name, kw in (("per-length prefill (--prefill-window 0)",
+                      dict(prefill_window=0)),
+                     (f"windowed prefill (default "
+                      f"{serving.DEFAULT_PREFILL_WINDOW})", {})):
+        svc = serving.GenerationService(cfg, params, device=DEV,
+                                        name=MOE_PRESET, **kw)
+        base, stop = _served(svc)
+        before = fa.launches
+        try:
+            t0 = time.perf_counter()
+            out = json.loads(_http(base, "/v1/completions", body))
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            k1[name] = fa.launches - before
+            stop()
+        _assert_completion(f"moe {name}", out, cfg.vocab_size)
+        _log(f"moe serving {name}: {ms:.1f} ms for {BATCH} x ({PROMPT} + "
+             f"{NEW}) tokens; K1 {k1[name]}; row 0 starts "
+             f"{out['completion_ids'][0][:8]}")
+    launches = _counts(fa)  # read just after the run
+    if list(k1.values()) != [cfg.n_layers, 0] or launches["flash_bwd_dq"] \
+            or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"moe serving launches {k1} {launches}, "
+                             f"expected K1 {cfg.n_layers} per per-length "
+                             "prefill and none windowed")
+    toks = prompts.to(DEV)
+    with torch.inference_mode():
+        for name, fn in (
+                ("per-length", lambda: generate.prefill(
+                    cfg, params, toks, PROMPT + NEW, device=DEV)),
+                (f"windowed {serving.DEFAULT_PREFILL_WINDOW}",
+                 lambda: generate.prefill_chunked(
+                     cfg, params, toks, PROMPT + NEW,
+                     window=serving.DEFAULT_PREFILL_WINDOW,
+                     device=DEV))):
+            ms = _time_ms(fn, iters=3, warmup=1)
+            _log(f"time moe prefill {name} b{BATCH} s{PROMPT}: {ms:.2f} ms")
+        cache, _ = generate.prefill(cfg, params, toks, PROMPT + NEW,
+                                    device=DEV)
+        cos, sin = generate._rope(cfg, PROMPT + NEW, toks.device)
+        ms = _time_ms(lambda: generate._decode_step(
+            icfg, params, cache._replace(length=PROMPT), toks[:, -1], cos,
+            sin), iters=10, warmup=2)
+        _log(f"time moe decode step b{BATCH} cache {PROMPT + NEW}: "
+             f"{ms:.2f} ms")
+        del cache
+        _profile_request(cfg, params, toks, generate)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1441,6 +1857,7 @@ def main() -> int:
     serving = _timed("serving", phase_serving)
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
+    moe = phase_moe()
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():
@@ -1448,7 +1865,7 @@ def main() -> int:
         by_path = {"serving": serving.get(name, 0),
                    "training": training["launches"][name],
                    **{path: counts.get(name, 0)
-                      for path, counts in lifecycle.items()}}
+                      for path, counts in {**lifecycle, **moe}.items()}}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -38,7 +38,11 @@ from service_account_auth_improvements_tpu_torch.utils.device import (
 
 
 def _inference_cfg(cfg: llama.LlamaConfig) -> llama.LlamaConfig:
-    """Inference routes MoE dropless (see the reference for why)."""
+    """Inference routes MoE dropless: capacity is the whole routing
+    group, so no token falls through to the residual. Training's capacity
+    drops are not prefix-stable (a token kept at length s can be dropped
+    at s + 1, as capacity grows with the group), so a KV cache could not
+    reproduce them; dropless routing is causally consistent."""
     if not cfg.moe_experts:
         return cfg
     return dataclasses.replace(cfg, moe_dropless=True)
@@ -78,8 +82,8 @@ def prefill(cfg: llama.LlamaConfig, params, tokens, max_len: int,
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
     cdt = llama.dtype_of(cfg.dtype)
-    x, layer_inputs = llama._backbone(cfg, params, tokens,
-                                      return_layer_inputs=True)
+    x, _, layer_inputs = llama._backbone(cfg, params, tokens,
+                                         return_layer_inputs=True)
     # every layer's k/v from the saved layer inputs, one batched product
     lp = params["layers"]
     h = rms_norm(layer_inputs, lp["attn_norm"].to(cdt)[:, None, None],
@@ -130,7 +134,8 @@ def _extend_layer(cfg, x, lp, ck, cv, pos0: int, cos_w, sin_w):
 
     h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
     if cfg.moe_experts:
-        raise NotImplementedError(llama._MOE_TODO)
+        ff, _ = llama._moe_ffn(cfg, h, lp)
+        return x + ff
     gate = torch.nn.functional.silu(h @ lp["w_gate"].to(cdt))
     up = h @ lp["w_up"].to(cdt)
     return x + (gate * up) @ lp["w_down"].to(cdt)

@@ -10,10 +10,9 @@ per layer with ``remat_policy="full"``, selective (matmul outputs saved)
 with ``"dots_saveable"``, and per loss chunk in ``scan_seq_chunks``; it
 only acts while autograd records, so the serving path (under
 ``torch.inference_mode()``) runs plain. ``shard_constraint`` is the
-identity on one device and is not ported. Mixture-of-experts raises
-until the MoE slice (ROADMAP queue 1, "MoE"). The port has no mesh, so
+identity on one device and is not ported. The port has no mesh, so
 pipeline parallelism (ROADMAP queue 1, "parallel") cannot be requested at
-all.
+all, and the mixture-of-experts FFN's experts are not sharded.
 """
 
 from __future__ import annotations
@@ -41,14 +40,11 @@ from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
 
-_MOE_TODO = ("mixture-of-experts layers are not ported yet (ROADMAP queue "
-             "1, \"MoE\")")
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Field for field the reference's ``LlamaConfig``; the fields for
-    features the port does not run yet (scan, iota embedding, MoE,
+    features the port does not run yet (scan, iota embedding,
     pipelining) are kept so presets and ``param_count``/
     ``flops_per_token`` stay identical. ``scan_layers`` and
     ``iota_embed`` change nothing here: the layers are a Python loop
@@ -257,9 +253,9 @@ def init(cfg: LlamaConfig, generator: torch.Generator, device=None):
     ``"cpu"``), drawn from ``generator`` in the reference's order. The
     residual-out projections are scaled by 1/sqrt(2·n_layers). The draws
     differ from ``jax.random``'s; tests that need the reference's weights
-    bridge them with ``models/params.py``."""
-    if cfg.moe_experts:
-        raise NotImplementedError(_MOE_TODO)
+    bridge them with ``models/params.py``. A mixture-of-experts config
+    draws ``router`` and the stacked ``moe_*`` expert weights in the dense
+    FFN's slot, as the reference does."""
     dev = resolve_device(device)
     pdt = dtype_of(cfg.param_dtype)
 
@@ -268,7 +264,7 @@ def init(cfg: LlamaConfig, generator: torch.Generator, device=None):
                         device=generator.device)
         return (x * std).to(device=dev, dtype=pdt)
 
-    L = cfg.n_layers
+    L, E = cfg.n_layers, cfg.moe_experts
     std = 0.02
     out_std = 0.02 / (2 * L) ** 0.5
     params = {
@@ -280,12 +276,22 @@ def init(cfg: LlamaConfig, generator: torch.Generator, device=None):
             "wv": normal((L, cfg.dim, cfg.kv_dim), std),
             "wo": normal((L, cfg.q_dim, cfg.dim), out_std),
             "mlp_norm": torch.ones((L, cfg.dim), dtype=pdt, device=dev),
-            "w_gate": normal((L, cfg.dim, cfg.mlp_dim), std),
-            "w_up": normal((L, cfg.dim, cfg.mlp_dim), std),
-            "w_down": normal((L, cfg.mlp_dim, cfg.dim), out_std),
         },
         "final_norm": torch.ones((cfg.dim,), dtype=pdt, device=dev),
     }
+    if E:
+        params["layers"].update({
+            "router": normal((L, cfg.dim, E), std),
+            "moe_gate": normal((L, E, cfg.dim, cfg.mlp_dim), std),
+            "moe_up": normal((L, E, cfg.dim, cfg.mlp_dim), std),
+            "moe_down": normal((L, E, cfg.mlp_dim, cfg.dim), out_std),
+        })
+    else:
+        params["layers"].update({
+            "w_gate": normal((L, cfg.dim, cfg.mlp_dim), std),
+            "w_up": normal((L, cfg.dim, cfg.mlp_dim), std),
+            "w_down": normal((L, cfg.mlp_dim, cfg.dim), out_std),
+        })
     params["lm_head"] = normal((cfg.dim, cfg.vocab_size), std)
     return params
 
@@ -303,14 +309,88 @@ def embed(cfg: LlamaConfig, params, tokens):
     return params["tok_embed"][ids].to(dtype_of(cfg.dtype))
 
 
+def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None):
+    """Top-k MoE FFN: h [b, s, d] → (out [b, s, d], aux f32 scalar). k=1
+    is switch semantics (the gate is the raw router probability); k > 1
+    is Mixtral semantics (gates renormalised over the selected experts).
+
+    The reference's formulation, kept as it is: routing per group of
+    ``moe_group_size`` tokens (the whole sequence when that does not
+    divide it), f32 router logits and softmax, capacity slots claimed
+    choice-major through a cumsum (every token's rank-0 choice before any
+    rank-1 choice), one-hot dispatch and combine products and the expert
+    products as one batched [G, E, C, d] × [E, d, m] contraction in the
+    compute dtype. Claims past capacity and masked tokens (which neither
+    take capacity nor enter the balance statistics) contribute exactly 0,
+    falling through to the residual. ``aux`` is the load-balance loss:
+    E · mean over groups of Σ_e density · mean router probability, where
+    density counts routed claims before capacity over k.
+
+    The one-hot products (not a gather and ``index_add_``) keep every
+    expert in the autograd graph, so an expert no token reached still
+    gets its (zero) gradient, and sum in a fixed order on the card, so a
+    step and its remat recompute route and add up identically. The top
+    k is a stable descending sort: ``jax.lax.top_k`` puts the lower
+    expert first among equal probabilities and ``torch.topk`` does not."""
+    b, s, d = h.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    g = min(cfg.moe_group_size, s)
+    if s % g:
+        g = s
+    cap = cfg.moe_cap(g)
+    cdt = h.dtype
+    f32 = torch.float32
+    G = b * (s // g)
+    hg = h.reshape(G, g, d)
+    if token_mask is None:
+        tmask = torch.ones((G, g), dtype=f32, device=h.device)
+    else:
+        tmask = token_mask.to(f32).reshape(G, g)
+
+    logits = hg.to(f32) @ lp["router"].to(f32)             # [G, g, E]
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[..., :K]        # [G, g, K]
+    gate = probs.gather(-1, idx)
+    if K > 1:
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    gate = gate * tmask[..., None]
+    onehot = (F.one_hot(idx, E).to(f32)
+              * tmask[..., None, None])                   # [G, g, K, E]
+    denom = tmask.sum(dim=1, keepdim=True).clamp_min(1.0)
+    density = onehot.sum(dim=(1, 2)) / (denom * K)
+    density_proxy = (probs * tmask[..., None]).sum(dim=1) / denom
+    aux = E * (density * density_proxy).sum(-1).mean()
+
+    # queue position of each (token, choice) in its expert, choice-major
+    oh_cm = onehot.transpose(1, 2).reshape(G, K * g, E)
+    pos_cm = torch.cumsum(oh_cm, dim=1) - oh_cm
+    pos = pos_cm.reshape(G, K, g, E).transpose(1, 2)
+    pos_tok = (pos * onehot).sum(-1)                      # [G, g, K]
+    keep = (pos_tok < cap).to(f32) * tmask[..., None]
+    sel = onehot * keep[..., None]
+    # a claim at or past capacity has an all-zero row, as jax's one_hot
+    # gives (F.one_hot raises on it instead)
+    posoh = (pos_tok.long()[..., None]
+             == torch.arange(cap, device=h.device)).to(f32)  # [G, g, K, C]
+    disp = torch.einsum("gske,gskc->gsec", sel, posoh)   # [G, g, E, C]
+
+    xin = torch.einsum("gsec,gsd->gecd", disp.to(cdt), hg)
+    act = (F.silu(torch.einsum("gecd,edm->gecm", xin,
+                               lp["moe_gate"].to(cdt)))
+           * torch.einsum("gecd,edm->gecm", xin, lp["moe_up"].to(cdt)))
+    xout = torch.einsum("gecm,emd->gecd", act, lp["moe_down"].to(cdt))
+    combine = torch.einsum("gske,gskc->gsec", sel * gate[..., None],
+                           posoh).to(cdt)
+    out = torch.einsum("gsec,gecd->gsd", combine, xout)
+    return out.reshape(b, s, d), aux
+
+
 def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
            segment_ids=None):
-    """One decoder block. x: [b, s, dim] in compute dtype. (The
-    reference also returns the MoE load-balance term, and reads
-    ``token_mask`` only for MoE routing; MoE is not ported, so dense
-    layers ignore the mask and have no such term.)"""
-    if cfg.moe_experts:
-        raise NotImplementedError(_MOE_TODO)
+    """One decoder block. x: [b, s, dim] in compute dtype. Returns (x,
+    aux): aux is the MoE load-balance term (None for dense layers, which
+    have none). ``token_mask`` [b, s] keeps padding out of MoE routing."""
     b, s, _ = x.shape
     cdt = dtype_of(cfg.dtype)
 
@@ -324,9 +404,12 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
     x = x + attn.reshape(b, s, cfg.q_dim) @ lp["wo"].to(cdt)
 
     h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
+    if cfg.moe_experts:
+        ff, aux = _moe_ffn(cfg, h, lp, token_mask)
+        return x + ff, aux
     gate = F.silu(h @ lp["w_gate"].to(cdt))
     up = h @ lp["w_up"].to(cdt)
-    return x + (gate * up) @ lp["w_down"].to(cdt)
+    return x + (gate * up) @ lp["w_down"].to(cdt), None
 
 
 # the ops whose outputs ``dots_saveable`` keeps: every matrix product
@@ -367,12 +450,14 @@ def _remat(cfg: LlamaConfig, fn):
 
 def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
               return_layer_inputs: bool = False, segment_ids=None):
-    """Embed + decoder stack + final norm: tokens [b, s] → x [b, s, dim]
-    in compute dtype (the lm_head is the caller's: ``apply`` for full
-    logits, ``next_token_loss`` in chunks). ``token_mask`` is the
-    reference's MoE validity mask, unused by dense layers. With
-    ``return_layer_inputs`` also the per-layer input hidden states
-    [L, b, s, dim], the KV-cache prefill source (models/generate.py)."""
+    """Embed + decoder stack + final norm: tokens [b, s] → (x [b, s, dim]
+    in compute dtype, the summed MoE aux loss: None for a dense model,
+    so its forward launches nothing for it) (the lm_head is the
+    caller's: ``apply`` for full logits, ``next_token_loss`` in chunks).
+    ``token_mask`` is the MoE validity mask (0 = padding), unused by
+    dense layers. With ``return_layer_inputs`` also the per-layer input
+    hidden states [L, b, s, dim], the KV-cache prefill source
+    (models/generate.py): (x, aux, layer_inputs)."""
     cdt = dtype_of(cfg.dtype)
     s = tokens.shape[1]
     x = embed(cfg, params, tokens)
@@ -384,16 +469,18 @@ def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
     # zero-filled gradient of the whole stacked leaf and sum L of them
     names = list(params["layers"])
     per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
-    inputs = []
+    inputs, auxes = [], []
     for leaves in per_layer:
         if return_layer_inputs:
             inputs.append(x)
-        x = layer_fn(x, dict(zip(names, leaves)), cos, sin, token_mask,
-                     segment_ids)
+        x, aux = layer_fn(x, dict(zip(names, leaves)), cos, sin,
+                          token_mask, segment_ids)
+        auxes.append(aux)
     x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+    aux = torch.stack(auxes).sum() if cfg.moe_experts else None
     if return_layer_inputs:
-        return x, torch.stack(inputs)
-    return x
+        return x, aux, torch.stack(inputs)
+    return x, aux
 
 
 def lm_logits(cfg: LlamaConfig, params, x):
@@ -405,12 +492,21 @@ def lm_logits(cfg: LlamaConfig, params, x):
     return x.float() @ head
 
 
-def apply(cfg: LlamaConfig, params, tokens, segment_ids=None):
+def apply(cfg: LlamaConfig, params, tokens, return_aux: bool = False,
+          token_mask=None, segment_ids=None):
     """Forward pass: tokens [b, s] int → logits [b, s, vocab] f32.
-    ``segment_ids`` [b, s] blocks attention across packed documents
-    (dense attention only)."""
-    return lm_logits(cfg, params, _backbone(cfg, params, tokens,
-                                            segment_ids=segment_ids))
+    With ``return_aux`` also returns the summed MoE load-balance loss (an
+    f32 zero for a dense model). ``token_mask`` [b, s] (1 = real token) keeps padding out of MoE
+    routing capacity and balance statistics. ``segment_ids`` [b, s]
+    blocks attention across packed documents (dense attention only)."""
+    x, aux = _backbone(cfg, params, tokens, token_mask,
+                       segment_ids=segment_ids)
+    logits = lm_logits(cfg, params, x)
+    if return_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
+    return logits
 
 
 def _nll(cfg: LlamaConfig, x, lm_head, targets):
@@ -471,17 +567,18 @@ def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
     """Mean next-token cross-entropy (f32 scalar). tokens [b, s]; mask
     [b, s] optional (1 where the *target* position counts). With
     ``cfg.loss_chunk`` the vocab projection and log-softmax run in
-    sequence chunks (``_chunked_nll``). ``include_aux`` adds the MoE
-    load-balance term, which dense models do not have (MoE raises).
+    sequence chunks (``_chunked_nll``). For a MoE config ``include_aux``
+    adds ``moe_aux_weight`` × the load-balance term;
+    ``include_aux=False`` gives the pure cross-entropy (evaluation).
 
-    ``token_mask`` is the validity mask the backbone would feed MoE
-    routing; by default it follows ``mask`` (right padding); packed
-    corpora pass ``None``. The backbone runs on the full sequence and the
-    last hidden state is dropped after, as in the reference."""
+    ``token_mask`` is the validity mask the backbone feeds MoE routing;
+    by default it follows ``mask`` (right padding); packed corpora pass
+    ``None``. The backbone runs on the full sequence and the last hidden
+    state is dropped after, as in the reference."""
     if token_mask is _SAME_AS_MASK:
         token_mask = mask
-    x = _backbone(cfg, params, tokens, token_mask=token_mask,
-                  segment_ids=segment_ids)
+    x, aux = _backbone(cfg, params, tokens, token_mask=token_mask,
+                       segment_ids=segment_ids)
     x = x[:, :-1]
     # clip like the embedding path: an out-of-range target has no logit
     targets = tokens[:, 1:].clamp(0, cfg.vocab_size - 1)
@@ -491,6 +588,10 @@ def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
     else:
         nll = _nll(cfg, x, lm_head, targets)
     if mask is None:
-        return nll.mean()
-    m = mask[:, 1:].to(nll.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+        loss = nll.mean()
+    else:
+        m = mask[:, 1:].to(nll.dtype)
+        loss = (nll * m).sum() / m.sum().clamp_min(1.0)
+    if cfg.moe_experts and include_aux:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss

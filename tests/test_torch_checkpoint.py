@@ -123,7 +123,29 @@ def _jnp(tree):
 
 
 def test_resume_from_bridged_jax_state_matches_jax(tmp_path):
-    jcfg = dataclasses.replace(jllama.PRESETS["tiny"], dtype="float32")
+    _resume_from_bridged(
+        dataclasses.replace(jllama.PRESETS["tiny"], dtype="float32"),
+        tmp_path)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_resume_from_bridged_jax_moe_state_matches_jax(tmp_path, top_k):
+    """The same bridge with a MoE FFN: the router and the stacked expert
+    leaves (and their moments) go through the checkpoint, whose names are
+    checked against ``logical_axes``."""
+    jcfg = dataclasses.replace(jllama.PRESETS["tiny"], dtype="float32",
+                               moe_experts=4, moe_top_k=top_k)
+    _resume_from_bridged(jcfg, tmp_path)
+    tcfg = tllama.LlamaConfig(**dataclasses.asdict(jcfg))
+    params = ckpt.restore_params(tmp_path, None, tcfg, device="cpu")
+    assert tuple(params["layers"]["moe_down"].shape) == (
+        jcfg.n_layers, 4, jcfg.mlp_dim, jcfg.dim)
+
+
+def _resume_from_bridged(jcfg, tmp_path):
+    """3 jitted JAX steps, the state bridged, saved and restored by the
+    port, then 2 more steps on both sides: equal within the f32
+    tolerances."""
     tcfg = tllama.LlamaConfig(**dataclasses.asdict(jcfg))
     jfn = jstep.make_train_step(jcfg, jstep.make_optimizer())
     tfn = tstep.make_train_step(tcfg, tstep.make_optimizer())

@@ -78,3 +78,24 @@ def test_lifecycle_settings():
     assert "/build/" in ignored
     for workdir in (chip_smoke.WORKDIR, chip_smoke.CLI_WORKDIR):
         assert workdir.parent == ROOT / "build"
+
+
+def test_moe_settings():
+    """The MoE phase drives a flash MoE preset (K1/K2/K3 on every layer)
+    whose routing-group count at the training shape differs from its
+    expert count and from the tokens routed: the profile tells expert
+    products, dispatch and combine, and the one-hot products apart by the
+    batch of their bmm."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    cfg = llama.PRESETS[chip_smoke.MOE_PRESET]
+    assert cfg.moe_experts and cfg.moe_top_k == 1
+    assert cfg.attn_impl == "flash" and cfg.head_dim == 128
+    # the kernel checks' MoE cases are at this preset's heads
+    assert (cfg.n_heads, cfg.n_kv_heads) == (chip_smoke.MOE_HEADS,
+                                             chip_smoke.MOE_KV_HEADS)
+    g = min(cfg.moe_group_size, chip_smoke.TRAIN_SEQ)
+    groups = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ // g
+    assert len({cfg.moe_experts, groups, groups * g}) == 3
+    assert chip_smoke.MOE_TOP2_STEPS >= 2 and chip_smoke.TRAIN_STEPS >= 2
+    assert 0.99 <= chip_smoke.MOE_ROUTING_AGREE < 1

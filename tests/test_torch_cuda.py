@@ -200,15 +200,34 @@ def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
     invisible to the policy and recomputed, as under "full"; "none"
     launches K1 once per layer."""
     from service_account_auth_improvements_tpu_torch.models import llama
+
+    _flash_steps_equal_dense(dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
+        head_dim=128, dtype=dtype, attn_impl="flash", loss_chunk=48,
+        remat_policy=remat_policy), remat_policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,remat_policy", [
+    ("float32", "full"), ("bfloat16", "full"),
+    ("float32", "dots_saveable"), ("float32", "none")])
+def test_moe_train_steps_flash_equal_dense_on_cuda(cuda, dtype,
+                                                   remat_policy):
+    """The same three steps with a 4-expert top-2 FFN at capacity factor
+    1.25 (claims overflow): the routing recomputed under remat is the
+    forward's, and flash against dense within the same tolerances."""
+    _flash_steps_equal_dense(dataclasses.replace(
+        _small_flash_cfg(dtype), remat_policy=remat_policy, moe_experts=4,
+        moe_top_k=2), remat_policy)
+
+
+def _flash_steps_equal_dense(cfg, remat_policy):
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
     from service_account_auth_improvements_tpu_torch.train import step
 
-    cfg = dataclasses.replace(
-        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
-        head_dim=128, dtype=dtype, attn_impl="flash", loss_chunk=48,
-        remat_policy=remat_policy)
+    dtype = cfg.dtype
     tokens = torch.randint(0, cfg.vocab_size, (2, 100),
                            generator=torch.Generator().manual_seed(1)
                            ).to("cuda")
@@ -354,3 +373,107 @@ def test_greedy_speculative_equals_plain_greedy_on_cuda(cuda):
     got, stats = speculative.spec_generate(cfg, params, cfg, params,
                                            prompt, 24, gamma=4)
     assert torch.equal(got, want) and stats["acceptance_rate"] == 1.0
+
+
+def _moe_inputs(dtype, device, b=2, s=256, d=256, e=4, m=512, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, std=1.0):
+        return torch.tensor(rng.standard_normal(shape) * std,
+                            dtype=torch.float32).to(device, dtype)
+    h = mk(b, s, d)
+    lp = {"router": mk(d, e, std=0.1), "moe_gate": mk(e, d, m, std=0.05),
+          "moe_up": mk(e, d, m, std=0.05), "moe_down": mk(e, m, d, std=0.05)}
+    return h, lp
+
+
+def _moe_cfg(**kw):
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    return dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, mlp_dim=512, moe_experts=4,
+        moe_group_size=128, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,factor", [(1, 4.0), (2, 4.0), (1, 1.25),
+                                          (2, 1.25)])
+def test_moe_ffn_on_cuda_matches_cpu(cuda, top_k, factor):
+    """f32: the card's routing equals the CPU's, and out is within 1e-5
+    and aux within 1e-6, with ample capacity (factor 4) and with
+    overflow (factor 1.25). The seeded input has no router near-tie (each
+    of its top-k choices beats the next by more than 1e-6, asserted), so
+    another summation order cannot swap a choice or a capacity claim."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    cfg = _moe_cfg(moe_top_k=top_k, moe_capacity_factor=factor,
+                   dtype="float32")
+    h, lp = _moe_inputs(torch.float32, "cuda")
+    got, aux = llama._moe_ffn(cfg, h, lp)
+    hc = h.cpu()
+    lpc = {k: v.cpu() for k, v in lp.items()}
+    want, want_aux = llama._moe_ffn(cfg, hc, lpc)
+
+    def route(x, r):
+        probs = torch.softmax(x.float() @ r.float(), -1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gaps = top.values[..., :top_k] - top.values[..., 1:top_k + 1]
+        return top.indices[..., :top_k].cpu(), gaps.min(-1).values.cpu()
+
+    idx, margin = route(h, lp["router"])
+    want_idx, want_margin = route(hc, lpc["router"])
+    assert bool((want_margin > 1e-6).all() and (margin > 1e-6).all())
+    assert torch.equal(idx, want_idx)
+    assert abs(float(aux) - float(want_aux)) < 1e-6
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_ffn_bf16_is_deterministic_on_cuda(cuda, top_k):
+    """bf16 forward and backward twice on one input: the same bits (the
+    one-hot products have no atomics), which a bitwise resume needs."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    cfg = _moe_cfg(moe_top_k=top_k, dtype="bfloat16")
+    h, lp = _moe_inputs(torch.bfloat16, "cuda")
+    lp = {k: v.float() for k, v in lp.items()}
+    w = torch.randn(h.shape, device="cuda", dtype=torch.bfloat16,
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    runs = []
+    for _ in range(2):
+        hh = h.detach().clone().requires_grad_(True)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in lp.items()}
+        out, aux = llama._moe_ffn(cfg, hh, leaves)
+        (out.float() * w.float()).sum().add(aux).backward()
+        runs.append([out, aux, hh.grad] + [leaves[k].grad
+                                           for k in sorted(leaves)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_moe_greedy_cached_decode_equals_naive_on_cuda(cuda, preset):
+    """f32 at the CI presets on the card: the KV-cached greedy decode
+    (dropless routing per window) gives the ids of re-running the whole
+    sequence through ``llama.apply`` every token."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+    )
+
+    cfg = dataclasses.replace(llama.PRESETS[preset], dtype="float32")
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 7), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    got = generate.generate(cfg, params, prompt, 12)
+    icfg = generate._inference_cfg(cfg)
+    naive = prompt
+    with torch.inference_mode():
+        for _ in range(12):
+            nxt = llama.apply(icfg, params, naive)[:, -1].argmax(-1)
+            naive = torch.cat([naive, nxt[:, None]], dim=1)
+    assert torch.equal(got, naive)

@@ -101,6 +101,27 @@ def test_packed_matches_jax(weights):
     assert again == got
 
 
+def test_evaluate_excludes_moe_aux():
+    """A MoE model's eval loss is the pure cross-entropy, JAX's to 1e-5;
+    the training loss (with the aux term) is larger."""
+    cfg = dataclasses.replace(jllama.PRESETS["moe_smoke"], dtype="float32",
+                              param_dtype="float32", remat=False)
+    tcfg = tllama.LlamaConfig(**dataclasses.asdict(cfg))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jllama.init(cfg, jax.random.key(0)))
+    params = tparams.from_numpy(tree, tcfg, "cpu")
+    t = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                          (4, 32)).astype(np.int32)
+    want = jev.evaluate(cfg, tree, [jnp.asarray(t)])
+    got = tev.evaluate(tcfg, params, [t], device="cpu")
+    _assert_match(got, want)
+    tt = torch.tensor(t, dtype=torch.long)
+    pure = float(tllama.next_token_loss(tcfg, params, tt,
+                                        include_aux=False))
+    assert abs(got["loss"] - pure) < 1e-5
+    assert float(tllama.next_token_loss(tcfg, params, tt)) > pure
+
+
 def test_empty_batches_raise(weights):
     gen = iter(_batches(1))
     list(gen)  # exhausted

@@ -87,7 +87,9 @@ def test_extend_cache(m):
 
 @pytest.mark.parametrize("preset,impl", [("tiny", "dense"),
                                          ("tiny", "flash"),
-                                         ("smoke", "flash")])
+                                         ("smoke", "flash"),
+                                         ("moe_smoke", "dense"),
+                                         ("moe2_smoke", "flash")])
 def test_greedy_generate_token_identical(preset, impl):
     cfg, tree, tcfg, tparams_ = setup(preset, impl)
     toks = prompt(cfg, s=13)
@@ -112,6 +114,32 @@ def test_prefill_chunked_equals_prefill_and_reference():
     np.testing.assert_allclose(cc.k[:, :, :21].numpy(),
                                pc.k[:, :, :21].numpy(), **TOL)
     np.testing.assert_allclose(cl.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_moe_windowed_prefill_matches_jax_and_naive_decode(preset):
+    """Dropless MoE routing through the windowed prefill (groups of the
+    window's length) and the per-length prefill (one group per prompt)
+    gives the reference's logits; greedy cached decode equals re-running
+    the whole sequence through ``llama.apply`` (dropless) every token."""
+    cfg, tree, tcfg, tparams_ = setup(preset)
+    toks = prompt(cfg, s=21)
+    cc, cl = tgen.prefill_chunked(tcfg, tparams_, _t(toks), 30, window=8,
+                                  device="cpu")
+    jc, jl = jgen.prefill_chunked(cfg, tree, jnp.asarray(toks), 30,
+                                  window=8)
+    pc, pl = tgen.prefill(tcfg, tparams_, _t(toks), 30, device="cpu")
+    np.testing.assert_allclose(cl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(cc.k[:, :, :21].numpy(),
+                               np.asarray(jc.k)[:, :, :21], **TOL)
+    got = tgen.generate(tcfg, tparams_, _t(toks), 9, device="cpu")
+    naive = _t(toks)
+    icfg = tgen._inference_cfg(tcfg)
+    for _ in range(9):
+        nxt = tllama.apply(icfg, tparams_, naive)[:, -1].argmax(-1)
+        naive = torch.cat([naive, nxt[:, None]], dim=1)
+    np.testing.assert_array_equal(got.numpy(), naive.numpy())
 
 
 @pytest.mark.parametrize("window", [None, 8])

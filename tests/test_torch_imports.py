@@ -60,12 +60,14 @@ def test_port_and_chip_smoke_import_without_jax():
     assert out.stdout.strip() == f"imported {n}"
 
 
-# the lifecycle slice's modules, each imported alone under the blocker
+# the lifecycle slice's modules and the modules that hold the MoE FFN and
+# its decode path, each imported alone under the blocker
 LIFECYCLE = ["train.checkpoint", "train.evaluate", "models.quantize",
              "models.speculative"]
+MOE = ["models.llama", "models.generate"]
 
 
-@pytest.mark.parametrize("module", LIFECYCLE)
+@pytest.mark.parametrize("module", LIFECYCLE + MOE)
 def test_lifecycle_module_imports_without_jax(module):
     probe = BLOCKER.replace(
         "for name in names:\n"

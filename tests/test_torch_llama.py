@@ -98,18 +98,40 @@ def test_backbone_returns_layer_inputs():
     tokens = np.arange(10, dtype=np.int32)[None] % cfg.vocab_size
     _, _, want = jllama._backbone(cfg, tree, tokens,
                                   return_layer_inputs=True)
-    _, got = tllama._backbone(port_cfg(cfg),
-                                 tparams.from_numpy(tree, cfg, "cpu"),
-                                 torch.tensor(tokens, dtype=torch.long),
-                                 return_layer_inputs=True)
+    _, aux, got = tllama._backbone(port_cfg(cfg),
+                                   tparams.from_numpy(tree, cfg, "cpu"),
+                                   torch.tensor(tokens, dtype=torch.long),
+                                   return_layer_inputs=True)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    # a dense model has no load-balance term, and launches nothing for one
+    assert aux is None
+    _, aux = tllama.apply(port_cfg(cfg), tparams.from_numpy(tree, cfg, "cpu"),
+                          torch.tensor(tokens, dtype=torch.long),
+                          return_aux=True)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
 
 
 def test_moe_and_segment_flash_raise():
-    moe = tllama.PRESETS["moe_smoke"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.init(moe, torch.Generator(), device="cpu")
+    """A MoE config's init gives the reference's leaf names and shapes,
+    each matching its ``logical_axes`` entry; segment ids under flash
+    attention raise."""
+    for name in ("moe_smoke", "moe2_smoke"):
+        moe = tllama.PRESETS[name]
+        got = tllama.init(moe, torch.Generator().manual_seed(0),
+                          device="cpu")
+        want = jax.tree.map(lambda a: a.shape,
+                            jllama.init(jllama.PRESETS[name],
+                                        jax.random.key(0)))
+        assert jax.tree.map(lambda t: tuple(t.shape), got) == want
+        axes = tllama.logical_axes(moe)
+        assert sorted(got["layers"]) == sorted(axes["layers"])
+        assert {"router", "moe_gate", "moe_up", "moe_down"} <= set(
+            got["layers"]) and "w_gate" not in got["layers"]
+        for leaf, t in got["layers"].items():
+            assert len(axes["layers"][leaf]) == t.ndim, leaf
+        assert sum(t.numel() for t in jax.tree.leaves(got)) == \
+            moe.param_count()
     cfg = dataclasses.replace(tllama.PRESETS["tiny"], attn_impl="flash")
     params = tllama.init(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
@@ -191,6 +213,50 @@ def test_next_token_loss_and_grads_match_jax(masked, chunk):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_moe_next_token_loss_and_grads_match_jax(preset, padded):
+    """MoE configs: the loss with ``moe_aux_weight``·aux, its gradients,
+    the pure cross-entropy and the aux of ``apply(return_aux=True)``
+    against JAX, f32, with and without a right-padding mask (padding then
+    routes nowhere). Tolerances as the dense test's."""
+    cfg = dataclasses.replace(jllama.PRESETS[preset], dtype="float32")
+    tree = jax_params(cfg)
+    jtree = jax.tree.map(np.asarray, tree)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    mask = None
+    if padded:
+        mask = np.ones((2, 24), np.float32)
+        mask[0, 17:] = 0
+        mask[1, 21:] = 0
+    want, jgrads = jax.value_and_grad(
+        lambda p: jllama.next_token_loss(cfg, p, tokens, mask))(jtree)
+    ttok = torch.tensor(tokens, dtype=torch.long)
+    tmask = None if mask is None else torch.tensor(mask)
+    got, tgrads = _port_loss_and_grads(cfg, tree, ttok, tmask)
+    assert abs(got - float(want)) < 1e-5
+    jflat = _flat(jgrads)
+    assert sorted(jflat) == sorted(tgrads)
+    for name, g in jflat.items():
+        np.testing.assert_allclose(tgrads[name], g, atol=2e-6, rtol=1e-4,
+                                   err_msg=name)
+    params = tparams.from_numpy(tree, cfg, "cpu")
+    pure = tllama.next_token_loss(port_cfg(cfg), params, ttok, tmask,
+                                  include_aux=False)
+    jpure = jllama.next_token_loss(cfg, jtree, tokens, mask,
+                                   include_aux=False)
+    assert abs(float(pure) - float(jpure)) < 1e-5
+    assert got > float(pure)  # the aux term is positive
+    jlogits, jaux = jllama.apply(cfg, jtree, tokens, return_aux=True,
+                                 token_mask=mask)
+    tlogits, taux = tllama.apply(port_cfg(cfg), params, ttok,
+                                 return_aux=True, token_mask=tmask)
+    assert abs(float(taux) - float(jaux)) < 1e-6
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               atol=TOL["float32"], rtol=0)
+
+
 def test_chunked_loss_equals_unchunked():
     """The chunked loss is the same per-position math (the tail chunk is
     padded with the sequence's own prefix and sliced off)."""
@@ -223,16 +289,22 @@ def test_bf16_loss_matches_jax():
     assert abs(float(got) - want) < 5e-3
 
 
-@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("impl", ["dense", "flash", "moe"])
 def test_remat_policies_give_the_same_grads(impl):
     """remat "full" (checkpoint per layer), "dots_saveable" (selective
     checkpointing that saves the matmul outputs) and "none" differ only
     in what is saved: loss and gradients agree (recompute is
     deterministic). head_dim 64 so that flash takes the kernels' plain
-    versions on the CPU, with their launch counters still at 0."""
+    versions on the CPU, with their launch counters still at 0. "moe" is
+    flash with a top-2 MoE FFN: the recompute routes every token as the
+    forward did."""
     base = dataclasses.replace(tllama.PRESETS["tiny"], dtype="float32",
                                head_dim=64, n_heads=2, n_kv_heads=1,
-                               attn_impl=impl, loss_chunk=16)
+                               attn_impl="dense" if impl == "dense"
+                               else "flash", loss_chunk=16)
+    if impl == "moe":
+        base = dataclasses.replace(base, moe_experts=4, moe_top_k=2,
+                                   moe_capacity_factor=0.5)
     params = tllama.init(base, torch.Generator().manual_seed(0),
                          device="cpu")
     tokens = torch.randint(0, base.vocab_size, (2, 33),

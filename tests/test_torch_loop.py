@@ -133,6 +133,28 @@ def test_fit_accepts_eval_data_without_eval_every():
     assert [r["step"] for r in history] == [1, 2]
 
 
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_main_cli_trains_and_resumes_a_moe_preset(tmp_path, capsys, preset):
+    """The training CLI takes a MoE preset as it takes a dense one: it
+    trains, checkpoints the router and expert leaves and resumes from
+    them."""
+    from service_account_auth_improvements_tpu_torch.train import checkpoint
+
+    argv = ["--preset", preset, "--batch", "2", "--seq", "32",
+            "--log-every", "1", "--device", "cpu", "--workdir",
+            str(tmp_path)]
+    first = loop.main(argv + ["--steps", "2"])
+    history = loop.main(argv + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "step 3/3 loss=" in out
+    assert [r["step"] for r in first + history] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in first + history)
+    params = checkpoint.restore_params(tmp_path, None,
+                                       llama.PRESETS[preset], device="cpu")
+    assert {"router", "moe_gate", "moe_up", "moe_down"} <= set(
+        params["layers"])
+
+
 def test_main_cli_resumes_from_workdir(tmp_path, capsys):
     argv = ["--preset", "tiny", "--batch", "2", "--seq", "16",
             "--log-every", "1", "--device", "cpu", "--workdir",

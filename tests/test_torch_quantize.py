@@ -122,6 +122,38 @@ def test_indexing_and_unbind_slice_scale_with_values():
         qa.unbind(1)
 
 
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_quantized_moe_apply_matches_jax(preset):
+    """The [L, E, in, out] expert leaves quantize per expert and output
+    channel (values and scales equal the reference's), the router stays
+    full precision, and ``llama.apply`` on the int8 tree agrees with
+    JAX's at test_apply_with_quantized_params_matches_jax's tolerance."""
+    cfg = dataclasses.replace(jllama.PRESETS[preset], dtype="float32",
+                              param_dtype="float32", remat=False)
+    tcfg = tllama.LlamaConfig(**dataclasses.asdict(cfg))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jllama.init(cfg, jax.random.key(0)))
+    jqp = jq.quantize_params(tree)
+    tqp = tq.quantize_params(tparams.from_numpy(tree, tcfg, "cpu"))
+    assert isinstance(tqp["layers"]["router"], torch.Tensor)
+    assert tqp["layers"]["router"].dtype == torch.float32
+    for k in ("moe_gate", "moe_up", "moe_down"):
+        got, want = tqp["layers"][k], jqp["layers"][k]
+        assert isinstance(got, tq.QuantizedTensor), k
+        assert tuple(got.scale.shape) == (cfg.n_layers, cfg.moe_experts,
+                                          got.shape[-1])
+        np.testing.assert_array_equal(got.values.numpy(),
+                                      np.asarray(want.values))
+        assert got.scale.numpy().tobytes() == np.asarray(
+            want.scale).tobytes()
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                             (2, 16)).astype(np.int32)
+    want = np.asarray(jllama.apply(cfg, jqp, jnp.asarray(toks)))
+    got = tllama.apply(tcfg, tqp, torch.tensor(toks, dtype=torch.long))
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=1e-5)
+    assert tq.quantized_bytes(tqp) == jq.quantized_bytes(jqp)
+
+
 def test_embedding_norms_stay_full_precision(weights):
     tqp = tq.quantize_params(weights[1])
     for leaf in (tqp["tok_embed"], tqp["final_norm"],

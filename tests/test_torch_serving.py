@@ -56,6 +56,26 @@ def test_greedy_completions_match_jax_service(weights, window):
     assert got == want
 
 
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("preset", ["moe_smoke", "moe2_smoke"])
+def test_moe_greedy_completions_match_jax_service(preset, window):
+    cfg = dataclasses.replace(jllama.PRESETS[preset], dtype="float32")
+    tcfg = tllama.LlamaConfig(**dataclasses.asdict(cfg))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jllama.init(cfg, jax.random.key(0)))
+    prompts = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 11)).tolist()
+    body = {"prompt_ids": prompts, "max_new_tokens": 9}
+    want = jserving.GenerationService(
+        cfg, tree, max_new_cap=32, name=preset,
+        prefill_window=window).complete(dict(body))
+    got = tserving.GenerationService(
+        tcfg, tparams.from_numpy(tree, tcfg, "cpu"), max_new_cap=32,
+        name=preset, prefill_window=window,
+        device="cpu").complete(dict(body))
+    assert got == want
+
+
 def test_sampled_completion_reproducible_and_effective_top_k(weights):
     svc = port_service(weights)
     body = {"prompt_ids": [5, 9, 2], "max_new_tokens": 6,

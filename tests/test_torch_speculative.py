@@ -71,6 +71,29 @@ def test_greedy_equals_plain_greedy_and_jax(models, window):
     assert 0.0 <= stats["acceptance_rate"] <= 1.0 and stats["proposed"] > 0
 
 
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_target_greedy_equals_plain_greedy_and_jax(models, top_k):
+    """A MoE target (dropless routing in the verify windows) with the
+    dense draft: token-identical to plain greedy and to JAX, with the
+    same proposals and acceptances."""
+    cfg = dataclasses.replace(TGT, moe_experts=4, moe_top_k=top_k)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jllama.init(cfg, jax.random.key(5)))
+    tcfg = _port(cfg)
+    tp = tparams.from_numpy(tree, tcfg, "cpu")
+    jd, jdp, td, tdp = models["d"]
+    prompt = _prompt(6)
+    want = tgen.generate(tcfg, tp, torch.tensor(prompt, dtype=torch.long),
+                         12, device="cpu")
+    got, stats = tspec.spec_generate(tcfg, tp, td, tdp, prompt, 12, gamma=3,
+                                     device="cpu")
+    assert torch.equal(got, want)
+    jgot, jstats = jspec.spec_generate(cfg, tree, jd, jdp,
+                                       jnp.asarray(prompt), 12, gamma=3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jgot))
+    assert stats == jstats
+
+
 def test_self_draft_accepts_everything(models):
     _, _, tt, ttp = models["t"]
     prompt = _prompt(2, s=5)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card
-and hold its kernels against their plain versions.
+"""Drive the PyTorch port's serving, training, fine-tuning and side-model
+paths on one CUDA card and hold its kernels against their plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` at first use) and
@@ -15,7 +15,10 @@ no network. Phases, each of which raises on failure:
    serving and training shapes and ragged (s 1, 65, 127, 1000, 2047), GQA
    group 1 to 4, non-causal and d 64 shapes, K2 (dQ) and K3 (dK/dV) at the
    training shape and ragged, MHA, non-causal and d 64 shapes; K2 and K3
-   launched twice on one input must each agree bit for bit;
+   launched twice on one input must each agree bit for bit; all three also
+   at the fine-tuning shapes (b 4, s 2048, 32 / 8 heads, d 128 for
+   Llama-3.1-8B and d 64 for Llama-3.2-1B; K1 also through the wrapper at
+   b 1, s 1000), timed there too;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -45,7 +48,21 @@ no network. Phases, each of which raises on failure:
    routing, dispatch and combine, expert products and the kernels; one
    step twice from one state, bitwise equal; flash against dense at full
    width (the share of routing choices that agree, and the gradients);
-   ``GenerationService`` over HTTP with per-length and windowed prefill.
+   ``GenerationService`` over HTTP with per-length and windowed prefill;
+8. fine-tuning: Llama-3.1-8B (bf16) and Llama-3.2-1B (f32 master) from
+   HF-layout state dicts drawn on the card, converted with
+   ``models/convert_hf.py`` (config against the presets, round trip
+   bitwise); LoRA through ``fit`` at the 8B, b 4 x 2048, 4 steps straight
+   against 2 into a checkpoint and a resumed fit (adapters and moments
+   bit-equal, base unchanged, first loss = the base's, exact launches per
+   step, step time, peak memory, a profile, the step's parts); the
+   fine-tuned 8B distilled into the 1B (``make_distill_step``, exact
+   launches per step, teacher unchanged); the student checkpointed,
+   restored and serving the 8B as its draft through ``spec_generate``;
+9. side models: MNIST (784-256-10, b 1024, 20 SGD steps) and ResNet-50
+   (b 256 x 224 x 224 x 3, bf16 NHWC, 10 momentum steps: falling loss,
+   running stats moved, 25,557,032 params, step time, images/s, peak
+   memory), and MNIST and ``resnet18-smoke`` on the card against the CPU.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -61,6 +78,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -154,6 +172,65 @@ MOE_ROUTING_OPS = frozenset({
     "aten::softmax", "aten::_softmax", "aten::_softmax_backward_data",
     "aten::sort", "aten::cumsum", "aten::one_hot", "aten::scatter_",
     "aten::eq"})
+
+
+# fine-tuning path (phase 8): Llama-3.1-8B and Llama-3.2-1B as the public
+# config.json files of meta-llama/Llama-3.1-8B and meta-llama/Llama-3.2-1B
+# give them (the keys that shape the model). No weights are read: each
+# state dict is drawn from a seed in HF's layout, in bf16 on the card.
+HF_LLAMA31_8B = {
+    "architectures": ["LlamaForCausalLM"], "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "vocab_size": 128256, "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": False, "attention_bias": False,
+    "mlp_bias": False, "torch_dtype": "bfloat16"}
+HF_LLAMA32_1B = {
+    "architectures": ["LlamaForCausalLM"], "hidden_size": 2048,
+    "head_dim": 64, "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "vocab_size": 128256, "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": True, "attention_bias": False,
+    "mlp_bias": False, "torch_dtype": "bfloat16"}
+# the fine-tuning shape, LoRA's fit run (straight, and RESUME_AT steps into
+# FT_WORKDIR then resumed) and its adapter learning rate: adapters take a
+# larger one than pretraining (Adam moves B by about lr per step, which
+# moves a merged weight by ~0.09·lr: at 3e-4 less than half a bf16 ulp of
+# the 0.02-scale base, so most of the update rounds away), and on an
+# NVIDIA H100 80GB HBM3 at 700.00 W lr 1e-2 overshot after one step
+# (losses 12.567, 12.022, 12.490, 12.640); the distillation steps,
+# temperature and mixing
+FT_BATCH, FT_SEQ, LORA_STEPS, LORA_LR = 4, 2048, 4, 2e-3
+# the two models' head dims, for the kernel checks at their shapes
+FT_HEAD_DIMS = (("8b", 128), ("1b", 64))
+DISTILL_STEPS, DISTILL_T, DISTILL_ALPHA = 4, 2.0, 0.5
+FT_WORKDIR = ROOT / "build" / "chip_smoke_finetune"
+# the 8B's first LoRA step against next_token_loss on the base params (B
+# = 0 merges to the base exactly, so equal bits are expected)
+LORA_FIRST_LOSS_RTOL = 1e-5
+
+# side models (phase 9): the default MNIST MLP at batch 1024 for 20 SGD
+# steps; ResNet-50 at batch 256 x 224 x 224 x 3 (the per-GPU batch of
+# NVIDIA DeepLearningExamples' ResNet-50 v1.5 recipe with AMP) for 10
+# momentum steps on one batch; card against CPU at smoke size:
+# resnet18-smoke (b 16, 32 x 32) and MNIST (b 256). bf16 on both sides,
+# the convolutions' and matmuls' sums rounded at different points: MNIST
+# logits within 3e-2, ResNet eval logits, train logits and running stats
+# within 5e-2 (logits of ~3).
+MNIST_BATCH, MNIST_STEPS = 1024, 20
+RESNET_BATCH, RESNET_SIZE, RESNET_STEPS, RESNET_LR = 256, 224, 10, 0.1
+RESNET50_PARAMS = 25_557_032
+SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
 
 
 def _log(msg: str) -> None:
@@ -316,6 +393,15 @@ def phase_kernels() -> dict:
         ("g2 s127 bf16 wrapper", 2, 127, 8, 4, 128, torch.bfloat16, True,
          True),
         ("mha s129 d64 bf16", 2, 129, 8, 8, 64, torch.bfloat16, True, False),
+        # the fine-tuning path's shapes (phase 8): Llama-3.1-8B (d 128)
+        # and Llama-3.2-1B (d 64), 32 / 8 heads (GQA group 4), training
+        # and a 1000-token prefill
+        *((f"llama3 {name} train gqa4 s{FT_SEQ} d{d} bf16", FT_BATCH,
+           FT_SEQ, 32, 8, d, torch.bfloat16, True, False)
+          for name, d in FT_HEAD_DIMS),
+        *((f"llama3 {name} prefill gqa4 s{PROMPT} d{d} bf16 wrapper", 1,
+           PROMPT, 32, 8, d, torch.bfloat16, True, True)
+          for name, d in FT_HEAD_DIMS),
     ]
     worst = 0.0
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
@@ -382,7 +468,30 @@ def phase_kernels() -> dict:
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5,
                   queue_ahead=True)
     _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms")
-    return dict(max_abs_err=worst, **timed[TRAIN_SEQ])
+    # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
+    ft = {}
+    for name, d in FT_HEAD_DIMS:
+        b, s, h, hkv = FT_BATCH, FT_SEQ, 32, 8
+        q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True),
+                      queue_ahead=True)
+        plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
+                            iters=5, warmup=1, queue_ahead=True)
+        lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+            qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
+        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d,
+                                          torch.bfloat16, True)
+        tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
+        _log(f"time llama3 {name} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+             f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} "
+             f"of bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+             f"bound {bound_ms:.4f} ms ({bound_by})")
+        ft[f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
+        del q, k, v, qt, kt, vt
+    return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft)
 
 
 def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
@@ -423,6 +532,10 @@ def phase_bwd_kernels() -> dict:
         ("non-causal s512 f32", 2, 512, 12, 4, 128, torch.float32, False),
         ("gqa s384 d64 bf16", 2, 384, 8, 2, 64, torch.bfloat16, True),
         ("gqa s384 d64 f32", 2, 384, 8, 2, 64, torch.float32, True),
+        # the fine-tuning path's training shapes (phase 8)
+        *((f"llama3 {name} train gqa4 s{FT_SEQ} d{d} bf16", FT_BATCH,
+           FT_SEQ, 32, 8, d, torch.bfloat16, True)
+          for name, d in FT_HEAD_DIMS),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for name, b, s, h, hkv, d, dtype, causal in cases:
@@ -532,6 +645,48 @@ def phase_bwd_kernels() -> dict:
                          bound_share=bound_ms / ms)
     _log(f"time delta = rowsum(dO*O) (torch ops) b{b} s{s}: "
          f"{delta_ms:.4f} ms")
+    del q, k, v, do, o, lse, delta, sq, sk, sv, so
+    # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
+    for name in out:
+        out[name]["more_shapes"] = {}
+    for label, d in FT_HEAD_DIMS:
+        b, s, h, hkv = FT_BATCH, FT_SEQ, 32, 8
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, torch.bfloat16,
+                                          gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=10,
+            queue_ahead=True)
+        for name, kern, plain, kind in (
+                ("flash_bwd_dq",
+                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                 lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   True), "dq"),
+                ("flash_bwd_dkv",
+                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                 lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    True), "dkv")):
+            ms = _time_ms(kern, queue_ahead=True)
+            plain_ms = _time_ms(plain, iters=3, warmup=1, queue_ahead=True)
+            bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d,
+                                              torch.bfloat16, True, kind)
+            tflops = kernel_flops(b, h, s, s, d, True, kind) / ms / 1e9
+            _log(f"time {name} llama3 {label} b{b} s{s} h{h} hkv{hkv} d{d} "
+                 f"bf16 causal: kernel {ms:.4f} ms ({tflops:.1f} TF/s, "
+                 f"{bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, "
+                 f"sdpa backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                 f"({bound_by})")
+            out[name]["more_shapes"][
+                f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                bound_share=bound_ms / ms)
+        del q, k, v, do, o, lse, delta, sq, sk, sv, so
+        torch.cuda.empty_cache()
     q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
                                                   torch.float32, gen, True)
     d32 = fa.flash_bwd_delta(o32, do32)
@@ -1845,6 +2000,694 @@ def _moe_serving(cfg) -> dict:
     return launches
 
 
+def _bits_checksum(tree) -> dict:
+    """Per leaf: the sum of its bit patterns (int64) and of its values
+    (f64), over one layer slice at a time (no copy of a whole 8B leaf)."""
+    from service_account_auth_improvements_tpu_torch.utils.tree import leaves
+
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}
+    out = {}
+    for name, t in leaves(tree):
+        parts = t.unbind(0) if t.dim() > 2 else (t,)
+        bits = sum(int(torch.sum(p.view(ints[t.dtype]), dtype=torch.int64))
+                   for p in parts)
+        vals = sum(float(torch.sum(p, dtype=torch.float64)) for p in parts)
+        out[name] = (bits, vals)
+    return out
+
+
+def _draw_hf_state_dict(hf: dict, seed: int) -> dict:
+    """An HF Llama state dict for the config ``hf`` (torch Linear [out,
+    in] layout, ``model.`` keys) drawn from ``seed`` in bf16 on the card:
+    matmul weights N(0, 0.02) (the residual-out projections
+    0.02/sqrt(2·layers), as ``llama.init`` draws them), norms 1 + N(0,
+    0.02); no ``lm_head.weight`` when the embeddings are tied."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    d, m, v = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    L, h, kv = (hf["num_hidden_layers"], hf["num_attention_heads"],
+                hf["num_key_value_heads"])
+    hd = hf.get("head_dim") or d // h
+    out_std = 0.02 / (2 * L) ** 0.5
+
+    def w(shape, std=0.02, mean=0.0):
+        x = torch.randn(shape, generator=gen, device=DEV)
+        return (x * std + mean).to(torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w((v, d)),
+          "model.norm.weight": w((d,), mean=1.0)}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": w((d,), mean=1.0),
+            p + "self_attn.q_proj.weight": w((h * hd, d)),
+            p + "self_attn.k_proj.weight": w((kv * hd, d)),
+            p + "self_attn.v_proj.weight": w((kv * hd, d)),
+            p + "self_attn.o_proj.weight": w((d, h * hd), out_std),
+            p + "post_attention_layernorm.weight": w((d,), mean=1.0),
+            p + "mlp.gate_proj.weight": w((m, d)),
+            p + "mlp.up_proj.weight": w((m, d)),
+            p + "mlp.down_proj.weight": w((d, m), out_std),
+        })
+    if not hf["tie_word_embeddings"]:
+        sd["lm_head.weight"] = w((v, d))
+    return sd
+
+
+def _hf_import(name, hf, preset, param_dtype, seed):
+    """``config_from_hf`` against the port's preset (every field but
+    max_seq_len), ``params_from_hf_state_dict`` of a drawn bf16 state
+    dict on the card, and ``to_hf_state_dict`` → ``params_from_...``
+    bitwise. Returns (cfg with flash attention and loss_chunk 512, the
+    params in ``param_dtype``)."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        convert_hf,
+        llama,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import leaves
+
+    cfg = convert_hf.config_from_hf(hf)
+    want = dataclasses.asdict(llama.PRESETS[preset])
+    diff = {k: (v, want[k]) for k, v in dataclasses.asdict(cfg).items()
+            if v != want[k]}
+    _log(f"hf import {name}: config_from_hf against the {preset} preset "
+         f"differs in {diff} (HF's context length, the preset's 8192)")
+    if set(diff) != {"max_seq_len"}:
+        raise AssertionError(f"{name}: config differs from {preset}: {diff}")
+    cfg = dataclasses.replace(cfg, param_dtype=param_dtype,
+                              attn_impl="flash", loss_chunk=512)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = _draw_hf_state_dict(hf, seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = convert_hf.params_from_hf_state_dict(cfg, sd, device=DEV)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_sd = sum(t.numel() * t.element_size() for t in sd.values())
+    last = cfg.n_layers - 1
+    wq = sd[f"model.layers.{last}.self_attn.q_proj.weight"]
+    if not torch.equal(params["layers"]["wq"][last], wq.T.to(params[
+            "layers"]["wq"].dtype)):
+        raise AssertionError(f"{name}: wq of the last layer is not "
+                             "its q_proj.T")
+    del sd, wq
+    n = sum(t.numel() for _, t in leaves(params))
+    if n != cfg.param_count():
+        raise AssertionError(f"{name}: {n} params, config says "
+                             f"{cfg.param_count()}")
+    back = convert_hf.params_from_hf_state_dict(
+        cfg, convert_hf.to_hf_state_dict(
+            cfg, params, tie_word_embeddings=hf["tie_word_embeddings"]),
+        device=DEV)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    unequal = [k for (k, a), (_, b) in zip(leaves(params), leaves(back))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+    del back
+    torch.cuda.empty_cache()
+    _log(f"hf import {name}: state dict drawn ({n_sd} bytes bf16) in "
+         f"{t1 - t0:.2f} s, converted to {n} params in {param_dtype} on "
+         f"the card in {t2 - t1:.2f} s; to_hf_state_dict -> "
+         f"params_from_hf_state_dict in {t3 - t2:.2f} s: "
+         + ("every leaf bitwise equal" if not unequal
+            else f"leaves differ: {unequal}"))
+    if unequal:
+        raise AssertionError(f"{name}: the HF round trip is not the "
+                             "identity")
+    return cfg, params
+
+
+def phase_finetune() -> dict:
+    """Phase 8: Llama-3.1-8B and Llama-3.2-1B from HF-layout state dicts,
+    LoRA through ``fit`` at the 8B (resume bitwise), distillation of the
+    fine-tuned 8B into the 1B, and the distilled draft serving the 8B
+    through ``spec_generate``. Returns the launches of each counted
+    path."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' tensors are gone
+    try:
+        shutil.rmtree(FT_WORKDIR, ignore_errors=True)
+        FT_WORKDIR.mkdir(parents=True)
+        cfg8, base = _timed("finetune hf import 8B", _hf_import,
+                            "Llama-3.1-8B", HF_LLAMA31_8B, "llama3_8b",
+                            "bfloat16", 8)
+        cfg1, student = _timed("finetune hf import 1B", _hf_import,
+                               "Llama-3.2-1B", HF_LLAMA32_1B, "llama3_1b",
+                               "float32", 1)
+        corpus = np.random.default_rng(11).integers(
+            0, cfg8.vocab_size, FT_BATCH * FT_SEQ, dtype=np.int32)
+        # FT_BATCH sequences, each window of the corpus one of them
+        corpus = np.tile(corpus, LORA_STEPS + 1)
+        launches = {}
+        launches["lora_8b"], lcfg, adapters = _timed(
+            "finetune lora 8B", _lora_fit, cfg8, base, corpus)
+        launches["distill_8b_1b"], teacher, dstate, step_ms = _timed(
+            "finetune distill 8B -> 1B", _distill, cfg8, base, lcfg,
+            adapters, cfg1, student, corpus)
+        del base, adapters, student
+        launches["speculative_8b_1b"] = _timed(
+            "finetune speculative 8B + 1B draft", _serve_draft, cfg8,
+            teacher, cfg1, dstate, corpus)
+        _timed("finetune distill profile", _distill_profile, cfg1, cfg8,
+               dstate, teacher, corpus, step_ms)
+        del teacher, dstate
+        return launches
+    finally:
+        shutil.rmtree(FT_WORKDIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _lora_fit(cfg, base, corpus):
+    """LoRA (``LoraConfig()``: rank 8 on wq wk wv wo) through ``fit`` at
+    FT_BATCH x FT_SEQ: LORA_STEPS straight against RESUME_AT into
+    FT_WORKDIR and a resumed fit, with exact launches per step, bitwise
+    equal adapters and moments, the base's checksums, the first loss
+    against ``next_token_loss`` on the base; then step ms, tokens/s, peak
+    memory, a profile and the step's parts. Returns (the counted run's
+    launches, the LoRA config, the resumed run's adapters)."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint,
+        loop,
+        lora,
+        step,
+    )
+    from service_account_auth_improvements_tpu_torch.train.data import (
+        DataConfig,
+        TokenBatches,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import leaves
+
+    L = cfg.n_layers
+    lcfg = lora.LoraConfig()
+    workdir = FT_WORKDIR / "lora"
+    data_cfg = DataConfig(batch=FT_BATCH, seq=FT_SEQ)
+    n_adapter = lora.lora_param_count(cfg, lcfg)
+    _log(f"lora: Llama-3.1-8B bf16 base ({cfg.param_count() / 1e9:.3f}B "
+         f"params), {lcfg} ({n_adapter} adapter params, f32), batch "
+         f"{FT_BATCH} x {FT_SEQ}, AdamW lr {LORA_LR} without weight "
+         f"decay; run A {LORA_STEPS} steps straight, run B {RESUME_AT} "
+         f"into {workdir.relative_to(ROOT)} and a resumed fit to "
+         f"{LORA_STEPS}; {_disk(FT_WORKDIR.parent)}")
+    sums = _bits_checksum(base)
+
+    def fit(steps, log, **kw):
+        return loop.fit(cfg, None, corpus, data_cfg,
+                        loop.LoopConfig(steps=steps, log_every=1, **kw),
+                        optimizer=step.make_optimizer(
+                            learning_rate=LORA_LR, weight_decay=0.0),
+                        log=log, lora=lcfg, base_params=base, device=DEV)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa)  # the counted run starts here
+    log = _FitLog(fa)
+    t0 = time.perf_counter()
+    state_a, hist_a = fit(LORA_STEPS, log)
+    peak_a = torch.cuda.max_memory_allocated()
+    fit(RESUME_AT, log, workdir=str(workdir))
+    state_b, hist_b = fit(LORA_STEPS, log, workdir=str(workdir))
+    torch.cuda.synchronize()
+    launches = _counts(fa)  # read just after
+    _log(f"lora: runs A and B in {time.perf_counter() - t0:.1f} s")
+    steps = 0
+    for line, delta in log.lines:
+        want = (2 * L, L, L) if line.startswith("step ") else (0, 0, 0)
+        steps += line.startswith("step ")
+        if delta != want:
+            raise AssertionError(f"lora {line!r}: launches {delta}, "
+                                 f"expected {want}")
+    if steps != 2 * LORA_STEPS or not any(
+            line.startswith(f"resumed from step {RESUME_AT}")
+            for line, _ in log.lines):
+        raise AssertionError(f"lora: {steps} step lines, or no resume")
+    _log(f"lora: launches exactly K1 {2 * L}, K2 {L}, K3 {L} in each of "
+         f"{steps} steps (before and after the resume)")
+    unequal = [f"{what}/{n}" for what in ("params", "mu", "nu")
+               for (n, a), (_, b) in zip(
+                   leaves(state_a.params if what == "params"
+                          else getattr(state_a.opt_state, what)),
+                   leaves(state_b.params if what == "params"
+                          else getattr(state_b.opt_state, what)))
+               if not torch.equal(a, b)]
+    if unequal or (state_a.step, state_a.opt_state.count) != (
+            state_b.step, state_b.opt_state.count):
+        raise AssertionError(f"lora: resumed adapters differ: {unequal}")
+    step_dir = workdir / str(checkpoint.latest_step(workdir))
+    sizes = {f.name: f.stat().st_size for f in step_dir.iterdir()}
+    _log(f"lora: resumed against uninterrupted after {LORA_STEPS} steps: "
+         f"every adapter leaf and Adam moment bitwise equal; checkpoint "
+         f"{step_dir.name}: {sum(sizes.values())} bytes ({sizes}; "
+         f"{n_adapter} adapter params x 12 bytes = {12 * n_adapter})")
+    if _bits_checksum(base) != sums:
+        raise AssertionError("lora: the base params changed")
+    _log(f"lora: base checksums (bit-pattern and value sums of all "
+         f"{len(sums)} leaves) equal before and after both runs")
+
+    losses = [r["loss"] for r in hist_a]
+    batch, mask = TokenBatches(corpus, data_cfg, device=DEV).masked_batch_at(0)
+    with torch.no_grad():
+        base_loss = float(llama.next_token_loss(cfg, base, batch, mask))
+    rel = abs(losses[0] - base_loss) / abs(base_loss)
+    _log(f"lora: losses {[round(x, 6) for x in losses]} (run B "
+         f"{[round(r['loss'], 6) for r in hist_b]}); first step "
+         f"{losses[0]!r} against next_token_loss on the base {base_loss!r}"
+         f": relative difference {rel:.3e} ("
+         + ("bitwise equal" if losses[0] == base_loss else "not bitwise")
+         + f", tolerance {LORA_FIRST_LOSS_RTOL})")
+    if rel > LORA_FIRST_LOSS_RTOL:
+        raise AssertionError("lora: the zero-B merge is not the base")
+    if not all(np.isfinite(losses)) or not max(losses[1:]) < losses[0]:
+        raise AssertionError(f"lora: losses {losses} not finite and below "
+                             "the first after it")
+
+    # timing outside the counted run: one warm-up, then timed steps
+    lstep = lora.make_lora_train_step(cfg, lcfg, step.make_optimizer(
+        learning_rate=LORA_LR, weight_decay=0.0))
+    state = state_a
+    state, _ = lstep(state, base, batch, mask)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        state, _ = lstep(state, base, batch, mask)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 2
+    tok_s = FT_BATCH * (FT_SEQ - 1) / (step_ms / 1e3)
+    _log(f"lora: step {step_ms:.2f} ms (CUDA events, mean of 2 after a "
+         f"warm-up), {tok_s:.1f} tokens/s, peak memory of run A "
+         f"{peak_a / 2**30:.2f} GiB (base {_tree_bytes(base) / 2**30:.2f} "
+         f"GiB)")
+    _profile_step(lambda s, t, m: lstep(s, base, t, m), state, batch, mask)
+    for part, ms in _time_lora_parts(cfg, lcfg, base, state,
+                                     batch).items():
+        _log(f"lora part {part}: {ms:.2f} ms ({ms / step_ms:.3f} of the "
+             "step)")
+    adapters = state_b.params
+    del state, state_a, state_b
+    torch.cuda.empty_cache()
+    return launches, lcfg, adapters
+
+
+def _tree_bytes(tree) -> int:
+    from service_account_auth_improvements_tpu_torch.utils.tree import leaves
+
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree))
+
+
+def _time_lora_parts(cfg, lcfg, base, state, batch) -> dict:
+    """The LoRA step's parts that are no kernel of the port, on the
+    card's clock: the chunked f32 lm_head loss at vocab 128256 (forward,
+    chunk recompute and the backward to x only: the head is frozen), the
+    merge of the four targets forward and backward, and AdamW over the
+    adapters."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import lora, step
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        rebuild,
+        tree_map,
+    )
+
+    cdt = llama.dtype_of(cfg.dtype)
+    x = torch.randn((FT_BATCH, FT_SEQ - 1, cfg.dim), device=DEV,
+                    dtype=cdt, requires_grad=True)
+    head = base["lm_head"].to(cdt)
+
+    def lm_head_loss():
+        nll = llama._chunked_nll(cfg, x, head, batch[:, 1:])
+        torch.autograd.grad(nll.mean(), (x,))
+
+    flat = {n: t.detach().requires_grad_(True)
+            for n, t in leaves(state.params)}
+    grads_out = [torch.randn_like(base["layers"][t]) for t in lcfg.targets]
+
+    def merge():
+        merged = lora.merge_lora(base, rebuild(state.params, flat), lcfg)
+        torch.autograd.grad([merged["layers"][t] for t in lcfg.targets],
+                            list(flat.values()), grads_out)
+
+    zeros = tree_map(torch.zeros_like, state.params)
+    opt = step.make_optimizer(learning_rate=LORA_LR, weight_decay=0.0)
+    parts = {"lm_head loss fwd+recompute+bwd to x (f32 products)":
+             _time_ms(lm_head_loss, iters=3, warmup=1),
+             f"merge_lora fwd+bwd ({len(lcfg.targets)} targets, "
+             f"{cfg.n_layers} layers)":
+             _time_ms(merge, iters=3, warmup=1),
+             "adamw over the adapters": _time_ms(
+                 lambda: opt.apply(zeros, state.opt_state, state.params),
+                 iters=3, warmup=1)}
+    del x, grads_out, flat
+    return parts
+
+
+def _distill(cfg8, base, lcfg, adapters, cfg1, student, corpus):
+    """The fine-tuned 8B (``merge_lora``) as the teacher, the converted 1B
+    in f32 master params as the student: DISTILL_STEPS of
+    ``make_distill_step`` at FT_BATCH x FT_SEQ with exact launches per
+    step, the teacher's checksums unchanged, step ms, peak memory.
+    Returns (the counted run's launches, the teacher, the student's
+    state, the step ms)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        distill,
+        lora,
+        step,
+    )
+    from service_account_auth_improvements_tpu_torch.train.data import (
+        DataConfig,
+        TokenBatches,
+    )
+
+    teacher = lora.merge_lora(base, adapters, lcfg)
+    sums = _bits_checksum(teacher)
+    state = step.TrainState(0, student, step.make_optimizer().init(student))
+    dstep = distill.make_distill_step(cfg1, cfg8, temperature=DISTILL_T,
+                                      alpha=DISTILL_ALPHA)
+    batch, mask = TokenBatches(corpus, DataConfig(FT_BATCH, FT_SEQ),
+                               device=DEV).masked_batch_at(0)
+    Ls, Lt = cfg1.n_layers, cfg8.n_layers
+    want = {"flash_fwd": 2 * Ls + Lt, "flash_bwd_dq": Ls,
+            "flash_bwd_dkv": Ls}
+    _log(f"distill: teacher Llama-3.1-8B + merged adapters (bf16), "
+         f"student Llama-3.2-1B ({cfg1.param_count() / 1e9:.3f}B params, "
+         f"f32 master: {4 * _tree_bytes(student) / 2**30:.2f} GiB of "
+         f"params, grads and moments), batch {FT_BATCH} x {FT_SEQ}, T "
+         f"{DISTILL_T}, alpha {DISTILL_ALPHA}, {DISTILL_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    _zero(fa)  # the counted run starts here
+    for i in range(DISTILL_STEPS):
+        before = _counts(fa)
+        if i == 1:  # the first step is the warm-up
+            start.record()
+        state, m = dstep(state, teacher, batch, mask)
+        metrics.append(m)
+        delta = {k: _counts(fa)[k] - before[k] for k in want}
+        if delta != want:
+            raise AssertionError(f"distill step {i + 1}: launches {delta}, "
+                                 f"expected {want}")
+    end.record()
+    torch.cuda.synchronize()
+    launches = _counts(fa)  # read just after
+    step_ms = start.elapsed_time(end) / (DISTILL_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        _log(f"distill step {i + 1}: loss {m['loss']:.6f}, hard_loss "
+             f"{m['hard_loss']:.6f}, kl {m['kl']:.6f}, grad_norm "
+             f"{m['grad_norm']:.6f}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("distill: non-finite metrics")
+    if _bits_checksum(teacher) != sums:
+        raise AssertionError("distill: the teacher's params changed")
+    _log(f"distill: launches exactly K1 {2 * Ls + Lt} (student {2 * Ls} "
+         f"with its recompute + teacher {Lt}, never recomputed), K2 {Ls}, "
+         f"K3 {Ls} in each of {DISTILL_STEPS} steps; teacher checksums "
+         f"equal before and after; step {step_ms:.2f} ms (CUDA events, "
+         f"mean of {DISTILL_STEPS - 1} after a warm-up), "
+         f"{FT_BATCH * (FT_SEQ - 1) / (step_ms / 1e3):.1f} tokens/s; peak "
+         f"memory {peak / 2**30:.2f} GiB")
+    return launches, teacher, state, step_ms
+
+
+def _distill_profile(cfg_s, cfg_t, state, teacher, corpus,
+                     step_ms) -> None:
+    """After the draft is served (these updates move the student): a
+    profile of one distill step, and the step's parts that are no kernel
+    of the port on the card's clock: the chunked loss (both f32 lm_heads
+    at vocab 128256, the log-softmaxes and the KL; forward, chunk
+    recompute with the teacher's logits, backward to the student's hidden
+    states and head) and AdamW over the student's f32 params."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import distill, step
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        tree_map,
+    )
+
+    batch = torch.tensor(corpus[:FT_BATCH * FT_SEQ].reshape(FT_BATCH, FT_SEQ),
+                         dtype=torch.long, device=DEV)
+    dstep = distill.make_distill_step(cfg_s, cfg_t, temperature=DISTILL_T,
+                                      alpha=DISTILL_ALPHA)
+    _profile_step(lambda s, t, m: dstep(s, teacher, t, m), state, batch,
+                  torch.ones_like(batch))
+    cdt = llama.dtype_of(cfg_s.dtype)
+    x_s = torch.randn((FT_BATCH, FT_SEQ - 1, cfg_s.dim), device=DEV,
+                      dtype=cdt, requires_grad=True)
+    x_t = torch.randn((FT_BATCH, FT_SEQ - 1, cfg_t.dim), device=DEV,
+                      dtype=cdt)
+    head_s = state.params["lm_head"].detach().requires_grad_(True)
+    head_t = teacher["lm_head"].to(cdt)
+
+    def loss():
+        ce, kl = llama.scan_seq_chunks(
+            lambda a, bb, tc: distill._distill_chunk(
+                cfg_s, a, bb, head_s.to(cdt), head_t, tc, DISTILL_T),
+            cfg_s.loss_chunk, x_s, x_t, batch[:, 1:])
+        torch.autograd.grad((ce + kl).mean(), (x_s, head_s))
+
+    zeros = tree_map(torch.zeros_like, state.params)
+    opt = step.make_optimizer()
+    parts = {"distill loss fwd+recompute+bwd (two f32 lm_heads, KL)":
+             _time_ms(loss, iters=3, warmup=1),
+             "adamw over the student (f32)": _time_ms(
+                 lambda: opt.apply(zeros, state.opt_state, state.params),
+                 iters=3, warmup=1)}
+    for part, ms in parts.items():
+        _log(f"distill part {part}: {ms:.2f} ms ({ms / step_ms:.3f} of the "
+             "step)")
+
+
+def _serve_draft(cfg8, teacher, cfg1, state, corpus) -> dict:
+    """The distilled student's state saved with ``checkpoint.save``, its
+    params read back with ``restore_params`` and served as the draft of
+    the 8B teacher through ``spec_generate``: one greedy 1 x (PROMPT +
+    NEW) request against plain ``generate``. Returns the speculative
+    request's launches."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        speculative,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import checkpoint
+    from service_account_auth_improvements_tpu_torch.utils.tree import leaves
+
+    workdir = FT_WORKDIR / "draft"
+    t0 = time.perf_counter()
+    checkpoint.save(workdir, state)
+    t1 = time.perf_counter()
+    draft = checkpoint.restore_params(workdir, None, cfg1, device=DEV)
+    t2 = time.perf_counter()
+    if any(not torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaves(state.params), leaves(draft))):
+        raise AssertionError("draft: restored params differ from saved")
+    size = sum(f.stat().st_size for f in (workdir / str(
+        state.step)).iterdir())
+    _log(f"draft: checkpoint of the distilled 1B's state ({size} bytes) "
+         f"saved in {t1 - t0:.2f} s, restore_params in {t2 - t1:.2f} s, "
+         "bitwise equal")
+    prompt = torch.tensor(corpus[None, :PROMPT], dtype=torch.long,
+                          device=DEV)
+    generate.generate(cfg8, teacher, prompt[:, :16], 2, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = generate.generate(cfg8, teacher, prompt, NEW, device=DEV)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _zero(fa)  # the counted run starts here
+    t0 = time.perf_counter()
+    got, stats = speculative.spec_generate(cfg8, teacher, cfg1, draft,
+                                           prompt, NEW, gamma=GAMMA,
+                                           device=DEV)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts(fa)  # read just after
+    want = {"flash_fwd": cfg8.n_layers + cfg1.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    if (tuple(got.shape) != (1, PROMPT + NEW)
+            or not torch.equal(got[:, :PROMPT], prompt)
+            or not bool(((got >= 0) & (got < cfg8.vocab_size)).all())
+            or launches != want):
+        raise AssertionError(f"draft: output {tuple(got.shape)} or "
+                             f"launches {launches} (expected {want})")
+    agree = float((got[0, PROMPT:] == plain[0, PROMPT:]).float().mean())
+    _log(f"draft: spec_generate 8B target + distilled 1B draft, greedy 1 "
+         f"x ({PROMPT} + {NEW}), gamma {GAMMA}: {ms:.1f} ms against "
+         f"plain generate {plain_ms:.1f} ms ({ms / plain_ms:.2f}x); "
+         f"acceptance {stats['acceptance_rate']:.4f} ({stats['accepted']}"
+         f" of {stats['proposed']}); new tokens equal to plain greedy "
+         f"{agree:.4f}; K1 {launches['flash_fwd']} ({cfg8.n_layers} "
+         f"target + {cfg1.n_layers} draft prefill)")
+    del draft
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_side_models() -> None:
+    """Phase 9: MNIST (the default 784-256-10 MLP) and ResNet-50 training
+    on the card, and MNIST and resnet18-smoke on the card against the
+    CPU route."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _timed("side models mnist", _mnist)
+    _timed("side models resnet-50", _resnet50)
+    _timed("side models card vs cpu", _side_card_vs_cpu)
+
+
+def _mnist() -> None:
+    from service_account_auth_improvements_tpu_torch.models import mnist
+
+    cfg = mnist.MnistConfig()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    labels = torch.randint(0, cfg.num_classes, (MNIST_BATCH,),
+                           generator=gen, device=DEV)
+    # class-dependent means make the task learnable
+    centers = torch.randn((cfg.num_classes, cfg.in_dim), generator=gen,
+                          device=DEV) * 2.0
+    x = centers[labels] + torch.randn((MNIST_BATCH, cfg.in_dim),
+                                      generator=gen, device=DEV) * 0.5
+    params = mnist.init(cfg, gen, device=DEV)
+    step = mnist.make_sgd_step(cfg, lr=0.1)
+    acc0 = float(mnist.accuracy(cfg, params, x, labels))
+    losses = []
+    for _ in range(MNIST_STEPS):
+        params, loss = step(params, x, labels)
+        losses.append(float(loss))
+    acc = float(mnist.accuracy(cfg, params, x, labels))
+    _log(f"mnist: {cfg} ({cfg.param_count()} params), batch "
+         f"{MNIST_BATCH}, {MNIST_STEPS} SGD steps: loss {losses[0]:.4f} -> "
+         f"{losses[-1]:.4f}, accuracy {acc0:.4f} -> {acc:.4f}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"mnist: losses {losses}")
+
+
+def _resnet50() -> None:
+    from service_account_auth_improvements_tpu_torch.models import resnet
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        tree_map,
+    )
+
+    cfg = resnet.PRESETS["resnet50"]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params, stats = resnet.init(cfg, gen, device=DEV)
+    n = sum(t.numel() for _, t in leaves(params))
+    if not n == cfg.param_count() == RESNET50_PARAMS:
+        raise AssertionError(f"resnet50: {n} params in the tree, "
+                             f"{cfg.param_count()} counted")
+    x = torch.randn((RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3),
+                    generator=gen, device=DEV).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.num_classes, (RESNET_BATCH,),
+                           generator=gen, device=DEV)
+    stats0 = tree_map(torch.clone, stats)
+    mom = tree_map(torch.zeros_like, params)
+    step = resnet.make_train_step(cfg, lr=RESNET_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses = []
+    for i in range(RESNET_STEPS):
+        if i == 1:  # the first step is the warm-up
+            start.record()
+        params, stats, mom, loss = step(params, stats, mom, x, labels)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (RESNET_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    moved = sum(not torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves(stats), leaves(stats0)))
+    _log(f"resnet50: {n} params (canonical {RESNET50_PARAMS}), batch "
+         f"{RESNET_BATCH} x {RESNET_SIZE} x {RESNET_SIZE} x 3 bf16 NHWC "
+         f"(channels_last), momentum SGD lr {RESNET_LR}, {RESNET_STEPS} "
+         f"steps on one batch: losses {[round(v, 4) for v in losses]}; "
+         f"{moved} of {len(list(leaves(stats)))} running-stat leaves "
+         f"moved; step {step_ms:.2f} ms (CUDA events, mean of "
+         f"{RESNET_STEPS - 1} after a warm-up), "
+         f"{RESNET_BATCH / (step_ms / 1e3):.1f} images/s, peak memory "
+         f"{peak / 2**30:.2f} GiB")
+    # lr 0.1 with momentum on one repeated batch oscillates after its
+    # first drop: every later step must be below the first
+    if not (np.isfinite(losses).all() and max(losses[1:]) < losses[0]):
+        raise AssertionError(f"resnet50: losses {losses}")
+    if moved != len(list(leaves(stats))):
+        raise AssertionError("resnet50: running stats did not all move")
+    _profile_step(lambda p, xx, yy: step(p, stats, mom, xx, yy), params, x,
+                  labels)
+
+
+def _side_card_vs_cpu() -> None:
+    """MNIST (b 256) and resnet18-smoke (b 16, 32 x 32: asymmetric SAME
+    padding) on the card against the CPU route, one input each, bf16
+    both sides, within SIDE_TOL."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        mnist,
+        resnet,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        tree_map,
+    )
+
+    rng = np.random.default_rng(0)
+    cfg = mnist.MnistConfig()
+    params = mnist.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.tensor(rng.normal(size=(256, cfg.in_dim)), dtype=torch.float32)
+    want = mnist.apply(cfg, params, x)
+    got = mnist.apply(cfg, tree_map(lambda t: t.to(DEV), params),
+                      x.to(DEV)).cpu()
+    err = float((got - want).abs().max())
+    _log(f"mnist card vs cpu (b 256, bf16): logits max abs err {err:.3e} "
+         f"(max abs logit {float(want.abs().max()):.3f}, tolerance "
+         f"{SIDE_TOL['mnist']})")
+    if err > SIDE_TOL["mnist"]:
+        raise AssertionError("mnist: card and CPU disagree")
+
+    cfg = resnet.PRESETS["resnet18-smoke"]
+    params, stats = resnet.init(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    params["head"]["w"] = torch.randn(
+        params["head"]["w"].shape,
+        generator=torch.Generator().manual_seed(1)) * 0.3
+    x = torch.tensor(rng.normal(size=(16, 32, 32, 3)), dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", DEV):
+        p, s = (tree_map(lambda t: t.to(dev), t) for t in (params, stats))
+        ev, _ = resnet.apply(cfg, p, s, x.to(dev), train=False)
+        tr, ns = resnet.apply(cfg, p, s, x.to(dev), train=True)
+        out[dev] = (ev.cpu(), tr.cpu(), tree_map(lambda t: t.cpu(), ns))
+    errs = [float((a - b).abs().max()) for a, b in zip(out[DEV][:2],
+                                                       out["cpu"][:2])]
+    errs.append(max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        leaves(out[DEV][2]), leaves(out["cpu"][2]))))
+    _log(f"resnet18-smoke card vs cpu (b 16, 32 x 32, bf16): eval logits "
+         f"{errs[0]:.3e}, train logits {errs[1]:.3e}, running stats "
+         f"{errs[2]:.3e} max abs err (max abs logit "
+         f"{float(out['cpu'][0].abs().max()):.3f}, tolerance "
+         f"{SIDE_TOL['resnet']})")
+    if max(errs) > SIDE_TOL["resnet"]:
+        raise AssertionError("resnet18-smoke: card and CPU disagree")
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1858,6 +2701,8 @@ def main() -> int:
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
     moe = phase_moe()
+    finetune = phase_finetune()
+    phase_side_models()
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():
@@ -1865,7 +2710,8 @@ def main() -> int:
         by_path = {"serving": serving.get(name, 0),
                    "training": training["launches"][name],
                    **{path: counts.get(name, 0)
-                      for path, counts in {**lifecycle, **moe}.items()}}
+                      for path, counts in {**lifecycle, **moe,
+                                           **finetune}.items()}}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1884,6 +2730,7 @@ def main() -> int:
             "library_ms": n["library_ms"],
             "tflops": n["tflops"],
             "bound_share": n["bound_share"],
+            "more_shapes": n["more_shapes"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

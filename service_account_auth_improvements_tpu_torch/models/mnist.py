@@ -1,0 +1,101 @@
+"""MNIST MLP (port of ``models/mnist.py``): the smallest end-to-end proof
+that a notebook can train (BASELINE.json configurations #1 and #2).
+
+Pure-functional, as the reference: a dict of params, ``apply``, a loss and
+a plain-SGD step that returns new params. The matmuls run in bf16 (cuBLAS
+on the card; the reference leaves them to XLA, no Pallas kernel). A mesh
+(the batch sharded over ``dp``) waits for the parallel slice (ROADMAP
+queue 1, item 8) and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from service_account_auth_improvements_tpu_torch.utils.device import (
+    resolve_device,
+)
+from service_account_auth_improvements_tpu_torch.utils.tree import (
+    tree_map,
+    value_and_grad,
+)
+
+_MESH_TODO = ("a data-parallel mesh is not ported yet (ROADMAP queue 1, "
+              "item 8, \"parallel\")")
+
+
+@dataclasses.dataclass(frozen=True)
+class MnistConfig:
+    in_dim: int = 784
+    hidden_dim: int = 256
+    num_classes: int = 10
+    num_layers: int = 2
+
+    def param_count(self) -> int:
+        dims = self._dims()
+        return sum((a + 1) * b for a, b in zip(dims[:-1], dims[1:]))
+
+    def _dims(self) -> list[int]:
+        return ([self.in_dim]
+                + [self.hidden_dim] * (self.num_layers - 1)
+                + [self.num_classes])
+
+
+def init(cfg: MnistConfig, generator: torch.Generator, device=None) -> dict:
+    """f32 params on ``device`` (the card unless ``"cpu"``): He-normal
+    weights drawn from ``generator``, zero biases."""
+    dev = resolve_device(device)
+    dims = cfg._dims()
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        w = torch.randn((a, b), generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        params[f"w{i}"] = (w * math.sqrt(2.0 / a)).to(dev)
+        params[f"b{i}"] = torch.zeros((b,), dtype=torch.float32, device=dev)
+    return params
+
+
+def apply(cfg: MnistConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """(batch, 784) images → (batch, 10) f32 logits. Each matmul and bias
+    add in bfloat16, the logits cast to float32 at the head."""
+    h = x.to(torch.bfloat16)
+    n = cfg.num_layers
+    for i in range(n):
+        w = params[f"w{i}"].to(torch.bfloat16)
+        h = h @ w + params[f"b{i}"].to(torch.bfloat16)
+        if i < n - 1:
+            h = F.relu(h)
+    return h.float()
+
+
+def loss_fn(cfg: MnistConfig, params: dict, x: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(apply(cfg, params, x), dim=-1)
+    return -torch.mean(logp.gather(1, labels.long()[:, None]))
+
+
+def accuracy(cfg: MnistConfig, params: dict, x: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    pred = torch.argmax(apply(cfg, params, x), dim=-1)
+    return torch.mean((pred == labels).float())
+
+
+def make_sgd_step(cfg: MnistConfig, lr: float = 0.1, mesh=None):
+    """``step(params, x, labels) -> (new_params, loss)``: one plain-SGD
+    step, ``p - lr·g`` on every leaf (new tensors, as the reference's
+    functional update)."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+
+    def step(params, x, labels):
+        loss, grads = value_and_grad(
+            lambda p: loss_fn(cfg, p, x, labels), params)
+        with torch.no_grad():
+            new_params = tree_map(lambda p, g: p - lr * g, params, grads)
+        return new_params, loss
+
+    return step

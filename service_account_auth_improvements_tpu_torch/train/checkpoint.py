@@ -148,13 +148,16 @@ def restore_params(directory, mesh, cfg: llama.LlamaConfig,
 
 
 def restore(directory, mesh, cfg: llama.LlamaConfig, state_like: TrainState,
-            step: int | None = None) -> TrainState:
+            step: int | None = None, axes_tree=None) -> TrainState:
     """Restore the full training state from the newest step (or ``step``)
     INTO ``state_like``: each of its tensors is overwritten in place with
     the checkpoint's values, cast to that tensor's dtype on its device (a
     bf16 ``mu`` restores as bf16), as orbax restores into its target. The
     structure and shapes must match; returns the restored ``TrainState``
-    (its tensors are ``state_like``'s)."""
+    (its tensors are ``state_like``'s), which may hold any params tree
+    (LoRA adapters too). ``axes_tree`` is the reference's override of the
+    params' logical axes for such trees (``lora_logical_axes``); it lays
+    leaves onto a mesh, so without one it is accepted and unused."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     path = _step_dir(directory, step)

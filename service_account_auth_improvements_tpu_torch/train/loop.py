@@ -11,9 +11,10 @@ service_account_auth_improvements_tpu_torch.train.loop --preset bench_800m
 --batch 8 --seq 2048 --steps 10 --workdir <dir>`` (on the card; add
 ``--device cpu`` only with a small preset).
 
-Not ported yet, and raising with their ROADMAP items when asked for: LoRA
-fine-tuning (``lora``, ``base_params``), queue 1 item 7; a mesh and the
-mesh-axis flags, item 8.
+``fit(lora=LoraConfig(...), base_params=...)`` fine-tunes adapters over
+frozen base weights (``train/lora.py``): the checkpointed and resumed state
+is the adapter tree. Not ported yet, and raising with its ROADMAP item
+when asked for: a mesh and the mesh-axis flags, queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from service_account_auth_improvements_tpu_torch.models import llama
 from service_account_auth_improvements_tpu_torch.train import (
     checkpoint as ckpt,
     evaluate,
+    lora as lora_mod,
 )
 from service_account_auth_improvements_tpu_torch.train.data import (
     DataConfig,
@@ -72,8 +74,17 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
     and lands in history as ``eval_loss``/``eval_perplexity`` records
     (without it, ``eval_data`` is ignored, as in the reference).
 
+    ``lora`` (a ``train.lora.LoraConfig``) switches to adapter-only
+    fine-tuning over frozen ``base_params`` (on ``device``): the state,
+    its checkpoints and its resume are the adapter tree, so a culled
+    notebook resumes a fine-tune from a few-MB checkpoint; evaluation runs
+    on the merged params. The default optimizer then has no weight
+    decay.
+
     History records carry ``step``, ``loss``, ``tokens_per_sec`` and, on
-    a card with a known peak, ``mfu``. The clock starts after the first
+    a card with a known peak and outside LoRA mode (frozen-weight
+    backprop skips the dW FLOPs the estimate counts), ``mfu``. The clock
+    starts after the first
     step, which carries the kernel builds and library warm-up; a record
     logged before any later step has finished times that first step. Eval
     and checkpoint writes are kept out of the clock: tokens/s and MFU
@@ -82,30 +93,47 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         raise NotImplementedError(
             "sharded training (mesh) is not ported yet (ROADMAP queue 1, "
             "item 8, \"parallel\")")
-    if lora is not None or base_params is not None:
-        raise NotImplementedError(
-            "LoRA fine-tuning is not ported yet (ROADMAP queue 1, item 7)")
+    if lora is not None and base_params is None:
+        raise ValueError("lora fit requires base_params")
     dev = resolve_device(device)
-    optimizer = optimizer or make_optimizer()
+    if optimizer is None:
+        optimizer = (make_optimizer(weight_decay=0.0) if lora is not None
+                     else make_optimizer())
     data = TokenBatches(tokens, data_cfg, device=dev)
-    state = init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(0), optimizer,
-        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if lora is not None:
+        state = lora_mod.init_lora_state(cfg, lora, gen, optimizer,
+                                         device=dev)
+    else:
+        state = init_train_state(cfg, gen, optimizer, device=dev)
     start = 0
     if loop.workdir is not None and ckpt.latest_step(loop.workdir) is not None:
         t = time.perf_counter()
-        state = ckpt.restore(loop.workdir, None, cfg, state)
+        state = ckpt.restore(
+            loop.workdir, None, cfg, state,
+            axes_tree=(None if lora is None
+                       else lora_mod.lora_logical_axes(cfg, lora)))
         start = state.step
         log(f"resumed from step {start} (restored in "
             f"{time.perf_counter() - t:.2f} s)")
     packed = data_cfg.eos_id is not None
-    step_fn = make_train_step(
-        cfg, optimizer=optimizer, packed=packed,
-        # segment-masked attention is a dense-impl feature; flash windows
-        # train with the boundary loss mask only
-        segment_eos_id=(data_cfg.eos_id
-                        if packed and cfg.attn_impl == "dense" else None),
-    )
+    if lora is not None:
+        # packed corpora train with the boundary loss mask only (the
+        # adapter step has no segment-masked attention path)
+        lora_step = lora_mod.make_lora_train_step(
+            cfg, lora, optimizer=optimizer, packed=packed)
+
+        def step_fn(state, batch, mask):
+            return lora_step(state, base_params, batch, mask)
+    else:
+        step_fn = make_train_step(
+            cfg, optimizer=optimizer, packed=packed,
+            # segment-masked attention is a dense-impl feature; flash
+            # windows train with the boundary loss mask only
+            segment_eos_id=(data_cfg.eos_id
+                            if packed and cfg.attn_impl == "dense"
+                            else None),
+        )
     eval_step = None
     if loop.eval_every and eval_data is not None:
         eval_step = evaluate.make_eval_step(cfg, packed=packed)
@@ -141,8 +169,9 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
             tok_s = tokens_per_step / step_s
             rec = {"step": i + 1, "loss": loss,
                    "tokens_per_sec": round(tok_s, 1)}
-            util = mfu(cfg.flops_per_token(data_cfg.seq) * tokens_per_step,
-                       step_s, 1, peak)
+            util = (None if lora is not None else mfu(
+                cfg.flops_per_token(data_cfg.seq) * tokens_per_step,
+                step_s, 1, peak))
             if util:
                 rec["mfu"] = round(util, 4)
             history.append(rec)
@@ -158,8 +187,12 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
             metrics["loss"].item()
             t_pause = time.perf_counter()
             if do_eval:
-                ev = evaluate.evaluate(cfg, state.params, eval_data,
+                eval_params = (
+                    lora_mod.merge_lora(base_params, state.params, lora)
+                    if lora is not None else state.params)
+                ev = evaluate.evaluate(cfg, eval_params, eval_data,
                                        step=eval_step, device=dev)
+                del eval_params
                 history.append({"step": i + 1,
                                 "eval_loss": round(ev["loss"], 4),
                                 "eval_perplexity": ev["perplexity"],

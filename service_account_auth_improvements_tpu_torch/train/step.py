@@ -23,6 +23,13 @@ from service_account_auth_improvements_tpu_torch.models import llama
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
+# the tree helpers under the names checkpoint.py and chip_smoke.py use
+from service_account_auth_improvements_tpu_torch.utils.tree import (
+    leaves as _leaves,
+    rebuild as _rebuild,
+    tree_map as _map,
+    value_and_grad,
+)
 
 _MESH_TODO = ("sharded training (mesh/rules) is not ported yet (ROADMAP "
               "queue 1, item 8, \"parallel\")")
@@ -41,25 +48,6 @@ class TrainState(NamedTuple):
     step: int
     params: Any
     opt_state: AdamState
-
-
-def _leaves(tree, prefix=""):
-    """(path, tensor) pairs of a nested dict, in a fixed order."""
-    for name in sorted(tree):
-        node = tree[name]
-        if isinstance(node, dict):
-            yield from _leaves(node, f"{prefix}{name}/")
-        else:
-            yield f"{prefix}{name}", node
-
-
-def _map(fn, tree, *rest):
-    """The nested dict ``tree`` with each leaf replaced by ``fn(leaf,
-    *leaves of rest at the same place)``."""
-    return {name: (_map(fn, node, *(r[name] for r in rest))
-                   if isinstance(node, dict)
-                   else fn(node, *(r[name] for r in rest)))
-            for name, node in tree.items()}
 
 
 def _linear(init: float, end: float, steps: int):
@@ -239,17 +227,10 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
             segment_ids=segment_ids,
         )
 
-    def value_and_grad(params, tokens, mask):
-        leaves = {name: p.detach().requires_grad_(True)
-                  for name, p in _leaves(params)}
-        with torch.enable_grad():
-            loss = loss_fn(_rebuild(params, leaves), tokens, mask)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), _rebuild(params, dict(zip(leaves, grads)))
-
     def step(state: TrainState, tokens, mask):
         if grad_accum == 1:
-            loss, grads = value_and_grad(state.params, tokens, mask)
+            loss, grads = value_and_grad(loss_fn, state.params, tokens,
+                                         mask)
         else:
             b = tokens.shape[0]
             if b % grad_accum:
@@ -261,7 +242,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
             loss = torch.zeros((), dtype=torch.float32,
                                device=tokens.device)
             for i in range(grad_accum):
-                l, g = value_and_grad(state.params, tokens[i::grad_accum],
+                l, g = value_and_grad(loss_fn, state.params,
+                                      tokens[i::grad_accum],
                                       mask[i::grad_accum])
                 loss = loss + l
                 _map(lambda a, x: a.add_(x.float()), acc, g)
@@ -276,12 +258,3 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
 
     return step
 
-
-def _rebuild(like, flat: dict):
-    """The nested dict shaped like ``like`` whose leaves are
-    ``flat[path]``."""
-    def go(node, prefix):
-        return {name: (go(child, f"{prefix}{name}/")
-                       if isinstance(child, dict) else flat[prefix + name])
-                for name, child in node.items()}
-    return go(like, "")

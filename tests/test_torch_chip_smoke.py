@@ -99,3 +99,42 @@ def test_moe_settings():
     assert len({cfg.moe_experts, groups, groups * g}) == 3
     assert chip_smoke.MOE_TOP2_STEPS >= 2 and chip_smoke.TRAIN_STEPS >= 2
     assert 0.99 <= chip_smoke.MOE_ROUTING_AGREE < 1
+
+
+@pytest.mark.parametrize("hf,preset", [("HF_LLAMA31_8B", "llama3_8b"),
+                                       ("HF_LLAMA32_1B", "llama3_1b")])
+def test_finetune_configs_are_the_presets(hf, preset):
+    """Phase 8's HF configs convert to the port's Llama-3.1-8B and
+    Llama-3.2-1B presets in every field but the context length; the
+    kernel checks run at their heads and head dims; LoRA resumes mid-run
+    and the work directories are under the gitignored build/."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        convert_hf,
+        llama,
+    )
+
+    cfg = convert_hf.config_from_hf(getattr(chip_smoke, hf))
+    want = llama.PRESETS[preset]
+    diff = {k for k, v in dataclasses.asdict(cfg).items()
+            if v != getattr(want, k)}
+    assert diff == {"max_seq_len"}
+    assert (cfg.n_heads, cfg.n_kv_heads) == (32, 8)
+    assert cfg.head_dim in dict(chip_smoke.FT_HEAD_DIMS).values()
+    assert getattr(chip_smoke, hf)["tie_word_embeddings"] == (
+        preset == "llama3_1b")
+    assert 0 < chip_smoke.RESUME_AT < chip_smoke.LORA_STEPS
+    assert chip_smoke.DISTILL_STEPS >= 2
+    assert chip_smoke.FT_WORKDIR.parent == ROOT / "build"
+
+
+def test_side_model_settings():
+    """Phase 9's ResNet-50 count is the canonical one and the port's
+    tree's; every timed loop has a warm-up and a timed step."""
+    from service_account_auth_improvements_tpu_torch.models import resnet
+
+    assert chip_smoke.RESNET50_PARAMS == 25_557_032 == resnet.PRESETS[
+        "resnet50"].param_count()
+    assert chip_smoke.RESNET_STEPS >= 2 and chip_smoke.MNIST_STEPS >= 2
+    assert chip_smoke.RESNET_SIZE == 224

@@ -1,4 +1,7 @@
-"""The port's kernels on the card: each against its plain version.
+"""The port on the card: each kernel against its plain version, and the
+card-only routes (train steps, fit's resume, checkpoints, int8, the MoE
+FFN, LoRA, distillation, HF conversion, MNIST and ResNet) against the CPU
+route.
 
 These need a CUDA card and nvcc (the kernels have no CPU mode) and skip
 without them. The file imports no JAX, so it runs on a machine without it;
@@ -477,3 +480,304 @@ def test_moe_greedy_cached_decode_equals_naive_on_cuda(cuda, preset):
             nxt = llama.apply(icfg, params, naive)[:, -1].argmax(-1)
             naive = torch.cat([naive, nxt[:, None]], dim=1)
     assert torch.equal(got, naive)
+
+
+# fine-tuning and side models: the card's route against the CPU route on
+# one input. f32 compute differs by summation order only (TF32 off): 1e-4
+# relative on losses, and after the steps each leaf within 1e-4 of its
+# largest element but for at most one element in a hundred. Adam divides
+# by sqrt(nu) + eps, so a gradient element within rounding noise of zero
+# (a cancellation, |g| near eps) has an ill-conditioned update that can
+# land anywhere within ±lr: every element is held within a fifth of the
+# steps' summed learning rates (seen on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: 0.11% of a LoRA B leaf outside 1e-4, and the student's
+# largest difference 1.5e-5, 0.05 lr, after one step at lr 3e-4). bf16
+# (the vision models compute in bf16): cuDNN and the CPU round their
+# convolution and matmul sums to bf16 at different points, and batch
+# norm's batch statistics carry it: stated per test.
+def _lora_cfg(head_dim):
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    return dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=4, n_kv_heads=1,
+        head_dim=head_dim, dtype="float32", attn_impl="flash",
+        loss_chunk=48)
+
+
+def _to(tree, device):
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        tree_map,
+    )
+
+    # a copy: a step updates its state in place
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _close_leaves(a, b, rel, loose, what):
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+    )
+
+    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        err = (x - y).abs()
+        bound = rel * max(float(y.abs().max()), 1e-30)
+        assert float((err > bound).float().mean()) <= 1e-2, (what, name)
+        assert float(err.max()) <= loose, (what, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_lora_steps_on_cuda_match_cpu(cuda, head_dim):
+    """Two LoRA steps (GQA group 4, flash) on the card against the CPU
+    route from the same base and adapters: K1 2·L, K2 L, K3 L per step,
+    the base untouched, losses and adapters within the f32 tolerances."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import lora
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+    )
+
+    cfg = _lora_cfg(head_dim)
+    lcfg = lora.LoraConfig()
+    base = llama.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b = _to(base, dev)
+        copy = {n: t.clone() for n, t in leaves(b)}
+        state = lora.init_lora_state(cfg, lcfg,
+                                     torch.Generator().manual_seed(2),
+                                     device="cpu")
+        state = state._replace(params=_to(state.params, dev),
+                               opt_state=state.opt_state._replace(
+                                   mu=_to(state.opt_state.mu, dev),
+                                   nu=_to(state.opt_state.nu, dev)))
+        step = lora.make_lora_train_step(cfg, lcfg)
+        toks = tokens.to(dev)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        losses = []
+        for _ in range(2):
+            state, m = step(state, b, toks, torch.ones_like(toks))
+            losses.append(float(m["loss"]))
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        if dev == "cuda":
+            L = cfg.n_layers
+            assert [(x - y) // 2 for x, y in zip(after, before)] == [
+                2 * L, L, L]
+        assert all(torch.equal(t, copy[n]) for n, t in leaves(b))
+        out[dev] = (losses, state.params)
+    for lc, lg in zip(out["cpu"][0], out["cuda"][0]):
+        assert abs(lc - lg) <= 1e-4 * abs(lc)
+    _close_leaves(out["cuda"][1], out["cpu"][1], 1e-4, 0.2 * 2 * 3e-4,
+                  "adapters")
+
+
+@pytest.mark.cuda
+def test_distill_on_cuda_matches_cpu(cuda):
+    """``distill_loss`` and one ``make_distill_step`` step with a d 128
+    teacher and a d 64 student (flash, f32) on the card against the CPU:
+    the teacher runs once (K1 = 2·L_s + L_t, K2 = K3 = L_s), metrics
+    within 1e-4 relative."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        distill,
+        step,
+    )
+
+    cfg_t, cfg_s = _lora_cfg(128), dataclasses.replace(_lora_cfg(64),
+                                                       n_layers=2)
+    teacher = llama.init(cfg_t, torch.Generator().manual_seed(0),
+                         device="cpu")
+    student = step.init_train_state(cfg_s, torch.Generator().manual_seed(1),
+                                    device="cpu")
+    tokens = torch.randint(0, cfg_s.vocab_size, (2, 100),
+                           generator=torch.Generator().manual_seed(2))
+    mask = torch.ones_like(tokens)
+    mask[1, 80:] = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t, m = _to(teacher, dev), mask.to(dev)
+        s = step.TrainState(0, _to(student.params, dev),
+                            step.AdamState(0, _to(student.opt_state.mu, dev),
+                                           _to(student.opt_state.nu, dev)))
+        with torch.no_grad():
+            _, metrics = distill.distill_loss(cfg_s, cfg_t, s.params, t,
+                                              tokens.to(dev), m)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        s, sm = distill.make_distill_step(cfg_s, cfg_t)(s, t, tokens.to(dev),
+                                                        m)
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        if dev == "cuda":
+            assert [x - y for x, y in zip(after, before)] == [
+                2 * cfg_s.n_layers + cfg_t.n_layers, cfg_s.n_layers,
+                cfg_s.n_layers]
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: float(v) for k, v in sm.items()}, s.params)
+    for i in (0, 1):
+        for k, v in out["cpu"][i].items():
+            assert abs(out["cuda"][i][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    _close_leaves(out["cuda"][2], out["cpu"][2], 1e-4, 0.2 * 3e-4,
+                  "student")
+
+
+def _hf_state_dict(n_layers, dim, heads, kv_heads, head_dim, mlp, vocab,
+                   tied, dtype, device, seed=0):
+    """An HF Llama state dict drawn from a seed (torch Linear [out, in])."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02
+                ).to(dtype)
+
+    sd = {"model.embed_tokens.weight": w(vocab, dim),
+          "model.norm.weight": w(dim)}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": w(dim),
+            p + "self_attn.q_proj.weight": w(heads * head_dim, dim),
+            p + "self_attn.k_proj.weight": w(kv_heads * head_dim, dim),
+            p + "self_attn.v_proj.weight": w(kv_heads * head_dim, dim),
+            p + "self_attn.o_proj.weight": w(dim, heads * head_dim),
+            p + "post_attention_layernorm.weight": w(dim),
+            p + "mlp.gate_proj.weight": w(mlp, dim),
+            p + "mlp.up_proj.weight": w(mlp, dim),
+            p + "mlp.down_proj.weight": w(dim, mlp),
+        })
+    if not tied:
+        sd["lm_head.weight"] = w(vocab, dim)
+    return sd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
+def test_hf_conversion_on_cuda_equals_cpu(cuda, tied, param_dtype):
+    """A bf16 HF state dict on the card converts on the card: every leaf
+    equals the CPU conversion of the same tensors bit for bit, the round
+    trip is the identity, and the converted model's f32 logits match the
+    CPU's."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        convert_hf,
+        llama,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+    )
+
+    hf = {"vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+          "num_hidden_layers": 2, "num_attention_heads": 4,
+          "num_key_value_heads": 1, "head_dim": 64, "rope_theta": 500000.0,
+          "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+          "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                           "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                           "original_max_position_embeddings": 8192}}
+    cfg = dataclasses.replace(convert_hf.config_from_hf(hf),
+                              param_dtype=param_dtype, dtype="float32",
+                              attn_impl="flash")
+    sd = _hf_state_dict(2, 256, 4, 1, 64, 512, 512, tied, torch.bfloat16,
+                        "cuda")
+    got = convert_hf.params_from_hf_state_dict(cfg, sd)
+    want = convert_hf.params_from_hf_state_dict(
+        cfg, {k: v.cpu() for k, v in sd.items()}, device="cpu")
+    for (n, a), (_, b) in zip(leaves(got), leaves(want)):
+        assert a.device.type == "cuda" and a.dtype == llama.dtype_of(
+            param_dtype)
+        assert torch.equal(a.cpu(), b), n
+    back = convert_hf.params_from_hf_state_dict(
+        cfg, convert_hf.to_hf_state_dict(cfg, got, tie_word_embeddings=tied))
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves(got),
+                                                          leaves(back)))
+    toks = torch.randint(0, 512, (2, 128),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        lg = llama.apply(cfg, got, toks.cuda()).cpu()
+        lc = llama.apply(cfg, want, toks)
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mnist_on_cuda_matches_cpu(cuda):
+    """The bf16 MLP on the card (cuBLAS) against the CPU: logits within
+    one bf16 rounding of the hidden layer (atol 3e-2 on logits of ~10),
+    three SGD steps' losses within 1e-2, the loss falling."""
+    from service_account_auth_improvements_tpu_torch.models import mnist
+
+    cfg = mnist.MnistConfig()
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 10, 512)
+    x = (rng.normal(size=(10, 784)) * 2.0)[labels] + rng.normal(
+        size=(512, 784)) * 0.5
+    x, labels = torch.tensor(x, dtype=torch.float32), torch.tensor(labels)
+    params = mnist.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        xd, ld = x.to(dev), labels.to(dev)
+        logits = mnist.apply(cfg, p, xd).cpu()
+        step = mnist.make_sgd_step(cfg, lr=0.1)
+        losses = []
+        for _ in range(3):
+            p, loss = step(p, xd, ld)
+            losses.append(float(loss))
+        out[dev] = logits, losses
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=3e-2,
+                               rtol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert abs(a - b) <= 1e-2
+    assert out["cuda"][1][-1] < out["cuda"][1][0]
+
+
+@pytest.mark.cuda
+def test_resnet18_smoke_bf16_on_cuda_matches_cpu(cuda):
+    """resnet18-smoke in bf16 (cuDNN convolutions in channels_last, the
+    hand-written batch norm) on the card against the CPU, on a 32×32
+    batch (asymmetric SAME padding): eval logits within atol 5e-2 of
+    logits of ~3, train-mode logits and running stats within 5e-2,
+    three momentum steps' losses within 5e-2 and falling."""
+    from service_account_auth_improvements_tpu_torch.models import resnet
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        tree_map,
+    )
+
+    cfg = resnet.PRESETS["resnet18-smoke"]
+    params, stats = resnet.init(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    params["head"]["w"] = torch.randn(
+        params["head"]["w"].shape,
+        generator=torch.Generator().manual_seed(1)) * 0.3
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(16, 32, 32, 3)), dtype=torch.float32)
+    labels = torch.tensor(rng.integers(0, 10, 16))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, s = _to(params, dev), _to(stats, dev)
+        xd, ld = x.to(dev), labels.to(dev)
+        eval_logits, _ = resnet.apply(cfg, p, s, xd, train=False)
+        train_logits, new_stats = resnet.apply(cfg, p, s, xd, train=True)
+        m = tree_map(torch.zeros_like, p)
+        step = resnet.make_train_step(cfg, lr=0.1)
+        losses = []
+        for _ in range(3):
+            p, s, m, loss = step(p, s, m, xd, ld)
+            losses.append(float(loss))
+        out[dev] = (eval_logits.cpu(), train_logits.cpu(),
+                    _to(new_stats, "cpu"), losses)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=5e-2,
+                               rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=5e-2,
+                               rtol=0)
+    for (n, a), (_, b) in zip(leaves(out["cuda"][2]), leaves(out["cpu"][2])):
+        torch.testing.assert_close(a, b, atol=5e-2, rtol=0, msg=n)
+    for a, b in zip(out["cuda"][3], out["cpu"][3]):
+        assert abs(a - b) <= 5e-2
+    assert out["cuda"][3][-1] < out["cuda"][3][0]

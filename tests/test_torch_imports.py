@@ -65,9 +65,12 @@ def test_port_and_chip_smoke_import_without_jax():
 LIFECYCLE = ["train.checkpoint", "train.evaluate", "models.quantize",
              "models.speculative"]
 MOE = ["models.llama", "models.generate"]
+# the fine-tuning and side-model slice's modules
+FINETUNE = ["train.lora", "train.distill", "models.convert_hf",
+            "models.resnet", "models.mnist"]
 
 
-@pytest.mark.parametrize("module", LIFECYCLE + MOE)
+@pytest.mark.parametrize("module", LIFECYCLE + MOE + FINETUNE)
 def test_lifecycle_module_imports_without_jax(module):
     probe = BLOCKER.replace(
         "for name in names:\n"
@@ -97,8 +100,11 @@ def test_blocker_blocks():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from service_account_auth_improvements_tpu_torch.models import (
+        convert_hf,
         generate,
         llama,
+        mnist,
+        resnet,
         serving,
         speculative,
     )
@@ -106,6 +112,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         checkpoint,
         data,
         evaluate,
+        lora,
         loop,
         step,
     )
@@ -138,6 +145,18 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: speculative.spec_generate(cfg, params, cfg, params, toks, 2),
         lambda: serving.main(["--preset", "tiny", "--port", "0",
                               "--checkpoint-dir", str(ck), "--int8"]),
+        lambda: lora.init_lora(cfg, lora.LoraConfig(), torch.Generator()),
+        lambda: lora.init_lora_state(cfg, lora.LoraConfig(),
+                                     torch.Generator()),
+        lambda: loop.fit(cfg, None, np.zeros(64, np.int32),
+                         data.DataConfig(batch=1, seq=8),
+                         loop.LoopConfig(steps=1), lora=lora.LoraConfig(),
+                         base_params=params),
+        lambda: convert_hf.params_from_hf_state_dict(
+            cfg, convert_hf.to_hf_state_dict(cfg, params)),
+        lambda: mnist.init(mnist.MnistConfig(), torch.Generator()),
+        lambda: resnet.init(resnet.PRESETS["resnet18-smoke"],
+                            torch.Generator()),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -1,6 +1,8 @@
 """The port's training loop (train/loop.py) on the CPU: it trains, logs,
-checkpoints, resumes bit for bit, evaluates on its cadence, and refuses
-what is not ported yet with the ROADMAP item to look at."""
+checkpoints, resumes bit for bit, evaluates on its cadence, fine-tunes
+LoRA adapters over frozen base params (resumed bit for bit, evaluated on
+the merged params), and refuses what is not ported yet with the ROADMAP
+item to look at."""
 
 import dataclasses
 
@@ -50,15 +52,17 @@ def test_fit_packed_flash_config_runs():
                                      for r in history)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(lora=object()), "item 7"),
-    (dict(mesh=object()), "item 8"),
+@pytest.mark.parametrize("kw,error,item", [
+    # LoRA is ported: without base_params it is refused as the reference
+    # refuses it
+    (dict(lora=object()), ValueError, "lora fit requires base_params"),
+    (dict(mesh=object()), NotImplementedError, "item 8"),
 ])
-def test_fit_refuses_what_is_not_ported(kw, item):
+def test_fit_refuses_what_is_not_ported(kw, error, item):
     kw = dict(kw)
     lcfg = loop.LoopConfig(steps=1, **kw.pop("loop_cfg", {}))
     mesh = kw.pop("mesh", None)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         loop.fit(CFG, mesh, TOKENS, DataConfig(batch=2, seq=16), lcfg,
                  device="cpu", **kw)
 
@@ -165,3 +169,82 @@ def test_main_cli_resumes_from_workdir(tmp_path, capsys):
     assert "resumed from step 1" in out and "step 2/2 loss=" in out
     assert [r["step"] for r in history] == [2]
     assert sorted(p.name for p in tmp_path.iterdir()) == ["1", "2"]
+
+
+def _lora_fit(steps, logs, base, **kw):
+    from service_account_auth_improvements_tpu_torch.train.lora import (
+        LoraConfig,
+    )
+
+    eval_data = kw.pop("eval_data", None)
+    return loop.fit(CFG, None, TOKENS, DataConfig(batch=4, seq=64),
+                    loop.LoopConfig(steps=steps, log_every=1, **kw),
+                    log=logs.append, eval_data=eval_data,
+                    lora=LoraConfig(rank=4), base_params=base, device="cpu")
+
+
+def _base():
+    return llama.init(CFG, torch.Generator().manual_seed(5), device="cpu")
+
+
+def test_lora_fit_resumes_from_its_adapter_checkpoint_bitwise(tmp_path):
+    """4 adapter steps straight against 2 into a workdir and a fresh fit
+    resuming to 4: the checkpoint holds the adapter tree only (no base
+    leaf), the resumed state equals the straight one bit for bit, the
+    base is untouched, and history carries no MFU."""
+    base = _base()
+    before = {n: t.clone() for n, t in _leaves_of(base)}
+    straight, _ = _lora_fit(4, [], base)
+    logs = []
+    _lora_fit(2, logs, base, workdir=str(tmp_path), ckpt_every=2)
+    saved = torch.load(tmp_path / "2" / "params.pt", weights_only=True)
+    assert sorted(saved) == ["wk", "wo", "wq", "wv"]
+    assert sorted(saved["wq"]) == ["a", "b"]
+    resumed, history = _lora_fit(4, logs, base, workdir=str(tmp_path),
+                                 ckpt_every=2)
+    assert any(line.startswith("resumed from step 2") for line in logs)
+    assert [r["step"] for r in history] == [3, 4]
+    assert all("mfu" not in r and np.isfinite(r["loss"]) for r in history)
+    assert (resumed.step, resumed.opt_state.count) == (4, 4)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(resumed),
+                                                 _leaves(straight)))
+    assert resumed.params["wq"]["b"].abs().max() > 0
+    assert all(torch.equal(t, before[n]) for n, t in _leaves_of(base))
+
+
+def test_lora_fit_evaluates_the_merged_params_without_weight_decay():
+    """The eval records are ``evaluate`` on base + adapters (not on the
+    adapters or the bare base), and the default optimizer has no weight
+    decay: in the first step A's gradient is exactly 0 (B = 0), so A
+    keeps its initial bits while B moves."""
+    from service_account_auth_improvements_tpu_torch.train import (
+        evaluate,
+        lora,
+    )
+
+    base = _base()
+    held_out = [TOKENS[:256].reshape(4, 64)]
+    state, history = _lora_fit(2, [], base, eval_every=2,
+                               eval_data=held_out)
+    rec = [r for r in history if "eval_loss" in r]
+    assert [r["step"] for r in rec] == [2]
+    merged = lora.merge_lora(base, state.params, lora.LoraConfig(rank=4))
+    want = evaluate.evaluate(CFG, merged, held_out, device="cpu")
+    assert rec[0]["eval_loss"] == round(want["loss"], 4)
+    bare = evaluate.evaluate(CFG, base, held_out, device="cpu")
+    assert rec[0]["eval_loss"] != round(bare["loss"], 4)
+    one, _ = _lora_fit(1, [], base)
+    init = lora.init_lora_state(CFG, lora.LoraConfig(rank=4),
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    for t in ("wq", "wk", "wv", "wo"):
+        assert torch.equal(one.params[t]["a"], init.params[t]["a"])
+        assert one.params[t]["b"].abs().max() > 0
+
+
+def _leaves_of(tree):
+    from service_account_auth_improvements_tpu_torch.train.step import (
+        _leaves,
+    )
+
+    return list(_leaves(tree))

@@ -62,7 +62,15 @@ no network. Phases, each of which raises on failure:
 9. side models: MNIST (784-256-10, b 1024, 20 SGD steps) and ResNet-50
    (b 256 x 224 x 224 x 3, bf16 NHWC, 10 momentum steps: falling loss,
    running stats moved, 25,557,032 params, step time, images/s, peak
-   memory), and MNIST and ``resnet18-smoke`` on the card against the CPU.
+   memory), and MNIST and ``resnet18-smoke`` on the card against the CPU;
+10. parallel: a ``parallel.make_mesh`` mesh of one card over an NCCL
+   process group (an all-reduce over it); at ``bench_800m`` (b 8 x 2048)
+   three steps each of the plain step, the mesh step with flash attention
+   (bit for bit the plain step's, K1 40 / K2 20 / K3 20 per step), with
+   Ulysses (bit for bit the flash mesh step's, the same launches) and
+   with ring attention (no K1; held to the dense step), with step times
+   and peak memory; the ring's chunk arithmetic at full width (4 chunks
+   of 512) against K1's output and LSE, bf16 and f32, timed.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -1871,12 +1879,12 @@ def _moe_flash_vs_dense(cfg) -> None:
         c = dataclasses.replace(cfg, dtype="float32", attn_impl=impl)
         choices = []
 
-        def recording(cfg_, h, lp, token_mask=None):
+        def recording(cfg_, h, lp, token_mask=None, **kw):
             probs = torch.softmax(h.float() @ lp["router"].float(), dim=-1)
             choices.append(torch.sort(probs, dim=-1, descending=True,
                                       stable=True).indices[..., :cfg_
                                                            .moe_top_k])
-            return moe_ffn(cfg_, h, lp, token_mask)
+            return moe_ffn(cfg_, h, lp, token_mask, **kw)
 
         llama._moe_ffn = recording
         try:
@@ -2688,6 +2696,334 @@ def _side_card_vs_cpu() -> None:
         raise AssertionError("resnet18-smoke: card and CPU disagree")
 
 
+# parallel path (phase 10): the mesh step at PRESET, TRAIN_BATCH x
+# TRAIN_SEQ, on a one-card mesh over NCCL (every axis 1): PARALLEL_STEPS
+# steps each of the plain step, the mesh step with flash attention, with
+# Ulysses (whose exchanges are the identity at sp 1: equal to flash, bit
+# for bit) and with ring attention (held to the dense step). The mesh step
+# at world 1 runs the plain step's arithmetic op for op: bitwise equal.
+PARALLEL_STEPS = 3
+# ring against dense attention. The PARALLEL_STEPS bf16 steps (the ring's
+# time and launches) hold the losses and step 1's grad norm (the one norm
+# taken from the same params) within the GRAD_TOL bf16 row; later steps
+# start from params the two runs moved apart. What tells the two apart is
+# step 1's gradients leaf by leaf from the same params in f32 compute,
+# where only summation order separates them: within the GRAD_TOL f32
+# "leaf" limit. A control ring whose mask lets each query see the next
+# RING_CONTROL_PEEK keys must land above that limit, or the check could
+# not see a faulty ring.
+RING_CONTROL_PEEK = 1
+# the ring's arithmetic at full width: TRAIN_SEQ as RING_CHUNKS chunks of
+# sequence (ranks simulated in one process), against K1's output and LSE
+# (TOL and LSE_ATOL)
+RING_CHUNKS = 4
+
+
+def phase_parallel() -> dict:
+    """Phase 10: the parallel package on the card. The process group and
+    a world-1 mesh over NCCL; the mesh train step (flash, Ulysses, ring)
+    against the plain step; the ring's chunk arithmetic at full width.
+    Returns each mesh run's launch counts."""
+    import gc
+
+    import torch.distributed as dist
+
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        MeshConfig,
+        make_mesh,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+        BACKENDS,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1, pp=1),
+                     device=DEV)
+    probe = torch.ones(4, device=DEV)
+    dist.all_reduce(probe)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    _log(f"parallel: process group {dist.get_backend()}, world size "
+         f"{dist.get_world_size()}, mesh {sizes} on {mesh.device_type}; "
+         f"an all-reduce over it: {probe.tolist()}")
+    if (dist.get_backend() != BACKENDS[torch.device(DEV).type]
+            or dist.get_world_size() != 1):
+        raise AssertionError("the card's mesh must be NCCL at world 1")
+    launches = _timed("parallel steps", _parallel_steps, mesh)
+    _timed("parallel ring arithmetic", _ring_full_width)
+    return launches
+
+
+def _parallel_run(cfg, state0, mesh, tokens, mask, name):
+    """PARALLEL_STEPS steps from a copy of ``state0``: (metrics per step,
+    launches per step, the final state whole, step ms, peak GiB above
+    what was allocated before the run)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    def copy(tree):
+        return step_mod._map(lambda t: t.clone(), tree)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    opt = state0.opt_state
+    state = step_mod.TrainState(0, copy(state0.params), step_mod.AdamState(
+        0, copy(opt.mu), copy(opt.nu)))
+    if mesh is not None:
+        state = step_mod.shard_state(mesh, cfg, state)
+    fn = step_mod.make_train_step(cfg, mesh=mesh)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics, per_step = [], []
+    for i in range(PARALLEL_STEPS):
+        if i == 1:  # the first step is the warm-up
+            start.record()
+        _zero(fa)  # each step's launches counted on their own
+        state, m = fn(state, tokens, mask)
+        per_step.append(tuple(_counts(fa).values()))
+        metrics.append((m["loss"], m["grad_norm"]))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (PARALLEL_STEPS - 1)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    metrics = [(float(a), float(b)) for a, b in metrics]
+    final = {part: step_mod._map(sharding.full_tensor, tree)
+             for part, tree in (("params", state.params),
+                                ("mu", state.opt_state.mu),
+                                ("nu", state.opt_state.nu))}
+    _log(f"parallel {name}: step {step_ms:.2f} ms (CUDA events, mean of "
+         f"{PARALLEL_STEPS - 1} after one warm-up), peak {peak:.2f} GiB "
+         "above what the run found allocated (its state included), "
+         f"launches per step (K1, K2, K3) {per_step}, losses "
+         f"{[round(x[0], 6) for x in metrics]}")
+    if not all(np.isfinite(metrics).ravel()):
+        raise AssertionError(f"parallel {name}: non-finite loss or norm")
+    return metrics, per_step, final, step_ms, peak
+
+
+def _largest_difference(a: dict, b: dict) -> float:
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+    )
+
+    return max(float((x.float() - y.float()).abs().max())
+               for part in a for (_, x), (_, y) in zip(leaves(a[part]),
+                                                       leaves(b[part])))
+
+
+def _parallel_steps(mesh) -> dict:
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    L = cfg.n_layers
+    state0 = step_mod.init_train_state(
+        cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=torch.Generator(device=DEV)
+                           .manual_seed(2), device=DEV)
+    mask = torch.ones_like(tokens)
+    _log(f"parallel: {PRESET} at b {TRAIN_BATCH} x {TRAIN_SEQ}, f32 master, "
+         f"bf16 compute, remat {cfg.remat_policy}, {PARALLEL_STEPS} steps "
+         "per run from one init")
+    plain = _parallel_run(cfg, state0, None, tokens, mask, "plain step")
+    flash = _parallel_run(cfg, state0, mesh, tokens, mask, "mesh flash")
+    if flash[0] != plain[0] or _largest_difference(flash[2], plain[2]):
+        raise AssertionError(
+            "the world-1 mesh step is not the plain step bit for bit: "
+            f"largest difference {_largest_difference(flash[2], plain[2])}")
+    _log(f"parallel mesh flash = plain step bit for bit (losses, grad "
+         f"norms, params, mu, nu); step {flash[3]:.2f} ms against "
+         f"{plain[3]:.2f} ms: the mesh's own cost at world 1 "
+         f"{flash[3] - plain[3]:+.2f} ms per step")
+    del plain
+    uly = _parallel_run(dataclasses.replace(cfg, attn_impl="ulysses"),
+                        state0, mesh, tokens, mask, "mesh ulysses")
+    if uly[0] != flash[0] or _largest_difference(uly[2], flash[2]):
+        raise AssertionError("Ulysses at sp 1 is not the flash mesh step "
+                             "bit for bit")
+    _log("parallel mesh ulysses = mesh flash bit for bit")
+    for name, run in (("flash", flash), ("ulysses", uly)):
+        if any(c != (2 * L, L, L) for c in run[1]):
+            raise AssertionError(f"parallel {name}: launches per step "
+                                 f"{run[1]}, expected K1 {2 * L}, K2 {L}, "
+                                 f"K3 {L}")
+    counts = {"parallel flash": flash[1], "parallel ulysses": uly[1]}
+    del flash, uly
+    torch.cuda.empty_cache()
+    dense = _parallel_run(dataclasses.replace(cfg, attn_impl="dense"),
+                          state0, None, tokens, mask, "plain dense step")
+    ring = _parallel_run(dataclasses.replace(cfg, attn_impl="ring"),
+                         state0, mesh, tokens, mask, "mesh ring")
+    if any(c != (0, 0, 0) for c in ring[1]):
+        raise AssertionError(f"parallel ring: launches per step {ring[1]}, "
+                             "expected none")
+    counts["parallel ring"] = ring[1]
+    tol = GRAD_TOL["bf16"]
+    loss_d = [abs(a[0] - b[0]) for a, b in zip(ring[0], dense[0])]
+    norm_d = [abs(a[1] - b[1]) / b[1] for a, b in zip(ring[0], dense[0])]
+    _log(f"parallel mesh ring vs plain dense, steps 1 to {PARALLEL_STEPS}: "
+         f"loss differences {[f'{x:.3e}' for x in loss_d]} (tolerance "
+         f"{tol['loss']}), grad norms {[f'{x:.3e}' for x in norm_d]} "
+         f"relative (step 1, from the same params: {tol['gnorm']})")
+    if max(loss_d) > tol["loss"] or norm_d[0] > tol["gnorm"]:
+        raise AssertionError("ring and dense train steps disagree")
+    del dense, ring
+    torch.cuda.empty_cache()
+    _timed("parallel ring grads", _ring_grads_vs_dense, cfg, mesh,
+           state0.params, tokens, mask)
+    del state0
+    torch.cuda.empty_cache()
+    return {path: dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                           map(sum, zip(*per_step))))
+            for path, per_step in counts.items()}
+
+
+def _ring_grads_vs_dense(cfg, mesh, params, tokens, mask) -> None:
+    """Step 1's loss and gradients from ``params`` in f32 compute: the
+    ring on the mesh's region (as the mesh step computes) against dense
+    attention with no mesh, leaf by leaf; then a control ring whose mask
+    lets each query see the next RING_CONTROL_PEEK keys, which the same
+    limit must reject."""
+    import contextlib
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        ring,
+        use_mesh,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        value_and_grad,
+    )
+
+    def grads(impl, on_mesh):
+        c = dataclasses.replace(cfg, dtype="float32", attn_impl=impl)
+        with use_mesh(mesh) if on_mesh else contextlib.nullcontext():
+            loss, g = value_and_grad(
+                lambda p, t, m: llama.next_token_loss(c, p, t, m), params,
+                tokens, mask)
+        return float(loss), g
+
+    def leaf_diff(got, want):
+        return max(float((got[k] - want[k]).abs().max()
+                         / want[k].abs().max().clamp_min(1e-30))
+                   for k in want)
+
+    tol = GRAD_TOL["f32"]
+    l_dense, g_dense = grads("dense", False)
+    g_dense = dict(leaves(g_dense))
+    l_ring, g_ring = grads("ring", True)
+    g_ring = dict(leaves(g_ring))
+    n_ring = float(torch.sqrt(sum(g.double().square().sum()
+                                  for g in g_ring.values())))
+    n_dense = float(torch.sqrt(sum(g.double().square().sum()
+                                   for g in g_dense.values())))
+    sound = leaf_diff(g_ring, g_dense)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_ring.values())
+    del g_ring
+    real = ring._chunk_attention_with_lse
+
+    def peeking(q, k, v, q_off, k_off, scale):
+        return real(q, k, v, q_off + RING_CONTROL_PEEK, k_off, scale)
+
+    ring._chunk_attention_with_lse = peeking
+    try:
+        l_ctrl, g_ctrl = grads("ring", True)
+    finally:
+        ring._chunk_attention_with_lse = real
+    control = leaf_diff(dict(leaves(g_ctrl)), g_dense)
+    del g_ctrl, g_dense
+    torch.cuda.empty_cache()
+    _log(f"parallel ring vs dense step 1 gradients ({PRESET}, b "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ}, f32 compute, same params): loss "
+         f"{l_ring:.6f} vs {l_dense:.6f}, grad norm {n_ring:.6f} vs "
+         f"{n_dense:.6f}, largest per-leaf grad difference {sound:.3e} of "
+         f"the leaf's max (limit {tol['leaf']}); control (each query also sees "
+         f"the next {RING_CONTROL_PEEK} key(s)): loss {l_ctrl:.6f}, per-leaf "
+         f"difference {control:.3e}")
+    if not (finite and abs(l_ring - l_dense) <= tol["loss"]
+            and abs(n_ring - n_dense) <= tol["gnorm"] * n_dense
+            and sound <= tol["leaf"]):
+        raise AssertionError("ring and dense step 1 gradients differ "
+                             "beyond the f32 tolerances")
+    if control <= tol["leaf"]:
+        raise AssertionError("the ring-vs-dense gradient limit does not "
+                             "reject the control ring")
+
+
+def _ring_by_chunks(q, k, v, n):
+    """Ring attention over ``n`` sequence chunks with every rank simulated
+    in one process: rank r folds chunks r, r-1, ... 0, n-1, ... with their
+    global offsets, as the ring delivers them. Returns (out [b,s,h,d],
+    lse [b,s,h] f32)."""
+    from service_account_auth_improvements_tpu_torch.parallel import ring
+
+    c = q.shape[1] // n
+    scale = q.shape[-1] ** -0.5
+    outs, lses = [], []
+    for r in range(n):
+        qr = q[:, r * c:(r + 1) * c]
+        o = torch.zeros(qr.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(qr.shape[:-1], ring.NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        for step in range(n):
+            j = (r - step) % n
+            oj, lj = ring._chunk_attention_with_lse(
+                qr, k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                r * c, j * c, scale)
+            o, lse = ring._merge(o, lse, oj, lj)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def _ring_full_width() -> None:
+    """The ring's chunk arithmetic at the training shape (b 8, s 2048 as
+    RING_CHUNKS chunks, 12 / 4 heads, d 128), bf16 and f32, against K1's
+    output and LSE, timed beside K1."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(TRAIN_BATCH, TRAIN_SEQ, 12, 4, 128, dtype, gen)
+        got, got_lse = _ring_by_chunks(q, k, v, RING_CHUNKS)
+        want, want_lse = fa.flash_fwd(*(t.transpose(1, 2)
+                                        for t in (q, k, v)), True)
+        atol, rtol = TOL[dtype]
+        err = _check(f"ring {dtype}", got, want.transpose(1, 2), atol, rtol)
+        lerr = _check(f"ring {dtype} lse", got_lse,
+                      want_lse.transpose(1, 2), LSE_ATOL, 0.0)
+        ring_ms = _time_ms(lambda: _ring_by_chunks(q, k, v, RING_CHUNKS),
+                           iters=3, warmup=1)
+        k1_ms = _time_ms(lambda: fa.flash_fwd(
+            *(t.transpose(1, 2) for t in (q, k, v)), True), iters=10)
+        _log(f"parallel ring arithmetic {str(dtype)[6:]} (b {TRAIN_BATCH}, "
+             f"s {TRAIN_SEQ} as {RING_CHUNKS} chunks of "
+             f"{TRAIN_SEQ // RING_CHUNKS}, 12 / 4 heads, d 128, causal): "
+             f"out max abs err {err:.3e} (atol {atol} rtol {rtol}), lse "
+             f"{lerr:.3e} (atol {LSE_ATOL}) against K1; {ring_ms:.2f} ms "
+             f"for all {RING_CHUNKS} ranks' {RING_CHUNKS} chunk steps "
+             f"against K1 {k1_ms:.4f} ms (CUDA events)")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2703,6 +3039,7 @@ def main() -> int:
     moe = phase_moe()
     finetune = phase_finetune()
     phase_side_models()
+    parallel = phase_parallel()
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():
@@ -2711,7 +3048,8 @@ def main() -> int:
                    "training": training["launches"][name],
                    **{path: counts.get(name, 0)
                       for path, counts in {**lifecycle, **moe,
-                                           **finetune}.items()}}
+                                           **finetune,
+                                           **parallel}.items()}}
         kernels.append({
             "name": name,
             "route": "cuda",

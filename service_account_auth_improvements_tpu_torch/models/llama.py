@@ -9,10 +9,20 @@ tensors; the reference's ``lax.scan`` over layers is a Python loop.
 per layer with ``remat_policy="full"``, selective (matmul outputs saved)
 with ``"dots_saveable"``, and per loss chunk in ``scan_seq_chunks``; it
 only acts while autograd records, so the serving path (under
-``torch.inference_mode()``) runs plain. ``shard_constraint`` is the
-identity on one device and is not ported. The port has no mesh, so
-pipeline parallelism (ROADMAP queue 1, "parallel") cannot be requested at
-all, and the mixture-of-experts FFN's experts are not sharded.
+``torch.inference_mode()``) runs plain.
+
+On a mesh (``parallel.use_mesh``) the forward is the per-rank body of the
+reference's partitioned program: the ambient ``parallel.sharding.
+LocalRegion`` gathers each weight over its data axes where it is used
+(inside the layer's remat, so the backward gathers again, as ZeRO-3
+does), wraps the tensor-parallel products in Megatron's ``f``/``g``
+where the reference's ``shard_constraint`` calls let XLA insert them,
+splits the sequence over ``sp`` (rope at global positions) and runs ring
+or Ulysses attention over it. The region is bound when the forward
+starts, so a recompute on autograd's device thread uses the same groups.
+Without a mesh the region is the identity and the arithmetic is the plain
+path's, op for op. Pipeline (pp > 1) and expert (ep > 1) parallelism
+raise (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ from service_account_auth_improvements_tpu_torch.ops.norms import rms_norm
 from service_account_auth_improvements_tpu_torch.ops.rotary import (
     apply_rope,
     rope_table,
+)
+from service_account_auth_improvements_tpu_torch.parallel.sharding import (
+    NO_REGION,
+    local_region,
 )
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
@@ -207,10 +221,10 @@ PRESETS: dict[str, LlamaConfig] = {
 
 def logical_axes(cfg: LlamaConfig) -> dict:
     """Nested dict (same structure as the params) of logical-axis tuples,
-    as the reference names them. The port shards nothing yet (ROADMAP
-    queue 1, item 8); the names say which params a config has, and
-    ``train.checkpoint.restore_params`` checks a checkpoint against
-    them."""
+    as the reference names them: ``parallel.sharding`` resolves them
+    against the rules to each leaf's placements on a mesh, the model's
+    region gathers a weight by them, and ``train.checkpoint`` checks a
+    checkpoint's leaves against them."""
     if cfg.moe_experts:
         ffn = {
             "router": ("layers", "embed", "expert"),
@@ -301,15 +315,16 @@ def layer_params(params, i: int) -> dict:
     return {name: leaf[i] for name, leaf in params["layers"].items()}
 
 
-def embed(cfg: LlamaConfig, params, tokens):
+def embed(cfg: LlamaConfig, params, tokens, region=NO_REGION):
     """Token embedding in the compute dtype. Out-of-range ids clamp, as
     the reference's ``mode="clip"`` gather does (its ``iota_embed``
     one-hot path is bit-identical to this gather)."""
     ids = tokens.clamp(0, cfg.vocab_size - 1)
-    return params["tok_embed"][ids].to(dtype_of(cfg.dtype))
+    table = region.param(params["tok_embed"], ("vocab", "embed"))
+    return table[ids].to(dtype_of(cfg.dtype))
 
 
-def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None):
+def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION):
     """Top-k MoE FFN: h [b, s, d] → (out [b, s, d], aux f32 scalar). k=1
     is switch semantics (the gate is the raw router probability); k > 1
     is Mixtral semantics (gates renormalised over the selected experts).
@@ -331,7 +346,9 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None):
     gets its (zero) gradient, and sum in a fixed order on the card, so a
     step and its remat recompute route and add up identically. The top
     k is a stable descending sort: ``jax.lax.top_k`` puts the lower
-    expert first among equal probabilities and ``torch.topk`` does not."""
+    expert first among equal probabilities and ``torch.topk`` does not.
+    On a mesh the expert products are column/row parallel over tp (the
+    reference's "mlp" constraint on ``act``)."""
     b, s, d = h.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     g = min(cfg.moe_group_size, s)
@@ -375,11 +392,12 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None):
              == torch.arange(cap, device=h.device)).to(f32)  # [G, g, K, C]
     disp = torch.einsum("gske,gskc->gsec", sel, posoh)   # [G, g, E, C]
 
-    xin = torch.einsum("gsec,gsd->gecd", disp.to(cdt), hg)
+    xin = region.tp_copy(torch.einsum("gsec,gsd->gecd", disp.to(cdt), hg))
     act = (F.silu(torch.einsum("gecd,edm->gecm", xin,
                                lp["moe_gate"].to(cdt)))
            * torch.einsum("gecd,edm->gecm", xin, lp["moe_up"].to(cdt)))
-    xout = torch.einsum("gecm,emd->gecd", act, lp["moe_down"].to(cdt))
+    xout = region.tp_sum(torch.einsum("gecm,emd->gecd", act,
+                                      lp["moe_down"].to(cdt)))
     combine = torch.einsum("gske,gskc->gsec", sel * gate[..., None],
                            posoh).to(cdt)
     out = torch.einsum("gsec,gecd->gsd", combine, xout)
@@ -387,29 +405,36 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None):
 
 
 def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
-           segment_ids=None):
+           segment_ids=None, region=NO_REGION):
     """One decoder block. x: [b, s, dim] in compute dtype. Returns (x,
     aux): aux is the MoE load-balance term (None for dense layers, which
-    have none). ``token_mask`` [b, s] keeps padding out of MoE routing."""
+    have none). ``token_mask`` [b, s] keeps padding out of MoE routing.
+    On a mesh ``lp`` holds the layer's local weight blocks, ``x`` this
+    rank's rows and sequence chunk, and the heads are this rank's tp
+    share."""
     b, s, _ = x.shape
     cdt = dtype_of(cfg.dtype)
+    if region is not NO_REGION:
+        axes = logical_axes(cfg)["layers"]
+        lp = {n: region.param(t, axes[n][1:]) for n, t in lp.items()}
 
     h = rms_norm(x, lp["attn_norm"].to(cdt), cfg.norm_eps)
-    q = (h @ lp["wq"].to(cdt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"].to(cdt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"].to(cdt)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    hp = region.tp_copy(h)
+    q = (hp @ lp["wq"].to(cdt)).reshape(b, s, -1, cfg.head_dim)
+    k = (hp @ lp["wk"].to(cdt)).reshape(b, s, -1, cfg.head_dim)
+    v = (hp @ lp["wv"].to(cdt)).reshape(b, s, -1, cfg.head_dim)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    attn = multi_head_attention(q, k, v, impl=cfg.attn_impl,
-                                segment_ids=segment_ids)
-    x = x + attn.reshape(b, s, cfg.q_dim) @ lp["wo"].to(cdt)
+    attn = region.attention(q, k, v, cfg.attn_impl, segment_ids)
+    x = x + region.tp_sum(attn.reshape(b, s, -1) @ lp["wo"].to(cdt))
 
     h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
     if cfg.moe_experts:
-        ff, aux = _moe_ffn(cfg, h, lp, token_mask)
+        ff, aux = _moe_ffn(cfg, h, lp, token_mask, region=region)
         return x + ff, aux
-    gate = F.silu(h @ lp["w_gate"].to(cdt))
-    up = h @ lp["w_up"].to(cdt)
-    return x + (gate * up) @ lp["w_down"].to(cdt), None
+    hp = region.tp_copy(h)
+    gate = F.silu(hp @ lp["w_gate"].to(cdt))
+    up = hp @ lp["w_up"].to(cdt)
+    return x + region.tp_sum((gate * up) @ lp["w_down"].to(cdt)), None
 
 
 # the ops whose outputs ``dots_saveable`` keeps: every matrix product
@@ -457,13 +482,23 @@ def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
     ``token_mask`` is the MoE validity mask (0 = padding), unused by
     dense layers. With ``return_layer_inputs`` also the per-layer input
     hidden states [L, b, s, dim], the KV-cache prefill source
-    (models/generate.py): (x, aux, layer_inputs)."""
+    (models/generate.py): (x, aux, layer_inputs).
+
+    On a mesh ``tokens`` are this rank's rows, whole; the backbone keeps
+    its ``sp`` chunk of them and returns that chunk's hidden states."""
     cdt = dtype_of(cfg.dtype)
     s = tokens.shape[1]
-    x = embed(cfg, params, tokens)
+    region = local_region()
+    if region is not NO_REGION:
+        _check_region(cfg, region, return_layer_inputs, segment_ids)
+        tokens = region.seq_chunk(tokens)
+        if token_mask is not None:
+            token_mask = region.seq_chunk(token_mask)
+    x = embed(cfg, params, tokens, region)
     cos, sin = rope_table(s, cfg.head_dim, cfg.rope_theta,
                           scaling=cfg.rope_scaling(), device=x.device)
-    layer_fn = _remat(cfg, functools.partial(_layer, cfg))
+    cos, sin = region.seq_chunk(cos, 0), region.seq_chunk(sin, 0)
+    layer_fn = _remat(cfg, functools.partial(_layer, cfg, region=region))
     # unbind, not per-layer indexing: the backward of unbind stacks the
     # layers' gradients once, where L index views would each build a
     # zero-filled gradient of the whole stacked leaf and sum L of them
@@ -476,11 +511,29 @@ def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
         x, aux = layer_fn(x, dict(zip(names, leaves)), cos, sin,
                           token_mask, segment_ids)
         auxes.append(aux)
-    x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+    x = rms_norm(x, region.param(params["final_norm"], ("norm",)).to(cdt),
+                 cfg.norm_eps)
     aux = torch.stack(auxes).sum() if cfg.moe_experts else None
     if return_layer_inputs:
         return x, aux, torch.stack(inputs)
     return x, aux
+
+
+def _check_region(cfg: LlamaConfig, region, return_layer_inputs: bool,
+                  segment_ids) -> None:
+    """What the model cannot run on this mesh yet raises, naming why."""
+    sp = region.sizes["sp"]
+    if return_layer_inputs:
+        raise NotImplementedError(
+            "KV-cache prefill on a mesh (sharded serving) is not ported yet "
+            "(ROADMAP queue 1, item 8: serving's --tp/--fsdp)")
+    if sp > 1 and segment_ids is not None:
+        raise ValueError("segment_ids need the whole sequence on a rank; "
+                         "train packed windows on an sp=1 mesh")
+    if sp > 1 and cfg.moe_experts:
+        raise NotImplementedError(
+            "mixture-of-experts routing groups span the sequence; MoE on "
+            "an sp > 1 mesh is not ported yet (ROADMAP queue 1, item 8)")
 
 
 def lm_logits(cfg: LlamaConfig, params, x):
@@ -488,7 +541,8 @@ def lm_logits(cfg: LlamaConfig, params, x):
     are rounded to the compute dtype and multiplied in f32 — the
     reference's ``preferred_element_type=float32``; a bf16 matmul would
     round the logits to bf16 and flip greedy argmaxes."""
-    head = params["lm_head"].to(dtype_of(cfg.dtype)).float()
+    head = local_region().param(params["lm_head"], ("embed", "vocab"))
+    head = head.to(dtype_of(cfg.dtype)).float()
     return x.float() @ head
 
 
@@ -574,24 +628,50 @@ def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
     ``token_mask`` is the validity mask the backbone feeds MoE routing;
     by default it follows ``mask`` (right padding); packed corpora pass
     ``None``. The backbone runs on the full sequence and the last hidden
-    state is dropped after, as in the reference."""
+    state is dropped after, as in the reference.
+
+    On a mesh each rank computes its share of the global loss from its
+    rows (and, over ``sp``, its sequence chunk, whose last position
+    predicts the next chunk's first token): masked sums over the global
+    token count, or its rows' mean over the number of row shards. The
+    shares are summed across the data-parallel ranks in the forward only,
+    so each rank differentiates its own share and the train step sums the
+    gradients."""
     if token_mask is _SAME_AS_MASK:
         token_mask = mask
+    region = local_region()
     x, aux = _backbone(cfg, params, tokens, token_mask=token_mask,
                        segment_ids=segment_ids)
-    x = x[:, :-1]
     # clip like the embedding path: an out-of-range target has no logit
     targets = tokens[:, 1:].clamp(0, cfg.vocab_size - 1)
-    lm_head = params["lm_head"].to(dtype_of(cfg.dtype))
+    m = None if mask is None else mask[:, 1:].to(torch.float32)
+    if region.sizes["sp"] > 1:
+        # this chunk's positions predict the next ones; the whole
+        # sequence's last position has none (weight 0)
+        if m is None:
+            m = torch.ones(targets.shape, device=targets.device)
+        m = torch.cat([m, torch.zeros_like(m[:, :1])], dim=1)
+        count = m.sum()
+        m = region.seq_chunk(m)
+        targets = region.seq_chunk(
+            torch.cat([targets, targets[:, :1]], dim=1))
+    else:
+        x = x[:, :-1]
+        count = None if m is None else m.sum()
+    lm_head = region.param(params["lm_head"], ("embed", "vocab"))
+    lm_head = lm_head.to(dtype_of(cfg.dtype))
     if cfg.loss_chunk:
         nll = _chunked_nll(cfg, x, lm_head, targets)
     else:
         nll = _nll(cfg, x, lm_head, targets)
-    if mask is None:
+    if m is None:
         loss = nll.mean()
+        if region.n_batch > 1:
+            loss = loss / region.n_batch
     else:
-        m = mask[:, 1:].to(nll.dtype)
-        loss = (nll * m).sum() / m.sum().clamp_min(1.0)
+        loss = (nll * m).sum() / region.batch_sum(count).clamp_min(1.0)
     if cfg.moe_experts and include_aux:
+        if region.n_batch > 1:
+            aux = aux / region.n_batch
         loss = loss + cfg.moe_aux_weight * aux
-    return loss
+    return region.data_sum(loss)

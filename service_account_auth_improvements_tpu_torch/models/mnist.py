@@ -4,8 +4,8 @@ that a notebook can train (BASELINE.json configurations #1 and #2).
 Pure-functional, as the reference: a dict of params, ``apply``, a loss and
 a plain-SGD step that returns new params. The matmuls run in bf16 (cuBLAS
 on the card; the reference leaves them to XLA, no Pallas kernel). A mesh
-(the batch sharded over ``dp``) waits for the parallel slice (ROADMAP
-queue 1, item 8) and raises.
+(the batch sharded over ``dp``) is not ported yet and raises (ROADMAP
+queue 1, item 8: the side models' meshes).
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
     value_and_grad,
 )
 
-_MESH_TODO = ("a data-parallel mesh is not ported yet (ROADMAP queue 1, "
-              "item 8, \"parallel\")")
+_MESH_TODO = ("a data-parallel MNIST mesh is not ported yet (ROADMAP queue "
+              "1, item 8: the side models' meshes remain)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,8 +24,8 @@ reference:
   with the reference's casts. ``nn.BatchNorm2d`` updates with the unbiased
   variance and the opposite momentum convention.
 
-Cross-replica batch norm (the reference's ``mesh`` path) waits for the
-parallel slice (ROADMAP queue 1, item 8) and raises.
+Cross-replica batch norm (the reference's ``mesh`` path) is not ported yet
+and raises (ROADMAP queue 1, item 8: the side models' meshes).
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
 )
 
 _MESH_TODO = ("data-parallel ResNet with cross-replica batch norm (mesh) "
-              "is not ported yet (ROADMAP queue 1, item 8, \"parallel\")")
+              "is not ported yet (ROADMAP queue 1, item 8: the side "
+              "models' meshes remain)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -438,7 +438,8 @@ def main(argv=None) -> int:
     if args.tp != 1 or args.fsdp != 1:
         raise NotImplementedError(
             "--tp/--fsdp: sharded serving is not in the PyTorch port yet "
-            "(ROADMAP queue 1, 'parallel')")
+            "(ROADMAP queue 1, item 8: the training mesh is ported, "
+            "serving's --tp/--fsdp remain)")
     if args.gamma < 1:
         ap.error("--gamma must be >= 1")
     if args.prefill_window < 0:

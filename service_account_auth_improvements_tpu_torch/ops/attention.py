@@ -5,8 +5,15 @@
   "flash"  the flash-attention forward (ops/flash_attention.py): the
            hand-written Hopper kernel on a CUDA tensor, its plain version
            on a CPU tensor.
-  "ring" / "ulysses" wait for the parallel slice (ROADMAP queue 1,
-           "parallel") and raise.
+  "ring"   ring attention over the ``sp`` ranks (parallel/ring.py): dense
+           chunk arithmetic with f32 scores, no flash kernel.
+  "ulysses" all-to-all sequence parallelism (parallel/ulysses.py) around
+           the flash path on the local heads.
+
+"ring" and "ulysses" take the sharded entries, which read DTensor inputs
+or the ambient mesh and are a ring of one outside any mesh. (The model
+computes on local blocks and calls the ``*_local`` bodies itself, through
+``parallel.sharding.LocalRegion``.)
 
 All impls take q/k/v shaped ``[batch, seq, heads, head_dim]``; kv may have
 fewer heads (GQA by head-group reshape, never a KV repeat).
@@ -68,11 +75,18 @@ def multi_head_attention(q, k, v, *, impl: str = "dense",
         )
 
         return flash_attention(q, k, v, causal=causal)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} needs sequence parallelism, which the "
-            "port does not have yet (ROADMAP queue 1, \"parallel\")"
+    if impl == "ring":
+        from service_account_auth_improvements_tpu_torch.parallel import (
+            ring,
         )
+
+        return ring.ring_attention(q, k, v, causal=causal)
+    if impl == "ulysses":
+        from service_account_auth_improvements_tpu_torch.parallel import (
+            ulysses,
+        )
+
+        return ulysses.ulysses_attention(q, k, v, causal=causal)
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r}")
     return _dense_attention(q, k, v, q.shape[-1] ** -0.5, causal=causal,

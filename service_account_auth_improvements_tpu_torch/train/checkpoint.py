@@ -16,8 +16,14 @@ before. The newest ``max_to_keep`` steps are kept (orbax's default, 3).
 
 This is the in-workload half of the lifecycle the control plane exists
 for: cull or preempt the notebook, and the job resumes from the latest
-step on the same volume. A mesh (sharded restore) waits for the parallel
-slice (ROADMAP queue 1, item 8) and raises.
+step on the same volume.
+
+A sharded state (``DTensor`` leaves, ``train.step.shard_state``) is saved
+whole in the same layout: every rank joins each leaf's gather, and rank 0
+alone copies it to the host and writes, so a checkpoint does not depend on the mesh that wrote it.
+Restoring onto a mesh lays each leaf out by the rules, each rank copying
+only its block out of the memory-mapped file; a checkpoint written on one
+mesh restores onto another, and onto none.
 """
 
 from __future__ import annotations
@@ -28,21 +34,23 @@ import pathlib
 import shutil
 
 import torch
+import torch.distributed as dist
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.parallel import sharding
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    check_mesh,
+)
 from service_account_auth_improvements_tpu_torch.train.step import (
     AdamState,
     TrainState,
     _leaves,
     _map,
+    shard_state,
 )
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
-
-_MESH_TODO = ("restoring onto a mesh is not ported yet (ROADMAP queue 1, "
-              "item 8, \"parallel\")")
-
 
 def _steps(directory: pathlib.Path) -> list[int]:
     """The whole checkpoints under ``directory``, oldest first: only
@@ -77,19 +85,35 @@ def _fsync_dir(path: pathlib.Path) -> None:
 def save(directory, state: TrainState, *, max_to_keep: int = 3) -> int:
     """Write ``state`` under ``directory/<step>``; returns the step. A step
     that is already on disk is left as it is (orbax skips it too). Keeps
-    the newest ``max_to_keep`` checkpoints."""
+    the newest ``max_to_keep`` checkpoints. A sharded state is a
+    collective: every rank calls ``save``, and rank 0 writes."""
     directory = pathlib.Path(directory)
     step = int(state.step)
     final = directory / str(step)
+    sharded = sharding.is_dtensor(next(_leaves(state.params))[1])
+    if sharded:
+        dist.barrier()  # every rank sees the same directory below
     if final.is_dir():
         return step
-    directory.mkdir(parents=True, exist_ok=True)
+    writer = not sharded or dist.get_rank() == 0
     tmp = directory / f".{step}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)  # left by a save that did not finish
-    tmp.mkdir()
+    if writer:
+        directory.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)  # left by a save that did not finish
+        tmp.mkdir()
     opt = state.opt_state
-    cpu = lambda t: t.detach().to("cpu")  # noqa: E731
+
+    def cpu(tree):
+        """Each leaf whole on the host, on the writer. The other ranks
+        join each leaf's gather (a collective) and keep nothing, so only
+        rank 0's host ever holds the state."""
+        def one(t):
+            whole = sharding.full_tensor(t).detach()
+            return whole.to("cpu") if writer else None
+
+        return _map(one, tree)
+
     meta = {"step": step, "leaves": {}}
     for prefix, tree in (("params", state.params), ("opt/mu", opt.mu),
                          ("opt/nu", opt.nu)):
@@ -98,15 +122,22 @@ def save(directory, state: TrainState, *, max_to_keep: int = 3) -> int:
                 "dtype": str(t.dtype).removeprefix("torch."),
                 "shape": list(t.shape)}
     # one file's CPU copy at a time: the host holds at most the moments
-    _write(tmp / "params.pt", _map(cpu, state.params))
-    _write(tmp / "opt.pt", {"count": int(opt.count), "mu": _map(cpu, opt.mu),
-                            "nu": _map(cpu, opt.nu)})
-    (tmp / "meta.json").write_text(json.dumps(meta, indent=1))
-    _fsync_dir(tmp)
-    os.replace(tmp, final)
-    _fsync_dir(directory)
-    for old in _steps(directory)[:-max_to_keep]:
-        shutil.rmtree(directory / str(old))
+    params = cpu(state.params)
+    if writer:
+        _write(tmp / "params.pt", params)
+    del params
+    moments = {"count": int(opt.count), "mu": cpu(opt.mu),
+               "nu": cpu(opt.nu)}
+    if writer:
+        _write(tmp / "opt.pt", moments)
+        (tmp / "meta.json").write_text(json.dumps(meta, indent=1))
+        _fsync_dir(tmp)
+        os.replace(tmp, final)
+        _fsync_dir(directory)
+        for old in _steps(directory)[:-max_to_keep]:
+            shutil.rmtree(directory / str(old))
+    if sharded:
+        dist.barrier()  # no rank reads the directory before it is whole
     return step
 
 
@@ -123,7 +154,7 @@ def _load(path: pathlib.Path):
 
 
 def restore_params(directory, mesh, cfg: llama.LlamaConfig,
-                   step: int | None = None, device=None):
+                   step: int | None = None, device=None, rules=None):
     """Restore ONLY the params (the serving path) onto ``device`` (the
     card unless ``"cpu"``), from the newest step unless ``step`` is given.
     ``opt.pt`` is never opened, so the Adam moments (twice the params'
@@ -131,35 +162,46 @@ def restore_params(directory, mesh, cfg: llama.LlamaConfig,
     state never has to be rebuilt. Each leaf keeps the dtype the
     checkpoint holds (f32 master weights stay f32; the model casts them
     to its compute dtype). A leaf the config does not know raises: the
-    checkpoint was written for another preset."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    checkpoint was written for another preset. With a ``mesh`` (and
+    ``rules``) the params are ``DTensor``s laid out by the rules on the
+    mesh's device, each rank reading only its blocks."""
     dev = resolve_device(device)
+    if mesh is not None and check_mesh(mesh).device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot restore onto "
+                         f"{dev}")
     path = _step_dir(directory, step)
     params = _load(path / "params.pt")
-    known = {name for name, _ in _leaves(llama.logical_axes(cfg))}
+    axes = llama.logical_axes(cfg)
+    known = {name for name, _ in _leaves(axes)}
     for name, _ in _leaves(params):
         if name not in known:
             raise ValueError(
                 f"checkpoint params leaf {name!r} ({path}) matches no "
                 f"param of the given config — wrong --preset for this "
                 f"checkpoint?")
+    if mesh is not None:
+        return sharding.tree_distribute(params, mesh, axes, rules)
     return _map(lambda t: t.to(dev), params)
 
 
 def restore(directory, mesh, cfg: llama.LlamaConfig, state_like: TrainState,
-            step: int | None = None, axes_tree=None) -> TrainState:
+            step: int | None = None, axes_tree=None,
+            rules=None) -> TrainState:
     """Restore the full training state from the newest step (or ``step``)
     INTO ``state_like``: each of its tensors is overwritten in place with
     the checkpoint's values, cast to that tensor's dtype on its device (a
     bf16 ``mu`` restores as bf16), as orbax restores into its target. The
     structure and shapes must match; returns the restored ``TrainState``
     (its tensors are ``state_like``'s), which may hold any params tree
-    (LoRA adapters too). ``axes_tree`` is the reference's override of the
-    params' logical axes for such trees (``lora_logical_axes``); it lays
-    leaves onto a mesh, so without one it is accepted and unused."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    (LoRA adapters too). With a ``mesh`` the restored leaves are laid out
+    by the ``rules`` over the params' logical axes (``axes_tree``, the
+    reference's override for such trees as ``lora_logical_axes``, else
+    the config's): a ``state_like`` of whole tensors is laid out first, a
+    sharded one keeps its layout, and each rank copies only its blocks."""
+    if (mesh is not None and not sharding.is_dtensor(
+            next(_leaves(state_like.params))[1])):
+        state_like = shard_state(check_mesh(mesh), cfg, state_like, rules,
+                                 axes_tree)
     path = _step_dir(directory, step)
     meta = json.loads((path / "meta.json").read_text())
     params = _load(path / "params.pt")
@@ -179,7 +221,11 @@ def restore(directory, mesh, cfg: llama.LlamaConfig, state_like: TrainState,
                 raise ValueError(f"checkpoint {path} {prefix}/{name} has "
                                  f"shape {got[name].shape}, the state "
                                  f"{tuple(t.shape)}")
-            t.copy_(got[name])
+            if sharding.is_dtensor(t):
+                t.to_local().copy_(sharding.shard_local(
+                    got[name], t.device_mesh, t.placements))
+            else:
+                t.copy_(got[name])
         return like
 
     return TrainState(

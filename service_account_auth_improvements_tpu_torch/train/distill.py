@@ -11,8 +11,8 @@ recomputes it, and only its last hidden states are kept for the loss.
 This is how the draft models speculative decoding wants
 (``models/speculative.py``) get made: distill the big target into a small
 student with the same vocabulary, then serve it with
-``--draft-checkpoint-dir``. A mesh waits for the parallel slice (ROADMAP
-queue 1, item 8) and raises.
+``--draft-checkpoint-dir``. A mesh is not ported yet and raises (ROADMAP
+queue 1, item 8: the side models' meshes).
 """
 
 from __future__ import annotations

@@ -13,8 +13,18 @@ service_account_auth_improvements_tpu_torch.train.loop --preset bench_800m
 
 ``fit(lora=LoraConfig(...), base_params=...)`` fine-tunes adapters over
 frozen base weights (``train/lora.py``): the checkpointed and resumed state
-is the adapter tree. Not ported yet, and raising with its ROADMAP item
-when asked for: a mesh and the mesh-axis flags, queue 1 item 8.
+is the adapter tree.
+
+``fit(cfg, mesh, ...)`` trains sharded over a ``parallel.make_mesh`` mesh,
+one process per rank: every rank runs ``fit`` with the same arguments,
+rank 0 alone logs and writes checkpoints. The CLI's ``--dp/--fsdp/--tp/
+--sp`` flags start the process group from the controller's env
+(``parallel.multihost.maybe_initialize``) and build that mesh; launch one
+process per rank with ``TPU_WORKER_ID`` and ``TPU_WORKER_HOSTNAMES`` set.
+Unlike the reference's CLI, which always builds a mesh, it builds one
+only when the flags' product or the env asks for more than one process,
+so a one-card run keeps the plain path. Not ported yet: ``--pp`` and
+``--ep`` above 1, and a mesh for LoRA (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -26,6 +36,15 @@ import numpy as np
 import torch
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.parallel import (
+    multihost,
+)
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    MESH_AXES,
+    MeshConfig,
+    check_mesh,
+    make_mesh,
+)
 from service_account_auth_improvements_tpu_torch.train import (
     checkpoint as ckpt,
     evaluate,
@@ -33,6 +52,7 @@ from service_account_auth_improvements_tpu_torch.train import (
 )
 from service_account_auth_improvements_tpu_torch.train.data import (
     DataConfig,
+    RowShard,
     TokenBatches,
 )
 from service_account_auth_improvements_tpu_torch.train.mfu import (
@@ -40,9 +60,11 @@ from service_account_auth_improvements_tpu_torch.train.mfu import (
     mfu,
 )
 from service_account_auth_improvements_tpu_torch.train.step import (
+    _MESH_TODO,
     init_train_state,
     make_optimizer,
     make_train_step,
+    shard_state,
 )
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
@@ -88,29 +110,43 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
     step, which carries the kernel builds and library warm-up; a record
     logged before any later step has finished times that first step. Eval
     and checkpoint writes are kept out of the clock: tokens/s and MFU
-    describe train steps."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh) is not ported yet (ROADMAP queue 1, "
-            "item 8, \"parallel\")")
+    describe train steps.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh, on ``device``'s type) trains
+    sharded: every rank calls ``fit`` alike, draws the same init and lays
+    it out by the rules, reads its rows of each batch, and rank 0 alone
+    logs and writes checkpoints (a collective save). ``eval_data`` batches
+    are global; each rank evaluates its rows. As in the reference,
+    tokens/s counts the whole mesh's tokens and MFU divides by its
+    chips."""
     if lora is not None and base_params is None:
         raise ValueError("lora fit requires base_params")
     dev = resolve_device(device)
+    if mesh is not None:
+        if lora is not None:
+            raise NotImplementedError(_MESH_TODO)
+        if check_mesh(mesh).device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                             f"{dev}")
+        if torch.distributed.get_rank():
+            log = _quiet
     if optimizer is None:
         optimizer = (make_optimizer(weight_decay=0.0) if lora is not None
                      else make_optimizer())
-    data = TokenBatches(tokens, data_cfg, device=dev)
+    data = TokenBatches(tokens, data_cfg, mesh=mesh, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     if lora is not None:
         state = lora_mod.init_lora_state(cfg, lora, gen, optimizer,
                                          device=dev)
     else:
         state = init_train_state(cfg, gen, optimizer, device=dev)
+        if mesh is not None:
+            state = shard_state(mesh, cfg, state)
     start = 0
     if loop.workdir is not None and ckpt.latest_step(loop.workdir) is not None:
         t = time.perf_counter()
         state = ckpt.restore(
-            loop.workdir, None, cfg, state,
+            loop.workdir, mesh, cfg, state,
             axes_tree=(None if lora is None
                        else lora_mod.lora_logical_axes(cfg, lora)))
         start = state.step
@@ -127,7 +163,7 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
             return lora_step(state, base_params, batch, mask)
     else:
         step_fn = make_train_step(
-            cfg, optimizer=optimizer, packed=packed,
+            cfg, optimizer=optimizer, mesh=mesh, packed=packed,
             # segment-masked attention is a dense-impl feature; flash
             # windows train with the boundary loss mask only
             segment_eos_id=(data_cfg.eos_id
@@ -136,10 +172,12 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         )
     eval_step = None
     if loop.eval_every and eval_data is not None:
-        eval_step = evaluate.make_eval_step(cfg, packed=packed)
+        eval_step = evaluate.make_eval_step(cfg, mesh=mesh, packed=packed)
         # the eval set is iterated at every cadence: a generator would be
         # exhausted after the first eval
         eval_data = list(eval_data)
+        if mesh is not None:
+            eval_data = [_my_rows(b, mesh, dev) for b in eval_data]
     peak = chip_peak_flops(dev)
     history = []
     tokens_per_step = data_cfg.batch * (data_cfg.seq - 1)
@@ -171,7 +209,7 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
                    "tokens_per_sec": round(tok_s, 1)}
             util = (None if lora is not None else mfu(
                 cfg.flops_per_token(data_cfg.seq) * tokens_per_step,
-                step_s, 1, peak))
+                step_s, 1 if mesh is None else mesh.size(), peak))
             if util:
                 rec["mfu"] = round(util, 4)
             history.append(rec)
@@ -208,8 +246,27 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
     return state, history
 
 
+def _quiet(*_) -> None:
+    """The log of every rank but 0."""
+
+
+def _my_rows(batch, mesh, dev):
+    """A global eval batch (tokens, or (tokens, mask)) → this rank's rows
+    of it, as the global batch's ``DTensor``s."""
+    tokens, mask = (batch if isinstance(batch, (tuple, list))
+                    else (batch, None))
+    tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    mask = (torch.ones_like(tokens, dtype=torch.int32) if mask is None
+            else torch.as_tensor(mask, device=dev))
+    rows = RowShard(mesh, tokens.shape[0])
+    return rows.shard(tokens), rows.shard(mask)
+
+
 def main(argv=None) -> list:
-    """The CLI; returns ``fit``'s history."""
+    """The CLI; returns ``fit``'s history. With mesh-axis flags whose
+    product, or with a rendezvous env (``TPU_WORKER_*``) that asks for
+    more than one process, it starts the process group and trains on a
+    mesh; otherwise on one device, with no mesh."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -226,18 +283,21 @@ def main(argv=None) -> list:
         ap.add_argument(f"--{axis}", type=int, default=1)
     args = ap.parse_args(argv)
 
-    if any(getattr(args, a) != 1 for a in ("dp", "pp", "fsdp", "sp", "tp",
-                                           "ep")):
-        raise NotImplementedError(
-            "mesh axes are not ported yet (ROADMAP queue 1, item 8, "
-            "\"parallel\")")
+    mesh = None
+    sizes = {a: getattr(args, a) for a in MESH_AXES}
+    plan = multihost.rendezvous_plan()
+    if np.prod(list(sizes.values())) > 1 or plan.num_processes > 1:
+        config = MeshConfig(**sizes)
+        config.resolve(plan.num_processes)  # before any process starts
+        multihost.maybe_initialize(args.device)
+        mesh = make_mesh(config, args.device)
     cfg = llama.PRESETS[args.preset]
     # synthetic corpus sized for the run, as the reference's CLI makes it
     rng = np.random.default_rng(0)
     n = max(args.batch * args.seq * 4,
             args.batch * args.seq * (args.steps + 1) // 2)
     tokens = rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
-    _, history = fit(cfg, None, tokens,
+    _, history = fit(cfg, mesh, tokens,
                      DataConfig(batch=args.batch, seq=args.seq),
                      LoopConfig(steps=args.steps, log_every=args.log_every,
                                 workdir=args.workdir,

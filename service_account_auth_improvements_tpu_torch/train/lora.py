@@ -11,7 +11,8 @@ gradient of the base would be 32 GB), and the merged copies of the targets
 are the one extra weight set the step holds. The optimizer sees the
 adapter tree alone, and a checkpoint is that tree
 (``train/checkpoint.py`` takes any nested dict). A mesh (sharded adapters)
-waits for the parallel slice (ROADMAP queue 1, item 8) and raises.
+is not ported yet and raises (ROADMAP queue 1, item 8: the side models'
+meshes).
 """
 
 from __future__ import annotations
@@ -106,7 +107,7 @@ def init_lora(cfg: llama.LlamaConfig, lcfg: LoraConfig,
 def lora_logical_axes(cfg: llama.LlamaConfig, lcfg: LoraConfig) -> Any:
     """Logical axes of the adapter tree, derived from each target's base
     axes: A inherits the input axis, B the output axis; the rank axis is
-    unnamed. The port shards nothing yet (item 8)."""
+    unnamed. The LoRA step takes no mesh yet (item 8)."""
     base = llama.logical_axes(cfg)["layers"]
     return {
         t: {

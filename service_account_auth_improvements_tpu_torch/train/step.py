@@ -6,8 +6,14 @@ reference's optax chain (``clip_by_global_norm`` then ``adamw``) rule for
 rule; ``torch.optim.AdamW`` and ``clip_grad_norm_`` differ from it. The
 reference donates the previous state so XLA reuses its buffers; here the
 update writes the parameters and moments in place instead, and the
-returned state holds the same tensors. A mesh (sharded training) waits
-for the parallel slice (ROADMAP queue 1, item 8) and raises.
+returned state holds the same tensors.
+
+On a mesh (``make_train_step(mesh=...)``) the state's tensors are
+``DTensor``s laid out by the logical rules (``shard_state``): each rank
+updates its own blocks. The step runs the model on the local blocks of
+the batch rows its (dp, fsdp) coordinate holds, then sums each
+gradient over the data-parallel ranks that hold the same block, takes
+the global norm over each element once, and applies AdamW to the blocks.
 """
 
 from __future__ import annotations
@@ -20,6 +26,13 @@ import numpy as np
 import torch
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.parallel import (
+    sharding,
+)
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    check_mesh,
+    use_mesh,
+)
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -31,8 +44,10 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
     value_and_grad,
 )
 
-_MESH_TODO = ("sharded training (mesh/rules) is not ported yet (ROADMAP "
-              "queue 1, item 8, \"parallel\")")
+# the refusal the LoRA and distillation steps raise on a mesh
+_MESH_TODO = ("a mesh for LoRA and distillation is not ported yet (ROADMAP "
+              "queue 1, item 8: pipeline.py, ep > 1, serving's --tp/--fsdp "
+              "and the side models' meshes remain)")
 
 
 class AdamState(NamedTuple):
@@ -195,6 +210,38 @@ def init_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
     return TrainState(0, params, optimizer.init(params))
 
 
+def state_shardings(mesh, cfg: llama.LlamaConfig, state: TrainState,
+                    rules=None) -> TrainState:
+    """Placements for a TrainState: params by their logical axes, each
+    Adam moment as its param, the step and the count replicated."""
+    return tree_state_shardings(mesh, llama.logical_axes(cfg), state, rules)
+
+
+def tree_state_shardings(mesh, axes_tree, state: TrainState,
+                         rules=None) -> TrainState:
+    """``state_shardings`` for any params tree and its logical-axes tree
+    (the generic core)."""
+    p = sharding.tree_logical_sharding(mesh, axes_tree, rules)
+    replicated = sharding.placements(mesh, ())
+    return TrainState(replicated, p, AdamState(replicated, p, p))
+
+
+def shard_state(mesh, cfg: llama.LlamaConfig, state: TrainState,
+                rules=None, axes_tree=None) -> TrainState:
+    """``state`` (whole tensors, the same on every rank) laid onto
+    ``mesh`` by ``state_shardings``: its params and moments become
+    ``DTensor``s holding this rank's blocks. ``axes_tree`` overrides the
+    config's logical axes for another params tree (LoRA adapters)."""
+    axes = axes_tree if axes_tree is not None else llama.logical_axes(cfg)
+
+    def lay(tree):
+        return sharding.tree_distribute(tree, mesh, axes, rules)
+
+    opt = state.opt_state
+    return TrainState(state.step, lay(state.params),
+                      AdamState(opt.count, lay(opt.mu), lay(opt.nu)))
+
+
 def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
                     mesh=None, rules=None, grad_accum: int = 1,
                     packed: bool = False,
@@ -210,9 +257,15 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
     losses. ``packed=True`` makes the mask a pure loss mask (the backbone
     sees every token as real). ``segment_eos_id`` derives segment ids
     from the tokens (count of EOS tokens strictly before a position) and
-    blocks attention across documents — dense attention only."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(_MESH_TODO)
+    blocks attention across documents — dense attention only.
+
+    With a ``mesh`` (and logical ``rules``, ``DEFAULT_RULES`` when None)
+    the state is sharded (``shard_state``) and ``tokens``/``mask`` are the
+    global batch as a ``DTensor`` split over (dp, fsdp) (``TokenBatches``
+    gives them so), or a plain tensor of this rank's rows. The metrics
+    are global, the same on every rank. ``grad_accum`` takes strided
+    micro-batches of the local rows, which are the global batch's strided
+    micro-batches when the local row count divides by it."""
     optimizer = optimizer or make_optimizer()
 
     def loss_fn(params, tokens, mask):
@@ -227,34 +280,58 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
             segment_ids=segment_ids,
         )
 
-    def step(state: TrainState, tokens, mask):
+    def loss_and_grads(params, tokens, mask):
         if grad_accum == 1:
-            loss, grads = value_and_grad(loss_fn, state.params, tokens,
-                                         mask)
-        else:
-            b = tokens.shape[0]
-            if b % grad_accum:
-                raise ValueError(
-                    f"batch={b} not divisible by grad_accum={grad_accum}"
-                )
-            acc = _map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                       state.params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tokens.device)
-            for i in range(grad_accum):
-                l, g = value_and_grad(loss_fn, state.params,
-                                      tokens[i::grad_accum],
-                                      mask[i::grad_accum])
-                loss = loss + l
-                _map(lambda a, x: a.add_(x.float()), acc, g)
-            loss = loss / grad_accum
-            grads = _map(lambda a, p: (a / grad_accum).to(p.dtype), acc,
-                         state.params)
+            return value_and_grad(loss_fn, params, tokens, mask)
+        b = tokens.shape[0]
+        if b % grad_accum:
+            raise ValueError(
+                f"batch={b} not divisible by grad_accum={grad_accum}"
+            )
+        acc = _map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params)
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for i in range(grad_accum):
+            l, g = value_and_grad(loss_fn, params, tokens[i::grad_accum],
+                                  mask[i::grad_accum])
+            loss = loss + l
+            _map(lambda a, x: a.add_(x.float()), acc, g)
+        loss = loss / grad_accum
+        grads = _map(lambda a, p: (a / grad_accum).to(p.dtype), acc,
+                     params)
+        return loss, grads
+
+    def step(state: TrainState, tokens, mask):
+        loss, grads = loss_and_grads(state.params, tokens, mask)
         gnorm = global_norm(grads)
         params, opt_state = optimizer.apply(grads, state.opt_state,
                                             state.params, gnorm)
         return (TrainState(state.step + 1, params, opt_state),
                 {"loss": loss, "grad_norm": gnorm})
 
-    return step
+    if mesh is None:
+        return step
+    check_mesh(mesh)
+    axes = dict(_leaves(llama.logical_axes(cfg)))
+    local = sharding.to_local
+
+    def sharded_step(state: TrainState, tokens, mask):
+        params = _map(local, state.params)
+        with use_mesh(mesh, rules):
+            region = sharding.local_region()
+            loss, grads = loss_and_grads(params, local(tokens), local(mask))
+        for name, g in _leaves(grads):
+            region.reduce_grad(g, axes[name])
+        gnorm = torch.sqrt(sum(region.sq_norm(g, axes[name])
+                               for name, g in _leaves(grads)))
+        opt = state.opt_state
+        _, opt_state = optimizer.apply(
+            grads, AdamState(opt.count, _map(local, opt.mu),
+                             _map(local, opt.nu)), params, gnorm)
+        # the blocks were updated in place: the DTensors hold the result
+        return (TrainState(state.step + 1, state.params,
+                           AdamState(opt_state.count, opt.mu, opt.nu)),
+                {"loss": loss, "grad_norm": gnorm})
+
+    return sharded_step
 

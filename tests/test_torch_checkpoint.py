@@ -244,7 +244,9 @@ def test_missing_checkpoint_and_mesh_raise(tmp_path):
     assert ckpt.latest_step(tmp_path / "nothing") is None
     with pytest.raises(FileNotFoundError):
         ckpt.restore_params(tmp_path, None, CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # restoring onto a mesh is ported (tests/test_torch_parallel.py); what
+    # is not a parallel.make_mesh DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ckpt.restore(tmp_path, object(), CFG, _state())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ckpt.restore_params(tmp_path, object(), CFG, device="cpu")

@@ -138,3 +138,16 @@ def test_side_model_settings():
         "resnet50"].param_count()
     assert chip_smoke.RESNET_STEPS >= 2 and chip_smoke.MNIST_STEPS >= 2
     assert chip_smoke.RESNET_SIZE == 224
+
+
+def test_parallel_settings():
+    """Phase 10 times steps after a warm-up, splits the training sequence
+    evenly into the ring's chunks, and holds ring-vs-dense gradients in
+    f32 to a limit tighter than bf16's, with a control ring that sees
+    at least one future key."""
+    assert 2 <= chip_smoke.PARALLEL_STEPS <= 3
+    assert chip_smoke.TRAIN_SEQ % chip_smoke.RING_CHUNKS == 0
+    assert chip_smoke.RING_CHUNKS > 1
+    assert chip_smoke.RING_CONTROL_PEEK >= 1
+    assert (chip_smoke.GRAD_TOL["f32"]["leaf"]
+            < chip_smoke.GRAD_TOL["bf16"]["leaf"])

@@ -781,3 +781,104 @@ def test_resnet18_smoke_bf16_on_cuda_matches_cpu(cuda):
     for a, b in zip(out["cuda"][3], out["cpu"][3]):
         assert abs(a - b) <= 5e-2
     assert out["cuda"][3][-1] < out["cuda"][3][0]
+
+
+def _ring_by_chunks(q, k, v, n):
+    """Ring attention over ``n`` ranks simulated in one process: rank r's
+    q chunk folds the kv chunks r, r-1, ... in the ring's order with
+    their global offsets. → (out [b,s,h,d], lse [b,s,h] f32)."""
+    from service_account_auth_improvements_tpu_torch.parallel import ring
+
+    c = q.shape[1] // n
+    outs, lses = [], []
+    for r in range(n):
+        qr = q[:, r * c:(r + 1) * c]
+        o = torch.zeros(qr.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(qr.shape[:-1], ring.NEG_INF, device=q.device)
+        for step in range(n):
+            j = (r - step) % n
+            oj, lj = ring._chunk_attention_with_lse(
+                qr, k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                r * c, j * c, q.shape[-1] ** -0.5)
+            o, lse = ring._merge(o, lse, oj, lj)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_chunks_compose_to_full_attention_on_cuda(cuda, dtype):
+    """The ring's per-rank arithmetic on the card: 4 chunks of 128 (b 2,
+    4 / 2 heads, d 128, causal) composed with their global offsets equal
+    K1's output and LSE and dense attention, within TOL (LSE 1e-3)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        attention,
+        flash_attention as fa,
+    )
+
+    q, k, v = (t.transpose(1, 2) for t in _qkv(2, 512, 4, 2, 128, dtype))
+    got, got_lse = _ring_by_chunks(q, k, v, 4)
+    want, want_lse = fa.flash_fwd(*(t.transpose(1, 2) for t in (q, k, v)),
+                                  True)
+    dense = attention._dense_attention(q, k, v, 128 ** -0.5)
+    atol, rtol = TOL[dtype]
+    for ref in (want.transpose(1, 2), dense):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    torch.testing.assert_close(got_lse, want_lse.transpose(1, 2),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_mesh_step_equals_plain_on_cuda(cuda):
+    """``make_mesh`` with no process group starts one of one rank over
+    NCCL; on that mesh three train steps (flash, and Ulysses at sp 1,
+    whose exchanges are the identity) equal the plain step bit for bit,
+    with the plain step's kernel launches."""
+    import torch.distributed as dist
+
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        MeshConfig,
+        make_mesh,
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import step
+
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1, pp=1))
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    cfg = _small_flash_cfg("bfloat16")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to("cuda")
+    mask = torch.ones_like(tokens)
+    runs = {}
+    for name, c, m in (("plain", cfg, None), ("mesh", cfg, mesh),
+                       ("ulysses", dataclasses.replace(
+                           cfg, attn_impl="ulysses"), mesh)):
+        state = step.init_train_state(
+            c, torch.Generator(device="cuda").manual_seed(0))
+        if m is not None:
+            state = step.shard_state(m, c, state)
+        fn = step.make_train_step(c, mesh=m)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        metrics = []
+        for _ in range(3):
+            state, met = fn(state, tokens, mask)
+            metrics.append((met["loss"].item(), met["grad_norm"].item()))
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        leaves = [sharding.full_tensor(t) for tree in (
+            state.params, state.opt_state.mu, state.opt_state.nu)
+            for _, t in step._leaves(tree)]
+        runs[name] = (metrics, [a - b for a, b in zip(after, before)],
+                      leaves)
+    L = cfg.n_layers
+    assert runs["plain"][1] == [3 * 2 * L, 3 * L, 3 * L]
+    for name in ("mesh", "ulysses"):
+        assert runs[name][0] == runs["plain"][0], name
+        assert runs[name][1] == runs["plain"][1], name
+        assert all(torch.equal(a, b) for a, b in zip(runs[name][2],
+                                                     runs["plain"][2]))

@@ -70,6 +70,8 @@ def test_boundary_mask_and_errors():
     with pytest.raises(ValueError, match="one global batch"):
         tdata.TokenBatches(TOKENS[:100], tdata.DataConfig(batch=4, seq=64),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is a parallel.make_mesh DeviceMesh (tests/test_torch_mesh.py
+    # and test_torch_parallel.py shard batches over real ones)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdata.TokenBatches(TOKENS, tdata.DataConfig(batch=4, seq=64),
                            mesh=object(), device="cpu")

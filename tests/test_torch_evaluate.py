@@ -132,5 +132,7 @@ def test_empty_batches_raise(weights):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # evaluation on a mesh is ported (tests/test_torch_parallel.py); what
+    # is not a parallel.make_mesh DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_eval_step(TCFG, mesh=object())

@@ -68,14 +68,22 @@ MOE = ["models.llama", "models.generate"]
 # the fine-tuning and side-model slice's modules
 FINETUNE = ["train.lora", "train.distill", "models.convert_hf",
             "models.resnet", "models.mnist"]
+# the parallel slice's modules, and the module the multi-rank tests spawn
+# their rank processes from (which must run without JAX)
+PARALLEL = ["parallel", "parallel.mesh", "parallel.multihost",
+            "parallel.sharding", "parallel.collectives", "parallel.ring",
+            "parallel.ulysses"]
+WORKERS = "tests.torch_parallel_workers"
 
 
-@pytest.mark.parametrize("module", LIFECYCLE + MOE + FINETUNE)
+@pytest.mark.parametrize("module", LIFECYCLE + MOE + FINETUNE + PARALLEL
+                         + [WORKERS])
 def test_lifecycle_module_imports_without_jax(module):
+    full = module if module == WORKERS else PORT + "." + module
     probe = BLOCKER.replace(
         "for name in names:\n"
         "    importlib.import_module(name.removesuffix(\".__init__\"))\n",
-        f"names = [{PORT + '.' + module!r}]\n"
+        f"names = [{full!r}]\n"
         "importlib.import_module(names[0])\n")
     assert probe != BLOCKER
     out = subprocess.run([sys.executable, "-c", probe, str(REPO)],

@@ -136,9 +136,23 @@ def test_multi_head_attention_dispatch():
     seg = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="segment_ids requires"):
         tattn.multi_head_attention(q, q, q, impl="flash", segment_ids=seg)
+    # outside a mesh ring and Ulysses are a sequence split of one: ring's
+    # single chunk is dense arithmetic, Ulysses' exchanges the identity
+    rng = np.random.default_rng(5)
+    qr, kr, vr = (_t(_rand(rng, (1, 6, 4, 8))), _t(_rand(rng, (1, 6, 2, 8))),
+                  _t(_rand(rng, (1, 6, 2, 8))))
+    dense = tattn.multi_head_attention(qr, kr, vr, impl="dense")
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.multi_head_attention(q, q, q, impl=impl)
+        for causal in (True, False):
+            got = tattn.multi_head_attention(qr, kr, vr, impl=impl,
+                                             causal=causal)
+            want = tattn.multi_head_attention(qr, kr, vr, impl="dense",
+                                              causal=causal)
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       **F32_TOL)
+    with pytest.raises(ValueError, match="segment_ids requires"):
+        tattn.multi_head_attention(qr, kr, vr, impl="ring", segment_ids=seg)
+    assert dense.shape == qr.shape
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.multi_head_attention(q, q, q, impl="nope")
     out = tattn.multi_head_attention(q, q, q, impl="dense", segment_ids=seg)

@@ -209,7 +209,9 @@ def test_grad_accum_rejects_bad_batch_and_mesh_raises():
     toks = torch.zeros((8, 16), dtype=torch.long)
     with pytest.raises(ValueError, match="not divisible by grad_accum"):
         step(state, toks, torch.ones_like(toks))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is ported (tests/test_torch_parallel.py); what is not a
+    # parallel.make_mesh DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step(cfg, mesh=object())
 
 

@@ -70,7 +70,19 @@ no network. Phases, each of which raises on failure:
    Ulysses (bit for bit the flash mesh step's, the same launches) and
    with ring attention (no K1; held to the dense step), with step times
    and peak memory; the ring's chunk arithmetic at full width (4 chunks
-   of 512) against K1's output and LSE, bf16 and f32, timed.
+   of 512) against K1's output and LSE, bf16 and f32, timed;
+11. parallel II: the GPipe schedule (``parallel.pipeline.pipeline_local``:
+   every stage in this process, the hop a rotation) at ``bench_800m``, b 8
+   x 2048, 4 stages of 5 layers, 8 microbatches: exact launches per step
+   (K1 320 / K2 160 / K3 160), step time and peak memory beside the plain
+   step, bf16 losses, and step 1's f32 gradients leaf by leaf against the
+   plain stack's with a control schedule that loses a microbatch; the ep
+   split at ``bench_moe``'s training shape (every ep rank's share of one
+   MoE FFN for ep 2 and 4, summed) against the plain FFN; and on the
+   world-1 NCCL mesh at full width, each bit (or token) for bit its plain
+   path: the ``bench_moe`` train step, ``GenerationService(mesh=)`` at
+   ``bench_800m`` (per-length and windowed prefill), a LoRA step over a
+   ``bench_800m`` base and the ResNet-50 step.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -221,6 +233,10 @@ HF_LLAMA32_1B = {
 FT_BATCH, FT_SEQ, LORA_STEPS, LORA_LR = 4, 2048, 4, 2e-3
 # the two models' head dims, for the kernel checks at their shapes
 FT_HEAD_DIMS = (("8b", 128), ("1b", 64))
+# the widest head dim K1 takes (ops/flash_attention.py KERNEL_HEAD_DIMS),
+# which its mma.sync route (flash_fwd_bf16) runs: checked and timed in
+# phase 3
+WIDE_HEAD_DIM = 256
 DISTILL_STEPS, DISTILL_T, DISTILL_ALPHA = 4, 2.0, 0.5
 FT_WORKDIR = ROOT / "build" / "chip_smoke_finetune"
 # the 8B's first LoRA step against next_token_loss on the base params (B
@@ -410,6 +426,9 @@ def phase_kernels() -> dict:
         *((f"llama3 {name} prefill gqa4 s{PROMPT} d{d} bf16 wrapper", 1,
            PROMPT, 32, 8, d, torch.bfloat16, True, True)
           for name, d in FT_HEAD_DIMS),
+        # K1's route above the wgmma kernel's head dims (flash_fwd_bf16)
+        (f"gqa s{TRAIN_SEQ} d{WIDE_HEAD_DIM} bf16", TRAIN_BATCH, TRAIN_SEQ,
+         8, 4, WIDE_HEAD_DIM, torch.bfloat16, True, False),
     ]
     worst = 0.0
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
@@ -499,6 +518,28 @@ def phase_kernels() -> dict:
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
             bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
         del q, k, v, qt, kt, vt
+    # K1 at d WIDE_HEAD_DIM (the mma.sync flash_fwd_bf16 kernel: the
+    # build's ptxas lines above give its registers and spills), at the
+    # training shape with 8 / 4 heads
+    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 8, 4, WIDE_HEAD_DIM
+    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), queue_ahead=True)
+    plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
+                        iters=5, warmup=1, queue_ahead=True)
+    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+        qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
+    bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
+                                      True)
+    tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
+    _log(f"time flash_fwd_bf16 b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+         f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
+         f"bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+         f"{bound_ms:.4f} ms ({bound_by})")
+    ft[f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal (flash_fwd_bf16)"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
+    del q, k, v, qt, kt, vt
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft)
 
 
@@ -3024,6 +3065,503 @@ def _ring_full_width() -> None:
     torch.cuda.empty_cache()
 
 
+# phase 11, parallel II: the GPipe schedule at PRESET, TRAIN_BATCH x
+# TRAIN_SEQ, as PIPE_STAGES stages of n_layers / PIPE_STAGES layers and
+# PIPE_MICRO microbatches, every stage in this process through
+# parallel.pipeline.pipeline_local (the package's ticks, the hop a
+# rotation of the stages' activations). PIPE_STEPS bf16 steps of it and of
+# the plain step from one init: exact launches per step (K1 2·M·L, K2 and
+# K3 M·L), step ms, peak memory, and the losses within the GRAD_TOL bf16
+# row. Step 1's loss and gradients from one set of params in f32 compute
+# against the plain stack's: loss within PIPE_LOSS_TOL, each leaf within
+# GRAD_TOL f32 "leaf" of its largest gradient; a control schedule that
+# loses microbatch PIPE_CONTROL_DROP's input must land above that limit.
+PIPE_STAGES, PIPE_MICRO, PIPE_STEPS, PIPE_CONTROL_DROP = 4, 8, 3, 3
+PIPE_LOSS_TOL = 1e-4
+# expert parallelism at MOE_PRESET's training shape (b TRAIN_BATCH x
+# TRAIN_SEQ, one layer's MoE FFN, f32): every ep rank's share computed in
+# this process (parallel.sharding.expert_share) and the partial outputs
+# summed, for each of EP_SIZES, against the plain _moe_ffn: the expert
+# choices equal, the output within EP_ATOL, the aux equal
+EP_SIZES, EP_ATOL = (2, 4), 1e-5
+# the world-1 NCCL mesh's paths at full width, each bit for bit its plain
+# path: MOE_PRESET's train step (WORLD1_STEPS steps), GenerationService at
+# PRESET (BATCH prompts of PROMPT tokens, WORLD1_NEW new, per-length and
+# windowed prefill), a LoRA step over a PRESET base (WORLD1_STEPS steps,
+# rank 8 on wq wk wv wo) and ResNet-50's momentum step (RESNET_BATCH,
+# WORLD1_STEPS steps)
+WORLD1_STEPS, WORLD1_NEW = 2, 16
+
+
+def phase_parallel2() -> dict:
+    """Phase 11: the pipeline's schedule and the expert split at full
+    width in one process, and the world-1 NCCL mesh's MoE, serving, LoRA
+    and ResNet-50 paths against their plain ones. Returns each path's
+    launch counts."""
+    import gc
+
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        MeshConfig,
+        make_mesh,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _timed("parallel II pipeline", _pipeline_full_width)
+    _timed("parallel II expert split", _ep_full_width)
+    mesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=1, sp=1, ep=1, pp=1),
+                     device=DEV)
+    counts.update(_timed("parallel II world-1 mesh paths", _world1_paths,
+                         mesh))
+    return counts
+
+
+def _pipe_loss(cfg, params, tokens, mask, drop=None):
+    """``next_token_loss`` with the layer stack run as PIPE_STAGES
+    pipeline stages over PIPE_MICRO microbatches in this process
+    (``pipeline_local``); ``drop`` zeroes that microbatch's input (a
+    schedule that loses it: the control)."""
+    import functools
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        pipeline,
+    )
+
+    cdt = llama.dtype_of(cfg.dtype)
+    x = llama.embed(cfg, params, tokens)
+    cos, sin = llama.rope_table(tokens.shape[1], cfg.head_dim,
+                                cfg.rope_theta, scaling=cfg.rope_scaling(),
+                                device=x.device)
+    if drop is not None:
+        mb = x.shape[0] // PIPE_MICRO
+        x = torch.cat([x[:drop * mb], torch.zeros_like(x[:mb]),
+                       x[(drop + 1) * mb:]])
+    layer = llama._remat(cfg, functools.partial(llama._layer, cfg))
+    y, _ = pipeline.pipeline_local(layer, params["layers"], x, (cos, sin),
+                                   n_stages=PIPE_STAGES, n_micro=PIPE_MICRO)
+    y = llama.rms_norm(y, params["final_norm"].to(cdt), cfg.norm_eps)
+    from service_account_auth_improvements_tpu_torch.parallel.sharding import (  # noqa: E501
+        NO_REGION,
+    )
+    _, targets, m, count = llama.next_token_targets(cfg, NO_REGION, tokens,
+                                                     mask)
+    nll = llama._chunked_nll(cfg, y[:, :-1], params["lm_head"].to(cdt),
+                             targets)
+    return (nll * m).sum() / count.clamp_min(1.0)
+
+
+def _pipe_run(cfg, state0, tokens, mask, piped: bool):
+    """PIPE_STEPS steps from a copy of ``state0``, pipelined or plain:
+    (losses, launches per step, step ms, peak GiB above what the run
+    found allocated, the host's ms to issue a step: near the step's own
+    when the host is what bounds it)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        value_and_grad,
+    )
+
+    def copy(tree):
+        return step_mod._map(lambda t: t.clone(), tree)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    opt = state0.opt_state
+    state = step_mod.TrainState(0, copy(state0.params), step_mod.AdamState(
+        0, copy(opt.mu), copy(opt.nu)))
+    optimizer = step_mod.make_optimizer()
+    plain = step_mod.make_train_step(cfg, optimizer)
+
+    def piped_step(state, tokens, mask):
+        loss, grads = value_and_grad(
+            lambda p: _pipe_loss(cfg, p, tokens, mask), state.params)
+        gnorm = step_mod.global_norm(grads)
+        params, opt_state = optimizer.apply(grads, state.opt_state,
+                                            state.params, gnorm)
+        return step_mod.TrainState(state.step + 1, params, opt_state), loss
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses, per_step = [], []
+    for i in range(PIPE_STEPS):
+        if i == 1:  # the first step is the warm-up
+            start.record()
+            t_host = time.perf_counter()
+        _zero(fa)
+        if piped:
+            state, loss = piped_step(state, tokens, mask)
+        else:
+            state, m = plain(state, tokens, mask)
+            loss = m["loss"]
+        per_step.append(tuple(_counts(fa).values()))
+        losses.append(loss)
+    end.record()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / (PIPE_STEPS - 1)
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (PIPE_STEPS - 1)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    return [float(v) for v in losses], per_step, step_ms, peak, host_ms
+
+
+def _pipeline_full_width() -> dict:
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        value_and_grad,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    L, M, P = cfg.n_layers, PIPE_MICRO, PIPE_STAGES
+    state0 = step_mod.init_train_state(
+        cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=DEV)
+    mask = torch.ones_like(tokens)
+    plain = _pipe_run(cfg, state0, tokens, mask, piped=False)
+    piped = _pipe_run(cfg, state0, tokens, mask, piped=True)
+    _log(f"parallel II pipeline: {PRESET} at b {TRAIN_BATCH} x {TRAIN_SEQ} "
+         f"as {P} stages of {L // P} layers, {M} microbatches of "
+         f"{TRAIN_BATCH // M} (every stage in this process, bf16 compute, "
+         f"f32 master): step {piped[2]:.2f} ms against the plain step's "
+         f"{plain[2]:.2f} ms (CUDA events, mean of {PIPE_STEPS - 1} after a "
+         f"warm-up), peak {piped[3]:.2f} GiB against {plain[3]:.2f} GiB "
+         f"above the state, the host's issue {piped[4]:.2f} ms per step "
+         f"against {plain[4]:.2f} ms (host clock, no sync inside); "
+         f"launches per step (K1, K2, K3) {piped[1]}; "
+         f"losses {[round(x, 6) for x in piped[0]]} against "
+         f"{[round(x, 6) for x in plain[0]]}")
+    want = (2 * M * L, M * L, M * L)
+    if any(c != want for c in piped[1]):
+        raise AssertionError(f"pipeline: launches per step {piped[1]}, "
+                             f"expected {want}")
+    tol = GRAD_TOL["bf16"]
+    if (not np.isfinite(piped[0]).all()
+            or max(abs(a - b) for a, b in zip(piped[0], plain[0]))
+            > tol["loss"]):
+        raise AssertionError("pipelined and plain bf16 steps disagree")
+    counts = {"parallel II pipeline": dict(zip(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+        map(sum, zip(*piped[1]))))}
+    del plain, piped
+    torch.cuda.empty_cache()
+    # step 1's gradients from the same params, f32 compute
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = state0.params
+
+    def grads(fn):
+        loss, g = value_and_grad(fn, params)
+        return float(loss), dict(leaves(g))
+
+    def leaf_diff(got, ref):
+        return max(float((got[k] - ref[k]).abs().max()
+                         / ref[k].abs().max().clamp_min(1e-30))
+                   for k in ref)
+
+    l_plain, g_plain = grads(lambda p: llama.next_token_loss(
+        c32, p, tokens, mask))
+    l_pipe, g_pipe = grads(lambda p: _pipe_loss(c32, p, tokens, mask))
+    sound = leaf_diff(g_pipe, g_plain)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_pipe.values())
+    del g_pipe
+    l_ctrl, g_ctrl = grads(lambda p: _pipe_loss(c32, p, tokens, mask,
+                                                drop=PIPE_CONTROL_DROP))
+    control = leaf_diff(g_ctrl, g_plain)
+    del g_ctrl, g_plain, state0, params
+    torch.cuda.empty_cache()
+    _log(f"parallel II pipeline vs plain step 1 ({PRESET}, b {TRAIN_BATCH} "
+         f"x {TRAIN_SEQ}, f32 compute, same params): loss {l_pipe:.6f} vs "
+         f"{l_plain:.6f} (limit {PIPE_LOSS_TOL}), largest per-leaf grad "
+         f"difference {sound:.3e} of the leaf's max (limit "
+         f"{GRAD_TOL['f32']['leaf']}); control (microbatch "
+         f"{PIPE_CONTROL_DROP}'s input lost): loss {l_ctrl:.6f}, per-leaf "
+         f"difference {control:.3e}")
+    if not (finite and abs(l_pipe - l_plain) <= PIPE_LOSS_TOL
+            and sound <= GRAD_TOL["f32"]["leaf"]):
+        raise AssertionError("pipelined and plain step 1 gradients differ "
+                             "beyond the f32 tolerances")
+    if control <= GRAD_TOL["f32"]["leaf"]:
+        raise AssertionError("the pipeline's gradient limit does not "
+                             "reject the control schedule")
+    return counts
+
+
+def _ep_full_width() -> None:
+    """One MoE layer's FFN at MOE_PRESET's training shape, f32: the sum of
+    every ep rank's share against the plain FFN, for each of EP_SIZES,
+    timed beside it."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+
+    cfg = dataclasses.replace(llama.PRESETS[MOE_PRESET], dtype="float32")
+    E, d, m = cfg.moe_experts, cfg.dim, cfg.mlp_dim
+    gen = torch.Generator(device=DEV).manual_seed(11)
+
+    def normal(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    lp = {"router": normal(d, E), "moe_gate": normal(E, d, m),
+          "moe_up": normal(E, d, m),
+          "moe_down": normal(E, m, d, std=0.02 / (2 * cfg.n_layers) ** 0.5)}
+    h = normal(TRAIN_BATCH, TRAIN_SEQ, d, std=1.0)
+    with torch.no_grad():
+        routes = []
+        want, want_aux = llama._moe_ffn(cfg, h, lp, routes=routes)
+        plain_ms = _time_ms(lambda: llama._moe_ffn(cfg, h, lp), iters=5,
+                            warmup=1)
+        for n in EP_SIZES:
+            total = torch.zeros_like(want)
+            shares = []
+            for r in range(n):
+                region = sharding.expert_share(n, r)
+                e0, e1 = region.expert_range(E)
+                share = {k: (v[e0:e1] if k.startswith("moe_") else v)
+                         for k, v in lp.items()}
+                got_routes = []
+                out, aux = llama._moe_ffn(cfg, h, share, region=region,
+                                          routes=got_routes)
+                if not torch.equal(got_routes[0], routes[0]):
+                    raise AssertionError(f"ep {n} rank {r}: routing differs")
+                if float(aux) != float(want_aux):
+                    raise AssertionError(f"ep {n} rank {r}: aux differs")
+                total += out
+                shares.append((region, share))
+            err = _check(f"ep {n} combine", total, want, EP_ATOL, 0.0)
+            region, share = shares[0]
+            share_ms = _time_ms(lambda: llama._moe_ffn(cfg, h, share,
+                                                       region=region),
+                                iters=5, warmup=1)
+            _log(f"parallel II ep {n} ({MOE_PRESET} MoE FFN, b "
+                 f"{TRAIN_BATCH} x {TRAIN_SEQ}, {E} experts, {E // n} per "
+                 f"rank, f32): routing equal on every rank, aux "
+                 f"{float(want_aux):.6f} on every rank, summed output max "
+                 f"abs err {err:.3e} (atol {EP_ATOL}); one rank's share "
+                 f"{share_ms:.2f} ms against the whole FFN's "
+                 f"{plain_ms:.2f} ms (CUDA events)")
+    del h, want, lp
+    torch.cuda.empty_cache()
+
+
+def _world1_paths(mesh) -> dict:
+    """The world-1 NCCL mesh's MoE train step, sharded serving, LoRA step
+    and ResNet-50 step, each bit for bit (or token for token) its plain
+    path's. Returns each mesh path's launch counts."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    counts = {}
+    for name, fn in (("moe", _world1_moe), ("serving", _world1_serving),
+                     ("lora", _world1_lora), ("resnet50", _world1_resnet)):
+        got = fn(mesh, fa)
+        if got is not None:
+            counts[f"parallel II mesh {name}"] = got
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _same_trees(name, a, b) -> None:
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+    )
+
+    for (n, x), (_, y) in zip(leaves(a), leaves(b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: {n} differs between the world-1 "
+                                 "mesh and the plain path")
+
+
+def _world1_moe(mesh, fa) -> dict:
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    cfg = llama.PRESETS[MOE_PRESET]
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=DEV)
+    mask = torch.ones_like(tokens)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        state = step_mod.init_train_state(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        if m is not None:
+            state = step_mod.shard_state(m, cfg, state)
+        fn = step_mod.make_train_step(cfg, mesh=m)
+        _zero(fa)
+        losses = []
+        for _ in range(WORLD1_STEPS):
+            state, met = fn(state, tokens, mask)
+            losses.append(float(met["loss"]))
+        runs[name] = (losses, _counts(fa), step_mod._map(
+            sharding.full_tensor, state.params))
+        del state
+    if runs["plain"][0] != runs["mesh"][0]:
+        raise AssertionError(f"moe mesh: losses {runs['mesh'][0]} against "
+                             f"{runs['plain'][0]}")
+    _same_trees("moe mesh params", runs["mesh"][2], runs["plain"][2])
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * WORLD1_STEPS,
+            "flash_bwd_dq": L * WORLD1_STEPS,
+            "flash_bwd_dkv": L * WORLD1_STEPS}
+    if runs["mesh"][1] != want:
+        raise AssertionError(f"moe mesh launches {runs['mesh'][1]}")
+    _log(f"parallel II world-1 mesh {MOE_PRESET} train step = plain bit for "
+         f"bit over {WORLD1_STEPS} steps (losses {runs['mesh'][0]}, every "
+         f"param); launches {runs['mesh'][1]}")
+    return runs["mesh"][1]
+
+
+def _world1_serving(mesh, fa) -> dict:
+    from service_account_auth_improvements_tpu_torch.models import (
+        llama,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    params = llama.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    gen = np.random.default_rng(5)
+    body = {"prompt_ids": gen.integers(0, cfg.vocab_size,
+                                       (BATCH, PROMPT)).tolist(),
+            "max_new_tokens": WORLD1_NEW}
+    one = {"prompt_ids": body["prompt_ids"][0],
+           "max_new_tokens": WORLD1_NEW, "stream": True}
+    got, total = {}, None
+    for window in (0, serving.DEFAULT_PREFILL_WINDOW):
+        for name, m in (("plain", None), ("mesh", mesh)):
+            p = (params if m is None else sharding.tree_distribute(
+                params, m, llama.logical_axes(cfg)))
+            svc = serving.GenerationService(cfg, p, max_new_cap=64,
+                                            prefill_window=window,
+                                            device=DEV, mesh=m)
+            _zero(fa)
+            ids = svc.complete(dict(body))["completion_ids"]
+            stream = sum((c[0] for c in svc.stream_events(dict(one))), [])
+            got[(window, name)] = (ids, stream, _counts(fa))
+            if m is not None:
+                svc.stop()
+                if window == 0:
+                    total = _counts(fa)
+        if got[(window, "plain")][:2] != got[(window, "mesh")][:2]:
+            raise AssertionError(f"serving mesh (window {window}): tokens "
+                                 "differ from the plain service")
+    if total["flash_fwd"] != 2 * cfg.n_layers:
+        raise AssertionError(f"serving mesh launches {total}")
+    _log(f"parallel II world-1 mesh GenerationService ({PRESET}, {BATCH} x "
+         f"{PROMPT} one-shot and 1 x {PROMPT} streamed, {WORLD1_NEW} new "
+         "tokens, greedy) = plain service token for token, per-length and "
+         f"windowed prefill; per-length launches {total}, windowed "
+         f"{got[(serving.DEFAULT_PREFILL_WINDOW, 'mesh')][2]}")
+    return total
+
+
+def _world1_lora(mesh, fa) -> dict:
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        lora,
+        step as step_mod,
+    )
+
+    cfg = llama.PRESETS[PRESET]
+    lcfg = lora.LoraConfig()
+    base = llama.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                      device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=DEV)
+    mask = torch.ones_like(tokens)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        state = lora.init_lora_state(
+            cfg, lcfg, torch.Generator(device=DEV).manual_seed(1),
+            device=DEV)
+        b = base
+        if m is not None:
+            state = step_mod.shard_state(
+                m, cfg, state, axes_tree=lora.lora_logical_axes(cfg, lcfg))
+            b = sharding.tree_distribute(base, m, llama.logical_axes(cfg))
+        fn = lora.make_lora_train_step(cfg, lcfg, mesh=m)
+        _zero(fa)
+        losses = []
+        for _ in range(WORLD1_STEPS):
+            state, met = fn(state, b, tokens, mask)
+            losses.append(float(met["loss"]))
+        runs[name] = (losses, _counts(fa), step_mod._map(
+            sharding.full_tensor, state.params))
+        del state, b
+    if runs["plain"][0] != runs["mesh"][0]:
+        raise AssertionError(f"lora mesh: losses {runs['mesh'][0]} against "
+                             f"{runs['plain'][0]}")
+    _same_trees("lora mesh adapters", runs["mesh"][2], runs["plain"][2])
+    _log(f"parallel II world-1 mesh LoRA step ({PRESET} base, b "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ}, rank 8 on wq wk wv wo) = plain bit "
+         f"for bit over {WORLD1_STEPS} steps (losses {runs['mesh'][0]}, "
+         f"every adapter); launches {runs['mesh'][1]}")
+    return runs["mesh"][1]
+
+
+def _world1_resnet(mesh, fa) -> None:
+    from service_account_auth_improvements_tpu_torch.models import resnet
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        tree_map,
+    )
+
+    cfg = resnet.PRESETS["resnet50"]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params0, stats0 = resnet.init(cfg, gen, device=DEV)
+    x = torch.randn((RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3),
+                    generator=gen, device=DEV).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.num_classes, (RESNET_BATCH,),
+                           generator=gen, device=DEV)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        step = resnet.make_train_step(cfg, lr=RESNET_LR, mesh=m)
+        params, stats = tree_map(torch.clone, params0), tree_map(
+            torch.clone, stats0)
+        mom = tree_map(torch.zeros_like, params)
+        losses = []
+        for _ in range(WORLD1_STEPS):
+            params, stats, mom, loss = step(params, stats, mom, x, labels)
+            losses.append(float(loss))
+        runs[name] = (losses, params, stats, mom)
+    for i, part in enumerate(("params", "stats", "momentum"), start=1):
+        _same_trees(f"resnet50 mesh {part}", runs["mesh"][i],
+                    runs["plain"][i])
+    if runs["plain"][0] != runs["mesh"][0]:
+        raise AssertionError("resnet50 mesh: losses differ")
+    _log(f"parallel II world-1 mesh ResNet-50 step (b {RESNET_BATCH} x "
+         f"{RESNET_SIZE}², bf16) = plain bit for bit over {WORLD1_STEPS} "
+         f"steps (losses {runs['mesh'][0]}, params, running stats, "
+         "momentum)")
+    return None
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3040,6 +3578,7 @@ def main() -> int:
     finetune = phase_finetune()
     phase_side_models()
     parallel = phase_parallel()
+    parallel.update(phase_parallel2())
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():

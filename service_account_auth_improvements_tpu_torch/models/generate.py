@@ -16,6 +16,14 @@ attention when ``cfg.attn_impl == "flash"``: the Hopper kernel on the card.
 
 Sampling draws from a ``torch.Generator`` (in place of ``jax.random``
 keys): the same filters as the reference, other draws.
+
+Under a tp/fsdp mesh (``parallel.use_mesh``, as ``models/serving.py``'s
+``GenerationService(mesh=)`` enters it) every function here runs in the
+mesh's region, each rank on the whole batch: the weights are gathered
+over fsdp at use, each tp rank holds its kv heads of the cache and its
+heads, mlp and vocabulary shards, the row-parallel products are summed
+over tp and the logits gathered over it, so every rank samples the same
+tokens from the same generator seed.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ from service_account_auth_improvements_tpu_torch.ops.norms import rms_norm
 from service_account_auth_improvements_tpu_torch.ops.rotary import (
     apply_rope,
     rope_table,
+)
+from service_account_auth_improvements_tpu_torch.parallel.sharding import (
+    NO_REGION,
+    local_region,
 )
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
@@ -65,6 +77,11 @@ def _on_device(params, tokens, device):
     return torch.as_tensor(tokens, dtype=torch.long, device=pdev)
 
 
+def _kv_heads(cfg, region) -> int:
+    """The kv heads a rank holds (its tp share)."""
+    return cfg.n_kv_heads // region.sizes["tp"]
+
+
 def _rope(cfg, length: int, device):
     return rope_table(length, cfg.head_dim, cfg.rope_theta,
                       scaling=cfg.rope_scaling(), device=device)
@@ -82,19 +99,23 @@ def prefill(cfg: llama.LlamaConfig, params, tokens, max_len: int,
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
     cdt = llama.dtype_of(cfg.dtype)
+    region = local_region()
     x, _, layer_inputs = llama._backbone(cfg, params, tokens,
                                          return_layer_inputs=True)
     # every layer's k/v from the saved layer inputs, one batched product
-    lp = params["layers"]
+    axes = llama.logical_axes(cfg)["layers"]
+    lp = {n: region.param(params["layers"][n], axes[n])
+          for n in ("attn_norm", "wk", "wv")}
     h = rms_norm(layer_inputs, lp["attn_norm"].to(cdt)[:, None, None],
                  cfg.norm_eps)
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    kvh = _kv_heads(cfg, region)
+    shape = (cfg.n_layers, b, s, kvh, cfg.head_dim)
     k = torch.einsum("lbsd,ldk->lbsk", h, lp["wk"].to(cdt)).reshape(shape)
     v = torch.einsum("lbsd,ldk->lbsk", h, lp["wv"].to(cdt)).reshape(shape)
     cos, sin = _rope(cfg, s, x.device)
     k = apply_rope(k, cos, sin)  # broadcasts over the leading layer axis
 
-    full = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    full = (cfg.n_layers, b, max_len, kvh, cfg.head_dim)
     ck = torch.zeros(full, dtype=cdt, device=x.device)
     cv = torch.zeros(full, dtype=cdt, device=x.device)
     ck[:, :, :s] = k
@@ -102,25 +123,34 @@ def prefill(cfg: llama.LlamaConfig, params, tokens, max_len: int,
     return KVCache(ck, cv, s), llama.lm_logits(cfg, params, x[:, -1])
 
 
-def _extend_layer(cfg, x, lp, ck, cv, pos0: int, cos_w, sin_w):
+def _extend_layer(cfg, x, lp, ck, cv, pos0: int, cos_w, sin_w,
+                  region=NO_REGION):
     """One layer over an m-token window at positions pos0..pos0+m-1;
     ck/cv [b, max_len, kvh, hd] are written in place. Causal within the
-    window, full visibility of the cache. Returns x."""
+    window, full visibility of the cache. Returns x. In a mesh's region
+    ``lp`` holds the layer's local blocks and the heads are the rank's
+    tp share."""
     b, m, _ = x.shape
     cdt = llama.dtype_of(cfg.dtype)
     max_len = ck.shape[1]
+    if region is not NO_REGION:
+        axes = llama.logical_axes(cfg)["layers"]
+        lp = {n: region.param(t, axes[n][1:],
+                              experts_local=n.startswith("moe_"))
+              for n, t in lp.items()}
+    kvh = ck.shape[2]
 
     h = rms_norm(x, lp["attn_norm"].to(cdt), cfg.norm_eps)
-    q = (h @ lp["wq"].to(cdt)).reshape(b, m, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"].to(cdt)).reshape(b, m, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"].to(cdt)).reshape(b, m, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ lp["wq"].to(cdt)).reshape(b, m, -1, cfg.head_dim)
+    k = (h @ lp["wk"].to(cdt)).reshape(b, m, kvh, cfg.head_dim)
+    v = (h @ lp["wv"].to(cdt)).reshape(b, m, kvh, cfg.head_dim)
     q = apply_rope(q, cos_w, sin_w)
     k = apply_rope(k, cos_w, sin_w)
     ck[:, pos0:pos0 + m] = k
     cv[:, pos0:pos0 + m] = v
 
     g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, m, cfg.n_kv_heads, g, cfg.head_dim)
+    qg = q.reshape(b, m, kvh, g, cfg.head_dim)
     # f32 scores from compute-dtype operands (preferred_element_type)
     scores = torch.einsum("bmkgd,bskd->bkgms", qg.float(), ck.float())
     scores = scores * (cfg.head_dim ** -0.5)     # [b, kvh, g, m, max_len]
@@ -130,15 +160,15 @@ def _extend_layer(cfg, x, lp, ck, cv, pos0: int, cos_w, sin_w):
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(cdt)
     attn = torch.einsum("bkgms,bskd->bmkgd", probs, cv)
-    x = x + attn.reshape(b, m, cfg.q_dim) @ lp["wo"].to(cdt)
+    x = x + region.tp_sum(attn.reshape(b, m, -1) @ lp["wo"].to(cdt))
 
     h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
     if cfg.moe_experts:
-        ff, _ = llama._moe_ffn(cfg, h, lp)
+        ff, _ = llama._moe_ffn(cfg, h, lp, region=region)
         return x + ff
     gate = torch.nn.functional.silu(h @ lp["w_gate"].to(cdt))
     up = h @ lp["w_up"].to(cdt)
-    return x + (gate * up) @ lp["w_down"].to(cdt)
+    return x + region.tp_sum((gate * up) @ lp["w_down"].to(cdt))
 
 
 @torch.inference_mode()
@@ -153,12 +183,15 @@ def extend_cache(cfg, params, cache: KVCache, tokens, cos, sin):
     if pos0 + m > cache.k.shape[2]:
         raise ValueError(f"window of {m} at {pos0} overflows the cache "
                          f"({cache.k.shape[2]})")
-    x = llama.embed(cfg, params, tokens)
+    region = local_region()
+    x = llama.embed(cfg, params, tokens, region)
     cos_w, sin_w = cos[pos0:pos0 + m], sin[pos0:pos0 + m]
     for i in range(cfg.n_layers):
         x = _extend_layer(cfg, x, llama.layer_params(params, i),
-                          cache.k[i], cache.v[i], pos0, cos_w, sin_w)
-    x = rms_norm(x, params["final_norm"].to(cdt), cfg.norm_eps)
+                          cache.k[i], cache.v[i], pos0, cos_w, sin_w,
+                          region)
+    x = rms_norm(x, region.param(params["final_norm"], ("norm",)).to(cdt),
+                 cfg.norm_eps)
     return (KVCache(cache.k, cache.v, pos0 + m),
             llama.lm_logits(cfg, params, x))
 
@@ -285,7 +318,8 @@ def prefill_chunked(cfg: llama.LlamaConfig, params, prompt, max_len: int,
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
     cdt = llama.dtype_of(cfg.dtype)
     alloc = -(-max_len // window) * window
-    full = (cfg.n_layers, b, alloc, cfg.n_kv_heads, cfg.head_dim)
+    full = (cfg.n_layers, b, alloc, _kv_heads(cfg, local_region()),
+            cfg.head_dim)
     cache = KVCache(torch.zeros(full, dtype=cdt, device=prompt.device),
                     torch.zeros(full, dtype=cdt, device=prompt.device), 0)
     cos, sin = _rope(cfg, alloc, prompt.device)

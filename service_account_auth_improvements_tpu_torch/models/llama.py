@@ -18,11 +18,13 @@ LocalRegion`` gathers each weight over its data axes where it is used
 does), wraps the tensor-parallel products in Megatron's ``f``/``g``
 where the reference's ``shard_constraint`` calls let XLA insert them,
 splits the sequence over ``sp`` (rope at global positions) and runs ring
-or Ulysses attention over it. The region is bound when the forward
-starts, so a recompute on autograd's device thread uses the same groups.
-Without a mesh the region is the identity and the arithmetic is the plain
-path's, op for op. Pipeline (pp > 1) and expert (ep > 1) parallelism
-raise (ROADMAP queue 1, item 8).
+or Ulysses attention over it, keeps the vocabulary split over tp (a masked
+embedding lookup summed over tp, vocab-parallel logits and loss), runs
+each rank's range of experts over ``ep`` and the stacked layers as a GPipe
+pipeline over ``pp`` (``parallel/pipeline.py``). The region is bound when
+the forward starts, so a recompute on autograd's device thread uses the
+same groups. Without a mesh the region is the identity and the arithmetic
+is the plain path's, op for op.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -46,6 +49,12 @@ from service_account_auth_improvements_tpu_torch.ops.rotary import (
     apply_rope,
     rope_table,
 )
+from service_account_auth_improvements_tpu_torch.parallel import (
+    collectives as cc,
+)
+from service_account_auth_improvements_tpu_torch.parallel.pipeline import (
+    pipeline_slab,
+)
 from service_account_auth_improvements_tpu_torch.parallel.sharding import (
     NO_REGION,
     local_region,
@@ -57,13 +66,13 @@ from service_account_auth_improvements_tpu_torch.utils.device import (
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """Field for field the reference's ``LlamaConfig``; the fields for
-    features the port does not run yet (scan, iota embedding,
-    pipelining) are kept so presets and ``param_count``/
-    ``flops_per_token`` stay identical. ``scan_layers`` and
-    ``iota_embed`` change nothing here: the layers are a Python loop
+    """Field for field the reference's ``LlamaConfig``, so presets and
+    ``param_count``/``flops_per_token`` stay identical. ``scan_layers``
+    and ``iota_embed`` change nothing here: the layers are a Python loop
     either way, and the reference's one-hot embedding is bit-identical
-    to the gather."""
+    to the gather (on a tp mesh the vocab-parallel lookup is its
+    counterpart). ``pp_microbatches`` is the pipeline's microbatch count
+    on a pp > 1 mesh (0: ``parallel.pipeline.default_microbatches``)."""
     vocab_size: int = 128_256
     dim: int = 4096
     n_layers: int = 32
@@ -315,16 +324,34 @@ def layer_params(params, i: int) -> dict:
     return {name: leaf[i] for name, leaf in params["layers"].items()}
 
 
+def _vocab_split(region) -> bool:
+    """Whether the vocabulary is split over more than one tp rank."""
+    return cc.size(region.vocab) > 1
+
+
 def embed(cfg: LlamaConfig, params, tokens, region=NO_REGION):
     """Token embedding in the compute dtype. Out-of-range ids clamp, as
     the reference's ``mode="clip"`` gather does (its ``iota_embed``
-    one-hot path is bit-identical to this gather)."""
+    one-hot path is bit-identical to this gather). With the vocabulary
+    split over tp (Megatron's VocabParallelEmbedding, the reference's
+    one-hot contraction over its vocab shards) each rank looks up the
+    ids in its shard, zero for the others, and the rows are summed over
+    tp: one rank holds each, so the sum is the row exactly."""
     ids = tokens.clamp(0, cfg.vocab_size - 1)
     table = region.param(params["tok_embed"], ("vocab", "embed"))
-    return table[ids].to(dtype_of(cfg.dtype))
+    if not _vocab_split(region):
+        return table[ids].to(dtype_of(cfg.dtype))
+    v = table.shape[0]
+    local = ids - region.vocab_rank * v
+    hit = (local >= 0) & (local < v)
+    rows = torch.where(hit[..., None], table[local.clamp(0, v - 1)],
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+    return cc.sum_forward(rows, region.vocab).to(dtype_of(cfg.dtype))
 
 
-def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION):
+def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION,
+             routes: list | None = None):
     """Top-k MoE FFN: h [b, s, d] → (out [b, s, d], aux f32 scalar). k=1
     is switch semantics (the gate is the raw router probability); k > 1
     is Mixtral semantics (gates renormalised over the selected experts).
@@ -348,7 +375,14 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION):
     k is a stable descending sort: ``jax.lax.top_k`` puts the lower
     expert first among equal probabilities and ``torch.topk`` does not.
     On a mesh the expert products are column/row parallel over tp (the
-    reference's "mlp" constraint on ``act``)."""
+    reference's "mlp" constraint on ``act``). Over ep every rank sees the
+    same tokens (the batch is not split over ep) and routes them over all
+    E experts, then dispatches into and runs only its own range of them
+    (``lp``'s expert leaves are that range): the combine's sum over
+    experts becomes partial sums added over ep (Megatron's ``g``), and
+    the routed input and the gates take ``f``, so every ep rank's
+    gradient of them, and of the router, is the whole one. ``routes``,
+    a list, receives the [G, g, K] expert choices."""
     b, s, d = h.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     g = min(cfg.moe_group_size, s)
@@ -368,6 +402,8 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION):
     probs = torch.softmax(logits, dim=-1)
     idx = torch.sort(probs, dim=-1, descending=True,
                      stable=True).indices[..., :K]        # [G, g, K]
+    if routes is not None:
+        routes.append(idx)
     gate = probs.gather(-1, idx)
     if K > 1:
         gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -392,15 +428,20 @@ def _moe_ffn(cfg: LlamaConfig, h, lp, token_mask=None, region=NO_REGION):
              == torch.arange(cap, device=h.device)).to(f32)  # [G, g, K, C]
     disp = torch.einsum("gske,gskc->gsec", sel, posoh)   # [G, g, E, C]
 
+    gate_sel = sel * gate[..., None]
+    if region.sizes["ep"] > 1:
+        e0, e1 = region.expert_range(E)
+        disp, gate_sel = disp[:, :, e0:e1], region.ep_copy(gate_sel)[
+            ..., e0:e1]
+        hg = region.ep_copy(hg)
     xin = region.tp_copy(torch.einsum("gsec,gsd->gecd", disp.to(cdt), hg))
     act = (F.silu(torch.einsum("gecd,edm->gecm", xin,
                                lp["moe_gate"].to(cdt)))
            * torch.einsum("gecd,edm->gecm", xin, lp["moe_up"].to(cdt)))
     xout = region.tp_sum(torch.einsum("gecm,emd->gecd", act,
                                       lp["moe_down"].to(cdt)))
-    combine = torch.einsum("gske,gskc->gsec", sel * gate[..., None],
-                           posoh).to(cdt)
-    out = torch.einsum("gsec,gecd->gsd", combine, xout)
+    combine = torch.einsum("gske,gskc->gsec", gate_sel, posoh).to(cdt)
+    out = region.ep_sum(torch.einsum("gsec,gecd->gsd", combine, xout))
     return out.reshape(b, s, d), aux
 
 
@@ -416,7 +457,9 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
     cdt = dtype_of(cfg.dtype)
     if region is not NO_REGION:
         axes = logical_axes(cfg)["layers"]
-        lp = {n: region.param(t, axes[n][1:]) for n, t in lp.items()}
+        lp = {n: region.param(t, axes[n][1:],
+                              experts_local=n.startswith("moe_"))
+              for n, t in lp.items()}
 
     h = rms_norm(x, lp["attn_norm"].to(cdt), cfg.norm_eps)
     hp = region.tp_copy(h)
@@ -429,8 +472,18 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, token_mask=None,
 
     h = rms_norm(x, lp["mlp_norm"].to(cdt), cfg.norm_eps)
     if cfg.moe_experts:
-        ff, aux = _moe_ffn(cfg, h, lp, token_mask, region=region)
-        return x + ff, aux
+        if region.sizes["sp"] == 1:
+            ff, aux = _moe_ffn(cfg, h, lp, token_mask, region=region)
+            return x + ff, aux
+        # routing groups and capacity span the whole sequence: every sp
+        # rank routes all of it (gathered) and keeps its chunk of the
+        # output; the aux is the whole sequence's on each (next_token_loss
+        # counts it once)
+        whole = cc.all_gather(h, 1, region.sp)
+        mask = (None if token_mask is None
+                else cc.all_gather(token_mask, 1, region.sp))
+        ff, aux = _moe_ffn(cfg, whole, lp, mask, region=region)
+        return x + region.seq_chunk(ff), aux
     hp = region.tp_copy(h)
     gate = F.silu(hp @ lp["w_gate"].to(cdt))
     up = hp @ lp["w_up"].to(cdt)
@@ -499,18 +552,35 @@ def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
                           scaling=cfg.rope_scaling(), device=x.device)
     cos, sin = region.seq_chunk(cos, 0), region.seq_chunk(sin, 0)
     layer_fn = _remat(cfg, functools.partial(_layer, cfg, region=region))
-    # unbind, not per-layer indexing: the backward of unbind stacks the
-    # layers' gradients once, where L index views would each build a
-    # zero-filled gradient of the whole stacked leaf and sum L of them
     names = list(params["layers"])
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
     inputs, auxes = [], []
-    for leaves in per_layer:
-        if return_layer_inputs:
-            inputs.append(x)
-        x, aux = layer_fn(x, dict(zip(names, leaves)), cos, sin,
-                          token_mask, segment_ids)
+    if region.sizes["pp"] > 1:
+        # the stage's slab of the stacked layers (rule "layers": "pp"):
+        # the microbatched GPipe schedule; the token mask and segment ids
+        # follow their microbatch, a None before a given one held by the
+        # identity (all-ones) mask
+        tail = [token_mask, segment_ids]
+        while tail and tail[-1] is None:
+            tail.pop()
+        batched = tuple(torch.ones(x.shape[:2], dtype=torch.int32,
+                                   device=x.device) if t is None else t
+                        for t in tail)
+        x, aux = pipeline_slab(layer_fn, params["layers"], x, (cos, sin),
+                               batched, n_micro=cfg.pp_microbatches,
+                               n_layers=cfg.n_layers, region=region)
         auxes.append(aux)
+    else:
+        # unbind, not per-layer indexing: the backward of unbind stacks
+        # the layers' gradients once, where L index views would each
+        # build a zero-filled gradient of the whole stacked leaf and sum
+        # L of them
+        per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+        for leaves in per_layer:
+            if return_layer_inputs:
+                inputs.append(x)
+            x, aux = layer_fn(x, dict(zip(names, leaves)), cos, sin,
+                              token_mask, segment_ids)
+            auxes.append(aux)
     x = rms_norm(x, region.param(params["final_norm"], ("norm",)).to(cdt),
                  cfg.norm_eps)
     aux = torch.stack(auxes).sum() if cfg.moe_experts else None
@@ -521,29 +591,32 @@ def _backbone(cfg: LlamaConfig, params, tokens, token_mask=None,
 
 def _check_region(cfg: LlamaConfig, region, return_layer_inputs: bool,
                   segment_ids) -> None:
-    """What the model cannot run on this mesh yet raises, naming why."""
+    """What the model does not run on this mesh raises, naming why."""
     sp = region.sizes["sp"]
-    if return_layer_inputs:
-        raise NotImplementedError(
-            "KV-cache prefill on a mesh (sharded serving) is not ported yet "
-            "(ROADMAP queue 1, item 8: serving's --tp/--fsdp)")
+    if return_layer_inputs and region.sizes["pp"] > 1:
+        # the reference's error
+        raise ValueError(
+            "KV-cache prefill (return_layer_inputs) is not supported "
+            "under pipeline parallelism; run generation on a pp=1 mesh")
+    if return_layer_inputs and sp > 1:
+        raise ValueError("KV-cache prefill needs the whole prompt on a "
+                         "rank; serve on an sp=1 (tp/fsdp) mesh")
     if sp > 1 and segment_ids is not None:
         raise ValueError("segment_ids need the whole sequence on a rank; "
                          "train packed windows on an sp=1 mesh")
-    if sp > 1 and cfg.moe_experts:
-        raise NotImplementedError(
-            "mixture-of-experts routing groups span the sequence; MoE on "
-            "an sp > 1 mesh is not ported yet (ROADMAP queue 1, item 8)")
 
 
 def lm_logits(cfg: LlamaConfig, params, x):
     """x [..., dim] compute dtype → f32 logits [..., vocab]. The operands
     are rounded to the compute dtype and multiplied in f32 — the
     reference's ``preferred_element_type=float32``; a bf16 matmul would
-    round the logits to bf16 and flip greedy argmaxes."""
-    head = local_region().param(params["lm_head"], ("embed", "vocab"))
+    round the logits to bf16 and flip greedy argmaxes. With the
+    vocabulary split over tp each rank computes its shard's logits and
+    they are gathered (decoding samples from all of them)."""
+    region = local_region()
+    head = region.param(params["lm_head"], ("embed", "vocab"))
     head = head.to(dtype_of(cfg.dtype)).float()
-    return x.float() @ head
+    return region.vocab_gather(region.vocab_copy(x).float() @ head)
 
 
 def apply(cfg: LlamaConfig, params, tokens, return_aux: bool = False,
@@ -563,7 +636,41 @@ def apply(cfg: LlamaConfig, params, tokens, return_aux: bool = False,
     return logits
 
 
-def _nll(cfg: LlamaConfig, x, lm_head, targets):
+class _VocabParallelNLL(torch.autograd.Function):
+    """logz − target logit from each tp rank's vocab shard of the f32
+    logits (Megatron's vocab-parallel cross-entropy): the row max and the
+    sum of exps all-reduced over tp, the target's logit from the rank
+    that holds it. The backward is softmax − one-hot on the rank's
+    shard."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, v0):
+        v = logits.shape[-1]
+        mx = logits.amax(-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        sum_exp = torch.exp(logits - mx[..., None]).sum(-1)
+        dist.all_reduce(sum_exp, group=group)
+        logz = torch.log(sum_exp) + mx
+        local = targets - v0
+        hit = (local >= 0) & (local < v)
+        local = local.clamp(0, v - 1)
+        target = torch.where(hit, logits.gather(-1, local[..., None])[
+            ..., 0], torch.zeros((), dtype=logits.dtype,
+                                 device=logits.device))
+        dist.all_reduce(target, group=group)
+        ctx.save_for_backward(logits, logz, local, hit)
+        return logz - target
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, local, hit = ctx.saved_tensors
+        grad = torch.exp(logits - logz[..., None])
+        grad.scatter_add_(-1, local[..., None],
+                          -hit.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _nll(cfg: LlamaConfig, x, lm_head, targets, region=NO_REGION):
     """Per-position next-token NLL from hidden states: x [b, t, d] compute
     dtype, lm_head [d, vocab] compute dtype, targets [b, t] (already
     clipped) → nll [b, t] f32.
@@ -572,8 +679,14 @@ def _nll(cfg: LlamaConfig, x, lm_head, targets):
     f32 into f32 logits (``preferred_element_type=float32``). The target
     logit is read with a gather; the reference's one-hot contraction (a
     choice for its vocab-sharded logits) gives the same number exactly,
-    and the gather never builds a [b, t, vocab] one-hot."""
+    and the gather never builds a [b, t, vocab] one-hot. With the
+    vocabulary split over tp, ``lm_head`` is the rank's shard and the
+    logits stay sharded (``_VocabParallelNLL``); ``x`` has taken
+    ``region.vocab_copy``."""
     logits = x.float() @ lm_head.float()
+    if _vocab_split(region):
+        return _VocabParallelNLL.apply(logits, targets, region.vocab,
+                                       region.vocab_rank * logits.shape[-1])
     logz = torch.logsumexp(logits, dim=-1)
     target_logit = logits.gather(-1, targets[..., None])[..., 0]
     return logz - target_logit
@@ -602,14 +715,35 @@ def scan_seq_chunks(fn, c: int, *arrays):
     return torch.cat(outs, dim=1)[:, :t]
 
 
-def _chunked_nll(cfg: LlamaConfig, x, lm_head, targets):
+def _chunked_nll(cfg: LlamaConfig, x, lm_head, targets, region=NO_REGION):
     """``_nll`` computed ``cfg.loss_chunk`` positions at a time — the
     [b, t, vocab] logits never exist (see ``scan_seq_chunks``). Same
     math to the ULP (each position's logsumexp is independent)."""
     c = min(cfg.loss_chunk, x.shape[1])
     return scan_seq_chunks(
-        lambda xc, tc: _nll(cfg, xc, lm_head, tc), c, x, targets
+        lambda xc, tc: _nll(cfg, xc, lm_head, tc, region), c, x, targets
     )
+
+
+def next_token_targets(cfg: LlamaConfig, region, tokens, mask):
+    """What the rank's hidden states predict: (trim, targets, m, count).
+    ``trim``: drop the last hidden position (it has no target); targets
+    clipped like the embedding; ``m`` the f32 target weights (None
+    without a mask) and ``count`` their sum over the rank's rows (None
+    without a mask). Over sp each chunk's last position predicts the
+    next chunk's first token and the whole sequence's last has weight
+    0, so nothing is trimmed."""
+    targets = tokens[:, 1:].clamp(0, cfg.vocab_size - 1)
+    m = None if mask is None else mask[:, 1:].to(torch.float32)
+    if region.sizes["sp"] == 1:
+        return True, targets, m, None if m is None else m.sum()
+    if m is None:
+        m = torch.ones(targets.shape, device=targets.device)
+    m = torch.cat([m, torch.zeros_like(m[:, :1])], dim=1)
+    count = m.sum()
+    return (False, region.seq_chunk(torch.cat([targets, targets[:, :1]],
+                                              dim=1)),
+            region.seq_chunk(m), count)
 
 
 _SAME_AS_MASK = object()
@@ -642,28 +776,16 @@ def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
     region = local_region()
     x, aux = _backbone(cfg, params, tokens, token_mask=token_mask,
                        segment_ids=segment_ids)
-    # clip like the embedding path: an out-of-range target has no logit
-    targets = tokens[:, 1:].clamp(0, cfg.vocab_size - 1)
-    m = None if mask is None else mask[:, 1:].to(torch.float32)
-    if region.sizes["sp"] > 1:
-        # this chunk's positions predict the next ones; the whole
-        # sequence's last position has none (weight 0)
-        if m is None:
-            m = torch.ones(targets.shape, device=targets.device)
-        m = torch.cat([m, torch.zeros_like(m[:, :1])], dim=1)
-        count = m.sum()
-        m = region.seq_chunk(m)
-        targets = region.seq_chunk(
-            torch.cat([targets, targets[:, :1]], dim=1))
-    else:
+    trim, targets, m, count = next_token_targets(cfg, region, tokens, mask)
+    if trim:
         x = x[:, :-1]
-        count = None if m is None else m.sum()
     lm_head = region.param(params["lm_head"], ("embed", "vocab"))
     lm_head = lm_head.to(dtype_of(cfg.dtype))
+    x = region.vocab_copy(x)
     if cfg.loss_chunk:
-        nll = _chunked_nll(cfg, x, lm_head, targets)
+        nll = _chunked_nll(cfg, x, lm_head, targets, region)
     else:
-        nll = _nll(cfg, x, lm_head, targets)
+        nll = _nll(cfg, x, lm_head, targets, region)
     if m is None:
         loss = nll.mean()
         if region.n_batch > 1:
@@ -671,7 +793,10 @@ def next_token_loss(cfg: LlamaConfig, params, tokens, mask=None,
     else:
         loss = (nll * m).sum() / region.batch_sum(count).clamp_min(1.0)
     if cfg.moe_experts and include_aux:
-        if region.n_batch > 1:
-            aux = aux / region.n_batch
+        # each (dp, fsdp) rank's aux is its rows' mean; every sp rank
+        # routed the whole sequence, so holds the same one
+        shares = region.n_batch * region.sizes["sp"]
+        if shares > 1:
+            aux = aux / shares
         loss = loss + cfg.moe_aux_weight * aux
     return region.data_sum(loss)

@@ -3,9 +3,11 @@ that a notebook can train (BASELINE.json configurations #1 and #2).
 
 Pure-functional, as the reference: a dict of params, ``apply``, a loss and
 a plain-SGD step that returns new params. The matmuls run in bf16 (cuBLAS
-on the card; the reference leaves them to XLA, no Pallas kernel). A mesh
-(the batch sharded over ``dp``) is not ported yet and raises (ROADMAP
-queue 1, item 8: the side models' meshes).
+on the card; the reference leaves them to XLA, no Pallas kernel). On a
+mesh (``make_sgd_step(mesh=...)``) the step is data parallel over ``dp``
+with the reference's global-batch semantics: each rank takes its rows,
+its loss is its rows' mean over the dp size, and the gradients are summed
+over dp, so loss and update are the global batch's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from service_account_auth_improvements_tpu_torch.parallel import (
+    collectives as cc,
+)
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    data_parallel_group,
+)
+from service_account_auth_improvements_tpu_torch.parallel.sharding import (
+    to_local,
+)
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -23,10 +34,6 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
     tree_map,
     value_and_grad,
 )
-
-_MESH_TODO = ("a data-parallel MNIST mesh is not ported yet (ROADMAP queue "
-              "1, item 8: the side models' meshes remain)")
-
 
 @dataclasses.dataclass(frozen=True)
 class MnistConfig:
@@ -87,13 +94,23 @@ def accuracy(cfg: MnistConfig, params: dict, x: torch.Tensor,
 def make_sgd_step(cfg: MnistConfig, lr: float = 0.1, mesh=None):
     """``step(params, x, labels) -> (new_params, loss)``: one plain-SGD
     step, ``p - lr·g`` on every leaf (new tensors, as the reference's
-    functional update)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    functional update). With a dp ``mesh`` the params are the same on
+    every rank, ``x``/``labels`` the global batch as a ``DTensor`` split
+    over dp or this rank's rows, and loss and update the global
+    batch's."""
+    group = None if mesh is None else data_parallel_group(mesh)
+    n = cc.size(group)
 
     def step(params, x, labels):
-        loss, grads = value_and_grad(
-            lambda p: loss_fn(cfg, p, x, labels), params)
+        x, labels = to_local(x), to_local(labels)
+
+        def objective(p):
+            loss = loss_fn(cfg, p, x, labels)
+            return loss if n == 1 else cc.sum_forward(loss / n, group)
+
+        loss, grads = value_and_grad(objective, params)
+        for g in grads.values():
+            cc.all_reduce_(g, [group])
         with torch.no_grad():
             new_params = tree_map(lambda p, g: p - lr * g, params, grads)
         return new_params, loss

@@ -19,6 +19,11 @@ matmul) stay in full precision.
 Quantized trees are for INFERENCE: they drop into ``llama.apply`` and
 ``generate.generate`` as they are. Quantize after training, before
 serving.
+
+A tree of ``DTensor``s (params laid out on a mesh) quantizes each weight
+whole, so the scales are the unsharded weight's, and keeps each rank's
+blocks: the values laid out as the weight, the scale as the weight
+without its contraction axis (``models/serving.py`` on a tp/fsdp mesh).
 """
 
 from __future__ import annotations
@@ -91,15 +96,38 @@ _QUANT_KEYS = frozenset({
 })
 
 
+def _quantize_leaf(w) -> QuantizedTensor:
+    """``quantize_array`` of a weight, or of a ``DTensor``'s whole weight
+    with the result laid out as the ``DTensor`` (values as the weight,
+    the scale without the contraction axis: a split of it becomes
+    replication, a split of the output axis moves down one)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(w, DTensor):
+        return quantize_array(w)
+    from service_account_auth_improvements_tpu_torch.parallel.sharding import (  # noqa: E501
+        distribute,
+    )
+
+    q = quantize_array(w.full_tensor())
+    nd = w.ndim
+    scale_places = [
+        p if not isinstance(p, Shard) or p.dim < nd - 2
+        else Replicate() if p.dim == nd - 2 else Shard(p.dim - 1)
+        for p in w.placements]
+    return QuantizedTensor(distribute(q.values, w.device_mesh, w.placements),
+                           distribute(q.scale, w.device_mesh, scale_places))
+
+
 def quantize_params(params) -> dict:
     """Quantize every matmul weight of a Llama param tree to int8; the
     result drops into ``llama.apply`` and ``generate.generate``."""
     return {
         "tok_embed": params["tok_embed"],
         "final_norm": params["final_norm"],
-        "lm_head": quantize_array(params["lm_head"]),
+        "lm_head": _quantize_leaf(params["lm_head"]),
         "layers": {
-            k: (quantize_array(v) if k in _QUANT_KEYS else v)
+            k: (_quantize_leaf(v) if k in _QUANT_KEYS else v)
             for k, v in params["layers"].items()
         },
     }

@@ -24,8 +24,13 @@ reference:
   with the reference's casts. ``nn.BatchNorm2d`` updates with the unbiased
   variance and the opposite momentum convention.
 
-Cross-replica batch norm (the reference's ``mesh`` path) is not ported yet
-and raises (ROADMAP queue 1, item 8: the side models' meshes).
+On a mesh (``make_train_step(mesh=...)``) the step is data parallel over
+``dp`` with the reference's global-batch semantics: each rank takes its
+rows, the batch norm is cross-replica (the per-channel sums for the mean
+and then the variance are all-reduced over dp before the normalisation,
+keeping the f32 statistics and the bf16 normalisation), so the running
+statistics come out the same on every rank, and the loss is each rank's
+rows' mean over the dp size with the gradients summed over dp.
 """
 
 from __future__ import annotations
@@ -37,6 +42,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from service_account_auth_improvements_tpu_torch.parallel import (
+    collectives as cc,
+)
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    data_parallel_group,
+)
+from service_account_auth_improvements_tpu_torch.parallel.sharding import (
+    to_local,
+)
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -45,11 +59,6 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
     tree_map,
     value_and_grad,
 )
-
-_MESH_TODO = ("data-parallel ResNet with cross-replica batch norm (mesh) "
-              "is not ported yet (ROADMAP queue 1, item 8: the side "
-              "models' meshes remain)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
@@ -115,11 +124,23 @@ def _bn_apply(x, scale, bias, mean, var, eps):
             + _channel(bias.to(x.dtype)))
 
 
-def _bn(x, params, stats, train, momentum, eps):
+def _bn(x, params, stats, train, momentum, eps, group=None):
     """Batch norm over (N, H, W). train=True: batch statistics in f32
     (biased variance) and EMA-updated running stats; train=False: the
-    running stats. The new stats carry no graph."""
-    if train:
+    running stats. The new stats carry no graph. With a dp ``group`` the
+    statistics are the global batch's: per-channel sums all-reduced over
+    it (a sum every rank uses, so its backward sums too)."""
+    if train and cc.size(group) > 1:
+        x32 = x.float()
+        count = x32.numel() // x32.shape[1] * cc.size(group)
+        mean = cc.all_sum(x32.sum(dim=(0, 2, 3)), group) / count
+        dev = x32 - _channel(mean)
+        var = cc.all_sum((dev * dev).sum(dim=(0, 2, 3)), group) / count
+        new_stats = {
+            "mean": momentum * stats["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * stats["var"] + (1 - momentum) * var.detach(),
+        }
+    elif train:
         x32 = x.float()
         mean = torch.mean(x32, dim=(0, 2, 3))
         var = torch.var(x32, dim=(0, 2, 3), unbiased=False)
@@ -211,11 +232,12 @@ def init(cfg: ResNetConfig, generator: torch.Generator, device=None):
 
 
 def apply(cfg: ResNetConfig, params: dict, stats: dict, x: torch.Tensor,
-          train: bool = True):
+          train: bool = True, group=None):
     """(batch, H, W, 3) NHWC images → ((batch, classes) f32 logits,
-    new_batch_stats)."""
+    new_batch_stats). ``group``: the dp group of a cross-replica batch
+    norm (``x`` is then this rank's rows)."""
     bn = functools.partial(_bn, train=train, momentum=cfg.bn_momentum,
-                           eps=cfg.bn_eps)
+                           eps=cfg.bn_eps, group=group)
     new_stats: dict = {}
     # NHWC memory viewed as NCHW is channels_last
     h = x.to(torch.bfloat16).permute(0, 3, 1, 2)
@@ -252,10 +274,16 @@ def apply(cfg: ResNetConfig, params: dict, stats: dict, x: torch.Tensor,
 
 
 def loss_fn(cfg: ResNetConfig, params: dict, stats: dict, x: torch.Tensor,
-            labels: torch.Tensor):
-    logits, new_stats = apply(cfg, params, stats, x, train=True)
+            labels: torch.Tensor, group=None):
+    """Mean cross-entropy of the batch; with a dp ``group``, of the
+    global batch (each rank's share summed over it in the forward)."""
+    logits, new_stats = apply(cfg, params, stats, x, train=True,
+                              group=group)
     logp = torch.log_softmax(logits, dim=-1)
     loss = -torch.mean(logp.gather(1, labels.long()[:, None]))
+    n = cc.size(group)
+    if n > 1:
+        loss = cc.sum_forward(loss / n, group)
     return loss, new_stats
 
 
@@ -263,14 +291,19 @@ def make_train_step(cfg: ResNetConfig, lr: float = 0.1, mesh=None):
     """``step(params, stats, momentum, x, labels) -> (params, stats,
     momentum, loss)``: momentum SGD, ``m = 0.9·m + g`` then ``p = p −
     lr·m`` on every leaf (new tensors, as the reference's functional
-    update)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    update). With a dp ``mesh`` params, stats and momentum are the same
+    on every rank, ``x``/``labels`` the global batch as a ``DTensor``
+    split over dp or this rank's rows; the batch norm is cross-replica
+    and loss, update and running statistics are the global batch's."""
+    group = None if mesh is None else data_parallel_group(mesh)
 
     def step(params, stats, momentum, x, labels):
+        x, labels = to_local(x), to_local(labels)
         (loss, new_stats), grads = value_and_grad(
-            lambda p: loss_fn(cfg, p, stats, x, labels), params,
+            lambda p: loss_fn(cfg, p, stats, x, labels, group), params,
             has_aux=True)
+        for _, g in leaves(grads):
+            cc.all_reduce_(g, [group])
         with torch.no_grad():
             new_momentum = tree_map(lambda m, g: 0.9 * m + g, momentum,
                                     grads)

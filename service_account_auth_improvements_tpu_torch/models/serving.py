@@ -18,26 +18,50 @@ The server completes the train → checkpoint → serve lifecycle: ``main``
 loads a training checkpoint's params (``--checkpoint-dir``), optionally
 as int8 weights (``--int8``, models/quantize.py), and with a draft model
 (``--draft-preset``) decodes single-prompt requests speculatively
-(models/speculative.py). Not ported yet, and refused with an error that
-names the ROADMAP item: tp/fsdp meshes.
+(models/speculative.py).
+
+``--tp``/``--fsdp`` serve a model sharded over a mesh, one process per
+card as the training CLI runs (``parallel/multihost.py``): the params
+are restored straight onto the mesh (or drawn whole and laid out by the
+rules), and every rank decodes in the mesh's region
+(``models/generate.py``). Rank 0 alone runs the HTTP server; it
+broadcasts each validated request (ids, sampling parameters, seed) to
+the other ranks, which decode it in lockstep (``GenerationService.
+follow``) and draw the same tokens from the same generator seed. On a
+mesh the service runs one request at a time, each whole: the followers
+take requests in order, so a stream holds the mesh until it ends, and a
+stream whose client leaves is still decoded to its end.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
+import torch.distributed as dist
 
 from service_account_auth_improvements_tpu_torch.models import (
     generate,
     llama,
     quantize,
     speculative,
+)
+from service_account_auth_improvements_tpu_torch.parallel import (
+    multihost,
+    sharding,
+)
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    check_mesh,
+    make_mesh,
+    use_mesh,
 )
 from service_account_auth_improvements_tpu_torch.train import checkpoint
 from service_account_auth_improvements_tpu_torch.utils.device import (
@@ -95,6 +119,28 @@ def _scalar(body: dict, name: str, cast, default, lo=None, hi=None):
     return v
 
 
+def _serving_mesh(mesh):
+    """``mesh``, if the decode can run on it: tp and fsdp (and dp, whose
+    ranks decode alike); a pipeline or a split sequence raises."""
+    check_mesh(mesh)
+    for axis in ("pp", "sp"):
+        if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
+            raise ValueError(f"serving runs on a tp/fsdp mesh; {axis} > 1 "
+                             "splits the layers or the prompt")
+    return mesh
+
+
+def _local_tree(tree):
+    """A params tree with each ``DTensor`` (and each int8 weight's values
+    and scale) replaced by this rank's block."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, quantize.QuantizedTensor):
+        return quantize.QuantizedTensor(sharding.to_local(tree.values),
+                                        sharding.to_local(tree.scale))
+    return sharding.to_local(tree)
+
+
 class GenerationService:
     """Validates requests and runs the decode; thread-safe."""
 
@@ -104,10 +150,17 @@ class GenerationService:
                  max_new_cap: int = 512, max_batch: int = 8,
                  max_streams: int = 4, name: str = "llama",
                  prefill_window: int | None = DEFAULT_PREFILL_WINDOW,
-                 draft: tuple | None = None, gamma: int = 4, device=None):
+                 draft: tuple | None = None, gamma: int = 4, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        # a sharded model (tp/fsdp over a parallel.make_mesh mesh): its
+        # params are DTensors laid out by the rules (or their local
+        # blocks), and the decodes run in the mesh's region
+        self.mesh = None if mesh is None else _serving_mesh(mesh)
+        self.params = _local_tree(params)
+        if draft is not None:
+            draft = (draft[0], _local_tree(draft[1]))
         # (draft_cfg, draft_params): single-prompt requests without top-k
         # or top-p decode speculatively — the same output distribution,
         # fewer target forwards (models/speculative.py)
@@ -136,6 +189,60 @@ class GenerationService:
         self.m_streams = Gauge(
             "serving_streams_active", "open SSE streams",
             registry=self.registry)
+        # on a mesh, rank 0 runs each request whole under this lock and
+        # announces it to the followers first
+        self._request = threading.Lock()
+
+    def _mesh_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh)
+
+    @property
+    def leader(self) -> bool:
+        """Whether this process takes the requests (rank 0 of a mesh, or
+        the only one)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _announce(self, message) -> bool:
+        """On a mesh's rank 0: take the request lock and broadcast
+        ``message`` to the followers (True); otherwise nothing (False)."""
+        if self.mesh is None:
+            return False
+        self._request.acquire()
+        dist.broadcast_object_list([message], src=0)
+        return True
+
+    def follow(self) -> None:
+        """On every rank of a mesh but 0: decode each request rank 0
+        announces, in its order, until it calls ``stop``. A request that
+        fails fails on rank 0 as well, which reports it."""
+        if self.mesh is None or self.leader:
+            raise RuntimeError("follow() runs on the ranks after 0 of a "
+                               "mesh")
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is None:
+                return
+            kind, body = msg[0]
+            try:
+                if kind == "complete":
+                    self._complete(body)
+                else:
+                    toks, _, n, n_run, sampling, gen = self._parse(body)
+                    for _ in self._stream_chunks(toks, n, n_run, sampling,
+                                                 gen):
+                        pass
+            except Exception:  # noqa: BLE001 - rank 0 answers it
+                # the follower keeps serving; the failure is rank 0's to
+                # report (the request fails there too), the trace here
+                traceback.print_exc()
+
+    def stop(self) -> None:
+        """On a mesh's rank 0: release the followers."""
+        if self._announce(None):
+            self._request.release()
 
     def info(self) -> dict:
         return {
@@ -195,6 +302,16 @@ class GenerationService:
         return toks, s, n, n_run, sampling, generator
 
     def complete(self, body: dict) -> dict:
+        if self.mesh is not None:
+            self._parse(body)  # a bad request fails here, on rank 0 alone
+        held = self._announce(("complete", body))
+        try:
+            return self._complete(body)
+        finally:
+            if held:
+                self._request.release()
+
+    def _complete(self, body: dict) -> dict:
         toks, s, n, n_run, sampling, generator = self._parse(body)
         t0 = time.perf_counter()
         spec_stats = None
@@ -203,7 +320,7 @@ class GenerationService:
             dcfg, dparams = self.draft
             # the requested n bounds the decode; the caches get the pow-2
             # bucket, as the other paths do
-            with self._lock:
+            with self._lock, self._mesh_ctx():
                 out, spec_stats = speculative.spec_generate(
                     self.cfg, self.params, dcfg, dparams, toks, n,
                     gamma=self.gamma, generator=generator,
@@ -241,31 +358,38 @@ class GenerationService:
         lists (``[rows][tokens]``) for SSE. Raises TooBusy (429) at the
         concurrent-stream cap."""
         toks, s, n, n_run, sampling, generator = self._parse(body)
-        gen = self._stream_iter(toks, n, n_run, sampling, generator)
+        gen = self._stream_iter(toks, n, n_run, sampling, generator, body)
         # prime to the sentinel: TooBusy raises HERE, before any header
         # goes out, and the started generator's close() always runs its
         # finally (releasing the stream slot)
         next(gen)
         return gen
 
-    def _stream_iter(self, toks, n, n_run, sampling, generator):
+    def _stream_iter(self, toks, n, n_run, sampling, generator, body):
         if not self._streams.acquire(blocking=False):
             raise TooBusy("too many concurrent streams; retry")
         self.m_streams.inc()
+        held = False
+        chunks = self._stream_chunks(toks, n, n_run, sampling, generator)
         try:
+            held = self._announce(("stream", body))
             yield None  # primed sentinel (consumed by stream_events)
-            for chunk in self._stream_chunks(toks, n, n_run, sampling,
-                                             generator):
+            for chunk in chunks:
                 self.m_tokens.inc(sum(len(r) for r in chunk))
                 yield chunk
         finally:
+            if held:
+                # the followers decode the whole request: so does rank 0
+                for _ in chunks:
+                    pass
+                self._request.release()
             self._streams.release()
             self.m_streams.inc(-1)
 
     def _stream_chunks(self, toks, n, n_run, sampling, generator):
         # the lock wraps each DECODE, never a client write
         eos_id = sampling["eos_id"]
-        with self._lock:
+        with self._lock, self._mesh_ctx():
             state, first = generate.start_stream(
                 self.cfg, self.params, toks, n_run, generator=generator,
                 prefill_window=self.prefill_window, device=self.device,
@@ -282,7 +406,7 @@ class GenerationService:
             # bucket the tail chunk by remaining's power of two
             c = min(self.STREAM_CHUNK, n_run - produced,
                     _next_pow2(remaining))
-            with self._lock:
+            with self._lock, self._mesh_ctx():
                 state, out = generate.stream_decode(
                     self.cfg, self.params, state, c, device=self.device,
                     **sampling
@@ -418,8 +542,12 @@ def main(argv=None) -> int:
     ap.add_argument("--int8", action="store_true",
                     help="weight-only int8 (models/quantize.py)")
     ap.add_argument("--max-new-cap", type=int, default=512)
-    ap.add_argument("--tp", type=int, default=1, help="not ported yet")
-    ap.add_argument("--fsdp", type=int, default=1, help="not ported yet")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ways: shard the model over a tp "
+                         "mesh, one process per card (the controller's "
+                         "rendezvous env, parallel/multihost.py)")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="fsdp ways composed with --tp")
     ap.add_argument("--draft-preset",
                     help="enable speculative decoding with this draft "
                          "model (same vocab) for single-prompt requests")
@@ -435,16 +563,21 @@ def main(argv=None) -> int:
                          "prefill); 0 selects the per-length prefill, "
                          "which runs flash attention")
     args = ap.parse_args(argv)
-    if args.tp != 1 or args.fsdp != 1:
-        raise NotImplementedError(
-            "--tp/--fsdp: sharded serving is not in the PyTorch port yet "
-            "(ROADMAP queue 1, item 8: the training mesh is ported, "
-            "serving's --tp/--fsdp remain)")
+    if args.tp < 1 or args.fsdp < 1:
+        ap.error("--tp and --fsdp must be >= 1")
     if args.gamma < 1:
         ap.error("--gamma must be >= 1")
     if args.prefill_window < 0:
         ap.error("--prefill-window must be >= 0 (0 disables)")
     device = resolve_device(args.device)
+    mesh = None
+    plan = multihost.rendezvous_plan()
+    if args.tp * args.fsdp > 1 or plan.num_processes > 1:
+        config = MeshConfig(dp=1, fsdp=args.fsdp, tp=args.tp)
+        config.resolve(plan.num_processes)  # before any process starts
+        multihost.maybe_initialize(args.device)
+        mesh = make_mesh(config, args.device)
+        device = resolve_device(args.device)
 
     import dataclasses
 
@@ -452,12 +585,16 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(llama.PRESETS[preset],
                                   param_dtype="bfloat16")
         if checkpoint_dir:
-            # params only: the optimizer moments are never read
-            params = checkpoint.restore_params(checkpoint_dir, None, cfg,
+            # params only, straight onto the mesh when there is one: the
+            # optimizer moments are never read
+            params = checkpoint.restore_params(checkpoint_dir, mesh, cfg,
                                                device=device)
         else:
             gen = torch.Generator(device=device).manual_seed(seed)
             params = llama.init(cfg, gen, device=device)
+            if mesh is not None:
+                params = sharding.tree_distribute(params, mesh,
+                                                  llama.logical_axes(cfg))
         if args.int8:
             params = quantize.quantize_params(params)
         return cfg, params
@@ -473,9 +610,13 @@ def main(argv=None) -> int:
                                 name=args.preset,
                                 prefill_window=args.prefill_window,
                                 draft=draft, gamma=args.gamma,
-                                device=device)
+                                device=device, mesh=mesh)
+    if not service.leader:
+        service.follow()
+        return 0
     httpd = make_server(service, args.host, args.port)
-    print(f"serving {args.preset} on {httpd.server_address} ({device})",
+    print(f"serving {args.preset} on {httpd.server_address} ({device}"
+          + ("" if mesh is None else f", mesh of {mesh.size()}") + ")",
           flush=True)
     try:
         httpd.serve_forever()
@@ -483,6 +624,7 @@ def main(argv=None) -> int:
         pass
     finally:
         httpd.server_close()
+        service.stop()
     return 0
 
 

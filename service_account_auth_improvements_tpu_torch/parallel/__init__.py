@@ -4,8 +4,8 @@ the controller-injected env (``multihost.py``), logical-axis sharding
 rules resolved to DTensor placements and the per-rank region the model
 computes in (``sharding.py``), differentiable collectives
 (``collectives.py``), ring attention (``ring.py``) and Ulysses attention
-(``ulysses.py``) for sequence parallelism. The reference's GPipe
-``pipeline.py`` is not ported yet (ROADMAP queue 1, item 8).
+(``ulysses.py``) for sequence parallelism, and the GPipe pipeline over
+``pp`` (``pipeline.py``).
 """
 
 from service_account_auth_improvements_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -15,6 +15,10 @@ from service_account_auth_improvements_tpu_torch.parallel.mesh import (  # noqa:
     make_mesh,
     make_multislice_mesh,
     use_mesh,
+)
+from service_account_auth_improvements_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_layers,
+    pipeline_stages,
 )
 from service_account_auth_improvements_tpu_torch.parallel.sharding import (  # noqa: F401
     DEFAULT_RULES,

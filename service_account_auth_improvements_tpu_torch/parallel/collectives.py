@@ -104,6 +104,30 @@ def sum_backward(x, group):
     return _SumBackward.apply(x, group)
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_sum(x, group):
+    """All-reduce (sum) in the forward and in the backward: a sum every
+    rank goes on to use (cross-replica batch-norm statistics), whose
+    cotangent is each rank's share of the loss's, so the shares add."""
+    if size(group) == 1:
+        return x
+    return _AllSum.apply(x, group)
+
+
 def _shift(x, group, step: int):
     """Send ``x`` to the rank ``step`` ahead in the group, receive the
     one from ``step`` behind (``ppermute`` with ``i -> i + step``)."""
@@ -169,6 +193,15 @@ def all_to_all(x, split_dim: int, concat_dim: int, group):
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not divide over {size(group)} ranks")
     return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def shift(x, group, step: int = 1):
+    """``_shift`` outside autograd (the pipeline's hop, whose backward
+    ``parallel/pipeline.py`` schedules itself); the identity on a group
+    of one."""
+    if size(group) == 1:
+        return x
+    return _shift(x, group, step)
 
 
 @torch.no_grad()

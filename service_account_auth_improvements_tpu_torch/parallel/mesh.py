@@ -6,11 +6,11 @@ process group, one process per card, with the same six dimensions in the
 same order (``MESH_AXES``):
 
   dp    pure data parallel (gradient all-reduce)
-  pp    pipeline parallel (not ported yet: ROADMAP queue 1, item 8)
+  pp    pipeline parallel (GPipe, ``parallel/pipeline.py``)
   fsdp  data parallel with parameter and optimizer sharding (ZeRO-3)
   sp    sequence parallel (``parallel/ring.py``, ``parallel/ulysses.py``)
   tp    tensor (Megatron) parallel over heads, mlp and vocab
-  ep    expert parallel (not ported yet: ROADMAP queue 1, item 8)
+  ep    expert parallel (each rank runs its range of the experts)
 
 Ranks fill the mesh in row-major order, so ``tp`` neighbours are adjacent
 ranks (on one host, the NVLink peers) and ``dp`` is outermost.
@@ -104,6 +104,19 @@ def check_mesh(mesh):
         raise TypeError(f"expected a DeviceMesh with dimensions {MESH_AXES} "
                         f"(parallel.make_mesh), got {mesh!r}")
     return mesh
+
+
+def data_parallel_group(mesh):
+    """The ``dp`` process group of a pure data-parallel ``mesh`` (the
+    vision models' steps: the batch split over dp, the weights
+    replicated); None for one dp rank. Another axis above 1 raises."""
+    check_mesh(mesh)
+    other = {a: mesh.size(i) for i, a in enumerate(MESH_AXES)
+             if a != "dp" and mesh.size(i) > 1}
+    if other:
+        raise ValueError(f"a data-parallel step splits the batch over dp "
+                         f"only; this mesh also has {other}")
+    return None if mesh.size(0) == 1 else mesh.get_group("dp")
 
 
 def make_mesh(config: MeshConfig | None = None, device=None):

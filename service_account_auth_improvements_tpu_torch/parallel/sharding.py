@@ -234,9 +234,12 @@ def sp_attention(local_fn, q, k, v, *, axis_name: str = "sp",
 class LocalRegion:
     """One rank's view of a mesh, as the model computes in it: batch rows
     split over (dp, fsdp), the sequence over sp, heads / kv heads / mlp
-    over tp; weights gathered at use over every other axis they are
-    sharded on. Built from a mesh and the rules (which must keep that
-    activation layout); with no mesh every method is the identity."""
+    and the vocabulary over tp, the stacked layers over pp (this rank's
+    pipeline stage holds its slab) and the experts over ep (this rank
+    runs its range of them); weights gathered at use over every other
+    axis they are sharded on. Built from a mesh and the rules (which must
+    keep that activation layout); with no mesh every method is the
+    identity."""
 
     def __init__(self, mesh=None, rules: dict | None = None):
         if mesh is not None:
@@ -245,56 +248,103 @@ class LocalRegion:
         self.sizes = {a: (1 if mesh is None
                           else mesh.size(MESH_AXES.index(a)))
                       for a in MESH_AXES}
-        for axis, what in (("pp", "pipeline parallelism (pp > 1)"),
-                           ("ep", "expert parallelism (ep > 1)")):
-            if self.sizes[axis] > 1:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1, item 8: "
-                    "pipeline.py, ep > 1, serving's --tp/--fsdp and the "
-                    "side models' meshes remain)")
         self._check_rules()
         self.groups = {a: _group(mesh, a) for a in MESH_AXES}
         self.tp, self.sp = self.groups["tp"], self.groups["sp"]
-        self.sp_rank = 0 if mesh is None else mesh.get_local_rank("sp")
+        self.pp, self.ep = self.groups["pp"], self.groups["ep"]
+        ranks = {a: (0 if mesh is None else mesh.get_local_rank(a))
+                 for a in MESH_AXES}
+        self.sp_rank = ranks["sp"]
+        #: this rank's pipeline stage (its slab of the stacked layers)
+        self.stage = ranks["pp"]
+        self.ep_rank = ranks["ep"]
         self.n_batch = self.sizes["dp"] * self.sizes["fsdp"]
+        # the vocabulary is split over tp when its rule says so: the
+        # embedding and the logits then compute on the rank's shard
+        vocab_tp = "tp" in _axes(self.rules.get("vocab"))
+        self.vocab = self.tp if vocab_tp else None
+        self.vocab_rank = ranks["tp"] if vocab_tp else 0
+
+    def expert_range(self, n_experts: int) -> tuple[int, int]:
+        """[first, last) of the experts this rank runs (all without ep)."""
+        n = self.sizes["ep"]
+        if n_experts % n:
+            raise ValueError(f"{n_experts} experts do not divide over "
+                             f"ep={n}")
+        per = n_experts // n
+        return self.ep_rank * per, (self.ep_rank + 1) * per
 
     def _check_rules(self) -> None:
         live = {a for a, n in self.sizes.items() if n > 1}
         want = {"batch": {"dp", "fsdp"} & live,
                 "seq": {"sp"} & live,
+                "layers": {"pp"} & live,
+                "expert": {"ep"} & live,
                 **{name: {"tp"} & live for name in TP_LOCAL}}
         for name in sorted(set(self.rules) | set(want)):
             rule = self.rules.get(name)
             got = set(_axes(rule)) & live
             ok = (got == want[name] if name in want
-                  else got <= {"tp", *DATA_AXES} if name == "vocab"
+                  else got <= {"tp"} or got <= set(DATA_AXES)
+                  if name == "vocab"
                   else got <= set(DATA_AXES))
             if not ok:
                 raise ValueError(
                     f"rule {name!r}: {rule!r} on a mesh with live axes "
                     f"{sorted(live)}; the model computes with batch over "
-                    "(dp, fsdp), seq over sp and heads/kv_heads/mlp over "
-                    "tp, and may shard its weights' other axes over dp, "
-                    "fsdp and sp (vocab also over tp)")
+                    "(dp, fsdp), seq over sp, heads/kv_heads/mlp over tp, "
+                    "layers over pp and experts over ep, and may shard "
+                    "its weights' other axes over dp, fsdp and sp (vocab "
+                    "over tp or over those)")
 
     def spec(self, axes) -> tuple:
         return logical_to_mesh(axes, self.rules)
 
-    def param(self, x, axes):
+    def param(self, x, axes, experts_local: bool = False):
         """A weight's local block → the block the rank computes with: all
-        of it but the tensor-parallel split of heads, kv heads and mlp.
-        The gathers over data axes reduce-scatter their gradient (the
-        ranks saw different rows); a tp gather (vocab) keeps the rank's
-        slice of it (every tp rank computed the same)."""
+        of it but its shares of the tp-local axes (heads, kv heads, mlp,
+        vocab), of the layer stack (pp) and, with ``experts_local``, of
+        the experts (ep). The gathers over data axes reduce-scatter their
+        gradient (the ranks saw different rows); a gather over tp or ep
+        (an expert axis the rank routes over) keeps the rank's slice of
+        it (the ranks computed the same). An int8 weight
+        (``models/quantize.py``) gathers its values and its scale, whose
+        contraction axis is dropped."""
+        if hasattr(x, "scale") and hasattr(x, "values"):
+            return type(x)(self.param(x.values, axes, experts_local),
+                           self.param(x.scale, (*axes[:-2], axes[-1]),
+                                      experts_local))
         for dim, entry in enumerate(self.spec(axes)):
             # the minor axis of a dim split over two was split last
             for a in reversed(_axes(entry)):
-                if self.sizes[a] == 1 or (a == "tp" and axes[dim]
-                                          in TP_LOCAL):
+                if (self.sizes[a] == 1 or a == "pp"
+                        or (a == "tp" and axes[dim] in TP_LOCAL | {"vocab"})
+                        or (a == "ep" and experts_local)):
                     continue
                 x = cc.all_gather(x, dim, self.groups[a],
-                                  grad_sum=a != "tp")
+                                  grad_sum=a in DATA_AXES)
         return x
+
+    def vocab_copy(self, x):
+        """Megatron ``f`` before the vocab-parallel logits."""
+        return cc.sum_backward(x, self.vocab)
+
+    def vocab_gather(self, logits):
+        """The whole vocabulary's logits from each rank's shard (last
+        dim); every rank goes on with the same, so the backward keeps the
+        rank's slice."""
+        return cc.all_gather(logits, logits.ndim - 1, self.vocab,
+                             grad_sum=False)
+
+    def ep_copy(self, x):
+        """Megatron ``f`` over ep: an activation every ep rank routes,
+        each rank's partial gradient (from its own experts) summed."""
+        return cc.sum_backward(x, self.ep)
+
+    def ep_sum(self, x):
+        """Megatron ``g`` over ep: the partial combines of each rank's
+        experts."""
+        return cc.sum_forward(x, self.ep)
 
     def tp_copy(self, x):
         """Megatron ``f``: a replicated activation entering a
@@ -371,6 +421,17 @@ class LocalRegion:
 
 
 NO_REGION = LocalRegion()
+
+
+def expert_share(n_ep: int, rank: int) -> LocalRegion:
+    """A region computing as ep rank ``rank`` of ``n_ep`` with no process
+    group: the model runs that rank's experts and its ep sums are the
+    identity, so the caller adds the ranks' partial outputs. One process
+    checks an ep split this way (``chip_smoke.py`` on one card)."""
+    region = LocalRegion()
+    region.sizes = {**region.sizes, "ep": n_ep}
+    region.ep_rank = rank
+    return region
 
 
 def local_region() -> LocalRegion:

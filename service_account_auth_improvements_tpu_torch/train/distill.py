@@ -11,8 +11,15 @@ recomputes it, and only its last hidden states are kept for the loss.
 This is how the draft models speculative decoding wants
 (``models/speculative.py``) get made: distill the big target into a small
 student with the same vocabulary, then serve it with
-``--draft-checkpoint-dir``. A mesh is not ported yet and raises (ROADMAP
-queue 1, item 8: the side models' meshes).
+``--draft-checkpoint-dir``.
+
+On a mesh the student is a sharded ``TrainState`` and the teacher's
+params ``DTensor``s laid out by the rules; both forwards run in the
+mesh's region (the teacher's weights gathered at use, under
+``no_grad``), each rank's share of the loss is summed over the
+data-parallel ranks as ``next_token_loss``'s is, and the update is
+``train.step.sharded_update``. With the vocabulary split over tp each
+chunk's logits are gathered over it for the softmaxes.
 """
 
 from __future__ import annotations
@@ -20,13 +27,18 @@ from __future__ import annotations
 import torch
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.parallel import sharding
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    check_mesh,
+    use_mesh,
+)
 from service_account_auth_improvements_tpu_torch.train.step import (
-    _MESH_TODO,
     AdamW,
     TrainState,
     _map,
     global_norm,
     make_optimizer,
+    sharded_update,
 )
 from service_account_auth_improvements_tpu_torch.utils.tree import (
     value_and_grad,
@@ -34,13 +46,15 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
 
 
 def _distill_chunk(cfg_s, x_s, x_t, head_s, head_t, targets,
-                   temperature: float):
+                   temperature: float, region=sharding.NO_REGION):
     """(ce [b, c], kl [b, c]) for one sequence chunk. The logits are
     ``_nll``'s: compute-dtype operands multiplied in f32 (the reference's
     ``preferred_element_type=float32``); the target logit is a gather,
-    which gives the reference's one-hot contraction exactly."""
-    logits_s = x_s.float() @ head_s.float()
-    logits_t = x_t.float() @ head_t.float()
+    which gives the reference's one-hot contraction exactly. Vocab
+    shards' logits are gathered over tp (``x_s`` has taken
+    ``region.vocab_copy``)."""
+    logits_s = region.vocab_gather(x_s.float() @ head_s.float())
+    logits_t = region.vocab_gather(x_t.float() @ head_t.float())
 
     logz = torch.logsumexp(logits_s, dim=-1)
     ce = logz - logits_s.gather(-1, targets[..., None])[..., 0]
@@ -74,21 +88,27 @@ def distill_loss(cfg_s: llama.LlamaConfig, cfg_t: llama.LlamaConfig,
     each chunk and are recomputed with it in the backward pass, as the
     reference's ``jax.checkpoint`` recomputes them."""
     _check_vocab(cfg_s, cfg_t)
+    region = sharding.local_region()
     cdt_s, cdt_t = llama.dtype_of(cfg_s.dtype), llama.dtype_of(cfg_t.dtype)
     x_s, aux_s = llama._backbone(cfg_s, student_params, tokens,
                                  token_mask=mask)
     with torch.no_grad():
         x_t, _ = llama._backbone(cfg_t, teacher_params, tokens,
                                  token_mask=mask)
-    x_s = x_s[:, :-1]
-    x_t = x_t[:, :-1]
-    targets = tokens[:, 1:].clamp(0, cfg_s.vocab_size - 1)
-    head_s = student_params["lm_head"].to(cdt_s)
-    head_t = teacher_params["lm_head"].detach().to(cdt_t)
+        head_t = region.param(teacher_params["lm_head"],
+                              ("embed", "vocab")).detach().to(cdt_t)
+    trim, targets, w, count = llama.next_token_targets(cfg_s, region,
+                                                       tokens, mask)
+    if trim:
+        x_s = x_s[:, :-1]
+        x_t = x_t[:, :-1]
+    x_s = region.vocab_copy(x_s)
+    head_s = region.param(student_params["lm_head"],
+                          ("embed", "vocab")).to(cdt_s)
 
     def chunk_fn(a, bb, tc):
         return _distill_chunk(cfg_s, a, bb, head_s, head_t, tc,
-                              temperature)
+                              temperature, region)
 
     if cfg_s.loss_chunk:
         ce, kl = llama.scan_seq_chunks(
@@ -100,13 +120,15 @@ def distill_loss(cfg_s: llama.LlamaConfig, cfg_t: llama.LlamaConfig,
         # (no recompute), matching next_token_loss's branch
         ce, kl = chunk_fn(x_s, x_t, targets)
 
-    w = mask[:, 1:].to(torch.float32)
-    denom = w.sum().clamp_min(1.0)
+    denom = region.batch_sum(count).clamp_min(1.0)
     hard = torch.sum(ce * w) / denom
     soft = torch.sum(kl * w) / denom
     loss = alpha * temperature**2 * soft + (1.0 - alpha) * hard
     if cfg_s.moe_experts:
-        loss = loss + cfg_s.moe_aux_weight * aux_s
+        shares = region.n_batch * region.sizes["sp"]
+        loss = loss + cfg_s.moe_aux_weight * (aux_s / shares if shares > 1
+                                              else aux_s)
+    loss, hard, soft = (region.data_sum(t) for t in (loss, hard, soft))
     return loss, {"loss": loss, "hard_loss": hard, "kl": soft}
 
 
@@ -117,9 +139,10 @@ def make_distill_step(cfg_s: llama.LlamaConfig, cfg_t: llama.LlamaConfig,
     metrics)``. ``state`` holds the student (updated in place, as
     ``make_train_step`` updates); the teacher is a plain argument that
     comes back untouched. Metrics are ``distill_loss``'s (detached) and
-    the student's pre-clip ``grad_norm``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(_MESH_TODO)
+    the student's pre-clip ``grad_norm``. With a ``mesh`` the student
+    state is sharded (``train.step.shard_state``), the teacher's params
+    laid out by the rules (``parallel.sharding.tree_distribute``) and
+    the batch as ``make_train_step`` takes it."""
     _check_vocab(cfg_s, cfg_t)
     optimizer = optimizer or make_optimizer()
 
@@ -137,4 +160,23 @@ def make_distill_step(cfg_s: llama.LlamaConfig, cfg_t: llama.LlamaConfig,
                                             state.params, gnorm)
         return TrainState(state.step + 1, params, opt_state), metrics
 
-    return step
+    if mesh is None:
+        return step
+    check_mesh(mesh)
+    axes = llama.logical_axes(cfg_s)
+    local = sharding.to_local
+
+    def sharded_step(state: TrainState, teacher_params, tokens, mask):
+        params = _map(local, state.params)
+        teacher = _map(lambda t: local(t).detach(), teacher_params)
+        with use_mesh(mesh, rules):
+            region = sharding.local_region()
+            (_, metrics), grads = value_and_grad(
+                loss_fn, params, teacher, local(tokens), local(mask),
+                has_aux=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        state, metrics["grad_norm"] = sharded_update(
+            region, axes, optimizer, state, params, grads)
+        return state, metrics
+
+    return sharded_step

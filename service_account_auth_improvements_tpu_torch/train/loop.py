@@ -17,14 +17,14 @@ is the adapter tree.
 
 ``fit(cfg, mesh, ...)`` trains sharded over a ``parallel.make_mesh`` mesh,
 one process per rank: every rank runs ``fit`` with the same arguments,
-rank 0 alone logs and writes checkpoints. The CLI's ``--dp/--fsdp/--tp/
---sp`` flags start the process group from the controller's env
+rank 0 alone logs and writes checkpoints. The CLI's ``--dp/--pp/--fsdp/
+--sp/--tp/--ep`` flags start the process group from the controller's env
 (``parallel.multihost.maybe_initialize``) and build that mesh; launch one
 process per rank with ``TPU_WORKER_ID`` and ``TPU_WORKER_HOSTNAMES`` set.
 Unlike the reference's CLI, which always builds a mesh, it builds one
 only when the flags' product or the env asks for more than one process,
-so a one-card run keeps the plain path. Not ported yet: ``--pp`` and
-``--ep`` above 1, and a mesh for LoRA (ROADMAP queue 1, item 8).
+so a one-card run keeps the plain path. ``fit(mesh=, lora=)`` fine-tunes
+sharded adapters over the base laid out by the model's rules.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch
 from service_account_auth_improvements_tpu_torch.models import llama
 from service_account_auth_improvements_tpu_torch.parallel import (
     multihost,
+    sharding,
 )
 from service_account_auth_improvements_tpu_torch.parallel.mesh import (
     MESH_AXES,
@@ -60,7 +61,8 @@ from service_account_auth_improvements_tpu_torch.train.mfu import (
     mfu,
 )
 from service_account_auth_improvements_tpu_torch.train.step import (
-    _MESH_TODO,
+    _leaves,
+    _map,
     init_train_state,
     make_optimizer,
     make_train_step,
@@ -123,8 +125,6 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         raise ValueError("lora fit requires base_params")
     dev = resolve_device(device)
     if mesh is not None:
-        if lora is not None:
-            raise NotImplementedError(_MESH_TODO)
         if check_mesh(mesh).device_type != dev.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot train on "
                              f"{dev}")
@@ -138,6 +138,13 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
     if lora is not None:
         state = lora_mod.init_lora_state(cfg, lora, gen, optimizer,
                                          device=dev)
+        if mesh is not None:
+            state = shard_state(mesh, cfg, state, axes_tree=(
+                lora_mod.lora_logical_axes(cfg, lora)))
+            if not any(sharding.is_dtensor(t)
+                       for _, t in _leaves(base_params)):
+                base_params = sharding.tree_distribute(
+                    base_params, mesh, llama.logical_axes(cfg))
     else:
         state = init_train_state(cfg, gen, optimizer, device=dev)
         if mesh is not None:
@@ -157,7 +164,7 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
         # packed corpora train with the boundary loss mask only (the
         # adapter step has no segment-masked attention path)
         lora_step = lora_mod.make_lora_train_step(
-            cfg, lora, optimizer=optimizer, packed=packed)
+            cfg, lora, optimizer=optimizer, mesh=mesh, packed=packed)
 
         def step_fn(state, batch, mask):
             return lora_step(state, base_params, batch, mask)
@@ -225,9 +232,13 @@ def fit(cfg: llama.LlamaConfig, mesh, tokens, data_cfg: DataConfig,
             metrics["loss"].item()
             t_pause = time.perf_counter()
             if do_eval:
-                eval_params = (
-                    lora_mod.merge_lora(base_params, state.params, lora)
-                    if lora is not None else state.params)
+                eval_params = state.params
+                if lora is not None:
+                    # merged block by block (the eval step takes local
+                    # blocks as they are)
+                    eval_params = lora_mod.merge_lora(
+                        _map(sharding.to_local, base_params),
+                        _map(sharding.to_local, state.params), lora)
                 ev = evaluate.evaluate(cfg, eval_params, eval_data,
                                        step=eval_step, device=dev)
                 del eval_params

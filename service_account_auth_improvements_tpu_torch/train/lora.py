@@ -10,9 +10,15 @@ detached, so autograd computes no gradient for them (at Llama-3.1-8B an f32
 gradient of the base would be 32 GB), and the merged copies of the targets
 are the one extra weight set the step holds. The optimizer sees the
 adapter tree alone, and a checkpoint is that tree
-(``train/checkpoint.py`` takes any nested dict). A mesh (sharded adapters)
-is not ported yet and raises (ROADMAP queue 1, item 8: the side models'
-meshes).
+(``train/checkpoint.py`` takes any nested dict).
+
+On a mesh the adapters are ``DTensor``s laid out by ``lora_logical_axes``
+(A inherits the base's input axis, B its output axis) and the base
+weights by the model's rules; the merge runs on the local blocks, whose
+product is the base block's, and the factor replicated over tp takes
+Megatron's ``f`` (its gradient from each tp rank's columns or rows
+adds up), so the step is ``make_train_step``'s sharded update over the
+adapter tree (``train.step.sharded_update``).
 """
 
 from __future__ import annotations
@@ -24,13 +30,19 @@ from typing import Any
 import torch
 
 from service_account_auth_improvements_tpu_torch.models import llama
+from service_account_auth_improvements_tpu_torch.parallel import sharding
+from service_account_auth_improvements_tpu_torch.parallel.mesh import (
+    check_mesh,
+    use_mesh,
+)
 from service_account_auth_improvements_tpu_torch.train.step import (
-    _MESH_TODO,
     AdamW,
     TrainState,
     _map,
     global_norm,
     make_optimizer,
+    sharded_update,
+    tree_state_shardings,
 )
 from service_account_auth_improvements_tpu_torch.utils.device import (
     resolve_device,
@@ -107,7 +119,7 @@ def init_lora(cfg: llama.LlamaConfig, lcfg: LoraConfig,
 def lora_logical_axes(cfg: llama.LlamaConfig, lcfg: LoraConfig) -> Any:
     """Logical axes of the adapter tree, derived from each target's base
     axes: A inherits the input axis, B the output axis; the rank axis is
-    unnamed. The LoRA step takes no mesh yet (item 8)."""
+    unnamed."""
     base = llama.logical_axes(cfg)["layers"]
     return {
         t: {
@@ -118,14 +130,27 @@ def lora_logical_axes(cfg: llama.LlamaConfig, lcfg: LoraConfig) -> Any:
     }
 
 
+# targets whose INPUT axis is tp-local (row parallel): their B is
+# replicated over tp; the others' output axis is, and their A is
+_ROW_PARALLEL = frozenset({"wo", "w_down", "moe_down"})
+
+
 def merge_lora(params, lora, lcfg: LoraConfig):
     """Base params + scaled adapter products, in the base dtype: ``a @ b``
     and the scale in f32, then cast, then added in the base dtype, as the
-    reference orders it. Untargeted leaves are the base's own tensors."""
+    reference orders it. Untargeted leaves are the base's own tensors.
+    In a mesh's region the leaves are local blocks, and the factor
+    replicated over tp takes ``f`` (``region.tp_copy``)."""
+    region = sharding.local_region()
     layers = dict(params["layers"])
     for t, ab in lora.items():
+        a, b = ab["a"], ab["b"]
+        if t in _ROW_PARALLEL:
+            b = region.tp_copy(b)
+        else:
+            a = region.tp_copy(a)
         w = layers[t]
-        layers[t] = w + (lcfg.scale * (ab["a"] @ ab["b"])).to(w.dtype)
+        layers[t] = w + (lcfg.scale * (a @ b)).to(w.dtype)
     return {**params, "layers": layers}
 
 
@@ -143,7 +168,9 @@ def init_lora_state(cfg: llama.LlamaConfig, lcfg: LoraConfig,
 
 def lora_state_shardings(mesh, cfg, lcfg: LoraConfig, state: TrainState,
                          rules=None) -> TrainState:
-    raise NotImplementedError(_MESH_TODO)
+    """Placements for a LoRA ``TrainState`` (``lora_logical_axes``)."""
+    return tree_state_shardings(mesh, lora_logical_axes(cfg, lcfg), state,
+                                rules)
 
 
 def make_lora_train_step(cfg: llama.LlamaConfig, lcfg: LoraConfig,
@@ -154,9 +181,12 @@ def make_lora_train_step(cfg: llama.LlamaConfig, lcfg: LoraConfig,
     ``base_params`` comes back untouched. ``packed`` declares the mask a
     pure loss mask over a packed corpus (every token real), as in
     ``make_train_step``. Metrics are the loss and the adapters' pre-clip
-    ``grad_norm``, f32 scalar tensors."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(_MESH_TODO)
+    ``grad_norm``, f32 scalar tensors.
+
+    With a ``mesh`` the state is the adapters laid out by
+    ``lora_logical_axes`` (``train.step.shard_state(axes_tree=...)``),
+    ``base_params`` the base laid out by the model's rules, and the
+    batch as ``make_train_step`` takes it."""
     optimizer = optimizer or make_optimizer(weight_decay=0.0)
 
     def loss_fn(lora, base_params, tokens, mask):
@@ -176,7 +206,24 @@ def make_lora_train_step(cfg: llama.LlamaConfig, lcfg: LoraConfig,
         return (TrainState(state.step + 1, lora, opt_state),
                 {"loss": loss, "grad_norm": gnorm})
 
-    return step
+    if mesh is None:
+        return step
+    check_mesh(mesh)
+    axes = lora_logical_axes(cfg, lcfg)
+    local = sharding.to_local
+
+    def sharded_step(state: TrainState, base_params, tokens, mask):
+        lora = _map(local, state.params)
+        base = _map(lambda t: local(t).detach(), base_params)
+        with use_mesh(mesh, rules):
+            region = sharding.local_region()
+            loss, grads = value_and_grad(loss_fn, lora, base, local(tokens),
+                                         local(mask))
+        state, gnorm = sharded_update(region, axes, optimizer, state, lora,
+                                      grads)
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    return sharded_step
 
 
 def lora_param_count(cfg: llama.LlamaConfig, lcfg: LoraConfig) -> int:

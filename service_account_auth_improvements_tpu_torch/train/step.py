@@ -13,7 +13,13 @@ On a mesh (``make_train_step(mesh=...)``) the state's tensors are
 updates its own blocks. The step runs the model on the local blocks of
 the batch rows its (dp, fsdp) coordinate holds, then sums each
 gradient over the data-parallel ranks that hold the same block, takes
-the global norm over each element once, and applies AdamW to the blocks.
+the global norm over each element once, and applies AdamW to the blocks
+(``sharded_update``, which the LoRA and distillation steps share). A
+pipeline stage (pp) holds and updates its slab of the stacked layers, an
+expert rank (ep) its range of experts; a weight replicated over pp or ep
+comes out of the model with the same gradient on each of those ranks
+(``parallel/pipeline.py``, ``llama._moe_ffn``), so it is not summed over
+them.
 """
 
 from __future__ import annotations
@@ -43,12 +49,6 @@ from service_account_auth_improvements_tpu_torch.utils.tree import (
     tree_map as _map,
     value_and_grad,
 )
-
-# the refusal the LoRA and distillation steps raise on a mesh
-_MESH_TODO = ("a mesh for LoRA and distillation is not ported yet (ROADMAP "
-              "queue 1, item 8: pipeline.py, ep > 1, serving's --tp/--fsdp "
-              "and the side models' meshes remain)")
-
 
 class AdamState(NamedTuple):
     """optax's ``ScaleByAdamState``: the update count and the moments, as
@@ -312,7 +312,7 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
     if mesh is None:
         return step
     check_mesh(mesh)
-    axes = dict(_leaves(llama.logical_axes(cfg)))
+    axes = llama.logical_axes(cfg)
     local = sharding.to_local
 
     def sharded_step(state: TrainState, tokens, mask):
@@ -320,18 +320,32 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW | None = None,
         with use_mesh(mesh, rules):
             region = sharding.local_region()
             loss, grads = loss_and_grads(params, local(tokens), local(mask))
-        for name, g in _leaves(grads):
-            region.reduce_grad(g, axes[name])
-        gnorm = torch.sqrt(sum(region.sq_norm(g, axes[name])
-                               for name, g in _leaves(grads)))
-        opt = state.opt_state
-        _, opt_state = optimizer.apply(
-            grads, AdamState(opt.count, _map(local, opt.mu),
-                             _map(local, opt.nu)), params, gnorm)
-        # the blocks were updated in place: the DTensors hold the result
-        return (TrainState(state.step + 1, state.params,
-                           AdamState(opt_state.count, opt.mu, opt.nu)),
-                {"loss": loss, "grad_norm": gnorm})
+        state, gnorm = sharded_update(region, axes, optimizer, state,
+                                      params, grads)
+        return state, {"loss": loss, "grad_norm": gnorm}
 
     return sharded_step
+
+
+def sharded_update(region, axes_tree, optimizer: AdamW, state: TrainState,
+                   params, grads):
+    """The optimizer step of a sharded state from the gradients of its
+    local blocks ``params`` (``grads``, the model's, in ``region``): each
+    gradient summed over the data-parallel ranks its layout replicates
+    it on, the global norm over every element once, AdamW on the blocks
+    in place. Returns (the state, holding the same DTensors, and the
+    norm)."""
+    axes = dict(_leaves(axes_tree))
+    local = sharding.to_local
+    for name, g in _leaves(grads):
+        region.reduce_grad(g, axes[name])
+    gnorm = torch.sqrt(sum(region.sq_norm(g, axes[name])
+                           for name, g in _leaves(grads)))
+    opt = state.opt_state
+    _, opt_state = optimizer.apply(
+        grads, AdamState(opt.count, _map(local, opt.mu),
+                         _map(local, opt.nu)), params, gnorm)
+    # the blocks were updated in place: the DTensors hold the result
+    return (TrainState(state.step + 1, state.params,
+                       AdamState(opt_state.count, opt.mu, opt.nu)), gnorm)
 

@@ -182,6 +182,8 @@ def test_vocab_mismatch_raises_in_both_functions():
     with pytest.raises(ValueError, match="vocab"):
         tdistill.distill_loss(bad, _tcfg(TEACHER), {}, {}, toks,
                               torch.ones_like(toks))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh runs (tests/test_torch_side_meshes.py); it must be a
+    # make_mesh mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdistill.make_distill_step(_tcfg(STUDENT), _tcfg(TEACHER),
                                    mesh=object())

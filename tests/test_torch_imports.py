@@ -72,7 +72,7 @@ FINETUNE = ["train.lora", "train.distill", "models.convert_hf",
 # their rank processes from (which must run without JAX)
 PARALLEL = ["parallel", "parallel.mesh", "parallel.multihost",
             "parallel.sharding", "parallel.collectives", "parallel.ring",
-            "parallel.ulysses"]
+            "parallel.ulysses", "parallel.pipeline"]
 WORKERS = "tests.torch_parallel_workers"
 
 
@@ -153,6 +153,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: speculative.spec_generate(cfg, params, cfg, params, toks, 2),
         lambda: serving.main(["--preset", "tiny", "--port", "0",
                               "--checkpoint-dir", str(ck), "--int8"]),
+        # a sharded server checks the card before it starts a mesh
+        lambda: serving.main(["--preset", "tiny", "--port", "0",
+                              "--tp", "2"]),
         lambda: lora.init_lora(cfg, lora.LoraConfig(), torch.Generator()),
         lambda: lora.init_lora_state(cfg, lora.LoraConfig(),
                                      torch.Generator()),

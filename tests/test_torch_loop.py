@@ -56,9 +56,10 @@ def test_fit_packed_flash_config_runs():
     # LoRA is ported: without base_params it is refused as the reference
     # refuses it
     (dict(lora=object()), ValueError, "lora fit requires base_params"),
-    # a mesh is ported, but not for LoRA yet
+    # a mesh trains LoRA too (tests/test_torch_side_meshes.py), when it
+    # is a parallel.make_mesh mesh
     (dict(mesh=object(), lora=object(), base_params=object()),
-     NotImplementedError, "item 8"),
+     TypeError, "DeviceMesh"),
     # and what is not a parallel.make_mesh DeviceMesh is refused
     (dict(mesh=object()), TypeError, "DeviceMesh"),
 ])

@@ -173,17 +173,19 @@ def test_batch_rows_per_rank_match_jax(tmp_path):
             local, np.arange(16.).reshape(8, 2)[rows])
         dims, local = res["sp2tp2"]["constraint"]
         np.testing.assert_array_equal(local, np.arange(16.).reshape(8, 2))
-        # the region keeps the activation layout it computes with; a
-        # pipeline or expert axis is refused naming the ROADMAP item
+        # the region keeps the activation layout it computes with: the
+        # layers over pp and the experts over ep too
         refused = res["refused"]
         assert sorted(refused) == ["batch-over-dp-only", "embed-over-tp",
-                                   "ep", "heads-unsharded", "pp"]
-        for tag in ("batch-over-dp-only", "embed-over-tp",
-                    "heads-unsharded"):
+                                   "experts-unsharded", "heads-unsharded",
+                                   "layers-unsharded"]
+        for tag in refused:
             assert refused[tag].startswith("ValueError: rule"), refused
-        for tag in ("pp", "ep"):
-            assert refused[tag].startswith("NotImplementedError"), refused
-            assert "item 8" in refused[tag]
+        # pp 2 x fsdp 2: ranks 0, 1 are stage 0; ep 2 x fsdp 2: ranks
+        # 0, 2 run experts [0, 2)
+        stage, n_stages, experts = res["pp-ep"]
+        assert (stage, n_stages) == (rank // 2, 2)
+        assert experts == ((0, 2) if rank % 2 == 0 else (2, 4))
         assert res["pure-dp-rules"] == 4
 
 
@@ -230,8 +232,8 @@ def test_world_of_one_mesh_is_the_plain_path(tmp_path):
 
 
 def test_mesh_refusals():
-    """What the port does not run on a mesh yet raises, naming ROADMAP
-    queue 1 item 8; a mesh must be a ``make_mesh`` mesh."""
+    """A mesh must be a ``make_mesh`` mesh; without one the region is the
+    identity throughout."""
     with pytest.raises(TypeError, match="DeviceMesh"):
         tsharding.LocalRegion(object())
     region = tsharding.NO_REGION

@@ -185,6 +185,14 @@ SHAPES = {
                      {"attn_impl": "ring"}, 1),
     "sp2-ulysses": (dict(sp=2), dict(dp=1, fsdp=1, sp=2), 2,
                     {"attn_impl": "ulysses"}, 1),
+    # expert parallelism: each ep rank runs its two of the four experts
+    "fsdp2-ep2-moe": (dict(fsdp=2, ep=2), dict(dp=1, fsdp=2, ep=2), 4,
+                      {"moe_experts": 4}, 1),
+    "tp2-ep2-moe-top2": (dict(tp=2, ep=2), dict(dp=1, fsdp=1, tp=2, ep=2),
+                         4, {"moe_experts": 4, "moe_top_k": 2}, 1),
+    # MoE routing groups over a sequence split over sp
+    "sp2-moe": (dict(sp=2), dict(dp=1, fsdp=1, sp=2), 2,
+                {"moe_experts": 4}, 1),
 }
 
 
@@ -242,9 +250,27 @@ def test_sharded_train_steps_match_jax(name, tmp_path):
                              "nu": ts.opt_state.nu},
                       f"{name} vs unsharded, step {i}")
     # the state's layout is the rules': e.g. wq [L, embed, heads] splits
-    # dim 1 over fsdp and dim 2 over tp
+    # dim 0 over pp, 1 over fsdp and 2 over tp
     wq = got["placements"]["layers/wq"]
     assert wq == [None, 0, 1, None, 2, None]
+    if "moe_experts" in change:  # the experts split over ep
+        assert got["placements"]["layers/moe_gate"][5] == 1
+        assert got["local_shapes"]["layers/moe_gate"][1] == \
+            4 // sizes.get("ep", 1)
+    assert got["local_shapes"]["layers/wq"][0] == \
+        cfg.n_layers // sizes.get("pp", 1)
+    # the last state, saved collectively on this mesh, restores onto no
+    # mesh and onto this mesh bit for bit
+    like = tstep.init_train_state(tcfg, torch.Generator().manual_seed(1),
+                                  device="cpu")
+    back = tckpt.restore(tmp_path / f"ckpt-{name}", None, tcfg, like)
+    last = got["steps"][-1]
+    assert back.step == 3 and back.opt_state.count == 3
+    for part, tree in (("params", back.params), ("mu", back.opt_state.mu),
+                       ("nu", back.opt_state.nu)):
+        for (n, a), (_, b), (_, c) in zip(leaves(tree), leaves(last[part]),
+                                          leaves(got["restored"][part])):
+            assert torch.equal(a, b) and torch.equal(a, c), (name, part, n)
 
 
 def test_fit_checkpoint_restores_across_meshes(tmp_path):
@@ -314,3 +340,45 @@ def test_fit_checkpoint_restores_across_meshes(tmp_path):
         "params": state.params, "mu": state.opt_state.mu,
         "nu": state.opt_state.nu}, "fit dp2 x fsdp2 vs unsharded")
     assert any("eval_loss" in h for h in sharded)
+
+
+@requires_jax_shard_map
+def test_vocab_parallel_embedding_and_loss_match_jax(tmp_path):
+    """On tp 2 the vocabulary stays split: the masked embedding lookup
+    summed over tp is the reference's gather bit for bit, the chunked
+    f32 loss (vocab-parallel logsumexp and target logit) and every
+    gradient match the reference's on its tp 2 mesh (loss 1e-5, grads
+    atol 2e-5 + rtol 1e-4, f32), and each tp rank's ``lm_head``
+    gradient is its own vocab shard of the whole one."""
+    cfg = dataclasses.replace(SMOKE, loss_chunk=8, iota_embed=True)
+    params = jllama.init(cfg, jax.random.key(0))
+    (toks, mask), = _batches(cfg, n=1, b=4, s=32)
+    mask[:, 24:] = 0
+    as_np = functools.partial(jax.tree.map,
+                              lambda a: np.asarray(a, np.float32))
+    torch.save({"params": as_np(params), "tokens": torch.tensor(toks),
+                "mask": torch.tensor(mask)}, tmp_path / "grads-init.pt")
+    tcfg = tllama.LlamaConfig(**dataclasses.asdict(cfg))
+    workers.launch("model_grads", 2, tmp_path, "tp2", dict(tp=2),
+                   dataclasses.asdict(tcfg))
+    got = workers.load(tmp_path / "grads-tp2.pt")
+    jmesh = make_mesh(MeshConfig(dp=1, fsdp=1, tp=2), jax.devices()[:2])
+    with use_mesh(jmesh):
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p: jllama.next_token_loss(cfg, p, toks.astype(np.int32),
+                                             mask)))(params)
+    assert abs(got["loss"] - float(loss)) < 1e-5
+    want = dict(leaves(as_np(grads)))
+    for name, g in got["grads"].items():
+        np.testing.assert_allclose(g.numpy(), want[name], atol=2e-5,
+                                   rtol=1e-4, err_msg=name)
+    table = np.asarray(params["tok_embed"], np.float32)
+    half = cfg.vocab_size // 2
+    for r in range(2):
+        rank = workers.load(tmp_path / f"grads-tp2-r{r}.pt")
+        np.testing.assert_array_equal(rank["embed"].numpy(), table[toks])
+        head = rank["lm_head_grad"]
+        assert tuple(head.shape) == (cfg.dim, half)
+        torch.testing.assert_close(
+            head, got["grads"]["lm_head"][:, r * half:(r + 1) * half],
+            rtol=0, atol=0)

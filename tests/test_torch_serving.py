@@ -163,8 +163,14 @@ def test_http_round_trip(weights):
 
 
 def test_main_refuses_unported_flags():
-    for argv in (["--tp", "2"],):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --tp/--fsdp serve on a mesh of as many processes
+    # (tests/test_torch_sharded_serving.py runs it); alone, the mesh is
+    # checked before any process group starts, and bad sizes are refused
+    with pytest.raises(ValueError, match="wants 2 devices but 1 present"):
+        tserving.main(["--preset", "tiny", "--device", "cpu", "--tp", "2"])
+    assert not torch.distributed.is_initialized()
+    for argv in (["--tp", "0"], ["--fsdp", "-1"]):
+        with pytest.raises(SystemExit):
             tserving.main(["--preset", "tiny", "--device", "cpu", *argv])
 
 

@@ -140,7 +140,9 @@ def test_mnist_param_count_and_mesh():
                          device="cpu")
     assert sum(t.numel() for t in params.values()) == cfg.param_count() \
         == jmnist.MnistConfig().param_count() == 203_530
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a dp mesh runs (tests/test_torch_side_meshes.py); it must be a
+    # make_mesh mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmnist.make_sgd_step(cfg, mesh=object())
 
 
@@ -265,5 +267,5 @@ def test_resnet50_param_count():
     assert [n for n, _ in leaves(stats)] == [n for n, _, _ in
                                              _pairs(stats, jstats)]
     assert not params["head"]["w"].any()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tresnet.make_train_step(cfg, mesh=object())

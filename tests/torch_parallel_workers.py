@@ -187,6 +187,22 @@ def train(rank, world, out, tag, mesh_sizes, cfg_kw, grad_accum):
     res["placements"] = {
         name: _dims(t)
         for name, t in step._leaves(state.params)}
+    res["local_shapes"] = {
+        name: tuple(sharding.to_local(t).shape)
+        for name, t in step._leaves(state.params)}
+    # a collective save of the last state (rank 0 writes)
+    from service_account_auth_improvements_tpu_torch.train import (
+        checkpoint as ckpt,
+    )
+
+    ckpt.save(out / f"ckpt-{tag}", state)
+    # and restored onto this mesh, laid out by the rules again
+    like = step.shard_state(mesh, cfg, step.init_train_state(
+        cfg, torch.Generator().manual_seed(5), device="cpu"))
+    back = ckpt.restore(out / f"ckpt-{tag}", mesh, cfg, like)
+    res["restored"] = {"params": _gather_tree(back.params),
+                       "mu": _gather_tree(back.opt_state.mu),
+                       "nu": _gather_tree(back.opt_state.nu)}
     if rank == 0:
         _save(out, f"train-{tag}", res)
     _save(out, f"train-{tag}-loss-r{rank}",
@@ -238,12 +254,19 @@ def batches(rank, world, out):
               if k != "heads"}),
             ("embed-over-tp", dict(fsdp=2, tp=2),
              {**sharding.DEFAULT_RULES, "embed": "tp"}),
-            ("pp", dict(pp=2, fsdp=2), None), ("ep", dict(ep=2, fsdp=2), None)):
+            ("layers-unsharded", dict(pp=2, fsdp=2),
+             {**sharding.DEFAULT_RULES, "layers": None}),
+            ("experts-unsharded", dict(ep=2, fsdp=2),
+             {**sharding.DEFAULT_RULES, "expert": None})):
         try:
             sharding.LocalRegion(_mesh(**sizes), rules)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             refused[tag] = f"{type(e).__name__}: {e}"
     res["refused"] = refused
+    # pipeline and expert axes: the stage and the expert range
+    pp = sharding.LocalRegion(_mesh(pp=2, fsdp=2))
+    ep = sharding.LocalRegion(_mesh(ep=2, fsdp=2))
+    res["pp-ep"] = (pp.stage, pp.sizes["pp"], ep.expert_range(4))
     res["pure-dp-rules"] = sharding.LocalRegion(
         _mesh(dp=2, fsdp=2), {**sharding.DEFAULT_RULES, "embed": None}
     ).n_batch
@@ -377,3 +400,361 @@ def world_one(rank, world, out, cfg_kw):
         dist.get_world_size()
     runs["shapes"] = shapes
     _save(out, "world-one", runs)
+
+
+# -- model loss and gradients on a mesh ----------------------------------
+
+def model_grads(rank, world, out, tag, mesh_sizes, cfg_kw):
+    """``next_token_loss`` and its gradients on a mesh, from the params
+    and batch in ``grads-init.pt``: the loss, the whole gradients (each
+    block summed over the data axes as the train step sums it, then
+    gathered), each leaf's local block shape, the MoE aux of ``apply``,
+    the embedding, and the local gradient block of ``lm_head``. Rank 0
+    saves everything; every rank its loss."""
+    from torch.distributed.tensor import DTensor
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        llama,
+        params as tparams,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+        use_mesh,
+    )
+    from service_account_auth_improvements_tpu_torch.utils.tree import (
+        leaves,
+        tree_map,
+        value_and_grad,
+    )
+
+    init = load(out / "grads-init.pt")
+    cfg = llama.LlamaConfig(**cfg_kw)
+    mesh = _mesh(**mesh_sizes)
+    axes = llama.logical_axes(cfg)
+    dparams = sharding.tree_distribute(
+        tparams.from_numpy(init["params"], cfg, device="cpu"), mesh, axes)
+    local = tree_map(sharding.to_local, dparams)
+    rows = sharding.placements(mesh, sharding.logical_to_mesh(
+        ("batch", None)))
+    toks = sharding.shard_local(init["tokens"], mesh, rows)
+    mask = sharding.shard_local(init["mask"], mesh, rows)
+    with use_mesh(mesh):
+        region = sharding.local_region()
+        loss, grads = value_and_grad(
+            lambda p: llama.next_token_loss(cfg, p, toks, mask), local)
+        with torch.no_grad():
+            _, aux = llama.apply(cfg, local, toks, return_aux=True,
+                                 token_mask=mask)
+            emb = llama.embed(cfg, local, toks, region)
+    res = {"loss": float(loss), "aux": float(aux),
+           "shapes": {n: tuple(t.shape) for n, t in leaves(local)},
+           "lm_head_grad": grads["lm_head"].detach().clone(),
+           "embed": emb}
+    whole = {}
+    flat_axes = dict(leaves(axes))
+    for name, g in leaves(grads):
+        region.reduce_grad(g, flat_axes[name])
+    # the blocks of the leaves outside the layer stack, as this rank
+    # holds them (replicated over pp: the same on every stage)
+    outside = {n: grads[n].detach().clone()
+               for n in ("tok_embed", "final_norm", "lm_head")}
+    for name, g in leaves(grads):
+        places = sharding.logical_sharding(mesh, flat_axes[name])
+        whole[name] = DTensor.from_local(g, mesh, places, run_check=False
+                                         ).full_tensor()
+    res["grads"] = whole
+    res["coord"] = mesh.get_coordinate()
+    if rank == 0:
+        _save(out, f"grads-{tag}", res)
+    _save(out, f"grads-{tag}-r{rank}", {
+        "loss": res["loss"], "coord": res["coord"],
+        "lm_head_grad": res["lm_head_grad"], "embed": emb,
+        "slab": local["layers"]["wq"].clone(), "outside": outside})
+
+
+def moe_ep(rank, world, out, cfg_kw):
+    """``_moe_ffn`` as ep rank ``rank`` of ``world`` (its experts' slice
+    of the weights in ``moe-init.pt``, the router whole): the output, the
+    aux, the expert choices, and the gradients of sum(out · cos(out)) +
+    aux for the input, the router and the rank's experts."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+
+    init = load(out / "moe-init.pt")
+    cfg = llama.LlamaConfig(**cfg_kw)
+    mesh = _mesh(ep=world)
+    region = sharding.LocalRegion(mesh)
+    e0, e1 = region.expert_range(cfg.moe_experts)
+    lp = {n: (t[e0:e1] if n.startswith("moe_") else t).clone()
+          .requires_grad_() for n, t in init["lp"].items()}
+    h = init["h"].clone().requires_grad_()
+    routes = []
+    o, aux = llama._moe_ffn(cfg, h, lp, init["mask"], region=region,
+                            routes=routes)
+    loss = (o * torch.cos(o)).sum() + aux
+    grads = torch.autograd.grad(loss, [h, *lp.values()])
+    _save(out, f"moe-r{rank}", {
+        "out": o.detach(), "aux": float(aux), "routes": routes[0],
+        "experts": (e0, e1),
+        "grads": dict(zip(["h", *lp], grads))})
+
+
+# -- sharded serving ------------------------------------------------------
+
+def serve(rank, world, out, cfg_kw, draft_kw, mesh_sizes, bodies):
+    """``GenerationService(mesh=)`` on a mesh, from the params (and
+    draft params) in ``serve-init.pt``: per-length and windowed prefill,
+    then int8 weights with a draft model. Rank 0 takes the requests
+    (``bodies``: one-shot, and streamed when ``stream`` is set) and saves
+    what it returned; the other ranks follow it in lockstep."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        llama,
+        params as tparams,
+        quantize,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+
+    init = load(out / "serve-init.pt")
+    cfg = llama.LlamaConfig(**cfg_kw)
+    dcfg = llama.LlamaConfig(**draft_kw)
+    mesh = _mesh(**mesh_sizes)
+
+    def lay(tree, c):
+        return sharding.tree_distribute(
+            tparams.from_numpy(tree, c, device="cpu"), mesh,
+            llama.logical_axes(c))
+
+    params, dparams = lay(init["params"], cfg), lay(init["draft"], dcfg)
+    services = {
+        "window0": serving.GenerationService(cfg, params, max_new_cap=32,
+                                             prefill_window=0,
+                                             device="cpu", mesh=mesh),
+        "window4": serving.GenerationService(cfg, params, max_new_cap=32,
+                                             prefill_window=4,
+                                             device="cpu", mesh=mesh),
+        "int8-draft": serving.GenerationService(
+            cfg, quantize.quantize_params(params), max_new_cap=32,
+            prefill_window=0, device="cpu", mesh=mesh,
+            draft=(dcfg, quantize.quantize_params(dparams))),
+    }
+    res = {}
+    for name, svc in services.items():
+        if not svc.leader:
+            svc.follow()
+            continue
+        got = []
+        for body in bodies:
+            if body.get("stream"):
+                rows = None
+                for chunk in svc.stream_events(dict(body)):
+                    rows = ([list(c) for c in chunk] if rows is None
+                            else [r + c for r, c in zip(rows, chunk)])
+                got.append(rows)
+            else:
+                reply = svc.complete(dict(body))
+                got.append((reply["completion_ids"],
+                            reply.get("speculative")))
+        svc.stop()
+        res[name] = got
+    if rank == 0:
+        res["local_wq"] = tuple(services["window0"].params["layers"][
+            "wq"].shape)
+        _save(out, "serve", res)
+
+
+# -- the side models' meshes ---------------------------------------------
+
+def lora_mesh(rank, world, out, cfg_kw, lcfg_kw, mesh_sizes, lr):
+    """Three ``make_lora_train_step(mesh=)`` steps from the base,
+    adapters and batches in ``side-init.pt``: the adapters laid out by
+    ``lora_logical_axes``, the base by the model's rules. Rank 0 saves
+    each step's loss, norm and whole adapters and moments, and whether
+    the base came back bit for bit."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        llama,
+        params as tparams,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        lora,
+        step,
+    )
+
+    init = load(out / "side-init.pt")
+    cfg = llama.LlamaConfig(**cfg_kw)
+    lcfg = lora.LoraConfig(**lcfg_kw)
+    mesh = _mesh(**mesh_sizes)
+    base = sharding.tree_distribute(
+        tparams.from_numpy(init["base"], cfg, device="cpu"), mesh,
+        llama.logical_axes(cfg))
+    before = _gather_tree(base)
+    opt = step.make_optimizer(learning_rate=lr, weight_decay=0.0)
+    adapters = tparams.from_numpy(init["lora"], cfg, device="cpu")
+    state = step.TrainState(0, adapters, opt.init(adapters))
+    places = lora.lora_state_shardings(mesh, cfg, lcfg, state)
+    state = step.shard_state(mesh, cfg, state,
+                             axes_tree=lora.lora_logical_axes(cfg, lcfg))
+    fn = lora.make_lora_train_step(cfg, lcfg, opt, mesh=mesh)
+    res = {"steps": [], "places": {
+        n: [p.dim if p.is_shard() else None for p in pl]
+        for n, pl in step._leaves(places.params)}}
+    batch = sharding.placements(mesh, sharding.logical_to_mesh(
+        ("batch", None)))
+    for toks, mask in init["batches"]:
+        state, m = fn(state, base, sharding.distribute(toks, mesh, batch),
+                      sharding.distribute(mask, mesh, batch))
+        res["steps"].append({
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": _gather_tree(state.params),
+            "mu": _gather_tree(state.opt_state.mu),
+            "nu": _gather_tree(state.opt_state.nu)})
+    after = _gather_tree(base)
+    res["base_same"] = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        step._leaves(before), step._leaves(after)))
+    if rank == 0:
+        _save(out, "lora", res)
+
+
+def distill_mesh(rank, world, out, s_kw, t_kw, mesh_sizes):
+    """Three ``make_distill_step(mesh=)`` steps from the student state,
+    teacher and batches in ``side-init.pt`` (the student sharded, the
+    teacher laid out by the rules); rank 0 saves each step's metrics and
+    whole state."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        llama,
+        params as tparams,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        sharding,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        distill,
+        step,
+    )
+
+    init = load(out / "side-init.pt")
+    cfg_s, cfg_t = llama.LlamaConfig(**s_kw), llama.LlamaConfig(**t_kw)
+    mesh = _mesh(**mesh_sizes)
+    teacher = sharding.tree_distribute(
+        tparams.from_numpy(init["teacher"], cfg_t, device="cpu"), mesh,
+        llama.logical_axes(cfg_t))
+    state = step.shard_state(mesh, cfg_s, tparams.train_state_from_numpy(
+        cfg_s, init["params"], init["mu"], init["nu"], device="cpu"))
+    fn = distill.make_distill_step(cfg_s, cfg_t, mesh=mesh,
+                                   temperature=1.5, alpha=0.3)
+    res = {"steps": []}
+    batch = sharding.placements(mesh, sharding.logical_to_mesh(
+        ("batch", None)))
+    for toks, mask in init["batches"]:
+        state, m = fn(state, teacher, sharding.distribute(toks, mesh, batch),
+                      sharding.distribute(mask, mesh, batch))
+        res["steps"].append({
+            **{k: float(v) for k, v in m.items()},
+            "params": _gather_tree(state.params),
+            "mu": _gather_tree(state.opt_state.mu),
+            "nu": _gather_tree(state.opt_state.nu)})
+    if rank == 0:
+        _save(out, "distill", res)
+
+
+def fit_lora_mesh(rank, world, out, cfg_kw, lcfg_kw):
+    """``fit(mesh=, lora=)`` on fsdp 2 x tp 2: 4 steps straight, and 2
+    steps then 2 more resumed from the workdir's checkpoint, with an
+    eval; every rank saves the adapters, moments and history."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.train import lora
+    from service_account_auth_improvements_tpu_torch.train.data import (
+        DataConfig,
+    )
+    from service_account_auth_improvements_tpu_torch.train.loop import (
+        LoopConfig,
+        fit,
+    )
+
+    cfg = llama.LlamaConfig(**cfg_kw)
+    lcfg = lora.LoraConfig(**lcfg_kw)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 4096).astype(np.int32)
+    base = llama.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    mesh = _mesh(fsdp=2, tp=2)
+    eval_data = [tokens[:128].reshape(4, 32)]
+    runs = {}
+    for name, stops in (("straight", (4,)), ("resumed", (2, 4))):
+        for steps in stops:
+            state, history = fit(
+                cfg, mesh, tokens, DataConfig(batch=4, seq=32),
+                LoopConfig(steps=steps, log_every=1, eval_every=4,
+                           workdir=str(out / name)),
+                log=lambda *a: None, device="cpu", lora=lcfg,
+                base_params=base, eval_data=eval_data)
+        runs[name] = {"params": _gather_tree(state.params),
+                      "mu": _gather_tree(state.opt_state.mu),
+                      "nu": _gather_tree(state.opt_state.nu),
+                      "history": history, "step": state.step}
+    _save(out, f"fit-lora-r{rank}", runs)
+
+
+class _F32:
+    """A module whose ``bfloat16`` is ``float32`` (the vision tests'
+    compute-dtype swap)."""
+
+    def __init__(self, mod):
+        self._mod, self.bfloat16 = mod, mod.float32
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+def vision_mesh(rank, world, out, f32):
+    """MNIST (3 SGD steps) and resnet18-smoke (3 momentum steps) on a dp
+    mesh of ``world`` from ``vision-init.pt``, each rank on its rows of
+    the global batch; every rank saves its results (``f32``: the models'
+    bf16 compute swapped for f32)."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        mnist,
+        resnet,
+    )
+
+    if f32:
+        mnist.torch = resnet.torch = _F32(torch)
+    init = load(out / "vision-init.pt")
+    mesh = _mesh(dp=world)
+    res = {}
+    x, labels = init["mnist_batch"]
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    step = mnist.make_sgd_step(mnist.MnistConfig(), lr=0.1, mesh=mesh)
+    params = init["mnist"]
+    losses = []
+    for _ in range(3):
+        params, loss = step(params, x[rows], labels[rows])
+        losses.append(float(loss))
+    res["mnist"] = {"params": params, "losses": losses}
+    x, labels = init["resnet_batch"]
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    cfg = resnet.PRESETS["resnet18-smoke"]
+    step = resnet.make_train_step(cfg, lr=0.1, mesh=mesh)
+    params, stats = init["resnet"]
+    mom = _zeros_like_tree(params)
+    losses = []
+    for _ in range(3):
+        params, stats, mom, loss = step(params, stats, mom, x[rows],
+                                        labels[rows])
+        losses.append(float(loss))
+    res["resnet"] = {"params": params, "stats": stats, "mom": mom,
+                     "losses": losses}
+    _save(out, f"vision-r{rank}", res)
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)

@@ -18,7 +18,9 @@ no network. Phases, each of which raises on failure:
    launched twice on one input must each agree bit for bit; all three also
    at the fine-tuning shapes (b 4, s 2048, 32 / 8 heads, d 128 for
    Llama-3.1-8B and d 64 for Llama-3.2-1B; K1 also through the wrapper at
-   b 1, s 1000), timed there too;
+   b 1, s 1000), timed there too; and all three at phase 12's head dims
+   256 and 192 (b 8, s 2048, 6 / 2 and 8 / 4 heads), timed there, with
+   K1 also at its per-length prefill and in f32;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -82,7 +84,15 @@ no network. Phases, each of which raises on failure:
    world-1 NCCL mesh at full width, each bit (or token) for bit its plain
    path: the ``bench_moe`` train step, ``GenerationService(mesh=)`` at
    ``bench_800m`` (per-length and windowed prefill), a LoRA step over a
-   ``bench_800m`` base and the ResNet-50 step.
+   ``bench_800m`` base and the ResNet-50 step;
+12. wide head dims: ``bench_800m`` with its attention cut into 6 / 2 heads
+   of 256 and 8 / 4 heads of 192 (``WIDE_HEADS``; h * d is still 1536),
+   each trained by ``make_train_step`` at b 8 x 2048 for a few steps with
+   exact launches per step (K1 40 / K2 20 / K3 20), a falling finite loss,
+   step time, tokens/s, MFU and peak memory; the d 256 model, in bf16,
+   answers one per-length request over HTTP (K1 20, first tokens
+   ``llama.apply``'s) and decodes greedily in f32 through K1 token for
+   token as the dense path does.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -233,10 +243,6 @@ HF_LLAMA32_1B = {
 FT_BATCH, FT_SEQ, LORA_STEPS, LORA_LR = 4, 2048, 4, 2e-3
 # the two models' head dims, for the kernel checks at their shapes
 FT_HEAD_DIMS = (("8b", 128), ("1b", 64))
-# the widest head dim K1 takes (ops/flash_attention.py KERNEL_HEAD_DIMS),
-# which its mma.sync route (flash_fwd_bf16) runs: checked and timed in
-# phase 3
-WIDE_HEAD_DIM = 256
 DISTILL_STEPS, DISTILL_T, DISTILL_ALPHA = 4, 2.0, 0.5
 FT_WORKDIR = ROOT / "build" / "chip_smoke_finetune"
 # the 8B's first LoRA step against next_token_loss on the base params (B
@@ -255,6 +261,17 @@ MNIST_BATCH, MNIST_STEPS = 1024, 20
 RESNET_BATCH, RESNET_SIZE, RESNET_STEPS, RESNET_LR = 256, 224, 10, 0.1
 RESNET50_PARAMS = 25_557_032
 SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
+
+# the wide head dims (phase 12): PRESET with its attention cut into heads of
+# 256 (6 / 2 heads) and of 192 (8 / 4), built with dataclasses.replace (the
+# JAX package has no preset at these dims). h * d stays 1536, so wq and wo
+# keep their 1536 x 1536 and each kernel does PRESET's work at the training
+# shape; d 256 also keeps wk/wv at 1536 x 512 (d 192: 1536 x 768). Each
+# trains WIDE_STEPS steps at the training shape (the first a warm-up); the
+# d 256 model then serves one per-length request. Phase 3 checks and times
+# K1, K2 and K3 at both shapes.
+WIDE_HEADS = {"bench_800m_d256": (6, 2, 256), "bench_800m_d192": (8, 4, 192)}
+WIDE_STEPS = TRAIN_STEPS
 
 
 def _log(msg: str) -> None:
@@ -426,11 +443,21 @@ def phase_kernels() -> dict:
         *((f"llama3 {name} prefill gqa4 s{PROMPT} d{d} bf16 wrapper", 1,
            PROMPT, 32, 8, d, torch.bfloat16, True, True)
           for name, d in FT_HEAD_DIMS),
-        # K1's route above the wgmma kernel's head dims (flash_fwd_bf16)
-        (f"gqa s{TRAIN_SEQ} d{WIDE_HEAD_DIM} bf16", TRAIN_BATCH, TRAIN_SEQ,
-         8, 4, WIDE_HEAD_DIM, torch.bfloat16, True, False),
+        # the wide head dims (phase 12): the training shape, the d 256
+        # model's per-length prefill, and f32 at a ragged length
+        *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
+           hkv, d, torch.bfloat16, True, False)
+          for name, (h, hkv, d) in WIDE_HEADS.items()),
+        *((f"{name} prefill s{PROMPT} bf16 wrapper", BATCH, PROMPT, h, hkv,
+           d, torch.bfloat16, True, True)
+          for name, (h, hkv, d) in WIDE_HEADS.items()),
+        *((f"{name} s{PROMPT} f32 wrapper", 2, PROMPT, h, hkv, d,
+           torch.float32, True, True)
+          for name, (h, hkv, d) in WIDE_HEADS.items()),
     ]
     worst = 0.0
+    # the largest error of the bf16 cases at each wide head dim
+    worst_wide = {d: 0.0 for _, _, d in WIDE_HEADS.values()}
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -449,7 +476,10 @@ def phase_kernels() -> dict:
             _log(f"  lse max abs err {lerr:.3e}")
         if fa.launches != before + 1:
             raise AssertionError(f"{name}: the kernel did not launch")
-        worst = max(worst, err)
+        if d not in worst_wide:
+            worst = max(worst, err)
+        elif dtype == torch.bfloat16:
+            worst_wide[d] = max(worst_wide[d], err)
         _log(f"kernel {name}: max abs err {err:.3e} "
              f"(atol {atol}, rtol {rtol})")
 
@@ -496,32 +526,27 @@ def phase_kernels() -> dict:
                   queue_ahead=True)
     _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms")
     # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
-    ft = {}
-    for name, d in FT_HEAD_DIMS:
-        b, s, h, hkv = FT_BATCH, FT_SEQ, 32, 8
-        q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True),
-                      queue_ahead=True)
-        plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
-                            iters=5, warmup=1, queue_ahead=True)
-        lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
-            qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
-        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d,
-                                          torch.bfloat16, True)
-        tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
-        _log(f"time llama3 {name} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
-             f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} "
-             f"of bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-             f"bound {bound_ms:.4f} ms ({bound_by})")
-        ft[f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
-        del q, k, v, qt, kt, vt
-    # K1 at d WIDE_HEAD_DIM (the mma.sync flash_fwd_bf16 kernel: the
-    # build's ptxas lines above give its registers and spills), at the
-    # training shape with 8 / 4 heads
-    b, s, h, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 8, 4, WIDE_HEAD_DIM
+    ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
+        f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
+        for name, d in FT_HEAD_DIMS}
+    # the wide head dims at the training shape (flash_fwd_wgmma<256> and
+    # <192>: the build's ptxas lines above give their registers and spills)
+    wide = {name: dict(
+        _time_k1(name, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, gen),
+        max_abs_err=worst_wide[d],
+        shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal")
+        for name, (h, hkv, d) in WIDE_HEADS.items()}
+    return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft,
+                wide=wide)
+
+
+def _time_k1(label, b, s, h, hkv, d, gen) -> dict:
+    """K1 at one bf16 causal shape, timed beside its plain version and
+    SDPA's forward, with its TF/s and share of the bound."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
     q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), queue_ahead=True)
@@ -532,15 +557,13 @@ def phase_kernels() -> dict:
     bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
                                       True)
     tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
-    _log(f"time flash_fwd_bf16 b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
-         f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
-         f"bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+    _log(f"time {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: kernel "
+         f"{ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of bound), "
+         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
          f"{bound_ms:.4f} ms ({bound_by})")
-    ft[f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal (flash_fwd_bf16)"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-        bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
-    del q, k, v, qt, kt, vt
-    return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                bound_share=bound_ms / ms)
 
 
 def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
@@ -585,8 +608,19 @@ def phase_bwd_kernels() -> dict:
         *((f"llama3 {name} train gqa4 s{FT_SEQ} d{d} bf16", FT_BATCH,
            FT_SEQ, 32, 8, d, torch.bfloat16, True)
           for name, d in FT_HEAD_DIMS),
+        # the wide head dims (phase 12): the training shape, and f32 at a
+        # ragged length
+        *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
+           hkv, d, torch.bfloat16, True)
+          for name, (h, hkv, d) in WIDE_HEADS.items()),
+        *((f"{name} s{PROMPT} f32", 2, PROMPT, h, hkv, d, torch.float32,
+           True)
+          for name, (h, hkv, d) in WIDE_HEADS.items()),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    # the largest error of the bf16 cases at each wide head dim
+    worst_wide = {(kernel, d): 0.0 for kernel in worst
+                  for _, _, d in WIDE_HEADS.values()}
     for name, b, s, h, hkv, d, dtype, causal in cases:
         q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                           causal)
@@ -606,8 +640,14 @@ def phase_bwd_kernels() -> dict:
                                                       delta, causal)
         ek = _check(f"{name} dk", dk, want_dk, atol, rtol)
         ev = _check(f"{name} dv", dv, want_dv, atol, rtol)
-        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e)
-        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
+        if ("flash_bwd_dq", d) not in worst_wide:
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e)
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
+        elif dtype == torch.bfloat16:
+            worst_wide["flash_bwd_dq", d] = max(worst_wide["flash_bwd_dq", d],
+                                                e)
+            worst_wide["flash_bwd_dkv", d] = max(
+                worst_wide["flash_bwd_dkv", d], ek, ev)
         _log(f"kernel {name}: dq max abs err {e:.3e}, dk {ek:.3e}, dv "
              f"{ev:.3e} (atol {atol}, rtol {rtol})")
         if dtype == torch.bfloat16:
@@ -698,44 +738,21 @@ def phase_bwd_kernels() -> dict:
     # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
     for name in out:
         out[name]["more_shapes"] = {}
+        out[name]["wide"] = {}
     for label, d in FT_HEAD_DIMS:
-        b, s, h, hkv = FT_BATCH, FT_SEQ, 32, 8
-        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, torch.bfloat16,
-                                          gen, True)
-        delta = fa.flash_bwd_delta(o, do)
-        sq, sk, sv = (t.detach().clone().requires_grad_(True)
-                      for t in (q, k, v))
-        so = torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=True, enable_gqa=True)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(
-            so, (sq, sk, sv), do, retain_graph=True), iters=10,
-            queue_ahead=True)
-        for name, kern, plain, kind in (
-                ("flash_bwd_dq",
-                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
-                 lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                   True), "dq"),
-                ("flash_bwd_dkv",
-                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-                 lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                    True), "dkv")):
-            ms = _time_ms(kern, queue_ahead=True)
-            plain_ms = _time_ms(plain, iters=3, warmup=1, queue_ahead=True)
-            bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d,
-                                              torch.bfloat16, True, kind)
-            tflops = kernel_flops(b, h, s, s, d, True, kind) / ms / 1e9
-            _log(f"time {name} llama3 {label} b{b} s{s} h{h} hkv{hkv} d{d} "
-                 f"bf16 causal: kernel {ms:.4f} ms ({tflops:.1f} TF/s, "
-                 f"{bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, "
-                 f"sdpa backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                 f"({bound_by})")
+        for name, n in _time_k2_k3(f"llama3 {label}", FT_BATCH, FT_SEQ, 32,
+                                   8, d, gen).items():
             out[name]["more_shapes"][
-                f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
-                bound_share=bound_ms / ms)
-        del q, k, v, do, o, lse, delta, sq, sk, sv, so
-        torch.cuda.empty_cache()
+                f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal"] = n
+    # the wide head dims at the training shape (dq_wgmma and dkv_wgmma at
+    # <256> and <192>)
+    for label, (h, hkv, d) in WIDE_HEADS.items():
+        for name, n in _time_k2_k3(label, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d,
+                                   gen).items():
+            out[name]["wide"][label] = dict(
+                n, max_abs_err=worst_wide[name, d],
+                shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 "
+                      "causal")
     q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
                                                   torch.float32, gen, True)
     d32 = fa.flash_bwd_delta(o32, do32)
@@ -746,6 +763,49 @@ def phase_bwd_kernels() -> dict:
                 q32, k32, v32, do32, lse32, d32, True))):
         _log(f"time {name} b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel "
              f"{_time_ms(fn, iters=5, queue_ahead=True):.4f} ms")
+    return out
+
+
+def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
+    """K2 and K3 at one bf16 causal shape, each timed beside its plain
+    version and SDPA's backward (one call for dQ, dK and dV together),
+    with TF/s and the share of the bound: {kernel name: numbers}."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, torch.bfloat16, gen,
+                                      True)
+    delta = fa.flash_bwd_delta(o, do)
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
+    out = {}
+    for name, kern, plain, kind in (
+            ("flash_bwd_dq",
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               True), "dq"),
+            ("flash_bwd_dkv",
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                True), "dkv")):
+        ms = _time_ms(kern, queue_ahead=True)
+        plain_ms = _time_ms(plain, iters=3, warmup=1, queue_ahead=True)
+        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
+                                          True, kind)
+        tflops = kernel_flops(b, h, s, s, d, True, kind) / ms / 1e9
+        _log(f"time {name} {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+             f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
+             f"bound), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
+             f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                         bound_share=bound_ms / ms)
+    del q, k, v, do, o, lse, delta, sq, sk, sv, so
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3562,6 +3622,182 @@ def _world1_resnet(mesh, fa) -> None:
     return None
 
 
+# ------------------------------------------------------------ phase 12
+
+def phase_wide_heads() -> dict:
+    """PRESET at head dims 256 and 192 (WIDE_HEADS): ``make_train_step``
+    at the training shape, WIDE_STEPS steps on one fixed batch, with exact
+    launch counts per step (K1 2 L, K2 L, K3 L), a finite loss that falls,
+    step time, tokens/s, MFU and peak memory; then the d 256 model serves.
+    Returns {head dim: {path: launch counts}} of exactly the counted
+    runs. One more step of each runs under the profiler, uncounted."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+    from service_account_auth_improvements_tpu_torch.train.mfu import (
+        chip_peak_flops,
+        mfu,
+    )
+
+    base = llama.PRESETS[PRESET]
+    out = {}
+    for name, (h, hkv, d) in WIDE_HEADS.items():
+        cfg = dataclasses.replace(base, n_heads=h, n_kv_heads=hkv,
+                                  head_dim=d)
+        if h * d != base.n_heads * base.head_dim:
+            raise AssertionError(f"{name}: h * d differs from {PRESET}'s")
+        L = cfg.n_layers
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = step_mod.init_train_state(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        step = step_mod.make_train_step(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                               generator=torch.Generator(device=DEV)
+                               .manual_seed(2), device=DEV)
+        mask = torch.ones_like(tokens)
+        layers = state.params["layers"]
+        _log(f"wide heads: {name} ({cfg.param_count() / 1e6:.1f}M params, "
+             f"{h} / {hkv} heads of {d}, wq {tuple(layers['wq'].shape[1:])}, "
+             f"wk {tuple(layers['wk'].shape[1:])}), batch {TRAIN_BATCH} x "
+             f"{TRAIN_SEQ}")
+        losses, norms = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        _zero(fa)  # the counted run
+        for i in range(WIDE_STEPS):
+            if i == 1:  # the first step is the warm-up
+                start.record()
+            state, m = step(state, tokens, mask)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        end.record()
+        torch.cuda.synchronize()
+        launches = _counts(fa)  # read just after
+        want = {"flash_fwd": 2 * L * WIDE_STEPS,
+                "flash_bwd_dq": L * WIDE_STEPS,
+                "flash_bwd_dkv": L * WIDE_STEPS}
+        if launches != want:
+            raise AssertionError(f"{name} launches {launches}, expected "
+                                 f"{want} (per step: K1 2x{L}, K2 and K3 "
+                                 f"{L})")
+        losses = [float(x) for x in losses]
+        norms = [float(x) for x in norms]
+        _log(f"wide heads {name}: launches {launches} = per step K1 "
+             f"{2 * L}, K2 {L}, K3 {L}, over {WIDE_STEPS} steps; losses "
+             f"{[round(x, 4) for x in losses]}, grad norms "
+             f"{[round(x, 4) for x in norms]}")
+        if not all(map(torch.isfinite, map(torch.tensor, losses + norms))):
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall on the "
+                                 f"repeated batch: {losses}")
+        step_ms = start.elapsed_time(end) / (WIDE_STEPS - 1)
+        tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ - 1)
+        tok_s = tokens_per_step / (step_ms / 1e3)
+        peak = chip_peak_flops()
+        util = mfu(cfg.flops_per_token(TRAIN_SEQ) * tokens_per_step,
+                   step_ms / 1e3, 1, peak)
+        _log(f"wide heads {name}: step {step_ms:.2f} ms (CUDA events, mean "
+             f"of {WIDE_STEPS - 1} steps after one warm-up), {tok_s:.1f} "
+             f"tokens/s, mfu {util:.4f} (peak {peak / 1e12:.0f} TF/s bf16), "
+             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+             "GiB")
+        _log(f"wide heads {name}: one step under the profiler:")
+        _profile_step(step, state, tokens, mask)
+        paths = {"training": launches}
+        del step, m
+        if d == 256:
+            paths.update(_wide_serving(cfg, state.params, fa))
+        out[d] = paths
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wide_serving(cfg, params, fa) -> dict:
+    """The trained d 256 model in bf16 behind ``GenerationService``
+    (per-length prefill) answering one greedy request over HTTP: K1 once
+    per layer, the first tokens ``llama.apply``'s argmax; then greedy f32
+    decoding, flash (K1's f32 route) against dense, token for token.
+    Returns the launch counts of each counted run."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+        serving,
+    )
+    from service_account_auth_improvements_tpu_torch.train import (
+        step as step_mod,
+    )
+
+    L = cfg.n_layers
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    params16 = step_mod._map(lambda t: t.detach().to(torch.bfloat16), params)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    svc = serving.GenerationService(cfg16, params16, prefill_window=0,
+                                    device=DEV, name="wide")
+    url, stop = _served(svc)
+    body = {"prompt_ids": prompts.tolist(), "max_new_tokens": NEW}
+    _zero(fa)  # the counted request
+    try:
+        t0 = time.perf_counter()
+        got = json.loads(_http(url, "/v1/completions", body))
+        wall = time.perf_counter() - t0
+    finally:
+        served = _counts(fa)  # read just after
+        stop()
+    _assert_completion("wide greedy", got, cfg.vocab_size)
+    if served != {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"wide serving launches {served}, expected K1 "
+                             f"{L} (one per-length prefill)")
+    toks = prompts.to(DEV)
+    with torch.inference_mode():
+        first = llama.apply(cfg16, params16, toks)[:, -1].argmax(-1)
+        dense16 = generate.generate(
+            dataclasses.replace(cfg16, attn_impl="dense"), params16, toks,
+            NEW, device=DEV)[:, PROMPT:]
+    if first.tolist() != [r[0] for r in got["completion_ids"]]:
+        raise AssertionError("wide serving: first greedy token differs from "
+                             "argmax of llama.apply")
+    # bf16: flash and dense round P and O at different points, so a near
+    # tie may decode apart; the agreement is reported, exactness is held
+    # in f32 below
+    agree = (torch.tensor(got["completion_ids"], device=DEV)
+             == dense16).float().mean().item()
+    _log(f"wide heads serving d{cfg.head_dim}: {wall * 1e3:.1f} ms for "
+         f"{BATCH} x ({PROMPT} + {NEW}) tokens over HTTP, launches {served} "
+         f"(K1 {L} per per-length prefill); first tokens = llama.apply's; "
+         f"greedy tokens equal to the dense path's: {agree:.4f}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    short = toks[:2, :256]
+    _zero(fa)  # the counted f32 decode
+    with torch.inference_mode():
+        flash = generate.generate(cfg32, params, short, 16, device=DEV)
+        decoded = _counts(fa)
+        dense = generate.generate(dataclasses.replace(cfg32,
+                                                      attn_impl="dense"),
+                                  params, short, 16, device=DEV)
+    if decoded["flash_fwd"] != L:
+        raise AssertionError(f"f32 greedy launches {decoded}, expected K1 "
+                             f"{L}")
+    if not torch.equal(flash, dense):
+        raise AssertionError("wide f32 greedy tokens: flash differs from "
+                             "dense")
+    _log(f"wide heads greedy f32 (b 2, 256 + 16, d{cfg.head_dim}): flash "
+         f"equals dense token for token, K1 {decoded['flash_fwd']}")
+    return {"serving": served, "greedy f32": decoded}
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3579,6 +3815,7 @@ def main() -> int:
     phase_side_models()
     parallel = phase_parallel()
     parallel.update(phase_parallel2())
+    wide = _timed("wide heads", phase_wide_heads)
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():
@@ -3609,6 +3846,23 @@ def main() -> int:
             "bound_share": n["bound_share"],
             "more_shapes": n["more_shapes"],
         })
+    # the wide head dims' routes (phase 12), one entry per kernel and dim
+    for label, (_, _, d) in WIDE_HEADS.items():
+        for name, (src, _, line) in KERNELS.items():
+            n = numbers[name]["wide"][label]
+            by_path = {path: counts[name] for path, counts in wide[d].items()}
+            kernels.append({
+                "name": f"{name} d{d}",
+                "route": "cuda",
+                "source": f"{PKG}/csrc/{src}",
+                "replaces": "service_account_auth_improvements_tpu/ops/"
+                            f"flash_attention.py:{line}",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **{key: n[key] for key in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "tflops", "bound_share")},
+            })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

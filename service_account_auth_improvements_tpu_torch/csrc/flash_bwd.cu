@@ -39,11 +39,12 @@
 //
 // What bounds it on an H100: at the training shape (s 2048, d 128) K2 does
 // 3 and K3 4 products of 2 s^2 d / 2 flops per (b, h) against ~6 s d bytes:
-// hundreds of flops per byte, so both are bound by operations. In bf16 (d 64
-// and 128) both are built for Hopper, as K1 is: a producer warpgroup streams
-// tiles by TMA through a ring of shared-memory stages tracked by mbarriers,
-// and two consumer warpgroups run every product on wgmma with the scores in
-// registers; see the notes above `dq_wgmma` and `dkv_wgmma`.
+// hundreds of flops per byte, so both are bound by operations. In bf16 (d 64,
+// 128, 192 and 256) both are built for Hopper, as K1 is: a producer
+// warpgroup streams tiles by TMA through a ring of shared-memory stages
+// tracked by mbarriers, and two consumer warpgroups run every product on
+// wgmma with the scores in registers; see the notes above `dq_wgmma` and
+// `dkv_wgmma`.
 //
 // float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
 // f32 parity with the reference holds.
@@ -94,6 +95,8 @@ __device__ __forceinline__ T* head_ptr_mut(void* base, const int64_t (&s)[3],
 using bf16 = __nv_bfloat16;
 
 constexpr int WG = 128;  // threads per warpgroup
+// shared memory a block may use on an H100 (227 KB)
+constexpr int SMEM_MAX = 232448;
 
 // K2, bf16: dQ for one (b, head, 128-row query tile), on wgmma.
 //
@@ -124,16 +127,29 @@ constexpr int WG = 128;  // threads per warpgroup
 // 128-key stages (m64n128 score products) hold 64 each, spill and serialise
 // every wgmma. Issuing S as soon as K lands, with dP in a second commit
 // group once V has, is no faster than one group for both: with four stages
-// in the ring V has landed long before.
+// in the ring V has landed long before. Above d 128 the dQ accumulator is
+// D / 2 registers (128 at d 256), so the key tiles are 32 (dq_bk: S and dP
+// m64n32, 16 registers each) and dQ += dS K runs as one m64n128 chain per
+// 128 columns.
 
 constexpr int DQ_BQ = 128;           // query rows per block: 64 per consumer
-constexpr int DQ_BK = 64;            // keys per K/V stage
-constexpr int DQ_STAGES = 256 / DQ_BK;  // 4 of 64 keys or 2 of 128
+constexpr int DQ_BK = 64;            // keys per K/V stage up to d 128
 constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
+
+// Keys per K/V stage: DQ_BK up to d 128, 32 above, where S and dP of 64
+// keys beside dQ's D / 2 registers made ptxas spill and serialise the
+// wgmmas. Stages in the ring: 256 keys' worth (4 of 64 keys or 2 of 128),
+// or as many as fit beside the resident Q and dO (d 192: 5, d 256: 3).
+constexpr int dq_bk(int d) { return d <= 128 ? DQ_BK : 32; }
+constexpr int dq_stages(int d) {
+  const int fit =
+      (SMEM_MAX - 2048 - 2 * DQ_BQ * d * 2) / (2 * dq_bk(d) * d * 2);
+  return fit >= 256 / dq_bk(d) ? 256 / dq_bk(d) : fit > 1 ? fit : 1;
+}
 
 struct DqArgs {
   CUtensorMap tq, tdo;  // boxes of 64 columns x DQ_BQ rows
-  CUtensorMap tk, tv;   // boxes of 64 columns x DQ_BK rows
+  CUtensorMap tk, tv;   // boxes of 64 columns x dq_bk(D) rows
   const float* lse;     // [b, h, sq] contiguous
   const float* delta;
   void* dq;
@@ -146,6 +162,8 @@ struct DqArgs {
 // tile is D / 64 column blocks of (rows x 128 bytes).
 template <int D>
 struct DqSmem {
+  static constexpr int DQ_BK = dq_bk(D);
+  static constexpr int DQ_STAGES = dq_stages(D);
   static constexpr int Q_CB = DQ_BQ * 128;  // column block stride
   static constexpr int KV_CB = DQ_BK * 128;
   static constexpr int Q_BYTES = DQ_BQ * D * 2;
@@ -164,6 +182,7 @@ __device__ __forceinline__ void dq_consumer(const DqArgs& a, uint32_t base,
                                             int q0, int ih, int ib, int nk) {
   using namespace hopper;
   using L = DqSmem<D>;
+  constexpr int DQ_BK = L::DQ_BK, DQ_STAGES = L::DQ_STAGES;
   const uint32_t bar = base + L::BAR_OFF;
   const uint32_t q_full = bar, full = bar + 8, empty = full + 8 * DQ_STAGES;
   const int c = threadIdx.x / WG - 1;  // this warpgroup's 64 query rows
@@ -237,7 +256,7 @@ __device__ __forceinline__ void dq_consumer(const DqArgs& a, uint32_t base,
     fence_regs(dq);
     fence_regs(f);
     wgmma_fence();
-    wgmma_rs_t<D, DQ_BK / 16>(dq, f, desc_sw128(k_addr, L::KV_CB, 1024));
+    wgmma_rs_t_cols<D, DQ_BK / 16, L::KV_CB>(dq, f, k_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -262,6 +281,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 dq_wgmma(const __grid_constant__ DqArgs a) {
   using namespace hopper;
   using L = DqSmem<D>;
+  constexpr int DQ_BK = L::DQ_BK, DQ_STAGES = L::DQ_STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bar = base + L::BAR_OFF;
@@ -324,20 +344,21 @@ dq_wgmma(const __grid_constant__ DqArgs a) {
 //
 // Warp specialisation: warpgroup 0 is the producer (40 registers): one
 // thread loads K and V of the block's keys once by TMA, to stay in shared
-// memory, and streams Q and dO for 128 query rows at a time by TMA through a
-// ring of DKV_STAGES stages, while the warp's 32 lanes copy the rows' lse
-// and delta beside them (a TMA box of those would start off a 16-byte
-// boundary whenever s_q is odd). It walks the group's query heads and, for
-// each, the query tiles from the diagonal on, and does so twice. Warpgroups
-// 1 and 2 are consumers that own 64 keys each (232 registers) and make two
-// passes over that sequence, one accumulator in f32 registers per pass:
-//   dV pass:  S^T = K Q^T                 wgmma m64n128k16, both from shared
+// memory, and streams Q and dO for BQ query rows at a time by TMA through a
+// ring of STAGES stages (see DkvSmem), while the warp's 32 lanes copy the
+// rows' lse and delta beside them (a TMA box of those would start off a
+// 16-byte boundary whenever s_q is odd). It walks the group's query heads
+// and, for each, the query tiles from the diagonal on, and does so twice.
+// Warpgroups 1 and 2 are consumers that own 64 keys each (232 registers)
+// and make two passes over that sequence, one accumulator in f32 registers
+// per pass:
+//   dV pass:  S^T = K Q^T                 wgmma m64nBQk16, both from shared
 //             P^T = exp2(S^T scale log2e - lse log2e), masked, rounded to
 //             bf16
 //             dV += P^T dO                 wgmma m64nDk16, A = P^T from
 //                                          registers (the S^T fragment
 //                                          re-packed), B = dO read MN-major
-//   dK pass:  per 64-query half of the stage:
+//   dK pass:  per part of the stage (64 queries, or the stage if less):
 //             S^T = K Q^T, dP^T = V dO^T   both wgmma m64n64k16
 //             dS^T = P^T (dP^T - delta), P rounded first, dS rounded to bf16
 //             dK += dS^T Q                 as dV
@@ -352,16 +373,21 @@ dq_wgmma(const __grid_constant__ DqArgs a) {
 // query row and make the dV pass's S^T an m64n128 product, which shared
 // memory can feed at the tensor cores' rate (m64n64 with both operands in
 // shared memory cannot).
+// Above d 128 the same design takes 32-row stages (BQ: S^T and dP^T are
+// m64n32, 16 registers each), as many as fit beside K and V (d 192: 4,
+// d 256: 3; K and V of 128 keys take 128 KB at d 256): with 64 rows
+// beside the D / 2 accumulator registers ptxas spilled and serialised the
+// wgmmas. The dK and dV accumulators stay one per pass; a wide product
+// dV += P^T dO or dK += dS^T Q is one m64n128 chain per 128 columns
+// (hopper::wgmma_rs_t_cols).
 // dK is scaled once, at the end. Every sum runs in one block in a fixed
 // order: deterministic.
 
 constexpr int DKV_BK = 128;         // keys per block: 64 per consumer
-constexpr int DKV_BQ = 128;         // query rows per stage
-constexpr int DKV_STAGES = 2;
 constexpr int DKV_THREADS = 3 * WG;  // producer + two consumers
 
 struct DkvArgs {
-  CUtensorMap tq, tdo;     // boxes of 64 columns x DKV_BQ rows
+  CUtensorMap tq, tdo;     // boxes of 64 columns x DkvSmem<D>::BQ rows
   CUtensorMap tk, tv;      // boxes of 64 columns x DKV_BK rows
   const float* lse;        // [b, h, sq] contiguous
   const float* delta;
@@ -374,23 +400,29 @@ struct DkvArgs {
 
 // Shared memory: K, V (the block's keys), the Q and dO stages, the lse and
 // delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
-// (rows x 128 bytes).
+// (rows x 128 bytes). A stage holds BQ query rows: 128 in 2 stages up to
+// d 128, 32 above in as many stages as fit (at most 4).
 template <int D>
 struct DkvSmem {
+  static constexpr int BQ = D <= 128 ? 128 : 32;  // query rows per stage
   static constexpr int KV_CB = DKV_BK * 128;  // column block stride
-  static constexpr int QT_CB = DKV_BQ * 128;
+  static constexpr int QT_CB = BQ * 128;
   static constexpr int KV_BYTES = DKV_BK * D * 2;
-  static constexpr int QT_BYTES = DKV_BQ * D * 2;
-  static constexpr int ROW_BYTES = DKV_BQ * 4;  // lse or delta of a tile
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int ROW_BYTES = BQ * 4;  // lse or delta of a tile
+  static constexpr int FIT =
+      (SMEM_MAX - 2048 - 2 * KV_BYTES) / (2 * QT_BYTES + 2 * ROW_BYTES);
+  static constexpr int STAGES = D <= 128 ? 2 : FIT < 4 ? FIT : 4;
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;
-  static constexpr int DO_OFF = Q_OFF + DKV_STAGES * QT_BYTES;
-  static constexpr int L_OFF = DO_OFF + DKV_STAGES * QT_BYTES;
-  static constexpr int DL_OFF = L_OFF + DKV_STAGES * ROW_BYTES;
-  static constexpr int BAR_OFF = DL_OFF + DKV_STAGES * ROW_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = DL_OFF + STAGES * ROW_BYTES;
   // mbarriers: kv_full, full[S], empty[S]
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DKV_STAGES) + 1024;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
 };
 
 // Per consumer thread, from an S^T accumulator of NQ queries (columns):
@@ -455,12 +487,12 @@ __device__ __forceinline__ void dkv_store(bf16* out, int64_t ss,
 }
 
 // One consumer pass over the block's stage sequence (`tiles` stages of
-// DKV_BQ queries, ring positions from i0), one f32 accumulator:
-//   PASS 0, dV: S^T of the whole stage (m64n128), P^T, dV += P^T dO;
-//   PASS 1, dK: per 64-query half, S^T and dP^T (m64n64), dS^T,
+// BQ queries, ring positions from i0), one f32 accumulator:
+//   PASS 0, dV: S^T of the whole stage (m64nBQ), P^T, dV += P^T dO;
+//   PASS 1, dK: per part of H queries, S^T and dP^T (m64nH), dS^T,
 //               dK += dS^T Q.
 // No branch encloses a wgmma (ptxas serialises wgmma on paths it cannot
-// prove uniform), so a causal half wholly before this warpgroup's keys is
+// prove uniform), so a causal part wholly before this warpgroup's keys is
 // computed, with P = 0.
 template <int D, int PASS>
 __device__ __forceinline__ void dkv_pass(const DkvArgs& a, uint32_t base,
@@ -470,9 +502,9 @@ __device__ __forceinline__ void dkv_pass(const DkvArgs& a, uint32_t base,
                                          bf16* out, int64_t ss) {
   using namespace hopper;
   using L = DkvSmem<D>;
-  constexpr int H = 64;  // queries per half in the dK pass
-  const uint32_t full = base + L::BAR_OFF + 8,
-                 empty = full + 8 * DKV_STAGES;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  constexpr int H = BQ < 64 ? BQ : 64;  // queries per part in the dK pass
+  const uint32_t full = base + L::BAR_OFF + 8, empty = full + 8 * STAGES;
   const uint32_t k_addr = base + L::K_OFF + (kw0 % DKV_BK) * 128;
   const uint32_t v_addr = base + L::V_OFF + (kw0 % DKV_BK) * 128;
   float acc[D / 2];
@@ -481,40 +513,38 @@ __device__ __forceinline__ void dkv_pass(const DkvArgs& a, uint32_t base,
 #pragma unroll 1
   for (int n = 0; n < tiles; ++n) {
     const int i = i0 + n;
-    const int s = i % DKV_STAGES;
-    const int q0 = (iq0 + n % nqt) * DKV_BQ;
+    const int s = i % STAGES;
+    const int q0 = (iq0 + n % nqt) * BQ;
     const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
     const uint32_t do_addr = base + L::DO_OFF + s * L::QT_BYTES;
     const float* ls =
         reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
     const float* dl =
         reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
-    mbar_wait(full + 8 * s, (i / DKV_STAGES) & 1);
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
 
     if constexpr (PASS == 0) {
-      const bool need_mask =
-          (a.causal && q0 < kw0 + 64) || q0 + DKV_BQ > a.sq;
-      float st[DKV_BQ / 2];
+      const bool need_mask = (a.causal && q0 < kw0 + 64) || q0 + BQ > a.sq;
+      float st[BQ / 2];
       wgmma_fence();
-      wgmma_ss<DKV_BQ, D / 16, L::KV_CB, L::QT_CB>(
+      wgmma_ss<BQ, D / 16, L::KV_CB, L::QT_CB>(
           st, desc_sw128(k_addr, 16, 1024), desc_sw128(q_addr, 16, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
-      dkv_probs<DKV_BQ>(st, st, ls, a, q0, key0, key1, tq, need_mask);
-      uint32_t f[DKV_BQ / 16][4];
-      dkv_pack<DKV_BQ>(f, st);  // rounds P to dO's dtype
+      dkv_probs<BQ>(st, st, ls, a, q0, key0, key1, tq, need_mask);
+      uint32_t f[BQ / 16][4];
+      dkv_pack<BQ>(f, st);  // rounds P to dO's dtype
       fence_regs(acc);
       fence_regs(f);
       wgmma_fence();
-      wgmma_rs_t<D, DKV_BQ / 16>(acc, f,
-                                 desc_sw128(do_addr, L::QT_CB, 1024));
+      wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(acc, f, do_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
     } else {
 #pragma unroll
-      for (int h = 0; h < DKV_BQ / H; ++h) {
+      for (int h = 0; h < BQ / H; ++h) {
         const int qh = q0 + h * H;
         const bool need_mask = (a.causal && qh < kw0 + 64) || qh + H > a.sq;
         float st[H / 2], dpt[H / 2];
@@ -546,8 +576,7 @@ __device__ __forceinline__ void dkv_pass(const DkvArgs& a, uint32_t base,
         fence_regs(acc);
         fence_regs(f);
         wgmma_fence();
-        wgmma_rs_t<D, H / 16>(acc, f,
-                              desc_sw128(q_addr + h * H * 128, L::QT_CB, 1024));
+        wgmma_rs_t_cols<D, H / 16, L::QT_CB>(acc, f, q_addr + h * H * 128);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -567,8 +596,9 @@ __device__ __forceinline__ void dkv_consumer(const DkvArgs& a, uint32_t base,
   const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
   const int kw0 = k0 + 64 * c;
   const int key0 = kw0 + 16 * w + g, key1 = key0 + 8;
-  const int nq = (a.sq + DKV_BQ - 1) / DKV_BQ;
-  const int iq0 = a.causal ? k0 / DKV_BQ : 0;
+  constexpr int BQ = DkvSmem<D>::BQ;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
   const int tiles = a.h / a.hkv * (nq - iq0);  // per pass
 
   hopper::mbar_wait(base + DkvSmem<D>::BAR_OFF, 0);  // K and V
@@ -585,12 +615,12 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 dkv_wgmma(const __grid_constant__ DkvArgs a) {
   using namespace hopper;
   using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t bar = base + L::BAR_OFF;
-  const uint32_t kv_full = bar, full = bar + 8,
-                 empty = full + 8 * DKV_STAGES;
+  const uint32_t kv_full = bar, full = bar + 8, empty = full + 8 * STAGES;
 
   // heaviest key tiles (the first, under causal masking) first
   const int hb = a.hkv * a.batch;
@@ -601,7 +631,7 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 32);  // the producer warp's lanes
       mbar_init(empty + 8 * s, 2 * WG);
     }
@@ -624,25 +654,25 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
         }
       }
       const int group = a.h / a.hkv;
-      const int nq = (a.sq + DKV_BQ - 1) / DKV_BQ;
-      const int iq0 = a.causal ? k0 / DKV_BQ : 0;
+      const int nq = (a.sq + BQ - 1) / BQ;
+      const int iq0 = a.causal ? k0 / BQ : 0;
       int i = 0;
       for (int pass = 0; pass < 2; ++pass)  // the consumers' dV, then dK pass
       for (int hg = 0; hg < group; ++hg) {
         const int ih = ikv * group + hg;
         const int64_t row = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
         for (int iq = iq0; iq < nq; ++iq, ++i) {
-          const int s = i % DKV_STAGES;
+          const int s = i % STAGES;
           const uint32_t fb = full + 8 * s;
-          mbar_wait(empty + 8 * s, ((i / DKV_STAGES) & 1) ^ 1);
+          mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
           if (lane == 0) {  // Q and dO by TMA
             mbar_expect_tx(fb, 2 * L::QT_BYTES);
 #pragma unroll
             for (int cb = 0; cb < D / 64; ++cb) {
               tma_load_4d(base + L::Q_OFF + s * L::QT_BYTES + cb * L::QT_CB,
-                          &a.tq, fb, cb * 64, iq * DKV_BQ, ih, ib);
+                          &a.tq, fb, cb * 64, iq * BQ, ih, ib);
               tma_load_4d(base + L::DO_OFF + s * L::QT_BYTES + cb * L::QT_CB,
-                          &a.tdo, fb, cb * 64, iq * DKV_BQ, ih, ib);
+                          &a.tdo, fb, cb * 64, iq * BQ, ih, ib);
             }
           }
           // lse and delta by the warp's lanes (rows past sq read as 0),
@@ -653,8 +683,8 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
           float* dl = reinterpret_cast<float*>(smem + L::DL_OFF +
                                                s * L::ROW_BYTES);
 #pragma unroll
-          for (int r = lane; r < DKV_BQ; r += 32) {
-            const int q = iq * DKV_BQ + r;
+          for (int r = lane; r < BQ; r += 32) {
+            const int q = iq * BQ + r;
             ls[r] = q < a.sq ? a.lse[row + q] : 0.f;
             dl[r] = q < a.sq ? a.delta[row + q] : 0.f;
           }
@@ -878,9 +908,9 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in,
         (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
                                  st[DO][2], st[DO][1], st[DO][0], DQ_BQ)) ||
         (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
-                                 st[K][1], st[K][0], DQ_BK)) ||
+                                 st[K][1], st[K][0], DqSmem<D>::DQ_BK)) ||
         (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
-                                 st[V][1], st[V][0], DQ_BK)))
+                                 st[V][1], st[V][0], DqSmem<D>::DQ_BK)))
       return err;
     a.lse = p.lse;
     a.delta = p.delta;
@@ -914,10 +944,11 @@ cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
     DkvArgs a;
     const int64_t(&st)[NSTRIDE][3] = p.st;
     cudaError_t err;
+    constexpr int BQ = DkvSmem<D>::BQ;
     if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, st[Q][2],
-                                 st[Q][1], st[Q][0], DKV_BQ)) ||
+                                 st[Q][1], st[Q][0], BQ)) ||
         (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
-                                 st[DO][2], st[DO][1], st[DO][0], DKV_BQ)) ||
+                                 st[DO][2], st[DO][1], st[DO][0], BQ)) ||
         (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
                                  st[K][1], st[K][0], DKV_BK)) ||
         (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
@@ -989,6 +1020,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (d) {
     case 64: return static_cast<int>(run_dq<64>(p, batch, bf16_in, st));
     case 128: return static_cast<int>(run_dq<128>(p, batch, bf16_in, st));
+    case 192: return static_cast<int>(run_dq<192>(p, batch, bf16_in, st));
+    case 256: return static_cast<int>(run_dq<256>(p, batch, bf16_in, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1007,6 +1040,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   switch (d) {
     case 64: return static_cast<int>(run_dkv<64>(p, batch, bf16_in, st));
     case 128: return static_cast<int>(run_dkv<128>(p, batch, bf16_in, st));
+    case 192: return static_cast<int>(run_dkv<192>(p, batch, bf16_in, st));
+    case 256: return static_cast<int>(run_dkv<256>(p, batch, bf16_in, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,10 +4,10 @@
 // Raw inline PTX, no CUTLASS: the whole header compiles in seconds.
 //
 // Conventions of the kernels that use it:
-// - A tile of R rows of bf16 with a 64- or 128-wide head dim lies in shared
-//   memory as D / 64 "column blocks" of R rows x 128 bytes, each written by
-//   one TMA box with the 128-byte swizzle; every column block starts on a
-//   1024-byte boundary (one swizzle atom = 8 rows x 128 bytes).
+// - A tile of R rows of bf16 with a head dim D of 64, 128, 192 or 256 lies
+//   in shared memory as D / 64 "column blocks" of R rows x 128 bytes, each
+//   written by one TMA box with the 128-byte swizzle; every column block
+//   starts on a 1024-byte boundary (one swizzle atom = 8 rows x 128 bytes).
 // - K-major operand (the reduced dimension is the head dim, contiguous):
 //   SBO = 1024 bytes (next group of 8 rows), LBO unused; a k step of 16
 //   bf16 adds 32 bytes to the start address inside a column block.
@@ -172,6 +172,26 @@ template <int N, int OA, int OB>
 struct WgmmaSS;
 template <int N, int OB>
 struct WgmmaRST;
+
+template <int OA, int OB>
+struct WgmmaSS<32, OA, OB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "add.s64 da, %16, %19;\nadd.s64 db, %17, %20;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "da, db, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+  }
+};
 
 template <int OA, int OB>
 struct WgmmaSS<64, OA, OB> {
@@ -339,6 +359,36 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],
                                            uint64_t db) {
   wgmma_rs_t_chain<N, KSTEPS>(d, a, db,
                               std::make_integer_sequence<int, KSTEPS>{});
+}
+
+// D (64 x N) += A B as above, for any N a multiple of 64 up to 256: B lies
+// MN-major at `b_addr` with its 64-column blocks CB bytes apart. N <= 128 is
+// one chain; a wider N (192, 256) is one m64n128 chain per 128 columns and
+// an m64n64 chain for a last 64, since the accumulator of a 64 x N tile is
+// its column chunks' accumulators side by side (register 4j + e holds
+// column 8j + ...), all fed the same A fragments.
+template <int N, int KSTEPS, int CB, int... C>
+__device__ __forceinline__ void wgmma_rs_t_wide(
+    float (&d)[N / 2], const uint32_t (&a)[KSTEPS][4], uint32_t b_addr,
+    std::integer_sequence<int, C...>) {
+  (wgmma_rs_t<128, KSTEPS>(*reinterpret_cast<float(*)[64]>(d + 64 * C), a,
+                           desc_sw128(b_addr + 2 * C * CB, CB, 1024)),
+   ...);
+  if constexpr (N % 128 != 0)
+    wgmma_rs_t<64, KSTEPS>(*reinterpret_cast<float(*)[32]>(d + N / 2 - 32),
+                           a, desc_sw128(b_addr + (N / 64 - 1) * CB, CB, 1024));
+}
+
+template <int N, int KSTEPS, int CB>
+__device__ __forceinline__ void wgmma_rs_t_cols(float (&d)[N / 2],
+                                                const uint32_t (&a)[KSTEPS][4],
+                                                uint32_t b_addr) {
+  static_assert(N % 64 == 0 && N <= 256, "N: a multiple of 64 up to 256");
+  if constexpr (N <= 128)
+    wgmma_rs_t<N, KSTEPS>(d, a, desc_sw128(b_addr, CB, 1024));
+  else
+    wgmma_rs_t_wide<N, KSTEPS, CB>(d, a, b_addr,
+                                   std::make_integer_sequence<int, N / 128>{});
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

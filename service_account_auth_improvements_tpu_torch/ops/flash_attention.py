@@ -13,13 +13,14 @@ kernel cannot take raises, it never falls back. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
 
 Inside each library the entry point picks the kernel by dtype and head
-dim, never by catching an error: in bf16, K1 at d 64 and 128 is
-``flash_fwd_wgmma``, K2 is ``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA
-loads into an mbarrier ring, a producer warp, consumer warpgroups on
-wgmma, with the pieces in ``csrc/hopper.cuh``); bf16 K1 at d 192 and 256,
-which no preset uses and the backward does not take, keeps the first
-``mma.sync`` kernel ``flash_fwd_bf16``; float32 runs the scalar kernels.
-All count under the same counters.
+dim, never by catching an error: in bf16, K1 is ``flash_fwd_wgmma``, K2 is
+``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA loads into an mbarrier ring, a
+producer warp, consumer warpgroups on wgmma, with the pieces in
+``csrc/hopper.cuh``), each built for every head dim in
+``KERNEL_HEAD_DIMS`` with tiles chosen per dim; float32 runs the scalar
+kernels. All count under the same counters. A CUDA tensor at a head dim
+the kernels are not built for raises (the reference's Pallas kernels also
+take d 320 to 512; the port does not yet).
 
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
@@ -52,9 +53,8 @@ from service_account_auth_improvements_tpu_torch.ops.attention import (
 # multiple of this (causal ones are masked to their length)
 BLOCK_Q = 128
 BLOCK_K = 128
+#: head dims K1, K2 and K3 are built for, in bf16 and f32
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
-#: head dims the backward kernels (K2, K3) are built for
-BWD_HEAD_DIMS = (64, 128)
 
 #: kernel launches since the last reset (tests and chip_smoke.py read
 #: them): K1 (forward), K2 (dQ) and K3 (dK/dV)
@@ -142,9 +142,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise ValueError(f"the flash backward kernels support head_dim "
-                             f"in {BWD_HEAD_DIMS} (got {q.shape[-1]})")
         o, lse = _forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
@@ -339,9 +336,9 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
     _, hkv, sk, _ = k.shape
     outs = [t for t in (dq, dk, dv) if t is not None]
     _check_layout(fn_name, (q, k, v, do, *outs), q.dtype)
-    if d not in BWD_HEAD_DIMS:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{fn_name} kernel supports head_dim in "
-                         f"{BWD_HEAD_DIMS} (got {d})")
+                         f"{KERNEL_HEAD_DIMS} (got {d})")
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or h % hkv or do.shape != q.shape):
         raise ValueError(f"{fn_name}: bad shapes q {tuple(q.shape)}, "

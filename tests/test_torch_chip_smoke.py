@@ -151,3 +151,30 @@ def test_parallel_settings():
     assert chip_smoke.RING_CONTROL_PEEK >= 1
     assert (chip_smoke.GRAD_TOL["f32"]["leaf"]
             < chip_smoke.GRAD_TOL["bf16"]["leaf"])
+
+
+def test_wide_head_settings():
+    """Phase 12's configurations keep the preset's h * d (so wq and wo
+    keep their shapes and each kernel does the preset's work), take head
+    dims every kernel is built for, differ from the preset only in their
+    heads, and time steps after a warm-up."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import llama
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    base = llama.PRESETS[chip_smoke.PRESET]
+    assert sorted(d for _, _, d in chip_smoke.WIDE_HEADS.values()) == [
+        192, 256]
+    for name, (h, hkv, d) in chip_smoke.WIDE_HEADS.items():
+        assert name == f"{chip_smoke.PRESET}_d{d}"
+        assert d in fa.KERNEL_HEAD_DIMS and h % hkv == 0
+        assert h * d == base.n_heads * base.head_dim
+        cfg = dataclasses.replace(base, n_heads=h, n_kv_heads=hkv,
+                                  head_dim=d)
+        assert cfg.q_dim == base.q_dim and cfg.attn_impl == "flash"
+    d256 = dataclasses.replace(base, n_heads=6, n_kv_heads=2, head_dim=256)
+    assert d256.param_count() == base.param_count()
+    assert chip_smoke.WIDE_STEPS >= 2

@@ -20,13 +20,20 @@ torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from service_account_auth_improvements_tpu.models import (  # noqa: E402
     convert_hf as jconvert,
 )
+from service_account_auth_improvements_tpu.models import (  # noqa: E402
+    llama as jllama,
+)
 from service_account_auth_improvements_tpu_torch.models import (  # noqa: E402
     convert_hf as tconvert,
     llama as tllama,
+)
+from service_account_auth_improvements_tpu_torch.ops import (  # noqa: E402
+    flash_attention as tfa,
 )
 from service_account_auth_improvements_tpu_torch.train import (  # noqa: E402
     step as tstep,
@@ -110,6 +117,52 @@ def test_params_from_state_dict_match_jax(tie, prefix):
     if tie:
         assert torch.equal(got["lm_head"], got["tok_embed"].T)
         assert got["lm_head"].data_ptr() != got["tok_embed"].data_ptr()
+
+
+def test_head_dim_256_converts_like_jax_and_gives_its_first_loss():
+    """An HF config whose ``head_dim`` (256) is wider than hidden / heads,
+    as checkpoints may give it: both packages read the same config and
+    convert the same leaves bit for bit (wq [64, 2·256], wk/wv [64, 256]),
+    and the port's first loss through flash attention (the kernels' plain
+    versions on the CPU, no launch) equals JAX's (its dense path on the
+    CPU) within f32 summation order through two layers (2e-6, the train
+    tests' loss tolerance)."""
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=256, rope_theta=10_000.0, rms_norm_eps=1e-5,
+        max_position_embeddings=128, tie_word_embeddings=False,
+        attention_bias=False, mlp_bias=False)
+    torch.manual_seed(0)
+    model = transformers.LlamaForCausalLM(hf_cfg)
+    cfg = tconvert.config_from_hf(model.config.to_dict())
+    jcfg = jconvert.config_from_hf(model.config.to_dict())
+    assert _fields(cfg) == _fields(jcfg)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (2, 1, 256)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    jparams = jconvert.params_from_hf_state_dict(jcfg, sd)
+    params = tconvert.params_from_hf_state_dict(cfg, sd, device="cpu")
+    assert tuple(params["layers"]["wq"].shape) == (2, 64, 512)
+    assert tuple(params["layers"]["wk"].shape) == (2, 64, 256)
+    flat_want = dict(zip(
+        ["/".join(str(k.key) for k in path) for path, _ in
+         jax.tree_util.tree_flatten_with_path(jparams)[0]],
+        jax.tree.leaves(jparams)))
+    flat_got = dict(tstep._leaves(params))
+    assert sorted(flat_got) == sorted(flat_want)
+    for name, t in flat_got.items():
+        np.testing.assert_array_equal(t.numpy(), np.asarray(flat_want[name]),
+                                      err_msg=name)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
+    tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
+    got = tllama.next_token_loss(
+        dataclasses.replace(cfg, attn_impl="flash", dtype="float32"), params,
+        torch.tensor(toks, dtype=torch.long))
+    want = jllama.next_token_loss(
+        dataclasses.replace(jcfg, attn_impl="flash", dtype="float32"),
+        jparams, jnp.asarray(toks, jnp.int32))
+    assert abs(float(got) - float(want)) < 2e-6
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (0, 0, 0)
 
 
 def test_leftover_weights_raise_and_inv_freq_is_exempt():

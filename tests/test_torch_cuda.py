@@ -40,8 +40,8 @@ def _qkv(b, s, h, hkv, d, dtype, seed=0):
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 
 # (b, s, h, hkv, d, causal) for K1, K2 and K3: ragged lengths (the kernels
-# mask the tail themselves), GQA groups 1 to 4, d 64 and 128, non-causal
-# aligned inputs, and the training path's shape
+# mask the tail themselves), GQA groups 1 to 4, d 64 to 256, non-causal
+# aligned inputs, and the training paths' shapes
 SHAPES = [
     (2, 300, 4, 2, 128, True),     # ragged causal tail, group 2
     (2, 256, 4, 4, 64, True),      # MHA, d 64
@@ -53,6 +53,17 @@ SHAPES = [
     (1, 1000, 12, 4, 128, True),   # the serving prompt length
     (1, 2047, 12, 4, 128, True),
     (8, 2048, 12, 4, 128, True),   # the training shape
+    # the wide head dims: ragged, GQA group 3, one row, non-causal, and
+    # bench_800m's training shape with h * d kept at 1536 (6 / 2 heads of
+    # 256, 8 / 4 of 192)
+    (2, 300, 4, 2, 192, True),
+    (2, 300, 4, 2, 256, True),
+    (2, 129, 6, 2, 192, True),
+    (2, 129, 6, 2, 256, True),
+    (2, 1, 6, 2, 256, True),
+    (2, 256, 4, 1, 256, False),
+    (8, 2048, 8, 4, 192, True),
+    (8, 2048, 6, 2, 256, True),
 ]
 
 
@@ -141,7 +152,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
-                                         (8, 2048, 12, 4, 128)])
+                                         (8, 2048, 12, 4, 128),
+                                         (2, 300, 4, 2, 256),
+                                         (8, 2048, 6, 2, 256)])
 def test_flash_bwd_kernel_is_deterministic(cuda, kernel, b, s, h, hkv, d):
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
@@ -208,6 +221,71 @@ def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
         llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
         head_dim=128, dtype=dtype, attn_impl="flash", loss_chunk=48,
         remat_policy=remat_policy), remat_policy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+def test_kernels_refuse_a_head_dim_above_256(cuda, kernel):
+    """d 320 passes the reference's rules (d % 64 == 0) but no kernel is
+    built for it: a CUDA input raises, through the public wrapper too,
+    and nothing launches or falls back."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = _qkv(1, 128, 2, 1, 320, torch.bfloat16)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    with pytest.raises(ValueError, match="supports head_dim"):
+        if kernel == "flash_fwd":
+            fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True)
+        else:
+            lse = torch.zeros((1, 2, 128), device="cuda")
+            getattr(fa, kernel)(q, k, v, q, lse, lse, True)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [192, 256])
+def test_train_steps_flash_equal_dense_wide_head_on_cuda(cuda, head_dim,
+                                                         dtype):
+    """The same three steps at head dims 192 and 256 (remat "full"):
+    K1 twice, K2 and K3 once per layer, flash against dense within the
+    d 128 tolerances."""
+    from service_account_auth_improvements_tpu_torch.models import llama
+
+    _flash_steps_equal_dense(dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
+        head_dim=head_dim, dtype=dtype, attn_impl="flash", loss_chunk=48,
+        remat_policy="full"), "full")
+
+
+@pytest.mark.cuda
+def test_greedy_generate_wide_head_flash_equals_dense_on_cuda(cuda):
+    """Per-length prefill through K1 at head_dim 256 (f32) decodes the
+    same greedy ids as dense attention."""
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    cfg = dataclasses.replace(
+        llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
+        head_dim=256, dtype="float32", attn_impl="flash")
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 77),
+                           generator=torch.Generator().manual_seed(1))
+    before = fa.launches
+    got = generate.generate(cfg, params, prompt, 12)
+    assert fa.launches == before + cfg.n_layers
+    want = generate.generate(dataclasses.replace(cfg, attn_impl="dense"),
+                             params, prompt, 12)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

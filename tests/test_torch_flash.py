@@ -33,6 +33,8 @@ def _qkv(b=2, sq=256, sk=256, h=4, hkv=2, d=64, seed=0):
             rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
 
 
+WIDE_HEAD_DIMS = (192, 256)
+
 # the reference's shapes (tests/test_flash.py)
 CASES = {
     "gqa-causal": (dict(), True, 2e-5),
@@ -43,6 +45,14 @@ CASES = {
                              5e-5),
     "asymmetric-512": (dict(b=1, sq=512, sk=512, h=2, hkv=2), True, 5e-5),
     "unaligned-127": (dict(sq=127, sk=127), True, 5e-4),
+    # the wide head dims the kernels also take (d 192 and 256), at the
+    # tolerances of the d 64 cases of the same kind
+    **{f"{name}-d{d}": (dict(shape, b=1, d=d), causal, atol)
+       for d in WIDE_HEAD_DIMS
+       for name, shape, causal, atol in (
+           ("gqa-causal", dict(h=4, hkv=2), True, 2e-5),
+           ("unaligned-127", dict(sq=127, sk=127, h=2, hkv=1), True, 5e-4),
+           ("noncausal-256", dict(h=2, hkv=1), False, 2e-5))},
 }
 
 
@@ -182,6 +192,16 @@ GRAD_CASES = {
     "multiblock-noncausal": (dict(b=1, sq=384, sk=384, h=2, hkv=1), False,
                              True, 1e-3),
     "unaligned-127": (dict(sq=127, sk=127), True, False, 5e-4),
+    # d 192 and 256 at the tolerances of the d 64 cases of the same kind
+    **{f"{name}-d{d}": (dict(shape, d=d), causal, multiblock, atol)
+       for d in WIDE_HEAD_DIMS
+       for name, shape, causal, multiblock, atol in (
+           ("gqa-causal", dict(b=1, sq=128, sk=128, h=2, hkv=1), True,
+            False, 5e-4),
+           ("unaligned-127", dict(b=1, sq=127, sk=127, h=2, hkv=1), True,
+            False, 5e-4),
+           ("multiblock-causal", dict(b=1, sq=384, sk=384, h=2, hkv=1),
+            True, True, 1e-3))},
 }
 
 
@@ -241,6 +261,31 @@ def test_bwd_reference_matches_jax_flash_bwd(causal, counter, monkeypatch):
                           torch.tensor(do), causal)
     for a, b in zip(again, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_bwd_reference_matches_jax_flash_bwd_wide_head(d, causal, counter,
+                                                       monkeypatch):
+    """The same at head dims 192 and 256, GQA group 2, two blocks of 128
+    per axis, at the d 64 case's tolerance."""
+    monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
+    q, k, v = (np.swapaxes(a, 1, 2)
+               for a in _qkv(b=1, sq=256, sk=256, h=2, hkv=1, d=d))
+    do = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, interpret=True)
+    want = jfa._flash_bwd(*(jnp.asarray(a) for a in (q, k, v)), jo, jlse,
+                          jnp.asarray(do), causal=causal, interpret=True)
+    to, tlse = tfa.flash_fwd_reference(
+        *(torch.tensor(a) for a in (q, k, v)), causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5)
+    got = tfa.flash_bwd(*(torch.tensor(a) for a in (q, k, v)), to, tlse,
+                        torch.tensor(do), causal)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   err_msg=f"d{n}")
 
 
 def test_bwd_reference_rounds_like_the_kernels(counter):

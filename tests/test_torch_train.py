@@ -62,6 +62,11 @@ VARIANTS = {
     "flash-hd64-dots": (dataclasses.replace(
         TINY, head_dim=64, n_heads=2, n_kv_heads=1, attn_impl="flash",
         remat_policy="dots_saveable"), {}, {}, False),
+    # the wide head dims K1, K2 and K3 also take (flash on the port's
+    # side, dense on JAX's, as above)
+    **{f"flash-hd{d}": (dataclasses.replace(
+        TINY, head_dim=d, n_heads=2, n_kv_heads=1, attn_impl="flash"), {},
+        {}, False) for d in (192, 256)},
     # switch top-1 and Mixtral top-2 FFNs: the loss carries the aux term;
     # capacity int(1.25·k·40/4) per 40-token row, so claims overflow
     "moe": (dataclasses.replace(TINY, moe_experts=4), {}, {}, False),

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, fine-tuning and side-model
-paths on one CUDA card and hold its kernels against their plain versions.
+"""Drive the PyTorch port's serving, training, fine-tuning, side-model and
+policy-training paths on one CUDA card and hold its kernels against their
+plain versions.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` at first use) and
@@ -92,7 +93,18 @@ no network. Phases, each of which raises on failure:
    step time, tokens/s, MFU and peak memory; the d 256 model, in bf16,
    answers one per-length request over HTTP (K1 20, first tokens
    ``llama.apply``'s) and decodes greedily in f32 through K1 token for
-   token as the dense path does.
+   token as the dense path does;
+13. the placement policy and the GPU binding: a seeded journal of
+   16,384 sched-journal/v1 placement rows over 16 pools of mixed sizes
+   (``policy_journal``), written to JSONL and read back through the port's
+   ``features``; the trainer's CLI (``controlplane.scheduler.policy.train``)
+   at its defaults (300 steps, batch 64) and at batch 4096, with step ms,
+   steps/s, launches per step and the idle share; that run on the card
+   against the CPU's (``POLICY_TOL``), a resume at step 150 bit for bit,
+   the checkpoint's keys, shapes and dtypes, ``choose_index`` over every
+   example; then ``torch.distributed.run`` with the env
+   ``controlplane/gpu.py``'s ``worker_env`` gives a one-card notebook,
+   running the training CLI over an NCCL group of one on card 0.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -102,7 +114,12 @@ repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import os
+import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -272,6 +289,39 @@ SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
 # K1, K2 and K3 at both shapes.
 WIDE_HEADS = {"bench_800m_d256": (6, 2, 256), "bench_800m_d192": (8, 4, 192)}
 WIDE_STEPS = TRAIN_STEPS
+
+# the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
+# rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
+# chips per host) as a v5e node pool has them, from one host of 4 or 8
+# chips to 16 hosts of 4; demands (chips, hosts) from one chip to 16
+# hosts. Each row is decided by best fit over the reconciler's feasibility
+# rule. The CLI trains POLICY_STEPS steps (its defaults: batch 64, hidden
+# 32, lr 1e-2), then at batch 4096; a run stopped at POLICY_RESUME_AT
+# resumes. Step times are CUDA events over POLICY_TIMED steps after
+# POLICY_WARMUP, the idle share and launches from a profile of
+# POLICY_PROFILED steps.
+POLICY_ROWS = 16_384
+POLICY_POOLS = ((1, 4),) * 3 + ((1, 8),) * 3 + ((4, 4),) * 4 + \
+    ((8, 4),) * 3 + ((16, 4),) * 3
+POLICY_DEMANDS = ((1, 1), (4, 1), (8, 1), (16, 4), (32, 8), (64, 16))
+POLICY_STEPS, POLICY_BATCHES, POLICY_RESUME_AT = 300, (64, 4096), 150
+POLICY_WARMUP, POLICY_TIMED, POLICY_PROFILED = 10, 100, 10
+# the card against the port's CPU run after POLICY_STEPS steps, f32 on
+# both (summation order only): every logged loss, every param but b3, and
+# the probabilities the two param sets give every example's feasible
+# pools. b3
+# adds one constant to every pool's score, which the softmax ignores: its
+# exact gradient is 0, each device computes rounding noise (~1e-9) in its
+# place, and Adam (eps 1e-8) turns that noise into steps of up to ~lr; so
+# b3 is held through what it could change, the probabilities. The
+# other params: Adam normalizes small gradients, so summation order moves
+# them more the longer the run; over 300 steps the reference differs from
+# itself (jitted against op by op) by up to 1.7x atol 1e-5 + rtol 1e-4,
+# and the port's CPU run from it by up to 2.5x (python
+# tests/test_torch_policy.py prints both), so they are held at ten times
+# that bound.
+POLICY_TOL = {"loss": 1e-5, "atol": 1e-4, "rtol": 1e-3, "probs": 1e-4}
+POLICY_DIR = ROOT / "build" / "chip_smoke_policy"
 
 
 def _log(msg: str) -> None:
@@ -3798,6 +3848,322 @@ def _wide_serving(cfg, params, fa) -> dict:
     return {"serving": served, "greedy f32": decoded}
 
 
+def policy_journal(n: int, seed: int) -> list[dict]:
+    """``n`` sched-journal/v1 placement rows as the scheduler journals
+    them: random occupancy of POLICY_POOLS, a demand from POLICY_DEMANDS,
+    the feasible pools by the reconciler's rule (a multi-host demand takes
+    an empty pool with enough hosts; a one-host demand, free chips in a
+    pool whose hosts hold that many) and the best-fit choice among them
+    (least leftover, then name). States with no feasible pool are not
+    placements and are drawn again."""
+    rng = np.random.default_rng(seed)
+    shapes = {f"pool-{i:02d}": shape for i, shape in enumerate(POLICY_POOLS)}
+    total = {p: hosts * chips for p, (hosts, chips) in shapes.items()}
+    rows = []
+    while len(rows) < n:
+        used = {p: 0 if rng.random() < 0.3 else int(rng.integers(0, t + 1))
+                for p, t in total.items()}
+        chips, hosts = POLICY_DEMANDS[int(rng.integers(len(POLICY_DEMANDS)))]
+        if hosts > 1:
+            feasible = [p for p, (h, _) in shapes.items()
+                        if h >= hosts and used[p] == 0]
+        else:
+            feasible = [p for p, (_, c) in shapes.items()
+                        if c >= chips and total[p] - used[p] >= chips]
+        if not feasible:
+            continue
+        pool = min(feasible, key=lambda p: (total[p] - used[p] - chips, p))
+        rows.append({"kind": "placement",
+                     "key": f"notebooks/u{len(rows) % 8}/nb-{len(rows)}",
+                     "attrs": {
+            "schema": "sched-journal/v1", "pool": pool, "chips": chips,
+            "time_to_placement_s": float(rng.exponential(2.0)),
+            "free_chips": {p: total[p] - used[p] for p in sorted(total)},
+            "total_chips": dict(sorted(total.items())),
+            "feasible": sorted(feasible), "demand_chips": chips,
+            "demand_hosts": hosts,
+            "slice_class": "multi-host" if hosts > 1 else "single-host",
+            "queue_depth": int(rng.integers(0, 80)), "policy": "best_fit",
+        }})
+    return rows
+
+
+def phase_policy() -> dict:
+    """The placement-policy trainer on the card: a POLICY_ROWS journal
+    written to JSONL and read back through the port's ``features``; the
+    CLI (``policy.train.main``) at its defaults and at batch 4096, each
+    with step ms, steps/s, launches per step and idle share; the card's
+    run held to the CPU's (POLICY_TOL), a resume at POLICY_RESUME_AT bit
+    for bit, the checkpoint's layout, and ``choose_index`` over every
+    example; then the torchrun launch ``controlplane/gpu.py`` configures.
+    Returns the step timings by batch."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        features,
+        train as ptrain,
+    )
+
+    shutil.rmtree(POLICY_DIR, ignore_errors=True)
+    POLICY_DIR.mkdir(parents=True)
+    try:
+        journal = POLICY_DIR / "journal.jsonl"
+        t0 = time.perf_counter()
+        with open(journal, "w") as f:
+            for row in policy_journal(POLICY_ROWS, seed=0):
+                f.write(json.dumps(row) + "\n")
+        data = features.dataset(features.load_journal_jsonl(str(journal)))
+        n = int(data["label"].shape[0])
+        if n != POLICY_ROWS or data["dropped"]:
+            raise AssertionError(f"policy journal: {n} examples, "
+                                 f"{data['dropped']} dropped")
+        _log(f"policy: {n} placement rows over {len(POLICY_POOLS)} pools "
+             f"({journal.stat().st_size / 2**20:.1f} MiB of JSONL), "
+             f"written and featurized in {time.perf_counter() - t0:.1f} s")
+        timings = {}
+        for batch in POLICY_BATCHES:
+            workdir = POLICY_DIR / f"cli-b{batch}"
+            args = ["--journal", str(journal), "--workdir", str(workdir)]
+            if batch != 64:
+                args += ["--batch-size", str(batch)]
+            if DEV == "cpu":  # the rehearsal; the card is the default
+                args += ["--device", "cpu"]
+            t0 = time.perf_counter()
+            ptrain.main(args)
+            wall = time.perf_counter() - t0
+            if ptrain.latest_step(str(workdir)) != POLICY_STEPS:
+                raise AssertionError(f"policy CLI b{batch}: no checkpoint "
+                                     f"at step {POLICY_STEPS}")
+            timings[batch] = _policy_step_time(data, batch)
+            t = timings[batch]
+            _log(f"policy CLI batch {batch}: {POLICY_STEPS} steps in "
+                 f"{wall:.2f} s (host clock, journal load included); step "
+                 f"{t['step_ms']:.4f} ms (CUDA events, mean of "
+                 f"{POLICY_TIMED} after {POLICY_WARMUP}), "
+                 f"{1e3 / t['step_ms']:.1f} steps/s; per step "
+                 f"{t['kernels']} kernels + {t['copies']} copies/fills, "
+                 f"idle share {t['idle']} (profile of {POLICY_PROFILED} "
+                 "steps)")
+        _policy_checks(data, POLICY_DIR / "cli-b64" / ptrain.CKPT_FILE)
+        _torchrun_binding()
+    finally:
+        shutil.rmtree(POLICY_DIR, ignore_errors=True)
+    return timings
+
+
+def _policy_step_time(data: dict, batch: int) -> dict:
+    """The CLI loop's step (``make_policy_step`` on ``batch_at``'s rows),
+    timed by CUDA events after a warm-up, then profiled: device kernels
+    and copies per step, and the idle share of the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        model,
+        train as ptrain,
+    )
+    from service_account_auth_improvements_tpu_torch.train.step import (
+        make_optimizer,
+    )
+
+    opt = make_optimizer(learning_rate=1e-2, weight_decay=0.0)
+    params = model.init_params(generator=torch.Generator().manual_seed(0),
+                               device=DEV)
+    state = ptrain.PolicyState(0, params, opt.init(params))
+    step = ptrain.make_policy_step(opt)
+    on_dev = ptrain.device_dataset(data, torch.device(DEV))
+
+    def run(first, count):
+        nonlocal state
+        for i in range(first, first + count):
+            state, _ = step(state, ptrain.batch_at(on_dev, 0, i, batch))
+
+    run(0, POLICY_WARMUP)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(POLICY_WARMUP, POLICY_TIMED)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / POLICY_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(POLICY_WARMUP + POLICY_TIMED, POLICY_PROFILED)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    return {
+        "step_ms": step_ms,
+        "kernels": (sum(e.count for e in device)
+                    - sum(e.count for e in copies)) / POLICY_PROFILED,
+        "copies": sum(e.count for e in copies) / POLICY_PROFILED,
+        "idle": (round(1 - busy_ms / wall_ms, 4) if busy_ms
+                 else "not measured (the profiler saw no device time)"),
+    }
+
+
+def _policy_checks(data: dict, cli_ckpt: Path) -> None:
+    """The CLI's batch-64 checkpoint against the same run with its loss
+    read every step (bit for bit: the host syncs change nothing), that
+    run against the port's CPU run (POLICY_TOL), a run stopped at
+    POLICY_RESUME_AT and resumed (bit for bit), the checkpoint's keys,
+    shapes and dtypes, and ``choose_index`` over every example."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        model,
+        train as ptrain,
+    )
+
+    cli = ptrain.load_checkpoint(str(cli_ckpt))
+    card, card_hist = ptrain.fit_policy(data, log_every=1, device=DEV)
+    cpu, cpu_hist = ptrain.fit_policy(data, log_every=1, device="cpu")
+    for k in model.PARAM_KEYS:
+        if not np.array_equal(card.params[k].cpu().numpy(),
+                              cli["params"][k]):
+            raise AssertionError(f"policy: fit_policy's {k} differs from "
+                                 "the CLI's checkpoint")
+    loss_err = max(abs(a["loss"] - b["loss"])
+                   for a, b in zip(card_hist, cpu_hist, strict=True))
+    if loss_err > POLICY_TOL["loss"]:
+        raise AssertionError(f"policy losses card vs CPU: {loss_err}")
+    errs = {}
+    for k in model.PARAM_KEYS:
+        got, want = card.params[k].cpu(), cpu.params[k]
+        errs[k] = float((got - want).abs().max())
+        if k != "b3":
+            torch.testing.assert_close(got, want, atol=POLICY_TOL["atol"],
+                                       rtol=POLICY_TOL["rtol"])
+    feats, glob, mask = (torch.as_tensor(data[k]) for k in (
+        "pool_feats", "glob", "mask"))
+    with torch.no_grad():
+        probs = [torch.softmax(model.forward(
+            {k: v.cpu() for k, v in p.items()}, feats, glob, mask), -1)
+            [mask] for p in (card.params, cpu.params)]
+    probs_err = float((probs[0] - probs[1]).abs().max())
+    if probs_err > POLICY_TOL["probs"]:
+        raise AssertionError(f"policy probabilities card vs CPU: "
+                             f"{probs_err}")
+    _log(f"policy card vs CPU after {POLICY_STEPS} steps: losses "
+         f"{loss_err:.3e} (of {len(card_hist)}), params "
+         f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (b3 held "
+         f"through the probabilities), probabilities {probs_err:.3e}; "
+         f"tolerances {POLICY_TOL}; final loss card "
+         f"{card_hist[-1]['loss']:.6f}")
+    resume_dir = str(POLICY_DIR / "resume")
+    ptrain.fit_policy(data, steps=POLICY_RESUME_AT, workdir=resume_dir,
+                      log_every=0, device=DEV)
+    resumed, _ = ptrain.fit_policy(data, workdir=resume_dir, log_every=0,
+                                   device=DEV)
+    pairs = [("count", resumed.opt_state.count, card.opt_state.count)]
+    for what in ("params", "mu", "nu"):
+        a = (resumed.params if what == "params"
+             else getattr(resumed.opt_state, what))
+        b = card.params if what == "params" else getattr(card.opt_state,
+                                                         what)
+        pairs += [(f"{what}/{k}", a[k], b[k]) for k in model.PARAM_KEYS]
+    for name, a, b in pairs:
+        if not (a == b if isinstance(a, int) else torch.equal(a, b)):
+            raise AssertionError(f"policy resume at {POLICY_RESUME_AT}: "
+                                 f"{name} differs from the straight run")
+    _log(f"policy: stopped at {POLICY_RESUME_AT} and resumed to "
+         f"{POLICY_STEPS}, params, mu, nu and count bit-equal to the "
+         "straight run on the card")
+    _policy_checkpoint_layout(cli_ckpt)
+    params = model.params_from_numpy(cli["params"], DEV)
+    on_dev = [torch.as_tensor(data[k]).to(DEV) for k in (
+        "pool_feats", "glob", "mask", "label")]
+    idx, _, conf = model.choose_index(params, *on_dev[:3])
+    chosen = on_dev[2].gather(-1, idx.clamp_min(0)[:, None])[:, 0]
+    if not (bool((idx >= 0).all()) and bool(chosen.all())
+            and bool(((conf > 0) & (conf <= 1)).all())):
+        raise AssertionError("policy: choose_index named a masked pool")
+    agree = float((idx == on_dev[3]).float().mean())
+    _log(f"policy: choose_index over all {idx.numel()} examples on the "
+         f"card named a feasible pool every time; it picks the logged "
+         f"best-fit pool on {agree:.4f} of them")
+
+
+def _policy_checkpoint_layout(path: Path) -> None:
+    """``policy.npz``: 4 header fields, 6 params and 13 optimizer leaves
+    (the int32 count, then mu and nu in sorted key order), as the
+    reference writes it."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        model,
+        train as ptrain,
+    )
+
+    h = model.DEFAULT_HIDDEN
+    shapes = {"w1": (model.IN_FEATURES, h), "b1": (h,), "w2": (h, h),
+              "b2": (h,), "w3": (h, 1), "b3": (1,)}
+    want = {"schema": ("<U20", ()), "journal_schema": ("<U16", ()),
+            "step": ("int64", ()), "hidden": ("int64", ()),
+            **{f"param/{k}": ("float32", s) for k, s in shapes.items()},
+            "opt/0": ("int32", ())}
+    for i, k in enumerate(ptrain.LEAF_ORDER * 2, start=1):
+        want[f"opt/{i}"] = ("float32", shapes[k])
+    with np.load(path) as z:
+        got = {k: (str(z[k].dtype), z[k].shape) for k in z.files}
+    if got != want:
+        raise AssertionError(f"policy.npz layout {got}, expected {want}")
+    _log(f"policy.npz: {len(got)} arrays (4 header, 6 params, 13 optimizer "
+         "leaves), keys, shapes and dtypes as the reference writes them")
+
+
+def _torchrun_binding() -> None:
+    """``torch.distributed.run`` with exactly the env ``gpu.worker_env``
+    gives a one-card notebook (the downward API's node rank 0), running
+    the training CLI: its process group is NCCL, world 1, on card 0 (gloo
+    on the CPU when ``DEV`` is ``"cpu"``), rank 0 logs, the losses are
+    finite."""
+    from service_account_auth_improvements_tpu_torch.controlplane import (
+        gpu,
+    )
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        multihost,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    resolved = gpu.resolve({"type": "h100", "count": 1})
+    pod_env = {e["name"]: e.get("value", "0")  # the pod index of pod 0
+               for e in gpu.worker_env("nb", "nb-hl", "default", resolved,
+                                       port=port)}
+    env = {k: v for k, v in os.environ.items()
+           if k not in multihost.TORCHRUN_ENV and not k.startswith("TPU_")}
+    env.update(pod_env, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", "1", "-m", f"{PKG}.train.loop", "--preset",
+           "smoke", "--dp", "1", "--steps", "2", "--log-every", "1"]
+    if DEV == "cpu":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:  # torchrun and the rank it started, whatever happened
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun launch failed ({proc.returncode}): "
+                             f"{err[-3000:]}")
+    group = ("process group nccl: rank 0 of 1 on cuda:0" if DEV == "cuda"
+             else "process group gloo: rank 0 of 1 on cpu")
+    losses = [float(x) for x in re.findall(r"step \d+/2 loss=(\S+)", out)]
+    if group not in out or len(losses) != 2 or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"torchrun launch: expected {group!r} and two "
+                             f"finite losses, got:\n{out[-3000:]}")
+    _log(f"torchrun binding: {' '.join(cmd[1:8])} ... with "
+         f"{sorted(pod_env.items())}: {group}, losses {losses}, "
+         f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3816,6 +4182,7 @@ def main() -> int:
     parallel = phase_parallel()
     parallel.update(phase_parallel2())
     wide = _timed("wide heads", phase_wide_heads)
+    _timed("policy", phase_policy)
     _log(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, _, line) in KERNELS.items():

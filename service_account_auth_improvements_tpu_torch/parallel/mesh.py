@@ -22,6 +22,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import os
 
 import torch.distributed as dist
 
@@ -80,10 +81,16 @@ class MeshConfig:
 def _world(device) -> str:
     """The device type of ``device`` (the card unless ``"cpu"``), with the
     default process group up on its backend: a process that has none (a
-    lone notebook kernel) gets a group of one over an in-memory store."""
+    lone notebook kernel) gets a group of one over an in-memory store. A
+    process that torchrun started as one of several (``WORLD_SIZE`` > 1)
+    raises instead: alone, it would train by itself."""
     dev = resolve_device(device)
     backend = BACKENDS[dev.type]
     if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise RuntimeError(
+                "WORLD_SIZE > 1 but no process group is up: call "
+                "parallel.multihost.maybe_initialize first")
         dist.init_process_group(backend, store=dist.HashStore(),
                                 world_size=1, rank=0)
     got = dist.get_backend()

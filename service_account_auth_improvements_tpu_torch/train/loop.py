@@ -20,7 +20,10 @@ one process per rank: every rank runs ``fit`` with the same arguments,
 rank 0 alone logs and writes checkpoints. The CLI's ``--dp/--pp/--fsdp/
 --sp/--tp/--ep`` flags start the process group from the controller's env
 (``parallel.multihost.maybe_initialize``) and build that mesh; launch one
-process per rank with ``TPU_WORKER_ID`` and ``TPU_WORKER_HOSTNAMES`` set.
+process per rank with ``TPU_WORKER_ID`` and ``TPU_WORKER_HOSTNAMES`` set,
+or under torchrun (``python -m torch.distributed.run --nnodes N
+--nproc-per-node C -m service_account_auth_improvements_tpu_torch.train.loop
+...``, with the ``PET_*`` env ``controlplane/gpu.py`` gives an H100 pod).
 Unlike the reference's CLI, which always builds a mesh, it builds one
 only when the flags' product or the env asks for more than one process,
 so a one-card run keeps the plain path. ``fit(mesh=, lora=)`` fine-tunes
@@ -275,9 +278,10 @@ def _my_rows(batch, mesh, dev):
 
 def main(argv=None) -> list:
     """The CLI; returns ``fit``'s history. With mesh-axis flags whose
-    product, or with a rendezvous env (``TPU_WORKER_*``) that asks for
-    more than one process, it starts the process group and trains on a
-    mesh; otherwise on one device, with no mesh."""
+    product, or with a rendezvous env (``TPU_WORKER_*`` or torchrun's)
+    that asks for more than one process, it starts the process group and
+    trains on a mesh; otherwise on one device, with no mesh. Under
+    torchrun the group starts at any world size, and rank 0 logs it."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -294,13 +298,16 @@ def main(argv=None) -> list:
         ap.add_argument(f"--{axis}", type=int, default=1)
     args = ap.parse_args(argv)
 
-    mesh = None
+    mesh = config = None
     sizes = {a: getattr(args, a) for a in MESH_AXES}
     plan = multihost.rendezvous_plan()
     if np.prod(list(sizes.values())) > 1 or plan.num_processes > 1:
         config = MeshConfig(**sizes)
         config.resolve(plan.num_processes)  # before any process starts
-        multihost.maybe_initialize(args.device)
+    if multihost.maybe_initialize(args.device) == 0 and (
+            torch.distributed.is_initialized()):
+        print(multihost.describe_group(), flush=True)
+    if config is not None:
         mesh = make_mesh(config, args.device)
     cfg = llama.PRESETS[args.preset]
     # synthetic corpus sized for the run, as the reference's CLI makes it

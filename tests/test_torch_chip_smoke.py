@@ -178,3 +178,110 @@ def test_wide_head_settings():
     d256 = dataclasses.replace(base, n_heads=6, n_kv_heads=2, head_dim=256)
     assert d256.param_count() == base.param_count()
     assert chip_smoke.WIDE_STEPS >= 2
+
+
+def test_policy_settings():
+    """Phase 13 trains at the CLI's defaults (steps, batch 64), resumes
+    mid-run, fills every pool slot the model has, offers demands both one
+    host and several take, and keeps its files under the gitignored
+    build/."""
+    import inspect
+
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        features,
+        train as ptrain,
+    )
+
+    defaults = inspect.signature(ptrain.fit_policy).parameters
+    assert chip_smoke.POLICY_STEPS == defaults["steps"].default == 300
+    assert chip_smoke.POLICY_BATCHES[0] == defaults["batch_size"].default
+    assert chip_smoke.POLICY_BATCHES == (64, 4096)
+    assert 0 < chip_smoke.POLICY_RESUME_AT < chip_smoke.POLICY_STEPS
+    assert len(chip_smoke.POLICY_POOLS) == features.MAX_POOLS
+    assert len({h * c for h, c in chip_smoke.POLICY_POOLS}) > 3
+    assert {h > 1 for _, h in chip_smoke.POLICY_DEMANDS} == {True, False}
+    assert chip_smoke.POLICY_ROWS == 16_384
+    assert chip_smoke.POLICY_WARMUP >= 1 and chip_smoke.POLICY_TIMED >= 10
+    assert chip_smoke.POLICY_DIR.parent == ROOT / "build"
+    assert chip_smoke.POLICY_TOL["loss"] <= 1e-5
+
+
+class _Event:
+    """``torch.cuda.Event`` on the host clock, for the CPU rehearsal."""
+
+    def __init__(self, **_):
+        self.t = None
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_policy_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """Phase 13 end to end on the CPU at a small journal: the journal
+    featurizes with nothing dropped, the CLI trains at both batches, the
+    checks hold (the CPU run against itself), the resume is bit-equal,
+    the checkpoint layout is the reference's, ``choose_index`` names
+    feasible pools only, and torchrun starts the training CLI over gloo
+    from ``gpu.worker_env``'s env."""
+    import torch
+
+    # one thread here and in the torchrun launch: the tensors are tiny,
+    # and with the suite's workers sharing the cores more threads contend
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "POLICY_ROWS", 512)
+    monkeypatch.setattr(chip_smoke, "POLICY_BATCHES", (64, 256))
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    try:
+        timings = chip_smoke.phase_policy()
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert sorted(timings) == [64, 256]
+    assert all(t["step_ms"] > 0 for t in timings.values())
+    assert "bit-equal to the straight run" in out
+    assert "23 arrays (4 header, 6 params, 13 optimizer leaves)" in out
+    assert "named a feasible pool every time" in out
+    assert "process group gloo: rank 0 of 1 on cpu" in out
+    assert not chip_smoke.POLICY_DIR.exists()
+
+
+def test_policy_journal_is_the_reconcilers_shape():
+    """Every row passes the port's ``check_row``, names its best-fit pool
+    among the feasible ones, and the feasible lists are the rule's."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        features,
+    )
+
+    rows = chip_smoke.policy_journal(400, seed=3)
+    assert rows == chip_smoke.policy_journal(400, seed=3)
+    shapes = {f"pool-{i:02d}": s
+              for i, s in enumerate(chip_smoke.POLICY_POOLS)}
+    multi = 0
+    for row in rows:
+        a = row["attrs"]
+        assert features.check_row(a) == []
+        assert a["pool"] in a["feasible"]
+        leftover = {p: a["free_chips"][p] - a["demand_chips"]
+                    for p in a["feasible"]}
+        assert a["pool"] == min(a["feasible"],
+                                key=lambda p: (leftover[p], p))
+        for p, (hosts, chips) in shapes.items():
+            if a["demand_hosts"] > 1:
+                fits = (hosts >= a["demand_hosts"]
+                        and a["free_chips"][p] == hosts * chips)
+            else:
+                fits = (chips >= a["demand_chips"]
+                        and a["free_chips"][p] >= a["demand_chips"])
+            assert fits == (p in a["feasible"]), (p, a)
+        multi += a["demand_hosts"] > 1
+    assert 0 < multi < len(rows)
+    assert features.dataset(rows)["dropped"] == 0

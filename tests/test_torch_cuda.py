@@ -960,3 +960,82 @@ def test_world_one_nccl_mesh_step_equals_plain_on_cuda(cuda):
         assert runs[name][1] == runs["plain"][1], name
         assert all(torch.equal(a, b) for a, b in zip(runs[name][2],
                                                      runs["plain"][2]))
+
+
+def _chip_smoke():
+    """chip_smoke.py (JAX-free), for phase 13's journal and tolerances."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_policy_trains_on_cuda_like_the_cpu(cuda):
+    """The placement policy's 300 default steps on the card against the
+    CPU, at phase 13's tolerances: every loss, every param but b3, and
+    the probabilities of every feasible pool (what b3 is held through)."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        features,
+        model,
+        train as ptrain,
+    )
+
+    cs = _chip_smoke()
+    tol = cs.POLICY_TOL
+    data = features.dataset(cs.policy_journal(2048, 0))
+    card, card_hist = ptrain.fit_policy(data, log_every=1, device="cuda")
+    cpu, cpu_hist = ptrain.fit_policy(data, log_every=1, device="cpu")
+    assert len(card_hist) == len(cpu_hist) == cs.POLICY_STEPS
+    for a, b in zip(card_hist, cpu_hist):
+        assert abs(a["loss"] - b["loss"]) <= tol["loss"], a["step"]
+    for k in model.PARAM_KEYS:
+        assert card.params[k].is_cuda
+        if k != "b3":
+            torch.testing.assert_close(card.params[k].cpu(), cpu.params[k],
+                                       atol=tol["atol"], rtol=tol["rtol"])
+    feats, glob, mask = (torch.as_tensor(data[k]) for k in (
+        "pool_feats", "glob", "mask"))
+    with torch.no_grad():
+        probs = [torch.softmax(model.forward(
+            {k: v.cpu() for k, v in p.items()}, feats, glob, mask), -1)
+            [mask] for p in (card.params, cpu.params)]
+    torch.testing.assert_close(probs[0], probs[1], atol=tol["probs"],
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_policy_resume_is_bit_equal_on_cuda(cuda, tmp_path):
+    """Stopped at 30 and resumed to 60 on the card: params, moments and
+    count bit-equal to the straight run; the checkpoint loads on the
+    card and the CPU alike."""
+    from service_account_auth_improvements_tpu_torch.controlplane.scheduler.policy import (  # noqa: E501
+        features,
+        model,
+        train as ptrain,
+    )
+
+    data = features.dataset(_chip_smoke().policy_journal(1024, 1))
+    kw = dict(seed=2, batch_size=256, log_every=0, device="cuda")
+    wd = str(tmp_path / "resume")
+    ptrain.fit_policy(data, steps=30, workdir=wd, **kw)
+    resumed, _ = ptrain.fit_policy(data, steps=60, workdir=wd, **kw)
+    straight, _ = ptrain.fit_policy(data, steps=60, **kw)
+    assert resumed.opt_state.count == straight.opt_state.count == 60
+    for tree in ("params", "mu", "nu"):
+        a = (resumed.params if tree == "params"
+             else getattr(resumed.opt_state, tree))
+        b = (straight.params if tree == "params"
+             else getattr(straight.opt_state, tree))
+        for k in model.PARAM_KEYS:
+            assert torch.equal(a[k], b[k]), (tree, k)
+    loaded = ptrain.load_checkpoint(str(tmp_path / "resume"
+                                        / ptrain.CKPT_FILE))
+    for dev in ("cuda", "cpu"):
+        params = model.params_from_numpy(loaded["params"], dev)
+        for k in model.PARAM_KEYS:
+            assert torch.equal(params[k].cpu(), straight.params[k].cpu())

@@ -74,10 +74,16 @@ PARALLEL = ["parallel", "parallel.mesh", "parallel.multihost",
             "parallel.sharding", "parallel.collectives", "parallel.ring",
             "parallel.ulysses", "parallel.pipeline"]
 WORKERS = "tests.torch_parallel_workers"
+# the policy trainer and the accelerator binding
+CONTROLPLANE = ["controlplane", "controlplane.gpu", "controlplane.scheduler",
+                "controlplane.scheduler.policy",
+                "controlplane.scheduler.policy.features",
+                "controlplane.scheduler.policy.model",
+                "controlplane.scheduler.policy.train"]
 
 
 @pytest.mark.parametrize("module", LIFECYCLE + MOE + FINETUNE + PARALLEL
-                         + [WORKERS])
+                         + CONTROLPLANE + [WORKERS])
 def test_lifecycle_module_imports_without_jax(module):
     full = module if module == WORKERS else PORT + "." + module
     probe = BLOCKER.replace(

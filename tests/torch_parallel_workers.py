@@ -758,3 +758,34 @@ def _zeros_like_tree(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
     return torch.zeros_like(tree)
+
+
+def torchrun_rendezvous(out: pathlib.Path) -> None:
+    """A process torchrun started: ``maybe_initialize`` from its env (a
+    second call a no-op), then one all-reduce over the group."""
+    from service_account_auth_improvements_tpu_torch.parallel import (
+        multihost,
+    )
+
+    torch.set_num_threads(1)
+    got = multihost.maybe_initialize(device="cpu")
+    again = multihost.maybe_initialize(device="cpu")
+    try:
+        x = torch.tensor([float(got + 1)])
+        dist.all_reduce(x)
+        _save(out, f"torchrun-r{got}", {
+            "rank": got, "again": again, "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "sum": float(x),
+            "local_rank": int(os.environ["LOCAL_RANK"]),
+            "plan": multihost.rendezvous_plan(),
+            "line": multihost.describe_group()})
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    # ``python -m tests.torch_parallel_workers <function> <dir>``: the
+    # entry of a rank process a launcher (torchrun) starts
+    import sys
+
+    globals()[sys.argv[1]](pathlib.Path(sys.argv[2]))

@@ -20,8 +20,12 @@ no network. Phases, each of which raises on failure:
    at the fine-tuning shapes (b 4, s 2048, 32 / 8 heads, d 128 for
    Llama-3.1-8B and d 64 for Llama-3.2-1B; K1 also through the wrapper at
    b 1, s 1000), timed there too; and all three at phase 12's head dims
-   256 and 192 (b 8, s 2048, 6 / 2 and 8 / 4 heads), timed there, with
-   K1 also at its per-length prefill and in f32;
+   256, 192, 512 and 384 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1 and 4 / 2
+   heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
+   SDPA (its backend named: its flash backend stops at d 256), in f32 at
+   s 1000 too, with K1 also at its per-length prefill; at d 256 the
+   design not shipped there (the row split or the D split, per kernel)
+   against the plain versions and timed in turns with the shipped one;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -87,13 +91,14 @@ no network. Phases, each of which raises on failure:
    ``bench_800m`` (per-length and windowed prefill), a LoRA step over a
    ``bench_800m`` base and the ResNet-50 step;
 12. wide head dims: ``bench_800m`` with its attention cut into 6 / 2 heads
-   of 256 and 8 / 4 heads of 192 (``WIDE_HEADS``; h * d is still 1536),
-   each trained by ``make_train_step`` at b 8 x 2048 for a few steps with
-   exact launches per step (K1 40 / K2 20 / K3 20), a falling finite loss,
-   step time, tokens/s, MFU and peak memory; the d 256 model, in bf16,
-   answers one per-length request over HTTP (K1 20, first tokens
-   ``llama.apply``'s) and decodes greedily in f32 through K1 token for
-   token as the dense path does;
+   of 256, 8 / 4 of 192, 3 / 1 of 512 and 4 / 2 of 384 (``WIDE_HEADS``;
+   h * d is still 1536), each trained by ``make_train_step`` at b 8 x 2048
+   for a few steps with exact launches per step (K1 40 / K2 20 / K3 20), a
+   falling finite loss, step time, tokens/s, MFU and peak memory; the d 256
+   and d 512 models, in bf16, answer one per-length request over HTTP (K1
+   20, first tokens ``llama.apply``'s) and decode greedily in f32 through
+   K1 token for token as the dense path does; the d 512 and d 384 models
+   take one step with flash against one with dense attention (b 2, s 512);
 13. the placement policy and the GPU binding: a seeded journal of
    16,384 sched-journal/v1 placement rows over 16 pools of mixed sizes
    (``policy_journal``), written to JSONL and read back through the port's
@@ -157,7 +162,13 @@ KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
 # the profile's kernel groups: a __global__ kernel of csrc/ (matched as a
 # substring of the profiler's kernel name) and its label
 PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
-                   "dkv_wgmma": "K3 dkv"}
+                   "dkv_wgmma": "K3 dkv",
+                   "flash_fwd_split": "K1 flash_fwd (D split)",
+                   "dq_split": "K2 dq (D split)",
+                   "dkv_split": "K3 dkv (D split)"}
+# the other design at d 256 (phase 3 times it beside the shipped one in
+# turns): every kernel source built with -DFLASH_OTHER_D256=1 into here
+OTHER_D256_DIR = ROOT / "build" / "chip_smoke_other_d256"
 
 # serving path: bench_800m, batch 4, a 1000-token prompt, 64 new tokens
 PRESET, BATCH, PROMPT, NEW = "bench_800m", 4, 1000, 64
@@ -280,14 +291,23 @@ RESNET50_PARAMS = 25_557_032
 SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
 
 # the wide head dims (phase 12): PRESET with its attention cut into heads of
-# 256 (6 / 2 heads) and of 192 (8 / 4), built with dataclasses.replace (the
-# JAX package has no preset at these dims). h * d stays 1536, so wq and wo
-# keep their 1536 x 1536 and each kernel does PRESET's work at the training
-# shape; d 256 also keeps wk/wv at 1536 x 512 (d 192: 1536 x 768). Each
+# 256 (6 / 2 heads), 192 (8 / 4), 512 (3 / 1) and 384 (4 / 2), built with
+# dataclasses.replace (the JAX package has no preset at these dims). h * d
+# stays 1536, so wq and wo keep their 1536 x 1536 and each kernel does
+# PRESET's work at the training shape; d 256 and d 512 also keep wk/wv at
+# 1536 x 512 (d 192 and d 384: 1536 x 768). d 384 and d 512 take the split
+# kernels (each consumer warpgroup owns part of the output's columns). Each
 # trains WIDE_STEPS steps at the training shape (the first a warm-up); the
-# d 256 model then serves one per-length request. Phase 3 checks and times
-# K1, K2 and K3 at both shapes.
-WIDE_HEADS = {"bench_800m_d256": (6, 2, 256), "bench_800m_d192": (8, 4, 192)}
+# models of WIDE_SERVED then serve one per-length request, and those of
+# WIDE_VS_DENSE take one step with flash against one with dense attention
+# (b 2, s 512, GRAD_TOL). Phase 3 checks and times K1, K2 and K3 at every
+# shape, and at KERNEL_ONLY_HEADS: the split kernels' other dims, 4 / 2
+# heads of 320 and of 448 at the training shape (no model).
+WIDE_HEADS = {"bench_800m_d256": (6, 2, 256), "bench_800m_d192": (8, 4, 192),
+              "bench_800m_d512": (3, 1, 512), "bench_800m_d384": (4, 2, 384)}
+WIDE_SERVED = (256, 512)
+WIDE_VS_DENSE = (512, 384)
+KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448)}
 WIDE_STEPS = TRAIN_STEPS
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
@@ -379,23 +399,50 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
-    """Every kernel source, one nvcc each, all started together."""
+    """Every kernel source, one nvcc each, all started together: as the
+    port builds it, and with the other design at d 256 (phase 3 times
+    both)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        libs = list(pool.map(_build.build, KERNEL_SOURCES))
-    _log(f"build: {', '.join(KERNEL_SOURCES)} in "
-         f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs:
+    with ThreadPoolExecutor(2 * len(KERNEL_SOURCES)) as pool:
+        # map submits every build at once; the lists wait for them
+        built = pool.map(_build.build, KERNEL_SOURCES)
+        other = pool.map(_build_other_d256, KERNEL_SOURCES)
+        libs, others = list(built), list(other)
+    _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
+         f"design at d 256, in {time.perf_counter() - t0:.1f} s")
+    for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
+            _log(f"  {lib.relative_to(ROOT)}:")
             for line in log.read_text().splitlines():
                 if any(w in line for w in ("entry function", "registers",
                                            "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
+
+
+def _build_other_d256(name: str) -> Path:
+    """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_D256=1`` (at d 256 each
+    kernel takes the design the port does not ship there) into
+    OTHER_D256_DIR, with ``ops/_build.py``'s flags; its ptxas report
+    beside it."""
+    from service_account_auth_improvements_tpu_torch.ops import _build
+
+    OTHER_D256_DIR.mkdir(parents=True, exist_ok=True)
+    out = OTHER_D256_DIR / f"lib{name}.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_OTHER_D256=1", "-o",
+         str(out), str(_build.CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu with "
+                           f"-DFLASH_OTHER_D256=1:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
+    return out
 
 
 def _qkv(b, s, h, hkv, d, dtype, gen):
@@ -493,21 +540,24 @@ def phase_kernels() -> dict:
         *((f"llama3 {name} prefill gqa4 s{PROMPT} d{d} bf16 wrapper", 1,
            PROMPT, 32, 8, d, torch.bfloat16, True, True)
           for name, d in FT_HEAD_DIMS),
-        # the wide head dims (phase 12): the training shape, the d 256
-        # model's per-length prefill, and f32 at a ragged length
+        # the wide head dims (phase 12 and KERNEL_ONLY_HEADS): the training
+        # shape and f32 at a ragged length; phase 12's per-length prefill;
+        # the widest non-causal
         *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
            hkv, d, torch.bfloat16, True, False)
-          for name, (h, hkv, d) in WIDE_HEADS.items()),
+          for name, (h, hkv, d) in _kernel_heads().items()),
         *((f"{name} prefill s{PROMPT} bf16 wrapper", BATCH, PROMPT, h, hkv,
            d, torch.bfloat16, True, True)
           for name, (h, hkv, d) in WIDE_HEADS.items()),
         *((f"{name} s{PROMPT} f32 wrapper", 2, PROMPT, h, hkv, d,
            torch.float32, True, True)
-          for name, (h, hkv, d) in WIDE_HEADS.items()),
+          for name, (h, hkv, d) in _kernel_heads().items()),
+        ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
+         False, True),
     ]
     worst = 0.0
     # the largest error of the bf16 cases at each wide head dim
-    worst_wide = {d: 0.0 for _, _, d in WIDE_HEADS.values()}
+    worst_wide = {d: 0.0 for _, _, d in _kernel_heads().values()}
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -579,20 +629,45 @@ def phase_kernels() -> dict:
     ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
         f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
         for name, d in FT_HEAD_DIMS}
-    # the wide head dims at the training shape (flash_fwd_wgmma<256> and
-    # <192>: the build's ptxas lines above give their registers and spills)
+    # the wide head dims at the training shape (flash_fwd_wgmma<192>,
+    # <256> and flash_fwd_split<320> to <512>: the build's ptxas lines above
+    # give their registers and spills)
     wide = {name: dict(
         _time_k1(name, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, gen),
         max_abs_err=worst_wide[d],
         shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal")
-        for name, (h, hkv, d) in WIDE_HEADS.items()}
+        for name, (h, hkv, d) in _kernel_heads().items()}
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft,
                 wide=wide)
 
 
+def _kernel_heads() -> dict:
+    """Phase 3's wide head dims: phase 12's models and the kernel-only
+    dims, name -> (heads, KV heads, head dim)."""
+    return {**WIDE_HEADS, **KERNEL_ONLY_HEADS}
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend SDPA takes for these [b, h, s, d] inputs (causal, GQA):
+    the first of its priority order that accepts them (its flash backend
+    stops at d 256)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in map(SDPBackend, torch._C._get_sdp_priority_order()):
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(
+                    q[:1], k[:1], v[:1], is_causal=True, enable_gqa=True)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
 def _time_k1(label, b, s, h, hkv, d, gen) -> dict:
     """K1 at one bf16 causal shape, timed beside its plain version and
-    SDPA's forward, with its TF/s and share of the bound."""
+    SDPA's forward (naming the backend SDPA took), with its TF/s and share
+    of the bound."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -604,16 +679,17 @@ def _time_k1(label, b, s, h, hkv, d, gen) -> dict:
                         iters=5, warmup=1, queue_ahead=True)
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
         qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
+    backend = _sdpa_backend(qt, kt, vt)
     bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
                                       True)
     tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
     _log(f"time {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: kernel "
          f"{ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of bound), "
-         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({backend}), bound "
          f"{bound_ms:.4f} ms ({bound_by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
-                bound_share=bound_ms / ms)
+                library_backend=backend, bound_ms=bound_ms,
+                bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
 
 
 def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
@@ -658,19 +734,21 @@ def phase_bwd_kernels() -> dict:
         *((f"llama3 {name} train gqa4 s{FT_SEQ} d{d} bf16", FT_BATCH,
            FT_SEQ, 32, 8, d, torch.bfloat16, True)
           for name, d in FT_HEAD_DIMS),
-        # the wide head dims (phase 12): the training shape, and f32 at a
-        # ragged length
+        # the wide head dims (phase 12 and KERNEL_ONLY_HEADS): the training
+        # shape, f32 at a ragged length, and the widest non-causal
         *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
            hkv, d, torch.bfloat16, True)
-          for name, (h, hkv, d) in WIDE_HEADS.items()),
+          for name, (h, hkv, d) in _kernel_heads().items()),
         *((f"{name} s{PROMPT} f32", 2, PROMPT, h, hkv, d, torch.float32,
            True)
-          for name, (h, hkv, d) in WIDE_HEADS.items()),
+          for name, (h, hkv, d) in _kernel_heads().items()),
+        ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
+         False),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     # the largest error of the bf16 cases at each wide head dim
     worst_wide = {(kernel, d): 0.0 for kernel in worst
-                  for _, _, d in WIDE_HEADS.values()}
+                  for _, _, d in _kernel_heads().values()}
     for name, b, s, h, hkv, d, dtype, causal in cases:
         q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                           causal)
@@ -795,8 +873,8 @@ def phase_bwd_kernels() -> dict:
             out[name]["more_shapes"][
                 f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal"] = n
     # the wide head dims at the training shape (dq_wgmma and dkv_wgmma at
-    # <256> and <192>)
-    for label, (h, hkv, d) in WIDE_HEADS.items():
+    # <192> and <256>, dq_split and dkv_split at <320> to <512>)
+    for label, (h, hkv, d) in _kernel_heads().items():
         for name, n in _time_k2_k3(label, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d,
                                    gen).items():
             out[name]["wide"][label] = dict(
@@ -818,8 +896,9 @@ def phase_bwd_kernels() -> dict:
 
 def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
     """K2 and K3 at one bf16 causal shape, each timed beside its plain
-    version and SDPA's backward (one call for dQ, dK and dV together),
-    with TF/s and the share of the bound: {kernel name: numbers}."""
+    version and SDPA's backward (one call for dQ, dK and dV together,
+    naming the backend SDPA took), with TF/s and the share of the bound:
+    {kernel name: numbers}."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -832,6 +911,7 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
         sq, sk, sv, is_causal=True, enable_gqa=True)
     lib_ms = _time_ms(lambda: torch.autograd.grad(
         so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
+    backend = _sdpa_backend(q, k, v)
     out = {}
     for name, kern, plain, kind in (
             ("flash_bwd_dq",
@@ -850,11 +930,110 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
         _log(f"time {name} {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
              f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
              f"bound), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
-             f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+             f"ms ({backend}), bound {bound_ms:.4f} ms ({bound_by})")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, tflops=tflops,
+                         library_backend=backend, bound_ms=bound_ms,
+                         bound_by=bound_by, tflops=tflops,
                          bound_share=bound_ms / ms)
     del q, k, v, do, o, lse, delta, sq, sk, sv, so
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_d256_designs() -> dict:
+    """At d 256 each of K1, K2 and K3 has two designs: the row split
+    (flash_fwd_wgmma, dq_wgmma, dkv_wgmma: 128 rows or keys a block, 64 a
+    consumer) and the D-split kernels (64 a block, the output's columns
+    split between the consumers). The port ships, per kernel, the one its
+    sources name (``*_split_from`` in each library); the other is built
+    with -DFLASH_OTHER_D256=1 (phase 2). The other design is held against
+    the plain versions at phase 12's d 256 training shape (K2 and K3 also
+    twice on one input, bitwise), then both are timed in turns on the same
+    inputs (shipped, other, other, shipped). Returns {kernel: numbers}."""
+    import ctypes
+
+    from service_account_auth_improvements_tpu_torch.ops import (
+        _build,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    h, hkv, d = WIDE_HEADS["bench_800m_d256"]
+    b, s, dtype = TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+    delta = fa.flash_bwd_delta(o, do)
+    libs = {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
+            "other": {n: ctypes.CDLL(str(OTHER_D256_DIR / f"lib{n}.so"))
+                      for n in KERNEL_SOURCES}}
+
+    def designs(which):
+        fwd, bwd = libs[which]["flash_fwd"], libs[which]["flash_bwd"]
+        return {name: "D split" if split_from() <= d else "row split"
+                for name, split_from in (
+                    ("flash_fwd", fwd.flash_fwd_split_from),
+                    ("flash_bwd_dq", bwd.flash_bwd_dq_split_from),
+                    ("flash_bwd_dkv", bwd.flash_bwd_dkv_split_from))}
+
+    named = {which: designs(which) for which in libs}
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True)[0],
+                      lambda: fa.flash_fwd_reference(q, k, v, True)[0],
+                      TOL[dtype]),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              True), BWD_TOL[dtype]),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               True), BWD_TOL[dtype]),
+    }
+    out = {}
+    try:
+        _build._libs.update(libs["other"])
+        for name, (kern, plain, (atol, rtol)) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+                (got, want)]
+            err = max(_check(f"d256 {named['other'][name]} {name}", g, w,
+                             atol, rtol) for g, w in pairs)
+            if name != "flash_fwd":
+                again = kern()
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)))
+                if not same:
+                    raise AssertionError(f"d256 {named['other'][name]} "
+                                         f"{name} is not deterministic")
+            _log(f"kernel d256 {named['other'][name]} (the design not "
+                 f"shipped at d 256) {name}: max abs err {err:.3e} (atol "
+                 f"{atol}, rtol {rtol})")
+            out[name] = dict(other_max_abs_err=err)
+            del got, want
+        times = {name: {"shipped": [], "other": []} for name in calls}
+        for which in ("shipped", "other", "other", "shipped"):
+            _build._libs.update(libs[which])
+            for name, (kern, _, _) in calls.items():
+                times[name][which].append(_time_ms(kern, queue_ahead=True))
+    finally:
+        _build._libs.update(libs["shipped"])
+    for name, t in times.items():
+        shipped_ms, other_ms = (sum(t[w]) / len(t[w])
+                                for w in ("shipped", "other"))
+        out[name].update(shipped_design=named["shipped"][name],
+                         shipped_ms=shipped_ms,
+                         other_design=named["other"][name],
+                         other_ms=other_ms)
+        _log(f"time d256 designs {name} b{b} s{s} h{h} hkv{hkv} bf16 causal, "
+             f"in turns: shipped ({named['shipped'][name]}) "
+             f"{shipped_ms:.4f} ms {[round(x, 4) for x in t['shipped']]}, "
+             f"other ({named['other'][name]}) {other_ms:.4f} ms "
+             f"{[round(x, 4) for x in t['other']]}")
+    del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return out
 
@@ -3675,12 +3854,14 @@ def _world1_resnet(mesh, fa) -> None:
 # ------------------------------------------------------------ phase 12
 
 def phase_wide_heads() -> dict:
-    """PRESET at head dims 256 and 192 (WIDE_HEADS): ``make_train_step``
-    at the training shape, WIDE_STEPS steps on one fixed batch, with exact
-    launch counts per step (K1 2 L, K2 L, K3 L), a finite loss that falls,
-    step time, tokens/s, MFU and peak memory; then the d 256 model serves.
-    Returns {head dim: {path: launch counts}} of exactly the counted
-    runs. One more step of each runs under the profiler, uncounted."""
+    """PRESET at head dims 256, 192, 512 and 384 (WIDE_HEADS):
+    ``make_train_step`` at the training shape, WIDE_STEPS steps on one
+    fixed batch, with exact launch counts per step (K1 2 L, K2 L, K3 L), a
+    finite loss that falls, step time, tokens/s, MFU and peak memory; then
+    the models of WIDE_SERVED serve, and those of WIDE_VS_DENSE take one
+    step with flash against one with dense attention. Returns {head dim:
+    {path: launch counts}} of exactly the counted runs. One more step of
+    each runs under the profiler, uncounted."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import llama
@@ -3764,16 +3945,19 @@ def phase_wide_heads() -> dict:
         _profile_step(step, state, tokens, mask)
         paths = {"training": launches}
         del step, m
-        if d == 256:
+        if d in WIDE_SERVED:
             paths.update(_wide_serving(cfg, state.params, fa))
         out[d] = paths
         del state
         torch.cuda.empty_cache()
+        if d in WIDE_VS_DENSE:
+            _log(f"wide heads {name}: one step flash against dense:")
+            _grads_flash_vs_dense(cfg, step_mod)
     return out
 
 
 def _wide_serving(cfg, params, fa) -> dict:
-    """The trained d 256 model in bf16 behind ``GenerationService``
+    """A trained wide-head model in bf16 behind ``GenerationService``
     (per-length prefill) answering one greedy request over HTTP: K1 once
     per layer, the first tokens ``llama.apply``'s argmax; then greedy f32
     decoding, flash (K1's f32 route) against dense, token for token.
@@ -4173,6 +4357,7 @@ def main() -> int:
     _timed("build", phase_build)
     numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
+    d256 = _timed("kernels d 256 designs", phase_d256_designs)
     serving = _timed("serving", phase_serving)
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
@@ -4213,12 +4398,17 @@ def main() -> int:
             "bound_share": n["bound_share"],
             "more_shapes": n["more_shapes"],
         })
-    # the wide head dims' routes (phase 12), one entry per kernel and dim
+    # the wide head dims' routes (phase 12), one entry per kernel and dim;
+    # at d 256 the other design's numbers beside the shipped one's, and the
+    # kernel-only dims (d 320, 448: no model, so no launches on a main
+    # path) under the d 512 entries
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share")
     for label, (_, _, d) in WIDE_HEADS.items():
         for name, (src, _, line) in KERNELS.items():
             n = numbers[name]["wide"][label]
             by_path = {path: counts[name] for path, counts in wide[d].items()}
-            kernels.append({
+            entry = {
                 "name": f"{name} d{d}",
                 "route": "cuda",
                 "source": f"{PKG}/csrc/{src}",
@@ -4226,10 +4416,16 @@ def main() -> int:
                             f"flash_attention.py:{line}",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
-                **{key: n[key] for key in (
-                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "tflops", "bound_share")},
-            })
+                **{key: n[key] for key in keys},
+            }
+            if d == 256:
+                entry["designs_in_turns"] = d256[name]
+            if d == 512:
+                entry["more_shapes"] = {
+                    other: {key: numbers[name]["wide"][other][key]
+                            for key in keys}
+                    for other in KERNEL_ONLY_HEADS}
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

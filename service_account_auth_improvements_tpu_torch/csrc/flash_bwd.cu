@@ -39,12 +39,13 @@
 //
 // What bounds it on an H100: at the training shape (s 2048, d 128) K2 does
 // 3 and K3 4 products of 2 s^2 d / 2 flops per (b, h) against ~6 s d bytes:
-// hundreds of flops per byte, so both are bound by operations. In bf16 (d 64,
-// 128, 192 and 256) both are built for Hopper, as K1 is: a producer
-// warpgroup streams tiles by TMA through a ring of shared-memory stages
-// tracked by mbarriers, and two consumer warpgroups run every product on
-// wgmma with the scores in registers; see the notes above `dq_wgmma` and
-// `dkv_wgmma`.
+// hundreds of flops per byte, so both are bound by operations. In bf16 (every
+// d % 64 == 0 from 64 to 512) both are built for Hopper, as K1 is: tiles
+// stream by TMA through a ring of shared-memory stages tracked by
+// mbarriers, and two consumer warpgroups run every product on wgmma with
+// the scores in registers; see the notes above `dq_wgmma` and `dkv_wgmma`
+// (up to d 256) and above `dq_split` and `dkv_split` (d 320 to 512, the
+// output's D columns split between the consumers).
 //
 // float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
 // f32 parity with the reference holds.
@@ -140,6 +141,7 @@ constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
 // keys beside dQ's D / 2 registers made ptxas spill and serialise the
 // wgmmas. Stages in the ring: 256 keys' worth (4 of 64 keys or 2 of 128),
 // or as many as fit beside the resident Q and dO (d 192: 5, d 256: 3).
+// From d 320 K2 is dq_split (DqSplit's tiles), below.
 constexpr int dq_bk(int d) { return d <= 128 ? DQ_BK : 32; }
 constexpr int dq_stages(int d) {
   const int fit =
@@ -401,7 +403,8 @@ struct DkvArgs {
 // Shared memory: K, V (the block's keys), the Q and dO stages, the lse and
 // delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
 // (rows x 128 bytes). A stage holds BQ query rows: 128 in 2 stages up to
-// d 128, 32 above in as many stages as fit (at most 4).
+// d 128, 32 above in as many stages as fit (at most 4). From d 320 K3 is
+// dkv_split (DkvSplit's tiles), below.
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = D <= 128 ? 128 : 32;  // query rows per stage
@@ -698,6 +701,504 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
   }
 }
 
+// ------------------------------------------------ bf16: the D-split kernels
+//
+// From d 320 (and at d 256 if it measures faster: kDqSplitFrom,
+// kDkvSplitFrom) K2 is `dq_split<D>` and K3 `dkv_split<D>`. dq_wgmma and
+// dkv_wgmma hold a D / 2-register accumulator a thread (256 at d 512, past
+// the 255 a thread may have), and their resident tiles (Q and dO of 128
+// rows, K and V of 128 keys: 256 KB at d 512) overflow 227 KB. The split
+// kernels follow K1's (csrc/flash_fwd.cu, flash_fwd_split):
+// - a block owns 64 rows (K2: query rows; K3: keys) and BOTH consumer
+//   warpgroups own all 64; the D columns of the output are split between
+//   them: warpgroup c accumulates NC = ceil(D / 128) * 64 columns from
+//   c (D - NC) (at d 320 and 448 the middle 64 are computed by both and
+//   stored by warpgroup 0), at most 128 registers a thread;
+// - the score products are split by their columns instead (K2: the tile's
+//   keys; K3: the stage's queries): warpgroup c forms S and dP (K3's dV
+//   pass: S^T only) for its half over the whole head dim, and the two
+//   exchange halves through shared memory in fragment order
+//   (hopper::put_half, join_half; one named barrier per tile). Every
+//   product runs once; both warpgroups hold the same scores, form the same
+//   dS (P) and run one instruction stream (no branch on the warpgroup
+//   around a wgmma);
+// - a block is just the two consumer warpgroups, as in flash_fwd_split (8
+//   warps: 255 registers a thread, where 9 to 12 warps get 168 and
+//   spilled); thread 0 (K3: the first warp, which also copies lse and
+//   delta with cp.async) loads whole tiles by TMA, each stage's next one
+//   as soon as both warpgroups have released it, never waiting;
+// - K2: dQ[:, own] += dS K[:, own]; K3 keeps its two passes (dV, then dK,
+//   one accumulator each): dV[:, own] += P^T dO[:, own] and dK[:, own] +=
+//   dS^T Q[:, own], with the rounding rules of dq_wgmma and dkv_wgmma;
+// - tiles: the largest of 64, 32 and 16 keys (K2) or queries (K3) a stage
+//   for which two stages fit beside the resident tiles and the exchange
+//   buffers, with as many stages as fit (at most 4): DqSplit, DkvSplit.
+// Every sum still runs inside one block in a fixed order: deterministic.
+
+#ifndef FLASH_OTHER_D256
+#define FLASH_OTHER_D256 0
+#endif
+// the smallest head dims K2 and K3 take the split kernels at. At d 256
+// each ships the faster of its two designs on the H100 (chip_smoke.py's
+// phase_d256_designs, in turns on one card; PERF.md §6): dq_wgmma and
+// dkv_wgmma. A build with -DFLASH_OTHER_D256=1 takes the split at d 256.
+constexpr int kDqSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
+constexpr int kDkvSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
+constexpr int SPLIT_THREADS = 2 * WG;  // the two consumer warpgroups
+
+// Stages of `t` rows (two bf16 tiles of t x d each, plus `extra` bytes a
+// row) that fit beside `resident` bytes, the exchange buffers (2 buffers x
+// 2 warpgroups x two 64 x t / 2 f32 halves: 1024 t bytes) and the
+// mbarriers; and the largest of 64, 32, 16 rows for which two fit.
+__host__ __device__ constexpr int split_fit(int d, int resident, int t,
+                                            int extra) {
+  return (SMEM_MAX - 2048 - resident - 1024 * t) / (4 * t * d + extra * t);
+}
+__host__ __device__ constexpr int split_tile(int d, int resident,
+                                             int extra) {
+  return split_fit(d, resident, 64, extra) >= 2   ? 64
+         : split_fit(d, resident, 32, extra) >= 2 ? 32
+                                                  : 16;
+}
+
+struct DqSplitArgs {
+  CUtensorMap tq, tdo;  // boxes of 64 columns x 64 rows
+  CUtensorMap tk, tv;   // boxes of 64 columns x DqSplit<D>::BK rows
+  const float* lse;
+  const float* delta;
+  void* dq;
+  int64_t dq_sb, dq_sh, dq_ss;
+  int h, hkv, batch, sq, sk, causal, nq;
+  float scale, scale_log2;
+};
+
+// Shared memory: Q and dO (64 rows, resident), the K stages, the V stages,
+// the two exchange buffers and the mbarriers.
+template <int D>
+struct DqSplit {
+  static constexpr int BQ = 64;
+  static constexpr int NC = (D + 127) / 128 * 64;
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int BK = split_tile(D, 2 * Q_BYTES, 0);
+  static constexpr int FIT = split_fit(D, 2 * Q_BYTES, BK, 0);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int XCH = 2 * 2 * (BK / 4) * WG;  // f32 a buffer
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XCH * 4;
+  // mbarriers: q_full, kv_full[S], kv_empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && NC <= 256, "dQ: 256 columns a consumer");
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K and V of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void dq_split_load(const DqSplitArgs& a,
+                                              uint32_t base, int i, int ikv,
+                                              int ib) {
+  using namespace hopper;
+  using L = DqSplit<D>;
+  const int s = i % L::STAGES;
+  const uint32_t full_s = base + L::BAR_OFF + 8 + 8 * s;
+  mbar_arrive_expect_tx(full_s, 2 * L::KV_BYTES);
+  tma_load_5d(base + L::K_OFF + s * L::KV_BYTES, &a.tk, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+  tma_load_5d(base + L::V_OFF + s * L::KV_BYTES, &a.tv, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+}
+
+template <int D>
+__device__ __forceinline__ void dq_split_consumer(const DqSplitArgs& a,
+                                                  uint32_t base, float* xbuf,
+                                                  int q0, int ih, int ib,
+                                                  int nk) {
+  using namespace hopper;
+  using L = DqSplit<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, NC = L::NC, HALF = BK / 2;
+  constexpr int R = HALF / 2;  // registers of one half tile
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, kv_full = bar + 8,
+                 kv_empty = kv_full + 8 * STAGES;
+  const int c = threadIdx.x / WG;  // this warpgroup's keys and columns
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int row0 = q0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t k_cols = c * ((D - NC) / 64) * L::KV_CB;
+
+  const int64_t rows = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  const float ls0 = row0 < a.sq ? a.lse[rows + row0] * kLog2e : 0.f;
+  const float ls1 = row1 < a.sq ? a.lse[rows + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < a.sq ? a.delta[rows + row0] : 0.f;
+  const float dl1 = row1 < a.sq ? a.delta[rows + row1] : 0.f;
+
+  float dq[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) dq[i] = 0.f;
+  const int ikv = ih / (a.h / a.hkv);
+  bool refill = false;  // thread 0: tile i - 1's stage still to refill
+
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+
+    // this warpgroup's halves of S = Q K^T and dP = dO V^T (64 rows x
+    // BK / 2 keys each), side by side in `own`
+    float own[2 * R];
+    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<HALF, D / 16, L::Q_CB, L::KV_CB>(
+        *reinterpret_cast<float(*)[R]>(own), desc_sw128(base, 16, 1024),
+        desc_sw128(k_addr + c * HALF * 128, 16, 1024));
+    wgmma_ss<HALF, D / 16, L::Q_CB, L::KV_CB>(
+        *reinterpret_cast<float(*)[R]>(own + R),
+        desc_sw128(base + L::DO_OFF, 16, 1024),
+        desc_sw128(v_addr + c * HALF * 128, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(own);
+    float sc[BK / 2], dp[BK / 2];
+    float* buf = xbuf + (i & 1) * L::XCH;  // [S, dP][warpgroup][R][128]
+    put_half<R>(own, buf, c, t);
+    put_half<R>(own + R, buf + 2 * R * WG, c, t);
+    bar_sync(1, 2 * WG);
+    if (refill) {  // past the barrier both warpgroups released tile i - 1
+      mbar_wait(kv_empty + 8 * ((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
+      dq_split_load<D>(a, base, i - 1 + STAGES, ikv, ib);
+      refill = false;
+    }
+    join_half<R>(own, buf, sc, c, t);
+    join_half<R>(own + R, buf + 2 * R * WG, dp, c, t);
+
+    // dS = P (dP - delta), P = exp2(S scale log2e - lse log2e) in f32
+    const bool need_mask = (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(sc[4 * j + e], a.scale_log2,
+                                 -(e < 2 ? ls0 : ls1)));
+        if (need_mask) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          if (col >= a.sk || (a.causal && col > (e < 2 ? row0 : row1)))
+            p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+    uint32_t f[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // dQ[:, own columns] += dS K[:, own columns]
+    fence_regs(dq);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<NC, BK / 16, L::KV_CB>(dq, f, k_addr + k_cols);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(kv_empty + 8 * s);
+    // the stage's next tile: now if the other warpgroup has released the
+    // stage too, else at the next tile's exchange
+    if (threadIdx.x == 0 && i + STAGES < nk) {
+      refill = !mbar_test(kv_empty + 8 * s, (i / STAGES) & 1);
+      if (!refill) dq_split_load<D>(a, base, i + STAGES, ikv, ib);
+    }
+  }
+  store_cols<NC>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
+                 a.dq_ss, dq, a.scale, row0, row1, a.sq, tq,
+                 c * (D - NC), c == 0 ? 0 : NC);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dq_split(const __grid_constant__ DqSplitArgs a) {
+  using namespace hopper;
+  using L = DqSplit<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  float* xbuf = reinterpret_cast<float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::X_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, kv_full = bar + 8,
+                 kv_empty = kv_full + 8 * STAGES;
+
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int q0 = iq * BQ;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {  // Q and dO, and the first STAGES key tiles
+    mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+    tma_load_5d(base, &a.tq, q_full, 0, q0, 0, ih, ib);
+    tma_load_5d(base + L::DO_OFF, &a.tdo, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < STAGES && i < nk; ++i)
+      dq_split_load<D>(a, base, i, ih / (a.h / a.hkv), ib);
+  }
+  dq_split_consumer<D>(a, base, xbuf, q0, ih, ib, nk);
+}
+
+// K3 split: shared memory holds K and V of the block's 64 keys (resident),
+// the Q and dO stages of BQ queries, their lse and delta, the two exchange
+// buffers and the mbarriers.
+template <int D>
+struct DkvSplit {
+  static constexpr int BK = 64;  // keys per block
+  static constexpr int NC = (D + 127) / 128 * 64;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int BQ = split_tile(D, 2 * KV_BYTES, 8);
+  static constexpr int FIT = split_fit(D, 2 * KV_BYTES, BQ, 8);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int QT_CB = BQ * 128;
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int ROW_BYTES = BQ * 4;
+  static constexpr int XCH = 2 * 2 * (BQ / 4) * WG;  // f32 a buffer
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int X_OFF = DL_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XCH * 4;
+  // mbarriers: kv_full, q_full[S], q_empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && NC <= 256, "dK, dV: at most 256 columns");
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// Stage j of the block's sequence (both passes stream the same `tiles`
+// stages: the group's query heads, each from query tile iq0 on, nqt tiles)
+// by the first warp: Q and dO by TMA from lane 0, the rows' lse and delta
+// by the lanes with cp.async (rows past sq fill with 0), each lane's
+// arrival on the stage's barrier made when its copies land. The stage is
+// full once all 32 lanes' copies and the TMA bytes have landed; the warp
+// (which also computes) never waits on a global load.
+template <int D>
+__device__ __forceinline__ void dkv_split_load(const DkvArgs& a,
+                                               uint32_t base,
+                                               unsigned char* smem, int j,
+                                               int tiles, int nqt, int iq0,
+                                               int ikv, int ib, int lane) {
+  using namespace hopper;
+  using L = DkvSplit<D>;
+  const int s = j % L::STAGES, jj = j % tiles;
+  const int ih = ikv * (a.h / a.hkv) + jj / nqt;
+  const int iq = iq0 + jj % nqt;
+  const uint32_t full_s = base + L::BAR_OFF + 8 + 8 * s;
+  if (lane == 0) {
+    mbar_expect_tx(full_s, 2 * L::QT_BYTES);
+    tma_load_5d(base + L::Q_OFF + s * L::QT_BYTES, &a.tq, full_s, 0,
+                iq * L::BQ, 0, ih, ib);
+    tma_load_5d(base + L::DO_OFF + s * L::QT_BYTES, &a.tdo, full_s, 0,
+                iq * L::BQ, 0, ih, ib);
+  }
+  const int64_t row = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  float* ls = reinterpret_cast<float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+  float* dl = reinterpret_cast<float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+  for (int r = lane; r < L::BQ; r += 32) {
+    const int q = iq * L::BQ + r;
+    const int64_t at = row + (q < a.sq ? q : 0);
+    cp_async_4(smem_u32(ls + r), a.lse + at, q < a.sq ? 4 : 0);
+    cp_async_4(smem_u32(dl + r), a.delta + at, q < a.sq ? 4 : 0);
+  }
+  cp_async_arrive(full_s);
+}
+
+// One pass of a K3 split consumer over the block's stage sequence (`tiles`
+// stages of BQ queries, ring positions from i0), one accumulator of NC
+// columns: PASS 0, dV[:, own] += P^T dO[:, own]; PASS 1, dK[:, own] +=
+// dS^T Q[:, own]. The first warp refills the stages (dkv_split_load).
+template <int D, int PASS>
+__device__ __forceinline__ void dkv_split_pass(const DkvArgs& a,
+                                               uint32_t base,
+                                               unsigned char* smem,
+                                               float* xbuf, int i0, int tiles,
+                                               int nqt, int iq0, int k0,
+                                               int ikv, int ib, int key0,
+                                               int key1, int c, int t,
+                                               bool& refill, bf16* out,
+                                               int64_t ss) {
+  using namespace hopper;
+  using L = DkvSplit<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES, NC = L::NC, HALF = BQ / 2;
+  constexpr int R = HALF / 2;  // registers of one half tile
+  const int tq = t % 4;
+  const uint32_t q_full = base + L::BAR_OFF + 8, q_empty = q_full + 8 * STAGES;
+  const uint32_t own_cols = c * ((D - NC) / 64) * L::QT_CB;
+  float acc[NC / 2];
+#pragma unroll
+  for (int r = 0; r < NC / 2; ++r) acc[r] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < tiles; ++n) {
+    const int i = i0 + n;
+    const int s = i % STAGES;
+    const int q0 = (iq0 + n % nqt) * BQ;
+    const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
+    const uint32_t do_addr = base + L::DO_OFF + s * L::QT_BYTES;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+    const float* dl =
+        reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+    const bool need_mask = (a.causal && q0 < k0 + L::BK) || q0 + BQ > a.sq;
+    mbar_wait(q_full + 8 * s, (i / STAGES) & 1);
+
+    // this warpgroup's half of the stage's queries: S^T = K Q^T (and, for
+    // dK, dP^T = V dO^T), 64 keys x BQ / 2 queries each
+    float own[(PASS + 1) * R];
+    wgmma_fence();
+    wgmma_ss<HALF, D / 16, L::KV_CB, L::QT_CB>(
+        *reinterpret_cast<float(*)[R]>(own), desc_sw128(base, 16, 1024),
+        desc_sw128(q_addr + c * HALF * 128, 16, 1024));
+    if constexpr (PASS == 1)
+      wgmma_ss<HALF, D / 16, L::KV_CB, L::QT_CB>(
+          *reinterpret_cast<float(*)[R]>(own + R),
+          desc_sw128(base + L::V_OFF, 16, 1024),
+          desc_sw128(do_addr + c * HALF * 128, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(own);
+    float* buf = xbuf + (i & 1) * L::XCH;  // [S^T, dP^T][warpgroup][R][128]
+    put_half<R>(own, buf, c, t);
+    if constexpr (PASS == 1) put_half<R>(own + R, buf + 2 * R * WG, c, t);
+    bar_sync(1, 2 * WG);
+    if (refill) {  // past the barrier both warpgroups released stage i - 1
+      mbar_wait(q_empty + 8 * ((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
+      dkv_split_load<D>(a, base, smem, i - 1 + STAGES, tiles, nqt, iq0, ikv,
+                        ib, t);
+      refill = false;
+    }
+    float st[BQ / 2];
+    join_half<R>(own, buf, st, c, t);
+    // P^T = exp2(S^T scale log2e - lse log2e), masked
+    dkv_probs<BQ>(st, st, ls, a, q0, key0, key1, tq, need_mask);
+    if constexpr (PASS == 1) {
+      // dS^T = P^T (dP^T - delta), P rounded to dO's dtype first; packing
+      // rounds dS to Q's dtype
+      float dpt[BQ / 2];
+      join_half<R>(own + R, buf + 2 * R * WG, dpt, c, t);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dj =
+            *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[4 * j + e] = round_bf16(st[4 * j + e]) *
+                          (dpt[4 * j + e] - ((e & 1) ? dj.y : dj.x));
+      }
+    }
+    uint32_t f[BQ / 16][4];
+    dkv_pack<BQ>(f, st);  // PASS 0 rounds P to dO's dtype
+    fence_regs(acc);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<NC, BQ / 16, L::QT_CB>(
+        acc, f, (PASS == 0 ? do_addr : q_addr) + own_cols);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(q_empty + 8 * s);
+    // the first warp loads the stage's next tile: now if the other
+    // warpgroup has released the stage too (lane 0 decides for the warp),
+    // else at the next tile's exchange
+    if (threadIdx.x < 32 && i + STAGES < 2 * tiles) {
+      refill = !__shfl_sync(0xffffffffu,
+                            mbar_test(q_empty + 8 * s, (i / STAGES) & 1), 0);
+      if (!refill)
+        dkv_split_load<D>(a, base, smem, i + STAGES, tiles, nqt, iq0, ikv,
+                          ib, t);
+    }
+  }
+  store_cols<NC>(out, ss, acc, PASS == 1 ? a.scale : 1.f, key0, key1, a.sk,
+                 tq, c * (D - NC), c == 0 ? 0 : NC);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dkv_split(const __grid_constant__ DkvArgs a) {
+  using namespace hopper;
+  using L = DkvSplit<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  float* xbuf = reinterpret_cast<float*>(smem + L::X_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t kv_full = bar, q_full = bar + 8,
+                 q_empty = q_full + 8 * STAGES;
+
+  const int hb = a.hkv * a.batch;
+  const int ik = static_cast<int>(blockIdx.x) / hb;
+  const int ikv = static_cast<int>(blockIdx.x) % hb % a.hkv;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.hkv;
+  const int k0 = ik * L::BK;
+  const int group = a.h / a.hkv;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 32);  // the first warp's lanes
+      mbar_init(q_empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int tiles = group * (nq - iq0);  // per pass
+  if (threadIdx.x < 32) {  // K and V, and the first STAGES stages
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      tma_load_5d(base, &a.tk, kv_full, 0, k0, 0, ikv, ib);
+      tma_load_5d(base + L::V_OFF, &a.tv, kv_full, 0, k0, 0, ikv, ib);
+    }
+    for (int j = 0; j < STAGES && j < 2 * tiles; ++j)
+      dkv_split_load<D>(a, base, smem, j, tiles, nq - iq0, iq0, ikv, ib,
+                        threadIdx.x);
+  }
+  bool refill = false;  // the first warp: a stage still to refill
+  const int c = threadIdx.x / WG;  // this warpgroup's queries and columns
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4;
+  const int key0 = k0 + 16 * w + g, key1 = key0 + 8;
+  mbar_wait(kv_full, 0);
+  dkv_split_pass<D, 0>(a, base, smem, xbuf, 0, tiles, nq - iq0, iq0, k0,
+                       ikv, ib, key0, key1, c, t, refill,
+                       static_cast<bf16*>(a.dv) + ib * a.dv_sb +
+                           ikv * a.dv_sh,
+                       a.dv_ss);
+  dkv_split_pass<D, 1>(a, base, smem, xbuf, tiles, tiles, nq - iq0, iq0, k0,
+                       ikv, ib, key0, key1, c, t, refill,
+                       static_cast<bf16*>(a.dk) + ib * a.dk_sb +
+                           ikv * a.dk_sh,
+                       a.dk_ss);
+}
+
 // ------------------------------------------------ f32: CUDA cores
 
 constexpr int SC_BQ = 32;  // rows per tile: 4 threads per row
@@ -716,21 +1217,35 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
+// Above d 256 a block of the f32 kernels owns half the output columns,
+// in two blocks that each compute the whole scores (a thread's
+// accumulators stay at most 64 floats each, where D / 4 would spill), and
+// above d 384 the streamed tiles are 16 rows, so the tiles fit in 227 KB.
+__host__ __device__ constexpr int f32_cols(int d) {
+  return d > 256 ? d / 2 : d;
+}
+__host__ __device__ constexpr int f32_tile(int d) {
+  return d > 384 ? 16 : 32;
+}
+
 // K2, f32. Thread (r, c4) = (tid / 4, tid % 4) owns query row r, the scores
-// of keys c4 + 4j of each tile, and dQ columns c4 + 4jj.
+// of keys c4 + 4j of each tile of BK keys, and dQ columns cb + c4 + 4jj of
+// the block's COLS columns starting at cb.
 template <int D>
 __global__ void __launch_bounds__(SC_THREADS) dq_f32(const Params p) {
+  constexpr int BK = f32_tile(D), COLS = f32_cols(D), PARTS = D / COLS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [SC_BQ][D + 1]
   float* Os = Qs + SC_BQ * (D + 1);            // dO, [SC_BQ][D + 1]
-  float* Ks = Os + SC_BQ * (D + 1);            // [SC_BK][D + 1]
-  float* Vs = Ks + SC_BK * (D + 1);            // [SC_BK][D + 1]
-  float* Ss = Vs + SC_BK * (D + 1);            // dS, [SC_BQ][SC_BK + 1]
+  float* Ks = Os + SC_BQ * (D + 1);            // [BK][D + 1]
+  float* Vs = Ks + BK * (D + 1);               // [BK][D + 1]
+  float* Ss = Vs + BK * (D + 1);               // dS, [SC_BQ][BK + 1]
 
   const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
   const int ih = blockIdx.y, ib = blockIdx.z;
   const int ikv = ih / (p.h / p.hkv);
-  const int q0 = blockIdx.x * SC_BQ;
+  const int q0 = blockIdx.x / PARTS * SC_BQ;
+  const int cb = blockIdx.x % PARTS * COLS;
   const int row = q0 + r;
   const float* k = head_ptr<float>(p.k, p.st[K], ib, ikv);
   const float* v = head_ptr<float>(p.v, p.st[V], ib, ikv);
@@ -742,23 +1257,23 @@ __global__ void __launch_bounds__(SC_THREADS) dq_f32(const Params p) {
   const float lse = row < p.sq ? p.lse[rowbase + row] : 0.f;
   const float dl = row < p.sq ? p.delta[rowbase + row] : 0.f;
 
-  float acc[D / 4];
+  float acc[COLS / 4];
 #pragma unroll
-  for (int jj = 0; jj < D / 4; ++jj) acc[jj] = 0.f;
+  for (int jj = 0; jj < COLS / 4; ++jj) acc[jj] = 0.f;
 
-  int nk = (p.sk + SC_BK - 1) / SC_BK;
-  if (p.causal) nk = min(nk, (q0 + SC_BQ + SC_BK - 1) / SC_BK);
+  int nk = (p.sk + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + SC_BQ + BK - 1) / BK);
   for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * SC_BK;
+    const int k0 = ik * BK;
     __syncthreads();
-    load_tile_f32<D>(Ks, k, p.st[K][2], k0, p.sk, SC_BK, tid);
-    load_tile_f32<D>(Vs, v, p.st[V][2], k0, p.sk, SC_BK, tid);
+    load_tile_f32<D>(Ks, k, p.st[K][2], k0, p.sk, BK, tid);
+    load_tile_f32<D>(Vs, v, p.st[V][2], k0, p.sk, BK, tid);
     __syncthreads();
 
     const float* qr = Qs + r * (D + 1);
     const float* orow = Os + r * (D + 1);
 #pragma unroll
-    for (int j = 0; j < SC_BK / 4; ++j) {
+    for (int j = 0; j < BK / 4; ++j) {
       const int c = c4 + 4 * j;
       const float* kr = Ks + c * (D + 1);
       const float* vr = Vs + c * (D + 1);
@@ -771,56 +1286,60 @@ __global__ void __launch_bounds__(SC_THREADS) dq_f32(const Params p) {
       float x = s * p.scale;
       const int col = k0 + c;
       if (col >= p.sk || (p.causal && col > row)) x = kNegInf;
-      Ss[r * (SC_BK + 1) + c] = expf(x - lse) * (dp - dl);
+      Ss[r * (BK + 1) + c] = expf(x - lse) * (dp - dl);
     }
     __syncwarp();  // row r's dS is written and read by the same four lanes
-    for (int c = 0; c < SC_BK; ++c) {
-      const float ds = Ss[r * (SC_BK + 1) + c];
-      const float* kr = Ks + c * (D + 1) + c4;
+    for (int c = 0; c < BK; ++c) {
+      const float ds = Ss[r * (BK + 1) + c];
+      const float* kr = Ks + c * (D + 1) + cb + c4;
 #pragma unroll
-      for (int jj = 0; jj < D / 4; ++jj)
+      for (int jj = 0; jj < COLS / 4; ++jj)
         acc[jj] = fmaf(ds, kr[4 * jj], acc[jj]);
     }
   }
 
   if (row < p.sq) {
     float* dq = head_ptr_mut<float>(p.dq, p.st[DQ], ib, ih) +
-                row * p.st[DQ][2];
+                row * p.st[DQ][2] + cb;
 #pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) dq[c4 + 4 * jj] = acc[jj] * p.scale;
+    for (int jj = 0; jj < COLS / 4; ++jj)
+      dq[c4 + 4 * jj] = acc[jj] * p.scale;
   }
 }
 
 // K3, f32. Thread (r, c4) owns key r of the tile, the scores of query rows
-// c4 + 4j of each query tile, and dK/dV columns c4 + 4jj.
+// c4 + 4j of each query tile of BQ rows, and dK/dV columns cb + c4 + 4jj of
+// the block's COLS columns starting at cb.
 template <int D>
 __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
+  constexpr int BQ = f32_tile(D), COLS = f32_cols(D), PARTS = D / COLS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // [SC_BK][D + 1]
   float* Vs = Ks + SC_BK * (D + 1);            // [SC_BK][D + 1]
-  float* Qs = Vs + SC_BK * (D + 1);            // [SC_BQ][D + 1]
-  float* Os = Qs + SC_BQ * (D + 1);            // dO, [SC_BQ][D + 1]
-  float* Ps = Os + SC_BQ * (D + 1);            // [SC_BK][SC_BQ + 1]
-  float* Ss = Ps + SC_BK * (SC_BQ + 1);        // dS, [SC_BK][SC_BQ + 1]
-  float* Ls = Ss + SC_BK * (SC_BQ + 1);        // [SC_BQ]
-  float* Ds = Ls + SC_BQ;                      // [SC_BQ]
+  float* Qs = Vs + SC_BK * (D + 1);            // [BQ][D + 1]
+  float* Os = Qs + BQ * (D + 1);               // dO, [BQ][D + 1]
+  float* Ps = Os + BQ * (D + 1);               // [SC_BK][BQ + 1]
+  float* Ss = Ps + SC_BK * (BQ + 1);           // dS, [SC_BK][BQ + 1]
+  float* Ls = Ss + SC_BK * (BQ + 1);           // [BQ]
+  float* Ds = Ls + BQ;                         // [BQ]
 
   const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
   const int ikv = blockIdx.y, ib = blockIdx.z;
   const int group = p.h / p.hkv;
-  const int k0 = blockIdx.x * SC_BK;
+  const int k0 = blockIdx.x / PARTS * SC_BK;
+  const int cb = blockIdx.x % PARTS * COLS;
   const int key = k0 + r;
   load_tile_f32<D>(Ks, head_ptr<float>(p.k, p.st[K], ib, ikv), p.st[K][2],
                    k0, p.sk, SC_BK, tid);
   load_tile_f32<D>(Vs, head_ptr<float>(p.v, p.st[V], ib, ikv), p.st[V][2],
                    k0, p.sk, SC_BK, tid);
 
-  float dk[D / 4], dv[D / 4];
+  float dk[COLS / 4], dv[COLS / 4];
 #pragma unroll
-  for (int jj = 0; jj < D / 4; ++jj) dk[jj] = dv[jj] = 0.f;
+  for (int jj = 0; jj < COLS / 4; ++jj) dk[jj] = dv[jj] = 0.f;
 
-  const int nq = (p.sq + SC_BQ - 1) / SC_BQ;
-  const int iq0 = p.causal ? k0 / SC_BQ : 0;
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int iq0 = p.causal ? k0 / BQ : 0;
   const float* kr = Ks + r * (D + 1);
   const float* vr = Vs + r * (D + 1);
   for (int hg = 0; hg < group; ++hg) {
@@ -829,11 +1348,11 @@ __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
     const float* dout = head_ptr<float>(p.dout, p.st[DO], ib, ih);
     const int64_t rowbase = (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
     for (int iq = iq0; iq < nq; ++iq) {
-      const int q0 = iq * SC_BQ;
+      const int q0 = iq * BQ;
       __syncthreads();
-      load_tile_f32<D>(Qs, q, p.st[Q][2], q0, p.sq, SC_BQ, tid);
-      load_tile_f32<D>(Os, dout, p.st[DO][2], q0, p.sq, SC_BQ, tid);
-      for (int i = tid; i < SC_BQ; i += SC_THREADS) {
+      load_tile_f32<D>(Qs, q, p.st[Q][2], q0, p.sq, BQ, tid);
+      load_tile_f32<D>(Os, dout, p.st[DO][2], q0, p.sq, BQ, tid);
+      for (int i = tid; i < BQ; i += SC_THREADS) {
         const bool in = q0 + i < p.sq;
         Ls[i] = in ? p.lse[rowbase + q0 + i] : 0.f;
         Ds[i] = in ? p.delta[rowbase + q0 + i] : 0.f;
@@ -841,7 +1360,7 @@ __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
       __syncthreads();
 
 #pragma unroll
-      for (int j = 0; j < SC_BQ / 4; ++j) {
+      for (int j = 0; j < BQ / 4; ++j) {
         const int c = c4 + 4 * j;
         const float* qr = Qs + c * (D + 1);
         const float* orow = Os + c * (D + 1);
@@ -854,17 +1373,17 @@ __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
         float x = s * p.scale;
         if (q0 + c >= p.sq || (p.causal && key > q0 + c)) x = kNegInf;
         const float pr = expf(x - Ls[c]);  // f32: dO's dtype already
-        Ps[r * (SC_BQ + 1) + c] = pr;
-        Ss[r * (SC_BQ + 1) + c] = pr * (dp - Ds[c]);
+        Ps[r * (BQ + 1) + c] = pr;
+        Ss[r * (BQ + 1) + c] = pr * (dp - Ds[c]);
       }
       __syncwarp();  // key r's P and dS are written and read by its lanes
-      for (int c = 0; c < SC_BQ; ++c) {
-        const float pc = Ps[r * (SC_BQ + 1) + c];
-        const float sc = Ss[r * (SC_BQ + 1) + c];
-        const float* orow = Os + c * (D + 1) + c4;
-        const float* qr = Qs + c * (D + 1) + c4;
+      for (int c = 0; c < BQ; ++c) {
+        const float pc = Ps[r * (BQ + 1) + c];
+        const float sc = Ss[r * (BQ + 1) + c];
+        const float* orow = Os + c * (D + 1) + cb + c4;
+        const float* qr = Qs + c * (D + 1) + cb + c4;
 #pragma unroll
-        for (int jj = 0; jj < D / 4; ++jj) {
+        for (int jj = 0; jj < COLS / 4; ++jj) {
           dv[jj] = fmaf(pc, orow[4 * jj], dv[jj]);
           dk[jj] = fmaf(sc, qr[4 * jj], dk[jj]);
         }
@@ -874,11 +1393,11 @@ __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
 
   if (key < p.sk) {
     float* dkp = head_ptr_mut<float>(p.dk, p.st[DK], ib, ikv) +
-                 key * p.st[DK][2];
+                 key * p.st[DK][2] + cb;
     float* dvp = head_ptr_mut<float>(p.dv, p.st[DV], ib, ikv) +
-                 key * p.st[DV][2];
+                 key * p.st[DV][2] + cb;
 #pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) {
+    for (int jj = 0; jj < COLS / 4; ++jj) {
       dkp[c4 + 4 * jj] = dk[jj] * p.scale;
       dvp[c4 + 4 * jj] = dv[jj];
     }
@@ -897,9 +1416,46 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 }
 
 template <int D>
+cudaError_t run_dq_split(const Params& p, int batch, cudaStream_t stream) {
+  using L = DqSplit<D>;
+  DqSplitArgs a;  // whole-tile 5-D maps (hopper::tmap_bf16_tile)
+  const int64_t(&st)[NSTRIDE][3] = p.st;
+  cudaError_t err;
+  if ((err = hopper::tmap_bf16_tile(&a.tq, p.q, D, p.sq, p.h, batch,
+                                    st[Q][2], st[Q][1], st[Q][0], L::BQ)) ||
+      (err = hopper::tmap_bf16_tile(&a.tdo, p.dout, D, p.sq, p.h, batch,
+                                    st[DO][2], st[DO][1], st[DO][0],
+                                    L::BQ)) ||
+      (err = hopper::tmap_bf16_tile(&a.tk, p.k, D, p.sk, p.hkv, batch,
+                                    st[K][2], st[K][1], st[K][0], L::BK)) ||
+      (err = hopper::tmap_bf16_tile(&a.tv, p.v, D, p.sk, p.hkv, batch,
+                                    st[V][2], st[V][1], st[V][0], L::BK)))
+    return err;
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.dq = p.dq;
+  a.dq_sb = st[DQ][0];
+  a.dq_sh = st[DQ][1];
+  a.dq_ss = st[DQ][2];
+  a.h = p.h;
+  a.hkv = p.hkv;
+  a.batch = batch;
+  a.sq = p.sq;
+  a.sk = p.sk;
+  a.causal = p.causal;
+  a.nq = (p.sq + L::BQ - 1) / L::BQ;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * hopper::kLog2e;
+  return hopper::launch(dq_split<D>, a.nq * p.h * batch, SPLIT_THREADS,
+                        L::BYTES, stream, a);
+}
+
+template <int D>
 cudaError_t run_dq(const Params& p, int batch, int bf16_in,
                    cudaStream_t stream) {
-  if (bf16_in) {
+  if constexpr (D >= kDqSplitFrom) {
+    if (bf16_in) return run_dq_split<D>(p, batch, stream);
+  } else if (bf16_in) {
     DqArgs a;
     const int64_t(&st)[NSTRIDE][3] = p.st;
     cudaError_t err;
@@ -930,55 +1486,83 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in,
     return hopper::launch(dq_wgmma<D>, a.nq * p.h * batch, DQ_THREADS,
                           DqSmem<D>::BYTES, stream, a);
   }
-  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ, p.h, batch);
+  constexpr int BK = f32_tile(D);
+  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
+                  batch);
   const size_t smem =
-      ((2 * SC_BQ + 2 * SC_BK) * (D + 1) + SC_BQ * (SC_BK + 1)) *
-      sizeof(float);
+      ((2 * SC_BQ + 2 * BK) * (D + 1) + SC_BQ * (BK + 1)) * sizeof(float);
   return launch(dq_f32<D>, grid, SC_THREADS, smem, stream, p);
+}
+
+// The tensor maps and arguments K3 takes, for both bf16 designs: Q and dO
+// in boxes of BQ rows, K and V in boxes of BK keys; one column block a box
+// (dkv_wgmma), or with TILE whole tiles (hopper::tmap_bf16_tile,
+// dkv_split).
+template <int BQ, int BK, bool TILE>
+cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
+  const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
+  const int64_t(&st)[NSTRIDE][3] = p.st;
+  cudaError_t err;
+  if ((err = map(&a.tq, p.q, d, p.sq, p.h, batch, st[Q][2], st[Q][1],
+                 st[Q][0], BQ)) ||
+      (err = map(&a.tdo, p.dout, d, p.sq, p.h, batch, st[DO][2], st[DO][1],
+                 st[DO][0], BQ)) ||
+      (err = map(&a.tk, p.k, d, p.sk, p.hkv, batch, st[K][2], st[K][1],
+                 st[K][0], BK)) ||
+      (err = map(&a.tv, p.v, d, p.sk, p.hkv, batch, st[V][2], st[V][1],
+                 st[V][0], BK)))
+    return err;
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.dk = p.dk;
+  a.dv = p.dv;
+  a.dk_sb = st[DK][0];
+  a.dk_sh = st[DK][1];
+  a.dk_ss = st[DK][2];
+  a.dv_sb = st[DV][0];
+  a.dv_sh = st[DV][1];
+  a.dv_ss = st[DV][2];
+  a.h = p.h;
+  a.hkv = p.hkv;
+  a.batch = batch;
+  a.sq = p.sq;
+  a.sk = p.sk;
+  a.causal = p.causal;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * hopper::kLog2e;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t run_dkv_split(const Params& p, int batch, cudaStream_t stream) {
+  using L = DkvSplit<D>;
+  DkvArgs a;
+  if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(a, p, batch, D))
+    return err;
+  const int blocks = (p.sk + L::BK - 1) / L::BK * p.hkv * batch;
+  return hopper::launch(dkv_split<D>, blocks, SPLIT_THREADS, L::BYTES,
+                        stream, a);
 }
 
 template <int D>
 cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
                     cudaStream_t stream) {
-  if (bf16_in) {
+  if constexpr (D >= kDkvSplitFrom) {
+    if (bf16_in) return run_dkv_split<D>(p, batch, stream);
+  } else if (bf16_in) {
     DkvArgs a;
-    const int64_t(&st)[NSTRIDE][3] = p.st;
-    cudaError_t err;
-    constexpr int BQ = DkvSmem<D>::BQ;
-    if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, st[Q][2],
-                                 st[Q][1], st[Q][0], BQ)) ||
-        (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
-                                 st[DO][2], st[DO][1], st[DO][0], BQ)) ||
-        (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
-                                 st[K][1], st[K][0], DKV_BK)) ||
-        (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
-                                 st[V][1], st[V][0], DKV_BK)))
+    if (cudaError_t err =
+            dkv_args<DkvSmem<D>::BQ, DKV_BK, false>(a, p, batch, D))
       return err;
-    a.lse = p.lse;
-    a.delta = p.delta;
-    a.dk = p.dk;
-    a.dv = p.dv;
-    a.dk_sb = st[DK][0];
-    a.dk_sh = st[DK][1];
-    a.dk_ss = st[DK][2];
-    a.dv_sb = st[DV][0];
-    a.dv_sh = st[DV][1];
-    a.dv_ss = st[DV][2];
-    a.h = p.h;
-    a.hkv = p.hkv;
-    a.batch = batch;
-    a.sq = p.sq;
-    a.sk = p.sk;
-    a.causal = p.causal;
-    a.scale = p.scale;
-    a.scale_log2 = p.scale * hopper::kLog2e;
     const int blocks = (p.sk + DKV_BK - 1) / DKV_BK * p.hkv * batch;
     return hopper::launch(dkv_wgmma<D>, blocks, DKV_THREADS,
                           DkvSmem<D>::BYTES, stream, a);
   }
-  const dim3 grid((p.sk + SC_BK - 1) / SC_BK, p.hkv, batch);
-  const size_t smem = ((2 * SC_BK + 2 * SC_BQ) * (D + 1) +
-                       2 * SC_BK * (SC_BQ + 1) + 2 * SC_BQ) *
+  constexpr int BQ = f32_tile(D);
+  const dim3 grid((p.sk + SC_BK - 1) / SC_BK * (D / f32_cols(D)), p.hkv,
+                  batch);
+  const size_t smem = ((2 * SC_BK + 2 * BQ) * (D + 1) +
+                       2 * SC_BK * (BQ + 1) + 2 * BQ) *
                       sizeof(float);
   return launch(dkv_f32<D>, grid, SC_THREADS, smem, stream, p);
 }
@@ -1022,6 +1606,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     case 128: return static_cast<int>(run_dq<128>(p, batch, bf16_in, st));
     case 192: return static_cast<int>(run_dq<192>(p, batch, bf16_in, st));
     case 256: return static_cast<int>(run_dq<256>(p, batch, bf16_in, st));
+    case 320: return static_cast<int>(run_dq<320>(p, batch, bf16_in, st));
+    case 384: return static_cast<int>(run_dq<384>(p, batch, bf16_in, st));
+    case 448: return static_cast<int>(run_dq<448>(p, batch, bf16_in, st));
+    case 512: return static_cast<int>(run_dq<512>(p, batch, bf16_in, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1042,6 +1630,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 128: return static_cast<int>(run_dkv<128>(p, batch, bf16_in, st));
     case 192: return static_cast<int>(run_dkv<192>(p, batch, bf16_in, st));
     case 256: return static_cast<int>(run_dkv<256>(p, batch, bf16_in, st));
+    case 320: return static_cast<int>(run_dkv<320>(p, batch, bf16_in, st));
+    case 384: return static_cast<int>(run_dkv<384>(p, batch, bf16_in, st));
+    case 448: return static_cast<int>(run_dkv<448>(p, batch, bf16_in, st));
+    case 512: return static_cast<int>(run_dkv<512>(p, batch, bf16_in, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The smallest head dims whose bf16 inputs take dq_split and dkv_split
+// (chip_smoke.py labels its d 256 timings by them).
+extern "C" int flash_bwd_dq_split_from() { return kDqSplitFrom; }
+extern "C" int flash_bwd_dkv_split_from() { return kDkvSplitFrom; }

@@ -35,8 +35,9 @@
 // What bounds it on an H100: at the serving and training shapes (s 1000 and
 // 2048, d 128, 12 query heads) a causal forward does ~2 s^2 d flops per
 // (b, h) against 4 s d bytes of q/k/v/o, hundreds of flops per byte: it is
-// bound by the tensor cores. The bf16 kernel (`flash_fwd_wgmma<D>`, d 64,
-// 128, 192 and 256) is built for them:
+// bound by the tensor cores. The bf16 kernels are built for them: from
+// d 320 to 512 `flash_fwd_split<D>` (its notes are above it), and up to
+// d 256 `flash_fwd_wgmma<D>`:
 // - a block owns 128 query rows: one producer warpgroup and two consumer
 //   warpgroups of 64 rows each (one wgmma M tile); setmaxnreg gives the
 //   producer 24 registers and each consumer thread 240;
@@ -116,7 +117,8 @@ struct FwdArgs {
 // tile is D / 64 column blocks of (rows x 128 bytes). Keys per stage (BK)
 // and stages: 128 and 2 up to d 128; above, as many stages as fit (at most
 // 4) of 64 keys at d 192 and of 32 at d 256, where a 64-key S tile beside
-// the 128 registers of O made ptxas spill and serialise the wgmmas.
+// the 128 registers of O made ptxas spill and serialise the wgmmas. From
+// d 320 K1 is flash_fwd_split (FwdSplit's tiles), below.
 template <int D>
 struct FwdSmem {
   static constexpr int BK = D <= 128 ? 128 : D <= 192 ? 64 : 32;
@@ -327,17 +329,309 @@ flash_fwd_wgmma(const __grid_constant__ FwdArgs a) {
   }
 }
 
+// ------------------------------------------------ bf16: the D-split kernel
+//
+// From d 320 (and at d 256 if it measures faster: kSplitFrom) K1 is
+// `flash_fwd_split<D>`: `flash_fwd_wgmma` cannot hold O (D / 2 registers a
+// thread: 256 at d 512, past the 255 a thread may have) and its 128-row Q
+// tile plus two K/V stages overflow 227 KB. Here:
+// - a block is just the two consumer warpgroups, 8 warps, so a thread may
+//   hold 255 registers: ptxas gives each thread of a 9- to 12-warp block
+//   (a producer warp or warpgroup beside them; three warps then share a
+//   sub-partition's 16K registers) 168, setmaxnreg notwithstanding, and
+//   at d 384 to 512 the consumers spilled there. Thread 0 issues the
+//   loads, each one TMA copy of a whole tile (hopper::tmap_bf16_tile): Q
+//   and the first STAGES key tiles, then each stage's next tile as soon
+//   as both warpgroups have released it, without ever waiting: right
+//   after its own warpgroup's release if the other's is already in
+//   (mbar_test), else just past the next tile's exchange barrier, where
+//   it must be;
+// - a block owns 64 query rows, and BOTH consumer warpgroups own all 64;
+//   the D columns of O are split between them: warpgroup c accumulates NC
+//   = ceil(D / 128) * 64 columns starting at c (D - NC) (at d 320 and 448
+//   the middle 64 columns are computed by both and stored by warpgroup 0),
+//   so O is at most 128 registers a thread;
+// - the scores are split by keys instead: warpgroup c forms S for keys
+//   [c BK / 2, (c + 1) BK / 2) of the tile over the whole head dim (wgmma
+//   m64n(BK/2), both operands in shared memory), and the two exchange their
+//   halves through shared memory in fragment order (hopper::put_half,
+//   join_half; one named barrier per tile). Each product runs once; both
+//   warpgroups then hold the same S and run the same online softmax on
+//   it, so m, l and P agree bit for bit and every instruction stream is
+//   the same (no branch on the warpgroup around a wgmma, which makes
+//   ptxas serialise);
+// - O[:, own columns] += P V[:, own columns], P re-packed in registers as
+//   the A operand (wgmma_rs_t_cols), as in flash_fwd_wgmma;
+// - BK is 64 keys at d 256 and 32 above, with as many stages (at most 4)
+//   as fit beside Q and the exchange buffers (FwdSplit).
+// The masking, the LSE and the heaviest-first order are flash_fwd_wgmma's.
+
+#ifndef FLASH_OTHER_D256
+#define FLASH_OTHER_D256 0
+#endif
+// the smallest head dim K1 takes the split kernel at. At d 256 it ships
+// the faster of its two designs on the H100 (chip_smoke.py's
+// phase_d256_designs, in turns on one card; PERF.md §6): flash_fwd_wgmma.
+// A build with -DFLASH_OTHER_D256=1 takes the split at d 256.
+constexpr int kSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
+constexpr int SPLIT_THREADS = 2 * WG;  // the two consumer warpgroups
+
+// K/V stages of `bk` keys that fit beside a 64-row Q tile, the exchange
+// buffers (2 x 2 warpgroups x 64 rows x bk / 2 f32) and the mbarriers
+__host__ __device__ constexpr int fwd_split_fit(int d, int bk) {
+  return (SMEM_MAX - 2048 - 64 * d * 2 - 512 * bk) / (4 * bk * d);
+}
+
+template <int D>
+struct FwdSplit {
+  static constexpr int BQ = 64;                  // query rows per block
+  static constexpr int NC = (D + 127) / 128 * 64;  // O columns a consumer
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int BK = fwd_split_fit(D, 64) >= 2 ? 64 : 32;
+  static constexpr int FIT = fwd_split_fit(D, BK);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int XCH = 2 * (BK / 4) * WG;  // f32 a buffer
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XCH * 4;
+  // mbarriers: q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && NC <= 256, "O: 256 columns a consumer");
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K and V of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void fwd_split_load(const FwdArgs& a,
+                                               uint32_t base, int i, int ikv,
+                                               int ib) {
+  using namespace hopper;
+  using L = FwdSplit<D>;
+  const int s = i % L::STAGES;
+  const uint32_t k_full = base + L::BAR_OFF + 8 + 8 * s;
+  const uint32_t v_full = k_full + 8 * L::STAGES;
+  mbar_arrive_expect_tx(k_full, L::KV_BYTES);
+  tma_load_5d(base + L::K_OFF + s * L::KV_BYTES, &a.tk, k_full, 0,
+              i * L::BK, 0, ikv, ib);
+  mbar_arrive_expect_tx(v_full, L::KV_BYTES);
+  tma_load_5d(base + L::V_OFF + s * L::KV_BYTES, &a.tv, v_full, 0,
+              i * L::BK, 0, ikv, ib);
+}
+
+template <int D>
+__device__ __forceinline__ void fwd_split_consumer(const FwdArgs& a,
+                                                   uint32_t base,
+                                                   float* xbuf, int q0,
+                                                   int ih, int ib, int nk) {
+  using namespace hopper;
+  using L = FwdSplit<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, NC = L::NC, HALF = BK / 2;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
+  const int c = threadIdx.x / WG;  // this warpgroup's keys and columns
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int row0 = q0 + 16 * w + g, row1 = row0 + 8;
+  const int col0 = c * (D - NC);  // this warpgroup's first O column
+  const uint32_t q_addr = base + L::Q_OFF;
+  const uint32_t v_cols = c * ((D - NC) / 64) * L::KV_CB;
+
+  float o[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const int ikv = ih / (a.h / a.hkv);
+  bool refill = false;  // thread 0: tile i - 1's stage still to refill
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+
+    // this warpgroup's half of S = Q K^T: 64 rows x BK / 2 keys
+    float own[HALF / 2];
+    mbar_wait(k_full + 8 * s, ph);
+    wgmma_fence();
+    wgmma_ss<HALF, D / 16, L::Q_CB, L::KV_CB>(
+        own, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(k_addr + c * HALF * 128, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(own);
+    float sc[BK / 2];
+    float* buf = xbuf + (i & 1) * L::XCH;
+    put_half<HALF / 2>(own, buf, c, t);
+    bar_sync(1, 2 * WG);
+    if (refill) {  // past the barrier both warpgroups released tile i - 1
+      mbar_wait(empty + 8 * ((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
+      fwd_split_load<D>(a, base, i - 1 + STAGES, ikv, ib);
+      refill = false;
+    }
+    join_half<HALF / 2>(own, buf, sc, c, t);
+
+    if ((a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = kNegInf;
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float alpha0 = fast_exp2((m0 - mx0) * a.scale_log2);
+    const float alpha1 = fast_exp2((m1 - mx1) * a.scale_log2);
+    const float ms0 = mx0 * a.scale_log2, ms1 = mx1 * a.scale_log2;
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
+      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
+      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
+      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
+      sum0 += sc[4 * j] + sc[4 * j + 1];
+      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pf[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
+    }
+
+    // O[:, own columns] += P V[:, own columns]
+    mbar_wait(v_full + 8 * s, ph);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_rs_t_cols<NC, BK / 16, L::KV_CB>(o, pf, v_addr + v_cols);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + 8 * s);
+    // the stage's next tile: now if the other warpgroup has released the
+    // stage too, else at the next tile's exchange
+    if (threadIdx.x == 0 && i + STAGES < nk) {
+      refill = !mbar_test(empty + 8 * s, ph);
+      if (!refill) fwd_split_load<D>(a, base, i + STAGES, ikv, ib);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    o[4 * j] /= l0;
+    o[4 * j + 1] /= l0;
+    o[4 * j + 2] /= l1;
+    o[4 * j + 3] /= l1;
+  }
+  store_cols<NC>(static_cast<__nv_bfloat16*>(a.o) + ib * a.o_sb + ih * a.o_sh,
+                 a.o_ss, o, 1.f, row0, row1, a.sq, tq, col0,
+                 c == 0 ? 0 : NC);
+  if (c == 0 && tq == 0) {
+    float* lse = a.lse + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    if (row0 < a.sq) lse[row0] = m0 * a.scale + logf(l0);
+    if (row1 < a.sq) lse[row1] = m1 * a.scale + logf(l1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+flash_fwd_split(const __grid_constant__ FwdArgs a) {
+  using namespace hopper;
+  using L = FwdSplit<D>;
+  constexpr int STAGES = L::STAGES, BQ = L::BQ, BK = L::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  float* xbuf = reinterpret_cast<float*>(
+      smem_raw + (base - smem_u32(smem_raw)) + L::X_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
+
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int q0 = iq * BQ;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {  // Q and the first STAGES key tiles
+    mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+    tma_load_5d(base + L::Q_OFF, &a.tq, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < STAGES && i < nk; ++i)
+      fwd_split_load<D>(a, base, i, ih / (a.h / a.hkv), ib);
+  }
+  fwd_split_consumer<D>(a, base, xbuf, q0, ih, ib, nk);
+}
+
 // ------------------------------------------------ f32: CUDA cores
 
 constexpr int SC_BQ = 32;  // query rows per block: 4 threads per row
 constexpr int SC_BK = 32;  // keys per tile
 constexpr int SC_THREADS = 128;
 
+// Output columns a block of the f32 kernels owns: all D up to d 256; above,
+// half, in two blocks that each compute the whole scores (a thread's
+// accumulator stays at most 64 floats, where D / 4 would spill).
+__host__ __device__ constexpr int f32_cols(int d) {
+  return d > 256 ? d / 2 : d;
+}
+
 // Thread (r, c4) = (tid / 4, tid % 4) owns query row r, the scores of
-// keys c4 + 4j of each tile, and output columns c4 + 4jj.
+// keys c4 + 4j of each tile, and output columns cb + c4 + 4jj of the
+// block's COLS columns starting at cb.
 template <int D>
 __global__ void __launch_bounds__(SC_THREADS)
 flash_fwd_f32(const Params p) {
+  constexpr int COLS = f32_cols(D), PARTS = D / COLS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [SC_BQ][D + 1]
   float* Ks = Qs + SC_BQ * (D + 1);            // [SC_BK][D + 1]
@@ -346,7 +640,8 @@ flash_fwd_f32(const Params p) {
 
   const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
   const int ih = blockIdx.y, ib = blockIdx.z;
-  const int q0 = blockIdx.x * SC_BQ;
+  const int q0 = blockIdx.x / PARTS * SC_BQ;
+  const int cb = blockIdx.x % PARTS * COLS;
   const int row = q0 + r;
   const float* q = static_cast<const float*>(p.q) + ib * p.q_sb + ih * p.q_sh;
   const int ikv = ih / (p.h / p.hkv);
@@ -358,9 +653,9 @@ flash_fwd_f32(const Params p) {
     Qs[rr * (D + 1) + cc] = q0 + rr < p.sq ? q[(q0 + rr) * p.q_ss + cc] : 0.f;
   }
 
-  float acc[D / 4];
+  float acc[COLS / 4];
 #pragma unroll
-  for (int jj = 0; jj < D / 4; ++jj) acc[jj] = 0.f;
+  for (int jj = 0; jj < COLS / 4; ++jj) acc[jj] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int nk = key_tiles(p, q0, SC_BQ, SC_BK);
@@ -408,12 +703,12 @@ flash_fwd_f32(const Params p) {
     m = mn;
     __syncwarp();  // row r's P is written and read by the same four lanes
 #pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) acc[jj] *= alpha;
+    for (int jj = 0; jj < COLS / 4; ++jj) acc[jj] *= alpha;
     for (int c = 0; c < SC_BK; ++c) {
       const float pc = Ps[r * (SC_BK + 1) + c];
-      const float* vr = Vs + c * D + c4;
+      const float* vr = Vs + c * D + cb + c4;
 #pragma unroll
-      for (int jj = 0; jj < D / 4; ++jj)
+      for (int jj = 0; jj < COLS / 4; ++jj)
         acc[jj] = fmaf(pc, vr[4 * jj], acc[jj]);
     }
   }
@@ -422,8 +717,8 @@ flash_fwd_f32(const Params p) {
     float* o = static_cast<float*>(p.o) + ib * p.o_sb + ih * p.o_sh +
                row * p.o_ss;
 #pragma unroll
-    for (int jj = 0; jj < D / 4; ++jj) o[c4 + 4 * jj] = acc[jj] / l;
-    if (c4 == 0)
+    for (int jj = 0; jj < COLS / 4; ++jj) o[cb + c4 + 4 * jj] = acc[jj] / l;
+    if (c4 == 0 && cb == 0)
       p.lse[(static_cast<int64_t>(ib) * p.h + ih) * p.sq + row] =
           m + logf(l);
   }
@@ -470,9 +765,43 @@ cudaError_t run_wgmma(const Params& p, int batch, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t run_split(const Params& p, int batch, cudaStream_t stream) {
+  using L = FwdSplit<D>;
+  FwdArgs a;  // whole-tile 5-D maps (hopper::tmap_bf16_tile)
+  cudaError_t err;
+  if ((err = hopper::tmap_bf16_tile(&a.tq, p.q, D, p.sq, p.h, batch, p.q_ss,
+                                    p.q_sh, p.q_sb, L::BQ)) ||
+      (err = hopper::tmap_bf16_tile(&a.tk, p.k, D, p.sk, p.hkv, batch,
+                                    p.k_ss, p.k_sh, p.k_sb, L::BK)) ||
+      (err = hopper::tmap_bf16_tile(&a.tv, p.v, D, p.sk, p.hkv, batch,
+                                    p.v_ss, p.v_sh, p.v_sb, L::BK)))
+    return err;
+  a.o = p.o;
+  a.lse = p.lse;
+  a.o_sb = p.o_sb;
+  a.o_sh = p.o_sh;
+  a.o_ss = p.o_ss;
+  a.h = p.h;
+  a.hkv = p.hkv;
+  a.batch = batch;
+  a.sq = p.sq;
+  a.sk = p.sk;
+  a.causal = p.causal;
+  a.nq = (p.sq + L::BQ - 1) / L::BQ;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * hopper::kLog2e;
+  return hopper::launch(flash_fwd_split<D>, a.nq * p.h * batch,
+                        SPLIT_THREADS, L::BYTES, stream, a);
+}
+
+template <int D>
 cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
-  if (bf16) return run_wgmma<D>(p, batch, stream);
-  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ, p.h, batch);
+  if (bf16) {
+    if constexpr (D >= kSplitFrom) return run_split<D>(p, batch, stream);
+    else return run_wgmma<D>(p, batch, stream);
+  }
+  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
+                  batch);
   const size_t smem =
       ((SC_BQ + SC_BK) * (D + 1) + SC_BK * D + SC_BQ * (SC_BK + 1)) *
       sizeof(float);
@@ -505,6 +834,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 128: return static_cast<int>(run<128>(p, batch, bf16, st));
     case 192: return static_cast<int>(run<192>(p, batch, bf16, st));
     case 256: return static_cast<int>(run<256>(p, batch, bf16, st));
+    case 320: return static_cast<int>(run<320>(p, batch, bf16, st));
+    case 384: return static_cast<int>(run<384>(p, batch, bf16, st));
+    case 448: return static_cast<int>(run<448>(p, batch, bf16, st));
+    case 512: return static_cast<int>(run<512>(p, batch, bf16, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The smallest head dim whose bf16 inputs take flash_fwd_split (chip_smoke.py
+// labels its d 256 timings by it).
+extern "C" int flash_fwd_split_from() { return kSplitFrom; }

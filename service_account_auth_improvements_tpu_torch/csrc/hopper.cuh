@@ -4,9 +4,10 @@
 // Raw inline PTX, no CUTLASS: the whole header compiles in seconds.
 //
 // Conventions of the kernels that use it:
-// - A tile of R rows of bf16 with a head dim D of 64, 128, 192 or 256 lies
-//   in shared memory as D / 64 "column blocks" of R rows x 128 bytes, each
-//   written by one TMA box with the 128-byte swizzle; every column block
+// - A tile of R rows of bf16 with a head dim D (a multiple of 64, up to
+//   512) lies in shared memory as D / 64 "column blocks" of R rows x 128
+//   bytes, each written by one TMA box (or all of them by one box of a
+//   5-D map, tmap_bf16_tile) with the 128-byte swizzle; every column block
 //   starts on a 1024-byte boundary (one swizzle atom = 8 rows x 128 bytes).
 // - K-major operand (the reduced dimension is the head dim, contiguous):
 //   SBO = 1024 bytes (next group of 8 rows), LBO unused; a k step of 16
@@ -86,6 +87,20 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return ok != 0;
 }
 
+// Whether the phase of `bar` whose parity is `parity` has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
 // Wait until the phase of `bar` whose parity is `parity` has completed
 // (a fresh barrier is in phase 0, so waiting on parity 1 passes at once).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -107,6 +122,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA through a 5-D map (tmap_bf16_tile): one box is a whole tile, every
+// column block of it.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -172,6 +201,37 @@ template <int N, int OA, int OB>
 struct WgmmaSS;
 template <int N, int OB>
 struct WgmmaRST;
+
+template <int OA, int OB>
+struct WgmmaSS<8, OA, OB> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "add.s64 da, %4, %7;\nadd.s64 db, %5, %8;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, da, db, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+  }
+};
+
+template <int OA, int OB>
+struct WgmmaSS<16, OA, OB> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "add.s64 da, %8, %11;\nadd.s64 db, %9, %12;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, da, db, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+  }
+};
 
 template <int OA, int OB>
 struct WgmmaSS<32, OA, OB> {
@@ -408,6 +468,85 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+// 4 bytes from global to shared memory, asynchronously (cp.async); with
+// `bytes` 0 nothing is read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (.noinc: the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads) over `threads` threads,
+// whole warps: orders their shared-memory accesses like __syncthreads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The split kernels' score exchange. Both consumer warpgroups own the
+// same 64 rows; warpgroup c computed columns [c N/2, (c + 1) N/2) of an
+// N-column score tile, R = N / 4 accumulator registers a thread. put_half
+// writes a thread's R values to `buf` ([2 warpgroups][R][128 threads],
+// f32: conflict-free, coalesced); after a named barrier over both
+// consumers (bar_sync(1, 256)), join_half reads the other warpgroup's R
+// values of the same thread index, which by the fragment layout are the
+// same rows' other columns, straight into the whole tile's registers:
+// register 4j + e holds column 8j + ..., so warpgroup 0's half is the
+// first R registers and warpgroup 1's the last R. Selects, not a branch:
+// both warpgroups run one instruction stream. The caller double-buffers
+// `buf`, so one barrier per tile suffices: a warpgroup reaches tile
+// i + 2's write only after the other passed tile i + 1's barrier, i.e.
+// after it read tile i.
+template <int R>
+__device__ __forceinline__ void put_half(const float* own, float* buf, int c,
+                                         int t) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) buf[(c * R + r) * 128 + t] = own[r];
+}
+
+template <int R>
+__device__ __forceinline__ void join_half(const float* own, const float* buf,
+                                          float (&full)[2 * R], int c,
+                                          int t) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float other = buf[((1 - c) * R + r) * 128 + t];
+    full[r] = c == 0 ? own[r] : other;
+    full[R + r] = c == 0 ? other : own[r];
+  }
+}
+
+// Store a 64-row accumulator of NC columns (a thread's rows row0 and
+// row1) as bf16 at columns col0 + 8j + 2 (t % 4) of `out` (element row
+// stride `ss`), times `scale`, skipping rows at or past `rows` and columns
+// below `skip` (the columns the other warpgroup stores).
+template <int NC>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* out, int64_t ss,
+                                           const float (&acc)[NC / 2],
+                                           float scale, int row0, int row1,
+                                           int rows, int tq, int col0,
+                                           int skip) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * tq;
+    if (col < skip) continue;
+    if (row0 < rows)
+      *reinterpret_cast<uint32_t*>(out + row0 * ss + col) =
+          pack_bf16x2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (row1 < rows)
+      *reinterpret_cast<uint32_t*>(out + row1 * ss + col) =
+          pack_bf16x2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
 // ------------------------------------------------------------ host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -432,14 +571,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A bf16 map of `rank` dims with the 128-byte swizzle, element strides 1.
+// Returns a cudaError_t (0 on success).
+inline cudaError_t tmap_encode(CUtensorMap* map, const void* base,
+                               cuuint32_t rank, const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorInitializationError;
+  const cuuint32_t estride[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, estride,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 // A 4-D map over a bf16 [b, heads, s, d] tensor given by element strides
 // (head dim contiguous), read in boxes of 64 columns x `rows` rows with the
 // 128-byte swizzle. Returns a cudaError_t (0 on success).
 inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int d, int s,
                              int heads, int b, int64_t ss, int64_t sh,
                              int64_t sb, int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return cudaErrorInitializationError;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(heads),
@@ -448,13 +603,28 @@ inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int d, int s,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-             dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
+  return tmap_encode(map, base, 4, dims, strides, box);
+}
+
+// The same tensor as a 5-D map whose box is a whole tile of `rows` rows:
+// dims (64 columns, s, d / 64 column blocks, heads, b), the column block's
+// stride 128 bytes, box (64, rows, d / 64, 1, 1). One copy (coordinates
+// {0, row, 0, head, batch}) lands the tile as its d / 64 column blocks of
+// rows x 128 bytes side by side, the layout above, with the 128-byte
+// swizzle: one TMA instruction a tile instead of one a column block.
+inline cudaError_t tmap_bf16_tile(CUtensorMap* map, const void* base, int d,
+                                  int s, int heads, int b, int64_t ss,
+                                  int64_t sh, int64_t sb, int rows) {
+  const cuuint64_t dims[5] = {64, static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(d / 64),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(ss) * 2, 128,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows),
+                             static_cast<cuuint32_t>(d / 64), 1, 1};
+  return tmap_encode(map, base, 5, dims, strides, box);
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory and its

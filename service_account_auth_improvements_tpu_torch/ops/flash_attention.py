@@ -13,14 +13,21 @@ kernel cannot take raises, it never falls back. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
 
 Inside each library the entry point picks the kernel by dtype and head
-dim, never by catching an error: in bf16, K1 is ``flash_fwd_wgmma``, K2 is
-``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA loads into an mbarrier ring, a
-producer warp, consumer warpgroups on wgmma, with the pieces in
-``csrc/hopper.cuh``), each built for every head dim in
-``KERNEL_HEAD_DIMS`` with tiles chosen per dim; float32 runs the scalar
-kernels. All count under the same counters. A CUDA tensor at a head dim
-the kernels are not built for raises (the reference's Pallas kernels also
-take d 320 to 512; the port does not yet).
+dim, never by catching an error: in bf16 up to d 256, K1 is
+``flash_fwd_wgmma``, K2 is ``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA loads
+into an mbarrier ring, a producer warp, consumer warpgroups on wgmma, with
+the pieces in ``csrc/hopper.cuh``); from d 320 to 512 they are
+``flash_fwd_split``, ``dq_split`` and ``dkv_split``, which split the
+output's D columns between the two consumer warpgroups and exchange the
+halves of each score tile through shared memory; each is built for every
+head dim in ``KERNEL_HEAD_DIMS`` with tiles chosen per dim. float32 runs
+the scalar kernels, which above d 256 split the output columns between
+two blocks. All count under the same counters. A CUDA tensor at another
+head dim raises: d 576 and up pass the reference's rules (its Pallas
+kernels set no upper bound), but there a warpgroup's share of the output
+passes the 256 columns one wgmma takes, and a 64-row Q tile beside two
+K/V stages passes the 227 KB of shared memory a block may have: 512 is
+the bound.
 
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
@@ -53,8 +60,9 @@ from service_account_auth_improvements_tpu_torch.ops.attention import (
 # multiple of this (causal ones are masked to their length)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: head dims K1, K2 and K3 are built for, in bf16 and f32
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+#: head dims K1, K2 and K3 are built for, in bf16 and f32: every multiple
+#: of 64 up to 512
+KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 
 #: kernel launches since the last reset (tests and chip_smoke.py read
 #: them): K1 (forward), K2 (dQ) and K3 (dK/dV)
@@ -186,6 +194,13 @@ def _check_layout(name, ts, dtype):
                              "and 16-byte aligned rows")
 
 
+def _check_head_dim(name, d):
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel supports head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, up to {KERNEL_HEAD_DIMS[-1]} "
+                         f"(got {d})")
+
+
 def _aligned(t) -> bool:
     align = 8 if t.dtype == torch.bfloat16 else 1
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
@@ -197,9 +212,7 @@ def _launch(q, k, v, causal: bool):
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     _check_layout("flash_fwd", (q, k, v), q.dtype)
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel supports head_dim in "
-                         f"{KERNEL_HEAD_DIMS} (got {d})")
+    _check_head_dim("flash_fwd", d)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or h % hkv):
         raise ValueError(f"flash_fwd: bad shapes q {tuple(q.shape)}, "
@@ -336,9 +349,7 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
     _, hkv, sk, _ = k.shape
     outs = [t for t in (dq, dk, dv) if t is not None]
     _check_layout(fn_name, (q, k, v, do, *outs), q.dtype)
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{fn_name} kernel supports head_dim in "
-                         f"{KERNEL_HEAD_DIMS} (got {d})")
+    _check_head_dim(fn_name, d)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or h % hkv or do.shape != q.shape):
         raise ValueError(f"{fn_name}: bad shapes q {tuple(q.shape)}, "

@@ -167,7 +167,7 @@ def test_wide_head_settings():
 
     base = llama.PRESETS[chip_smoke.PRESET]
     assert sorted(d for _, _, d in chip_smoke.WIDE_HEADS.values()) == [
-        192, 256]
+        192, 256, 384, 512]
     for name, (h, hkv, d) in chip_smoke.WIDE_HEADS.items():
         assert name == f"{chip_smoke.PRESET}_d{d}"
         assert d in fa.KERNEL_HEAD_DIMS and h % hkv == 0
@@ -177,7 +177,56 @@ def test_wide_head_settings():
         assert cfg.q_dim == base.q_dim and cfg.attn_impl == "flash"
     d256 = dataclasses.replace(base, n_heads=6, n_kv_heads=2, head_dim=256)
     assert d256.param_count() == base.param_count()
+    # d 512 keeps wk/wv at the preset's 1536 x 512 too, so its parameter
+    # count; d 384 has d 192's 1536 x 768
+    d512 = dataclasses.replace(base, n_heads=3, n_kv_heads=1, head_dim=512)
+    assert d512.param_count() == base.param_count()
+    d384 = dataclasses.replace(base, n_heads=4, n_kv_heads=2, head_dim=384)
+    d192 = dataclasses.replace(base, n_heads=8, n_kv_heads=4, head_dim=192)
+    assert d384.param_count() == d192.param_count()
+    assert chip_smoke.WIDE_HEADS["bench_800m_d512"] == (3, 1, 512)
+    assert chip_smoke.WIDE_HEADS["bench_800m_d384"] == (4, 2, 384)
+    assert set(chip_smoke.WIDE_SERVED) == {256, 512}
+    assert set(chip_smoke.WIDE_VS_DENSE) == {384, 512}
     assert chip_smoke.WIDE_STEPS >= 2
+
+
+def test_kernel_only_head_settings():
+    """Phase 3 checks and times K1, K2 and K3 at every head dim the split
+    kernels take (d 320 and 448 with no model, 4 / 2 heads), and at d 256
+    under both designs; the d 512 kernels line carries the kernel-only
+    dims; the profile groups and the d 256 design labels name the split
+    kernels and their thresholds."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    assert chip_smoke.KERNEL_ONLY_HEADS == {"d320": (4, 2, 320),
+                                            "d448": (4, 2, 448)}
+    dims = sorted(d for _, _, d in chip_smoke._kernel_heads().values())
+    assert dims == [192, 256, 320, 384, 448, 512]
+    assert set(dims) <= set(fa.KERNEL_HEAD_DIMS)
+    assert fa.KERNEL_HEAD_DIMS[-1] == 512
+    for kernel in ("flash_fwd_split", "dq_split", "dkv_split"):
+        assert kernel in chip_smoke.PROFILE_KERNELS
+    src = {name: (CSRC / f"{name}.cu").read_text()
+           for name in chip_smoke.KERNEL_SOURCES}
+    for name, fn in (("flash_fwd", "flash_fwd_split_from"),
+                     ("flash_bwd", "flash_bwd_dq_split_from"),
+                     ("flash_bwd", "flash_bwd_dkv_split_from")):
+        assert f'extern "C" int {fn}()' in src[name]
+    for text in src.values():
+        assert "#ifndef FLASH_OTHER_D256" in text
+
+
+def test_sdpa_backend_names_a_backend():
+    """The yardstick's backend label: the first SDPA backend that takes the
+    inputs (on the CPU too, where the helper runs the same way)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    q, k, v = (torch.randn(1, heads, 64, 64) for heads in (4, 2, 2))
+    assert chip_smoke._sdpa_backend(q, k, v) in SDPBackend.__members__
 
 
 def test_policy_settings():

@@ -127,10 +127,21 @@ def test_head_dim_256_converts_like_jax_and_gives_its_first_loss():
     versions on the CPU, no launch) equals JAX's (its dense path on the
     CPU) within f32 summation order through two layers (2e-6, the train
     tests' loss tolerance)."""
+    _wide_head_dim_converts_like_jax(256)
+
+
+def test_head_dim_512_converts_like_jax_and_gives_its_first_loss():
+    """The same at ``head_dim`` 512, the widest the port's kernels take
+    (its split tiles: each consumer warpgroup owns part of the columns):
+    wq [64, 2·512], wk/wv [64, 512], the loss within the same 2e-6."""
+    _wide_head_dim_converts_like_jax(512)
+
+
+def _wide_head_dim_converts_like_jax(head_dim):
     hf_cfg = transformers.LlamaConfig(
         vocab_size=256, hidden_size=64, intermediate_size=128,
         num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
-        head_dim=256, rope_theta=10_000.0, rms_norm_eps=1e-5,
+        head_dim=head_dim, rope_theta=10_000.0, rms_norm_eps=1e-5,
         max_position_embeddings=128, tie_word_embeddings=False,
         attention_bias=False, mlp_bias=False)
     torch.manual_seed(0)
@@ -138,12 +149,12 @@ def test_head_dim_256_converts_like_jax_and_gives_its_first_loss():
     cfg = tconvert.config_from_hf(model.config.to_dict())
     jcfg = jconvert.config_from_hf(model.config.to_dict())
     assert _fields(cfg) == _fields(jcfg)
-    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (2, 1, 256)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (2, 1, head_dim)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     jparams = jconvert.params_from_hf_state_dict(jcfg, sd)
     params = tconvert.params_from_hf_state_dict(cfg, sd, device="cpu")
-    assert tuple(params["layers"]["wq"].shape) == (2, 64, 512)
-    assert tuple(params["layers"]["wk"].shape) == (2, 64, 256)
+    assert tuple(params["layers"]["wq"].shape) == (2, 64, 2 * head_dim)
+    assert tuple(params["layers"]["wk"].shape) == (2, 64, head_dim)
     flat_want = dict(zip(
         ["/".join(str(k.key) for k in path) for path, _ in
          jax.tree_util.tree_flatten_with_path(jparams)[0]],

@@ -40,7 +40,7 @@ def _qkv(b, s, h, hkv, d, dtype, seed=0):
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 
 # (b, s, h, hkv, d, causal) for K1, K2 and K3: ragged lengths (the kernels
-# mask the tail themselves), GQA groups 1 to 4, d 64 to 256, non-causal
+# mask the tail themselves), GQA groups 1 to 4, d 64 to 512, non-causal
 # aligned inputs, and the training paths' shapes
 SHAPES = [
     (2, 300, 4, 2, 128, True),     # ragged causal tail, group 2
@@ -64,6 +64,23 @@ SHAPES = [
     (2, 256, 4, 1, 256, False),
     (8, 2048, 8, 4, 192, True),
     (8, 2048, 6, 2, 256, True),
+    # the split kernels' head dims (each consumer warpgroup owns part of
+    # the output's columns): ragged (s 1000, 2047, 300, 129), one row, GQA
+    # groups 1 to 3, non-causal, and bench_800m's training shape cut into
+    # 3 / 1 heads of 512 and 4 / 2 of 384
+    (2, 300, 4, 2, 320, True),
+    (1, 1000, 4, 2, 320, True),
+    (2, 129, 6, 2, 384, True),
+    (2, 256, 2, 2, 384, False),
+    (1, 2047, 4, 2, 448, True),
+    (2, 256, 4, 2, 448, False),
+    (2, 300, 3, 1, 512, True),
+    (1, 1000, 3, 1, 512, True),
+    (1, 2047, 3, 1, 512, True),
+    (2, 1, 3, 1, 512, True),
+    (2, 256, 4, 1, 512, False),
+    (8, 2048, 4, 2, 384, True),
+    (8, 2048, 3, 1, 512, True),
 ]
 
 
@@ -154,7 +171,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128),
                                          (2, 300, 4, 2, 256),
-                                         (8, 2048, 6, 2, 256)])
+                                         (8, 2048, 6, 2, 256),
+                                         (2, 300, 3, 1, 512),
+                                         (8, 2048, 3, 1, 512)])
 def test_flash_bwd_kernel_is_deterministic(cuda, kernel, b, s, h, hkv, d):
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
@@ -227,16 +246,18 @@ def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"])
 def test_kernels_refuse_a_head_dim_above_256(cuda, kernel):
-    """d 320 passes the reference's rules (d % 64 == 0) but no kernel is
-    built for it: a CUDA input raises, through the public wrapper too,
-    and nothing launches or falls back."""
+    """d 576 passes the reference's rules (d % 64 == 0) but is past the
+    kernels' bound of 512 (a split accumulator of more than 256 columns
+    a warpgroup): a CUDA input raises, naming the bound, through the
+    public wrapper too, and nothing launches or falls back. (The name
+    dates from when the bound was 256.)"""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(1, 128, 2, 1, 320, torch.bfloat16)
+    q, k, v = _qkv(1, 128, 2, 1, 576, torch.bfloat16)
     before = (fa.launches, fa.dq_launches, fa.dkv_launches)
-    with pytest.raises(ValueError, match="supports head_dim"):
+    with pytest.raises(ValueError, match="supports head_dim.*up to 512"):
         if kernel == "flash_fwd":
             fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=True)
@@ -248,10 +269,10 @@ def test_kernels_refuse_a_head_dim_above_256(cuda, kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim", [192, 256])
+@pytest.mark.parametrize("head_dim", [192, 256, 384, 512])
 def test_train_steps_flash_equal_dense_wide_head_on_cuda(cuda, head_dim,
                                                          dtype):
-    """The same three steps at head dims 192 and 256 (remat "full"):
+    """The same three steps at head dims 192 to 512 (remat "full"):
     K1 twice, K2 and K3 once per layer, flash against dense within the
     d 128 tolerances."""
     from service_account_auth_improvements_tpu_torch.models import llama

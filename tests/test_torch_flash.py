@@ -33,7 +33,10 @@ def _qkv(b=2, sq=256, sk=256, h=4, hkv=2, d=64, seed=0):
             rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
 
 
-WIDE_HEAD_DIMS = (192, 256)
+# the wide head dims the kernels also take: d 192 and 256 on the unsplit
+# tiles, 320 to 512 on the split ones (each consumer warpgroup owns part of
+# the output's columns); the plain versions are the same at every d
+WIDE_HEAD_DIMS = (192, 256, 320, 384, 448, 512)
 
 # the reference's shapes (tests/test_flash.py)
 CASES = {
@@ -45,8 +48,8 @@ CASES = {
                              5e-5),
     "asymmetric-512": (dict(b=1, sq=512, sk=512, h=2, hkv=2), True, 5e-5),
     "unaligned-127": (dict(sq=127, sk=127), True, 5e-4),
-    # the wide head dims the kernels also take (d 192 and 256), at the
-    # tolerances of the d 64 cases of the same kind
+    # the wide head dims (d 192 to 512), at the tolerances of the d 64
+    # cases of the same kind
     **{f"{name}-d{d}": (dict(shape, b=1, d=d), causal, atol)
        for d in WIDE_HEAD_DIMS
        for name, shape, causal, atol in (
@@ -192,7 +195,7 @@ GRAD_CASES = {
     "multiblock-noncausal": (dict(b=1, sq=384, sk=384, h=2, hkv=1), False,
                              True, 1e-3),
     "unaligned-127": (dict(sq=127, sk=127), True, False, 5e-4),
-    # d 192 and 256 at the tolerances of the d 64 cases of the same kind
+    # d 192 to 512 at the tolerances of the d 64 cases of the same kind
     **{f"{name}-d{d}": (dict(shape, d=d), causal, multiblock, atol)
        for d in WIDE_HEAD_DIMS
        for name, shape, causal, multiblock, atol in (
@@ -267,8 +270,8 @@ def test_bwd_reference_matches_jax_flash_bwd(causal, counter, monkeypatch):
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 def test_bwd_reference_matches_jax_flash_bwd_wide_head(d, causal, counter,
                                                        monkeypatch):
-    """The same at head dims 192 and 256, GQA group 2, two blocks of 128
-    per axis, at the d 64 case's tolerance."""
+    """The same at head dims 192 to 512, GQA group 2, two blocks of 128
+    per axis, at the d 64 case's tolerance (2e-5)."""
     monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
     q, k, v = (np.swapaxes(a, 1, 2)
                for a in _qkv(b=1, sq=256, sk=256, h=2, hkv=1, d=d))

@@ -63,10 +63,14 @@ VARIANTS = {
         TINY, head_dim=64, n_heads=2, n_kv_heads=1, attn_impl="flash",
         remat_policy="dots_saveable"), {}, {}, False),
     # the wide head dims K1, K2 and K3 also take (flash on the port's
-    # side, dense on JAX's, as above)
+    # side, dense on JAX's, as above): 2 / 1 heads of 192 and 256, and the
+    # split kernels' dims as chip_smoke.py cuts bench_800m, 3 / 1 heads of
+    # 512 and 4 / 2 of 384
     **{f"flash-hd{d}": (dataclasses.replace(
-        TINY, head_dim=d, n_heads=2, n_kv_heads=1, attn_impl="flash"), {},
-        {}, False) for d in (192, 256)},
+        TINY, head_dim=d, n_heads=h, n_kv_heads=hkv, attn_impl="flash"), {},
+        {}, False)
+       for d, h, hkv in ((192, 2, 1), (256, 2, 1), (384, 4, 2),
+                         (512, 3, 1))},
     # switch top-1 and Mixtral top-2 FFNs: the loss carries the aux term;
     # capacity int(1.25·k·40/4) per 40-token row, so claims overflow
     "moe": (dataclasses.replace(TINY, moe_experts=4), {}, {}, False),

@@ -23,9 +23,12 @@ no network. Phases, each of which raises on failure:
    256, 192, 512 and 384 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1 and 4 / 2
    heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
    SDPA (its backend named: its flash backend stops at d 256), in f32 at
-   s 1000 too, with K1 also at its per-length prefill; at d 256 the
-   design not shipped there (the row split or the D split, per kernel)
-   against the plain versions and timed in turns with the shipped one;
+   s 1000 too, with K1 also at its per-length prefill; K2 and K3 at
+   d 256 also at ragged lengths (s 65, 127, 191, 2047; group 4 at s 300;
+   non-causal s 512); at d 256 the design not shipped there (K1: the D
+   split; K2 and K3: PR 10's 12-warp row split) against the plain
+   versions and timed in turns with the shipped one, the K2 + K3 pair
+   beside SDPA's backward;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -163,9 +166,15 @@ KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
 # substring of the profiler's kernel name) and its label
 PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_wgmma": "K3 dkv",
+                   "dq_rows8": "K2 dq (8 warps, d 256)",
+                   "dkv_onepass": "K3 dkv (one pass, d 256)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
                    "dkv_split": "K3 dkv (D split)"}
+# K2's and K3's bf16 designs by the id flash_bwd_dq_design and
+# flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
+BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
+               3: "one pass"}
 # the other design at d 256 (phase 3 times it beside the shipped one in
 # turns): every kernel source built with -DFLASH_OTHER_D256=1 into here
 OTHER_D256_DIR = ROOT / "build" / "chip_smoke_other_d256"
@@ -422,6 +431,57 @@ def phase_build() -> None:
                 if any(w in line for w in ("entry function", "registers",
                                            "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
+    # the d 256 kernels of both designs, in one line each
+    for lib in libs + others:
+        log = lib.with_name(lib.name + ".log")
+        if not log.exists():
+            continue
+        for fn, n in ptxas_summary(log.read_text()).items():
+            kernel = _template_name(fn, 256)
+            if kernel:
+                _log(f"ptxas {kernel}<256> ({lib.parent.name}): "
+                     f"{n['registers']} registers, {n['spill_stores']} bytes "
+                     f"of spill stores, C75xx: "
+                     f"{', '.join(n['notes']) or 'none'}")
+
+
+def ptxas_summary(text: str) -> dict:
+    """Per entry function of an ``nvcc -Xptxas -v`` report: its registers,
+    bytes of spill stores and the C75xx notes (wgmma serialised and the
+    like) ptxas gave it, {mangled name: {"registers", "spill_stores",
+    "notes"}}."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        note = re.search(r"\((C75\d\d)\).*function '(\w+)'", line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if note:
+            out.setdefault(note.group(2), {"registers": None,
+                                           "spill_stores": None,
+                                           "notes": []})["notes"].append(
+                note.group(1))
+        elif entry:
+            fn = entry.group(1)
+            out.setdefault(fn, {"registers": None, "spill_stores": None,
+                                "notes": []})
+        elif fn and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[fn]["spill_stores"] = int(m.group(1))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def _template_name(mangled: str, d: int) -> str | None:
+    """The name of the kernel template a mangled entry function
+    instantiates at ``<d>``, or None: the shortest name right before
+    ``ILi<d>E`` that its own length prefixes (the namespace's hash may end
+    in digits that run into that length)."""
+    end = mangled.find(f"ILi{d}E")
+    for n in range(1, end):
+        name, size = mangled[end - n:end], str(n)
+        if (name[0].isalpha() or name[0] == "_") and mangled[
+                :end - n].endswith(size):
+            return name
+    return None
 
 
 def _build_other_d256(name: str) -> Path:
@@ -624,11 +684,24 @@ def phase_kernels() -> dict:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5,
                   queue_ahead=True)
-    _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms")
+    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=5,
+        queue_ahead=True)
+    backend = _sdpa_backend(qt, kt, vt)
+    bound_ms, bound_by = kernel_bound(2, 12, 4, PROMPT, PROMPT, 128,
+                                      torch.float32, True)
+    _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms "
+         f"({bound_ms / ms:.3f} of bound), sdpa {lib_ms:.4f} ms ({backend}), "
+         f"bound {bound_ms:.4f} ms ({bound_by}, f32 at "
+         f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TF/s)")
+    f32 = {f"b2 s{PROMPT} h12 hkv4 d128 f32 causal": dict(
+        ms=ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        library_backend=backend, bound_share=bound_ms / ms)}
     # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
     ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
         f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
         for name, d in FT_HEAD_DIMS}
+    ft.update(f32)
     # the wide head dims at the training shape (flash_fwd_wgmma<192>,
     # <256> and flash_fwd_split<320> to <512>: the build's ptxas lines above
     # give their registers and spills)
@@ -743,6 +816,13 @@ def phase_bwd_kernels() -> dict:
            True)
           for name, (h, hkv, d) in _kernel_heads().items()),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
+         False),
+        # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
+        # GQA group 4 and non-causal
+        *((f"d256 s{s} bf16", 2 if s < 2047 else 1, s, 6, 2, 256,
+           torch.bfloat16, True) for s in (65, 127, 191, 2047)),
+        ("d256 gqa4 s300 bf16", 2, 300, 8, 2, 256, torch.bfloat16, True),
+        ("d256 non-causal s512 bf16", 2, 512, 6, 2, 256, torch.bfloat16,
          False),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -884,21 +964,41 @@ def phase_bwd_kernels() -> dict:
     q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
                                                   torch.float32, gen, True)
     d32 = fa.flash_bwd_delta(o32, do32)
-    for name, fn in (
+    sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                  for t in (q32, k32, v32))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), do32, retain_graph=True), iters=5,
+        queue_ahead=True)
+    backend = _sdpa_backend(q32, k32, v32)
+    for name, fn, kind in (
             ("flash_bwd_dq", lambda: fa.flash_bwd_dq(
-                q32, k32, v32, do32, lse32, d32, True)),
+                q32, k32, v32, do32, lse32, d32, True), "dq"),
             ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
-                q32, k32, v32, do32, lse32, d32, True))):
+                q32, k32, v32, do32, lse32, d32, True), "dkv")):
+        ms = _time_ms(fn, iters=5, queue_ahead=True)
+        bound_ms, bound_by = kernel_bound(2, 12, 4, PROMPT, PROMPT, 128,
+                                          torch.float32, True, kind)
         _log(f"time {name} b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel "
-             f"{_time_ms(fn, iters=5, queue_ahead=True):.4f} ms")
+             f"{ms:.4f} ms ({bound_ms / ms:.3f} of bound), sdpa backward "
+             f"{lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
+             f"({bound_by}, f32 at {PEAK_FLOPS[torch.float32] / 1e12:.0f} "
+             "TF/s)")
+        out[name]["more_shapes"][f"b2 s{PROMPT} h12 hkv4 d128 f32 causal"] = (
+            dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=lib_ms, library_backend=backend,
+                 bound_share=bound_ms / ms))
+    del q32, k32, v32, do32, o32, lse32, d32, sq, sk, sv, so
     return out
 
 
 def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
     """K2 and K3 at one bf16 causal shape, each timed beside its plain
     version and SDPA's backward (one call for dQ, dK and dV together,
-    naming the backend SDPA took), with TF/s and the share of the bound:
-    {kernel name: numbers}."""
+    naming the backend SDPA took), with TF/s, the share of the bound and
+    the pair's sum (``pair_ms``, beside SDPA's backward): {kernel name:
+    numbers}."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -935,21 +1035,34 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
                          library_backend=backend, bound_ms=bound_ms,
                          bound_by=bound_by, tflops=tflops,
                          bound_share=bound_ms / ms)
+    # the pair computes what SDPA's one backward call does
+    pair_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    for n in out.values():
+        n["pair_ms"] = pair_ms
+    _log(f"time K2 + K3 {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+         f"{pair_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms ({backend}, "
+         f"{pair_ms / lib_ms:.3f}x)")
     del q, k, v, do, o, lse, delta, sq, sk, sv, so
     torch.cuda.empty_cache()
     return out
 
 
 def phase_d256_designs() -> dict:
-    """At d 256 each of K1, K2 and K3 has two designs: the row split
-    (flash_fwd_wgmma, dq_wgmma, dkv_wgmma: 128 rows or keys a block, 64 a
-    consumer) and the D-split kernels (64 a block, the output's columns
-    split between the consumers). The port ships, per kernel, the one its
-    sources name (``*_split_from`` in each library); the other is built
-    with -DFLASH_OTHER_D256=1 (phase 2). The other design is held against
-    the plain versions at phase 12's d 256 training shape (K2 and K3 also
+    """At d 256 each of K1, K2 and K3 has two designs. K1: the row split
+    (flash_fwd_wgmma: 128 rows a block, 64 a consumer) and the D split
+    (flash_fwd_split: 64 a block, the output's columns split between the
+    consumers). K2 and K3: PR 10's row split (dq_wgmma, dkv_wgmma: 12-warp
+    blocks with a producer warpgroup, K3 in two passes) and the 8-warp
+    designs (dq_rows8: the same rows without the producer; dkv_onepass:
+    64 keys a block, dV on one warpgroup and dK on the other, one pass).
+    The port ships, per kernel, the one its sources name
+    (``flash_fwd_split_from``, ``flash_bwd_dq_design``,
+    ``flash_bwd_dkv_design`` in each library); the other is built with
+    -DFLASH_OTHER_D256=1 (phase 2). The other design is held against the
+    plain versions at phase 12's d 256 training shape (K2 and K3 also
     twice on one input, bitwise), then both are timed in turns on the same
-    inputs (shipped, other, other, shipped). Returns {kernel: numbers}."""
+    inputs (shipped, other, other, shipped), K2 + K3 as a pair too.
+    Returns {kernel: numbers}."""
     import ctypes
 
     from service_account_auth_improvements_tpu_torch.ops import (
@@ -968,15 +1081,9 @@ def phase_d256_designs() -> dict:
             "other": {n: ctypes.CDLL(str(OTHER_D256_DIR / f"lib{n}.so"))
                       for n in KERNEL_SOURCES}}
 
-    def designs(which):
-        fwd, bwd = libs[which]["flash_fwd"], libs[which]["flash_bwd"]
-        return {name: "D split" if split_from() <= d else "row split"
-                for name, split_from in (
-                    ("flash_fwd", fwd.flash_fwd_split_from),
-                    ("flash_bwd_dq", bwd.flash_bwd_dq_split_from),
-                    ("flash_bwd_dkv", bwd.flash_bwd_dkv_split_from))}
-
-    named = {which: designs(which) for which in libs}
+    named = {which: design_names(libs[which]["flash_fwd"],
+                                 libs[which]["flash_bwd"], d)
+             for which in libs}
     calls = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True)[0],
                       lambda: fa.flash_fwd_reference(q, k, v, True)[0],
@@ -1033,9 +1140,36 @@ def phase_d256_designs() -> dict:
              f"{shipped_ms:.4f} ms {[round(x, 4) for x in t['shipped']]}, "
              f"other ({named['other'][name]}) {other_ms:.4f} ms "
              f"{[round(x, 4) for x in t['other']]}")
-    del q, k, v, do, o, lse, delta
+    # K2 + K3: what SDPA's one backward call computes
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
+    pair = {which: sum(out[name][f"{which}_ms"]
+                       for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+            for which in ("shipped", "other")}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        out[name].update(shipped_pair_ms=pair["shipped"],
+                         other_pair_ms=pair["other"],
+                         library_ms=lib_ms)
+    _log(f"time d256 designs K2 + K3 b{b} s{s} h{h} hkv{hkv} bf16 causal, in "
+         f"turns: shipped {pair['shipped']:.4f} ms, other "
+         f"{pair['other']:.4f} ms, sdpa backward {lib_ms:.4f} ms")
+    del q, k, v, do, o, lse, delta, sq, sk, sv, so
     torch.cuda.empty_cache()
     return out
+
+
+def design_names(fwd, bwd, d: int) -> dict:
+    """The design each kernel of these two libraries (flash_fwd,
+    flash_bwd) runs at head dim ``d``, by name: K1's by
+    ``flash_fwd_split_from``, K2's and K3's by the BwdDesign id of
+    ``flash_bwd_dq_design`` and ``flash_bwd_dkv_design``."""
+    return {"flash_fwd": ("D split" if fwd.flash_fwd_split_from() <= d
+                          else "row split"),
+            "flash_bwd_dq": BWD_DESIGNS[bwd.flash_bwd_dq_design(d)],
+            "flash_bwd_dkv": BWD_DESIGNS[bwd.flash_bwd_dkv_design(d)]}
 
 
 def _http(base: str, path: str, body: dict | None = None):
@@ -4348,6 +4482,44 @@ def _torchrun_binding() -> None:
          f"{time.perf_counter() - t0:.1f} s")
 
 
+def wide_kernel_entries(numbers: dict, wide: dict, d256: dict) -> list:
+    """The wide head dims' ``kernels`` entries (phase 12), one per kernel
+    and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
+    phase 12's launches per path (``wide[d][path][kernel]``) and
+    ``phase_d256_designs``' (``d256[kernel]``): at d 256 the other
+    design's numbers beside the shipped one's, K2's and K3's with the
+    pair's sum beside SDPA's backward; the kernel-only dims (d 320, 448:
+    no model, so no launches on a main path) under the d 512 entries."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share")
+    entries = []
+    for label, (_, _, d) in WIDE_HEADS.items():
+        for name, (src, _, line) in KERNELS.items():
+            n = numbers[name]["wide"][label]
+            by_path = {path: counts[name] for path, counts in wide[d].items()}
+            entry = {
+                "name": f"{name} d{d}",
+                "route": "cuda",
+                "source": f"{PKG}/csrc/{src}",
+                "replaces": "service_account_auth_improvements_tpu/ops/"
+                            f"flash_attention.py:{line}",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **{key: n[key] for key in keys},
+            }
+            if "pair_ms" in n:
+                entry["pair_ms"] = n["pair_ms"]
+            if d == 256:
+                entry["designs_in_turns"] = d256[name]
+            if d == 512:
+                entry["more_shapes"] = {
+                    other: {key: numbers[name]["wide"][other][key]
+                            for key in keys}
+                    for other in KERNEL_ONLY_HEADS}
+            entries.append(entry)
+    return entries
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4398,34 +4570,7 @@ def main() -> int:
             "bound_share": n["bound_share"],
             "more_shapes": n["more_shapes"],
         })
-    # the wide head dims' routes (phase 12), one entry per kernel and dim;
-    # at d 256 the other design's numbers beside the shipped one's, and the
-    # kernel-only dims (d 320, 448: no model, so no launches on a main
-    # path) under the d 512 entries
-    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend", "tflops", "bound_share")
-    for label, (_, _, d) in WIDE_HEADS.items():
-        for name, (src, _, line) in KERNELS.items():
-            n = numbers[name]["wide"][label]
-            by_path = {path: counts[name] for path, counts in wide[d].items()}
-            entry = {
-                "name": f"{name} d{d}",
-                "route": "cuda",
-                "source": f"{PKG}/csrc/{src}",
-                "replaces": "service_account_auth_improvements_tpu/ops/"
-                            f"flash_attention.py:{line}",
-                "launches": sum(by_path.values()),
-                "launches_by_path": by_path,
-                **{key: n[key] for key in keys},
-            }
-            if d == 256:
-                entry["designs_in_turns"] = d256[name]
-            if d == 512:
-                entry["more_shapes"] = {
-                    other: {key: numbers[name]["wide"][other][key]
-                            for key in keys}
-                    for other in KERNEL_ONLY_HEADS}
-            kernels.append(entry)
+    kernels += wide_kernel_entries(numbers, wide, d256)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,9 +43,10 @@
 // d % 64 == 0 from 64 to 512) both are built for Hopper, as K1 is: tiles
 // stream by TMA through a ring of shared-memory stages tracked by
 // mbarriers, and two consumer warpgroups run every product on wgmma with
-// the scores in registers; see the notes above `dq_wgmma` and `dkv_wgmma`
-// (up to d 256) and above `dq_split` and `dkv_split` (d 320 to 512, the
-// output's D columns split between the consumers).
+// the scores in registers; see BwdDesign below and the notes above
+// `dq_wgmma` and `dkv_wgmma` (d 64 to 192), `dq_rows8` and `dkv_onepass`
+// (d 256) and `dq_split` and `dkv_split` (d 320 to 512, the output's D
+// columns split between the consumers).
 //
 // float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
 // f32 parity with the reference holds.
@@ -55,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -99,6 +102,36 @@ constexpr int WG = 128;  // threads per warpgroup
 // shared memory a block may use on an H100 (227 KB)
 constexpr int SMEM_MAX = 232448;
 
+// The bf16 designs of K2 and K3 (the C functions flash_bwd_dq_design and
+// flash_bwd_dkv_design report the one a head dim runs; chip_smoke.py labels
+// its timings by them):
+//   kRowSplit  dq_wgmma, dkv_wgmma: 12-warp blocks of 128 rows or keys, 64
+//              a consumer warpgroup, a producer warpgroup (d 64 to 192);
+//   kDSplit    dq_split, dkv_split: 8-warp blocks of 64 rows or keys, the
+//              output's columns split between the warpgroups (d 320 to 512);
+//   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 256);
+//   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
+//              and warpgroup 1 dK, one pass (d 256).
+// At d 256 each of K2 and K3 ships the faster of two designs on the H100
+// (chip_smoke.py's phase_d256_designs, in turns on one card; PERF.md §6):
+// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_D256=1 takes PR 10's
+// tiles (dq_wgmma, dkv_wgmma) there instead.
+enum BwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3 };
+
+#ifndef FLASH_OTHER_D256
+#define FLASH_OTHER_D256 0
+#endif
+constexpr int dq_design(int d) {
+  return d <= 192 ? kRowSplit
+         : d == 256 ? (FLASH_OTHER_D256 ? kRowSplit : kRows8)
+                    : kDSplit;
+}
+constexpr int dkv_design(int d) {
+  return d <= 192 ? kRowSplit
+         : d == 256 ? (FLASH_OTHER_D256 ? kRowSplit : kOnePass)
+                    : kDSplit;
+}
+
 // K2, bf16: dQ for one (b, head, 128-row query tile), on wgmma.
 //
 // Warp specialisation, as K1 (csrc/flash_fwd.cu): warpgroup 0 is the
@@ -141,7 +174,7 @@ constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
 // keys beside dQ's D / 2 registers made ptxas spill and serialise the
 // wgmmas. Stages in the ring: 256 keys' worth (4 of 64 keys or 2 of 128),
 // or as many as fit beside the resident Q and dO (d 192: 5, d 256: 3).
-// From d 320 K2 is dq_split (DqSplit's tiles), below.
+// At d 256 K2 ships as dq_rows8 and from d 320 it is dq_split (BwdDesign).
 constexpr int dq_bk(int d) { return d <= 128 ? DQ_BK : 32; }
 constexpr int dq_stages(int d) {
   const int fit =
@@ -149,9 +182,10 @@ constexpr int dq_stages(int d) {
   return fit >= 256 / dq_bk(d) ? 256 / dq_bk(d) : fit > 1 ? fit : 1;
 }
 
+// K2's arguments, for each bf16 design (dq_args fills them)
 struct DqArgs {
-  CUtensorMap tq, tdo;  // boxes of 64 columns x DQ_BQ rows
-  CUtensorMap tk, tv;   // boxes of 64 columns x dq_bk(D) rows
+  CUtensorMap tq, tdo;  // boxes of the design's query rows
+  CUtensorMap tk, tv;   // boxes of the design's keys a stage
   const float* lse;     // [b, h, sq] contiguous
   const float* delta;
   void* dq;
@@ -403,8 +437,8 @@ struct DkvArgs {
 // Shared memory: K, V (the block's keys), the Q and dO stages, the lse and
 // delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
 // (rows x 128 bytes). A stage holds BQ query rows: 128 in 2 stages up to
-// d 128, 32 above in as many stages as fit (at most 4). From d 320 K3 is
-// dkv_split (DkvSplit's tiles), below.
+// d 128, 32 above in as many stages as fit (at most 4). At d 256 K3
+// ships as dkv_onepass and from d 320 it is dkv_split (BwdDesign).
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = D <= 128 ? 128 : 32;  // query rows per stage
@@ -703,8 +737,7 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 
 // ------------------------------------------------ bf16: the D-split kernels
 //
-// From d 320 (and at d 256 if it measures faster: kDqSplitFrom,
-// kDkvSplitFrom) K2 is `dq_split<D>` and K3 `dkv_split<D>`. dq_wgmma and
+// From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>`. dq_wgmma and
 // dkv_wgmma hold a D / 2-register accumulator a thread (256 at d 512, past
 // the 255 a thread may have), and their resident tiles (Q and dO of 128
 // rows, K and V of 128 keys: 256 KB at d 512) overflow 227 KB. The split
@@ -735,15 +768,6 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 //   buffers, with as many stages as fit (at most 4): DqSplit, DkvSplit.
 // Every sum still runs inside one block in a fixed order: deterministic.
 
-#ifndef FLASH_OTHER_D256
-#define FLASH_OTHER_D256 0
-#endif
-// the smallest head dims K2 and K3 take the split kernels at. At d 256
-// each ships the faster of its two designs on the H100 (chip_smoke.py's
-// phase_d256_designs, in turns on one card; PERF.md §6): dq_wgmma and
-// dkv_wgmma. A build with -DFLASH_OTHER_D256=1 takes the split at d 256.
-constexpr int kDqSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
-constexpr int kDkvSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
 constexpr int SPLIT_THREADS = 2 * WG;  // the two consumer warpgroups
 
 // Stages of `t` rows (two bf16 tiles of t x d each, plus `extra` bytes a
@@ -760,17 +784,6 @@ __host__ __device__ constexpr int split_tile(int d, int resident,
          : split_fit(d, resident, 32, extra) >= 2 ? 32
                                                   : 16;
 }
-
-struct DqSplitArgs {
-  CUtensorMap tq, tdo;  // boxes of 64 columns x 64 rows
-  CUtensorMap tk, tv;   // boxes of 64 columns x DqSplit<D>::BK rows
-  const float* lse;
-  const float* delta;
-  void* dq;
-  int64_t dq_sb, dq_sh, dq_ss;
-  int h, hkv, batch, sq, sk, causal, nq;
-  float scale, scale_log2;
-};
 
 // Shared memory: Q and dO (64 rows, resident), the K stages, the V stages,
 // the two exchange buffers and the mbarriers.
@@ -799,7 +812,7 @@ struct DqSplit {
 
 // K and V of key tile i into its stage, by TMA (one thread).
 template <int D>
-__device__ __forceinline__ void dq_split_load(const DqSplitArgs& a,
+__device__ __forceinline__ void dq_split_load(const DqArgs& a,
                                               uint32_t base, int i, int ikv,
                                               int ib) {
   using namespace hopper;
@@ -814,7 +827,7 @@ __device__ __forceinline__ void dq_split_load(const DqSplitArgs& a,
 }
 
 template <int D>
-__device__ __forceinline__ void dq_split_consumer(const DqSplitArgs& a,
+__device__ __forceinline__ void dq_split_consumer(const DqArgs& a,
                                                   uint32_t base, float* xbuf,
                                                   int q0, int ih, int ib,
                                                   int nk) {
@@ -923,7 +936,7 @@ __device__ __forceinline__ void dq_split_consumer(const DqSplitArgs& a,
 
 template <int D>
 __global__ void __launch_bounds__(SPLIT_THREADS, 1)
-dq_split(const __grid_constant__ DqSplitArgs a) {
+dq_split(const __grid_constant__ DqArgs a) {
   using namespace hopper;
   using L = DqSplit<D>;
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
@@ -992,21 +1005,22 @@ struct DkvSplit {
   static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
 };
 
-// Stage j of the block's sequence (both passes stream the same `tiles`
-// stages: the group's query heads, each from query tile iq0 on, nqt tiles)
-// by the first warp: Q and dO by TMA from lane 0, the rows' lse and delta
-// by the lanes with cp.async (rows past sq fill with 0), each lane's
-// arrival on the stage's barrier made when its copies land. The stage is
-// full once all 32 lanes' copies and the TMA bytes have landed; the warp
-// (which also computes) never waits on a global load.
-template <int D>
-__device__ __forceinline__ void dkv_split_load(const DkvArgs& a,
+// Stage j of the block's sequence (the group's query heads, each from
+// query tile iq0 on, nqt tiles: `tiles` stages a pass; dkv_split's two
+// passes stream the same sequence twice) into shared memory laid out as L
+// (DkvSplit<D> or DkvOnePass<D>), by the first warp: Q and dO by TMA from
+// lane 0, the rows' lse and delta by the lanes with cp.async (rows past sq
+// fill with 0), each lane's arrival on the stage's barrier made when its
+// copies land. The stage is full once all 32 lanes' copies and the TMA
+// bytes have landed; the warp (which also computes) never waits on a
+// global load.
+template <class L>
+__device__ __forceinline__ void dkv_stage_load(const DkvArgs& a,
                                                uint32_t base,
                                                unsigned char* smem, int j,
                                                int tiles, int nqt, int iq0,
                                                int ikv, int ib, int lane) {
   using namespace hopper;
-  using L = DkvSplit<D>;
   const int s = j % L::STAGES, jj = j % tiles;
   const int ih = ikv * (a.h / a.hkv) + jj / nqt;
   const int iq = iq0 + jj % nqt;
@@ -1033,7 +1047,7 @@ __device__ __forceinline__ void dkv_split_load(const DkvArgs& a,
 // One pass of a K3 split consumer over the block's stage sequence (`tiles`
 // stages of BQ queries, ring positions from i0), one accumulator of NC
 // columns: PASS 0, dV[:, own] += P^T dO[:, own]; PASS 1, dK[:, own] +=
-// dS^T Q[:, own]. The first warp refills the stages (dkv_split_load).
+// dS^T Q[:, own]. The first warp refills the stages (dkv_stage_load).
 template <int D, int PASS>
 __device__ __forceinline__ void dkv_split_pass(const DkvArgs& a,
                                                uint32_t base,
@@ -1089,7 +1103,7 @@ __device__ __forceinline__ void dkv_split_pass(const DkvArgs& a,
     bar_sync(1, 2 * WG);
     if (refill) {  // past the barrier both warpgroups released stage i - 1
       mbar_wait(q_empty + 8 * ((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
-      dkv_split_load<D>(a, base, smem, i - 1 + STAGES, tiles, nqt, iq0, ikv,
+      dkv_stage_load<L>(a, base, smem, i - 1 + STAGES, tiles, nqt, iq0, ikv,
                         ib, t);
       refill = false;
     }
@@ -1130,7 +1144,7 @@ __device__ __forceinline__ void dkv_split_pass(const DkvArgs& a,
       refill = !__shfl_sync(0xffffffffu,
                             mbar_test(q_empty + 8 * s, (i / STAGES) & 1), 0);
       if (!refill)
-        dkv_split_load<D>(a, base, smem, i + STAGES, tiles, nqt, iq0, ikv,
+        dkv_stage_load<L>(a, base, smem, i + STAGES, tiles, nqt, iq0, ikv,
                           ib, t);
     }
   }
@@ -1179,7 +1193,7 @@ dkv_split(const __grid_constant__ DkvArgs a) {
       tma_load_5d(base + L::V_OFF, &a.tv, kv_full, 0, k0, 0, ikv, ib);
     }
     for (int j = 0; j < STAGES && j < 2 * tiles; ++j)
-      dkv_split_load<D>(a, base, smem, j, tiles, nq - iq0, iq0, ikv, ib,
+      dkv_stage_load<L>(a, base, smem, j, tiles, nq - iq0, iq0, ikv, ib,
                         threadIdx.x);
   }
   bool refill = false;  // the first warp: a stage still to refill
@@ -1197,6 +1211,403 @@ dkv_split(const __grid_constant__ DkvArgs a) {
                        static_cast<bf16*>(a.dk) + ib * a.dk_sb +
                            ikv * a.dk_sh,
                        a.dk_ss);
+}
+
+// ------------------------------------------------ bf16 at d 256: 8-warp blocks
+//
+// At d 256 PR 10's 12-warp blocks (dq_wgmma, dkv_wgmma) get 168 registers
+// a thread from ptxas whatever setmaxnreg asks for, while a 64 x 256 f32
+// accumulator alone is 128 a thread: both spilled and had every wgmma
+// serialised (ptxas C7512), and K3 made two passes (dK and dV together do
+// not fit one warpgroup), forming S^T twice and streaming Q and dO twice.
+// The D split (dq_split, dkv_split at d 256) cured the spills but split
+// the output's columns, so each score product was cut in halves and
+// exchanged, and lost in turns (PERF.md §6). The designs here keep the
+// 8-warp block (two consumer warpgroups, 255 registers a thread; one
+// computing thread issues the TMA loads, as in the split kernels) and
+// split the work by output instead.
+//
+// K3, `dkv_onepass<D>` (replaces `_dkv_kernel` in the JAX package's
+// ops/flash_attention.py): one block per (batch, KV head, 64 keys), K and V
+// of the keys resident (64 KB at d 256), Q and dO streamed in stages of
+// BQ = 64 query rows (each query head of the group, from the diagonal on).
+// Warpgroup 0 owns dV[64 keys x D], warpgroup 1 dK[64 x D], 128 f32
+// registers a thread each. Per stage, one instruction stream for both,
+// the operands chosen by address (never a branch around a wgmma):
+//   t = A_c B_c^T   m64n64k16 x D/16, both from shared memory: S^T = K Q^T
+//                   on warpgroup 0, dP^T = V dO^T on warpgroup 1
+//   P^T = exp2(t scale log2e - lse log2e), masked, rounded to dO's dtype,
+//       written by warpgroup 0 to a double-buffered exchange buffer in
+//       fragment order (one named barrier a stage)
+//   f = P^T (warpgroup 0), or dS^T = P^T (dP^T - delta) rounded to Q's
+//       dtype (warpgroup 1, reading P^T from the buffer)
+//   acc += f Y_c    m64nDk16 x 4, A from registers, Y_0 = dO and Y_1 = Q
+//                   read MN-major (wgmma_rs_t_cols)
+// Four products a stage, each formed once (dkv_wgmma's two passes form
+// five), and Q and dO streamed once. Bound on an H100: operations (four
+// products of 2 s^2 d / 2 flops per head, hundreds of flops per byte);
+// per stage 8.4 MFLOP against 64 KB of Q and dO from L2, so the two
+// stages must overlap each other's loads, which the 64 KB of resident K
+// and V and 16 KB of exchange leave room for (about 210 KB).
+//
+// K2, `dq_rows8<D>` (replaces `_dq_kernel`): dq_wgmma's rows, 128 query
+// rows a block with Q and dO resident, 64 a warpgroup, K and V streamed in
+// 32-key stages (3 fit beside Q and dO), without the producer warpgroup:
+// S = Q K^T and dP = dO V^T (m64n32), dS = P (dP - delta), dQ += dS K
+// (m64nDk16, K read MN-major), as dq_consumer does. Bound on an H100:
+// operations (three products); what held dq_wgmma<256> back was ptxas's
+// 168 registers a thread (a 12-warp block) beside the 128-register dQ,
+// so every wgmma ran serialised: this block has 255. Thread 0 refills a
+// stage once both warpgroups have released it, testing without waiting,
+// and waits only when the stage's next tile is due.
+//
+// Both keep dkv_wgmma's and dq_wgmma's rounding rules, scale dK or dQ once
+// at the end and write their own rows: every sum runs in one block in a
+// fixed order, deterministic, no atomics.
+
+// K3 one pass: K and V of the block's 64 keys (resident), the Q and dO
+// stages, their lse and delta, two exchange buffers of P^T (bf16 pairs in
+// fragment order) and the mbarriers (kv_full, q_full[S], q_empty[S], as
+// DkvSplit, so dkv_stage_load fills both).
+template <int D>
+struct DkvOnePass {
+  static constexpr int BK = 64;  // keys per block
+  static constexpr int BQ = 64;  // query rows per stage
+  static constexpr int STAGES = 2;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int QT_CB = BQ * 128;
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int ROW_BYTES = BQ * 4;
+  static constexpr int XCH = BQ / 4 * WG;  // 32-bit words a buffer
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int X_OFF = DL_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XCH * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && D <= 256, "dK, dV: 256 columns a warpgroup");
+  static_assert(BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dkv_onepass(const __grid_constant__ DkvArgs a) {
+  using namespace hopper;
+  using L = DkvOnePass<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  uint32_t* xbuf = reinterpret_cast<uint32_t*>(smem + L::X_OFF);
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t kv_full = bar, q_full = bar + 8,
+                 q_empty = q_full + 8 * STAGES;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const int hb = a.hkv * a.batch;
+  const int ik = static_cast<int>(blockIdx.x) / hb;
+  const int ikv = static_cast<int>(blockIdx.x) % hb % a.hkv;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.hkv;
+  const int k0 = ik * L::BK;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int nqt = nq - iq0;
+  const int tiles = a.h / a.hkv * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 32);  // the first warp's lanes
+      mbar_init(q_empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {  // K and V, and the first STAGES stages
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      tma_load_5d(base, &a.tk, kv_full, 0, k0, 0, ikv, ib);
+      tma_load_5d(base + L::V_OFF, &a.tv, kv_full, 0, k0, 0, ikv, ib);
+    }
+    for (int j = 0; j < STAGES && j < tiles; ++j)
+      dkv_stage_load<L>(a, base, smem, j, tiles, nqt, iq0, ikv, ib,
+                        threadIdx.x);
+  }
+
+  const int c = threadIdx.x / WG;  // 0: dV, 1: dK
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int key0 = k0 + 16 * w + g, key1 = key0 + 8;
+  // this warpgroup's operands, by address: the score product's A (K or V)
+  // and B (Q or dO), and the accumulated product's B (dO or Q)
+  const uint32_t a_addr = base + c * L::V_OFF;
+  const uint32_t b_off = c * (L::DO_OFF - L::Q_OFF);
+  const uint32_t y_off = (1 - c) * (L::DO_OFF - L::Q_OFF);
+  float acc[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+  bool refill = false;  // the first warp: a stage still to refill
+
+  mbar_wait(kv_full, 0);
+#pragma unroll 1
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % STAGES;
+    const int q0 = (iq0 + n % nqt) * BQ;
+    const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+    const float* dl =
+        reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+    const bool need_mask = (a.causal && q0 < k0 + L::BK) || q0 + BQ > a.sq;
+    mbar_wait(q_full + 8 * s, (n / STAGES) & 1);
+
+    // S^T (warpgroup 0) or dP^T (warpgroup 1): 64 keys x BQ queries
+    float st[BQ / 2];
+    wgmma_fence();
+    wgmma_ss<BQ, D / 16, L::KV_CB, L::QT_CB>(
+        st, desc_sw128(a_addr, 16, 1024),
+        desc_sw128(q_addr + b_off, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    // P^T in dO's dtype, from warpgroup 0's S^T, through the buffer: the
+    // register pair r of the A fragments (dkv_pack's order) is word
+    // r * 128 + t. Warpgroup 1's arithmetic on dP^T here is discarded.
+    uint32_t* buf = xbuf + (n & 1) * L::XCH;
+    {
+      float p[BQ / 2];
+      dkv_probs<BQ>(p, st, ls, a, q0, key0, key1, tq, need_mask);
+      if (c == 0) {
+#pragma unroll
+        for (int r = 0; r < BQ / 4; ++r)
+          buf[r * WG + t] = pack_bf16x2(p[2 * r], p[2 * r + 1]);
+      }
+    }
+    bar_sync(1, 2 * WG);
+    if (refill) {  // past the barrier both warpgroups released stage n - 1
+      mbar_wait(q_empty + 8 * ((n - 1) % STAGES), ((n - 1) / STAGES) & 1);
+      dkv_stage_load<L>(a, base, smem, n - 1 + STAGES, tiles, nqt, iq0, ikv,
+                        ib, t);
+      refill = false;
+    }
+
+    // f = P^T (warpgroup 0) or dS^T = P^T (dP^T - delta), P rounded to
+    // dO's dtype first and dS to Q's by the packing (warpgroup 1)
+    uint32_t f[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t pk = buf[(2 * j + h) * WG + t];
+        const float p0 = __uint_as_float(pk << 16);
+        const float p1 = __uint_as_float(pk & 0xffff0000u);
+        const uint32_t ds = pack_bf16x2(p0 * (st[4 * j + 2 * h] - dj.x),
+                                        p1 * (st[4 * j + 2 * h + 1] - dj.y));
+        f[j / 2][2 * (j % 2) + h] = c == 0 ? pk : ds;
+      }
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+    fence_regs(acc);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(acc, f, q_addr + y_off);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(q_empty + 8 * s);
+    // the first warp loads the stage's next tile: now if the other
+    // warpgroup has released the stage too (lane 0 decides for the warp),
+    // else past the next stage's exchange barrier
+    if (threadIdx.x < 32 && n + STAGES < tiles) {
+      refill = !__shfl_sync(0xffffffffu,
+                            mbar_test(q_empty + 8 * s, (n / STAGES) & 1), 0);
+      if (!refill)
+        dkv_stage_load<L>(a, base, smem, n + STAGES, tiles, nqt, iq0, ikv,
+                          ib, t);
+    }
+  }
+  bf16* out = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
+              ib * (c == 0 ? a.dv_sb : a.dk_sb) +
+              ikv * (c == 0 ? a.dv_sh : a.dk_sh);
+  dkv_store<D>(out, c == 0 ? a.dv_ss : a.dk_ss, acc, c == 0 ? 1.f : a.scale,
+               key0, key1, a.sk, tq);
+}
+
+// K2 on 8 warps: Q and dO (128 rows, resident), the K stages, the V stages
+// and the mbarriers (q_full, kv_full[S], kv_empty[S]).
+template <int D>
+struct DqRows8 {
+  static constexpr int BQ = 128;  // query rows per block: 64 a warpgroup
+  static constexpr int BK = 32;   // keys per K/V stage
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int FIT = (SMEM_MAX - 2048 - 2 * Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && D <= 256, "dQ: 256 columns a warpgroup");
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K and V of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void dq_rows8_load(const DqArgs& a, uint32_t base,
+                                              int i, int ikv, int ib) {
+  using namespace hopper;
+  using L = DqRows8<D>;
+  const int s = i % L::STAGES;
+  const uint32_t full_s = base + L::BAR_OFF + 8 + 8 * s;
+  mbar_arrive_expect_tx(full_s, 2 * L::KV_BYTES);
+  tma_load_5d(base + L::K_OFF + s * L::KV_BYTES, &a.tk, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+  tma_load_5d(base + L::V_OFF + s * L::KV_BYTES, &a.tv, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dq_rows8(const __grid_constant__ DqArgs a) {
+  using namespace hopper;
+  using L = DqRows8<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, kv_full = bar + 8,
+                 kv_empty = kv_full + 8 * STAGES;
+
+  // heaviest query tiles first; neighbouring blocks share a KV head
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = iq * BQ;
+  // the same key tiles for both warpgroups: up to the diagonal of the
+  // block's last row
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {  // Q and dO, and the first STAGES key tiles
+    mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+    tma_load_5d(base, &a.tq, q_full, 0, q0, 0, ih, ib);
+    tma_load_5d(base + L::DO_OFF, &a.tdo, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < STAGES && i < nk; ++i)
+      dq_rows8_load<D>(a, base, i, ikv, ib);
+  }
+  int next = STAGES;  // thread 0: the next key tile to load
+
+  const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + c * 64 * 128;
+  const uint32_t do_addr = base + L::DO_OFF + c * 64 * 128;
+
+  // rows past sq read lse = delta = 0 (and Q = dO = 0): dS = 0 there, and
+  // those rows are not written
+  const int64_t rows = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  const float ls0 = row0 < a.sq ? a.lse[rows + row0] * kLog2e : 0.f;
+  const float ls1 = row1 < a.sq ? a.lse[rows + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < a.sq ? a.delta[rows + row0] : 0.f;
+  const float dl1 = row1 < a.sq ? a.delta[rows + row1] : 0.f;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+    // thread 0 refills each stage that both warpgroups have released
+    // (tile `next` reuses the stage of tile next - STAGES, which this
+    // warpgroup released if next - STAGES < i), testing without waiting;
+    // it waits only when the tile is due now
+    if (threadIdx.x == 0) {
+      for (; next < nk && next < i + STAGES; ++next) {
+        const uint32_t e = kv_empty + 8 * (next % STAGES);
+        const uint32_t par = ((next - STAGES) / STAGES) & 1;
+        if (next > i && !mbar_test(e, par)) break;
+        mbar_wait(e, par);
+        dq_rows8_load<D>(a, base, next, ikv, ib);
+      }
+    }
+
+    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each
+    float sc[BK / 2], dp[BK / 2];
+    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) with P = exp2(S scale log2e - lse log2e) in f32,
+    // in place in sc; P = 0 past sk and (causal) after the row
+    const bool need_mask = (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(sc[4 * j + e], a.scale_log2,
+                                 -(e < 2 ? ls0 : ls1)));
+        if (need_mask) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          if (col >= a.sk || (a.causal && col > (e < 2 ? row0 : row1)))
+            p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // dQ += dS K
+    fence_regs(dq);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(dq, f, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(kv_empty + 8 * s);
+  }
+  store_cols<D>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
+                a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
 }
 
 // ------------------------------------------------ f32: CUDA cores
@@ -1415,21 +1826,23 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run_dq_split(const Params& p, int batch, cudaStream_t stream) {
-  using L = DqSplit<D>;
-  DqSplitArgs a;  // whole-tile 5-D maps (hopper::tmap_bf16_tile)
+// The tensor maps and arguments K2 takes, for each bf16 design: Q and dO
+// in boxes of BQ rows, K and V in boxes of BK keys; one column block a box
+// (dq_wgmma), or with TILE whole tiles (hopper::tmap_bf16_tile, dq_rows8
+// and dq_split).
+template <int BQ, int BK, bool TILE>
+cudaError_t dq_args(DqArgs& a, const Params& p, int batch, int d) {
+  const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
   const int64_t(&st)[NSTRIDE][3] = p.st;
   cudaError_t err;
-  if ((err = hopper::tmap_bf16_tile(&a.tq, p.q, D, p.sq, p.h, batch,
-                                    st[Q][2], st[Q][1], st[Q][0], L::BQ)) ||
-      (err = hopper::tmap_bf16_tile(&a.tdo, p.dout, D, p.sq, p.h, batch,
-                                    st[DO][2], st[DO][1], st[DO][0],
-                                    L::BQ)) ||
-      (err = hopper::tmap_bf16_tile(&a.tk, p.k, D, p.sk, p.hkv, batch,
-                                    st[K][2], st[K][1], st[K][0], L::BK)) ||
-      (err = hopper::tmap_bf16_tile(&a.tv, p.v, D, p.sk, p.hkv, batch,
-                                    st[V][2], st[V][1], st[V][0], L::BK)))
+  if ((err = map(&a.tq, p.q, d, p.sq, p.h, batch, st[Q][2], st[Q][1],
+                 st[Q][0], BQ)) ||
+      (err = map(&a.tdo, p.dout, d, p.sq, p.h, batch, st[DO][2], st[DO][1],
+                 st[DO][0], BQ)) ||
+      (err = map(&a.tk, p.k, d, p.sk, p.hkv, batch, st[K][2], st[K][1],
+                 st[K][0], BK)) ||
+      (err = map(&a.tv, p.v, d, p.sk, p.hkv, batch, st[V][2], st[V][1],
+                 st[V][0], BK)))
     return err;
   a.lse = p.lse;
   a.delta = p.delta;
@@ -1443,48 +1856,36 @@ cudaError_t run_dq_split(const Params& p, int batch, cudaStream_t stream) {
   a.sq = p.sq;
   a.sk = p.sk;
   a.causal = p.causal;
-  a.nq = (p.sq + L::BQ - 1) / L::BQ;
+  a.nq = (p.sq + BQ - 1) / BQ;
   a.scale = p.scale;
   a.scale_log2 = p.scale * hopper::kLog2e;
-  return hopper::launch(dq_split<D>, a.nq * p.h * batch, SPLIT_THREADS,
-                        L::BYTES, stream, a);
+  return cudaSuccess;
 }
 
 template <int D>
 cudaError_t run_dq(const Params& p, int batch, int bf16_in,
                    cudaStream_t stream) {
-  if constexpr (D >= kDqSplitFrom) {
-    if (bf16_in) return run_dq_split<D>(p, batch, stream);
-  } else if (bf16_in) {
+  if (bf16_in) {
     DqArgs a;
-    const int64_t(&st)[NSTRIDE][3] = p.st;
-    cudaError_t err;
-    if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, st[Q][2],
-                                 st[Q][1], st[Q][0], DQ_BQ)) ||
-        (err = hopper::tmap_bf16(&a.tdo, p.dout, D, p.sq, p.h, batch,
-                                 st[DO][2], st[DO][1], st[DO][0], DQ_BQ)) ||
-        (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, st[K][2],
-                                 st[K][1], st[K][0], DqSmem<D>::DQ_BK)) ||
-        (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, st[V][2],
-                                 st[V][1], st[V][0], DqSmem<D>::DQ_BK)))
-      return err;
-    a.lse = p.lse;
-    a.delta = p.delta;
-    a.dq = p.dq;
-    a.dq_sb = st[DQ][0];
-    a.dq_sh = st[DQ][1];
-    a.dq_ss = st[DQ][2];
-    a.h = p.h;
-    a.hkv = p.hkv;
-    a.batch = batch;
-    a.sq = p.sq;
-    a.sk = p.sk;
-    a.causal = p.causal;
-    a.nq = (p.sq + DQ_BQ - 1) / DQ_BQ;
-    a.scale = p.scale;
-    a.scale_log2 = p.scale * hopper::kLog2e;
-    return hopper::launch(dq_wgmma<D>, a.nq * p.h * batch, DQ_THREADS,
-                          DqSmem<D>::BYTES, stream, a);
+    if constexpr (dq_design(D) == kDSplit) {
+      using L = DqSplit<D>;
+      if (cudaError_t err = dq_args<L::BQ, L::BK, true>(a, p, batch, D))
+        return err;
+      return hopper::launch(dq_split<D>, a.nq * p.h * batch, SPLIT_THREADS,
+                            L::BYTES, stream, a);
+    } else if constexpr (dq_design(D) == kRows8) {
+      using L = DqRows8<D>;
+      if (cudaError_t err = dq_args<L::BQ, L::BK, true>(a, p, batch, D))
+        return err;
+      return hopper::launch(dq_rows8<D>, a.nq * p.h * batch, SPLIT_THREADS,
+                            L::BYTES, stream, a);
+    } else {
+      if (cudaError_t err =
+              dq_args<DQ_BQ, DqSmem<D>::DQ_BK, false>(a, p, batch, D))
+        return err;
+      return hopper::launch(dq_wgmma<D>, a.nq * p.h * batch, DQ_THREADS,
+                            DqSmem<D>::BYTES, stream, a);
+    }
   }
   constexpr int BK = f32_tile(D);
   const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
@@ -1494,10 +1895,10 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in,
   return launch(dq_f32<D>, grid, SC_THREADS, smem, stream, p);
 }
 
-// The tensor maps and arguments K3 takes, for both bf16 designs: Q and dO
+// The tensor maps and arguments K3 takes, for each bf16 design: Q and dO
 // in boxes of BQ rows, K and V in boxes of BK keys; one column block a box
 // (dkv_wgmma), or with TILE whole tiles (hopper::tmap_bf16_tile,
-// dkv_split).
+// dkv_onepass and dkv_split).
 template <int BQ, int BK, bool TILE>
 cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
   const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
@@ -1534,29 +1935,30 @@ cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
 }
 
 template <int D>
-cudaError_t run_dkv_split(const Params& p, int batch, cudaStream_t stream) {
-  using L = DkvSplit<D>;
-  DkvArgs a;
-  if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(a, p, batch, D))
-    return err;
-  const int blocks = (p.sk + L::BK - 1) / L::BK * p.hkv * batch;
-  return hopper::launch(dkv_split<D>, blocks, SPLIT_THREADS, L::BYTES,
-                        stream, a);
-}
-
-template <int D>
 cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
                     cudaStream_t stream) {
-  if constexpr (D >= kDkvSplitFrom) {
-    if (bf16_in) return run_dkv_split<D>(p, batch, stream);
-  } else if (bf16_in) {
+  if (bf16_in) {
     DkvArgs a;
-    if (cudaError_t err =
-            dkv_args<DkvSmem<D>::BQ, DKV_BK, false>(a, p, batch, D))
-      return err;
-    const int blocks = (p.sk + DKV_BK - 1) / DKV_BK * p.hkv * batch;
-    return hopper::launch(dkv_wgmma<D>, blocks, DKV_THREADS,
-                          DkvSmem<D>::BYTES, stream, a);
+    if constexpr (dkv_design(D) == kDSplit || dkv_design(D) == kOnePass) {
+      using L = std::conditional_t<dkv_design(D) == kDSplit, DkvSplit<D>,
+                                   DkvOnePass<D>>;
+      if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(a, p, batch, D))
+        return err;
+      const int blocks = (p.sk + L::BK - 1) / L::BK * p.hkv * batch;
+      if constexpr (dkv_design(D) == kDSplit)
+        return hopper::launch(dkv_split<D>, blocks, SPLIT_THREADS, L::BYTES,
+                              stream, a);
+      else
+        return hopper::launch(dkv_onepass<D>, blocks, SPLIT_THREADS,
+                              L::BYTES, stream, a);
+    } else {
+      if (cudaError_t err =
+              dkv_args<DkvSmem<D>::BQ, DKV_BK, false>(a, p, batch, D))
+        return err;
+      const int blocks = (p.sk + DKV_BK - 1) / DKV_BK * p.hkv * batch;
+      return hopper::launch(dkv_wgmma<D>, blocks, DKV_THREADS,
+                            DkvSmem<D>::BYTES, stream, a);
+    }
   }
   constexpr int BQ = f32_tile(D);
   const dim3 grid((p.sk + SC_BK - 1) / SC_BK * (D / f32_cols(D)), p.hkv,
@@ -1638,7 +2040,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The smallest head dims whose bf16 inputs take dq_split and dkv_split
+// The design (BwdDesign) K2 and K3 run for bf16 inputs of head dim d
 // (chip_smoke.py labels its d 256 timings by them).
-extern "C" int flash_bwd_dq_split_from() { return kDqSplitFrom; }
-extern "C" int flash_bwd_dkv_split_from() { return kDkvSplitFrom; }
+extern "C" int flash_bwd_dq_design(int d) { return dq_design(d); }
+extern "C" int flash_bwd_dkv_design(int d) { return dkv_design(d); }

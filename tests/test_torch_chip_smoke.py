@@ -195,8 +195,8 @@ def test_kernel_only_head_settings():
     """Phase 3 checks and times K1, K2 and K3 at every head dim the split
     kernels take (d 320 and 448 with no model, 4 / 2 heads), and at d 256
     under both designs; the d 512 kernels line carries the kernel-only
-    dims; the profile groups and the d 256 design labels name the split
-    kernels and their thresholds."""
+    dims; the profile groups name the split kernels, and the d 256 design
+    labels come from K1's threshold and K2's and K3's design functions."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -211,12 +211,133 @@ def test_kernel_only_head_settings():
         assert kernel in chip_smoke.PROFILE_KERNELS
     src = {name: (CSRC / f"{name}.cu").read_text()
            for name in chip_smoke.KERNEL_SOURCES}
-    for name, fn in (("flash_fwd", "flash_fwd_split_from"),
-                     ("flash_bwd", "flash_bwd_dq_split_from"),
-                     ("flash_bwd", "flash_bwd_dkv_split_from")):
-        assert f'extern "C" int {fn}()' in src[name]
+    for name, fn in (("flash_fwd", "flash_fwd_split_from()"),
+                     ("flash_bwd", "flash_bwd_dq_design(int d)"),
+                     ("flash_bwd", "flash_bwd_dkv_design(int d)")):
+        assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
         assert "#ifndef FLASH_OTHER_D256" in text
+
+
+def _bwd_designs():
+    """csrc/flash_bwd.cu's BwdDesign enum, read as text: {name: id}."""
+    text = (CSRC / "flash_bwd.cu").read_text()
+    body = re.search(r"enum BwdDesign \{([^}]*)\}", text).group(1)
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"(\w+) = (\d+)", body)}
+
+
+def test_bwd_design_labels_name_every_design():
+    """chip_smoke.py labels each id K2's and K3's design functions can
+    return, and no other; ``design_names`` reads K1's threshold and K2's
+    and K3's ids: at d 256 the 8-warp designs ship, and a build with
+    -DFLASH_OTHER_D256=1 runs PR 10's row split there (K1: the D split)."""
+    ids = _bwd_designs()
+    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3}
+    assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
+    assert len(set(chip_smoke.BWD_DESIGNS.values())) == len(ids)
+
+    class Fwd:
+        def __init__(self, other):
+            self.flash_fwd_split_from = lambda: 256 if other else 320
+
+    class Bwd:
+        def __init__(self, other):
+            row8, one = ((ids["kRowSplit"],) * 2 if other
+                         else (ids["kRows8"], ids["kOnePass"]))
+            self.flash_bwd_dq_design = lambda d: (
+                ids["kRowSplit"] if d <= 192 else row8 if d == 256
+                else ids["kDSplit"])
+            self.flash_bwd_dkv_design = lambda d: (
+                ids["kRowSplit"] if d <= 192 else one if d == 256
+                else ids["kDSplit"])
+
+    shipped = chip_smoke.design_names(Fwd(False), Bwd(False), 256)
+    other = chip_smoke.design_names(Fwd(True), Bwd(True), 256)
+    assert shipped == {"flash_fwd": "row split",
+                       "flash_bwd_dq": "rows on 8 warps",
+                       "flash_bwd_dkv": "one pass"}
+    assert other == {"flash_fwd": "D split", "flash_bwd_dq": "row split",
+                     "flash_bwd_dkv": "row split"}
+    assert chip_smoke.design_names(Fwd(False), Bwd(False), 512) == {
+        "flash_fwd": "D split", "flash_bwd_dq": "D split",
+        "flash_bwd_dkv": "D split"}
+    # the design functions follow the same rule in the source
+    text = (CSRC / "flash_bwd.cu").read_text()
+    assert "FLASH_OTHER_D256 ? kRowSplit : kRows8" in text
+    assert "FLASH_OTHER_D256 ? kRowSplit : kOnePass" in text
+
+
+def test_wide_entries_carry_designs_and_pair():
+    """The wide head dims' ``kernels`` entries: every key the line's
+    contract names, launches summed over phase 12's paths; at d 256 the
+    designs timed in turns, and K2's and K3's the pair's sum beside SDPA's
+    backward; the kernel-only dims under d 512."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share")
+    labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
+    numbers = {}
+    for name in chip_smoke.KERNELS:
+        numbers[name] = {"wide": {}}
+        for i, label in enumerate(labels):
+            n = {key: float(i + 1) for key in keys}
+            if name != "flash_fwd":
+                n["pair_ms"] = 2.0 * (i + 1)
+            numbers[name]["wide"][label] = n
+    wide = {d: {"training": {name: 20 for name in chip_smoke.KERNELS},
+                "serving": {name: 0 for name in chip_smoke.KERNELS}}
+            for _, _, d in chip_smoke.WIDE_HEADS.values()}
+    d256 = {name: {"shipped_ms": 1.0, "other_ms": 2.0}
+            for name in chip_smoke.KERNELS}
+    entries = chip_smoke.wide_kernel_entries(numbers, wide, d256)
+    assert len(entries) == len(chip_smoke.WIDE_HEADS) * len(
+        chip_smoke.KERNELS)
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    for entry in entries:
+        assert contract <= set(entry)
+        assert entry["route"] == "cuda" and entry["launches"] == 20
+        d = int(entry["name"].rsplit("d", 1)[1])
+        kernel = entry["name"].split()[0]
+        assert ("designs_in_turns" in entry) == (d == 256)
+        assert ("pair_ms" in entry) == (kernel != "flash_fwd")
+        assert ("more_shapes" in entry) == (d == 512)
+        if d == 256:
+            assert entry["designs_in_turns"] is d256[kernel]
+        if d == 512:
+            assert set(entry["more_shapes"]) == set(
+                chip_smoke.KERNEL_ONLY_HEADS)
+
+
+def test_ptxas_summary_reads_registers_spills_and_notes():
+    """phase_build's one line per d 256 kernel: registers, spill stores
+    and the C75xx notes, from ptxas's report (a C7512 note comes before
+    the entry function it names)."""
+    k2 = ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd288dq_wgmmaILi256"
+          "EEEvNS_6DqArgsE")
+    k3 = ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd2811dkv_onepassILi"
+          "256EEEvNS_7DkvArgsE")
+    text = "\n".join([
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register resources "
+        f"for the function '{k2}'",
+        f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 219 registers, used 2 barriers",
+        f"ptxas info    : Compiling entry function '{k2}' for 'sm_90a'",
+        "    136 bytes stack frame, 140 bytes spill stores, 136 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 136 bytes "
+        "cumulative stack size"])
+    got = chip_smoke.ptxas_summary(text)
+    assert got[k3] == {"registers": 219, "spill_stores": 0, "notes": []}
+    assert got[k2] == {"registers": 168, "spill_stores": 140,
+                       "notes": ["C7512"]}
+    assert chip_smoke._template_name(k3, 256) == "dkv_onepass"
+    assert chip_smoke._template_name(k2, 256) == "dq_wgmma"
+    assert chip_smoke._template_name(k2, 128) is None
 
 
 def test_sdpa_backend_names_a_backend():

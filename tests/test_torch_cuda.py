@@ -64,6 +64,15 @@ SHAPES = [
     (2, 256, 4, 1, 256, False),
     (8, 2048, 8, 4, 192, True),
     (8, 2048, 6, 2, 256, True),
+    # d 256's K3 blocks of 64 keys and K2 blocks of 128 rows (dkv_onepass,
+    # dq_rows8): ragged ends inside and one past a block, GQA group 4,
+    # non-causal
+    (2, 65, 6, 2, 256, True),
+    (2, 127, 6, 2, 256, True),
+    (2, 191, 6, 2, 256, True),
+    (1, 2047, 6, 2, 256, True),
+    (2, 300, 8, 2, 256, True),
+    (2, 512, 6, 2, 256, False),
     # the split kernels' head dims (each consumer warpgroup owns part of
     # the output's columns): ragged (s 1000, 2047, 300, 129), one row, GQA
     # groups 1 to 3, non-causal, and bench_800m's training shape cut into
@@ -171,13 +180,15 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128),
                                          (2, 300, 4, 2, 256),
+                                         (2, 300, 8, 2, 256),
                                          (8, 2048, 6, 2, 256),
                                          (2, 300, 3, 1, 512),
                                          (8, 2048, 3, 1, 512)])
 def test_flash_bwd_kernel_is_deterministic(cuda, kernel, b, s, h, hkv, d):
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
-    launches give the same bits."""
+    launches give the same bits (at d 256 the shipped dq_rows8 and
+    dkv_onepass, whose warpgroups exchange P^T through shared memory)."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )

@@ -23,12 +23,13 @@ no network. Phases, each of which raises on failure:
    256, 192, 512 and 384 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1 and 4 / 2
    heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
    SDPA (its backend named: its flash backend stops at d 256), in f32 at
-   s 1000 too, with K1 also at its per-length prefill; K2 and K3 at
-   d 256 also at ragged lengths (s 65, 127, 191, 2047; group 4 at s 300;
-   non-causal s 512); at d 256 the design not shipped there (K1: the D
-   split; K2 and K3: PR 10's 12-warp row split) against the plain
-   versions and timed in turns with the shipped one, the K2 + K3 pair
-   beside SDPA's backward;
+   s 1000 too, with K1 also at its per-length prefill; K1 at d 192 and
+   256 and K2 and K3 at d 256 also at ragged lengths (s 1 (K1), 65, 127,
+   191, 2047; group 4 at s 300; non-causal s 512); the design not shipped
+   there (K1 at d 192: the rows on 8 warps; K1 at d 256 and K2 and K3:
+   PR 10's 12-warp row split) against the plain versions and timed in
+   turns with the shipped one (K1 also at d 256's prefill shape), the
+   K2 + K3 pair beside SDPA's backward;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -166,18 +167,24 @@ KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
 # substring of the profiler's kernel name) and its label
 PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_wgmma": "K3 dkv",
+                   "flash_fwd_rows8": "K1 flash_fwd (8 warps, d 256)",
                    "dq_rows8": "K2 dq (8 warps, d 256)",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
                    "dkv_split": "K3 dkv (D split)"}
-# K2's and K3's bf16 designs by the id flash_bwd_dq_design and
+# K1's bf16 designs by the id flash_fwd_design returns (csrc/flash_fwd.cu's
+# FwdDesign), K2's and K3's by the id flash_bwd_dq_design and
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
+FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass"}
-# the other design at d 256 (phase 3 times it beside the shipped one in
-# turns): every kernel source built with -DFLASH_OTHER_D256=1 into here
-OTHER_D256_DIR = ROOT / "build" / "chip_smoke_other_d256"
+# the other designs (K1 at d 192 and 256, K2 and K3 at d 256; phase 3 times
+# them beside the shipped ones in turns): every kernel source built with
+# -DFLASH_OTHER_WIDE=1 into here
+OTHER_WIDE_DIR = ROOT / "build" / "chip_smoke_other_wide"
+# the head dims at which some kernel ships one of two designs
+DESIGN_DIMS = (192, 256)
 
 # serving path: bench_800m, batch 4, a 1000-token prompt, 64 new tokens
 PRESET, BATCH, PROMPT, NEW = "bench_800m", 4, 1000, 64
@@ -409,8 +416,8 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
-    port builds it, and with the other design at d 256 (phase 3 times
-    both)."""
+    port builds it, and with the other designs at d 192 and 256 (phase 3
+    times both)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
@@ -419,10 +426,10 @@ def phase_build() -> None:
     with ThreadPoolExecutor(2 * len(KERNEL_SOURCES)) as pool:
         # map submits every build at once; the lists wait for them
         built = pool.map(_build.build, KERNEL_SOURCES)
-        other = pool.map(_build_other_d256, KERNEL_SOURCES)
+        other = pool.map(_build_other_wide, KERNEL_SOURCES)
         libs, others = list(built), list(other)
     _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
-         f"design at d 256, in {time.perf_counter() - t0:.1f} s")
+         f"designs at d 192 and 256, in {time.perf_counter() - t0:.1f} s")
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
@@ -431,18 +438,19 @@ def phase_build() -> None:
                 if any(w in line for w in ("entry function", "registers",
                                            "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
-    # the d 256 kernels of both designs, in one line each
+    # the d 192 and 256 kernels of both designs, in one line each
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if not log.exists():
             continue
         for fn, n in ptxas_summary(log.read_text()).items():
-            kernel = _template_name(fn, 256)
-            if kernel:
-                _log(f"ptxas {kernel}<256> ({lib.parent.name}): "
-                     f"{n['registers']} registers, {n['spill_stores']} bytes "
-                     f"of spill stores, C75xx: "
-                     f"{', '.join(n['notes']) or 'none'}")
+            for d in DESIGN_DIMS:
+                kernel = _template_name(fn, d)
+                if kernel:
+                    _log(f"ptxas {kernel}<{d}> ({lib.parent.name}): "
+                         f"{n['registers']} registers, {n['spill_stores']} "
+                         f"bytes of spill stores, C75xx: "
+                         f"{', '.join(n['notes']) or 'none'}")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -484,22 +492,22 @@ def _template_name(mangled: str, d: int) -> str | None:
     return None
 
 
-def _build_other_d256(name: str) -> Path:
-    """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_D256=1`` (at d 256 each
-    kernel takes the design the port does not ship there) into
-    OTHER_D256_DIR, with ``ops/_build.py``'s flags; its ptxas report
-    beside it."""
+def _build_other_wide(name: str) -> Path:
+    """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_WIDE=1`` (at d 192 and
+    256 each kernel that ships one of two designs takes the one the port
+    does not ship there) into OTHER_WIDE_DIR, with ``ops/_build.py``'s
+    flags; its ptxas report beside it."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
-    OTHER_D256_DIR.mkdir(parents=True, exist_ok=True)
-    out = OTHER_D256_DIR / f"lib{name}.so"
+    OTHER_WIDE_DIR.mkdir(parents=True, exist_ok=True)
+    out = OTHER_WIDE_DIR / f"lib{name}.so"
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_OTHER_D256=1", "-o",
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_OTHER_WIDE=1", "-o",
          str(out), str(_build.CSRC / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu with "
-                           f"-DFLASH_OTHER_D256=1:\n{proc.stdout}"
+                           f"-DFLASH_OTHER_WIDE=1:\n{proc.stdout}"
                            f"{proc.stderr}")
     out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
     return out
@@ -614,6 +622,17 @@ def phase_kernels() -> dict:
           for name, (h, hkv, d) in _kernel_heads().items()),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False, True),
+        # K1's 128-row blocks at d 192 (64-key tiles) and d 256 (80-key
+        # tiles, flash_fwd_rows8) at ragged ends, GQA group 4 and
+        # non-causal
+        *((f"d{d} s{s} bf16", 2 if s < 2047 else 1, s, h, hkv, d,
+           torch.bfloat16, True, False)
+          for h, hkv, d in ((6, 2, 256), (8, 4, 192))
+          for s in (1, 65, 127, 191, 2047)),
+        ("d256 gqa4 s300 bf16", 2, 300, 8, 2, 256, torch.bfloat16, True,
+         False),
+        *((f"d{d} non-causal s512 bf16", 2, 512, h, hkv, d, torch.bfloat16,
+           False, False) for h, hkv, d in ((6, 2, 256), (8, 4, 192))),
     ]
     worst = 0.0
     # the largest error of the bf16 cases at each wide head dim
@@ -703,8 +722,8 @@ def phase_kernels() -> dict:
         for name, d in FT_HEAD_DIMS}
     ft.update(f32)
     # the wide head dims at the training shape (flash_fwd_wgmma<192>,
-    # <256> and flash_fwd_split<320> to <512>: the build's ptxas lines above
-    # give their registers and spills)
+    # flash_fwd_rows8<256> and flash_fwd_split<320> to <512>: the build's
+    # ptxas lines above give their registers and spills)
     wide = {name: dict(
         _time_k1(name, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, gen),
         max_abs_err=worst_wide[d],
@@ -1047,22 +1066,26 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
     return out
 
 
-def phase_d256_designs() -> dict:
-    """At d 256 each of K1, K2 and K3 has two designs. K1: the row split
-    (flash_fwd_wgmma: 128 rows a block, 64 a consumer) and the D split
-    (flash_fwd_split: 64 a block, the output's columns split between the
-    consumers). K2 and K3: PR 10's row split (dq_wgmma, dkv_wgmma: 12-warp
-    blocks with a producer warpgroup, K3 in two passes) and the 8-warp
-    designs (dq_rows8: the same rows without the producer; dkv_onepass:
-    64 keys a block, dV on one warpgroup and dK on the other, one pass).
-    The port ships, per kernel, the one its sources name
-    (``flash_fwd_split_from``, ``flash_bwd_dq_design``,
-    ``flash_bwd_dkv_design`` in each library); the other is built with
-    -DFLASH_OTHER_D256=1 (phase 2). The other design is held against the
-    plain versions at phase 12's d 256 training shape (K2 and K3 also
-    twice on one input, bitwise), then both are timed in turns on the same
-    inputs (shipped, other, other, shipped), K2 + K3 as a pair too.
-    Returns {kernel: numbers}."""
+def phase_wide_designs() -> dict:
+    """At d 192 and 256 three kernels have two designs each. K1 at both:
+    PR 10's row split (flash_fwd_wgmma: 12-warp blocks of 128 rows, 64 a
+    consumer, a producer warpgroup) and the rows on 8 warps
+    (flash_fwd_rows8: the same rows without the producer, 80- or 96-key
+    tiles, the two warpgroups taking turns at the tensor cores). K2 and K3
+    at d 256: PR 10's row split (dq_wgmma, dkv_wgmma: 12-warp blocks with a
+    producer warpgroup, K3 in two passes) and the 8-warp designs
+    (dq_rows8: the same rows without the producer; dkv_onepass: 64 keys a
+    block, dV on one warpgroup and dK on the other, one pass). The port
+    ships, per kernel and head dim, the one its sources name
+    (``flash_fwd_design``, ``flash_bwd_dq_design``, ``flash_bwd_dkv_design``
+    in each library); the other is built with -DFLASH_OTHER_WIDE=1 (phase
+    2). At phase 12's
+    training shape of each head dim (and for K1 at d 256 also at its
+    per-length prefill, b 4 s 1000) the other design is held against the
+    plain versions (K2 and K3 also twice on one input, bitwise), then both
+    are timed in turns on the same inputs (shipped, other, other,
+    shipped), K2 + K3 as a pair too. Returns {head dim: {kernel:
+    numbers}}, K1's prefill numbers under ``"prefill"``."""
     import ctypes
 
     from service_account_auth_improvements_tpu_torch.ops import (
@@ -1072,54 +1095,125 @@ def phase_d256_designs() -> dict:
         flash_attention as fa,
     )
 
-    h, hkv, d = WIDE_HEADS["bench_800m_d256"]
-    b, s, dtype = TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16
+    dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(5)
+    libs = {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
+            "other": {n: ctypes.CDLL(str(OTHER_WIDE_DIR / f"lib{n}.so"))
+                      for n in KERNEL_SOURCES}}
+    named = {d: {which: design_names(libs[which]["flash_fwd"],
+                                     libs[which]["flash_bwd"], d)
+                 for which in libs}
+             for d in DESIGN_DIMS}
+
+    def k1(q, k, v):
+        return {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
+                              lambda: fa.flash_fwd_reference(q, k, v, True),
+                              [TOL[dtype], (LSE_ATOL, 0.0)])}
+
+    out = {}
+    # d 256: all three kernels at the training shape, K1 at the prefill's
+    h, hkv, d = WIDE_HEADS["bench_800m_d256"]
+    b, s = TRAIN_BATCH, TRAIN_SEQ
     q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
     delta = fa.flash_bwd_delta(o, do)
-    libs = {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
-            "other": {n: ctypes.CDLL(str(OTHER_D256_DIR / f"lib{n}.so"))
-                      for n in KERNEL_SOURCES}}
-
-    named = {which: design_names(libs[which]["flash_fwd"],
-                                 libs[which]["flash_bwd"], d)
-             for which in libs}
     calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True)[0],
-                      lambda: fa.flash_fwd_reference(q, k, v, True)[0],
-                      TOL[dtype]),
+        **k1(q, k, v),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                              True), BWD_TOL[dtype]),
+            lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
+            lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               True),),
+            [BWD_TOL[dtype]]),
         "flash_bwd_dkv": (
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
             lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               True), BWD_TOL[dtype]),
+                                               True), [BWD_TOL[dtype]] * 2),
     }
+    shape = f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"
+    out[d] = _in_turns(libs, named[d], calls, shape)
+    # K2 + K3: what SDPA's one backward call computes
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
+    pair = {which: sum(out[d][name][f"{which}_ms"]
+                       for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+            for which in ("shipped", "other")}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        out[d][name].update(shipped_pair_ms=pair["shipped"],
+                            other_pair_ms=pair["other"],
+                            library_ms=lib_ms)
+    _log(f"time d{d} designs K2 + K3 {shape}, in turns: shipped "
+         f"{pair['shipped']:.4f} ms, other {pair['other']:.4f} ms, sdpa "
+         f"backward {lib_ms:.4f} ms")
+    del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
+    torch.cuda.empty_cache()
+    q, k, v = (t.transpose(1, 2)
+               for t in _qkv(BATCH, PROMPT, h, hkv, d, dtype, gen))
+    out[d]["flash_fwd"]["prefill"] = _in_turns(
+        libs, named[d], k1(q, k, v),
+        f"b{BATCH} s{PROMPT} h{h} hkv{hkv} d{d} bf16 causal")["flash_fwd"]
+    # d 192: K1 at the training shape
+    h, hkv, d = WIDE_HEADS["bench_800m_d192"]
+    q, k, v = (t.transpose(1, 2) for t in _qkv(b, s, h, hkv, d, dtype, gen))
+    out[d] = _in_turns(libs, named[d], k1(q, k, v),
+                       f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal")
+    del q, k, v
+    torch.cuda.empty_cache()
+    # K1's other design at both dims at ragged lengths and non-causal too
+    # (phase 3 holds the shipped one there)
+    try:
+        _build._libs.update(libs["other"])
+        for h, hkv, d in (WIDE_HEADS["bench_800m_d192"],
+                          WIDE_HEADS["bench_800m_d256"]):
+            for b, s, causal in ((2, 1, True), (2, 65, True), (2, 191, True),
+                                 (1, 2047, True), (2, 512, False)):
+                q, k, v = (t.transpose(1, 2)
+                           for t in _qkv(b, s, h, hkv, d, dtype, gen))
+                (o, lse), (wo, wl) = (fa.flash_fwd(q, k, v, causal),
+                                      fa.flash_fwd_reference(q, k, v, causal))
+                torch.cuda.synchronize()
+                name = (f"d{d} {named[d]['other']['flash_fwd']} (the design "
+                        f"not shipped) b{b} s{s} causal {causal}")
+                err = _check(name, o, wo, *TOL[dtype])
+                lerr = _check(name + " lse", lse, wl, LSE_ATOL, 0.0)
+                _log(f"kernel {name}: max abs err {err:.3e}, lse "
+                     f"{lerr:.3e}")
+                out[d]["flash_fwd"]["other_max_abs_err"] = max(
+                    out[d]["flash_fwd"]["other_max_abs_err"], err)
+    finally:
+        _build._libs.update(libs["shipped"])
+    return out
+
+
+def _in_turns(libs, named, calls, shape: str) -> dict:
+    """Each kernel of ``calls`` ({name: (kernel call, plain call,
+    [(atol, rtol)] per output)}, each call returning a tuple) through the
+    other design's library against its plain version (K2 and K3 also
+    twice, bitwise), then timed in turns through the shipped and the other
+    library: {name: {"other_max_abs_err", "shipped_design", "shipped_ms",
+    "other_design", "other_ms", "shape"}}."""
+    from service_account_auth_improvements_tpu_torch.ops import _build
+
     out = {}
     try:
         _build._libs.update(libs["other"])
-        for name, (kern, plain, (atol, rtol)) in calls.items():
+        for name, (kern, plain, tols) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            pairs = list(zip(got, want)) if isinstance(got, tuple) else [
-                (got, want)]
-            err = max(_check(f"d256 {named['other'][name]} {name}", g, w,
-                             atol, rtol) for g, w in pairs)
+            err = max(_check(f"{shape} {named['other'][name]} {name}", g, w,
+                             *tol) for g, w, tol in zip(got, want, tols))
             if name != "flash_fwd":
                 again = kern()
                 torch.cuda.synchronize()
-                same = all(torch.equal(x, y) for x, y in zip(
-                    got if isinstance(got, tuple) else (got,),
-                    again if isinstance(again, tuple) else (again,)))
-                if not same:
-                    raise AssertionError(f"d256 {named['other'][name]} "
+                if not all(map(torch.equal, got, again)):
+                    raise AssertionError(f"{shape} {named['other'][name]} "
                                          f"{name} is not deterministic")
-            _log(f"kernel d256 {named['other'][name]} (the design not "
-                 f"shipped at d 256) {name}: max abs err {err:.3e} (atol "
-                 f"{atol}, rtol {rtol})")
-            out[name] = dict(other_max_abs_err=err)
+                del again
+            _log(f"kernel {shape} {named['other'][name]} (the design not "
+                 f"shipped) {name}: max abs err {err:.3e} (tolerances "
+                 f"{tols})")
+            out[name] = dict(other_max_abs_err=err, shape=shape)
             del got, want
         times = {name: {"shipped": [], "other": []} for name in calls}
         for which in ("shipped", "other", "other", "shipped"):
@@ -1135,39 +1229,20 @@ def phase_d256_designs() -> dict:
                          shipped_ms=shipped_ms,
                          other_design=named["other"][name],
                          other_ms=other_ms)
-        _log(f"time d256 designs {name} b{b} s{s} h{h} hkv{hkv} bf16 causal, "
-             f"in turns: shipped ({named['shipped'][name]}) "
-             f"{shipped_ms:.4f} ms {[round(x, 4) for x in t['shipped']]}, "
-             f"other ({named['other'][name]}) {other_ms:.4f} ms "
+        _log(f"time designs {name} {shape}, in turns: shipped "
+             f"({named['shipped'][name]}) {shipped_ms:.4f} ms "
+             f"{[round(x, 4) for x in t['shipped']]}, other "
+             f"({named['other'][name]}) {other_ms:.4f} ms "
              f"{[round(x, 4) for x in t['other']]}")
-    # K2 + K3: what SDPA's one backward call computes
-    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    so = torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True, enable_gqa=True)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(
-        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
-    pair = {which: sum(out[name][f"{which}_ms"]
-                       for name in ("flash_bwd_dq", "flash_bwd_dkv"))
-            for which in ("shipped", "other")}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        out[name].update(shipped_pair_ms=pair["shipped"],
-                         other_pair_ms=pair["other"],
-                         library_ms=lib_ms)
-    _log(f"time d256 designs K2 + K3 b{b} s{s} h{h} hkv{hkv} bf16 causal, in "
-         f"turns: shipped {pair['shipped']:.4f} ms, other "
-         f"{pair['other']:.4f} ms, sdpa backward {lib_ms:.4f} ms")
-    del q, k, v, do, o, lse, delta, sq, sk, sv, so
-    torch.cuda.empty_cache()
     return out
 
 
 def design_names(fwd, bwd, d: int) -> dict:
     """The design each kernel of these two libraries (flash_fwd,
-    flash_bwd) runs at head dim ``d``, by name: K1's by
-    ``flash_fwd_split_from``, K2's and K3's by the BwdDesign id of
+    flash_bwd) runs at head dim ``d``, by name: K1's by the FwdDesign id of
+    ``flash_fwd_design``, K2's and K3's by the BwdDesign id of
     ``flash_bwd_dq_design`` and ``flash_bwd_dkv_design``."""
-    return {"flash_fwd": ("D split" if fwd.flash_fwd_split_from() <= d
-                          else "row split"),
+    return {"flash_fwd": FWD_DESIGNS[fwd.flash_fwd_design(d)],
             "flash_bwd_dq": BWD_DESIGNS[bwd.flash_bwd_dq_design(d)],
             "flash_bwd_dkv": BWD_DESIGNS[bwd.flash_bwd_dkv_design(d)]}
 
@@ -4482,14 +4557,15 @@ def _torchrun_binding() -> None:
          f"{time.perf_counter() - t0:.1f} s")
 
 
-def wide_kernel_entries(numbers: dict, wide: dict, d256: dict) -> list:
+def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     """The wide head dims' ``kernels`` entries (phase 12), one per kernel
     and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
     phase 12's launches per path (``wide[d][path][kernel]``) and
-    ``phase_d256_designs``' (``d256[kernel]``): at d 256 the other
-    design's numbers beside the shipped one's, K2's and K3's with the
-    pair's sum beside SDPA's backward; the kernel-only dims (d 320, 448:
-    no model, so no launches on a main path) under the d 512 entries."""
+    ``phase_wide_designs``' (``designs[d][kernel]``): at d 192 (K1) and
+    256 (K1, K2, K3) the other design's numbers beside the shipped one's,
+    K2's and K3's with the pair's sum beside SDPA's backward; the
+    kernel-only dims (d 320, 448: no model, so no launches on a main path)
+    under the d 512 entries."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     entries = []
@@ -4509,8 +4585,8 @@ def wide_kernel_entries(numbers: dict, wide: dict, d256: dict) -> list:
             }
             if "pair_ms" in n:
                 entry["pair_ms"] = n["pair_ms"]
-            if d == 256:
-                entry["designs_in_turns"] = d256[name]
+            if name in designs.get(d, {}):
+                entry["designs_in_turns"] = designs[d][name]
             if d == 512:
                 entry["more_shapes"] = {
                     other: {key: numbers[name]["wide"][other][key]
@@ -4529,7 +4605,7 @@ def main() -> int:
     _timed("build", phase_build)
     numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
-    d256 = _timed("kernels d 256 designs", phase_d256_designs)
+    designs = _timed("kernels d 192 and 256 designs", phase_wide_designs)
     serving = _timed("serving", phase_serving)
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
@@ -4570,7 +4646,7 @@ def main() -> int:
             "bound_share": n["bound_share"],
             "more_shapes": n["more_shapes"],
         })
-    kernels += wide_kernel_entries(numbers, wide, d256)
+    kernels += wide_kernel_entries(numbers, wide, designs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

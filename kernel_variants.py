@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Build the design alternatives of K2 (``dq_wgmma`` at d 128 and
-``dq_rows8`` at d 256) and K3 (``dkv_onepass`` at d 256) in
-``service_account_auth_improvements_tpu_torch/csrc/flash_bwd.cu`` and
-time them against the committed kernel on one CUDA card.
+"""Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256, in
+``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
+K2 (``dq_wgmma`` at d 128 and ``dq_rows8`` at d 256) and K3
+(``dkv_onepass`` at d 256, both in ``csrc/flash_bwd.cu``) and time them
+against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
-``python3 kernel_variants.py``. Each variant is the committed source with
-the text edits listed in ``VARIANTS`` (an edit whose text is not found
-exactly once fails the run). Every source is built with the flags of
-``ops/_build.py`` into ``build/kernel_variants/<name>/``, one nvcc each,
-all started together; ptxas's lines for the kernel each variant edits are
-printed. Each build is held against the kernel's plain version
-(``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``) at a ragged
-shape and at the training shape of the kernel's head dim
-(``KERNEL_HEADS``; chip_smoke.py's ``BWD_TOL``) and twice on one input
-(bitwise), then each kernel's variants are timed at its training shape in
-turns with the committed source (committed, variants, variants in
-reverse, committed), queued behind a spin on the card as chip_smoke.py
-times its kernels.
+``python3 kernel_variants.py``. Each variant is the committed source of
+the kernel it edits with the text edits listed in ``VARIANTS`` (an edit
+whose text is not found exactly once fails the run). Every source is built
+with the flags of ``ops/_build.py`` into
+``build/kernel_variants/<name>/<source>/``, one nvcc each, all started
+together; ptxas's lines for the kernel each variant edits are printed.
+Each build is held against the kernel's plain version
+(``flash_fwd_reference``, ``flash_bwd_dq_reference``,
+``flash_bwd_dkv_reference``) at a ragged shape and at the training shape
+of the kernel's head dim (``KERNEL_HEADS``; chip_smoke.py's ``TOL``,
+``LSE_ATOL`` and ``BWD_TOL``) and twice on one input (bitwise), then each
+kernel's variants are timed at its training shape in turns with the
+committed source (committed, variants, variants in reverse,
+committed), queued behind a spin on the card as chip_smoke.py times its
+kernels.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import torch
 import chip_smoke as cs
 
 OUT = cs.ROOT / "build" / "kernel_variants"
-SOURCE = "flash_bwd"
 
 # name -> (what it changes, [(text of the committed source, replacement)],
 # the kernel it edits)
@@ -208,12 +210,210 @@ VARIANTS = {
   bf16* out = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
 """)],
         "dkv_onepass"),
+    "no_turns": (
+        "d 256 K1: the warpgroups without the turn barriers, each issuing "
+        "its products as soon as its tiles are in",
+        [("  if (c == 1) bar_arrive(kTurn, 2 * WG);  // warpgroup 0 issues "
+          "first\n", ""),
+         ("  mbar_wait(k_full, 0);\n  bar_sync(kTurn + c, 2 * WG);\n",
+          "  mbar_wait(k_full, 0);\n"),
+         ("  wgmma_commit();\n  bar_arrive(kTurn + 1 - c, 2 * WG);  // the "
+          "other warpgroup's turn\n", "  wgmma_commit();\n"),
+         ("in one turn\n    bar_sync(kTurn + c, 2 * WG);\n", "\n"),
+         ("    wgmma_commit();\n    bar_arrive(kTurn + 1 - c, 2 * WG);  // "
+          "the other warpgroup's turn\n", "    wgmma_commit();\n"),
+         ("  // warpgroup 1's hand-over after its last issue, which no turn "
+          "takes\n  if (c == 0) bar_sync(kTurn, 2 * WG);\n", "")],
+        "flash_fwd_rows8"),
+    "scores_after": (
+        "d 256 K1: no overlap inside a warpgroup: each tile's S, its "
+        "softmax, then its P V (the loads still issued while a product is "
+        "in flight)",
+        [("""  float sc[BK / 2], alpha0, alpha1;
+  uint32_t pf[BK / 16][4];  // the last tile's P
+
+  if (c == 1) bar_arrive(kTurn, 2 * WG);  // warpgroup 0 issues first
+  mbar_wait(q_full, 0);
+  // tile 0: its scores, in this warpgroup's turn, and its P
+  mbar_wait(k_full, 0);
+  bar_sync(kTurn + c, 2 * WG);
+  wgmma_fence();
+  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+      sc, desc_sw128(q_addr, 16, 1024), desc_sw128(base + L::K_OFF, 16, 1024));
+  wgmma_commit();
+  bar_arrive(kTurn + 1 - c, 2 * WG);  // the other warpgroup's turn
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (t == 0) mbar_arrive(k_empty);
+  fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                  (a.causal && BK - 1 > r0) || BK > a.sk, 0, row0, row1, tq);
+  fwd_pack<BK>(pf, sc);
+#pragma unroll 1
+  for (int i = 1; i < nk; ++i) {
+    const int s = i % STAGES, sp = (i - 1) % STAGES;
+    const uint32_t ph = (i / STAGES) & 1, php = ((i - 1) / STAGES) & 1;
+    const int k0 = i * BK;
+    fwd_rescale(o, alpha0, alpha1);
+    mbar_wait(k_full + 8 * s, ph);
+    mbar_wait(v_full + 8 * sp, php);
+
+    // this tile's S = Q K^T and the last tile's O += P V, in one turn
+    bar_sync(kTurn + c, 2 * WG);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(base + L::K_OFF + s * L::KV_BYTES, 16, 1024));
+    wgmma_commit();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(
+        o, pf, base + L::V_OFF + sp * L::KV_BYTES);
+    wgmma_commit();
+    bar_arrive(kTurn + 1 - c, 2 * WG);  // the other warpgroup's turn
+
+    // while both are in flight: K of the next tile and V of this one now,
+    // and (testing only) the later tiles whose stages this warpgroup has
+    // released
+    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i + 1,
+                                   min(nk, i + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i - 1 + STAGES), ikv, ib);
+    }
+
+    // this tile's softmax once S is in, P V still in flight (mask only
+    // tiles that cross the diagonal or the ragged end)
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (t == 0) mbar_arrive(k_empty + 8 * s);
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (t == 0) mbar_arrive(v_empty + 8 * sp);
+    fwd_pack<BK>(pf, sc);
+  }
+  // the last tile's P V
+  const int sl = (nk - 1) % STAGES;
+  fwd_rescale(o, alpha0, alpha1);
+  mbar_wait(v_full + 8 * sl, ((nk - 1) / STAGES) & 1);
+  fence_regs(o);
+  fence_regs(pf);
+  wgmma_fence();
+  wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(
+      o, pf, base + L::V_OFF + sl * L::KV_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  // warpgroup 1's hand-over after its last issue, which no turn takes
+  if (c == 0) bar_sync(kTurn, 2 * WG);
+""", """  float alpha0, alpha1;
+
+  if (c == 1) bar_arrive(kTurn, 2 * WG);  // warpgroup 0 issues first
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = i * BK;
+    float sc[BK / 2];
+    mbar_wait(k_full + 8 * s, ph);
+    bar_sync(kTurn + c, 2 * WG);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(base + L::K_OFF + s * L::KV_BYTES, 16, 1024));
+    wgmma_commit();
+    bar_arrive(kTurn + 1 - c, 2 * WG);
+    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i,
+                                   min(nk, i + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i + STAGES), ikv, ib);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (t == 0) mbar_arrive(k_empty + 8 * s);
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
+    uint32_t pf[BK / 16][4];
+    fwd_pack<BK>(pf, sc);
+    fwd_rescale(o, alpha0, alpha1);
+    mbar_wait(v_full + 8 * s, ph);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(
+        o, pf, base + L::V_OFF + s * L::KV_BYTES);
+    wgmma_commit();
+    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i + 1,
+                                   min(nk, i + 1 + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i + STAGES), ikv, ib);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (t == 0) mbar_arrive(v_empty + 8 * s);
+  }
+  if (c == 0) bar_sync(kTurn, 2 * WG);
+""")],
+        "flash_fwd_rows8"),
+    "bk64": (
+        "d 256 K1: 64-key K/V tiles (m64n64 scores) instead of 80",
+        [("  static constexpr int BK = D <= 192 ? 96 : 80;  // keys per K/V "
+          "stage", "  static constexpr int BK = 64;")],
+        "flash_fwd_rows8"),
+    "thread_releases": (
+        "d 256 K1: every thread of a warpgroup arrives on the empty "
+        "barriers (256 arrivals a release) instead of its thread 0",
+        [("      mbar_init(k_empty + 8 * s, 2);  // one arrival a warpgroup\n"
+          "      mbar_init(v_empty + 8 * s, 2);\n",
+          "      mbar_init(k_empty + 8 * s, 2 * WG);\n"
+          "      mbar_init(v_empty + 8 * s, 2 * WG);\n"),
+         ("  if (t == 0) mbar_arrive(k_empty);\n", "  mbar_arrive(k_empty);\n"),
+         ("    if (t == 0) mbar_arrive(k_empty + 8 * s);\n",
+          "    mbar_arrive(k_empty + 8 * s);\n"),
+         ("    if (t == 0) mbar_arrive(v_empty + 8 * sp);\n",
+          "    mbar_arrive(v_empty + 8 * sp);\n")],
+        "flash_fwd_rows8"),
+    "refill_in_line": (
+        "d 256 K1: thread 0 refills at the top of each tile, before its "
+        "warpgroup's turn, instead of while the products are in flight",
+        [("""    // while both are in flight: K of the next tile and V of this one now,
+    // and (testing only) the later tiles whose stages this warpgroup has
+    // released
+    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i + 1,
+                                   min(nk, i + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i - 1 + STAGES), ikv, ib);
+    }
+
+""", ""),
+         ("    fwd_rescale(o, alpha0, alpha1);\n    mbar_wait(k_full + 8 * s, "
+          "ph);\n", """    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i + 1,
+                                   min(nk, i + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i - 1 + STAGES), ikv, ib);
+    }
+""" + "    fwd_rescale(o, alpha0, "
+          "alpha1);\n    mbar_wait(k_full + 8 * s, ph);\n")],
+        "flash_fwd_rows8"),
 }
 # the heads (query, KV, head dim) each edited kernel is checked and timed
 # at, at the training shape (b 8, s 2048): bench_800m's and phase 12's
 # bench_800m_d256
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
-                "dkv_onepass": (6, 2, 256)}
+                "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256)}
+
+
+def source_of(kernel: str) -> str:
+    """The csrc/ source (without .cu) that holds ``kernel``."""
+    return "flash_fwd" if kernel.startswith("flash_fwd") else "flash_bwd"
 
 
 def variant_source(name: str, src: str) -> str:
@@ -226,22 +426,24 @@ def variant_source(name: str, src: str) -> str:
     return src
 
 
-def _compile(name: str) -> tuple[Path, str]:
+def _compile(job: tuple[str, str]) -> tuple[Path, str]:
+    """Build ``source`` as committed or with variant ``name``'s edits."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
-    d = OUT / name
+    name, source = job
+    d = OUT / name / source
     if d.exists():
         shutil.rmtree(d)
     shutil.copytree(_build.CSRC, d)
-    src = (d / f"{SOURCE}.cu").read_text()
+    src = (d / f"{source}.cu").read_text()
     if name != "committed":
-        (d / f"{SOURCE}.cu").write_text(variant_source(name, src))
-    lib = d / f"lib{SOURCE}.so"
+        (d / f"{source}.cu").write_text(variant_source(name, src))
+    lib = d / f"lib{source}.so"
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-         str(d / f"{SOURCE}.cu")], capture_output=True, text=True)
+         str(d / f"{source}.cu")], capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}"
+        raise RuntimeError(f"nvcc failed on {name} {source}:\n{proc.stdout}"
                            f"{proc.stderr}")
     return lib, proc.stdout + proc.stderr
 
@@ -261,11 +463,32 @@ def _ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
-def _use(lib: Path) -> None:
-    """Route the port's K2 wrapper to this build's library."""
+def _use(lib: Path, source: str) -> None:
+    """Route the port's wrappers of ``source``'s kernels to this build."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
-    _build._libs[SOURCE] = ctypes.CDLL(str(lib))
+    _build._libs[source] = ctypes.CDLL(str(lib))
+
+
+def _calls(kind: str, fa):
+    """The wrapper of a kernel kind (K1 "fwd", K2 "dq", K3 "dkv") and its
+    plain version, each taking (q, k, v, do, lse, delta) and returning a
+    tuple of outputs, and their tolerances [(atol, rtol)] per output."""
+    dtype = torch.bfloat16
+    if kind == "fwd":
+        return ((lambda q, k, v, *_: fa.flash_fwd(q, k, v, True)),
+                (lambda q, k, v, *_: fa.flash_fwd_reference(q, k, v, True)),
+                [cs.TOL[dtype], (cs.LSE_ATOL, 0.0)])
+    fn = getattr(fa, f"flash_bwd_{kind}")
+    plain = getattr(fa, f"flash_bwd_{kind}_reference")
+
+    def tupled(f):
+        def call(*args):
+            out = f(*args, True)
+            return out if isinstance(out, tuple) else (out,)
+        return call
+    return (tupled(fn), tupled(plain),
+            [cs.BWD_TOL[dtype]] * (2 if kind == "dkv" else 1))
 
 
 def main() -> int:
@@ -274,63 +497,64 @@ def main() -> int:
     )
 
     cs.phase_device()
-    names = ["committed", *VARIANTS]
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(_compile, names)))
-    for name in names:
+    jobs = [("committed", "flash_fwd"), ("committed", "flash_bwd"),
+            *((name, source_of(VARIANTS[name][2])) for name in VARIANTS)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(_compile, jobs)))
+    for name, source in jobs:
         what = VARIANTS[name][0] if name in VARIANTS else "as committed"
-        cs._log(f"variant {name}: {what}")
-        kernels = [VARIANTS[name][2]] if name in VARIANTS else KERNEL_HEADS
+        cs._log(f"variant {name} ({source}.cu): {what}")
+        kernels = ([VARIANTS[name][2]] if name in VARIANTS else
+                   [k for k in KERNEL_HEADS if source_of(k) == source])
         for kernel in kernels:
-            for line in _ptxas_lines(built[name][1], kernel):
+            for line in _ptxas_lines(built[name, source][1], kernel):
                 cs._log(f"  ptxas: {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
     dtype = torch.bfloat16
-    atol, rtol = cs.BWD_TOL[dtype]
     for kernel, (h, hkv, d) in KERNEL_HEADS.items():
         group = [n for n in VARIANTS if VARIANTS[n][2] == kernel]
-        # K2 (dQ) or K3 (dK, dV): the wrapper, its plain version, the bound
-        kind = "dkv" if kernel.startswith("dkv") else "dq"
-        fn = getattr(fa, f"flash_bwd_{kind}")
-        plain = getattr(fa, f"flash_bwd_{kind}_reference")
+        source = source_of(kernel)
+        # K1 (O, LSE), K2 (dQ) or K3 (dK, dV): the wrapper, its plain
+        # version, the tolerances and the bound
+        kind = ("fwd" if source == "flash_fwd" else
+                "dkv" if kernel.startswith("dkv") else "dq")
+        fn, plain, tols = _calls(kind, fa)
         for name in ["committed", *group]:
-            _use(built[name][0])
+            _use(built[name, source][0], source)
             for shape in ((2, 1000, h, hkv, d), (b, s, h, hkv, d)):
                 q, k, v, do, o, lse = cs._bwd_inputs(*shape, dtype, gen,
                                                      True)
                 delta = fa.flash_bwd_delta(o, do)
-                got, again, want = (
-                    f(q, k, v, do, lse, delta, True)
-                    for f in (fn, fn, plain))
-                if kind == "dq":
-                    got, again, want = (got,), (again,), (want,)
-                err = max(cs._check(f"{name} {shape}", g, w, atol, rtol)
-                          for g, w in zip(got, want))
+                inputs = (q, k, v, do, lse, delta)
+                got, again, want = (f(*inputs)
+                                    for f in (fn, fn, plain))
+                err = max(cs._check(f"{name} {shape}", g, w, *tol)
+                          for g, w, tol in zip(got, want, tols))
                 if not all(map(torch.equal, got, again)):
                     raise AssertionError(f"{name} {shape}: not "
                                          "deterministic")
                 cs._log(f"variant {name} b{shape[0]} s{shape[1]} d{d}: "
-                        f"{kind} max abs err {err:.3e} (atol {atol}, rtol "
-                        f"{rtol}), twice bitwise equal")
-                del q, k, v, do, o, lse, delta, got, again, want
+                        f"{kind} max abs err {err:.3e} (tolerances "
+                        f"{tols}), twice bitwise equal")
+                del q, k, v, do, o, lse, delta, inputs, got, again, want
 
         q, k, v, do, o, lse = cs._bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                              True)
         delta = fa.flash_bwd_delta(o, do)
-        bound_ms, bound_by = cs.kernel_bound(b, h, hkv, s, s, d, dtype, True,
-                                             kind)
+        inputs = (q, k, v, do, lse, delta)
+        bound_ms, bound_by = cs.kernel_bound(b, h, hkv, s, s, d, dtype,
+                                             True, kind)
         flops = cs.kernel_flops(b, h, s, s, d, True, kind)
         for name in ["committed", *group, *reversed(group), "committed"]:
-            _use(built[name][0])
-            ms = cs._time_ms(lambda: fn(q, k, v, do, lse, delta, True),
-                             queue_ahead=True)
-            cs._log(f"time variant {name} ({kernel}) {kind} b{b} s{s} h{h} "
-                    f"hkv{hkv} d{d} bf16 causal: {ms:.4f} ms "
-                    f"({flops / ms / 1e9:.1f} TF/s, {bound_ms / ms:.3f} of "
-                    f"bound {bound_ms:.4f} ms, {bound_by})")
-        del q, k, v, do, o, lse, delta
+            _use(built[name, source][0], source)
+            ms = cs._time_ms(lambda: fn(*inputs), queue_ahead=True)
+            cs._log(f"time variant {name} ({kernel}) {kind} b{b} s{s} "
+                    f"h{h} hkv{hkv} d{d} bf16 causal: {ms:.4f} ms "
+                    f"({flops / ms / 1e9:.1f} TF/s, {bound_ms / ms:.3f} "
+                    f"of bound {bound_ms:.4f} ms, {bound_by})")
+        del q, k, v, do, o, lse, delta, inputs
     return 0
 
 

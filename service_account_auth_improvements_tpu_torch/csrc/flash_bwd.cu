@@ -113,22 +113,22 @@ constexpr int SMEM_MAX = 232448;
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
 //              and warpgroup 1 dK, one pass (d 256).
 // At d 256 each of K2 and K3 ships the faster of two designs on the H100
-// (chip_smoke.py's phase_d256_designs, in turns on one card; PERF.md §6):
-// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_D256=1 takes PR 10's
-// tiles (dq_wgmma, dkv_wgmma) there instead.
+// (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
+// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_WIDE=1 takes PR 10's
+// tiles (dq_wgmma, dkv_wgmma) there instead (and K1's at d 192 and 256).
 enum BwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3 };
 
-#ifndef FLASH_OTHER_D256
-#define FLASH_OTHER_D256 0
+#ifndef FLASH_OTHER_WIDE
+#define FLASH_OTHER_WIDE 0
 #endif
 constexpr int dq_design(int d) {
   return d <= 192 ? kRowSplit
-         : d == 256 ? (FLASH_OTHER_D256 ? kRowSplit : kRows8)
+         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kRows8)
                     : kDSplit;
 }
 constexpr int dkv_design(int d) {
   return d <= 192 ? kRowSplit
-         : d == 256 ? (FLASH_OTHER_D256 ? kRowSplit : kOnePass)
+         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kOnePass)
                     : kDSplit;
 }
 

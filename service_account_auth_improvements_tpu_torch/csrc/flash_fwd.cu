@@ -35,19 +35,18 @@
 // What bounds it on an H100: at the serving and training shapes (s 1000 and
 // 2048, d 128, 12 query heads) a causal forward does ~2 s^2 d flops per
 // (b, h) against 4 s d bytes of q/k/v/o, hundreds of flops per byte: it is
-// bound by the tensor cores. The bf16 kernels are built for them: from
-// d 320 to 512 `flash_fwd_split<D>` (its notes are above it), and up to
-// d 256 `flash_fwd_wgmma<D>`:
+// bound by the tensor cores. The bf16 kernels are built for them, one
+// design per head dim (FwdDesign, below): from d 320 to 512
+// `flash_fwd_split<D>`, at d 256 `flash_fwd_rows8<D>` (their notes are
+// above them), and from d 64 to 192 `flash_fwd_wgmma<D>`:
 // - a block owns 128 query rows: one producer warpgroup and two consumer
 //   warpgroups of 64 rows each (one wgmma M tile); setmaxnreg gives the
 //   producer 24 registers and each consumer thread 240;
 // - one producer thread issues TMA loads: Q once, then K and V tiles of BK
 //   keys into a ring of shared-memory stages, each stage with `full`
 //   mbarriers (K and V apart, so QK^T starts before V lands) and an `empty`
-//   mbarrier the consumers release. Up to d 128, 2 stages of 128 keys; at
-//   d 192, 3 of 64 and at d 256, 4 of 32 (FwdSmem): two stages of 128 keys
-//   beside Q would take 320 KB of the 227 KB a block may have at d 256,
-//   and S of more than 32 keys beside O's 128 registers spills there;
+//   mbarrier the consumers release (FwdSmem: 2 stages of 128 keys up to
+//   d 128, 3 of 64 at d 192);
 // - S = Q K^T is wgmma m64nBKk16 with both operands in shared memory
 //   (K-major, 128-byte swizzle); the online softmax runs in registers with
 //   exp2 and log2(e) folded into the scale, the row max over a quad of
@@ -56,12 +55,12 @@
 //   O += P V (wgmma m64nDk16 up to d 128; above, one m64n128 chain per 128
 //   columns of V and an m64n64 chain for a last 64, on the same A): S never
 //   reaches shared memory. The O accumulator is D / 2 registers a thread
-//   (128 at d 256) beside S's BK / 2;
+//   beside S's BK / 2;
 // - heaviest causal query tiles launch first, and neighbouring blocks take
 //   the heads of one KV group, which then share K/V in L2.
 //
-// float32 inputs take a third, scalar kernel: true f32 FMA on CUDA cores,
-// no TF32, so f32 parity with the reference holds.
+// float32 inputs take a scalar kernel, flash_fwd_f32: true f32 FMA on CUDA
+// cores, no TF32, so f32 parity with the reference holds.
 
 #include "hopper.cuh"
 
@@ -102,10 +101,35 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0, int bq,
 constexpr int WG = 128;            // threads per warpgroup
 constexpr int FWD_BQ = 128;        // query rows per block: 64 per consumer
 constexpr int FWD_THREADS = 3 * WG;  // producer + two consumers
+constexpr int SPLIT_THREADS = 2 * WG;  // the two consumer warpgroups alone
 constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 
+// The bf16 designs of K1 (the C function flash_fwd_design reports the one
+// a head dim runs; chip_smoke.py labels its timings by it):
+//   kRowSplit  flash_fwd_wgmma: 12-warp blocks of 128 rows, 64 a consumer
+//              warpgroup, a producer warpgroup (d 64 to 192);
+//   kDSplit    flash_fwd_split: 8-warp blocks of 64 rows, the output's
+//              columns split between the warpgroups (d 320 to 512);
+//   kRows8     flash_fwd_rows8: 8-warp blocks of 128 rows, 64 a
+//              warpgroup, the two taking turns at the tensor cores (d 256).
+// At d 192 and 256 K1 ships the faster of two designs on the H100
+// (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
+// flash_fwd_wgmma at d 192, flash_fwd_rows8 at d 256. A build with
+// -DFLASH_OTHER_WIDE=1 takes the other one at each.
+enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2 };
+
+#ifndef FLASH_OTHER_WIDE
+#define FLASH_OTHER_WIDE 0
+#endif
+constexpr int fwd_design(int d) {
+  return d <= 128 ? kRowSplit
+         : d == 192 ? (FLASH_OTHER_WIDE ? kRows8 : kRowSplit)
+         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kRows8)
+                    : kDSplit;
+}
+
 struct FwdArgs {
-  CUtensorMap tq, tk, tv;  // boxes of 64 columns x FWD_BQ or BK rows
+  CUtensorMap tq, tk, tv;  // boxes of 64 columns (or whole tiles) of rows
   void* o;
   float* lse;
   int64_t o_sb, o_sh, o_ss;
@@ -113,12 +137,124 @@ struct FwdArgs {
   float scale, scale_log2;
 };
 
-// Shared memory: Q, then the K stages, the V stages and the mbarriers. Each
-// tile is D / 64 column blocks of (rows x 128 bytes). Keys per stage (BK)
-// and stages: 128 and 2 up to d 128; above, as many stages as fit (at most
-// 4) of 64 keys at d 192 and of 32 at d 256, where a 64-key S tile beside
-// the 128 registers of O made ptxas spill and serialise the wgmmas. From
-// d 320 K1 is flash_fwd_split (FwdSplit's tiles), below.
+// One online-softmax step on a score tile of BK keys starting at key k0,
+// held as wgmma accumulator fragments (this thread's rows row0 and row1;
+// register 4j + e is key k0 + 8j + 2 tq + (e & 1)): with `mask`, keys past
+// sk and (causal) after the row score -2e38; the running maxima m (raw
+// score units) and partial row sums l move on, sc becomes P = exp2((S - m)
+// scale log2 e) in f32, and alpha gets the factors that rescale O.
+template <int BK>
+__device__ __forceinline__ void fwd_softmax(const FwdArgs& a,
+                                            float (&sc)[BK / 2], float& m0,
+                                            float& m1, float& l0, float& l1,
+                                            float& alpha0, float& alpha1,
+                                            bool mask, int k0, int row0,
+                                            int row1, int tq) {
+  using hopper::fast_exp2;
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * tq + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = kNegInf;
+      }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  alpha0 = fast_exp2((m0 - mx0) * a.scale_log2);
+  alpha1 = fast_exp2((m1 - mx1) * a.scale_log2);
+  const float ms0 = mx0 * a.scale_log2, ms1 = mx1 * a.scale_log2;
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + sum0;
+  l1 = l1 * alpha1 + sum1;
+}
+
+// P in V's dtype, re-packed as the A operand of P V; keys 16kk .. 16kk + 15
+template <int BK>
+__device__ __forceinline__ void fwd_pack(uint32_t (&pf)[BK / 16][4],
+                                         const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pf[kk][r] =
+          hopper::pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// O's rows row0 and row1 times alpha0 and alpha1
+template <int R>
+__device__ __forceinline__ void fwd_rescale(float (&o)[R], float alpha0,
+                                            float alpha1) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+// The rows' end: the row sums reduced over the quad, O / l stored in bf16
+// at columns col0 + 8j + ... (skipping those below `skip`, which the other
+// warpgroup stores) and, with `lse_too`, LSE = m scale + log l in f32.
+template <int NC>
+__device__ __forceinline__ void fwd_finish(const FwdArgs& a,
+                                           float (&o)[NC / 2], float m0,
+                                           float m1, float l0, float l1,
+                                           int row0, int row1, int ih,
+                                           int ib, int tq, int col0,
+                                           int skip, bool lse_too) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    o[4 * j] /= l0;
+    o[4 * j + 1] /= l0;
+    o[4 * j + 2] /= l1;
+    o[4 * j + 3] /= l1;
+  }
+  hopper::store_cols<NC>(
+      static_cast<__nv_bfloat16*>(a.o) + ib * a.o_sb + ih * a.o_sh, a.o_ss,
+      o, 1.f, row0, row1, a.sq, tq, col0, skip);
+  if (lse_too && tq == 0) {
+    float* lse = a.lse + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    if (row0 < a.sq) lse[row0] = m0 * a.scale + logf(l0);
+    if (row1 < a.sq) lse[row1] = m1 * a.scale + logf(l1);
+  }
+}
+
+// Shared memory of flash_fwd_wgmma: Q, then the K stages, the V stages and
+// the mbarriers. Each tile is D / 64 column blocks of (rows x 128 bytes).
+// Keys per stage (BK) and stages: 128 and 2 up to d 128; above (PR 10's
+// tiles; at d 256 only the -DFLASH_OTHER_WIDE=1 build runs them), as many
+// stages as fit (at most 4) of 64 keys at d 192 and of 32 at d 256, where
+// a 64-key S tile beside the 128 registers of O made ptxas spill and
+// serialise the wgmmas.
 template <int D>
 struct FwdSmem {
   static constexpr int BK = D <= 128 ? 128 : D <= 192 ? 64 : 32;
@@ -176,60 +312,14 @@ __device__ __forceinline__ void fwd_consumer(const FwdArgs& a, uint32_t base,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // mask (only tiles that cross the diagonal or the ragged end)
-    if ((a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * tq + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = kNegInf;
-        }
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float alpha0 = fast_exp2((m0 - mx0) * a.scale_log2);
-    const float alpha1 = fast_exp2((m1 - mx1) * a.scale_log2);
-    const float ms0 = mx0 * a.scale_log2, ms1 = mx1 * a.scale_log2;
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
-      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
-      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
-      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
-      sum0 += sc[4 * j] + sc[4 * j + 1];
-      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-
-    // P in V's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    // mask only tiles that cross the diagonal or the ragged end
+    float alpha0, alpha1;
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
     uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pf[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= alpha0;
-      o[4 * j + 1] *= alpha0;
-      o[4 * j + 2] *= alpha1;
-      o[4 * j + 3] *= alpha1;
-    }
+    fwd_pack<BK>(pf, sc);
+    fwd_rescale(o, alpha0, alpha1);
 
     // O += P V
     mbar_wait(v_full + 8 * s, ph);
@@ -242,29 +332,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdArgs& a, uint32_t base,
     fence_regs(o);
     mbar_arrive(empty + 8 * s);
   }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  __nv_bfloat16* op =
-      static_cast<__nv_bfloat16*>(a.o) + ib * a.o_sb + ih * a.o_sh;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * tq;
-    if (row0 < a.sq)
-      *reinterpret_cast<uint32_t*>(op + row0 * a.o_ss + col) =
-          pack_bf16x2(o[4 * j] / l0, o[4 * j + 1] / l0);
-    if (row1 < a.sq)
-      *reinterpret_cast<uint32_t*>(op + row1 * a.o_ss + col) =
-          pack_bf16x2(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
-  }
-  if (tq == 0) {
-    float* lse = a.lse + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
-    if (row0 < a.sq) lse[row0] = m0 * a.scale + logf(l0);
-    if (row1 < a.sq) lse[row1] = m1 * a.scale + logf(l1);
-  }
+  fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, true);
 }
 
 template <int D>
@@ -331,10 +399,10 @@ flash_fwd_wgmma(const __grid_constant__ FwdArgs a) {
 
 // ------------------------------------------------ bf16: the D-split kernel
 //
-// From d 320 (and at d 256 if it measures faster: kSplitFrom) K1 is
-// `flash_fwd_split<D>`: `flash_fwd_wgmma` cannot hold O (D / 2 registers a
-// thread: 256 at d 512, past the 255 a thread may have) and its 128-row Q
-// tile plus two K/V stages overflow 227 KB. Here:
+// From d 320 K1 is `flash_fwd_split<D>` (kDSplit): `flash_fwd_wgmma`
+// cannot hold O (D / 2 registers a thread: 256 at d 512, past the 255 a
+// thread may have) and its 128-row Q tile plus two K/V stages overflow
+// 227 KB. Here:
 // - a block is just the two consumer warpgroups, 8 warps, so a thread may
 //   hold 255 registers: ptxas gives each thread of a 9- to 12-warp block
 //   (a producer warp or warpgroup beside them; three warps then share a
@@ -362,19 +430,10 @@ flash_fwd_wgmma(const __grid_constant__ FwdArgs a) {
 //   ptxas serialise);
 // - O[:, own columns] += P V[:, own columns], P re-packed in registers as
 //   the A operand (wgmma_rs_t_cols), as in flash_fwd_wgmma;
-// - BK is 64 keys at d 256 and 32 above, with as many stages (at most 4)
-//   as fit beside Q and the exchange buffers (FwdSplit).
+// - BK is 32 keys, with as many stages (at most 4) as fit beside Q and the
+//   exchange buffers (FwdSplit). (At d 256, with 64-key tiles, this design
+//   lost to PR 10's flash_fwd_wgmma in turns in PRs 10 and 12.)
 // The masking, the LSE and the heaviest-first order are flash_fwd_wgmma's.
-
-#ifndef FLASH_OTHER_D256
-#define FLASH_OTHER_D256 0
-#endif
-// the smallest head dim K1 takes the split kernel at. At d 256 it ships
-// the faster of its two designs on the H100 (chip_smoke.py's
-// phase_d256_designs, in turns on one card; PERF.md §6): flash_fwd_wgmma.
-// A build with -DFLASH_OTHER_D256=1 takes the split at d 256.
-constexpr int kSplitFrom = FLASH_OTHER_D256 ? 256 : 320;
-constexpr int SPLIT_THREADS = 2 * WG;  // the two consumer warpgroups
 
 // K/V stages of `bk` keys that fit beside a 64-row Q tile, the exchange
 // buffers (2 x 2 warpgroups x 64 rows x bk / 2 f32) and the mbarriers
@@ -388,7 +447,7 @@ struct FwdSplit {
   static constexpr int NC = (D + 127) / 128 * 64;  // O columns a consumer
   static constexpr int Q_CB = BQ * 128;
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int BK = fwd_split_fit(D, 64) >= 2 ? 64 : 32;
+  static constexpr int BK = 32;
   static constexpr int FIT = fwd_split_fit(D, BK);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int KV_CB = BK * 128;
@@ -477,58 +536,13 @@ __device__ __forceinline__ void fwd_split_consumer(const FwdArgs& a,
     }
     join_half<HALF / 2>(own, buf, sc, c, t);
 
-    if ((a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * tq + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          if (col >= a.sk || (a.causal && col > row)) sc[4 * j + e] = kNegInf;
-        }
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float alpha0 = fast_exp2((m0 - mx0) * a.scale_log2);
-    const float alpha1 = fast_exp2((m1 - mx1) * a.scale_log2);
-    const float ms0 = mx0 * a.scale_log2, ms1 = mx1 * a.scale_log2;
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
-      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
-      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
-      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
-      sum0 += sc[4 * j] + sc[4 * j + 1];
-      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-
+    float alpha0, alpha1;
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
     uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pf[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-#pragma unroll
-    for (int j = 0; j < NC / 8; ++j) {
-      o[4 * j] *= alpha0;
-      o[4 * j + 1] *= alpha0;
-      o[4 * j + 2] *= alpha1;
-      o[4 * j + 3] *= alpha1;
-    }
+    fwd_pack<BK>(pf, sc);
+    fwd_rescale(o, alpha0, alpha1);
 
     // O[:, own columns] += P V[:, own columns]
     mbar_wait(v_full + 8 * s, ph);
@@ -547,27 +561,8 @@ __device__ __forceinline__ void fwd_split_consumer(const FwdArgs& a,
       if (!refill) fwd_split_load<D>(a, base, i + STAGES, ikv, ib);
     }
   }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-#pragma unroll
-  for (int j = 0; j < NC / 8; ++j) {
-    o[4 * j] /= l0;
-    o[4 * j + 1] /= l0;
-    o[4 * j + 2] /= l1;
-    o[4 * j + 3] /= l1;
-  }
-  store_cols<NC>(static_cast<__nv_bfloat16*>(a.o) + ib * a.o_sb + ih * a.o_sh,
-                 a.o_ss, o, 1.f, row0, row1, a.sq, tq, col0,
-                 c == 0 ? 0 : NC);
-  if (c == 0 && tq == 0) {
-    float* lse = a.lse + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
-    if (row0 < a.sq) lse[row0] = m0 * a.scale + logf(l0);
-    if (row1 < a.sq) lse[row1] = m1 * a.scale + logf(l1);
-  }
+  fwd_finish<NC>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, col0,
+                 c == 0 ? 0 : NC, c == 0);
 }
 
 template <int D>
@@ -610,6 +605,243 @@ flash_fwd_split(const __grid_constant__ FwdArgs a) {
       fwd_split_load<D>(a, base, i, ih / (a.h / a.hkv), ib);
   }
   fwd_split_consumer<D>(a, base, xbuf, q0, ih, ib, nk);
+}
+
+// ------------------------------------------------ bf16: rows on 8 warps
+//
+// At d 256 K1 is `flash_fwd_rows8<D>` (kRows8; at d 192 it lost to
+// flash_fwd_wgmma in turns and is built only with -DFLASH_OTHER_WIDE=1).
+// What held PR 10's flash_fwd_wgmma back at d 256: a 12-warp block gets 168
+// registers a thread from ptxas, setmaxnreg notwithstanding, so beside O
+// (D / 2 = 128 registers) its S tile had to shrink to 32 keys, and it still
+// spilled and serialised every wgmma (C7512); each 32-key tile paid two
+// mbarrier waits, two full wgmma drains, a quad max and the rescale of all
+// of O. Bound on an H100: operations (QK^T and PV, 4 s^2 d flops per causal
+// (b, h) against 4 s d bytes). Here:
+// - a block is the two consumer warpgroups alone, 8 warps, 255 registers a
+//   thread; it owns 128 query rows, 64 a warpgroup (one wgmma M tile),
+//   with Q resident;
+// - K and V stream in tiles of BK keys (80 at d 256, 96 at d 192: S is BK
+//   / 2 registers beside O), two stages beside Q (224 KB and 192 KB of the
+//   227), each tile one TMA copy (hopper::tmap_bf16_tile) with its own full
+//   and empty mbarriers, K apart from V: a warpgroup releases K once its
+//   scores are in and V once its P V is, one arrival a warpgroup (its
+//   thread 0, past the wgmma wait that covers all of its reads);
+// - thread 0 issues the loads: Q and the first stages, then once a tile,
+//   while its warpgroup's products are in flight (so the issue costs that
+//   warpgroup nothing), every K or V tile whose stage both warpgroups have
+//   released, testing without waiting (mbar_test); it waits for a release
+//   only for the tiles the next iteration reads;
+// - the warpgroups take turns at the tensor cores (FlashAttention-3's
+//   ping-pong): warpgroup c issues its products once named barrier kTurn +
+//   c completes (its own bar_sync and the other's bar_arrive) and hands the
+//   turn over right after, so one warpgroup's softmax runs while the
+//   other's products do;
+// - inside a warpgroup (FlashAttention-3's overlap): tile i's S = Q K^T
+//   (m64nBK, both operands in shared memory) and tile i - 1's O += P V (P
+//   re-packed in registers, wgmma_rs_t_cols) are issued in one turn as two
+//   commit groups; tile i's online softmax runs once S is in, while P V is
+//   still in flight, and O takes tile i's rescale just before the next
+//   issue. There is no branch on the warpgroup around a wgmma: both run one
+//   instruction stream (the barrier id is a register);
+// - both warpgroups run the block's key tiles up to the diagonal of its last
+//   row, warpgroup 0's last ones fully masked.
+// The masking, the LSE and the heaviest-first order are flash_fwd_wgmma's.
+constexpr int kTurn = 2;  // named barriers kTurn, kTurn + 1 (1: exchanges)
+
+template <int D>
+struct FwdRows8 {
+  static constexpr int BQ = 128;  // query rows per block: 64 a warpgroup
+  static constexpr int BK = D <= 192 ? 96 : 80;  // keys per K/V stage
+  static constexpr int STAGES = 2;
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // mbarriers: q_full, k_full[S], v_full[S], k_empty[S], v_empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+  static_assert(D % 64 == 0 && D <= 256, "O: 256 columns a warpgroup");
+  static_assert(BK % 16 == 0 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K (v = 0) or V (v = 1) of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void fwd_rows8_load(const FwdArgs& a,
+                                               uint32_t base, int v, int i,
+                                               int ikv, int ib) {
+  using namespace hopper;
+  using L = FwdRows8<D>;
+  const int s = i % L::STAGES;
+  const uint32_t full = base + L::BAR_OFF + 8 + 8 * (v * L::STAGES + s);
+  mbar_arrive_expect_tx(full, L::KV_BYTES);
+  tma_load_5d(base + (v ? L::V_OFF : L::K_OFF) + s * L::KV_BYTES,
+              v ? &a.tv : &a.tk, full, 0, i * L::BK, 0, ikv, ib);
+}
+
+// Thread 0: K (v = 0) or V (v = 1) of tiles next, next + 1, ... below
+// `end`, each once both warpgroups have released its stage: waiting for
+// that release up to tile `due`, only testing for it past `due`. Returns
+// the next tile still to load.
+template <int D>
+__device__ __forceinline__ int fwd_rows8_refill(const FwdArgs& a,
+                                                uint32_t base, int v,
+                                                int next, int due, int end,
+                                                int ikv, int ib) {
+  using namespace hopper;
+  using L = FwdRows8<D>;
+  const uint32_t empty = base + L::BAR_OFF + 8 + 8 * (2 + v) * L::STAGES;
+  for (; next < end; ++next) {
+    const uint32_t e = empty + 8 * (next % L::STAGES);
+    const uint32_t par = ((next - L::STAGES) / L::STAGES) & 1;
+    if (next > due && !mbar_test(e, par)) break;
+    mbar_wait(e, par);
+    fwd_rows8_load<D>(a, base, v, next, ikv, ib);
+  }
+  return next;
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+flash_fwd_rows8(const __grid_constant__ FwdArgs a) {
+  using namespace hopper;
+  using L = FwdRows8<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * STAGES, k_empty = v_full + 8 * STAGES,
+                 v_empty = k_empty + 8 * STAGES;
+
+  // heaviest query tiles first; neighbouring blocks share a KV group
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = iq * BQ;
+  // the same key tiles for both warpgroups: up to the diagonal of the
+  // block's last row
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2);  // one arrival a warpgroup
+      mbar_init(v_empty + 8 * s, 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // thread 0: the next K and V tiles to load
+  int next_k = min(STAGES, nk), next_v = next_k;
+  if (threadIdx.x == 0) {  // Q, and K and V of the first STAGES tiles
+    mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+    tma_load_5d(base, &a.tq, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < next_k; ++i) {
+      fwd_rows8_load<D>(a, base, 0, i, ikv, ib);
+      fwd_rows8_load<D>(a, base, 1, i, ikv, ib);
+    }
+  }
+
+  const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + c * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float sc[BK / 2], alpha0, alpha1;
+  uint32_t pf[BK / 16][4];  // the last tile's P
+
+  if (c == 1) bar_arrive(kTurn, 2 * WG);  // warpgroup 0 issues first
+  mbar_wait(q_full, 0);
+  // tile 0: its scores, in this warpgroup's turn, and its P
+  mbar_wait(k_full, 0);
+  bar_sync(kTurn + c, 2 * WG);
+  wgmma_fence();
+  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+      sc, desc_sw128(q_addr, 16, 1024), desc_sw128(base + L::K_OFF, 16, 1024));
+  wgmma_commit();
+  bar_arrive(kTurn + 1 - c, 2 * WG);  // the other warpgroup's turn
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (t == 0) mbar_arrive(k_empty);
+  fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                  (a.causal && BK - 1 > r0) || BK > a.sk, 0, row0, row1, tq);
+  fwd_pack<BK>(pf, sc);
+#pragma unroll 1
+  for (int i = 1; i < nk; ++i) {
+    const int s = i % STAGES, sp = (i - 1) % STAGES;
+    const uint32_t ph = (i / STAGES) & 1, php = ((i - 1) / STAGES) & 1;
+    const int k0 = i * BK;
+    fwd_rescale(o, alpha0, alpha1);
+    mbar_wait(k_full + 8 * s, ph);
+    mbar_wait(v_full + 8 * sp, php);
+
+    // this tile's S = Q K^T and the last tile's O += P V, in one turn
+    bar_sync(kTurn + c, 2 * WG);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(base + L::K_OFF + s * L::KV_BYTES, 16, 1024));
+    wgmma_commit();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(
+        o, pf, base + L::V_OFF + sp * L::KV_BYTES);
+    wgmma_commit();
+    bar_arrive(kTurn + 1 - c, 2 * WG);  // the other warpgroup's turn
+
+    // while both are in flight: K of the next tile and V of this one now,
+    // and (testing only) the later tiles whose stages this warpgroup has
+    // released
+    if (threadIdx.x == 0) {
+      next_k = fwd_rows8_refill<D>(a, base, 0, next_k, i + 1,
+                                   min(nk, i + STAGES), ikv, ib);
+      next_v = fwd_rows8_refill<D>(a, base, 1, next_v, i,
+                                   min(nk, i - 1 + STAGES), ikv, ib);
+    }
+
+    // this tile's softmax once S is in, P V still in flight (mask only
+    // tiles that cross the diagonal or the ragged end)
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (t == 0) mbar_arrive(k_empty + 8 * s);
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (t == 0) mbar_arrive(v_empty + 8 * sp);
+    fwd_pack<BK>(pf, sc);
+  }
+  // the last tile's P V
+  const int sl = (nk - 1) % STAGES;
+  fwd_rescale(o, alpha0, alpha1);
+  mbar_wait(v_full + 8 * sl, ((nk - 1) / STAGES) & 1);
+  fence_regs(o);
+  fence_regs(pf);
+  wgmma_fence();
+  wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(
+      o, pf, base + L::V_OFF + sl * L::KV_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  // warpgroup 1's hand-over after its last issue, which no turn takes
+  if (c == 0) bar_sync(kTurn, 2 * WG);
+  fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, true);
 }
 
 // ------------------------------------------------ f32: CUDA cores
@@ -735,16 +967,20 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run_wgmma(const Params& p, int batch, cudaStream_t stream) {
-  FwdArgs a;
+// The tensor maps and arguments K1 takes in bf16: Q in boxes of BQ rows, K
+// and V in boxes of BK keys; one column block a box (flash_fwd_wgmma), or
+// with TILE whole tiles (hopper::tmap_bf16_tile, flash_fwd_split and
+// flash_fwd_rows8).
+template <int BQ, int BK, bool TILE>
+cudaError_t fwd_args(FwdArgs& a, const Params& p, int batch, int d) {
+  const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
   cudaError_t err;
-  if ((err = hopper::tmap_bf16(&a.tq, p.q, D, p.sq, p.h, batch, p.q_ss,
-                               p.q_sh, p.q_sb, FWD_BQ)) ||
-      (err = hopper::tmap_bf16(&a.tk, p.k, D, p.sk, p.hkv, batch, p.k_ss,
-                               p.k_sh, p.k_sb, FwdSmem<D>::BK)) ||
-      (err = hopper::tmap_bf16(&a.tv, p.v, D, p.sk, p.hkv, batch, p.v_ss,
-                               p.v_sh, p.v_sb, FwdSmem<D>::BK)))
+  if ((err = map(&a.tq, p.q, d, p.sq, p.h, batch, p.q_ss, p.q_sh, p.q_sb,
+                 BQ)) ||
+      (err = map(&a.tk, p.k, d, p.sk, p.hkv, batch, p.k_ss, p.k_sh, p.k_sb,
+                 BK)) ||
+      (err = map(&a.tv, p.v, d, p.sk, p.hkv, batch, p.v_ss, p.v_sh, p.v_sb,
+                 BK)))
     return err;
   a.o = p.o;
   a.lse = p.lse;
@@ -757,48 +993,33 @@ cudaError_t run_wgmma(const Params& p, int batch, cudaStream_t stream) {
   a.sq = p.sq;
   a.sk = p.sk;
   a.causal = p.causal;
-  a.nq = (p.sq + FWD_BQ - 1) / FWD_BQ;
+  a.nq = (p.sq + BQ - 1) / BQ;
   a.scale = p.scale;
   a.scale_log2 = p.scale * hopper::kLog2e;
-  return hopper::launch(flash_fwd_wgmma<D>, a.nq * p.h * batch, FWD_THREADS,
-                        FwdSmem<D>::BYTES, stream, a);
-}
-
-template <int D>
-cudaError_t run_split(const Params& p, int batch, cudaStream_t stream) {
-  using L = FwdSplit<D>;
-  FwdArgs a;  // whole-tile 5-D maps (hopper::tmap_bf16_tile)
-  cudaError_t err;
-  if ((err = hopper::tmap_bf16_tile(&a.tq, p.q, D, p.sq, p.h, batch, p.q_ss,
-                                    p.q_sh, p.q_sb, L::BQ)) ||
-      (err = hopper::tmap_bf16_tile(&a.tk, p.k, D, p.sk, p.hkv, batch,
-                                    p.k_ss, p.k_sh, p.k_sb, L::BK)) ||
-      (err = hopper::tmap_bf16_tile(&a.tv, p.v, D, p.sk, p.hkv, batch,
-                                    p.v_ss, p.v_sh, p.v_sb, L::BK)))
-    return err;
-  a.o = p.o;
-  a.lse = p.lse;
-  a.o_sb = p.o_sb;
-  a.o_sh = p.o_sh;
-  a.o_ss = p.o_ss;
-  a.h = p.h;
-  a.hkv = p.hkv;
-  a.batch = batch;
-  a.sq = p.sq;
-  a.sk = p.sk;
-  a.causal = p.causal;
-  a.nq = (p.sq + L::BQ - 1) / L::BQ;
-  a.scale = p.scale;
-  a.scale_log2 = p.scale * hopper::kLog2e;
-  return hopper::launch(flash_fwd_split<D>, a.nq * p.h * batch,
-                        SPLIT_THREADS, L::BYTES, stream, a);
+  return cudaSuccess;
 }
 
 template <int D>
 cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
   if (bf16) {
-    if constexpr (D >= kSplitFrom) return run_split<D>(p, batch, stream);
-    else return run_wgmma<D>(p, batch, stream);
+    FwdArgs a;
+    cudaError_t err;
+    if constexpr (fwd_design(D) == kDSplit) {
+      using L = FwdSplit<D>;
+      if ((err = fwd_args<L::BQ, L::BK, true>(a, p, batch, D))) return err;
+      return hopper::launch(flash_fwd_split<D>, a.nq * p.h * batch,
+                            SPLIT_THREADS, L::BYTES, stream, a);
+    } else if constexpr (fwd_design(D) == kRows8) {
+      using L = FwdRows8<D>;
+      if ((err = fwd_args<L::BQ, L::BK, true>(a, p, batch, D))) return err;
+      return hopper::launch(flash_fwd_rows8<D>, a.nq * p.h * batch,
+                            SPLIT_THREADS, L::BYTES, stream, a);
+    } else {
+      using L = FwdSmem<D>;
+      if ((err = fwd_args<FWD_BQ, L::BK, false>(a, p, batch, D))) return err;
+      return hopper::launch(flash_fwd_wgmma<D>, a.nq * p.h * batch,
+                            FWD_THREADS, L::BYTES, stream, a);
+    }
   }
   const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
                   batch);
@@ -842,6 +1063,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The smallest head dim whose bf16 inputs take flash_fwd_split (chip_smoke.py
-// labels its d 256 timings by it).
-extern "C" int flash_fwd_split_from() { return kSplitFrom; }
+// The design (FwdDesign) K1 runs for bf16 inputs of head dim d
+// (chip_smoke.py labels its d 192 and 256 timings by it).
+extern "C" int flash_fwd_design(int d) { return fwd_design(d); }

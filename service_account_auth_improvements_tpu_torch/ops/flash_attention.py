@@ -13,10 +13,12 @@ kernel cannot take raises, it never falls back. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count the launches of K1, K2 and K3.
 
 Inside each library the entry point picks the kernel by dtype and head
-dim, never by catching an error: in bf16 up to d 256, K1 is
+dim, never by catching an error: in bf16 up to d 192, K1 is
 ``flash_fwd_wgmma``, K2 is ``dq_wgmma`` and K3 is ``dkv_wgmma`` (TMA loads
 into an mbarrier ring, a producer warp, consumer warpgroups on wgmma, with
-the pieces in ``csrc/hopper.cuh``); from d 320 to 512 they are
+the pieces in ``csrc/hopper.cuh``); at d 256 they are ``flash_fwd_rows8``,
+``dq_rows8`` and ``dkv_onepass`` (8-warp blocks, no producer warpgroup);
+from d 320 to 512 they are
 ``flash_fwd_split``, ``dq_split`` and ``dkv_split``, which split the
 output's D columns between the two consumer warpgroups and exchange the
 halves of each score tile through shared memory; each is built for every

@@ -5,8 +5,8 @@ chip_smoke.py's profile groups its device time by kernel name, and its
 in the JAX package's ops/flash_attention.py: both go stale silently when
 a kernel is renamed or that file moves, so they are checked here against
 the sources (the JAX file is read as text, not imported).
-kernel_variants.py rebuilds K2 with text edits of its committed source,
-which must each still match exactly once.
+kernel_variants.py rebuilds K1, K2 and K3 with text edits of their
+committed sources, which must each still match exactly once.
 """
 
 import importlib.util
@@ -55,7 +55,13 @@ def test_replaces_points_at_the_tpu_kernel(name):
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
 def test_kernel_variant_edits_match_the_source(variant):
-    src = (CSRC / f"{kernel_variants.SOURCE}.cu").read_text()
+    kernel = kernel_variants.VARIANTS[variant][2]
+    assert kernel in kernel_variants.KERNEL_HEADS
+    assert kernel in _global_kernels()
+    source = kernel_variants.source_of(kernel)
+    src = (CSRC / f"{source}.cu").read_text()
+    assert re.search(rf"void\s+(?:__launch_bounds__\([^)]*\)\s+)?{kernel}\(",
+                     src)
     out = kernel_variants.variant_source(variant, src)
     for old, new in kernel_variants.VARIANTS[variant][1]:
         assert new in out
@@ -195,8 +201,8 @@ def test_kernel_only_head_settings():
     """Phase 3 checks and times K1, K2 and K3 at every head dim the split
     kernels take (d 320 and 448 with no model, 4 / 2 heads), and at d 256
     under both designs; the d 512 kernels line carries the kernel-only
-    dims; the profile groups name the split kernels, and the d 256 design
-    labels come from K1's threshold and K2's and K3's design functions."""
+    dims; the profile groups name the split kernels, and the d 192 and 256
+    design labels come from K1's, K2's and K3's design functions."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -211,35 +217,83 @@ def test_kernel_only_head_settings():
         assert kernel in chip_smoke.PROFILE_KERNELS
     src = {name: (CSRC / f"{name}.cu").read_text()
            for name in chip_smoke.KERNEL_SOURCES}
-    for name, fn in (("flash_fwd", "flash_fwd_split_from()"),
+    for name, fn in (("flash_fwd", "flash_fwd_design(int d)"),
                      ("flash_bwd", "flash_bwd_dq_design(int d)"),
                      ("flash_bwd", "flash_bwd_dkv_design(int d)")):
         assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
-        assert "#ifndef FLASH_OTHER_D256" in text
+        assert "#ifndef FLASH_OTHER_WIDE" in text
+    assert chip_smoke.DESIGN_DIMS == (192, 256)
 
 
-def _bwd_designs():
-    """csrc/flash_bwd.cu's BwdDesign enum, read as text: {name: id}."""
-    text = (CSRC / "flash_bwd.cu").read_text()
-    body = re.search(r"enum BwdDesign \{([^}]*)\}", text).group(1)
+def _designs(source, enum):
+    """csrc/<source>.cu's design enum, read as text: {name: id}."""
+    text = (CSRC / f"{source}.cu").read_text()
+    body = re.search(rf"enum {enum} \{{([^}}]*)\}}", text).group(1)
     return {m.group(1): int(m.group(2))
             for m in re.finditer(r"(\w+) = (\d+)", body)}
 
 
+def _bwd_designs():
+    return _designs("flash_bwd", "BwdDesign")
+
+
+class _Fwd:
+    """A flash_fwd library's design function, as csrc/flash_fwd.cu states
+    it: the row split up to d 192 and the rows on 8 warps at d 256 (the
+    other way round at d 192 and 256 in the other build), the D split
+    above."""
+
+    def __init__(self, other):
+        ids = _designs("flash_fwd", "FwdDesign")
+        wide = {192: "kRowSplit", 256: "kRows8"}
+        swap = {"kRowSplit": "kRows8", "kRows8": "kRowSplit"}
+        self.flash_fwd_design = lambda d: ids[
+            "kRowSplit" if d <= 128 else "kDSplit" if d > 256
+            else swap[wide[d]] if other else wide[d]]
+
+
+def test_fwd_design_labels_name_every_design():
+    """chip_smoke.py labels each id K1's design function can return, and
+    no other, with the names K2's and K3's ids of the same design carry;
+    the source's rule: the row split from d 64 to 192, the rows on 8
+    warps at d 256 (a -DFLASH_OTHER_WIDE=1 build takes the other of the
+    two at d 192 and 256), the D split from d 320."""
+    ids = _designs("flash_fwd", "FwdDesign")
+    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2}
+    assert set(chip_smoke.FWD_DESIGNS) == set(ids.values())
+    for n, label in chip_smoke.FWD_DESIGNS.items():
+        assert chip_smoke.BWD_DESIGNS[n] == label
+    text = (CSRC / "flash_fwd.cu").read_text()
+    rule = re.search(r"constexpr int fwd_design\(int d\) \{(.*?)\}", text,
+                     re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_WIDE ? "
+        "kRows8 : kRowSplit) : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : "
+        "kRows8) : kDSplit;")
+    assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
+        in text
+    for d, shipped, other in ((64, "row split", "row split"),
+                              (128, "row split", "row split"),
+                              (192, "row split", "rows on 8 warps"),
+                              (256, "rows on 8 warps", "row split"),
+                              (320, "D split", "D split"),
+                              (512, "D split", "D split")):
+        assert chip_smoke.FWD_DESIGNS[_Fwd(False).flash_fwd_design(d)] == (
+            shipped)
+        assert chip_smoke.FWD_DESIGNS[_Fwd(True).flash_fwd_design(d)] == (
+            other)
+
+
 def test_bwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K2's and K3's design functions can
-    return, and no other; ``design_names`` reads K1's threshold and K2's
-    and K3's ids: at d 256 the 8-warp designs ship, and a build with
-    -DFLASH_OTHER_D256=1 runs PR 10's row split there (K1: the D split)."""
+    return, and no other; ``design_names`` reads K1's, K2's and K3's ids:
+    at d 256 the 8-warp designs ship, and a build with -DFLASH_OTHER_WIDE=1
+    runs PR 10's row split there (and K1's rows on 8 warps at d 192)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3}
     assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
     assert len(set(chip_smoke.BWD_DESIGNS.values())) == len(ids)
-
-    class Fwd:
-        def __init__(self, other):
-            self.flash_fwd_split_from = lambda: 256 if other else 320
 
     class Bwd:
         def __init__(self, other):
@@ -252,27 +306,34 @@ def test_bwd_design_labels_name_every_design():
                 ids["kRowSplit"] if d <= 192 else one if d == 256
                 else ids["kDSplit"])
 
-    shipped = chip_smoke.design_names(Fwd(False), Bwd(False), 256)
-    other = chip_smoke.design_names(Fwd(True), Bwd(True), 256)
-    assert shipped == {"flash_fwd": "row split",
+    shipped = chip_smoke.design_names(_Fwd(False), Bwd(False), 256)
+    other = chip_smoke.design_names(_Fwd(True), Bwd(True), 256)
+    assert shipped == {"flash_fwd": "rows on 8 warps",
                        "flash_bwd_dq": "rows on 8 warps",
                        "flash_bwd_dkv": "one pass"}
-    assert other == {"flash_fwd": "D split", "flash_bwd_dq": "row split",
+    assert other == {"flash_fwd": "row split", "flash_bwd_dq": "row split",
                      "flash_bwd_dkv": "row split"}
-    assert chip_smoke.design_names(Fwd(False), Bwd(False), 512) == {
+    # at d 192 only K1 has two designs
+    assert set(chip_smoke.design_names(_Fwd(False), Bwd(False), 192)
+               .values()) == {"row split"}
+    assert chip_smoke.design_names(_Fwd(True), Bwd(True), 192) == {
+        "flash_fwd": "rows on 8 warps", "flash_bwd_dq": "row split",
+        "flash_bwd_dkv": "row split"}
+    assert chip_smoke.design_names(_Fwd(False), Bwd(False), 512) == {
         "flash_fwd": "D split", "flash_bwd_dq": "D split",
         "flash_bwd_dkv": "D split"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
-    assert "FLASH_OTHER_D256 ? kRowSplit : kRows8" in text
-    assert "FLASH_OTHER_D256 ? kRowSplit : kOnePass" in text
+    assert "FLASH_OTHER_WIDE ? kRowSplit : kRows8" in text
+    assert "FLASH_OTHER_WIDE ? kRowSplit : kOnePass" in text
 
 
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
-    contract names, launches summed over phase 12's paths; at d 256 the
-    designs timed in turns, and K2's and K3's the pair's sum beside SDPA's
-    backward; the kernel-only dims under d 512."""
+    contract names, launches summed over phase 12's paths; at d 256 (all
+    three kernels) and d 192 (K1) the designs timed in turns, and K2's and
+    K3's the pair's sum beside SDPA's backward; the kernel-only dims under
+    d 512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -287,9 +348,10 @@ def test_wide_entries_carry_designs_and_pair():
     wide = {d: {"training": {name: 20 for name in chip_smoke.KERNELS},
                 "serving": {name: 0 for name in chip_smoke.KERNELS}}
             for _, _, d in chip_smoke.WIDE_HEADS.values()}
-    d256 = {name: {"shipped_ms": 1.0, "other_ms": 2.0}
-            for name in chip_smoke.KERNELS}
-    entries = chip_smoke.wide_kernel_entries(numbers, wide, d256)
+    designs = {256: {name: {"shipped_ms": 1.0, "other_ms": 2.0}
+                     for name in chip_smoke.KERNELS},
+               192: {"flash_fwd": {"shipped_ms": 1.0, "other_ms": 2.0}}}
+    entries = chip_smoke.wide_kernel_entries(numbers, wide, designs)
     assert len(entries) == len(chip_smoke.WIDE_HEADS) * len(
         chip_smoke.KERNELS)
     contract = {"name", "route", "source", "replaces", "launches",
@@ -300,11 +362,12 @@ def test_wide_entries_carry_designs_and_pair():
         assert entry["route"] == "cuda" and entry["launches"] == 20
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
-        assert ("designs_in_turns" in entry) == (d == 256)
+        assert ("designs_in_turns" in entry) == (
+            d == 256 or (d == 192 and kernel == "flash_fwd"))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d == 512)
-        if d == 256:
-            assert entry["designs_in_turns"] is d256[kernel]
+        if "designs_in_turns" in entry:
+            assert entry["designs_in_turns"] is designs[d][kernel]
         if d == 512:
             assert set(entry["more_shapes"]) == set(
                 chip_smoke.KERNEL_ONLY_HEADS)
@@ -338,6 +401,11 @@ def test_ptxas_summary_reads_registers_spills_and_notes():
     assert chip_smoke._template_name(k3, 256) == "dkv_onepass"
     assert chip_smoke._template_name(k2, 256) == "dq_wgmma"
     assert chip_smoke._template_name(k2, 128) is None
+    # phase 2 names K1's d 192 kernels too
+    k1 = ("_ZN45_GLOBAL__N__3a8e5b1c_12_flash_fwd_cu_7f1d2e0915flash_fwd_rows8"
+          "ILi192EEEvNS_7FwdArgsE")
+    assert chip_smoke._template_name(k1, 192) == "flash_fwd_rows8"
+    assert chip_smoke._template_name(k1, 256) is None
 
 
 def test_sdpa_backend_names_a_backend():

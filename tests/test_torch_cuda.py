@@ -73,6 +73,17 @@ SHAPES = [
     (1, 2047, 6, 2, 256, True),
     (2, 300, 8, 2, 256, True),
     (2, 512, 6, 2, 256, False),
+    # K1's blocks of 128 rows over 64-key tiles at d 192 (and 80-key ones
+    # at d 256, flash_fwd_rows8): at bench_800m_d192's 8 / 4 heads one
+    # row, ragged ends inside and one past a tile, s 2047, non-causal; at
+    # d 256 GQA group 4 at the serving prompt length
+    (2, 1, 8, 4, 192, True),
+    (2, 65, 8, 4, 192, True),
+    (2, 127, 8, 4, 192, True),
+    (2, 191, 8, 4, 192, True),
+    (1, 2047, 8, 4, 192, True),
+    (2, 512, 8, 4, 192, False),
+    (1, 1000, 8, 2, 256, True),
     # the split kernels' head dims (each consumer warpgroup owns part of
     # the output's columns): ragged (s 1000, 2047, 300, 129), one row, GQA
     # groups 1 to 3, non-causal, and bench_800m's training shape cut into

@@ -8,7 +8,11 @@ CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` at first use) and
 no network. Phases, each of which raises on failure:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: every kernel source, one nvcc each, all started together;
+2. build: every kernel source, one nvcc each, all started together, also
+   with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
+   registers, spills and C75xx notes of the d 192 and 256 kernels and of
+   the f32 K2 and K3 at every head dim (the register-tiled ones must not
+   spill);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -29,7 +33,12 @@ no network. Phases, each of which raises on failure:
    there (K1 at d 192: the rows on 8 warps; K1 at d 256 and K2 and K3:
    PR 10's 12-warp row split) against the plain versions and timed in
    turns with the shipped one (K1 also at d 256's prefill shape), the
-   K2 + K3 pair beside SDPA's backward;
+   K2 + K3 pair beside SDPA's backward; K2 and K3 in f32 (the register-
+   tiled dq_f32 and dkv_f32) against their plain versions at ragged
+   lengths around their tiles (d 128 and 512) and at F32_SHAPES, each
+   launch twice bitwise, timed there beside SDPA's f32 backward, and PR
+   2's scalar f32 design (the other build) held against the plain versions
+   and timed in turns with the shipped one at the first two of them;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -115,6 +124,10 @@ no network. Phases, each of which raises on failure:
    ``controlplane/gpu.py``'s ``worker_env`` gives a one-card notebook,
    running the training CLI over an NCCL group of one on card 0.
 
+The f32 backward's launches (K2 and K3 in f32) are counted on each path
+that runs them: the flash against dense steps of phases 5, 7 and 12 and
+the pipeline's f32 step 1 (phase 11).
+
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
 repository around it, it exits non-zero and prints no result.
@@ -179,12 +192,34 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass"}
-# the other designs (K1 at d 192 and 256, K2 and K3 at d 256; phase 3 times
-# them beside the shipped ones in turns): every kernel source built with
-# -DFLASH_OTHER_WIDE=1 into here
-OTHER_WIDE_DIR = ROOT / "build" / "chip_smoke_other_wide"
-# the head dims at which some kernel ships one of two designs
+# the other designs (K1 at d 192 and 256, K2 and K3 at d 256 in bf16 and
+# at d 128 in f32; phase 3 times them beside the shipped ones in turns):
+# every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
+OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
+# the head dims at which some bf16 kernel ships one of two designs
 DESIGN_DIMS = (192, 256)
+# K2's and K3's f32 designs by the id flash_bwd_f32_design returns
+# (csrc/flash_bwd.cu's F32Design), and the head dim at which the other
+# build runs the other one
+F32_DESIGNS = {0: "scalar", 1: "register-tiled"}
+F32_DESIGN_DIM = 128
+# the f32 kernels phase 2 reports ptxas's registers, spills and C75xx notes
+# for, at every head dim (the scalar ones only in the other build); the
+# register-tiled ones must not spill
+F32_KERNELS = ("dq_f32", "dkv_f32", "f32_reduce", "dq_f32_scalar",
+               "dkv_f32_scalar")
+F32_NO_SPILL = ("dq_f32", "dkv_f32", "f32_reduce")
+# K2 and K3 in f32 are timed (phase 3) at these shapes, label -> (b, s,
+# heads, KV heads, head dim), causal, beside SDPA's f32 backward: bench_800m's
+# heads at the serving prompt's length (the f32 parity steps and f32
+# prefill run there) and at the training shape, and phase 12's d 256 and
+# d 512 heads; the first F32_IN_TURNS also in turns with the other build's
+# scalar design
+F32_SHAPES = {"b2 s1000 h12 hkv4 d128": (2, 1000, 12, 4, 128),
+              "b8 s2048 h12 hkv4 d128": (8, 2048, 12, 4, 128),
+              "b2 s1000 h6 hkv2 d256": (2, 1000, 6, 2, 256),
+              "b2 s1000 h3 hkv1 d512": (2, 1000, 3, 1, 512)}
+F32_IN_TURNS = 2
 
 # serving path: bench_800m, batch 4, a 1000-token prompt, 64 new tokens
 PRESET, BATCH, PROMPT, NEW = "bench_800m", 4, 1000, 64
@@ -364,6 +399,31 @@ def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the f32 K2 and K3 launches (and K1's) of each path that runs K2 and K3 in
+# f32 (the flash against dense steps of phases 5, 7 and 12, phase 11's
+# pipelined f32 step 1), as ``_f32_counted`` records them: {path: {kernel:
+# launches}}
+F32_PATHS: dict = {}
+
+
+def _f32_counted(path: str, fn):
+    """``fn()``, with the K1, K2 and K3 launches it made added to
+    ``F32_PATHS[path]`` and printed."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    before = _counts(fa)
+    out = fn()
+    torch.cuda.synchronize()
+    got = F32_PATHS.setdefault(path, dict.fromkeys(before, 0))
+    for name, n in _counts(fa).items():
+        got[name] += n - before[name]
+    _log(f"f32 launches on {path}: K1 {got['flash_fwd']}, K2 "
+         f"{got['flash_bwd_dq']}, K3 {got['flash_bwd_dkv']}")
+    return out
+
+
 # cycles of a spin on the card (about 10 ms on an H100) queued ahead of a
 # kernel's timed run: the host enqueues the run's launches meanwhile, so the
 # events time the card and not the host (a K1 call's host path, measured
@@ -416,8 +476,9 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
-    port builds it, and with the other designs at d 192 and 256 (phase 3
-    times both)."""
+    port builds it, and with the other designs (bf16 at d 192 and 256, f32
+    at d 128; phase 3 times both). Raises if a register-tiled f32 kernel
+    spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
@@ -426,10 +487,11 @@ def phase_build() -> None:
     with ThreadPoolExecutor(2 * len(KERNEL_SOURCES)) as pool:
         # map submits every build at once; the lists wait for them
         built = pool.map(_build.build, KERNEL_SOURCES)
-        other = pool.map(_build_other_wide, KERNEL_SOURCES)
+        other = pool.map(_build_other_designs, KERNEL_SOURCES)
         libs, others = list(built), list(other)
     _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
-         f"designs at d 192 and 256, in {time.perf_counter() - t0:.1f} s")
+         f"designs (bf16 at d 192 and 256, f32 at d {F32_DESIGN_DIM}), in "
+         f"{time.perf_counter() - t0:.1f} s")
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
@@ -438,19 +500,30 @@ def phase_build() -> None:
                 if any(w in line for w in ("entry function", "registers",
                                            "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
-    # the d 192 and 256 kernels of both designs, in one line each
+    # the d 192 and 256 kernels of both designs and the f32 kernels at
+    # every head dim, in one line each
+    from service_account_auth_improvements_tpu_torch.ops.flash_attention \
+        import KERNEL_HEAD_DIMS
+
+    spilled = []
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if not log.exists():
             continue
         for fn, n in ptxas_summary(log.read_text()).items():
-            for d in DESIGN_DIMS:
+            for d in KERNEL_HEAD_DIMS:
                 kernel = _template_name(fn, d)
-                if kernel:
-                    _log(f"ptxas {kernel}<{d}> ({lib.parent.name}): "
-                         f"{n['registers']} registers, {n['spill_stores']} "
-                         f"bytes of spill stores, C75xx: "
-                         f"{', '.join(n['notes']) or 'none'}")
+                if not kernel or (d not in DESIGN_DIMS
+                                  and kernel not in F32_KERNELS):
+                    continue
+                _log(f"ptxas {kernel}<{d}> ({lib.parent.name}): "
+                     f"{n['registers']} registers, {n['spill_stores']} "
+                     f"bytes of spill stores, C75xx: "
+                     f"{', '.join(n['notes']) or 'none'}")
+                if kernel in F32_NO_SPILL and n["spill_stores"]:
+                    spilled.append(f"{kernel}<{d}>")
+    if spilled:
+        raise AssertionError(f"register-tiled f32 kernels spill: {spilled}")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -492,22 +565,22 @@ def _template_name(mangled: str, d: int) -> str | None:
     return None
 
 
-def _build_other_wide(name: str) -> Path:
-    """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_WIDE=1`` (at d 192 and
-    256 each kernel that ships one of two designs takes the one the port
-    does not ship there) into OTHER_WIDE_DIR, with ``ops/_build.py``'s
-    flags; its ptxas report beside it."""
+def _build_other_designs(name: str) -> Path:
+    """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_DESIGNS=1`` (each
+    kernel that ships one of two designs takes the one the port does not
+    ship: bf16 at d 192 and 256, f32 at d 128) into OTHER_DESIGNS_DIR, with
+    ``ops/_build.py``'s flags; its ptxas report beside it."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
-    OTHER_WIDE_DIR.mkdir(parents=True, exist_ok=True)
-    out = OTHER_WIDE_DIR / f"lib{name}.so"
+    OTHER_DESIGNS_DIR.mkdir(parents=True, exist_ok=True)
+    out = OTHER_DESIGNS_DIR / f"lib{name}.so"
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_OTHER_WIDE=1", "-o",
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_OTHER_DESIGNS=1", "-o",
          str(out), str(_build.CSRC / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu with "
-                           f"-DFLASH_OTHER_WIDE=1:\n{proc.stdout}"
+                           f"-DFLASH_OTHER_DESIGNS=1:\n{proc.stdout}"
                            f"{proc.stderr}")
     out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
     return out
@@ -703,6 +776,8 @@ def phase_kernels() -> dict:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5,
                   queue_ahead=True)
+    plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
+                        iters=5, warmup=1, queue_ahead=True)
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=5,
         queue_ahead=True)
@@ -710,12 +785,14 @@ def phase_kernels() -> dict:
     bound_ms, bound_by = kernel_bound(2, 12, 4, PROMPT, PROMPT, 128,
                                       torch.float32, True)
     _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms "
-         f"({bound_ms / ms:.3f} of bound), sdpa {lib_ms:.4f} ms ({backend}), "
-         f"bound {bound_ms:.4f} ms ({bound_by}, f32 at "
-         f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TF/s)")
+         f"({bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, sdpa "
+         f"{lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
+         f"({bound_by}, f32 at {PEAK_FLOPS[torch.float32] / 1e12:.0f} "
+         "TF/s)")
     f32 = {f"b2 s{PROMPT} h12 hkv4 d128 f32 causal": dict(
-        ms=ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-        library_backend=backend, bound_share=bound_ms / ms)}
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms, library_backend=backend,
+        bound_share=bound_ms / ms)}
     # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
     ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
         f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
@@ -843,8 +920,19 @@ def phase_bwd_kernels() -> dict:
         ("d256 gqa4 s300 bf16", 2, 300, 8, 2, 256, torch.bfloat16, True),
         ("d256 non-causal s512 bf16", 2, 512, 6, 2, 256, torch.bfloat16,
          False),
+        # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
+        # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
+        # 8-row query tiles at d 512) one row short of and one past their
+        # ends, and F32_SHAPES
+        *((f"f32 d128 s{s}", 2, s, 6, 2, 128, torch.float32, True)
+          for s in (31, 33, 63, 65, 127, 129)),
+        *((f"f32 d512 s{s}", 2, s, 3, 1, 512, torch.float32, True)
+          for s in (7, 9, 31, 33, 63, 65)),
+        *((f"f32 {label}", b, s, h, hkv, d, torch.float32, True)
+          for label, (b, s, h, hkv, d) in F32_SHAPES.items()),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst_f32 = dict(worst)
     # the largest error of the bf16 cases at each wide head dim
     worst_wide = {(kernel, d): 0.0 for kernel in worst
                   for _, _, d in _kernel_heads().values()}
@@ -867,29 +955,31 @@ def phase_bwd_kernels() -> dict:
                                                       delta, causal)
         ek = _check(f"{name} dk", dk, want_dk, atol, rtol)
         ev = _check(f"{name} dv", dv, want_dv, atol, rtol)
-        if ("flash_bwd_dq", d) not in worst_wide:
+        if dtype == torch.float32:
+            worst_f32["flash_bwd_dq"] = max(worst_f32["flash_bwd_dq"], e)
+            worst_f32["flash_bwd_dkv"] = max(worst_f32["flash_bwd_dkv"], ek,
+                                             ev)
+        elif ("flash_bwd_dq", d) not in worst_wide:
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e)
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
-        elif dtype == torch.bfloat16:
+        else:
             worst_wide["flash_bwd_dq", d] = max(worst_wide["flash_bwd_dq", d],
                                                 e)
             worst_wide["flash_bwd_dkv", d] = max(
                 worst_wide["flash_bwd_dkv", d], ek, ev)
         _log(f"kernel {name}: dq max abs err {e:.3e}, dk {ek:.3e}, dv "
              f"{ev:.3e} (atol {atol}, rtol {rtol})")
-        if dtype == torch.bfloat16:
-            # K2 and K3 sum in a fixed order with no atomics: a second
-            # launch on the same inputs gives the same bits
-            dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
-            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-            torch.cuda.synchronize()
-            if not torch.equal(dq, dq2):
-                raise AssertionError(f"{name}: K2 is not deterministic")
-            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                raise AssertionError(f"{name}: K3 is not deterministic")
-            _log(f"kernel {name}: K2 and K3 twice on one input, bitwise "
-                 "equal")
-            del dq2, dk2, dv2
+        # K2 and K3 sum in a fixed order with no atomics (f32: K3's split
+        # parts too): a second launch on the same inputs gives the same bits
+        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        if not torch.equal(dq, dq2):
+            raise AssertionError(f"{name}: K2 is not deterministic")
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"{name}: K3 is not deterministic")
+        _log(f"kernel {name}: K2 and K3 twice on one input, bitwise equal")
+        del dq2, dk2, dv2
         del want_dk, want_dv, q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
@@ -980,50 +1070,30 @@ def phase_bwd_kernels() -> dict:
                 n, max_abs_err=worst_wide[name, d],
                 shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 "
                       "causal")
-    q32, k32, v32, do32, o32, lse32 = _bwd_inputs(2, PROMPT, 12, 4, 128,
-                                                  torch.float32, gen, True)
-    d32 = fa.flash_bwd_delta(o32, do32)
-    sq, sk, sv = (t.detach().clone().requires_grad_(True)
-                  for t in (q32, k32, v32))
-    so = torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True, enable_gqa=True)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(
-        so, (sq, sk, sv), do32, retain_graph=True), iters=5,
-        queue_ahead=True)
-    backend = _sdpa_backend(q32, k32, v32)
-    for name, fn, kind in (
-            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(
-                q32, k32, v32, do32, lse32, d32, True), "dq"),
-            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
-                q32, k32, v32, do32, lse32, d32, True), "dkv")):
-        ms = _time_ms(fn, iters=5, queue_ahead=True)
-        bound_ms, bound_by = kernel_bound(2, 12, 4, PROMPT, PROMPT, 128,
-                                          torch.float32, True, kind)
-        _log(f"time {name} b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel "
-             f"{ms:.4f} ms ({bound_ms / ms:.3f} of bound), sdpa backward "
-             f"{lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
-             f"({bound_by}, f32 at {PEAK_FLOPS[torch.float32] / 1e12:.0f} "
-             "TF/s)")
-        out[name]["more_shapes"][f"b2 s{PROMPT} h12 hkv4 d128 f32 causal"] = (
-            dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=lib_ms, library_backend=backend,
-                 bound_share=bound_ms / ms))
-    del q32, k32, v32, do32, o32, lse32, d32, sq, sk, sv, so
+    # f32 (dq_f32, dkv_f32) at F32_SHAPES
+    for name in out:
+        out[name]["f32"] = {}
+    for label, (b, s, h, hkv, d) in F32_SHAPES.items():
+        for name, n in _time_k2_k3("f32", b, s, h, hkv, d, gen,
+                                   torch.float32).items():
+            out[name]["f32"][label] = dict(
+                n, max_abs_err=worst_f32[name],
+                shape=f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal")
     return out
 
 
-def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
-    """K2 and K3 at one bf16 causal shape, each timed beside its plain
-    version and SDPA's backward (one call for dQ, dK and dV together,
-    naming the backend SDPA took), with TF/s, the share of the bound and
-    the pair's sum (``pair_ms``, beside SDPA's backward): {kernel name:
-    numbers}."""
+def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
+    """K2 and K3 at one causal shape (bf16 unless ``dtype`` says f32),
+    each timed beside its plain version and SDPA's backward (one call for
+    dQ, dK and dV together, naming the backend SDPA took), with TF/s, the
+    share of the bound (f32: at the f32 rate) and the pair's sum
+    (``pair_ms``, beside SDPA's backward): {kernel name: numbers}."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, torch.bfloat16, gen,
-                                      True)
+    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
     delta = fa.flash_bwd_delta(o, do)
     sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     so = torch.nn.functional.scaled_dot_product_attention(
@@ -1043,13 +1113,14 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
                                                 True), "dkv")):
         ms = _time_ms(kern, queue_ahead=True)
         plain_ms = _time_ms(plain, iters=3, warmup=1, queue_ahead=True)
-        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
-                                          True, kind)
+        bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, dtype, True,
+                                          kind)
         tflops = kernel_flops(b, h, s, s, d, True, kind) / ms / 1e9
-        _log(f"time {name} {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
-             f"kernel {ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of "
-             f"bound), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
-             f"ms ({backend}), bound {bound_ms:.4f} ms ({bound_by})")
+        _log(f"time {name} {label} b{b} s{s} h{h} hkv{hkv} d{d} {tag} "
+             f"causal: kernel {ms:.4f} ms ({tflops:.1f} TF/s, "
+             f"{bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, sdpa "
+             f"backward {lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
+             f"({bound_by}, at {PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library_backend=backend, bound_ms=bound_ms,
                          bound_by=bound_by, tflops=tflops,
@@ -1058,7 +1129,7 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen) -> dict:
     pair_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     for n in out.values():
         n["pair_ms"] = pair_ms
-    _log(f"time K2 + K3 {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: "
+    _log(f"time K2 + K3 {label} b{b} s{s} h{h} hkv{hkv} d{d} {tag} causal: "
          f"{pair_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms ({backend}, "
          f"{pair_ms / lib_ms:.3f}x)")
     del q, k, v, do, o, lse, delta, sq, sk, sv, so
@@ -1078,7 +1149,7 @@ def phase_wide_designs() -> dict:
     block, dV on one warpgroup and dK on the other, one pass). The port
     ships, per kernel and head dim, the one its sources name
     (``flash_fwd_design``, ``flash_bwd_dq_design``, ``flash_bwd_dkv_design``
-    in each library); the other is built with -DFLASH_OTHER_WIDE=1 (phase
+    in each library); the other is built with -DFLASH_OTHER_DESIGNS=1 (phase
     2). At phase 12's
     training shape of each head dim (and for K1 at d 256 also at its
     per-length prefill, b 4 s 1000) the other design is held against the
@@ -1086,8 +1157,6 @@ def phase_wide_designs() -> dict:
     are timed in turns on the same inputs (shipped, other, other,
     shipped), K2 + K3 as a pair too. Returns {head dim: {kernel:
     numbers}}, K1's prefill numbers under ``"prefill"``."""
-    import ctypes
-
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
     )
@@ -1097,9 +1166,7 @@ def phase_wide_designs() -> dict:
 
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(5)
-    libs = {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
-            "other": {n: ctypes.CDLL(str(OTHER_WIDE_DIR / f"lib{n}.so"))
-                      for n in KERNEL_SOURCES}}
+    libs = _design_libs()
     named = {d: {which: design_names(libs[which]["flash_fwd"],
                                      libs[which]["flash_bwd"], d)
                  for which in libs}
@@ -1184,6 +1251,89 @@ def phase_wide_designs() -> dict:
     finally:
         _build._libs.update(libs["shipped"])
     return out
+
+
+def _design_libs() -> dict:
+    """Both builds of every kernel source: {"shipped": the port's,
+    "other": phase 2's -DFLASH_OTHER_DESIGNS=1 build}, {source: library}
+    each."""
+    import ctypes
+
+    from service_account_auth_improvements_tpu_torch.ops import _build
+
+    return {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
+            "other": {n: ctypes.CDLL(str(OTHER_DESIGNS_DIR / f"lib{n}.so"))
+                      for n in KERNEL_SOURCES}}
+
+
+def phase_f32_designs() -> dict:
+    """K2 and K3 in f32 have two designs at d 128: the register-tiled
+    kernels (dq_f32, dkv_f32) and PR 2's scalar ones (dq_f32_scalar,
+    dkv_f32_scalar: a thread forms whole length-D dots from shared memory,
+    loads synchronous). The port ships the one ``flash_bwd_f32_design``
+    names; the other build runs the other. At the first F32_IN_TURNS
+    shapes of F32_SHAPES the other design is held against the plain
+    versions and launched twice on one input (bitwise), then both are
+    timed in turns (shipped, other, other, shipped), K2 + K3 as a pair
+    beside SDPA's f32 backward. Returns {shape label: {kernel:
+    numbers}}."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    dtype = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    libs = _design_libs()
+    named = {which: f32_design_names(libs[which]["flash_bwd"],
+                                     F32_DESIGN_DIM)
+             for which in libs}
+    out = {}
+    for label, (b, s, h, hkv, d) in list(F32_SHAPES.items())[:F32_IN_TURNS]:
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        calls = {
+            "flash_bwd_dq": (
+                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
+                lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   True),),
+                [BWD_TOL[dtype]]),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   True),
+                [BWD_TOL[dtype]] * 2),
+        }
+        shape = f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal"
+        out[label] = _in_turns(libs, named, calls, shape)
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=5,
+            queue_ahead=True)
+        pair = {which: sum(out[label][name][f"{which}_ms"]
+                           for name in calls)
+                for which in ("shipped", "other")}
+        for name in calls:
+            out[label][name].update(shipped_pair_ms=pair["shipped"],
+                                    other_pair_ms=pair["other"],
+                                    library_ms=lib_ms)
+        _log(f"time f32 designs K2 + K3 {shape}, in turns: shipped "
+             f"({named['shipped']['flash_bwd_dq']}) {pair['shipped']:.4f} "
+             f"ms, other ({named['other']['flash_bwd_dq']}) "
+             f"{pair['other']:.4f} ms, sdpa backward {lib_ms:.4f} ms "
+             f"({_sdpa_backend(q, k, v)})")
+        del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_design_names(bwd, d: int) -> dict:
+    """The f32 design K2 and K3 of this flash_bwd library run at head dim
+    ``d``, by name (the F32Design id of ``flash_bwd_f32_design``)."""
+    name = F32_DESIGNS[bwd.flash_bwd_f32_design(d)]
+    return {"flash_bwd_dq": name, "flash_bwd_dkv": name}
 
 
 def _in_turns(libs, named, calls, shape: str) -> dict:
@@ -1613,7 +1763,12 @@ def _grads_flash_vs_dense(cfg, step_mod) -> None:
                    for k, v in leaves.items()}
             loss = llama.next_token_loss(c, step_mod._rebuild(params, req),
                                          tokens)
-            grads = torch.autograd.grad(loss, list(req.values()))
+            if name == "f32" and impl == "flash":
+                grads = _f32_counted(
+                    f"flash vs dense grads d{cfg.head_dim}",
+                    lambda: torch.autograd.grad(loss, list(req.values())))
+            else:
+                grads = torch.autograd.grad(loss, list(req.values()))
             out[impl] = (float(loss.detach()), dict(zip(req, grads)))
         (lf, gf), (ld, gd) = out["flash"], out["dense"]
         nf = float(step_mod.global_norm(gf))
@@ -2435,7 +2590,11 @@ def _moe_flash_vs_dense(cfg) -> None:
         req = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
         loss = llama.next_token_loss(c, step_mod._rebuild(params, req),
                                      tokens)
-        grads = torch.autograd.grad(loss, list(req.values()))
+        grads = _f32_counted(
+            "moe flash vs dense grads",
+            lambda: torch.autograd.grad(loss, list(req.values()))) \
+            if impl == "flash" else torch.autograd.grad(
+                loss, list(req.values()))
         out[impl] = (torch.stack(choices), float(loss.detach()),
                      dict(zip(req, grads)))
     (rf, lf, gf), (rd, ld, gd) = out["flash"], out["dense"]
@@ -3767,14 +3926,16 @@ def _pipeline_full_width() -> dict:
                          / ref[k].abs().max().clamp_min(1e-30))
                    for k in ref)
 
-    l_plain, g_plain = grads(lambda p: llama.next_token_loss(
-        c32, p, tokens, mask))
-    l_pipe, g_pipe = grads(lambda p: _pipe_loss(c32, p, tokens, mask))
+    l_plain, g_plain = _f32_counted(
+        "pipeline step 1 f32", lambda: grads(lambda p: llama.next_token_loss(
+            c32, p, tokens, mask)))
+    l_pipe, g_pipe = _f32_counted("pipeline step 1 f32", lambda: grads(
+        lambda p: _pipe_loss(c32, p, tokens, mask)))
     sound = leaf_diff(g_pipe, g_plain)
     finite = all(bool(torch.isfinite(g).all()) for g in g_pipe.values())
     del g_pipe
-    l_ctrl, g_ctrl = grads(lambda p: _pipe_loss(c32, p, tokens, mask,
-                                                drop=PIPE_CONTROL_DROP))
+    l_ctrl, g_ctrl = _f32_counted("pipeline step 1 f32", lambda: grads(
+        lambda p: _pipe_loss(c32, p, tokens, mask, drop=PIPE_CONTROL_DROP)))
     control = leaf_diff(g_ctrl, g_plain)
     del g_ctrl, g_plain, state0, params
     torch.cuda.empty_cache()
@@ -4596,6 +4757,43 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     return entries
 
 
+def f32_kernel_entries(numbers: dict, designs: dict, paths: dict) -> list:
+    """K2's and K3's f32 ``kernels`` entries (dq_f32, dkv_f32), from phase
+    3's numbers at F32_SHAPES (``numbers[kernel]["f32"][label]``: the first
+    shape's as the entry's, the others under ``more_shapes``),
+    ``phase_f32_designs``' (``designs[label][kernel]``, the designs timed
+    in turns) and the f32 launches of each path (``paths[path][kernel]``).
+    Raises if a path launched neither kernel."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share",
+            "pair_ms")
+    first, *rest = F32_SHAPES
+    entries = []
+    for name, (src, _, line) in KERNELS.items():
+        if name == "flash_fwd":
+            continue
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        if not by_path or not all(by_path.values()):
+            raise AssertionError(f"{name} f32: a path launched no kernel: "
+                                 f"{by_path}")
+        n = numbers[name]["f32"]
+        entries.append({
+            "name": f"{name} f32",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/{src}",
+            "replaces": "service_account_auth_improvements_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            **{key: n[first][key] for key in keys},
+            "more_shapes": {label: {key: n[label][key] for key in keys}
+                            for label in rest},
+            "designs_in_turns": {label: designs[label][name]
+                                 for label in designs},
+        })
+    return entries
+
+
 def main() -> int:
     # full f32 products everywhere (no TF32), as the f32 checks assume
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4606,6 +4804,8 @@ def main() -> int:
     numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
     designs = _timed("kernels d 192 and 256 designs", phase_wide_designs)
+    f32_designs = _timed("kernels f32 designs", phase_f32_designs)
+    F32_PATHS.clear()  # the f32 backward's launches on the paths below
     serving = _timed("serving", phase_serving)
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
@@ -4647,6 +4847,7 @@ def main() -> int:
             "more_shapes": n["more_shapes"],
         })
     kernels += wide_kernel_entries(numbers, wide, designs)
+    kernels += f32_kernel_entries(numbers, f32_designs, F32_PATHS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

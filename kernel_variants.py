@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
-K2 (``dq_wgmma`` at d 128 and ``dq_rows8`` at d 256) and K3
-(``dkv_onepass`` at d 256, both in ``csrc/flash_bwd.cu``) and time them
-against the committed kernels on one CUDA card.
+K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 256, ``dq_f32`` at d 128 in
+f32) and K3 (``dkv_onepass`` at d 256, ``dkv_f32`` at d 128 in f32, all
+in ``csrc/flash_bwd.cu``) and time them against the committed kernels on
+one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
-``python3 kernel_variants.py``. Each variant is the committed source of
+``python3 kernel_variants.py [kernel ...]`` (the kernels of
+``KERNEL_HEADS`` whose variants to run; all without arguments). Each
+variant is the committed source of
 the kernel it edits with the text edits listed in ``VARIANTS`` (an edit
 whose text is not found exactly once fails the run). Every source is built
 with the flags of ``ops/_build.py`` into
@@ -14,13 +17,13 @@ with the flags of ``ops/_build.py`` into
 together; ptxas's lines for the kernel each variant edits are printed.
 Each build is held against the kernel's plain version
 (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
-``flash_bwd_dkv_reference``) at a ragged shape and at the training shape
-of the kernel's head dim (``KERNEL_HEADS``; chip_smoke.py's ``TOL``,
-``LSE_ATOL`` and ``BWD_TOL``) and twice on one input (bitwise), then each
-kernel's variants are timed at its training shape in turns with the
-committed source (committed, variants, variants in reverse,
-committed), queued behind a spin on the card as chip_smoke.py times its
-kernels.
+``flash_bwd_dkv_reference``) at a ragged shape and at the timed shape of
+the kernel (``KERNEL_HEADS``, ``KERNEL_SHAPES``, in the kernel's dtype,
+``KERNEL_DTYPES``; chip_smoke.py's ``TOL``, ``LSE_ATOL`` and
+``BWD_TOL``) and twice on one input (bitwise), then each kernel's variants
+are timed at its timed shape in turns with the committed source
+(committed, variants, variants in reverse, committed), queued behind a
+spin on the card as chip_smoke.py times its kernels.
 """
 
 from __future__ import annotations
@@ -403,12 +406,91 @@ VARIANTS = {
 """ + "    fwd_rescale(o, alpha0, "
           "alpha1);\n    mbar_wait(k_full + 8 * s, ph);\n")],
         "flash_fwd_rows8"),
+    "f32_k2_bk32": (
+        "f32 K2 at d 128: 32-key K/V tiles in 3 stages (4 x 2 score tiles "
+        "a thread) instead of 64 keys in 2",
+        [("  static constexpr int BK = D <= 128 ? 64 : D <= 384 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 64 ? 3 : D <= 192 ? 2 : 1;",
+          "  static constexpr int BK = D <= 64 ? 64 : D <= 384 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 128 ? 3 : D <= 192 ? 2 : 1;")],
+        "dq_f32"),
+    "f32_k2_two_stages_wide": (
+        "f32 K2 at d 256 to 384: two stages of 16 keys (4 x 1 and 2 x 1 "
+        "score tiles) instead of one of 32",
+        [("  static constexpr int BK = D <= 128 ? 64 : D <= 384 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 64 ? 3 : D <= 192 ? 2 : 1;",
+          "  static constexpr int BK = D <= 128 ? 64 : D <= 192 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 64 ? 3 : D <= 384 ? 2 : 1;")],
+        "dq_f32"),
+    "f32_k2_sync_loads": (
+        "f32 K2 (and K3) up to d 192: each streamed tile waited for right "
+        "after its copies are issued (no load overlapped with arithmetic)",
+        [("    if (i + ST - 1 < n) issue(i + ST - 1);\n"
+          "    hopper::cp_async_commit();\n  }",
+          "    if (i + ST - 1 < n) issue(i + ST - 1);\n"
+          "    hopper::cp_async_commit();\n"
+          "    hopper::cp_async_wait<0>();\n    __syncthreads();\n  }")],
+        "dq_f32"),
+    "f32_k3_st3": (
+        "f32 K3 at d 128: 3 Q/dO stages instead of 2",
+        [("  static constexpr int ST = D <= 192 ? 2 : 1;",
+          "  static constexpr int ST = D == 128 ? 3 : D <= 192 ? 2 : 1;")],
+        "dkv_f32"),
+    "f32_k3_two_stages_wide": (
+        "f32 K3 from d 256: two stages of half the query rows (16 at d 256 "
+        "to 384, 8 above) instead of one",
+        [("  static constexpr int BQ = D <= 64 ? 64 : D <= 384 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 192 ? 2 : 1;",
+          "  static constexpr int BQ = D <= 64 ? 64 : D <= 192 ? 32 : D <= "
+          "384 ? 16 : 8;\n  static constexpr int ST = 2;")],
+        "dkv_f32"),
+    "f32_k3_sync_loads": (
+        "f32 K3 (and K2) up to d 192: each streamed tile waited for right "
+        "after its copies are issued (no load overlapped with arithmetic)",
+        [("    if (i + ST - 1 < n) issue(i + ST - 1);\n"
+          "    hopper::cp_async_commit();\n  }",
+          "    if (i + ST - 1 < n) issue(i + ST - 1);\n"
+          "    hopper::cp_async_commit();\n"
+          "    hopper::cp_async_wait<0>();\n    __syncthreads();\n  }")],
+        "dkv_f32"),
+    "f32_no_split": (
+        "f32 K3 (and K2): no splits (K3: 128 blocks at b 2 s 1000, 4 KV "
+        "heads)",
+        [("constexpr int F32_MAX_SPLITS = 4;",
+          "constexpr int F32_MAX_SPLITS = 1;")],
+        "dkv_f32"),
+    "f32_k2_no_split": (
+        "f32 K2: no key-range splits (192 blocks at b 2 s 1000 d 256 and "
+        "512, where it takes 2)",
+        [("  return f32_splits((sq + DqF32<D>::BQ - 1) / DqF32<D>::BQ * h * "
+          "batch,\n                    true);",
+          "  return 1;")],
+        "dq_f32"),
+    "f32_split_ceil": (
+        "f32 K3: splits rounded up, as K2's (3 at b 2 s 1000 instead of 2)",
+        [("                    false);", "                    true);")],
+        "dkv_f32"),
+    "f32_unroll8": (
+        "f32 K2 and K3: the score and output loops unrolled 8 deep "
+        "instead of 4",
+        [("#pragma unroll 4\n  for (int d = 0; d < D; d += 4) {",
+          "#pragma unroll 8\n  for (int d = 0; d < D; d += 4) {"),
+         ("#pragma unroll 4\n  for (int r = 0; r < RED; ++r) {",
+          "#pragma unroll 8\n  for (int r = 0; r < RED; ++r) {")],
+        "dkv_f32"),
 }
 # the heads (query, KV, head dim) each edited kernel is checked and timed
-# at, at the training shape (b 8, s 2048): bench_800m's and phase 12's
-# bench_800m_d256
+# at: bench_800m's and phase 12's bench_800m_d256
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
-                "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256)}
+                "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256),
+                "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128)}
+# the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
+# heads, KV heads, head dim) it is timed at (the training shape at its
+# KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
+# F32_SHAPES, the first of which holds their targets)
+KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32}
+KERNEL_SHAPES = {"dq_f32": list(cs.F32_SHAPES.values()),
+                 "dkv_f32": list(cs.F32_SHAPES.values())}
 
 
 def source_of(kernel: str) -> str:
@@ -470,11 +552,11 @@ def _use(lib: Path, source: str) -> None:
     _build._libs[source] = ctypes.CDLL(str(lib))
 
 
-def _calls(kind: str, fa):
+def _calls(kind: str, fa, dtype=torch.bfloat16):
     """The wrapper of a kernel kind (K1 "fwd", K2 "dq", K3 "dkv") and its
     plain version, each taking (q, k, v, do, lse, delta) and returning a
-    tuple of outputs, and their tolerances [(atol, rtol)] per output."""
-    dtype = torch.bfloat16
+    tuple of outputs, and their tolerances [(atol, rtol)] per output in
+    ``dtype``."""
     if kind == "fwd":
         return ((lambda q, k, v, *_: fa.flash_fwd(q, k, v, True)),
                 (lambda q, k, v, *_: fa.flash_fwd_reference(q, k, v, True)),
@@ -497,33 +579,43 @@ def main() -> int:
     )
 
     cs.phase_device()
-    jobs = [("committed", "flash_fwd"), ("committed", "flash_bwd"),
-            *((name, source_of(VARIANTS[name][2])) for name in VARIANTS)]
+    chosen = sys.argv[1:] or list(KERNEL_HEADS)
+    unknown = set(chosen) - set(KERNEL_HEADS)
+    if unknown:
+        raise SystemExit(f"kernel_variants: no such kernels {unknown}")
+    names = [n for n in VARIANTS if VARIANTS[n][2] in chosen]
+    jobs = [*(("committed", src) for src in ("flash_fwd", "flash_bwd")
+              if any(source_of(k) == src for k in chosen)),
+            *((name, source_of(VARIANTS[name][2])) for name in names)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(_compile, jobs)))
     for name, source in jobs:
         what = VARIANTS[name][0] if name in VARIANTS else "as committed"
         cs._log(f"variant {name} ({source}.cu): {what}")
         kernels = ([VARIANTS[name][2]] if name in VARIANTS else
-                   [k for k in KERNEL_HEADS if source_of(k) == source])
+                   [k for k in chosen if source_of(k) == source])
         for kernel in kernels:
             for line in _ptxas_lines(built[name, source][1], kernel):
                 cs._log(f"  ptxas: {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    b, s = cs.TRAIN_BATCH, cs.TRAIN_SEQ
-    dtype = torch.bfloat16
-    for kernel, (h, hkv, d) in KERNEL_HEADS.items():
-        group = [n for n in VARIANTS if VARIANTS[n][2] == kernel]
+    for kernel in chosen:
+        h, hkv, d = KERNEL_HEADS[kernel]
+        timed = KERNEL_SHAPES.get(
+            kernel, [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, h, hkv, d)])
+        dtype = KERNEL_DTYPES.get(kernel, torch.bfloat16)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        group = [n for n in names if VARIANTS[n][2] == kernel]
         source = source_of(kernel)
         # K1 (O, LSE), K2 (dQ) or K3 (dK, dV): the wrapper, its plain
         # version, the tolerances and the bound
         kind = ("fwd" if source == "flash_fwd" else
                 "dkv" if kernel.startswith("dkv") else "dq")
-        fn, plain, tols = _calls(kind, fa)
+        fn, plain, tols = _calls(kind, fa, dtype)
         for name in ["committed", *group]:
             _use(built[name, source][0], source)
-            for shape in ((2, 1000, h, hkv, d), (b, s, h, hkv, d)):
+            ragged = 1000 if dtype == torch.bfloat16 else 129
+            for shape in ((2, ragged, h, hkv, d), *timed):
                 q, k, v, do, o, lse = cs._bwd_inputs(*shape, dtype, gen,
                                                      True)
                 delta = fa.flash_bwd_delta(o, do)
@@ -535,26 +627,29 @@ def main() -> int:
                 if not all(map(torch.equal, got, again)):
                     raise AssertionError(f"{name} {shape}: not "
                                          "deterministic")
-                cs._log(f"variant {name} b{shape[0]} s{shape[1]} d{d}: "
+                cs._log(f"variant {name} b{shape[0]} s{shape[1]} "
+                        f"d{shape[4]}: "
                         f"{kind} max abs err {err:.3e} (tolerances "
                         f"{tols}), twice bitwise equal")
                 del q, k, v, do, o, lse, delta, inputs, got, again, want
 
-        q, k, v, do, o, lse = cs._bwd_inputs(b, s, h, hkv, d, dtype, gen,
-                                             True)
-        delta = fa.flash_bwd_delta(o, do)
-        inputs = (q, k, v, do, lse, delta)
-        bound_ms, bound_by = cs.kernel_bound(b, h, hkv, s, s, d, dtype,
-                                             True, kind)
-        flops = cs.kernel_flops(b, h, s, s, d, True, kind)
-        for name in ["committed", *group, *reversed(group), "committed"]:
-            _use(built[name, source][0], source)
-            ms = cs._time_ms(lambda: fn(*inputs), queue_ahead=True)
-            cs._log(f"time variant {name} ({kernel}) {kind} b{b} s{s} "
-                    f"h{h} hkv{hkv} d{d} bf16 causal: {ms:.4f} ms "
-                    f"({flops / ms / 1e9:.1f} TF/s, {bound_ms / ms:.3f} "
-                    f"of bound {bound_ms:.4f} ms, {bound_by})")
-        del q, k, v, do, o, lse, delta, inputs
+        for b, s, h, hkv, d in timed:
+            q, k, v, do, o, lse = cs._bwd_inputs(b, s, h, hkv, d, dtype,
+                                                 gen, True)
+            delta = fa.flash_bwd_delta(o, do)
+            inputs = (q, k, v, do, lse, delta)
+            bound_ms, bound_by = cs.kernel_bound(b, h, hkv, s, s, d, dtype,
+                                                 True, kind)
+            flops = cs.kernel_flops(b, h, s, s, d, True, kind)
+            for name in ["committed", *group, *reversed(group),
+                         "committed"]:
+                _use(built[name, source][0], source)
+                ms = cs._time_ms(lambda: fn(*inputs), queue_ahead=True)
+                cs._log(f"time variant {name} ({kernel}) {kind} b{b} s{s} "
+                        f"h{h} hkv{hkv} d{d} {tag} causal: {ms:.4f} ms "
+                        f"({flops / ms / 1e9:.1f} TF/s, {bound_ms / ms:.3f} "
+                        f"of bound {bound_ms:.4f} ms, {bound_by})")
+            del q, k, v, do, o, lse, delta, inputs
     return 0
 
 

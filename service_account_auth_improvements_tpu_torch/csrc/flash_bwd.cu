@@ -48,8 +48,9 @@
 // (d 256) and `dq_split` and `dkv_split` (d 320 to 512, the output's D
 // columns split between the consumers).
 //
-// float32 inputs take scalar kernels: true f32 FMA on CUDA cores, no TF32, so
-// f32 parity with the reference holds.
+// float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
+// f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
+// see F32Design below.
 
 #include "hopper.cuh"
 
@@ -57,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -114,21 +116,22 @@ constexpr int SMEM_MAX = 232448;
 //              and warpgroup 1 dK, one pass (d 256).
 // At d 256 each of K2 and K3 ships the faster of two designs on the H100
 // (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
-// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_WIDE=1 takes PR 10's
-// tiles (dq_wgmma, dkv_wgmma) there instead (and K1's at d 192 and 256).
+// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_DESIGNS=1 takes PR
+// 10's tiles (dq_wgmma, dkv_wgmma) there instead (and K1's other design at
+// d 192 and 256, and PR 2's scalar f32 kernels at d 128: F32Design).
 enum BwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3 };
 
-#ifndef FLASH_OTHER_WIDE
-#define FLASH_OTHER_WIDE 0
+#ifndef FLASH_OTHER_DESIGNS
+#define FLASH_OTHER_DESIGNS 0
 #endif
 constexpr int dq_design(int d) {
   return d <= 192 ? kRowSplit
-         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kRows8)
+         : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
                     : kDSplit;
 }
 constexpr int dkv_design(int d) {
   return d <= 192 ? kRowSplit
-         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kOnePass)
+         : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
                     : kDSplit;
 }
 
@@ -1611,6 +1614,651 @@ dq_rows8(const __grid_constant__ DqArgs a) {
 }
 
 // ------------------------------------------------ f32: CUDA cores
+//
+// float32 inputs run on the CUDA cores in true f32 FMA (no TF32), so f32
+// parity with the reference holds. Two designs (F32Design; the C function
+// flash_bwd_f32_design reports the one a build runs, and chip_smoke.py
+// labels its f32 timings by it):
+//   kF32Tiled   dq_f32, dkv_f32 (below): register-tiled FFMA kernels with
+//               cp.async loads through a ring of stages;
+//   kF32Scalar  dq_f32_scalar, dkv_f32_scalar (PR 2's): each thread forms
+//               whole length-D dots from shared memory, loads synchronous.
+// The tiled kernels ship at every head dim; a build with
+// -DFLASH_OTHER_DESIGNS=1 runs the scalar ones at d 128 instead.
+//
+// What bounds them: the f32 FMA rate (67 TF/s on an H100; the bytes are
+// ~1% of it). An SM's FP32 pipes do 128 FMAs a clock and its shared memory
+// delivers 32 words a clock, so a kernel that reads an operand from shared
+// memory for every FMA or two (the scalar design: 2 loads a FMA in the
+// score products) is capped at 1/4 to 1/8 of the rate. The tiled design:
+//   - 256 threads (8 warps) a block; every product is register-tiled. A
+//     score tile (R rows x C columns: K2 query rows x keys, K3 keys x query
+//     rows) gives each thread SR x SC scores (K2: of S and of dP; K3: of S
+//     on warps 0-3, of dP on warps 4-7), rows gr + GR i and columns
+//     gc + GC j (interleaved, so the rows a warp reads are consecutive and
+//     fall in distinct bank groups); per 4 of D it reads one float4 a row
+//     and a column (16-byte loads, each shared by the 8 or 4 lanes of the
+//     warp that own the same row or column: broadcast) and does 4 SR SC
+//     FMAs a product. The output product (K2 dQ += dS K; K3 dV += P^T dO on
+//     warps 0-3 and dK += dS^T Q on warps 4-7) gives each thread TR rows (a
+//     float4 or float2 of the score operand a step) and D / 16 (K2) or
+//     D / 8 (K3) columns (float4s of the row operand a step). At d 128: 16
+//     float4s for 128 FMAs in K2's scores (8 FMAs a delivered word with the
+//     broadcasts), 3 for 32 in its dQ product; K3 8 for 64 and 5 for 64.
+//   - dS (K2) or P and dS (K3) go through shared memory once, stored as
+//     [reduction index][output row] (pitch + 4: conflict-free stores), the
+//     layout the output product reads in float4s.
+//   - The streamed tiles (K2: K and V; K3: Q, dO and their lse and delta)
+//     fill a ring of ST stages by cp.async 16-byte copies (cp.async.cg,
+//     zero-filled past the sequence's end), one commit group a tile: the
+//     copies of tile i + ST - 1 are in flight while tile i is computed
+//     (from d 256 ST = 1: there the shared memory holds one stage of
+//     twice the keys or query rows, and the larger score tiles win over
+//     the overlap, which is worth a few percent). The resident tile (K2:
+//     Q and dO; K3: K and V) is loaded once, in the first group. Rows are
+//     padded to D + 4 floats: consecutive rows fall in distinct 16-byte
+//     bank groups.
+//   - P = exp2(S scale log2e - lse log2e), the scale folded in (a masked
+//     score gets P = 0 by a select), dS = P (dP - delta), as the bf16
+//     kernels form them.
+//   - Tiles per head dim (DqF32, DkvF32) keep a block within 227 KB of
+//     shared memory and a thread within 255 registers: from d 320 blocks
+//     of 32 query rows (K2) or keys (K3), so that a thread's output block
+//     (BQ D / 256 floats in K2, BK D / 128 in K3) stays at most 128.
+//   - K3's parallelism is (s / BK) hkv b blocks, under one wave of 132 SMs
+//     at b 2 s 1000 with 4 KV heads; with causal masking the first key
+//     tiles also carry the most query tiles. So when a launch has fewer
+//     than two blocks a SM, each key tile's (group head, query tile) items
+//     are split into NS = 2 SMs / blocks (at most 4) contiguous ranges,
+//     one block each, whose partial dK and dV go to a workspace;
+//     f32_reduce sums them in split order. K2 splits its blocks' key
+//     ranges the same way (NS rounded up: its 192 blocks at d 256 and 512
+//     are 1.45 waves). No atomics anywhere: launched twice on one input
+//     the kernels give the same bits.
+//   - Heaviest tiles launch first (K2: the last query tiles; K3: the first
+//     key tiles), as in the bf16 kernels.
+
+enum F32Design { kF32Scalar = 0, kF32Tiled = 1 };
+
+constexpr int f32_design(int d) {
+  return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : kF32Tiled;
+}
+
+constexpr int F32_THREADS = 256;
+// at most this many query-range splits of a K3 key tile
+constexpr int F32_MAX_SPLITS = 4;
+
+// K2's tiles at head dim D: BQ query rows a block (resident Q and dO), K/V
+// tiles of BK keys in ST stages (from d 256 one: the larger key tile a
+// single stage leaves room for beat two stages of half of it in turns,
+// kernel_variants.py), SR x SC scores a thread (query rows gr + 16 i, keys
+// gc + 16 j), TR = BQ / 16 rows and D / 16 columns of dQ.
+template <int D>
+struct DqF32 {
+  static constexpr int BQ = D <= 256 ? 64 : 32;
+  static constexpr int BK = D <= 128 ? 64 : D <= 384 ? 32 : 16;
+  static constexpr int ST = D <= 64 ? 3 : D <= 192 ? 2 : 1;
+  static constexpr int SR = BQ / 16, SC = BK / 16;
+  static constexpr int P = D + 4;       // row pitch, floats
+  static constexpr int XP = BQ + 4;     // dS^T [BK][XP]
+  static constexpr int Q_OFF = 0, DO_OFF = BQ * P, KV_OFF = 2 * BQ * P;
+  static constexpr int X_OFF = KV_OFF + ST * 2 * BK * P;
+  static constexpr int BYTES = (X_OFF + BK * XP) * 4;
+  static_assert(BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K3's tiles at head dim D: BK keys a block (resident K and V), Q/dO tiles
+// of BQ query rows in ST stages (from d 256 one, as in K2). Each warp half
+// (128 threads) computes one score product, SR x SC scores a thread (keys
+// gr + 16 i, queries gc + 8 j), and owns one output (TR rows, D / 32
+// float4 columns).
+template <int D>
+struct DkvF32 {
+  static constexpr int BK = D <= 256 ? 64 : 32;
+  static constexpr int BQ = D <= 64 ? 64 : D <= 384 ? 32 : 16;
+  static constexpr int ST = D <= 192 ? 2 : 1;
+  static constexpr int SR = BK / 16, SC = BQ / 8;
+  static constexpr int P = D + 4;
+  static constexpr int XP = BK + 4;     // P and dS, each [BQ][XP]
+  static constexpr int K_OFF = 0, V_OFF = BK * P, QO_OFF = 2 * BK * P;
+  static constexpr int L_OFF = QO_OFF + ST * 2 * BQ * P;  // lse, delta
+  static constexpr int X_OFF = L_OFF + ST * 2 * BQ;
+  static constexpr int BYTES = (X_OFF + 2 * BQ * XP) * 4;
+  static_assert(BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// Issue the cp.async copies of ROWS rows of D floats, rows r0 .. of `src`
+// (element row stride ss), into `dst` (row pitch D + 4 floats); rows at or
+// past `limit` are zero-filled (nothing is read for them).
+template <int D, int ROWS>
+__device__ __forceinline__ void f32_rows_async(float* dst, const float* src,
+                                               int64_t ss, int r0, int limit,
+                                               int tid) {
+  constexpr int V = D / 4;  // 16-byte vectors a row
+  constexpr int N = ROWS * V;
+  const uint32_t base = hopper::smem_u32(dst);
+#pragma unroll
+  for (int k = 0; k < (N + F32_THREADS - 1) / F32_THREADS; ++k) {
+    const int i = tid + k * F32_THREADS;
+    if (N % F32_THREADS == 0 || i < N) {
+      const int r = i / V, c = i % V;
+      const bool in = r0 + r < limit;
+      const float* g = src + (in ? (r0 + r) * ss + 4 * c : 0);
+      hopper::cp_async_16(base + (r * (D + 4) + 4 * c) * 4, g, in ? 16 : 0);
+    }
+  }
+}
+
+// ROWS floats of a [b, h, s] row (lse or delta) from `src` + r0 into `dst`,
+// zero past `limit`, by 4-byte cp.async (the rows need not be aligned).
+template <int ROWS>
+__device__ __forceinline__ void f32_vec_async(float* dst, const float* src,
+                                              int r0, int limit, int tid) {
+  if (tid < ROWS) {
+    const bool in = r0 + tid < limit;
+    hopper::cp_async_4(hopper::smem_u32(dst + tid), src + (in ? r0 + tid : 0),
+                       in ? 4 : 0);
+  }
+}
+
+// The ring's step at streamed tile i of n (issue(j) issues tile j's
+// copies into its stage): with ST >= 2 wait for tile i (issued ST - 1
+// tiles ago), then, past a barrier that frees the stage tile i - 1 used
+// and the scores it left in shared memory, issue tile i + ST - 1; with
+// ST = 1 (no ring) wait for tile i - 1's readers, then load tile i and
+// wait for it. Either way tile i is in and visible to every thread.
+template <int ST, typename Issue>
+__device__ __forceinline__ void f32_next_stage(int i, int n,
+                                               const Issue& issue) {
+  if constexpr (ST == 1) {
+    __syncthreads();
+    issue(i);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+  } else {
+    hopper::cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (i + ST - 1 < n) issue(i + ST - 1);
+    hopper::cp_async_commit();
+  }
+}
+
+// The score products of one tile: for each of NPR products, s[n][i][j] =
+// A_n[a + GR i] . B_n[b + GC j] over D (rows of shared memory, pitch
+// D + 4). NP partial sums an element (the four products of a float4 go to
+// partials k % NP) keep at least 8 FMA chains a thread when the tile is
+// small.
+template <int D, int SR, int SC, int GR, int GC, int NPR>
+__device__ __forceinline__ void f32_dots(float (&s)[NPR][SR][SC],
+                                         const float* const (&A)[NPR],
+                                         const float* const (&B)[NPR], int a,
+                                         int b) {
+  constexpr int CH = NPR * SR * SC;  // FMA chains a thread
+  constexpr int NP = CH >= 8 ? 1 : 8 / CH;
+  constexpr int P = D + 4;
+  float ps[NPR][SR][SC][NP];
+#pragma unroll
+  for (int m = 0; m < NPR; ++m)
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+#pragma unroll
+        for (int n = 0; n < NP; ++n) ps[m][i][j][n] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+#pragma unroll
+    for (int m = 0; m < NPR; ++m) {
+      float4 x[SR], y[SC];
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        x[i] = *reinterpret_cast<const float4*>(A[m] + (a + GR * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+        y[j] = *reinterpret_cast<const float4*>(B[m] + (b + GC * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          float(&q)[NP] = ps[m][i][j];
+          q[0] = fmaf(x[i].x, y[j].x, q[0]);
+          q[1 % NP] = fmaf(x[i].y, y[j].y, q[1 % NP]);
+          q[2 % NP] = fmaf(x[i].z, y[j].z, q[2 % NP]);
+          q[3 % NP] = fmaf(x[i].w, y[j].w, q[3 % NP]);
+        }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NPR; ++m)
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        s[m][i][j] = ps[m][i][j][0];
+#pragma unroll
+        for (int n = 1; n < NP; ++n) s[m][i][j] += ps[m][i][j][n];
+      }
+}
+
+// TR floats of row `red` of a score operand X ([reduction][XP]) at column
+// `col` (a multiple of TR).
+template <int TR>
+__device__ __forceinline__ void f32_xload(float (&x)[TR], const float* X) {
+  if constexpr (TR == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(X);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (TR == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(X);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = X[0];
+  }
+}
+
+// The output product of one tile: acc[i][4 n + e] += sum_r X[r][x0 + i]
+// Y[r][4 (oc + OC n) + e] over the RED rows r of X ([RED][XP]) and Y
+// (pitch D + 4): a thread of an output grid of OC column groups owns TR
+// rows and D / (4 OC) float4 columns.
+template <int D, int TR, int RED, int XP, int OC>
+__device__ __forceinline__ void f32_outer(float (&acc)[TR][D / OC],
+                                          const float* X, const float* Y,
+                                          int x0, int oc) {
+  constexpr int NG = D / (4 * OC);
+#pragma unroll 4
+  for (int r = 0; r < RED; ++r) {
+    float x[TR];
+    f32_xload<TR>(x, X + r * XP + x0);
+    const float* yr = Y + r * (D + 4) + 4 * oc;
+#pragma unroll
+    for (int n = 0; n < NG; ++n) {
+      const float4 y = *reinterpret_cast<const float4*>(yr + 4 * OC * n);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        acc[i][4 * n] = fmaf(x[i], y.x, acc[i][4 * n]);
+        acc[i][4 * n + 1] = fmaf(x[i], y.y, acc[i][4 * n + 1]);
+        acc[i][4 * n + 2] = fmaf(x[i], y.z, acc[i][4 * n + 2]);
+        acc[i][4 * n + 3] = fmaf(x[i], y.w, acc[i][4 * n + 3]);
+      }
+    }
+  }
+}
+
+// Store a thread's TR output rows (rows row0 + i, stride ss) at float4
+// columns oc + OC n, times `scale`, skipping rows at or past `rows`.
+template <int D, int TR, int OC>
+__device__ __forceinline__ void f32_store(float* out, int64_t ss,
+                                          const float (&acc)[TR][D / OC],
+                                          float scale, int row0, int rows,
+                                          int oc) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    if (row0 + i >= rows) continue;
+    float* o = out + (row0 + i) * ss + 4 * oc;
+#pragma unroll
+    for (int n = 0; n < D / (4 * OC); ++n)
+      *reinterpret_cast<float4*>(o + 4 * OC * n) =
+          make_float4(acc[i][4 * n] * scale, acc[i][4 * n + 1] * scale,
+                      acc[i][4 * n + 2] * scale, acc[i][4 * n + 3] * scale);
+  }
+}
+
+// K2, f32: dQ for one (b, head, BQ-row query tile), or with ns > 1 its
+// part of it over one of ns contiguous ranges of the tile's key tiles,
+// written unscaled to the workspace `ws` ([ns][b h][sq][D]). Grid:
+// blockIdx.x = t (ns h b) + split (h b) + ib h + ih, the query tile
+// nq - 1 - t under causal masking (heaviest first).
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    dq_f32(const Params p, float* ws, int ns) {
+  using L = DqF32<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = BQ / 16, P = L::P;
+  static_assert(BQ == 16 * SR && BK == 16 * SC, "a 16 x 16 thread grid");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Qs = sm + L::Q_OFF;
+  float* Os = sm + L::DO_OFF;
+  float* Xs = sm + L::X_OFF;
+
+  const int tid = threadIdx.x;
+  // a 16 x 16 thread grid, lane (lane / 8, lane % 8) of each warp at (gr,
+  // gc): score rows gr + 16 i and columns gc + 16 j (the rows a warp reads
+  // consecutive, in distinct bank groups), dQ rows TR gr .. + TR - 1 and
+  // float4 columns gc + 16 n
+  const int gr = 4 * (tid >> 6) + ((tid >> 3) & 3);
+  const int gc = 8 * ((tid >> 5) & 1) + (tid & 7);
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int per_t = gridDim.x / nq;  // ns h b
+  const int hb = per_t / ns;         // h b
+  const int t = blockIdx.x / per_t;
+  const int split = blockIdx.x % per_t / hb;
+  const int ih = blockIdx.x % hb % p.h, ib = blockIdx.x % hb / p.h;
+  const int q0 = (p.causal ? nq - 1 - t : t) * BQ;
+  const int ikv = ih / (p.h / p.hkv);
+  const float* k = head_ptr<float>(p.k, p.st[K], ib, ikv);
+  const float* v = head_ptr<float>(p.v, p.st[V], ib, ikv);
+  int nk = (p.sk + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  const int beg = split * nk / ns, end = (split + 1) * nk / ns;
+
+  auto issue = [&](int ik) {
+    float* kv = sm + L::KV_OFF + (ik - beg) % ST * 2 * BK * P;
+    f32_rows_async<D, BK>(kv, k, p.st[K][2], ik * BK, p.sk, tid);
+    f32_rows_async<D, BK>(kv + BK * P, v, p.st[V][2], ik * BK, p.sk, tid);
+  };
+  f32_rows_async<D, BQ>(Qs, head_ptr<float>(p.q, p.st[Q], ib, ih),
+                        p.st[Q][2], q0, p.sq, tid);
+  f32_rows_async<D, BQ>(Os, head_ptr<float>(p.dout, p.st[DO], ib, ih),
+                        p.st[DO][2], q0, p.sq, tid);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (beg + s < end) issue(beg + s);
+    hopper::cp_async_commit();
+  }
+
+  // the thread's score rows: lse (log2 domain) and delta
+  const int64_t rowbase = (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
+  float ls[SR], dl[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int row = q0 + gr + 16 * i;
+    ls[i] = row < p.sq ? p.lse[rowbase + row] * hopper::kLog2e : 0.f;
+    dl[i] = row < p.sq ? p.delta[rowbase + row] : 0.f;
+  }
+  const float scale_log2 = p.scale * hopper::kLog2e;
+
+  float acc[TR][D / 16];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+
+#pragma unroll 1
+  for (int ik = beg; ik < end; ++ik) {
+    f32_next_stage<ST>(ik, end, issue);  // tile ik is in
+
+    const float* Ks = sm + L::KV_OFF + (ik - beg) % ST * 2 * BK * P;
+    const float* Vs = Ks + BK * P;
+    const int k0 = ik * BK;
+
+    // S = Q K^T (sd[0]) and dP = dO V^T (sd[1])
+    float sd[2][SR][SC];
+    f32_dots<D, SR, SC, 16, 16, 2>(sd, {Qs, Os}, {Ks, Vs}, gr, gc);
+
+    // dS = P (dP - delta), P = 0 past sk and (causal) after the row
+    const bool need_mask =
+        (p.causal && k0 + BK - 1 > q0) || k0 + BK > p.sk;
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float pr = hopper::fast_exp2(fmaf(sd[0][i][j], scale_log2, -ls[i]));
+        if (need_mask) {
+          const int col = k0 + gc + 16 * j;
+          if (col >= p.sk || (p.causal && col > q0 + gr + 16 * i))
+            pr = 0.f;
+        }
+        Xs[(gc + 16 * j) * L::XP + gr + 16 * i] =
+            pr * (sd[1][i][j] - dl[i]);
+      }
+    __syncthreads();
+
+    // dQ += dS K
+    f32_outer<D, TR, BK, L::XP, 16>(acc, Xs, Ks, TR * gr, gc);
+  }
+  // nothing in flight at exit (an ST = 1 block whose range was empty has
+  // its resident copies uncommitted)
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  if (ns == 1) {
+    f32_store<D, TR, 16>(
+        head_ptr_mut<float>(p.dq, p.st[DQ], ib, ih) + q0 * p.st[DQ][2],
+        p.st[DQ][2], acc, p.scale, TR * gr, p.sq - q0, gc);
+  } else {
+    f32_store<D, TR, 16>(
+        ws + ((static_cast<int64_t>(split) * hb + ib * p.h + ih) * p.sq +
+              q0) * D,
+        D, acc, 1.f, TR * gr, p.sq - q0, gc);
+  }
+}
+
+// The number of splits a launch of `blocks` blocks takes on the current
+// device: 1 from two blocks a SM up, else about two a SM, the quotient
+// rounded up or down (at most F32_MAX_SPLITS).
+inline int f32_splits(int blocks, bool up) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (blocks >= 2 * sms) return 1;
+  const int ns = up ? (2 * sms + blocks - 1) / blocks : 2 * sms / blocks;
+  return std::max(1, std::min(F32_MAX_SPLITS, ns));
+}
+
+// K2's key-range splits: rounded up (192 blocks at b 2 s 1000 d 256 or 512,
+// 1.45 waves, take 2). K3's query-range splits: rounded down (128 blocks
+// at b 2 s 1000 d 128 take 2; 3 and 4 were slower in turns,
+// kernel_variants.py).
+template <int D>
+int dq_f32_splits(int batch, int h, int sq) {
+  return f32_splits((sq + DqF32<D>::BQ - 1) / DqF32<D>::BQ * h * batch,
+                    true);
+}
+template <int D>
+int dkv_f32_splits(int batch, int hkv, int sk) {
+  return f32_splits((sk + DkvF32<D>::BK - 1) / DkvF32<D>::BK * hkv * batch,
+                    false);
+}
+
+// K3, f32: dK and dV for one (b, KV head, BK-key tile), or with ns > 1 its
+// part of them over one of ns contiguous ranges of the tile's (group head,
+// query tile) items, written to the workspace `ws` ([ns][2][b hkv][sk][D]:
+// dK unscaled, then dV). Grid: blockIdx.x = t (ns hkv b) + split (hkv b) +
+// ib hkv + ikv, the key tile t (heaviest first under causal masking).
+//
+// The warp halves split the work as dkv_onepass splits its warpgroups:
+// warps 0-3 form S^T = K Q^T, P^T (masked) into shared memory and own dV
+// += P^T dO; warps 4-7 form dP^T = V dO^T, read P^T back for dS^T =
+// P^T (dP^T - delta) and own dK += dS^T Q. A thread's score tile is then
+// 4 x 4 at d 128 (8 float4s for 64 FMAs, where both products on 4 x 2
+// took 12), and its output D / 32 float4 columns of one matrix.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    dkv_f32(const Params p, float* ws, int ns) {
+  using L = DkvF32<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = BK / 16, P = L::P, HALF = F32_THREADS / 2;
+  static_assert(BK == 16 * SR && BQ == 8 * SC, "a 16 x 8 grid a half");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Ps = sm + L::X_OFF;
+  float* Ss = Ps + BQ * L::XP;
+
+  const int tid = threadIdx.x;
+  const int half = tid / HALF, ht = tid % HALF;
+  // keys gr + 16 i and queries gc + 8 j of the scores; output rows
+  // TR gr .. + TR - 1 and float4 columns gc + 8 n
+  const int gr = 4 * (ht >> 5) + ((ht >> 3) & 3), gc = ht & 7;
+  const int nkt = (p.sk + BK - 1) / BK;
+  const int per_t = gridDim.x / nkt;  // ns hkv b
+  const int hb = per_t / ns;          // hkv b
+  const int t = blockIdx.x / per_t;
+  const int split = blockIdx.x % per_t / hb;
+  const int ikv = blockIdx.x % hb % p.hkv, ib = blockIdx.x % hb / p.hkv;
+  const int k0 = t * BK;
+  const int group = p.h / p.hkv;
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int iq0 = p.causal ? k0 / BQ : 0;
+  const int per_head = nq - iq0;
+  const int items = group * per_head;
+  const int beg = split * items / ns, end = (split + 1) * items / ns;
+
+  auto issue = [&](int it) {
+    const int hg = it / per_head, q0 = (iq0 + it % per_head) * BQ;
+    const int ih = ikv * group + hg, stage = (it - beg) % ST;
+    float* qo = sm + L::QO_OFF + stage * 2 * BQ * P;
+    f32_rows_async<D, BQ>(qo, head_ptr<float>(p.q, p.st[Q], ib, ih),
+                          p.st[Q][2], q0, p.sq, tid);
+    f32_rows_async<D, BQ>(qo + BQ * P,
+                          head_ptr<float>(p.dout, p.st[DO], ib, ih),
+                          p.st[DO][2], q0, p.sq, tid);
+    const int64_t rowbase = (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
+    float* lv = sm + L::L_OFF + stage * 2 * BQ;
+    f32_vec_async<BQ>(lv, p.lse + rowbase, q0, p.sq, tid);
+    f32_vec_async<BQ>(lv + BQ, p.delta + rowbase, q0, p.sq, tid);
+  };
+  f32_rows_async<D, BK>(sm + L::K_OFF, head_ptr<float>(p.k, p.st[K], ib, ikv),
+                        p.st[K][2], k0, p.sk, tid);
+  f32_rows_async<D, BK>(sm + L::V_OFF, head_ptr<float>(p.v, p.st[V], ib, ikv),
+                        p.st[V][2], k0, p.sk, tid);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (beg + s < end) issue(beg + s);
+    hopper::cp_async_commit();
+  }
+  const float scale_log2 = p.scale * hopper::kLog2e;
+  // K (half 0) or V (half 1): this half's resident score operand
+  const float* KV = sm + (half ? L::V_OFF : L::K_OFF);
+
+  float acc[TR][D / 8];  // dV (half 0) or dK (half 1)
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+
+#pragma unroll 1
+  for (int it = beg; it < end; ++it) {
+    f32_next_stage<ST>(it, end, issue);  // item it is in
+
+    const int stage = (it - beg) % ST;
+    const float* Qs = sm + L::QO_OFF + stage * 2 * BQ * P;
+    const float* Os = Qs + BQ * P;
+    const float* Ls = sm + L::L_OFF + stage * 2 * BQ;
+    const float* Ds = Ls + BQ;
+    const int q0 = (iq0 + it % per_head) * BQ;
+
+    // S^T = K Q^T (half 0) or dP^T = V dO^T (half 1)
+    float sd[1][SR][SC];
+    f32_dots<D, SR, SC, 16, 8, 1>(sd, {KV}, {half ? Os : Qs}, gr, gc);
+
+    if (half == 0) {
+      // P^T; 0 for queries past sq and (causal) keys after the query
+      const bool need_mask =
+          (p.causal && q0 < k0 + BK - 1) || q0 + BQ > p.sq;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+        const float lq = Ls[c] * hopper::kLog2e;
+#pragma unroll
+        for (int i = 0; i < SR; ++i) {
+          float pr = hopper::fast_exp2(fmaf(sd[0][i][j], scale_log2, -lq));
+          if (need_mask &&
+              (q0 + c >= p.sq || (p.causal && k0 + gr + 16 * i > q0 + c)))
+            pr = 0.f;
+          Ps[c * L::XP + gr + 16 * i] = pr;
+        }
+      }
+    }
+    __syncthreads();  // P^T is in
+    if (half == 1) {
+      // dS^T = P^T (dP^T - delta), at the same elements
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+        const float dq = Ds[c];
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          Ss[c * L::XP + gr + 16 * i] =
+              Ps[c * L::XP + gr + 16 * i] * (sd[0][i][j] - dq);
+      }
+      hopper::bar_sync(1, HALF);  // this half's dS^T is in
+    }
+
+    // dV += P^T dO (half 0) or dK += dS^T Q (half 1)
+    f32_outer<D, TR, BQ, L::XP, 8>(acc, half ? Ss : Ps, half ? Qs : Os,
+                                   TR * gr, gc);
+  }
+  // nothing in flight at exit (an ST = 1 block whose range was empty has
+  // its resident copies uncommitted)
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  const int rows = p.sk - k0, row0 = TR * gr;
+  if (ns == 1) {
+    float* out = half ? head_ptr_mut<float>(p.dk, p.st[DK], ib, ikv)
+                      : head_ptr_mut<float>(p.dv, p.st[DV], ib, ikv);
+    const int64_t ss = half ? p.st[DK][2] : p.st[DV][2];
+    f32_store<D, TR, 8>(out + k0 * ss, ss, acc, half ? p.scale : 1.f, row0,
+                        rows, gc);
+  } else {
+    const int64_t plane = static_cast<int64_t>(hb) * p.sk * D;
+    float* part = ws + (2 * split + (half ? 0 : 1)) * plane +
+                  ((static_cast<int64_t>(ib) * p.hkv + ikv) * p.sk + k0) * D;
+    f32_store<D, TR, 8>(part, D, acc, 1.f, row0, rows, gc);
+  }
+}
+
+// The second pass of a split f32 launch: each output row the sum of its
+// ns parts in split order; K2 (KV false, parts [ns][b h][sq][D]): dQ =
+// scale sum; K3 (KV true, parts [ns][2][b hkv][sk][D]): dK = scale sum,
+// dV = sum. One float4 a thread.
+template <int D, bool KV>
+__global__ void __launch_bounds__(F32_THREADS)
+    f32_reduce(const Params p, const float* ws, int ns, int batch) {
+  constexpr int NOUT = KV ? 2 : 1;
+  const int heads = KV ? p.hkv : p.h, seq = KV ? p.sk : p.sq;
+  const int64_t rows = static_cast<int64_t>(batch) * heads * seq;
+  const int64_t plane = rows * D;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(F32_THREADS) +
+                   threadIdx.x;
+       i < rows * (D / 4); i += static_cast<int64_t>(gridDim.x) * F32_THREADS) {
+    const int64_t row = i / (D / 4);
+    const int c = 4 * static_cast<int>(i % (D / 4));
+    const int r = static_cast<int>(row % seq);
+    const int bh = static_cast<int>(row / seq);
+    const int ih = bh % heads, ib = bh / heads;
+    // the outputs: dQ, or dK and dV
+    float* out[NOUT];
+    if constexpr (KV) {
+      out[0] = head_ptr_mut<float>(p.dk, p.st[DK], ib, ih) + r * p.st[DK][2];
+      out[NOUT - 1] =
+          head_ptr_mut<float>(p.dv, p.st[DV], ib, ih) + r * p.st[DV][2];
+    } else {
+      out[0] = head_ptr_mut<float>(p.dq, p.st[DQ], ib, ih) + r * p.st[DQ][2];
+    }
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sp = 0; sp < ns; ++sp) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            ws + (NOUT * sp + o) * plane + row * D + c);
+        sum.x += a.x, sum.y += a.y, sum.z += a.z, sum.w += a.w;
+      }
+      const float scale = o == 0 ? p.scale : 1.f;
+      *reinterpret_cast<float4*>(out[o] + c) = make_float4(
+          sum.x * scale, sum.y * scale, sum.z * scale, sum.w * scale);
+    }
+  }
+}
+
+// The workspace K2 (`dkv` 0) or K3 (`dkv` 1) needs at head dim D in f32:
+// its parts when it splits, else none.
+template <int D>
+int64_t f32_workspace(int dkv, int batch, int h, int hkv, int sq, int sk) {
+  if constexpr (f32_design(D) != kF32Tiled) {
+    return 0;
+  } else {
+    const int ns = dkv ? dkv_f32_splits<D>(batch, hkv, sk)
+                       : dq_f32_splits<D>(batch, h, sq);
+    const int64_t part = static_cast<int64_t>(batch) *
+                         (dkv ? 2 * hkv * sk : h * sq) * D * sizeof(float);
+    return ns > 1 ? ns * part : 0;
+  }
+}
+
+// PR 2's scalar f32 kernels (kF32Scalar), built only where f32_design
+// names them.
 
 constexpr int SC_BQ = 32;  // rows per tile: 4 threads per row
 constexpr int SC_BK = 32;
@@ -1643,7 +2291,7 @@ __host__ __device__ constexpr int f32_tile(int d) {
 // of keys c4 + 4j of each tile of BK keys, and dQ columns cb + c4 + 4jj of
 // the block's COLS columns starting at cb.
 template <int D>
-__global__ void __launch_bounds__(SC_THREADS) dq_f32(const Params p) {
+__global__ void __launch_bounds__(SC_THREADS) dq_f32_scalar(const Params p) {
   constexpr int BK = f32_tile(D), COLS = f32_cols(D), PARTS = D / COLS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [SC_BQ][D + 1]
@@ -1722,7 +2370,7 @@ __global__ void __launch_bounds__(SC_THREADS) dq_f32(const Params p) {
 // c4 + 4j of each query tile of BQ rows, and dK/dV columns cb + c4 + 4jj of
 // the block's COLS columns starting at cb.
 template <int D>
-__global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
+__global__ void __launch_bounds__(SC_THREADS) dkv_f32_scalar(const Params p) {
   constexpr int BQ = f32_tile(D), COLS = f32_cols(D), PARTS = D / COLS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // [SC_BK][D + 1]
@@ -1815,15 +2463,34 @@ __global__ void __launch_bounds__(SC_THREADS) dkv_f32(const Params p) {
   }
 }
 
-template <typename Kernel>
+template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t stream, const Params& p) {
+                   cudaStream_t stream, const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// An f32 kernel (dq_f32 or dkv_f32: KV) over `blocks` blocks a split, in
+// `ns` splits, and with ns > 1 its second pass, f32_reduce, over the `rows`
+// output rows.
+template <int D, bool KV, typename Kernel>
+cudaError_t launch_f32(Kernel kernel, const Params& p, int batch, int blocks,
+                       int ns, size_t smem, int64_t rows, void* ws,
+                       cudaStream_t stream) {
+  if (ns > 1 && !ws) return cudaErrorInvalidValue;
+  if (cudaError_t err = launch(kernel, dim3(blocks * ns), F32_THREADS, smem,
+                               stream, p, static_cast<float*>(ws), ns))
+    return err;
+  if (ns == 1) return cudaSuccess;
+  const int64_t vecs = rows * D / 4;
+  const int grid = static_cast<int>(
+      std::min<int64_t>((vecs + F32_THREADS - 1) / F32_THREADS, 4096));
+  return launch(f32_reduce<D, KV>, dim3(grid), F32_THREADS, 0, stream, p,
+                static_cast<const float*>(ws), ns, batch);
 }
 
 // The tensor maps and arguments K2 takes, for each bf16 design: Q and dO
@@ -1863,7 +2530,7 @@ cudaError_t dq_args(DqArgs& a, const Params& p, int batch, int d) {
 }
 
 template <int D>
-cudaError_t run_dq(const Params& p, int batch, int bf16_in,
+cudaError_t run_dq(const Params& p, int batch, int bf16_in, void* ws,
                    cudaStream_t stream) {
   if (bf16_in) {
     DqArgs a;
@@ -1887,12 +2554,20 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in,
                             DqSmem<D>::BYTES, stream, a);
     }
   }
-  constexpr int BK = f32_tile(D);
-  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
-                  batch);
-  const size_t smem =
-      ((2 * SC_BQ + 2 * BK) * (D + 1) + SC_BQ * (BK + 1)) * sizeof(float);
-  return launch(dq_f32<D>, grid, SC_THREADS, smem, stream, p);
+  if constexpr (f32_design(D) == kF32Tiled) {
+    using L = DqF32<D>;
+    return launch_f32<D, false>(
+        dq_f32<D>, p, batch, (p.sq + L::BQ - 1) / L::BQ * p.h * batch,
+        dq_f32_splits<D>(batch, p.h, p.sq), L::BYTES,
+        static_cast<int64_t>(batch) * p.h * p.sq, ws, stream);
+  } else {
+    constexpr int BK = f32_tile(D);
+    const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
+                    batch);
+    const size_t smem =
+        ((2 * SC_BQ + 2 * BK) * (D + 1) + SC_BQ * (BK + 1)) * sizeof(float);
+    return launch(dq_f32_scalar<D>, grid, SC_THREADS, smem, stream, p);
+  }
 }
 
 // The tensor maps and arguments K3 takes, for each bf16 design: Q and dO
@@ -1935,7 +2610,7 @@ cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
 }
 
 template <int D>
-cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
+cudaError_t run_dkv(const Params& p, int batch, int bf16_in, void* ws,
                     cudaStream_t stream) {
   if (bf16_in) {
     DkvArgs a;
@@ -1960,13 +2635,21 @@ cudaError_t run_dkv(const Params& p, int batch, int bf16_in,
                             DkvSmem<D>::BYTES, stream, a);
     }
   }
-  constexpr int BQ = f32_tile(D);
-  const dim3 grid((p.sk + SC_BK - 1) / SC_BK * (D / f32_cols(D)), p.hkv,
-                  batch);
-  const size_t smem = ((2 * SC_BK + 2 * BQ) * (D + 1) +
-                       2 * SC_BK * (BQ + 1) + 2 * BQ) *
-                      sizeof(float);
-  return launch(dkv_f32<D>, grid, SC_THREADS, smem, stream, p);
+  if constexpr (f32_design(D) == kF32Tiled) {
+    using L = DkvF32<D>;
+    return launch_f32<D, true>(
+        dkv_f32<D>, p, batch, (p.sk + L::BK - 1) / L::BK * p.hkv * batch,
+        dkv_f32_splits<D>(batch, p.hkv, p.sk), L::BYTES,
+        static_cast<int64_t>(batch) * p.hkv * p.sk, ws, stream);
+  } else {
+    constexpr int BQ = f32_tile(D);
+    const dim3 grid((p.sk + SC_BK - 1) / SC_BK * (D / f32_cols(D)), p.hkv,
+                    batch);
+    const size_t smem = ((2 * SC_BK + 2 * BQ) * (D + 1) +
+                         2 * SC_BK * (BQ + 1) + 2 * BQ) *
+                        sizeof(float);
+    return launch(dkv_f32_scalar<D>, grid, SC_THREADS, smem, stream, p);
+  }
 }
 
 bool fill(Params& p, const void* q, const void* k, const void* v,
@@ -1986,32 +2669,36 @@ bool fill(Params& p, const void* q, const void* k, const void* v,
 
 // Both entry points take the same arguments. q/dO [b, h, sq, d], k/v
 // [b, hkv, sk, d], and the outputs dq [b, h, sq, d], dk/dv [b, hkv, sk, d],
-// are given by element strides: `strides` holds 21 int64, (batch, head, seq)
-// for q, k, v, dO, dq, dk, dv in that order (head dim contiguous). lse and
-// delta are [b, h, sq] f32 contiguous. bf16 = 1 for bfloat16 tensors, 0 for
-// float32. flash_bwd_dq writes dq and ignores dk/dv; flash_bwd_dkv writes
-// dk/dv and ignores dq. Each launches one kernel on `stream` and returns the
-// launch's cudaError_t (0 on success); neither synchronises.
+// are given by element strides: `strides` holds 21 int64, (batch, head,
+// seq) for q, k, v, dO, dq, dk, dv in that order (head dim contiguous; in
+// f32 rows 16-byte aligned). lse and delta are [b, h, sq] f32 contiguous.
+// bf16 = 1 for bfloat16 tensors, 0 for float32. flash_bwd_dq writes dq and
+// ignores dk/dv; flash_bwd_dkv writes dk/dv and ignores dq. `ws` is a
+// workspace of at least the flash_bwd_workspace bytes of the same kernel
+// and shape (16-byte aligned; may be null where that is 0). Each launches
+// its kernels on `stream` (in f32 with split tiles also the second pass)
+// and returns the launches' cudaError_t (0 on success); neither
+// synchronises.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, void* dk, void* dv,
                             const int64_t* strides, int bf16_in, int batch,
                             int h, int hkv, int sq, int sk, int d, int causal,
-                            float scale, void* stream) {
+                            float scale, void* ws, void* stream) {
   Params p;
   if (!fill(p, q, k, v, dout, lse, delta, dq, dk, dv, strides, batch, h, hkv,
             sq, sk, causal, scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(run_dq<64>(p, batch, bf16_in, st));
-    case 128: return static_cast<int>(run_dq<128>(p, batch, bf16_in, st));
-    case 192: return static_cast<int>(run_dq<192>(p, batch, bf16_in, st));
-    case 256: return static_cast<int>(run_dq<256>(p, batch, bf16_in, st));
-    case 320: return static_cast<int>(run_dq<320>(p, batch, bf16_in, st));
-    case 384: return static_cast<int>(run_dq<384>(p, batch, bf16_in, st));
-    case 448: return static_cast<int>(run_dq<448>(p, batch, bf16_in, st));
-    case 512: return static_cast<int>(run_dq<512>(p, batch, bf16_in, st));
+    case 64: return static_cast<int>(run_dq<64>(p, batch, bf16_in, ws, st));
+    case 128: return static_cast<int>(run_dq<128>(p, batch, bf16_in, ws, st));
+    case 192: return static_cast<int>(run_dq<192>(p, batch, bf16_in, ws, st));
+    case 256: return static_cast<int>(run_dq<256>(p, batch, bf16_in, ws, st));
+    case 320: return static_cast<int>(run_dq<320>(p, batch, bf16_in, ws, st));
+    case 384: return static_cast<int>(run_dq<384>(p, batch, bf16_in, ws, st));
+    case 448: return static_cast<int>(run_dq<448>(p, batch, bf16_in, ws, st));
+    case 512: return static_cast<int>(run_dq<512>(p, batch, bf16_in, ws, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2021,26 +2708,50 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const float* delta, void* dq, void* dk, void* dv,
                              const int64_t* strides, int bf16_in, int batch,
                              int h, int hkv, int sq, int sk, int d,
-                             int causal, float scale, void* stream) {
+                             int causal, float scale, void* ws,
+                             void* stream) {
   Params p;
   if (!fill(p, q, k, v, dout, lse, delta, dq, dk, dv, strides, batch, h, hkv,
             sq, sk, causal, scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return static_cast<int>(run_dkv<64>(p, batch, bf16_in, st));
-    case 128: return static_cast<int>(run_dkv<128>(p, batch, bf16_in, st));
-    case 192: return static_cast<int>(run_dkv<192>(p, batch, bf16_in, st));
-    case 256: return static_cast<int>(run_dkv<256>(p, batch, bf16_in, st));
-    case 320: return static_cast<int>(run_dkv<320>(p, batch, bf16_in, st));
-    case 384: return static_cast<int>(run_dkv<384>(p, batch, bf16_in, st));
-    case 448: return static_cast<int>(run_dkv<448>(p, batch, bf16_in, st));
-    case 512: return static_cast<int>(run_dkv<512>(p, batch, bf16_in, st));
+    case 64: return static_cast<int>(run_dkv<64>(p, batch, bf16_in, ws, st));
+    case 128: return static_cast<int>(run_dkv<128>(p, batch, bf16_in, ws, st));
+    case 192: return static_cast<int>(run_dkv<192>(p, batch, bf16_in, ws, st));
+    case 256: return static_cast<int>(run_dkv<256>(p, batch, bf16_in, ws, st));
+    case 320: return static_cast<int>(run_dkv<320>(p, batch, bf16_in, ws, st));
+    case 384: return static_cast<int>(run_dkv<384>(p, batch, bf16_in, ws, st));
+    case 448: return static_cast<int>(run_dkv<448>(p, batch, bf16_in, ws, st));
+    case 512: return static_cast<int>(run_dkv<512>(p, batch, bf16_in, ws, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The bytes of workspace flash_bwd_dq (`dkv` 0) or flash_bwd_dkv (`dkv` 1)
+// needs for these inputs on the current device (K2 or K3 in f32 when it
+// splits), else 0.
+extern "C" int64_t flash_bwd_workspace(int dkv, int bf16_in, int batch,
+                                       int h, int hkv, int sq, int sk,
+                                       int d) {
+  if (bf16_in || batch <= 0 || h <= 0 || hkv <= 0 || sq <= 0 || sk <= 0)
+    return 0;
+  switch (d) {
+    case 64: return f32_workspace<64>(dkv, batch, h, hkv, sq, sk);
+    case 128: return f32_workspace<128>(dkv, batch, h, hkv, sq, sk);
+    case 192: return f32_workspace<192>(dkv, batch, h, hkv, sq, sk);
+    case 256: return f32_workspace<256>(dkv, batch, h, hkv, sq, sk);
+    case 320: return f32_workspace<320>(dkv, batch, h, hkv, sq, sk);
+    case 384: return f32_workspace<384>(dkv, batch, h, hkv, sq, sk);
+    case 448: return f32_workspace<448>(dkv, batch, h, hkv, sq, sk);
+    case 512: return f32_workspace<512>(dkv, batch, h, hkv, sq, sk);
+    default: return 0;
+  }
+}
+
 // The design (BwdDesign) K2 and K3 run for bf16 inputs of head dim d
-// (chip_smoke.py labels its d 256 timings by them).
+// (chip_smoke.py labels its d 256 timings by them), and the one (F32Design)
+// both run for float32 inputs.
 extern "C" int flash_bwd_dq_design(int d) { return dq_design(d); }
 extern "C" int flash_bwd_dkv_design(int d) { return dkv_design(d); }
+extern "C" int flash_bwd_f32_design(int d) { return f32_design(d); }

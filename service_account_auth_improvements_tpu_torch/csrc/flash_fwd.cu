@@ -115,16 +115,16 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 // At d 192 and 256 K1 ships the faster of two designs on the H100
 // (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
 // flash_fwd_wgmma at d 192, flash_fwd_rows8 at d 256. A build with
-// -DFLASH_OTHER_WIDE=1 takes the other one at each.
+// -DFLASH_OTHER_DESIGNS=1 takes the other one at each.
 enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2 };
 
-#ifndef FLASH_OTHER_WIDE
-#define FLASH_OTHER_WIDE 0
+#ifndef FLASH_OTHER_DESIGNS
+#define FLASH_OTHER_DESIGNS 0
 #endif
 constexpr int fwd_design(int d) {
   return d <= 128 ? kRowSplit
-         : d == 192 ? (FLASH_OTHER_WIDE ? kRows8 : kRowSplit)
-         : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : kRows8)
+         : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : kRowSplit)
+         : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
                     : kDSplit;
 }
 
@@ -251,7 +251,7 @@ __device__ __forceinline__ void fwd_finish(const FwdArgs& a,
 // Shared memory of flash_fwd_wgmma: Q, then the K stages, the V stages and
 // the mbarriers. Each tile is D / 64 column blocks of (rows x 128 bytes).
 // Keys per stage (BK) and stages: 128 and 2 up to d 128; above (PR 10's
-// tiles; at d 256 only the -DFLASH_OTHER_WIDE=1 build runs them), as many
+// tiles; at d 256 only the -DFLASH_OTHER_DESIGNS=1 build runs them), as many
 // stages as fit (at most 4) of 64 keys at d 192 and of 32 at d 256, where
 // a 64-key S tile beside the 128 registers of O made ptxas spill and
 // serialise the wgmmas.
@@ -610,7 +610,7 @@ flash_fwd_split(const __grid_constant__ FwdArgs a) {
 // ------------------------------------------------ bf16: rows on 8 warps
 //
 // At d 256 K1 is `flash_fwd_rows8<D>` (kRows8; at d 192 it lost to
-// flash_fwd_wgmma in turns and is built only with -DFLASH_OTHER_WIDE=1).
+// flash_fwd_wgmma in turns and is built only with -DFLASH_OTHER_DESIGNS=1).
 // What held PR 10's flash_fwd_wgmma back at d 256: a 12-warp block gets 168
 // registers a thread from ptxas, setmaxnreg notwithstanding, so beside O
 // (D / 2 = 128 registers) its S tile had to shrink to 32 keys, and it still

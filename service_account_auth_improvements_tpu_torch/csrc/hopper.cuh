@@ -538,6 +538,27 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 16 bytes from global to shared memory, asynchronously, cached in L2 only
+// (cp.async.cg); both addresses 16-byte aligned. With `bytes` 0 nothing is
+// read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One arrival on `bar` once every cp.async this thread issued so far has
 // landed (.noinc: the arrival counts toward the barrier's expected count).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {

@@ -23,8 +23,12 @@ from d 320 to 512 they are
 output's D columns between the two consumer warpgroups and exchange the
 halves of each score tile through shared memory; each is built for every
 head dim in ``KERNEL_HEAD_DIMS`` with tiles chosen per dim. float32 runs
-the scalar kernels, which above d 256 split the output columns between
-two blocks. All count under the same counters. A CUDA tensor at another
+``flash_fwd_f32`` and the register-tiled FFMA kernels ``dq_f32`` and
+``dkv_f32`` (true f32 FMA, no TF32; when a launch has fewer than two
+blocks a SM, K2 splits its blocks' key ranges and K3 its key tiles' query
+ranges over up to four blocks, whose parts a second pass, ``f32_reduce``,
+sums from a workspace this module allocates). All count under the same
+counters. A CUDA tensor at another
 head dim raises: d 576 and up pass the reference's rules (its Pallas
 kernels set no upper bound), but there a warpgroup's share of the output
 passes the 256 columns one wgmma takes, and a 64-row Q tile beside two
@@ -165,24 +169,24 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def _library(name: str, fn_name: str, argtypes):
+def _library(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
     fn = getattr(_build.load(name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _FWD_ARGS = [_P] * 5 + [_I] * 7 + [_I64] * 12 + [_I, ctypes.c_float, _P]
-_BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P, _P]
 
 
 def _check_layout(name, ts, dtype):
     """The kernels' input contract: one device, one dtype (bf16 or f32), a
-    contiguous head dim and 16-byte aligned rows: the bf16 kernels move
-    rows in 16-byte vectors or by TMA, whose tensor maps need a 16-byte
-    aligned base and strides that are multiples of 16 bytes."""
+    contiguous head dim and 16-byte aligned rows: the kernels move rows in
+    16-byte vectors, by cp.async or by TMA, whose tensor maps need a
+    16-byte aligned base and strides that are multiples of 16 bytes."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError(f"{name}: inputs must be on one device")
@@ -204,7 +208,7 @@ def _check_head_dim(name, d):
 
 
 def _aligned(t) -> bool:
-    align = 8 if t.dtype == torch.bfloat16 else 1
+    align = 16 // t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and not any(s % align for s in t.stride()[:3]))
 
@@ -367,10 +371,18 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
         for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
     ptr = [t.data_ptr() if t is not None else None
            for t in (q, k, v, do, lse, delta, dq, dk, dv)]
+    bf16 = int(q.dtype == torch.bfloat16)
     fn = _library("flash_bwd", fn_name, _BWD_ARGS)
     with torch.cuda.device(q.device):
-        err = fn(*ptr, strides, int(q.dtype == torch.bfloat16), b, h, hkv,
-                 sq, sk, d, int(causal), d ** -0.5,
+        # K2 or K3 in f32 with split tiles: the parts' workspace (the
+        # caching allocator reuses it only in this stream's order)
+        nbytes = 0 if bf16 else _library(
+            "flash_bwd", "flash_bwd_workspace", [_I] * 8, _I64)(
+                int(fn_name == "flash_bwd_dkv"), bf16, b, h, hkv, sq, sk, d)
+        ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+              if nbytes > 0 else None)
+        err = fn(*ptr, strides, bf16, b, h, hkv, sq, sk, d, int(causal),
+                 d ** -0.5, ws.data_ptr() if ws is not None else None,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "

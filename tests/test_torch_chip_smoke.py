@@ -222,7 +222,7 @@ def test_kernel_only_head_settings():
                      ("flash_bwd", "flash_bwd_dkv_design(int d)")):
         assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
-        assert "#ifndef FLASH_OTHER_WIDE" in text
+        assert "#ifndef FLASH_OTHER_DESIGNS" in text
     assert chip_smoke.DESIGN_DIMS == (192, 256)
 
 
@@ -257,7 +257,7 @@ def test_fwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K1's design function can return, and
     no other, with the names K2's and K3's ids of the same design carry;
     the source's rule: the row split from d 64 to 192, the rows on 8
-    warps at d 256 (a -DFLASH_OTHER_WIDE=1 build takes the other of the
+    warps at d 256 (a -DFLASH_OTHER_DESIGNS=1 build takes the other of the
     two at d 192 and 256), the D split from d 320."""
     ids = _designs("flash_fwd", "FwdDesign")
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2}
@@ -268,8 +268,8 @@ def test_fwd_design_labels_name_every_design():
     rule = re.search(r"constexpr int fwd_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
-        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_WIDE ? "
-        "kRows8 : kRowSplit) : d == 256 ? (FLASH_OTHER_WIDE ? kRowSplit : "
+        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? "
+        "kRows8 : kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
         "kRows8) : kDSplit;")
     assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
         in text
@@ -288,7 +288,7 @@ def test_fwd_design_labels_name_every_design():
 def test_bwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K2's and K3's design functions can
     return, and no other; ``design_names`` reads K1's, K2's and K3's ids:
-    at d 256 the 8-warp designs ship, and a build with -DFLASH_OTHER_WIDE=1
+    at d 256 the 8-warp designs ship, and a build with -DFLASH_OTHER_DESIGNS=1
     runs PR 10's row split there (and K1's rows on 8 warps at d 192)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3}
@@ -324,8 +324,8 @@ def test_bwd_design_labels_name_every_design():
         "flash_bwd_dkv": "D split"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
-    assert "FLASH_OTHER_WIDE ? kRowSplit : kRows8" in text
-    assert "FLASH_OTHER_WIDE ? kRowSplit : kOnePass" in text
+    assert "FLASH_OTHER_DESIGNS ? kRowSplit : kRows8" in text
+    assert "FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass" in text
 
 
 def test_wide_entries_carry_designs_and_pair():
@@ -371,6 +371,137 @@ def test_wide_entries_carry_designs_and_pair():
         if d == 512:
             assert set(entry["more_shapes"]) == set(
                 chip_smoke.KERNEL_ONLY_HEADS)
+
+
+def test_f32_design_labels_name_every_design():
+    """chip_smoke.py labels each id of K2's and K3's f32 design function,
+    and no other; the source's rule: the register-tiled kernels at every
+    head dim, PR 2's scalar ones at d 128 in a -DFLASH_OTHER_DESIGNS=1
+    build (F32_DESIGN_DIM, the dim phase_f32_designs times in turns)."""
+    ids = _designs("flash_bwd", "F32Design")
+    assert ids == {"kF32Scalar": 0, "kF32Tiled": 1}
+    assert chip_smoke.F32_DESIGNS == {0: "scalar", 1: "register-tiled"}
+    assert chip_smoke.F32_DESIGN_DIM == 128
+    text = (CSRC / "flash_bwd.cu").read_text()
+    rule = re.search(r"constexpr int f32_design\(int d\) \{(.*?)\}", text,
+                     re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : kF32Tiled;")
+    assert ('extern "C" int flash_bwd_f32_design(int d) { return '
+            'f32_design(d); }') in text
+
+    class Bwd:
+        def __init__(self, other):
+            self.flash_bwd_f32_design = lambda d: ids[
+                "kF32Scalar" if other and d == 128 else "kF32Tiled"]
+
+    for d in (64, 128, 512):
+        assert chip_smoke.f32_design_names(Bwd(False), d) == {
+            "flash_bwd_dq": "register-tiled",
+            "flash_bwd_dkv": "register-tiled"}
+    assert chip_smoke.f32_design_names(Bwd(True), 128) == {
+        "flash_bwd_dq": "scalar", "flash_bwd_dkv": "scalar"}
+    assert chip_smoke.f32_design_names(Bwd(True), 256)["flash_bwd_dq"] == (
+        "register-tiled")
+
+
+def test_f32_settings():
+    """Phase 3 times K2 and K3 in f32 at bench_800m's heads at s 1000 and
+    at the training shape and at phase 12's d 256 and d 512 heads, the
+    first two also in turns with the scalar design; phase 2 reports ptxas
+    for kernels the sources define, and holds the register-tiled ones to
+    no spill."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    assert chip_smoke.F32_SHAPES == {
+        "b2 s1000 h12 hkv4 d128": (2, 1000, 12, 4, 128),
+        "b8 s2048 h12 hkv4 d128": (8, 2048, 12, 4, 128),
+        "b2 s1000 h6 hkv2 d256": (2, 1000, 6, 2, 256),
+        "b2 s1000 h3 hkv1 d512": (2, 1000, 3, 1, 512)}
+    assert chip_smoke.F32_IN_TURNS == 2
+    for label, (b, s, h, hkv, d) in chip_smoke.F32_SHAPES.items():
+        assert label == f"b{b} s{s} h{h} hkv{hkv} d{d}"
+        assert d in fa.KERNEL_HEAD_DIMS
+    for _, _, _, _, d in list(chip_smoke.F32_SHAPES.values())[
+            :chip_smoke.F32_IN_TURNS]:
+        assert d == chip_smoke.F32_DESIGN_DIM
+    assert (chip_smoke.WIDE_HEADS["bench_800m_d256"]
+            == chip_smoke.F32_SHAPES["b2 s1000 h6 hkv2 d256"][2:])
+    assert (chip_smoke.WIDE_HEADS["bench_800m_d512"]
+            == chip_smoke.F32_SHAPES["b2 s1000 h3 hkv1 d512"][2:])
+    kernels = _global_kernels()
+    assert set(chip_smoke.F32_KERNELS) <= kernels
+    assert set(chip_smoke.F32_NO_SPILL) <= set(chip_smoke.F32_KERNELS)
+    assert not any(k.endswith("_scalar") for k in chip_smoke.F32_NO_SPILL)
+
+
+def _f32_numbers(keys):
+    numbers = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        numbers[name] = {"f32": {
+            label: {key: float(i + 1) for key in keys}
+            for i, label in enumerate(chip_smoke.F32_SHAPES)}}
+    return numbers
+
+
+def test_f32_entries_carry_designs_and_pair():
+    """K2's and K3's f32 ``kernels`` entries: every key the line's contract
+    names, the first F32_SHAPES shape's numbers with the others under
+    more_shapes, launches summed over the f32 paths, the designs timed in
+    turns and the pair's sum; a path that launched nothing fails."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share",
+            "pair_ms")
+    numbers = _f32_numbers(keys)
+    labels = list(chip_smoke.F32_SHAPES)[:chip_smoke.F32_IN_TURNS]
+    designs = {label: {name: {"shipped_ms": 1.0, "other_ms": 5.0}
+                       for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+               for label in labels}
+    paths = {"flash vs dense grads d128": {"flash_bwd_dq": 20,
+                                           "flash_bwd_dkv": 20},
+             "pipeline step 1 f32": {"flash_bwd_dq": 60,
+                                     "flash_bwd_dkv": 60}}
+    entries = chip_smoke.f32_kernel_entries(numbers, designs, paths)
+    assert [e["name"] for e in entries] == ["flash_bwd_dq f32",
+                                            "flash_bwd_dkv f32"]
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    for entry in entries:
+        kernel = entry["name"].split()[0]
+        assert contract <= set(entry)
+        assert entry["route"] == "cuda" and entry["launches"] == 80
+        assert entry["source"].endswith("csrc/flash_bwd.cu")
+        assert entry["replaces"].endswith(
+            f"flash_attention.py:{chip_smoke.KERNELS[kernel][2]}")
+        assert entry["ms"] == 1.0 and entry["pair_ms"] == 1.0
+        assert set(entry["more_shapes"]) == set(chip_smoke.F32_SHAPES) - {
+            labels[0]}
+        assert entry["designs_in_turns"] == {
+            label: designs[label][kernel] for label in labels}
+    paths["moe flash vs dense grads"] = {"flash_bwd_dq": 0,
+                                         "flash_bwd_dkv": 0}
+    with pytest.raises(AssertionError, match="launched no kernel"):
+        chip_smoke.f32_kernel_entries(numbers, designs, paths)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd286dq_f32ILi128EEEvNS_"
+     "6ParamsE", "dq_f32"),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd287dkv_f32ILi128EEEvNS"
+     "_6ParamsEPfi", "dkv_f32"),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd2810f32_reduceILi128E"
+     "Lb1EEEvNS_6ParamsEPKfii", "f32_reduce"),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd2813dq_f32_scalarILi12"
+     "8EEEvNS_6ParamsE", "dq_f32_scalar")])
+def test_template_name_reads_f32_kernels(mangled, name):
+    """phase 2's f32 lines name each f32 kernel at its head dim (the
+    namespace's hash ends in a digit that runs into the name's length)."""
+    assert name in chip_smoke.F32_KERNELS
+    assert chip_smoke._template_name(mangled, 128) == name
+    assert chip_smoke._template_name(mangled, 256) is None
 
 
 def test_ptxas_summary_reads_registers_spills_and_notes():

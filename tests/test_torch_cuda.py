@@ -101,6 +101,21 @@ SHAPES = [
     (2, 256, 4, 1, 512, False),
     (8, 2048, 4, 2, 384, True),
     (8, 2048, 3, 1, 512, True),
+    # the f32 kernels' tiles one row short of and one past their ends:
+    # dq_f32's 64-row blocks and 64-key tiles and dkv_f32's 64-key blocks
+    # and 32-row query tiles at d 128 (65 and 127 are above), dq_f32's
+    # 32-row blocks and 8-key tiles and dkv_f32's 32-key blocks and 8-row
+    # query tiles at d 512
+    (2, 31, 6, 2, 128, True),
+    (2, 33, 6, 2, 128, True),
+    (2, 63, 6, 2, 128, True),
+    (2, 129, 6, 2, 128, True),
+    (2, 7, 3, 1, 512, True),
+    (2, 9, 3, 1, 512, True),
+    (2, 31, 3, 1, 512, True),
+    (2, 33, 3, 1, 512, True),
+    (2, 63, 3, 1, 512, True),
+    (2, 65, 3, 1, 512, True),
 ]
 
 
@@ -187,6 +202,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128),
@@ -195,17 +211,20 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (8, 2048, 6, 2, 256),
                                          (2, 300, 3, 1, 512),
                                          (8, 2048, 3, 1, 512)])
-def test_flash_bwd_kernel_is_deterministic(cuda, kernel, b, s, h, hkv, d):
+def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
+                                           d):
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
     launches give the same bits (at d 256 the shipped dq_rows8 and
-    dkv_onepass, whose warpgroups exchange P^T through shared memory)."""
+    dkv_onepass, whose warpgroups exchange P^T through shared memory; in
+    f32 dkv_f32's key tiles split over several blocks at the small shapes,
+    their parts summed in split order by a second pass)."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16)
-    do = _qkv(b, s, h, h, d, torch.bfloat16, seed=1)[0]
+    q, k, v = _qkv(b, s, h, hkv, d, dtype)
+    do = _qkv(b, s, h, h, d, dtype, seed=1)[0]
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.flash_bwd_delta(o, do)
     fn = getattr(fa, kernel)

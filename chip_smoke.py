@@ -11,8 +11,8 @@ no network. Phases, each of which raises on failure:
 2. build: every kernel source, one nvcc each, all started together, also
    with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
    registers, spills and C75xx notes of the d 192 and 256 kernels and of
-   the f32 K2 and K3 at every head dim (the register-tiled ones must not
-   spill);
+   the f32 K1, K2 and K3 at every head dim (the register-tiled ones must
+   not spill);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -28,17 +28,19 @@ no network. Phases, each of which raises on failure:
    heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
    SDPA (its backend named: its flash backend stops at d 256), in f32 at
    s 1000 too, with K1 also at its per-length prefill; K1 at d 192 and
-   256 and K2 and K3 at d 256 also at ragged lengths (s 1 (K1), 65, 127,
-   191, 2047; group 4 at s 300; non-causal s 512); the design not shipped
-   there (K1 at d 192: the rows on 8 warps; K1 at d 256 and K2 and K3:
-   PR 10's 12-warp row split) against the plain versions and timed in
-   turns with the shipped one (K1 also at d 256's prefill shape), the
-   K2 + K3 pair beside SDPA's backward; K2 and K3 in f32 (the register-
-   tiled dq_f32 and dkv_f32) against their plain versions at ragged
-   lengths around their tiles (d 128 and 512) and at F32_SHAPES, each
-   launch twice bitwise, timed there beside SDPA's f32 backward, and PR
-   2's scalar f32 design (the other build) held against the plain versions
-   and timed in turns with the shipped one at the first two of them;
+   256 and K2 and K3 at d 192 and 256 also at ragged lengths (s 1 (K1),
+   63 (K2, K3 at d 192), 65, 127, 191, 2047; group 4 at s 300; non-causal
+   s 512); the design not shipped there (K1 at d 192: the rows on 8
+   warps; K3 at d 192: the one pass; K1 at d 256 and K2 and K3: the
+   12-warp row split) against the plain versions and timed in turns with
+   the shipped one (K1 also at d 256's prefill shape), the K2 + K3 pair
+   beside SDPA's backward; K1, K2 and K3 in f32 (the register-tiled
+   flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
+   ragged lengths around their tiles (d 128 and 512) and at F32_SHAPES
+   (K2 and K3 each launched twice, bitwise), timed there beside SDPA's
+   f32 forward and backward, and the scalar f32 design (the other
+   build) held against the plain versions and timed in turns with the
+   shipped one at the first two of them;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -192,29 +194,30 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass"}
-# the other designs (K1 at d 192 and 256, K2 and K3 at d 256 in bf16 and
-# at d 128 in f32; phase 3 times them beside the shipped ones in turns):
+# the other designs (K1 at d 192 and 256, K2 at d 256, K3 at d 192 and
+# 256 in bf16, and all three at d 128 in f32; phase 3 times them beside
+# the shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
 DESIGN_DIMS = (192, 256)
-# K2's and K3's f32 designs by the id flash_bwd_f32_design returns
-# (csrc/flash_bwd.cu's F32Design), and the head dim at which the other
-# build runs the other one
+# K1's, K2's and K3's f32 designs by the id flash_fwd_f32_design and
+# flash_bwd_f32_design return (csrc/flash_fwd.cu's and csrc/flash_bwd.cu's
+# F32Design), and the head dim at which the other build runs the other one
 F32_DESIGNS = {0: "scalar", 1: "register-tiled"}
 F32_DESIGN_DIM = 128
 # the f32 kernels phase 2 reports ptxas's registers, spills and C75xx notes
 # for, at every head dim (the scalar ones only in the other build); the
 # register-tiled ones must not spill
-F32_KERNELS = ("dq_f32", "dkv_f32", "f32_reduce", "dq_f32_scalar",
-               "dkv_f32_scalar")
-F32_NO_SPILL = ("dq_f32", "dkv_f32", "f32_reduce")
-# K2 and K3 in f32 are timed (phase 3) at these shapes, label -> (b, s,
-# heads, KV heads, head dim), causal, beside SDPA's f32 backward: bench_800m's
-# heads at the serving prompt's length (the f32 parity steps and f32
-# prefill run there) and at the training shape, and phase 12's d 256 and
-# d 512 heads; the first F32_IN_TURNS also in turns with the other build's
-# scalar design
+F32_KERNELS = ("flash_fwd_f32", "dq_f32", "dkv_f32", "f32_reduce",
+               "flash_fwd_f32_scalar", "dq_f32_scalar", "dkv_f32_scalar")
+F32_NO_SPILL = ("flash_fwd_f32", "dq_f32", "dkv_f32", "f32_reduce")
+# K1, K2 and K3 in f32 are timed (phase 3) at these shapes, label -> (b, s,
+# heads, KV heads, head dim), causal, beside SDPA's f32 forward and
+# backward: bench_800m's heads at the serving prompt's length (the f32
+# parity steps and f32 prefill run there) and at the training shape, and
+# phase 12's d 256 and d 512 heads; the first F32_IN_TURNS also in turns
+# with the other build's scalar design
 F32_SHAPES = {"b2 s1000 h12 hkv4 d128": (2, 1000, 12, 4, 128),
               "b8 s2048 h12 hkv4 d128": (8, 2048, 12, 4, 128),
               "b2 s1000 h6 hkv2 d256": (2, 1000, 6, 2, 256),
@@ -706,10 +709,22 @@ def phase_kernels() -> dict:
          False),
         *((f"d{d} non-causal s512 bf16", 2, 512, h, hkv, d, torch.bfloat16,
            False, False) for h, hkv, d in ((6, 2, 256), (8, 4, 192))),
+        # the f32 kernel's tiles (flash_fwd_f32: 64 query rows and 64-key
+        # tiles up to d 256, 32 and 32 from d 320) one row short of and one
+        # past their ends, d 64, and F32_SHAPES
+        ("gqa s384 d64 f32", 2, 384, 8, 2, 64, torch.float32, True, False),
+        *((f"f32 d128 s{s}", 2, s, 6, 2, 128, torch.float32, True, False)
+          for s in (63, 65, 127, 129)),
+        *((f"f32 d512 s{s}", 2, s, 3, 1, 512, torch.float32, True, False)
+          for s in (31, 33, 63, 65)),
+        *((f"f32 {label}", b, s, h, hkv, d, torch.float32, True, False)
+          for label, (b, s, h, hkv, d) in F32_SHAPES.items()),
     ]
     worst = 0.0
-    # the largest error of the bf16 cases at each wide head dim
+    # the largest error of the bf16 cases at each wide head dim, and of
+    # the f32 cases
     worst_wide = {d: 0.0 for _, _, d in _kernel_heads().values()}
+    worst_f32 = 0.0
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -728,6 +743,8 @@ def phase_kernels() -> dict:
             _log(f"  lse max abs err {lerr:.3e}")
         if fa.launches != before + 1:
             raise AssertionError(f"{name}: the kernel did not launch")
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, err)
         if d not in worst_wide:
             worst = max(worst, err)
         elif dtype == torch.bfloat16:
@@ -772,32 +789,15 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     _log(f"time K1 host path per call (b1 s128 h1 hkv1, host clock, 200 "
          f"calls): {host_us:.1f} us")
-    q, k, v = _qkv(2, PROMPT, 12, 4, 128, torch.float32, gen)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), iters=5,
-                  queue_ahead=True)
-    plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
-                        iters=5, warmup=1, queue_ahead=True)
-    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=5,
-        queue_ahead=True)
-    backend = _sdpa_backend(qt, kt, vt)
-    bound_ms, bound_by = kernel_bound(2, 12, 4, PROMPT, PROMPT, 128,
-                                      torch.float32, True)
-    _log(f"time b2 s{PROMPT} h12 hkv4 d128 f32 causal: kernel {ms:.4f} ms "
-         f"({bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, sdpa "
-         f"{lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
-         f"({bound_by}, f32 at {PEAK_FLOPS[torch.float32] / 1e12:.0f} "
-         "TF/s)")
-    f32 = {f"b2 s{PROMPT} h12 hkv4 d128 f32 causal": dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=lib_ms, library_backend=backend,
-        bound_share=bound_ms / ms)}
+    # f32 (flash_fwd_f32) at F32_SHAPES
+    f32 = {label: dict(_time_k1("f32", b, s, h, hkv, d, gen, torch.float32),
+                       max_abs_err=worst_f32,
+                       shape=f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal")
+           for label, (b, s, h, hkv, d) in F32_SHAPES.items()}
     # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
     ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
         f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
         for name, d in FT_HEAD_DIMS}
-    ft.update(f32)
     # the wide head dims at the training shape (flash_fwd_wgmma<192>,
     # flash_fwd_rows8<256> and flash_fwd_split<320> to <512>: the build's
     # ptxas lines above give their registers and spills)
@@ -807,7 +807,7 @@ def phase_kernels() -> dict:
         shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal")
         for name, (h, hkv, d) in _kernel_heads().items()}
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft,
-                wide=wide)
+                wide=wide, f32=f32)
 
 
 def _kernel_heads() -> dict:
@@ -833,15 +833,15 @@ def _sdpa_backend(q, k, v) -> str:
     return "none"
 
 
-def _time_k1(label, b, s, h, hkv, d, gen) -> dict:
-    """K1 at one bf16 causal shape, timed beside its plain version and
-    SDPA's forward (naming the backend SDPA took), with its TF/s and share
-    of the bound."""
+def _time_k1(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
+    """K1 at one causal shape (bf16 unless ``dtype`` says f32), timed
+    beside its plain version and SDPA's forward (naming the backend SDPA
+    took), with its TF/s and share of the bound (f32: at the f32 rate)."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
+    q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = _time_ms(lambda: fa.flash_fwd(qt, kt, vt, True), queue_ahead=True)
     plain_ms = _time_ms(lambda: fa.flash_fwd_reference(qt, kt, vt, True),
@@ -849,13 +849,14 @@ def _time_k1(label, b, s, h, hkv, d, gen) -> dict:
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
         qt, kt, vt, is_causal=True, enable_gqa=True), queue_ahead=True)
     backend = _sdpa_backend(qt, kt, vt)
-    bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, torch.bfloat16,
-                                      True)
+    bound_ms, bound_by = kernel_bound(b, h, hkv, s, s, d, dtype, True)
     tflops = kernel_flops(b, h, s, s, d, True) / ms / 1e9
-    _log(f"time {label} b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal: kernel "
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    _log(f"time {label} b{b} s{s} h{h} hkv{hkv} d{d} {tag} causal: kernel "
          f"{ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of bound), "
          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({backend}), bound "
-         f"{bound_ms:.4f} ms ({bound_by})")
+         f"{bound_ms:.4f} ms ({bound_by}, at "
+         f"{PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_backend=backend, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
@@ -914,11 +915,17 @@ def phase_bwd_kernels() -> dict:
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
-        # GQA group 4 and non-causal
+        # GQA group 4 and non-causal; at d 192 the row split's 128-key K3 blocks
+        # (32-row stages) and 128-row K2 blocks
         *((f"d256 s{s} bf16", 2 if s < 2047 else 1, s, 6, 2, 256,
            torch.bfloat16, True) for s in (65, 127, 191, 2047)),
         ("d256 gqa4 s300 bf16", 2, 300, 8, 2, 256, torch.bfloat16, True),
         ("d256 non-causal s512 bf16", 2, 512, 6, 2, 256, torch.bfloat16,
+         False),
+        *((f"d192 s{s} bf16", 2 if s < 2047 else 1, s, 8, 4, 192,
+           torch.bfloat16, True) for s in (63, 65, 127, 2047)),
+        ("d192 gqa4 s300 bf16", 2, 300, 8, 2, 192, torch.bfloat16, True),
+        ("d192 non-causal s512 bf16", 2, 512, 8, 4, 192, torch.bfloat16,
          False),
         # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
         # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
@@ -1138,25 +1145,27 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 
 def phase_wide_designs() -> dict:
-    """At d 192 and 256 three kernels have two designs each. K1 at both:
+    """At d 192 and 256 some kernels have two designs each. K1 at both:
     PR 10's row split (flash_fwd_wgmma: 12-warp blocks of 128 rows, 64 a
     consumer, a producer warpgroup) and the rows on 8 warps
     (flash_fwd_rows8: the same rows without the producer, 80- or 96-key
-    tiles, the two warpgroups taking turns at the tensor cores). K2 and K3
-    at d 256: PR 10's row split (dq_wgmma, dkv_wgmma: 12-warp blocks with a
-    producer warpgroup, K3 in two passes) and the 8-warp designs
-    (dq_rows8: the same rows without the producer; dkv_onepass: 64 keys a
-    block, dV on one warpgroup and dK on the other, one pass). The port
-    ships, per kernel and head dim, the one its sources name
-    (``flash_fwd_design``, ``flash_bwd_dq_design``, ``flash_bwd_dkv_design``
-    in each library); the other is built with -DFLASH_OTHER_DESIGNS=1 (phase
-    2). At phase 12's
-    training shape of each head dim (and for K1 at d 256 also at its
-    per-length prefill, b 4 s 1000) the other design is held against the
-    plain versions (K2 and K3 also twice on one input, bitwise), then both
-    are timed in turns on the same inputs (shipped, other, other,
-    shipped), K2 + K3 as a pair too. Returns {head dim: {kernel:
-    numbers}}, K1's prefill numbers under ``"prefill"``."""
+    tiles, the two warpgroups taking turns at the tensor cores). K3 at
+    both and K2 at d 256: the row split (dq_wgmma, dkv_wgmma: 12-warp
+    blocks with a producer warpgroup, K3 in two passes at d 256) and the
+    8-warp designs (dq_rows8: the same rows without the producer;
+    dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
+    other, one pass). The port ships, per kernel and head dim, the one its
+    sources name (``flash_fwd_design``, ``flash_bwd_dq_design``,
+    ``flash_bwd_dkv_design`` in each library); the other is built with
+    -DFLASH_OTHER_DESIGNS=1 (phase 2). At phase 12's training shape of each
+    head dim (and for K1 at d 256 also at its per-length prefill, b 4 s
+    1000) all three kernels' other builds are held against the plain
+    versions (K2 and K3 also twice on one input, bitwise), then timed in
+    turns with the shipped ones on the same inputs (shipped, other, other,
+    shipped), K2 + K3 as a pair too, beside SDPA's backward (at d 192 K2
+    runs one design in both builds: its time completes the pair). Returns
+    {head dim: {kernel: numbers}}, K1's prefill numbers under
+    ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
     )
@@ -1178,53 +1187,54 @@ def phase_wide_designs() -> dict:
                               [TOL[dtype], (LSE_ATOL, 0.0)])}
 
     out = {}
-    # d 256: all three kernels at the training shape, K1 at the prefill's
-    h, hkv, d = WIDE_HEADS["bench_800m_d256"]
     b, s = TRAIN_BATCH, TRAIN_SEQ
-    q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
-    delta = fa.flash_bwd_delta(o, do)
-    calls = {
-        **k1(q, k, v),
-        "flash_bwd_dq": (
-            lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
-            lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                               True),),
-            [BWD_TOL[dtype]]),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               True), [BWD_TOL[dtype]] * 2),
-    }
-    shape = f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"
-    out[d] = _in_turns(libs, named[d], calls, shape)
-    # K2 + K3: what SDPA's one backward call computes
-    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    so = torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True, enable_gqa=True)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(
-        so, (sq, sk, sv), do, retain_graph=True), iters=10, queue_ahead=True)
-    pair = {which: sum(out[d][name][f"{which}_ms"]
-                       for name in ("flash_bwd_dq", "flash_bwd_dkv"))
-            for which in ("shipped", "other")}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        out[d][name].update(shipped_pair_ms=pair["shipped"],
-                            other_pair_ms=pair["other"],
-                            library_ms=lib_ms)
-    _log(f"time d{d} designs K2 + K3 {shape}, in turns: shipped "
-         f"{pair['shipped']:.4f} ms, other {pair['other']:.4f} ms, sdpa "
-         f"backward {lib_ms:.4f} ms")
-    del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
-    torch.cuda.empty_cache()
+    # all three kernels at each dim's training shape
+    for d in sorted(DESIGN_DIMS, reverse=True):
+        h, hkv, _ = WIDE_HEADS[f"bench_800m_d{d}"]
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        calls = {
+            **k1(q, k, v),
+            "flash_bwd_dq": (
+                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
+                lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   True),),
+                [BWD_TOL[dtype]]),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   True),
+                [BWD_TOL[dtype]] * 2),
+        }
+        shape = f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"
+        out[d] = _in_turns(libs, named[d], calls, shape)
+        # K2 + K3: what SDPA's one backward call computes
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=10,
+            queue_ahead=True)
+        pair = {which: sum(out[d][name][f"{which}_ms"]
+                           for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+                for which in ("shipped", "other")}
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            out[d][name].update(shipped_pair_ms=pair["shipped"],
+                                other_pair_ms=pair["other"],
+                                library_ms=lib_ms)
+        _log(f"time d{d} designs K2 + K3 {shape}, in turns: shipped "
+             f"{pair['shipped']:.4f} ms, other {pair['other']:.4f} ms, sdpa "
+             f"backward {lib_ms:.4f} ms ({_sdpa_backend(q, k, v)})")
+        del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
+        torch.cuda.empty_cache()
+    # K1 at d 256's per-length prefill
+    h, hkv, d = WIDE_HEADS["bench_800m_d256"]
     q, k, v = (t.transpose(1, 2)
                for t in _qkv(BATCH, PROMPT, h, hkv, d, dtype, gen))
     out[d]["flash_fwd"]["prefill"] = _in_turns(
         libs, named[d], k1(q, k, v),
         f"b{BATCH} s{PROMPT} h{h} hkv{hkv} d{d} bf16 causal")["flash_fwd"]
-    # d 192: K1 at the training shape
-    h, hkv, d = WIDE_HEADS["bench_800m_d192"]
-    q, k, v = (t.transpose(1, 2) for t in _qkv(b, s, h, hkv, d, dtype, gen))
-    out[d] = _in_turns(libs, named[d], k1(q, k, v),
-                       f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal")
     del q, k, v
     torch.cuda.empty_cache()
     # K1's other design at both dims at ragged lengths and non-causal too
@@ -1267,16 +1277,17 @@ def _design_libs() -> dict:
 
 
 def phase_f32_designs() -> dict:
-    """K2 and K3 in f32 have two designs at d 128: the register-tiled
-    kernels (dq_f32, dkv_f32) and PR 2's scalar ones (dq_f32_scalar,
-    dkv_f32_scalar: a thread forms whole length-D dots from shared memory,
-    loads synchronous). The port ships the one ``flash_bwd_f32_design``
-    names; the other build runs the other. At the first F32_IN_TURNS
-    shapes of F32_SHAPES the other design is held against the plain
-    versions and launched twice on one input (bitwise), then both are
-    timed in turns (shipped, other, other, shipped), K2 + K3 as a pair
-    beside SDPA's f32 backward. Returns {shape label: {kernel:
-    numbers}}."""
+    """K1, K2 and K3 in f32 have two designs at d 128: the register-tiled
+    kernels (flash_fwd_f32, dq_f32, dkv_f32) and the scalar ones
+    (flash_fwd_f32_scalar, dq_f32_scalar, dkv_f32_scalar: a thread forms
+    whole length-D dots from shared memory, loads synchronous). The port
+    ships the one ``flash_fwd_f32_design`` and ``flash_bwd_f32_design``
+    name; the other build runs the other. At the first F32_IN_TURNS shapes
+    of F32_SHAPES the other design is held against the plain versions (K2
+    and K3 also launched twice on one input, bitwise), then both are timed
+    in turns (shipped, other, other, shipped), K1 beside SDPA's f32
+    forward and K2 + K3 as a pair beside SDPA's f32 backward. Returns
+    {shape label: {kernel: numbers}}."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1284,14 +1295,20 @@ def phase_f32_designs() -> dict:
     dtype = torch.float32
     gen = torch.Generator(device="cuda").manual_seed(6)
     libs = _design_libs()
-    named = {which: f32_design_names(libs[which]["flash_bwd"],
+    named = {which: f32_design_names(libs[which]["flash_fwd"],
+                                     libs[which]["flash_bwd"],
                                      F32_DESIGN_DIM)
              for which in libs}
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv")
     out = {}
     for label, (b, s, h, hkv, d) in list(F32_SHAPES.items())[:F32_IN_TURNS]:
         q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
         delta = fa.flash_bwd_delta(o, do)
         calls = {
+            "flash_fwd": (
+                lambda: fa.flash_fwd(q, k, v, True),
+                lambda: fa.flash_fwd_reference(q, k, v, True),
+                [TOL[dtype], (LSE_ATOL, 0.0)]),
             "flash_bwd_dq": (
                 lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
                 lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
@@ -1305,6 +1322,11 @@ def phase_f32_designs() -> dict:
         }
         shape = f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal"
         out[label] = _in_turns(libs, named, calls, shape)
+        backend = _sdpa_backend(q, k, v)
+        fwd_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+            q, k, v, is_causal=True, enable_gqa=True), iters=5,
+            queue_ahead=True)
+        out[label]["flash_fwd"]["library_ms"] = fwd_ms
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         so = torch.nn.functional.scaled_dot_product_attention(
@@ -1312,28 +1334,34 @@ def phase_f32_designs() -> dict:
         lib_ms = _time_ms(lambda: torch.autograd.grad(
             so, (sq, sk, sv), do, retain_graph=True), iters=5,
             queue_ahead=True)
-        pair = {which: sum(out[label][name][f"{which}_ms"]
-                           for name in calls)
+        pair = {which: sum(out[label][name][f"{which}_ms"] for name in bwd)
                 for which in ("shipped", "other")}
-        for name in calls:
+        for name in bwd:
             out[label][name].update(shipped_pair_ms=pair["shipped"],
                                     other_pair_ms=pair["other"],
                                     library_ms=lib_ms)
+        k1 = out[label]["flash_fwd"]
+        _log(f"time f32 designs K1 {shape}, in turns: shipped "
+             f"({named['shipped']['flash_fwd']}) {k1['shipped_ms']:.4f} ms, "
+             f"other ({named['other']['flash_fwd']}) {k1['other_ms']:.4f} "
+             f"ms, sdpa forward {fwd_ms:.4f} ms ({backend})")
         _log(f"time f32 designs K2 + K3 {shape}, in turns: shipped "
              f"({named['shipped']['flash_bwd_dq']}) {pair['shipped']:.4f} "
              f"ms, other ({named['other']['flash_bwd_dq']}) "
              f"{pair['other']:.4f} ms, sdpa backward {lib_ms:.4f} ms "
-             f"({_sdpa_backend(q, k, v)})")
+             f"({backend})")
         del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
         torch.cuda.empty_cache()
     return out
 
 
-def f32_design_names(bwd, d: int) -> dict:
-    """The f32 design K2 and K3 of this flash_bwd library run at head dim
-    ``d``, by name (the F32Design id of ``flash_bwd_f32_design``)."""
+def f32_design_names(fwd, bwd, d: int) -> dict:
+    """The f32 design K1 of this flash_fwd library and K2 and K3 of this
+    flash_bwd library run at head dim ``d``, by name (the F32Design ids of
+    ``flash_fwd_f32_design`` and ``flash_bwd_f32_design``)."""
     name = F32_DESIGNS[bwd.flash_bwd_f32_design(d)]
-    return {"flash_bwd_dq": name, "flash_bwd_dkv": name}
+    return {"flash_fwd": F32_DESIGNS[fwd.flash_fwd_f32_design(d)],
+            "flash_bwd_dq": name, "flash_bwd_dkv": name}
 
 
 def _in_turns(libs, named, calls, shape: str) -> dict:
@@ -4722,8 +4750,8 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     """The wide head dims' ``kernels`` entries (phase 12), one per kernel
     and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
     phase 12's launches per path (``wide[d][path][kernel]``) and
-    ``phase_wide_designs``' (``designs[d][kernel]``): at d 192 (K1) and
-    256 (K1, K2, K3) the other design's numbers beside the shipped one's,
+    ``phase_wide_designs``' (``designs[d][kernel]``): at d 192 and 256
+    (K1, K2, K3) the other design's numbers beside the shipped one's,
     K2's and K3's with the pair's sum beside SDPA's backward; the
     kernel-only dims (d 320, 448: no model, so no launches on a main path)
     under the d 512 entries."""
@@ -4758,25 +4786,24 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
 
 
 def f32_kernel_entries(numbers: dict, designs: dict, paths: dict) -> list:
-    """K2's and K3's f32 ``kernels`` entries (dq_f32, dkv_f32), from phase
-    3's numbers at F32_SHAPES (``numbers[kernel]["f32"][label]``: the first
-    shape's as the entry's, the others under ``more_shapes``),
-    ``phase_f32_designs``' (``designs[label][kernel]``, the designs timed
-    in turns) and the f32 launches of each path (``paths[path][kernel]``).
-    Raises if a path launched neither kernel."""
+    """K1's, K2's and K3's f32 ``kernels`` entries (flash_fwd_f32, dq_f32,
+    dkv_f32), from phase 3's numbers at F32_SHAPES
+    (``numbers[kernel]["f32"][label]``: the first shape's as the entry's,
+    the others under ``more_shapes``), ``phase_f32_designs``'
+    (``designs[label][kernel]``, the designs timed in turns) and the f32
+    launches of each path (``paths[path][kernel]``). K2's and K3's carry
+    the pair's sum. Raises if a path launched none of a kernel."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend", "tflops", "bound_share",
-            "pair_ms")
+            "library_ms", "library_backend", "tflops", "bound_share")
     first, *rest = F32_SHAPES
     entries = []
     for name, (src, _, line) in KERNELS.items():
-        if name == "flash_fwd":
-            continue
         by_path = {path: counts[name] for path, counts in paths.items()}
         if not by_path or not all(by_path.values()):
             raise AssertionError(f"{name} f32: a path launched no kernel: "
                                  f"{by_path}")
         n = numbers[name]["f32"]
+        these = keys if name == "flash_fwd" else (*keys, "pair_ms")
         entries.append({
             "name": f"{name} f32",
             "route": "cuda",
@@ -4785,8 +4812,8 @@ def f32_kernel_entries(numbers: dict, designs: dict, paths: dict) -> list:
                         f"flash_attention.py:{line}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            **{key: n[first][key] for key in keys},
-            "more_shapes": {label: {key: n[label][key] for key in keys}
+            **{key: n[first][key] for key in these},
+            "more_shapes": {label: {key: n[label][key] for key in these}
                             for label in rest},
             "designs_in_turns": {label: designs[label][name]
                                  for label in designs},

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256, in
+"""Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256,
+``flash_fwd_f32`` at d 128 in f32, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
 K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 256, ``dq_f32`` at d 128 in
-f32) and K3 (``dkv_onepass`` at d 256, ``dkv_f32`` at d 128 in f32, all
-in ``csrc/flash_bwd.cu``) and time them against the committed kernels on
-one CUDA card.
+f32) and K3 (``dkv_onepass`` at d 192 and 256, ``dkv_f32`` at d 128 in
+f32, all in ``csrc/flash_bwd.cu``) and time them against the committed
+kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
 ``KERNEL_HEADS`` whose variants to run; all without arguments). Each
 variant is the committed source of
-the kernel it edits with the text edits listed in ``VARIANTS`` (an edit
-whose text is not found exactly once fails the run). Every source is built
+the kernel it edits with the text edits listed in ``VARIANTS``, each
+made in the source or in a header beside it (an edit whose text is not
+found exactly once among them fails the run). Every source is built
 with the flags of ``ops/_build.py`` into
 ``build/kernel_variants/<name>/<source>/``, one nvcc each, all started
 together; ptxas's lines for the kernel each variant edits are printed.
@@ -40,6 +42,14 @@ import torch
 import chip_smoke as cs
 
 OUT = cs.ROOT / "build" / "kernel_variants"
+
+# edits shared by several variants: K3 at d 192 on the one pass; K1 f32's
+# key tiles and stages
+ONEPASS_D192 = ("         : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
+                "kRowSplit)\n", "         : d == 192 ? kOnePass\n")
+F32_K1_TILES = ("  static constexpr int BK = D <= 256 ? 64 : 32;\n"
+                "  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : "
+                "1;\n")
 
 # name -> (what it changes, [(text of the committed source, replacement)],
 # the kernel it edits)
@@ -478,19 +488,91 @@ VARIANTS = {
          ("#pragma unroll 4\n  for (int r = 0; r < RED; ++r) {",
           "#pragma unroll 8\n  for (int r = 0; r < RED; ++r) {")],
         "dkv_f32"),
+    "f32_k1_bk32": (
+        "f32 K1 at d 128: 32-key K/V tiles (4 x 2 score tiles a thread) "
+        "instead of 64, in 2 stages",
+        [("  static constexpr int BK = D <= 256 ? 64 : 32;\n",
+          "  static constexpr int BK = D == 128 ? 32 : D <= 256 ? 64 : 32;\n")],
+        "flash_fwd_f32"),
+    "f32_k1_bk32_st3": (
+        "f32 K1 at d 128: 32-key K/V tiles in 3 stages instead of 64 keys "
+        "in 2 (3 stages of 64 keys exceed 227 KB)",
+        [(F32_K1_TILES,
+          "  static constexpr int BK = D == 128 ? 32 : D <= 256 ? 64 : 32;\n"
+          "  static constexpr int ST = D <= 128 ? 3 : 1;\n")],
+        "flash_fwd_f32"),
+    "f32_k1_tiles_8x2": (
+        "f32 K1 at d 128: 8 x 2 score tiles a thread (a warp's 32 lanes "
+        "share a row; 8 rows and 4 output columns a thread) instead of "
+        "4 x 4",
+        [("  static constexpr int CT = 16;\n",
+          "  static constexpr int CT = D == 128 ? 32 : 16;\n")],
+        "flash_fwd_f32"),
+    "onepass_d192": (
+        "K3 at d 192 on the one pass (dkv_onepass<192>, the other build's "
+        "design there) instead of the row split's dkv_wgmma<192>",
+        [ONEPASS_D192], "dkv_onepass"),
+    "onepass_d192_3_stages": (
+        "K3 at d 192 on the one pass with 3 Q/dO stages (3 do not fit at "
+        "d 256)",
+        [ONEPASS_D192,
+         ("  static constexpr int STAGES = 2;\n"
+          "  static constexpr int KV_CB = BK * 128;\n",
+          "  static constexpr int STAGES = D <= 192 ? 3 : 2;\n"
+          "  static constexpr int KV_CB = BK * 128;\n")],
+        "dkv_onepass"),
+    "onepass_d192_bq96": (
+        "K3 at d 192 on the one pass with 96-query stages (m64n96 S^T and "
+        "dP^T, two thirds of the stages)",
+        [ONEPASS_D192,
+         ("  static constexpr int BQ = 64;  // query rows per stage\n",
+          "  static constexpr int BQ = D == 192 ? 96 : 64;  // query rows "
+          "per stage\n")],
+        "dkv_onepass"),
+    "f32_k1_d256_bk32_st2": (
+        "f32 K1 at d 256: 32-key K/V tiles in 2 stages instead of 64 in 1",
+        [(F32_K1_TILES,
+          "  static constexpr int BK = D <= 192 ? 64 : 32;\n"
+          "  static constexpr int ST = D <= 64 ? 3 : D <= 128 || D == 256 ? "
+          "2 : 1;\n")],
+        "flash_fwd_f32"),
+    "f32_k1_d512_bk16_st2": (
+        "f32 K1 at d 512: 16-key K/V tiles in 2 stages instead of 32 in 1",
+        [(F32_K1_TILES,
+          "  static constexpr int BK = D <= 256 ? 64 : D < 512 ? 32 : 16;\n"
+          "  static constexpr int ST = D <= 64 ? 3 : D <= 128 || D == 512 ? "
+          "2 : 1;\n")],
+        "flash_fwd_f32"),
+    "f32_k1_d512_bq64": (
+        "f32 K1 at d 512: 64-row blocks (4 x 1 score tiles, 128 output "
+        "floats a thread) over one stage of 16 keys, instead of 32 rows "
+        "over 32 keys",
+        [("  static constexpr int BQ = D <= 256 ? 64 : 32;\n"
+          "  static constexpr int BK = D <= 256 ? 64 : 32;\n",
+          "  static constexpr int BQ = D <= 256 || D == 512 ? 64 : 32;\n"
+          "  static constexpr int BK = D <= 256 ? 64 : D < 512 ? 32 : 16;\n")],
+        "flash_fwd_f32"),
 }
 # the heads (query, KV, head dim) each edited kernel is checked and timed
 # at: bench_800m's and phase 12's bench_800m_d256
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256),
-                "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128)}
+                "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
+                "flash_fwd_f32": (12, 4, 128)}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
 # heads, KV heads, head dim) it is timed at (the training shape at its
 # KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
-# F32_SHAPES, the first of which holds their targets)
-KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32}
-KERNEL_SHAPES = {"dq_f32": list(cs.F32_SHAPES.values()),
-                 "dkv_f32": list(cs.F32_SHAPES.values())}
+# F32_SHAPES, the first of which holds their targets; dkv_onepass also at
+# bench_800m_d192's heads)
+KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32,
+                 "flash_fwd_f32": torch.float32}
+KERNEL_SHAPES = {
+    "dq_f32": list(cs.F32_SHAPES.values()),
+    "dkv_f32": list(cs.F32_SHAPES.values()),
+    "flash_fwd_f32": list(cs.F32_SHAPES.values()),
+    "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
+        "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                          *cs.WIDE_HEADS["bench_800m_d192"])]}
 
 
 def source_of(kernel: str) -> str:
@@ -498,14 +580,30 @@ def source_of(kernel: str) -> str:
     return "flash_fwd" if kernel.startswith("flash_fwd") else "flash_bwd"
 
 
-def variant_source(name: str, src: str) -> str:
-    """The committed source with variant ``name``'s edits applied."""
+def committed_files(source: str, csrc: Path | None = None) -> dict:
+    """``<csrc>/<source>.cu`` and the headers beside it (the kernels' shared
+    building blocks), {file name: text}; ``csrc`` is the port's csrc/
+    unless given."""
+    from service_account_auth_improvements_tpu_torch.ops import _build
+
+    csrc = csrc or _build.CSRC
+    return {f.name: f.read_text()
+            for f in (csrc / f"{source}.cu", *sorted(csrc.glob("*.cuh")))}
+
+
+def variant_files(name: str, files: dict) -> dict:
+    """The committed files ({file name: text}, ``committed_files``) with
+    variant ``name``'s edits applied, each to the one file that holds its
+    text: every edit's text must be found exactly once among them."""
+    files = dict(files)
     for old, new in VARIANTS[name][1]:
-        if src.count(old) != 1:
-            raise ValueError(f"{name}: {old!r} is not in the source exactly "
-                             "once; update VARIANTS")
-        src = src.replace(old, new)
-    return src
+        counts = {f: text.count(old) for f, text in files.items()}
+        if sum(counts.values()) != 1:
+            raise ValueError(f"{name}: {old!r} is not in the source and its "
+                             "headers exactly once; update VARIANTS")
+        f = max(counts, key=counts.get)
+        files[f] = files[f].replace(old, new)
+    return files
 
 
 def _compile(job: tuple[str, str]) -> tuple[Path, str]:
@@ -517,9 +615,10 @@ def _compile(job: tuple[str, str]) -> tuple[Path, str]:
     if d.exists():
         shutil.rmtree(d)
     shutil.copytree(_build.CSRC, d)
-    src = (d / f"{source}.cu").read_text()
     if name != "committed":
-        (d / f"{source}.cu").write_text(variant_source(name, src))
+        for f, text in variant_files(name,
+                                     committed_files(source, d)).items():
+            (d / f).write_text(text)
     lib = d / f"lib{source}.so"
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
@@ -615,7 +714,9 @@ def main() -> int:
         for name in ["committed", *group]:
             _use(built[name, source][0], source)
             ragged = 1000 if dtype == torch.bfloat16 else 129
-            for shape in ((2, ragged, h, hkv, d), *timed):
+            # a ragged length at the heads of each timed shape
+            heads = dict.fromkeys(shape[2:] for shape in timed)
+            for shape in (*((2, ragged, *hd) for hd in heads), *timed):
                 q, k, v, do, o, lse = cs._bwd_inputs(*shape, dtype, gen,
                                                      True)
                 delta = fa.flash_bwd_delta(o, do)

@@ -52,6 +52,7 @@
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
 // see F32Design below.
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #include <cuda_bf16.h>
@@ -62,6 +63,8 @@
 #include <type_traits>
 
 namespace {
+
+using namespace f32tile;
 
 constexpr float kNegInf = -2.0e38f;
 
@@ -114,11 +117,13 @@ constexpr int SMEM_MAX = 232448;
 //   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 256);
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
 //              and warpgroup 1 dK, one pass (d 256).
-// At d 256 each of K2 and K3 ships the faster of two designs on the H100
-// (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
-// dq_rows8 and dkv_onepass. A build with -DFLASH_OTHER_DESIGNS=1 takes PR
-// 10's tiles (dq_wgmma, dkv_wgmma) there instead (and K1's other design at
-// d 192 and 256, and PR 2's scalar f32 kernels at d 128: F32Design).
+// At d 256 each of K2 and K3, and at d 192 K3, ships the faster of two
+// designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
+// card; PERF.md §6): dq_rows8 and dkv_onepass at d 256, the row split's
+// dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns). A build with
+// -DFLASH_OTHER_DESIGNS=1 takes the other design at each (and K1's other
+// design at d 192 and 256, and the scalar f32 kernels at d 128:
+// F32Design).
 enum BwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3 };
 
 #ifndef FLASH_OTHER_DESIGNS
@@ -130,7 +135,8 @@ constexpr int dq_design(int d) {
                     : kDSplit;
 }
 constexpr int dkv_design(int d) {
-  return d <= 192 ? kRowSplit
+  return d <= 128 ? kRowSplit
+         : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
                     : kDSplit;
 }
@@ -1252,6 +1258,14 @@ dkv_split(const __grid_constant__ DkvArgs a) {
 // per stage 8.4 MFLOP against 64 KB of Q and dO from L2, so the two
 // stages must overlap each other's loads, which the 64 KB of resident K
 // and V and 16 KB of exchange leave room for (about 210 KB).
+// At d 192 the same kernel (48 KB of K and V, 96 accumulator registers a
+// thread, 183 registers, clean) lost to dkv_wgmma<192> in turns
+// (PERF.md §6) and is built only with -DFLASH_OTHER_DESIGNS=1: with h d
+// kept, d 192 has 4/3 the heads of d 256, so 4/3 the 64 x 64 stages, each
+// with 3/4 of the products, and the per-stage serial part (S^T's wait, the
+// exponentials, the exchange barrier, P V's wait: the tensor cores idle)
+// weighs more; 96-query stages or a third stage did not pay
+// (kernel_variants.py).
 //
 // K2, `dq_rows8<D>` (replaces `_dq_kernel`): dq_wgmma's rows, 128 query
 // rows a block with Q and dO resident, 64 a warpgroup, K and V streamed in
@@ -1684,7 +1698,6 @@ constexpr int f32_design(int d) {
   return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : kF32Tiled;
 }
 
-constexpr int F32_THREADS = 256;
 // at most this many query-range splits of a K3 key tile
 constexpr int F32_MAX_SPLITS = 4;
 
@@ -1727,28 +1740,6 @@ struct DkvF32 {
   static_assert(BYTES <= SMEM_MAX, "227 KB a block");
 };
 
-// Issue the cp.async copies of ROWS rows of D floats, rows r0 .. of `src`
-// (element row stride ss), into `dst` (row pitch D + 4 floats); rows at or
-// past `limit` are zero-filled (nothing is read for them).
-template <int D, int ROWS>
-__device__ __forceinline__ void f32_rows_async(float* dst, const float* src,
-                                               int64_t ss, int r0, int limit,
-                                               int tid) {
-  constexpr int V = D / 4;  // 16-byte vectors a row
-  constexpr int N = ROWS * V;
-  const uint32_t base = hopper::smem_u32(dst);
-#pragma unroll
-  for (int k = 0; k < (N + F32_THREADS - 1) / F32_THREADS; ++k) {
-    const int i = tid + k * F32_THREADS;
-    if (N % F32_THREADS == 0 || i < N) {
-      const int r = i / V, c = i % V;
-      const bool in = r0 + r < limit;
-      const float* g = src + (in ? (r0 + r) * ss + 4 * c : 0);
-      hopper::cp_async_16(base + (r * (D + 4) + 4 * c) * 4, g, in ? 16 : 0);
-    }
-  }
-}
-
 // ROWS floats of a [b, h, s] row (lse or delta) from `src` + r0 into `dst`,
 // zero past `limit`, by 4-byte cp.async (the rows need not be aligned).
 template <int ROWS>
@@ -1758,129 +1749,6 @@ __device__ __forceinline__ void f32_vec_async(float* dst, const float* src,
     const bool in = r0 + tid < limit;
     hopper::cp_async_4(hopper::smem_u32(dst + tid), src + (in ? r0 + tid : 0),
                        in ? 4 : 0);
-  }
-}
-
-// The ring's step at streamed tile i of n (issue(j) issues tile j's
-// copies into its stage): with ST >= 2 wait for tile i (issued ST - 1
-// tiles ago), then, past a barrier that frees the stage tile i - 1 used
-// and the scores it left in shared memory, issue tile i + ST - 1; with
-// ST = 1 (no ring) wait for tile i - 1's readers, then load tile i and
-// wait for it. Either way tile i is in and visible to every thread.
-template <int ST, typename Issue>
-__device__ __forceinline__ void f32_next_stage(int i, int n,
-                                               const Issue& issue) {
-  if constexpr (ST == 1) {
-    __syncthreads();
-    issue(i);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<0>();
-    __syncthreads();
-  } else {
-    hopper::cp_async_wait<ST - 2>();
-    __syncthreads();
-    if (i + ST - 1 < n) issue(i + ST - 1);
-    hopper::cp_async_commit();
-  }
-}
-
-// The score products of one tile: for each of NPR products, s[n][i][j] =
-// A_n[a + GR i] . B_n[b + GC j] over D (rows of shared memory, pitch
-// D + 4). NP partial sums an element (the four products of a float4 go to
-// partials k % NP) keep at least 8 FMA chains a thread when the tile is
-// small.
-template <int D, int SR, int SC, int GR, int GC, int NPR>
-__device__ __forceinline__ void f32_dots(float (&s)[NPR][SR][SC],
-                                         const float* const (&A)[NPR],
-                                         const float* const (&B)[NPR], int a,
-                                         int b) {
-  constexpr int CH = NPR * SR * SC;  // FMA chains a thread
-  constexpr int NP = CH >= 8 ? 1 : 8 / CH;
-  constexpr int P = D + 4;
-  float ps[NPR][SR][SC][NP];
-#pragma unroll
-  for (int m = 0; m < NPR; ++m)
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SC; ++j)
-#pragma unroll
-        for (int n = 0; n < NP; ++n) ps[m][i][j][n] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-#pragma unroll
-    for (int m = 0; m < NPR; ++m) {
-      float4 x[SR], y[SC];
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-        x[i] = *reinterpret_cast<const float4*>(A[m] + (a + GR * i) * P + d);
-#pragma unroll
-      for (int j = 0; j < SC; ++j)
-        y[j] = *reinterpret_cast<const float4*>(B[m] + (b + GC * j) * P + d);
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-#pragma unroll
-        for (int j = 0; j < SC; ++j) {
-          float(&q)[NP] = ps[m][i][j];
-          q[0] = fmaf(x[i].x, y[j].x, q[0]);
-          q[1 % NP] = fmaf(x[i].y, y[j].y, q[1 % NP]);
-          q[2 % NP] = fmaf(x[i].z, y[j].z, q[2 % NP]);
-          q[3 % NP] = fmaf(x[i].w, y[j].w, q[3 % NP]);
-        }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < NPR; ++m)
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SC; ++j) {
-        s[m][i][j] = ps[m][i][j][0];
-#pragma unroll
-        for (int n = 1; n < NP; ++n) s[m][i][j] += ps[m][i][j][n];
-      }
-}
-
-// TR floats of row `red` of a score operand X ([reduction][XP]) at column
-// `col` (a multiple of TR).
-template <int TR>
-__device__ __forceinline__ void f32_xload(float (&x)[TR], const float* X) {
-  if constexpr (TR == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(X);
-    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else if constexpr (TR == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(X);
-    x[0] = t.x, x[1] = t.y;
-  } else {
-    x[0] = X[0];
-  }
-}
-
-// The output product of one tile: acc[i][4 n + e] += sum_r X[r][x0 + i]
-// Y[r][4 (oc + OC n) + e] over the RED rows r of X ([RED][XP]) and Y
-// (pitch D + 4): a thread of an output grid of OC column groups owns TR
-// rows and D / (4 OC) float4 columns.
-template <int D, int TR, int RED, int XP, int OC>
-__device__ __forceinline__ void f32_outer(float (&acc)[TR][D / OC],
-                                          const float* X, const float* Y,
-                                          int x0, int oc) {
-  constexpr int NG = D / (4 * OC);
-#pragma unroll 4
-  for (int r = 0; r < RED; ++r) {
-    float x[TR];
-    f32_xload<TR>(x, X + r * XP + x0);
-    const float* yr = Y + r * (D + 4) + 4 * oc;
-#pragma unroll
-    for (int n = 0; n < NG; ++n) {
-      const float4 y = *reinterpret_cast<const float4*>(yr + 4 * OC * n);
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        acc[i][4 * n] = fmaf(x[i], y.x, acc[i][4 * n]);
-        acc[i][4 * n + 1] = fmaf(x[i], y.y, acc[i][4 * n + 1]);
-        acc[i][4 * n + 2] = fmaf(x[i], y.z, acc[i][4 * n + 2]);
-        acc[i][4 * n + 3] = fmaf(x[i], y.w, acc[i][4 * n + 3]);
-      }
-    }
   }
 }
 

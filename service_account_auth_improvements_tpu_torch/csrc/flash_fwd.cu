@@ -59,9 +59,11 @@
 // - heaviest causal query tiles launch first, and neighbouring blocks take
 //   the heads of one KV group, which then share K/V in L2.
 //
-// float32 inputs take a scalar kernel, flash_fwd_f32: true f32 FMA on CUDA
-// cores, no TF32, so f32 parity with the reference holds.
+// float32 inputs take a register-tiled FFMA kernel, flash_fwd_f32: true
+// f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
+// see F32Design below.
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #include <cuda_bf16.h>
@@ -69,6 +71,8 @@
 #include <stdint.h>
 
 namespace {
+
+using namespace f32tile;
 
 constexpr float kNegInf = -2.0e38f;
 
@@ -115,7 +119,8 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 // At d 192 and 256 K1 ships the faster of two designs on the H100
 // (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
 // flash_fwd_wgmma at d 192, flash_fwd_rows8 at d 256. A build with
-// -DFLASH_OTHER_DESIGNS=1 takes the other one at each.
+// -DFLASH_OTHER_DESIGNS=1 takes the other one at each (and the scalar f32
+// kernel at d 128: F32Design).
 enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2 };
 
 #ifndef FLASH_OTHER_DESIGNS
@@ -845,25 +850,220 @@ flash_fwd_rows8(const __grid_constant__ FwdArgs a) {
 }
 
 // ------------------------------------------------ f32: CUDA cores
+//
+// float32 inputs run on the CUDA cores in true f32 FMA (no TF32), so f32
+// parity with the reference holds. Two designs (F32Design; the C function
+// flash_fwd_f32_design reports the one a build runs, and chip_smoke.py
+// labels its f32 timings by it):
+//   kF32Tiled   flash_fwd_f32 (below): register-tiled FFMA with cp.async
+//               loads through a ring of stages, at every head dim;
+//   kF32Scalar  flash_fwd_f32_scalar: each thread forms whole length-D
+//               dots from shared memory, two shared loads an FMA, loads
+//               synchronous; built only with -DFLASH_OTHER_DESIGNS=1, at
+//               d 128.
+//
+// What bounds them: the f32 FMA rate (67 TF/s on an H100; two products of
+// 2 s^2 d / 2 flops per causal (b, h) against 4 s d floats, hundreds of
+// flops a byte). An SM's FP32 pipes do 128 FMAs a clock and its shared
+// memory delivers 32 words a clock, so the products are register-tiled as
+// in dq_f32 (csrc/flash_bwd.cu, the note above its F32Design), whose
+// structure this is, less the dP product and plus the online softmax:
+//   - 256 threads (8 warps) a block own BQ query rows, Q resident; K and V
+//     stream in tiles of BK keys through a ring of ST stages by cp.async
+//     16-byte copies (zero-filled past sk), rows padded to D + 4 floats;
+//   - S = Q K^T: thread (gr, gc) = (tid / CT, tid % CT) holds SR x SC
+//     scores at query rows gr + RT i and keys gc + CT j; per 4 of D it reads
+//     one float4 a row and a key, shared by broadcast (f32_dots). The CT =
+//     16 threads of a row are one half-warp, so the row max and the row sum
+//     are four shuffles and m and l never touch shared memory;
+//   - the online softmax folds the scale and log2 e into exp2; a masked
+//     score gets P = 0 by a select; O is rescaled by alpha per row a tile;
+//     l is summed over the row's lanes once, at the end;
+//   - P goes to shared memory once, as P^T [key][row] with pitch BQ + 4 and
+//     a thread's SR rows contiguous (one float4 store a key at SR 4, four
+//     wavefronts a warp: conflict-free), and O += P V gives each thread the
+//     same SR rows (so alpha, m and l stay in its registers) and D / CT
+//     columns, float4s gc + CT n (f32_outer): 32 floats at d 128, 64 at
+//     d 256 and at d 512, where the blocks are 32 rows;
+//   - no column split (two blocks would both form the scores) and no
+//     key-range split (it would need a merge of (m, l, O)): each block
+//     writes its own rows, deterministic;
+//   - heaviest causal query tiles launch first, as in the bf16 kernels;
+//     neighbouring blocks take the heads of one KV group.
+
+enum F32Design { kF32Scalar = 0, kF32Tiled = 1 };
+
+constexpr int f32_design(int d) {
+  return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : kF32Tiled;
+}
+
+// K1's f32 tiles at head dim D: BQ query rows a block (Q resident), K/V
+// tiles of BK keys in ST stages (from d 192 one stage of 64 keys, then of
+// 32 keys beside 32 rows), CT threads a query row (a half-warp), SR x SC
+// scores a thread, P^T [BK][XP].
+template <int D>
+struct FwdF32 {
+  static constexpr int BQ = D <= 256 ? 64 : 32;
+  static constexpr int BK = D <= 256 ? 64 : 32;
+  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : 1;
+  static constexpr int CT = 16;
+  static constexpr int RT = F32_THREADS / CT;
+  static constexpr int SR = BQ / RT, SC = BK / CT;
+  static constexpr int P = D + 4;    // row pitch, floats
+  static constexpr int XP = BQ + 4;  // P^T [BK][XP]
+  static constexpr int Q_OFF = 0, KV_OFF = BQ * P;
+  static constexpr int X_OFF = KV_OFF + ST * 2 * BK * P;
+  static constexpr int BYTES = (X_OFF + BK * XP) * 4;
+  static_assert(SR * RT == BQ && SC * CT == BK && CT <= 32 &&
+                    D % (4 * CT) == 0,
+                "thread grid");
+  static_assert(BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// K1, f32: O and LSE for one (b, head, BQ-row query tile). Grid:
+// blockIdx.x = t h b + ib h + ih, the query tile nq - 1 - t under causal
+// masking (heaviest first), else t.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    flash_fwd_f32(const Params p) {
+  using L = FwdF32<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int CT = L::CT, RT = L::RT, P = L::P, XP = L::XP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Qs = sm + L::Q_OFF;
+  float* Xs = sm + L::X_OFF;
+
+  const int tid = threadIdx.x, gr = tid / CT, gc = tid % CT;
+  const int nq = (p.sq + BQ - 1) / BQ;
+  const int hb = gridDim.x / nq;  // h b
+  const int t = blockIdx.x / hb;
+  const int ih = blockIdx.x % hb % p.h, ib = blockIdx.x % hb / p.h;
+  const int q0 = (p.causal ? nq - 1 - t : t) * BQ;
+  const int ikv = ih / (p.h / p.hkv);
+  const float* k = static_cast<const float*>(p.k) + ib * p.k_sb + ikv * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + ib * p.v_sb + ikv * p.v_sh;
+  const int nk = key_tiles(p, q0, BQ, BK);
+
+  auto issue = [&](int ik) {
+    float* kv = sm + L::KV_OFF + ik % ST * 2 * BK * P;
+    f32_rows_async<D, BK>(kv, k, p.k_ss, ik * BK, p.sk, tid);
+    f32_rows_async<D, BK>(kv + BK * P, v, p.v_ss, ik * BK, p.sk, tid);
+  };
+  f32_rows_async<D, BQ>(
+      Qs, static_cast<const float*>(p.q) + ib * p.q_sb + ih * p.q_sh, p.q_ss,
+      q0, p.sq, tid);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nk) issue(s);
+    hopper::cp_async_commit();
+  }
+  const float scale_log2 = p.scale * hopper::kLog2e;
+
+  float o[SR][D / CT];
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int c = 0; c < D / CT; ++c) o[i][c] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m[SR], l[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) m[i] = kNegInf, l[i] = 0.f;
+
+#pragma unroll 1
+  for (int ik = 0; ik < nk; ++ik) {
+    f32_next_stage<ST>(ik, nk, issue);  // tile ik is in
+
+    const float* Ks = sm + L::KV_OFF + ik % ST * 2 * BK * P;
+    const float* Vs = Ks + BK * P;
+    const int k0 = ik * BK;
+
+    // S = Q K^T
+    float s[1][SR][SC];
+    f32_dots<D, SR, SC, RT, CT, 1>(s, {Qs}, {Ks}, gr, gc);
+
+    // mask only tiles that cross the diagonal or the ragged end
+    const bool need_mask = (p.causal && k0 + BK - 1 > q0) || k0 + BK > p.sk;
+    float alpha[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = q0 + gr + RT * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int col = k0 + gc + CT * j;
+        if (need_mask && (col >= p.sk || (p.causal && col > row)))
+          s[0][i][j] = kNegInf;
+        mx = fmaxf(mx, s[0][i][j]);
+      }
+#pragma unroll
+      for (int off = CT / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      alpha[i] = hopper::fast_exp2((m[i] - mx) * scale_log2);
+      m[i] = mx;
+      l[i] *= alpha[i];
+    }
+    // P = exp2((S - m) scale log2 e), 0 where masked, into P^T
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      float pr[SR];
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const float x = s[0][i][j];
+        pr[i] = x == kNegInf
+                    ? 0.f
+                    : hopper::fast_exp2(fmaf(x, scale_log2,
+                                             -m[i] * scale_log2));
+        l[i] += pr[i];
+      }
+      f32_xstore<SR>(Xs + (gc + CT * j) * XP + SR * gr, pr);
+    }
+    __syncthreads();  // P^T is in
+
+    // O = alpha O + P V
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int c = 0; c < D / CT; ++c) o[i][c] *= alpha[i];
+    f32_outer<D, SR, BK, XP, CT>(o, Xs, Vs, SR * gr, gc);
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  // the row sums over the row's lanes; O / l and LSE = m scale + log l
+  float* out = static_cast<float*>(p.o) + ib * p.o_sb + ih * p.o_sh;
+  float* lse = p.lse + (static_cast<int64_t>(ib) * p.h + ih) * p.sq;
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+#pragma unroll
+    for (int off = CT / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + gr + RT * i;
+    if (row >= p.sq) continue;
+    const float inv = 1.f / l[i];
+    float* orow = out + row * p.o_ss + 4 * gc;
+#pragma unroll
+    for (int n = 0; n < D / (4 * CT); ++n)
+      *reinterpret_cast<float4*>(orow + 4 * CT * n) =
+          make_float4(o[i][4 * n] * inv, o[i][4 * n + 1] * inv,
+                      o[i][4 * n + 2] * inv, o[i][4 * n + 3] * inv);
+    if (gc == 0) lse[row] = m[i] * p.scale + logf(l[i]);
+  }
+}
+
+// The scalar f32 kernel (kF32Scalar), built only where f32_design names it
+// (d 128).
 
 constexpr int SC_BQ = 32;  // query rows per block: 4 threads per row
 constexpr int SC_BK = 32;  // keys per tile
 constexpr int SC_THREADS = 128;
 
-// Output columns a block of the f32 kernels owns: all D up to d 256; above,
-// half, in two blocks that each compute the whole scores (a thread's
-// accumulator stays at most 64 floats, where D / 4 would spill).
-__host__ __device__ constexpr int f32_cols(int d) {
-  return d > 256 ? d / 2 : d;
-}
-
 // Thread (r, c4) = (tid / 4, tid % 4) owns query row r, the scores of
-// keys c4 + 4j of each tile, and output columns cb + c4 + 4jj of the
-// block's COLS columns starting at cb.
+// keys c4 + 4j of each tile, and output columns c4 + 4jj.
 template <int D>
 __global__ void __launch_bounds__(SC_THREADS)
-flash_fwd_f32(const Params p) {
-  constexpr int COLS = f32_cols(D), PARTS = D / COLS;
+flash_fwd_f32_scalar(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [SC_BQ][D + 1]
   float* Ks = Qs + SC_BQ * (D + 1);            // [SC_BK][D + 1]
@@ -872,8 +1072,7 @@ flash_fwd_f32(const Params p) {
 
   const int tid = threadIdx.x, r = tid >> 2, c4 = tid & 3;
   const int ih = blockIdx.y, ib = blockIdx.z;
-  const int q0 = blockIdx.x / PARTS * SC_BQ;
-  const int cb = blockIdx.x % PARTS * COLS;
+  const int q0 = blockIdx.x * SC_BQ;
   const int row = q0 + r;
   const float* q = static_cast<const float*>(p.q) + ib * p.q_sb + ih * p.q_sh;
   const int ikv = ih / (p.h / p.hkv);
@@ -885,9 +1084,9 @@ flash_fwd_f32(const Params p) {
     Qs[rr * (D + 1) + cc] = q0 + rr < p.sq ? q[(q0 + rr) * p.q_ss + cc] : 0.f;
   }
 
-  float acc[COLS / 4];
+  float acc[D / 4];
 #pragma unroll
-  for (int jj = 0; jj < COLS / 4; ++jj) acc[jj] = 0.f;
+  for (int jj = 0; jj < D / 4; ++jj) acc[jj] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int nk = key_tiles(p, q0, SC_BQ, SC_BK);
@@ -935,12 +1134,12 @@ flash_fwd_f32(const Params p) {
     m = mn;
     __syncwarp();  // row r's P is written and read by the same four lanes
 #pragma unroll
-    for (int jj = 0; jj < COLS / 4; ++jj) acc[jj] *= alpha;
+    for (int jj = 0; jj < D / 4; ++jj) acc[jj] *= alpha;
     for (int c = 0; c < SC_BK; ++c) {
       const float pc = Ps[r * (SC_BK + 1) + c];
-      const float* vr = Vs + c * D + cb + c4;
+      const float* vr = Vs + c * D + c4;
 #pragma unroll
-      for (int jj = 0; jj < COLS / 4; ++jj)
+      for (int jj = 0; jj < D / 4; ++jj)
         acc[jj] = fmaf(pc, vr[4 * jj], acc[jj]);
     }
   }
@@ -949,8 +1148,8 @@ flash_fwd_f32(const Params p) {
     float* o = static_cast<float*>(p.o) + ib * p.o_sb + ih * p.o_sh +
                row * p.o_ss;
 #pragma unroll
-    for (int jj = 0; jj < COLS / 4; ++jj) o[cb + c4 + 4 * jj] = acc[jj] / l;
-    if (c4 == 0 && cb == 0)
+    for (int jj = 0; jj < D / 4; ++jj) o[c4 + 4 * jj] = acc[jj] / l;
+    if (c4 == 0)
       p.lse[(static_cast<int64_t>(ib) * p.h + ih) * p.sq + row] =
           m + logf(l);
   }
@@ -1021,12 +1220,19 @@ cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
                             FWD_THREADS, L::BYTES, stream, a);
     }
   }
-  const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ * (D / f32_cols(D)), p.h,
-                  batch);
-  const size_t smem =
-      ((SC_BQ + SC_BK) * (D + 1) + SC_BK * D + SC_BQ * (SC_BK + 1)) *
-      sizeof(float);
-  return launch(flash_fwd_f32<D>, grid, SC_THREADS, smem, stream, p);
+  if constexpr (f32_design(D) == kF32Tiled) {
+    using L = FwdF32<D>;
+    return launch(flash_fwd_f32<D>,
+                  dim3((p.sq + L::BQ - 1) / L::BQ * p.h * batch), F32_THREADS,
+                  L::BYTES, stream, p);
+  } else {
+    const dim3 grid((p.sq + SC_BQ - 1) / SC_BQ, p.h, batch);
+    const size_t smem =
+        ((SC_BQ + SC_BK) * (D + 1) + SC_BK * D + SC_BQ * (SC_BK + 1)) *
+        sizeof(float);
+    return launch(flash_fwd_f32_scalar<D>, grid, SC_THREADS, smem, stream,
+                  p);
+  }
 }
 
 }  // namespace
@@ -1064,5 +1270,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The design (FwdDesign) K1 runs for bf16 inputs of head dim d
-// (chip_smoke.py labels its d 192 and 256 timings by it).
+// (chip_smoke.py labels its d 192 and 256 timings by it), and the one
+// (F32Design) it runs for float32 inputs.
 extern "C" int flash_fwd_design(int d) { return fwd_design(d); }
+extern "C" int flash_fwd_f32_design(int d) { return f32_design(d); }

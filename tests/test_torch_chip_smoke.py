@@ -6,7 +6,8 @@ in the JAX package's ops/flash_attention.py: both go stale silently when
 a kernel is renamed or that file moves, so they are checked here against
 the sources (the JAX file is read as text, not imported).
 kernel_variants.py rebuilds K1, K2 and K3 with text edits of their
-committed sources, which must each still match exactly once.
+committed sources and the headers beside them, which must each still
+match exactly once.
 """
 
 import importlib.util
@@ -59,14 +60,17 @@ def test_kernel_variant_edits_match_the_source(variant):
     assert kernel in kernel_variants.KERNEL_HEADS
     assert kernel in _global_kernels()
     source = kernel_variants.source_of(kernel)
-    src = (CSRC / f"{source}.cu").read_text()
+    files = kernel_variants.committed_files(source)
+    assert set(files) == {f"{source}.cu"} | {h.name
+                                            for h in CSRC.glob("*.cuh")}
     assert re.search(rf"void\s+(?:__launch_bounds__\([^)]*\)\s+)?{kernel}\(",
-                     src)
-    out = kernel_variants.variant_source(variant, src)
+                     files[f"{source}.cu"])
+    out = kernel_variants.variant_files(variant, files)
     for old, new in kernel_variants.VARIANTS[variant][1]:
-        assert new in out
+        assert any(new in text for text in out.values())
     with pytest.raises(ValueError, match="exactly once"):
-        kernel_variants.variant_source(variant, src + src)
+        kernel_variants.variant_files(
+            variant, {f: text + text for f, text in files.items()})
 
 
 def test_lifecycle_settings():
@@ -288,8 +292,10 @@ def test_fwd_design_labels_name_every_design():
 def test_bwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K2's and K3's design functions can
     return, and no other; ``design_names`` reads K1's, K2's and K3's ids:
-    at d 256 the 8-warp designs ship, and a build with -DFLASH_OTHER_DESIGNS=1
-    runs PR 10's row split there (and K1's rows on 8 warps at d 192)."""
+    at d 256 the 8-warp designs ship, and a build with
+    -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and K1's
+    rows on 8 warps and K3's one pass at d 192, where the row split
+    ships)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3}
     assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
@@ -303,7 +309,8 @@ def test_bwd_design_labels_name_every_design():
                 ids["kRowSplit"] if d <= 192 else row8 if d == 256
                 else ids["kDSplit"])
             self.flash_bwd_dkv_design = lambda d: (
-                ids["kRowSplit"] if d <= 192 else one if d == 256
+                ids["kRowSplit"] if d <= 128 else one if d == 256
+                else ids["kOnePass" if other else "kRowSplit"] if d == 192
                 else ids["kDSplit"])
 
     shipped = chip_smoke.design_names(_Fwd(False), Bwd(False), 256)
@@ -313,27 +320,34 @@ def test_bwd_design_labels_name_every_design():
                        "flash_bwd_dkv": "one pass"}
     assert other == {"flash_fwd": "row split", "flash_bwd_dq": "row split",
                      "flash_bwd_dkv": "row split"}
-    # at d 192 only K1 has two designs
+    # at d 192 K1 and K3 have two designs
     assert set(chip_smoke.design_names(_Fwd(False), Bwd(False), 192)
                .values()) == {"row split"}
     assert chip_smoke.design_names(_Fwd(True), Bwd(True), 192) == {
         "flash_fwd": "rows on 8 warps", "flash_bwd_dq": "row split",
-        "flash_bwd_dkv": "row split"}
+        "flash_bwd_dkv": "one pass"}
+    assert set(chip_smoke.design_names(_Fwd(False), Bwd(False), 128)
+               .values()) == {"row split"}
     assert chip_smoke.design_names(_Fwd(False), Bwd(False), 512) == {
         "flash_fwd": "D split", "flash_bwd_dq": "D split",
         "flash_bwd_dkv": "D split"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
     assert "FLASH_OTHER_DESIGNS ? kRowSplit : kRows8" in text
-    assert "FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass" in text
+    rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
+                     re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? "
+        "kOnePass : kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? "
+        "kRowSplit : kOnePass) : kDSplit;")
 
 
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
-    contract names, launches summed over phase 12's paths; at d 256 (all
-    three kernels) and d 192 (K1) the designs timed in turns, and K2's and
-    K3's the pair's sum beside SDPA's backward; the kernel-only dims under
-    d 512."""
+    contract names, launches summed over phase 12's paths; at d 192 and
+    256 (all three kernels) the designs timed in turns, and K2's and K3's
+    the pair's sum beside SDPA's backward; the kernel-only dims under d
+    512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -348,9 +362,9 @@ def test_wide_entries_carry_designs_and_pair():
     wide = {d: {"training": {name: 20 for name in chip_smoke.KERNELS},
                 "serving": {name: 0 for name in chip_smoke.KERNELS}}
             for _, _, d in chip_smoke.WIDE_HEADS.values()}
-    designs = {256: {name: {"shipped_ms": 1.0, "other_ms": 2.0}
-                     for name in chip_smoke.KERNELS},
-               192: {"flash_fwd": {"shipped_ms": 1.0, "other_ms": 2.0}}}
+    designs = {d: {name: {"shipped_ms": 1.0, "other_ms": 2.0}
+                   for name in chip_smoke.KERNELS}
+               for d in chip_smoke.DESIGN_DIMS}
     entries = chip_smoke.wide_kernel_entries(numbers, wide, designs)
     assert len(entries) == len(chip_smoke.WIDE_HEADS) * len(
         chip_smoke.KERNELS)
@@ -362,8 +376,7 @@ def test_wide_entries_carry_designs_and_pair():
         assert entry["route"] == "cuda" and entry["launches"] == 20
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
-        assert ("designs_in_turns" in entry) == (
-            d == 256 or (d == 192 and kernel == "flash_fwd"))
+        assert ("designs_in_turns" in entry) == (d in (192, 256))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d == 512)
         if "designs_in_turns" in entry:
@@ -374,43 +387,48 @@ def test_wide_entries_carry_designs_and_pair():
 
 
 def test_f32_design_labels_name_every_design():
-    """chip_smoke.py labels each id of K2's and K3's f32 design function,
-    and no other; the source's rule: the register-tiled kernels at every
-    head dim, PR 2's scalar ones at d 128 in a -DFLASH_OTHER_DESIGNS=1
-    build (F32_DESIGN_DIM, the dim phase_f32_designs times in turns)."""
-    ids = _designs("flash_bwd", "F32Design")
-    assert ids == {"kF32Scalar": 0, "kF32Tiled": 1}
+    """chip_smoke.py labels each id of K1's, K2's and K3's f32 design
+    functions, and no other; each source's rule: the register-tiled
+    kernels at every head dim, the scalar ones at d 128 in a
+    -DFLASH_OTHER_DESIGNS=1 build (F32_DESIGN_DIM, the dim
+    phase_f32_designs times in turns)."""
     assert chip_smoke.F32_DESIGNS == {0: "scalar", 1: "register-tiled"}
     assert chip_smoke.F32_DESIGN_DIM == 128
-    text = (CSRC / "flash_bwd.cu").read_text()
-    rule = re.search(r"constexpr int f32_design\(int d\) \{(.*?)\}", text,
-                     re.S).group(1)
-    assert " ".join(rule.split()) == (
-        "return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : kF32Tiled;")
-    assert ('extern "C" int flash_bwd_f32_design(int d) { return '
-            'f32_design(d); }') in text
+    for source, fn in (("flash_fwd", "flash_fwd_f32_design"),
+                       ("flash_bwd", "flash_bwd_f32_design")):
+        ids = _designs(source, "F32Design")
+        assert ids == {"kF32Scalar": 0, "kF32Tiled": 1}
+        text = (CSRC / f"{source}.cu").read_text()
+        rule = re.search(r"constexpr int f32_design\(int d\) \{(.*?)\}",
+                         text, re.S).group(1)
+        assert " ".join(rule.split()) == (
+            "return FLASH_OTHER_DESIGNS && d == 128 ? kF32Scalar : "
+            "kF32Tiled;")
+        assert (f'extern "C" int {fn}(int d) {{ return f32_design(d); }}'
+                in text)
 
-    class Bwd:
+    class Lib:
         def __init__(self, other):
-            self.flash_bwd_f32_design = lambda d: ids[
-                "kF32Scalar" if other and d == 128 else "kF32Tiled"]
+            self.flash_fwd_f32_design = self.flash_bwd_f32_design = (
+                lambda d: ids["kF32Scalar" if other and d == 128
+                              else "kF32Tiled"])
 
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     for d in (64, 128, 512):
-        assert chip_smoke.f32_design_names(Bwd(False), d) == {
-            "flash_bwd_dq": "register-tiled",
-            "flash_bwd_dkv": "register-tiled"}
-    assert chip_smoke.f32_design_names(Bwd(True), 128) == {
-        "flash_bwd_dq": "scalar", "flash_bwd_dkv": "scalar"}
-    assert chip_smoke.f32_design_names(Bwd(True), 256)["flash_bwd_dq"] == (
-        "register-tiled")
+        assert chip_smoke.f32_design_names(Lib(False), Lib(False), d) == (
+            dict.fromkeys(names, "register-tiled"))
+    assert chip_smoke.f32_design_names(Lib(True), Lib(True), 128) == (
+        dict.fromkeys(names, "scalar"))
+    assert chip_smoke.f32_design_names(Lib(True), Lib(True), 256) == (
+        dict.fromkeys(names, "register-tiled"))
 
 
 def test_f32_settings():
-    """Phase 3 times K2 and K3 in f32 at bench_800m's heads at s 1000 and
-    at the training shape and at phase 12's d 256 and d 512 heads, the
+    """Phase 3 times K1, K2 and K3 in f32 at bench_800m's heads at s 1000
+    and at the training shape and at phase 12's d 256 and d 512 heads, the
     first two also in turns with the scalar design; phase 2 reports ptxas
-    for kernels the sources define, and holds the register-tiled ones to
-    no spill."""
+    for kernels the sources define, each kernel's two designs among them,
+    and holds the register-tiled ones to no spill."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -435,36 +453,43 @@ def test_f32_settings():
     assert set(chip_smoke.F32_KERNELS) <= kernels
     assert set(chip_smoke.F32_NO_SPILL) <= set(chip_smoke.F32_KERNELS)
     assert not any(k.endswith("_scalar") for k in chip_smoke.F32_NO_SPILL)
+    for k in ("flash_fwd_f32", "dq_f32", "dkv_f32"):
+        assert k in chip_smoke.F32_NO_SPILL
+        assert f"{k}_scalar" in chip_smoke.F32_KERNELS
 
 
 def _f32_numbers(keys):
     numbers = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in chip_smoke.KERNELS:
         numbers[name] = {"f32": {
-            label: {key: float(i + 1) for key in keys}
+            label: {key: float(i + 1) for key in keys
+                    if name != "flash_fwd" or key != "pair_ms"}
             for i, label in enumerate(chip_smoke.F32_SHAPES)}}
     return numbers
 
 
 def test_f32_entries_carry_designs_and_pair():
-    """K2's and K3's f32 ``kernels`` entries: every key the line's contract
-    names, the first F32_SHAPES shape's numbers with the others under
-    more_shapes, launches summed over the f32 paths, the designs timed in
-    turns and the pair's sum; a path that launched nothing fails."""
+    """K1's, K2's and K3's f32 ``kernels`` entries: every key the line's
+    contract names, the first F32_SHAPES shape's numbers with the others
+    under more_shapes, launches summed over the f32 paths, the designs
+    timed in turns and (K2, K3) the pair's sum; a path that launched
+    nothing fails."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share",
             "pair_ms")
     numbers = _f32_numbers(keys)
     labels = list(chip_smoke.F32_SHAPES)[:chip_smoke.F32_IN_TURNS]
     designs = {label: {name: {"shipped_ms": 1.0, "other_ms": 5.0}
-                       for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+                       for name in chip_smoke.KERNELS}
                for label in labels}
-    paths = {"flash vs dense grads d128": {"flash_bwd_dq": 20,
+    paths = {"flash vs dense grads d128": {"flash_fwd": 20,
+                                           "flash_bwd_dq": 20,
                                            "flash_bwd_dkv": 20},
-             "pipeline step 1 f32": {"flash_bwd_dq": 60,
+             "pipeline step 1 f32": {"flash_fwd": 60, "flash_bwd_dq": 60,
                                      "flash_bwd_dkv": 60}}
     entries = chip_smoke.f32_kernel_entries(numbers, designs, paths)
-    assert [e["name"] for e in entries] == ["flash_bwd_dq f32",
+    assert [e["name"] for e in entries] == ["flash_fwd f32",
+                                            "flash_bwd_dq f32",
                                             "flash_bwd_dkv f32"]
     contract = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -473,15 +498,18 @@ def test_f32_entries_carry_designs_and_pair():
         kernel = entry["name"].split()[0]
         assert contract <= set(entry)
         assert entry["route"] == "cuda" and entry["launches"] == 80
-        assert entry["source"].endswith("csrc/flash_bwd.cu")
+        assert entry["source"].endswith(
+            f"csrc/{chip_smoke.KERNELS[kernel][0]}")
         assert entry["replaces"].endswith(
             f"flash_attention.py:{chip_smoke.KERNELS[kernel][2]}")
-        assert entry["ms"] == 1.0 and entry["pair_ms"] == 1.0
+        assert entry["ms"] == 1.0
+        assert entry.get("pair_ms") == (
+            None if kernel == "flash_fwd" else 1.0)
         assert set(entry["more_shapes"]) == set(chip_smoke.F32_SHAPES) - {
             labels[0]}
         assert entry["designs_in_turns"] == {
             label: designs[label][kernel] for label in labels}
-    paths["moe flash vs dense grads"] = {"flash_bwd_dq": 0,
+    paths["moe flash vs dense grads"] = {"flash_fwd": 24, "flash_bwd_dq": 0,
                                          "flash_bwd_dkv": 0}
     with pytest.raises(AssertionError, match="launched no kernel"):
         chip_smoke.f32_kernel_entries(numbers, designs, paths)
@@ -495,7 +523,11 @@ def test_f32_entries_carry_designs_and_pair():
     ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd2810f32_reduceILi128E"
      "Lb1EEEvNS_6ParamsEPKfii", "f32_reduce"),
     ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd2813dq_f32_scalarILi12"
-     "8EEEvNS_6ParamsE", "dq_f32_scalar")])
+     "8EEEvNS_6ParamsE", "dq_f32_scalar"),
+    ("_ZN45_GLOBAL__N__d1e5a3b0_12_flash_fwd_cu_4f0a9c1213flash_fwd_f32ILi12"
+     "8EEEvNS_6ParamsE", "flash_fwd_f32"),
+    ("_ZN45_GLOBAL__N__d1e5a3b0_12_flash_fwd_cu_4f0a9c1220flash_fwd_f32_scal"
+     "arILi128EEEvNS_6ParamsE", "flash_fwd_f32_scalar")])
 def test_template_name_reads_f32_kernels(mangled, name):
     """phase 2's f32 lines name each f32 kernel at its head dim (the
     namespace's hash ends in a digit that runs into the name's length)."""

@@ -105,7 +105,11 @@ SHAPES = [
     # dq_f32's 64-row blocks and 64-key tiles and dkv_f32's 64-key blocks
     # and 32-row query tiles at d 128 (65 and 127 are above), dq_f32's
     # 32-row blocks and 8-key tiles and dkv_f32's 32-key blocks and 8-row
-    # query tiles at d 512
+    # query tiles at d 512. flash_fwd_f32's 64-row blocks and 64-key tiles
+    # at d 128 (s 63, 65, 127, 129) and its 32-row blocks and 32-key tiles
+    # at d 512 (s 31, 33, 63, 65) are these rows too; its 64-row blocks and
+    # tiles at d 192 and 256 one row short of a block (one past: s 65
+    # above)
     (2, 31, 6, 2, 128, True),
     (2, 33, 6, 2, 128, True),
     (2, 63, 6, 2, 128, True),
@@ -116,6 +120,8 @@ SHAPES = [
     (2, 33, 3, 1, 512, True),
     (2, 63, 3, 1, 512, True),
     (2, 65, 3, 1, 512, True),
+    (2, 63, 8, 4, 192, True),
+    (2, 63, 6, 2, 256, True),
 ]
 
 
@@ -203,9 +209,13 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128),
+                                         (2, 63, 8, 4, 192),
+                                         (2, 65, 8, 4, 192),
+                                         (1, 2047, 8, 4, 192),
                                          (2, 300, 4, 2, 256),
                                          (2, 300, 8, 2, 256),
                                          (8, 2048, 6, 2, 256),
@@ -218,7 +228,9 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     launches give the same bits (at d 256 the shipped dq_rows8 and
     dkv_onepass, whose warpgroups exchange P^T through shared memory; in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
-    their parts summed in split order by a second pass)."""
+    their parts summed in split order by a second pass). K1 too: each
+    block owns its query rows (in f32 flash_fwd_f32 reduces each row's max
+    and sum over a half-warp by shuffles, in a fixed order)."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -227,9 +239,12 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     do = _qkv(b, s, h, h, d, dtype, seed=1)[0]
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.flash_bwd_delta(o, do)
-    fn = getattr(fa, kernel)
-    first = fn(q, k, v, do, lse, delta, True)
-    second = fn(q, k, v, do, lse, delta, True)
+    if kernel == "flash_fwd":
+        first, second = (fa.flash_fwd(q, k, v, True) for _ in range(2))
+    else:
+        fn = getattr(fa, kernel)
+        first = fn(q, k, v, do, lse, delta, True)
+        second = fn(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
     if kernel == "flash_bwd_dq":
         first, second = (first,), (second,)

@@ -10,7 +10,7 @@ no network. Phases, each of which raises on failure:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: every kernel source, one nvcc each, all started together, also
    with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
-   registers, spills and C75xx notes of the d 192 and 256 kernels and of
+   registers, spills and C75xx notes of the d 64, 192 and 256 kernels and of
    the f32 K1, K2 and K3 at every head dim (the register-tiled ones must
    not spill);
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -28,13 +28,15 @@ no network. Phases, each of which raises on failure:
    heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
    SDPA (its backend named: its flash backend stops at d 256), in f32 at
    s 1000 too, with K1 also at its per-length prefill; K1 at d 192 and
-   256 and K2 and K3 at d 192 and 256 also at ragged lengths (s 1 (K1),
-   63 (K2, K3 at d 192), 65, 127, 191, 2047; group 4 at s 300; non-causal
-   s 512); the design not shipped there (K1 at d 192: the rows on 8
-   warps; K3 at d 192: the one pass; K1 at d 256 and K2 and K3: the
-   12-warp row split) against the plain versions and timed in turns with
-   the shipped one (K1 also at d 256's prefill shape), the K2 + K3 pair
-   beside SDPA's backward; K1, K2 and K3 in f32 (the register-tiled
+   256 and K2 and K3 at d 64, 192 and 256 also at ragged lengths (s 1
+   (K1; K2, K3 at d 64), 63 (K2, K3 at d 192), 65, 127, 191, 2047; group
+   4 at s 300; non-causal s 512, at d 64 s 256); the design not shipped
+   at d 64, 192 and 256 (K2 and K3 at d 64, K1 at d 256 and K2 and K3 at
+   d 256: the 12-warp row split; K1 at d 192: the rows on 8 warps; K3 at
+   d 192: the one pass) against the plain versions and timed in turns
+   with the shipped one at DESIGN_SHAPES (d 64 at the fine-tuning shape;
+   K1 also at d 256's prefill shape), the K2 + K3 pair beside SDPA's
+   backward; K1, K2 and K3 in f32 (the register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
    ragged lengths around their tiles (d 128 and 512) and at F32_SHAPES
    (K2 and K3 each launched twice, bitwise), timed there beside SDPA's
@@ -183,8 +185,9 @@ KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
 PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_wgmma": "K3 dkv",
                    "flash_fwd_rows8": "K1 flash_fwd (8 warps, d 256)",
-                   "dq_rows8": "K2 dq (8 warps, d 256)",
+                   "dq_rows8": "K2 dq (8 warps, d 64 and 256)",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
+                   "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
                    "dkv_split": "K3 dkv (D split)"}
@@ -193,14 +196,22 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
-               3: "one pass"}
-# the other designs (K1 at d 192 and 256, K2 at d 256, K3 at d 192 and
-# 256 in bf16, and all three at d 128 in f32; phase 3 times them beside
-# the shipped ones in turns):
+               3: "one pass", 4: "keys on 8 warps"}
+# the kernel template each design id runs, per kernel
+DESIGN_KERNELS = {
+    "flash_fwd": {0: "flash_fwd_wgmma", 1: "flash_fwd_split",
+                  2: "flash_fwd_rows8"},
+    "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8"},
+    "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
+                      4: "dkv_keys8"}}
+# the other designs (K2 and K3 at d 64, K1 at d 192 and 256, K2 at d 256,
+# K3 at d 192 and 256 in bf16, and all three at d 128 in f32; phase 3
+# times them beside the shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
-DESIGN_DIMS = (192, 256)
+# (DESIGN_SHAPES: where phase 3 times both)
+DESIGN_DIMS = (64, 192, 256)
 # K1's, K2's and K3's f32 designs by the id flash_fwd_f32_design and
 # flash_bwd_f32_design return (csrc/flash_fwd.cu's and csrc/flash_bwd.cu's
 # F32Design), and the head dim at which the other build runs the other one
@@ -363,6 +374,23 @@ WIDE_SERVED = (256, 512)
 WIDE_VS_DENSE = (512, 384)
 KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448)}
 WIDE_STEPS = TRAIN_STEPS
+# the causal shape (b, s, heads, KV heads) each of DESIGN_DIMS is timed at
+# in turns: Llama-3.2-1B's at the fine-tuning shape (phase 8's
+# distillation student) and phase 12's d 192 and d 256 heads at the
+# training shape
+DESIGN_SHAPES = {
+    64: (FT_BATCH, FT_SEQ, HF_LLAMA32_1B["num_attention_heads"],
+         HF_LLAMA32_1B["num_key_value_heads"]),
+    **{d: (TRAIN_BATCH, TRAIN_SEQ, *WIDE_HEADS[f"bench_800m_d{d}"][:2])
+       for d in (192, 256)}}
+# d 64's K2 blocks of 128 query rows over 128-key stages and K3 blocks of
+# 128 keys over 64-query stages at their edges, (b, s, heads, KV heads,
+# causal): one row, ragged ends inside and one past a block, s 2047 at
+# Llama-3.2-1B's heads, GQA group 4, non-causal aligned; phase 3 holds the
+# shipped K2 and K3 there, phase_wide_designs the other build's
+D64_EDGES = ((2, 1, 4, 4, True), (2, 65, 4, 4, True), (2, 127, 8, 2, True),
+             (2, 191, 4, 2, True), (1, 2047, 32, 8, True),
+             (2, 300, 8, 2, True), (2, 256, 4, 1, False))
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
 # rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
@@ -479,9 +507,9 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
-    port builds it, and with the other designs (bf16 at d 192 and 256, f32
-    at d 128; phase 3 times both). Raises if a register-tiled f32 kernel
-    spills."""
+    port builds it, and with the other designs (bf16 at d 64, 192 and
+    256, f32 at d 128; phase 3 times both). Raises if a register-tiled f32
+    kernel spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
@@ -493,7 +521,8 @@ def phase_build() -> None:
         other = pool.map(_build_other_designs, KERNEL_SOURCES)
         libs, others = list(built), list(other)
     _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
-         f"designs (bf16 at d 192 and 256, f32 at d {F32_DESIGN_DIM}), in "
+         f"designs (bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at "
+         f"d {F32_DESIGN_DIM}), in "
          f"{time.perf_counter() - t0:.1f} s")
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
@@ -503,7 +532,7 @@ def phase_build() -> None:
                 if any(w in line for w in ("entry function", "registers",
                                            "spill", "C75")):
                     _log(f"  ptxas: {line.strip()}")
-    # the d 192 and 256 kernels of both designs and the f32 kernels at
+    # the DESIGN_DIMS kernels of both designs and the f32 kernels at
     # every head dim, in one line each
     from service_account_auth_improvements_tpu_torch.ops.flash_attention \
         import KERNEL_HEAD_DIMS
@@ -571,8 +600,8 @@ def _template_name(mangled: str, d: int) -> str | None:
 def _build_other_designs(name: str) -> Path:
     """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_DESIGNS=1`` (each
     kernel that ships one of two designs takes the one the port does not
-    ship: bf16 at d 192 and 256, f32 at d 128) into OTHER_DESIGNS_DIR, with
-    ``ops/_build.py``'s flags; its ptxas report beside it."""
+    ship: bf16 at d 64, 192 and 256, f32 at d 128) into OTHER_DESIGNS_DIR,
+    with ``ops/_build.py``'s flags; its ptxas report beside it."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
     OTHER_DESIGNS_DIR.mkdir(parents=True, exist_ok=True)
@@ -924,6 +953,9 @@ def phase_bwd_kernels() -> dict:
          False),
         *((f"d192 s{s} bf16", 2 if s < 2047 else 1, s, 8, 4, 192,
            torch.bfloat16, True) for s in (63, 65, 127, 2047)),
+        # d 64's 128-row K2 blocks and 128-key K3 blocks at their edges
+        *((f"d64 s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, 64,
+           torch.bfloat16, causal) for b, s, h, hkv, causal in D64_EDGES),
         ("d192 gqa4 s300 bf16", 2, 300, 8, 2, 192, torch.bfloat16, True),
         ("d192 non-causal s512 bf16", 2, 512, 8, 4, 192, torch.bfloat16,
          False),
@@ -939,7 +971,7 @@ def phase_bwd_kernels() -> dict:
           for label, (b, s, h, hkv, d) in F32_SHAPES.items()),
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    worst_f32 = dict(worst)
+    worst_f32, worst_d64 = dict(worst), dict(worst)
     # the largest error of the bf16 cases at each wide head dim
     worst_wide = {(kernel, d): 0.0 for kernel in worst
                   for _, _, d in _kernel_heads().values()}
@@ -969,6 +1001,10 @@ def phase_bwd_kernels() -> dict:
         elif ("flash_bwd_dq", d) not in worst_wide:
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e)
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], ek, ev)
+            if d == 64:
+                worst_d64["flash_bwd_dq"] = max(worst_d64["flash_bwd_dq"], e)
+                worst_d64["flash_bwd_dkv"] = max(worst_d64["flash_bwd_dkv"],
+                                                 ek, ev)
         else:
             worst_wide["flash_bwd_dq", d] = max(worst_wide["flash_bwd_dq", d],
                                                 e)
@@ -1066,6 +1102,8 @@ def phase_bwd_kernels() -> dict:
     for label, d in FT_HEAD_DIMS:
         for name, n in _time_k2_k3(f"llama3 {label}", FT_BATCH, FT_SEQ, 32,
                                    8, d, gen).items():
+            if d == 64:  # d 64's own cases (its kernels line entries)
+                n["max_abs_err"] = worst_d64[name]
             out[name]["more_shapes"][
                 f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal"] = n
     # the wide head dims at the training shape (dq_wgmma and dkv_wgmma at
@@ -1145,27 +1183,31 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 
 def phase_wide_designs() -> dict:
-    """At d 192 and 256 some kernels have two designs each. K1 at both:
-    PR 10's row split (flash_fwd_wgmma: 12-warp blocks of 128 rows, 64 a
-    consumer, a producer warpgroup) and the rows on 8 warps
+    """At d 64, 192 and 256 some kernels have two designs each. K1 at d
+    192 and 256: PR 10's row split (flash_fwd_wgmma: 12-warp blocks of 128
+    rows, 64 a consumer, a producer warpgroup) and the rows on 8 warps
     (flash_fwd_rows8: the same rows without the producer, 80- or 96-key
-    tiles, the two warpgroups taking turns at the tensor cores). K3 at
-    both and K2 at d 256: the row split (dq_wgmma, dkv_wgmma: 12-warp
-    blocks with a producer warpgroup, K3 in two passes at d 256) and the
+    tiles, the two warpgroups taking turns at the tensor cores). K2 and K3
+    at d 64 and 256, K3 at d 192: the row split (dq_wgmma, dkv_wgmma:
+    12-warp blocks with a producer warpgroup, K3 in two passes) and the
     8-warp designs (dq_rows8: the same rows without the producer;
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
-    other, one pass). The port ships, per kernel and head dim, the one its
-    sources name (``flash_fwd_design``, ``flash_bwd_dq_design``,
-    ``flash_bwd_dkv_design`` in each library); the other is built with
-    -DFLASH_OTHER_DESIGNS=1 (phase 2). At phase 12's training shape of each
-    head dim (and for K1 at d 256 also at its per-length prefill, b 4 s
-    1000) all three kernels' other builds are held against the plain
-    versions (K2 and K3 also twice on one input, bitwise), then timed in
-    turns with the shipped ones on the same inputs (shipped, other, other,
-    shipped), K2 + K3 as a pair too, beside SDPA's backward (at d 192 K2
-    runs one design in both builds: its time completes the pair). Returns
-    {head dim: {kernel: numbers}}, K1's prefill numbers under
-    ``"prefill"``."""
+    other, one pass; dkv_keys8 at d 64: 128 keys a block, 64 a warpgroup,
+    each holding dK and dV of its keys, one pass). The port ships, per
+    kernel and head dim, the one its sources name (``flash_fwd_design``,
+    ``flash_bwd_dq_design``, ``flash_bwd_dkv_design`` in each library);
+    the other is built with -DFLASH_OTHER_DESIGNS=1 (phase 2). At each
+    head dim's DESIGN_SHAPES (and for K1 at d 256 also at its per-length
+    prefill, b 4 s 1000) the kernels whose builds differ there (K2 and K3
+    at d 64, all three above) have their other builds held against the
+    plain versions (K2 and K3 also twice on one input, bitwise), then
+    timed in turns with the shipped ones on the same inputs (shipped,
+    other, other, shipped), K2 + K3 as a pair too, beside SDPA's backward
+    (at d 192 K2 runs one design in both builds: its time completes the
+    pair); the other K1 at d 192 and 256, and the other K2 and K3 at d
+    64, are also held against the plain versions at ragged lengths, GQA
+    group 4 and non-causal. Returns {head dim: {kernel: numbers}}, K1's
+    prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
     )
@@ -1180,34 +1222,45 @@ def phase_wide_designs() -> dict:
                                      libs[which]["flash_bwd"], d)
                  for which in libs}
              for d in DESIGN_DIMS}
+    kernels = {d: {which: design_kernels(libs[which]["flash_fwd"],
+                                         libs[which]["flash_bwd"], d)
+                   for which in libs}
+               for d in DESIGN_DIMS}
 
     def k1(q, k, v):
         return {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
                               lambda: fa.flash_fwd_reference(q, k, v, True),
                               [TOL[dtype], (LSE_ATOL, 0.0)])}
 
-    out = {}
-    b, s = TRAIN_BATCH, TRAIN_SEQ
-    # all three kernels at each dim's training shape
-    for d in sorted(DESIGN_DIMS, reverse=True):
-        h, hkv, _ = WIDE_HEADS[f"bench_800m_d{d}"]
-        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
-        delta = fa.flash_bwd_delta(o, do)
-        calls = {
-            **k1(q, k, v),
+    def bwd(q, k, v, do, lse, delta, causal=True):
+        return {
             "flash_bwd_dq": (
-                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
+                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),),
                 lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                   True),),
+                                                   causal),),
                 [BWD_TOL[dtype]]),
             "flash_bwd_dkv": (
-                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
                 lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                   True),
+                                                   causal),
                 [BWD_TOL[dtype]] * 2),
         }
+
+    out = {}
+    # the kernels whose two builds differ (and K2 beside K3) at each dim's
+    # DESIGN_SHAPES
+    for d in sorted(DESIGN_DIMS, reverse=True):
+        b, s, h, hkv = DESIGN_SHAPES[d]
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        calls = bwd(q, k, v, do, lse, delta)
+        if len({n["flash_fwd"] for n in named[d].values()}) > 1:
+            calls = {**k1(q, k, v), **calls}
         shape = f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"
         out[d] = _in_turns(libs, named[d], calls, shape)
+        for name, n in out[d].items():
+            n.update(shipped_kernel=kernels[d]["shipped"][name],
+                     other_kernel=kernels[d]["other"][name])
         # K2 + K3: what SDPA's one backward call computes
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -1223,8 +1276,13 @@ def phase_wide_designs() -> dict:
             out[d][name].update(shipped_pair_ms=pair["shipped"],
                                 other_pair_ms=pair["other"],
                                 library_ms=lib_ms)
+        pair_kernels = {which: " + ".join(
+            kernels[d][which][name]
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+            for which in ("shipped", "other")}
         _log(f"time d{d} designs K2 + K3 {shape}, in turns: shipped "
-             f"{pair['shipped']:.4f} ms, other {pair['other']:.4f} ms, sdpa "
+             f"({pair_kernels['shipped']}) {pair['shipped']:.4f} ms, other "
+             f"({pair_kernels['other']}) {pair['other']:.4f} ms, sdpa "
              f"backward {lib_ms:.4f} ms ({_sdpa_backend(q, k, v)})")
         del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
         torch.cuda.empty_cache()
@@ -1258,6 +1316,29 @@ def phase_wide_designs() -> dict:
                      f"{lerr:.3e}")
                 out[d]["flash_fwd"]["other_max_abs_err"] = max(
                     out[d]["flash_fwd"]["other_max_abs_err"], err)
+        # K2's and K3's other design at d 64 at its blocks' edges (phase 3
+        # holds the shipped one there), each twice on one input
+        for b, s, h, hkv, causal in D64_EDGES:
+            q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, 64, dtype, gen,
+                                              causal)
+            delta = fa.flash_bwd_delta(o, do)
+            for name, (kern, plain, tols) in bwd(q, k, v, do, lse, delta,
+                                                 causal).items():
+                got, again, want = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                label = (f"d64 {kernels[64]['other'][name]} (the design not "
+                         f"shipped) b{b} s{s} h{h} hkv{hkv} causal {causal}")
+                err = max(_check(f"{label} {name}", g, w, *tol)
+                          for g, w, tol in zip(got, want, tols))
+                if not all(map(torch.equal, got, again)):
+                    raise AssertionError(f"{label}: {name} is not "
+                                         "deterministic")
+                _log(f"kernel {label}: {name} max abs err {err:.3e}, twice "
+                     "bitwise equal")
+                out[64][name]["other_max_abs_err"] = max(
+                    out[64][name]["other_max_abs_err"], err)
+                del got, again, want
+            del q, k, v, do, o, lse, delta
     finally:
         _build._libs.update(libs["shipped"])
     return out
@@ -1413,6 +1494,17 @@ def _in_turns(libs, named, calls, shape: str) -> dict:
              f"({named['other'][name]}) {other_ms:.4f} ms "
              f"{[round(x, 4) for x in t['other']]}")
     return out
+
+
+def design_kernels(fwd, bwd, d: int) -> dict:
+    """The kernel each of K1 (of this flash_fwd library), K2 and K3 (of
+    this flash_bwd library) runs at head dim ``d``, as
+    ``<template><<d>>``: DESIGN_KERNELS by the libraries' design ids."""
+    ids = {"flash_fwd": fwd.flash_fwd_design(d),
+           "flash_bwd_dq": bwd.flash_bwd_dq_design(d),
+           "flash_bwd_dkv": bwd.flash_bwd_dkv_design(d)}
+    return {name: f"{DESIGN_KERNELS[name][i]}<{d}>"
+            for name, i in ids.items()}
 
 
 def design_names(fwd, bwd, d: int) -> dict:
@@ -4785,6 +4877,44 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     return entries
 
 
+def d64_kernel_entries(numbers: dict, paths: dict, designs: dict) -> list:
+    """K2's and K3's ``kernels`` entries at d 64, naming the kernels that
+    ship there (``designs[64][kernel]["shipped_kernel"]``), from phase
+    3's numbers at DESIGN_SHAPES[64] (``numbers[kernel]["more_shapes"]``,
+    with d 64's own largest error), the launches of the paths that run
+    them at d 64 (``paths[path][kernel]``: phase 8's distillation student)
+    and ``phase_wide_designs``' (``designs[64][kernel]``: both designs in
+    turns, the pair beside SDPA's backward). Raises if a path launched
+    none."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share",
+            "pair_ms")
+    b, s, h, hkv = DESIGN_SHAPES[64]
+    shape = f"b{b} s{s} h{h} hkv{hkv} d64 bf16 causal"
+    entries = []
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        src, _, line = KERNELS[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        if not by_path or not all(by_path.values()):
+            raise AssertionError(f"{name} d64: a path launched no kernel: "
+                                 f"{by_path}")
+        n = numbers[name]["more_shapes"][shape]
+        entries.append({
+            "name": f"{name} d64",
+            "kernel": designs[64][name]["shipped_kernel"],
+            "route": "cuda",
+            "source": f"{PKG}/csrc/{src}",
+            "replaces": "service_account_auth_improvements_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "shape": shape,
+            **{key: n[key] for key in keys},
+            "designs_in_turns": designs[64][name],
+        })
+    return entries
+
+
 def f32_kernel_entries(numbers: dict, designs: dict, paths: dict) -> list:
     """K1's, K2's and K3's f32 ``kernels`` entries (flash_fwd_f32, dq_f32,
     dkv_f32), from phase 3's numbers at F32_SHAPES
@@ -4830,7 +4960,7 @@ def main() -> int:
     _timed("build", phase_build)
     numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
-    designs = _timed("kernels d 192 and 256 designs", phase_wide_designs)
+    designs = _timed("kernels d 64, 192 and 256 designs", phase_wide_designs)
     f32_designs = _timed("kernels f32 designs", phase_f32_designs)
     F32_PATHS.clear()  # the f32 backward's launches on the paths below
     serving = _timed("serving", phase_serving)
@@ -4873,6 +5003,8 @@ def main() -> int:
             "bound_share": n["bound_share"],
             "more_shapes": n["more_shapes"],
         })
+    kernels += d64_kernel_entries(
+        numbers, {"distill_8b_1b": finetune["distill_8b_1b"]}, designs)
     kernels += wide_kernel_entries(numbers, wide, designs)
     kernels += f32_kernel_entries(numbers, f32_designs, F32_PATHS)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,14 +2,15 @@
 """Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256,
 ``flash_fwd_f32`` at d 128 in f32, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
-K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 256, ``dq_f32`` at d 128 in
-f32) and K3 (``dkv_onepass`` at d 192 and 256, ``dkv_f32`` at d 128 in
-f32, all in ``csrc/flash_bwd.cu``) and time them against the committed
-kernels on one CUDA card.
+K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64 and 256, ``dq_f32`` at
+d 128 in f32) and K3 (``dkv_keys8`` at d 64, ``dkv_onepass`` at d 192 and
+256, ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time
+them against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
-``KERNEL_HEADS`` whose variants to run; all without arguments). Each
+``KERNEL_HEADS`` whose variants to run, e.g. ``dkv_keys8 'dq_rows8<64>'``;
+all without arguments). Each
 variant is the committed source of
 the kernel it edits with the text edits listed in ``VARIANTS``, each
 made in the source or in a header beside it (an edit whose text is not
@@ -43,16 +44,116 @@ import chip_smoke as cs
 
 OUT = cs.ROOT / "build" / "kernel_variants"
 
-# edits shared by several variants: K3 at d 192 on the one pass; K1 f32's
-# key tiles and stages
+# edits shared by several variants: K3 at d 192 on the one pass; K3 at d
+# 64's stage count; K1 f32's key tiles and stages
 ONEPASS_D192 = ("         : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
                 "kRowSplit)\n", "         : d == 192 ? kOnePass\n")
+KEYS8_STAGES = ("  static constexpr int STAGES = FIT < 4 ? FIT : 4;\n"
+                "  static constexpr int V_OFF = KV_BYTES;\n")
 F32_K1_TILES = ("  static constexpr int BK = D <= 256 ? 64 : 32;\n"
                 "  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : "
                 "1;\n")
 
+# K2 on 8 warps: the next key tile's S and dP in flight with dQ += dS K
+NEXT_SCORES = [("""  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+    // thread 0 refills""",
+                """  mbar_wait(q_full, 0);
+  float sc[BK / 2], dp[BK / 2];
+  mbar_wait(kv_full, 0);
+  wgmma_fence();
+  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+      sc, desc_sw128(q_addr, 16, 1024),
+      desc_sw128(base + L::K_OFF, 16, 1024));
+  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+      dp, desc_sw128(do_addr, 16, 1024),
+      desc_sw128(base + L::V_OFF, 16, 1024));
+  wgmma_commit();
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(dq);
+    if (i > 0) mbar_arrive(kv_empty + 8 * ((i - 1) % STAGES));
+    // thread 0 refills"""),
+               ("        if (next > i && !mbar_test(e, par)) break;\n",
+                "        if (next > i + 1 && !mbar_test(e, par)) break;\n"),
+               ("""    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each
+    float sc[BK / 2], dp[BK / 2];
+    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+""", "    float ds[BK / 2];\n"),
+               ("""        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+""", """        ds[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+    uint32_t f[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(ds[8 * kk + 2 * r], ds[8 * kk + 2 * r + 1]);
+"""),
+               ("""    // dQ += dS K
+    fence_regs(dq);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(dq, f, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(kv_empty + 8 * s);
+  }
+  store_cols<D>(""",
+                """    // the next tile's scores (this one's again at the last), in flight
+    // with dQ += dS K
+    const int in = i + 1 < nk ? i + 1 : i;
+    const int sn = in % STAGES;
+    mbar_wait(kv_full + 8 * sn, (in / STAGES) & 1);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(base + L::K_OFF + sn * L::KV_BYTES, 16, 1024));
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024),
+        desc_sw128(base + L::V_OFF + sn * L::KV_BYTES, 16, 1024));
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(dq, f, k_addr);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dq);
+  store_cols<D>(""")]
+
 # name -> (what it changes, [(text of the committed source, replacement)],
-# the kernel it edits)
+# the kernel it edits, as a key of KERNEL_HEADS[, the kernel whose ptxas
+# lines to print when the edit runs another in its place])
 VARIANTS = {
     "bk128": (
         "128-key K/V stages (m64n128 score products), 2 in the ring",
@@ -82,102 +183,11 @@ VARIANTS = {
         "d 256: the next key tile's S and dP issued with dQ += dS K (one "
         "commit group, waited for at the next tile), dS in registers of "
         "its own; the last tile's scores formed twice",
-        [("""  mbar_wait(q_full, 0);
-#pragma unroll 1
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % STAGES;
-    const int k0 = i * BK;
-    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
-    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
-    // thread 0 refills""",
-          """  mbar_wait(q_full, 0);
-  float sc[BK / 2], dp[BK / 2];
-  mbar_wait(kv_full, 0);
-  wgmma_fence();
-  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-      sc, desc_sw128(q_addr, 16, 1024),
-      desc_sw128(base + L::K_OFF, 16, 1024));
-  wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-      dp, desc_sw128(do_addr, 16, 1024),
-      desc_sw128(base + L::V_OFF, 16, 1024));
-  wgmma_commit();
-#pragma unroll 1
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % STAGES;
-    const int k0 = i * BK;
-    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-    fence_regs(dq);
-    if (i > 0) mbar_arrive(kv_empty + 8 * ((i - 1) % STAGES));
-    // thread 0 refills"""),
-         ("        if (next > i && !mbar_test(e, par)) break;\n",
-          "        if (next > i + 1 && !mbar_test(e, par)) break;\n"),
-         ("""    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each
-    float sc[BK / 2], dp[BK / 2];
-    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
-    wgmma_fence();
-    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
-    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-
-""", "    float ds[BK / 2];\n"),
-         ("""        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
-      }
-
-    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
-    uint32_t f[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-""", """        ds[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
-      }
-    uint32_t f[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        f[kk][r] = pack_bf16x2(ds[8 * kk + 2 * r], ds[8 * kk + 2 * r + 1]);
-"""),
-         ("""    // dQ += dS K
-    fence_regs(dq);
-    fence_regs(f);
-    wgmma_fence();
-    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(dq, f, k_addr);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    mbar_arrive(kv_empty + 8 * s);
-  }
-  store_cols<D>(""",
-          """    // the next tile's scores (this one's again at the last), in flight
-    // with dQ += dS K
-    const int in = i + 1 < nk ? i + 1 : i;
-    const int sn = in % STAGES;
-    mbar_wait(kv_full + 8 * sn, (in / STAGES) & 1);
-    fence_regs(f);
-    wgmma_fence();
-    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        sc, desc_sw128(q_addr, 16, 1024),
-        desc_sw128(base + L::K_OFF + sn * L::KV_BYTES, 16, 1024));
-    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        dp, desc_sw128(do_addr, 16, 1024),
-        desc_sw128(base + L::V_OFF + sn * L::KV_BYTES, 16, 1024));
-    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(dq, f, k_addr);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs(dq);
-  store_cols<D>(""")],
-        "dq_rows8"),
+        NEXT_SCORES, "dq_rows8"),
+    "rows8_d64_next_scores": (
+        "d 64 K2: the next key tile's S and dP issued with dQ += dS K, as "
+        "next_scores_in_flight at d 256",
+        NEXT_SCORES, "dq_rows8<64>"),
     "split_barrier": (
         "d 256 K3: the P^T exchange on a split barrier pair a buffer "
         "(warpgroup 0 arrives once it wrote P^T, warpgroup 1 once it read "
@@ -543,6 +553,129 @@ VARIANTS = {
           "  static constexpr int ST = D <= 64 ? 3 : D <= 128 || D == 512 ? "
           "2 : 1;\n")],
         "flash_fwd_f32"),
+    "keys8_scores_in_stage": (
+        "d 64 K3: each stage issues its own scores, after the first warp's "
+        "refill, instead of the last stage issuing them once released",
+        [("  if (tiles > 0) mbar_wait(q_full, 0);  // else no stage: nothing "
+          "is read\n  dkv_keys8_scores<D>(st, dpt, base, k_addr, 0);\n", ""),
+         ("        if (next > n + 1 && !__shfl_sync(",
+          "        if (next > n && !__shfl_sync("),
+         ("""    // P^T in dO's dtype, as A fragments, once S^T is in (dP^T still in
+    // flight)
+""", """    mbar_wait(q_full + 8 * s, (n / STAGES) & 1);
+    dkv_keys8_scores<D>(st, dpt, base, k_addr, s);
+"""),
+         ("""    mbar_arrive(q_empty + 8 * s);
+    const int nn = n + 1 < tiles ? n + 1 : n;
+    mbar_wait(q_full + 8 * (nn % STAGES), (nn / STAGES) & 1);
+    fence_regs(st);
+    fence_regs(dpt);
+    dkv_keys8_scores<D>(st, dpt, base, k_addr, nn % STAGES);
+  }
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+""", """    mbar_arrive(q_empty + 8 * s);
+  }
+""")],
+        "dkv_keys8"),
+    "keys8_ds_first": (
+        "d 64 K3: dS^T formed before dV += P^T dO is issued (both products "
+        "then issued together)",
+        [("""    // dV += P^T dO, in flight while dS^T forms
+    fence_regs(dv);
+    fence_regs(fp);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dv, fp, do_addr);
+    wgmma_commit();
+
+""", ""),
+         ("""    fence_regs(dk);
+    fence_regs(fds);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dk, fds, q_addr);
+""", """    fence_regs(dv);
+    fence_regs(fp);
+    fence_regs(dk);
+    fence_regs(fds);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dv, fp, do_addr);
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dk, fds, q_addr);
+""")],
+        "dkv_keys8"),
+    "keys8_bq64": (
+        "d 64 K3: 64-query stages (m64n64 S^T and dP^T) instead of 128",
+        [("  static constexpr int BK = 128;  // keys per block: 64 a "
+          "warpgroup\n  static constexpr int BQ = 128;  // query rows per "
+          "stage\n",
+          "  static constexpr int BK = 128;  // keys per block: 64 a "
+          "warpgroup\n  static constexpr int BQ = 64;  // query rows per "
+          "stage\n")],
+        "dkv_keys8"),
+    "keys8_2_stages": (
+        "d 64 K3: 2 Q/dO stages instead of 4",
+        [(KEYS8_STAGES, KEYS8_STAGES.replace("FIT < 4 ? FIT : 4", "2"))],
+        "dkv_keys8"),
+    "keys8_5_stages": (
+        "d 64 K3: as many Q/dO stages as fit (5 of 128 queries) instead of 4",
+        [(KEYS8_STAGES, KEYS8_STAGES.replace("FIT < 4 ? FIT : 4", "FIT"))],
+        "dkv_keys8"),
+    "onepass_d64": (
+        "K3 at d 64 on PR 13's one pass (dkv_onepass<64>: 64 keys a block, "
+        "dV on warpgroup 0 and dK on 1, P^T exchanged through shared "
+        "memory) instead of dkv_keys8<64>",
+        [("  return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8)\n",
+          "  return d == 64 ? kOnePass\n")],
+        "dkv_keys8", "dkv_onepass"),
+    "rows8_d64_bk128": (
+        "d 64 K2: 128-key K/V stages (m64n128 S and dP: 186 registers, one "
+        "block a SM) instead of 64 (122: two blocks a SM)",
+        [("  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per K/V "
+          "stage", "  static constexpr int BK = D <= 64 ? 128 : 32;  // keys "
+          "per K/V stage")],
+        "dq_rows8<64>"),
+    "rows8_d64_2_stages": (
+        "d 64 K2: 2 K/V stages instead of 4",
+        [("  static constexpr int STAGES = FIT < 4 ? FIT : 4;\n"
+          "  static constexpr int DO_OFF = Q_BYTES;\n",
+          "  static constexpr int STAGES = D == 64 ? 2 : FIT < 4 ? FIT : 4;\n"
+          "  static constexpr int DO_OFF = Q_BYTES;\n")],
+        "dq_rows8<64>"),
+    "rows8_split_commit": (
+        "K2 on 8 warps: S and dP in two commit groups, P formed while dP "
+        "is in flight",
+        [("""    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+""", """    wgmma_commit();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+"""),
+         ("""        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[BK / 16][4];
+""", """        sc[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] *= dp[4 * j + e] - (e < 2 ? dl0 : dl1);
+
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[BK / 16][4];
+""")],
+        "dq_rows8<64>"),
     "f32_k1_d512_bq64": (
         "f32 K1 at d 512: 64-row blocks (4 x 1 score tiles, 128 output "
         "floats a thread) over one stage of 16 keys, instead of 32 rows "
@@ -554,8 +687,11 @@ VARIANTS = {
         "flash_fwd_f32"),
 }
 # the heads (query, KV, head dim) each edited kernel is checked and timed
-# at: bench_800m's and phase 12's bench_800m_d256
+# at: bench_800m's, phase 12's bench_800m_d256 and Llama-3.2-1B's (a
+# kernel template at a head dim other than its first is keyed
+# "<kernel><<d>>", quoted on the command line)
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
+                "dq_rows8<64>": (32, 8, 64), "dkv_keys8": (32, 8, 64),
                 "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256),
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128)}
@@ -563,16 +699,25 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
 # heads, KV heads, head dim) it is timed at (the training shape at its
 # KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
 # F32_SHAPES, the first of which holds their targets; dkv_onepass also at
-# bench_800m_d192's heads)
+# bench_800m_d192's heads; the d 64 kernels at the fine-tuning shape, b 4
+# s 2048)
 KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32,
                  "flash_fwd_f32": torch.float32}
 KERNEL_SHAPES = {
     "dq_f32": list(cs.F32_SHAPES.values()),
     "dkv_f32": list(cs.F32_SHAPES.values()),
     "flash_fwd_f32": list(cs.F32_SHAPES.values()),
+    "dq_rows8<64>": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dq_rows8<64>"])],
+    "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                           *cs.WIDE_HEADS["bench_800m_d192"])]}
+
+
+def template_of(kernel: str) -> str:
+    """The kernel template a KERNEL_HEADS key names (``dq_rows8<64>``:
+    ``dq_rows8``)."""
+    return kernel.split("<")[0]
 
 
 def source_of(kernel: str) -> str:
@@ -691,9 +836,9 @@ def main() -> int:
     for name, source in jobs:
         what = VARIANTS[name][0] if name in VARIANTS else "as committed"
         cs._log(f"variant {name} ({source}.cu): {what}")
-        kernels = ([VARIANTS[name][2]] if name in VARIANTS else
+        kernels = ([VARIANTS[name][-1]] if name in VARIANTS else
                    [k for k in chosen if source_of(k) == source])
-        for kernel in kernels:
+        for kernel in dict.fromkeys(map(template_of, kernels)):
             for line in _ptxas_lines(built[name, source][1], kernel):
                 cs._log(f"  ptxas: {line}")
 

@@ -44,9 +44,10 @@
 // stream by TMA through a ring of shared-memory stages tracked by
 // mbarriers, and two consumer warpgroups run every product on wgmma with
 // the scores in registers; see BwdDesign below and the notes above
-// `dq_wgmma` and `dkv_wgmma` (d 64 to 192), `dq_rows8` and `dkv_onepass`
-// (d 256) and `dq_split` and `dkv_split` (d 320 to 512, the output's D
-// columns split between the consumers).
+// `dq_wgmma` and `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64 and 256),
+// `dkv_keys8` (d 64) and `dkv_onepass` (d 256) and `dq_split` and
+// `dkv_split` (d 320 to 512, the output's D columns split between the
+// consumers).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
@@ -111,31 +112,36 @@ constexpr int SMEM_MAX = 232448;
 // flash_bwd_dkv_design report the one a head dim runs; chip_smoke.py labels
 // its timings by them):
 //   kRowSplit  dq_wgmma, dkv_wgmma: 12-warp blocks of 128 rows or keys, 64
-//              a consumer warpgroup, a producer warpgroup (d 64 to 192);
+//              a consumer warpgroup, a producer warpgroup (d 128, 192);
 //   kDSplit    dq_split, dkv_split: 8-warp blocks of 64 rows or keys, the
 //              output's columns split between the warpgroups (d 320 to 512);
-//   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 256);
+//   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 64, 256);
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
-//              and warpgroup 1 dK, one pass (d 256).
-// At d 256 each of K2 and K3, and at d 192 K3, ships the faster of two
-// designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
-// card; PERF.md §6): dq_rows8 and dkv_onepass at d 256, the row split's
-// dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns). A build with
-// -DFLASH_OTHER_DESIGNS=1 takes the other design at each (and K1's other
-// design at d 192 and 256, and the scalar f32 kernels at d 128:
-// F32Design).
-enum BwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3 };
+//              and warpgroup 1 dK, one pass (d 256);
+//   kKeys8     dkv_keys8: 8-warp blocks of 128 keys, 64 a warpgroup, each
+//              owning dK and dV of its keys, one pass (d 64).
+// At d 64 and 256 each of K2 and K3, and at d 192 K3, ships the faster of
+// two designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on
+// one card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and
+// dkv_onepass at d 256, the row split's dkv_wgmma at d 192 (dkv_onepass<192>
+// lost to it in turns). A build with -DFLASH_OTHER_DESIGNS=1 takes the
+// other design at each (and K1's other design at d 192 and 256, and the
+// scalar f32 kernels at d 128: F32Design).
+enum BwdDesign {
+  kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4
+};
 
 #ifndef FLASH_OTHER_DESIGNS
 #define FLASH_OTHER_DESIGNS 0
 #endif
 constexpr int dq_design(int d) {
-  return d <= 192 ? kRowSplit
-         : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
-                    : kDSplit;
+  return d == 64 || d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
+         : d <= 192          ? kRowSplit
+                             : kDSplit;
 }
 constexpr int dkv_design(int d) {
-  return d <= 128 ? kRowSplit
+  return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8)
+         : d <= 128 ? kRowSplit
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
                     : kDSplit;
@@ -1269,7 +1275,8 @@ dkv_split(const __grid_constant__ DkvArgs a) {
 //
 // K2, `dq_rows8<D>` (replaces `_dq_kernel`): dq_wgmma's rows, 128 query
 // rows a block with Q and dO resident, 64 a warpgroup, K and V streamed in
-// 32-key stages (3 fit beside Q and dO), without the producer warpgroup:
+// 32-key stages (3 fit beside Q and dO; at d 64 4 stages of 64 keys, see
+// below), without the producer warpgroup:
 // S = Q K^T and dP = dO V^T (m64n32), dS = P (dP - delta), dQ += dS K
 // (m64nDk16, K read MN-major), as dq_consumer does. Bound on an H100:
 // operations (three products); what held dq_wgmma<256> back was ptxas's
@@ -1456,12 +1463,256 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
                key0, key1, a.sk, tq);
 }
 
+// ------------------------------------------------ bf16 at d 64: 8-warp blocks
+//
+// At d 64 every product reduces over few k16 steps (the score products
+// over d: four), so a stage carries little tensor-core work beside its
+// serial part: the full/empty round trip, the waits on the products, and
+// per score the exp2, the masks, dS and the bf16 re-packs, which do not
+// shrink with d. PR 10's row split reached 0.193 (dkv_wgmma<64>: 12 warps,
+// two passes, S^T and the exponentials formed twice) and 0.283
+// (dq_wgmma<64>) of its bound there; both are the other build's design at
+// d 64 now. What the H100 decided in turns (kernel_variants.py, PERF.md
+// §6): larger score tiles, more warpgroups a SM, and S^T issued before
+// the stage's bookkeeping.
+//
+// K3, `dkv_keys8<D>` (replaces `_dkv_kernel` in the JAX package's
+// ops/flash_attention.py): dK and dV of 64 keys are 32 f32 registers each
+// at d 64, so one warpgroup holds both. One block per (batch, KV head, 128
+// keys), K and V of the keys resident (32 KB), Q and dO streamed in stages
+// of 128 query rows (each query head of the group, from the diagonal on)
+// through 4 stages, the first warp loading them as dkv_onepass's does.
+// Two warpgroups, 64 keys each; no named barrier, no exchange: they meet
+// only at the stages' empty barriers. Per stage, on each warpgroup:
+//   S^T = K Q^T, dP^T = V dO^T  m64n128k16 x 4 each, both from shared
+//                               memory, two commit groups, issued by the
+//                               stage before once it has released its own
+//                               (while the first warp refills)
+//   P^T = exp2(S^T scale log2e - lse log2e), masked, once S^T is in (dP^T
+//       still in flight), rounded to dO's dtype and packed as A fragments
+//   dV += P^T dO                m64n64k16 x 8, dO read MN-major, in flight
+//                               while
+//   dS^T = P^T (dP^T - delta)   (P as rounded) forms, rounded to Q's dtype
+//   dK += dS^T Q                as dV
+// Four products a stage, each formed once, and Q and dO streamed once;
+// 237 registers a thread, clean. Bound on an H100: operations (2 d flops
+// a causal pair a product, 4 products; 8.4 MFLOP a stage against 32 KB
+// of Q and dO from L2). 64-query stages (m64n64 scores, 165 registers)
+// lost by a quarter, the scores issued inside their own stage by 5%, 2
+// or 5 stages and dS before dV's product changed nothing, and
+// dkv_onepass<64> (dV and dK on different warpgroups, P^T exchanged) lost
+// by half. dK is scaled once, at the end; every sum runs in one block in
+// a fixed order, deterministic, no atomics.
+//
+// K2 at d 64 is dq_rows8<64> (below) on 64-key stages: 122 registers a
+// thread, so two blocks (four warpgroups) share an SM; 128-key stages
+// (186 registers, one block) lost by 40%.
+
+// K3 at d 64: K and V of the block's 128 keys (resident), the Q and dO
+// stages, their lse and delta and the mbarriers (kv_full, q_full[S],
+// q_empty[S], as DkvSplit, so dkv_stage_load fills them).
+template <int D>
+struct DkvKeys8 {
+  static constexpr int BK = 128;  // keys per block: 64 a warpgroup
+  static constexpr int BQ = 128;  // query rows per stage
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int QT_CB = BQ * 128;
+  static constexpr int QT_BYTES = BQ * D * 2;
+  static constexpr int ROW_BYTES = BQ * 4;
+  static constexpr int FIT =
+      (SMEM_MAX - 2048 - 2 * KV_BYTES) / (2 * QT_BYTES + 2 * ROW_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = DL_OFF + STAGES * ROW_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(D == 64, "dK and dV of 64 keys beside the scores: d 64");
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// S^T = K Q^T and dP^T = V dO^T of the stage in ring slot `s` (64 keys x
+// BQ queries each, both operands from shared memory; `k_addr`: this
+// warpgroup's K rows), one commit group each.
+template <int D>
+__device__ __forceinline__ void dkv_keys8_scores(
+    float (&st)[DkvKeys8<D>::BQ / 2], float (&dpt)[DkvKeys8<D>::BQ / 2],
+    uint32_t base, uint32_t k_addr, int s) {
+  using namespace hopper;
+  using L = DkvKeys8<D>;
+  wgmma_fence();
+  wgmma_ss<L::BQ, D / 16, L::KV_CB, L::QT_CB>(
+      st, desc_sw128(k_addr, 16, 1024),
+      desc_sw128(base + L::Q_OFF + s * L::QT_BYTES, 16, 1024));
+  wgmma_commit();
+  wgmma_ss<L::BQ, D / 16, L::KV_CB, L::QT_CB>(
+      dpt, desc_sw128(k_addr + L::V_OFF, 16, 1024),
+      desc_sw128(base + L::DO_OFF + s * L::QT_BYTES, 16, 1024));
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dkv_keys8(const __grid_constant__ DkvArgs a) {
+  using namespace hopper;
+  using L = DkvKeys8<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t kv_full = bar, q_full = bar + 8,
+                 q_empty = q_full + 8 * STAGES;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const int hb = a.hkv * a.batch;
+  const int ik = static_cast<int>(blockIdx.x) / hb;
+  const int ikv = static_cast<int>(blockIdx.x) % hb % a.hkv;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.hkv;
+  const int k0 = ik * L::BK;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int nqt = nq - iq0;
+  const int tiles = a.h / a.hkv * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 32);  // the first warp's lanes
+      mbar_init(q_empty + 8 * s, 2 * WG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {  // K and V, and the first STAGES stages
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      tma_load_5d(base, &a.tk, kv_full, 0, k0, 0, ikv, ib);
+      tma_load_5d(base + L::V_OFF, &a.tv, kv_full, 0, k0, 0, ikv, ib);
+    }
+    for (int j = 0; j < STAGES && j < tiles; ++j)
+      dkv_stage_load<L>(a, base, smem, j, tiles, nqt, iq0, ikv, ib,
+                        threadIdx.x);
+  }
+  int next = STAGES;  // the first warp: the next stage to load
+
+  const int c = threadIdx.x / WG;  // this warpgroup's 64 keys
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int kw0 = k0 + 64 * c;
+  const int key0 = kw0 + 16 * w + g, key1 = key0 + 8;
+  const uint32_t k_addr = base + c * 64 * 128;
+  float dv[D / 2], dk[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dv[r] = dk[r] = 0.f;
+
+  // stage 0's scores; each stage issues the next one's (the last stage
+  // its own again, unused: no branch encloses a wgmma) as soon as it has
+  // released its own, so they run while the first warp refills
+  float st[BQ / 2], dpt[BQ / 2];
+  mbar_wait(kv_full, 0);
+  if (tiles > 0) mbar_wait(q_full, 0);  // else no stage: nothing is read
+  dkv_keys8_scores<D>(st, dpt, base, k_addr, 0);
+#pragma unroll 1
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % STAGES;
+    // the first warp refills each stage that both warpgroups have released
+    // (stage `next` reuses the ring slot of stage next - STAGES, which this
+    // warpgroup released if next - STAGES < n), testing without waiting
+    // (lane 0 decides for the warp); it waits only when the stage is due:
+    // stage n + 1, whose scores this stage issues
+    if (threadIdx.x < 32) {
+      for (; next < tiles && next < n + STAGES; ++next) {
+        const uint32_t e = q_empty + 8 * (next % STAGES);
+        const uint32_t par = ((next - STAGES) / STAGES) & 1;
+        if (next > n + 1 && !__shfl_sync(0xffffffffu, mbar_test(e, par), 0))
+          break;
+        mbar_wait(e, par);
+        dkv_stage_load<L>(a, base, smem, next, tiles, nqt, iq0, ikv, ib,
+                          threadIdx.x);
+      }
+    }
+    const int q0 = (iq0 + n % nqt) * BQ;
+    const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
+    const uint32_t do_addr = base + L::DO_OFF + s * L::QT_BYTES;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+    const float* dl =
+        reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+    const bool need_mask = (a.causal && q0 < kw0 + 64) || q0 + BQ > a.sq;
+
+    // P^T in dO's dtype, as A fragments, once S^T is in (dP^T still in
+    // flight)
+    wgmma_wait<1>();
+    fence_regs(st);
+    dkv_probs<BQ>(st, st, ls, a, q0, key0, key1, tq, need_mask);
+    uint32_t fp[BQ / 16][4];
+    dkv_pack<BQ>(fp, st);
+    wgmma_wait<0>();
+    fence_regs(dpt);
+
+    // dV += P^T dO, in flight while dS^T forms
+    fence_regs(dv);
+    fence_regs(fp);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dv, fp, do_addr);
+    wgmma_commit();
+
+    // dS^T = P^T (dP^T - delta) from the rounded P^T (fragment j / 2's
+    // registers 2 (j % 2) and 2 (j % 2) + 1 hold columns 8j .. 8j + 7, as
+    // dkv_pack lays them), rounded to Q's dtype by the packing
+    uint32_t fds[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t pk = fp[j / 2][2 * (j % 2) + h];
+        fds[j / 2][2 * (j % 2) + h] =
+            pack_bf16x2(__uint_as_float(pk << 16) *
+                            (dpt[4 * j + 2 * h] - dj.x),
+                        __uint_as_float(pk & 0xffff0000u) *
+                            (dpt[4 * j + 2 * h + 1] - dj.y));
+      }
+    }
+
+    // dK += dS^T Q; once both products are in the stage is released and
+    // the next one's scores go out
+    fence_regs(dk);
+    fence_regs(fds);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BQ / 16, L::QT_CB>(dk, fds, q_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(fp);
+    fence_regs(fds);
+    mbar_arrive(q_empty + 8 * s);
+    const int nn = n + 1 < tiles ? n + 1 : n;
+    mbar_wait(q_full + 8 * (nn % STAGES), (nn / STAGES) & 1);
+    fence_regs(st);
+    fence_regs(dpt);
+    dkv_keys8_scores<D>(st, dpt, base, k_addr, nn % STAGES);
+  }
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  dkv_store<D>(static_cast<bf16*>(a.dv) + ib * a.dv_sb + ikv * a.dv_sh,
+               a.dv_ss, dv, 1.f, key0, key1, a.sk, tq);
+  dkv_store<D>(static_cast<bf16*>(a.dk) + ib * a.dk_sb + ikv * a.dk_sh,
+               a.dk_ss, dk, a.scale, key0, key1, a.sk, tq);
+}
+
 // K2 on 8 warps: Q and dO (128 rows, resident), the K stages, the V stages
 // and the mbarriers (q_full, kv_full[S], kv_empty[S]).
 template <int D>
 struct DqRows8 {
   static constexpr int BQ = 128;  // query rows per block: 64 a warpgroup
-  static constexpr int BK = 32;   // keys per K/V stage
+  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per K/V stage
   static constexpr int Q_CB = BQ * 128;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_CB = BK * 128;
@@ -2441,7 +2692,7 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in, void* ws,
 // The tensor maps and arguments K3 takes, for each bf16 design: Q and dO
 // in boxes of BQ rows, K and V in boxes of BK keys; one column block a box
 // (dkv_wgmma), or with TILE whole tiles (hopper::tmap_bf16_tile,
-// dkv_onepass and dkv_split).
+// dkv_keys8, dkv_onepass and dkv_split).
 template <int BQ, int BK, bool TILE>
 cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
   const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
@@ -2494,6 +2745,13 @@ cudaError_t run_dkv(const Params& p, int batch, int bf16_in, void* ws,
       else
         return hopper::launch(dkv_onepass<D>, blocks, SPLIT_THREADS,
                               L::BYTES, stream, a);
+    } else if constexpr (dkv_design(D) == kKeys8) {
+      using L = DkvKeys8<D>;
+      if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(a, p, batch, D))
+        return err;
+      return hopper::launch(dkv_keys8<D>,
+                            (p.sk + L::BK - 1) / L::BK * p.hkv * batch,
+                            SPLIT_THREADS, L::BYTES, stream, a);
     } else {
       if (cudaError_t err =
               dkv_args<DkvSmem<D>::BQ, DKV_BK, false>(a, p, batch, D))

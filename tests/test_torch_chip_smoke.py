@@ -56,9 +56,12 @@ def test_replaces_points_at_the_tpu_kernel(name):
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
 def test_kernel_variant_edits_match_the_source(variant):
-    kernel = kernel_variants.VARIANTS[variant][2]
-    assert kernel in kernel_variants.KERNEL_HEADS
-    assert kernel in _global_kernels()
+    key, *shown = kernel_variants.VARIANTS[variant][2:]
+    assert key in kernel_variants.KERNEL_HEADS
+    kernel = kernel_variants.template_of(key)
+    assert {kernel, *shown} <= _global_kernels()
+    _, _, d = kernel_variants.KERNEL_HEADS[key]
+    assert key in (kernel, f"{kernel}<{d}>")
     source = kernel_variants.source_of(kernel)
     files = kernel_variants.committed_files(source)
     assert set(files) == {f"{source}.cu"} | {h.name
@@ -227,7 +230,7 @@ def test_kernel_only_head_settings():
         assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
         assert "#ifndef FLASH_OTHER_DESIGNS" in text
-    assert chip_smoke.DESIGN_DIMS == (192, 256)
+    assert chip_smoke.DESIGN_DIMS == (64, 192, 256)
 
 
 def _designs(source, enum):
@@ -289,57 +292,157 @@ def test_fwd_design_labels_name_every_design():
             other)
 
 
+class _Bwd:
+    """A flash_bwd library's design functions, as csrc/flash_bwd.cu states
+    them: the 8-warp designs at d 64 and 256 (K2 dq_rows8; K3 dkv_keys8
+    at d 64, dkv_onepass at d 256), the row split at d 128 and 192, the D
+    split above (the row split at d 64 and 256 and K3's one pass at d 192
+    in the other build)."""
+
+    def __init__(self, other):
+        ids = _bwd_designs()
+        row8, one, keys8 = ((ids["kRowSplit"],) * 3 if other
+                            else (ids["kRows8"], ids["kOnePass"],
+                                  ids["kKeys8"]))
+        self.flash_bwd_dq_design = lambda d: (
+            row8 if d in (64, 256) else ids["kRowSplit"] if d <= 192
+            else ids["kDSplit"])
+        self.flash_bwd_dkv_design = lambda d: (
+            keys8 if d == 64 else ids["kRowSplit"] if d <= 128
+            else one if d == 256
+            else ids["kOnePass" if other else "kRowSplit"] if d == 192
+            else ids["kDSplit"])
+
+
 def test_bwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K2's and K3's design functions can
     return, and no other; ``design_names`` reads K1's, K2's and K3's ids:
-    at d 256 the 8-warp designs ship, and a build with
+    at d 64 and 256 the 8-warp designs ship, and a build with
     -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and K1's
     rows on 8 warps and K3's one pass at d 192, where the row split
     ships)."""
     ids = _bwd_designs()
-    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3}
+    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
+                   "kKeys8": 4}
     assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
     assert len(set(chip_smoke.BWD_DESIGNS.values())) == len(ids)
 
-    class Bwd:
-        def __init__(self, other):
-            row8, one = ((ids["kRowSplit"],) * 2 if other
-                         else (ids["kRows8"], ids["kOnePass"]))
-            self.flash_bwd_dq_design = lambda d: (
-                ids["kRowSplit"] if d <= 192 else row8 if d == 256
-                else ids["kDSplit"])
-            self.flash_bwd_dkv_design = lambda d: (
-                ids["kRowSplit"] if d <= 128 else one if d == 256
-                else ids["kOnePass" if other else "kRowSplit"] if d == 192
-                else ids["kDSplit"])
-
-    shipped = chip_smoke.design_names(_Fwd(False), Bwd(False), 256)
-    other = chip_smoke.design_names(_Fwd(True), Bwd(True), 256)
+    shipped = chip_smoke.design_names(_Fwd(False), _Bwd(False), 256)
+    other = chip_smoke.design_names(_Fwd(True), _Bwd(True), 256)
     assert shipped == {"flash_fwd": "rows on 8 warps",
                        "flash_bwd_dq": "rows on 8 warps",
                        "flash_bwd_dkv": "one pass"}
     assert other == {"flash_fwd": "row split", "flash_bwd_dq": "row split",
                      "flash_bwd_dkv": "row split"}
     # at d 192 K1 and K3 have two designs
-    assert set(chip_smoke.design_names(_Fwd(False), Bwd(False), 192)
+    assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), 192)
                .values()) == {"row split"}
-    assert chip_smoke.design_names(_Fwd(True), Bwd(True), 192) == {
+    assert chip_smoke.design_names(_Fwd(True), _Bwd(True), 192) == {
         "flash_fwd": "rows on 8 warps", "flash_bwd_dq": "row split",
         "flash_bwd_dkv": "one pass"}
-    assert set(chip_smoke.design_names(_Fwd(False), Bwd(False), 128)
+    assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), 128)
                .values()) == {"row split"}
-    assert chip_smoke.design_names(_Fwd(False), Bwd(False), 512) == {
+    # at d 64 K2 and K3 have two designs, K1 one
+    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 64) == {
+        "flash_fwd": "row split", "flash_bwd_dq": "rows on 8 warps",
+        "flash_bwd_dkv": "keys on 8 warps"}
+    assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), 64)
+               .values()) == {"row split"}
+    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 512) == {
         "flash_fwd": "D split", "flash_bwd_dq": "D split",
         "flash_bwd_dkv": "D split"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
-    assert "FLASH_OTHER_DESIGNS ? kRowSplit : kRows8" in text
+    rule = re.search(r"constexpr int dq_design\(int d\) \{(.*?)\}", text,
+                     re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return d == 64 || d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
+        "kRows8) : d <= 192 ? kRowSplit : kDSplit;")
     rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
-        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? "
-        "kOnePass : kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? "
-        "kRowSplit : kOnePass) : kDSplit;")
+        "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8) : d <= "
+        "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
+        "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
+        "kOnePass) : kDSplit;")
+
+
+def test_design_kernels_name_the_shipped_and_other_kernels():
+    """``design_kernels`` names the kernel template each design id runs
+    (DESIGN_KERNELS, every one a kernel of csrc/): at d 64 K2 and K3 ship
+    dq_rows8 and dkv_keys8, the other build runs PR 10's dq_wgmma and
+    dkv_wgmma there."""
+    fwd_ids = _designs("flash_fwd", "FwdDesign")
+    bwd_ids = _bwd_designs()
+    kernels = chip_smoke.DESIGN_KERNELS
+    assert set(kernels["flash_fwd"]) == set(fwd_ids.values())
+    assert set(kernels["flash_bwd_dq"]) | set(kernels["flash_bwd_dkv"]) == (
+        set(bwd_ids.values()))
+    for table in kernels.values():
+        assert set(table.values()) <= _global_kernels()
+    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 64) == {
+        "flash_fwd": "flash_fwd_wgmma<64>", "flash_bwd_dq": "dq_rows8<64>",
+        "flash_bwd_dkv": "dkv_keys8<64>"}
+    assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), 64) == {
+        "flash_fwd": "flash_fwd_wgmma<64>", "flash_bwd_dq": "dq_wgmma<64>",
+        "flash_bwd_dkv": "dkv_wgmma<64>"}
+    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 256) == {
+        "flash_fwd": "flash_fwd_rows8<256>",
+        "flash_bwd_dq": "dq_rows8<256>",
+        "flash_bwd_dkv": "dkv_onepass<256>"}
+
+
+def test_d64_design_settings():
+    """d 64's designs are timed in turns at Llama-3.2-1B's heads at the
+    fine-tuning shape (phase 8's distillation student), and both builds are
+    held at the d 64 blocks' edges: one row, ragged ends inside and one
+    past a 128-row or 128-key block, s 2047, GQA group 4, non-causal."""
+    hf = chip_smoke.HF_LLAMA32_1B
+    assert hf["head_dim"] == 64
+    assert chip_smoke.DESIGN_SHAPES[64] == (
+        chip_smoke.FT_BATCH, chip_smoke.FT_SEQ, hf["num_attention_heads"],
+        hf["num_key_value_heads"])
+    assert set(chip_smoke.DESIGN_SHAPES) == set(chip_smoke.DESIGN_DIMS)
+    for d in (192, 256):
+        h, hkv, _ = chip_smoke.WIDE_HEADS[f"bench_800m_d{d}"]
+        assert chip_smoke.DESIGN_SHAPES[d] == (
+            chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ, h, hkv)
+    edges = chip_smoke.D64_EDGES
+    assert {s for _, s, _, _, _ in edges} >= {1, 65, 127, 191, 2047}
+    assert any(h // hkv == 4 for _, _, h, hkv, _ in edges)
+    assert any(not causal for *_, causal in edges)
+    assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
+
+
+def test_d64_entries_carry_designs_and_pair():
+    """K2's and K3's d 64 ``kernels`` entries: every key the line's
+    contract names, the shipped kernel by name, launches summed over the
+    paths that run them (the distillation student) and the designs timed
+    in turns; a path that launched none fails."""
+    b, s, h, hkv = chip_smoke.DESIGN_SHAPES[64]
+    shape = f"b{b} s{s} h{h} hkv{hkv} d64 bf16 causal"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share",
+            "pair_ms")
+    numbers = {name: {"more_shapes": {shape: {key: 1.0 for key in keys}}}
+               for name in chip_smoke.KERNELS}
+    designs = {64: {"flash_bwd_dq": {"shipped_kernel": "dq_rows8<64>"},
+                    "flash_bwd_dkv": {"shipped_kernel": "dkv_keys8<64>"}}}
+    paths = {"distill_8b_1b": {name: 64 for name in chip_smoke.KERNELS}}
+    entries = chip_smoke.d64_kernel_entries(numbers, paths, designs)
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    assert [e["name"] for e in entries] == ["flash_bwd_dq d64",
+                                            "flash_bwd_dkv d64"]
+    for entry, kernel in zip(entries, ("dq_rows8<64>", "dkv_keys8<64>")):
+        assert contract <= set(entry)
+        assert entry["kernel"] == kernel and entry["launches"] == 64
+        assert entry["shape"] == shape and "pair_ms" in entry
+        assert entry["designs_in_turns"]["shipped_kernel"] == kernel
+    paths["distill_8b_1b"]["flash_bwd_dkv"] = 0
+    with pytest.raises(AssertionError, match="launched no kernel"):
+        chip_smoke.d64_kernel_entries(numbers, paths, designs)
 
 
 def test_wide_entries_carry_designs_and_pair():

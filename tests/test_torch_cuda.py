@@ -122,6 +122,19 @@ SHAPES = [
     (2, 65, 3, 1, 512, True),
     (2, 63, 8, 4, 192, True),
     (2, 63, 6, 2, 256, True),
+    # d 64's K2 blocks of 128 query rows over 64-key stages and K3 blocks
+    # of 128 keys over 64-query stages (dq_rows8, dkv_keys8): one row,
+    # ragged ends inside and one past a block, GQA group 4, non-causal
+    # aligned, and Llama-3.2-1B's heads at s 2047 and at the fine-tuning
+    # shape
+    (2, 1, 4, 4, 64, True),
+    (2, 65, 4, 4, 64, True),
+    (2, 127, 8, 2, 64, True),
+    (2, 191, 4, 2, 64, True),
+    (2, 300, 8, 2, 64, True),
+    (2, 256, 4, 1, 64, False),
+    (1, 2047, 32, 8, 64, True),
+    (4, 2048, 32, 8, 64, True),
 ]
 
 
@@ -213,6 +226,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                     "flash_bwd_dkv"])
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 128),
                                          (8, 2048, 12, 4, 128),
+                                         (2, 65, 4, 4, 64),
+                                         (2, 300, 8, 2, 64),
+                                         (4, 2048, 32, 8, 64),
                                          (2, 63, 8, 4, 192),
                                          (2, 65, 8, 4, 192),
                                          (1, 2047, 8, 4, 192),
@@ -225,8 +241,10 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
                                            d):
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
-    launches give the same bits (at d 256 the shipped dq_rows8 and
-    dkv_onepass, whose warpgroups exchange P^T through shared memory; in
+    launches give the same bits (at d 64 the shipped dq_rows8 and
+    dkv_keys8, whose warpgroups share the streamed stages; at d 256
+    dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
+    memory; in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
     their parts summed in split order by a second pass). K1 too: each
     block owns its query rows (in f32 flash_fwd_f32 reduces each row's max

@@ -27,16 +27,17 @@ no network. Phases, each of which raises on failure:
    256, 192, 512 and 384 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1 and 4 / 2
    heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
    SDPA (its backend named: its flash backend stops at d 256), in f32 at
-   s 1000 too, with K1 also at its per-length prefill; K1 at d 192 and
-   256 and K2 and K3 at d 64, 192 and 256 also at ragged lengths (s 1
-   (K1; K2, K3 at d 64), 63 (K2, K3 at d 192), 65, 127, 191, 2047; group
-   4 at s 300; non-causal s 512, at d 64 s 256); the design not shipped
-   at d 64, 192 and 256 (K2 and K3 at d 64, K1 at d 256 and K2 and K3 at
-   d 256: the 12-warp row split; K1 at d 192: the rows on 8 warps; K3 at
-   d 192: the one pass) against the plain versions and timed in turns
-   with the shipped one at DESIGN_SHAPES (d 64 at the fine-tuning shape;
-   K1 also at d 256's prefill shape), the K2 + K3 pair beside SDPA's
-   backward; K1, K2 and K3 in f32 (the register-tiled
+   s 1000 too, with K1 also at its per-length prefill; K1, K2 and K3 at
+   d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
+   65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
+   256); the design not shipped at d 64, 192 and 256 (K1, K2 and K3 at d
+   64, K2 at d 192, K1, K2 and K3 at d 256: the 12-warp row split; K1 at
+   d 192: the rows on 8 warps; K3 at d 192: the one pass) against the
+   plain versions and timed in turns with the shipped one at
+   DESIGN_SHAPES (d 64 at the fine-tuning shape; K1 also at d 256's
+   prefill shape), K1 beside SDPA's forward with the blocks an SM holds,
+   the K2 + K3 pair beside SDPA's backward; K1, K2 and K3 in f32 (the
+   register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
    ragged lengths around their tiles (d 128 and 512) and at F32_SHAPES
    (K2 and K3 each launched twice, bitwise), timed there beside SDPA's
@@ -139,6 +140,7 @@ repository around it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -185,7 +187,8 @@ KERNELS = {"flash_fwd": ("flash_fwd.cu", "_fwd_kernel", 113),
 PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_wgmma": "K3 dkv",
                    "flash_fwd_rows8": "K1 flash_fwd (8 warps, d 256)",
-                   "dq_rows8": "K2 dq (8 warps, d 64 and 256)",
+                   "flash_fwd_twin": "K1 flash_fwd (twin 8-warp blocks, d 64)",
+                   "dq_rows8": "K2 dq (8 warps, d 64, 192 and 256)",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
                    "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
@@ -194,19 +197,20 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 # K1's bf16 designs by the id flash_fwd_design returns (csrc/flash_fwd.cu's
 # FwdDesign), K2's and K3's by the id flash_bwd_dq_design and
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
-FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps"}
+FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
+               5: "twin blocks of 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass", 4: "keys on 8 warps"}
 # the kernel template each design id runs, per kernel
 DESIGN_KERNELS = {
     "flash_fwd": {0: "flash_fwd_wgmma", 1: "flash_fwd_split",
-                  2: "flash_fwd_rows8"},
+                  2: "flash_fwd_rows8", 5: "flash_fwd_twin"},
     "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8"},
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
                       4: "dkv_keys8"}}
-# the other designs (K2 and K3 at d 64, K1 at d 192 and 256, K2 at d 256,
-# K3 at d 192 and 256 in bf16, and all three at d 128 in f32; phase 3
-# times them beside the shipped ones in turns):
+# the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
+# d 192 and 256 in bf16, and all three at d 128 in f32; phase 3 times them
+# beside the shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
@@ -383,14 +387,20 @@ DESIGN_SHAPES = {
          HF_LLAMA32_1B["num_key_value_heads"]),
     **{d: (TRAIN_BATCH, TRAIN_SEQ, *WIDE_HEADS[f"bench_800m_d{d}"][:2])
        for d in (192, 256)}}
-# d 64's K2 blocks of 128 query rows over 128-key stages and K3 blocks of
-# 128 keys over 64-query stages at their edges, (b, s, heads, KV heads,
+# d 64's K1 and K2 blocks of 128 query rows (over 128- and 64-key tiles)
+# and K3 blocks of 128 keys at their edges, (b, s, heads, KV heads,
 # causal): one row, ragged ends inside and one past a block, s 2047 at
 # Llama-3.2-1B's heads, GQA group 4, non-causal aligned; phase 3 holds the
-# shipped K2 and K3 there, phase_wide_designs the other build's
+# shipped K1, K2 and K3 there, phase_wide_designs the other build's
 D64_EDGES = ((2, 1, 4, 4, True), (2, 65, 4, 4, True), (2, 127, 8, 2, True),
              (2, 191, 4, 2, True), (1, 2047, 32, 8, True),
              (2, 300, 8, 2, True), (2, 256, 4, 1, False))
+# the edges (b, s, causal) phase_wide_designs holds the other build's K1
+# at d 192 and 256 and K2 at d 192 at, at phase 12's heads (8 / 4 at d 192:
+# GQA group 2): one row, ragged ends inside and past a 128-row block,
+# s 2047, non-causal aligned
+WIDE_EDGES = ((2, 1, True), (2, 65, True), (2, 191, True), (1, 2047, True),
+              (2, 512, False))
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
 # rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
@@ -699,6 +709,11 @@ def phase_kernels() -> dict:
         ("non-causal s512 f32", 2, 512, 12, 4, 128, torch.float32, False,
          False),
         ("gqa s384 d64 bf16", 2, 384, 8, 2, 64, torch.bfloat16, True, False),
+        # d 64's 128-row blocks over 128-key tiles (flash_fwd_twin) at
+        # their edges
+        *((f"d64 s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, 64,
+           torch.bfloat16, causal, False)
+          for b, s, h, hkv, causal in D64_EDGES),
         ("g3 s1 bf16", 2, 1, 6, 2, 128, torch.bfloat16, True, False),
         ("g3 s65 bf16", 2, 65, 6, 2, 128, torch.bfloat16, True, False),
         ("g2 s127 bf16 wrapper", 2, 127, 8, 4, 128, torch.bfloat16, True,
@@ -754,6 +769,8 @@ def phase_kernels() -> dict:
     # the f32 cases
     worst_wide = {d: 0.0 for _, _, d in _kernel_heads().values()}
     worst_f32 = 0.0
+    # and of the bf16 cases at the fine-tuning head dims
+    worst_ft = {d: 0.0 for _, d in FT_HEAD_DIMS}
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
         q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -778,6 +795,8 @@ def phase_kernels() -> dict:
             worst = max(worst, err)
         elif dtype == torch.bfloat16:
             worst_wide[d] = max(worst_wide[d], err)
+        if d in worst_ft and dtype == torch.bfloat16:
+            worst_ft[d] = max(worst_ft[d], err)
         _log(f"kernel {name}: max abs err {err:.3e} "
              f"(atol {atol}, rtol {rtol})")
 
@@ -823,9 +842,11 @@ def phase_kernels() -> dict:
                        max_abs_err=worst_f32,
                        shape=f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal")
            for label, (b, s, h, hkv, d) in F32_SHAPES.items()}
-    # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64
-    ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": _time_k1(
-        f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen)
+    # the fine-tuning shapes: b 4, s 2048, 32 / 8 heads, d 128 and d 64,
+    # each with the largest error of the bf16 cases at its head dim
+    ft = {f"b{FT_BATCH} s{FT_SEQ} h32 hkv8 d{d} bf16 causal": dict(
+        _time_k1(f"llama3 {name}", FT_BATCH, FT_SEQ, 32, 8, d, gen),
+        max_abs_err=worst_ft[d])
         for name, d in FT_HEAD_DIMS}
     # the wide head dims at the training shape (flash_fwd_wgmma<192>,
     # flash_fwd_rows8<256> and flash_fwd_split<320> to <512>: the build's
@@ -944,15 +965,15 @@ def phase_bwd_kernels() -> dict:
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
-        # GQA group 4 and non-causal; at d 192 the row split's 128-key K3 blocks
-        # (32-row stages) and 128-row K2 blocks
+        # GQA group 4 and non-causal; at d 192 the row split's 128-key K3
+        # blocks (32-row stages) and the 128-row K2 blocks (32-key stages)
         *((f"d256 s{s} bf16", 2 if s < 2047 else 1, s, 6, 2, 256,
            torch.bfloat16, True) for s in (65, 127, 191, 2047)),
         ("d256 gqa4 s300 bf16", 2, 300, 8, 2, 256, torch.bfloat16, True),
         ("d256 non-causal s512 bf16", 2, 512, 6, 2, 256, torch.bfloat16,
          False),
         *((f"d192 s{s} bf16", 2 if s < 2047 else 1, s, 8, 4, 192,
-           torch.bfloat16, True) for s in (63, 65, 127, 2047)),
+           torch.bfloat16, True) for s in (1, 63, 65, 127, 191, 2047)),
         # d 64's 128-row K2 blocks and 128-key K3 blocks at their edges
         *((f"d64 s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, 64,
            torch.bfloat16, causal) for b, s, h, hkv, causal in D64_EDGES),
@@ -1184,11 +1205,13 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 def phase_wide_designs() -> dict:
     """At d 64, 192 and 256 some kernels have two designs each. K1 at d
-    192 and 256: PR 10's row split (flash_fwd_wgmma: 12-warp blocks of 128
-    rows, 64 a consumer, a producer warpgroup) and the rows on 8 warps
-    (flash_fwd_rows8: the same rows without the producer, 80- or 96-key
-    tiles, the two warpgroups taking turns at the tensor cores). K2 and K3
-    at d 64 and 256, K3 at d 192: the row split (dq_wgmma, dkv_wgmma:
+    64, 192 and 256: the row split (flash_fwd_wgmma: 12-warp blocks of
+    128 rows, 64 a consumer, a producer warpgroup) and, at d 192 and 256,
+    the rows on 8 warps (flash_fwd_rows8: the same rows without the
+    producer, 80- or 96-key tiles, the two warpgroups taking turns at the
+    tensor cores), at d 64 the twin blocks (flash_fwd_twin: those rows on
+    two blocks a SM, 128-key tiles, each warpgroup's tile in series). K2
+    and K3 at d 64, 192 and 256: the row split (dq_wgmma, dkv_wgmma:
     12-warp blocks with a producer warpgroup, K3 in two passes) and the
     8-warp designs (dq_rows8: the same rows without the producer;
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
@@ -1198,16 +1221,15 @@ def phase_wide_designs() -> dict:
     ``flash_bwd_dq_design``, ``flash_bwd_dkv_design`` in each library);
     the other is built with -DFLASH_OTHER_DESIGNS=1 (phase 2). At each
     head dim's DESIGN_SHAPES (and for K1 at d 256 also at its per-length
-    prefill, b 4 s 1000) the kernels whose builds differ there (K2 and K3
-    at d 64, all three above) have their other builds held against the
-    plain versions (K2 and K3 also twice on one input, bitwise), then
+    prefill, b 4 s 1000) the kernels have their other builds held against
+    the plain versions (K2 and K3 also twice on one input, bitwise), then
     timed in turns with the shipped ones on the same inputs (shipped,
-    other, other, shipped), K2 + K3 as a pair too, beside SDPA's backward
-    (at d 192 K2 runs one design in both builds: its time completes the
-    pair); the other K1 at d 192 and 256, and the other K2 and K3 at d
-    64, are also held against the plain versions at ragged lengths, GQA
-    group 4 and non-causal. Returns {head dim: {kernel: numbers}}, K1's
-    prefill numbers under ``"prefill"``."""
+    other, other, shipped), K1 beside SDPA's forward with the blocks an SM
+    holds of each, K2 + K3 as a pair beside SDPA's backward; the other K1
+    at d 192 and 256 and K2 at d 192 (WIDE_EDGES), and the other K1, K2
+    and K3 at d 64 (D64_EDGES), are also held against the plain versions
+    at ragged lengths, GQA groups and non-causal. Returns {head dim:
+    {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
     )
@@ -1261,6 +1283,20 @@ def phase_wide_designs() -> dict:
         for name, n in out[d].items():
             n.update(shipped_kernel=kernels[d]["shipped"][name],
                      other_kernel=kernels[d]["other"][name])
+        if "flash_fwd" in calls:
+            # K1: beside SDPA's forward, with the blocks an SM holds
+            n = out[d]["flash_fwd"]
+            n["library_ms"] = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+                q, k, v, is_causal=True, enable_gqa=True), queue_ahead=True)
+            for which in libs:
+                n[f"{which}_blocks_per_sm"] = libs[which][
+                    "flash_fwd"].flash_fwd_blocks_per_sm(d)
+            _log(f"time d{d} designs K1 {shape}, in turns: shipped "
+                 f"({n['shipped_kernel']}, {n['shipped_blocks_per_sm']} "
+                 f"blocks a SM) {n['shipped_ms']:.4f} ms, other "
+                 f"({n['other_kernel']}, {n['other_blocks_per_sm']}) "
+                 f"{n['other_ms']:.4f} ms, sdpa forward "
+                 f"{n['library_ms']:.4f} ms ({_sdpa_backend(q, k, v)})")
         # K2 + K3: what SDPA's one backward call computes
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -1295,38 +1331,48 @@ def phase_wide_designs() -> dict:
         f"b{BATCH} s{PROMPT} h{h} hkv{hkv} d{d} bf16 causal")["flash_fwd"]
     del q, k, v
     torch.cuda.empty_cache()
-    # K1's other design at both dims at ragged lengths and non-causal too
-    # (phase 3 holds the shipped one there)
+    # K1's other design at d 192 and 256 at WIDE_EDGES, and at d 64 at
+    # D64_EDGES (phase 3 holds the shipped one there)
+    k1_edges = [(b, s, h, hkv, d, causal)
+                for h, hkv, d in (WIDE_HEADS["bench_800m_d192"],
+                                  WIDE_HEADS["bench_800m_d256"])
+                for b, s, causal in WIDE_EDGES]
+    k1_edges += [(b, s, h, hkv, 64, causal)
+                 for b, s, h, hkv, causal in D64_EDGES]
     try:
         _build._libs.update(libs["other"])
-        for h, hkv, d in (WIDE_HEADS["bench_800m_d192"],
-                          WIDE_HEADS["bench_800m_d256"]):
-            for b, s, causal in ((2, 1, True), (2, 65, True), (2, 191, True),
-                                 (1, 2047, True), (2, 512, False)):
-                q, k, v = (t.transpose(1, 2)
-                           for t in _qkv(b, s, h, hkv, d, dtype, gen))
-                (o, lse), (wo, wl) = (fa.flash_fwd(q, k, v, causal),
-                                      fa.flash_fwd_reference(q, k, v, causal))
-                torch.cuda.synchronize()
-                name = (f"d{d} {named[d]['other']['flash_fwd']} (the design "
-                        f"not shipped) b{b} s{s} causal {causal}")
-                err = _check(name, o, wo, *TOL[dtype])
-                lerr = _check(name + " lse", lse, wl, LSE_ATOL, 0.0)
-                _log(f"kernel {name}: max abs err {err:.3e}, lse "
-                     f"{lerr:.3e}")
-                out[d]["flash_fwd"]["other_max_abs_err"] = max(
-                    out[d]["flash_fwd"]["other_max_abs_err"], err)
-        # K2's and K3's other design at d 64 at its blocks' edges (phase 3
-        # holds the shipped one there), each twice on one input
-        for b, s, h, hkv, causal in D64_EDGES:
-            q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, 64, dtype, gen,
+        for b, s, h, hkv, d, causal in k1_edges:
+            q, k, v = (t.transpose(1, 2)
+                       for t in _qkv(b, s, h, hkv, d, dtype, gen))
+            (o, lse), (wo, wl) = (fa.flash_fwd(q, k, v, causal),
+                                  fa.flash_fwd_reference(q, k, v, causal))
+            torch.cuda.synchronize()
+            name = (f"d{d} {kernels[d]['other']['flash_fwd']} (the design "
+                    f"not shipped) b{b} s{s} h{h} hkv{hkv} causal {causal}")
+            err = _check(name, o, wo, *TOL[dtype])
+            lerr = _check(name + " lse", lse, wl, LSE_ATOL, 0.0)
+            _log(f"kernel {name}: max abs err {err:.3e}, lse {lerr:.3e}")
+            out[d]["flash_fwd"]["other_max_abs_err"] = max(
+                out[d]["flash_fwd"]["other_max_abs_err"], err)
+        # K2's and K3's other design at d 64 at D64_EDGES, and K2's at d 192
+        # at WIDE_EDGES (phase 3 holds the shipped ones there), each twice
+        # on one input
+        h, hkv, _ = WIDE_HEADS["bench_800m_d192"]
+        bwd_edges = [(b, s, h, hkv, 192, causal, ("flash_bwd_dq",))
+                     for b, s, causal in WIDE_EDGES]
+        bwd_edges += [(b, s, h, hkv, 64, causal,
+                       ("flash_bwd_dq", "flash_bwd_dkv"))
+                      for b, s, h, hkv, causal in D64_EDGES]
+        for b, s, h, hkv, d, causal, names in bwd_edges:
+            q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                               causal)
             delta = fa.flash_bwd_delta(o, do)
-            for name, (kern, plain, tols) in bwd(q, k, v, do, lse, delta,
-                                                 causal).items():
+            calls = bwd(q, k, v, do, lse, delta, causal)
+            for name in names:
+                kern, plain, tols = calls[name]
                 got, again, want = kern(), kern(), plain()
                 torch.cuda.synchronize()
-                label = (f"d64 {kernels[64]['other'][name]} (the design not "
+                label = (f"d{d} {kernels[d]['other'][name]} (the design not "
                          f"shipped) b{b} s{s} h{h} hkv{hkv} causal {causal}")
                 err = max(_check(f"{label} {name}", g, w, *tol)
                           for g, w, tol in zip(got, want, tols))
@@ -1335,10 +1381,10 @@ def phase_wide_designs() -> dict:
                                          "deterministic")
                 _log(f"kernel {label}: {name} max abs err {err:.3e}, twice "
                      "bitwise equal")
-                out[64][name]["other_max_abs_err"] = max(
-                    out[64][name]["other_max_abs_err"], err)
+                out[d][name]["other_max_abs_err"] = max(
+                    out[d][name]["other_max_abs_err"], err)
                 del got, again, want
-            del q, k, v, do, o, lse, delta
+            del q, k, v, do, o, lse, delta, calls
     finally:
         _build._libs.update(libs["shipped"])
     return out
@@ -1918,6 +1964,28 @@ def _counts(fa) -> dict:
 
 def _zero(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+@contextlib.contextmanager
+def _k1_by_head_dim(fa, by_dim: dict):
+    """Inside: K1's launches (``fa.launches``, which its wrapper counts
+    where it launches the kernel) also added up by head dim into
+    ``by_dim`` ({d: launches}), for a path that runs K1 at two head
+    dims: each forward's count, read around it."""
+    forward = fa._forward
+
+    def counted(q, k, v, causal):
+        before = fa.launches
+        out = forward(q, k, v, causal)
+        d = q.shape[3]
+        by_dim[d] = by_dim.get(d, 0) + fa.launches - before
+        return out
+
+    fa._forward = counted
+    try:
+        yield by_dim
+    finally:
+        fa._forward = forward
 
 
 class _FitLog:
@@ -3206,6 +3274,9 @@ def _distill(cfg8, base, lcfg, adapters, cfg1, student, corpus):
     Ls, Lt = cfg1.n_layers, cfg8.n_layers
     want = {"flash_fwd": 2 * Ls + Lt, "flash_bwd_dq": Ls,
             "flash_bwd_dkv": Ls}
+    # K1's launches split by head dim: the student's 2 Ls, the teacher's Lt
+    want_k1 = {cfg1.head_dim: 2 * Ls}
+    want_k1[cfg8.head_dim] = want_k1.get(cfg8.head_dim, 0) + Lt
     _log(f"distill: teacher Llama-3.1-8B + merged adapters (bf16), "
          f"student Llama-3.2-1B ({cfg1.param_count() / 1e9:.3f}B params, "
          f"f32 master: {4 * _tree_bytes(student) / 2**30:.2f} GiB of "
@@ -3215,20 +3286,28 @@ def _distill(cfg8, base, lcfg, adapters, cfg1, student, corpus):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     metrics = []
-    _zero(fa)  # the counted run starts here
-    for i in range(DISTILL_STEPS):
-        before = _counts(fa)
-        if i == 1:  # the first step is the warm-up
-            start.record()
-        state, m = dstep(state, teacher, batch, mask)
-        metrics.append(m)
-        delta = {k: _counts(fa)[k] - before[k] for k in want}
-        if delta != want:
-            raise AssertionError(f"distill step {i + 1}: launches {delta}, "
-                                 f"expected {want}")
-    end.record()
-    torch.cuda.synchronize()
-    launches = _counts(fa)  # read just after
+    by_dim = {}
+    with _k1_by_head_dim(fa, by_dim):
+        _zero(fa)  # the counted run starts here
+        for i in range(DISTILL_STEPS):
+            before, before_k1 = _counts(fa), dict(by_dim)
+            if i == 1:  # the first step is the warm-up
+                start.record()
+            state, m = dstep(state, teacher, batch, mask)
+            metrics.append(m)
+            delta = {k: _counts(fa)[k] - before[k] for k in want}
+            delta_k1 = {d: by_dim[d] - before_k1.get(d, 0) for d in by_dim}
+            if delta != want or delta_k1 != want_k1:
+                raise AssertionError(
+                    f"distill step {i + 1}: launches {delta}, K1 by head "
+                    f"dim {delta_k1}, expected {want}, {want_k1}")
+        end.record()
+        torch.cuda.synchronize()
+        launches = _counts(fa)  # read just after
+    if sum(by_dim.values()) != launches["flash_fwd"]:
+        raise AssertionError(f"distill: K1 by head dim {by_dim} does not "
+                             f"sum to its {launches['flash_fwd']} launches")
+    launches[f"flash_fwd d{cfg1.head_dim}"] = by_dim[cfg1.head_dim]
     step_ms = start.elapsed_time(end) / (DISTILL_STEPS - 1)
     peak = torch.cuda.max_memory_allocated()
     metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
@@ -3241,7 +3320,8 @@ def _distill(cfg8, base, lcfg, adapters, cfg1, student, corpus):
     if _bits_checksum(teacher) != sums:
         raise AssertionError("distill: the teacher's params changed")
     _log(f"distill: launches exactly K1 {2 * Ls + Lt} (student {2 * Ls} "
-         f"with its recompute + teacher {Lt}, never recomputed), K2 {Ls}, "
+         f"at d {cfg1.head_dim} with its recompute + teacher {Lt} at d "
+         f"{cfg8.head_dim}, never recomputed), K2 {Ls}, "
          f"K3 {Ls} in each of {DISTILL_STEPS} steps; teacher checksums "
          f"equal before and after; step {step_ms:.2f} ms (CUDA events, "
          f"mean of {DISTILL_STEPS - 1} after a warm-up), "
@@ -4878,27 +4958,28 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
 
 
 def d64_kernel_entries(numbers: dict, paths: dict, designs: dict) -> list:
-    """K2's and K3's ``kernels`` entries at d 64, naming the kernels that
-    ship there (``designs[64][kernel]["shipped_kernel"]``), from phase
-    3's numbers at DESIGN_SHAPES[64] (``numbers[kernel]["more_shapes"]``,
-    with d 64's own largest error), the launches of the paths that run
-    them at d 64 (``paths[path][kernel]``: phase 8's distillation student)
-    and ``phase_wide_designs``' (``designs[64][kernel]``: both designs in
-    turns, the pair beside SDPA's backward). Raises if a path launched
-    none."""
+    """K1's, K2's and K3's ``kernels`` entries at d 64, naming the kernels
+    that ship there (``designs[64][kernel]["shipped_kernel"]``), from
+    phase 3's numbers at DESIGN_SHAPES[64] (``numbers[kernel]
+    ["more_shapes"]``, with d 64's own largest error), the launches of the
+    paths that run them at d 64 (``paths[path]``: phase 8's distillation
+    student; K1's under ``"flash_fwd d64"``, the paths' K1 launches at
+    d 64 alone) and ``phase_wide_designs``' (``designs[64][kernel]``: both
+    designs in turns, K1 beside SDPA's forward, the pair beside SDPA's
+    backward). Raises if a path launched none."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend", "tflops", "bound_share",
-            "pair_ms")
+            "library_ms", "library_backend", "tflops", "bound_share")
     b, s, h, hkv = DESIGN_SHAPES[64]
     shape = f"b{b} s{s} h{h} hkv{hkv} d64 bf16 causal"
     entries = []
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        src, _, line = KERNELS[name]
-        by_path = {path: counts[name] for path, counts in paths.items()}
+    for name, (src, _, line) in KERNELS.items():
+        counted = "flash_fwd d64" if name == "flash_fwd" else name
+        by_path = {path: counts[counted] for path, counts in paths.items()}
         if not by_path or not all(by_path.values()):
             raise AssertionError(f"{name} d64: a path launched no kernel: "
                                  f"{by_path}")
         n = numbers[name]["more_shapes"][shape]
+        these = keys if name == "flash_fwd" else (*keys, "pair_ms")
         entries.append({
             "name": f"{name} d64",
             "kernel": designs[64][name]["shipped_kernel"],
@@ -4909,7 +4990,7 @@ def d64_kernel_entries(numbers: dict, paths: dict, designs: dict) -> list:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "shape": shape,
-            **{key: n[key] for key in keys},
+            **{key: n[key] for key in these},
             "designs_in_turns": designs[64][name],
         })
     return entries

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build the design alternatives of K1 (``flash_fwd_rows8`` at d 256,
-``flash_fwd_f32`` at d 128 in f32, in
+"""Build the design alternatives of K1 (``flash_fwd_twin`` at d 64,
+``flash_fwd_rows8`` at d 256, ``flash_fwd_f32`` at d 128 in f32, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
-K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64 and 256, ``dq_f32`` at
+K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_f32`` at
 d 128 in f32) and K3 (``dkv_keys8`` at d 64, ``dkv_onepass`` at d 192 and
 256, ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time
 them against the committed kernels on one CUDA card.
@@ -54,6 +54,249 @@ F32_K1_TILES = ("  static constexpr int BK = D <= 256 ? 64 : 32;\n"
                 "  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : "
                 "1;\n")
 
+# K1 at d 64: flash_fwd_twin's tiles and blocks a SM; the design ids at d
+# 64 (the twin blocks ship; the row split, or the d 256 design's rows on
+# 8 warps)
+TWIN_BK = "  static constexpr int BK = 128;  // keys per K/V stage\n"
+TWIN_BLOCKS = ("  static constexpr int BLOCKS = 2;  // blocks an SM holds\n")
+FWD_D64 = "  return d == 64    ? (FLASH_OTHER_DESIGNS ? kRowSplit : kTwin)\n"
+# flash_fwd_rows8 at d 64: its tiles, and two blocks a SM
+ROWS8_BK = ("  static constexpr int BK = D <= 192 ? 96 : 80;  // keys per K/V "
+            "stage")
+ROWS8_BOUNDS = ("__global__ void __launch_bounds__(SPLIT_THREADS, 1)\n"
+                "flash_fwd_rows8(")
+
+# d 64 K1's S = Q K^T with Q in registers: hopper.cuh gains m64n64 and
+# m64n128 wgmmas with A from registers and B K-major (WgmmaRS), a chain and a
+# loader of A fragments from a 128-byte-swizzled tile; flash_fwd_twin
+# loads its warpgroup's Q once and issues S from the fragments
+FWD_Q_REGS = [
+    ("template <int OB>\nstruct WgmmaRST<128, OB> {",
+     r"""template <int OB>
+struct WgmmaRS<128, OB> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 db;\n"
+        "setp.ne.b32 p, %70, 0;\n"
+        "add.s64 db, %68, %69;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, db, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB),
+          "r"(accumulate));
+  }
+};
+
+template <int OB>
+struct WgmmaRS<64, OB> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 db;\n"
+        "setp.ne.b32 p, %38, 0;\n"
+        "add.s64 db, %36, %37;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, db, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB),
+          "r"(accumulate));
+  }
+};
+
+""" + "template <int OB>\nstruct WgmmaRST<128, OB> {"),
+    ("template <int N, int KSTEPS>\n__device__ __forceinline__ void "
+     "wgmma_rs_t(float (&d)[N / 2],",
+     r"""// D (64 x N) (+)= A (64 x 16 KSTEPS; a[k] the fragment of k chunk k) B,
+// B K-major in shared memory as wgmma_ss's B (column blocks of 64 of the
+// reduced dim, CBB bytes apart); `accumulate` 0 on the first step.
+template <int N, int CBB, int KSTEPS, int... KK>
+__device__ __forceinline__ void wgmma_rs_chain(
+    float (&d)[N / 2], const uint32_t (&a)[KSTEPS][4], uint64_t db,
+    std::integer_sequence<int, KK...>) {
+  (WgmmaRS<N, (KK / 4) * (CBB >> 4) + (KK % 4) * 2>::run(d, a[KK], db,
+                                                          KK > 0),
+   ...);
+}
+
+template <int N, int KSTEPS, int CBB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[KSTEPS][4],
+                                         uint64_t db) {
+  wgmma_rs_chain<N, CBB>(d, a, db, std::make_integer_sequence<int, KSTEPS>{});
+}
+
+// The A fragments of a 64 x 16 KSTEPS tile that lies in shared memory as
+// a TMA tile with the 128-byte swizzle (column blocks of 64, CB bytes
+// apart, rows of 128 bytes, 1024-byte aligned), for this thread (warp w,
+// lane group g, quad lane tq): a[k][r] holds row 16 w + g + 8 (r & 1),
+// columns 16 k + 2 tq + 8 (r >> 1) and the next.
+template <int KSTEPS, int CB>
+__device__ __forceinline__ void lds_a_frags(uint32_t (&a)[KSTEPS][4],
+                                            uint32_t tile, int w, int g,
+                                            int tq) {
+#pragma unroll
+  for (int k = 0; k < KSTEPS; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * w + g + 8 * (r & 1);
+      const int col = 16 * k + 2 * tq + 8 * (r >> 1);
+      const int byte = (col % 64) * 2;
+      const uint32_t addr = tile + (col / 64) * CB + row * 128 +
+                            ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[k][r]) : "r"(addr));
+    }
+}
+
+""" + "template <int N, int KSTEPS>\n"
+     "__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],"),
+    ("template <int N, int OB>\nstruct WgmmaRST;\n",
+     "template <int N, int OB>\nstruct WgmmaRST;\n"
+     "template <int N, int OB>\nstruct WgmmaRS;\n"),
+    ("  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;\n\n"
+     "  mbar_wait(q_full, 0);\n#pragma unroll 1\n",
+     "  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;\n"
+     "  uint32_t qf[D / 16][4];  // this warpgroup's Q\n\n"
+     "  mbar_wait(q_full, 0);\n"
+     "  lds_a_frags<D / 16, L::Q_CB>(qf, q_addr, w, g, tq);\n"
+     "#pragma unroll 1\n"),
+    ("    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(\n"
+     "        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, "
+     "1024));\n    wgmma_commit();\n    // while it is in flight",
+     "    wgmma_rs<BK, D / 16, L::KV_CB>(sc, qf, desc_sw128(k_addr, 16, "
+     "1024));\n    wgmma_commit();\n    // while it is in flight")]
+
+
+def fwd_d64_rows8(bk: int = 96, blocks: int = 1) -> list:
+    """K1 at d 64 on flash_fwd_rows8 (turns, S(i) beside P V(i - 1)) with
+    ``bk``-key tiles on ``blocks`` blocks a SM."""
+    edits = [(FWD_D64, "  return d == 64    ? kRows8\n")]
+    if bk != 96:
+        edits.append((ROWS8_BK, ROWS8_BK.replace("D <= 192 ? 96",
+                                                 f"D == 64 ? {bk} : D <= 192 "
+                                                 "? 96")))
+    if blocks != 1:
+        edits.append((ROWS8_BOUNDS, ROWS8_BOUNDS.replace(
+            "SPLIT_THREADS, 1", f"SPLIT_THREADS, D == 64 ? {blocks} : 1")))
+    return edits
+
+
+# K1's softmax step (fwd_softmax, every head dim of the build; the d 64
+# variants time it at d 64) with its row maxima and sums as four
+# independent chains each, and with every ``emu``-th group of 8 keys'
+# exp2 on the FMA pipes (exp2_fma, FlashAttention-4's polynomial: the
+# exponent by the 1.5 * 2^23 rounding trick, 2^f on [-0.5, 0.5] by a
+# degree-3 minimax polynomial, largest relative error 7.5e-5 = 2^-13.7 on
+# [-125, 0] in f32, 0 below -125)
+FWD_EXP2_FMA = (
+    "// One online-softmax step on a score tile of BK keys starting at key "
+    "k0,\n", """__device__ __forceinline__ float exp2_fma(float x) {
+  const float t = __fadd_rn(x, 12582912.f);  // round(x) in the low bits
+  const float f = __fsub_rn(x, __fsub_rn(t, 12582912.f));
+  float p = fmaf(0.0551716685f, f, 0.2426111251f);
+  p = fmaf(p, f, 0.6932609677f);
+  p = fmaf(p, f, 0.9999280572f);
+  const int r = __float_as_int(p) + (__float_as_int(t) << 23);
+  return x < -125.f ? 0.f : __int_as_float(r);
+}
+
+// One online-softmax step on a score tile of BK keys starting at key k0,
+""")
+FWD_MAX_CHAINS = ("""  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+""", """  float c0[4] = {m0, m0, m0, m0}, c1[4] = {m1, m1, m1, m1};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    c0[j % 4] = fmaxf(c0[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    c1[j % 4] = fmaxf(c1[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float mx0 = fmaxf(fmaxf(c0[0], c0[1]), fmaxf(c0[2], c0[3]));
+  float mx1 = fmaxf(fmaxf(c1[0], c1[1]), fmaxf(c1[2], c1[3]));
+""")
+
+
+def fwd_sum_chains(emu: int) -> tuple:
+    """fwd_softmax's exponentials and row sums: four chains a row, and
+    (``emu`` > 0) every ``emu``-th group of 8 keys through exp2_fma."""
+    exp2 = ("fast_exp2(x)" if not emu else
+            f"j % {emu} == {emu - 1} ? exp2_fma(x) : fast_exp2(x)")
+    return ("""  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], a.scale_log2, -ms0));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], a.scale_log2, -ms0));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], a.scale_log2, -ms1));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], a.scale_log2, -ms1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + sum0;
+  l1 = l1 * alpha1 + sum1;
+""", """  float s0[4] = {}, s1[4] = {};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fmaf(sc[4 * j + e], a.scale_log2, e < 2 ? -ms0 : -ms1);
+      sc[4 * j + e] = """ + exp2 + """;
+    }
+    s0[j % 4] += sc[4 * j] + sc[4 * j + 1];
+    s1[j % 4] += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + ((s0[0] + s0[1]) + (s0[2] + s0[3]));
+  l1 = l1 * alpha1 + ((s1[0] + s1[1]) + (s1[2] + s1[3]));
+""")
+
+# K2 at d 192: its design, stages, key tiles and commit groups
+DQ_DESIGN = ("  return d == 64 || d == 192 || d == 256\n"
+             "             ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)\n"
+             "         : d <= 128 ? kRowSplit\n")
+DQ_ROWS8_STAGES = ("  static constexpr int STAGES = FIT < 4 ? FIT : 4;\n"
+                   "  static constexpr int DO_OFF = Q_BYTES;\n")
+DQ_SPLIT = "  static constexpr bool SPLIT = D == 192;\n"
+DQ_ROWS8_BK = ("  static constexpr int BK = D <= 64 || D == 192 ? 64 : 32;\n",
+               "  static constexpr int BK = D <= 64 ? 64 : 32;\n")
+
 # K2 on 8 warps: the next key tile's S and dP in flight with dQ += dS K
 NEXT_SCORES = [("""  mbar_wait(q_full, 0);
 #pragma unroll 1
@@ -87,22 +330,36 @@ NEXT_SCORES = [("""  mbar_wait(q_full, 0);
     // thread 0 refills"""),
                ("        if (next > i && !mbar_test(e, par)) break;\n",
                 "        if (next > i + 1 && !mbar_test(e, par)) break;\n"),
-               ("""    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each
+               ("""    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each (SPLIT: in two
+    // commit groups, P formed while dP is in flight)
     float sc[BK / 2], dp[BK / 2];
     mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
     wgmma_fence();
     wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
         sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    if constexpr (L::SPLIT) wgmma_commit();
     wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
         dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
     wgmma_commit();
-    wgmma_wait<0>();
+    wgmma_wait<L::SPLIT ? 1 : 0>();
     fence_regs(sc);
-    fence_regs(dp);
+    if constexpr (!L::SPLIT) fence_regs(dp);
 
 """, "    float ds[BK / 2];\n"),
-               ("""        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+               ("""        if constexpr (L::SPLIT)
+          sc[4 * j + e] = p;
+        else
+          sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
       }
+    if constexpr (L::SPLIT) {  // dP is in now
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] *= dp[4 * j + e] - (e < 2 ? dl0 : dl1);
+    }
 
     // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
     uint32_t f[BK / 16][4];
@@ -630,9 +887,8 @@ VARIANTS = {
     "rows8_d64_bk128": (
         "d 64 K2: 128-key K/V stages (m64n128 S and dP: 186 registers, one "
         "block a SM) instead of 64 (122: two blocks a SM)",
-        [("  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per K/V "
-          "stage", "  static constexpr int BK = D <= 64 ? 128 : 32;  // keys "
-          "per K/V stage")],
+        [(DQ_ROWS8_BK[0], "  static constexpr int BK = D <= 64 ? 128 : D "
+          "== 192 ? 64 : 32;\n")],
         "dq_rows8<64>"),
     "rows8_d64_2_stages": (
         "d 64 K2: 2 K/V stages instead of 4",
@@ -643,38 +899,8 @@ VARIANTS = {
         "dq_rows8<64>"),
     "rows8_split_commit": (
         "K2 on 8 warps: S and dP in two commit groups, P formed while dP "
-        "is in flight",
-        [("""    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-""", """    wgmma_commit();
-    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
-        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(sc);
-"""),
-         ("""        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
-      }
-
-    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
-    uint32_t f[BK / 16][4];
-""", """        sc[4 * j + e] = p;
-      }
-    wgmma_wait<0>();
-    fence_regs(dp);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[4 * j + e] *= dp[4 * j + e] - (e < 2 ? dl0 : dl1);
-
-    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
-    uint32_t f[BK / 16][4];
-""")],
+        "is in flight (SPLIT, shipped at d 192)",
+        [(DQ_SPLIT, DQ_SPLIT.replace("D == 192", "true"))],
         "dq_rows8<64>"),
     "f32_k1_d512_bq64": (
         "f32 K1 at d 512: 64-row blocks (4 x 1 score tiles, 128 output "
@@ -685,7 +911,113 @@ VARIANTS = {
           "  static constexpr int BQ = D <= 256 || D == 512 ? 64 : 32;\n"
           "  static constexpr int BK = D <= 256 ? 64 : D < 512 ? 32 : 16;\n")],
         "flash_fwd_f32"),
+    "fwd_d64_wgmma": (
+        "d 64 K1 on the row split (flash_fwd_wgmma<64>: 12 warps, one block "
+        "a SM, 128-key stages, each consumer's softmax between its "
+        "products; the other build's)",
+        [(FWD_D64, "  return d == 64    ? kRowSplit\n")], "flash_fwd_twin",
+        "flash_fwd_wgmma"),
+    "fwd_d64_rows8": (
+        "d 64 K1 on the d 256 design as it is (flash_fwd_rows8<64>: one "
+        "block a SM, 96-key tiles, turns, S(i) beside P V(i - 1))",
+        fwd_d64_rows8(), "flash_fwd_twin", "flash_fwd_rows8"),
+    "fwd_d64_rows8_bk128": (
+        "d 64 K1 on flash_fwd_rows8 with 128-key tiles (one block a SM)",
+        fwd_d64_rows8(128), "flash_fwd_twin", "flash_fwd_rows8"),
+    "fwd_d64_rows8_two_blocks": (
+        "d 64 K1 on flash_fwd_rows8 at two blocks a SM (at most 128 "
+        "registers a thread), 64-key tiles, with the turns",
+        fwd_d64_rows8(64, 2), "flash_fwd_twin", "flash_fwd_rows8"),
+    "twin_bk64": (
+        "d 64 K1: flash_fwd_twin on 64-key tiles instead of 128",
+        [(TWIN_BK, TWIN_BK.replace("128", "64"))], "flash_fwd_twin"),
+    "twin_bk96": (
+        "d 64 K1: flash_fwd_twin on 96-key tiles instead of 128",
+        [(TWIN_BK, TWIN_BK.replace("128", "96"))], "flash_fwd_twin"),
+    "twin_one_block": (
+        "d 64 K1: flash_fwd_twin at one block a SM (no register cap)",
+        [(TWIN_BLOCKS, TWIN_BLOCKS.replace("= 2", "= 1"))],
+        "flash_fwd_twin"),
+    "twin_three_blocks_bk32": (
+        "d 64 K1: flash_fwd_twin at three blocks a SM (at most 85 registers "
+        "a thread) on 32-key tiles",
+        [(TWIN_BK, TWIN_BK.replace("128", "32")),
+         (TWIN_BLOCKS, TWIN_BLOCKS.replace("= 2", "= 3"))],
+        "flash_fwd_twin"),
+    "twin_turns": (
+        "d 64 K1: flash_fwd_twin with a block's two warpgroups taking turns "
+        "at issuing S (FlashAttention-3's ping-pong)",
+        [("  mbar_wait(q_full, 0);\n#pragma unroll 1\n",
+          "  if (c == 1) bar_arrive(kTurn, 2 * WG);  // warpgroup 0 first\n"
+          "  mbar_wait(q_full, 0);\n#pragma unroll 1\n"),
+         ("    mbar_wait(k_full + 8 * s, ph);\n    wgmma_fence();\n"
+          "    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(\n"
+          "        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, "
+          "1024));\n    wgmma_commit();\n    // while it is in flight",
+          "    mbar_wait(k_full + 8 * s, ph);\n"
+          "    bar_sync(kTurn + c, 2 * WG);\n    wgmma_fence();\n"
+          "    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(\n"
+          "        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, "
+          "1024));\n    wgmma_commit();\n"
+          "    bar_arrive(kTurn + 1 - c, 2 * WG);\n    // while it is in "
+          "flight"),
+         ("  fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, "
+          "true);\n}\n\n// ------------------------------------------------ "
+          "f32",
+          "  if (c == 0) bar_sync(kTurn, 2 * WG);\n"
+          "  fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, "
+          "true);\n}\n\n// ------------------------------------------------ "
+          "f32")],
+        "flash_fwd_twin"),
+    "twin_q_regs": (
+        "d 64 K1: S = Q K^T with Q's fragments in registers (loaded once "
+        "from the swizzled tile; wgmma with A from registers, B K-major) "
+        "instead of both operands from shared memory",
+        FWD_Q_REGS, "flash_fwd_twin"),
+    "twin_short_chains": (
+        "d 64 K1: the softmax's row maxima and sums as four independent "
+        "chains a row each instead of one",
+        [FWD_MAX_CHAINS, fwd_sum_chains(0)], "flash_fwd_twin"),
+    "twin_exp2_fma_4": (
+        "d 64 K1: twin_short_chains, and a quarter of the exp2 (every 4th "
+        "group of 8 keys) on the FMA pipes by a degree-3 polynomial",
+        [FWD_EXP2_FMA, FWD_MAX_CHAINS, fwd_sum_chains(4)], "flash_fwd_twin"),
+    "twin_exp2_fma_8": (
+        "d 64 K1: twin_short_chains, and an eighth of the exp2 (every 8th "
+        "group of 8 keys) on the FMA pipes",
+        [FWD_EXP2_FMA, FWD_MAX_CHAINS, fwd_sum_chains(8)], "flash_fwd_twin"),
+    "dq_d192_wgmma": (
+        "d 192 K2 on the row split (dq_wgmma<192>: 12 warps, 5 stages of "
+        "32 keys) instead of dq_rows8<192>",
+        [(DQ_DESIGN, "  return d == 64 || d == 256\n"
+                     "             ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
+                     "kRows8)\n"
+                     "         : d <= 192 ? kRowSplit\n")],
+        "dq_rows8<192>", "dq_wgmma"),
+    "dq_d192_bk32": (
+        "d 192 K2: 32-key K/V stages (m64n32 S and dP), 4 in the ring, "
+        "instead of 2 of 64",
+        [DQ_ROWS8_BK], "dq_rows8<192>"),
+    "dq_d192_bk32_5_stages": (
+        "d 192 K2: 5 K/V stages of 32 keys (as many as fit) instead of 2 "
+        "of 64",
+        [DQ_ROWS8_BK, (DQ_ROWS8_STAGES, DQ_ROWS8_STAGES.replace(
+            "= FIT < 4", "= D == 192 ? FIT : FIT < 4"))],
+        "dq_rows8<192>"),
 }
+# flash_fwd_rows8 at d 64 on two blocks a SM without the turns (no_turns'
+# edits), on 64- and 80-key tiles
+for _bk in (64, 80):
+    VARIANTS[f"fwd_d64_rows8_two_blocks_bk{_bk}_no_turns"] = (
+        f"d 64 K1 on flash_fwd_rows8 at two blocks a SM, {_bk}-key tiles, "
+        "without the turns",
+        [*fwd_d64_rows8(_bk, 2), *VARIANTS["no_turns"][1]], "flash_fwd_twin",
+        "flash_fwd_rows8")
+# K2's SPLIT flag off at d 192
+VARIANTS["dq_d192_one_commit"] = (
+    "d 192 K2: S and dP in one commit group, waited for together (SPLIT "
+    "off), as at d 64 and 256",
+    [(DQ_SPLIT, DQ_SPLIT.replace("D == 192", "false"))], "dq_rows8<192>")
 # the heads (query, KV, head dim) each edited kernel is checked and timed
 # at: bench_800m's, phase 12's bench_800m_d256 and Llama-3.2-1B's (a
 # kernel template at a head dim other than its first is keyed
@@ -693,6 +1025,8 @@ VARIANTS = {
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_rows8<64>": (32, 8, 64), "dkv_keys8": (32, 8, 64),
                 "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256),
+                "flash_fwd_twin": (32, 8, 64),
+                "dq_rows8<192>": cs.WIDE_HEADS["bench_800m_d192"],
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128)}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
@@ -708,6 +1042,10 @@ KERNEL_SHAPES = {
     "dkv_f32": list(cs.F32_SHAPES.values()),
     "flash_fwd_f32": list(cs.F32_SHAPES.values()),
     "dq_rows8<64>": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dq_rows8<64>"])],
+    "flash_fwd_twin": [(cs.FT_BATCH, cs.FT_SEQ,
+                        *KERNEL_HEADS["flash_fwd_twin"])],
+    "dq_rows8<192>": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                       *KERNEL_HEADS["dq_rows8<192>"])],
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
@@ -819,6 +1157,9 @@ def _calls(kind: str, fa, dtype=torch.bfloat16):
 
 def main() -> int:
     from service_account_auth_improvements_tpu_torch.ops import (
+        _build,
+    )
+    from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
@@ -858,6 +1199,10 @@ def main() -> int:
         fn, plain, tols = _calls(kind, fa, dtype)
         for name in ["committed", *group]:
             _use(built[name, source][0], source)
+            if kind == "fwd" and dtype == torch.bfloat16:
+                cs._log(f"variant {name}: K1 at d{d} holds "
+                        f"{_build._libs[source].flash_fwd_blocks_per_sm(d)} "
+                        "blocks a SM")
             ragged = 1000 if dtype == torch.bfloat16 else 129
             # a ragged length at the heads of each timed shape
             heads = dict.fromkeys(shape[2:] for shape in timed)

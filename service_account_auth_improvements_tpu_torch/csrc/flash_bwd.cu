@@ -44,9 +44,9 @@
 // stream by TMA through a ring of shared-memory stages tracked by
 // mbarriers, and two consumer warpgroups run every product on wgmma with
 // the scores in registers; see BwdDesign below and the notes above
-// `dq_wgmma` and `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64 and 256),
-// `dkv_keys8` (d 64) and `dkv_onepass` (d 256) and `dq_split` and
-// `dkv_split` (d 320 to 512, the output's D columns split between the
+// `dq_wgmma` (d 128), `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64, 192
+// and 256), `dkv_keys8` (d 64) and `dkv_onepass` (d 256) and `dq_split`
+// and `dkv_split` (d 320 to 512, the output's D columns split between the
 // consumers).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
@@ -112,21 +112,23 @@ constexpr int SMEM_MAX = 232448;
 // flash_bwd_dkv_design report the one a head dim runs; chip_smoke.py labels
 // its timings by them):
 //   kRowSplit  dq_wgmma, dkv_wgmma: 12-warp blocks of 128 rows or keys, 64
-//              a consumer warpgroup, a producer warpgroup (d 128, 192);
+//              a consumer warpgroup, a producer warpgroup (K2 at d 128,
+//              K3 at d 128 and 192);
 //   kDSplit    dq_split, dkv_split: 8-warp blocks of 64 rows or keys, the
 //              output's columns split between the warpgroups (d 320 to 512);
-//   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 64, 256);
+//   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 64, 192,
+//              256);
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
 //              and warpgroup 1 dK, one pass (d 256);
 //   kKeys8     dkv_keys8: 8-warp blocks of 128 keys, 64 a warpgroup, each
 //              owning dK and dV of its keys, one pass (d 64).
-// At d 64 and 256 each of K2 and K3, and at d 192 K3, ships the faster of
-// two designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on
-// one card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and
-// dkv_onepass at d 256, the row split's dkv_wgmma at d 192 (dkv_onepass<192>
-// lost to it in turns). A build with -DFLASH_OTHER_DESIGNS=1 takes the
-// other design at each (and K1's other design at d 192 and 256, and the
-// scalar f32 kernels at d 128: F32Design).
+// At d 64, 192 and 256 each of K2 and K3 ships the faster of two designs
+// on the H100 (chip_smoke.py's phase_wide_designs, in turns on one card;
+// PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
+// split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
+// dq_rows8 and dkv_onepass at d 256. A build with -DFLASH_OTHER_DESIGNS=1
+// takes the other design at each (and K1's other design at d 64, 192 and
+// 256, and the scalar f32 kernels at d 128: F32Design).
 enum BwdDesign {
   kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4
 };
@@ -135,9 +137,10 @@ enum BwdDesign {
 #define FLASH_OTHER_DESIGNS 0
 #endif
 constexpr int dq_design(int d) {
-  return d == 64 || d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
-         : d <= 192          ? kRowSplit
-                             : kDSplit;
+  return d == 64 || d == 192 || d == 256
+             ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
+         : d <= 128 ? kRowSplit
+                    : kDSplit;
 }
 constexpr int dkv_design(int d) {
   return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8)
@@ -189,7 +192,9 @@ constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
 // keys beside dQ's D / 2 registers made ptxas spill and serialise the
 // wgmmas. Stages in the ring: 256 keys' worth (4 of 64 keys or 2 of 128),
 // or as many as fit beside the resident Q and dO (d 192: 5, d 256: 3).
-// At d 256 K2 ships as dq_rows8 and from d 320 it is dq_split (BwdDesign).
+// At d 64, 192 and 256 K2 ships as dq_rows8 and from d 320 it is dq_split
+// (BwdDesign): at d 192 this kernel runs only in the -DFLASH_OTHER_DESIGNS=1
+// build.
 constexpr int dq_bk(int d) { return d <= 128 ? DQ_BK : 32; }
 constexpr int dq_stages(int d) {
   const int fit =
@@ -1275,15 +1280,22 @@ dkv_split(const __grid_constant__ DkvArgs a) {
 //
 // K2, `dq_rows8<D>` (replaces `_dq_kernel`): dq_wgmma's rows, 128 query
 // rows a block with Q and dO resident, 64 a warpgroup, K and V streamed in
-// 32-key stages (3 fit beside Q and dO; at d 64 4 stages of 64 keys, see
-// below), without the producer warpgroup:
-// S = Q K^T and dP = dO V^T (m64n32), dS = P (dP - delta), dQ += dS K
+// 32-key stages at d 256 (3 fit beside Q and dO), 64-key stages at d 192
+// (2) and d 64 (4, see below), without the producer warpgroup:
+// S = Q K^T and dP = dO V^T (m64nBK), dS = P (dP - delta), dQ += dS K
 // (m64nDk16, K read MN-major), as dq_consumer does. Bound on an H100:
 // operations (three products); what held dq_wgmma<256> back was ptxas's
 // 168 registers a thread (a 12-warp block) beside the 128-register dQ,
 // so every wgmma ran serialised: this block has 255. Thread 0 refills a
 // stage once both warpgroups have released it, testing without waiting,
-// and waits only when the stage's next tile is due.
+// and waits only when the stage's next tile is due. At d 192 it replaces
+// dq_wgmma<192> (12 warps at 168 registers, 5 stages of 32 keys, the
+// other build's design there): with 255 registers a thread S and dP take
+// 64 keys a stage (32 registers each beside dQ's 96; 188 in all), which
+// halves the stages, their mbarrier round trips and the exp2/dS chains
+// paid per key, and S and dP go in two commit groups, P's exponentials
+// formed while dP is in flight (SPLIT; +-1% at d 64); on 32-key stages
+// it lost to dq_wgmma<192> (kernel_variants.py; PERF.md §6).
 //
 // Both keep dkv_wgmma's and dq_wgmma's rounding rules, scale dK or dQ once
 // at the end and write their own rows: every sum runs in one block in a
@@ -1712,7 +1724,10 @@ dkv_keys8(const __grid_constant__ DkvArgs a) {
 template <int D>
 struct DqRows8 {
   static constexpr int BQ = 128;  // query rows per block: 64 a warpgroup
-  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per K/V stage
+  // keys per K/V stage
+  static constexpr int BK = D <= 64 || D == 192 ? 64 : 32;
+  // S and dP in two commit groups (the softmax's exp2 under dP's product)
+  static constexpr bool SPLIT = D == 192;
   static constexpr int Q_CB = BQ * 128;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_CB = BK * 128;
@@ -1826,18 +1841,20 @@ dq_rows8(const __grid_constant__ DqArgs a) {
       }
     }
 
-    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each
+    // S = Q K^T and dP = dO V^T: 64 rows x BK keys each (SPLIT: in two
+    // commit groups, P formed while dP is in flight)
     float sc[BK / 2], dp[BK / 2];
     mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
     wgmma_fence();
     wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
         sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    if constexpr (L::SPLIT) wgmma_commit();
     wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
         dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
     wgmma_commit();
-    wgmma_wait<0>();
+    wgmma_wait<L::SPLIT ? 1 : 0>();
     fence_regs(sc);
-    fence_regs(dp);
+    if constexpr (!L::SPLIT) fence_regs(dp);
 
     // dS = P (dP - delta) with P = exp2(S scale log2e - lse log2e) in f32,
     // in place in sc; P = 0 past sk and (causal) after the row
@@ -1853,8 +1870,20 @@ dq_rows8(const __grid_constant__ DqArgs a) {
           if (col >= a.sk || (a.causal && col > (e < 2 ? row0 : row1)))
             p = 0.f;
         }
-        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+        if constexpr (L::SPLIT)
+          sc[4 * j + e] = p;
+        else
+          sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
       }
+    if constexpr (L::SPLIT) {  // dP is in now
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] *= dp[4 * j + e] - (e < 2 ? dl0 : dl1);
+    }
 
     // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
     uint32_t f[BK / 16][4];

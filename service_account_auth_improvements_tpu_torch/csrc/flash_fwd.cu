@@ -37,8 +37,9 @@
 // (b, h) against 4 s d bytes of q/k/v/o, hundreds of flops per byte: it is
 // bound by the tensor cores. The bf16 kernels are built for them, one
 // design per head dim (FwdDesign, below): from d 320 to 512
-// `flash_fwd_split<D>`, at d 256 `flash_fwd_rows8<D>` (their notes are
-// above them), and from d 64 to 192 `flash_fwd_wgmma<D>`:
+// `flash_fwd_split<D>`, at d 256 `flash_fwd_rows8<D>`, at d 64
+// `flash_fwd_twin<D>` (their notes are above them), and at d 128 and 192
+// `flash_fwd_wgmma<D>`:
 // - a block owns 128 query rows: one producer warpgroup and two consumer
 //   warpgroups of 64 rows each (one wgmma M tile); setmaxnreg gives the
 //   producer 24 registers and each consumer thread 240;
@@ -115,19 +116,24 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 //   kDSplit    flash_fwd_split: 8-warp blocks of 64 rows, the output's
 //              columns split between the warpgroups (d 320 to 512);
 //   kRows8     flash_fwd_rows8: 8-warp blocks of 128 rows, 64 a
-//              warpgroup, the two taking turns at the tensor cores (d 256).
-// At d 192 and 256 K1 ships the faster of two designs on the H100
+//              warpgroup, the two taking turns at the tensor cores (d 256);
+//   kTwin      flash_fwd_twin: 8-warp blocks of 128 rows, 64 a warpgroup,
+//              two blocks a SM, each warpgroup's tile in series (d 64).
+// (kTwin's id follows BwdDesign's, so that no id names two designs.)
+// At d 64, 192 and 256 K1 ships the faster of two designs on the H100
 // (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md §6):
-// flash_fwd_wgmma at d 192, flash_fwd_rows8 at d 256. A build with
-// -DFLASH_OTHER_DESIGNS=1 takes the other one at each (and the scalar f32
-// kernel at d 128: F32Design).
-enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2 };
+// flash_fwd_twin at d 64, flash_fwd_wgmma at d 192, flash_fwd_rows8 at d
+// 256. A build with -DFLASH_OTHER_DESIGNS=1 takes the other one at each
+// (flash_fwd_wgmma at d 64; and the scalar f32 kernel at d 128:
+// F32Design).
+enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kTwin = 5 };
 
 #ifndef FLASH_OTHER_DESIGNS
 #define FLASH_OTHER_DESIGNS 0
 #endif
 constexpr int fwd_design(int d) {
-  return d <= 128 ? kRowSplit
+  return d == 64    ? (FLASH_OTHER_DESIGNS ? kRowSplit : kTwin)
+         : d <= 128 ? kRowSplit
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
                     : kDSplit;
@@ -256,10 +262,10 @@ __device__ __forceinline__ void fwd_finish(const FwdArgs& a,
 // Shared memory of flash_fwd_wgmma: Q, then the K stages, the V stages and
 // the mbarriers. Each tile is D / 64 column blocks of (rows x 128 bytes).
 // Keys per stage (BK) and stages: 128 and 2 up to d 128; above (PR 10's
-// tiles; at d 256 only the -DFLASH_OTHER_DESIGNS=1 build runs them), as many
-// stages as fit (at most 4) of 64 keys at d 192 and of 32 at d 256, where
-// a 64-key S tile beside the 128 registers of O made ptxas spill and
-// serialise the wgmmas.
+// tiles), as many stages as fit (at most 4) of 64 keys at d 192 and of 32
+// at d 256, where a 64-key S tile beside the 128 registers of O made ptxas
+// spill and serialise the wgmmas. At d 64 and 256 only the
+// -DFLASH_OTHER_DESIGNS=1 build runs this kernel.
 template <int D>
 struct FwdSmem {
   static constexpr int BK = D <= 128 ? 128 : D <= 192 ? 64 : 32;
@@ -849,6 +855,180 @@ flash_fwd_rows8(const __grid_constant__ FwdArgs a) {
   fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, true);
 }
 
+// ------------------------------------------------ bf16: twin blocks (d 64)
+//
+// At d 64 (Llama-3.2-1B's heads) K1 is `flash_fwd_twin<D>` (kTwin; the
+// row split's flash_fwd_wgmma<64> is the -DFLASH_OTHER_DESIGNS=1 build's).
+// What held flash_fwd_wgmma<64> back: a 128 x 128 tile's 16K exp2 take
+// ~1,024 clocks on an SM's 16 MUFU lanes, as long as the tile's two
+// products on the tensor cores, and its 12-warp block (one a SM) ran
+// each consumer's S, softmax and P V in series. Bound on an H100:
+// operations (4 s^2 d flops per causal (b, h) against 4 s d bytes). Here:
+// - a block is flash_fwd_rows8's: two warpgroups of 64 query rows, 8
+//   warps, Q resident, thread 0 issuing the loads; but at most 128
+//   registers a thread (__launch_bounds__(256, 2)), so two blocks, four
+//   warpgroups, share an SM and the warp schedulers run one warpgroup's
+//   exponentials while another's products are on the tensor cores;
+// - each warpgroup runs a tile's S = Q K^T (m64n128, both operands in
+//   shared memory), its online softmax and O += P V (P re-packed in
+//   registers) in series: S's 64 registers are free again once P is
+//   packed, which is what fits 128-key tiles beside O in 128 registers.
+//   flash_fwd_rows8's overlap (S(i) in flight beside P V(i - 1)) holds S
+//   and the last P at once and fits only 64- or 80-key tiles there; it
+//   lost to this by 15% or more, and the turns between the two
+//   warpgroups by 8% (kernel_variants.py; PERF.md §6);
+// - K and V stream in 2 stages of 128 keys (80 KB a block with Q), each
+//   tile one TMA copy with its own full mbarrier (S starts before V
+//   lands) and one empty mbarrier for the stage, one arrival a warpgroup
+//   past its P V's wait; thread 0 loads a tile into a stage both
+//   warpgroups have released: right after its own release if the other's
+//   is in (mbar_test), else while the next tile's S is in flight, where
+//   it waits for it;
+// - BQ = BK = 128: the last key tile of a causal block is its diagonal
+//   one, half masked for warpgroup 0 and never wholly.
+// The masking, the LSE and the heaviest-first order are flash_fwd_wgmma's.
+template <int D>
+struct FwdTwin {
+  static constexpr int BQ = 128;  // query rows per block: 64 a warpgroup
+  static constexpr int BK = 128;  // keys per K/V stage
+  static constexpr int STAGES = 2;
+  static constexpr int BLOCKS = 2;  // blocks an SM holds
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // mbarriers: q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(D == 64, "O, S and P in 128 registers a thread");
+  static_assert(BLOCKS * BYTES <= SMEM_MAX, "two blocks a SM");
+};
+
+// K and V of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void fwd_twin_load(const FwdArgs& a,
+                                              uint32_t base, int i, int ikv,
+                                              int ib) {
+  using namespace hopper;
+  using L = FwdTwin<D>;
+  const int s = i % L::STAGES;
+  const uint32_t k_full = base + L::BAR_OFF + 8 + 8 * s;
+  const uint32_t v_full = k_full + 8 * L::STAGES;
+  mbar_arrive_expect_tx(k_full, L::KV_BYTES);
+  tma_load_5d(base + L::K_OFF + s * L::KV_BYTES, &a.tk, k_full, 0,
+              i * L::BK, 0, ikv, ib);
+  mbar_arrive_expect_tx(v_full, L::KV_BYTES);
+  tma_load_5d(base + L::V_OFF + s * L::KV_BYTES, &a.tv, v_full, 0,
+              i * L::BK, 0, ikv, ib);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, FwdTwin<D>::BLOCKS)
+flash_fwd_twin(const __grid_constant__ FwdArgs a) {
+  using namespace hopper;
+  using L = FwdTwin<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, k_full = bar + 8,
+                 v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
+
+  // heaviest query tiles first; neighbouring blocks share a KV group
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int ih = static_cast<int>(blockIdx.x) % hb % a.h;
+  const int ib = static_cast<int>(blockIdx.x) % hb / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = iq * BQ;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival a warpgroup
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {  // Q, and K and V of the first STAGES tiles
+    mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+    tma_load_5d(base, &a.tq, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < STAGES && i < nk; ++i)
+      fwd_twin_load<D>(a, base, i, ikv, ib);
+  }
+  int next = STAGES;  // thread 0: the next key tile to load
+
+  const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + c * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = i * BK;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+
+    // S = Q K^T: 64 rows x BK keys
+    float sc[BK / 2];
+    mbar_wait(k_full + 8 * s, ph);
+    wgmma_fence();
+    wgmma_ss<BK, D / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_commit();
+    // while it is in flight: the next tile, if it is due and its stage was
+    // not refilled at the end of the last tile (waiting for the release)
+    if (threadIdx.x == 0 && next == i + 1 && next < nk) {
+      mbar_wait(empty + 8 * (next % STAGES), ((next - STAGES) / STAGES) & 1);
+      fwd_twin_load<D>(a, base, next++, ikv, ib);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // mask only tiles that cross the diagonal or the ragged end
+    float alpha0, alpha1;
+    fwd_softmax<BK>(a, sc, m0, m1, l0, l1, alpha0, alpha1,
+                    (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk, k0,
+                    row0, row1, tq);
+    uint32_t pf[BK / 16][4];
+    fwd_pack<BK>(pf, sc);
+    fwd_rescale(o, alpha0, alpha1);
+
+    // O += P V
+    mbar_wait(v_full + 8 * s, ph);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    wgmma_rs_t_cols<D, BK / 16, L::KV_CB>(o, pf, v_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (t == 0) mbar_arrive(empty + 8 * s);
+    // the stage's next tile now if the other warpgroup released it too
+    if (threadIdx.x == 0 && next == i + STAGES && next < nk &&
+        mbar_test(empty + 8 * s, ph))
+      fwd_twin_load<D>(a, base, next++, ikv, ib);
+  }
+  fwd_finish<D>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0, true);
+}
+
 // ------------------------------------------------ f32: CUDA cores
 //
 // float32 inputs run on the CUDA cores in true f32 FMA (no TF32), so f32
@@ -1168,8 +1348,8 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 // The tensor maps and arguments K1 takes in bf16: Q in boxes of BQ rows, K
 // and V in boxes of BK keys; one column block a box (flash_fwd_wgmma), or
-// with TILE whole tiles (hopper::tmap_bf16_tile, flash_fwd_split and
-// flash_fwd_rows8).
+// with TILE whole tiles (hopper::tmap_bf16_tile, flash_fwd_split,
+// flash_fwd_rows8 and flash_fwd_twin).
 template <int BQ, int BK, bool TILE>
 cudaError_t fwd_args(FwdArgs& a, const Params& p, int batch, int d) {
   const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
@@ -1213,6 +1393,11 @@ cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
       if ((err = fwd_args<L::BQ, L::BK, true>(a, p, batch, D))) return err;
       return hopper::launch(flash_fwd_rows8<D>, a.nq * p.h * batch,
                             SPLIT_THREADS, L::BYTES, stream, a);
+    } else if constexpr (fwd_design(D) == kTwin) {
+      using L = FwdTwin<D>;
+      if ((err = fwd_args<L::BQ, L::BK, true>(a, p, batch, D))) return err;
+      return hopper::launch(flash_fwd_twin<D>, a.nq * p.h * batch,
+                            SPLIT_THREADS, L::BYTES, stream, a);
     } else {
       using L = FwdSmem<D>;
       if ((err = fwd_args<FWD_BQ, L::BK, false>(a, p, batch, D))) return err;
@@ -1233,6 +1418,36 @@ cudaError_t run(const Params& p, int batch, int bf16, cudaStream_t stream) {
     return launch(flash_fwd_f32_scalar<D>, grid, SC_THREADS, smem, stream,
                   p);
   }
+}
+
+// Blocks of `kernel` (threads, smem bytes) that one SM holds at once, or
+// -1 if the runtime refuses the query.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int D>
+int fwd_blocks_per_sm() {
+  if constexpr (fwd_design(D) == kDSplit)
+    return blocks_per_sm(flash_fwd_split<D>, SPLIT_THREADS,
+                         FwdSplit<D>::BYTES);
+  else if constexpr (fwd_design(D) == kRows8)
+    return blocks_per_sm(flash_fwd_rows8<D>, SPLIT_THREADS,
+                         FwdRows8<D>::BYTES);
+  else if constexpr (fwd_design(D) == kTwin)
+    return blocks_per_sm(flash_fwd_twin<D>, SPLIT_THREADS,
+                         FwdTwin<D>::BYTES);
+  else
+    return blocks_per_sm(flash_fwd_wgmma<D>, FWD_THREADS,
+                         FwdSmem<D>::BYTES);
 }
 
 }  // namespace
@@ -1274,3 +1489,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
 // (F32Design) it runs for float32 inputs.
 extern "C" int flash_fwd_design(int d) { return fwd_design(d); }
 extern "C" int flash_fwd_f32_design(int d) { return f32_design(d); }
+
+// Blocks of K1's bf16 kernel at head dim d that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; chip_smoke.py prints it
+// beside the designs' times), or -1.
+extern "C" int flash_fwd_blocks_per_sm(int d) {
+  switch (d) {
+    case 64: return fwd_blocks_per_sm<64>();
+    case 128: return fwd_blocks_per_sm<128>();
+    case 192: return fwd_blocks_per_sm<192>();
+    case 256: return fwd_blocks_per_sm<256>();
+    case 320: return fwd_blocks_per_sm<320>();
+    case 384: return fwd_blocks_per_sm<384>();
+    case 448: return fwd_blocks_per_sm<448>();
+    case 512: return fwd_blocks_per_sm<512>();
+    default: return -1;
+  }
+}

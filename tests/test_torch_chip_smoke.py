@@ -247,40 +247,45 @@ def _bwd_designs():
 
 class _Fwd:
     """A flash_fwd library's design function, as csrc/flash_fwd.cu states
-    it: the row split up to d 192 and the rows on 8 warps at d 256 (the
-    other way round at d 192 and 256 in the other build), the D split
-    above."""
+    it: the twin blocks at d 64, the rows on 8 warps at d 256, the row
+    split at d 128 and 192 (the other build: the row split at d 64 and
+    256, the rows on 8 warps at d 192), the D split above."""
 
     def __init__(self, other):
         ids = _designs("flash_fwd", "FwdDesign")
-        wide = {192: "kRowSplit", 256: "kRows8"}
-        swap = {"kRowSplit": "kRows8", "kRows8": "kRowSplit"}
+        two = {64: ("kTwin", "kRowSplit"), 192: ("kRowSplit", "kRows8"),
+               256: ("kRows8", "kRowSplit")}
         self.flash_fwd_design = lambda d: ids[
-            "kRowSplit" if d <= 128 else "kDSplit" if d > 256
-            else swap[wide[d]] if other else wide[d]]
+            "kRowSplit" if d == 128 else "kDSplit" if d > 256
+            else two[d][1 if other else 0]]
 
 
 def test_fwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K1's design function can return, and
-    no other, with the names K2's and K3's ids of the same design carry;
-    the source's rule: the row split from d 64 to 192, the rows on 8
-    warps at d 256 (a -DFLASH_OTHER_DESIGNS=1 build takes the other of the
-    two at d 192 and 256), the D split from d 320."""
+    no other, with the names K2's and K3's ids of the same design carry
+    (the twin blocks, K1's alone, take an id no K2 or K3 design has); the
+    source's rule: the twin blocks at d 64, the rows on 8 warps at d 256,
+    the row split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes
+    the row split at d 64 and 256 and the rows on 8 warps at d 192), the
+    D split from d 320."""
     ids = _designs("flash_fwd", "FwdDesign")
-    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2}
+    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kTwin": 5}
     assert set(chip_smoke.FWD_DESIGNS) == set(ids.values())
+    assert ids["kTwin"] not in chip_smoke.BWD_DESIGNS
     for n, label in chip_smoke.FWD_DESIGNS.items():
-        assert chip_smoke.BWD_DESIGNS[n] == label
+        assert chip_smoke.BWD_DESIGNS.get(n, label) == label
+    assert len(set(chip_smoke.FWD_DESIGNS.values())) == len(ids)
     text = (CSRC / "flash_fwd.cu").read_text()
     rule = re.search(r"constexpr int fwd_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
-        "return d <= 128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? "
-        "kRows8 : kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
-        "kRows8) : kDSplit;")
+        "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kTwin) : d <= "
+        "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : "
+        "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8) "
+        ": kDSplit;")
     assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
         in text
-    for d, shipped, other in ((64, "row split", "row split"),
+    for d, shipped, other in ((64, "twin blocks of 8 warps", "row split"),
                               (128, "row split", "row split"),
                               (192, "row split", "rows on 8 warps"),
                               (256, "rows on 8 warps", "row split"),
@@ -294,10 +299,10 @@ def test_fwd_design_labels_name_every_design():
 
 class _Bwd:
     """A flash_bwd library's design functions, as csrc/flash_bwd.cu states
-    them: the 8-warp designs at d 64 and 256 (K2 dq_rows8; K3 dkv_keys8
-    at d 64, dkv_onepass at d 256), the row split at d 128 and 192, the D
-    split above (the row split at d 64 and 256 and K3's one pass at d 192
-    in the other build)."""
+    them: K2's dq_rows8 at d 64, 192 and 256, K3's 8-warp designs at d 64
+    (dkv_keys8) and 256 (dkv_onepass), the row split at d 128 (and K3's
+    at d 192), the D split above (the row split at d 64, 192 and 256 and
+    K3's one pass at d 192 in the other build)."""
 
     def __init__(self, other):
         ids = _bwd_designs()
@@ -305,7 +310,7 @@ class _Bwd:
                             else (ids["kRows8"], ids["kOnePass"],
                                   ids["kKeys8"]))
         self.flash_bwd_dq_design = lambda d: (
-            row8 if d in (64, 256) else ids["kRowSplit"] if d <= 192
+            row8 if d in (64, 192, 256) else ids["kRowSplit"] if d <= 128
             else ids["kDSplit"])
         self.flash_bwd_dkv_design = lambda d: (
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
@@ -317,10 +322,10 @@ class _Bwd:
 def test_bwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K2's and K3's design functions can
     return, and no other; ``design_names`` reads K1's, K2's and K3's ids:
-    at d 64 and 256 the 8-warp designs ship, and a build with
-    -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and K1's
-    rows on 8 warps and K3's one pass at d 192, where the row split
-    ships)."""
+    at d 64 and 256 the 8-warp designs ship, at d 192 K2's, and a build
+    with -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and
+    K1's rows on 8 warps and K3's one pass at d 192, where their row
+    split ships)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
                    "kKeys8": 4}
@@ -334,17 +339,19 @@ def test_bwd_design_labels_name_every_design():
                        "flash_bwd_dkv": "one pass"}
     assert other == {"flash_fwd": "row split", "flash_bwd_dq": "row split",
                      "flash_bwd_dkv": "row split"}
-    # at d 192 K1 and K3 have two designs
-    assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), 192)
-               .values()) == {"row split"}
+    # at d 192 all three have two designs
+    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 192) == {
+        "flash_fwd": "row split", "flash_bwd_dq": "rows on 8 warps",
+        "flash_bwd_dkv": "row split"}
     assert chip_smoke.design_names(_Fwd(True), _Bwd(True), 192) == {
         "flash_fwd": "rows on 8 warps", "flash_bwd_dq": "row split",
         "flash_bwd_dkv": "one pass"}
     assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), 128)
                .values()) == {"row split"}
-    # at d 64 K2 and K3 have two designs, K1 one
+    # at d 64 all three have two designs
     assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 64) == {
-        "flash_fwd": "row split", "flash_bwd_dq": "rows on 8 warps",
+        "flash_fwd": "twin blocks of 8 warps",
+        "flash_bwd_dq": "rows on 8 warps",
         "flash_bwd_dkv": "keys on 8 warps"}
     assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), 64)
                .values()) == {"row split"}
@@ -356,8 +363,8 @@ def test_bwd_design_labels_name_every_design():
     rule = re.search(r"constexpr int dq_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
-        "return d == 64 || d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
-        "kRows8) : d <= 192 ? kRowSplit : kDSplit;")
+        "return d == 64 || d == 192 || d == 256 ? (FLASH_OTHER_DESIGNS ? "
+        "kRowSplit : kRows8) : d <= 128 ? kRowSplit : kDSplit;")
     rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
@@ -369,9 +376,10 @@ def test_bwd_design_labels_name_every_design():
 
 def test_design_kernels_name_the_shipped_and_other_kernels():
     """``design_kernels`` names the kernel template each design id runs
-    (DESIGN_KERNELS, every one a kernel of csrc/): at d 64 K2 and K3 ship
-    dq_rows8 and dkv_keys8, the other build runs PR 10's dq_wgmma and
-    dkv_wgmma there."""
+    (DESIGN_KERNELS, every one a kernel of csrc/): at d 64 K1, K2 and K3
+    ship flash_fwd_twin, dq_rows8 and dkv_keys8, the other build runs
+    flash_fwd_wgmma, dq_wgmma and dkv_wgmma there; at d 192 K2 ships
+    dq_rows8, the other build runs dq_wgmma."""
     fwd_ids = _designs("flash_fwd", "FwdDesign")
     bwd_ids = _bwd_designs()
     kernels = chip_smoke.DESIGN_KERNELS
@@ -381,11 +389,17 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
     for table in kernels.values():
         assert set(table.values()) <= _global_kernels()
     assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 64) == {
-        "flash_fwd": "flash_fwd_wgmma<64>", "flash_bwd_dq": "dq_rows8<64>",
+        "flash_fwd": "flash_fwd_twin<64>", "flash_bwd_dq": "dq_rows8<64>",
         "flash_bwd_dkv": "dkv_keys8<64>"}
     assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), 64) == {
         "flash_fwd": "flash_fwd_wgmma<64>", "flash_bwd_dq": "dq_wgmma<64>",
         "flash_bwd_dkv": "dkv_wgmma<64>"}
+    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 192) == {
+        "flash_fwd": "flash_fwd_wgmma<192>", "flash_bwd_dq": "dq_rows8<192>",
+        "flash_bwd_dkv": "dkv_wgmma<192>"}
+    assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), 192) == {
+        "flash_fwd": "flash_fwd_rows8<192>", "flash_bwd_dq": "dq_wgmma<192>",
+        "flash_bwd_dkv": "dkv_onepass<192>"}
     assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 256) == {
         "flash_fwd": "flash_fwd_rows8<256>",
         "flash_bwd_dq": "dq_rows8<256>",
@@ -414,43 +428,142 @@ def test_d64_design_settings():
     assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
 
 
-def test_d64_entries_carry_designs_and_pair():
-    """K2's and K3's d 64 ``kernels`` entries: every key the line's
-    contract names, the shipped kernel by name, launches summed over the
-    paths that run them (the distillation student) and the designs timed
-    in turns; a path that launched none fails."""
+def _d64_inputs():
+    """Phase 3's numbers, phase 8's launches and phase_wide_designs'
+    designs at d 64 as ``d64_kernel_entries`` reads them."""
     b, s, h, hkv = chip_smoke.DESIGN_SHAPES[64]
     shape = f"b{b} s{s} h{h} hkv{hkv} d64 bf16 causal"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend", "tflops", "bound_share",
-            "pair_ms")
+            "library_ms", "library_backend", "tflops", "bound_share")
     numbers = {name: {"more_shapes": {shape: {key: 1.0 for key in keys}}}
                for name in chip_smoke.KERNELS}
-    designs = {64: {"flash_bwd_dq": {"shipped_kernel": "dq_rows8<64>"},
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        numbers[name]["more_shapes"][shape]["pair_ms"] = 2.0
+    designs = {64: {"flash_fwd": {"shipped_kernel": "flash_fwd_twin<64>"},
+                    "flash_bwd_dq": {"shipped_kernel": "dq_rows8<64>"},
                     "flash_bwd_dkv": {"shipped_kernel": "dkv_keys8<64>"}}}
-    paths = {"distill_8b_1b": {name: 64 for name in chip_smoke.KERNELS}}
+    # the distillation step: K1 64 (the student's 32 at d 64, the
+    # teacher's 32 at d 128), K2 and K3 16 each
+    paths = {"distill_8b_1b": {"flash_fwd": 64, "flash_fwd d64": 32,
+                               "flash_bwd_dq": 16, "flash_bwd_dkv": 16}}
+    return shape, numbers, paths, designs
+
+
+def test_d64_entries_carry_designs_and_pair():
+    """K1's, K2's and K3's d 64 ``kernels`` entries: every key the line's
+    contract names, the shipped kernel by name, launches summed over the
+    paths that run them (the distillation student) and the designs timed
+    in turns; K2's and K3's with the pair's sum; a path that launched
+    none fails."""
+    shape, numbers, paths, designs = _d64_inputs()
     entries = chip_smoke.d64_kernel_entries(numbers, paths, designs)
     contract = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"}
-    assert [e["name"] for e in entries] == ["flash_bwd_dq d64",
+    assert [e["name"] for e in entries] == ["flash_fwd d64",
+                                            "flash_bwd_dq d64",
                                             "flash_bwd_dkv d64"]
-    for entry, kernel in zip(entries, ("dq_rows8<64>", "dkv_keys8<64>")):
+    for entry, kernel in zip(entries, ("flash_fwd_twin<64>",
+                                       "dq_rows8<64>", "dkv_keys8<64>")):
         assert contract <= set(entry)
-        assert entry["kernel"] == kernel and entry["launches"] == 64
-        assert entry["shape"] == shape and "pair_ms" in entry
+        assert entry["kernel"] == kernel and entry["route"] == "cuda"
+        assert entry["shape"] == shape
+        assert ("pair_ms" in entry) == (kernel != "flash_fwd_twin<64>")
         assert entry["designs_in_turns"]["shipped_kernel"] == kernel
+    assert [e["launches"] for e in entries] == [32, 16, 16]
     paths["distill_8b_1b"]["flash_bwd_dkv"] = 0
     with pytest.raises(AssertionError, match="launched no kernel"):
         chip_smoke.d64_kernel_entries(numbers, paths, designs)
 
 
+def test_d64_k1_entry_counts_its_head_dim_alone():
+    """The ``flash_fwd d64`` entry counts the launches the paths made at d
+    64 (the distillation student's 2 · 16 a step), not all of K1's (the
+    teacher's d 128 ones too), and fails when a path made none at d 64."""
+    _, numbers, paths, designs = _d64_inputs()
+    k1 = chip_smoke.d64_kernel_entries(numbers, paths, designs)[0]
+    assert k1["name"] == "flash_fwd d64"
+    assert k1["launches"] == 32
+    assert k1["launches_by_path"] == {"distill_8b_1b": 32}
+    assert k1["designs_in_turns"] is designs[64]["flash_fwd"]
+    assert "pair_ms" not in k1
+    paths["distill_8b_1b"]["flash_fwd d64"] = 0
+    with pytest.raises(AssertionError, match="flash_fwd d64: a path"):
+        chip_smoke.d64_kernel_entries(numbers, paths, designs)
+
+
+def test_k1_launches_split_by_head_dim(monkeypatch):
+    """``_k1_by_head_dim`` adds K1's own count (``launches``, bumped where
+    the kernel launches; here a stand-in forward bumps it) up by head dim
+    for as long as it is open, and puts the forward back after."""
+    import torch
+
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    def forward(q, k, v, causal):
+        fa.launches += 1
+        return fa.flash_fwd_reference(q, k, v, causal)
+
+    monkeypatch.setattr(fa, "_forward", forward)
+    monkeypatch.setattr(fa, "launches", 0)
+    by_dim = {}
+    with chip_smoke._k1_by_head_dim(fa, by_dim):
+        for d, n in ((64, 2), (128, 1)):
+            q = torch.zeros((1, 2, 8, d))
+            for _ in range(n):
+                fa.flash_fwd(q, q[:, :1], q[:, :1], True)
+    assert by_dim == {64: 2, 128: 1} and fa.launches == 3
+    assert fa._forward is forward
+
+
+@pytest.mark.parametrize("key,d", [("flash_fwd_twin", 64),
+                                   ("dq_rows8<192>", 192)])
+def test_new_variant_keys_name_their_template_and_shape(key, d):
+    """kernel_variants.py's keys for K1 at d 64 (its first head dim, so
+    the bare template) and K2 at d 192 name a kernel template of csrc/
+    (``template_of``), are timed at the shapes phase_wide_designs times
+    those designs at (DESIGN_SHAPES), and have variants, among them the
+    other build's design."""
+    kernel = kernel_variants.template_of(key)
+    assert key in (kernel, f"{kernel}<{d}>")
+    assert kernel in _global_kernels()
+    assert kernel_variants.source_of(kernel) == (
+        "flash_fwd" if kernel.startswith("flash_fwd") else "flash_bwd")
+    h, hkv, hd = kernel_variants.KERNEL_HEADS[key]
+    assert hd == d
+    assert kernel_variants.KERNEL_SHAPES[key] == [
+        (*chip_smoke.DESIGN_SHAPES[d][:2], h, hkv, d)]
+    assert (h, hkv) == chip_smoke.DESIGN_SHAPES[d][2:]
+    edits = [n for n, v in kernel_variants.VARIANTS.items() if v[2] == key]
+    assert len(edits) >= 3
+    shown = {kernel_variants.VARIANTS[n][-1] for n in edits}
+    assert {"flash_fwd_wgmma", "dq_wgmma"} & shown
+
+
+def test_wide_edges_cover_the_blocks():
+    """phase_wide_designs holds the other build's K1 at d 192 and 256 and
+    K2 at d 192 at one row, ragged ends inside and past a 128-row block,
+    s 2047 and non-causal aligned (BLOCK_Q)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    edges = chip_smoke.WIDE_EDGES
+    assert {s for _, s, _ in edges} >= {1, 65, 191, 2047}
+    assert all(s % fa.BLOCK_Q == 0 for _, s, causal in edges if not causal)
+    assert any(not causal for *_, causal in edges)
+    h, hkv, _ = chip_smoke.WIDE_HEADS["bench_800m_d192"]
+    assert h // hkv == 2
+
+
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
     contract names, launches summed over phase 12's paths; at d 192 and
-    256 (all three kernels) the designs timed in turns, and K2's and K3's
-    the pair's sum beside SDPA's backward; the kernel-only dims under d
-    512."""
+    256 (all three kernels, K2 at d 192 too now that it has two designs
+    there) the designs timed in turns, and K2's and K3's the pair's sum
+    beside SDPA's backward; the kernel-only dims under d 512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}

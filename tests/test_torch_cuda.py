@@ -135,6 +135,13 @@ SHAPES = [
     (2, 256, 4, 1, 64, False),
     (1, 2047, 32, 8, 64, True),
     (4, 2048, 32, 8, 64, True),
+    # d 64's K1 blocks of 128 query rows over 128-key tiles, two blocks a
+    # SM (flash_fwd_twin), at Llama-3.2-1B's heads: one row, a ragged end
+    # inside a warpgroup's rows, one short of and one past a block
+    (2, 1, 32, 8, 64, True),
+    (2, 63, 32, 8, 64, True),
+    (2, 127, 32, 8, 64, True),
+    (2, 129, 32, 8, 64, True),
 ]
 
 
@@ -229,6 +236,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (2, 65, 4, 4, 64),
                                          (2, 300, 8, 2, 64),
                                          (4, 2048, 32, 8, 64),
+                                         (2, 129, 32, 8, 64),
                                          (2, 63, 8, 4, 192),
                                          (2, 65, 8, 4, 192),
                                          (1, 2047, 8, 4, 192),
@@ -242,13 +250,15 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     """K2 sums over the key tiles and K3 over the group's heads and the
     query tiles inside one block, in a fixed order, with no atomics: two
     launches give the same bits (at d 64 the shipped dq_rows8 and
-    dkv_keys8, whose warpgroups share the streamed stages; at d 256
+    dkv_keys8, whose warpgroups share the streamed stages; at d 192
+    dq_rows8 on 64-key stages; at d 256
     dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
     memory; in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
     their parts summed in split order by a second pass). K1 too: each
-    block owns its query rows (in f32 flash_fwd_f32 reduces each row's max
-    and sum over a half-warp by shuffles, in a fixed order)."""
+    block owns its query rows (at d 64 flash_fwd_twin, two blocks a SM;
+    in f32 flash_fwd_f32 reduces each row's max and sum over a
+    half-warp by shuffles, in a fixed order)."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )

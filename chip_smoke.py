@@ -10,9 +10,10 @@ no network. Phases, each of which raises on failure:
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
 2. build: every kernel source, one nvcc each, all started together, also
    with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
-   registers, spills and C75xx notes of the d 64, 192 and 256 kernels and of
-   the f32 K1, K2 and K3 at every head dim (the register-tiled ones must
-   not spill);
+   registers, spills and C75xx notes of the d 64, 192, 256, 384 and 512
+   kernels and of the f32 K1, K2 and K3 at every head dim (the
+   register-tiled ones must not spill, K3's pair of blocks at d 384 and
+   512 must compile clean);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -30,13 +31,16 @@ no network. Phases, each of which raises on failure:
    s 1000 too, with K1 also at its per-length prefill; K1, K2 and K3 at
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
-   256); the design not shipped at d 64, 192 and 256 (K1, K2 and K3 at d
-   64, K2 at d 192, K1, K2 and K3 at d 256: the 12-warp row split; K1 at
-   d 192: the rows on 8 warps; K3 at d 192: the one pass) against the
-   plain versions and timed in turns with the shipped one at
+   256), K3 at d 384 and 512 at PAIR_EDGES (s 1, 65, 129, 300, 1000,
+   2047, GQA groups 1 to 3, non-causal s 256); the design not shipped at
+   d 64, 192, 256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1,
+   K2 and K3 at d 256: the 12-warp row split; K1 at d 192: the rows on 8
+   warps; K3 at d 192: the one pass; K3 at d 384 and 512: the D split)
+   against the plain versions and timed in turns with the shipped one at
    DESIGN_SHAPES (d 64 at the fine-tuning shape; K1 also at d 256's
    prefill shape), K1 beside SDPA's forward with the blocks an SM holds,
-   the K2 + K3 pair beside SDPA's backward; K1, K2 and K3 in f32 (the
+   the K2 + K3 pair beside SDPA's backward, K3 at d 384 and 512 with the
+   clusters of two blocks a card holds; K1, K2 and K3 in f32 (the
    register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
    ragged lengths around their tiles (d 128 and 512) and at F32_SHAPES
@@ -190,6 +194,8 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "flash_fwd_twin": "K1 flash_fwd (twin 8-warp blocks, d 64)",
                    "dq_rows8": "K2 dq (8 warps, d 64, 192 and 256)",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
+                   "dkv_pair": "K3 dkv (one pass on a cluster of two, d 384 "
+                               "and 512)",
                    "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
@@ -200,22 +206,23 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                5: "twin blocks of 8 warps"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
-               3: "one pass", 4: "keys on 8 warps"}
+               3: "one pass", 4: "keys on 8 warps",
+               6: "one pass on a cluster of two"}
 # the kernel template each design id runs, per kernel
 DESIGN_KERNELS = {
     "flash_fwd": {0: "flash_fwd_wgmma", 1: "flash_fwd_split",
                   2: "flash_fwd_rows8", 5: "flash_fwd_twin"},
     "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8"},
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
-                      4: "dkv_keys8"}}
+                      4: "dkv_keys8", 6: "dkv_pair"}}
 # the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
-# d 192 and 256 in bf16, and all three at d 128 in f32; phase 3 times them
-# beside the shipped ones in turns):
+# d 192 and 256, K3 at d 384 and 512 in bf16, and all three at d 128 in
+# f32; phase 3 times them beside the shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
 # (DESIGN_SHAPES: where phase 3 times both)
-DESIGN_DIMS = (64, 192, 256)
+DESIGN_DIMS = (64, 192, 256, 384, 512)
 # K1's, K2's and K3's f32 designs by the id flash_fwd_f32_design and
 # flash_bwd_f32_design return (csrc/flash_fwd.cu's and csrc/flash_bwd.cu's
 # F32Design), and the head dim at which the other build runs the other one
@@ -380,13 +387,13 @@ KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448)}
 WIDE_STEPS = TRAIN_STEPS
 # the causal shape (b, s, heads, KV heads) each of DESIGN_DIMS is timed at
 # in turns: Llama-3.2-1B's at the fine-tuning shape (phase 8's
-# distillation student) and phase 12's d 192 and d 256 heads at the
-# training shape
+# distillation student) and phase 12's d 192, 256, 384 and 512 heads at
+# the training shape
 DESIGN_SHAPES = {
     64: (FT_BATCH, FT_SEQ, HF_LLAMA32_1B["num_attention_heads"],
          HF_LLAMA32_1B["num_key_value_heads"]),
     **{d: (TRAIN_BATCH, TRAIN_SEQ, *WIDE_HEADS[f"bench_800m_d{d}"][:2])
-       for d in (192, 256)}}
+       for d in (192, 256, 384, 512)}}
 # d 64's K1 and K2 blocks of 128 query rows (over 128- and 64-key tiles)
 # and K3 blocks of 128 keys at their edges, (b, s, heads, KV heads,
 # causal): one row, ragged ends inside and one past a block, s 2047 at
@@ -401,6 +408,18 @@ D64_EDGES = ((2, 1, 4, 4, True), (2, 65, 4, 4, True), (2, 127, 8, 2, True),
 # s 2047, non-causal aligned
 WIDE_EDGES = ((2, 1, True), (2, 65, True), (2, 191, True), (1, 2047, True),
               (2, 512, False))
+# K3's pairs of blocks at d 384 and 512 (dkv_pair: 64 keys a pair, 64-query
+# stages) at their edges, (b, s, heads, KV heads, causal): one row, ragged
+# ends one past a 64-key block and past two, s 300 at GQA groups 1 and 2,
+# s 1000 and 2047, non-causal aligned; groups 1 to 3. Phase 3 holds the
+# shipped K3 there at both dims, phase_wide_designs the other build's
+PAIR_EDGES = ((2, 1, 3, 1, True), (2, 65, 4, 2, True), (2, 129, 3, 1, True),
+              (2, 300, 3, 3, True), (2, 300, 4, 2, True),
+              (2, 1000, 3, 1, True), (1, 2047, 4, 2, True),
+              (2, 256, 3, 1, False))
+PAIR_DIMS = (384, 512)
+# the kernels that must compile with no spill and no C75xx note (phase 2)
+CLEAN_KERNELS = ("dkv_pair",)
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
 # rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
@@ -517,9 +536,10 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
-    port builds it, and with the other designs (bf16 at d 64, 192 and
-    256, f32 at d 128; phase 3 times both). Raises if a register-tiled f32
-    kernel spills."""
+    port builds it, and with the other designs (bf16 at d 64, 192, 256,
+    384 and 512, f32 at d 128; phase 3 times both). Raises if a
+    register-tiled f32 kernel spills, or a kernel of CLEAN_KERNELS spills
+    or has its wgmmas serialised (a C75xx note)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
@@ -564,8 +584,12 @@ def phase_build() -> None:
                      f"{', '.join(n['notes']) or 'none'}")
                 if kernel in F32_NO_SPILL and n["spill_stores"]:
                     spilled.append(f"{kernel}<{d}>")
+                if kernel in CLEAN_KERNELS and (n["spill_stores"]
+                                                or n["notes"]):
+                    spilled.append(f"{kernel}<{d}> ({', '.join(n['notes'])})")
     if spilled:
-        raise AssertionError(f"register-tiled f32 kernels spill: {spilled}")
+        raise AssertionError(f"kernels that must compile clean spill or "
+                             f"serialise their wgmmas: {spilled}")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -980,6 +1004,10 @@ def phase_bwd_kernels() -> dict:
         ("d192 gqa4 s300 bf16", 2, 300, 8, 2, 192, torch.bfloat16, True),
         ("d192 non-causal s512 bf16", 2, 512, 8, 4, 192, torch.bfloat16,
          False),
+        # K3's pairs of blocks at d 384 and 512 (dkv_pair) at their edges
+        *((f"d{d} s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, d,
+           torch.bfloat16, causal)
+          for d in PAIR_DIMS for b, s, h, hkv, causal in PAIR_EDGES),
         # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
         # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
         # 8-row query tiles at d 512) one row short of and one past their
@@ -1204,7 +1232,8 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 
 def phase_wide_designs() -> dict:
-    """At d 64, 192 and 256 some kernels have two designs each. K1 at d
+    """At d 64, 192, 256, 384 and 512 some kernels have two designs each.
+    K1 at d
     64, 192 and 256: the row split (flash_fwd_wgmma: 12-warp blocks of
     128 rows, 64 a consumer, a producer warpgroup) and, at d 192 and 256,
     the rows on 8 warps (flash_fwd_rows8: the same rows without the
@@ -1216,7 +1245,12 @@ def phase_wide_designs() -> dict:
     8-warp designs (dq_rows8: the same rows without the producer;
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
     other, one pass; dkv_keys8 at d 64: 128 keys a block, 64 a warpgroup,
-    each holding dK and dV of its keys, one pass). The port ships, per
+    each holding dK and dV of its keys, one pass); K3 at d 384 and 512:
+    the D split (dkv_split: 64 keys a block, the output's columns split
+    between the warpgroups, two passes) and the one pass on a cluster of
+    two (dkv_pair: dkv_onepass on each block of a pair, each holding half
+    of the head dim, the score products' partial sums exchanged between
+    the pair's shared memories). The port ships, per
     kernel and head dim, the one its sources name (``flash_fwd_design``,
     ``flash_bwd_dq_design``, ``flash_bwd_dkv_design`` in each library);
     the other is built with -DFLASH_OTHER_DESIGNS=1 (phase 2). At each
@@ -1225,11 +1259,13 @@ def phase_wide_designs() -> dict:
     the plain versions (K2 and K3 also twice on one input, bitwise), then
     timed in turns with the shipped ones on the same inputs (shipped,
     other, other, shipped), K1 beside SDPA's forward with the blocks an SM
-    holds of each, K2 + K3 as a pair beside SDPA's backward; the other K1
-    at d 192 and 256 and K2 at d 192 (WIDE_EDGES), and the other K1, K2
-    and K3 at d 64 (D64_EDGES), are also held against the plain versions
-    at ragged lengths, GQA groups and non-causal. Returns {head dim:
-    {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
+    holds of each, K2 + K3 as a pair beside SDPA's backward, K3 at d 384
+    and 512 with the clusters of two a card holds of each (-1: not a
+    cluster kernel); the other K1 at d 192 and 256 and K2 at d 192
+    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES) and the
+    other K3 at d 384 and 512 (PAIR_EDGES) are also held against the plain
+    versions at ragged lengths, GQA groups and non-causal. Returns {head
+    dim: {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
     )
@@ -1297,6 +1333,15 @@ def phase_wide_designs() -> dict:
                  f"({n['other_kernel']}, {n['other_blocks_per_sm']}) "
                  f"{n['other_ms']:.4f} ms, sdpa forward "
                  f"{n['library_ms']:.4f} ms ({_sdpa_backend(q, k, v)})")
+        if d in PAIR_DIMS:
+            # K3: the clusters of two blocks a card holds of each build's
+            n = out[d]["flash_bwd_dkv"]
+            for which in libs:
+                n[f"{which}_clusters"] = libs[which][
+                    "flash_bwd"].flash_bwd_dkv_clusters(d)
+            _log(f"K3 d{d}: clusters of two a card holds: shipped "
+                 f"({n['shipped_kernel']}) {n['shipped_clusters']}, other "
+                 f"({n['other_kernel']}) {n['other_clusters']}")
         # K2 + K3: what SDPA's one backward call computes
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
@@ -1354,15 +1399,18 @@ def phase_wide_designs() -> dict:
             _log(f"kernel {name}: max abs err {err:.3e}, lse {lerr:.3e}")
             out[d]["flash_fwd"]["other_max_abs_err"] = max(
                 out[d]["flash_fwd"]["other_max_abs_err"], err)
-        # K2's and K3's other design at d 64 at D64_EDGES, and K2's at d 192
-        # at WIDE_EDGES (phase 3 holds the shipped ones there), each twice
-        # on one input
+        # K2's and K3's other design at d 64 at D64_EDGES, K2's at d 192
+        # at WIDE_EDGES and K3's at d 384 and 512 at PAIR_EDGES (phase 3
+        # holds the shipped ones there), each twice on one input
         h, hkv, _ = WIDE_HEADS["bench_800m_d192"]
         bwd_edges = [(b, s, h, hkv, 192, causal, ("flash_bwd_dq",))
                      for b, s, causal in WIDE_EDGES]
         bwd_edges += [(b, s, h, hkv, 64, causal,
                        ("flash_bwd_dq", "flash_bwd_dkv"))
                       for b, s, h, hkv, causal in D64_EDGES]
+        bwd_edges += [(b, s, h, hkv, d, causal, ("flash_bwd_dkv",))
+                      for d in PAIR_DIMS
+                      for b, s, h, hkv, causal in PAIR_EDGES]
         for b, s, h, hkv, d, causal, names in bwd_edges:
             q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                               causal)
@@ -4922,8 +4970,9 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     """The wide head dims' ``kernels`` entries (phase 12), one per kernel
     and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
     phase 12's launches per path (``wide[d][path][kernel]``) and
-    ``phase_wide_designs``' (``designs[d][kernel]``): at d 192 and 256
-    (K1, K2, K3) the other design's numbers beside the shipped one's,
+    ``phase_wide_designs``' (``designs[d][kernel]``): wherever the two
+    builds run different kernels (K1, K2 and K3 at d 192 and 256, K3 at
+    d 384 and 512) the other design's numbers beside the shipped one's,
     K2's and K3's with the pair's sum beside SDPA's backward; the
     kernel-only dims (d 320, 448: no model, so no launches on a main path)
     under the d 512 entries."""
@@ -4946,8 +4995,9 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
             }
             if "pair_ms" in n:
                 entry["pair_ms"] = n["pair_ms"]
-            if name in designs.get(d, {}):
-                entry["designs_in_turns"] = designs[d][name]
+            both = designs.get(d, {}).get(name)
+            if both and both["shipped_kernel"] != both["other_kernel"]:
+                entry["designs_in_turns"] = both
             if d == 512:
                 entry["more_shapes"] = {
                     other: {key: numbers[name]["wide"][other][key]
@@ -5041,7 +5091,7 @@ def main() -> int:
     _timed("build", phase_build)
     numbers = {"flash_fwd": _timed("kernels K1", phase_kernels),
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
-    designs = _timed("kernels d 64, 192 and 256 designs", phase_wide_designs)
+    designs = _timed("kernels d 64 to 512 designs", phase_wide_designs)
     f32_designs = _timed("kernels f32 designs", phase_f32_designs)
     F32_PATHS.clear()  # the f32 backward's launches on the paths below
     serving = _timed("serving", phase_serving)

@@ -4,13 +4,14 @@
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
 K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_f32`` at
 d 128 in f32) and K3 (``dkv_keys8`` at d 64, ``dkv_onepass`` at d 192 and
-256, ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time
-them against the committed kernels on one CUDA card.
+256, ``dkv_pair`` at d 384 and 512, ``dkv_f32`` at d 128 in f32, all in
+``csrc/flash_bwd.cu``) and time them against the committed kernels on one
+CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
-``KERNEL_HEADS`` whose variants to run, e.g. ``dkv_keys8 'dq_rows8<64>'``;
-all without arguments). Each
+``KERNEL_HEADS`` whose variants to run, e.g. ``'dkv_pair<512>'
+'dkv_pair<384>'``; all without arguments). Each
 variant is the committed source of
 the kernel it edits with the text edits listed in ``VARIANTS``, each
 made in the source or in a header beside it (an edit whose text is not
@@ -53,6 +54,61 @@ KEYS8_STAGES = ("  static constexpr int STAGES = FIT < 4 ? FIT : 4;\n"
 F32_K1_TILES = ("  static constexpr int BK = D <= 256 ? 64 : 32;\n"
                 "  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : "
                 "1;\n")
+
+# K3 at d 384 and 512 (dkv_pair): its stage size, stages, the prefetch,
+# and the design ids there (the pair ships; dkv_split, the other build's)
+PAIR_BQ = "  static constexpr int BQ = 64;     // queries a stage\n"
+PAIR_STAGES = "  static constexpr int STAGES = D == 384 ? 3 : 2;  // Q and dO stages\n"
+PAIR_PREFETCH = "  static constexpr bool PREFETCH = D == 384;\n"
+# the prefetch on two stages reads the next tile before the exchange
+# barrier that a deferred refill waits for: the first warp then waits for
+# the other warpgroup's release instead of deferring
+PAIR_PREFETCH_WAIT = (
+    "    if (threadIdx.x < 32 && m + STAGES < tiles) {\n      if (__shfl_sync(",
+    "    if (threadIdx.x < 32 && m + STAGES < tiles) {\n"
+    "      if (L::PREFETCH && STAGES == 2)\n"
+    "        mbar_wait(q_empty + 8 * (m % STAGES), (m / STAGES) & 1);\n"
+    "      if (__shfl_sync(")
+# the block's arrival on the peer's `freed` barrier, behind both
+# products' issue (a cluster-scope release), by one thread (ARRIVER) or
+# by every warp; the barrier's count for every warp
+PAIR_ARRIVE = """    if (next) {
+      bar_sync(2, 2 * WG);
+      if (threadIdx.x == L::ARRIVER) mbar_arrive_remote(freed_peer);
+    }
+"""
+PAIR_WARP_ARRIVE = PAIR_ARRIVE.replace(
+    "      bar_sync(2, 2 * WG);\n      if (threadIdx.x == L::ARRIVER)",
+    "      __syncwarp();\n      if (t % 32 == 0)")
+PAIR_WARP_COUNT = ("    mbar_init(freed, 1);  // the peer's ARRIVER\n",
+                   "    mbar_init(freed, 2 * WG / 32);\n")
+PAIR_ARRIVER = "  static constexpr int ARRIVER = D == 384 ? 0 : 32;\n"
+PAIR_PRODUCT = ("    // dV[:, half] += P^T dO[:, half] (warpgroup 0) or dK[:, half] +=\n"
+                "    // dS^T Q[:, half] (warpgroup 1)\n")
+# the prefetch issued on the last stage too (its own scores again), and
+# its result taken only while there is a next stage
+PAIR_PREFETCH_EVERY = (
+    "    if constexpr (L::PREFETCH)\n      if (next) scores(sn, n + 1);\n",
+    "    if constexpr (L::PREFETCH) scores(sn, next ? n + 1 : n);\n")
+PAIR_PREFETCH_TAKE = ("    if constexpr (L::PREFETCH) {\n      fence_regs(sn);\n",
+                      "    if (L::PREFETCH && next) {\n      fence_regs(sn);\n")
+PAIR_DESIGN = ("         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
+               ": kPair)\n")
+
+
+def pair_at(d: int, **edits) -> list:
+    """dkv_pair's constants at head dim ``d`` only (the other dim's
+    instance keeps its own): ``bq``, ``stages``, ``prefetch``."""
+    texts = {"bq": PAIR_BQ, "stages": PAIR_STAGES, "prefetch": PAIR_PREFETCH}
+    out = []
+    for key, value in edits.items():
+        text = texts[key]
+        old = text.split("= ", 1)[1].split(";")[0]
+        new = str(value).lower() if isinstance(value, bool) else str(value)
+        out.append((text, text.replace(f"= {old};",
+                                       f"= D == {d} ? {new} : {old};")))
+    return out
+
 
 # K1 at d 64: flash_fwd_twin's tiles and blocks a SM; the design ids at d
 # 64 (the twin blocks ship; the row split, or the d 256 design's rows on
@@ -1013,20 +1069,85 @@ for _bk in (64, 80):
         "without the turns",
         [*fwd_d64_rows8(_bk, 2), *VARIANTS["no_turns"][1]], "flash_fwd_twin",
         "flash_fwd_rows8")
+# K3 at d 384 and 512: dkv_pair's variants, and dkv_split (the other
+# build's design) timed in the same turns
+VARIANTS.update({
+    "pair_d384_plain": (
+        "d 384 K3 as first built: two stages, no prefetch (but one receive "
+        "buffer)",
+        pair_at(384, stages=2, prefetch=False), "dkv_pair<384>"),
+    "pair_d384_plain_3_stages": (
+        "d 384 K3: three stages without the prefetch",
+        pair_at(384, prefetch=False), "dkv_pair<384>"),
+    "pair_d384_prefetch_2_stages": (
+        "d 384 K3: the prefetch on two stages",
+        [*pair_at(384, stages=2), PAIR_PREFETCH_WAIT], "dkv_pair<384>"),
+    "pair_d384_bq32": (
+        "d 384 K3: 32-query stages (m64n32 partials, 8 KB a warpgroup to "
+        "exchange), 4, no prefetch",
+        pair_at(384, bq=32, stages=4, prefetch=False), "dkv_pair<384>"),
+    "pair_d384_split": (
+        "d 384 K3 on the D split (dkv_split<384>: two passes, 32-query "
+        "stages; the other build's design)",
+        [(PAIR_DESIGN, "         : d == 384 ? kDSplit\n"
+                       "         : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
+                       ": kPair)\n")],
+        "dkv_pair<384>", "dkv_split"),
+    "pair_d512_bq32": (
+        "d 512 K3: 32-query stages, 4",
+        pair_at(512, bq=32, stages=4), "dkv_pair<512>"),
+    "pair_d512_prefetch": (
+        "d 512 K3: the next stage's partial in flight during the exchange "
+        "(32 more registers a thread beside the 128 of the accumulator)",
+        [*pair_at(512, prefetch=True), PAIR_PREFETCH_WAIT], "dkv_pair<512>"),
+    **{f"pair_d{_d}_warp_arrivals": (
+        f"d {_d} K3: every warp arrives on the peer's freed barrier once it "
+        "has issued its product (8 arrivals, no named barrier)",
+        [PAIR_WARP_COUNT, (PAIR_ARRIVE, PAIR_WARP_ARRIVE)],
+        f"dkv_pair<{_d}>") for _d in (384, 512)},
+    **{f"pair_d{_d}_warp_arrivals_first": (
+        f"d {_d} K3: every warp arrives on the peer's freed barrier before "
+        "it issues its product",
+        [PAIR_WARP_COUNT, (PAIR_ARRIVE, ""),
+         (PAIR_PRODUCT, PAIR_WARP_ARRIVE + PAIR_PRODUCT)],
+        f"dkv_pair<{_d}>") for _d in (384, 512)},
+    **{f"pair_d{_d}_arriver_{_x}": (
+        f"d {_d} K3: the arrival on the peer's freed barrier by thread {_x}",
+        [(PAIR_ARRIVER, PAIR_ARRIVER.replace(
+            "D == 384 ? 0 : 32", f"D == {_d} ? {_x} : D == 384 ? 0 : 32"))],
+        f"dkv_pair<{_d}>") for _d, _x in ((384, 32), (512, 0))},
+    "pair_d384_prefetch_every_stage": (
+        "d 384 K3: the prefetch issued on the last stage too (that stage's "
+        "scores again, unused)",
+        [PAIR_PREFETCH_EVERY], "dkv_pair<384>"),
+    "pair_d384_prefetch_taken_if_next": (
+        "d 384 K3: the prefetch's result taken only while there is a next "
+        "stage (C7515)",
+        [PAIR_PREFETCH_TAKE], "dkv_pair<384>"),
+    "pair_d512_split": (
+        "d 512 K3 on the D split (dkv_split<512>: two passes, 16-query "
+        "stages; the other build's design)",
+        [(PAIR_DESIGN, "         : d == 512 ? kDSplit\n"
+                       "         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit "
+                       ": kPair)\n")],
+        "dkv_pair<512>", "dkv_split"),
+})
 # K2's SPLIT flag off at d 192
 VARIANTS["dq_d192_one_commit"] = (
     "d 192 K2: S and dP in one commit group, waited for together (SPLIT "
     "off), as at d 64 and 256",
     [(DQ_SPLIT, DQ_SPLIT.replace("D == 192", "false"))], "dq_rows8<192>")
 # the heads (query, KV, head dim) each edited kernel is checked and timed
-# at: bench_800m's, phase 12's bench_800m_d256 and Llama-3.2-1B's (a
-# kernel template at a head dim other than its first is keyed
+# at: bench_800m's, phase 12's and Llama-3.2-1B's (a kernel template at a
+# head dim other than its first, or timed at two, is keyed
 # "<kernel><<d>>", quoted on the command line)
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_rows8<64>": (32, 8, 64), "dkv_keys8": (32, 8, 64),
                 "dkv_onepass": (6, 2, 256), "flash_fwd_rows8": (6, 2, 256),
                 "flash_fwd_twin": (32, 8, 64),
                 "dq_rows8<192>": cs.WIDE_HEADS["bench_800m_d192"],
+                "dkv_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
+                "dkv_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128)}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
@@ -1046,6 +1167,8 @@ KERNEL_SHAPES = {
                         *KERNEL_HEADS["flash_fwd_twin"])],
     "dq_rows8<192>": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                        *KERNEL_HEADS["dq_rows8<192>"])],
+    **{key: [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[key])]
+       for key in ("dkv_pair<512>", "dkv_pair<384>")},
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
@@ -1203,6 +1326,11 @@ def main() -> int:
                 cs._log(f"variant {name}: K1 at d{d} holds "
                         f"{_build._libs[source].flash_fwd_blocks_per_sm(d)} "
                         "blocks a SM")
+            if kind == "dkv" and dtype == torch.bfloat16:
+                n = _build._libs[source].flash_bwd_dkv_clusters(d)
+                if n >= 0:
+                    cs._log(f"variant {name}: K3 at d{d} holds {n} clusters "
+                            "of two blocks")
             ragged = 1000 if dtype == torch.bfloat16 else 129
             # a ragged length at the heads of each timed shape
             heads = dict.fromkeys(shape[2:] for shape in timed)

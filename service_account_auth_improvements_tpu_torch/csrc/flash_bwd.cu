@@ -45,9 +45,11 @@
 // mbarriers, and two consumer warpgroups run every product on wgmma with
 // the scores in registers; see BwdDesign below and the notes above
 // `dq_wgmma` (d 128), `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64, 192
-// and 256), `dkv_keys8` (d 64) and `dkv_onepass` (d 256) and `dq_split`
-// and `dkv_split` (d 320 to 512, the output's D columns split between the
-// consumers).
+// and 256), `dkv_keys8` (d 64) and `dkv_onepass` (d 256), `dq_split` and
+// `dkv_split` (d 320 to 512, the output's D columns split between the
+// consumers; K3 at d 320 and 448) and `dkv_pair` (K3 at d 384 and 512:
+// dkv_onepass on a cluster of two blocks, each holding half of the head
+// dim).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
@@ -115,22 +117,28 @@ constexpr int SMEM_MAX = 232448;
 //              a consumer warpgroup, a producer warpgroup (K2 at d 128,
 //              K3 at d 128 and 192);
 //   kDSplit    dq_split, dkv_split: 8-warp blocks of 64 rows or keys, the
-//              output's columns split between the warpgroups (d 320 to 512);
+//              output's columns split between the warpgroups (d 320 to 512;
+//              K3 at d 320 and 448);
 //   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 64, 192,
 //              256);
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
 //              and warpgroup 1 dK, one pass (d 256);
 //   kKeys8     dkv_keys8: 8-warp blocks of 128 keys, 64 a warpgroup, each
-//              owning dK and dV of its keys, one pass (d 64).
-// At d 64, 192 and 256 each of K2 and K3 ships the faster of two designs
-// on the H100 (chip_smoke.py's phase_wide_designs, in turns on one card;
-// PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
+//              owning dK and dV of its keys, one pass (d 64);
+//   kPair      dkv_pair: dkv_onepass on a cluster of two 8-warp blocks,
+//              each holding half of the head dim (d 384 and 512).
+// At d 64, 192, 256, 384 and 512 each of K2 and K3 ships the faster of two
+// designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
+// card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
 // split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
-// dq_rows8 and dkv_onepass at d 256. A build with -DFLASH_OTHER_DESIGNS=1
-// takes the other design at each (and K1's other design at d 64, 192 and
-// 256, and the scalar f32 kernels at d 128: F32Design).
+// dq_rows8 and dkv_onepass at d 256, and K3's dkv_pair at d 384 and 512
+// (K2 has one design there, dq_split). A build with
+// -DFLASH_OTHER_DESIGNS=1 takes the other design at each (K3's dkv_split
+// at d 384 and 512; K1's other design at d 64, 192 and 256, and the scalar
+// f32 kernels at d 128: F32Design). The id 5 is K1's (FwdDesign's kTwin).
 enum BwdDesign {
-  kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4
+  kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4,
+  kPair = 6
 };
 
 #ifndef FLASH_OTHER_DESIGNS
@@ -147,7 +155,8 @@ constexpr int dkv_design(int d) {
          : d <= 128 ? kRowSplit
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
-                    : kDSplit;
+         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+                                : kDSplit;
 }
 
 // K2, bf16: dQ for one (b, head, 128-row query tile), on wgmma.
@@ -458,7 +467,8 @@ struct DkvArgs {
 // delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
 // (rows x 128 bytes). A stage holds BQ query rows: 128 in 2 stages up to
 // d 128, 32 above in as many stages as fit (at most 4). At d 256 K3
-// ships as dkv_onepass and from d 320 it is dkv_split (BwdDesign).
+// ships as dkv_onepass, at d 320 and 448 as dkv_split and at d 384 and 512
+// as dkv_pair (BwdDesign).
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = D <= 128 ? 128 : 32;  // query rows per stage
@@ -757,7 +767,9 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 
 // ------------------------------------------------ bf16: the D-split kernels
 //
-// From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>`. dq_wgmma and
+// From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>` (but at d 384 and
+// 512 K3 ships as dkv_pair, below, and dkv_split runs there only in the
+// -DFLASH_OTHER_DESIGNS=1 build). dq_wgmma and
 // dkv_wgmma hold a D / 2-register accumulator a thread (256 at d 512, past
 // the 255 a thread may have), and their resident tiles (Q and dO of 128
 // rows, K and V of 128 keys: 256 KB at d 512) overflow 227 KB. The split
@@ -1473,6 +1485,335 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
               ikv * (c == 0 ? a.dv_sh : a.dk_sh);
   dkv_store<D>(out, c == 0 ? a.dv_ss : a.dk_ss, acc, c == 0 ? 1.f : a.scale,
                key0, key1, a.sk, tq);
+}
+
+// ------------------------------------------------ bf16 at d 384, 512: clusters
+//
+// K3, `dkv_pair<D>` (replaces `_dkv_kernel` in the JAX package's
+// ops/flash_attention.py): dkv_onepass at D / 2 on each block of a cluster
+// of two. dkv_onepass cannot run at d 384 or 512 as it is: its accumulator
+// would be 192 or 256 registers a thread, and K and V with two Q and dO
+// stages at the full head dim overflow 227 KB. dkv_split, the design it
+// replaces here, keeps the whole head dim in one block and so streams
+// 16- (d 512) or 32-query (d 384) stages, forms S^T twice (a pass for dV,
+// one for dK: five products) and exchanges score halves between its
+// warpgroups on every stage, on m64n8 or m64n16 score products.
+//
+// A pair (two blocks on neighbouring SMs, launched as one cluster) owns 64
+// keys of one (batch, KV head); the block of rank r holds columns
+// [r D/2, (r + 1) D/2) of K, V, Q, dO, dK and dV (each block's tensor maps
+// and output pointers start at its half: DkvPairArgs). Within a block it
+// is dkv_onepass at D / 2 (d 512: dkv_onepass<256>'s registers and
+// shared memory; d 384: dkv_onepass<192>'s), with one step added: the
+// score products over half the head dim give partial sums, so per stage
+//   t = A_c[:, half] B_c[:, half]^T   m64n64k16 x D/32: warpgroup 0 the
+//                   partial S^T = K Q^T, warpgroup 1 the partial dP^T
+//                   = V dO^T
+//   each warpgroup stores its t, in fragment order, into its twin
+//   warpgroup's receive buffer in the peer block (st.async, 16 bytes a
+//   store, completing the bytes of the peer's receive mbarrier), waits
+//   for the peer's t in its own receive buffer and adds it: one f32 add
+//   per element, the same two values on both blocks, so IEEE addition
+//   (commutative) gives both blocks the same S^T and dP^T bit for bit
+//   then, as dkv_onepass: P^T (warpgroup 0 writes it over the receive
+//   buffer it has just read, one named barrier a stage), dS^T on
+//   warpgroup 1, dV[:, half] += P^T dO[:, half] on warpgroup 0 and
+//   dK[:, half] += dS^T Q[:, half] on warpgroup 1.
+// Both warpgroups read P^T, so the block arrives on the peer's `freed`
+// barrier only once both have issued their dV/dK product (all reads of
+// its receive buffers done: a named barrier of both, then one thread's
+// arrival); the peer waits on it before it stores the next stage's
+// partials over them. Four
+// products a stage, each formed once; Q and dO streamed once; the
+// rounding rules (P to dO's dtype, dS to Q's, dK scaled once at the end)
+// are dkv_onepass's. A cluster barrier at the start makes each block's
+// mbarriers visible to its peer before the first remote store, and one at
+// the end keeps both resident until neither touches the other's shared
+// memory. Every sum runs in a fixed order in one pair: deterministic, no
+// atomics.
+// Bound on an H100: operations (four products, as dkv_onepass); what the
+// pair adds is the exchange, 32 KB each way per stage between two SMs, in
+// series with the tensor work. At d 384 the next stage's partial is
+// issued as soon as this stage's is sent (PREFETCH: 32 registers more, on 3
+// stages so its Q and dO are in ahead of it), so the next stage's tensor
+// work overlaps this one's exchange; at d 512 its 32 registers do not fit
+// beside the 128 of the accumulator (PERF.md §6; kernel_variants.py times
+// the alternatives: two stages, a third stage without the prefetch,
+// 32-query stages, the prefetch at d 512, where and by whom the arrival
+// on `freed` is made).
+
+// Shared memory: dkv_onepass's at D / 2 (K and V halves resident, the Q and
+// dO stages, their lse and delta), then the receive buffer, holding the
+// two warpgroups' 64 x BQ f32 partials (16 KB each at BQ 64), and the
+// mbarriers: kv_full, q_full[S], q_empty[S] (as DkvSplit, so
+// dkv_stage_load fills them), recv[2] (the peer's partials have landed)
+// and freed (the peer has read this block's).
+template <int D>
+struct DkvPair {
+  static constexpr int DH = D / 2;  // head-dim columns a block holds
+  static constexpr int BK = 64;     // keys a pair owns
+  static constexpr int BQ = 64;     // queries a stage
+  // PREFETCH: the next stage's partial issued as soon as this one's is
+  // sent, in flight during the exchange (32 more registers a thread: at
+  // d 384, where a third stage keeps its tile in ahead of it; beside d
+  // 512's 128 accumulator registers it hit 255 with an injected wait and
+  // lost)
+  static constexpr bool PREFETCH = D == 384;
+  static constexpr int STAGES = D == 384 ? 3 : 2;  // Q and dO stages
+  // the thread that arrives on the peer's `freed` barrier (its release at
+  // cluster scope stalls its warp; which warp's stall costs least differs
+  // by dim, kernel_variants.py)
+  static constexpr int ARRIVER = D == 384 ? 0 : 32;
+  static constexpr int KV_BYTES = BK * DH * 2, KV_CB = BK * 128;
+  static constexpr int QT_BYTES = BQ * DH * 2, QT_CB = BQ * 128;
+  static constexpr int ROW_BYTES = BQ * 4;
+  static constexpr int XB = BQ / 2 * WG * 4;  // a warpgroup's partial, bytes
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
+  static constexpr int X_OFF = DL_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XB;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES + 3) + 1024;
+  static_assert(DH % 64 == 0 && DH <= 256, "dK, dV: 256 columns a block");
+  static_assert(BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// Each block's arguments: DkvArgs over its half of the head dim.
+struct DkvPairArgs {
+  DkvArgs half[2];
+};
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dkv_pair(const __grid_constant__ DkvPairArgs pa) {
+  using namespace hopper;
+  using L = DkvPair<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES, DH = L::DH;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
+  const DkvArgs& a = pa.half[rank];
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t kv_full = bar, q_full = bar + 8,
+                 q_empty = q_full + 8 * STAGES;
+  const uint32_t recv = q_empty + 8 * STAGES, freed = recv + 16;
+
+  // heaviest key tiles (the first, under causal masking) first, as
+  // dkv_onepass; the pair's index is its cluster's
+  const int pair = static_cast<int>(blockIdx.x) / 2;
+  const int hb = a.hkv * a.batch;
+  const int ik = pair / hb;
+  const int ikv = pair % hb % a.hkv;
+  const int ib = pair % hb / a.hkv;
+  const int k0 = ik * L::BK;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int nqt = nq - iq0;
+  const int tiles = a.h / a.hkv * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 32);  // the first warp's lanes
+      mbar_init(q_empty + 8 * s, 2 * WG);
+    }
+    mbar_init(recv, 1);
+    mbar_init(recv + 8, 1);
+    mbar_init(freed, 1);  // the peer's ARRIVER
+    if (tiles > 0) {  // the bytes of the peer's first stage
+      mbar_arrive_expect_tx(recv, L::XB);
+      mbar_arrive_expect_tx(recv + 8, L::XB);
+    }
+    fence_mbar_init();
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  if (threadIdx.x < 32) {  // K and V halves, and the first STAGES stages
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      tma_load_5d(base, &a.tk, kv_full, 0, k0, 0, ikv, ib);
+      tma_load_5d(base + L::V_OFF, &a.tv, kv_full, 0, k0, 0, ikv, ib);
+    }
+    for (int j = 0; j < STAGES && j < tiles; ++j)
+      dkv_stage_load<L>(a, base, smem, j, tiles, nqt, iq0, ikv, ib,
+                        threadIdx.x);
+  }
+
+  const int c = threadIdx.x / WG;  // 0: dV, 1: dK
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int key0 = k0 + 16 * w + g, key1 = key0 + 8;
+  // this warpgroup's operands, by address, as dkv_onepass
+  const uint32_t a_addr = base + c * L::V_OFF;
+  const uint32_t b_off = c * (L::DO_OFF - L::Q_OFF);
+  const uint32_t y_off = (1 - c) * (L::DO_OFF - L::Q_OFF);
+  // where this warpgroup's partial goes in the peer (its twin's receive
+  // buffer and barrier), and the peer's `freed` barrier
+  const uint32_t rx_peer = cluster_map(base + L::X_OFF + c * L::XB, peer);
+  const uint32_t recv_peer = cluster_map(recv + 8 * c, peer);
+  const uint32_t freed_peer = cluster_map(freed, peer);
+  float acc[DH / 2];
+#pragma unroll
+  for (int r = 0; r < DH / 2; ++r) acc[r] = 0.f;
+  int pending = -1;  // the first warp: a stage whose next tile is still due
+
+  // stage m's Q and dO are read by both warpgroups once each has arrived:
+  // the first warp loads the stage's next tile now if the other
+  // warpgroup has released it too (lane 0 decides for the warp), else
+  // past the next exchange barrier (PREFETCH reads stage m + 2 in stage
+  // m + 1, before that barrier: hence its third stage)
+  auto release = [&](int m) {
+    mbar_arrive(q_empty + 8 * (m % STAGES));
+    if (threadIdx.x < 32 && m + STAGES < tiles) {
+      if (__shfl_sync(0xffffffffu,
+                      mbar_test(q_empty + 8 * (m % STAGES),
+                                (m / STAGES) & 1),
+                      0))
+        dkv_stage_load<L>(a, base, smem, m + STAGES, tiles, nqt, iq0, ikv,
+                          ib, t);
+      else
+        pending = m;
+    }
+  };
+
+  // this block's half of S^T (warpgroup 0) or dP^T (warpgroup 1) of
+  // stage m, issued
+  auto scores = [&](float (&out)[BQ / 2], int m) {
+    mbar_wait(q_full + 8 * (m % STAGES), (m / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BQ, DH / 16, L::KV_CB, L::QT_CB>(
+        out, desc_sw128(a_addr, 16, 1024),
+        desc_sw128(base + L::Q_OFF + (m % STAGES) * L::QT_BYTES + b_off, 16,
+                   1024));
+    wgmma_commit();
+  };
+
+  mbar_wait(kv_full, 0);
+  float st[BQ / 2];
+#pragma unroll 1
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % STAGES;
+    const uint32_t ph = n & 1;
+    const int q0 = (iq0 + n % nqt) * BQ;
+    const uint32_t q_addr = base + L::Q_OFF + s * L::QT_BYTES;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::L_OFF + s * L::ROW_BYTES);
+    const float* dl =
+        reinterpret_cast<const float*>(smem + L::DL_OFF + s * L::ROW_BYTES);
+    const bool need_mask = (a.causal && q0 < k0 + L::BK) || q0 + BQ > a.sq;
+    if (!L::PREFETCH || n == 0) scores(st, n);  // PREFETCH: in st already
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    // to the peer, once it has read the last stage's: register chunk k of
+    // thread t to 16-byte slot k * 128 + t
+    mbar_wait_cluster(freed, ph ^ 1);
+#pragma unroll
+    for (int k = 0; k < BQ / 8; ++k)
+      st_async_16(rx_peer + (k * WG + t) * 16, st[4 * k], st[4 * k + 1],
+                  st[4 * k + 2], st[4 * k + 3], recv_peer);
+    // PREFETCH: the next stage's partial, meanwhile (taken into st below
+    // on every stage, unused after the last: taking it only while there
+    // is a next stage serialises the wgmmas, C7515)
+    const bool next = n + 1 < tiles;
+    float sn[L::PREFETCH ? BQ / 2 : 1];
+    if constexpr (L::PREFETCH)
+      if (next) scores(sn, n + 1);
+    // from the peer: its half, added to this one's
+    mbar_wait_cluster(recv + 8 * c, ph);
+    if (t == 0 && next)  // the bytes of the next stage
+      mbar_arrive_expect_tx(recv + 8 * c, L::XB);
+    const float4* in =
+        reinterpret_cast<const float4*>(smem + L::X_OFF + c * L::XB);
+#pragma unroll
+    for (int k = 0; k < BQ / 8; ++k) {
+      const float4 v = in[k * WG + t];
+      st[4 * k] += v.x;
+      st[4 * k + 1] += v.y;
+      st[4 * k + 2] += v.z;
+      st[4 * k + 3] += v.w;
+    }
+
+    // P^T in dO's dtype, from warpgroup 0's S^T, over warpgroup 0's receive
+    // buffer (just read, by the same threads): pair r of the A fragments
+    // (dkv_pack's order) is word r % 4 of slot (r / 4) * 128 + t.
+    // Warpgroup 1's arithmetic on dP^T here is discarded.
+    uint4* pbuf = reinterpret_cast<uint4*>(smem + L::X_OFF);
+    {
+      float p[BQ / 2];
+      dkv_probs<BQ>(p, st, ls, a, q0, key0, key1, tq, need_mask);
+      if (c == 0) {
+#pragma unroll
+        for (int k = 0; k < BQ / 16; ++k)
+          pbuf[k * WG + t] = make_uint4(
+              pack_bf16x2(p[8 * k], p[8 * k + 1]),
+              pack_bf16x2(p[8 * k + 2], p[8 * k + 3]),
+              pack_bf16x2(p[8 * k + 4], p[8 * k + 5]),
+              pack_bf16x2(p[8 * k + 6], p[8 * k + 7]));
+      }
+    }
+    bar_sync(1, 2 * WG);
+    if (pending >= 0) {  // past the barrier both warpgroups released it
+      mbar_wait(q_empty + 8 * (pending % STAGES), (pending / STAGES) & 1);
+      dkv_stage_load<L>(a, base, smem, pending + STAGES, tiles, nqt, iq0,
+                        ikv, ib, t);
+      pending = -1;
+    }
+
+    // f = P^T (warpgroup 0) or dS^T = P^T (dP^T - delta), P rounded to
+    // dO's dtype first and dS to Q's by the packing (warpgroup 1); pair
+    // r = 4 k + e is f[k][e]
+    uint32_t f[BQ / 16][4];
+#pragma unroll
+    for (int k = 0; k < BQ / 16; ++k) {
+      const uint4 v = pbuf[k * WG + t];
+      const uint32_t pk4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 2 * k + e / 2, h = e % 2;
+        const float2 dj =
+            *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tq);
+        const uint32_t pk = pk4[e];
+        const float p0 = __uint_as_float(pk << 16);
+        const float p1 = __uint_as_float(pk & 0xffff0000u);
+        const uint32_t ds = pack_bf16x2(p0 * (st[4 * j + 2 * h] - dj.x),
+                                        p1 * (st[4 * j + 2 * h + 1] - dj.y));
+        f[k][e] = c == 0 ? pk : ds;
+      }
+    }
+    // dV[:, half] += P^T dO[:, half] (warpgroup 0) or dK[:, half] +=
+    // dS^T Q[:, half] (warpgroup 1)
+    fence_regs(acc);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<DH, BQ / 16, L::QT_CB>(acc, f, q_addr + y_off);
+    wgmma_commit();
+    // both warpgroups have read both receive buffers (their partials, and
+    // P^T into f) once both have issued the product: the peer may refill
+    // them (the arrival's cluster-scope release, behind the products)
+    if (next) {
+      bar_sync(2, 2 * WG);
+      if (threadIdx.x == L::ARRIVER) mbar_arrive_remote(freed_peer);
+    }
+    wgmma_wait<0>();  // and the next stage's partial (PREFETCH)
+    fence_regs(acc);
+    if constexpr (L::PREFETCH) {
+      fence_regs(sn);
+#pragma unroll
+      for (int r = 0; r < BQ / 2; ++r) st[r] = sn[r];
+    }
+    release(n);
+  }
+  cluster_arrive();  // no more stores into the peer, nor reads of its data
+  bf16* dst = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
+              ib * (c == 0 ? a.dv_sb : a.dk_sb) +
+              ikv * (c == 0 ? a.dv_sh : a.dk_sh);
+  dkv_store<DH>(dst, c == 0 ? a.dv_ss : a.dk_ss, acc, c == 0 ? 1.f : a.scale,
+                key0, key1, a.sk, tq);
+  cluster_wait();
 }
 
 // ------------------------------------------------ bf16 at d 64: 8-warp blocks
@@ -2757,12 +3098,42 @@ cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
   return cudaSuccess;
 }
 
+// dkv_pair's arguments: for the block of rank r, dkv_args over columns
+// [r D / 2, (r + 1) D / 2) of Q, K, V, dO, dK and dV (each pointer moved to
+// its half; the tensor maps' boxes D / 2 columns wide).
+template <int D>
+cudaError_t dkv_pair_args(DkvPairArgs& pa, const Params& p, int batch) {
+  using L = DkvPair<D>;
+  for (int r = 0; r < 2; ++r) {
+    Params h = p;
+    const int64_t col = static_cast<int64_t>(r) * L::DH;
+    h.q = static_cast<const bf16*>(p.q) + col;
+    h.k = static_cast<const bf16*>(p.k) + col;
+    h.v = static_cast<const bf16*>(p.v) + col;
+    h.dout = static_cast<const bf16*>(p.dout) + col;
+    h.dk = static_cast<bf16*>(p.dk) + col;
+    h.dv = static_cast<bf16*>(p.dv) + col;
+    if (cudaError_t err =
+            dkv_args<L::BQ, L::BK, true>(pa.half[r], h, batch, L::DH))
+      return err;
+  }
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t run_dkv(const Params& p, int batch, int bf16_in, void* ws,
                     cudaStream_t stream) {
   if (bf16_in) {
     DkvArgs a;
-    if constexpr (dkv_design(D) == kDSplit || dkv_design(D) == kOnePass) {
+    if constexpr (dkv_design(D) == kPair) {
+      using L = DkvPair<D>;
+      DkvPairArgs pa;
+      if (cudaError_t err = dkv_pair_args<D>(pa, p, batch)) return err;
+      const int pairs = (p.sk + L::BK - 1) / L::BK * p.hkv * batch;
+      return hopper::launch_cluster(dkv_pair<D>, 2 * pairs, 2,
+                                    SPLIT_THREADS, L::BYTES, stream, pa);
+    } else if constexpr (dkv_design(D) == kDSplit ||
+                         dkv_design(D) == kOnePass) {
       using L = std::conditional_t<dkv_design(D) == kDSplit, DkvSplit<D>,
                                    DkvOnePass<D>>;
       if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(a, p, batch, D))
@@ -2910,3 +3281,25 @@ extern "C" int64_t flash_bwd_workspace(int dkv, int bf16_in, int batch,
 extern "C" int flash_bwd_dq_design(int d) { return dq_design(d); }
 extern "C" int flash_bwd_dkv_design(int d) { return dkv_design(d); }
 extern "C" int flash_bwd_f32_design(int d) { return f32_design(d); }
+
+namespace {
+template <int D>
+int dkv_clusters() {
+  if constexpr (dkv_design(D) == kPair)
+    return hopper::max_clusters(dkv_pair<D>, 2, SPLIT_THREADS,
+                                DkvPair<D>::BYTES);
+  else
+    return -1;
+}
+}  // namespace
+
+// The clusters of two blocks K3's bf16 kernel at head dim d holds on the
+// current card at once (cudaOccupancyMaxActiveClusters; 0: its launch
+// would be refused), or -1 where that kernel is not launched in clusters.
+extern "C" int flash_bwd_dkv_clusters(int d) {
+  switch (d) {
+    case 384: return dkv_clusters<384>();
+    case 512: return dkv_clusters<512>();
+    default: return -1;
+  }
+}

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
-// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): mbarriers, TMA loads, wgmma
-// descriptors and instructions, setmaxnreg, and the host-side tensor maps.
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): mbarriers, TMA loads, thread
+// block clusters (remote stores and arrivals, the cluster barrier), wgmma
+// descriptors and instructions, setmaxnreg, and the host-side tensor maps
+// and launches.
 // Raw inline PTX, no CUTLASS: the whole header compiles in seconds.
 //
 // Conventions of the kernels that use it:
@@ -108,6 +110,95 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > kWaitTrapCycles) __trap();
+}
+
+// ------------------------------------------------------------ clusters
+//
+// A thread block cluster is a group of blocks launched together on
+// neighbouring SMs (launch_cluster below); each can store into the others'
+// shared memory and arrive on their mbarriers through the cluster's shared
+// window ("distributed shared memory").
+
+// This block's rank in its cluster (0 to the cluster's size - 1).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster-window address of shared-memory address `addr` in the block
+// of rank `rank` (the same offset in that block's shared memory): what
+// st_async_16 and mbar_arrive_remote take.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Store 16 bytes into another block's shared memory at `dst` (a
+// cluster_map address), completing 16 bytes of the transaction count of
+// that block's mbarrier `bar` (a cluster_map address too): the receiver
+// waits on its own barrier (mbar_wait_cluster) as for a TMA load, after
+// raising the count by the bytes it expects (mbar_arrive_expect_tx).
+__device__ __forceinline__ void st_async_16(uint32_t dst, float x, float y,
+                                            float z, float w, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar)
+      : "memory");
+}
+
+// One arrival on another block's mbarrier (a cluster_map address),
+// releasing this thread's earlier shared-memory accesses at cluster scope:
+// tells the peer that what it stored here has been read.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait for a barrier that another block of the cluster completes (by
+// st_async_16 or mbar_arrive_remote): acquires at cluster scope, so the
+// peer's stores, or its reads before the arrival, are ordered before what
+// follows.
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar,
+                                                      uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait_cluster(bar, parity))
+    if (clock64() - t0 > kWaitTrapCycles) __trap();
+}
+
+// The cluster-wide barrier, split: every thread of every block of the
+// cluster arrives (releasing its accesses), and wait returns once all
+// have; a block may work between the two. At the start it makes the
+// blocks' mbarrier initialisation visible to each other before the first
+// remote access; at the end it keeps a block resident until its peers no
+// longer touch its shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // TMA: one box of `map` at the given coordinates (innermost first) into
@@ -726,6 +817,62 @@ cudaError_t launch(Kernel kernel, int blocks, int threads, size_t smem,
   if (err != cudaSuccess) return err;
   kernel<<<blocks, threads, smem, stream>>>(args);
   return cudaGetLastError();
+}
+
+// The same as a grid of clusters of `cluster` blocks along x (`blocks` a
+// multiple of it). A launch the card cannot place (no `cluster` SMs of one
+// GPC with room for a block each) is refused: its error is returned.
+template <typename Kernel, typename Args>
+cudaError_t launch_cluster(Kernel kernel, int blocks, int cluster,
+                           int threads, size_t smem, cudaStream_t stream,
+                           const Args& args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, args)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of `kernel` (with `threads` threads
+// and `smem` bytes of dynamic shared memory each) the current card holds
+// at once (cudaOccupancyMaxActiveClusters); 0: a launch would be refused;
+// -2: the query failed.
+template <typename Kernel>
+int max_clusters(Kernel kernel, int cluster, int threads, size_t smem) {
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -2;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 1024);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(
+          &n, reinterpret_cast<const void*>(kernel), &cfg) != cudaSuccess)
+    return -2;
+  return n;
 }
 
 }  // namespace hopper

@@ -230,7 +230,8 @@ def test_kernel_only_head_settings():
         assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
         assert "#ifndef FLASH_OTHER_DESIGNS" in text
-    assert chip_smoke.DESIGN_DIMS == (64, 192, 256)
+    assert chip_smoke.DESIGN_DIMS == (64, 192, 256, 384, 512)
+    assert "dkv_pair" in chip_smoke.PROFILE_KERNELS
 
 
 def _designs(source, enum):
@@ -300,15 +301,17 @@ def test_fwd_design_labels_name_every_design():
 class _Bwd:
     """A flash_bwd library's design functions, as csrc/flash_bwd.cu states
     them: K2's dq_rows8 at d 64, 192 and 256, K3's 8-warp designs at d 64
-    (dkv_keys8) and 256 (dkv_onepass), the row split at d 128 (and K3's
-    at d 192), the D split above (the row split at d 64, 192 and 256 and
-    K3's one pass at d 192 in the other build)."""
+    (dkv_keys8) and 256 (dkv_onepass) and its pair of blocks at d 384 and
+    512 (dkv_pair), the row split at d 128 (and K3's at d 192), the D
+    split above (the row split at d 64, 192 and 256, K3's one pass at d
+    192 and its D split at d 384 and 512 in the other build)."""
 
     def __init__(self, other):
         ids = _bwd_designs()
         row8, one, keys8 = ((ids["kRowSplit"],) * 3 if other
                             else (ids["kRows8"], ids["kOnePass"],
                                   ids["kKeys8"]))
+        pair = ids["kDSplit" if other else "kPair"]
         self.flash_bwd_dq_design = lambda d: (
             row8 if d in (64, 192, 256) else ids["kRowSplit"] if d <= 128
             else ids["kDSplit"])
@@ -316,6 +319,7 @@ class _Bwd:
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
             else one if d == 256
             else ids["kOnePass" if other else "kRowSplit"] if d == 192
+            else pair if d in (384, 512)
             else ids["kDSplit"])
 
 
@@ -325,10 +329,11 @@ def test_bwd_design_labels_name_every_design():
     at d 64 and 256 the 8-warp designs ship, at d 192 K2's, and a build
     with -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and
     K1's rows on 8 warps and K3's one pass at d 192, where their row
-    split ships)."""
+    split ships); at d 384 and 512 K3 ships its pair of blocks and the
+    other build runs the D split (K1 and K2 have one design there)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
-                   "kKeys8": 4}
+                   "kKeys8": 4, "kPair": 6}
     assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
     assert len(set(chip_smoke.BWD_DESIGNS.values())) == len(ids)
 
@@ -355,9 +360,15 @@ def test_bwd_design_labels_name_every_design():
         "flash_bwd_dkv": "keys on 8 warps"}
     assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), 64)
                .values()) == {"row split"}
-    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 512) == {
-        "flash_fwd": "D split", "flash_bwd_dq": "D split",
-        "flash_bwd_dkv": "D split"}
+    for d in (384, 512):
+        assert chip_smoke.design_names(_Fwd(False), _Bwd(False), d) == {
+            "flash_fwd": "D split", "flash_bwd_dq": "D split",
+            "flash_bwd_dkv": "one pass on a cluster of two"}
+        assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), d)
+                   .values()) == {"D split"}
+    for d in (320, 448):
+        assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), d)
+                   .values()) == {"D split"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
     rule = re.search(r"constexpr int dq_design\(int d\) \{(.*?)\}", text,
@@ -371,7 +382,8 @@ def test_bwd_design_labels_name_every_design():
         "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8) : d <= "
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
-        "kOnePass) : kDSplit;")
+        "kOnePass) : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
+        ": kPair) : kDSplit;")
 
 
 def test_design_kernels_name_the_shipped_and_other_kernels():
@@ -379,7 +391,8 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
     (DESIGN_KERNELS, every one a kernel of csrc/): at d 64 K1, K2 and K3
     ship flash_fwd_twin, dq_rows8 and dkv_keys8, the other build runs
     flash_fwd_wgmma, dq_wgmma and dkv_wgmma there; at d 192 K2 ships
-    dq_rows8, the other build runs dq_wgmma."""
+    dq_rows8, the other build runs dq_wgmma; at d 384 and 512 K3 ships
+    dkv_pair, the other build runs dkv_split."""
     fwd_ids = _designs("flash_fwd", "FwdDesign")
     bwd_ids = _bwd_designs()
     kernels = chip_smoke.DESIGN_KERNELS
@@ -404,6 +417,15 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
         "flash_fwd": "flash_fwd_rows8<256>",
         "flash_bwd_dq": "dq_rows8<256>",
         "flash_bwd_dkv": "dkv_onepass<256>"}
+    for d in (384, 512):
+        assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d) == {
+            "flash_fwd": f"flash_fwd_split<{d}>",
+            "flash_bwd_dq": f"dq_split<{d}>",
+            "flash_bwd_dkv": f"dkv_pair<{d}>"}
+        assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), d) == {
+            "flash_fwd": f"flash_fwd_split<{d}>",
+            "flash_bwd_dq": f"dq_split<{d}>",
+            "flash_bwd_dkv": f"dkv_split<{d}>"}
 
 
 def test_d64_design_settings():
@@ -417,7 +439,7 @@ def test_d64_design_settings():
         chip_smoke.FT_BATCH, chip_smoke.FT_SEQ, hf["num_attention_heads"],
         hf["num_key_value_heads"])
     assert set(chip_smoke.DESIGN_SHAPES) == set(chip_smoke.DESIGN_DIMS)
-    for d in (192, 256):
+    for d in (192, 256, 384, 512):
         h, hkv, _ = chip_smoke.WIDE_HEADS[f"bench_800m_d{d}"]
         assert chip_smoke.DESIGN_SHAPES[d] == (
             chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ, h, hkv)
@@ -558,12 +580,97 @@ def test_wide_edges_cover_the_blocks():
     assert h // hkv == 2
 
 
+def test_pair_edges_cover_the_blocks():
+    """phase 3 and phase_wide_designs hold K3's pairs of blocks at d 384
+    and 512 (dkv_pair: 64 keys a pair, 64-query stages) at one row, ragged
+    ends past one and two 64-key blocks, s 2047, GQA groups 1 to 3 and
+    non-causal aligned, at both dims; the dims are the ones K3 ships the
+    pair at."""
+    edges = chip_smoke.PAIR_EDGES
+    lengths = {s for _, s, _, _, _ in edges}
+    assert {1, 65, 129, 2047} <= lengths
+    assert any(s % 64 not in (0, 1) for s in lengths)  # inside a block
+    assert {h // hkv for _, _, h, hkv, _ in edges} == {1, 2, 3}
+    assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
+    assert any(not causal and s % 64 == 0 for _, s, _, _, causal in edges)
+    assert chip_smoke.PAIR_DIMS == (384, 512)
+    assert set(chip_smoke.PAIR_DIMS) <= set(chip_smoke.DESIGN_DIMS)
+    assert chip_smoke.CLEAN_KERNELS == ("dkv_pair",)
+    for d in chip_smoke.PAIR_DIMS:
+        assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d)[
+            "flash_bwd_dkv"] == f"dkv_pair<{d}>"
+
+
+@pytest.mark.parametrize("key,d", [("dkv_pair<512>", 512),
+                                   ("dkv_pair<384>", 384)])
+def test_pair_variant_keys_name_their_template_and_shape(key, d):
+    """kernel_variants.py's keys for K3's pair of blocks name the template
+    (``template_of``) at each of its head dims, are timed at the shape
+    phase_wide_designs times the two designs at (DESIGN_SHAPES: phase 12's
+    heads at the training shape), and have variants, among them the other
+    build's dkv_split."""
+    kernel = kernel_variants.template_of(key)
+    assert kernel == "dkv_pair" and key == f"{kernel}<{d}>"
+    assert kernel in _global_kernels()
+    assert kernel_variants.source_of(kernel) == "flash_bwd"
+    h, hkv, hd = kernel_variants.KERNEL_HEADS[key]
+    assert hd == d
+    assert (h, hkv) == chip_smoke.DESIGN_SHAPES[d][2:]
+    assert kernel_variants.KERNEL_SHAPES[key] == [
+        (*chip_smoke.DESIGN_SHAPES[d][:2], h, hkv, d)]
+    edits = [n for n, v in kernel_variants.VARIANTS.items() if v[2] == key]
+    assert len(edits) >= 3
+    assert "dkv_split" in {kernel_variants.VARIANTS[n][-1] for n in edits}
+
+
+def _constexpr(expr, d):
+    """The value at ``D == d`` of one of DkvPair's constants: an int, a
+    bool, ``D == n``, or right-nested ``?:`` of those."""
+    expr = expr.strip()
+    if " ? " in expr:
+        cond, rest = expr.split(" ? ", 1)
+        then, other = rest.split(" : ", 1)
+        return _constexpr(then if _constexpr(cond, d) else other, d)
+    if expr.startswith("D == "):
+        return d == int(expr[5:])
+    if expr in ("true", "false"):
+        return expr == "true"
+    return int(expr)
+
+
+@pytest.mark.parametrize("variant", [None, *sorted(
+    n for n, v in kernel_variants.VARIANTS.items()
+    if kernel_variants.template_of(v[2]) == "dkv_pair")])
+def test_pair_prefetch_on_two_stages_waits_for_its_refill(variant):
+    """dkv_pair's prefetch reads the next stage's tile before the exchange
+    barrier that a deferred refill waits for: on two stages that
+    deadlocks unless the first warp waits for the refill (the
+    PAIR_PREFETCH_WAIT edit). The committed source (None) and every
+    variant at its head dim either keep the prefetch off two stages or
+    carry the wait."""
+    files = kernel_variants.committed_files("flash_bwd")
+    d = 384
+    if variant is not None:
+        files = kernel_variants.variant_files(variant, files)
+        d = kernel_variants.KERNEL_HEADS[kernel_variants.VARIANTS[variant][2]][2]
+    source = files["flash_bwd.cu"]
+    struct = source[source.index("struct DkvPair {"):]
+    for dim in {d, 384, 512}:
+        prefetch = _constexpr(
+            re.search(r"bool PREFETCH = (.*);", struct).group(1), dim)
+        stages = _constexpr(
+            re.search(r"int STAGES = ([^;]*);", struct).group(1), dim)
+        waits = "if (L::PREFETCH && STAGES == 2)" in source
+        assert stages >= 2
+        assert waits or not (prefetch and stages == 2), dim
+
+
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
-    contract names, launches summed over phase 12's paths; at d 192 and
-    256 (all three kernels, K2 at d 192 too now that it has two designs
-    there) the designs timed in turns, and K2's and K3's the pair's sum
-    beside SDPA's backward; the kernel-only dims under d 512."""
+    contract names, launches summed over phase 12's paths; wherever the
+    two builds run different kernels (all three at d 192 and 256, K3 at
+    d 384 and 512) the designs timed in turns, and K2's and K3's the
+    pair's sum beside SDPA's backward; the kernel-only dims under d 512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -578,7 +685,13 @@ def test_wide_entries_carry_designs_and_pair():
     wide = {d: {"training": {name: 20 for name in chip_smoke.KERNELS},
                 "serving": {name: 0 for name in chip_smoke.KERNELS}}
             for _, _, d in chip_smoke.WIDE_HEADS.values()}
-    designs = {d: {name: {"shipped_ms": 1.0, "other_ms": 2.0}
+    kernels = {d: {which: chip_smoke.design_kernels(
+        _Fwd(which == "other"), _Bwd(which == "other"), d)
+        for which in ("shipped", "other")}
+        for d in chip_smoke.DESIGN_DIMS}
+    designs = {d: {name: {"shipped_ms": 1.0, "other_ms": 2.0,
+                          "shipped_kernel": kernels[d]["shipped"][name],
+                          "other_kernel": kernels[d]["other"][name]}
                    for name in chip_smoke.KERNELS}
                for d in chip_smoke.DESIGN_DIMS}
     entries = chip_smoke.wide_kernel_entries(numbers, wide, designs)
@@ -592,7 +705,8 @@ def test_wide_entries_carry_designs_and_pair():
         assert entry["route"] == "cuda" and entry["launches"] == 20
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
-        assert ("designs_in_turns" in entry) == (d in (192, 256))
+        assert ("designs_in_turns" in entry) == (
+            d in (192, 256) or (d in (384, 512) and kernel == "flash_bwd_dkv"))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d == 512)
         if "designs_in_turns" in entry:

@@ -101,6 +101,15 @@ SHAPES = [
     (2, 256, 4, 1, 512, False),
     (8, 2048, 4, 2, 384, True),
     (8, 2048, 3, 1, 512, True),
+    # K3's pairs of blocks at d 384 and 512 (dkv_pair: 64 keys a pair,
+    # 64-query stages): one row short of, one past and one short of two
+    # 64-key blocks, at phase 12's heads
+    (2, 63, 4, 2, 384, True),
+    (2, 65, 4, 2, 384, True),
+    (2, 127, 4, 2, 384, True),
+    (2, 63, 3, 1, 512, True),
+    (2, 65, 3, 1, 512, True),
+    (2, 127, 3, 1, 512, True),
     # the f32 kernels' tiles one row short of and one past their ends:
     # dq_f32's 64-row blocks and 64-key tiles and dkv_f32's 64-key blocks
     # and 32-row query tiles at d 128 (65 and 127 are above), dq_f32's
@@ -244,7 +253,8 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (2, 300, 8, 2, 256),
                                          (8, 2048, 6, 2, 256),
                                          (2, 300, 3, 1, 512),
-                                         (8, 2048, 3, 1, 512)])
+                                         (8, 2048, 3, 1, 512),
+                                         (8, 2048, 4, 2, 384)])
 def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
                                            d):
     """K2 sums over the key tiles and K3 over the group's heads and the
@@ -253,7 +263,9 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     dkv_keys8, whose warpgroups share the streamed stages; at d 192
     dq_rows8 on 64-key stages; at d 256
     dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
-    memory; in
+    memory; at d 384 and 512 dkv_pair, whose two blocks each add the
+    other's partial scores to their own, the same two f32 values on both;
+    in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
     their parts summed in split order by a second pass). K1 too: each
     block owns its query rows (at d 64 flash_fwd_twin, two blocks a SM;

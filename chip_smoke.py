@@ -12,8 +12,8 @@ no network. Phases, each of which raises on failure:
    with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
    registers, spills and C75xx notes of the d 64, 192, 256, 384 and 512
    kernels and of the f32 K1, K2 and K3 at every head dim (the
-   register-tiled ones must not spill, K3's pair of blocks at d 384 and
-   512 must compile clean);
+   register-tiled ones must not spill, the pairs of blocks, K1's at d 384,
+   K2's at d 512 and K3's at d 384 and 512, must compile clean);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -32,15 +32,19 @@ no network. Phases, each of which raises on failure:
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
    256), K3 at d 384 and 512 at PAIR_EDGES (s 1, 65, 129, 300, 1000,
-   2047, GQA groups 1 to 3, non-causal s 256); the design not shipped at
-   d 64, 192, 256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1,
-   K2 and K3 at d 256: the 12-warp row split; K1 at d 192: the rows on 8
-   warps; K3 at d 192: the one pass; K3 at d 384 and 512: the D split)
+   2047, GQA groups 1 to 3, non-causal s 256), K1 at d 384 and K2 at d 512
+   at ROWS_PAIR_EDGES (s 1, 127, 129, 255, 300 at GQA groups 1 to 3,
+   1000, 2047, non-causal s 256); the design not shipped at d 64, 192,
+   256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1, K2 and K3 at
+   d 256: the 12-warp row split; K1 at d 192: the rows on 8 warps; K3 at
+   d 192: the one pass; K1 and K3 at d 384, K2 and K3 at d 512: the D
+   split)
    against the plain versions and timed in turns with the shipped one at
    DESIGN_SHAPES (d 64 at the fine-tuning shape; K1 also at d 256's
    prefill shape), K1 beside SDPA's forward with the blocks an SM holds,
-   the K2 + K3 pair beside SDPA's backward, K3 at d 384 and 512 with the
-   clusters of two blocks a card holds; K1, K2 and K3 in f32 (the
+   the K2 + K3 pair beside SDPA's backward, K1 at d 384, K2 at d 512 and
+   K3 at d 384 and 512 with the clusters of two blocks a card holds; K1,
+   K2 and K3 in f32 (the
    register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
    ragged lengths around their tiles (d 128 and 512) and at F32_SHAPES
@@ -196,6 +200,9 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
                    "dkv_pair": "K3 dkv (one pass on a cluster of two, d 384 "
                                "and 512)",
+                   "flash_fwd_pair": "K1 flash_fwd (rows on a cluster of two, "
+                                     "d 384)",
+                   "dq_pair": "K2 dq (rows on a cluster of two, d 512)",
                    "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
@@ -204,20 +211,23 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
 # FwdDesign), K2's and K3's by the id flash_bwd_dq_design and
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
-               5: "twin blocks of 8 warps"}
+               5: "twin blocks of 8 warps", 7: "rows on a cluster of two"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass", 4: "keys on 8 warps",
-               6: "one pass on a cluster of two"}
+               6: "a cluster of two, half the head dim a block"}
 # the kernel template each design id runs, per kernel
 DESIGN_KERNELS = {
     "flash_fwd": {0: "flash_fwd_wgmma", 1: "flash_fwd_split",
-                  2: "flash_fwd_rows8", 5: "flash_fwd_twin"},
-    "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8"},
+                  2: "flash_fwd_rows8", 5: "flash_fwd_twin",
+                  7: "flash_fwd_pair"},
+    "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8",
+                     6: "dq_pair"},
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
                       4: "dkv_keys8", 6: "dkv_pair"}}
 # the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
-# d 192 and 256, K3 at d 384 and 512 in bf16, and all three at d 128 in
-# f32; phase 3 times them beside the shipped ones in turns):
+# d 192 and 256, K1 and K3 at d 384, K2 and K3 at d 512 in bf16, and all
+# three at d 128 in f32; phase 3 times them beside the shipped ones in
+# turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
@@ -418,8 +428,22 @@ PAIR_EDGES = ((2, 1, 3, 1, True), (2, 65, 4, 2, True), (2, 129, 3, 1, True),
               (2, 1000, 3, 1, True), (1, 2047, 4, 2, True),
               (2, 256, 3, 1, False))
 PAIR_DIMS = (384, 512)
+# K1's pair of blocks at d 384 (flash_fwd_pair) and K2's at d 512
+# (dq_pair), each 128 query rows a pair over 64- or 32-key tiles, at their
+# edges, (b, s, heads, KV heads, causal): one row, one short of and one
+# past a 128-row pair, one short of two, s 300 at GQA groups 1 to 3, s
+# 1000 and 2047, non-causal aligned (b 8 s 2048 is phase 3's training-shape
+# case at phase 12's heads). Phase 3 holds the shipped K1 at d 384 and K2
+# at d 512 there (K3 beside K2), phase_wide_designs the other build's
+ROWS_PAIR_EDGES = ((2, 1, 3, 1, True), (2, 127, 4, 2, True),
+                   (2, 129, 3, 1, True), (2, 255, 4, 2, True),
+                   (2, 300, 3, 3, True), (2, 300, 4, 2, True),
+                   (2, 300, 3, 1, True), (2, 1000, 3, 1, True),
+                   (1, 2047, 4, 2, True), (2, 256, 3, 1, False))
+# the head dim of each kernel that ships a pair of blocks of 128 query rows
+ROWS_PAIR_DIMS = {"flash_fwd": 384, "flash_bwd_dq": 512}
 # the kernels that must compile with no spill and no C75xx note (phase 2)
-CLEAN_KERNELS = ("dkv_pair",)
+CLEAN_KERNELS = ("dkv_pair", "flash_fwd_pair", "dq_pair")
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
 # rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
@@ -738,6 +762,12 @@ def phase_kernels() -> dict:
         *((f"d64 s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, 64,
            torch.bfloat16, causal, False)
           for b, s, h, hkv, causal in D64_EDGES),
+        # d 384's pairs of blocks of 128 query rows over 64-key tiles
+        # (flash_fwd_pair) at their edges
+        *((f"d{ROWS_PAIR_DIMS['flash_fwd']} s{s} h{h} hkv{hkv} causal "
+           f"{causal} bf16", b, s, h, hkv, ROWS_PAIR_DIMS["flash_fwd"],
+           torch.bfloat16, causal, False)
+          for b, s, h, hkv, causal in ROWS_PAIR_EDGES),
         ("g3 s1 bf16", 2, 1, 6, 2, 128, torch.bfloat16, True, False),
         ("g3 s65 bf16", 2, 65, 6, 2, 128, torch.bfloat16, True, False),
         ("g2 s127 bf16 wrapper", 2, 127, 8, 4, 128, torch.bfloat16, True,
@@ -1008,6 +1038,12 @@ def phase_bwd_kernels() -> dict:
         *((f"d{d} s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, d,
            torch.bfloat16, causal)
           for d in PAIR_DIMS for b, s, h, hkv, causal in PAIR_EDGES),
+        # K2's pairs of blocks at d 512 (dq_pair: 128 query rows a pair,
+        # 32-key stages) at their edges, K3 beside it
+        *((f"d{ROWS_PAIR_DIMS['flash_bwd_dq']} s{s} h{h} hkv{hkv} causal "
+           f"{causal} bf16", b, s, h, hkv, ROWS_PAIR_DIMS["flash_bwd_dq"],
+           torch.bfloat16, causal)
+          for b, s, h, hkv, causal in ROWS_PAIR_EDGES),
         # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
         # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
         # 8-row query tiles at d 512) one row short of and one past their
@@ -1245,12 +1281,14 @@ def phase_wide_designs() -> dict:
     8-warp designs (dq_rows8: the same rows without the producer;
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
     other, one pass; dkv_keys8 at d 64: 128 keys a block, 64 a warpgroup,
-    each holding dK and dV of its keys, one pass); K3 at d 384 and 512:
-    the D split (dkv_split: 64 keys a block, the output's columns split
-    between the warpgroups, two passes) and the one pass on a cluster of
-    two (dkv_pair: dkv_onepass on each block of a pair, each holding half
-    of the head dim, the score products' partial sums exchanged between
-    the pair's shared memories). The port ships, per
+    each holding dK and dV of its keys, one pass); K3 at d 384 and 512, K1
+    at d 384 and K2 at d 512: the D split (dkv_split: 64 keys a block, the
+    output's columns split between the warpgroups, two passes;
+    flash_fwd_split and dq_split: 64 rows a block) and a cluster of two
+    (dkv_pair: dkv_onepass on each block of a pair; flash_fwd_pair and
+    dq_pair: 128 rows a pair, as flash_fwd_wgmma and dq_rows8; each block
+    holding half of the head dim, the score products' partial sums
+    exchanged between the pair's shared memories). The port ships, per
     kernel and head dim, the one its sources name (``flash_fwd_design``,
     ``flash_bwd_dq_design``, ``flash_bwd_dkv_design`` in each library);
     the other is built with -DFLASH_OTHER_DESIGNS=1 (phase 2). At each
@@ -1259,12 +1297,14 @@ def phase_wide_designs() -> dict:
     the plain versions (K2 and K3 also twice on one input, bitwise), then
     timed in turns with the shipped ones on the same inputs (shipped,
     other, other, shipped), K1 beside SDPA's forward with the blocks an SM
-    holds of each, K2 + K3 as a pair beside SDPA's backward, K3 at d 384
-    and 512 with the clusters of two a card holds of each (-1: not a
-    cluster kernel); the other K1 at d 192 and 256 and K2 at d 192
-    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES) and the
-    other K3 at d 384 and 512 (PAIR_EDGES) are also held against the plain
-    versions at ragged lengths, GQA groups and non-causal. Returns {head
+    holds of each, K2 + K3 as a pair beside SDPA's backward, each kernel
+    that either build launches in clusters (K1 at d 384, K2 at d 512, K3
+    at d 384 and 512) with the clusters of two a card holds of each (-1:
+    not a cluster kernel); the other K1 at d 192 and 256 and K2 at d 192
+    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES), the other
+    K3 at d 384 and 512 (PAIR_EDGES) and the other K1 at d 384 and K2 at d
+    512 (ROWS_PAIR_EDGES) are also held against the plain versions at
+    ragged lengths, GQA groups and non-causal. Returns {head
     dim: {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
@@ -1333,13 +1373,19 @@ def phase_wide_designs() -> dict:
                  f"({n['other_kernel']}, {n['other_blocks_per_sm']}) "
                  f"{n['other_ms']:.4f} ms, sdpa forward "
                  f"{n['library_ms']:.4f} ms ({_sdpa_backend(q, k, v)})")
-        if d in PAIR_DIMS:
-            # K3: the clusters of two blocks a card holds of each build's
-            n = out[d]["flash_bwd_dkv"]
-            for which in libs:
-                n[f"{which}_clusters"] = libs[which][
-                    "flash_bwd"].flash_bwd_dkv_clusters(d)
-            _log(f"K3 d{d}: clusters of two a card holds: shipped "
+        # the clusters of two blocks a card holds of each build's kernel,
+        # where either build launches it in clusters (-1: not in clusters)
+        for name, fn in (("flash_fwd", "flash_fwd_clusters"),
+                         ("flash_bwd_dq", "flash_bwd_dq_clusters"),
+                         ("flash_bwd_dkv", "flash_bwd_dkv_clusters")):
+            lib = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+            counts = {which: getattr(libs[which][lib], fn)(d)
+                      for which in libs}
+            if name not in out[d] or max(counts.values()) < 0:
+                continue
+            n = out[d][name]
+            n.update({f"{which}_clusters": k for which, k in counts.items()})
+            _log(f"{name} d{d}: clusters of two a card holds: shipped "
                  f"({n['shipped_kernel']}) {n['shipped_clusters']}, other "
                  f"({n['other_kernel']}) {n['other_clusters']}")
         # K2 + K3: what SDPA's one backward call computes
@@ -1376,14 +1422,17 @@ def phase_wide_designs() -> dict:
         f"b{BATCH} s{PROMPT} h{h} hkv{hkv} d{d} bf16 causal")["flash_fwd"]
     del q, k, v
     torch.cuda.empty_cache()
-    # K1's other design at d 192 and 256 at WIDE_EDGES, and at d 64 at
-    # D64_EDGES (phase 3 holds the shipped one there)
+    # K1's other design at d 192 and 256 at WIDE_EDGES, at d 64 at
+    # D64_EDGES and at d 384 at ROWS_PAIR_EDGES (phase 3 holds the shipped
+    # one there)
     k1_edges = [(b, s, h, hkv, d, causal)
                 for h, hkv, d in (WIDE_HEADS["bench_800m_d192"],
                                   WIDE_HEADS["bench_800m_d256"])
                 for b, s, causal in WIDE_EDGES]
     k1_edges += [(b, s, h, hkv, 64, causal)
                  for b, s, h, hkv, causal in D64_EDGES]
+    k1_edges += [(b, s, h, hkv, ROWS_PAIR_DIMS["flash_fwd"], causal)
+                 for b, s, h, hkv, causal in ROWS_PAIR_EDGES]
     try:
         _build._libs.update(libs["other"])
         for b, s, h, hkv, d, causal in k1_edges:
@@ -1400,8 +1449,9 @@ def phase_wide_designs() -> dict:
             out[d]["flash_fwd"]["other_max_abs_err"] = max(
                 out[d]["flash_fwd"]["other_max_abs_err"], err)
         # K2's and K3's other design at d 64 at D64_EDGES, K2's at d 192
-        # at WIDE_EDGES and K3's at d 384 and 512 at PAIR_EDGES (phase 3
-        # holds the shipped ones there), each twice on one input
+        # at WIDE_EDGES, K3's at d 384 and 512 at PAIR_EDGES and K2's at d
+        # 512 at ROWS_PAIR_EDGES (phase 3 holds the shipped ones there),
+        # each twice on one input
         h, hkv, _ = WIDE_HEADS["bench_800m_d192"]
         bwd_edges = [(b, s, h, hkv, 192, causal, ("flash_bwd_dq",))
                      for b, s, causal in WIDE_EDGES]
@@ -1411,6 +1461,9 @@ def phase_wide_designs() -> dict:
         bwd_edges += [(b, s, h, hkv, d, causal, ("flash_bwd_dkv",))
                       for d in PAIR_DIMS
                       for b, s, h, hkv, causal in PAIR_EDGES]
+        bwd_edges += [(b, s, h, hkv, ROWS_PAIR_DIMS["flash_bwd_dq"], causal,
+                       ("flash_bwd_dq",))
+                      for b, s, h, hkv, causal in ROWS_PAIR_EDGES]
         for b, s, h, hkv, d, causal, names in bwd_edges:
             q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                               causal)
@@ -4471,15 +4524,18 @@ def _world1_resnet(mesh, fa) -> None:
 
 # ------------------------------------------------------------ phase 12
 
-def phase_wide_heads() -> dict:
+def phase_wide_heads(window=None) -> dict:
     """PRESET at head dims 256, 192, 512 and 384 (WIDE_HEADS):
     ``make_train_step`` at the training shape, WIDE_STEPS steps on one
     fixed batch, with exact launch counts per step (K1 2 L, K2 L, K3 L), a
-    finite loss that falls, step time, tokens/s, MFU and peak memory; then
-    the models of WIDE_SERVED serve, and those of WIDE_VS_DENSE take one
-    step with flash against one with dense attention. Returns {head dim:
-    {path: launch counts}} of exactly the counted runs. One more step of
-    each runs under the profiler, uncounted."""
+    finite loss that falls, step time (and each step's, on the card's
+    clock and the host's), tokens/s, MFU and peak memory; then the models
+    of WIDE_SERVED serve, and those of WIDE_VS_DENSE take one step with
+    flash against one with dense attention. Returns {head dim: {path:
+    launch counts}} of exactly the counted runs. One more step of each
+    runs under the profiler, uncounted. ``window(name)``, if given, is a
+    context manager entered around the timed steps of WIDE_HEADS[name]
+    (wide_steps.py profiles them so)."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import llama
@@ -4516,19 +4572,24 @@ def phase_wide_heads() -> dict:
              f"{h} / {hkv} heads of {d}, wq {tuple(layers['wq'].shape[1:])}, "
              f"wk {tuple(layers['wk'].shape[1:])}), batch {TRAIN_BATCH} x "
              f"{TRAIN_SEQ}")
-        losses, norms = [], []
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        losses, norms, host_ms = [], [], []
+        # ends[i]: step i done on the card; the first step is the warm-up
+        ends = [torch.cuda.Event(enable_timing=True)
+                for _ in range(WIDE_STEPS)]
         torch.cuda.synchronize()
         _zero(fa)  # the counted run
+        timed = window(name) if window else contextlib.nullcontext()
         for i in range(WIDE_STEPS):
-            if i == 1:  # the first step is the warm-up
-                start.record()
+            if i == 1:
+                timed.__enter__()
+            t_host = time.perf_counter()
             state, m = step(state, tokens, mask)
+            ends[i].record()
+            host_ms.append((time.perf_counter() - t_host) * 1e3)
             losses.append(m["loss"])
             norms.append(m["grad_norm"])
-        end.record()
         torch.cuda.synchronize()
+        timed.__exit__(None, None, None)
         launches = _counts(fa)  # read just after
         want = {"flash_fwd": 2 * L * WIDE_STEPS,
                 "flash_bwd_dq": L * WIDE_STEPS,
@@ -4548,7 +4609,15 @@ def phase_wide_heads() -> dict:
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{name}: loss did not fall on the "
                                  f"repeated batch: {losses}")
-        step_ms = start.elapsed_time(end) / (WIDE_STEPS - 1)
+        step_ms = ends[0].elapsed_time(ends[-1]) / (WIDE_STEPS - 1)
+        each = [ends[i - 1].elapsed_time(ends[i])
+                for i in range(1, WIDE_STEPS)]
+        _log(f"wide heads {name}: each timed step "
+             f"{[round(x, 2) for x in each]} ms on the card's clock (one "
+             f"step's end to the next's; median "
+             f"{sorted(each)[len(each) // 2]:.2f}), "
+             f"{[round(x, 2) for x in host_ms[1:]]} ms of the host's to "
+             f"issue each (warm-up: {host_ms[0]:.2f})")
         tokens_per_step = TRAIN_BATCH * (TRAIN_SEQ - 1)
         tok_s = tokens_per_step / (step_ms / 1e3)
         peak = chip_peak_flops()
@@ -4971,8 +5040,9 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
     phase 12's launches per path (``wide[d][path][kernel]``) and
     ``phase_wide_designs``' (``designs[d][kernel]``): wherever the two
-    builds run different kernels (K1, K2 and K3 at d 192 and 256, K3 at
-    d 384 and 512) the other design's numbers beside the shipped one's,
+    builds run different kernels (K1, K2 and K3 at d 192 and 256, K1 and
+    K3 at d 384, K2 and K3 at d 512) the other design's numbers beside the
+    shipped one's,
     K2's and K3's with the pair's sum beside SDPA's backward; the
     kernel-only dims (d 320, 448: no model, so no launches on a main path)
     under the d 512 entries."""

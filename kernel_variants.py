@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Build the design alternatives of K1 (``flash_fwd_twin`` at d 64,
-``flash_fwd_rows8`` at d 256, ``flash_fwd_f32`` at d 128 in f32, in
+``flash_fwd_rows8`` at d 256, ``flash_fwd_pair`` at d 384, ``flash_fwd_f32``
+at d 128 in f32, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
-K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_f32`` at
-d 128 in f32) and K3 (``dkv_keys8`` at d 64, ``dkv_onepass`` at d 192 and
-256, ``dkv_pair`` at d 384 and 512, ``dkv_f32`` at d 128 in f32, all in
-``csrc/flash_bwd.cu``) and time them against the committed kernels on one
-CUDA card.
+K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_pair`` at
+d 512, ``dq_f32`` at d 128 in f32) and K3 (``dkv_keys8`` at d 64,
+``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
+``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time them
+against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
@@ -70,19 +71,18 @@ PAIR_PREFETCH_WAIT = (
     "        mbar_wait(q_empty + 8 * (m % STAGES), (m / STAGES) & 1);\n"
     "      if (__shfl_sync(")
 # the block's arrival on the peer's `freed` barrier, behind both
-# products' issue (a cluster-scope release), by one thread (ARRIVER) or
+# products' issue, by thread 0 past a named barrier of both warpgroups or
 # by every warp; the barrier's count for every warp
 PAIR_ARRIVE = """    if (next) {
       bar_sync(2, 2 * WG);
-      if (threadIdx.x == L::ARRIVER) mbar_arrive_remote(freed_peer);
+      if (threadIdx.x == 0) mbar_arrive_remote_cta(freed_peer);
     }
 """
 PAIR_WARP_ARRIVE = PAIR_ARRIVE.replace(
-    "      bar_sync(2, 2 * WG);\n      if (threadIdx.x == L::ARRIVER)",
+    "      bar_sync(2, 2 * WG);\n      if (threadIdx.x == 0)",
     "      __syncwarp();\n      if (t % 32 == 0)")
-PAIR_WARP_COUNT = ("    mbar_init(freed, 1);  // the peer's ARRIVER\n",
+PAIR_WARP_COUNT = ("    mbar_init(freed, 1);  // the peer's thread 0\n",
                    "    mbar_init(freed, 2 * WG / 32);\n")
-PAIR_ARRIVER = "  static constexpr int ARRIVER = D == 384 ? 0 : 32;\n"
 PAIR_PRODUCT = ("    // dV[:, half] += P^T dO[:, half] (warpgroup 0) or dK[:, half] +=\n"
                 "    // dS^T Q[:, half] (warpgroup 1)\n")
 # the prefetch issued on the last stage too (its own scores again), and
@@ -94,6 +94,31 @@ PAIR_PREFETCH_TAKE = ("    if constexpr (L::PREFETCH) {\n      fence_regs(sn);\n
                       "    if (L::PREFETCH && next) {\n      fence_regs(sn);\n")
 PAIR_DESIGN = ("         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
                ": kPair)\n")
+
+
+# K1 at d 384 and K2 at d 512 on a pair of blocks (flash_fwd_pair,
+# dq_pair): K1's stages; K1's next tile's partial S issued during this
+# one's exchange, or not; the arrival on the twin's `freed` barrier, by
+# thread 0 of the warpgroup past a named barrier of it, or by every warp;
+# K2's key tiles (one stage of 64 keys, exchanged in two rounds, against
+# two of 32)
+ROWS_PAIR_STAGES = ("  static constexpr int STAGES = 3;  // K/V stages (2 "
+                    "leave 48 KB unused)\n")
+ROWS_PAIR_ARRIVE = """    if (more) {
+      bar_sync(2 + c, WG);
+      if (t == 0) mbar_arrive_remote_cta(freed_peer);
+    }
+"""
+ROWS_PAIR_PREFETCH = "  static constexpr bool PREFETCH = true;\n"
+ROWS_PAIR_WARP_ARRIVE = ROWS_PAIR_ARRIVE.replace(
+    "      bar_sync(2 + c, WG);\n      if (t == 0)",
+    "      __syncwarp();\n      if (t % 32 == 0)")
+ROWS_PAIR_WARP_COUNT = (
+    "      mbar_init(freed0 + 8 * c, 1);  // the twin's thread 0\n",
+    "      mbar_init(freed0 + 8 * c, WG / 32);\n")
+DQ_PAIR_TILES = ("  static constexpr int BK = 32;     // keys per K/V stage\n"
+                 "  static constexpr int STAGES = 2;  // a third does not "
+                 "fit beside the buffers\n")
 
 
 def pair_at(d: int, **edits) -> list:
@@ -1111,11 +1136,6 @@ VARIANTS.update({
         [PAIR_WARP_COUNT, (PAIR_ARRIVE, ""),
          (PAIR_PRODUCT, PAIR_WARP_ARRIVE + PAIR_PRODUCT)],
         f"dkv_pair<{_d}>") for _d in (384, 512)},
-    **{f"pair_d{_d}_arriver_{_x}": (
-        f"d {_d} K3: the arrival on the peer's freed barrier by thread {_x}",
-        [(PAIR_ARRIVER, PAIR_ARRIVER.replace(
-            "D == 384 ? 0 : 32", f"D == {_d} ? {_x} : D == 384 ? 0 : 32"))],
-        f"dkv_pair<{_d}>") for _d, _x in ((384, 32), (512, 0))},
     "pair_d384_prefetch_every_stage": (
         "d 384 K3: the prefetch issued on the last stage too (that stage's "
         "scores again, unused)",
@@ -1131,6 +1151,50 @@ VARIANTS.update({
                        "         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit "
                        ": kPair)\n")],
         "dkv_pair<512>", "dkv_split"),
+})
+# K1 at d 384 and K2 at d 512 on a pair of blocks (flash_fwd_pair,
+# dq_pair): K1's stages and prefetch; who arrives on the twin's `freed`
+# barrier (thread 0 of the warpgroup past a named barrier of it, or every
+# warp); K2's key tiles; and the other build's split kernels, timed in the
+# same turns
+VARIANTS.update({
+    "fwd_pair_2_stages": (
+        "d 384 K1 on the pair: two K/V stages of 64 keys, not three",
+        [(ROWS_PAIR_STAGES, ROWS_PAIR_STAGES.replace("= 3;", "= 2;"))],
+        "flash_fwd_pair<384>"),
+    "fwd_pair_no_prefetch": (
+        "d 384 K1 on the pair: each tile's partial S issued only once the "
+        "last tile's P V is in (no prefetch during the exchange)",
+        [(ROWS_PAIR_PREFETCH, ROWS_PAIR_PREFETCH.replace("true", "false"))],
+        "flash_fwd_pair<384>"),
+    "fwd_pair_warp_arrivals": (
+        "d 384 K1 on the pair: every warp arrives on the twin's freed "
+        "barrier once it has issued its P V (4 arrivals, no named barrier)",
+        [(ROWS_PAIR_ARRIVE, ROWS_PAIR_WARP_ARRIVE), ROWS_PAIR_WARP_COUNT],
+        "flash_fwd_pair<384>"),
+    "fwd_pair_split": (
+        "d 384 K1 on the D split (flash_fwd_split<384>: 64 rows a block, "
+        "32-key stages; the other build's design)",
+        [("         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)\n",
+          "         : d == 384 ? kDSplit\n")],
+        "flash_fwd_pair<384>", "flash_fwd_split"),
+    "dq_pair_warp_arrivals": (
+        "d 512 K2 on the pair: every warp arrives on the twin's freed "
+        "barrier once it has issued its dQ product",
+        [(ROWS_PAIR_ARRIVE, ROWS_PAIR_WARP_ARRIVE), ROWS_PAIR_WARP_COUNT],
+        "dq_pair<512>"),
+    "dq_pair_bk64_one_stage": (
+        "d 512 K2 on the pair: one K/V stage of 64 keys (m64n64 score "
+        "products), the exchange in two rounds of 32 keys",
+        [(DQ_PAIR_TILES, DQ_PAIR_TILES.replace("BK = 32", "BK = 64")
+          .replace("STAGES = 2", "STAGES = 1"))],
+        "dq_pair<512>"),
+    "dq_pair_split": (
+        "d 512 K2 on the D split (dq_split<512>: 64 rows a block, 16-key "
+        "stages; the other build's design)",
+        [("         : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)\n",
+          "         : d == 512 ? kDSplit\n")],
+        "dq_pair<512>", "dq_split"),
 })
 # K2's SPLIT flag off at d 192
 VARIANTS["dq_d192_one_commit"] = (
@@ -1148,6 +1212,8 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_rows8<192>": cs.WIDE_HEADS["bench_800m_d192"],
                 "dkv_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dkv_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
+                "flash_fwd_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
+                "dq_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128)}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
@@ -1168,7 +1234,8 @@ KERNEL_SHAPES = {
     "dq_rows8<192>": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                        *KERNEL_HEADS["dq_rows8<192>"])],
     **{key: [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[key])]
-       for key in ("dkv_pair<512>", "dkv_pair<384>")},
+       for key in ("dkv_pair<512>", "dkv_pair<384>", "flash_fwd_pair<384>",
+                   "dq_pair<512>")},
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
@@ -1326,11 +1393,13 @@ def main() -> int:
                 cs._log(f"variant {name}: K1 at d{d} holds "
                         f"{_build._libs[source].flash_fwd_blocks_per_sm(d)} "
                         "blocks a SM")
-            if kind == "dkv" and dtype == torch.bfloat16:
-                n = _build._libs[source].flash_bwd_dkv_clusters(d)
+            if dtype == torch.bfloat16:
+                n = getattr(_build._libs[source],
+                            "flash_fwd_clusters" if kind == "fwd" else
+                            f"flash_bwd_{kind}_clusters")(d)
                 if n >= 0:
-                    cs._log(f"variant {name}: K3 at d{d} holds {n} clusters "
-                            "of two blocks")
+                    cs._log(f"variant {name}: {kind} at d{d} holds {n} "
+                            "clusters of two blocks")
             ragged = 1000 if dtype == torch.bfloat16 else 129
             # a ragged length at the heads of each timed shape
             heads = dict.fromkeys(shape[2:] for shape in timed)

@@ -47,9 +47,10 @@
 // `dq_wgmma` (d 128), `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64, 192
 // and 256), `dkv_keys8` (d 64) and `dkv_onepass` (d 256), `dq_split` and
 // `dkv_split` (d 320 to 512, the output's D columns split between the
-// consumers; K3 at d 320 and 448) and `dkv_pair` (K3 at d 384 and 512:
-// dkv_onepass on a cluster of two blocks, each holding half of the head
-// dim).
+// consumers; K2 at d 320, 384 and 448, K3 at d 320 and 448), `dkv_pair`
+// (K3 at d 384 and 512: dkv_onepass on a cluster of two blocks, each
+// holding half of the head dim) and `dq_pair` (K2 at d 512: dq_rows8 on a
+// cluster of two blocks, the same way).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
@@ -125,17 +126,19 @@ constexpr int SMEM_MAX = 232448;
 //              and warpgroup 1 dK, one pass (d 256);
 //   kKeys8     dkv_keys8: 8-warp blocks of 128 keys, 64 a warpgroup, each
 //              owning dK and dV of its keys, one pass (d 64);
-//   kPair      dkv_pair: dkv_onepass on a cluster of two 8-warp blocks,
-//              each holding half of the head dim (d 384 and 512).
+//   kPair      a cluster of two 8-warp blocks, each holding half of the
+//              head dim: K3's dkv_pair (dkv_onepass on each block; d 384
+//              and 512) and K2's dq_pair (dq_rows8 on each block; d 512).
 // At d 64, 192, 256, 384 and 512 each of K2 and K3 ships the faster of two
 // designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
 // card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
 // split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
-// dq_rows8 and dkv_onepass at d 256, and K3's dkv_pair at d 384 and 512
-// (K2 has one design there, dq_split). A build with
-// -DFLASH_OTHER_DESIGNS=1 takes the other design at each (K3's dkv_split
-// at d 384 and 512; K1's other design at d 64, 192 and 256, and the scalar
-// f32 kernels at d 128: F32Design). The id 5 is K1's (FwdDesign's kTwin).
+// dq_rows8 and dkv_onepass at d 256, K3's dkv_pair at d 384 and 512 (K2
+// has one design at d 384, dq_split) and K2's dq_pair at d 512. A build
+// with -DFLASH_OTHER_DESIGNS=1 takes the other design at each (dkv_split
+// at d 384 and 512, dq_split at d 512; K1's other design at d 64, 192, 256
+// and 384, and the scalar f32 kernels at d 128: F32Design). The ids 5 and
+// 7 are K1's (FwdDesign's kTwin and kPair).
 enum BwdDesign {
   kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4,
   kPair = 6
@@ -148,6 +151,7 @@ constexpr int dq_design(int d) {
   return d == 64 || d == 192 || d == 256
              ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
          : d <= 128 ? kRowSplit
+         : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
                     : kDSplit;
 }
 constexpr int dkv_design(int d) {
@@ -768,11 +772,12 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 // ------------------------------------------------ bf16: the D-split kernels
 //
 // From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>` (but at d 384 and
-// 512 K3 ships as dkv_pair, below, and dkv_split runs there only in the
-// -DFLASH_OTHER_DESIGNS=1 build). dq_wgmma and
-// dkv_wgmma hold a D / 2-register accumulator a thread (256 at d 512, past
-// the 255 a thread may have), and their resident tiles (Q and dO of 128
-// rows, K and V of 128 keys: 256 KB at d 512) overflow 227 KB. The split
+// 512 K3 ships as dkv_pair and at d 512 K2 as dq_pair, below, and the
+// split kernels run there only in the -DFLASH_OTHER_DESIGNS=1 build).
+// dq_wgmma and dkv_wgmma hold a D / 2-register accumulator a thread (256
+// at d 512, past the 255 a thread may have), and their resident tiles (Q
+// and dO of 128 rows, K and V of 128 keys: 256 KB at d 512) overflow 227
+// KB. The split
 // kernels follow K1's (csrc/flash_fwd.cu, flash_fwd_split):
 // - a block owns 64 rows (K2: query rows; K3: keys) and BOTH consumer
 //   warpgroups own all 64; the D columns of the output are split between
@@ -1521,16 +1526,16 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
 //   dK[:, half] += dS^T Q[:, half] on warpgroup 1.
 // Both warpgroups read P^T, so the block arrives on the peer's `freed`
 // barrier only once both have issued their dV/dK product (all reads of
-// its receive buffers done: a named barrier of both, then one thread's
-// arrival); the peer waits on it before it stores the next stage's
-// partials over them. Four
-// products a stage, each formed once; Q and dO streamed once; the
-// rounding rules (P to dO's dtype, dS to Q's, dK scaled once at the end)
-// are dkv_onepass's. A cluster barrier at the start makes each block's
-// mbarriers visible to its peer before the first remote store, and one at
-// the end keeps both resident until neither touches the other's shared
-// memory. Every sum runs in a fixed order in one pair: deterministic, no
-// atomics.
+// its receive buffers done: a named barrier of both, then thread 0's
+// arrival, released at CTA scope as flash_fwd_pair's and dq_pair's,
+// hopper::mbar_arrive_remote_cta); the peer waits on it before it stores
+// the next stage's partials over them. Four products a stage, each formed
+// once; Q and dO streamed once; the rounding rules (P to dO's dtype, dS to
+// Q's, dK scaled once at the end) are dkv_onepass's. A cluster barrier at
+// the start makes each block's mbarriers visible to its peer before the
+// first remote store, and one at the end keeps both resident until
+// neither touches the other's shared memory. Every sum runs in a fixed
+// order in one pair: deterministic, no atomics.
 // Bound on an H100: operations (four products, as dkv_onepass); what the
 // pair adds is the exchange, 32 KB each way per stage between two SMs, in
 // series with the tensor work. At d 384 the next stage's partial is
@@ -1539,8 +1544,8 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
 // work overlaps this one's exchange; at d 512 its 32 registers do not fit
 // beside the 128 of the accumulator (PERF.md §6; kernel_variants.py times
 // the alternatives: two stages, a third stage without the prefetch,
-// 32-query stages, the prefetch at d 512, where and by whom the arrival
-// on `freed` is made).
+// 32-query stages, the prefetch at d 512, where and by how many warps the
+// arrival on `freed` is made).
 
 // Shared memory: dkv_onepass's at D / 2 (K and V halves resident, the Q and
 // dO stages, their lse and delta), then the receive buffer, holding the
@@ -1560,10 +1565,6 @@ struct DkvPair {
   // lost)
   static constexpr bool PREFETCH = D == 384;
   static constexpr int STAGES = D == 384 ? 3 : 2;  // Q and dO stages
-  // the thread that arrives on the peer's `freed` barrier (its release at
-  // cluster scope stalls its warp; which warp's stall costs least differs
-  // by dim, kernel_variants.py)
-  static constexpr int ARRIVER = D == 384 ? 0 : 32;
   static constexpr int KV_BYTES = BK * DH * 2, KV_CB = BK * 128;
   static constexpr int QT_BYTES = BQ * DH * 2, QT_CB = BQ * 128;
   static constexpr int ROW_BYTES = BQ * 4;
@@ -1622,7 +1623,7 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     }
     mbar_init(recv, 1);
     mbar_init(recv + 8, 1);
-    mbar_init(freed, 1);  // the peer's ARRIVER
+    mbar_init(freed, 1);  // the peer's thread 0
     if (tiles > 0) {  // the bytes of the peer's first stage
       mbar_arrive_expect_tx(recv, L::XB);
       mbar_arrive_expect_tx(recv + 8, L::XB);
@@ -1793,10 +1794,10 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     wgmma_commit();
     // both warpgroups have read both receive buffers (their partials, and
     // P^T into f) once both have issued the product: the peer may refill
-    // them (the arrival's cluster-scope release, behind the products)
+    // them
     if (next) {
       bar_sync(2, 2 * WG);
-      if (threadIdx.x == L::ARRIVER) mbar_arrive_remote(freed_peer);
+      if (threadIdx.x == 0) mbar_arrive_remote_cta(freed_peer);
     }
     wgmma_wait<0>();  // and the next stage's partial (PREFETCH)
     fence_regs(acc);
@@ -2246,6 +2247,306 @@ dq_rows8(const __grid_constant__ DqArgs a) {
   }
   store_cols<D>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
                 a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
+}
+
+// ------------------------------------------------ K2 at d 512: clusters
+//
+// K2 at d 512 is `dq_pair<D>` (kPair; dq_split<512> is the
+// -DFLASH_OTHER_DESIGNS=1 build's): dq_rows8 at D / 2 on each block of a
+// cluster of two. What held dq_split<512> back: Q and dO resident at the
+// full head dim (128 KB of 64 rows) left 2 stages of 16 keys; each
+// warpgroup formed its halves of S and dP as m64n8 products over all 512
+// columns, dQ += dS K was one k16 step a stage, and the chain (scores,
+// the exchange and its barrier, dS, the product, waited for) ran in
+// series every 16 keys. Bound on an H100: operations (three products, 3 s^2
+// d flops per causal (b, h), against ~4 s d bytes). Here, as dkv_pair does
+// for K3:
+// - a pair (two blocks on neighbouring SMs, launched as one cluster) owns
+//   128 query rows of one (batch, head); the block of rank r holds columns
+//   [r D/2, (r + 1) D/2) of Q, dO, K, V and dQ (its tensor maps and dQ
+//   pointer start at its half: DqPairArgs);
+// - within a block it is dq_rows8 at D / 2 (dq_rows8<256>'s registers): 8
+//   warps, 64 rows a warpgroup, dQ at D / 4 registers a thread, thread 0
+//   loading Q and dO once and 32-key K and V stages (2: a third does not
+//   fit beside the receive buffers; one stage of 64 keys does, with the
+//   exchange in XK-key rounds, but then every tile's loads wait for the
+//   last tile's product in both warpgroups: kernel_variants.py times it,
+//   PERF.md §6);
+// - the exchange moves 32 KB each way a tile between the two SMs, about as
+//   long as the tile's three products. Issuing the next tile's partial S
+//   and dP during it, as flash_fwd_pair does, needs that tile's stage: on
+//   two stages thread 0 then waits for the other warpgroup's release of
+//   the tile before, every tile, and it lost (PERF.md §6);
+// - S = Q[:, half] K[:, half]^T and dP = dO[:, half] V[:, half]^T
+//   (m64n32k16 x D/32 each) are partial sums: each warpgroup stores both,
+//   in fragment order, into its twin warpgroup's receive buffer in the
+//   peer (st.async, completing the bytes of the peer's `recv` mbarrier),
+//   waits for the twin's and adds them, the same two values on both blocks
+//   (IEEE addition commutes), so both blocks hold the same S and dP bit for
+//   bit and form the same dS = P (dP - delta) from the full rows' lse and
+//   delta;
+// - dQ[:, own half] += dS K[:, own half], dS rounded to K's dtype and
+//   re-packed in registers, dQ scaled once at the store (dq_rows8's
+//   rounding rules).
+// The receive buffers: one a warpgroup (16 KB: S, then dP), whose only
+// readers are that warpgroup's 128 threads (the adds right after the wait
+// on its `recv`); once all 128 have issued the tile's dQ product (or,
+// between two rounds of a tile, done the adds: a named barrier of the
+// warpgroup, 2 + c) its thread 0 arrives on the twin's `freed` barrier in
+// the peer (hopper::mbar_arrive_remote_cta), which the twin waits on
+// before it stores the next partials there. Cluster barriers at the
+// start and at the end, as dkv_pair. Every sum runs in a fixed order in
+// one pair: deterministic, no atomics.
+template <int D>
+struct DqPair {
+  static constexpr int DH = D / 2;  // head-dim columns a block holds
+  static constexpr int BQ = 128;    // query rows a pair: 64 a warpgroup
+  static constexpr int BK = 32;     // keys per K/V stage
+  static constexpr int STAGES = 2;  // a third does not fit beside the buffers
+  // keys whose S and dP partials one exchange moves: BK / XK rounds a tile
+  static constexpr int XK = 32;
+  static constexpr int Q_CB = BQ * 128;
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_CB = BK * 128;
+  static constexpr int KV_BYTES = BK * DH * 2;
+  static constexpr int XB = 2 * (XK / 2) * WG * 4;  // S and dP, bytes
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = X_OFF + 2 * XB;
+  // mbarriers: q_full, kv_full[S], kv_empty[S], recv[2], freed[2]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES + 4) + 1024;
+  static_assert(DH % 64 == 0 && DH <= 256, "dQ: 256 columns a block");
+  static_assert(BK % XK == 0 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+// Each block's arguments: DqArgs over its half of the head dim.
+struct DqPairArgs {
+  DqArgs half[2];
+};
+
+// K and V of key tile i into its stage, by TMA (one thread).
+template <int D>
+__device__ __forceinline__ void dq_pair_load(const DqArgs& a, uint32_t base,
+                                             int i, int ikv, int ib) {
+  using namespace hopper;
+  using L = DqPair<D>;
+  const int s = i % L::STAGES;
+  const uint32_t full_s = base + L::BAR_OFF + 8 + 8 * s;
+  mbar_arrive_expect_tx(full_s, 2 * L::KV_BYTES);
+  tma_load_5d(base + L::K_OFF + s * L::KV_BYTES, &a.tk, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+  tma_load_5d(base + L::V_OFF + s * L::KV_BYTES, &a.tv, full_s, 0,
+              i * L::BK, 0, ikv, ib);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
+dq_pair(const __grid_constant__ DqPairArgs pa) {
+  using namespace hopper;
+  using L = DqPair<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES, DH = L::DH;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
+  const DqArgs& a = pa.half[rank];
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t q_full = bar, kv_full = bar + 8,
+                 kv_empty = kv_full + 8 * STAGES;
+  const uint32_t recv0 = kv_empty + 8 * STAGES, freed0 = recv0 + 16;
+
+  // heaviest query tiles first; neighbouring pairs share a KV head; the
+  // pair's index is its cluster's
+  const int pair = static_cast<int>(blockIdx.x) / 2;
+  const int hb = a.h * a.batch;
+  const int iq = a.nq - 1 - pair / hb;
+  const int ih = pair % hb % a.h;
+  const int ib = pair % hb / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = iq * BQ;
+  // the same key tiles for both warpgroups (and both blocks): up to the
+  // diagonal of the pair's last row; at least one
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 2 * WG);
+    }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(recv0 + 8 * c, 1);
+      mbar_init(freed0 + 8 * c, 1);  // the twin's thread 0
+      mbar_arrive_expect_tx(recv0 + 8 * c, L::XB);  // the first tile's
+    }
+    fence_mbar_init();
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  if (threadIdx.x == 0) {  // Q and dO, and the first STAGES key tiles
+    mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+    tma_load_5d(base, &a.tq, q_full, 0, q0, 0, ih, ib);
+    tma_load_5d(base + L::DO_OFF, &a.tdo, q_full, 0, q0, 0, ih, ib);
+    for (int i = 0; i < STAGES && i < nk; ++i)
+      dq_pair_load<D>(a, base, i, ikv, ib);
+  }
+  int next = STAGES;  // thread 0: the next key tile to load
+
+  const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int r0 = q0 + 64 * c;
+  const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
+  const uint32_t q_addr = base + c * 64 * 128;
+  const uint32_t do_addr = base + L::DO_OFF + c * 64 * 128;
+  // this warpgroup's receive buffer and barriers, and where its partials
+  // go in the peer (its twin's buffer and barriers)
+  const uint32_t recv = recv0 + 8 * c, freed = freed0 + 8 * c;
+  const uint32_t rx_peer = cluster_map(base + L::X_OFF + c * L::XB, peer);
+  const uint32_t recv_peer = cluster_map(recv, peer);
+  const uint32_t freed_peer = cluster_map(freed, peer);
+  const float4* in =
+      reinterpret_cast<const float4*>(smem + L::X_OFF + c * L::XB);
+
+  // rows past sq read lse = delta = 0 (and Q = dO = 0): dS = 0 there, and
+  // those rows are not written
+  const int64_t rows = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  const float ls0 = row0 < a.sq ? a.lse[rows + row0] * kLog2e : 0.f;
+  const float ls1 = row1 < a.sq ? a.lse[rows + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < a.sq ? a.delta[rows + row0] : 0.f;
+  const float dl1 = row1 < a.sq ? a.delta[rows + row1] : 0.f;
+
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const int k0 = i * BK;
+    const bool more = i + 1 < nk;
+    const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
+    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
+    // thread 0 loads each tile whose stage both warpgroups have released
+    // (tile `next` reuses the stage of tile next - STAGES, which this
+    // warpgroup released if next - STAGES < i), testing without waiting;
+    // it waits only for the tile read now. Here, before this tile's send,
+    // and not during the exchange (the twin waits on that, PERF.md §6)
+    if (threadIdx.x == 0) {
+      for (; next < nk && next < i + STAGES; ++next) {
+        const uint32_t stage_empty = kv_empty + 8 * (next % STAGES);
+        const uint32_t par = ((next - STAGES) / STAGES) & 1;
+        if (next > i && !mbar_test(stage_empty, par)) break;
+        mbar_wait(stage_empty, par);
+        dq_pair_load<D>(a, base, next, ikv, ib);
+      }
+    }
+
+    // this block's partial S = Q[:, half] K[:, half]^T and dP = dO[:, half]
+    // V[:, half]^T: 64 rows x BK keys each
+    float sc[BK / 2], dp[BK / 2];
+    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
+        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
+    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
+        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // the exchange, in BK / XK rounds of XK keys (XC register chunks of S
+    // and of dP): to the twin, once it has read the last round's, S's
+    // chunk k of thread t to 16-byte slot k * 128 + t, dP's after them;
+    // then the twin's, added to this block's
+    constexpr int XR = BK / L::XK, XC = L::XK / 8;
+#pragma unroll
+    for (int x = 0; x < XR; ++x) {
+      const uint32_t xph = (i * XR + x) & 1;
+      mbar_wait_cluster(freed, xph ^ 1);
+#pragma unroll
+      for (int k = 0; k < XC; ++k) {
+        const int j = 4 * (x * XC + k);
+        st_async_16(rx_peer + (k * WG + t) * 16, sc[j], sc[j + 1],
+                    sc[j + 2], sc[j + 3], recv_peer);
+      }
+#pragma unroll
+      for (int k = 0; k < XC; ++k) {
+        const int j = 4 * (x * XC + k);
+        st_async_16(rx_peer + ((XC + k) * WG + t) * 16, dp[j], dp[j + 1],
+                    dp[j + 2], dp[j + 3], recv_peer);
+      }
+      mbar_wait_cluster(recv, xph);
+      if (t == 0 && (more || x + 1 < XR))  // the bytes of the next round's
+        mbar_arrive_expect_tx(recv, L::XB);
+#pragma unroll
+      for (int k = 0; k < XC; ++k) {
+        const int j = 4 * (x * XC + k);
+        const float4 u = in[k * WG + t], v = in[(XC + k) * WG + t];
+        sc[j] += u.x;
+        sc[j + 1] += u.y;
+        sc[j + 2] += u.z;
+        sc[j + 3] += u.w;
+        dp[j] += v.x;
+        dp[j + 1] += v.y;
+        dp[j + 2] += v.z;
+        dp[j + 3] += v.w;
+      }
+      if (x + 1 < XR) {  // read: the twin may store the next round's
+        bar_sync(2 + c, WG);
+        if (t == 0) mbar_arrive_remote_cta(freed_peer);
+      }
+    }
+
+    // dS = P (dP - delta) with P = exp2(S scale log2e - lse log2e) in f32,
+    // in place in sc; P = 0 past sk and (causal) after the row
+    const bool need_mask = (a.causal && k0 + BK - 1 > r0) || k0 + BK > a.sk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(fmaf(sc[4 * j + e], a.scale_log2,
+                                 -(e < 2 ? ls0 : ls1)));
+        if (need_mask) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          if (col >= a.sk || (a.causal && col > (e < 2 ? row0 : row1)))
+            p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+    // dS in K's dtype, re-packed as the A operand; keys 16kk .. 16kk + 15
+    uint32_t f[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // dQ[:, own half] += dS K[:, own half]
+    fence_regs(dq);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<DH, BK / 16, L::KV_CB>(dq, f, k_addr);
+    wgmma_commit();
+    // every thread of the warpgroup has read its receive buffer once all
+    // have issued the product: the twin may store the next partials
+    if (more) {
+      bar_sync(2 + c, WG);
+      if (t == 0) mbar_arrive_remote_cta(freed_peer);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(kv_empty + 8 * s);
+  }
+  cluster_arrive();  // no more stores into the peer, nor reads of its data
+  store_cols<DH>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
+                 a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
+  cluster_wait();
 }
 
 // ------------------------------------------------ f32: CUDA cores
@@ -3018,12 +3319,40 @@ cudaError_t dq_args(DqArgs& a, const Params& p, int batch, int d) {
   return cudaSuccess;
 }
 
+// dq_pair's arguments: for the block of rank r, dq_args over columns
+// [r D / 2, (r + 1) D / 2) of Q, K, V, dO and dQ (each pointer moved to its
+// half; the tensor maps' boxes D / 2 columns wide).
+template <int D>
+cudaError_t dq_pair_args(DqPairArgs& pa, const Params& p, int batch) {
+  using L = DqPair<D>;
+  for (int r = 0; r < 2; ++r) {
+    Params h = p;
+    const int64_t col = static_cast<int64_t>(r) * L::DH;
+    h.q = static_cast<const bf16*>(p.q) + col;
+    h.k = static_cast<const bf16*>(p.k) + col;
+    h.v = static_cast<const bf16*>(p.v) + col;
+    h.dout = static_cast<const bf16*>(p.dout) + col;
+    h.dq = static_cast<bf16*>(p.dq) + col;
+    if (cudaError_t err =
+            dq_args<L::BQ, L::BK, true>(pa.half[r], h, batch, L::DH))
+      return err;
+  }
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t run_dq(const Params& p, int batch, int bf16_in, void* ws,
                    cudaStream_t stream) {
   if (bf16_in) {
     DqArgs a;
-    if constexpr (dq_design(D) == kDSplit) {
+    if constexpr (dq_design(D) == kPair) {
+      using L = DqPair<D>;
+      DqPairArgs pa;
+      if (cudaError_t err = dq_pair_args<D>(pa, p, batch)) return err;
+      return hopper::launch_cluster(dq_pair<D>,
+                                    2 * pa.half[0].nq * p.h * batch, 2,
+                                    SPLIT_THREADS, L::BYTES, stream, pa);
+    } else if constexpr (dq_design(D) == kDSplit) {
       using L = DqSplit<D>;
       if (cudaError_t err = dq_args<L::BQ, L::BK, true>(a, p, batch, D))
         return err;
@@ -3291,6 +3620,15 @@ int dkv_clusters() {
   else
     return -1;
 }
+
+template <int D>
+int dq_clusters() {
+  if constexpr (dq_design(D) == kPair)
+    return hopper::max_clusters(dq_pair<D>, 2, SPLIT_THREADS,
+                                DqPair<D>::BYTES);
+  else
+    return -1;
+}
 }  // namespace
 
 // The clusters of two blocks K3's bf16 kernel at head dim d holds on the
@@ -3300,6 +3638,15 @@ extern "C" int flash_bwd_dkv_clusters(int d) {
   switch (d) {
     case 384: return dkv_clusters<384>();
     case 512: return dkv_clusters<512>();
+    default: return -1;
+  }
+}
+
+// The same for K2's bf16 kernel at head dim d.
+extern "C" int flash_bwd_dq_clusters(int d) {
+  switch (d) {
+    case 384: return dq_clusters<384>();
+    case 512: return dq_clusters<512>();
     default: return -1;
   }
 }

@@ -128,7 +128,7 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 
 // The cluster-window address of shared-memory address `addr` in the block
 // of rank `rank` (the same offset in that block's shared memory): what
-// st_async_16 and mbar_arrive_remote take.
+// st_async_16 and mbar_arrive_remote_cta take.
 __device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
@@ -151,18 +151,27 @@ __device__ __forceinline__ void st_async_16(uint32_t dst, float x, float y,
       : "memory");
 }
 
-// One arrival on another block's mbarrier (a cluster_map address),
-// releasing this thread's earlier shared-memory accesses at cluster scope:
-// tells the peer that what it stored here has been read.
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+// One arrival on another block's mbarrier (a cluster_map address), with
+// mbarrier.arrive's default release at CTA scope, as CUTLASS's cluster
+// pipelines hand a buffer back to the block that refills it. The pair
+// kernels (flash_fwd_pair, dq_pair, dkv_pair) make it on the peer's
+// `freed` barrier to say that a receive buffer the peer stores into has
+// been read, and CTA scope is enough for that: every read of a receive
+// buffer is a shared-memory load into its thread's registers, all of them
+// issued before a named barrier of the readers (bar.sync returns once
+// their loads are performed), and one thread arrives only after that
+// barrier, so no read is outstanding when the peer's next st.async
+// lands. A release at cluster scope would also wait for the arriving
+// thread's own st.async stores into the peer to complete (900 to 1,100
+// cycles a tile at 16 KB on an H100, PERF.md §6).
+__device__ __forceinline__ void mbar_arrive_remote_cta(uint32_t bar) {
   asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          bar)
+      "mbarrier.arrive.release.cta.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
       : "memory");
 }
 
 // mbar_wait for a barrier that another block of the cluster completes (by
-// st_async_16 or mbar_arrive_remote): acquires at cluster scope, so the
+// st_async_16 or mbar_arrive_remote_cta): acquires at cluster scope, so the
 // peer's stores, or its reads before the arrival, are ordered before what
 // follows.
 __device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar,

@@ -248,31 +248,35 @@ def _bwd_designs():
 
 class _Fwd:
     """A flash_fwd library's design function, as csrc/flash_fwd.cu states
-    it: the twin blocks at d 64, the rows on 8 warps at d 256, the row
-    split at d 128 and 192 (the other build: the row split at d 64 and
-    256, the rows on 8 warps at d 192), the D split above."""
+    it: the twin blocks at d 64, the rows on 8 warps at d 256, the pair of
+    blocks at d 384, the row split at d 128 and 192 (the other build: the
+    row split at d 64 and 256, the rows on 8 warps at d 192, the D split at
+    d 384), the D split at d 320, 448 and 512."""
 
     def __init__(self, other):
         ids = _designs("flash_fwd", "FwdDesign")
         two = {64: ("kTwin", "kRowSplit"), 192: ("kRowSplit", "kRows8"),
-               256: ("kRows8", "kRowSplit")}
+               256: ("kRows8", "kRowSplit"), 384: ("kPair", "kDSplit")}
         self.flash_fwd_design = lambda d: ids[
-            "kRowSplit" if d == 128 else "kDSplit" if d > 256
-            else two[d][1 if other else 0]]
+            "kRowSplit" if d == 128 else two[d][1 if other else 0]
+            if d in two else "kDSplit"]
 
 
 def test_fwd_design_labels_name_every_design():
     """chip_smoke.py labels each id K1's design function can return, and
     no other, with the names K2's and K3's ids of the same design carry
-    (the twin blocks, K1's alone, take an id no K2 or K3 design has); the
-    source's rule: the twin blocks at d 64, the rows on 8 warps at d 256,
-    the row split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes
-    the row split at d 64 and 256 and the rows on 8 warps at d 192), the
-    D split from d 320."""
+    (the twin blocks and the pair of blocks of 128 rows, K1's alone, take
+    ids no K2 or K3 design has); the source's rule: the twin blocks at d
+    64, the rows on 8 warps at d 256, the pair of blocks at d 384, the row
+    split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes the row
+    split at d 64 and 256, the rows on 8 warps at d 192 and the D split at
+    d 384), the D split at d 320, 448 and 512."""
     ids = _designs("flash_fwd", "FwdDesign")
-    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kTwin": 5}
+    assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kTwin": 5,
+                   "kPair": 7}
     assert set(chip_smoke.FWD_DESIGNS) == set(ids.values())
     assert ids["kTwin"] not in chip_smoke.BWD_DESIGNS
+    assert ids["kPair"] not in chip_smoke.BWD_DESIGNS
     for n, label in chip_smoke.FWD_DESIGNS.items():
         assert chip_smoke.BWD_DESIGNS.get(n, label) == label
     assert len(set(chip_smoke.FWD_DESIGNS.values())) == len(ids)
@@ -283,7 +287,7 @@ def test_fwd_design_labels_name_every_design():
         "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kTwin) : d <= "
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8) "
-        ": kDSplit;")
+        ": d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair) : kDSplit;")
     assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
         in text
     for d, shipped, other in ((64, "twin blocks of 8 warps", "row split"),
@@ -291,6 +295,8 @@ def test_fwd_design_labels_name_every_design():
                               (192, "row split", "rows on 8 warps"),
                               (256, "rows on 8 warps", "row split"),
                               (320, "D split", "D split"),
+                              (384, "rows on a cluster of two", "D split"),
+                              (448, "D split", "D split"),
                               (512, "D split", "D split")):
         assert chip_smoke.FWD_DESIGNS[_Fwd(False).flash_fwd_design(d)] == (
             shipped)
@@ -300,11 +306,12 @@ def test_fwd_design_labels_name_every_design():
 
 class _Bwd:
     """A flash_bwd library's design functions, as csrc/flash_bwd.cu states
-    them: K2's dq_rows8 at d 64, 192 and 256, K3's 8-warp designs at d 64
-    (dkv_keys8) and 256 (dkv_onepass) and its pair of blocks at d 384 and
-    512 (dkv_pair), the row split at d 128 (and K3's at d 192), the D
-    split above (the row split at d 64, 192 and 256, K3's one pass at d
-    192 and its D split at d 384 and 512 in the other build)."""
+    them: K2's dq_rows8 at d 64, 192 and 256 and its pair of blocks at d
+    512 (dq_pair), K3's 8-warp designs at d 64 (dkv_keys8) and 256
+    (dkv_onepass) and its pair of blocks at d 384 and 512 (dkv_pair), the
+    row split at d 128 (and K3's at d 192), the D split above (the row
+    split at d 64, 192 and 256, K3's one pass at d 192 and the D split for
+    the pairs in the other build)."""
 
     def __init__(self, other):
         ids = _bwd_designs()
@@ -314,7 +321,7 @@ class _Bwd:
         pair = ids["kDSplit" if other else "kPair"]
         self.flash_bwd_dq_design = lambda d: (
             row8 if d in (64, 192, 256) else ids["kRowSplit"] if d <= 128
-            else ids["kDSplit"])
+            else pair if d == 512 else ids["kDSplit"])
         self.flash_bwd_dkv_design = lambda d: (
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
             else one if d == 256
@@ -329,8 +336,9 @@ def test_bwd_design_labels_name_every_design():
     at d 64 and 256 the 8-warp designs ship, at d 192 K2's, and a build
     with -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and
     K1's rows on 8 warps and K3's one pass at d 192, where their row
-    split ships); at d 384 and 512 K3 ships its pair of blocks and the
-    other build runs the D split (K1 and K2 have one design there)."""
+    split ships); at d 384 and 512 K3 ships its pair of blocks, at d 384
+    K1 and at d 512 K2 theirs, and the other build runs the D split (K2 at
+    d 384 and K1 at d 512 have one design)."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
                    "kKeys8": 4, "kPair": 6}
@@ -360,10 +368,13 @@ def test_bwd_design_labels_name_every_design():
         "flash_bwd_dkv": "keys on 8 warps"}
     assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), 64)
                .values()) == {"row split"}
+    pair = "a cluster of two, half the head dim a block"
+    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 384) == {
+        "flash_fwd": "rows on a cluster of two", "flash_bwd_dq": "D split",
+        "flash_bwd_dkv": pair}
+    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 512) == {
+        "flash_fwd": "D split", "flash_bwd_dq": pair, "flash_bwd_dkv": pair}
     for d in (384, 512):
-        assert chip_smoke.design_names(_Fwd(False), _Bwd(False), d) == {
-            "flash_fwd": "D split", "flash_bwd_dq": "D split",
-            "flash_bwd_dkv": "one pass on a cluster of two"}
         assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), d)
                    .values()) == {"D split"}
     for d in (320, 448):
@@ -375,7 +386,8 @@ def test_bwd_design_labels_name_every_design():
                      re.S).group(1)
     assert " ".join(rule.split()) == (
         "return d == 64 || d == 192 || d == 256 ? (FLASH_OTHER_DESIGNS ? "
-        "kRowSplit : kRows8) : d <= 128 ? kRowSplit : kDSplit;")
+        "kRowSplit : kRows8) : d <= 128 ? kRowSplit : d == 512 ? "
+        "(FLASH_OTHER_DESIGNS ? kDSplit : kPair) : kDSplit;")
     rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
@@ -392,7 +404,8 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
     ship flash_fwd_twin, dq_rows8 and dkv_keys8, the other build runs
     flash_fwd_wgmma, dq_wgmma and dkv_wgmma there; at d 192 K2 ships
     dq_rows8, the other build runs dq_wgmma; at d 384 and 512 K3 ships
-    dkv_pair, the other build runs dkv_split."""
+    dkv_pair, at d 384 K1 flash_fwd_pair and at d 512 K2 dq_pair, and the
+    other build runs the split kernels there."""
     fwd_ids = _designs("flash_fwd", "FwdDesign")
     bwd_ids = _bwd_designs()
     kernels = chip_smoke.DESIGN_KERNELS
@@ -417,11 +430,13 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
         "flash_fwd": "flash_fwd_rows8<256>",
         "flash_bwd_dq": "dq_rows8<256>",
         "flash_bwd_dkv": "dkv_onepass<256>"}
+    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 384) == {
+        "flash_fwd": "flash_fwd_pair<384>", "flash_bwd_dq": "dq_split<384>",
+        "flash_bwd_dkv": "dkv_pair<384>"}
+    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 512) == {
+        "flash_fwd": "flash_fwd_split<512>", "flash_bwd_dq": "dq_pair<512>",
+        "flash_bwd_dkv": "dkv_pair<512>"}
     for d in (384, 512):
-        assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d) == {
-            "flash_fwd": f"flash_fwd_split<{d}>",
-            "flash_bwd_dq": f"dq_split<{d}>",
-            "flash_bwd_dkv": f"dkv_pair<{d}>"}
         assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), d) == {
             "flash_fwd": f"flash_fwd_split<{d}>",
             "flash_bwd_dq": f"dq_split<{d}>",
@@ -595,10 +610,101 @@ def test_pair_edges_cover_the_blocks():
     assert any(not causal and s % 64 == 0 for _, s, _, _, causal in edges)
     assert chip_smoke.PAIR_DIMS == (384, 512)
     assert set(chip_smoke.PAIR_DIMS) <= set(chip_smoke.DESIGN_DIMS)
-    assert chip_smoke.CLEAN_KERNELS == ("dkv_pair",)
+    assert "dkv_pair" in chip_smoke.CLEAN_KERNELS
     for d in chip_smoke.PAIR_DIMS:
         assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d)[
             "flash_bwd_dkv"] == f"dkv_pair<{d}>"
+
+
+def test_rows_pair_edges_cover_the_blocks():
+    """phase 3 and phase_wide_designs hold K1's pair of blocks at d 384
+    and K2's at d 512 (flash_fwd_pair, dq_pair: 128 query rows a pair) at
+    one row, one short of and one past a pair, one short of two, s 300 at
+    GQA groups 1 to 3, s 1000 and 2047 and non-causal aligned; the dims
+    are the ones those kernels ship the pair at, and their training shape
+    (b 8 s 2048 at phase 12's heads) is phase 3's too."""
+    edges = chip_smoke.ROWS_PAIR_EDGES
+    lengths = {s for _, s, _, _, _ in edges}
+    assert {1, 127, 129, 255, 1000, 2047} <= lengths
+    assert {h // hkv for _, s, h, hkv, _ in edges if s == 300} == {1, 2, 3}
+    assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
+    assert any(not causal and s % 128 == 0 for _, s, _, _, causal in edges)
+    assert chip_smoke.ROWS_PAIR_DIMS == {"flash_fwd": 384,
+                                         "flash_bwd_dq": 512}
+    shipped = {name: chip_smoke.design_kernels(
+        _Fwd(False), _Bwd(False), d)[name]
+        for name, d in chip_smoke.ROWS_PAIR_DIMS.items()}
+    assert shipped == {"flash_fwd": "flash_fwd_pair<384>",
+                       "flash_bwd_dq": "dq_pair<512>"}
+    heads = {d: (h, hkv) for h, hkv, d in chip_smoke.WIDE_HEADS.values()}
+    assert set(chip_smoke.ROWS_PAIR_DIMS.values()) <= set(heads)
+    assert set(chip_smoke.ROWS_PAIR_DIMS.values()) <= set(
+        chip_smoke.DESIGN_DIMS)
+
+
+def test_clean_kernels_hold_every_pair():
+    """Phase 2 fails if a pair of blocks spills or has a C75xx note: K1's
+    at d 384, K2's at d 512 and K3's at d 384 and 512, each a kernel of
+    csrc/ with a profile group."""
+    assert set(chip_smoke.CLEAN_KERNELS) == {"flash_fwd_pair", "dq_pair",
+                                             "dkv_pair"}
+    assert set(chip_smoke.CLEAN_KERNELS) <= _global_kernels()
+    assert set(chip_smoke.CLEAN_KERNELS) <= set(chip_smoke.PROFILE_KERNELS)
+    text = {name: (CSRC / f"{name}.cu").read_text()
+            for name in chip_smoke.KERNEL_SOURCES}
+    assert "launch_cluster(flash_fwd_pair<D>" in text["flash_fwd"]
+    assert "launch_cluster(dq_pair<D>" in text["flash_bwd"]
+    assert 'extern "C" int flash_fwd_clusters(int d)' in text["flash_fwd"]
+    assert 'extern "C" int flash_bwd_dq_clusters(int d)' in text[
+        "flash_bwd"]
+
+
+@pytest.mark.parametrize("other", [False, True])
+def test_design_ids_of_either_build_are_labelled(other):
+    """Every id K1's, K2's and K3's design functions return in the shipped
+    build or in the -DFLASH_OTHER_DESIGNS=1 one, at every head dim the
+    kernels take, has a label (FWD_DESIGNS, BWD_DESIGNS) and a kernel
+    template of csrc/ (DESIGN_KERNELS)."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    fwd, bwd = _Fwd(other), _Bwd(other)
+    for d in fa.KERNEL_HEAD_DIMS:
+        ids = {"flash_fwd": fwd.flash_fwd_design(d),
+               "flash_bwd_dq": bwd.flash_bwd_dq_design(d),
+               "flash_bwd_dkv": bwd.flash_bwd_dkv_design(d)}
+        for name, i in ids.items():
+            labels = (chip_smoke.FWD_DESIGNS if name == "flash_fwd"
+                      else chip_smoke.BWD_DESIGNS)
+            assert i in labels, (name, d, i)
+            assert chip_smoke.DESIGN_KERNELS[name][i] in _global_kernels()
+        assert chip_smoke.design_names(fwd, bwd, d)
+        assert chip_smoke.design_kernels(fwd, bwd, d)
+
+
+@pytest.mark.parametrize("key,d,split", [
+    ("flash_fwd_pair<384>", 384, "flash_fwd_split"),
+    ("dq_pair<512>", 512, "dq_split")])
+def test_rows_pair_variant_keys_name_their_template_and_shape(key, d,
+                                                              split):
+    """kernel_variants.py's keys for K1's pair of blocks at d 384 and K2's
+    at d 512 name their template (``template_of``) and source, are timed
+    at the shape phase_wide_designs times the two designs at
+    (DESIGN_SHAPES: phase 12's heads at the training shape), and have
+    variants, among them the other build's split kernel."""
+    kernel = kernel_variants.template_of(key)
+    assert key == f"{kernel}<{d}>" and kernel in _global_kernels()
+    assert kernel_variants.source_of(kernel) == (
+        "flash_fwd" if kernel.startswith("flash_fwd") else "flash_bwd")
+    h, hkv, hd = kernel_variants.KERNEL_HEADS[key]
+    assert hd == d
+    assert (h, hkv) == chip_smoke.DESIGN_SHAPES[d][2:]
+    assert kernel_variants.KERNEL_SHAPES[key] == [
+        (*chip_smoke.DESIGN_SHAPES[d][:2], h, hkv, d)]
+    edits = [n for n, v in kernel_variants.VARIANTS.items() if v[2] == key]
+    assert len(edits) >= 3
+    assert split in {kernel_variants.VARIANTS[n][-1] for n in edits}
 
 
 @pytest.mark.parametrize("key,d", [("dkv_pair<512>", 512),
@@ -668,9 +774,10 @@ def test_pair_prefetch_on_two_stages_waits_for_its_refill(variant):
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
     contract names, launches summed over phase 12's paths; wherever the
-    two builds run different kernels (all three at d 192 and 256, K3 at
-    d 384 and 512) the designs timed in turns, and K2's and K3's the
-    pair's sum beside SDPA's backward; the kernel-only dims under d 512."""
+    two builds run different kernels (all three at d 192 and 256, K1 and
+    K3 at d 384, K2 and K3 at d 512) the designs timed in turns, and K2's
+    and K3's the pair's sum beside SDPA's backward; the kernel-only dims
+    under d 512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -706,7 +813,8 @@ def test_wide_entries_carry_designs_and_pair():
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
         assert ("designs_in_turns" in entry) == (
-            d in (192, 256) or (d in (384, 512) and kernel == "flash_bwd_dkv"))
+            d in (192, 256) or (d in (384, 512) and kernel == "flash_bwd_dkv")
+            or (d, kernel) in ((384, "flash_fwd"), (512, "flash_bwd_dq")))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d == 512)
         if "designs_in_turns" in entry:
@@ -866,6 +974,22 @@ def test_template_name_reads_f32_kernels(mangled, name):
     assert chip_smoke._template_name(mangled, 256) is None
 
 
+@pytest.mark.parametrize("mangled,name,d", [
+    ("_ZN45_GLOBAL__N__75498264_12_flash_fwd_cu_b294bfd014flash_fwd_pairILi38"
+     "4EEEvNS_11FwdPairArgsE", "flash_fwd_pair", 384),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd287dq_pairILi512EEEvNS_"
+     "10DqPairArgsE", "dq_pair", 512),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd288dkv_pairILi384EEEvN"
+     "S_11DkvPairArgsE", "dkv_pair", 384)])
+def test_template_name_reads_pair_kernels(mangled, name, d):
+    """phase 2's lines name each pair of blocks at its head dim (the
+    namespace's hash ends in a digit that runs into the name's length), so
+    CLEAN_KERNELS holds them."""
+    assert name in chip_smoke.CLEAN_KERNELS
+    assert chip_smoke._template_name(mangled, d) == name
+    assert chip_smoke._template_name(mangled, 256) is None
+
+
 def test_ptxas_summary_reads_registers_spills_and_notes():
     """phase_build's one line per d 256 kernel: registers, spill stores
     and the C75xx notes, from ptxas's report (a C7512 note comes before
@@ -1016,3 +1140,103 @@ def test_policy_journal_is_the_reconcilers_shape():
         multi += a["demand_hosts"] > 1
     assert 0 < multi < len(rows)
     assert features.dataset(rows)["dropped"] == 0
+
+
+def _kernel_body(source, kernel):
+    """The text of ``__global__`` kernel ``kernel`` in ``source``, from its
+    signature to its closing brace."""
+    start = re.search(rf"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      rf"\s+)?{kernel}\(", source).start()
+    return source[start:source.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("kernel,source", [
+    ("flash_fwd_pair", "flash_fwd"), ("dq_pair", "flash_bwd"),
+    ("dkv_pair", "flash_bwd")])
+def test_pairs_release_their_receive_buffers_one_way(kernel, source):
+    """Every pair of blocks hands its receive buffers back to the peer by
+    the one remote arrival of hopper.cuh (released at CTA scope, its
+    comment says why), made by one thread past a named barrier of the
+    buffers' readers."""
+    hopper = (CSRC / "hopper.cuh").read_text()
+    remote = re.findall(r"mbarrier\.arrive[.\w]*\.shared::cluster", hopper)
+    assert remote == ["mbarrier.arrive.release.cta.shared::cluster"]
+    body = _kernel_body((CSRC / f"{source}.cu").read_text(), kernel)
+    arrivals = re.findall(r"bar_sync\([^)]*\);\n\s+if \((?:t|threadIdx\.x)"
+                          r" == 0\) mbar_arrive_remote_cta\(freed_peer\);",
+                          body)
+    assert arrivals
+    assert body.count("mbar_arrive_remote_cta(") == len(arrivals)
+
+
+@pytest.mark.parametrize("variant", [None, "dq_pair_bk64_one_stage"])
+def test_dq_pair_tiles_fit_and_exchange_in_whole_rounds(variant):
+    """dq_pair<512>'s key tiles, as committed and as the one-stage 64-key
+    variant times them: whole rounds of XK keys a tile, and Q, dO, the
+    K/V stages, the receive buffers and the mbarriers within SMEM_MAX."""
+    files = kernel_variants.committed_files("flash_bwd")
+    if variant is not None:
+        files = kernel_variants.variant_files(variant, files)
+    source = files["flash_bwd.cu"]
+    struct = source[source.index("struct DqPair {"):]
+    const = {name: int(re.search(rf"int {name} = (\d+);", struct).group(1))
+             for name in ("BQ", "BK", "STAGES", "XK")}
+    smem_max = int(re.search(r"SMEM_MAX = (\d+);", source).group(1))
+    dh, wg = 256, 128
+    assert const["BK"] % const["XK"] == 0 and const["STAGES"] >= 1
+    smem = (2 * const["BQ"] * dh * 2 + 2 * const["STAGES"] * const["BK"]
+            * dh * 2 + 2 * 2 * (const["XK"] // 2) * wg * 4
+            + 8 * (1 + 2 * const["STAGES"] + 4) + 1024)
+    assert smem <= smem_max
+    if variant is not None:
+        assert (const["BK"], const["STAGES"]) == (64, 1)
+
+
+wide_steps = _script("wide_steps")
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.WIDE_HEADS))
+def test_wide_steps_takes_each_wide_configuration(name):
+    """wide_steps.py runs phase 12 for the configurations named, in that
+    order, and all of them, in WIDE_HEADS's order, if none is named."""
+    args = wide_steps.parse_args(["--profile", name, name])
+    assert args.names == [name] and args.profile == name
+    assert not args.other_k1 and not args.watch
+    assert args.steps == chip_smoke.WIDE_STEPS
+    assert wide_steps.parse_args([]).names == list(chip_smoke.WIDE_HEADS)
+
+
+@pytest.mark.parametrize("argv", [["bench_800m_d1024"], ["--steps", "1"]])
+def test_wide_steps_refuses_what_phase_12_cannot_run(argv):
+    """An unknown configuration, or fewer steps than a warm-up and one
+    timed step."""
+    with pytest.raises(SystemExit):
+        wide_steps.parse_args(argv)
+
+
+def test_wide_steps_watcher_logs_a_stay_and_a_collection(monkeypatch):
+    """--watch's watcher logs where the main thread stayed longer than
+    WATCH_S and each garbage collection longer than WATCH_GC_S."""
+    import gc
+    import time
+
+    lines = []
+    monkeypatch.setattr(wide_steps.cs, "_log", lines.append)
+    monkeypatch.setattr(wide_steps, "WATCH_GC_S", 0.0)
+    with wide_steps._watched("check"):
+        time.sleep(3 * wide_steps.WATCH_S)
+        gc.collect()
+    assert any("seen at one place" in line and "time.sleep" not in line
+               and "test_torch_chip_smoke.py" in line for line in lines)
+    assert any("garbage collection of generation 2" in line
+               for line in lines)
+
+
+def test_wide_steps_needs_a_card(monkeypatch):
+    """Without a CUDA card wide_steps.py exits non-zero before any
+    phase runs."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["wide_steps.py", "--other-k1"])
+    assert wide_steps.main() == 1

@@ -110,6 +110,13 @@ SHAPES = [
     (2, 63, 3, 1, 512, True),
     (2, 65, 3, 1, 512, True),
     (2, 127, 3, 1, 512, True),
+    # K1's pairs of blocks at d 384 (flash_fwd_pair) and K2's at d 512
+    # (dq_pair), 128 query rows a pair: one past a pair and one short of
+    # two, at phase 12's heads (s 127 is above)
+    (2, 129, 4, 2, 384, True),
+    (2, 255, 4, 2, 384, True),
+    (2, 129, 3, 1, 512, True),
+    (2, 255, 3, 1, 512, True),
     # the f32 kernels' tiles one row short of and one past their ends:
     # dq_f32's 64-row blocks and 64-key tiles and dkv_f32's 64-key blocks
     # and 32-row query tiles at d 128 (65 and 127 are above), dq_f32's
@@ -254,7 +261,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (8, 2048, 6, 2, 256),
                                          (2, 300, 3, 1, 512),
                                          (8, 2048, 3, 1, 512),
-                                         (8, 2048, 4, 2, 384)])
+                                         (8, 2048, 4, 2, 384),
+                                         (2, 255, 3, 1, 512),
+                                         (2, 255, 4, 2, 384)])
 def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
                                            d):
     """K2 sums over the key tiles and K3 over the group's heads and the
@@ -264,7 +273,8 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     dq_rows8 on 64-key stages; at d 256
     dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
     memory; at d 384 and 512 dkv_pair, whose two blocks each add the
-    other's partial scores to their own, the same two f32 values on both;
+    other's partial scores to their own, the same two f32 values on both,
+    and so do K1's flash_fwd_pair at d 384 and K2's dq_pair at d 512;
     in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
     their parts summed in split order by a second pass). K1 too: each

@@ -31,19 +31,20 @@ no network. Phases, each of which raises on failure:
    s 1000 too, with K1 also at its per-length prefill; K1, K2 and K3 at
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
-   256), K3 at d 384 and 512 at PAIR_EDGES (s 1, 65, 129, 300, 1000,
-   2047, GQA groups 1 to 3, non-causal s 256), K1 at d 384 and K2 at d 512
-   at ROWS_PAIR_EDGES (s 1, 127, 129, 255, 300 at GQA groups 1 to 3,
-   1000, 2047, non-causal s 256); the design not shipped at d 64, 192,
-   256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1, K2 and K3 at
-   d 256: the 12-warp row split; K1 at d 192: the rows on 8 warps; K3 at
-   d 192: the one pass; K1 and K3 at d 384, K2 and K3 at d 512: the D
-   split)
+   256), the pairs of blocks at d 384 and 512 at their edges
+   (PAIR_EDGE_SETS: K3 at PAIR_EDGES, s 1, 65, 129, 300, 1000, 2047, GQA
+   groups 1 to 3, non-causal s 256; K1 and K2 at ROWS_PAIR_EDGES, s 1,
+   127, 129, 255, 300 at GQA groups 1 to 3, 1000, 2047, non-causal s 256;
+   K1 there also twice on one input, bitwise); the design not shipped at
+   d 64, 192, 256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1, K2
+   and K3 at d 256: the 12-warp row split; K1 at d 192: the rows on 8
+   warps; K3 at d 192: the one pass; K1 and K3 at d 384 and 512 and K2
+   at d 512: the D split; K2 at d 384: the pair of blocks)
    against the plain versions and timed in turns with the shipped one at
    DESIGN_SHAPES (d 64 at the fine-tuning shape; K1 also at d 256's
    prefill shape), K1 beside SDPA's forward with the blocks an SM holds,
-   the K2 + K3 pair beside SDPA's backward, K1 at d 384, K2 at d 512 and
-   K3 at d 384 and 512 with the clusters of two blocks a card holds; K1,
+   the K2 + K3 pair beside SDPA's backward, K1, K2 and K3 at d 384 and
+   512 with the clusters of two blocks a card holds; K1,
    K2 and K3 in f32 (the
    register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
@@ -201,7 +202,7 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_pair": "K3 dkv (one pass on a cluster of two, d 384 "
                                "and 512)",
                    "flash_fwd_pair": "K1 flash_fwd (rows on a cluster of two, "
-                                     "d 384)",
+                                     "d 384 and 512)",
                    "dq_pair": "K2 dq (rows on a cluster of two, d 512)",
                    "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
@@ -225,9 +226,8 @@ DESIGN_KERNELS = {
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
                       4: "dkv_keys8", 6: "dkv_pair"}}
 # the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
-# d 192 and 256, K1 and K3 at d 384, K2 and K3 at d 512 in bf16, and all
-# three at d 128 in f32; phase 3 times them beside the shipped ones in
-# turns):
+# d 192 and 256, all three at d 384 and 512 in bf16, and all three at d
+# 128 in f32; phase 3 times them beside the shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
@@ -427,21 +427,26 @@ PAIR_EDGES = ((2, 1, 3, 1, True), (2, 65, 4, 2, True), (2, 129, 3, 1, True),
               (2, 300, 3, 3, True), (2, 300, 4, 2, True),
               (2, 1000, 3, 1, True), (1, 2047, 4, 2, True),
               (2, 256, 3, 1, False))
-PAIR_DIMS = (384, 512)
-# K1's pair of blocks at d 384 (flash_fwd_pair) and K2's at d 512
-# (dq_pair), each 128 query rows a pair over 64- or 32-key tiles, at their
-# edges, (b, s, heads, KV heads, causal): one row, one short of and one
-# past a 128-row pair, one short of two, s 300 at GQA groups 1 to 3, s
-# 1000 and 2047, non-causal aligned (b 8 s 2048 is phase 3's training-shape
-# case at phase 12's heads). Phase 3 holds the shipped K1 at d 384 and K2
-# at d 512 there (K3 beside K2), phase_wide_designs the other build's
+# K1's and K2's pairs of blocks (flash_fwd_pair, dq_pair), each 128 query
+# rows a pair over 64- or 32-key tiles, at their edges, (b, s, heads, KV
+# heads, causal): one row, one short of and one past a 128-row pair, one
+# short of two, s 300 at GQA groups 1 to 3, s 1000 and 2047, non-causal
+# aligned (b 8 s 2048 is phase 3's training-shape case at phase 12's
+# heads)
 ROWS_PAIR_EDGES = ((2, 1, 3, 1, True), (2, 127, 4, 2, True),
                    (2, 129, 3, 1, True), (2, 255, 4, 2, True),
                    (2, 300, 3, 3, True), (2, 300, 4, 2, True),
                    (2, 300, 3, 1, True), (2, 1000, 3, 1, True),
                    (1, 2047, 4, 2, True), (2, 256, 3, 1, False))
-# the head dim of each kernel that ships a pair of blocks of 128 query rows
-ROWS_PAIR_DIMS = {"flash_fwd": 384, "flash_bwd_dq": 512}
+# the head dims at which each of K1, K2 and K3 has a pair of blocks in one
+# of the two builds (K2's at d 384 in the other), and the edges each
+# kernel is held at there: phase 3 holds the shipped kernels (K2 and K3
+# side by side, at both kernels' edges), phase_wide_designs the other
+# build's
+PAIR_DIMS = (384, 512)
+PAIR_EDGE_SETS = {"flash_fwd": ROWS_PAIR_EDGES,
+                  "flash_bwd_dq": ROWS_PAIR_EDGES,
+                  "flash_bwd_dkv": PAIR_EDGES}
 # the kernels that must compile with no spill and no C75xx note (phase 2)
 CLEAN_KERNELS = ("dkv_pair", "flash_fwd_pair", "dq_pair")
 
@@ -762,12 +767,12 @@ def phase_kernels() -> dict:
         *((f"d64 s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, 64,
            torch.bfloat16, causal, False)
           for b, s, h, hkv, causal in D64_EDGES),
-        # d 384's pairs of blocks of 128 query rows over 64-key tiles
+        # the pairs of blocks of 128 query rows over 64-key tiles
         # (flash_fwd_pair) at their edges
-        *((f"d{ROWS_PAIR_DIMS['flash_fwd']} s{s} h{h} hkv{hkv} causal "
-           f"{causal} bf16", b, s, h, hkv, ROWS_PAIR_DIMS["flash_fwd"],
-           torch.bfloat16, causal, False)
-          for b, s, h, hkv, causal in ROWS_PAIR_EDGES),
+        *((f"d{d} s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv,
+           d, torch.bfloat16, causal, False)
+          for d in PAIR_DIMS
+          for b, s, h, hkv, causal in PAIR_EDGE_SETS["flash_fwd"]),
         ("g3 s1 bf16", 2, 1, 6, 2, 128, torch.bfloat16, True, False),
         ("g3 s65 bf16", 2, 65, 6, 2, 128, torch.bfloat16, True, False),
         ("g2 s127 bf16 wrapper", 2, 127, 8, 4, 128, torch.bfloat16, True,
@@ -843,6 +848,14 @@ def phase_kernels() -> dict:
             _log(f"  lse max abs err {lerr:.3e}")
         if fa.launches != before + 1:
             raise AssertionError(f"{name}: the kernel did not launch")
+        if d in PAIR_DIMS and not wrapper and dtype == torch.bfloat16:
+            # a pair sums in a fixed order: the same bits again
+            again_o, again_lse = fa.flash_fwd(qt, kt, vt, causal)
+            if not (torch.equal(got_o, again_o)
+                    and torch.equal(got_lse, again_lse)):
+                raise AssertionError(f"{name}: K1 is not deterministic")
+            _log("  twice on one input, bitwise equal")
+            del again_o, again_lse
         if dtype == torch.float32:
             worst_f32 = max(worst_f32, err)
         if d not in worst_wide:
@@ -1034,16 +1047,15 @@ def phase_bwd_kernels() -> dict:
         ("d192 gqa4 s300 bf16", 2, 300, 8, 2, 192, torch.bfloat16, True),
         ("d192 non-causal s512 bf16", 2, 512, 8, 4, 192, torch.bfloat16,
          False),
-        # K3's pairs of blocks at d 384 and 512 (dkv_pair) at their edges
+        # K2's and K3's pairs of blocks at d 384 and 512 (dq_pair: 128
+        # query rows a pair, 32-key stages; dkv_pair: 64 keys a pair) at
+        # both kernels' edges, side by side
         *((f"d{d} s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, d,
            torch.bfloat16, causal)
-          for d in PAIR_DIMS for b, s, h, hkv, causal in PAIR_EDGES),
-        # K2's pairs of blocks at d 512 (dq_pair: 128 query rows a pair,
-        # 32-key stages) at their edges, K3 beside it
-        *((f"d{ROWS_PAIR_DIMS['flash_bwd_dq']} s{s} h{h} hkv{hkv} causal "
-           f"{causal} bf16", b, s, h, hkv, ROWS_PAIR_DIMS["flash_bwd_dq"],
-           torch.bfloat16, causal)
-          for b, s, h, hkv, causal in ROWS_PAIR_EDGES),
+          for d in PAIR_DIMS
+          for b, s, h, hkv, causal in dict.fromkeys(
+              PAIR_EDGE_SETS["flash_bwd_dkv"]
+              + PAIR_EDGE_SETS["flash_bwd_dq"])),
         # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
         # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
         # 8-row query tiles at d 512) one row short of and one past their
@@ -1281,8 +1293,9 @@ def phase_wide_designs() -> dict:
     8-warp designs (dq_rows8: the same rows without the producer;
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
     other, one pass; dkv_keys8 at d 64: 128 keys a block, 64 a warpgroup,
-    each holding dK and dV of its keys, one pass); K3 at d 384 and 512, K1
-    at d 384 and K2 at d 512: the D split (dkv_split: 64 keys a block, the
+    each holding dK and dV of its keys, one pass); K1, K2 and K3 at d 384
+    and 512 (K2's pair ships at d 512 only): the D split (dkv_split: 64
+    keys a block, the
     output's columns split between the warpgroups, two passes;
     flash_fwd_split and dq_split: 64 rows a block) and a cluster of two
     (dkv_pair: dkv_onepass on each block of a pair; flash_fwd_pair and
@@ -1298,13 +1311,12 @@ def phase_wide_designs() -> dict:
     timed in turns with the shipped ones on the same inputs (shipped,
     other, other, shipped), K1 beside SDPA's forward with the blocks an SM
     holds of each, K2 + K3 as a pair beside SDPA's backward, each kernel
-    that either build launches in clusters (K1 at d 384, K2 at d 512, K3
-    at d 384 and 512) with the clusters of two a card holds of each (-1:
+    that either build launches in clusters (K1, K2 and K3 at d 384 and
+    512) with the clusters of two a card holds of each (-1:
     not a cluster kernel); the other K1 at d 192 and 256 and K2 at d 192
-    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES), the other
-    K3 at d 384 and 512 (PAIR_EDGES) and the other K1 at d 384 and K2 at d
-    512 (ROWS_PAIR_EDGES) are also held against the plain versions at
-    ragged lengths, GQA groups and non-causal. Returns {head
+    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES) and at d
+    384 and 512 (PAIR_EDGE_SETS) are also held against the plain versions
+    at ragged lengths, GQA groups and non-causal. Returns {head
     dim: {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
         _build,
@@ -1423,16 +1435,16 @@ def phase_wide_designs() -> dict:
     del q, k, v
     torch.cuda.empty_cache()
     # K1's other design at d 192 and 256 at WIDE_EDGES, at d 64 at
-    # D64_EDGES and at d 384 at ROWS_PAIR_EDGES (phase 3 holds the shipped
-    # one there)
+    # D64_EDGES and at d 384 and 512 at its pair edges (phase 3 holds the
+    # shipped one there)
     k1_edges = [(b, s, h, hkv, d, causal)
                 for h, hkv, d in (WIDE_HEADS["bench_800m_d192"],
                                   WIDE_HEADS["bench_800m_d256"])
                 for b, s, causal in WIDE_EDGES]
     k1_edges += [(b, s, h, hkv, 64, causal)
                  for b, s, h, hkv, causal in D64_EDGES]
-    k1_edges += [(b, s, h, hkv, ROWS_PAIR_DIMS["flash_fwd"], causal)
-                 for b, s, h, hkv, causal in ROWS_PAIR_EDGES]
+    k1_edges += [(b, s, h, hkv, d, causal) for d in PAIR_DIMS
+                 for b, s, h, hkv, causal in PAIR_EDGE_SETS["flash_fwd"]]
     try:
         _build._libs.update(libs["other"])
         for b, s, h, hkv, d, causal in k1_edges:
@@ -1449,21 +1461,18 @@ def phase_wide_designs() -> dict:
             out[d]["flash_fwd"]["other_max_abs_err"] = max(
                 out[d]["flash_fwd"]["other_max_abs_err"], err)
         # K2's and K3's other design at d 64 at D64_EDGES, K2's at d 192
-        # at WIDE_EDGES, K3's at d 384 and 512 at PAIR_EDGES and K2's at d
-        # 512 at ROWS_PAIR_EDGES (phase 3 holds the shipped ones there),
-        # each twice on one input
+        # at WIDE_EDGES, and each one's at d 384 and 512 at its pair edges
+        # (phase 3 holds the shipped ones there), each twice on one input
         h, hkv, _ = WIDE_HEADS["bench_800m_d192"]
         bwd_edges = [(b, s, h, hkv, 192, causal, ("flash_bwd_dq",))
                      for b, s, causal in WIDE_EDGES]
         bwd_edges += [(b, s, h, hkv, 64, causal,
                        ("flash_bwd_dq", "flash_bwd_dkv"))
                       for b, s, h, hkv, causal in D64_EDGES]
-        bwd_edges += [(b, s, h, hkv, d, causal, ("flash_bwd_dkv",))
+        bwd_edges += [(b, s, h, hkv, d, causal, (name,))
+                      for name in ("flash_bwd_dq", "flash_bwd_dkv")
                       for d in PAIR_DIMS
-                      for b, s, h, hkv, causal in PAIR_EDGES]
-        bwd_edges += [(b, s, h, hkv, ROWS_PAIR_DIMS["flash_bwd_dq"], causal,
-                       ("flash_bwd_dq",))
-                      for b, s, h, hkv, causal in ROWS_PAIR_EDGES]
+                      for b, s, h, hkv, causal in PAIR_EDGE_SETS[name]]
         for b, s, h, hkv, d, causal, names in bwd_edges:
             q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                               causal)
@@ -5040,8 +5049,8 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     and dim, from phase 3's numbers (``numbers[kernel]["wide"][label]``),
     phase 12's launches per path (``wide[d][path][kernel]``) and
     ``phase_wide_designs``' (``designs[d][kernel]``): wherever the two
-    builds run different kernels (K1, K2 and K3 at d 192 and 256, K1 and
-    K3 at d 384, K2 and K3 at d 512) the other design's numbers beside the
+    builds run different kernels (K1, K2 and K3 at d 192, 256, 384 and
+    512) the other design's numbers beside the
     shipped one's,
     K2's and K3's with the pair's sum beside SDPA's backward; the
     kernel-only dims (d 320, 448: no model, so no launches on a main path)

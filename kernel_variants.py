@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Build the design alternatives of K1 (``flash_fwd_twin`` at d 64,
-``flash_fwd_rows8`` at d 256, ``flash_fwd_pair`` at d 384, ``flash_fwd_f32``
-at d 128 in f32, in
+``flash_fwd_rows8`` at d 256, ``flash_fwd_pair`` at d 384 and 512,
+``flash_fwd_f32`` at d 128 in f32, in
 ``service_account_auth_improvements_tpu_torch/csrc/flash_fwd.cu``),
 K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_pair`` at
-d 512, ``dq_f32`` at d 128 in f32) and K3 (``dkv_keys8`` at d 64,
+d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
+(``dkv_keys8`` at d 64,
 ``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
 ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time them
 against the committed kernels on one CUDA card.
@@ -70,19 +71,24 @@ PAIR_PREFETCH_WAIT = (
     "      if (L::PREFETCH && STAGES == 2)\n"
     "        mbar_wait(q_empty + 8 * (m % STAGES), (m / STAGES) & 1);\n"
     "      if (__shfl_sync(")
-# the block's arrival on the peer's `freed` barrier, behind both
-# products' issue, by thread 0 past a named barrier of both warpgroups or
-# by every warp; the barrier's count for every warp
-PAIR_ARRIVE = """    if (next) {
-      bar_sync(2, 2 * WG);
-      if (threadIdx.x == 0) mbar_arrive_remote_cta(freed_peer);
-    }
+# the arrival on the peer's `freed` barrier (hopper::PairExchange, every
+# pair's), by the first of the buffer's readers past a named barrier of
+# them, or by every warp once its own reads are issued; the barrier's count
+# for every warp of the readers
+PAIR_ARRIVE = """      bar_sync(READERS == 128 ? 2 + c : 2, READERS);
+      if (threadIdx.x % READERS == 0) mbar_arrive_remote_cta(freed_peer);
 """
-PAIR_WARP_ARRIVE = PAIR_ARRIVE.replace(
-    "      bar_sync(2, 2 * WG);\n      if (threadIdx.x == 0)",
-    "      __syncwarp();\n      if (t % 32 == 0)")
-PAIR_WARP_COUNT = ("    mbar_init(freed, 1);  // the peer's thread 0\n",
-                   "    mbar_init(freed, 2 * WG / 32);\n")
+PAIR_WARP_ARRIVE = """      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive_remote_cta(freed_peer);
+"""
+PAIR_WARP_COUNT = (
+    "      mbar_init(bar + 16 + 8 * f, 1);  // one arrival: the peer's "
+    "release\n",
+    "      mbar_init(bar + 16 + 8 * f, READERS / 32);\n")
+PAIR_WARP_ARRIVALS = [PAIR_WARP_COUNT, (PAIR_ARRIVE, PAIR_WARP_ARRIVE)]
+# dkv_pair's release, made before its dV/dK product is issued instead of
+# after it
+PAIR_RELEASE = "    xc.release(next);\n"
 PAIR_PRODUCT = ("    // dV[:, half] += P^T dO[:, half] (warpgroup 0) or dK[:, half] +=\n"
                 "    // dS^T Q[:, half] (warpgroup 1)\n")
 # the prefetch issued on the last stage too (its own scores again), and
@@ -92,33 +98,49 @@ PAIR_PREFETCH_EVERY = (
     "    if constexpr (L::PREFETCH) scores(sn, next ? n + 1 : n);\n")
 PAIR_PREFETCH_TAKE = ("    if constexpr (L::PREFETCH) {\n      fence_regs(sn);\n",
                       "    if (L::PREFETCH && next) {\n      fence_regs(sn);\n")
-PAIR_DESIGN = ("         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
-               ": kPair)\n")
 
 
-# K1 at d 384 and K2 at d 512 on a pair of blocks (flash_fwd_pair,
-# dq_pair): K1's stages; K1's next tile's partial S issued during this
-# one's exchange, or not; the arrival on the twin's `freed` barrier, by
-# thread 0 of the warpgroup past a named barrier of it, or by every warp;
-# K2's key tiles (one stage of 64 keys, exchanged in two rounds, against
-# two of 32)
-ROWS_PAIR_STAGES = ("  static constexpr int STAGES = 3;  // K/V stages (2 "
-                    "leave 48 KB unused)\n")
-ROWS_PAIR_ARRIVE = """    if (more) {
-      bar_sync(2 + c, WG);
-      if (t == 0) mbar_arrive_remote_cta(freed_peer);
-    }
-"""
-ROWS_PAIR_PREFETCH = "  static constexpr bool PREFETCH = true;\n"
-ROWS_PAIR_WARP_ARRIVE = ROWS_PAIR_ARRIVE.replace(
-    "      bar_sync(2 + c, WG);\n      if (t == 0)",
-    "      __syncwarp();\n      if (t % 32 == 0)")
-ROWS_PAIR_WARP_COUNT = (
-    "      mbar_init(freed0 + 8 * c, 1);  // the twin's thread 0\n",
-    "      mbar_init(freed0 + 8 * c, WG / 32);\n")
-DQ_PAIR_TILES = ("  static constexpr int BK = 32;     // keys per K/V stage\n"
-                 "  static constexpr int STAGES = 2;  // a third does not "
-                 "fit beside the buffers\n")
+def design_at(kernel: str, d: int, design: str = "kDSplit") -> tuple:
+    """The edit that makes ``kernel``'s design rule (``fwd_design``,
+    ``dq_design``, ``dkv_design``) return ``design`` at head dim ``d`` in
+    either build."""
+    head = f"constexpr int {kernel}_design(int d) {{\n"
+    return head, f"{head}  if (d == {d}) return {design};\n"
+
+
+
+# K1 and K2 at d 384 and 512 on a pair of blocks (flash_fwd_pair,
+# dq_pair): K1's stages and prefetch; K2's key tiles and stages (one
+# stage of 64 keys, exchanged in two rounds, against two of 32 at d 512;
+# two of 64 against four of 32 at d 384)
+ROWS_PAIR_STAGES = "  static constexpr int STAGES = D == 384 ? 3 : 2;\n"
+ROWS_PAIR_PREFETCH = "  static constexpr bool PREFETCH = D == 384;\n"
+FWD_PAIR_BK = "  static constexpr int BK = 64;     // keys per K/V stage\n"
+# an m64n48k16 wgmma (hopper.cuh has N 8 to 128 but 48), for 48-key tiles
+WGMMA_N64 = "template <int OA, int OB>\nstruct WgmmaSS<64, OA, OB> {\n"
+WGMMA_N48 = (WGMMA_N64, """template <int OA, int OB>
+struct WgmmaSS<48, OA, OB> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\\n.reg .pred p;\\n.reg .b64 da, db;\\n"
+        "setp.ne.b32 p, %26, 0;\\n"
+        "add.s64 da, %24, %27;\\nadd.s64 db, %25, %28;\\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "da, db, p, 1, 1, 0, 0;\\n}\\n"
+        : REGS
+        : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+  }
+};
+
+""".replace("REGS", ", ".join(f'"+f"(d[{i}])' for i in range(24)))
+    + WGMMA_N64)
+DQ_PAIR_PREFETCH = "  static constexpr bool PREFETCH = STAGES > 2;\n"
+DQ_PAIR_BK = "  static constexpr int BK = 32;     // keys per K/V stage\n"
+DQ_PAIR_STAGES = "  static constexpr int STAGES = D == 384 ? 4 : 2;\n"
 
 
 def pair_at(d: int, **edits) -> list:
@@ -1114,10 +1136,7 @@ VARIANTS.update({
     "pair_d384_split": (
         "d 384 K3 on the D split (dkv_split<384>: two passes, 32-query "
         "stages; the other build's design)",
-        [(PAIR_DESIGN, "         : d == 384 ? kDSplit\n"
-                       "         : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
-                       ": kPair)\n")],
-        "dkv_pair<384>", "dkv_split"),
+        [design_at("dkv", 384)], "dkv_pair<384>", "dkv_split"),
     "pair_d512_bq32": (
         "d 512 K3: 32-query stages, 4",
         pair_at(512, bq=32, stages=4), "dkv_pair<512>"),
@@ -1128,13 +1147,12 @@ VARIANTS.update({
     **{f"pair_d{_d}_warp_arrivals": (
         f"d {_d} K3: every warp arrives on the peer's freed barrier once it "
         "has issued its product (8 arrivals, no named barrier)",
-        [PAIR_WARP_COUNT, (PAIR_ARRIVE, PAIR_WARP_ARRIVE)],
-        f"dkv_pair<{_d}>") for _d in (384, 512)},
+        PAIR_WARP_ARRIVALS, f"dkv_pair<{_d}>") for _d in (384, 512)},
     **{f"pair_d{_d}_warp_arrivals_first": (
         f"d {_d} K3: every warp arrives on the peer's freed barrier before "
         "it issues its product",
-        [PAIR_WARP_COUNT, (PAIR_ARRIVE, ""),
-         (PAIR_PRODUCT, PAIR_WARP_ARRIVE + PAIR_PRODUCT)],
+        [*PAIR_WARP_ARRIVALS, (PAIR_RELEASE, ""),
+         (PAIR_PRODUCT, PAIR_RELEASE + PAIR_PRODUCT)],
         f"dkv_pair<{_d}>") for _d in (384, 512)},
     "pair_d384_prefetch_every_stage": (
         "d 384 K3: the prefetch issued on the last stage too (that stage's "
@@ -1147,54 +1165,92 @@ VARIANTS.update({
     "pair_d512_split": (
         "d 512 K3 on the D split (dkv_split<512>: two passes, 16-query "
         "stages; the other build's design)",
-        [(PAIR_DESIGN, "         : d == 512 ? kDSplit\n"
-                       "         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit "
-                       ": kPair)\n")],
-        "dkv_pair<512>", "dkv_split"),
+        [design_at("dkv", 512)], "dkv_pair<512>", "dkv_split"),
 })
-# K1 at d 384 and K2 at d 512 on a pair of blocks (flash_fwd_pair,
-# dq_pair): K1's stages and prefetch; who arrives on the twin's `freed`
-# barrier (thread 0 of the warpgroup past a named barrier of it, or every
-# warp); K2's key tiles; and the other build's split kernels, timed in the
-# same turns
+# K1 and K2 at d 384 and 512 on a pair of blocks (flash_fwd_pair,
+# dq_pair): K1's stages, key tiles and prefetch; who arrives on the twin's
+# `freed` barrier (thread 0 of the warpgroup past a named barrier of it,
+# or every warp); K2's key tiles and prefetch; and the other build's
+# designs, timed in the same turns
 VARIANTS.update({
     "fwd_pair_2_stages": (
         "d 384 K1 on the pair: two K/V stages of 64 keys, not three",
-        [(ROWS_PAIR_STAGES, ROWS_PAIR_STAGES.replace("= 3;", "= 2;"))],
+        [(ROWS_PAIR_STAGES, ROWS_PAIR_STAGES.replace("D == 384 ? 3 : 2",
+                                                     "2"))],
         "flash_fwd_pair<384>"),
     "fwd_pair_no_prefetch": (
         "d 384 K1 on the pair: each tile's partial S issued only once the "
         "last tile's P V is in (no prefetch during the exchange)",
-        [(ROWS_PAIR_PREFETCH, ROWS_PAIR_PREFETCH.replace("true", "false"))],
+        [(ROWS_PAIR_PREFETCH, ROWS_PAIR_PREFETCH.replace("D == 384",
+                                                         "false"))],
         "flash_fwd_pair<384>"),
-    "fwd_pair_warp_arrivals": (
-        "d 384 K1 on the pair: every warp arrives on the twin's freed "
+    **{f"fwd_pair_d512_bk48{'_prefetch' * _p}": (
+        "d 512 K1 on the pair: 48-key tiles in two stages (a third does not "
+        "fit either; 24 score registers a thread instead of 32)"
+        + (", the next tile's partial S during the exchange" if _p else ""),
+        [WGMMA_N48,
+         (FWD_PAIR_BK,
+          FWD_PAIR_BK.replace("BK = 64", "BK = D == 512 ? 48 : 64")),
+         *([(ROWS_PAIR_PREFETCH, ROWS_PAIR_PREFETCH.replace("D == 384",
+                                                            "true"))]
+           if _p else [])],
+        "flash_fwd_pair<512>") for _p in (False, True)},
+    "fwd_pair_d512_prefetch": (
+        "d 512 K1 on the pair: the next tile's partial S issued during this "
+        "one's exchange, on two stages (thread 0 waits every tile for the "
+        "other warpgroup's release of the tile before)",
+        [(ROWS_PAIR_PREFETCH, ROWS_PAIR_PREFETCH.replace("D == 384",
+                                                         "true"))],
+        "flash_fwd_pair<512>"),
+    **{f"fwd_pair{'' if _d == 384 else '_d512'}_warp_arrivals": (
+        f"d {_d} K1 on the pair: every warp arrives on the twin's freed "
         "barrier once it has issued its P V (4 arrivals, no named barrier)",
-        [(ROWS_PAIR_ARRIVE, ROWS_PAIR_WARP_ARRIVE), ROWS_PAIR_WARP_COUNT],
-        "flash_fwd_pair<384>"),
-    "fwd_pair_split": (
-        "d 384 K1 on the D split (flash_fwd_split<384>: 64 rows a block, "
+        PAIR_WARP_ARRIVALS, f"flash_fwd_pair<{_d}>") for _d in (384, 512)},
+    **{f"fwd_pair{'' if _d == 384 else '_d512'}_split": (
+        f"d {_d} K1 on the D split (flash_fwd_split<{_d}>: 64 rows a block, "
         "32-key stages; the other build's design)",
-        [("         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)\n",
-          "         : d == 384 ? kDSplit\n")],
-        "flash_fwd_pair<384>", "flash_fwd_split"),
+        [design_at("fwd", _d)], f"flash_fwd_pair<{_d}>", "flash_fwd_split")
+        for _d in (384, 512)},
     "dq_pair_warp_arrivals": (
         "d 512 K2 on the pair: every warp arrives on the twin's freed "
         "barrier once it has issued its dQ product",
-        [(ROWS_PAIR_ARRIVE, ROWS_PAIR_WARP_ARRIVE), ROWS_PAIR_WARP_COUNT],
-        "dq_pair<512>"),
+        PAIR_WARP_ARRIVALS, "dq_pair<512>"),
     "dq_pair_bk64_one_stage": (
         "d 512 K2 on the pair: one K/V stage of 64 keys (m64n64 score "
         "products), the exchange in two rounds of 32 keys",
-        [(DQ_PAIR_TILES, DQ_PAIR_TILES.replace("BK = 32", "BK = 64")
-          .replace("STAGES = 2", "STAGES = 1"))],
+        [(DQ_PAIR_BK,
+          DQ_PAIR_BK.replace("BK = 32", "BK = D == 512 ? 64 : 32")),
+         (DQ_PAIR_STAGES, DQ_PAIR_STAGES.replace("4 : 2", "4 : 1"))],
         "dq_pair<512>"),
     "dq_pair_split": (
         "d 512 K2 on the D split (dq_split<512>: 64 rows a block, 16-key "
         "stages; the other build's design)",
-        [("         : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)\n",
-          "         : d == 512 ? kDSplit\n")],
-        "dq_pair<512>", "dq_split"),
+        [design_at("dq", 512)], "dq_pair<512>", "dq_split"),
+    # K2 at d 384 ships dq_split (the committed build's), the pair lost
+    # to it: each variant runs the pair there
+    "dq_pair_d384": (
+        "d 384 K2 on the pair (the other build's design): four stages of 32 "
+        "keys, the next tile's partial S and dP during the exchange",
+        [design_at("dq", 384, "kPair")], "dq_pair<384>", "dq_pair"),
+    "dq_pair_d384_no_prefetch": (
+        "d 384 K2 on the pair: four stages of 32 keys, each tile's partial "
+        "S and dP issued only once the last tile's dQ product is in",
+        [design_at("dq", 384, "kPair"),
+         (DQ_PAIR_PREFETCH, DQ_PAIR_PREFETCH.replace("STAGES > 2", "false"))],
+        "dq_pair<384>", "dq_pair"),
+    "dq_pair_d384_bk64": (
+        "d 384 K2 on the pair: two K/V stages of 64 keys (dq_rows8<192>'s "
+        "tiles), the exchange in two rounds of 32 keys, no prefetch",
+        [design_at("dq", 384, "kPair"),
+         (DQ_PAIR_BK,
+          DQ_PAIR_BK.replace("BK = 32", "BK = D == 384 ? 64 : 32")),
+         (DQ_PAIR_STAGES, DQ_PAIR_STAGES.replace("D == 384 ? 4 : 2", "2"))],
+        "dq_pair<384>", "dq_pair"),
+    "dq_pair_d384_warp_arrivals": (
+        "d 384 K2 on the pair: every warp arrives on the twin's freed "
+        "barrier once it has issued its dQ product",
+        [design_at("dq", 384, "kPair"), *PAIR_WARP_ARRIVALS], "dq_pair<384>",
+        "dq_pair"),
 })
 # K2's SPLIT flag off at d 192
 VARIANTS["dq_d192_one_commit"] = (
@@ -1213,7 +1269,9 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dkv_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dkv_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
                 "flash_fwd_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
+                "flash_fwd_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dq_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
+                "dq_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128)}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
@@ -1235,7 +1293,7 @@ KERNEL_SHAPES = {
                        *KERNEL_HEADS["dq_rows8<192>"])],
     **{key: [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[key])]
        for key in ("dkv_pair<512>", "dkv_pair<384>", "flash_fwd_pair<384>",
-                   "dq_pair<512>")},
+                   "flash_fwd_pair<512>", "dq_pair<512>", "dq_pair<384>")},
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,

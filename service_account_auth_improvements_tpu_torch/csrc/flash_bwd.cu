@@ -50,7 +50,7 @@
 // consumers; K2 at d 320, 384 and 448, K3 at d 320 and 448), `dkv_pair`
 // (K3 at d 384 and 512: dkv_onepass on a cluster of two blocks, each
 // holding half of the head dim) and `dq_pair` (K2 at d 512: dq_rows8 on a
-// cluster of two blocks, the same way).
+// cluster of two blocks, the same way; at d 384 in the other build).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
@@ -128,17 +128,19 @@ constexpr int SMEM_MAX = 232448;
 //              owning dK and dV of its keys, one pass (d 64);
 //   kPair      a cluster of two 8-warp blocks, each holding half of the
 //              head dim: K3's dkv_pair (dkv_onepass on each block; d 384
-//              and 512) and K2's dq_pair (dq_rows8 on each block; d 512).
+//              and 512) and K2's dq_pair (dq_rows8 on each block; d 512,
+//              and d 384 in the other build).
 // At d 64, 192, 256, 384 and 512 each of K2 and K3 ships the faster of two
 // designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
 // card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
 // split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
-// dq_rows8 and dkv_onepass at d 256, K3's dkv_pair at d 384 and 512 (K2
-// has one design at d 384, dq_split) and K2's dq_pair at d 512. A build
-// with -DFLASH_OTHER_DESIGNS=1 takes the other design at each (dkv_split
-// at d 384 and 512, dq_split at d 512; K1's other design at d 64, 192, 256
-// and 384, and the scalar f32 kernels at d 128: F32Design). The ids 5 and
-// 7 are K1's (FwdDesign's kTwin and kPair).
+// dq_rows8 and dkv_onepass at d 256, K3's dkv_pair at d 384 and 512, K2's
+// dq_split at d 384 (its dq_pair lost to it in turns) and dq_pair at d
+// 512. A build with -DFLASH_OTHER_DESIGNS=1 takes the other design at each
+// (dq_pair at d 384, dq_split at d 512, dkv_split at d 384 and 512; K1's
+// other design at d 64, 192, 256, 384 and 512, and the scalar f32 kernels
+// at d 128: F32Design). The ids 5 and 7 are K1's (FwdDesign's kTwin and
+// kPair).
 enum BwdDesign {
   kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4,
   kPair = 6
@@ -151,6 +153,7 @@ constexpr int dq_design(int d) {
   return d == 64 || d == 192 || d == 256
              ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
          : d <= 128 ? kRowSplit
+         : d == 384 ? (FLASH_OTHER_DESIGNS ? kPair : kDSplit)
          : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
                     : kDSplit;
 }
@@ -206,8 +209,8 @@ constexpr int DQ_THREADS = 3 * WG;   // producer + two consumers
 // wgmmas. Stages in the ring: 256 keys' worth (4 of 64 keys or 2 of 128),
 // or as many as fit beside the resident Q and dO (d 192: 5, d 256: 3).
 // At d 64, 192 and 256 K2 ships as dq_rows8 and from d 320 it is dq_split
-// (BwdDesign): at d 192 this kernel runs only in the -DFLASH_OTHER_DESIGNS=1
-// build.
+// or dq_pair (BwdDesign): at d 192 this kernel runs only in the
+// -DFLASH_OTHER_DESIGNS=1 build.
 constexpr int dq_bk(int d) { return d <= 128 ? DQ_BK : 32; }
 constexpr int dq_stages(int d) {
   const int fit =
@@ -771,9 +774,9 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 
 // ------------------------------------------------ bf16: the D-split kernels
 //
-// From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>` (but at d 384 and
-// 512 K3 ships as dkv_pair and at d 512 K2 as dq_pair, below, and the
-// split kernels run there only in the -DFLASH_OTHER_DESIGNS=1 build).
+// From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>` (but K3 ships as
+// dkv_pair at d 384 and 512 and K2 as dq_pair at d 512, below, and those
+// split kernels run only in the -DFLASH_OTHER_DESIGNS=1 build).
 // dq_wgmma and dkv_wgmma hold a D / 2-register accumulator a thread (256
 // at d 512, past the 255 a thread may have), and their resident tiles (Q
 // and dO of 128 rows, K and V of 128 keys: 256 KB at d 512) overflow 227
@@ -1514,28 +1517,20 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
 //   t = A_c[:, half] B_c[:, half]^T   m64n64k16 x D/32: warpgroup 0 the
 //                   partial S^T = K Q^T, warpgroup 1 the partial dP^T
 //                   = V dO^T
-//   each warpgroup stores its t, in fragment order, into its twin
-//   warpgroup's receive buffer in the peer block (st.async, 16 bytes a
-//   store, completing the bytes of the peer's receive mbarrier), waits
-//   for the peer's t in its own receive buffer and adds it: one f32 add
-//   per element, the same two values on both blocks, so IEEE addition
-//   (commutative) gives both blocks the same S^T and dP^T bit for bit
+//   each warpgroup sums its t with its twin warpgroup's in the peer block
+//   (hopper::PairExchange: one round of 16 KB a stage), so both blocks
+//   hold the same S^T and dP^T bit for bit
 //   then, as dkv_onepass: P^T (warpgroup 0 writes it over the receive
 //   buffer it has just read, one named barrier a stage), dS^T on
 //   warpgroup 1, dV[:, half] += P^T dO[:, half] on warpgroup 0 and
 //   dK[:, half] += dS^T Q[:, half] on warpgroup 1.
-// Both warpgroups read P^T, so the block arrives on the peer's `freed`
-// barrier only once both have issued their dV/dK product (all reads of
-// its receive buffers done: a named barrier of both, then thread 0's
-// arrival, released at CTA scope as flash_fwd_pair's and dq_pair's,
-// hopper::mbar_arrive_remote_cta); the peer waits on it before it stores
-// the next stage's partials over them. Four products a stage, each formed
+// Both warpgroups read P^T (PairExchange::stash and unstash), so the
+// exchange's readers are both warpgroups (READERS 256): the block hands
+// both receive buffers back to the peer once both have issued their dV/dK
+// product (PairExchange::release). Four products a stage, each formed
 // once; Q and dO streamed once; the rounding rules (P to dO's dtype, dS to
-// Q's, dK scaled once at the end) are dkv_onepass's. A cluster barrier at
-// the start makes each block's mbarriers visible to its peer before the
-// first remote store, and one at the end keeps both resident until
-// neither touches the other's shared memory. Every sum runs in a fixed
-// order in one pair: deterministic, no atomics.
+// Q's, dK scaled once at the end) are dkv_onepass's. Every sum runs in a
+// fixed order in one pair: deterministic, no atomics.
 // Bound on an H100: operations (four products, as dkv_onepass); what the
 // pair adds is the exchange, 32 KB each way per stage between two SMs, in
 // series with the tensor work. At d 384 the next stage's partial is
@@ -1548,11 +1543,10 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
 // arrival on `freed` is made).
 
 // Shared memory: dkv_onepass's at D / 2 (K and V halves resident, the Q and
-// dO stages, their lse and delta), then the receive buffer, holding the
+// dO stages, their lse and delta), then the receive buffers, holding the
 // two warpgroups' 64 x BQ f32 partials (16 KB each at BQ 64), and the
 // mbarriers: kv_full, q_full[S], q_empty[S] (as DkvSplit, so
-// dkv_stage_load fills them), recv[2] (the peer's partials have landed)
-// and freed (the peer has read this block's).
+// dkv_stage_load fills them), then the exchange's (recv[2], freed).
 template <int D>
 struct DkvPair {
   static constexpr int DH = D / 2;  // head-dim columns a block holds
@@ -1568,15 +1562,19 @@ struct DkvPair {
   static constexpr int KV_BYTES = BK * DH * 2, KV_CB = BK * 128;
   static constexpr int QT_BYTES = BQ * DH * 2, QT_CB = BQ * 128;
   static constexpr int ROW_BYTES = BQ * 4;
-  static constexpr int XB = BQ / 2 * WG * 4;  // a warpgroup's partial, bytes
+  // the exchange: a thread's BQ / 2 partial scores, BQ / 8 chunks a round;
+  // both warpgroups read both receive buffers (P^T goes through
+  // warpgroup 0's)
+  using X = hopper::PairExchange<BQ / 8, 2 * WG>;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
   static constexpr int L_OFF = DO_OFF + STAGES * QT_BYTES;
   static constexpr int DL_OFF = L_OFF + STAGES * ROW_BYTES;
   static constexpr int X_OFF = DL_OFF + STAGES * ROW_BYTES;
-  static constexpr int BAR_OFF = X_OFF + 2 * XB;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES + 3) + 1024;
+  static constexpr int BAR_OFF = X_OFF + 2 * X::BYTES;
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (1 + 2 * STAGES + X::BARS) + 1024;
   static_assert(DH % 64 == 0 && DH <= 256, "dK, dV: 256 columns a block");
   static_assert(BYTES <= SMEM_MAX, "227 KB a block");
 };
@@ -1600,7 +1598,7 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
   const uint32_t bar = base + L::BAR_OFF;
   const uint32_t kv_full = bar, q_full = bar + 8,
                  q_empty = q_full + 8 * STAGES;
-  const uint32_t recv = q_empty + 8 * STAGES, freed = recv + 16;
+  const uint32_t xbar = q_empty + 8 * STAGES;
 
   // heaviest key tiles (the first, under causal masking) first, as
   // dkv_onepass; the pair's index is its cluster's
@@ -1621,17 +1619,10 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
       mbar_init(q_full + 8 * s, 32);  // the first warp's lanes
       mbar_init(q_empty + 8 * s, 2 * WG);
     }
-    mbar_init(recv, 1);
-    mbar_init(recv + 8, 1);
-    mbar_init(freed, 1);  // the peer's thread 0
-    if (tiles > 0) {  // the bytes of the peer's first stage
-      mbar_arrive_expect_tx(recv, L::XB);
-      mbar_arrive_expect_tx(recv + 8, L::XB);
-    }
+    L::X::init(xbar, tiles > 0);
     fence_mbar_init();
   }
-  cluster_arrive();
-  cluster_wait();
+  L::X::begin();
 
   if (threadIdx.x < 32) {  // K and V halves, and the first STAGES stages
     if (threadIdx.x == 0) {
@@ -1651,11 +1642,9 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
   const uint32_t a_addr = base + c * L::V_OFF;
   const uint32_t b_off = c * (L::DO_OFF - L::Q_OFF);
   const uint32_t y_off = (1 - c) * (L::DO_OFF - L::Q_OFF);
-  // where this warpgroup's partial goes in the peer (its twin's receive
-  // buffer and barrier), and the peer's `freed` barrier
-  const uint32_t rx_peer = cluster_map(base + L::X_OFF + c * L::XB, peer);
-  const uint32_t recv_peer = cluster_map(recv + 8 * c, peer);
-  const uint32_t freed_peer = cluster_map(freed, peer);
+  // this warpgroup's side of the exchange with its twin in the peer
+  const typename L::X xc(base + L::X_OFF, smem + L::X_OFF, xbar, peer, c,
+                         t);
   float acc[DH / 2];
 #pragma unroll
   for (int r = 0; r < DH / 2; ++r) acc[r] = 0.f;
@@ -1709,13 +1698,8 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     wgmma_wait<0>();
     fence_regs(st);
 
-    // to the peer, once it has read the last stage's: register chunk k of
-    // thread t to 16-byte slot k * 128 + t
-    mbar_wait_cluster(freed, ph ^ 1);
-#pragma unroll
-    for (int k = 0; k < BQ / 8; ++k)
-      st_async_16(rx_peer + (k * WG + t) * 16, st[4 * k], st[4 * k + 1],
-                  st[4 * k + 2], st[4 * k + 3], recv_peer);
+    // to the peer, once it has read the last stage's
+    xc.send(st, ph);
     // PREFETCH: the next stage's partial, meanwhile (taken into st below
     // on every stage, unused after the last: taking it only while there
     // is a next stage serialises the wgmmas, C7515)
@@ -1724,36 +1708,22 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     if constexpr (L::PREFETCH)
       if (next) scores(sn, n + 1);
     // from the peer: its half, added to this one's
-    mbar_wait_cluster(recv + 8 * c, ph);
-    if (t == 0 && next)  // the bytes of the next stage
-      mbar_arrive_expect_tx(recv + 8 * c, L::XB);
-    const float4* in =
-        reinterpret_cast<const float4*>(smem + L::X_OFF + c * L::XB);
-#pragma unroll
-    for (int k = 0; k < BQ / 8; ++k) {
-      const float4 v = in[k * WG + t];
-      st[4 * k] += v.x;
-      st[4 * k + 1] += v.y;
-      st[4 * k + 2] += v.z;
-      st[4 * k + 3] += v.w;
-    }
+    xc.recv_add(st, ph, next);
 
     // P^T in dO's dtype, from warpgroup 0's S^T, over warpgroup 0's receive
     // buffer (just read, by the same threads): pair r of the A fragments
     // (dkv_pack's order) is word r % 4 of slot (r / 4) * 128 + t.
     // Warpgroup 1's arithmetic on dP^T here is discarded.
-    uint4* pbuf = reinterpret_cast<uint4*>(smem + L::X_OFF);
     {
       float p[BQ / 2];
       dkv_probs<BQ>(p, st, ls, a, q0, key0, key1, tq, need_mask);
       if (c == 0) {
 #pragma unroll
         for (int k = 0; k < BQ / 16; ++k)
-          pbuf[k * WG + t] = make_uint4(
-              pack_bf16x2(p[8 * k], p[8 * k + 1]),
-              pack_bf16x2(p[8 * k + 2], p[8 * k + 3]),
-              pack_bf16x2(p[8 * k + 4], p[8 * k + 5]),
-              pack_bf16x2(p[8 * k + 6], p[8 * k + 7]));
+          xc.stash(k, make_uint4(pack_bf16x2(p[8 * k], p[8 * k + 1]),
+                                 pack_bf16x2(p[8 * k + 2], p[8 * k + 3]),
+                                 pack_bf16x2(p[8 * k + 4], p[8 * k + 5]),
+                                 pack_bf16x2(p[8 * k + 6], p[8 * k + 7])));
       }
     }
     bar_sync(1, 2 * WG);
@@ -1770,7 +1740,7 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     uint32_t f[BQ / 16][4];
 #pragma unroll
     for (int k = 0; k < BQ / 16; ++k) {
-      const uint4 v = pbuf[k * WG + t];
+      const uint4 v = xc.unstash(k);
       const uint32_t pk4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1795,10 +1765,7 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     // both warpgroups have read both receive buffers (their partials, and
     // P^T into f) once both have issued the product: the peer may refill
     // them
-    if (next) {
-      bar_sync(2, 2 * WG);
-      if (threadIdx.x == 0) mbar_arrive_remote_cta(freed_peer);
-    }
+    xc.release(next);
     wgmma_wait<0>();  // and the next stage's partial (PREFETCH)
     fence_regs(acc);
     if constexpr (L::PREFETCH) {
@@ -1808,13 +1775,13 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
     }
     release(n);
   }
-  cluster_arrive();  // no more stores into the peer, nor reads of its data
-  bf16* dst = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
-              ib * (c == 0 ? a.dv_sb : a.dk_sb) +
-              ikv * (c == 0 ? a.dv_sh : a.dk_sh);
-  dkv_store<DH>(dst, c == 0 ? a.dv_ss : a.dk_ss, acc, c == 0 ? 1.f : a.scale,
-                key0, key1, a.sk, tq);
-  cluster_wait();
+  L::X::end([&] {
+    bf16* dst = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
+                ib * (c == 0 ? a.dv_sb : a.dk_sb) +
+                ikv * (c == 0 ? a.dv_sh : a.dk_sh);
+    dkv_store<DH>(dst, c == 0 ? a.dv_ss : a.dk_ss, acc,
+                  c == 0 ? 1.f : a.scale, key0, key1, a.sk, tq);
+  });
 }
 
 // ------------------------------------------------ bf16 at d 64: 8-warp blocks
@@ -2249,76 +2216,83 @@ dq_rows8(const __grid_constant__ DqArgs a) {
                 a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
 }
 
-// ------------------------------------------------ K2 at d 512: clusters
+// ------------------------------------------------ K2 at d 384, 512: clusters
 //
 // K2 at d 512 is `dq_pair<D>` (kPair; dq_split<512> is the
-// -DFLASH_OTHER_DESIGNS=1 build's): dq_rows8 at D / 2 on each block of a
-// cluster of two. What held dq_split<512> back: Q and dO resident at the
-// full head dim (128 KB of 64 rows) left 2 stages of 16 keys; each
-// warpgroup formed its halves of S and dP as m64n8 products over all 512
-// columns, dQ += dS K was one k16 step a stage, and the chain (scores,
-// the exchange and its barrier, dS, the product, waited for) ran in
-// series every 16 keys. Bound on an H100: operations (three products, 3 s^2
-// d flops per causal (b, h), against ~4 s d bytes). Here, as dkv_pair does
-// for K3:
+// -DFLASH_OTHER_DESIGNS=1 build's), and so is the other build's K2 at d
+// 384, where the pair lost to dq_split<384> in turns (0.56-0.58 ms against
+// 0.53, PERF.md §6: there the exchange of S and dP, 16 KB a warpgroup per
+// 32 keys, outweighs a tile's products at D / 2 = 192): dq_rows8 at D / 2
+// on each block of a cluster of two. What held dq_split back there: Q and
+// dO resident at the full head dim (128 KB of 64 rows at d 512) left 2
+// stages of 16 keys (32 at d 384); each warpgroup formed its halves of S
+// and dP as m64n8 (m64n16) products over all D columns, dQ += dS K was one
+// (two) k16 steps a stage, and the chain (scores, the exchange and its
+// barrier, dS, the product, waited for) ran in series every 16 (32) keys.
+// Bound on an H100: operations (three products, 3 s^2 d flops per causal
+// (b, h), against ~4 s d bytes). Here, as dkv_pair does for K3:
 // - a pair (two blocks on neighbouring SMs, launched as one cluster) owns
 //   128 query rows of one (batch, head); the block of rank r holds columns
 //   [r D/2, (r + 1) D/2) of Q, dO, K, V and dQ (its tensor maps and dQ
 //   pointer start at its half: DqPairArgs);
-// - within a block it is dq_rows8 at D / 2 (dq_rows8<256>'s registers): 8
-//   warps, 64 rows a warpgroup, dQ at D / 4 registers a thread, thread 0
-//   loading Q and dO once and 32-key K and V stages (2: a third does not
-//   fit beside the receive buffers; one stage of 64 keys does, with the
-//   exchange in XK-key rounds, but then every tile's loads wait for the
-//   last tile's product in both warpgroups: kernel_variants.py times it,
-//   PERF.md §6);
+// - within a block it is dq_rows8 at D / 2 (d 512: dq_rows8<256>'s
+//   registers): 8 warps, 64 rows a warpgroup, dQ at D / 4 registers a
+//   thread, thread 0 loading Q and dO once and 32-key K and V stages (d
+//   512: 2, a third does not fit beside the receive buffers; one stage of
+//   64 keys does, with the exchange in XK-key rounds, but then every
+//   tile's loads wait for the last tile's product in both warpgroups; d
+//   384: 4, or 2 of 64 keys exchanged in two rounds: kernel_variants.py
+//   times both, PERF.md §6);
 // - the exchange moves 32 KB each way a tile between the two SMs, about as
-//   long as the tile's three products. Issuing the next tile's partial S
-//   and dP during it, as flash_fwd_pair does, needs that tile's stage: on
-//   two stages thread 0 then waits for the other warpgroup's release of
-//   the tile before, every tile, and it lost (PERF.md §6);
+//   long as the tile's three products. At d 384 the next tile's partial S
+//   and dP are issued during it, as flash_fwd_pair does (PREFETCH); that
+//   needs the next tile's stage loaded ahead: at d 512, on two stages,
+//   thread 0 then waits for the other warpgroup's release of the tile
+//   before, every tile, and it lost (PERF.md §6);
 // - S = Q[:, half] K[:, half]^T and dP = dO[:, half] V[:, half]^T
-//   (m64n32k16 x D/32 each) are partial sums: each warpgroup stores both,
-//   in fragment order, into its twin warpgroup's receive buffer in the
-//   peer (st.async, completing the bytes of the peer's `recv` mbarrier),
-//   waits for the twin's and adds them, the same two values on both blocks
-//   (IEEE addition commutes), so both blocks hold the same S and dP bit for
-//   bit and form the same dS = P (dP - delta) from the full rows' lse and
-//   delta;
+//   (m64n32k16 x D/32 each) are partial sums, summed with the twin
+//   warpgroup's by hopper::PairExchange (S's chunks and dP's in one
+//   round), so both blocks hold the same S and dP bit for bit and form the
+//   same dS = P (dP - delta) from the full rows' lse and delta;
 // - dQ[:, own half] += dS K[:, own half], dS rounded to K's dtype and
 //   re-packed in registers, dQ scaled once at the store (dq_rows8's
 //   rounding rules).
 // The receive buffers: one a warpgroup (16 KB: S, then dP), whose only
 // readers are that warpgroup's 128 threads (the adds right after the wait
-// on its `recv`); once all 128 have issued the tile's dQ product (or,
-// between two rounds of a tile, done the adds: a named barrier of the
-// warpgroup, 2 + c) its thread 0 arrives on the twin's `freed` barrier in
-// the peer (hopper::mbar_arrive_remote_cta), which the twin waits on
-// before it stores the next partials there. Cluster barriers at the
-// start and at the end, as dkv_pair. Every sum runs in a fixed order in
-// one pair: deterministic, no atomics.
+// on its `recv`); the warpgroup releases it once all 128 have issued the
+// tile's dQ product (or, between two rounds of a tile, done the adds).
+// Every sum runs in a fixed order in one pair: deterministic, no atomics.
 template <int D>
 struct DqPair {
   static constexpr int DH = D / 2;  // head-dim columns a block holds
   static constexpr int BQ = 128;    // query rows a pair: 64 a warpgroup
   static constexpr int BK = 32;     // keys per K/V stage
-  static constexpr int STAGES = 2;  // a third does not fit beside the buffers
+  // K/V stages beside Q, dO and the receive buffers: d 512 2 (a third does
+  // not fit), d 384 4
+  static constexpr int STAGES = D == 384 ? 4 : 2;
   // keys whose S and dP partials one exchange moves: BK / XK rounds a tile
   static constexpr int XK = 32;
+  // the next tile's partial S and dP issued during this one's exchange
+  // (32 more registers a thread), where its stage is loaded ahead of it:
+  // beside two more (d 384)
+  static constexpr bool PREFETCH = STAGES > 2;
   static constexpr int Q_CB = BQ * 128;
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_CB = BK * 128;
   static constexpr int KV_BYTES = BK * DH * 2;
-  static constexpr int XB = 2 * (XK / 2) * WG * 4;  // S and dP, bytes
+  // the exchange: a round moves XK / 8 chunks of S and as many of dP
+  using X = hopper::PairExchange<XK / 4>;
   static constexpr int DO_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = X_OFF + 2 * XB;
-  // mbarriers: q_full, kv_full[S], kv_empty[S], recv[2], freed[2]
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES + 4) + 1024;
+  static constexpr int BAR_OFF = X_OFF + 2 * X::BYTES;
+  // mbarriers: q_full, kv_full[S], kv_empty[S], then the exchange's
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (1 + 2 * STAGES + X::BARS) + 1024;
   static_assert(DH % 64 == 0 && DH <= 256, "dQ: 256 columns a block");
   static_assert(BK % XK == 0 && BYTES <= SMEM_MAX, "227 KB a block");
+  static_assert(!PREFETCH || BK == XK, "the prefetch: one round a tile");
 };
 
 // Each block's arguments: DqArgs over its half of the head dim.
@@ -2349,13 +2323,13 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
   constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES, DH = L::DH;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
   const DqArgs& a = pa.half[rank];
   const uint32_t bar = base + L::BAR_OFF;
   const uint32_t q_full = bar, kv_full = bar + 8,
                  kv_empty = kv_full + 8 * STAGES;
-  const uint32_t recv0 = kv_empty + 8 * STAGES, freed0 = recv0 + 16;
+  const uint32_t xbar = kv_empty + 8 * STAGES;
 
   // heaviest query tiles first; neighbouring pairs share a KV head; the
   // pair's index is its cluster's
@@ -2377,15 +2351,10 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
       mbar_init(kv_full + 8 * s, 1);
       mbar_init(kv_empty + 8 * s, 2 * WG);
     }
-    for (int c = 0; c < 2; ++c) {
-      mbar_init(recv0 + 8 * c, 1);
-      mbar_init(freed0 + 8 * c, 1);  // the twin's thread 0
-      mbar_arrive_expect_tx(recv0 + 8 * c, L::XB);  // the first tile's
-    }
+    L::X::init(xbar, true);
     fence_mbar_init();
   }
-  cluster_arrive();
-  cluster_wait();
+  L::X::begin();
 
   if (threadIdx.x == 0) {  // Q and dO, and the first STAGES key tiles
     mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
@@ -2402,14 +2371,9 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
   const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
   const uint32_t q_addr = base + c * 64 * 128;
   const uint32_t do_addr = base + L::DO_OFF + c * 64 * 128;
-  // this warpgroup's receive buffer and barriers, and where its partials
-  // go in the peer (its twin's buffer and barriers)
-  const uint32_t recv = recv0 + 8 * c, freed = freed0 + 8 * c;
-  const uint32_t rx_peer = cluster_map(base + L::X_OFF + c * L::XB, peer);
-  const uint32_t recv_peer = cluster_map(recv, peer);
-  const uint32_t freed_peer = cluster_map(freed, peer);
-  const float4* in =
-      reinterpret_cast<const float4*>(smem + L::X_OFF + c * L::XB);
+  // this warpgroup's side of the exchange with its twin in the peer
+  const typename L::X xc(base + L::X_OFF, smem + L::X_OFF, xbar, peer, c,
+                         t);
 
   // rows past sq read lse = delta = 0 (and Q = dO = 0): dS = 0 there, and
   // those rows are not written
@@ -2419,9 +2383,25 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
   const float dl0 = row0 < a.sq ? a.delta[rows + row0] : 0.f;
   const float dl1 = row1 < a.sq ? a.delta[rows + row1] : 0.f;
 
+  // this block's partial S = Q[:, half] K[:, half]^T and dP = dO[:, half]
+  // V[:, half]^T of tile m (64 rows x BK keys each), issued
+  auto scores = [&](float (&s_)[BK / 2], float (&p_)[BK / 2], int m) {
+    const uint32_t kv = (m % STAGES) * L::KV_BYTES;
+    mbar_wait(kv_full + 8 * (m % STAGES), (m / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
+        s_, desc_sw128(q_addr, 16, 1024),
+        desc_sw128(base + L::K_OFF + kv, 16, 1024));
+    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
+        p_, desc_sw128(do_addr, 16, 1024),
+        desc_sw128(base + L::V_OFF + kv, 16, 1024));
+    wgmma_commit();
+  };
+
   float dq[DH / 2];
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+  float sc[BK / 2], dp[BK / 2];
 
   mbar_wait(q_full, 0);
 #pragma unroll 1
@@ -2430,77 +2410,43 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
     const int k0 = i * BK;
     const bool more = i + 1 < nk;
     const uint32_t k_addr = base + L::K_OFF + s * L::KV_BYTES;
-    const uint32_t v_addr = base + L::V_OFF + s * L::KV_BYTES;
     // thread 0 loads each tile whose stage both warpgroups have released
     // (tile `next` reuses the stage of tile next - STAGES, which this
     // warpgroup released if next - STAGES < i), testing without waiting;
-    // it waits only for the tile read now. Here, before this tile's send,
-    // and not during the exchange (the twin waits on that, PERF.md §6)
+    // it waits only for the tile read now (PREFETCH: the next one). Here,
+    // before this tile's send, and not during the exchange (the twin waits
+    // on that, PERF.md §6)
     if (threadIdx.x == 0) {
       for (; next < nk && next < i + STAGES; ++next) {
         const uint32_t stage_empty = kv_empty + 8 * (next % STAGES);
         const uint32_t par = ((next - STAGES) / STAGES) & 1;
-        if (next > i && !mbar_test(stage_empty, par)) break;
+        if (next > i + L::PREFETCH && !mbar_test(stage_empty, par)) break;
         mbar_wait(stage_empty, par);
         dq_pair_load<D>(a, base, next, ikv, ib);
       }
     }
 
-    // this block's partial S = Q[:, half] K[:, half]^T and dP = dO[:, half]
-    // V[:, half]^T: 64 rows x BK keys each
-    float sc[BK / 2], dp[BK / 2];
-    mbar_wait(kv_full + 8 * s, (i / STAGES) & 1);
-    wgmma_fence();
-    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
-        sc, desc_sw128(q_addr, 16, 1024), desc_sw128(k_addr, 16, 1024));
-    wgmma_ss<BK, DH / 16, L::Q_CB, L::KV_CB>(
-        dp, desc_sw128(do_addr, 16, 1024), desc_sw128(v_addr, 16, 1024));
-    wgmma_commit();
+    if (!L::PREFETCH || i == 0) scores(sc, dp, i);  // PREFETCH: in already
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
 
-    // the exchange, in BK / XK rounds of XK keys (XC register chunks of S
-    // and of dP): to the twin, once it has read the last round's, S's
-    // chunk k of thread t to 16-byte slot k * 128 + t, dP's after them;
-    // then the twin's, added to this block's
-    constexpr int XR = BK / L::XK, XC = L::XK / 8;
+    // the exchange, in BK / XK rounds of XK keys: to the twin, once it has
+    // read the last round's, S's chunks then dP's; then the twin's, added
+    // to this block's; between two rounds of a tile the buffer goes back
+    // once read. PREFETCH (one round): the next tile's partials issued
+    // meanwhile (taken into sc and dp below on every tile, unused after
+    // the last)
+    constexpr int XR = BK / L::XK;
+    float sn[L::PREFETCH ? BK / 2 : 1], dn[L::PREFETCH ? BK / 2 : 1];
 #pragma unroll
     for (int x = 0; x < XR; ++x) {
       const uint32_t xph = (i * XR + x) & 1;
-      mbar_wait_cluster(freed, xph ^ 1);
-#pragma unroll
-      for (int k = 0; k < XC; ++k) {
-        const int j = 4 * (x * XC + k);
-        st_async_16(rx_peer + (k * WG + t) * 16, sc[j], sc[j + 1],
-                    sc[j + 2], sc[j + 3], recv_peer);
-      }
-#pragma unroll
-      for (int k = 0; k < XC; ++k) {
-        const int j = 4 * (x * XC + k);
-        st_async_16(rx_peer + ((XC + k) * WG + t) * 16, dp[j], dp[j + 1],
-                    dp[j + 2], dp[j + 3], recv_peer);
-      }
-      mbar_wait_cluster(recv, xph);
-      if (t == 0 && (more || x + 1 < XR))  // the bytes of the next round's
-        mbar_arrive_expect_tx(recv, L::XB);
-#pragma unroll
-      for (int k = 0; k < XC; ++k) {
-        const int j = 4 * (x * XC + k);
-        const float4 u = in[k * WG + t], v = in[(XC + k) * WG + t];
-        sc[j] += u.x;
-        sc[j + 1] += u.y;
-        sc[j + 2] += u.z;
-        sc[j + 3] += u.w;
-        dp[j] += v.x;
-        dp[j + 1] += v.y;
-        dp[j + 2] += v.z;
-        dp[j + 3] += v.w;
-      }
-      if (x + 1 < XR) {  // read: the twin may store the next round's
-        bar_sync(2 + c, WG);
-        if (t == 0) mbar_arrive_remote_cta(freed_peer);
-      }
+      xc.send(sc, dp, xph, x);
+      if constexpr (L::PREFETCH)
+        if (more) scores(sn, dn, i + 1);
+      xc.recv_add(sc, dp, xph, more || x + 1 < XR, x);
+      xc.release(x + 1 < XR);
     }
 
     // dS = P (dP - delta) with P = exp2(S scale log2e - lse log2e) in f32,
@@ -2535,18 +2481,24 @@ dq_pair(const __grid_constant__ DqPairArgs pa) {
     wgmma_commit();
     // every thread of the warpgroup has read its receive buffer once all
     // have issued the product: the twin may store the next partials
-    if (more) {
-      bar_sync(2 + c, WG);
-      if (t == 0) mbar_arrive_remote_cta(freed_peer);
-    }
-    wgmma_wait<0>();
+    xc.release(more);
+    wgmma_wait<0>();  // and the next tile's partials (PREFETCH)
     fence_regs(dq);
+    if constexpr (L::PREFETCH) {  // the next tile's S and dP
+      fence_regs(sn);
+      fence_regs(dn);
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) {
+        sc[r] = sn[r];
+        dp[r] = dn[r];
+      }
+    }
     mbar_arrive(kv_empty + 8 * s);
   }
-  cluster_arrive();  // no more stores into the peer, nor reads of its data
-  store_cols<DH>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
-                 a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
-  cluster_wait();
+  L::X::end([&] {
+    store_cols<DH>(static_cast<bf16*>(a.dq) + ib * a.dq_sb + ih * a.dq_sh,
+                   a.dq_ss, dq, a.scale, row0, row1, a.sq, tq, 0, 0);
+  });
 }
 
 // ------------------------------------------------ f32: CUDA cores
@@ -3325,18 +3277,13 @@ cudaError_t dq_args(DqArgs& a, const Params& p, int batch, int d) {
 template <int D>
 cudaError_t dq_pair_args(DqPairArgs& pa, const Params& p, int batch) {
   using L = DqPair<D>;
-  for (int r = 0; r < 2; ++r) {
-    Params h = p;
-    const int64_t col = static_cast<int64_t>(r) * L::DH;
-    h.q = static_cast<const bf16*>(p.q) + col;
-    h.k = static_cast<const bf16*>(p.k) + col;
-    h.v = static_cast<const bf16*>(p.v) + col;
-    h.dout = static_cast<const bf16*>(p.dout) + col;
-    h.dq = static_cast<bf16*>(p.dq) + col;
-    if (cudaError_t err =
-            dq_args<L::BQ, L::BK, true>(pa.half[r], h, batch, L::DH))
+  for (int r = 0; r < 2; ++r)
+    if (cudaError_t err = dq_args<L::BQ, L::BK, true>(
+            pa.half[r],
+            hopper::at_column(p, int64_t{r} * L::DH, &Params::q, &Params::k,
+                              &Params::v, &Params::dout, &Params::dq),
+            batch, L::DH))
       return err;
-  }
   return cudaSuccess;
 }
 
@@ -3433,19 +3380,14 @@ cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
 template <int D>
 cudaError_t dkv_pair_args(DkvPairArgs& pa, const Params& p, int batch) {
   using L = DkvPair<D>;
-  for (int r = 0; r < 2; ++r) {
-    Params h = p;
-    const int64_t col = static_cast<int64_t>(r) * L::DH;
-    h.q = static_cast<const bf16*>(p.q) + col;
-    h.k = static_cast<const bf16*>(p.k) + col;
-    h.v = static_cast<const bf16*>(p.v) + col;
-    h.dout = static_cast<const bf16*>(p.dout) + col;
-    h.dk = static_cast<bf16*>(p.dk) + col;
-    h.dv = static_cast<bf16*>(p.dv) + col;
-    if (cudaError_t err =
-            dkv_args<L::BQ, L::BK, true>(pa.half[r], h, batch, L::DH))
+  for (int r = 0; r < 2; ++r)
+    if (cudaError_t err = dkv_args<L::BQ, L::BK, true>(
+            pa.half[r],
+            hopper::at_column(p, int64_t{r} * L::DH, &Params::q, &Params::k,
+                              &Params::v, &Params::dout, &Params::dk,
+                              &Params::dv),
+            batch, L::DH))
       return err;
-  }
   return cudaSuccess;
 }
 

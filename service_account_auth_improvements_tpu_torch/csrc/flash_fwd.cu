@@ -36,11 +36,11 @@
 // 2048, d 128, 12 query heads) a causal forward does ~2 s^2 d flops per
 // (b, h) against 4 s d bytes of q/k/v/o, hundreds of flops per byte: it is
 // bound by the tensor cores. The bf16 kernels are built for them, one
-// design per head dim (FwdDesign, below): at d 320, 448 and 512
-// `flash_fwd_split<D>`, at d 384 `flash_fwd_pair<D>` (flash_fwd_wgmma at
-// D / 2 on each block of a cluster of two), at d 256 `flash_fwd_rows8<D>`,
-// at d 64 `flash_fwd_twin<D>` (their notes are above them), and at d 128
-// and 192 `flash_fwd_wgmma<D>`:
+// design per head dim (FwdDesign, below): at d 320 and 448
+// `flash_fwd_split<D>`, at d 384 and 512 `flash_fwd_pair<D>`
+// (flash_fwd_wgmma at D / 2 on each block of a cluster of two), at d 256
+// `flash_fwd_rows8<D>`, at d 64 `flash_fwd_twin<D>` (their notes are above
+// them), and at d 128 and 192 `flash_fwd_wgmma<D>`:
 // - a block owns 128 query rows: one producer warpgroup and two consumer
 //   warpgroups of 64 rows each (one wgmma M tile); setmaxnreg gives the
 //   producer 24 registers and each consumer thread 240;
@@ -115,21 +115,23 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 //   kRowSplit  flash_fwd_wgmma: 12-warp blocks of 128 rows, 64 a consumer
 //              warpgroup, a producer warpgroup (d 64 to 192);
 //   kDSplit    flash_fwd_split: 8-warp blocks of 64 rows, the output's
-//              columns split between the warpgroups (d 320 to 512);
+//              columns split between the warpgroups (d 320 and 448);
 //   kRows8     flash_fwd_rows8: 8-warp blocks of 128 rows, 64 a
 //              warpgroup, the two taking turns at the tensor cores (d 256);
 //   kTwin      flash_fwd_twin: 8-warp blocks of 128 rows, 64 a warpgroup,
 //              two blocks a SM, each warpgroup's tile in series (d 64);
 //   kPair      flash_fwd_pair: flash_fwd_wgmma's 128 rows on a cluster of
-//              two blocks, each holding half of the head dim (d 384).
+//              two blocks, each holding half of the head dim (d 384 and
+//              512).
 // (kTwin's and kPair's ids follow BwdDesign's, so that no id names two
 // designs.)
-// At d 64, 192, 256 and 384 K1 ships the faster of two designs on the
-// H100 (chip_smoke.py's phase_wide_designs, in turns on one card; PERF.md
-// §6): flash_fwd_twin at d 64, flash_fwd_wgmma at d 192, flash_fwd_rows8
-// at d 256, flash_fwd_pair at d 384. A build with -DFLASH_OTHER_DESIGNS=1
-// takes the other one at each (flash_fwd_wgmma at d 64, flash_fwd_split at
-// d 384; and the scalar f32 kernel at d 128: F32Design).
+// At d 64, 192, 256, 384 and 512 K1 ships the faster of two designs on
+// the H100 (chip_smoke.py's phase_wide_designs, in turns on one card;
+// PERF.md §6): flash_fwd_twin at d 64, flash_fwd_wgmma at d 192,
+// flash_fwd_rows8 at d 256, flash_fwd_pair at d 384 and 512. A build with
+// -DFLASH_OTHER_DESIGNS=1 takes the other one at each (flash_fwd_wgmma at
+// d 64, flash_fwd_split at d 384 and 512; and the scalar f32 kernel at d
+// 128: F32Design).
 enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kTwin = 5,
                  kPair = 7 };
 
@@ -141,8 +143,8 @@ constexpr int fwd_design(int d) {
          : d <= 128 ? kRowSplit
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
-         : d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
-                    : kDSplit;
+         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+                                : kDSplit;
 }
 
 struct FwdArgs {
@@ -416,8 +418,8 @@ flash_fwd_wgmma(const __grid_constant__ FwdArgs a) {
 
 // ------------------------------------------------ bf16: the D-split kernel
 //
-// At d 320, 448 and 512 K1 is `flash_fwd_split<D>` (kDSplit; at d 384 it
-// runs only in the -DFLASH_OTHER_DESIGNS=1 build, flash_fwd_pair ships
+// At d 320 and 448 K1 is `flash_fwd_split<D>` (kDSplit; at d 384 and 512
+// it runs only in the -DFLASH_OTHER_DESIGNS=1 build, flash_fwd_pair ships
 // there): `flash_fwd_wgmma` cannot hold O (D / 2 registers a thread: 256
 // at d 512, past the 255 a thread may have) and its 128-row Q tile plus
 // two K/V stages overflow 227 KB. Here:
@@ -625,12 +627,12 @@ flash_fwd_split(const __grid_constant__ FwdArgs a) {
   fwd_split_consumer<D>(a, base, xbuf, q0, ih, ib, nk);
 }
 
-// ------------------------------------------------ bf16 at d 384: clusters
+// ------------------------------------------------ bf16 at d 384, 512: clusters
 //
-// At d 384 K1 is `flash_fwd_pair<D>` (kPair; flash_fwd_split<384> is the
-// -DFLASH_OTHER_DESIGNS=1 build's). What held flash_fwd_split<384> back:
-// with Q resident at the full head dim a block holds 64 rows and 32-key
-// stages; each warpgroup forms its half of S over all 384 columns as
+// At d 384 and 512 K1 is `flash_fwd_pair<D>` (kPair; flash_fwd_split<D>
+// is the -DFLASH_OTHER_DESIGNS=1 build's). What held flash_fwd_split back
+// there: with Q resident at the full head dim a block holds 64 rows and
+// 32-key stages; each warpgroup forms its half of S over all D columns as
 // m64n16 products (a 64 x 16 slice of Q read from shared memory for every
 // 16 output columns), P V is two k16 steps a tile, and every 32-key tile
 // runs its chain (S, the exchange and its barrier, the softmax, P V,
@@ -642,58 +644,57 @@ flash_fwd_split(const __grid_constant__ FwdArgs a) {
 //   block of rank r holds columns [r D/2, (r + 1) D/2) of Q, K, V and O
 //   (its tensor maps and O pointer start at its half: FwdPairArgs);
 // - within a block: flash_fwd_wgmma's rows at D / 2 (two warpgroups of 64
-//   rows, Q resident, 64-key K and V tiles in 3 stages, K apart from V)
-//   on 8 warps, thread 0 issuing the loads (each tile one TMA copy) at the
-//   top of a tile, so a thread may hold 255 registers (on
+//   rows, Q resident, 64-key K and V tiles in 3 stages at d 384 and 2 at
+//   d 512, where a third does not fit beside Q and the receive buffers; K
+//   apart from V) on 8 warps, thread 0 issuing the loads (each tile one
+//   TMA copy) at the top of a tile, so a thread may hold 255 registers (on
 //   flash_fwd_wgmma's 12 warps, 168 registers, the prefetch below does
-//   not fit);
-// - S over half the head dim (m64n64k16 x D/32) is a partial sum: each
-//   warpgroup stores its 64 x 64 f32 partial, in fragment order, into its
-//   twin warpgroup's receive buffer in the peer (st.async, 16 bytes a
-//   store, completing the bytes of the peer's `recv` mbarrier), waits for
-//   the twin's partial in its own receive buffer and adds it: one f32 add
-//   per element of the same two values on both blocks, so IEEE addition
-//   (commutative) gives both blocks the same S bit for bit, and the same
-//   online softmax then the same m, l and P;
+//   not fit; at d 512 O alone is 128 registers a thread);
+// - S over half the head dim (m64n64k16 x D/32) is a partial sum, summed
+//   with the twin warpgroup's in the peer by hopper::PairExchange (one
+//   round of 16 KB a tile: st.async into the twin's receive buffer, the
+//   twin's added in a fixed order), so both blocks hold the same S bit
+//   for bit, and the same online softmax then gives the same m, l and P;
 // - the exchange moves 32 KB each way a tile between the two SMs (about
 //   1.4 us on an H100 with nothing else to do, as long as the tile's
-//   products): with PREFETCH the next tile's partial S is issued as soon
-//   as this one's is sent, so it is on the tensor cores while the exchange
-//   runs (32 more registers a thread);
+//   products): at d 384 (PREFETCH) the next tile's partial S is issued as
+//   soon as this one's is sent, so it is on the tensor cores while the
+//   exchange runs (32 more registers a thread); at d 512 that lost on two
+//   stages;
 // - O[:, own half] += P V[:, own half] (P re-packed in registers, as in
 //   flash_fwd_wgmma); both blocks store their half of O, rank 0 the LSE.
 // The receive buffers: one a warpgroup (16 KB), whose only readers are
-// that warpgroup's 128 threads (the add right after the wait on its
-// `recv`). Once all 128 have issued the tile's P V (so all have read it: a
-// named barrier of the warpgroup, 2 + c), its thread 0 arrives on the
-// twin's `freed` barrier in the peer, and the twin waits on that before it
-// stores the next tile's partial over the buffer. The arrival is released
-// at CTA scope (hopper::mbar_arrive_remote_cta says why that is enough; at
-// cluster scope it cost a tenth of the kernel's time, PERF.md §6). A
-// cluster barrier at the start makes each block's mbarriers visible to its
-// peer before the first remote store, and one at the end keeps both
-// resident until neither touches the other's shared memory. Every sum
-// runs in a fixed order in one pair, with no atomics. The masking and the
-// heaviest-first order are flash_fwd_wgmma's, by pair.
+// that warpgroup's 128 threads (the adds right after the wait on its
+// `recv`); the warpgroup releases it once all 128 have issued the tile's
+// P V (PairExchange::release; at cluster scope the release cost a tenth
+// of the kernel's time, PERF.md §6). Every sum runs in a fixed order in
+// one pair, with no atomics. The masking and the heaviest-first order are
+// flash_fwd_wgmma's, by pair.
 template <int D>
 struct FwdPair {
   static constexpr int DH = D / 2;  // head-dim columns a block holds
   static constexpr int BK = 64;     // keys per K/V stage
-  static constexpr int STAGES = 3;  // K/V stages (2 leave 48 KB unused)
-  // the next tile's partial S issued during this one's exchange
-  static constexpr bool PREFETCH = true;
+  // K/V stages: 3 at d 384 (2 leave 48 KB unused); at d 512 a third does
+  // not fit beside Q and the receive buffers
+  static constexpr int STAGES = D == 384 ? 3 : 2;
+  // the next tile's partial S issued during this one's exchange, at d 384
+  // (at d 512, on two stages, thread 0 then waits every tile for the other
+  // warpgroup's release of the tile before: 0.38 ms against 0.32 without,
+  // PERF.md §6)
+  static constexpr bool PREFETCH = D == 384;
   static constexpr int Q_CB = FWD_BQ * 128;
   static constexpr int KV_CB = BK * 128;
   static constexpr int Q_BYTES = FWD_BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;
-  static constexpr int XB = BK / 2 * WG * 4;  // a warpgroup's partial, bytes
+  // the exchange: a thread's BK / 2 partial scores, BK / 8 chunks a round
+  using X = hopper::PairExchange<BK / 8>;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int X_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = X_OFF + 2 * XB;
-  // mbarriers: q_full, k_full[S], v_full[S], empty[S], recv[2], freed[2]
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES + 4) + 1024;
-  static_assert(DH % 64 == 0 && DH <= 192, "O: 96 registers a thread");
+  static constexpr int BAR_OFF = X_OFF + 2 * X::BYTES;
+  // mbarriers: q_full, k_full[S], v_full[S], empty[S], then the exchange's
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES + X::BARS) + 1024;
+  static_assert(DH % 64 == 0 && DH <= 256, "O: 128 registers a thread");
   static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
 };
 
@@ -728,13 +729,13 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
   constexpr int BK = L::BK, STAGES = L::STAGES, DH = L::DH;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
   const FwdArgs& a = pa.half[rank];
   const uint32_t bar = base + L::BAR_OFF;
   const uint32_t q_full = bar, k_full = bar + 8,
                  v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
-  const uint32_t recv0 = empty + 8 * STAGES, freed0 = recv0 + 16;
+  const uint32_t xbar = empty + 8 * STAGES;
 
   // heaviest query tiles first; neighbouring pairs share a KV group; the
   // pair's index is its cluster's
@@ -757,15 +758,10 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
       mbar_init(v_full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2 * WG);
     }
-    for (int c = 0; c < 2; ++c) {
-      mbar_init(recv0 + 8 * c, 1);
-      mbar_init(freed0 + 8 * c, 1);  // the twin's thread 0
-      mbar_arrive_expect_tx(recv0 + 8 * c, L::XB);  // the first tile's
-    }
+    L::X::init(xbar, true);
     fence_mbar_init();
   }
-  cluster_arrive();
-  cluster_wait();
+  L::X::begin();
 
   if (threadIdx.x == 0) {  // Q and the first STAGES key tiles
     mbar_arrive_expect_tx(q_full, L::Q_BYTES);
@@ -780,14 +776,9 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
   const int r0 = q0 + 64 * c;
   const int row0 = r0 + 16 * w + g, row1 = row0 + 8;
   const uint32_t q_addr = base + c * 64 * 128;
-  // this warpgroup's receive buffer and barriers, and where its partial
-  // goes in the peer (its twin's buffer and barriers)
-  const uint32_t recv = recv0 + 8 * c, freed = freed0 + 8 * c;
-  const uint32_t rx_peer = cluster_map(base + L::X_OFF + c * L::XB, peer);
-  const uint32_t recv_peer = cluster_map(recv, peer);
-  const uint32_t freed_peer = cluster_map(freed, peer);
-  const float4* in =
-      reinterpret_cast<const float4*>(smem + L::X_OFF + c * L::XB);
+  // this warpgroup's side of the exchange with its twin in the peer
+  const typename L::X xc(base + L::X_OFF, smem + L::X_OFF, xbar, peer, c,
+                         t);
 
   // this block's partial S = Q[:, half] K[:, half]^T of tile m (64 rows x
   // BK keys), issued
@@ -832,30 +823,15 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
     wgmma_wait<0>();
     fence_regs(st);
 
-    // to the twin, once it has read the last tile's: register chunk k of
-    // thread t to 16-byte slot k * 128 + t
-    mbar_wait_cluster(freed, xph ^ 1);
-#pragma unroll
-    for (int k = 0; k < BK / 8; ++k)
-      st_async_16(rx_peer + (k * WG + t) * 16, st[4 * k], st[4 * k + 1],
-                  st[4 * k + 2], st[4 * k + 3], recv_peer);
+    // to the twin, once it has read the last tile's
+    xc.send(st, xph);
     // PREFETCH: the next tile's partial, meanwhile (taken into st below
     // on every tile, unused after the last)
     float sn[L::PREFETCH ? BK / 2 : 1];
     if constexpr (L::PREFETCH)
       if (more) scores(sn, i + 1);
     // from the twin: its partial, added to this one's
-    mbar_wait_cluster(recv, xph);
-    if (t == 0 && more)  // the bytes of the next tile's
-      mbar_arrive_expect_tx(recv, L::XB);
-#pragma unroll
-    for (int k = 0; k < BK / 8; ++k) {
-      const float4 x = in[k * WG + t];
-      st[4 * k] += x.x;
-      st[4 * k + 1] += x.y;
-      st[4 * k + 2] += x.z;
-      st[4 * k + 3] += x.w;
-    }
+    xc.recv_add(st, xph, more);
 
     float alpha0, alpha1;
     fwd_softmax<BK>(a, st, m0, m1, l0, l1, alpha0, alpha1,
@@ -875,10 +851,7 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
     wgmma_commit();
     // every thread of the warpgroup has read its receive buffer once all
     // have issued the product: the twin may store the next partial
-    if (more) {
-      bar_sync(2 + c, WG);
-      if (t == 0) mbar_arrive_remote_cta(freed_peer);
-    }
+    xc.release(more);
     wgmma_wait<0>();  // and the next tile's partial (PREFETCH)
     fence_regs(o);
     if constexpr (L::PREFETCH) {
@@ -888,10 +861,10 @@ flash_fwd_pair(const __grid_constant__ FwdPairArgs pa) {
     }
     mbar_arrive(empty + 8 * s);
   }
-  cluster_arrive();  // no more stores into the peer, nor reads of its data
-  fwd_finish<DH>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0,
-                 rank == 0);
-  cluster_wait();
+  L::X::end([&] {
+    fwd_finish<DH>(a, o, m0, m1, l0, l1, row0, row1, ih, ib, tq, 0, 0,
+                   rank == 0);
+  });
 }
 
 // ------------------------------------------------ bf16: rows on 8 warps
@@ -1660,17 +1633,13 @@ cudaError_t fwd_args(FwdArgs& a, const Params& p, int batch, int d) {
 template <int D>
 cudaError_t fwd_pair_args(FwdPairArgs& pa, const Params& p, int batch) {
   using L = FwdPair<D>;
-  for (int r = 0; r < 2; ++r) {
-    Params h = p;
-    const int64_t col = static_cast<int64_t>(r) * L::DH;
-    h.q = static_cast<const __nv_bfloat16*>(p.q) + col;
-    h.k = static_cast<const __nv_bfloat16*>(p.k) + col;
-    h.v = static_cast<const __nv_bfloat16*>(p.v) + col;
-    h.o = static_cast<__nv_bfloat16*>(p.o) + col;
-    if (cudaError_t err =
-            fwd_args<FWD_BQ, L::BK, true>(pa.half[r], h, batch, L::DH))
+  for (int r = 0; r < 2; ++r)
+    if (cudaError_t err = fwd_args<FWD_BQ, L::BK, true>(
+            pa.half[r],
+            hopper::at_column(p, int64_t{r} * L::DH, &Params::q, &Params::k,
+                              &Params::v, &Params::o),
+            batch, L::DH))
       return err;
-  }
   return cudaSuccess;
 }
 
@@ -1828,6 +1797,7 @@ extern "C" int flash_fwd_blocks_per_sm(int d) {
 extern "C" int flash_fwd_clusters(int d) {
   switch (d) {
     case 384: return fwd_clusters<384>();
+    case 512: return fwd_clusters<512>();
     default: return -1;
   }
 }

@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
 #include <utility>
 
 namespace hopper {
@@ -153,17 +154,9 @@ __device__ __forceinline__ void st_async_16(uint32_t dst, float x, float y,
 
 // One arrival on another block's mbarrier (a cluster_map address), with
 // mbarrier.arrive's default release at CTA scope, as CUTLASS's cluster
-// pipelines hand a buffer back to the block that refills it. The pair
-// kernels (flash_fwd_pair, dq_pair, dkv_pair) make it on the peer's
-// `freed` barrier to say that a receive buffer the peer stores into has
-// been read, and CTA scope is enough for that: every read of a receive
-// buffer is a shared-memory load into its thread's registers, all of them
-// issued before a named barrier of the readers (bar.sync returns once
-// their loads are performed), and one thread arrives only after that
-// barrier, so no read is outstanding when the peer's next st.async
-// lands. A release at cluster scope would also wait for the arriving
-// thread's own st.async stores into the peer to complete (900 to 1,100
-// cycles a tile at 16 KB on an H100, PERF.md §6).
+// pipelines hand a buffer back to the block that refills it. Made only by
+// PairExchange::release (below), whose comment says why CTA scope is
+// enough there.
 __device__ __forceinline__ void mbar_arrive_remote_cta(uint32_t bar) {
   asm volatile(
       "mbarrier.arrive.release.cta.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
@@ -679,6 +672,197 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ------------------------------------------------------------ pairs
+//
+// The pair kernels (flash_fwd_pair, dq_pair, dkv_pair) run on a cluster
+// of two 8-warp blocks, the block of rank r holding columns [r D/2, (r +
+// 1) D/2) of every tensor. A score product over half the head dim is a
+// partial sum: each warpgroup stores its partial, in fragment order, into
+// its twin's receive buffer in the peer (the twin: the warpgroup of the
+// same index there), waits for the twin's in its own and adds it, one f32
+// add per element of the same two values on both blocks, so IEEE addition
+// (commutative) gives both blocks the same sum bit for bit. PairExchange
+// is that protocol, the one place the pair kernels touch the peer's
+// shared memory or barriers:
+//   init      thread 0, before the kernel's fence_mbar_init: the two
+//             `recv` barriers (the twin's partial has landed; armed with
+//             the first round's bytes if `first`) and the `freed`
+//             barriers (the peer has read what this block stored there);
+//   begin     the cluster barrier once every block's barriers are set up,
+//             before the first remote store;
+//   send      a round of this thread's CHUNKS 16-byte register chunks to
+//             16-byte slots k 128 + t of the twin's buffer (st.async,
+//             completing the bytes of the twin's `recv`), once the twin
+//             has read the last round's;
+//   recv_add  wait for the twin's round, re-arm `recv` for the next one
+//             (`rearm`), add the twin's chunks to this thread's;
+//   release   hand the receive buffers back (when `more` rounds follow);
+//   end       the cluster barrier at the end, around the block's own
+//             stores: no block leaves while its peer may still touch its
+//             shared memory.
+// READERS is who reads a receive buffer: 128, its warpgroup alone (one
+// `freed` barrier a warpgroup, named barrier 2 + c); 256, both
+// warpgroups (dkv_pair, whose P^T goes through warpgroup 0's buffer to
+// both: stash, unstash; one `freed` barrier, named barrier 2). A round's
+// phase parity is the kernel's round count & 1, the same on both blocks.
+// Shared memory: two receive buffers of BYTES (warpgroup c's at x + c
+// BYTES), and BARS mbarriers at `bar`: recv[2], then freed[FREED].
+template <int CHUNKS, int READERS = 128>
+struct PairExchange {
+  static_assert(READERS == 128 || READERS == 256, "a warpgroup or both");
+  static constexpr int BYTES = CHUNKS * 16 * 128;  // one receive buffer
+  static constexpr int FREED = READERS == 128 ? 2 : 1;
+  static constexpr int BARS = 2 + FREED;
+
+  uint32_t rx_peer;           // the twin's receive buffer (cluster window)
+  uint32_t recv, recv_peer;   // this warpgroup's `recv`, and the twin's
+  uint32_t freed, freed_peer;  // this warpgroup's `freed`, and the peer's
+  unsigned char* buf;         // the block's receive buffers
+  const float4* in;           // this warpgroup's receive buffer
+  int c, t;                   // warpgroup, thread in it
+
+  // Warpgroup c's view, in the block whose peer is `peer`: its receive
+  // buffers at shared address x_addr (generic pointer x), its barriers at
+  // bar.
+  __device__ __forceinline__ PairExchange(uint32_t x_addr, unsigned char* x,
+                                          uint32_t bar, uint32_t peer, int c,
+                                          int t)
+      : recv(bar + 8 * c),
+        freed(bar + 16 + 8 * (FREED == 2 ? c : 0)),
+        buf(x),
+        in(reinterpret_cast<const float4*>(x + c * BYTES)),
+        c(c),
+        t(t) {
+    rx_peer = cluster_map(x_addr + c * BYTES, peer);
+    recv_peer = cluster_map(recv, peer);
+    freed_peer = cluster_map(freed, peer);
+  }
+
+  static __device__ __forceinline__ void init(uint32_t bar, bool first) {
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(bar + 8 * c, 1);
+      if (first) mbar_arrive_expect_tx(bar + 8 * c, BYTES);
+    }
+    for (int f = 0; f < FREED; ++f)
+      mbar_init(bar + 16 + 8 * f, 1);  // one arrival: the peer's release
+  }
+
+  static __device__ __forceinline__ void begin() {
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  template <typename F>
+  static __device__ __forceinline__ void end(F&& stores) {
+    cluster_arrive();  // no more stores into the peer, nor reads of its data
+    stores();
+    cluster_wait();
+  }
+
+  // Round x of r: its chunks x CHUNKS + k (r[4j] .. r[4j + 3] is chunk j)
+  // to slots k.
+  template <int N>
+  __device__ __forceinline__ void send(const float (&r)[N], uint32_t phase,
+                                       int x = 0) const {
+    mbar_wait_cluster(freed, phase ^ 1);
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) put(k, r, x * CHUNKS + k);
+  }
+
+  // Round x of two arrays (S and dP): CHUNKS / 2 chunks of each, r's to
+  // the first slots.
+  template <int N>
+  __device__ __forceinline__ void send(const float (&r)[N],
+                                       const float (&u)[N], uint32_t phase,
+                                       int x = 0) const {
+    constexpr int H = CHUNKS / 2;
+    mbar_wait_cluster(freed, phase ^ 1);
+#pragma unroll
+    for (int k = 0; k < H; ++k) put(k, r, x * H + k);
+#pragma unroll
+    for (int k = 0; k < H; ++k) put(H + k, u, x * H + k);
+  }
+
+  template <int N>
+  __device__ __forceinline__ void recv_add(float (&r)[N], uint32_t phase,
+                                           bool rearm, int x = 0) const {
+    arrived(phase, rearm);
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) add(r, x * CHUNKS + k, in[k * 128 + t]);
+  }
+
+  template <int N>
+  __device__ __forceinline__ void recv_add(float (&r)[N], float (&u)[N],
+                                           uint32_t phase, bool rearm,
+                                           int x = 0) const {
+    constexpr int H = CHUNKS / 2;
+    arrived(phase, rearm);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const float4 a = in[k * 128 + t], b = in[(H + k) * 128 + t];
+      add(r, x * H + k, a);
+      add(u, x * H + k, b);
+    }
+  }
+
+  // READERS 256 only: after recv_add, warpgroup 0's receive buffer
+  // (read by then) carries 16 bytes a thread to both warpgroups of the
+  // block, slot k 128 + t: stash (warpgroup 0), a named barrier of both
+  // (the kernel's), unstash (both), before release.
+  __device__ __forceinline__ void stash(int k, uint4 v) const {
+    static_assert(READERS == 256, "both warpgroups read the buffers");
+    reinterpret_cast<uint4*>(buf)[k * 128 + t] = v;
+  }
+
+  __device__ __forceinline__ uint4 unstash(int k) const {
+    static_assert(READERS == 256, "both warpgroups read the buffers");
+    return reinterpret_cast<const uint4*>(buf)[k * 128 + t];
+  }
+
+  // The receive buffers back to the peer: a named barrier of their
+  // READERS threads, then one arrival by the first of them on the peer's
+  // `freed`, which the peer waits on before it stores the next round
+  // there. The arrival is released at CTA scope (mbar_arrive_remote_cta),
+  // and that is enough because of the rule this helper keeps: every read
+  // of a receive buffer is a shared-memory load into a register (recv_add
+  // and unstash are the only reads; no receive buffer feeds a wgmma from
+  // shared memory, whose reads would still be in flight after it was
+  // issued), all of them issued by the READERS threads before this named
+  // barrier, and bar.sync returns once their loads are performed: no read
+  // is outstanding when the peer's next st.async lands. A release at
+  // cluster scope would also wait for the arriving thread's own st.async
+  // stores into the peer to complete (900 to 1,100 cycles a tile at 16 KB
+  // on an H100, PERF.md §6).
+  __device__ __forceinline__ void release(bool more) const {
+    if (more) {
+      bar_sync(READERS == 128 ? 2 + c : 2, READERS);
+      if (threadIdx.x % READERS == 0) mbar_arrive_remote_cta(freed_peer);
+    }
+  }
+
+ private:
+  template <int N>
+  __device__ __forceinline__ void put(int slot, const float (&r)[N],
+                                      int j) const {
+    st_async_16(rx_peer + (slot * 128 + t) * 16, r[4 * j], r[4 * j + 1],
+                r[4 * j + 2], r[4 * j + 3], recv_peer);
+  }
+
+  __device__ __forceinline__ void arrived(uint32_t phase, bool rearm) const {
+    mbar_wait_cluster(recv, phase);
+    if (t == 0 && rearm) mbar_arrive_expect_tx(recv, BYTES);
+  }
+
+  template <int N>
+  static __device__ __forceinline__ void add(float (&r)[N], int j,
+                                             float4 v) {
+    r[4 * j] += v.x;
+    r[4 * j + 1] += v.y;
+    r[4 * j + 2] += v.z;
+    r[4 * j + 3] += v.w;
+  }
+};
+
 // The split kernels' score exchange. Both consumer warpgroups own the
 // same 64 rows; warpgroup c computed columns [c N/2, (c + 1) N/2) of an
 // N-column score tile, R = N / 4 accumulator registers a thread. put_half
@@ -813,6 +997,21 @@ inline cudaError_t tmap_bf16_tile(CUtensorMap* map, const void* base, int d,
   const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows),
                              static_cast<cuuint32_t>(d / 64), 1, 1};
   return tmap_encode(map, base, 5, dims, strides, box);
+}
+
+// `p` with each named pointer (a bf16 tensor's, `const void*` or `void*`
+// members of a kernel's Params) moved `col` elements along its rows: the
+// block of rank r of a pair is launched on columns [r D/2, (r + 1) D/2)
+// of every tensor, at_column(p, r D / 2, &Params::q, ...).
+template <typename P, typename... T>
+P at_column(const P& p, int64_t col, T* P::*... ptrs) {
+  P h = p;
+  ((h.*ptrs = static_cast<std::conditional_t<std::is_const_v<T>,
+                                             const __nv_bfloat16,
+                                             __nv_bfloat16>*>(p.*ptrs) +
+              col),
+   ...);
+  return h;
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory and its

@@ -249,14 +249,15 @@ def _bwd_designs():
 class _Fwd:
     """A flash_fwd library's design function, as csrc/flash_fwd.cu states
     it: the twin blocks at d 64, the rows on 8 warps at d 256, the pair of
-    blocks at d 384, the row split at d 128 and 192 (the other build: the
-    row split at d 64 and 256, the rows on 8 warps at d 192, the D split at
-    d 384), the D split at d 320, 448 and 512."""
+    blocks at d 384 and 512, the row split at d 128 and 192 (the other
+    build: the row split at d 64 and 256, the rows on 8 warps at d 192, the
+    D split at d 384 and 512), the D split at d 320 and 448."""
 
     def __init__(self, other):
         ids = _designs("flash_fwd", "FwdDesign")
         two = {64: ("kTwin", "kRowSplit"), 192: ("kRowSplit", "kRows8"),
-               256: ("kRows8", "kRowSplit"), 384: ("kPair", "kDSplit")}
+               256: ("kRows8", "kRowSplit"), 384: ("kPair", "kDSplit"),
+               512: ("kPair", "kDSplit")}
         self.flash_fwd_design = lambda d: ids[
             "kRowSplit" if d == 128 else two[d][1 if other else 0]
             if d in two else "kDSplit"]
@@ -267,10 +268,10 @@ def test_fwd_design_labels_name_every_design():
     no other, with the names K2's and K3's ids of the same design carry
     (the twin blocks and the pair of blocks of 128 rows, K1's alone, take
     ids no K2 or K3 design has); the source's rule: the twin blocks at d
-    64, the rows on 8 warps at d 256, the pair of blocks at d 384, the row
-    split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes the row
-    split at d 64 and 256, the rows on 8 warps at d 192 and the D split at
-    d 384), the D split at d 320, 448 and 512."""
+    64, the rows on 8 warps at d 256, the pair of blocks at d 384 and 512,
+    the row split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes
+    the row split at d 64 and 256, the rows on 8 warps at d 192 and the D
+    split at d 384 and 512), the D split at d 320 and 448."""
     ids = _designs("flash_fwd", "FwdDesign")
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kTwin": 5,
                    "kPair": 7}
@@ -287,7 +288,8 @@ def test_fwd_design_labels_name_every_design():
         "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kTwin) : d <= "
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8) "
-        ": d == 384 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair) : kDSplit;")
+        ": d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair) : "
+        "kDSplit;")
     assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
         in text
     for d, shipped, other in ((64, "twin blocks of 8 warps", "row split"),
@@ -297,7 +299,7 @@ def test_fwd_design_labels_name_every_design():
                               (320, "D split", "D split"),
                               (384, "rows on a cluster of two", "D split"),
                               (448, "D split", "D split"),
-                              (512, "D split", "D split")):
+                              (512, "rows on a cluster of two", "D split")):
         assert chip_smoke.FWD_DESIGNS[_Fwd(False).flash_fwd_design(d)] == (
             shipped)
         assert chip_smoke.FWD_DESIGNS[_Fwd(True).flash_fwd_design(d)] == (
@@ -310,8 +312,8 @@ class _Bwd:
     512 (dq_pair), K3's 8-warp designs at d 64 (dkv_keys8) and 256
     (dkv_onepass) and its pair of blocks at d 384 and 512 (dkv_pair), the
     row split at d 128 (and K3's at d 192), the D split above (the row
-    split at d 64, 192 and 256, K3's one pass at d 192 and the D split for
-    the pairs in the other build)."""
+    split at d 64, 192 and 256, K3's one pass at d 192, the D split for
+    the shipped pairs and K2's pair at d 384 in the other build)."""
 
     def __init__(self, other):
         ids = _bwd_designs()
@@ -321,7 +323,9 @@ class _Bwd:
         pair = ids["kDSplit" if other else "kPair"]
         self.flash_bwd_dq_design = lambda d: (
             row8 if d in (64, 192, 256) else ids["kRowSplit"] if d <= 128
-            else pair if d == 512 else ids["kDSplit"])
+            else pair if d == 512
+            else ids["kPair" if other else "kDSplit"] if d == 384
+            else ids["kDSplit"])
         self.flash_bwd_dkv_design = lambda d: (
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
             else one if d == 256
@@ -336,9 +340,9 @@ def test_bwd_design_labels_name_every_design():
     at d 64 and 256 the 8-warp designs ship, at d 192 K2's, and a build
     with -DFLASH_OTHER_DESIGNS=1 runs the 12-warp row split there (and
     K1's rows on 8 warps and K3's one pass at d 192, where their row
-    split ships); at d 384 and 512 K3 ships its pair of blocks, at d 384
-    K1 and at d 512 K2 theirs, and the other build runs the D split (K2 at
-    d 384 and K1 at d 512 have one design)."""
+    split ships); at d 384 and 512 K1 and K3 ship their pairs of blocks
+    and K2 at d 512, and the other build runs the D split there; at d 384
+    K2 ships the D split and the other build its pair."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
                    "kKeys8": 4, "kPair": 6}
@@ -369,14 +373,15 @@ def test_bwd_design_labels_name_every_design():
     assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), 64)
                .values()) == {"row split"}
     pair = "a cluster of two, half the head dim a block"
-    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 384) == {
-        "flash_fwd": "rows on a cluster of two", "flash_bwd_dq": "D split",
-        "flash_bwd_dkv": pair}
-    assert chip_smoke.design_names(_Fwd(False), _Bwd(False), 512) == {
-        "flash_fwd": "D split", "flash_bwd_dq": pair, "flash_bwd_dkv": pair}
     for d in (384, 512):
-        assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), d)
-                   .values()) == {"D split"}
+        assert chip_smoke.design_names(_Fwd(False), _Bwd(False), d) == {
+            "flash_fwd": "rows on a cluster of two",
+            "flash_bwd_dq": pair if d == 512 else "D split",
+            "flash_bwd_dkv": pair}
+        assert chip_smoke.design_names(_Fwd(True), _Bwd(True), d) == {
+            "flash_fwd": "D split",
+            "flash_bwd_dq": pair if d == 384 else "D split",
+            "flash_bwd_dkv": "D split"}
     for d in (320, 448):
         assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), d)
                    .values()) == {"D split"}
@@ -386,7 +391,8 @@ def test_bwd_design_labels_name_every_design():
                      re.S).group(1)
     assert " ".join(rule.split()) == (
         "return d == 64 || d == 192 || d == 256 ? (FLASH_OTHER_DESIGNS ? "
-        "kRowSplit : kRows8) : d <= 128 ? kRowSplit : d == 512 ? "
+        "kRowSplit : kRows8) : d <= 128 ? kRowSplit : d == 384 ? "
+        "(FLASH_OTHER_DESIGNS ? kPair : kDSplit) : d == 512 ? "
         "(FLASH_OTHER_DESIGNS ? kDSplit : kPair) : kDSplit;")
     rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
@@ -403,9 +409,10 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
     (DESIGN_KERNELS, every one a kernel of csrc/): at d 64 K1, K2 and K3
     ship flash_fwd_twin, dq_rows8 and dkv_keys8, the other build runs
     flash_fwd_wgmma, dq_wgmma and dkv_wgmma there; at d 192 K2 ships
-    dq_rows8, the other build runs dq_wgmma; at d 384 and 512 K3 ships
-    dkv_pair, at d 384 K1 flash_fwd_pair and at d 512 K2 dq_pair, and the
-    other build runs the split kernels there."""
+    dq_rows8, the other build runs dq_wgmma; at d 384 and 512 K1 and K3
+    ship flash_fwd_pair and dkv_pair and the other build runs the split
+    kernels there; K2 ships dq_pair at d 512 and dq_split at d 384, the
+    other build the other one."""
     fwd_ids = _designs("flash_fwd", "FwdDesign")
     bwd_ids = _bwd_designs()
     kernels = chip_smoke.DESIGN_KERNELS
@@ -430,16 +437,15 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
         "flash_fwd": "flash_fwd_rows8<256>",
         "flash_bwd_dq": "dq_rows8<256>",
         "flash_bwd_dkv": "dkv_onepass<256>"}
-    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 384) == {
-        "flash_fwd": "flash_fwd_pair<384>", "flash_bwd_dq": "dq_split<384>",
-        "flash_bwd_dkv": "dkv_pair<384>"}
-    assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 512) == {
-        "flash_fwd": "flash_fwd_split<512>", "flash_bwd_dq": "dq_pair<512>",
-        "flash_bwd_dkv": "dkv_pair<512>"}
     for d in (384, 512):
+        dq = ("dq_pair", "dq_split")[::1 if d == 512 else -1]
+        assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d) == {
+            "flash_fwd": f"flash_fwd_pair<{d}>",
+            "flash_bwd_dq": f"{dq[0]}<{d}>",
+            "flash_bwd_dkv": f"dkv_pair<{d}>"}
         assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), d) == {
             "flash_fwd": f"flash_fwd_split<{d}>",
-            "flash_bwd_dq": f"dq_split<{d}>",
+            "flash_bwd_dq": f"{dq[1]}<{d}>",
             "flash_bwd_dkv": f"dkv_split<{d}>"}
 
 
@@ -609,6 +615,7 @@ def test_pair_edges_cover_the_blocks():
     assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
     assert any(not causal and s % 64 == 0 for _, s, _, _, causal in edges)
     assert chip_smoke.PAIR_DIMS == (384, 512)
+    assert chip_smoke.PAIR_EDGE_SETS["flash_bwd_dkv"] == edges
     assert set(chip_smoke.PAIR_DIMS) <= set(chip_smoke.DESIGN_DIMS)
     assert "dkv_pair" in chip_smoke.CLEAN_KERNELS
     for d in chip_smoke.PAIR_DIMS:
@@ -617,35 +624,41 @@ def test_pair_edges_cover_the_blocks():
 
 
 def test_rows_pair_edges_cover_the_blocks():
-    """phase 3 and phase_wide_designs hold K1's pair of blocks at d 384
-    and K2's at d 512 (flash_fwd_pair, dq_pair: 128 query rows a pair) at
-    one row, one short of and one past a pair, one short of two, s 300 at
-    GQA groups 1 to 3, s 1000 and 2047 and non-causal aligned; the dims
-    are the ones those kernels ship the pair at, and their training shape
-    (b 8 s 2048 at phase 12's heads) is phase 3's too."""
+    """phase 3 and phase_wide_designs hold K1's and K2's pairs of blocks
+    (flash_fwd_pair, dq_pair: 128 query rows a pair) at one row, one short
+    of and one past a pair, one short of two, s 300 at GQA groups 1 to 3,
+    s 1000 and 2047 and non-causal aligned, at every dim either build runs
+    a pair at (PAIR_DIMS: each kernel has one at d 384 and 512, K2's at d
+    384 in the other build, each held at its own edges in both builds);
+    their training shape (b 8 s 2048 at phase 12's heads) is phase 3's
+    too."""
     edges = chip_smoke.ROWS_PAIR_EDGES
     lengths = {s for _, s, _, _, _ in edges}
     assert {1, 127, 129, 255, 1000, 2047} <= lengths
     assert {h // hkv for _, s, h, hkv, _ in edges if s == 300} == {1, 2, 3}
     assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
     assert any(not causal and s % 128 == 0 for _, s, _, _, causal in edges)
-    assert chip_smoke.ROWS_PAIR_DIMS == {"flash_fwd": 384,
-                                         "flash_bwd_dq": 512}
-    shipped = {name: chip_smoke.design_kernels(
-        _Fwd(False), _Bwd(False), d)[name]
-        for name, d in chip_smoke.ROWS_PAIR_DIMS.items()}
-    assert shipped == {"flash_fwd": "flash_fwd_pair<384>",
-                       "flash_bwd_dq": "dq_pair<512>"}
+    assert not hasattr(chip_smoke, "ROWS_PAIR_DIMS")
+    assert chip_smoke.PAIR_EDGE_SETS == {
+        "flash_fwd": edges, "flash_bwd_dq": edges,
+        "flash_bwd_dkv": chip_smoke.PAIR_EDGES}
+    assert set(chip_smoke.PAIR_EDGE_SETS) == set(chip_smoke.KERNELS)
+    templates = {"flash_fwd": "flash_fwd_pair", "flash_bwd_dq": "dq_pair",
+                 "flash_bwd_dkv": "dkv_pair"}
+    for d in chip_smoke.PAIR_DIMS:
+        both = {which: chip_smoke.design_kernels(_Fwd(other), _Bwd(other), d)
+                for which, other in (("shipped", False), ("other", True))}
+        for name, t in templates.items():
+            assert f"{t}<{d}>" in {both["shipped"][name], both["other"][name]}
     heads = {d: (h, hkv) for h, hkv, d in chip_smoke.WIDE_HEADS.values()}
-    assert set(chip_smoke.ROWS_PAIR_DIMS.values()) <= set(heads)
-    assert set(chip_smoke.ROWS_PAIR_DIMS.values()) <= set(
-        chip_smoke.DESIGN_DIMS)
+    assert set(chip_smoke.PAIR_DIMS) <= set(heads)
 
 
 def test_clean_kernels_hold_every_pair():
-    """Phase 2 fails if a pair of blocks spills or has a C75xx note: K1's
-    at d 384, K2's at d 512 and K3's at d 384 and 512, each a kernel of
-    csrc/ with a profile group."""
+    """Phase 2 fails if a pair of blocks spills or has a C75xx note: K1's,
+    K2's and K3's at d 384 and 512, each a kernel of csrc/ with a profile
+    group, each launched in clusters with a C function giving the clusters
+    a card holds at both dims."""
     assert set(chip_smoke.CLEAN_KERNELS) == {"flash_fwd_pair", "dq_pair",
                                              "dkv_pair"}
     assert set(chip_smoke.CLEAN_KERNELS) <= _global_kernels()
@@ -657,6 +670,14 @@ def test_clean_kernels_hold_every_pair():
     assert 'extern "C" int flash_fwd_clusters(int d)' in text["flash_fwd"]
     assert 'extern "C" int flash_bwd_dq_clusters(int d)' in text[
         "flash_bwd"]
+    for fn, source, kernel in (
+            ("flash_fwd_clusters", "flash_fwd", "fwd"),
+            ("flash_bwd_dq_clusters", "flash_bwd", "dq"),
+            ("flash_bwd_dkv_clusters", "flash_bwd", "dkv")):
+        body = text[source].split(f'extern "C" int {fn}(int d) {{', 1)[1]
+        body = body.split("\n}\n", 1)[0]
+        for d in chip_smoke.PAIR_DIMS:
+            assert f"case {d}: return {kernel}_clusters<{d}>();" in body
 
 
 @pytest.mark.parametrize("other", [False, True])
@@ -685,11 +706,14 @@ def test_design_ids_of_either_build_are_labelled(other):
 
 @pytest.mark.parametrize("key,d,split", [
     ("flash_fwd_pair<384>", 384, "flash_fwd_split"),
-    ("dq_pair<512>", 512, "dq_split")])
+    ("flash_fwd_pair<512>", 512, "flash_fwd_split"),
+    ("dq_pair<512>", 512, "dq_split"),
+    ("dq_pair<384>", 384, "dq_pair")])
 def test_rows_pair_variant_keys_name_their_template_and_shape(key, d,
                                                               split):
-    """kernel_variants.py's keys for K1's pair of blocks at d 384 and K2's
-    at d 512 name their template (``template_of``) and source, are timed
+    """kernel_variants.py's keys for K1's and K2's pairs of blocks at d
+    384 and 512 (K2's at d 384 runs in the other build, so its variants
+    run it) name their template (``template_of``) and source, are timed
     at the shape phase_wide_designs times the two designs at
     (DESIGN_SHAPES: phase 12's heads at the training shape), and have
     variants, among them the other build's split kernel."""
@@ -774,8 +798,8 @@ def test_pair_prefetch_on_two_stages_waits_for_its_refill(variant):
 def test_wide_entries_carry_designs_and_pair():
     """The wide head dims' ``kernels`` entries: every key the line's
     contract names, launches summed over phase 12's paths; wherever the
-    two builds run different kernels (all three at d 192 and 256, K1 and
-    K3 at d 384, K2 and K3 at d 512) the designs timed in turns, and K2's
+    two builds run different kernels (all three at d 192, 256, 384 and
+    512) the designs timed in turns, and K2's
     and K3's the pair's sum beside SDPA's backward; the kernel-only dims
     under d 512."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -812,9 +836,7 @@ def test_wide_entries_carry_designs_and_pair():
         assert entry["route"] == "cuda" and entry["launches"] == 20
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
-        assert ("designs_in_turns" in entry) == (
-            d in (192, 256) or (d in (384, 512) and kernel == "flash_bwd_dkv")
-            or (d, kernel) in ((384, "flash_fwd"), (512, "flash_bwd_dq")))
+        assert ("designs_in_turns" in entry) == (d in (192, 256, 384, 512))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d == 512)
         if "designs_in_turns" in entry:
@@ -977,8 +999,12 @@ def test_template_name_reads_f32_kernels(mangled, name):
 @pytest.mark.parametrize("mangled,name,d", [
     ("_ZN45_GLOBAL__N__75498264_12_flash_fwd_cu_b294bfd014flash_fwd_pairILi38"
      "4EEEvNS_11FwdPairArgsE", "flash_fwd_pair", 384),
+    ("_ZN45_GLOBAL__N__75498264_12_flash_fwd_cu_b294bfd014flash_fwd_pairILi51"
+     "2EEEvNS_11FwdPairArgsE", "flash_fwd_pair", 512),
     ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd287dq_pairILi512EEEvNS_"
      "10DqPairArgsE", "dq_pair", 512),
+    ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd287dq_pairILi384EEEvNS_"
+     "10DqPairArgsE", "dq_pair", 384),
     ("_ZN45_GLOBAL__N__eed8c072_12_flash_bwd_cu_3c15cd288dkv_pairILi384EEEvN"
      "S_11DkvPairArgsE", "dkv_pair", 384)])
 def test_template_name_reads_pair_kernels(mangled, name, d):
@@ -1150,46 +1176,116 @@ def _kernel_body(source, kernel):
     return source[start:source.index("\n}\n", start)]
 
 
+def _helper_body(text, name):
+    """The text of PairExchange's member ``name`` in hopper.cuh, from its
+    signature to its closing brace."""
+    start = re.search(rf"\b{name}\([^;{{]*\)[^;{{]*\{{", text).start()
+    return text[start:text.index("\n  }\n", start)]
+
+
 @pytest.mark.parametrize("kernel,source", [
     ("flash_fwd_pair", "flash_fwd"), ("dq_pair", "flash_bwd"),
     ("dkv_pair", "flash_bwd")])
 def test_pairs_release_their_receive_buffers_one_way(kernel, source):
-    """Every pair of blocks hands its receive buffers back to the peer by
-    the one remote arrival of hopper.cuh (released at CTA scope, its
-    comment says why), made by one thread past a named barrier of the
-    buffers' readers."""
+    """Every pair of blocks hands its receive buffers back to the peer
+    through hopper.cuh's one exchange helper (PairExchange): the one
+    remote arrival (released at CTA scope, the helper's comment says why)
+    is made only in PairExchange::release, by one thread right past a
+    named barrier of the buffers' readers; no pair kernel stores into the
+    peer, waits on or arrives at its barriers, or crosses the cluster
+    barrier itself; and the buffers are read only by the helper's loads
+    into registers (the kernel names their offset only to build it)."""
     hopper = (CSRC / "hopper.cuh").read_text()
     remote = re.findall(r"mbarrier\.arrive[.\w]*\.shared::cluster", hopper)
     assert remote == ["mbarrier.arrive.release.cta.shared::cluster"]
+    helper = hopper[hopper.index("struct PairExchange {"):]
+    helper = helper[:helper.index("\n};\n")]
+    release = _helper_body(helper, "release")
+    assert re.search(r"bar_sync\([^)]*READERS\);\n\s+if \(threadIdx\.x % "
+                     r"READERS == 0\) mbar_arrive_remote_cta\(freed_peer\);",
+                     release)
+    # the arrival, stated once with the rule it rests on, and nowhere else
+    assert hopper.count("mbar_arrive_remote_cta(") == 2  # definition, call
+    assert release.count("mbar_arrive_remote_cta(") == 1
+    head = helper[:helper.index("void release(")].splitlines()[:-1]
+    comment = []
+    while head and head[-1].lstrip().startswith("//"):
+        comment.insert(0, head.pop().lstrip("/ "))
+    comment = " ".join(comment)
+    for rule in ("CTA scope", "load into a register", "named barrier",
+                 "no receive buffer feeds a wgmma"):
+        assert rule in comment, rule
+    sources = "".join(f.read_text() for f in sorted(CSRC.glob("*.c*")))
+    assert sources.count("no receive buffer feeds a wgmma") == 1
+    assert sources.count("bar.sync returns once") == 1
+    # the receive buffers' reads: loads into registers in recv_add and
+    # unstash alone
+    reads = [m for m in ("recv_add", "unstash")
+             if re.search(r"(in|buf)\)?\[", _helper_body(helper, m))]
+    assert reads == ["recv_add", "unstash"]
     body = _kernel_body((CSRC / f"{source}.cu").read_text(), kernel)
-    arrivals = re.findall(r"bar_sync\([^)]*\);\n\s+if \((?:t|threadIdx\.x)"
-                          r" == 0\) mbar_arrive_remote_cta\(freed_peer\);",
-                          body)
-    assert arrivals
-    assert body.count("mbar_arrive_remote_cta(") == len(arrivals)
+    for call in ("st_async_16(", "mbar_wait_cluster(",
+                 "mbar_arrive_remote_cta(", "cluster_arrive(", "cluster_wait(",
+                 "cluster_map("):
+        assert call not in body, call
+    for call in ("L::X::init(", "L::X::begin();", ".send(", ".recv_add(",
+                 ".release(", "L::X::end("):
+        assert call in body, call
+    assert body.count("L::X_OFF") == 2  # the helper's two views of them
 
 
-@pytest.mark.parametrize("variant", [None, "dq_pair_bk64_one_stage"])
-def test_dq_pair_tiles_fit_and_exchange_in_whole_rounds(variant):
-    """dq_pair<512>'s key tiles, as committed and as the one-stage 64-key
-    variant times them: whole rounds of XK keys a tile, and Q, dO, the
-    K/V stages, the receive buffers and the mbarriers within SMEM_MAX."""
+@pytest.mark.parametrize("variant,d", [
+    (None, 512), (None, 384), ("dq_pair_bk64_one_stage", 512),
+    ("dq_pair_d384_bk64", 384)])
+def test_dq_pair_tiles_fit_and_exchange_in_whole_rounds(variant, d):
+    """dq_pair's key tiles at d 384 and 512, as committed and as the
+    variants time them (one 64-key stage at d 512, two at d 384): whole
+    rounds of XK keys a tile, and Q, dO, the K/V stages, the receive
+    buffers and the mbarriers within SMEM_MAX."""
     files = kernel_variants.committed_files("flash_bwd")
     if variant is not None:
         files = kernel_variants.variant_files(variant, files)
     source = files["flash_bwd.cu"]
     struct = source[source.index("struct DqPair {"):]
-    const = {name: int(re.search(rf"int {name} = (\d+);", struct).group(1))
+    struct = struct[:struct.index("\n};\n")]
+    const = {name: _constexpr(re.search(rf"int {name} = ([^;]*);",
+                                        struct).group(1), d)
              for name in ("BQ", "BK", "STAGES", "XK")}
     smem_max = int(re.search(r"SMEM_MAX = (\d+);", source).group(1))
-    dh, wg = 256, 128
+    dh, wg = d // 2, 128
     assert const["BK"] % const["XK"] == 0 and const["STAGES"] >= 1
     smem = (2 * const["BQ"] * dh * 2 + 2 * const["STAGES"] * const["BK"]
-            * dh * 2 + 2 * 2 * (const["XK"] // 2) * wg * 4
+            * dh * 2 + 2 * (const["XK"] // 4) * 16 * wg
             + 8 * (1 + 2 * const["STAGES"] + 4) + 1024)
     assert smem <= smem_max
-    if variant is not None:
+    # one stage more does not fit
+    assert smem + 2 * const["BK"] * dh * 2 > smem_max or const["STAGES"] == 4
+    if variant == "dq_pair_bk64_one_stage":
         assert (const["BK"], const["STAGES"]) == (64, 1)
+    if variant == "dq_pair_d384_bk64":
+        assert (const["BK"], const["STAGES"]) == (64, 2)
+
+
+@pytest.mark.parametrize("d", [384, 512])
+def test_fwd_pair_tiles_fit(d):
+    """flash_fwd_pair at d 384 and 512: Q (128 rows at D / 2), the K and V
+    stages of BK keys, the two receive buffers (BK / 2 partial scores a
+    thread) and the mbarriers within SMEM_MAX; at d 512 two stages, a
+    third does not fit (at d 384 three)."""
+    source = (CSRC / "flash_fwd.cu").read_text()
+    struct = source[source.index("struct FwdPair {"):]
+    struct = struct[:struct.index("\n};\n")]
+    bk, stages = (_constexpr(re.search(rf"int {name} = ([^;]*);",
+                                       struct).group(1), d)
+                  for name in ("BK", "STAGES"))
+    smem_max = int(re.search(r"SMEM_MAX = (\d+);", source).group(1))
+    dh, wg = d // 2, 128
+    def smem(n):
+        return (128 * dh * 2 + 2 * n * bk * dh * 2 + 2 * (bk // 8) * 16 * wg
+                + 8 * (1 + 3 * n + 4) + 1024)
+    assert smem(stages) <= smem_max < smem(stages + 1)
+    assert stages == {384: 3, 512: 2}[d]
+    assert "static_assert(DH % 64 == 0 && DH <= 256" in struct
 
 
 wide_steps = _script("wide_steps")

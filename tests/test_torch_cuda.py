@@ -263,7 +263,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (8, 2048, 3, 1, 512),
                                          (8, 2048, 4, 2, 384),
                                          (2, 255, 3, 1, 512),
-                                         (2, 255, 4, 2, 384)])
+                                         (2, 255, 4, 2, 384),
+                                         (2, 127, 4, 2, 384),
+                                         (2, 129, 3, 1, 512)])
 def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
                                            d):
     """K2 sums over the key tiles and K3 over the group's heads and the
@@ -274,7 +276,9 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
     memory; at d 384 and 512 dkv_pair, whose two blocks each add the
     other's partial scores to their own, the same two f32 values on both,
-    and so do K1's flash_fwd_pair at d 384 and K2's dq_pair at d 512;
+    and so do K1's flash_fwd_pair and K2's dq_pair there, through the one
+    exchange of csrc/hopper.cuh (the rows at s 127 and 129: one short of
+    and one past a pair's 128 query rows, K2 at d 384 and K1 at d 512);
     in
     f32 dkv_f32's key tiles split over several blocks at the small shapes,
     their parts summed in split order by a second pass). K1 too: each

@@ -8,12 +8,14 @@ CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` at first use) and
 no network. Phases, each of which raises on failure:
 
 1. device: CUDA present; the card's name and power limit from nvidia-smi;
-2. build: every kernel source, one nvcc each, all started together, also
-   with -DFLASH_OTHER_DESIGNS=1 (the designs not shipped); ptxas's
-   registers, spills and C75xx notes of the d 64, 192, 256, 384 and 512
-   kernels and of the f32 K1, K2 and K3 at every head dim (the
-   register-tiled ones must not spill, the pairs of blocks, K1's at d 384,
-   K2's at d 512 and K3's at d 384 and 512, must compile clean);
+2. build: every kernel source, one nvcc each, all started together, the
+   per-dim ones also with -DFLASH_OTHER_DESIGNS=1 (the designs not
+   shipped); ptxas's registers, spills and C75xx notes of the d 64, 192,
+   256, 384 and 512 kernels, of the f32 K1, K2 and K3 at every head dim
+   and of the streamed kernels of csrc/flash_wide.cu (bf16 above d 512)
+   (the register-tiled ones must not spill, the pairs of blocks, K1's at
+   d 384, K2's at d 512 and K3's at d 384 and 512, and the three streamed
+   kernels must compile clean);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -25,10 +27,15 @@ no network. Phases, each of which raises on failure:
    at the fine-tuning shapes (b 4, s 2048, 32 / 8 heads, d 128 for
    Llama-3.1-8B and d 64 for Llama-3.2-1B; K1 also through the wrapper at
    b 1, s 1000), timed there too; and all three at phase 12's head dims
-   256, 192, 512 and 384 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1 and 4 / 2
-   heads) and at 320 and 448 (4 / 2 heads, no model), timed there beside
-   SDPA (its backend named: its flash backend stops at d 256), in f32 at
-   s 1000 too, with K1 also at its per-length prefill; K1, K2 and K3 at
+   256, 192, 512, 384 and 768 (b 8, s 2048, 6 / 2, 8 / 4, 3 / 1, 4 / 2 and
+   2 / 1 heads) and at 320 and 448 (4 / 2 heads) and 576, 640 (4 / 2),
+   704, 1024 (2 / 1) and 2048 (1 / 1) (no model), timed there beside SDPA
+   (its backend named: its flash backend stops at d 256; MATH above), in
+   f32 at s 1000 too up to d 512 (f32's bound), with K1 also at its
+   per-length prefill, and above d 512 (the streamed kernels, bf16) each
+   with its recompute factor, twice on one input bitwise, and through
+   autograd over ``flash_attention`` at s 1, 65, 129, 1000 and 2047 and
+   non-causal s 512 (STREAMED_EDGES); K1, K2 and K3 at
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
    256), the pairs of blocks at d 384 and 512 at their edges
@@ -118,14 +125,17 @@ no network. Phases, each of which raises on failure:
    ``bench_800m`` (per-length and windowed prefill), a LoRA step over a
    ``bench_800m`` base and the ResNet-50 step;
 12. wide head dims: ``bench_800m`` with its attention cut into 6 / 2 heads
-   of 256, 8 / 4 of 192, 3 / 1 of 512 and 4 / 2 of 384 (``WIDE_HEADS``;
-   h * d is still 1536), each trained by ``make_train_step`` at b 8 x 2048
-   for a few steps with exact launches per step (K1 40 / K2 20 / K3 20), a
-   falling finite loss, step time, tokens/s, MFU and peak memory; the d 256
-   and d 512 models, in bf16, answer one per-length request over HTTP (K1
-   20, first tokens ``llama.apply``'s) and decode greedily in f32 through
-   K1 token for token as the dense path does; the d 512 and d 384 models
-   take one step with flash against one with dense attention (b 2, s 512);
+   of 256, 8 / 4 of 192, 3 / 1 of 512, 4 / 2 of 384 and 2 / 1 of 768
+   (``WIDE_HEADS``; h * d is still 1536), each trained by
+   ``make_train_step`` at b 8 x 2048 for a few steps with exact launches
+   per step (K1 40 / K2 20 / K3 20), a falling finite loss, step time,
+   tokens/s, MFU and peak memory; the d 256, 512 and 768 models, in bf16,
+   answer one per-length request over HTTP (K1 20, first tokens
+   ``llama.apply``'s) and decode greedily through K1, d 256 and 512 in f32
+   token for token as the dense path does, d 768 in bf16 (f32 stops at d
+   512) with ``llama.apply``'s logits held to the dense path's; the d 512,
+   384 and 768 models take one step with flash against one with dense
+   attention (b 2, s 512; d 768 in bf16 only);
 13. the placement policy and the GPU binding: a seeded journal of
    16,384 sched-journal/v1 placement rows over 16 pools of mixed sizes
    (``policy_journal``), written to JSONL and read back through the port's
@@ -185,6 +195,12 @@ LSE_ATOL = 1e-3
 # summation order only.
 BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+# the streamed kernels' source (bf16 above d 512; one design, so one build)
+# and its kernel templates, each instantiated at its column group's width
+# (ops/flash_attention.py's WIDE_COLUMNS)
+WIDE_SOURCE = "flash_wide"
+WIDE_KERNELS = {"flash_fwd": "flash_fwd_wide", "flash_bwd_dq": "dq_wide",
+                "flash_bwd_dkv": "dkv_wide"}
 # each kernel of the main paths: its source under csrc/, and the TPU kernel
 # it replaces, by function name and line in the JAX package's
 # ops/flash_attention.py
@@ -207,24 +223,30 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "dkv_keys8": "K3 dkv (keys on 8 warps, d 64)",
                    "flash_fwd_split": "K1 flash_fwd (D split)",
                    "dq_split": "K2 dq (D split)",
-                   "dkv_split": "K3 dkv (D split)"}
+                   "dkv_split": "K3 dkv (D split)",
+                   "flash_fwd_wide": "K1 flash_fwd (head dim streamed, "
+                                     "d > 512)",
+                   "dq_wide": "K2 dq (head dim streamed, d > 512)",
+                   "dkv_wide": "K3 dkv (head dim streamed, d > 512)"}
 # K1's bf16 designs by the id flash_fwd_design returns (csrc/flash_fwd.cu's
 # FwdDesign), K2's and K3's by the id flash_bwd_dq_design and
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
 FWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
-               5: "twin blocks of 8 warps", 7: "rows on a cluster of two"}
+               5: "twin blocks of 8 warps", 7: "rows on a cluster of two",
+               8: "head dim streamed, 256 columns a block"}
 BWD_DESIGNS = {0: "row split", 1: "D split", 2: "rows on 8 warps",
                3: "one pass", 4: "keys on 8 warps",
-               6: "a cluster of two, half the head dim a block"}
+               6: "a cluster of two, half the head dim a block",
+               8: "head dim streamed, 256 columns a block"}
 # the kernel template each design id runs, per kernel
 DESIGN_KERNELS = {
     "flash_fwd": {0: "flash_fwd_wgmma", 1: "flash_fwd_split",
                   2: "flash_fwd_rows8", 5: "flash_fwd_twin",
-                  7: "flash_fwd_pair"},
+                  7: "flash_fwd_pair", 8: "flash_fwd_wide"},
     "flash_bwd_dq": {0: "dq_wgmma", 1: "dq_split", 2: "dq_rows8",
-                     6: "dq_pair"},
+                     6: "dq_pair", 8: "dq_wide"},
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
-                      4: "dkv_keys8", 6: "dkv_pair"}}
+                      4: "dkv_keys8", 6: "dkv_pair", 8: "dkv_wide"}}
 # the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
 # d 192 and 256, all three at d 384 and 512 in bf16, and all three at d
 # 128 in f32; phase 3 times them beside the shipped ones in turns):
@@ -377,23 +399,41 @@ RESNET50_PARAMS = 25_557_032
 SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
 
 # the wide head dims (phase 12): PRESET with its attention cut into heads of
-# 256 (6 / 2 heads), 192 (8 / 4), 512 (3 / 1) and 384 (4 / 2), built with
-# dataclasses.replace (the JAX package has no preset at these dims). h * d
-# stays 1536, so wq and wo keep their 1536 x 1536 and each kernel does
-# PRESET's work at the training shape; d 256 and d 512 also keep wk/wv at
-# 1536 x 512 (d 192 and d 384: 1536 x 768). d 384 and d 512 take the split
-# kernels (each consumer warpgroup owns part of the output's columns). Each
-# trains WIDE_STEPS steps at the training shape (the first a warm-up); the
-# models of WIDE_SERVED then serve one per-length request, and those of
+# 256 (6 / 2 heads), 192 (8 / 4), 512 (3 / 1), 384 (4 / 2) and 768 (2 / 1),
+# built with dataclasses.replace (the JAX package has no preset at these
+# dims). h * d stays 1536, so wq and wo keep their 1536 x 1536 and each
+# kernel does PRESET's work at the training shape; d 256 and d 512 also
+# keep wk/wv at 1536 x 512 (d 192, 384 and 768: 1536 x 768). d 384 and
+# d 512 take the pairs of blocks and the split kernels (each block or
+# consumer warpgroup owns part of the output's columns), d 768 the
+# streamed kernels of csrc/flash_wide.cu (bf16 only). Each trains
+# WIDE_STEPS steps at the training shape (the first a warm-up); the models
+# of WIDE_SERVED then serve one per-length request, and those of
 # WIDE_VS_DENSE take one step with flash against one with dense attention
 # (b 2, s 512, GRAD_TOL). Phase 3 checks and times K1, K2 and K3 at every
-# shape, and at KERNEL_ONLY_HEADS: the split kernels' other dims, 4 / 2
-# heads of 320 and of 448 at the training shape (no model).
+# shape, and at KERNEL_ONLY_HEADS (no model, the training shape): the split
+# kernels' other dims, 4 / 2 heads of 320 and of 448, and the streamed
+# kernels' at 4 / 2 heads of 576 (the first past 512) and 640, 2 / 1 of
+# 704 (11 chunks of 64, a prime) and 1024, and 1 / 1 of 2048 (d 576 and
+# 704 end in a column group of 64).
 WIDE_HEADS = {"bench_800m_d256": (6, 2, 256), "bench_800m_d192": (8, 4, 192),
-              "bench_800m_d512": (3, 1, 512), "bench_800m_d384": (4, 2, 384)}
-WIDE_SERVED = (256, 512)
-WIDE_VS_DENSE = (512, 384)
-KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448)}
+              "bench_800m_d512": (3, 1, 512), "bench_800m_d384": (4, 2, 384),
+              "bench_800m_d768": (2, 1, 768)}
+WIDE_SERVED = (256, 512, 768)
+WIDE_VS_DENSE = (512, 384, 768)
+KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448),
+                     "d576": (4, 2, 576), "d640": (4, 2, 640),
+                     "d704": (2, 1, 704), "d1024": (2, 1, 1024),
+                     "d2048": (1, 1, 2048)}
+# f32's bound: K1, K2 and K3 take f32 up to this head dim, bf16 above it
+# on the streamed kernels (ops/flash_attention.py's KERNEL_HEAD_DIMS)
+F32_MAX_DIM = 512
+# the streamed kernels' edges, (b, s, causal) at each of their dims'
+# heads, through autograd over flash_attention: one row, ragged ends one
+# past a 64-key (K3) and a 128-row (K1, K2) block, the serving prompt
+# length, s 2047, non-causal aligned
+STREAMED_EDGES = ((2, 1, True), (2, 65, True), (2, 129, True),
+                  (2, 1000, True), (1, 2047, True), (2, 512, False))
 WIDE_STEPS = TRAIN_STEPS
 # the causal shape (b, s, heads, KV heads) each of DESIGN_DIMS is timed at
 # in turns: Llama-3.2-1B's at the fine-tuning shape (phase 8's
@@ -448,7 +488,8 @@ PAIR_EDGE_SETS = {"flash_fwd": ROWS_PAIR_EDGES,
                   "flash_bwd_dq": ROWS_PAIR_EDGES,
                   "flash_bwd_dkv": PAIR_EDGES}
 # the kernels that must compile with no spill and no C75xx note (phase 2)
-CLEAN_KERNELS = ("dkv_pair", "flash_fwd_pair", "dq_pair")
+CLEAN_KERNELS = ("dkv_pair", "flash_fwd_pair", "dq_pair",
+                 *WIDE_KERNELS.values())
 
 # the placement policy (phase 13): POLICY_ROWS sched-journal/v1 placement
 # rows over 16 pools (features.MAX_POOLS) of mixed sizes, each pool (hosts,
@@ -565,25 +606,37 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
-    port builds it, and with the other designs (bf16 at d 64, 192, 256,
-    384 and 512, f32 at d 128; phase 3 times both). Raises if a
-    register-tiled f32 kernel spills, or a kernel of CLEAN_KERNELS spills
-    or has its wgmmas serialised (a C75xx note)."""
+    port builds it, and the per-dim sources also with the other designs
+    (bf16 at d 64, 192, 256, 384 and 512, f32 at d 128; phase 3 times
+    both). Raises if a register-tiled f32 kernel spills, a kernel of
+    CLEAN_KERNELS spills or has its wgmmas serialised (a C75xx note), or
+    the streamed kernels' column groups are not ops/flash_attention.py's
+    WIDE_COLUMNS."""
+    import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
     from service_account_auth_improvements_tpu_torch.ops import _build
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(2 * len(KERNEL_SOURCES) + 1) as pool:
         # map submits every build at once; the lists wait for them
-        built = pool.map(_build.build, KERNEL_SOURCES)
+        built = pool.map(_build.build, (*KERNEL_SOURCES, WIDE_SOURCE))
         other = pool.map(_build_other_designs, KERNEL_SOURCES)
-        libs, others = list(built), list(other)
+        *libs, wide = list(built)
+        others = list(other)
     _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
          f"designs (bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at "
-         f"d {F32_DESIGN_DIM}), in "
+         f"d {F32_DESIGN_DIM}), and {WIDE_SOURCE}, in "
          f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs + others:
+    columns = [ctypes.CDLL(str(wide)).flash_wide_columns(i)
+               for i in range(len(KERNELS))]
+    if columns != [fa.WIDE_COLUMNS[name] for name in KERNELS]:
+        raise AssertionError(f"{WIDE_SOURCE}'s column groups {columns} are "
+                             f"not WIDE_COLUMNS {fa.WIDE_COLUMNS}")
+    for lib in libs + others + [wide]:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
             _log(f"  {lib.relative_to(ROOT)}:")
@@ -593,16 +646,13 @@ def phase_build() -> None:
                     _log(f"  ptxas: {line.strip()}")
     # the DESIGN_DIMS kernels of both designs and the f32 kernels at
     # every head dim, in one line each
-    from service_account_auth_improvements_tpu_torch.ops.flash_attention \
-        import KERNEL_HEAD_DIMS
-
     spilled = []
     for lib in libs + others:
         log = lib.with_name(lib.name + ".log")
         if not log.exists():
             continue
         for fn, n in ptxas_summary(log.read_text()).items():
-            for d in KERNEL_HEAD_DIMS:
+            for d in fa.KERNEL_HEAD_DIMS:
                 kernel = _template_name(fn, d)
                 if not kernel or (d not in DESIGN_DIMS
                                   and kernel not in F32_KERNELS):
@@ -616,6 +666,17 @@ def phase_build() -> None:
                 if kernel in CLEAN_KERNELS and (n["spill_stores"]
                                                 or n["notes"]):
                     spilled.append(f"{kernel}<{d}> ({', '.join(n['notes'])})")
+    # the streamed kernels, one template each, at its group's width
+    report = ptxas_summary(wide.with_name(wide.name + ".log").read_text())
+    for name, kernel in WIDE_KERNELS.items():
+        w = fa.WIDE_COLUMNS[name]
+        (n,) = [n for fn, n in report.items()
+                if _template_name(fn, w) == kernel]
+        _log(f"ptxas {kernel}<{w}> ({wide.parent.name}): {n['registers']} "
+             f"registers, {n['spill_stores']} bytes of spill stores, C75xx: "
+             f"{', '.join(n['notes']) or 'none'}")
+        if n["spill_stores"] or n["notes"]:
+            spilled.append(f"{kernel}<{w}> ({', '.join(n['notes'])})")
     if spilled:
         raise AssertionError(f"kernels that must compile clean spill or "
                              f"serialise their wgmmas: {spilled}")
@@ -788,8 +849,9 @@ def phase_kernels() -> dict:
            PROMPT, 32, 8, d, torch.bfloat16, True, True)
           for name, d in FT_HEAD_DIMS),
         # the wide head dims (phase 12 and KERNEL_ONLY_HEADS): the training
-        # shape and f32 at a ragged length; phase 12's per-length prefill;
-        # the widest non-causal
+        # shape and, up to f32's bound, f32 at a ragged length; phase 12's
+        # per-length prefill; the widest non-causal (the streamed kernels'
+        # edges are phase_bwd_kernels' STREAMED_EDGES, through autograd)
         *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
            hkv, d, torch.bfloat16, True, False)
           for name, (h, hkv, d) in _kernel_heads().items()),
@@ -798,7 +860,8 @@ def phase_kernels() -> dict:
           for name, (h, hkv, d) in WIDE_HEADS.items()),
         *((f"{name} s{PROMPT} f32 wrapper", 2, PROMPT, h, hkv, d,
            torch.float32, True, True)
-          for name, (h, hkv, d) in _kernel_heads().items()),
+          for name, (h, hkv, d) in _kernel_heads().items()
+          if d <= F32_MAX_DIM),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False, True),
         # K1's 128-row blocks at d 192 (64-key tiles) and d 256 (80-key
@@ -848,8 +911,10 @@ def phase_kernels() -> dict:
             _log(f"  lse max abs err {lerr:.3e}")
         if fa.launches != before + 1:
             raise AssertionError(f"{name}: the kernel did not launch")
-        if d in PAIR_DIMS and not wrapper and dtype == torch.bfloat16:
-            # a pair sums in a fixed order: the same bits again
+        if ((d in PAIR_DIMS or d > F32_MAX_DIM) and not wrapper
+                and dtype == torch.bfloat16):
+            # a pair, or the streamed kernel's column groups, sum in a
+            # fixed order: the same bits again
             again_o, again_lse = fa.flash_fwd(qt, kt, vt, causal)
             if not (torch.equal(got_o, again_o)
                     and torch.equal(got_lse, again_lse)):
@@ -916,12 +981,15 @@ def phase_kernels() -> dict:
         max_abs_err=worst_ft[d])
         for name, d in FT_HEAD_DIMS}
     # the wide head dims at the training shape (flash_fwd_wgmma<192>,
-    # flash_fwd_rows8<256> and flash_fwd_split<320> to <512>: the build's
-    # ptxas lines above give their registers and spills)
+    # flash_fwd_rows8<256>, flash_fwd_split<320> and <448>,
+    # flash_fwd_pair<384> and <512>, flash_fwd_wide<256> above 512: the
+    # build's ptxas lines above give their registers and spills), the
+    # streamed kernel with its recompute factor
     wide = {name: dict(
         _time_k1(name, TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, gen),
         max_abs_err=worst_wide[d],
-        shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal")
+        shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal",
+        **streamed_numbers("flash_fwd", d))
         for name, (h, hkv, d) in _kernel_heads().items()}
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft,
                 wide=wide, f32=f32)
@@ -931,6 +999,38 @@ def _kernel_heads() -> dict:
     """Phase 3's wide head dims: phase 12's models and the kernel-only
     dims, name -> (heads, KV heads, head dim)."""
     return {**WIDE_HEADS, **KERNEL_ONLY_HEADS}
+
+
+def recompute(d: int, kernel: str) -> float:
+    """The work of a streamed kernel (``WIDE_KERNELS``) at head dim ``d``
+    over its function's (``kernel_flops``): each of its column groups
+    forms the scores over the whole head dim (K1 S, K2 S and dP, K3 S^T
+    and dP^T) and multiplies against its group's W columns, a last
+    narrower group too (its columns past d are zeros); 2·d flops a causal
+    pair a product either way, as W flops for a group's product."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    scores, outputs = {"flash_fwd": (1, 1), "flash_bwd_dq": (2, 1),
+                       "flash_bwd_dkv": (2, 2)}[kernel]
+    groups = len(fa.wide_groups(d, kernel))
+    done = groups * (scores * d + outputs * fa.WIDE_COLUMNS[kernel])
+    return done / ((scores + outputs) * d)
+
+
+def streamed_numbers(kernel: str, d: int) -> dict:
+    """What phase 3 records beside a timing at head dim ``d`` where the
+    streamed kernel runs (above f32's bound): the kernel, as
+    ``<template><<W>>``, and its recompute factor; else nothing."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    if d <= F32_MAX_DIM:
+        return {}
+    return {"kernel": f"{WIDE_KERNELS[kernel]}<{fa.WIDE_COLUMNS[kernel]}>",
+            "recompute": recompute(d, kernel)}
 
 
 def _sdpa_backend(q, k, v) -> str:
@@ -973,10 +1073,19 @@ def _time_k1(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
          f"{ms:.4f} ms ({tflops:.1f} TF/s, {bound_ms / ms:.3f} of bound), "
          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({backend}), bound "
          f"{bound_ms:.4f} ms ({bound_by}, at "
-         f"{PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)")
+         f"{PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)"
+         f"{_streamed_note('flash_fwd', d)}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_backend=backend, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
+
+
+def _streamed_note(kernel: str, d: int) -> str:
+    """A timing line's note of the streamed kernel and its recompute
+    factor, where it runs."""
+    n = streamed_numbers(kernel, d)
+    return (f"; {n['kernel']}, recompute {n['recompute']:.3f}x" if n
+            else "")
 
 
 def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
@@ -1028,7 +1137,8 @@ def phase_bwd_kernels() -> dict:
           for name, (h, hkv, d) in _kernel_heads().items()),
         *((f"{name} s{PROMPT} f32", 2, PROMPT, h, hkv, d, torch.float32,
            True)
-          for name, (h, hkv, d) in _kernel_heads().items()),
+          for name, (h, hkv, d) in _kernel_heads().items()
+          if d <= F32_MAX_DIM),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
@@ -1152,6 +1262,49 @@ def phase_bwd_kernels() -> dict:
              f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}")
         del q, k, v, do, o, want, ro, rlse
 
+    # the streamed kernels (bf16 above f32's bound) at STREAMED_EDGES, at
+    # each of their dims' heads, through autograd over flash_attention: O
+    # against K1's plain version, the gradients against
+    # flash_bwd_reference, and the whole of it again, bitwise
+    for label, (h, hkv, d) in _kernel_heads().items():
+        if d <= F32_MAX_DIM:
+            continue
+        for b, s, causal in STREAMED_EDGES:
+            name = f"{label} s{s} causal {causal} bf16 autograd"
+            q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
+            do = _qkv(b, s, h, h, d, torch.bfloat16, gen)[0]
+            runs = []
+            for _ in range(2):
+                ts = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                before = _counts(fa)
+                o = fa.flash_attention(*ts, causal=causal)
+                o.backward(do)
+                torch.cuda.synchronize()
+                if _counts(fa) != {n: c + 1 for n, c in before.items()}:
+                    raise AssertionError(f"{name}: K1/K2/K3 did not launch")
+                runs.append((o.detach(), *(t.grad for t in ts)))
+            if not all(map(torch.equal, *runs)):
+                raise AssertionError(f"{name}: not the same bits again")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ro, rlse = fa.flash_fwd_reference(qt, kt, vt, causal)
+            eo = _check(f"{name} O", runs[0][0].transpose(1, 2), ro,
+                        *TOL[torch.bfloat16])
+            want = fa.flash_bwd_reference(qt, kt, vt, ro, rlse,
+                                          do.transpose(1, 2), causal)
+            errs = [_check(f"{name} d{n}", g.transpose(1, 2), w,
+                           *BWD_TOL[torch.bfloat16])
+                    for g, w, n in zip(runs[0][1:], want, "qkv")]
+            worst_wide["flash_bwd_dq", d] = max(
+                worst_wide["flash_bwd_dq", d], errs[0])
+            worst_wide["flash_bwd_dkv", d] = max(
+                worst_wide["flash_bwd_dkv", d], *errs[1:])
+            _log(f"kernel {name} (b{b} h{h} hkv{hkv}): O {eo:.3e}, dq "
+                 f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; twice, "
+                 "bitwise equal")
+            del q, k, v, do, runs, ts, o, ro, rlse, want
+        torch.cuda.empty_cache()
+
     # timing at the training shape: each kernel, its plain version, and
     # SDPA's backward (one call for dQ, dK and dV together: the backward
     # of one autograd graph, timed as a yardstick for both rows)
@@ -1211,7 +1364,7 @@ def phase_bwd_kernels() -> dict:
             out[name]["wide"][label] = dict(
                 n, max_abs_err=worst_wide[name, d],
                 shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 "
-                      "causal")
+                      "causal", **streamed_numbers(name, d))
     # f32 (dq_f32, dkv_f32) at F32_SHAPES
     for name in out:
         out[name]["f32"] = {}
@@ -1262,7 +1415,8 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
              f"causal: kernel {ms:.4f} ms ({tflops:.1f} TF/s, "
              f"{bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, sdpa "
              f"backward {lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
-             f"({bound_by}, at {PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)")
+             f"({bound_by}, at {PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)"
+             f"{_streamed_note(name, d)}")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library_backend=backend, bound_ms=bound_ms,
                          bound_by=bound_by, tflops=tflops,
@@ -2020,7 +2174,8 @@ def _time_step_parts(cfg, state, tokens, step_mod) -> dict:
 def _grads_flash_vs_dense(cfg, step_mod) -> None:
     """Outside the counted run: one step's loss and gradients with flash
     against dense attention at full width (all layers), b 2, s 512, in
-    f32 and bf16 compute, from one init."""
+    f32 and bf16 compute, from one init; above f32's bound (F32_MAX_DIM:
+    K1, K2 and K3 refuse f32 there) in bf16 only."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import llama
@@ -2031,6 +2186,8 @@ def _grads_flash_vs_dense(cfg, step_mod) -> None:
                            generator=torch.Generator(device="cuda")
                            .manual_seed(4))
     for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        if name == "f32" and cfg.head_dim > F32_MAX_DIM:
+            continue
         out = {}
         for impl in ("flash", "dense"):
             c = dataclasses.replace(cfg, dtype=dtype, attn_impl=impl)
@@ -4534,7 +4691,7 @@ def _world1_resnet(mesh, fa) -> None:
 # ------------------------------------------------------------ phase 12
 
 def phase_wide_heads(window=None) -> dict:
-    """PRESET at head dims 256, 192, 512 and 384 (WIDE_HEADS):
+    """PRESET at head dims 256, 192, 512, 384 and 768 (WIDE_HEADS):
     ``make_train_step`` at the training shape, WIDE_STEPS steps on one
     fixed batch, with exact launch counts per step (K1 2 L, K2 L, K3 L), a
     finite loss that falls, step time (and each step's, on the card's
@@ -4657,7 +4814,10 @@ def _wide_serving(cfg, params, fa) -> dict:
     (per-length prefill) answering one greedy request over HTTP: K1 once
     per layer, the first tokens ``llama.apply``'s argmax; then greedy f32
     decoding, flash (K1's f32 route) against dense, token for token.
-    Returns the launch counts of each counted run."""
+    Above f32's bound (F32_MAX_DIM) that decoding runs in bf16 instead:
+    ``llama.apply``'s logits, flash against dense, within APPLY_ATOL's
+    bf16 bound, and the greedy tokens' agreement reported. Returns the
+    launch counts of each counted run."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import (
@@ -4708,8 +4868,11 @@ def _wide_serving(cfg, params, fa) -> dict:
          f"{BATCH} x ({PROMPT} + {NEW}) tokens over HTTP, launches {served} "
          f"(K1 {L} per per-length prefill); first tokens = llama.apply's; "
          f"greedy tokens equal to the dense path's: {agree:.4f}")
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
     short = toks[:2, :256]
+    if cfg.head_dim > F32_MAX_DIM:
+        return {"serving": served,
+                "greedy bf16": _wide_greedy_bf16(cfg16, params16, short, fa)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
     _zero(fa)  # the counted f32 decode
     with torch.inference_mode():
         flash = generate.generate(cfg32, params, short, 16, device=DEV)
@@ -4726,6 +4889,44 @@ def _wide_serving(cfg, params, fa) -> dict:
     _log(f"wide heads greedy f32 (b 2, 256 + 16, d{cfg.head_dim}): flash "
          f"equals dense token for token, K1 {decoded['flash_fwd']}")
     return {"serving": served, "greedy f32": decoded}
+
+
+def _wide_greedy_bf16(cfg16, params16, toks, fa) -> dict:
+    """Above f32's bound: greedy bf16 decoding through K1 (once per layer,
+    counted), ``llama.apply``'s logits with flash against dense attention
+    within APPLY_ATOL["bf16"] (the two round P and O at different points,
+    so a near tie may decode apart: the tokens' agreement is reported).
+    Returns the counted launches."""
+    import dataclasses
+
+    from service_account_auth_improvements_tpu_torch.models import (
+        generate,
+        llama,
+    )
+
+    L = cfg16.n_layers
+    dense_cfg = dataclasses.replace(cfg16, attn_impl="dense")
+    _zero(fa)  # the counted bf16 decode
+    with torch.inference_mode():
+        flash = generate.generate(cfg16, params16, toks, 16, device=DEV)
+        decoded = _counts(fa)
+        dense = generate.generate(dense_cfg, params16, toks, 16, device=DEV)
+        logits = llama.apply(cfg16, params16, toks).float()
+        want = llama.apply(dense_cfg, params16, toks).float()
+    if decoded != {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"bf16 greedy launches {decoded}, expected K1 "
+                             f"{L}")
+    err = float((logits - want).abs().max())
+    if not (torch.isfinite(logits).all() and err <= APPLY_ATOL["bf16"]):
+        raise AssertionError(f"wide bf16 logits: flash differs from dense "
+                             f"by {err:.3e} (atol {APPLY_ATOL['bf16']})")
+    agree = (flash == dense).float().mean().item()
+    _log(f"wide heads greedy bf16 (b 2, 256 + 16, d{cfg16.head_dim}; f32 "
+         f"stops at d {F32_MAX_DIM}): K1 {decoded['flash_fwd']}, llama.apply "
+         f"logits flash against dense max abs err {err:.3e} (atol "
+         f"{APPLY_ATOL['bf16']}), greedy tokens equal to the dense path's: "
+         f"{agree:.4f}")
+    return decoded
 
 
 def policy_journal(n: int, seed: int) -> list[dict]:
@@ -5050,38 +5251,46 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     phase 12's launches per path (``wide[d][path][kernel]``) and
     ``phase_wide_designs``' (``designs[d][kernel]``): wherever the two
     builds run different kernels (K1, K2 and K3 at d 192, 256, 384 and
-    512) the other design's numbers beside the
-    shipped one's,
-    K2's and K3's with the pair's sum beside SDPA's backward; the
-    kernel-only dims (d 320, 448: no model, so no launches on a main path)
-    under the d 512 entries."""
+    512) the other design's numbers beside the shipped one's, K2's and
+    K3's with the pair's sum beside SDPA's backward; above f32's bound
+    the streamed kernel (``source`` csrc/flash_wide.cu) and its recompute
+    factor; the kernel-only dims (no model, so no launches on a main
+    path) under the entries of their kind: d 320 and 448 under d 512's,
+    the streamed ones under d 768's."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
+    streamed = ("kernel", "recompute")
+    under = {512: [label for label, (_, _, d) in KERNEL_ONLY_HEADS.items()
+                   if d <= F32_MAX_DIM],
+             768: [label for label, (_, _, d) in KERNEL_ONLY_HEADS.items()
+                   if d > F32_MAX_DIM]}
     entries = []
     for label, (_, _, d) in WIDE_HEADS.items():
         for name, (src, _, line) in KERNELS.items():
             n = numbers[name]["wide"][label]
+            these = (*keys, *streamed) if d > F32_MAX_DIM else keys
             by_path = {path: counts[name] for path, counts in wide[d].items()}
             entry = {
                 "name": f"{name} d{d}",
                 "route": "cuda",
-                "source": f"{PKG}/csrc/{src}",
+                "source": f"{PKG}/csrc/"
+                          + (f"{WIDE_SOURCE}.cu" if d > F32_MAX_DIM else src),
                 "replaces": "service_account_auth_improvements_tpu/ops/"
                             f"flash_attention.py:{line}",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
-                **{key: n[key] for key in keys},
+                **{key: n[key] for key in these},
             }
             if "pair_ms" in n:
                 entry["pair_ms"] = n["pair_ms"]
             both = designs.get(d, {}).get(name)
             if both and both["shipped_kernel"] != both["other_kernel"]:
                 entry["designs_in_turns"] = both
-            if d == 512:
+            if d in under:
                 entry["more_shapes"] = {
                     other: {key: numbers[name]["wide"][other][key]
-                            for key in keys}
-                    for other in KERNEL_ONLY_HEADS}
+                            for key in these}
+                    for other in under[d]}
             entries.append(entry)
     return entries
 

@@ -129,7 +129,12 @@ constexpr int SMEM_MAX = 232448;
 //   kPair      a cluster of two 8-warp blocks, each holding half of the
 //              head dim: K3's dkv_pair (dkv_onepass on each block; d 384
 //              and 512) and K2's dq_pair (dq_rows8 on each block; d 512,
-//              and d 384 in the other build).
+//              and d 384 in the other build);
+//   kWide      dq_wide, dkv_wide, in csrc/flash_wide.cu: 8-warp blocks of
+//              128 rows (K2) or 64 keys (K3) and 256 output columns, the
+//              head dim streamed in 64-column chunks (every multiple of 64
+//              above 512; this library builds no kernel past 512, the
+//              wrappers call that one's, and the id only names them).
 // At d 64, 192, 256, 384 and 512 each of K2 and K3 ships the faster of two
 // designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
 // card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
@@ -140,10 +145,10 @@ constexpr int SMEM_MAX = 232448;
 // (dq_pair at d 384, dq_split at d 512, dkv_split at d 384 and 512; K1's
 // other design at d 64, 192, 256, 384 and 512, and the scalar f32 kernels
 // at d 128: F32Design). The ids 5 and 7 are K1's (FwdDesign's kTwin and
-// kPair).
+// kPair); 8 is K1's kWide too.
 enum BwdDesign {
   kRowSplit = 0, kDSplit = 1, kRows8 = 2, kOnePass = 3, kKeys8 = 4,
-  kPair = 6
+  kPair = 6, kWide = 8
 };
 
 #ifndef FLASH_OTHER_DESIGNS
@@ -155,6 +160,7 @@ constexpr int dq_design(int d) {
          : d <= 128 ? kRowSplit
          : d == 384 ? (FLASH_OTHER_DESIGNS ? kPair : kDSplit)
          : d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+         : d > 512  ? kWide
                     : kDSplit;
 }
 constexpr int dkv_design(int d) {
@@ -163,6 +169,7 @@ constexpr int dkv_design(int d) {
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
          : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+         : d > 512              ? kWide
                                 : kDSplit;
 }
 

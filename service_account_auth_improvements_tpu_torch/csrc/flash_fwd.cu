@@ -122,9 +122,14 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 //              two blocks a SM, each warpgroup's tile in series (d 64);
 //   kPair      flash_fwd_pair: flash_fwd_wgmma's 128 rows on a cluster of
 //              two blocks, each holding half of the head dim (d 384 and
-//              512).
-// (kTwin's and kPair's ids follow BwdDesign's, so that no id names two
-// designs.)
+//              512);
+//   kWide      flash_fwd_wide, in csrc/flash_wide.cu: 8-warp blocks of 128
+//              rows and 256 output columns, the head dim streamed in
+//              64-column chunks (every multiple of 64 above 512; this
+//              library builds no kernel past 512, the wrapper calls that
+//              one's, and the id only names it).
+// (kTwin's and kPair's ids follow BwdDesign's, and kWide's is the same as
+// K2's and K3's there, so that no id names two designs.)
 // At d 64, 192, 256, 384 and 512 K1 ships the faster of two designs on
 // the H100 (chip_smoke.py's phase_wide_designs, in turns on one card;
 // PERF.md §6): flash_fwd_twin at d 64, flash_fwd_wgmma at d 192,
@@ -133,7 +138,7 @@ constexpr int SMEM_MAX = 232448;   // shared memory a block may use (227 KB)
 // d 64, flash_fwd_split at d 384 and 512; and the scalar f32 kernel at d
 // 128: F32Design).
 enum FwdDesign { kRowSplit = 0, kDSplit = 1, kRows8 = 2, kTwin = 5,
-                 kPair = 7 };
+                 kPair = 7, kWide = 8 };
 
 #ifndef FLASH_OTHER_DESIGNS
 #define FLASH_OTHER_DESIGNS 0
@@ -144,6 +149,7 @@ constexpr int fwd_design(int d) {
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8)
          : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+         : d > 512              ? kWide
                                 : kDSplit;
 }
 

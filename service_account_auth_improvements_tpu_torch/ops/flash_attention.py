@@ -5,8 +5,9 @@ K3 ``_dkv_kernel``/``_flash_bwd``, and the ``_flash`` custom VJP in
 
 Routes: on a CUDA tensor ``flash_fwd`` launches the sm_90a kernel in
 ``csrc/flash_fwd.cu`` and ``flash_bwd_dq``/``flash_bwd_dkv`` launch those
-in ``csrc/flash_bwd.cu`` (built at first use by ``ops/_build.py``); on a
-CPU tensor they run ``flash_fwd_reference`` and
+in ``csrc/flash_bwd.cu``, or, in bf16 above ``KERNEL_HEAD_DIMS``, those of
+``csrc/flash_wide.cu`` (each library built at first use by
+``ops/_build.py``); on a CPU tensor they run ``flash_fwd_reference`` and
 ``flash_bwd_dq_reference``/``flash_bwd_dkv_reference``, the plain PyTorch
 versions of the same arithmetic. There is no other route: a CUDA tensor a
 kernel cannot take raises, it never falls back. ``launches``,
@@ -27,13 +28,16 @@ head dim in ``KERNEL_HEAD_DIMS`` with tiles chosen per dim. float32 runs
 ``dkv_f32`` (true f32 FMA, no TF32; when a launch has fewer than two
 blocks a SM, K2 splits its blocks' key ranges and K3 its key tiles' query
 ranges over up to four blocks, whose parts a second pass, ``f32_reduce``,
-sums from a workspace this module allocates). All count under the same
-counters. A CUDA tensor at another
-head dim raises: d 576 and up pass the reference's rules (its Pallas
-kernels set no upper bound), but there a warpgroup's share of the output
-passes the 256 columns one wgmma takes, and a 64-row Q tile beside two
-K/V stages passes the 227 KB of shared memory a block may have: 512 is
-the bound.
+sums from a workspace this module allocates). Every kernel there holds its
+rows at the whole head dim (or half of it in each block of a pair), so
+512 is the bound of those libraries. Above it the reference's rules (its
+Pallas kernels set no upper bound) admit every multiple of 64, and in bf16
+so does the port: ``flash_fwd_wide``, ``dq_wide`` and ``dkv_wide``
+(``csrc/flash_wide.cu``) stream the head dim in 64-column chunks and give
+each block ``WIDE_COLUMNS`` output columns, so what a block holds does not
+grow with d. A float32 CUDA tensor above 512 raises, naming that bound, as
+does any CUDA tensor whose head dim is no multiple of 64. All count under
+the same counters.
 
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
@@ -66,9 +70,19 @@ from service_account_auth_improvements_tpu_torch.ops.attention import (
 # multiple of this (causal ones are masked to their length)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: head dims K1, K2 and K3 are built for, in bf16 and f32: every multiple
-#: of 64 up to 512
+#: head dims K1, K2 and K3 are built for one by one, in bf16 and f32:
+#: every multiple of 64 up to 512, the bound in f32. In bf16 every multiple
+#: of 64 above it takes the streamed kernels (``WIDE_FUNCTIONS``)
 KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+#: the C functions of ``csrc/flash_wide.cu`` that run K1, K2 and K3 in bf16
+#: above ``KERNEL_HEAD_DIMS``
+WIDE_FUNCTIONS = {"flash_fwd": "flash_wide_fwd",
+                  "flash_bwd_dq": "flash_wide_dq",
+                  "flash_bwd_dkv": "flash_wide_dkv"}
+#: the output columns one block of each of those kernels owns (its C
+#: constants FWD_W, DQ_W and DKV_W, which ``flash_wide_columns`` reports):
+#: ``wide_groups`` lists the blocks' column groups at a head dim
+WIDE_COLUMNS = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 
 #: kernel launches since the last reset (tests and chip_smoke.py read
 #: them): K1 (forward), K2 (dQ) and K3 (dK/dV)
@@ -200,11 +214,28 @@ def _check_layout(name, ts, dtype):
                              "and 16-byte aligned rows")
 
 
-def _check_head_dim(name, d):
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, up to {KERNEL_HEAD_DIMS[-1]} "
-                         f"(got {d})")
+def kernel_route(name, d, dtype) -> tuple[str, str]:
+    """The library (a ``csrc/`` source) and C function that run kernel
+    ``name`` ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") on CUDA
+    tensors of head dim ``d`` in ``dtype``: the per-dim kernels at
+    ``KERNEL_HEAD_DIMS``, the streamed ones in bf16 at every multiple of 64
+    above them; raises for any other head dim, naming f32's bound."""
+    if d in KERNEL_HEAD_DIMS:
+        return ("flash_fwd" if name == "flash_fwd" else "flash_bwd"), name
+    if dtype == torch.bfloat16 and d % 64 == 0 and d > KERNEL_HEAD_DIMS[-1]:
+        return "flash_wide", WIDE_FUNCTIONS[name]
+    raise ValueError(f"{name} kernel supports head_dim in {KERNEL_HEAD_DIMS}, "
+                     f"up to {KERNEL_HEAD_DIMS[-1]} in float32, and every "
+                     f"multiple of 64 above it in bfloat16 (got {d} in "
+                     f"{dtype})")
+
+
+def wide_groups(d, name) -> list[tuple[int, int]]:
+    """The column groups of kernel ``name``'s streamed blocks at head dim
+    ``d``, (first column, width) each: ``WIDE_COLUMNS[name]`` columns each
+    but the last, which ends at d."""
+    w = WIDE_COLUMNS[name]
+    return [(c, min(w, d - c)) for c in range(0, d, w)]
 
 
 def _aligned(t) -> bool:
@@ -218,7 +249,7 @@ def _launch(q, k, v, causal: bool):
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     _check_layout("flash_fwd", (q, k, v), q.dtype)
-    _check_head_dim("flash_fwd", d)
+    lib, fn_name = kernel_route("flash_fwd", d, q.dtype)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or h % hkv):
         raise ValueError(f"flash_fwd: bad shapes q {tuple(q.shape)}, "
@@ -226,7 +257,7 @@ def _launch(q, k, v, causal: bool):
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _library("flash_fwd", "flash_fwd", _FWD_ARGS)
+    fn = _library(lib, fn_name, _FWD_ARGS)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), int(q.dtype == torch.bfloat16), b, h, hkv,
@@ -355,7 +386,7 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
     _, hkv, sk, _ = k.shape
     outs = [t for t in (dq, dk, dv) if t is not None]
     _check_layout(fn_name, (q, k, v, do, *outs), q.dtype)
-    _check_head_dim(fn_name, d)
+    lib, c_name = kernel_route(fn_name, d, q.dtype)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or h % hkv or do.shape != q.shape):
         raise ValueError(f"{fn_name}: bad shapes q {tuple(q.shape)}, "
@@ -372,7 +403,7 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
     ptr = [t.data_ptr() if t is not None else None
            for t in (q, k, v, do, lse, delta, dq, dk, dv)]
     bf16 = int(q.dtype == torch.bfloat16)
-    fn = _library("flash_bwd", fn_name, _BWD_ARGS)
+    fn = _library(lib, c_name, _BWD_ARGS)
     with torch.cuda.device(q.device):
         # K2 or K3 in f32 with split tiles: the parts' workspace (the
         # caching allocator reuses it only in this stream's order)

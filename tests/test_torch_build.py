@@ -13,7 +13,7 @@ import pytest
 
 from service_account_auth_improvements_tpu_torch.ops import _build
 
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_wide")
 
 
 @pytest.fixture

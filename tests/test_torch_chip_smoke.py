@@ -169,9 +169,12 @@ def test_parallel_settings():
 def test_wide_head_settings():
     """Phase 12's configurations keep the preset's h * d (so wq and wo
     keep their shapes and each kernel does the preset's work), take head
-    dims every kernel is built for, differ from the preset only in their
-    heads, and time steps after a warm-up."""
+    dims the kernels take (the per-dim ones up to 512, the streamed ones
+    in bf16 above), differ from the preset only in their heads, and time
+    steps after a warm-up."""
     import dataclasses
+
+    import torch
 
     from service_account_auth_improvements_tpu_torch.models import llama
     from service_account_auth_improvements_tpu_torch.ops import (
@@ -180,10 +183,15 @@ def test_wide_head_settings():
 
     base = llama.PRESETS[chip_smoke.PRESET]
     assert sorted(d for _, _, d in chip_smoke.WIDE_HEADS.values()) == [
-        192, 256, 384, 512]
+        192, 256, 384, 512, 768]
     for name, (h, hkv, d) in chip_smoke.WIDE_HEADS.items():
         assert name == f"{chip_smoke.PRESET}_d{d}"
-        assert d in fa.KERNEL_HEAD_DIMS and h % hkv == 0
+        assert h % hkv == 0
+        # the per-dim kernels up to 512, the streamed ones (bf16) above
+        assert (d in fa.KERNEL_HEAD_DIMS) == (d <= chip_smoke.F32_MAX_DIM)
+        assert fa.kernel_route("flash_fwd", d, torch.bfloat16)[0] == (
+            "flash_fwd" if d <= chip_smoke.F32_MAX_DIM
+            else chip_smoke.WIDE_SOURCE)
         assert h * d == base.n_heads * base.head_dim
         cfg = dataclasses.replace(base, n_heads=h, n_kv_heads=hkv,
                                   head_dim=d)
@@ -197,30 +205,45 @@ def test_wide_head_settings():
     d384 = dataclasses.replace(base, n_heads=4, n_kv_heads=2, head_dim=384)
     d192 = dataclasses.replace(base, n_heads=8, n_kv_heads=4, head_dim=192)
     assert d384.param_count() == d192.param_count()
+    # d 768 keeps wq at 1536 x 1536, and wk/wv at d 192's 1536 x 768
+    d768 = dataclasses.replace(base, n_heads=2, n_kv_heads=1, head_dim=768)
+    assert d768.param_count() == d192.param_count()
     assert chip_smoke.WIDE_HEADS["bench_800m_d512"] == (3, 1, 512)
     assert chip_smoke.WIDE_HEADS["bench_800m_d384"] == (4, 2, 384)
-    assert set(chip_smoke.WIDE_SERVED) == {256, 512}
-    assert set(chip_smoke.WIDE_VS_DENSE) == {384, 512}
+    assert chip_smoke.WIDE_HEADS["bench_800m_d768"] == (2, 1, 768)
+    assert set(chip_smoke.WIDE_SERVED) == {256, 512, 768}
+    assert set(chip_smoke.WIDE_VS_DENSE) == {384, 512, 768}
     assert chip_smoke.WIDE_STEPS >= 2
+    assert chip_smoke.F32_MAX_DIM == fa.KERNEL_HEAD_DIMS[-1] == 512
 
 
 def test_kernel_only_head_settings():
     """Phase 3 checks and times K1, K2 and K3 at every head dim the split
-    kernels take (d 320 and 448 with no model, 4 / 2 heads), and at d 256
-    under both designs; the d 512 kernels line carries the kernel-only
-    dims; the profile groups name the split kernels, and the d 192 and 256
-    design labels come from K1's, K2's and K3's design functions."""
+    kernels take (d 320 and 448 with no model, 4 / 2 heads), at the
+    streamed kernels' kernel-only dims (576 and 640 at 4 / 2 heads, 704
+    and 1024 at 2 / 1, 2048 at 1 / 1), and at d 256 under both designs;
+    the d 512 kernels line carries the split kernels' kernel-only dims and
+    the d 768 line the streamed ones'; the profile groups name the split
+    and the streamed kernels, and the d 192 and 256 design labels come
+    from K1's, K2's and K3's design functions."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    assert chip_smoke.KERNEL_ONLY_HEADS == {"d320": (4, 2, 320),
-                                            "d448": (4, 2, 448)}
+    assert chip_smoke.KERNEL_ONLY_HEADS == {
+        "d320": (4, 2, 320), "d448": (4, 2, 448), "d576": (4, 2, 576),
+        "d640": (4, 2, 640), "d704": (2, 1, 704), "d1024": (2, 1, 1024),
+        "d2048": (1, 1, 2048)}
+    for label, (h, hkv, d) in chip_smoke.KERNEL_ONLY_HEADS.items():
+        assert label == f"d{d}" and h % hkv == 0
     dims = sorted(d for _, _, d in chip_smoke._kernel_heads().values())
-    assert dims == [192, 256, 320, 384, 448, 512]
-    assert set(dims) <= set(fa.KERNEL_HEAD_DIMS)
+    assert dims == [192, 256, 320, 384, 448, 512, 576, 640, 704, 768,
+                    1024, 2048]
+    assert {d for d in dims if d <= 512} <= set(fa.KERNEL_HEAD_DIMS)
+    assert all(d % 64 == 0 for d in dims)
     assert fa.KERNEL_HEAD_DIMS[-1] == 512
-    for kernel in ("flash_fwd_split", "dq_split", "dkv_split"):
+    for kernel in ("flash_fwd_split", "dq_split", "dkv_split",
+                   *chip_smoke.WIDE_KERNELS.values()):
         assert kernel in chip_smoke.PROFILE_KERNELS
     src = {name: (CSRC / f"{name}.cu").read_text()
            for name in chip_smoke.KERNEL_SOURCES}
@@ -251,7 +274,8 @@ class _Fwd:
     it: the twin blocks at d 64, the rows on 8 warps at d 256, the pair of
     blocks at d 384 and 512, the row split at d 128 and 192 (the other
     build: the row split at d 64 and 256, the rows on 8 warps at d 192, the
-    D split at d 384 and 512), the D split at d 320 and 448."""
+    D split at d 384 and 512), the D split at d 320 and 448, the streamed
+    kernel of csrc/flash_wide.cu above 512 (in both builds)."""
 
     def __init__(self, other):
         ids = _designs("flash_fwd", "FwdDesign")
@@ -260,7 +284,7 @@ class _Fwd:
                512: ("kPair", "kDSplit")}
         self.flash_fwd_design = lambda d: ids[
             "kRowSplit" if d == 128 else two[d][1 if other else 0]
-            if d in two else "kDSplit"]
+            if d in two else "kWide" if d > 512 else "kDSplit"]
 
 
 def test_fwd_design_labels_name_every_design():
@@ -271,13 +295,16 @@ def test_fwd_design_labels_name_every_design():
     64, the rows on 8 warps at d 256, the pair of blocks at d 384 and 512,
     the row split at d 128 and 192 (a -DFLASH_OTHER_DESIGNS=1 build takes
     the row split at d 64 and 256, the rows on 8 warps at d 192 and the D
-    split at d 384 and 512), the D split at d 320 and 448."""
+    split at d 384 and 512), the D split at d 320 and 448, and above 512
+    the head dim streamed (csrc/flash_wide.cu, in both builds), an id K2
+    and K3 share, with the same label."""
     ids = _designs("flash_fwd", "FwdDesign")
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kTwin": 5,
-                   "kPair": 7}
+                   "kPair": 7, "kWide": 8}
     assert set(chip_smoke.FWD_DESIGNS) == set(ids.values())
     assert ids["kTwin"] not in chip_smoke.BWD_DESIGNS
     assert ids["kPair"] not in chip_smoke.BWD_DESIGNS
+    assert ids["kWide"] == _bwd_designs()["kWide"]
     for n, label in chip_smoke.FWD_DESIGNS.items():
         assert chip_smoke.BWD_DESIGNS.get(n, label) == label
     assert len(set(chip_smoke.FWD_DESIGNS.values())) == len(ids)
@@ -289,7 +316,7 @@ def test_fwd_design_labels_name_every_design():
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kRows8 : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kRows8) "
         ": d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair) : "
-        "kDSplit;")
+        "d > 512 ? kWide : kDSplit;")
     assert 'extern "C" int flash_fwd_design(int d) { return fwd_design(d); }' \
         in text
     for d, shipped, other in ((64, "twin blocks of 8 warps", "row split"),
@@ -299,7 +326,12 @@ def test_fwd_design_labels_name_every_design():
                               (320, "D split", "D split"),
                               (384, "rows on a cluster of two", "D split"),
                               (448, "D split", "D split"),
-                              (512, "rows on a cluster of two", "D split")):
+                              (512, "rows on a cluster of two", "D split"),
+                              (576, "head dim streamed, 256 columns a block",
+                               "head dim streamed, 256 columns a block"),
+                              (2048, "head dim streamed, 256 columns a "
+                                     "block",
+                               "head dim streamed, 256 columns a block")):
         assert chip_smoke.FWD_DESIGNS[_Fwd(False).flash_fwd_design(d)] == (
             shipped)
         assert chip_smoke.FWD_DESIGNS[_Fwd(True).flash_fwd_design(d)] == (
@@ -313,7 +345,8 @@ class _Bwd:
     (dkv_onepass) and its pair of blocks at d 384 and 512 (dkv_pair), the
     row split at d 128 (and K3's at d 192), the D split above (the row
     split at d 64, 192 and 256, K3's one pass at d 192, the D split for
-    the shipped pairs and K2's pair at d 384 in the other build)."""
+    the shipped pairs and K2's pair at d 384 in the other build), and the
+    streamed kernels of csrc/flash_wide.cu above 512 (in both builds)."""
 
     def __init__(self, other):
         ids = _bwd_designs()
@@ -325,12 +358,14 @@ class _Bwd:
             row8 if d in (64, 192, 256) else ids["kRowSplit"] if d <= 128
             else pair if d == 512
             else ids["kPair" if other else "kDSplit"] if d == 384
+            else ids["kWide"] if d > 512
             else ids["kDSplit"])
         self.flash_bwd_dkv_design = lambda d: (
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
             else one if d == 256
             else ids["kOnePass" if other else "kRowSplit"] if d == 192
             else pair if d in (384, 512)
+            else ids["kWide"] if d > 512
             else ids["kDSplit"])
 
 
@@ -342,10 +377,11 @@ def test_bwd_design_labels_name_every_design():
     K1's rows on 8 warps and K3's one pass at d 192, where their row
     split ships); at d 384 and 512 K1 and K3 ship their pairs of blocks
     and K2 at d 512, and the other build runs the D split there; at d 384
-    K2 ships the D split and the other build its pair."""
+    K2 ships the D split and the other build its pair; above 512 all
+    three stream the head dim in both builds."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
-                   "kKeys8": 4, "kPair": 6}
+                   "kKeys8": 4, "kPair": 6, "kWide": 8}
     assert set(chip_smoke.BWD_DESIGNS) == set(ids.values())
     assert len(set(chip_smoke.BWD_DESIGNS.values())) == len(ids)
 
@@ -385,6 +421,11 @@ def test_bwd_design_labels_name_every_design():
     for d in (320, 448):
         assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), d)
                    .values()) == {"D split"}
+    for d in (576, 704, 768, 2048):
+        for other in (False, True):
+            assert set(chip_smoke.design_names(_Fwd(other), _Bwd(other), d)
+                       .values()) == {"head dim streamed, 256 columns a "
+                                      "block"}
     # the design functions follow the same rule in the source
     text = (CSRC / "flash_bwd.cu").read_text()
     rule = re.search(r"constexpr int dq_design\(int d\) \{(.*?)\}", text,
@@ -393,7 +434,8 @@ def test_bwd_design_labels_name_every_design():
         "return d == 64 || d == 192 || d == 256 ? (FLASH_OTHER_DESIGNS ? "
         "kRowSplit : kRows8) : d <= 128 ? kRowSplit : d == 384 ? "
         "(FLASH_OTHER_DESIGNS ? kPair : kDSplit) : d == 512 ? "
-        "(FLASH_OTHER_DESIGNS ? kDSplit : kPair) : kDSplit;")
+        "(FLASH_OTHER_DESIGNS ? kDSplit : kPair) : d > 512 ? kWide : "
+        "kDSplit;")
     rule = re.search(r"constexpr int dkv_design\(int d\) \{(.*?)\}", text,
                      re.S).group(1)
     assert " ".join(rule.split()) == (
@@ -401,7 +443,7 @@ def test_bwd_design_labels_name_every_design():
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
         "kOnePass) : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
-        ": kPair) : kDSplit;")
+        ": kPair) : d > 512 ? kWide : kDSplit;")
 
 
 def test_design_kernels_name_the_shipped_and_other_kernels():
@@ -421,6 +463,9 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
         set(bwd_ids.values()))
     for table in kernels.values():
         assert set(table.values()) <= _global_kernels()
+    # the streamed kernels' id names csrc/flash_wide.cu's templates
+    for name, kernel in chip_smoke.WIDE_KERNELS.items():
+        assert kernels[name][fwd_ids["kWide"]] == kernel
     assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), 64) == {
         "flash_fwd": "flash_fwd_twin<64>", "flash_bwd_dq": "dq_rows8<64>",
         "flash_bwd_dkv": "dkv_keys8<64>"}
@@ -658,9 +703,27 @@ def test_clean_kernels_hold_every_pair():
     """Phase 2 fails if a pair of blocks spills or has a C75xx note: K1's,
     K2's and K3's at d 384 and 512, each a kernel of csrc/ with a profile
     group, each launched in clusters with a C function giving the clusters
-    a card holds at both dims."""
-    assert set(chip_smoke.CLEAN_KERNELS) == {"flash_fwd_pair", "dq_pair",
-                                             "dkv_pair"}
+    a card holds at both dims; and so does each streamed kernel (bf16
+    above d 512), which phase 2 finds by its template at its column
+    group's width."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    assert set(chip_smoke.CLEAN_KERNELS) == {
+        "flash_fwd_pair", "dq_pair", "dkv_pair",
+        *chip_smoke.WIDE_KERNELS.values()}
+    assert set(chip_smoke.WIDE_KERNELS) == set(chip_smoke.KERNELS)
+    wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
+    for (name, kernel), const in zip(chip_smoke.WIDE_KERNELS.items(),
+                                     ("FWD_W", "DQ_W", "DKV_W")):
+        assert kernel in _global_kernels()
+        assert f"launch({kernel}<{const}>," in wide
+        assert f"constexpr int {const} = {fa.WIDE_COLUMNS[name]};" in wide
+        assert chip_smoke._template_name(
+            f"_ZN46_GLOBAL__N__0_13_flash_wide_cu_0598c693{len(kernel)}"
+            f"{kernel}ILi{fa.WIDE_COLUMNS[name]}EEEvNS_7ArgsE",
+            fa.WIDE_COLUMNS[name]) == kernel
     assert set(chip_smoke.CLEAN_KERNELS) <= _global_kernels()
     assert set(chip_smoke.CLEAN_KERNELS) <= set(chip_smoke.PROFILE_KERNELS)
     text = {name: (CSRC / f"{name}.cu").read_text()
@@ -800,18 +863,21 @@ def test_wide_entries_carry_designs_and_pair():
     contract names, launches summed over phase 12's paths; wherever the
     two builds run different kernels (all three at d 192, 256, 384 and
     512) the designs timed in turns, and K2's
-    and K3's the pair's sum beside SDPA's backward; the kernel-only dims
-    under d 512."""
+    and K3's the pair's sum beside SDPA's backward; at d 768 the streamed
+    kernel, its source csrc/flash_wide.cu, and its recompute factor; the
+    split kernels' kernel-only dims under d 512, the streamed kernels'
+    under d 768."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
     numbers = {}
     for name in chip_smoke.KERNELS:
         numbers[name] = {"wide": {}}
-        for i, label in enumerate(labels):
+        for i, (label, (_, _, d)) in enumerate(labels.items()):
             n = {key: float(i + 1) for key in keys}
             if name != "flash_fwd":
                 n["pair_ms"] = 2.0 * (i + 1)
+            n.update(chip_smoke.streamed_numbers(name, d))
             numbers[name]["wide"][label] = n
     wide = {d: {"training": {name: 20 for name in chip_smoke.KERNELS},
                 "serving": {name: 0 for name in chip_smoke.KERNELS}}
@@ -838,12 +904,52 @@ def test_wide_entries_carry_designs_and_pair():
         kernel = entry["name"].split()[0]
         assert ("designs_in_turns" in entry) == (d in (192, 256, 384, 512))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
-        assert ("more_shapes" in entry) == (d == 512)
+        assert ("more_shapes" in entry) == (d in (512, 768))
+        assert ("recompute" in entry) == (d == 768)
         if "designs_in_turns" in entry:
             assert entry["designs_in_turns"] is designs[d][kernel]
+        only = {label for label, (_, _, x) in
+                chip_smoke.KERNEL_ONLY_HEADS.items() if (x > 512) == (d > 512)}
         if d == 512:
-            assert set(entry["more_shapes"]) == set(
-                chip_smoke.KERNEL_ONLY_HEADS)
+            assert set(entry["more_shapes"]) == only == {"d320", "d448"}
+        if d == 768:
+            assert entry["source"].endswith("/csrc/flash_wide.cu")
+            assert entry["kernel"] == (
+                f"{chip_smoke.WIDE_KERNELS[kernel]}<256>")
+            assert entry["recompute"] == chip_smoke.recompute(768, kernel)
+            assert set(entry["more_shapes"]) == only == {
+                "d576", "d640", "d704", "d1024", "d2048"}
+            for n in entry["more_shapes"].values():
+                assert {"kernel", "recompute", *keys} <= set(n)
+        else:
+            assert entry["source"].endswith(
+                f"/csrc/{chip_smoke.KERNELS[kernel][0]}")
+
+
+def test_recompute_factors_of_the_streamed_kernels():
+    """The work of a streamed kernel over its function's: K1 at d 768
+    forms S in each of 3 groups over all 768 columns and P V over 256, so
+    (3 + 1) / 2 = 2x; a last group narrower than 256 still multiplies 256
+    columns (zeros past d), so d 576 costs more than d 768; at multiples
+    of 256 more groups cost more; phase 3 records the factor only above
+    f32's bound."""
+    assert chip_smoke.recompute(768, "flash_fwd") == 2.0
+    # K2: S and dP over d, dS K over W; K3: S^T and dP^T, two products
+    assert chip_smoke.recompute(768, "flash_bwd_dq") == 3 * (2 * 768 + 256) / (
+        3 * 768)
+    assert chip_smoke.recompute(768, "flash_bwd_dkv") == 3 * (
+        2 * 768 + 2 * 256) / (4 * 768)
+    assert chip_smoke.recompute(576, "flash_fwd") == 3 * (576 + 256) / 1152
+    for kernel in chip_smoke.KERNELS:
+        factors = [chip_smoke.recompute(d, kernel)
+                   for d in (768, 1024, 2048)]
+        assert all(f > 1 for f in factors)
+        assert factors == sorted(factors)
+        assert chip_smoke.recompute(576, kernel) > factors[0]
+        assert chip_smoke.streamed_numbers(kernel, 512) == {}
+        assert chip_smoke.streamed_numbers(kernel, 1024) == {
+            "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
+            "recompute": chip_smoke.recompute(1024, kernel)}
 
 
 def test_f32_design_labels_name_every_design():

@@ -1,0 +1,224 @@
+"""Port parity at head dims above 512: the plain versions of K1, K2 and K3
+against the JAX Pallas kernels in interpret mode, the routing of CUDA
+tensors (bf16 to the streamed kernels of csrc/flash_wide.cu, f32 refused
+at its bound), the streamed kernels' column groups, and a Llama at
+head_dim 576 against the JAX model.
+
+On the CPU the port runs ``flash_fwd_reference`` and
+``flash_bwd_dq_reference``/``flash_bwd_dkv_reference`` at every head dim;
+the streamed kernels run only on the card (chip_smoke.py and
+tests/test_torch_cuda.py). Tolerances are those of the wide cases in
+tests/test_torch_flash.py (the d 64 cases' of the same kind).
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from service_account_auth_improvements_tpu.models import llama as jllama  # noqa: E402
+from service_account_auth_improvements_tpu.ops import (  # noqa: E402
+    flash_attention as jfa,
+)
+from service_account_auth_improvements_tpu.train import step as jstep  # noqa: E402
+from service_account_auth_improvements_tpu_torch.models import (  # noqa: E402
+    llama as tllama,
+    params as tparams,
+)
+from service_account_auth_improvements_tpu_torch.ops import (  # noqa: E402
+    flash_attention as tfa,
+)
+from service_account_auth_improvements_tpu_torch.train import (  # noqa: E402
+    step as tstep,
+)
+
+SOURCE = (Path(tfa.__file__).resolve().parent.parent / "csrc"
+          / "flash_wide.cu")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the head dims the parity cases run at: the first past 512, one that is
+# no multiple of the group width, and bench_800m_d768's
+PARITY_DIMS = (576, 640, 768)
+# the routing and the column groups: the parity dims, the two prime
+# multiples of 64 among them (11 and 13 chunks), and two more groups
+ROUTED_DIMS = (576, 640, 704, 768, 832, 1024, 2048)
+
+
+@pytest.fixture
+def counter():
+    tfa.launches = tfa.dq_launches = tfa.dkv_launches = 0
+    yield
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (0, 0, 0), \
+        "no kernel may launch for CPU tensors"
+
+
+def _heads(d, seed):
+    """q, k, v and dO, [b 1, heads, s 256, d], 2 / 1 heads, seeded."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, n, 256, d)).astype(np.float32)
+            for n in (2, 1, 1, 2)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", PARITY_DIMS)
+def test_forward_reference_matches_jax_kernel(d, causal, counter,
+                                              monkeypatch):
+    """K1's plain version: O and LSE against ``_flash_fwd(...,
+    interpret=True)``, two blocks of 128 per axis, GQA group 2."""
+    monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
+    q, k, v, _ = _heads(d, seed=d)
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, interpret=True)
+    o, lse = tfa.flash_fwd_reference(*(torch.tensor(a) for a in (q, k, v)),
+                                     causal)
+    assert o.shape == (1, 2, 256, d) and lse.shape == (1, 2, 256)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", PARITY_DIMS)
+def test_backward_reference_matches_jax_kernels(d, causal, counter,
+                                                monkeypatch):
+    """K2's and K3's plain versions (through ``flash_bwd``, the CPU
+    route): dQ, dK and dV against ``_flash_bwd(..., interpret=True)`` on
+    the JAX forward's O and LSE."""
+    monkeypatch.setattr(jfa, "_pick_block", lambda seq, want: 128)
+    q, k, v, do = _heads(d, seed=d + 1)
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, interpret=True)
+    want = jfa._flash_bwd(*(jnp.asarray(a) for a in (q, k, v)), jo, jlse,
+                          jnp.asarray(do), causal=causal, interpret=True)
+    got = tfa.flash_bwd(*(torch.tensor(a) for a in (q, k, v)),
+                        torch.tensor(np.asarray(jo)),
+                        torch.tensor(np.asarray(jlse)[..., 0]),
+                        torch.tensor(do), causal)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   err_msg=f"d{n}")
+
+
+@pytest.mark.parametrize("d", ROUTED_DIMS)
+def test_bf16_above_512_takes_the_streamed_kernels(d):
+    """Every multiple of 64 above 512 in bf16 goes to csrc/flash_wide.cu,
+    one C function per kernel; in f32 it raises, naming f32's bound."""
+    assert d % 64 == 0 and d > tfa.KERNEL_HEAD_DIMS[-1]
+    for name in KERNELS:
+        assert tfa.kernel_route(name, d, torch.bfloat16) == (
+            "flash_wide", tfa.WIDE_FUNCTIONS[name])
+        with pytest.raises(ValueError, match=r"up to 512 in float32"):
+            tfa.kernel_route(name, d, torch.float32)
+
+
+def test_route_keeps_the_per_dim_kernels_and_refuses_the_rest():
+    """Head dims up to 512 keep their per-dim libraries in both dtypes;
+    a head dim that is no multiple of 64 raises in both."""
+    libs = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
+            "flash_bwd_dkv": "flash_bwd"}
+    assert tfa.KERNEL_HEAD_DIMS == tuple(range(64, 513, 64))
+    for d in tfa.KERNEL_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for name in KERNELS:
+                assert tfa.kernel_route(name, d, dtype) == (libs[name], name)
+    for d in (96, 600, 1000):
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="supports head_dim"):
+                tfa.kernel_route("flash_fwd", d, dtype)
+    assert set(tfa.WIDE_FUNCTIONS) == set(KERNELS)
+    for fn in tfa.WIDE_FUNCTIONS.values():
+        assert re.search(rf'extern "C" int {fn}\(', SOURCE.read_text())
+
+
+@pytest.mark.parametrize("d", ROUTED_DIMS)
+def test_column_groups_cover_the_head_dim(d):
+    """ceil(d / W) groups of W columns, the last one ending at d (64
+    columns at d 576, 704 and 832), tile [0, d) in order; W is the
+    source's constant for each kernel."""
+    text = SOURCE.read_text()
+    for name, const in zip(KERNELS, ("FWD_W", "DQ_W", "DKV_W")):
+        w = tfa.WIDE_COLUMNS[name]
+        assert re.search(rf"constexpr int {const} = {w};", text)
+        groups = tfa.wide_groups(d, name)
+        assert len(groups) == -(-d // w)
+        assert [c for c, _ in groups] == list(range(0, d, w))
+        assert sum(width for _, width in groups) == d
+        assert all(width == w for _, width in groups[:-1])
+        assert 0 < groups[-1][1] <= w and groups[-1][1] % 64 == 0
+    assert tfa.wide_groups(576, "flash_fwd")[-1] == (512, 64)
+    assert tfa.wide_groups(768, "flash_fwd") == [(0, 256), (256, 256),
+                                                 (512, 256)]
+
+
+# a Llama at head_dim 576: the "tiny" preset's width and depth with 2 / 1
+# heads of 576 (the JAX package has no preset past 256); f32
+HD576 = dataclasses.replace(jllama.PRESETS["tiny"], dtype="float32",
+                            head_dim=576, n_heads=2, n_kv_heads=1,
+                            attn_impl="flash")
+
+
+def _port(cfg):
+    return tllama.LlamaConfig(**dataclasses.asdict(cfg))
+
+
+def _numpy(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def test_llama_head_dim_576_matches_jax(counter):
+    """From one JAX init, weights and zero moments carried by
+    ``models/params.py``: ``apply``'s f32 logits, the port's flash route
+    (the plain K1 on the CPU) against the JAX model (dense attention on
+    the CPU), within summation order; then one f32 train step (K1, K2 and
+    K3's plain versions): loss, grad norm, params and Adam moments at
+    tests/test_torch_train.py's f32 tolerances."""
+    jopt, topt = jstep.make_optimizer(), tstep.make_optimizer()
+    js = jstep.init_train_state(HD576, jax.random.key(0), optimizer=jopt)
+    adam = js.opt_state[1][0]
+    tree = _numpy(js.params)
+    assert tree["layers"]["wq"].shape[-1] == 2 * 576
+    tokens = np.random.default_rng(0).integers(
+        0, HD576.vocab_size, (2, 24)).astype(np.int32)
+    want = np.asarray(jllama.apply(HD576, jax.tree.map(np.asarray, tree),
+                                   tokens))
+    got = tllama.apply(_port(HD576), tparams.from_numpy(tree, HD576, "cpu"),
+                       torch.tensor(tokens, dtype=torch.long))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+    ts = tparams.train_state_from_numpy(
+        _port(HD576), tree, _numpy(adam.mu), _numpy(adam.nu), device="cpu")
+    toks = np.random.default_rng(1).integers(
+        4, HD576.vocab_size, (4, 40)).astype(np.int32)
+    mask = np.ones_like(toks)
+    js, jm = jstep.make_train_step(HD576, jopt)(js, jnp.asarray(toks),
+                                                jnp.asarray(mask))
+    ts, tm = tstep.make_train_step(_port(HD576), topt)(
+        ts, torch.tensor(toks, dtype=torch.long), torch.tensor(mask))
+    adam = js.opt_state[1][0]
+    assert abs(float(tm["loss"]) - float(jm["loss"])) < 2e-6
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-6)
+    for what, want, got in (("params", js.params, ts.params),
+                            ("mu", adam.mu, ts.opt_state.mu),
+                            ("nu", adam.nu, ts.opt_state.nu)):
+        jl = [np.asarray(a, np.float32) for a in jax.tree.leaves(want)]
+        tl = [t.detach().float().numpy() for _, t in tstep._leaves(got)]
+        assert len(jl) == len(tl)
+        # nu is ~g^2: its scale sets the absolute tolerance; Adam's update
+        # of a gradient within rounding noise of zero is ill-conditioned,
+        # so one element in a thousand may miss atol + rtol, all within
+        # `loose`
+        atol = 5e-6 * (1e-3 if what == "nu" else 1)
+        loose = 3e-5 if what == "params" else atol
+        for a, b in zip(jl, tl):
+            bad = np.abs(b - a) > atol + 1e-5 * np.abs(a)
+            assert bad.mean() <= 1e-3, f"{what}: {int(bad.sum())} outside"
+            np.testing.assert_allclose(b, a, atol=loose, rtol=1e-5,
+                                       err_msg=what)

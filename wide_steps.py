@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Phase 12 of chip_smoke.py (``phase_wide_heads``) alone, on one CUDA
 card, for the configurations of ``chip_smoke.WIDE_HEADS`` named on the
-command line, in the order named (all four, in their order, without
+command line, in the order named (all of them, in their order, without
 names): each one's training steps with each timed step's ms on the card's
 clock and on the host's, then its serving and flash-against-dense steps
 where phase 12 runs them.

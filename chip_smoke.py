@@ -12,10 +12,10 @@ no network. Phases, each of which raises on failure:
    per-dim ones also with -DFLASH_OTHER_DESIGNS=1 (the designs not
    shipped); ptxas's registers, spills and C75xx notes of the d 64, 192,
    256, 384 and 512 kernels, of the f32 K1, K2 and K3 at every head dim
-   and of the streamed kernels of csrc/flash_wide.cu (bf16 above d 512)
-   (the register-tiled ones must not spill, the pairs of blocks, K1's at
-   d 384, K2's at d 512 and K3's at d 384 and 512, and the three streamed
-   kernels must compile clean);
+   and of the streamed kernels of csrc/flash_wide.cu (above d 512, bf16
+   and f32) (the register-tiled ones must not spill, the pairs of blocks,
+   K1's at d 384, K2's at d 512 and K3's at d 384 and 512, and the six
+   streamed kernels must compile clean);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
    beside the plain version and a library call of the same function, with
@@ -31,11 +31,12 @@ no network. Phases, each of which raises on failure:
    2 / 1 heads) and at 320 and 448 (4 / 2 heads) and 576, 640 (4 / 2),
    704, 1024 (2 / 1) and 2048 (1 / 1) (no model), timed there beside SDPA
    (its backend named: its flash backend stops at d 256; MATH above), in
-   f32 at s 1000 too up to d 512 (f32's bound), with K1 also at its
-   per-length prefill, and above d 512 (the streamed kernels, bf16) each
-   with its recompute factor, twice on one input bitwise, and through
-   autograd over ``flash_attention`` at s 1, 65, 129, 1000 and 2047 and
-   non-causal s 512 (STREAMED_EDGES); K1, K2 and K3 at
+   f32 at b 2 s 1000 too (above d 512 timed beside SDPA's f32 calls), with
+   K1 also at its per-length prefill, and above d 512 (the streamed
+   kernels, bf16 and f32) each with its recompute factor, twice on one
+   input bitwise, and through autograd over ``flash_attention`` at s 1,
+   65, 129, 1000 and 2047 and non-causal s 512 (STREAMED_EDGES) in both
+   dtypes; K1, K2 and K3 at
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
    256), the pairs of blocks at d 384 and 512 at their edges
@@ -131,11 +132,11 @@ no network. Phases, each of which raises on failure:
    per step (K1 40 / K2 20 / K3 20), a falling finite loss, step time,
    tokens/s, MFU and peak memory; the d 256, 512 and 768 models, in bf16,
    answer one per-length request over HTTP (K1 20, first tokens
-   ``llama.apply``'s) and decode greedily through K1, d 256 and 512 in f32
-   token for token as the dense path does, d 768 in bf16 (f32 stops at d
-   512) with ``llama.apply``'s logits held to the dense path's; the d 512,
-   384 and 768 models take one step with flash against one with dense
-   attention (b 2, s 512; d 768 in bf16 only);
+   ``llama.apply``'s) and decode greedily through K1 in f32 token for
+   token as the dense path does, d 768 (the streamed f32 K1) also in bf16
+   with ``llama.apply``'s logits held to the dense path's; the d 512, 384
+   and 768 models take one step with flash against one with dense
+   attention (b 2, s 512), in f32 and bf16;
 13. the placement policy and the GPU binding: a seeded journal of
    16,384 sched-journal/v1 placement rows over 16 pools of mixed sizes
    (``policy_journal``), written to JSONL and read back through the port's
@@ -150,7 +151,8 @@ no network. Phases, each of which raises on failure:
 
 The f32 backward's launches (K2 and K3 in f32) are counted on each path
 that runs them: the flash against dense steps of phases 5, 7 and 12 and
-the pipeline's f32 step 1 (phase 11).
+the pipeline's f32 step 1 (phase 11); above d 512 (the streamed f32
+kernels) apart, with phase 12's f32 greedy decode at d 768.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or without the
@@ -160,6 +162,7 @@ repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -195,12 +198,15 @@ LSE_ATOL = 1e-3
 # summation order only.
 BWD_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
-# the streamed kernels' source (bf16 above d 512; one design, so one build)
-# and its kernel templates, each instantiated at its column group's width
-# (ops/flash_attention.py's WIDE_COLUMNS)
+# the streamed kernels' source (above d 512, bf16 and f32; one design, so
+# one build) and its kernel templates, bf16's and f32's, each instantiated
+# at its column group's width (ops/flash_attention.py's WIDE_COLUMNS)
 WIDE_SOURCE = "flash_wide"
 WIDE_KERNELS = {"flash_fwd": "flash_fwd_wide", "flash_bwd_dq": "dq_wide",
                 "flash_bwd_dkv": "dkv_wide"}
+WIDE_F32_KERNELS = {"flash_fwd": "flash_fwd_wide_f32",
+                    "flash_bwd_dq": "dq_wide_f32",
+                    "flash_bwd_dkv": "dkv_wide_f32"}
 # each kernel of the main paths: its source under csrc/, and the TPU kernel
 # it replaces, by function name and line in the JAX package's
 # ops/flash_attention.py
@@ -406,7 +412,7 @@ SIDE_TOL = {"mnist": 3e-2, "resnet": 5e-2}
 # keep wk/wv at 1536 x 512 (d 192, 384 and 768: 1536 x 768). d 384 and
 # d 512 take the pairs of blocks and the split kernels (each block or
 # consumer warpgroup owns part of the output's columns), d 768 the
-# streamed kernels of csrc/flash_wide.cu (bf16 only). Each trains
+# streamed kernels of csrc/flash_wide.cu (bf16 and f32). Each trains
 # WIDE_STEPS steps at the training shape (the first a warm-up); the models
 # of WIDE_SERVED then serve one per-length request, and those of
 # WIDE_VS_DENSE take one step with flash against one with dense attention
@@ -425,13 +431,16 @@ KERNEL_ONLY_HEADS = {"d320": (4, 2, 320), "d448": (4, 2, 448),
                      "d576": (4, 2, 576), "d640": (4, 2, 640),
                      "d704": (2, 1, 704), "d1024": (2, 1, 1024),
                      "d2048": (1, 1, 2048)}
-# f32's bound: K1, K2 and K3 take f32 up to this head dim, bf16 above it
-# on the streamed kernels (ops/flash_attention.py's KERNEL_HEAD_DIMS)
-F32_MAX_DIM = 512
+# the per-dim libraries' bound: K1, K2 and K3 run csrc/flash_fwd.cu's and
+# csrc/flash_bwd.cu's kernels up to this head dim, csrc/flash_wide.cu's
+# streamed ones above it, in bf16 and f32 alike
+# (ops/flash_attention.py's KERNEL_HEAD_DIMS)
+PER_DIM_MAX = 512
 # the streamed kernels' edges, (b, s, causal) at each of their dims'
-# heads, through autograd over flash_attention: one row, ragged ends one
-# past a 64-key (K3) and a 128-row (K1, K2) block, the serving prompt
-# length, s 2047, non-causal aligned
+# heads, through autograd over flash_attention, in bf16 and f32: one row,
+# ragged ends one past a 64-key (bf16 K3, f32 K1) and a 128-row (bf16 K1,
+# K2) block and past two of f32's 32-row and 32-key ones, the serving
+# prompt length, s 2047, non-causal aligned
 STREAMED_EDGES = ((2, 1, True), (2, 65, True), (2, 129, True),
                   (2, 1000, True), (1, 2047, True), (2, 512, False))
 WIDE_STEPS = TRAIN_STEPS
@@ -532,13 +541,16 @@ def _log(msg: str) -> None:
 # the f32 K2 and K3 launches (and K1's) of each path that runs K2 and K3 in
 # f32 (the flash against dense steps of phases 5, 7 and 12, phase 11's
 # pipelined f32 step 1), as ``_f32_counted`` records them: {path: {kernel:
-# launches}}
+# launches}}; those of the paths above the per-dim bound (the streamed f32
+# kernels: phase 12's d 768 flash against dense step, and its f32 greedy
+# decode, K1 alone) apart
 F32_PATHS: dict = {}
+F32_WIDE_PATHS: dict = {}
 
 
-def _f32_counted(path: str, fn):
+def _f32_counted(path: str, fn, paths: dict = F32_PATHS):
     """``fn()``, with the K1, K2 and K3 launches it made added to
-    ``F32_PATHS[path]`` and printed."""
+    ``paths[path]`` and printed."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -546,7 +558,7 @@ def _f32_counted(path: str, fn):
     before = _counts(fa)
     out = fn()
     torch.cuda.synchronize()
-    got = F32_PATHS.setdefault(path, dict.fromkeys(before, 0))
+    got = paths.setdefault(path, dict.fromkeys(before, 0))
     for name, n in _counts(fa).items():
         got[name] += n - before[name]
     _log(f"f32 launches on {path}: K1 {got['flash_fwd']}, K2 "
@@ -609,9 +621,9 @@ def phase_build() -> None:
     port builds it, and the per-dim sources also with the other designs
     (bf16 at d 64, 192, 256, 384 and 512, f32 at d 128; phase 3 times
     both). Raises if a register-tiled f32 kernel spills, a kernel of
-    CLEAN_KERNELS spills or has its wgmmas serialised (a C75xx note), or
-    the streamed kernels' column groups are not ops/flash_attention.py's
-    WIDE_COLUMNS."""
+    CLEAN_KERNELS or a streamed f32 kernel spills or has a C75xx note (a
+    wgmma serialised and the like), or the streamed kernels' column groups
+    are not ops/flash_attention.py's WIDE_COLUMNS in both dtypes."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -631,11 +643,13 @@ def phase_build() -> None:
          f"designs (bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at "
          f"d {F32_DESIGN_DIM}), and {WIDE_SOURCE}, in "
          f"{time.perf_counter() - t0:.1f} s")
+    # bf16's K1, K2 and K3, then f32's
     columns = [ctypes.CDLL(str(wide)).flash_wide_columns(i)
-               for i in range(len(KERNELS))]
-    if columns != [fa.WIDE_COLUMNS[name] for name in KERNELS]:
+               for i in range(2 * len(KERNELS))]
+    if columns != [fa.WIDE_COLUMNS[name] for name in KERNELS] * 2:
         raise AssertionError(f"{WIDE_SOURCE}'s column groups {columns} are "
-                             f"not WIDE_COLUMNS {fa.WIDE_COLUMNS}")
+                             f"not WIDE_COLUMNS {fa.WIDE_COLUMNS} in both "
+                             "dtypes")
     for lib in libs + others + [wide]:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
@@ -666,9 +680,12 @@ def phase_build() -> None:
                 if kernel in CLEAN_KERNELS and (n["spill_stores"]
                                                 or n["notes"]):
                     spilled.append(f"{kernel}<{d}> ({', '.join(n['notes'])})")
-    # the streamed kernels, one template each, at its group's width
+    # the streamed kernels, one template each, at its group's width, bf16's
+    # and f32's
     report = ptxas_summary(wide.with_name(wide.name + ".log").read_text())
-    for name, kernel in WIDE_KERNELS.items():
+    for name, kernel in ((name, kernel) for kernels in (WIDE_KERNELS,
+                                                        WIDE_F32_KERNELS)
+                         for name, kernel in kernels.items()):
         w = fa.WIDE_COLUMNS[name]
         (n,) = [n for fn, n in report.items()
                 if _template_name(fn, w) == kernel]
@@ -849,7 +866,8 @@ def phase_kernels() -> dict:
            PROMPT, 32, 8, d, torch.bfloat16, True, True)
           for name, d in FT_HEAD_DIMS),
         # the wide head dims (phase 12 and KERNEL_ONLY_HEADS): the training
-        # shape and, up to f32's bound, f32 at a ragged length; phase 12's
+        # shape and f32 at a ragged length (through the wrapper up to the
+        # per-dim bound; above it O and LSE, twice bitwise); phase 12's
         # per-length prefill; the widest non-causal (the streamed kernels'
         # edges are phase_bwd_kernels' STREAMED_EDGES, through autograd)
         *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
@@ -858,10 +876,10 @@ def phase_kernels() -> dict:
         *((f"{name} prefill s{PROMPT} bf16 wrapper", BATCH, PROMPT, h, hkv,
            d, torch.bfloat16, True, True)
           for name, (h, hkv, d) in WIDE_HEADS.items()),
-        *((f"{name} s{PROMPT} f32 wrapper", 2, PROMPT, h, hkv, d,
-           torch.float32, True, True)
-          for name, (h, hkv, d) in _kernel_heads().items()
-          if d <= F32_MAX_DIM),
+        *((f"{name} s{PROMPT} f32" + (" wrapper" if d <= PER_DIM_MAX
+                                      else ""), 2, PROMPT, h, hkv, d,
+           torch.float32, True, d <= PER_DIM_MAX)
+          for name, (h, hkv, d) in _kernel_heads().items()),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False, True),
         # K1's 128-row blocks at d 192 (64-key tiles) and d 256 (80-key
@@ -887,10 +905,12 @@ def phase_kernels() -> dict:
           for label, (b, s, h, hkv, d) in F32_SHAPES.items()),
     ]
     worst = 0.0
-    # the largest error of the bf16 cases at each wide head dim, and of
-    # the f32 cases
+    # the largest error of the bf16 cases at each wide head dim, of the
+    # f32 cases up to the per-dim bound, and of the f32 ones at each
+    # streamed head dim
     worst_wide = {d: 0.0 for _, _, d in _kernel_heads().values()}
     worst_f32 = 0.0
+    worst_f32_wide = dict.fromkeys(_streamed_dims(), 0.0)
     # and of the bf16 cases at the fine-tuning head dims
     worst_ft = {d: 0.0 for _, d in FT_HEAD_DIMS}
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
@@ -911,8 +931,8 @@ def phase_kernels() -> dict:
             _log(f"  lse max abs err {lerr:.3e}")
         if fa.launches != before + 1:
             raise AssertionError(f"{name}: the kernel did not launch")
-        if ((d in PAIR_DIMS or d > F32_MAX_DIM) and not wrapper
-                and dtype == torch.bfloat16):
+        if not wrapper and (d > PER_DIM_MAX or (
+                d in PAIR_DIMS and dtype == torch.bfloat16)):
             # a pair, or the streamed kernel's column groups, sum in a
             # fixed order: the same bits again
             again_o, again_lse = fa.flash_fwd(qt, kt, vt, causal)
@@ -921,7 +941,9 @@ def phase_kernels() -> dict:
                 raise AssertionError(f"{name}: K1 is not deterministic")
             _log("  twice on one input, bitwise equal")
             del again_o, again_lse
-        if dtype == torch.float32:
+        if dtype == torch.float32 and d in worst_f32_wide:
+            worst_f32_wide[d] = max(worst_f32_wide[d], err)
+        elif dtype == torch.float32:
             worst_f32 = max(worst_f32, err)
         if d not in worst_wide:
             worst = max(worst, err)
@@ -991,14 +1013,28 @@ def phase_kernels() -> dict:
         shape=f"b{TRAIN_BATCH} s{TRAIN_SEQ} h{h} hkv{hkv} d{d} bf16 causal",
         **streamed_numbers("flash_fwd", d))
         for name, (h, hkv, d) in _kernel_heads().items()}
+    # the streamed f32 kernel at b 2 s 1000 at each of its head dims
+    f32_wide = {name: dict(
+        _time_k1(name, 2, PROMPT, h, hkv, d, gen, torch.float32),
+        max_abs_err=worst_f32_wide[d],
+        shape=f"b2 s{PROMPT} h{h} hkv{hkv} d{d} f32 causal",
+        **streamed_numbers("flash_fwd", d, torch.float32))
+        for name, (h, hkv, d) in _kernel_heads().items()
+        if d > PER_DIM_MAX}
     return dict(max_abs_err=worst, **timed[TRAIN_SEQ], more_shapes=ft,
-                wide=wide, f32=f32)
+                wide=wide, f32=f32, f32_wide=f32_wide)
 
 
 def _kernel_heads() -> dict:
     """Phase 3's wide head dims: phase 12's models and the kernel-only
     dims, name -> (heads, KV heads, head dim)."""
     return {**WIDE_HEADS, **KERNEL_ONLY_HEADS}
+
+
+def _streamed_dims() -> list:
+    """The head dims of ``_kernel_heads`` above the per-dim bound, where
+    the streamed kernels run."""
+    return [d for _, _, d in _kernel_heads().values() if d > PER_DIM_MAX]
 
 
 def recompute(d: int, kernel: str) -> float:
@@ -1019,17 +1055,19 @@ def recompute(d: int, kernel: str) -> float:
     return done / ((scores + outputs) * d)
 
 
-def streamed_numbers(kernel: str, d: int) -> dict:
+def streamed_numbers(kernel: str, d: int, dtype=torch.bfloat16) -> dict:
     """What phase 3 records beside a timing at head dim ``d`` where the
-    streamed kernel runs (above f32's bound): the kernel, as
-    ``<template><<W>>``, and its recompute factor; else nothing."""
+    streamed kernel runs (above the per-dim bound): the kernel of
+    ``dtype``, as ``<template><<W>>``, and its recompute factor; else
+    nothing."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    if d <= F32_MAX_DIM:
+    if d <= PER_DIM_MAX:
         return {}
-    return {"kernel": f"{WIDE_KERNELS[kernel]}<{fa.WIDE_COLUMNS[kernel]}>",
+    templates = WIDE_KERNELS if dtype == torch.bfloat16 else WIDE_F32_KERNELS
+    return {"kernel": f"{templates[kernel]}<{fa.WIDE_COLUMNS[kernel]}>",
             "recompute": recompute(d, kernel)}
 
 
@@ -1074,16 +1112,16 @@ def _time_k1(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({backend}), bound "
          f"{bound_ms:.4f} ms ({bound_by}, at "
          f"{PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)"
-         f"{_streamed_note('flash_fwd', d)}")
+         f"{_streamed_note('flash_fwd', d, dtype)}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_backend=backend, bound_ms=bound_ms,
                 bound_by=bound_by, tflops=tflops, bound_share=bound_ms / ms)
 
 
-def _streamed_note(kernel: str, d: int) -> str:
+def _streamed_note(kernel: str, d: int, dtype=torch.bfloat16) -> str:
     """A timing line's note of the streamed kernel and its recompute
     factor, where it runs."""
-    n = streamed_numbers(kernel, d)
+    n = streamed_numbers(kernel, d, dtype)
     return (f"; {n['kernel']}, recompute {n['recompute']:.3f}x" if n
             else "")
 
@@ -1131,14 +1169,14 @@ def phase_bwd_kernels() -> dict:
            FT_SEQ, 32, 8, d, torch.bfloat16, True)
           for name, d in FT_HEAD_DIMS),
         # the wide head dims (phase 12 and KERNEL_ONLY_HEADS): the training
-        # shape, f32 at a ragged length, and the widest non-causal
+        # shape, f32 at a ragged length (above the per-dim bound the
+        # streamed f32 kernels), and the widest non-causal
         *((f"{name} train s{TRAIN_SEQ} bf16", TRAIN_BATCH, TRAIN_SEQ, h,
            hkv, d, torch.bfloat16, True)
           for name, (h, hkv, d) in _kernel_heads().items()),
         *((f"{name} s{PROMPT} f32", 2, PROMPT, h, hkv, d, torch.float32,
            True)
-          for name, (h, hkv, d) in _kernel_heads().items()
-          if d <= F32_MAX_DIM),
+          for name, (h, hkv, d) in _kernel_heads().items()),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
@@ -1179,9 +1217,12 @@ def phase_bwd_kernels() -> dict:
     ]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     worst_f32, worst_d64 = dict(worst), dict(worst)
-    # the largest error of the bf16 cases at each wide head dim
+    # the largest error of the bf16 cases at each wide head dim, and of the
+    # f32 ones at each streamed head dim
     worst_wide = {(kernel, d): 0.0 for kernel in worst
                   for _, _, d in _kernel_heads().values()}
+    worst_f32_wide = {(kernel, d): 0.0 for kernel in worst
+                      for d in _streamed_dims()}
     for name, b, s, h, hkv, d, dtype, causal in cases:
         q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
                                           causal)
@@ -1201,7 +1242,12 @@ def phase_bwd_kernels() -> dict:
                                                       delta, causal)
         ek = _check(f"{name} dk", dk, want_dk, atol, rtol)
         ev = _check(f"{name} dv", dv, want_dv, atol, rtol)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and d > PER_DIM_MAX:
+            worst_f32_wide["flash_bwd_dq", d] = max(
+                worst_f32_wide["flash_bwd_dq", d], e)
+            worst_f32_wide["flash_bwd_dkv", d] = max(
+                worst_f32_wide["flash_bwd_dkv", d], ek, ev)
+        elif dtype == torch.float32:
             worst_f32["flash_bwd_dq"] = max(worst_f32["flash_bwd_dq"], e)
             worst_f32["flash_bwd_dkv"] = max(worst_f32["flash_bwd_dkv"], ek,
                                              ev)
@@ -1262,17 +1308,19 @@ def phase_bwd_kernels() -> dict:
              f"dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}")
         del q, k, v, do, o, want, ro, rlse
 
-    # the streamed kernels (bf16 above f32's bound) at STREAMED_EDGES, at
-    # each of their dims' heads, through autograd over flash_attention: O
-    # against K1's plain version, the gradients against
+    # the streamed kernels (above the per-dim bound) at STREAMED_EDGES, at
+    # each of their dims' heads, in bf16 and f32, through autograd over
+    # flash_attention: O against K1's plain version, the gradients against
     # flash_bwd_reference, and the whole of it again, bitwise
     for label, (h, hkv, d) in _kernel_heads().items():
-        if d <= F32_MAX_DIM:
+        if d <= PER_DIM_MAX:
             continue
-        for b, s, causal in STREAMED_EDGES:
-            name = f"{label} s{s} causal {causal} bf16 autograd"
-            q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16, gen)
-            do = _qkv(b, s, h, h, d, torch.bfloat16, gen)[0]
+        for dtype, (b, s, causal) in itertools.product(
+                (torch.bfloat16, torch.float32), STREAMED_EDGES):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            name = f"{label} s{s} causal {causal} {tag} autograd"
+            q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
+            do = _qkv(b, s, h, h, d, dtype, gen)[0]
             runs = []
             for _ in range(2):
                 ts = [t.detach().clone().requires_grad_(True)
@@ -1289,16 +1337,16 @@ def phase_bwd_kernels() -> dict:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             ro, rlse = fa.flash_fwd_reference(qt, kt, vt, causal)
             eo = _check(f"{name} O", runs[0][0].transpose(1, 2), ro,
-                        *TOL[torch.bfloat16])
+                        *TOL[dtype])
             want = fa.flash_bwd_reference(qt, kt, vt, ro, rlse,
                                           do.transpose(1, 2), causal)
             errs = [_check(f"{name} d{n}", g.transpose(1, 2), w,
-                           *BWD_TOL[torch.bfloat16])
+                           *BWD_TOL[dtype])
                     for g, w, n in zip(runs[0][1:], want, "qkv")]
-            worst_wide["flash_bwd_dq", d] = max(
-                worst_wide["flash_bwd_dq", d], errs[0])
-            worst_wide["flash_bwd_dkv", d] = max(
-                worst_wide["flash_bwd_dkv", d], *errs[1:])
+            into = worst_wide if dtype == torch.bfloat16 else worst_f32_wide
+            into["flash_bwd_dq", d] = max(into["flash_bwd_dq", d], errs[0])
+            into["flash_bwd_dkv", d] = max(into["flash_bwd_dkv", d],
+                                           *errs[1:])
             _log(f"kernel {name} (b{b} h{h} hkv{hkv}): O {eo:.3e}, dq "
                  f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; twice, "
                  "bitwise equal")
@@ -1368,12 +1416,23 @@ def phase_bwd_kernels() -> dict:
     # f32 (dq_f32, dkv_f32) at F32_SHAPES
     for name in out:
         out[name]["f32"] = {}
+        out[name]["f32_wide"] = {}
     for label, (b, s, h, hkv, d) in F32_SHAPES.items():
         for name, n in _time_k2_k3("f32", b, s, h, hkv, d, gen,
                                    torch.float32).items():
             out[name]["f32"][label] = dict(
                 n, max_abs_err=worst_f32[name],
                 shape=f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal")
+    # the streamed f32 kernels at b 2 s 1000 at each of their head dims
+    for label, (h, hkv, d) in _kernel_heads().items():
+        if d <= PER_DIM_MAX:
+            continue
+        for name, n in _time_k2_k3(label, 2, PROMPT, h, hkv, d, gen,
+                                   torch.float32).items():
+            out[name]["f32_wide"][label] = dict(
+                n, max_abs_err=worst_f32_wide[name, d],
+                shape=f"b2 s{PROMPT} h{h} hkv{hkv} d{d} f32 causal",
+                **streamed_numbers(name, d, torch.float32))
     return out
 
 
@@ -1416,7 +1475,7 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
              f"{bound_ms / ms:.3f} of bound), plain {plain_ms:.4f} ms, sdpa "
              f"backward {lib_ms:.4f} ms ({backend}), bound {bound_ms:.4f} ms "
              f"({bound_by}, at {PEAK_FLOPS[dtype] / 1e12:.0f} TF/s)"
-             f"{_streamed_note(name, d)}")
+             f"{_streamed_note(name, d, dtype)}")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          library_backend=backend, bound_ms=bound_ms,
                          bound_by=bound_by, tflops=tflops,
@@ -2174,8 +2233,9 @@ def _time_step_parts(cfg, state, tokens, step_mod) -> dict:
 def _grads_flash_vs_dense(cfg, step_mod) -> None:
     """Outside the counted run: one step's loss and gradients with flash
     against dense attention at full width (all layers), b 2, s 512, in
-    f32 and bf16 compute, from one init; above f32's bound (F32_MAX_DIM:
-    K1, K2 and K3 refuse f32 there) in bf16 only."""
+    f32 and bf16 compute, from one init; the f32 launches counted under
+    F32_PATHS, above the per-dim bound (the streamed f32 kernels) under
+    F32_WIDE_PATHS."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import llama
@@ -2185,9 +2245,8 @@ def _grads_flash_vs_dense(cfg, step_mod) -> None:
     tokens = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(4))
+    paths = F32_WIDE_PATHS if cfg.head_dim > PER_DIM_MAX else F32_PATHS
     for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
-        if name == "f32" and cfg.head_dim > F32_MAX_DIM:
-            continue
         out = {}
         for impl in ("flash", "dense"):
             c = dataclasses.replace(cfg, dtype=dtype, attn_impl=impl)
@@ -2199,7 +2258,8 @@ def _grads_flash_vs_dense(cfg, step_mod) -> None:
             if name == "f32" and impl == "flash":
                 grads = _f32_counted(
                     f"flash vs dense grads d{cfg.head_dim}",
-                    lambda: torch.autograd.grad(loss, list(req.values())))
+                    lambda: torch.autograd.grad(loss, list(req.values())),
+                    paths)
             else:
                 grads = torch.autograd.grad(loss, list(req.values()))
             out[impl] = (float(loss.detach()), dict(zip(req, grads)))
@@ -4813,11 +4873,13 @@ def _wide_serving(cfg, params, fa) -> dict:
     """A trained wide-head model in bf16 behind ``GenerationService``
     (per-length prefill) answering one greedy request over HTTP: K1 once
     per layer, the first tokens ``llama.apply``'s argmax; then greedy f32
-    decoding, flash (K1's f32 route) against dense, token for token.
-    Above f32's bound (F32_MAX_DIM) that decoding runs in bf16 instead:
-    ``llama.apply``'s logits, flash against dense, within APPLY_ATOL's
-    bf16 bound, and the greedy tokens' agreement reported. Returns the
-    launch counts of each counted run."""
+    decoding, flash (K1's f32 route) against dense, token for token, and
+    above the per-dim bound (the streamed kernels) greedy bf16 decoding
+    too: ``llama.apply``'s logits, flash against dense, within
+    APPLY_ATOL's bf16 bound, and the greedy tokens' agreement reported.
+    Returns the launch counts of each counted run; above the per-dim bound
+    the f32 decode's go to F32_WIDE_PATHS instead (the streamed f32 K1's
+    path)."""
     import dataclasses
 
     from service_account_auth_improvements_tpu_torch.models import (
@@ -4869,9 +4931,9 @@ def _wide_serving(cfg, params, fa) -> dict:
          f"(K1 {L} per per-length prefill); first tokens = llama.apply's; "
          f"greedy tokens equal to the dense path's: {agree:.4f}")
     short = toks[:2, :256]
-    if cfg.head_dim > F32_MAX_DIM:
-        return {"serving": served,
-                "greedy bf16": _wide_greedy_bf16(cfg16, params16, short, fa)}
+    paths = {"serving": served}
+    if cfg.head_dim > PER_DIM_MAX:
+        paths["greedy bf16"] = _wide_greedy_bf16(cfg16, params16, short, fa)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     _zero(fa)  # the counted f32 decode
     with torch.inference_mode():
@@ -4880,7 +4942,7 @@ def _wide_serving(cfg, params, fa) -> dict:
         dense = generate.generate(dataclasses.replace(cfg32,
                                                       attn_impl="dense"),
                                   params, short, 16, device=DEV)
-    if decoded["flash_fwd"] != L:
+    if decoded != {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
         raise AssertionError(f"f32 greedy launches {decoded}, expected K1 "
                              f"{L}")
     if not torch.equal(flash, dense):
@@ -4888,12 +4950,18 @@ def _wide_serving(cfg, params, fa) -> dict:
                              "dense")
     _log(f"wide heads greedy f32 (b 2, 256 + 16, d{cfg.head_dim}): flash "
          f"equals dense token for token, K1 {decoded['flash_fwd']}")
-    return {"serving": served, "greedy f32": decoded}
+    if cfg.head_dim > PER_DIM_MAX:
+        F32_WIDE_PATHS[f"greedy f32 d{cfg.head_dim}"] = {
+            "flash_fwd": decoded["flash_fwd"]}
+    else:
+        paths["greedy f32"] = decoded
+    return paths
 
 
 def _wide_greedy_bf16(cfg16, params16, toks, fa) -> dict:
-    """Above f32's bound: greedy bf16 decoding through K1 (once per layer,
-    counted), ``llama.apply``'s logits with flash against dense attention
+    """Above the per-dim bound: greedy bf16 decoding through K1 (once per
+    layer, counted), ``llama.apply``'s logits with flash against dense
+    attention
     within APPLY_ATOL["bf16"] (the two round P and O at different points,
     so a near tie may decode apart: the tokens' agreement is reported).
     Returns the counted launches."""
@@ -4921,8 +4989,8 @@ def _wide_greedy_bf16(cfg16, params16, toks, fa) -> dict:
         raise AssertionError(f"wide bf16 logits: flash differs from dense "
                              f"by {err:.3e} (atol {APPLY_ATOL['bf16']})")
     agree = (flash == dense).float().mean().item()
-    _log(f"wide heads greedy bf16 (b 2, 256 + 16, d{cfg16.head_dim}; f32 "
-         f"stops at d {F32_MAX_DIM}): K1 {decoded['flash_fwd']}, llama.apply "
+    _log(f"wide heads greedy bf16 (b 2, 256 + 16, d{cfg16.head_dim}): K1 "
+         f"{decoded['flash_fwd']}, llama.apply "
          f"logits flash against dense max abs err {err:.3e} (atol "
          f"{APPLY_ATOL['bf16']}), greedy tokens equal to the dense path's: "
          f"{agree:.4f}")
@@ -5252,29 +5320,30 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     ``phase_wide_designs``' (``designs[d][kernel]``): wherever the two
     builds run different kernels (K1, K2 and K3 at d 192, 256, 384 and
     512) the other design's numbers beside the shipped one's, K2's and
-    K3's with the pair's sum beside SDPA's backward; above f32's bound
+    K3's with the pair's sum beside SDPA's backward; above the per-dim bound
     the streamed kernel (``source`` csrc/flash_wide.cu) and its recompute
-    factor; the kernel-only dims (no model, so no launches on a main
+    factor (bf16's: the f32 ones are ``wide_f32_kernel_entries``'); the
+    kernel-only dims (no model, so no launches on a main
     path) under the entries of their kind: d 320 and 448 under d 512's,
     the streamed ones under d 768's."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     streamed = ("kernel", "recompute")
     under = {512: [label for label, (_, _, d) in KERNEL_ONLY_HEADS.items()
-                   if d <= F32_MAX_DIM],
+                   if d <= PER_DIM_MAX],
              768: [label for label, (_, _, d) in KERNEL_ONLY_HEADS.items()
-                   if d > F32_MAX_DIM]}
+                   if d > PER_DIM_MAX]}
     entries = []
     for label, (_, _, d) in WIDE_HEADS.items():
         for name, (src, _, line) in KERNELS.items():
             n = numbers[name]["wide"][label]
-            these = (*keys, *streamed) if d > F32_MAX_DIM else keys
+            these = (*keys, *streamed) if d > PER_DIM_MAX else keys
             by_path = {path: counts[name] for path, counts in wide[d].items()}
             entry = {
                 "name": f"{name} d{d}",
                 "route": "cuda",
                 "source": f"{PKG}/csrc/"
-                          + (f"{WIDE_SOURCE}.cu" if d > F32_MAX_DIM else src),
+                          + (f"{WIDE_SOURCE}.cu" if d > PER_DIM_MAX else src),
                 "replaces": "service_account_auth_improvements_tpu/ops/"
                             f"flash_attention.py:{line}",
                 "launches": sum(by_path.values()),
@@ -5292,6 +5361,46 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
                             for key in these}
                     for other in under[d]}
             entries.append(entry)
+    return entries
+
+
+def wide_f32_kernel_entries(numbers: dict, paths: dict) -> list:
+    """The streamed f32 kernels' ``kernels`` entries (flash_fwd_wide_f32,
+    dq_wide_f32, dkv_wide_f32; ``source`` csrc/flash_wide.cu), one per
+    kernel, from phase 3's numbers at b 2 s 1000 (``numbers[kernel]
+    ["f32_wide"][label]``: bench_800m_d768's heads as the entry's, the
+    kernel-only dims under ``more_shapes``), each with its recompute
+    factor, and the launches of each path that runs it
+    (``paths[path][kernel]``: phase 12's d 768 flash against dense f32
+    step, K1 also its f32 greedy decode). K2's and K3's carry the pair's
+    sum. Raises if a path launched none of a kernel."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share",
+            "kernel", "recompute")
+    (label,) = [name for name, (_, _, d) in WIDE_HEADS.items()
+                if d > PER_DIM_MAX]
+    d = WIDE_HEADS[label][2]
+    entries = []
+    for name, (_, _, line) in KERNELS.items():
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if name in counts}
+        if not by_path or not all(by_path.values()):
+            raise AssertionError(f"{name} f32 streamed: a path launched no "
+                                 f"kernel: {by_path}")
+        n = numbers[name]["f32_wide"]
+        these = keys if name == "flash_fwd" else (*keys, "pair_ms")
+        entries.append({
+            "name": f"{name} f32 d{d}",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/{WIDE_SOURCE}.cu",
+            "replaces": "service_account_auth_improvements_tpu/ops/"
+                        f"flash_attention.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            **{key: n[label][key] for key in these},
+            "more_shapes": {other: {key: n[other][key] for key in these}
+                            for other in n if other != label},
+        })
     return entries
 
 
@@ -5381,7 +5490,9 @@ def main() -> int:
                **_timed("kernels K2 and K3", phase_bwd_kernels)}
     designs = _timed("kernels d 64 to 512 designs", phase_wide_designs)
     f32_designs = _timed("kernels f32 designs", phase_f32_designs)
-    F32_PATHS.clear()  # the f32 backward's launches on the paths below
+    # the f32 backward's launches on the paths below
+    F32_PATHS.clear()
+    F32_WIDE_PATHS.clear()
     serving = _timed("serving", phase_serving)
     training = _timed("training", phase_training)
     lifecycle = phase_lifecycle()
@@ -5426,6 +5537,7 @@ def main() -> int:
         numbers, {"distill_8b_1b": finetune["distill_8b_1b"]}, designs)
     kernels += wide_kernel_entries(numbers, wide, designs)
     kernels += f32_kernel_entries(numbers, f32_designs, F32_PATHS)
+    kernels += wide_f32_kernel_entries(numbers, F32_WIDE_PATHS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

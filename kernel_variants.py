@@ -7,8 +7,10 @@ K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_pair`` at
 d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
 (``dkv_keys8`` at d 64,
 ``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
-``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``) and time them
-against the committed kernels on one CUDA card.
+``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``), and the
+streamed f32 kernels above d 512 (``flash_fwd_wide_f32``, ``dq_wide_f32``,
+``dkv_wide_f32`` at d 768, in ``csrc/flash_wide.cu``: their group width)
+and time them against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
@@ -515,6 +517,14 @@ NEXT_SCORES = [("""  mbar_wait(q_full, 0);
 # the kernel it edits, as a key of KERNEL_HEADS[, the kernel whose ptxas
 # lines to print when the edit runs another in its place])
 VARIANTS = {
+    **{f"{kernel}_w512": (
+        "f32 above d 512: 512 output columns a block (twice the registers "
+        "of the output; recompute 1.67x at d 768, 2.5x at d 2048)",
+        [(f"constexpr int {const} = 256;", f"constexpr int {const} = 512;")],
+        kernel)
+       for kernel, const in (("flash_fwd_wide_f32", "FWD_W_F32"),
+                             ("dq_wide_f32", "DQ_W_F32"),
+                             ("dkv_wide_f32", "DKV_W_F32"))},
     "bk128": (
         "128-key K/V stages (m64n128 score products), 2 in the ring",
         [("constexpr int DQ_BK = 64;", "constexpr int DQ_BK = 128;")],
@@ -1273,15 +1283,23 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dq_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
-                "flash_fwd_f32": (12, 4, 128)}
+                "flash_fwd_f32": (12, 4, 128),
+                **{key: cs.WIDE_HEADS["bench_800m_d768"]
+                   for key in cs.WIDE_F32_KERNELS.values()}}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
 # heads, KV heads, head dim) it is timed at (the training shape at its
 # KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
 # F32_SHAPES, the first of which holds their targets; dkv_onepass also at
 # bench_800m_d192's heads; the d 64 kernels at the fine-tuning shape, b 4
-# s 2048)
+# s 2048; the streamed f32 kernels at b 2 s 1000, as phase 3 times them,
+# at bench_800m_d768's heads and at d 2048's, where the group width
+# changes the recompute most: 4.5x at W 256, 2.5x at W 512)
 KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32,
-                 "flash_fwd_f32": torch.float32}
+                 "flash_fwd_f32": torch.float32,
+                 **{key: torch.float32
+                    for key in cs.WIDE_F32_KERNELS.values()}}
+WIDE_F32_SHAPES = [(2, cs.PROMPT, *cs.WIDE_HEADS["bench_800m_d768"]),
+                   (2, cs.PROMPT, *cs.KERNEL_ONLY_HEADS["d2048"])]
 KERNEL_SHAPES = {
     "dq_f32": list(cs.F32_SHAPES.values()),
     "dkv_f32": list(cs.F32_SHAPES.values()),
@@ -1297,7 +1315,8 @@ KERNEL_SHAPES = {
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
-                          *cs.WIDE_HEADS["bench_800m_d192"])]}
+                          *cs.WIDE_HEADS["bench_800m_d192"])],
+    **{key: WIDE_F32_SHAPES for key in cs.WIDE_F32_KERNELS.values()}}
 
 
 def template_of(kernel: str) -> str:
@@ -1308,6 +1327,8 @@ def template_of(kernel: str) -> str:
 
 def source_of(kernel: str) -> str:
     """The csrc/ source (without .cu) that holds ``kernel``."""
+    if "_wide" in kernel:
+        return cs.WIDE_SOURCE
     return "flash_fwd" if kernel.startswith("flash_fwd") else "flash_bwd"
 
 
@@ -1417,7 +1438,8 @@ def main() -> int:
     if unknown:
         raise SystemExit(f"kernel_variants: no such kernels {unknown}")
     names = [n for n in VARIANTS if VARIANTS[n][2] in chosen]
-    jobs = [*(("committed", src) for src in ("flash_fwd", "flash_bwd")
+    jobs = [*(("committed", src)
+              for src in ("flash_fwd", "flash_bwd", cs.WIDE_SOURCE)
               if any(source_of(k) == src for k in chosen)),
             *((name, source_of(VARIANTS[name][2])) for name in names)]
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1442,7 +1464,7 @@ def main() -> int:
         source = source_of(kernel)
         # K1 (O, LSE), K2 (dQ) or K3 (dK, dV): the wrapper, its plain
         # version, the tolerances and the bound
-        kind = ("fwd" if source == "flash_fwd" else
+        kind = ("fwd" if kernel.startswith("flash_fwd") else
                 "dkv" if kernel.startswith("dkv") else "dq")
         fn, plain, tols = _calls(kind, fa, dtype)
         for name in ["committed", *group]:

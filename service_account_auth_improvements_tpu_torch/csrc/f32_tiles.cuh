@@ -1,6 +1,7 @@
 // Register-tiled f32 FFMA building blocks shared by the port's f32 kernels
 // (csrc/flash_fwd.cu's flash_fwd_f32, csrc/flash_bwd.cu's dq_f32 and
-// dkv_f32): true f32 on the CUDA cores, no TF32.
+// dkv_f32, csrc/flash_wide.cu's flash_fwd_wide_f32, dq_wide_f32 and
+// dkv_wide_f32): true f32 on the CUDA cores, no TF32.
 //
 // Conventions of the kernels that use them: blocks of F32_THREADS threads;
 // a tile of R rows of D floats lies in shared memory with row pitch D + 4
@@ -9,7 +10,9 @@
 // holding SR x SC scores at rows a + GR i and columns b + GC j, read as
 // float4s that the lanes owning the same row or column share (broadcast);
 // a score operand of an output product goes through shared memory once,
-// as [reduction index][output row] (pitch + 4), read in float4s.
+// as [reduction index][output row] (pitch + 4), read in float4s. The
+// streamed kernels of flash_wide.cu hold chunks of C columns instead (row
+// pitch C + 4, the `P` and `PITCH` arguments) and a group of W columns.
 
 #pragma once
 
@@ -20,12 +23,15 @@ namespace f32tile {
 constexpr int F32_THREADS = 256;
 
 // Issue the cp.async copies of ROWS rows of D floats, rows r0 .. of `src`
-// (element row stride ss), into `dst` (row pitch D + 4 floats); rows at or
-// past `limit` are zero-filled (nothing is read for them).
-template <int D, int ROWS>
+// (element row stride ss), into `dst` (row pitch PITCH floats, D + 4
+// unless given); rows at or past `limit`, and columns at or past `cols`
+// (a multiple of 4; D unless given: a chunk or a group of columns of a
+// wider row, `src` at its first column), are zero-filled (nothing is read
+// for them).
+template <int D, int ROWS, int PITCH = D + 4>
 __device__ __forceinline__ void f32_rows_async(float* dst, const float* src,
                                                int64_t ss, int r0, int limit,
-                                               int tid) {
+                                               int tid, int cols = D) {
   constexpr int V = D / 4;  // 16-byte vectors a row
   constexpr int N = ROWS * V;
   const uint32_t base = hopper::smem_u32(dst);
@@ -34,9 +40,9 @@ __device__ __forceinline__ void f32_rows_async(float* dst, const float* src,
     const int i = tid + k * F32_THREADS;
     if (N % F32_THREADS == 0 || i < N) {
       const int r = i / V, c = i % V;
-      const bool in = r0 + r < limit;
+      const bool in = r0 + r < limit && 4 * c < cols;
       const float* g = src + (in ? (r0 + r) * ss + 4 * c : 0);
-      hopper::cp_async_16(base + (r * (D + 4) + 4 * c) * 4, g, in ? 16 : 0);
+      hopper::cp_async_16(base + (r * PITCH + 4 * c) * 4, g, in ? 16 : 0);
     }
   }
 }
@@ -65,18 +71,20 @@ __device__ __forceinline__ void f32_next_stage(int i, int n,
 }
 
 // The score products of one tile: for each of NPR products, s[n][i][j] =
-// A_n[a + GR i] . B_n[b + GC j] over D (rows of shared memory, pitch
-// D + 4). NP partial sums an element (the four products of a float4 go to
+// A_n[a + GR i] . B_n[b + GC j] over D (rows of shared memory, pitch P:
+// D + 4 unless given), or with ACC s[n][i][j] += that (a chunk of D
+// columns of a longer dot, the chain carried on in the first partial).
+// NP partial sums an element (the four products of a float4 go to
 // partials k % NP) keep at least 8 FMA chains a thread when the tile is
 // small.
-template <int D, int SR, int SC, int GR, int GC, int NPR>
+template <int D, int SR, int SC, int GR, int GC, int NPR, int P = D + 4,
+          bool ACC = false>
 __device__ __forceinline__ void f32_dots(float (&s)[NPR][SR][SC],
                                          const float* const (&A)[NPR],
                                          const float* const (&B)[NPR], int a,
                                          int b) {
   constexpr int CH = NPR * SR * SC;  // FMA chains a thread
   constexpr int NP = CH >= 8 ? 1 : 8 / CH;
-  constexpr int P = D + 4;
   float ps[NPR][SR][SC][NP];
 #pragma unroll
   for (int m = 0; m < NPR; ++m)
@@ -85,7 +93,8 @@ __device__ __forceinline__ void f32_dots(float (&s)[NPR][SR][SC],
 #pragma unroll
       for (int j = 0; j < SC; ++j)
 #pragma unroll
-        for (int n = 0; n < NP; ++n) ps[m][i][j][n] = 0.f;
+        for (int n = 0; n < NP; ++n)
+          ps[m][i][j][n] = ACC && n == 0 ? s[m][i][j] : 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
 #pragma unroll
@@ -181,6 +190,28 @@ __device__ __forceinline__ void f32_outer(float (&acc)[TR][D / OC],
         acc[i][4 * n + 3] = fmaf(x[i], y.w, acc[i][4 * n + 3]);
       }
     }
+  }
+}
+
+// Store a thread's TR output rows (rows row0 + i of `out`, stride ss) at
+// float4 columns oc + OC n, times `scale`, skipping rows at or past `rows`
+// and columns at or past `cols` (D unless given: a group of columns of a
+// wider row, `out` at its first column).
+template <int D, int TR, int OC>
+__device__ __forceinline__ void f32_store(float* out, int64_t ss,
+                                          const float (&acc)[TR][D / OC],
+                                          float scale, int row0, int rows,
+                                          int oc, int cols = D) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    if (row0 + i >= rows) continue;
+    float* o = out + (row0 + i) * ss + 4 * oc;
+#pragma unroll
+    for (int n = 0; n < D / (4 * OC); ++n)
+      if (4 * (oc + OC * n) < cols)
+        *reinterpret_cast<float4*>(o + 4 * OC * n) = make_float4(
+            acc[i][4 * n] * scale, acc[i][4 * n + 1] * scale,
+            acc[i][4 * n + 2] * scale, acc[i][4 * n + 3] * scale);
   }
 }
 

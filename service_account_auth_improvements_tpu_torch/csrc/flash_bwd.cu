@@ -2633,25 +2633,6 @@ __device__ __forceinline__ void f32_vec_async(float* dst, const float* src,
   }
 }
 
-// Store a thread's TR output rows (rows row0 + i, stride ss) at float4
-// columns oc + OC n, times `scale`, skipping rows at or past `rows`.
-template <int D, int TR, int OC>
-__device__ __forceinline__ void f32_store(float* out, int64_t ss,
-                                          const float (&acc)[TR][D / OC],
-                                          float scale, int row0, int rows,
-                                          int oc) {
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    if (row0 + i >= rows) continue;
-    float* o = out + (row0 + i) * ss + 4 * oc;
-#pragma unroll
-    for (int n = 0; n < D / (4 * OC); ++n)
-      *reinterpret_cast<float4*>(o + 4 * OC * n) =
-          make_float4(acc[i][4 * n] * scale, acc[i][4 * n + 1] * scale,
-                      acc[i][4 * n + 2] * scale, acc[i][4 * n + 3] * scale);
-  }
-}
-
 // K2, f32: dQ for one (b, head, BQ-row query tile), or with ns > 1 its
 // part of it over one of ns contiguous ranges of the tile's key tiles,
 // written unscaled to the workspace `ws` ([ns][b h][sq][D]). Grid:

@@ -1,18 +1,23 @@
-// Flash attention in bf16 at every head dim above 512 for Hopper (sm_90a),
-// with a plain C interface: K1, K2 and K3 with the head dim streamed.
+// Flash attention at every head dim above 512 for Hopper (sm_90a), in bf16
+// and f32, with a plain C interface: K1, K2 and K3 with the head dim
+// streamed.
 //
 // Replaces, at the head dims past csrc/flash_fwd.cu's and
 // csrc/flash_bwd.cu's per-dim kernels (every multiple of 64 above 512, in
-// bf16), the TPU kernels `_fwd_kernel` (K1), `_dq_kernel` (K2) and
+// both dtypes), the TPU kernels `_fwd_kernel` (K1), `_dq_kernel` (K2) and
 // `_dkv_kernel` (K3) in service_account_auth_improvements_tpu/ops/
 // flash_attention.py (113-168, 212-258, 261-310), whose rules set no upper
 // bound on the head dim. What they compute, and the numerical rules, are
 // the per-dim kernels' (the notes at the top of flash_fwd.cu and
-// flash_bwd.cu): products take bf16 operands and accumulate in f32; K1
-// rounds P to bf16 before P V, K2 forms dS = P (dP - delta) from the f32 P
-// and rounds it before dS K, K3 rounds P before P^T dO and dS before
-// dS^T Q; masked scores are -2e38; rows and keys past s load as zeros and
-// are masked or not written; the causal mask is start-aligned.
+// flash_bwd.cu): bf16 products take bf16 operands and accumulate in f32;
+// K1 rounds P to bf16 before P V, K2 forms dS = P (dP - delta) from the
+// f32 P and rounds it before dS K, K3 rounds P before P^T dO and dS before
+// dS^T Q; f32 runs in true f32 FMA with no rounding between (the section
+// "f32" below); masked scores are -2e38; rows and keys past s load as
+// zeros and are masked or not written; the causal mask is start-aligned.
+//
+// The bf16 kernels first; the f32 ones (flash_fwd_wide_f32, dq_wide_f32,
+// dkv_wide_f32) take the same design on the CUDA cores, after them.
 //
 // Why a design of its own: every per-dim kernel keeps Q (K2: and dO; K3: K
 // and V) resident at the whole head dim, in one block or by halves in the
@@ -67,6 +72,7 @@
 // partial scores through distributed shared memory, would read each chunk
 // and form the scores once.
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 #include <cuda_bf16.h>
@@ -78,6 +84,7 @@
 namespace {
 
 using namespace hopper;
+using namespace f32tile;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -2.0e38f;
@@ -847,6 +854,572 @@ dkv_wide(const __grid_constant__ DkvArgs a) {
                  a.sk, tq, grp * W, a.d);
 }
 
+// ------------------------------------------------------------ f32
+//
+// float32 inputs run on the CUDA cores in true f32 FMA (no TF32, no tensor
+// cores), as csrc/flash_fwd.cu's flash_fwd_f32 and csrc/flash_bwd.cu's
+// dq_f32 and dkv_f32 do at the head dims they are built for, from the
+// register-tiled pieces of csrc/f32_tiles.cuh, on this file's design:
+// - a block owns a tile of rows (K1, K2: query rows; K3: keys) and one
+//   group of W output columns (FWD_W_F32, DQ_W_F32, DKV_W_F32), ceil(d / W)
+//   groups cover the head dim, d is a run-time argument;
+// - every score tile (K1 S; K2 S and dP; K3 S^T on warps 0-3 and dP^T on
+//   warps 4-7, split as in dkv_f32) is formed over the whole head dim from
+//   chunks of F32_C = 32 columns of both operands (row pitch F32_C + 4
+//   floats), streamed through a ring of ST cp.async stages, one commit
+//   group a chunk step (f32_next_stage); each thread's scores are
+//   register-tiled as in the per-dim kernel (f32_dots, the chain carried on
+//   chunk by chunk: one FMA chain over the head dim, chunk 0 first, the
+//   order the per-dim kernels take);
+// - the row operand of the output product (V in K1, K in K2, dO and Q in
+//   K3) is the block's own W columns of the tile, brought by the ring's step
+//   ST - 1 of the tile into one buffer (the tile before has finished its
+//   product at the barrier of the step that issues it), zero-filled past d
+//   (f32_rows_async's `cols`), and the product is f32_outer over them; the
+//   last group of a d that is no multiple of W multiplies those zeros and
+//   does not store them: every block runs one instruction stream;
+// - softmax, P and dS take the per-dim kernels' arithmetic in the same
+//   order (flash_fwd_f32: the scale and log2 e folded into exp2, masked
+//   scores P = 0 by a select, O rescaled by alpha, l summed over the row's
+//   half-warp at the end; dq_f32 and dkv_f32: P = exp2(S scale log2 e - lse
+//   log2 e), dS = P (dP - delta)), through shared memory once as in them.
+// The groups run the same instructions on the same chunks in the same
+// order, so they agree bit for bit: K1's groups reach the same m and l and
+// group 0 alone stores the LSE; K3 sums its KV group's query heads in a
+// fixed order; there are no atomics, and a rerun gives the same bits.
+// No split-and-reduce: the per-dim f32 K2 and K3 split a grid of under two
+// blocks a SM over up to 4 blocks through a workspace; here the grid has
+// ceil(d / W) times the blocks (192 for K2 and K3 at b 2 s 1000 with 2 / 1
+// heads of 768), so none is needed and the workspace is 0 bytes.
+//
+// What bounds them on an H100: the f32 FMA rate (67 TF/s), not L2 as in
+// bf16 (per 4 columns a thread's 8 float4 loads from shared memory feed 64
+// FMAs in K1's scores):
+// every score a group recomputes costs its full price, so the work is
+// recompute(d) times the function's, 2.0 at d 768 with W = 256 (PERF.md §6
+// states the factor and the time at each dim it measures).
+
+constexpr int F32_C = 32;           // columns a chunk
+constexpr int F32_CP = F32_C + 4;   // a chunk's row pitch, floats
+constexpr int F32_MAX_ST = 4;       // ring stages, at most
+constexpr int F32_MIN_D = F32_MAX_ST * F32_C;  // a tile has >= ST steps
+
+// The output columns a block owns in f32 (W): flash_wide_columns reports
+// them beside the bf16 ones; ops/flash_attention.py's WIDE_COLUMNS says
+// the same. 256, as in bf16: at 512 (recompute 1.67x at d 768 against
+// 2.0x) all three reach 255 registers and spill, and run slower at d 768
+// (kernel_variants.py's `*_w512` variants; PERF.md §6 has the times, on an
+// NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int FWD_W_F32 = 256;
+constexpr int DQ_W_F32 = 256;
+constexpr int DKV_W_F32 = 256;
+
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;   // K2, K3
+  const float* lse;    // K2, K3: [b, h, sq] contiguous
+  const float* delta;  // K2, K3
+  float* o;            // K1 O, K2 dQ, K3 dK
+  float* o2;           // K3 dV
+  float* lse_out;      // K1
+  // element strides (batch, head, seq) of q, k, v, dO, o and o2
+  int64_t q_s[3], k_s[3], v_s[3], do_s[3], o_s[3], o2_s[3];
+  int h, hkv, batch, sq, sk, d, causal, tiles, groups, chunks;
+  float scale, scale_log2;
+};
+
+// (b, head) ib, ih's rows of a [b, heads, s, d] tensor with strides s
+template <typename T>
+__device__ __forceinline__ T* f32_head(T* p, const int64_t (&s)[3], int ib,
+                                       int ih) {
+  return p + ib * s[0] + ih * s[1];
+}
+
+// The ring's step j brings the group of columns of tile (or item) g / nc
+// where g = j - (ST - 1) is a tile's first step (g % nc == 0): its tile's
+// step ST - 1.
+template <int ST>
+__device__ __forceinline__ bool group_step(int j, int nc, int& tile) {
+  const int g = j - (ST - 1);
+  tile = g / nc;
+  return g >= 0 && g % nc == 0;
+}
+
+// `flash_fwd_wide_f32<W>`: a block owns 64 query rows of one (b, h) and
+// columns [grp W, grp W + W) of O; key tiles of 64. flash_fwd_f32's thread
+// grid: a query row's 16 threads are one half-warp (row max and sum by
+// shuffles), 4 x 4 scores and 4 rows x W / 16 columns of O a thread.
+// Shared memory: ST steps of (a chunk of Q's 64 rows, of the tile's 64
+// keys of K), the tile's W columns of V, P^T.
+template <int W>
+struct FwdWideF32 {
+  static constexpr int BQ = 64, BK = 64;  // query rows a block, keys a tile
+  static constexpr int CT = 16, RT = F32_THREADS / CT;
+  static constexpr int SR = BQ / RT, SC = BK / CT;
+  static constexpr int STEP = (BQ + BK) * F32_CP;  // floats
+  static constexpr int VP = W + 4;                 // V's columns, [BK][VP]
+  static constexpr int XP = BQ + 4;                // P^T, [BK][XP]
+  static constexpr int FIT = (SMEM_MAX / 4 - BK * VP - BK * XP) / STEP;
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  static constexpr int V_OFF = ST * STEP, X_OFF = V_OFF + BK * VP;
+  static constexpr int BYTES = (X_OFF + BK * XP) * 4;
+  static_assert(W % 64 == 0 && SR * RT == BQ && SC * CT == BK, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+flash_fwd_wide_f32(const __grid_constant__ F32Args a) {
+  using L = FwdWideF32<W>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int CT = L::CT, RT = L::RT, XP = L::XP, C = F32_C, CP = F32_CP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Vs = sm + L::V_OFF;
+  float* Xs = sm + L::X_OFF;
+
+  const Block blk(a.tiles, a.groups, a.h * a.batch, true);
+  const int grp = blk.grp, ih = blk.head % a.h, ib = blk.head / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = blk.tile * BQ, col0 = grp * W;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  const int nc = a.chunks, steps = nk * nc;
+  const int tid = threadIdx.x, gr = tid / CT, gc = tid % CT;
+  const float* q = f32_head(a.q, a.q_s, ib, ih);
+  const float* k = f32_head(a.k, a.k_s, ib, ikv);
+  const float* v = f32_head(a.v, a.v_s, ib, ikv) + col0;
+
+  // step j: chunk j % nc of the block's Q rows and of key tile j / nc;
+  // at a tile's step ST - 1 also the tile's W columns of V
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C;
+    f32_rows_async<C, BQ, CP>(s, q + c0, a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BK, CP>(s + BQ * CP, k + c0, a.k_s[2], j / nc * BK,
+                              a.sk, tid);
+    int t;
+    if (group_step<ST>(j, nc, t))
+      f32_rows_async<W, BK>(Vs, v, a.v_s[2], t * BK, a.sk, tid, a.d - col0);
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+
+  float o[SR][W / CT];
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / CT; ++c) o[i][c] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m[SR], l[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) m[i] = kNegInf, l[i] = 0.f;
+
+#pragma unroll 1
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    // S = Q K^T over the head dim, chunk by chunk
+    float s[1][SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[0][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = ik * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* Qs = sm + j % ST * L::STEP;
+      f32_dots<C, SR, SC, RT, CT, 1, CP, true>(s, {Qs}, {Qs + BQ * CP}, gr,
+                                               gc);
+    }
+
+    // mask only tiles that cross the diagonal or the ragged end
+    const bool need_mask = (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk;
+    float alpha[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = q0 + gr + RT * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int col = k0 + gc + CT * j;
+        if (need_mask && (col >= a.sk || (a.causal && col > row)))
+          s[0][i][j] = kNegInf;
+        mx = fmaxf(mx, s[0][i][j]);
+      }
+#pragma unroll
+      for (int off = CT / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      alpha[i] = fast_exp2((m[i] - mx) * a.scale_log2);
+      m[i] = mx;
+      l[i] *= alpha[i];
+    }
+    // P = exp2((S - m) scale log2 e), 0 where masked, into P^T
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      float pr[SR];
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const float x = s[0][i][j];
+        pr[i] = x == kNegInf
+                    ? 0.f
+                    : fast_exp2(fmaf(x, a.scale_log2, -m[i] * a.scale_log2));
+        l[i] += pr[i];
+      }
+      f32_xstore<SR>(Xs + (gc + CT * j) * XP + SR * gr, pr);
+    }
+    __syncthreads();  // P^T is in (V came with the tile's step ST - 1)
+
+    // O[:, own] = alpha O[:, own] + P V[:, own]
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int c = 0; c < W / CT; ++c) o[i][c] *= alpha[i];
+    f32_outer<W, SR, BK, XP, CT>(o, Xs, Vs, SR * gr, gc);
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  // the row sums over the row's lanes; O / l and (group 0) LSE = m scale +
+  // log l
+  float* out = f32_head(a.o, a.o_s, ib, ih);
+  float* lse = a.lse_out + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+#pragma unroll
+    for (int off = CT / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + gr + RT * i;
+    if (row >= a.sq) continue;
+    const float inv = 1.f / l[i];
+    float* orow = out + row * a.o_s[2];
+#pragma unroll
+    for (int n = 0; n < W / (4 * CT); ++n) {
+      const int col = col0 + 4 * (gc + CT * n);
+      if (col < a.d)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(o[i][4 * n] * inv, o[i][4 * n + 1] * inv,
+                        o[i][4 * n + 2] * inv, o[i][4 * n + 3] * inv);
+    }
+    if (grp == 0 && gc == 0) lse[row] = m[i] * a.scale + logf(l[i]);
+  }
+}
+
+// `dq_wide_f32<W>`: a block owns 64 query rows of one (b, h) and columns
+// [grp W, grp W + W) of dQ; key tiles of 32. dq_f32's 16 x 16 thread grid:
+// 4 x 2 scores of S and of dP a thread at query rows gr + 16 i and keys
+// gc + 16 j, dQ rows 4 gr .. 4 gr + 3 and W / 16 columns. Shared memory: ST
+// steps of (chunks of Q's and dO's 64 rows, of the tile's 32 keys of K and
+// V), the tile's W columns of K, dS^T.
+template <int W>
+struct DqWideF32 {
+  static constexpr int BQ = 64, BK = 32;  // query rows a block, keys a tile
+  static constexpr int SR = BQ / 16, SC = BK / 16, TR = BQ / 16;
+  static constexpr int STEP = 2 * (BQ + BK) * F32_CP;  // Q, dO, K, V
+  static constexpr int DO_OFF = BQ * F32_CP, K_OFF = 2 * BQ * F32_CP,
+                       V_OFF = K_OFF + BK * F32_CP;  // in a step
+  static constexpr int KP = W + 4;   // K's columns, [BK][KP]
+  static constexpr int XP = BQ + 4;  // dS^T, [BK][XP]
+  static constexpr int FIT = (SMEM_MAX / 4 - BK * KP - BK * XP) / STEP;
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  static constexpr int KG_OFF = ST * STEP, X_OFF = KG_OFF + BK * KP;
+  static constexpr int BYTES = (X_OFF + BK * XP) * 4;
+  static_assert(W % 64 == 0 && BQ == 16 * SR && BK == 16 * SC, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+dq_wide_f32(const __grid_constant__ F32Args a) {
+  using L = DqWideF32<W>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = L::TR, XP = L::XP, C = F32_C, CP = F32_CP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Kg = sm + L::KG_OFF;
+  float* Xs = sm + L::X_OFF;
+
+  const Block blk(a.tiles, a.groups, a.h * a.batch, true);
+  const int grp = blk.grp, ih = blk.head % a.h, ib = blk.head / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = blk.tile * BQ, col0 = grp * W;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  const int nc = a.chunks, steps = nk * nc;
+  const int tid = threadIdx.x;
+  const int gr = 4 * (tid >> 6) + ((tid >> 3) & 3);
+  const int gc = 8 * ((tid >> 5) & 1) + (tid & 7);
+  const float* q = f32_head(a.q, a.q_s, ib, ih);
+  const float* dout = f32_head(a.dout, a.do_s, ib, ih);
+  const float* k = f32_head(a.k, a.k_s, ib, ikv);
+  const float* v = f32_head(a.v, a.v_s, ib, ikv);
+
+  // step j: chunk j % nc of the block's Q and dO rows and of key tile
+  // j / nc's K and V; at a tile's step ST - 1 also its W columns of K
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C, k0 = j / nc * BK;
+    f32_rows_async<C, BQ, CP>(s, q + c0, a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BQ, CP>(s + L::DO_OFF, dout + c0, a.do_s[2], q0, a.sq,
+                              tid);
+    f32_rows_async<C, BK, CP>(s + L::K_OFF, k + c0, a.k_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BK, CP>(s + L::V_OFF, v + c0, a.v_s[2], k0, a.sk, tid);
+    int t;
+    if (group_step<ST>(j, nc, t))
+      f32_rows_async<W, BK>(Kg, k + col0, a.k_s[2], t * BK, a.sk, tid,
+                            a.d - col0);
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+
+  // the thread's score rows: lse (log2 domain) and delta; rows past sq
+  // read 0 (and Q = dO = 0): dS = 0 there, and they are not written
+  const int64_t rowbase = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  float ls[SR], dl[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int row = q0 + gr + 16 * i;
+    ls[i] = row < a.sq ? a.lse[rowbase + row] * kLog2e : 0.f;
+    dl[i] = row < a.sq ? a.delta[rowbase + row] : 0.f;
+  }
+
+  float acc[TR][W / 16];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) acc[i][c] = 0.f;
+
+#pragma unroll 1
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    // S = Q K^T (sd[0]) and dP = dO V^T (sd[1]) over the head dim
+    float sd[2][SR][SC];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) sd[n][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = ik * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* s = sm + j % ST * L::STEP;
+      f32_dots<C, SR, SC, 16, 16, 2, CP, true>(
+          sd, {s, s + L::DO_OFF}, {s + L::K_OFF, s + L::V_OFF}, gr, gc);
+    }
+
+    // dS = P (dP - delta), P = 0 past sk and (causal) after the row
+    const bool need_mask = (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk;
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float pr = fast_exp2(fmaf(sd[0][i][j], a.scale_log2, -ls[i]));
+        if (need_mask) {
+          const int col = k0 + gc + 16 * j;
+          if (col >= a.sk || (a.causal && col > q0 + gr + 16 * i)) pr = 0.f;
+        }
+        Xs[(gc + 16 * j) * XP + gr + 16 * i] = pr * (sd[1][i][j] - dl[i]);
+      }
+    __syncthreads();  // dS^T is in (K's columns came with step ST - 1)
+
+    // dQ[:, own] += dS K[:, own]
+    f32_outer<W, TR, BK, XP, 16>(acc, Xs, Kg, TR * gr, gc);
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  f32_store<W, TR, 16>(f32_head(a.o, a.o_s, ib, ih) + q0 * a.o_s[2] + col0,
+                       a.o_s[2], acc, a.scale, TR * gr, a.sq - q0, gc,
+                       a.d - col0);
+}
+
+// `dkv_wide_f32<W>`: a block owns 32 keys of one (b, KV head) and columns
+// [grp W, grp W + W) of dK and dV; items of 32 query rows, each query head
+// of the KV group from the diagonal on, in a fixed order. dkv_f32's split:
+// warps 0-3 form S^T = K Q^T, write P^T and own dV += P^T dO; warps 4-7
+// form dP^T = V dO^T, read P^T back for dS^T = P^T (dP^T - delta) and own
+// dK += dS^T Q; a half's 16 x 8 grid holds 2 x 4 scores (keys gr + 16 i,
+// queries gc + 8 j) and 2 rows x W / 8 columns of its output. Each thread
+// loads its queries' lse (warps 0-3) or delta (4-7) from global memory at
+// the item's start. Shared memory: ST steps of (chunks of the block's 32
+// keys of K and V, of the item's 32 rows of Q and dO), the item's W
+// columns of Q and of dO, P^T and dS^T.
+template <int W>
+struct DkvWideF32 {
+  static constexpr int BK = 32, BQ = 32;  // keys a block, query rows an item
+  static constexpr int HALF = F32_THREADS / 2;
+  static constexpr int SR = BK / 16, SC = BQ / 8, TR = BK / 16;
+  static constexpr int STEP = 2 * (BK + BQ) * F32_CP;  // K, V, Q, dO
+  static constexpr int V_OFF = BK * F32_CP, Q_OFF = 2 * BK * F32_CP,
+                       DO_OFF = Q_OFF + BQ * F32_CP;  // in a step
+  static constexpr int GP = W + 4;  // Q's and dO's columns, [BQ][GP] each
+  static constexpr int XP = BK + 4;  // P^T and dS^T, [BQ][XP] each
+  static constexpr int FIT =
+      (SMEM_MAX / 4 - 2 * BQ * GP - 2 * BQ * XP) / STEP;
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  static constexpr int G_OFF = ST * STEP, X_OFF = G_OFF + 2 * BQ * GP;
+  static constexpr int BYTES = (X_OFF + 2 * BQ * XP) * 4;
+  static_assert(W % 64 == 0 && BK == 16 * SR && BQ == 8 * SC, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+dkv_wide_f32(const __grid_constant__ F32Args a) {
+  using L = DkvWideF32<W>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = L::TR, XP = L::XP, GP = L::GP, HALF = L::HALF;
+  constexpr int C = F32_C, CP = F32_CP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* Qg = sm + L::G_OFF;
+  float* Og = Qg + BQ * GP;
+  float* Ps = sm + L::X_OFF;
+  float* Ss = Ps + BQ * XP;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const Block blk(a.tiles, a.groups, a.hkv * a.batch, false);
+  const int grp = blk.grp, ikv = blk.head % a.hkv, ib = blk.head / a.hkv;
+  const int k0 = blk.tile * BK, col0 = grp * W;
+  const int group = a.h / a.hkv;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int per_head = nq - iq0;
+  const int items = group * per_head;
+  const int nc = a.chunks, steps = items * nc;
+  const int tid = threadIdx.x, half = tid / HALF, ht = tid % HALF;
+  const int gr = 4 * (ht >> 5) + ((ht >> 3) & 3), gc = ht & 7;
+  const float* k = f32_head(a.k, a.k_s, ib, ikv);
+  const float* v = f32_head(a.v, a.v_s, ib, ikv);
+
+  // step j: chunk j % nc of the block's K and V and of item j / nc's Q and
+  // dO rows; at an item's step ST - 1 also its W columns of Q and dO
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C, n = j / nc;
+    const int ih = ikv * group + n / per_head;
+    const int q0 = (iq0 + n % per_head) * BQ;
+    f32_rows_async<C, BK, CP>(s, k + c0, a.k_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BK, CP>(s + L::V_OFF, v + c0, a.v_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BQ, CP>(s + L::Q_OFF, f32_head(a.q, a.q_s, ib, ih) + c0,
+                              a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BQ, CP>(s + L::DO_OFF,
+                              f32_head(a.dout, a.do_s, ib, ih) + c0,
+                              a.do_s[2], q0, a.sq, tid);
+    int t;
+    if (group_step<ST>(j, nc, t)) {
+      const int gh = ikv * group + t / per_head;
+      const int g0 = (iq0 + t % per_head) * BQ;
+      f32_rows_async<W, BQ>(Qg, f32_head(a.q, a.q_s, ib, gh) + col0, a.q_s[2],
+                            g0, a.sq, tid, a.d - col0);
+      f32_rows_async<W, BQ>(Og, f32_head(a.dout, a.do_s, ib, gh) + col0,
+                            a.do_s[2], g0, a.sq, tid, a.d - col0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+  // this half's score operands in a step: K and Q (half 0), V and dO
+  const int a_off = half ? L::V_OFF : 0, b_off = half ? L::DO_OFF : L::Q_OFF;
+  const float* xs = half ? a.delta : a.lse;
+
+  float acc[TR][W / 8];  // dV (half 0) or dK (half 1)
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) acc[i][c] = 0.f;
+
+#pragma unroll 1
+  for (int n = 0; n < items; ++n) {
+    const int ih = ikv * group + n / per_head;
+    const int q0 = (iq0 + n % per_head) * BQ;
+    // the lse (half 0) or delta (half 1) of this thread's queries
+    // q0 + gc + 8 j (past sq: 0, and masked)
+    const float* xr = xs + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    float x[SC];
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      const int qi = q0 + gc + 8 * j;
+      x[j] = qi < a.sq ? xr[qi] : 0.f;
+    }
+
+    // S^T = K Q^T (half 0) or dP^T = V dO^T (half 1) over the head dim
+    float sd[1][SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) sd[0][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = n * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* s = sm + j % ST * L::STEP;
+      f32_dots<C, SR, SC, 16, 8, 1, CP, true>(sd, {s + a_off}, {s + b_off},
+                                              gr, gc);
+    }
+
+    if (half == 0) {
+      // P^T; 0 for queries past sq and (causal) keys after the query
+      const bool need_mask =
+          (a.causal && q0 < k0 + BK - 1) || q0 + BQ > a.sq;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+        const float lq = x[j] * kLog2e;
+#pragma unroll
+        for (int i = 0; i < SR; ++i) {
+          float pr = fast_exp2(fmaf(sd[0][i][j], a.scale_log2, -lq));
+          if (need_mask &&
+              (q0 + c >= a.sq || (a.causal && k0 + gr + 16 * i > q0 + c)))
+            pr = 0.f;
+          Ps[c * XP + gr + 16 * i] = pr;
+        }
+      }
+    }
+    __syncthreads();  // P^T is in (Q's and dO's columns came with step
+                      // ST - 1)
+    if (half == 1) {
+      // dS^T = P^T (dP^T - delta), at the same elements
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          Ss[c * XP + gr + 16 * i] =
+              Ps[c * XP + gr + 16 * i] * (sd[0][i][j] - x[j]);
+      }
+      bar_sync(1, HALF);  // this half's dS^T is in
+    }
+
+    // dV[:, own] += P^T dO[:, own] (half 0) or dK[:, own] += dS^T Q[:, own]
+    f32_outer<W, TR, BQ, XP, 8>(acc, half ? Ss : Ps, half ? Qg : Og, TR * gr,
+                                gc);
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+
+  float* out = half ? f32_head(a.o, a.o_s, ib, ikv)
+                    : f32_head(a.o2, a.o2_s, ib, ikv);
+  const int64_t ss = half ? a.o_s[2] : a.o2_s[2];
+  f32_store<W, TR, 8>(out + k0 * ss + col0, ss, acc, half ? a.scale : 1.f,
+                      TR * gr, a.sk - k0, gc, a.d - col0);
+}
+
 // ------------------------------------------------------------ host
 
 // The tensors' (batch, head, seq) element strides, three a tensor: the
@@ -869,10 +1442,10 @@ cudaError_t group_map(CUtensorMap* map, const void* base, const int64_t* st,
 }
 
 // The arguments every kernel takes beside its tensors, for groups of w
-// columns.
+// columns and chunks of `chunk` (the bf16 kernels' 64, f32's F32_C).
 template <typename Args>
 void fill_shape(Args& a, int batch, int h, int hkv, int sq, int sk, int d,
-                int causal, float scale, int w) {
+                int causal, float scale, int w, int chunk = 64) {
   a.h = h;
   a.hkv = hkv;
   a.batch = batch;
@@ -881,14 +1454,16 @@ void fill_shape(Args& a, int batch, int h, int hkv, int sq, int sk, int d,
   a.d = d;
   a.causal = causal;
   a.groups = (d + w - 1) / w;
-  a.chunks = d / 64;
+  a.chunks = d / chunk;
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
 }
 
+// bf16 and f32 at any multiple of 64 (f32 from F32_MIN_D: a tile's steps
+// must outnumber the ring's stages)
 bool shape_ok(int bf16_in, int batch, int h, int hkv, int sq, int sk, int d) {
-  return bf16_in && batch > 0 && sq > 0 && sk > 0 && hkv > 0 &&
-         h % hkv == 0 && d > 0 && d % 64 == 0;
+  return batch > 0 && sq > 0 && sk > 0 && hkv > 0 && h % hkv == 0 && d > 0 &&
+         d % 64 == 0 && (bf16_in || d >= F32_MIN_D);
 }
 
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
@@ -971,6 +1546,70 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                 L::BYTES, stream, a);
 }
 
+// The f32 kernels' arguments: the strides (batch, head, seq) of q, k, v,
+// dO and the outputs.
+void f32_strides(int64_t (&dst)[3], const int64_t* src) {
+  for (int i = 0; i < 3; ++i) dst[i] = src[i];
+}
+
+cudaError_t run_fwd_f32(const void* q, const void* k, const void* v,
+                        void* o, float* lse, const int64_t (&st)[4][3],
+                        int batch, int h, int hkv, int sq, int sk, int d,
+                        int causal, float scale, cudaStream_t stream) {
+  using L = FwdWideF32<FWD_W_F32>;
+  F32Args a = {};
+  fill_shape(a, batch, h, hkv, sq, sk, d, causal, scale, FWD_W_F32, F32_C);
+  a.tiles = (sq + L::BQ - 1) / L::BQ;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.lse_out = lse;
+  f32_strides(a.q_s, st[FQ]);
+  f32_strides(a.k_s, st[FK]);
+  f32_strides(a.v_s, st[FV]);
+  f32_strides(a.o_s, st[FO]);
+  return launch(flash_fwd_wide_f32<FWD_W_F32>, a.tiles * a.groups * h * batch,
+                F32_THREADS, L::BYTES, stream, a);
+}
+
+// K2 (`dkv` false: dQ into `out`) or K3 (dK into `out`, dV into `out2`)
+// in f32, from flash_bwd's 21 strides
+cudaError_t run_bwd_f32(bool dkv, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse,
+                        const float* delta, void* out, void* out2,
+                        const int64_t (*st)[3], int batch, int h, int hkv,
+                        int sq, int sk, int d, int causal, float scale,
+                        cudaStream_t stream) {
+  F32Args a = {};
+  fill_shape(a, batch, h, hkv, sq, sk, d, causal, scale,
+             dkv ? DKV_W_F32 : DQ_W_F32, F32_C);
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = lse;
+  a.delta = delta;
+  a.o = static_cast<float*>(out);
+  a.o2 = static_cast<float*>(out2);
+  f32_strides(a.q_s, st[Q]);
+  f32_strides(a.k_s, st[K]);
+  f32_strides(a.v_s, st[V]);
+  f32_strides(a.do_s, st[DO]);
+  f32_strides(a.o_s, st[dkv ? DK : DQ]);
+  if (dkv) f32_strides(a.o2_s, st[DV]);
+  if (dkv) {
+    using L = DkvWideF32<DKV_W_F32>;
+    a.tiles = (sk + L::BK - 1) / L::BK;
+    return launch(dkv_wide_f32<DKV_W_F32>, a.tiles * a.groups * hkv * batch,
+                  F32_THREADS, L::BYTES, stream, a);
+  }
+  using L = DqWideF32<DQ_W_F32>;
+  a.tiles = (sq + L::BQ - 1) / L::BQ;
+  return launch(dq_wide_f32<DQ_W_F32>, a.tiles * a.groups * h * batch,
+                F32_THREADS, L::BYTES, stream, a);
+}
+
 }  // namespace
 
 // The entry points take the per-dim kernels' arguments
@@ -978,7 +1617,9 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
 // flash_bwd_dkv): element strides for the batch, head and sequence axes
 // (head dim contiguous, rows 16-byte aligned; the backward's 21 in
 // flash_bwd's order), lse and delta [b, h, sq] f32 contiguous, d any
-// multiple of 64; bf16 only (bf16 = 0 is refused). Each launches one
+// multiple of 64 (f32 from F32_MIN_D); each picks its kernel by `bf16_in`:
+// bf16 (1) the wgmma kernels, f32 (0) the FFMA ones (the per-dim f32
+// kernels' workspace is not needed: `ws` is ignored). Each launches one
 // kernel on `stream` and returns the launch's cudaError_t (0 on success);
 // none synchronises.
 extern "C" int flash_wide_fwd(const void* q, const void* k, const void* v,
@@ -993,9 +1634,12 @@ extern "C" int flash_wide_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[4][3] = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
                             {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss}};
-  return static_cast<int>(run_fwd(q, k, v, o, lse, st, batch, h, hkv, sq,
-                                  sk, d, causal, scale,
-                                  static_cast<cudaStream_t>(stream)));
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16_in ? run_fwd(q, k, v, o, lse, st, batch, h, hkv, sq, sk, d,
+                        causal, scale, s)
+              : run_fwd_f32(q, k, v, o, lse, st, batch, h, hkv, sq, sk, d,
+                            causal, scale, s));
 }
 
 extern "C" int flash_wide_dq(const void* q, const void* k, const void* v,
@@ -1008,10 +1652,13 @@ extern "C" int flash_wide_dq(const void* q, const void* k, const void* v,
   (void)dk, (void)dv, (void)ws;
   if (!shape_ok(bf16_in, batch, h, hkv, sq, sk, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run_dq(
-      q, k, v, dout, lse, delta, dq,
-      reinterpret_cast<const int64_t(*)[3]>(strides), batch, h, hkv, sq, sk,
-      d, causal, scale, static_cast<cudaStream_t>(stream)));
+  const auto st = reinterpret_cast<const int64_t(*)[3]>(strides);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16_in ? run_dq(q, k, v, dout, lse, delta, dq, st, batch, h, hkv, sq,
+                       sk, d, causal, scale, s)
+              : run_bwd_f32(false, q, k, v, dout, lse, delta, dq, nullptr, st,
+                            batch, h, hkv, sq, sk, d, causal, scale, s));
 }
 
 extern "C" int flash_wide_dkv(const void* q, const void* k, const void* v,
@@ -1024,14 +1671,30 @@ extern "C" int flash_wide_dkv(const void* q, const void* k, const void* v,
   (void)dq, (void)ws;
   if (!shape_ok(bf16_in, batch, h, hkv, sq, sk, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run_dkv(
-      q, k, v, dout, lse, delta, dk, dv,
-      reinterpret_cast<const int64_t(*)[3]>(strides), batch, h, hkv, sq, sk,
-      d, causal, scale, static_cast<cudaStream_t>(stream)));
+  const auto st = reinterpret_cast<const int64_t(*)[3]>(strides);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16_in ? run_dkv(q, k, v, dout, lse, delta, dk, dv, st, batch, h, hkv,
+                        sq, sk, d, causal, scale, s)
+              : run_bwd_f32(true, q, k, v, dout, lse, delta, dk, dv, st,
+                            batch, h, hkv, sq, sk, d, causal, scale, s));
 }
 
-// The output columns one block owns (W) in K1 (`kernel` 0), K2 (1) and
-// K3 (2), or -1: ceil(d / W) blocks cover a row tile's head dim.
+// The output columns one block owns (W) in bf16's K1 (`kernel` 0), K2 (1)
+// and K3 (2) and in f32's (3, 4, 5), or -1: ceil(d / W) blocks cover a row
+// tile's head dim.
 extern "C" int flash_wide_columns(int kernel) {
-  return kernel == 0 ? FWD_W : kernel == 1 ? DQ_W : kernel == 2 ? DKV_W : -1;
+  const int w[6] = {FWD_W, DQ_W, DKV_W, FWD_W_F32, DQ_W_F32, DKV_W_F32};
+  return kernel >= 0 && kernel < 6 ? w[kernel] : -1;
+}
+
+// The workspace K2 (`dkv` 0) or K3 (1) takes here: none, in either dtype
+// (the streamed kernels do not split; csrc/flash_bwd.cu's
+// flash_bwd_workspace answers for the per-dim ones).
+extern "C" int64_t flash_wide_workspace(int dkv, int bf16_in, int batch,
+                                        int h, int hkv, int sq, int sk,
+                                        int d) {
+  (void)dkv, (void)bf16_in, (void)batch, (void)h, (void)hkv, (void)sq,
+      (void)sk, (void)d;
+  return 0;
 }

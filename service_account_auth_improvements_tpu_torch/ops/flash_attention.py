@@ -5,7 +5,7 @@ K3 ``_dkv_kernel``/``_flash_bwd``, and the ``_flash`` custom VJP in
 
 Routes: on a CUDA tensor ``flash_fwd`` launches the sm_90a kernel in
 ``csrc/flash_fwd.cu`` and ``flash_bwd_dq``/``flash_bwd_dkv`` launch those
-in ``csrc/flash_bwd.cu``, or, in bf16 above ``KERNEL_HEAD_DIMS``, those of
+in ``csrc/flash_bwd.cu``, or, above ``KERNEL_HEAD_DIMS``, those of
 ``csrc/flash_wide.cu`` (each library built at first use by
 ``ops/_build.py``); on a CPU tensor they run ``flash_fwd_reference`` and
 ``flash_bwd_dq_reference``/``flash_bwd_dkv_reference``, the plain PyTorch
@@ -31,13 +31,15 @@ ranges over up to four blocks, whose parts a second pass, ``f32_reduce``,
 sums from a workspace this module allocates). Every kernel there holds its
 rows at the whole head dim (or half of it in each block of a pair), so
 512 is the bound of those libraries. Above it the reference's rules (its
-Pallas kernels set no upper bound) admit every multiple of 64, and in bf16
-so does the port: ``flash_fwd_wide``, ``dq_wide`` and ``dkv_wide``
-(``csrc/flash_wide.cu``) stream the head dim in 64-column chunks and give
-each block ``WIDE_COLUMNS`` output columns, so what a block holds does not
-grow with d. A float32 CUDA tensor above 512 raises, naming that bound, as
-does any CUDA tensor whose head dim is no multiple of 64. All count under
-the same counters.
+Pallas kernels set no upper bound) admit every multiple of 64, and so does
+the port, in both dtypes: ``csrc/flash_wide.cu`` streams the head dim and
+gives each block ``WIDE_COLUMNS`` output columns, so what a block holds
+does not grow with d; bf16 runs ``flash_fwd_wide``, ``dq_wide`` and
+``dkv_wide`` (wgmma over 64-column chunks), float32 ``flash_fwd_wide_f32``,
+``dq_wide_f32`` and ``dkv_wide_f32`` (register-tiled FFMA over 32-column
+chunks, true f32, and no split: they take no workspace). A CUDA tensor
+whose head dim is no multiple of 64 raises; there is no other refusal by
+head dim. All count under the same counters.
 
 Gradients: when autograd records and an input requires grad,
 ``flash_fwd`` goes through ``FlashAttention``, a ``torch.autograd.Function``
@@ -71,17 +73,19 @@ from service_account_auth_improvements_tpu_torch.ops.attention import (
 BLOCK_Q = 128
 BLOCK_K = 128
 #: head dims K1, K2 and K3 are built for one by one, in bf16 and f32:
-#: every multiple of 64 up to 512, the bound in f32. In bf16 every multiple
-#: of 64 above it takes the streamed kernels (``WIDE_FUNCTIONS``)
+#: every multiple of 64 up to 512, the bound of the per-dim libraries. In
+#: both dtypes every multiple of 64 above it takes the streamed kernels
+#: (``WIDE_FUNCTIONS``)
 KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 #: the C functions of ``csrc/flash_wide.cu`` that run K1, K2 and K3 in bf16
-#: above ``KERNEL_HEAD_DIMS``
+#: and f32 above ``KERNEL_HEAD_DIMS`` (each picks its kernel by dtype)
 WIDE_FUNCTIONS = {"flash_fwd": "flash_wide_fwd",
                   "flash_bwd_dq": "flash_wide_dq",
                   "flash_bwd_dkv": "flash_wide_dkv"}
-#: the output columns one block of each of those kernels owns (its C
-#: constants FWD_W, DQ_W and DKV_W, which ``flash_wide_columns`` reports):
-#: ``wide_groups`` lists the blocks' column groups at a head dim
+#: the output columns one block of each of those kernels owns, in both
+#: dtypes (its C constants FWD_W, DQ_W and DKV_W, and FWD_W_F32, DQ_W_F32
+#: and DKV_W_F32, which ``flash_wide_columns`` reports): ``wide_groups``
+#: lists the blocks' column groups at a head dim
 WIDE_COLUMNS = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 
 #: kernel launches since the last reset (tests and chip_smoke.py read
@@ -217,16 +221,15 @@ def _check_layout(name, ts, dtype):
 def kernel_route(name, d, dtype) -> tuple[str, str]:
     """The library (a ``csrc/`` source) and C function that run kernel
     ``name`` ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv") on CUDA
-    tensors of head dim ``d`` in ``dtype``: the per-dim kernels at
-    ``KERNEL_HEAD_DIMS``, the streamed ones in bf16 at every multiple of 64
-    above them; raises for any other head dim, naming f32's bound."""
+    tensors of head dim ``d`` in ``dtype`` (bf16 or f32): the per-dim
+    kernels at ``KERNEL_HEAD_DIMS``, the streamed ones at every multiple of
+    64 above them; raises for any other head dim."""
     if d in KERNEL_HEAD_DIMS:
         return ("flash_fwd" if name == "flash_fwd" else "flash_bwd"), name
-    if dtype == torch.bfloat16 and d % 64 == 0 and d > KERNEL_HEAD_DIMS[-1]:
+    if d % 64 == 0 and d > KERNEL_HEAD_DIMS[-1]:
         return "flash_wide", WIDE_FUNCTIONS[name]
-    raise ValueError(f"{name} kernel supports head_dim in {KERNEL_HEAD_DIMS}, "
-                     f"up to {KERNEL_HEAD_DIMS[-1]} in float32, and every "
-                     f"multiple of 64 above it in bfloat16 (got {d} in "
+    raise ValueError(f"{name} kernel supports head_dim in {KERNEL_HEAD_DIMS} "
+                     f"and every multiple of 64 above it (got {d} in "
                      f"{dtype})")
 
 
@@ -405,10 +408,11 @@ def _launch_bwd(fn_name, q, k, v, do, lse, delta, dq, dk, dv,
     bf16 = int(q.dtype == torch.bfloat16)
     fn = _library(lib, c_name, _BWD_ARGS)
     with torch.cuda.device(q.device):
-        # K2 or K3 in f32 with split tiles: the parts' workspace (the
-        # caching allocator reuses it only in this stream's order)
+        # K2 or K3 in f32 with split tiles: the parts' workspace, as the
+        # library that launches them counts it (the caching allocator
+        # reuses it only in this stream's order)
         nbytes = 0 if bf16 else _library(
-            "flash_bwd", "flash_bwd_workspace", [_I] * 8, _I64)(
+            lib, f"{lib}_workspace", [_I] * 8, _I64)(
                 int(fn_name == "flash_bwd_dkv"), bf16, b, h, hkv, sq, sk, d)
         ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
               if nbytes > 0 else None)

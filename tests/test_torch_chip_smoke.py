@@ -170,8 +170,8 @@ def test_wide_head_settings():
     """Phase 12's configurations keep the preset's h * d (so wq and wo
     keep their shapes and each kernel does the preset's work), take head
     dims the kernels take (the per-dim ones up to 512, the streamed ones
-    in bf16 above), differ from the preset only in their heads, and time
-    steps after a warm-up."""
+    above, in bf16 and f32 alike), differ from the preset only in their
+    heads, and time steps after a warm-up."""
     import dataclasses
 
     import torch
@@ -187,11 +187,13 @@ def test_wide_head_settings():
     for name, (h, hkv, d) in chip_smoke.WIDE_HEADS.items():
         assert name == f"{chip_smoke.PRESET}_d{d}"
         assert h % hkv == 0
-        # the per-dim kernels up to 512, the streamed ones (bf16) above
-        assert (d in fa.KERNEL_HEAD_DIMS) == (d <= chip_smoke.F32_MAX_DIM)
-        assert fa.kernel_route("flash_fwd", d, torch.bfloat16)[0] == (
-            "flash_fwd" if d <= chip_smoke.F32_MAX_DIM
-            else chip_smoke.WIDE_SOURCE)
+        # the per-dim kernels up to 512, the streamed ones above, in both
+        # dtypes
+        assert (d in fa.KERNEL_HEAD_DIMS) == (d <= chip_smoke.PER_DIM_MAX)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert fa.kernel_route("flash_fwd", d, dtype)[0] == (
+                "flash_fwd" if d <= chip_smoke.PER_DIM_MAX
+                else chip_smoke.WIDE_SOURCE)
         assert h * d == base.n_heads * base.head_dim
         cfg = dataclasses.replace(base, n_heads=h, n_kv_heads=hkv,
                                   head_dim=d)
@@ -214,7 +216,7 @@ def test_wide_head_settings():
     assert set(chip_smoke.WIDE_SERVED) == {256, 512, 768}
     assert set(chip_smoke.WIDE_VS_DENSE) == {384, 512, 768}
     assert chip_smoke.WIDE_STEPS >= 2
-    assert chip_smoke.F32_MAX_DIM == fa.KERNEL_HEAD_DIMS[-1] == 512
+    assert chip_smoke.PER_DIM_MAX == fa.KERNEL_HEAD_DIMS[-1] == 512
 
 
 def test_kernel_only_head_settings():
@@ -950,6 +952,131 @@ def test_recompute_factors_of_the_streamed_kernels():
         assert chip_smoke.streamed_numbers(kernel, 1024) == {
             "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
             "recompute": chip_smoke.recompute(1024, kernel)}
+
+
+def test_streamed_numbers_name_the_f32_kernels():
+    """Above the per-dim bound phase 3 records, beside an f32 timing, the
+    streamed f32 kernel at its group's width and the same recompute factor
+    as bf16's (both dtypes' groups are WIDE_COLUMNS wide, and each group
+    forms the whole head dim's scores); nothing up to the bound."""
+    import torch
+
+    assert set(chip_smoke.WIDE_F32_KERNELS) == set(chip_smoke.KERNELS)
+    for kernel, template in chip_smoke.WIDE_F32_KERNELS.items():
+        assert template == f"{chip_smoke.WIDE_KERNELS[kernel]}_f32"
+        for d in (576, 768, 1024, 2048):
+            assert chip_smoke.streamed_numbers(kernel, d, torch.float32) == {
+                "kernel": f"{template}<256>",
+                "recompute": chip_smoke.recompute(d, kernel)}
+            assert chip_smoke.streamed_numbers(kernel, d) == {
+                "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
+                "recompute": chip_smoke.recompute(d, kernel)}
+        assert chip_smoke.streamed_numbers(kernel, 512, torch.float32) == {}
+    assert chip_smoke.recompute(768, "flash_fwd") == 2.0
+    assert chip_smoke._streamed_dims() == [768, 576, 640, 704, 1024, 2048]
+    assert all(d > chip_smoke.PER_DIM_MAX for d in chip_smoke._streamed_dims())
+
+
+def _wide_f32_numbers():
+    """Fake phase 3 numbers for the streamed f32 kernels at every
+    streamed head dim, as phase_kernels and phase_bwd_kernels record
+    them."""
+    import torch
+
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops", "bound_share")
+    numbers = {}
+    for name in chip_smoke.KERNELS:
+        numbers[name] = {"f32_wide": {}}
+        for i, (label, (_, _, d)) in enumerate(
+                chip_smoke._kernel_heads().items()):
+            if d <= chip_smoke.PER_DIM_MAX:
+                continue
+            n = {key: float(i + 1) for key in keys}
+            if name != "flash_fwd":
+                n["pair_ms"] = 2.0 * (i + 1)
+            n.update(chip_smoke.streamed_numbers(name, d, torch.float32))
+            numbers[name]["f32_wide"][label] = n
+    return numbers
+
+
+def test_wide_f32_entries_carry_recompute_and_paths():
+    """The streamed f32 kernels' ``kernels`` entries: one per kernel at
+    bench_800m_d768's heads, every key the line's contract names, source
+    csrc/flash_wide.cu, the f32 kernel and its recompute factor, the
+    kernel-only dims under ``more_shapes``, launches summed over the paths
+    that ran each kernel (K1 also the f32 greedy decode); a path that
+    launched none of a kernel raises."""
+    numbers = _wide_f32_numbers()
+    paths = {"flash vs dense grads d768": {"flash_fwd": 40,
+                                            "flash_bwd_dq": 20,
+                                            "flash_bwd_dkv": 20},
+             "greedy f32 d768": {"flash_fwd": 20}}
+    entries = chip_smoke.wide_f32_kernel_entries(numbers, paths)
+    assert [e["name"] for e in entries] == [
+        f"{name} f32 d768" for name in chip_smoke.KERNELS]
+    contract = {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"}
+    for entry, (name, (_, _, line)) in zip(entries,
+                                           chip_smoke.KERNELS.items()):
+        assert contract <= set(entry) and entry["route"] == "cuda"
+        assert entry["source"].endswith("/csrc/flash_wide.cu")
+        assert entry["replaces"].endswith(f"flash_attention.py:{line}")
+        assert entry["kernel"] == f"{chip_smoke.WIDE_F32_KERNELS[name]}<256>"
+        assert entry["recompute"] == chip_smoke.recompute(768, name)
+        assert ("pair_ms" in entry) == (name != "flash_fwd")
+        want = {path: n[name] for path, n in paths.items() if name in n}
+        assert entry["launches_by_path"] == want
+        assert entry["launches"] == sum(want.values())
+        assert set(entry["more_shapes"]) == {
+            "d576", "d640", "d704", "d1024", "d2048"}
+        for n in entry["more_shapes"].values():
+            assert {"kernel", "recompute", "ms", "bound_ms"} <= set(n)
+    assert entries[0]["launches"] == 60 and entries[1]["launches"] == 20
+    paths["greedy f32 d768"]["flash_fwd"] = 0
+    with pytest.raises(AssertionError, match="launched no kernel"):
+        chip_smoke.wide_f32_kernel_entries(numbers, paths)
+    with pytest.raises(AssertionError, match="launched no kernel"):
+        chip_smoke.wide_f32_kernel_entries(numbers, {})
+
+
+def test_streamed_f32_kernels_are_held_clean():
+    """Phase 2 fails if a streamed f32 kernel spills or has a C75xx note:
+    it finds each by its template at the column group's width in the
+    ptxas report (the mangled name of an ``F32Args`` kernel), and each is
+    launched at the source's constant, which is WIDE_COLUMNS; their W =
+    512 variants (timed at d 768 and 2048) edit that constant."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
+    for (name, kernel), const in zip(chip_smoke.WIDE_F32_KERNELS.items(),
+                                     ("FWD_W_F32", "DQ_W_F32", "DKV_W_F32")):
+        assert kernel in _global_kernels()
+        assert f"launch({kernel}<{const}>," in wide
+        w = fa.WIDE_COLUMNS[name]
+        assert f"constexpr int {const} = {w};" in wide
+        mangled = (f"_ZN46_GLOBAL__N__687d0614_13_flash_wide_cu_0598c693"
+                   f"{len(kernel)}{kernel}ILi{w}EEEvNS_7F32ArgsE")
+        assert chip_smoke._template_name(mangled, w) == kernel
+        report = ("ptxas info    : Compiling entry function "
+                  f"'{mangled}' for 'sm_90a'\n"
+                  "ptxas info    : Function properties for x\n"
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads\nptxas info    : Used 244 registers\n")
+        assert chip_smoke.ptxas_summary(report) == {mangled: {
+            "registers": 244, "spill_stores": 0, "notes": []}}
+        variant = kernel_variants.VARIANTS[f"{kernel}_w512"]
+        assert variant[2] == kernel
+        assert variant[1] == [(f"constexpr int {const} = 256;",
+                               f"constexpr int {const} = 512;")]
+        assert kernel_variants.source_of(kernel) == chip_smoke.WIDE_SOURCE
+        assert kernel_variants.KERNEL_HEADS[kernel] == chip_smoke.WIDE_HEADS[
+            "bench_800m_d768"]
+        assert [s[-1] for s in kernel_variants.KERNEL_SHAPES[kernel]] == [
+            768, 2048]
 
 
 def test_f32_design_labels_name_every_design():

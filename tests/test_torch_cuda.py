@@ -356,26 +356,42 @@ def test_train_steps_flash_equal_dense_on_cuda(cuda, dtype, remat_policy):
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"])
 def test_kernels_refuse_a_head_dim_above_256(cuda, kernel):
-    """f32 at d 576 passes the reference's rules (d % 64 == 0) but is past
-    the f32 kernels' bound of 512 (in bf16 the streamed kernels of
-    csrc/flash_wide.cu take it): a CUDA input raises, naming f32's bound,
-    through the public wrapper too, and nothing launches or falls back.
+    """Every multiple of 64 has a kernel in both dtypes, so the one
+    refusal left is a head dim that is no multiple of 64: d 600 in f32 and
+    in bf16 raises at each kernel's entry, and nothing launches or falls
+    back; f32 at d 576 (once refused, naming the per-dim bound of 512)
+    runs the streamed f32 kernel, through the public wrapper for K1, once.
     (The name dates from when the bound was 256 in both dtypes.)"""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
+    def call(q, k, v):
+        if kernel == "flash_fwd":
+            return fa.flash_fwd(q, k, v, True)
+        lse = torch.zeros(q.shape[:3], device="cuda")
+        return getattr(fa, kernel)(q, k, v, q, lse, lse, True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(1, 128, 2, 1, 600, dtype)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        with pytest.raises(ValueError, match="supports head_dim"):
+            call(q, k, v)
+        assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
     q, k, v = _qkv(1, 128, 2, 1, 576, torch.float32)
     before = (fa.launches, fa.dq_launches, fa.dkv_launches)
-    with pytest.raises(ValueError,
-                       match="supports head_dim.*up to 512 in float32"):
-        if kernel == "flash_fwd":
-            fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True)
-        else:
-            lse = torch.zeros((1, 2, 128), device="cuda")
-            getattr(fa, kernel)(q, k, v, q, lse, lse, True)
-    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+    if kernel == "flash_fwd":
+        out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True)
+        want = fa.flash_fwd_reference(q, k, v, True)[0].transpose(1, 2)
+        torch.testing.assert_close(out, want, atol=TOL[torch.float32][0],
+                                   rtol=TOL[torch.float32][1])
+    else:
+        call(q, k, v)
+    torch.cuda.synchronize()
+    after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    which = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").index(kernel)
+    assert after == tuple(n + (i == which) for i, n in enumerate(before))
 
 
 @pytest.mark.cuda
@@ -420,41 +436,54 @@ def test_greedy_generate_wide_head_flash_equals_dense_on_cuda(cuda):
     assert torch.equal(got, want)
 
 
-# (b, s, h, hkv, d, causal) in bf16 above 512, where K1, K2 and K3 are the
-# streamed kernels of csrc/flash_wide.cu (256 output columns a block, the
-# head dim in 64-column chunks): one row, ragged ends inside and one past
-# their 128-row (K1, K2) and 64-key (K3) blocks, the serving prompt length,
-# s 2047, non-causal aligned, GQA groups 1 to 2; d 576, 704 and 832 end in
-# a group of 64 columns, d 704 and 832 are 11 and 13 chunks;
-# bench_800m_d768's training shape
+# (b, s, h, hkv, d, causal, dtype) above 512, where K1, K2 and K3 are the
+# streamed kernels of csrc/flash_wide.cu (256 output columns a block; bf16:
+# the head dim in 64-column chunks, f32: in 32-column ones): one row, ragged
+# ends inside and one past their 128-row (bf16 K1, K2) and 64-key (bf16
+# K3) blocks, and past f32's 64-row (K1, K2), 64-key (K1) and 32-key (K2,
+# K3) ones, the serving prompt length, s 2047, non-causal aligned, GQA
+# groups 1 to 2; d 576, 704 and 832 end in a group of 64 columns, d 704
+# and 832 are 11 and 13 bf16 chunks; bench_800m_d768's training shape
+# (bf16) and its f32 greedy prompt (b 2, s 256)
 WIDE_SHAPES = [
-    (2, 1, 2, 1, 576, True),
-    (2, 65, 4, 2, 576, True),
-    (2, 300, 4, 2, 640, True),
-    (2, 256, 2, 1, 704, False),
-    (2, 129, 2, 1, 768, True),
-    (1, 1000, 2, 1, 768, True),
-    (1, 2047, 2, 1, 768, True),
-    (2, 512, 2, 1, 768, False),
-    (2, 127, 2, 1, 832, True),
-    (2, 65, 2, 1, 1024, True),
-    (1, 300, 1, 1, 2048, True),
-    (8, 2048, 2, 1, 768, True),
+    (2, 1, 2, 1, 576, True, "bfloat16"),
+    (2, 65, 4, 2, 576, True, "bfloat16"),
+    (2, 300, 4, 2, 640, True, "bfloat16"),
+    (2, 256, 2, 1, 704, False, "bfloat16"),
+    (2, 129, 2, 1, 768, True, "bfloat16"),
+    (1, 1000, 2, 1, 768, True, "bfloat16"),
+    (1, 2047, 2, 1, 768, True, "bfloat16"),
+    (2, 512, 2, 1, 768, False, "bfloat16"),
+    (2, 127, 2, 1, 832, True, "bfloat16"),
+    (2, 65, 2, 1, 1024, True, "bfloat16"),
+    (1, 300, 1, 1, 2048, True, "bfloat16"),
+    (8, 2048, 2, 1, 768, True, "bfloat16"),
+    (2, 1, 2, 1, 576, True, "float32"),
+    (2, 33, 4, 2, 576, True, "float32"),
+    (2, 65, 2, 1, 640, True, "float32"),
+    (2, 256, 2, 1, 704, False, "float32"),
+    (2, 256, 2, 1, 768, True, "float32"),
+    (1, 1000, 2, 1, 768, True, "float32"),
+    (1, 2047, 2, 1, 768, True, "float32"),
+    (2, 129, 2, 1, 832, True, "float32"),
+    (2, 97, 2, 1, 1024, True, "float32"),
+    (1, 300, 1, 1, 2048, True, "float32"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv,d,causal", WIDE_SHAPES)
-def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal):
-    """K1 (O and LSE), K2 and K3 in bf16 above 512 against their plain
-    versions, at the d <= 512 kernels' bf16 tolerances, each launched
-    once and counted."""
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,dtype", WIDE_SHAPES)
+def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal, dtype):
+    """K1 (O and LSE), K2 and K3 above 512 against their plain versions,
+    at the d <= 512 kernels' tolerances of the dtype (f32: summation order
+    only), each launched once and counted."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16)
-    do = _qkv(b, s, h, h, d, torch.bfloat16, seed=1)[0]
+    dtype = getattr(torch, dtype)
+    q, k, v = _qkv(b, s, h, hkv, d, dtype)
+    do = _qkv(b, s, h, h, d, dtype, seed=1)[0]
     before = (fa.launches, fa.dq_launches, fa.dkv_launches)
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = fa.flash_bwd_delta(o, do)
@@ -465,14 +494,13 @@ def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal):
         n + 1 for n in before)
     want_o, want_lse = fa.flash_fwd_reference(q, k, v, causal)
     torch.testing.assert_close(o.float(), want_o.float(),
-                               atol=TOL[torch.bfloat16][0],
-                               rtol=TOL[torch.bfloat16][1])
+                               atol=TOL[dtype][0], rtol=TOL[dtype][1])
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
-    atol, rtol = BWD_TOL[torch.bfloat16]
+    atol, rtol = BWD_TOL[dtype]
     want = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal),
             *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
     for got, w in zip((dq, dk, dv), want):
-        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        assert got.dtype == dtype and got.shape == w.shape
         torch.testing.assert_close(got.float(), w.float(), atol=atol,
                                    rtol=rtol)
 
@@ -480,19 +508,23 @@ def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"])
-@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 300, 4, 2, 576),
-                                         (2, 127, 2, 1, 832),
-                                         (8, 2048, 2, 1, 768)])
-def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d):
+@pytest.mark.parametrize("b,s,h,hkv,d,dtype", [
+    (2, 300, 4, 2, 576, "bfloat16"), (2, 127, 2, 1, 832, "bfloat16"),
+    (8, 2048, 2, 1, 768, "bfloat16"), (2, 300, 4, 2, 576, "float32"),
+    (2, 127, 2, 1, 832, "float32"), (2, 1000, 2, 1, 768, "float32")])
+def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d,
+                                            dtype):
     """Each output element of the streamed kernels belongs to one block
     and every sum runs in a fixed order (the column groups form the same
-    scores in the same chunk order): two launches give the same bits."""
+    scores in the same chunk order): two launches give the same bits, in
+    bf16 and in f32."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    q, k, v = _qkv(b, s, h, hkv, d, torch.bfloat16)
-    do = _qkv(b, s, h, h, d, torch.bfloat16, seed=1)[0]
+    dtype = getattr(torch, dtype)
+    q, k, v = _qkv(b, s, h, hkv, d, dtype)
+    do = _qkv(b, s, h, h, d, dtype, seed=1)[0]
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.flash_bwd_delta(o, do)
     if kernel == "flash_fwd":
@@ -509,18 +541,19 @@ def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("head_dim", [576, 768])
-def test_train_steps_flash_equal_dense_above_512_on_cuda(cuda, head_dim):
-    """Three bf16 steps at 2 / 1 heads of 576 and of 768
-    (bench_800m_d768's heads; remat "full"): K1 twice, K2 and K3 once per
-    layer on the streamed kernels, flash against dense within the bf16
-    tolerances of the d <= 512 steps. (f32 above 512 is refused on the
-    card.)"""
+def test_train_steps_flash_equal_dense_above_512_on_cuda(cuda, head_dim,
+                                                         dtype):
+    """Three steps at 2 / 1 heads of 576 and of 768 (bench_800m_d768's
+    heads; remat "full"), in bf16 and f32: K1 twice, K2 and K3 once per
+    layer on the streamed kernels, flash against dense within the
+    tolerances of the d <= 512 steps."""
     from service_account_auth_improvements_tpu_torch.models import llama
 
     _flash_steps_equal_dense(dataclasses.replace(
         llama.PRESETS["smoke"], dim=256, n_heads=2, n_kv_heads=1,
-        head_dim=head_dim, dtype="bfloat16", attn_impl="flash",
+        head_dim=head_dim, dtype=dtype, attn_impl="flash",
         loss_chunk=48, remat_policy="full"), "full")
 
 

@@ -1,8 +1,8 @@
 """Port parity at head dims above 512: the plain versions of K1, K2 and K3
 against the JAX Pallas kernels in interpret mode, the routing of CUDA
-tensors (bf16 to the streamed kernels of csrc/flash_wide.cu, f32 refused
-at its bound), the streamed kernels' column groups, and a Llama at
-head_dim 576 against the JAX model.
+tensors (bf16 and f32 to the streamed kernels of csrc/flash_wide.cu), the
+streamed kernels' column groups in both dtypes, and a Llama at head_dim
+576 against the JAX model.
 
 On the CPU the port runs ``flash_fwd_reference`` and
 ``flash_bwd_dq_reference``/``flash_bwd_dkv_reference`` at every head dim;
@@ -42,9 +42,10 @@ from service_account_auth_improvements_tpu_torch.train import (  # noqa: E402
 SOURCE = (Path(tfa.__file__).resolve().parent.parent / "csrc"
           / "flash_wide.cu")
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# the head dims the parity cases run at: the first past 512, one that is
-# no multiple of the group width, and bench_800m_d768's
-PARITY_DIMS = (576, 640, 768)
+# the head dims the parity cases run at (the plain versions in f32): the
+# first past 512, one that is no multiple of the group width,
+# bench_800m_d768's, and four whole groups
+PARITY_DIMS = (576, 640, 768, 1024)
 # the routing and the column groups: the parity dims, the two prime
 # multiples of 64 among them (11 and 13 chunks), and two more groups
 ROUTED_DIMS = (576, 640, 704, 768, 832, 1024, 2048)
@@ -108,14 +109,14 @@ def test_backward_reference_matches_jax_kernels(d, causal, counter,
 
 @pytest.mark.parametrize("d", ROUTED_DIMS)
 def test_bf16_above_512_takes_the_streamed_kernels(d):
-    """Every multiple of 64 above 512 in bf16 goes to csrc/flash_wide.cu,
-    one C function per kernel; in f32 it raises, naming f32's bound."""
+    """Every multiple of 64 above 512 goes to csrc/flash_wide.cu, one C
+    function per kernel, in bf16 and in f32 alike (the C function picks
+    the dtype's kernel)."""
     assert d % 64 == 0 and d > tfa.KERNEL_HEAD_DIMS[-1]
     for name in KERNELS:
-        assert tfa.kernel_route(name, d, torch.bfloat16) == (
-            "flash_wide", tfa.WIDE_FUNCTIONS[name])
-        with pytest.raises(ValueError, match=r"up to 512 in float32"):
-            tfa.kernel_route(name, d, torch.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tfa.kernel_route(name, d, dtype) == (
+                "flash_wide", tfa.WIDE_FUNCTIONS[name])
 
 
 def test_route_keeps_the_per_dim_kernels_and_refuses_the_rest():
@@ -155,6 +156,86 @@ def test_column_groups_cover_the_head_dim(d):
     assert tfa.wide_groups(576, "flash_fwd")[-1] == (512, 64)
     assert tfa.wide_groups(768, "flash_fwd") == [(0, 256), (256, 256),
                                                  (512, 256)]
+
+
+@pytest.mark.parametrize("d", ROUTED_DIMS)
+def test_f32_column_groups_are_the_sources(d):
+    """The f32 kernels' groups: the source's FWD_W_F32, DQ_W_F32 and
+    DKV_W_F32, which flash_wide_columns reports after bf16's three, are
+    WIDE_COLUMNS, so ``wide_groups`` covers f32's blocks too: ceil(d / W)
+    groups tiling [0, d), each a whole number of the f32 kernels'
+    32-column chunks."""
+    text = SOURCE.read_text()
+    chunk = int(re.search(r"constexpr int F32_C = (\d+);", text).group(1))
+    for name, const in zip(KERNELS, ("FWD_W_F32", "DQ_W_F32", "DKV_W_F32")):
+        w = tfa.WIDE_COLUMNS[name]
+        assert re.search(rf"constexpr int {const} = {w};", text)
+        groups = tfa.wide_groups(d, name)
+        assert len(groups) == -(-d // w)
+        assert [c for c, _ in groups] == list(range(0, d, w))
+        assert sum(width for _, width in groups) == d
+        assert all(c % chunk == 0 and width % chunk == 0
+                   for c, width in groups)
+    body = text.split('extern "C" int flash_wide_columns(int kernel) {')[1]
+    body = body[:body.index("\n}\n")]
+    assert re.search(r"\{FWD_W, DQ_W, DKV_W, FWD_W_F32, DQ_W_F32, "
+                     r"DKV_W_F32\}", body)
+
+
+def test_entry_points_take_f32():
+    """The C side takes f32: ``shape_ok`` refuses no dtype (f32 only below
+    the ring's least head dim, under 576), and each ``extern "C"`` entry
+    picks its kernel by ``bf16_in``, bf16's run or the f32 kernel's, never
+    by catching an error; the wide library answers the workspace query
+    the wrapper makes for f32 inputs (no split: 0 bytes)."""
+    text = SOURCE.read_text()
+    ok = text.split("bool shape_ok(")[1]
+    ok = ok[:ok.index("\n}\n")]
+    assert "return bf16_in &&" not in ok
+    assert "(bf16_in || d >= F32_MIN_D)" in ok
+    least = re.search(r"constexpr int F32_MIN_D = ([^;]*);", text).group(1)
+    consts = {n: int(v) for n, v in re.findall(
+        r"constexpr int (F32_\w+) = (\d+);", text)}
+    assert eval(least, {}, consts) <= 576
+    for fn, bf16_run, f32_run in (
+            ("flash_wide_fwd", "run_fwd(", "run_fwd_f32("),
+            ("flash_wide_dq", "run_dq(", "run_bwd_f32(false,"),
+            ("flash_wide_dkv", "run_dkv(", "run_bwd_f32(true,")):
+        body = text.split(f'extern "C" int {fn}(')[1]
+        body = body[:body.index("\n}\n")]
+        assert "shape_ok(bf16_in," in body
+        assert re.search(rf"bf16_in \? {re.escape(bf16_run)}.*: "
+                         rf"{re.escape(f32_run)}", body, re.S)
+    for kernel in ("flash_fwd_wide_f32", "dq_wide_f32", "dkv_wide_f32"):
+        assert re.search(rf"__global__ void __launch_bounds__\(F32_THREADS, "
+                         rf"1\)\n{kernel}\(", text)
+    assert re.search(r'extern "C" int64_t flash_wide_workspace\(', text)
+
+
+def test_f32_workspace_is_asked_of_the_routed_library(monkeypatch):
+    """``_launch_bwd`` asks for the f32 workspace of the library
+    ``kernel_route`` names (``<lib>_workspace``), so the query and the
+    launch cannot disagree: above 512 ``flash_wide``, up to it
+    ``flash_bwd``."""
+    asked = []
+
+    def library(lib, fn_name, argtypes, restype=None):
+        asked.append((lib, fn_name))
+        return lambda *args: 0  # 0 bytes of workspace, or launched
+
+    monkeypatch.setattr(tfa, "_library", library)
+    monkeypatch.setattr(tfa, "_check_layout", lambda *args: None)
+    monkeypatch.setattr(tfa.torch.cuda, "device",
+                        lambda dev: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(tfa.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    for d, lib in ((768, "flash_wide"), (512, "flash_bwd")):
+        q = torch.zeros((1, 2, 8, d))
+        lse = torch.zeros((1, 2, 8))
+        asked.clear()
+        tfa._launch_bwd("flash_bwd_dkv", q, q[:, :1], q[:, :1], q, lse, lse,
+                        None, q[:, :1].clone(), q[:, :1].clone(), True)
+        assert (lib, f"{lib}_workspace") in asked
 
 
 # a Llama at head_dim 576: the "tiny" preset's width and depth with 2 / 1

@@ -207,6 +207,13 @@ WIDE_KERNELS = {"flash_fwd": "flash_fwd_wide", "flash_bwd_dq": "dq_wide",
 WIDE_F32_KERNELS = {"flash_fwd": "flash_fwd_wide_f32",
                     "flash_bwd_dq": "dq_wide_f32",
                     "flash_bwd_dkv": "dkv_wide_f32"}
+# f32's K2 and K3 as independent column groups (the first streamed f32
+# design: the -DFLASH_OTHER_DESIGNS=1 build's at every dim, the port's
+# above a cluster of F32_CLUSTER_MAX blocks); WIDE_F32_KERNELS' K2 and K3
+# run a row tile on a cluster of ops/flash_attention.py's wide_f32_cluster
+# blocks
+WIDE_F32_GROUPS = {"flash_bwd_dq": "dq_wide_f32_groups",
+                   "flash_bwd_dkv": "dkv_wide_f32_groups"}
 # each kernel of the main paths: its source under csrc/, and the TPU kernel
 # it replaces, by function name and line in the JAX package's
 # ops/flash_attention.py
@@ -264,8 +271,17 @@ DESIGN_DIMS = (64, 192, 256, 384, 512)
 # K1's, K2's and K3's f32 designs by the id flash_fwd_f32_design and
 # flash_bwd_f32_design return (csrc/flash_fwd.cu's and csrc/flash_bwd.cu's
 # F32Design), and the head dim at which the other build runs the other one
-F32_DESIGNS = {0: "scalar", 1: "register-tiled"}
+F32_DESIGNS = {0: "scalar", 1: "register-tiled",
+               2: "register-tiled on a cluster of ceil(d / 256) blocks"}
+F32_CLUSTER_DESIGN = 2  # csrc/flash_wide.cu's kF32Cluster
 F32_DESIGN_DIM = 128
+# the streamed head dims at which phase_f32_designs times the f32 K2 and K3
+# of both builds in turns (a cluster of 3 and of 8 blocks against the
+# column groups), at b 2 s 1000 and each dim's heads (_kernel_heads)
+F32_CLUSTER_DIMS = (768, 2048)
+# a head dim past the largest cluster, where the port's f32 K2 and K3 are
+# the column groups (phase 3 holds them there)
+F32_PAST_CLUSTER = 2112
 # the f32 kernels phase 2 reports ptxas's registers, spills and C75xx notes
 # for, at every head dim (the scalar ones only in the other build); the
 # register-tiled ones must not spill
@@ -623,7 +639,10 @@ def phase_build() -> None:
     both). Raises if a register-tiled f32 kernel spills, a kernel of
     CLEAN_KERNELS or a streamed f32 kernel spills or has a C75xx note (a
     wgmma serialised and the like), or the streamed kernels' column groups
-    are not ops/flash_attention.py's WIDE_COLUMNS in both dtypes."""
+    are not ops/flash_attention.py's WIDE_COLUMNS in both dtypes. The
+    streamed source is built with the other designs too (f32 K2 and K3 as
+    column groups at every dim); each streamed kernel's registers and
+    spills, in either build, go to WIDE_PTXAS for the ``kernels`` line."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -633,15 +652,16 @@ def phase_build() -> None:
     )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 * len(KERNEL_SOURCES) + 1) as pool:
+    sources = (*KERNEL_SOURCES, WIDE_SOURCE)
+    with ThreadPoolExecutor(2 * len(sources)) as pool:
         # map submits every build at once; the lists wait for them
-        built = pool.map(_build.build, (*KERNEL_SOURCES, WIDE_SOURCE))
-        other = pool.map(_build_other_designs, KERNEL_SOURCES)
+        built = pool.map(_build.build, sources)
+        other = pool.map(_build_other_designs, sources)
         *libs, wide = list(built)
-        others = list(other)
-    _log(f"build: {', '.join(KERNEL_SOURCES)}, each also with the other "
-         f"designs (bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at "
-         f"d {F32_DESIGN_DIM}), and {WIDE_SOURCE}, in "
+        *others, wide_other = list(other)
+    _log(f"build: {', '.join(sources)}, each also with the other designs "
+         f"(bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at d "
+         f"{F32_DESIGN_DIM}, and f32 K2 and K3 above d {PER_DIM_MAX}), in "
          f"{time.perf_counter() - t0:.1f} s")
     # bf16's K1, K2 and K3, then f32's
     columns = [ctypes.CDLL(str(wide)).flash_wide_columns(i)
@@ -650,7 +670,7 @@ def phase_build() -> None:
         raise AssertionError(f"{WIDE_SOURCE}'s column groups {columns} are "
                              f"not WIDE_COLUMNS {fa.WIDE_COLUMNS} in both "
                              "dtypes")
-    for lib in libs + others + [wide]:
+    for lib in libs + others + [wide, wide_other]:
         log = lib.with_name(lib.name + ".log")
         if log.exists():
             _log(f"  {lib.relative_to(ROOT)}:")
@@ -681,22 +701,30 @@ def phase_build() -> None:
                                                 or n["notes"]):
                     spilled.append(f"{kernel}<{d}> ({', '.join(n['notes'])})")
     # the streamed kernels, one template each, at its group's width, bf16's
-    # and f32's
-    report = ptxas_summary(wide.with_name(wide.name + ".log").read_text())
-    for name, kernel in ((name, kernel) for kernels in (WIDE_KERNELS,
-                                                        WIDE_F32_KERNELS)
-                         for name, kernel in kernels.items()):
-        w = fa.WIDE_COLUMNS[name]
-        (n,) = [n for fn, n in report.items()
-                if _template_name(fn, w) == kernel]
-        _log(f"ptxas {kernel}<{w}> ({wide.parent.name}): {n['registers']} "
-             f"registers, {n['spill_stores']} bytes of spill stores, C75xx: "
-             f"{', '.join(n['notes']) or 'none'}")
-        if n["spill_stores"] or n["notes"]:
-            spilled.append(f"{kernel}<{w}> ({', '.join(n['notes'])})")
+    # and f32's (both f32 designs of K2 and K3), in either build
+    for which, lib in (("shipped", wide), ("other", wide_other)):
+        report = ptxas_summary(lib.with_name(lib.name + ".log").read_text())
+        for name, kernel in ((name, kernel) for kernels in (
+                WIDE_KERNELS, WIDE_F32_KERNELS, WIDE_F32_GROUPS)
+                             for name, kernel in kernels.items()):
+            w = fa.WIDE_COLUMNS[name]
+            (n,) = [n for fn, n in report.items()
+                    if _template_name(fn, w) == kernel]
+            WIDE_PTXAS[which, kernel] = n
+            _log(f"ptxas {kernel}<{w}> ({lib.parent.name}): "
+                 f"{n['registers']} registers, {n['spill_stores']} bytes of "
+                 f"spill stores, C75xx: {', '.join(n['notes']) or 'none'}")
+            if n["spill_stores"] or n["notes"]:
+                spilled.append(f"{kernel}<{w}> ({', '.join(n['notes'])})")
     if spilled:
         raise AssertionError(f"kernels that must compile clean spill or "
                              f"serialise their wgmmas: {spilled}")
+
+
+# the streamed kernels' ptxas numbers, {(build, kernel template): {
+# "registers", "spill_stores", "notes"}} (phase 2; build "shipped" or
+# "other")
+WIDE_PTXAS: dict = {}
 
 
 def ptxas_summary(text: str) -> dict:
@@ -741,7 +769,8 @@ def _template_name(mangled: str, d: int) -> str | None:
 def _build_other_designs(name: str) -> Path:
     """``csrc/<name>.cu`` built with ``-DFLASH_OTHER_DESIGNS=1`` (each
     kernel that ships one of two designs takes the one the port does not
-    ship: bf16 at d 64, 192 and 256, f32 at d 128) into OTHER_DESIGNS_DIR,
+    ship: bf16 at d 64 to 512, f32 at d 128 and f32 K2 and K3 above 512)
+    into OTHER_DESIGNS_DIR,
     with ``ops/_build.py``'s flags; its ptxas report beside it."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
@@ -1037,13 +1066,16 @@ def _streamed_dims() -> list:
     return [d for _, _, d in _kernel_heads().values() if d > PER_DIM_MAX]
 
 
-def recompute(d: int, kernel: str) -> float:
-    """The work of a streamed kernel (``WIDE_KERNELS``) at head dim ``d``
-    over its function's (``kernel_flops``): each of its column groups
-    forms the scores over the whole head dim (K1 S, K2 S and dP, K3 S^T
-    and dP^T) and multiplies against its group's W columns, a last
-    narrower group too (its columns past d are zeros); 2·d flops a causal
-    pair a product either way, as W flops for a group's product."""
+def recompute(d: int, kernel: str, dtype=torch.bfloat16) -> float:
+    """The work of a streamed kernel (``WIDE_KERNELS``, or in f32
+    ``WIDE_F32_KERNELS`` and ``WIDE_F32_GROUPS``) at head dim ``d`` over
+    its function's (``kernel_flops``): each of its column groups forms the
+    scores over the whole head dim (K1 S, K2 S and dP, K3 S^T and dP^T)
+    and multiplies against its group's W columns, a last narrower group
+    too (its columns past d are zeros); 2·d flops a causal pair a product
+    either way, as W flops for a group's product. A cluster (f32 K2 and K3,
+    ``wide_f32_cluster``) forms each score once, each block over its own
+    columns, and multiplies only its own columns: 1.0."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1051,6 +1083,8 @@ def recompute(d: int, kernel: str) -> float:
     scores, outputs = {"flash_fwd": (1, 1), "flash_bwd_dq": (2, 1),
                        "flash_bwd_dkv": (2, 2)}[kernel]
     groups = len(fa.wide_groups(d, kernel))
+    if dtype == torch.float32 and fa.wide_f32_cluster(d, kernel) == groups:
+        return (scores * d + outputs * d) / ((scores + outputs) * d)
     done = groups * (scores * d + outputs * fa.WIDE_COLUMNS[kernel])
     return done / ((scores + outputs) * d)
 
@@ -1058,7 +1092,9 @@ def recompute(d: int, kernel: str) -> float:
 def streamed_numbers(kernel: str, d: int, dtype=torch.bfloat16) -> dict:
     """What phase 3 records beside a timing at head dim ``d`` where the
     streamed kernel runs (above the per-dim bound): the kernel of
-    ``dtype``, as ``<template><<W>>``, and its recompute factor; else
+    ``dtype``, as ``<template><<W>>``, its recompute factor and the blocks
+    of its cluster (1: none; f32 K2 and K3 on a cluster up to
+    ``WIDE_F32_CLUSTER_MAX`` groups, the column groups above); else
     nothing."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
@@ -1066,9 +1102,13 @@ def streamed_numbers(kernel: str, d: int, dtype=torch.bfloat16) -> dict:
 
     if d <= PER_DIM_MAX:
         return {}
-    templates = WIDE_KERNELS if dtype == torch.bfloat16 else WIDE_F32_KERNELS
+    cluster = 1 if dtype == torch.bfloat16 else fa.wide_f32_cluster(d,
+                                                                   kernel)
+    templates = (WIDE_KERNELS if dtype == torch.bfloat16
+                 else WIDE_F32_KERNELS if cluster > 1 or kernel == "flash_fwd"
+                 else WIDE_F32_GROUPS)
     return {"kernel": f"{templates[kernel]}<{fa.WIDE_COLUMNS[kernel]}>",
-            "recompute": recompute(d, kernel)}
+            "recompute": recompute(d, kernel, dtype), "cluster": cluster}
 
 
 def _sdpa_backend(q, k, v) -> str:
@@ -1119,11 +1159,13 @@ def _time_k1(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 
 def _streamed_note(kernel: str, d: int, dtype=torch.bfloat16) -> str:
-    """A timing line's note of the streamed kernel and its recompute
-    factor, where it runs."""
+    """A timing line's note of the streamed kernel, its recompute factor
+    and its cluster, where it runs."""
     n = streamed_numbers(kernel, d, dtype)
-    return (f"; {n['kernel']}, recompute {n['recompute']:.3f}x" if n
-            else "")
+    cluster = (f", a cluster of {n['cluster']}" if n and n["cluster"] > 1
+               else "")
+    return (f"; {n['kernel']}, recompute {n['recompute']:.3f}x{cluster}"
+            if n else "")
 
 
 def _bwd_inputs(b, s, h, hkv, d, dtype, gen, causal):
@@ -1177,6 +1219,15 @@ def phase_bwd_kernels() -> dict:
         *((f"{name} s{PROMPT} f32", 2, PROMPT, h, hkv, d, torch.float32,
            True)
           for name, (h, hkv, d) in _kernel_heads().items()),
+        # the streamed f32 K2 and K3 (a cluster of ceil(d / 256) blocks up
+        # to d 2048) at WIDE_EDGES at each streamed dim's heads, and the
+        # column groups past the largest cluster
+        *((f"{name} s{s} causal {causal} f32", b, s, h, hkv, d,
+           torch.float32, causal)
+          for name, (h, hkv, d) in _kernel_heads().items()
+          if d > PER_DIM_MAX for b, s, causal in WIDE_EDGES),
+        (f"d{F32_PAST_CLUSTER} s65 f32 column groups", 2, 65, 1, 1,
+         F32_PAST_CLUSTER, torch.float32, True),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
@@ -1244,9 +1295,9 @@ def phase_bwd_kernels() -> dict:
         ev = _check(f"{name} dv", dv, want_dv, atol, rtol)
         if dtype == torch.float32 and d > PER_DIM_MAX:
             worst_f32_wide["flash_bwd_dq", d] = max(
-                worst_f32_wide["flash_bwd_dq", d], e)
+                worst_f32_wide.get(("flash_bwd_dq", d), 0.0), e)
             worst_f32_wide["flash_bwd_dkv", d] = max(
-                worst_f32_wide["flash_bwd_dkv", d], ek, ev)
+                worst_f32_wide.get(("flash_bwd_dkv", d), 0.0), ek, ev)
         elif dtype == torch.float32:
             worst_f32["flash_bwd_dq"] = max(worst_f32["flash_bwd_dq"], e)
             worst_f32["flash_bwd_dkv"] = max(worst_f32["flash_bwd_dkv"], ek,
@@ -1721,9 +1772,10 @@ def _design_libs() -> dict:
 
     from service_account_auth_improvements_tpu_torch.ops import _build
 
-    return {"shipped": {n: _build.load(n) for n in KERNEL_SOURCES},
+    sources = (*KERNEL_SOURCES, WIDE_SOURCE)
+    return {"shipped": {n: _build.load(n) for n in sources},
             "other": {n: ctypes.CDLL(str(OTHER_DESIGNS_DIR / f"lib{n}.so"))
-                      for n in KERNEL_SOURCES}}
+                      for n in sources}}
 
 
 def phase_f32_designs() -> dict:
@@ -1736,8 +1788,14 @@ def phase_f32_designs() -> dict:
     of F32_SHAPES the other design is held against the plain versions (K2
     and K3 also launched twice on one input, bitwise), then both are timed
     in turns (shipped, other, other, shipped), K1 beside SDPA's f32
-    forward and K2 + K3 as a pair beside SDPA's f32 backward. Returns
-    {shape label: {kernel: numbers}}."""
+    forward and K2 + K3 as a pair beside SDPA's f32 backward. Above d 512
+    K2 and K3 have two designs too (``flash_wide_f32_design``): a row tile
+    on a cluster of ceil(d / 256) blocks (dq_wide_f32, dkv_wide_f32) and
+    the column groups (dq_wide_f32_groups, dkv_wide_f32_groups); at
+    F32_CLUSTER_DIMS (b 2 s 1000, each dim's heads) the same, the pair
+    beside SDPA's f32 backward, with the clusters a card holds. Returns
+    {shape label: {kernel: numbers}}, the streamed dims' under
+    ``"streamed"`` as {head dim: {kernel: numbers}}."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1802,6 +1860,81 @@ def phase_f32_designs() -> dict:
              f"({backend})")
         del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
         torch.cuda.empty_cache()
+    # the streamed K2 and K3: a cluster against the column groups
+    out["streamed"] = {}
+    heads = {d: (h, hkv) for h, hkv, d in _kernel_heads().values()}
+    for d in F32_CLUSTER_DIMS:
+        (h, hkv), b, s = heads[d], 2, PROMPT
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        calls = {
+            "flash_bwd_dq": (
+                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
+                lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   True),),
+                [BWD_TOL[dtype]]),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   True),
+                [BWD_TOL[dtype]] * 2),
+        }
+        shape = f"b{b} s{s} h{h} hkv{hkv} d{d} f32 causal"
+        wide = {which: wide_f32_designs(libs[which][WIDE_SOURCE], d)
+                for which in libs}
+        named = {which: {name: n["design"] for name, n in wide[which].items()}
+                 for which in libs}
+        n_out = out["streamed"][d] = _in_turns(libs, named, calls, shape)
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=5,
+            queue_ahead=True)
+        pair = {which: sum(n_out[name][f"{which}_ms"] for name in bwd)
+                for which in ("shipped", "other")}
+        backend = _sdpa_backend(q, k, v)
+        for name in bwd:
+            n_out[name].update(shipped_pair_ms=pair["shipped"],
+                               other_pair_ms=pair["other"],
+                               library_ms=lib_ms, library_backend=backend,
+                               **{f"{which}_{key}": wide[which][name][key]
+                                  for which in libs
+                                  for key in ("kernel", "clusters")})
+        _log(f"time f32 designs K2 + K3 {shape}, in turns: shipped "
+             f"({wide['shipped']['flash_bwd_dq']['kernel']} + "
+             f"{wide['shipped']['flash_bwd_dkv']['kernel']}, clusters a "
+             f"card {wide['shipped']['flash_bwd_dq']['clusters']} and "
+             f"{wide['shipped']['flash_bwd_dkv']['clusters']}) "
+             f"{pair['shipped']:.4f} ms, other "
+             f"({wide['other']['flash_bwd_dq']['kernel']} + "
+             f"{wide['other']['flash_bwd_dkv']['kernel']}) "
+             f"{pair['other']:.4f} ms, sdpa backward {lib_ms:.4f} ms "
+             f"({backend})")
+        del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_f32_designs(lib, d: int) -> dict:
+    """The f32 K2 and K3 this flash_wide library runs at head dim ``d``:
+    {kernel: {"design": its F32_DESIGNS name, "kernel":
+    ``<template><<W>>``, "clusters": the clusters a card holds (-1: not a
+    cluster kernel)}}, by ``flash_wide_f32_design`` and
+    ``flash_wide_f32_clusters``."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    out = {}
+    for i, name in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv")):
+        design = lib.flash_wide_f32_design(i, d)
+        kernels = (WIDE_F32_KERNELS if design == F32_CLUSTER_DESIGN
+                   else WIDE_F32_GROUPS)
+        out[name] = {"design": F32_DESIGNS[design],
+                     "kernel": f"{kernels[name]}<{fa.WIDE_COLUMNS[name]}>",
+                     "clusters": lib.flash_wide_f32_clusters(i, d)}
     return out
 
 
@@ -5364,19 +5497,23 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     return entries
 
 
-def wide_f32_kernel_entries(numbers: dict, paths: dict) -> list:
+def wide_f32_kernel_entries(numbers: dict, paths: dict, designs: dict,
+                            ptxas: dict) -> list:
     """The streamed f32 kernels' ``kernels`` entries (flash_fwd_wide_f32,
     dq_wide_f32, dkv_wide_f32; ``source`` csrc/flash_wide.cu), one per
     kernel, from phase 3's numbers at b 2 s 1000 (``numbers[kernel]
     ["f32_wide"][label]``: bench_800m_d768's heads as the entry's, the
-    kernel-only dims under ``more_shapes``), each with its recompute
-    factor, and the launches of each path that runs it
+    kernel-only dims under ``more_shapes``), each with its kernel, recompute
+    factor and cluster, its registers and spills (``ptxas[("shipped",
+    template)]``, phase 2), and the launches of each path that runs it
     (``paths[path][kernel]``: phase 12's d 768 flash against dense f32
     step, K1 also its f32 greedy decode). K2's and K3's carry the pair's
-    sum. Raises if a path launched none of a kernel."""
+    sum, their design and the clusters a card holds, and both designs in
+    turns at F32_CLUSTER_DIMS (``designs["streamed"][d][kernel]``,
+    ``phase_f32_designs``). Raises if a path launched none of a kernel."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share",
-            "kernel", "recompute")
+            "kernel", "recompute", "cluster")
     (label,) = [name for name, (_, _, d) in WIDE_HEADS.items()
                 if d > PER_DIM_MAX]
     d = WIDE_HEADS[label][2]
@@ -5389,7 +5526,8 @@ def wide_f32_kernel_entries(numbers: dict, paths: dict) -> list:
                                  f"kernel: {by_path}")
         n = numbers[name]["f32_wide"]
         these = keys if name == "flash_fwd" else (*keys, "pair_ms")
-        entries.append({
+        built = ptxas["shipped", n[label]["kernel"].split("<")[0]]
+        entry = {
             "name": f"{name} f32 d{d}",
             "route": "cuda",
             "source": f"{PKG}/csrc/{WIDE_SOURCE}.cu",
@@ -5398,9 +5536,18 @@ def wide_f32_kernel_entries(numbers: dict, paths: dict) -> list:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             **{key: n[label][key] for key in these},
+            "registers": built["registers"],
+            "spill_stores": built["spill_stores"],
             "more_shapes": {other: {key: n[other][key] for key in these}
                             for other in n if other != label},
-        })
+        }
+        if name != "flash_fwd":
+            turns = designs["streamed"]
+            entry.update(design=turns[d][name]["shipped_design"],
+                         clusters_a_card=turns[d][name]["shipped_clusters"],
+                         designs_in_turns={f"d{dim}": turns[dim][name]
+                                           for dim in turns})
+        entries.append(entry)
     return entries
 
 
@@ -5474,7 +5621,7 @@ def f32_kernel_entries(numbers: dict, designs: dict, paths: dict) -> list:
             "more_shapes": {label: {key: n[label][key] for key in these}
                             for label in rest},
             "designs_in_turns": {label: designs[label][name]
-                                 for label in designs},
+                                 for label in F32_SHAPES if label in designs},
         })
     return entries
 
@@ -5537,7 +5684,8 @@ def main() -> int:
         numbers, {"distill_8b_1b": finetune["distill_8b_1b"]}, designs)
     kernels += wide_kernel_entries(numbers, wide, designs)
     kernels += f32_kernel_entries(numbers, f32_designs, F32_PATHS)
-    kernels += wide_f32_kernel_entries(numbers, F32_WIDE_PATHS)
+    kernels += wide_f32_kernel_entries(numbers, F32_WIDE_PATHS, f32_designs,
+                                       WIDE_PTXAS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

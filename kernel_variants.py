@@ -8,9 +8,10 @@ d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
 (``dkv_keys8`` at d 64,
 ``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
 ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``), and the
-streamed f32 kernels above d 512 (``flash_fwd_wide_f32``, ``dq_wide_f32``,
-``dkv_wide_f32`` at d 768, in ``csrc/flash_wide.cu``: their group width)
-and time them against the committed kernels on one CUDA card.
+streamed f32 kernels above d 512 (``flash_fwd_wide_f32`` at d 768, in
+``csrc/flash_wide.cu``: its group width; ``dq_wide_f32`` and
+``dkv_wide_f32``, on a cluster: the exchange's overlap) and time them
+against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
@@ -517,14 +518,29 @@ NEXT_SCORES = [("""  mbar_wait(q_full, 0);
 # the kernel it edits, as a key of KERNEL_HEADS[, the kernel whose ptxas
 # lines to print when the edit runs another in its place])
 VARIANTS = {
-    **{f"{kernel}_w512": (
+    "flash_fwd_wide_f32_w512": (
         "f32 above d 512: 512 output columns a block (twice the registers "
         "of the output; recompute 1.67x at d 768, 2.5x at d 2048)",
-        [(f"constexpr int {const} = 256;", f"constexpr int {const} = 512;")],
+        [("constexpr int FWD_W_F32 = 256;", "constexpr int FWD_W_F32 = 512;")],
+        "flash_fwd_wide_f32"),
+    **{f"{kernel}_in_line": (
+        "f32 K2 / K3 on a cluster: the exchange's two rounds in a row, the "
+        "last tile's output product after them (not between them: what "
+        "the overlap hides)",
+        [(f"""    xc.scatter(r);
+    if ({i} > 0) product({i} - 1, 0);
+    xc.gather(r, {i} & 1, more);
+    if ({i} > 0) product({i} - 1, {half});
+    xc.collect(r, {i} & 1, more);
+""", f"""    xc.scatter(r);
+    xc.gather(r, {i} & 1, more);
+    xc.collect(r, {i} & 1, more);
+    if ({i} > 0) product({i} - 1, 0);
+    if ({i} > 0) product({i} - 1, {half});
+""")],
         kernel)
-       for kernel, const in (("flash_fwd_wide_f32", "FWD_W_F32"),
-                             ("dq_wide_f32", "DQ_W_F32"),
-                             ("dkv_wide_f32", "DKV_W_F32"))},
+       for kernel, i, half in (("dq_wide_f32", "ik", "HK"),
+                               ("dkv_wide_f32", "n", "HQ"))},
     "bk128": (
         "128-key K/V stages (m64n128 score products), 2 in the ring",
         [("constexpr int DQ_BK = 64;", "constexpr int DQ_BK = 128;")],
@@ -1292,8 +1308,9 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
 # F32_SHAPES, the first of which holds their targets; dkv_onepass also at
 # bench_800m_d192's heads; the d 64 kernels at the fine-tuning shape, b 4
 # s 2048; the streamed f32 kernels at b 2 s 1000, as phase 3 times them,
-# at bench_800m_d768's heads and at d 2048's, where the group width
-# changes the recompute most: 4.5x at W 256, 2.5x at W 512)
+# at bench_800m_d768's heads and at d 2048's: K1's group width changes its
+# recompute most there (4.5x at W 256, 2.5x at W 512), and K2 and K3 run
+# their largest cluster, 8 blocks)
 KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32,
                  "flash_fwd_f32": torch.float32,
                  **{key: torch.float32

@@ -168,11 +168,13 @@ __device__ __forceinline__ void f32_xstore(float* X, const float (&x)[TR]) {
 // The output product of one tile: acc[i][4 n + e] += sum_r X[r][x0 + i]
 // Y[r][4 (oc + OC n) + e] over the RED rows r of X ([RED][XP]) and Y
 // (pitch D + 4): a thread of an output grid of OC column groups owns TR
-// rows and D / (4 OC) float4 columns.
-template <int D, int TR, int RED, int XP, int OC>
+// rows and D / (4 OC) float4 columns. With LIMIT only the columns below
+// `cols` (a multiple of 4 OC, so the test is the same for every thread)
+// are formed: a block whose share of a wider row is narrower than D.
+template <int D, int TR, int RED, int XP, int OC, bool LIMIT = false>
 __device__ __forceinline__ void f32_outer(float (&acc)[TR][D / OC],
                                           const float* X, const float* Y,
-                                          int x0, int oc) {
+                                          int x0, int oc, int cols = D) {
   constexpr int NG = D / (4 * OC);
 #pragma unroll 4
   for (int r = 0; r < RED; ++r) {
@@ -181,6 +183,7 @@ __device__ __forceinline__ void f32_outer(float (&acc)[TR][D / OC],
     const float* yr = Y + r * (D + 4) + 4 * oc;
 #pragma unroll
     for (int n = 0; n < NG; ++n) {
+      if (LIMIT && 4 * OC * n >= cols) continue;
       const float4 y = *reinterpret_cast<const float4*>(yr + 4 * OC * n);
 #pragma unroll
       for (int i = 0; i < TR; ++i) {

@@ -16,8 +16,10 @@
 // "f32" below); masked scores are -2e38; rows and keys past s load as
 // zeros and are masked or not written; the causal mask is start-aligned.
 //
-// The bf16 kernels first; the f32 ones (flash_fwd_wide_f32, dq_wide_f32,
-// dkv_wide_f32) take the same design on the CUDA cores, after them.
+// The bf16 kernels first; the f32 ones after them: flash_fwd_wide_f32,
+// dq_wide_f32_groups and dkv_wide_f32_groups take the same design on the
+// CUDA cores, and dq_wide_f32 and dkv_wide_f32 run a row tile on a cluster
+// of blocks that form the scores once (the section "f32").
 //
 // Why a design of its own: every per-dim kernel keeps Q (K2: and dO; K3: K
 // and V) resident at the whole head dim, in one block or by halves in the
@@ -69,8 +71,8 @@
 // that bounds it: at d 768 the three load 7-8 TB/s from L2 (counted from
 // their loads) and reach 0.10-0.16 of their bound (PERF.md §6). ROADMAP
 // queue 2's lever 8, a cluster of ceil(d / 256) blocks that add their
-// partial scores through distributed shared memory, would read each chunk
-// and form the scores once.
+// partial scores through distributed shared memory (the f32 K2 and K3's
+// design below), would read each chunk and form the scores once.
 
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
@@ -859,45 +861,71 @@ dkv_wide(const __grid_constant__ DkvArgs a) {
 // float32 inputs run on the CUDA cores in true f32 FMA (no TF32, no tensor
 // cores), as csrc/flash_fwd.cu's flash_fwd_f32 and csrc/flash_bwd.cu's
 // dq_f32 and dkv_f32 do at the head dims they are built for, from the
-// register-tiled pieces of csrc/f32_tiles.cuh, on this file's design:
+// register-tiled pieces of csrc/f32_tiles.cuh. Two designs (F32Design; the
+// C function flash_wide_f32_design reports the one a build runs):
+//   kF32Tiled    flash_fwd_wide_f32, dq_wide_f32_groups, dkv_wide_f32_groups:
+//                this file's bf16 layout, one block a group of W output
+//                columns, each forming the scores over the whole head dim;
+//   kF32Cluster  dq_wide_f32, dkv_wide_f32: a row tile on a cluster
+//                of ceil(d / W) blocks, each holding W columns of the head
+//                dim, the partial scores summed through distributed shared
+//                memory (hopper::ClusterSum), so that they are formed once.
+// K1 runs kF32Tiled at every d. K2 and K3 run kF32Cluster up to d
+// F32_CLUSTER_MAX W = 2048 (a portable cluster of at most 8 blocks) and
+// kF32Tiled above it, a route chosen by the head dim, not a fallback; a
+// build with -DFLASH_OTHER_DESIGNS=1 runs kF32Tiled at every d, so that
+// chip_smoke.py times both in turns.
+//
+// What both share:
 // - a block owns a tile of rows (K1, K2: query rows; K3: keys) and one
-//   group of W output columns (FWD_W_F32, DQ_W_F32, DKV_W_F32), ceil(d / W)
-//   groups cover the head dim, d is a run-time argument;
-// - every score tile (K1 S; K2 S and dP; K3 S^T on warps 0-3 and dP^T on
-//   warps 4-7, split as in dkv_f32) is formed over the whole head dim from
-//   chunks of F32_C = 32 columns of both operands (row pitch F32_C + 4
-//   floats), streamed through a ring of ST cp.async stages, one commit
-//   group a chunk step (f32_next_stage); each thread's scores are
-//   register-tiled as in the per-dim kernel (f32_dots, the chain carried on
-//   chunk by chunk: one FMA chain over the head dim, chunk 0 first, the
-//   order the per-dim kernels take);
-// - the row operand of the output product (V in K1, K in K2, dO and Q in
-//   K3) is the block's own W columns of the tile, brought by the ring's step
-//   ST - 1 of the tile into one buffer (the tile before has finished its
-//   product at the barrier of the step that issues it), zero-filled past d
-//   (f32_rows_async's `cols`), and the product is f32_outer over them; the
-//   last group of a d that is no multiple of W multiplies those zeros and
-//   does not store them: every block runs one instruction stream;
+//   group of W output columns (FWD_W_F32, DQ_W_F32, DKV_W_F32); d is a
+//   run-time argument;
+// - the score operands stream in chunks of F32_C = 32 columns (row pitch
+//   F32_C + 4 floats) through a ring of ST cp.async stages, one commit group
+//   a chunk step (f32_next_stage); each thread's scores are register-tiled
+//   as in the per-dim kernel (f32_dots, the chain carried on chunk by
+//   chunk in column order), rows and keys past s loading as zeros;
 // - softmax, P and dS take the per-dim kernels' arithmetic in the same
 //   order (flash_fwd_f32: the scale and log2 e folded into exp2, masked
 //   scores P = 0 by a select, O rescaled by alpha, l summed over the row's
 //   half-warp at the end; dq_f32 and dkv_f32: P = exp2(S scale log2 e - lse
-//   log2 e), dS = P (dP - delta)), through shared memory once as in them.
-// The groups run the same instructions on the same chunks in the same
-// order, so they agree bit for bit: K1's groups reach the same m and l and
-// group 0 alone stores the LSE; K3 sums its KV group's query heads in a
-// fixed order; there are no atomics, and a rerun gives the same bits.
-// No split-and-reduce: the per-dim f32 K2 and K3 split a grid of under two
-// blocks a SM over up to 4 blocks through a workspace; here the grid has
-// ceil(d / W) times the blocks (192 for K2 and K3 at b 2 s 1000 with 2 / 1
-// heads of 768), so none is needed and the workspace is 0 bytes.
+//   log2 e), dS = P (dP - delta)), masked scores -2e38, through shared
+//   memory once as in them;
+// - every output element belongs to one block and every sum runs in a
+//   fixed order, with no atomics: a rerun gives the same bits, and K3 sums
+//   its KV group's query heads in a fixed order. Neither splits a row tile
+//   over a workspace as the per-dim f32 kernels do: flash_wide_workspace is
+//   0 bytes.
+// kF32Tiled: every score tile (K1 S; K2 S and dP; K3 S^T on warps 0-3 and
+// dP^T on warps 4-7, split as in dkv_f32) is formed over the whole head dim
+// in every group, the same instructions on the same chunks in the same
+// order, so the groups agree bit for bit (K1's reach the same m and l, and
+// group 0 alone stores the LSE); the row operand of the output product (V
+// in K1, K in K2, dO and Q in K3) is the block's own W columns of the tile,
+// brought by the ring's step ST - 1 of the tile into one buffer (the tile
+// before has finished its product at the barrier of the step that issues
+// it), zero-filled past d (f32_rows_async's `cols`), and the last group of
+// a d that is no multiple of W multiplies those zeros and does not store
+// them. The price is recomputation: each group forms the same scores, so
+// the work is recompute(d) times the function's, 2.0 (K1, K3) and 2.33 (K2)
+// at d 768, 4.5 and 5.67 at d 2048.
+// kF32Cluster: the block of rank r of a cluster streams only its own
+// chunks, columns [r W, min(r W + W, d)), of both score operands and forms
+// partial scores over them; ClusterSum adds the cluster's partials in rank
+// order, rank 0 first, once, and every block takes the same sums; each
+// block then multiplies against its own columns of the row operand, which
+// are the chunks it streamed: each chunk is copied from its stage into a
+// buffer of the tile's W columns as it is used, so each chunk of each
+// operand is read from L2 once a tile, and a block narrower than W forms
+// only its own columns (f32_outer's LIMIT). Recompute 1.0 at every d.
 //
 // What bounds them on an H100: the f32 FMA rate (67 TF/s), not L2 as in
 // bf16 (per 4 columns a thread's 8 float4 loads from shared memory feed 64
-// FMAs in K1's scores):
-// every score a group recomputes costs its full price, so the work is
-// recompute(d) times the function's, 2.0 at d 768 with W = 256 (PERF.md §6
-// states the factor and the time at each dim it measures).
+// FMAs in K1's scores): kF32Tiled pays for every score it recomputes;
+// kF32Cluster pays for the exchange instead, 16 KB of partials a K2 tile
+// and 8 KB a K3 item, hidden behind half of the last tile's output product
+// each way (PERF.md §6 states the times, the share of bound and the factor
+// at each dim it measures).
 
 constexpr int F32_C = 32;           // columns a chunk
 constexpr int F32_CP = F32_C + 4;   // a chunk's row pitch, floats
@@ -907,12 +935,33 @@ constexpr int F32_MIN_D = F32_MAX_ST * F32_C;  // a tile has >= ST steps
 // The output columns a block owns in f32 (W): flash_wide_columns reports
 // them beside the bf16 ones; ops/flash_attention.py's WIDE_COLUMNS says
 // the same. 256, as in bf16: at 512 (recompute 1.67x at d 768 against
-// 2.0x) all three reach 255 registers and spill, and run slower at d 768
-// (kernel_variants.py's `*_w512` variants; PERF.md §6 has the times, on an
-// NVIDIA H100 80GB HBM3 at 700 W).
+// 2.0x) all three kF32Tiled kernels reach 255 registers and spill, and run
+// slower at d 768 (kernel_variants.py's `*_w512` variants; PERF.md §6 has
+// the times, on an NVIDIA H100 80GB HBM3 at 700 W). In kF32Cluster it is a
+// block's share of the head dim, so a cluster has ceil(d / W) blocks.
 constexpr int FWD_W_F32 = 256;
 constexpr int DQ_W_F32 = 256;
 constexpr int DKV_W_F32 = 256;
+
+// The f32 designs (the notes above), and the most blocks a cluster of
+// kF32Cluster has: the portable cluster size, so K2 and K3 take it up to
+// d 8 W = 2048.
+enum F32Design { kF32Tiled = 1, kF32Cluster = 2 };
+constexpr int F32_CLUSTER_MAX = 8;
+
+#ifndef FLASH_OTHER_DESIGNS
+#define FLASH_OTHER_DESIGNS 0
+#endif
+// The design f32 K1 (`kernel` 0), K2 (1) or K3 (2) runs at head dim d: K1
+// kF32Tiled; K2 and K3 kF32Cluster while ceil(d / W) blocks make a
+// portable cluster, kF32Tiled above (and at every d in the other build).
+constexpr int f32_design(int kernel, int d) {
+  return kernel == 0 || FLASH_OTHER_DESIGNS ||
+                 (d + DQ_W_F32 - 1) / DQ_W_F32 > F32_CLUSTER_MAX
+             ? kF32Tiled
+             : kF32Cluster;
+}
+static_assert(DQ_W_F32 == DKV_W_F32, "one cluster rule for K2 and K3");
 
 struct F32Args {
   const float* q;
@@ -1111,14 +1160,15 @@ flash_fwd_wide_f32(const __grid_constant__ F32Args a) {
   }
 }
 
-// `dq_wide_f32<W>`: a block owns 64 query rows of one (b, h) and columns
-// [grp W, grp W + W) of dQ; key tiles of 32. dq_f32's 16 x 16 thread grid:
-// 4 x 2 scores of S and of dP a thread at query rows gr + 16 i and keys
-// gc + 16 j, dQ rows 4 gr .. 4 gr + 3 and W / 16 columns. Shared memory: ST
-// steps of (chunks of Q's and dO's 64 rows, of the tile's 32 keys of K and
-// V), the tile's W columns of K, dS^T.
+// `dq_wide_f32_groups<W>` (kF32Tiled's K2): a block owns 64 query
+// rows of one (b, h) and columns [grp W, grp W + W) of dQ; key tiles of
+// 32. dq_f32's 16 x 16 thread grid: 4 x 2 scores of S and of dP a thread at
+// query rows gr + 16 i and keys gc + 16 j, dQ rows 4 gr .. 4 gr + 3 and
+// W / 16 columns. Shared memory: ST steps of (chunks of Q's and dO's 64
+// rows, of the tile's 32 keys of K and V), the tile's W columns of K,
+// dS^T.
 template <int W>
-struct DqWideF32 {
+struct DqWideF32Groups {
   static constexpr int BQ = 64, BK = 32;  // query rows a block, keys a tile
   static constexpr int SR = BQ / 16, SC = BK / 16, TR = BQ / 16;
   static constexpr int STEP = 2 * (BQ + BK) * F32_CP;  // Q, dO, K, V
@@ -1136,8 +1186,8 @@ struct DqWideF32 {
 
 template <int W>
 __global__ void __launch_bounds__(F32_THREADS, 1)
-dq_wide_f32(const __grid_constant__ F32Args a) {
-  using L = DqWideF32<W>;
+dq_wide_f32_groups(const __grid_constant__ F32Args a) {
+  using L = DqWideF32Groups<W>;
   constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
   constexpr int TR = L::TR, XP = L::XP, C = F32_C, CP = F32_CP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1245,9 +1295,10 @@ dq_wide_f32(const __grid_constant__ F32Args a) {
                        a.d - col0);
 }
 
-// `dkv_wide_f32<W>`: a block owns 32 keys of one (b, KV head) and columns
-// [grp W, grp W + W) of dK and dV; items of 32 query rows, each query head
-// of the KV group from the diagonal on, in a fixed order. dkv_f32's split:
+// `dkv_wide_f32_groups<W>` (kF32Tiled's K3): a block owns 32 keys
+// of one (b, KV head) and columns [grp W, grp W + W) of dK and dV; items of
+// 32 query rows, each query head of the KV group from the diagonal on, in a
+// fixed order. dkv_f32's split:
 // warps 0-3 form S^T = K Q^T, write P^T and own dV += P^T dO; warps 4-7
 // form dP^T = V dO^T, read P^T back for dS^T = P^T (dP^T - delta) and own
 // dK += dS^T Q; a half's 16 x 8 grid holds 2 x 4 scores (keys gr + 16 i,
@@ -1257,7 +1308,7 @@ dq_wide_f32(const __grid_constant__ F32Args a) {
 // keys of K and V, of the item's 32 rows of Q and dO), the item's W
 // columns of Q and of dO, P^T and dS^T.
 template <int W>
-struct DkvWideF32 {
+struct DkvWideF32Groups {
   static constexpr int BK = 32, BQ = 32;  // keys a block, query rows an item
   static constexpr int HALF = F32_THREADS / 2;
   static constexpr int SR = BK / 16, SC = BQ / 8, TR = BK / 16;
@@ -1277,8 +1328,8 @@ struct DkvWideF32 {
 
 template <int W>
 __global__ void __launch_bounds__(F32_THREADS, 1)
-dkv_wide_f32(const __grid_constant__ F32Args a) {
-  using L = DkvWideF32<W>;
+dkv_wide_f32_groups(const __grid_constant__ F32Args a) {
+  using L = DkvWideF32Groups<W>;
   constexpr int BK = L::BK, BQ = L::BQ, ST = L::ST, SR = L::SR, SC = L::SC;
   constexpr int TR = L::TR, XP = L::XP, GP = L::GP, HALF = L::HALF;
   constexpr int C = F32_C, CP = F32_CP;
@@ -1418,6 +1469,400 @@ dkv_wide_f32(const __grid_constant__ F32Args a) {
   const int64_t ss = half ? a.o_s[2] : a.o2_s[2];
   f32_store<W, TR, 8>(out + k0 * ss + col0, ss, acc, half ? a.scale : 1.f,
                       TR * gr, a.sk - k0, gc, a.d - col0);
+}
+
+// ------------------------------------------------------------ f32 clusters
+//
+// kF32Cluster: a row tile on a cluster of n = ceil(d / W) blocks,
+// launched by hopper::launch_cluster with the n column groups of a tile as
+// consecutive blocks (Block's `grp` is the cluster rank). The block of rank
+// r holds columns [r W, min(r W + W, d)) of the reduction and of its
+// outputs (cols of them, nc = cols / F32_C chunks) and streams only those.
+// Per tile (K2) or item (K3):
+//   the partial scores over its chunks, the chain carried on as in
+//   kF32Tiled, each chunk of the output product's row operand copied from
+//   its stage into the tile's W columns of it as the step uses it;
+//   ClusterSum: scatter, the first half of the last tile's output product
+//   (its first 16 keys or query rows), gather (the partials of the owned
+//   units added in rank order), the second half, collect;
+//   P and dS from the summed scores, as in kF32Tiled, into one of two
+//   buffers: the next tile takes their product while its own exchange
+//   lands, and the last tile's follows the loop.
+// Every block of the cluster holds the same sums, so the same P and dS.
+
+// Copy a chunk of ROWS rows (F32_C columns at pitch F32_CP, a stage's) to
+// columns [c0, c0 + F32_C) of `dst` (pitch P): one float4 a thread.
+template <int ROWS, int P>
+__device__ __forceinline__ void chunk_to_cols(float* dst, const float* src,
+                                              int c0, int tid) {
+  static_assert(ROWS * F32_C / 4 == F32_THREADS, "a float4 a thread");
+  const int row = tid / (F32_C / 4), c = 4 * (tid % (F32_C / 4));
+  *reinterpret_cast<float4*>(dst + row * P + c0 + c) =
+      *reinterpret_cast<const float4*>(src + row * F32_CP + c);
+}
+
+// `dq_wide_f32<W>`: a cluster owns 64 query rows of one (b, h); key tiles
+// of 32; dq_f32's 16 x 16 thread grid (4 x 2 scores of S and of dP a
+// thread, 4 units; dQ rows 4 gr .. 4 gr + 3 and W / 16 columns). Shared
+// memory: ST steps of (chunks of Q's and dO's 64 rows, of the tile's 32
+// keys of K and V), two tiles' W columns of K, two dS^T, the exchange's
+// buffers and barriers.
+template <int W>
+struct DqWideF32 {
+  static constexpr int BQ = 64, BK = 32;  // query rows a cluster, keys a tile
+  static constexpr int SR = BQ / 16, SC = BK / 16, TR = BQ / 16;
+  using X = ClusterSum<2 * SR * SC / 4, F32_CLUSTER_MAX>;  // S and dP
+  static constexpr int STEP = 2 * (BQ + BK) * F32_CP;  // Q, dO, K, V
+  static constexpr int DO_OFF = BQ * F32_CP, K_OFF = 2 * BQ * F32_CP,
+                       V_OFF = K_OFF + BK * F32_CP;  // in a step
+  static constexpr int KP = W + 4;   // the block's columns of K, [BK][KP]
+  static constexpr int XP = BQ + 4;  // dS^T, [BK][XP]
+  static constexpr int FIXED = 4 * 2 * BK * (KP + XP) + X::BYTES + 8 * X::BARS;
+  static constexpr int FIT = (SMEM_MAX - FIXED) / (4 * STEP);
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  static constexpr int KG_OFF = ST * STEP, X_OFF = KG_OFF + 2 * BK * KP;
+  static constexpr int XCH_OFF = X_OFF + 2 * BK * XP;     // floats
+  static constexpr int BAR_OFF = 4 * XCH_OFF + X::BYTES;  // bytes
+  static constexpr int BYTES = BAR_OFF + 8 * X::BARS;
+  static_assert(W % 64 == 0 && BQ == 16 * SR && BK == 16 * SC, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+dq_wide_f32(const __grid_constant__ F32Args a) {
+  using L = DqWideF32<W>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = L::TR, XP = L::XP, KP = L::KP, C = F32_C, CP = F32_CP;
+  constexpr int HK = BK / 2;  // keys of each half of the output product
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const uint32_t bar = smem_u32(smem_raw) + L::BAR_OFF;
+
+  const Block blk(a.tiles, a.groups, a.h * a.batch, true);
+  const int rank = blk.grp, ih = blk.head % a.h, ib = blk.head / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = blk.tile * BQ, col0 = rank * W;
+  const int cols = min(W, a.d - col0), nc = cols / C;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  const int steps = nk * nc;
+  const int tid = threadIdx.x;
+  const int gr = 4 * (tid >> 6) + ((tid >> 3) & 3);
+  const int gc = 8 * ((tid >> 5) & 1) + (tid & 7);
+  // the block's columns of each operand
+  const float* q = f32_head(a.q, a.q_s, ib, ih) + col0;
+  const float* dout = f32_head(a.dout, a.do_s, ib, ih) + col0;
+  const float* k = f32_head(a.k, a.k_s, ib, ikv) + col0;
+  const float* v = f32_head(a.v, a.v_s, ib, ikv) + col0;
+
+  if (tid == 0) {
+    L::X::init(bar, a.groups, rank);
+    fence_mbar_init();
+  }
+  L::X::begin();
+  const typename L::X xc(smem_u32(sm + L::XCH_OFF), sm + L::XCH_OFF, bar,
+                         a.groups, rank, tid);
+
+  // step j: chunk j % nc of the block's columns of its Q and dO rows and of
+  // key tile j / nc's K and V
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C, k0 = j / nc * BK;
+    f32_rows_async<C, BQ, CP>(s, q + c0, a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BQ, CP>(s + L::DO_OFF, dout + c0, a.do_s[2], q0, a.sq,
+                              tid);
+    f32_rows_async<C, BK, CP>(s + L::K_OFF, k + c0, a.k_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BK, CP>(s + L::V_OFF, v + c0, a.v_s[2], k0, a.sk, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+
+  // the thread's score rows: lse (log2 domain) and delta; rows past sq
+  // read 0 (and Q = dO = 0): dS = 0 there, and they are not written
+  const int64_t rowbase = (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+  float ls[SR], dl[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int row = q0 + gr + 16 * i;
+    ls[i] = row < a.sq ? a.lse[rowbase + row] * kLog2e : 0.f;
+    dl[i] = row < a.sq ? a.delta[rowbase + row] : 0.f;
+  }
+
+  float acc[TR][W / 16];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) acc[i][c] = 0.f;
+  // dQ[:, own] += dS K[:, own] over keys [r0, r0 + HK) of tile t
+  auto product = [&](int t, int r0) {
+    const float* x = sm + L::X_OFF + (t % 2 * BK + r0) * XP;
+    const float* y = sm + L::KG_OFF + (t % 2 * BK + r0) * KP;
+    if (cols == W)
+      f32_outer<W, TR, HK, XP, 16>(acc, x, y, TR * gr, gc);
+    else
+      f32_outer<W, TR, HK, XP, 16, true>(acc, x, y, TR * gr, gc, cols);
+  };
+
+#pragma unroll 1
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    float* kg = sm + L::KG_OFF + ik % 2 * BK * KP;
+    // the partial S = Q K^T (sd[0]) and dP = dO V^T (sd[1]) over the
+    // block's columns
+    float sd[2][SR][SC];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) sd[n][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = ik * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* s = sm + j % ST * L::STEP;
+      chunk_to_cols<BK, KP>(kg, s + L::K_OFF, cc * C, tid);
+      f32_dots<C, SR, SC, 16, 16, 2, CP, true>(
+          sd, {s, s + L::DO_OFF}, {s + L::K_OFF, s + L::V_OFF}, gr, gc);
+    }
+
+    // the cluster's sums, the last tile's product while they land
+    auto& r = reinterpret_cast<float(&)[2 * SR * SC]>(sd);
+    const bool more = ik + 1 < nk;
+    xc.scatter(r);
+    if (ik > 0) product(ik - 1, 0);
+    xc.gather(r, ik & 1, more);
+    if (ik > 0) product(ik - 1, HK);
+    xc.collect(r, ik & 1, more);
+
+    // dS = P (dP - delta), P = 0 past sk and (causal) after the row
+    float* xs = sm + L::X_OFF + ik % 2 * BK * XP;
+    const bool need_mask = (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk;
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float pr = fast_exp2(fmaf(sd[0][i][j], a.scale_log2, -ls[i]));
+        if (need_mask) {
+          const int col = k0 + gc + 16 * j;
+          if (col >= a.sk || (a.causal && col > q0 + gr + 16 * i)) pr = 0.f;
+        }
+        xs[(gc + 16 * j) * XP + gr + 16 * i] = pr * (sd[1][i][j] - dl[i]);
+      }
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the last tile's dS^T and K columns are in
+  product(nk - 1, 0);
+  product(nk - 1, HK);
+
+  L::X::end([&] {
+    f32_store<W, TR, 16>(f32_head(a.o, a.o_s, ib, ih) + q0 * a.o_s[2] + col0,
+                         a.o_s[2], acc, a.scale, TR * gr, a.sq - q0, gc,
+                         cols);
+  });
+}
+
+// `dkv_wide_f32<W>`: a cluster owns 32 keys of one (b, KV head); items of
+// 32 query rows, each query head of the KV group from the diagonal on, in a
+// fixed order; dkv_f32's split (warps 0-3: S^T, P^T, dV; warps 4-7: dP^T,
+// dS^T, dK; 2 x 4 scores a thread, 2 units; 2 rows x W / 8 columns of its
+// output). Shared memory: ST steps of (chunks of the block's 32 keys of K
+// and V, of the item's 32 rows of Q and dO), two items' W columns of Q and
+// of dO, two items' P^T and dS^T, the exchange's buffers and barriers.
+template <int W>
+struct DkvWideF32 {
+  static constexpr int BK = 32, BQ = 32;  // keys a cluster, query rows an item
+  static constexpr int HALF = F32_THREADS / 2;
+  static constexpr int SR = BK / 16, SC = BQ / 8, TR = BK / 16;
+  using X = ClusterSum<SR * SC / 4, F32_CLUSTER_MAX>;  // S^T or dP^T
+  static constexpr int STEP = 2 * (BK + BQ) * F32_CP;  // K, V, Q, dO
+  static constexpr int V_OFF = BK * F32_CP, Q_OFF = 2 * BK * F32_CP,
+                       DO_OFF = Q_OFF + BQ * F32_CP;  // in a step
+  static constexpr int GP = W + 4;   // Q's and dO's columns, [BQ][GP] each
+  static constexpr int XP = BK + 4;  // P^T and dS^T, [BQ][XP] each
+  static constexpr int FIXED = 4 * 4 * BQ * (GP + XP) + X::BYTES + 8 * X::BARS;
+  static constexpr int FIT = (SMEM_MAX - FIXED) / (4 * STEP);
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  // [2 items][Q, dO][BQ][GP], then [2 items][P^T, dS^T][BQ][XP]
+  static constexpr int G_OFF = ST * STEP, X_OFF = G_OFF + 4 * BQ * GP;
+  static constexpr int XCH_OFF = X_OFF + 4 * BQ * XP;     // floats
+  static constexpr int BAR_OFF = 4 * XCH_OFF + X::BYTES;  // bytes
+  static constexpr int BYTES = BAR_OFF + 8 * X::BARS;
+  static_assert(W % 64 == 0 && BK == 16 * SR && BQ == 8 * SC, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+dkv_wide_f32(const __grid_constant__ F32Args a) {
+  using L = DkvWideF32<W>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int TR = L::TR, XP = L::XP, GP = L::GP, HALF = L::HALF;
+  constexpr int C = F32_C, CP = F32_CP;
+  constexpr int HQ = BQ / 2;  // query rows of each half of the products
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const uint32_t bar = smem_u32(smem_raw) + L::BAR_OFF;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const Block blk(a.tiles, a.groups, a.hkv * a.batch, false);
+  const int rank = blk.grp, ikv = blk.head % a.hkv, ib = blk.head / a.hkv;
+  const int k0 = blk.tile * BK, col0 = rank * W;
+  const int cols = min(W, a.d - col0), nc = cols / C;
+  const int group = a.h / a.hkv;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int per_head = nq - iq0;
+  const int items = group * per_head;
+  const int steps = items * nc;
+  const int tid = threadIdx.x, half = tid / HALF, ht = tid % HALF;
+  const int gr = 4 * (ht >> 5) + ((ht >> 3) & 3), gc = ht & 7;
+  const float* k = f32_head(a.k, a.k_s, ib, ikv) + col0;
+  const float* v = f32_head(a.v, a.v_s, ib, ikv) + col0;
+
+  if (tid == 0) {
+    L::X::init(bar, a.groups, rank);
+    fence_mbar_init();
+  }
+  L::X::begin();
+  const typename L::X xc(smem_u32(sm + L::XCH_OFF), sm + L::XCH_OFF, bar,
+                         a.groups, rank, tid);
+
+  // step j: chunk j % nc of the block's columns of its K and V and of item
+  // j / nc's Q and dO rows
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C, n = j / nc;
+    const int ih = ikv * group + n / per_head;
+    const int q0 = (iq0 + n % per_head) * BQ;
+    f32_rows_async<C, BK, CP>(s, k + c0, a.k_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BK, CP>(s + L::V_OFF, v + c0, a.v_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BQ, CP>(s + L::Q_OFF,
+                              f32_head(a.q, a.q_s, ib, ih) + col0 + c0,
+                              a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BQ, CP>(s + L::DO_OFF,
+                              f32_head(a.dout, a.do_s, ib, ih) + col0 + c0,
+                              a.do_s[2], q0, a.sq, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+  // this half's score operands in a step: K and Q (half 0), V and dO
+  const int a_off = half ? L::V_OFF : 0, b_off = half ? L::DO_OFF : L::Q_OFF;
+  const float* xs = half ? a.delta : a.lse;
+
+  float acc[TR][W / 8];  // dV (half 0) or dK (half 1)
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) acc[i][c] = 0.f;
+  // dV[:, own] += P^T dO[:, own] (half 0) or dK[:, own] += dS^T Q[:, own]
+  // (half 1) over query rows [r0, r0 + HQ) of item n
+  auto product = [&](int n, int r0) {
+    const float* x = sm + L::X_OFF + ((n % 2 * 2 + half) * BQ + r0) * XP;
+    const float* g = sm + L::G_OFF + ((n % 2 * 2 + 1 - half) * BQ + r0) * GP;
+    if (cols == W)
+      f32_outer<W, TR, HQ, XP, 8>(acc, x, g, TR * gr, gc);
+    else
+      f32_outer<W, TR, HQ, XP, 8, true>(acc, x, g, TR * gr, gc, cols);
+  };
+
+#pragma unroll 1
+  for (int n = 0; n < items; ++n) {
+    const int ih = ikv * group + n / per_head;
+    const int q0 = (iq0 + n % per_head) * BQ;
+    // the lse (half 0) or delta (half 1) of this thread's queries
+    // q0 + gc + 8 j (past sq: 0, and masked)
+    const float* xr = xs + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    float x[SC];
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      const int qi = q0 + gc + 8 * j;
+      x[j] = qi < a.sq ? xr[qi] : 0.f;
+    }
+
+    // the partial S^T = K Q^T (half 0) or dP^T = V dO^T (half 1) over the
+    // block's columns; the item's Q and dO chunks kept for its products
+    float* qg = sm + L::G_OFF + n % 2 * 2 * BQ * GP;
+    float sd[1][SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) sd[0][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = n * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* s = sm + j % ST * L::STEP;
+      chunk_to_cols<BQ, GP>(qg, s + L::Q_OFF, cc * C, tid);
+      chunk_to_cols<BQ, GP>(qg + BQ * GP, s + L::DO_OFF, cc * C, tid);
+      f32_dots<C, SR, SC, 16, 8, 1, CP, true>(sd, {s + a_off}, {s + b_off},
+                                              gr, gc);
+    }
+
+    // the cluster's sums, the last item's products while they land
+    auto& r = reinterpret_cast<float(&)[SR * SC]>(sd);
+    const bool more = n + 1 < items;
+    xc.scatter(r);
+    if (n > 0) product(n - 1, 0);
+    xc.gather(r, n & 1, more);
+    if (n > 0) product(n - 1, HQ);
+    xc.collect(r, n & 1, more);
+
+    float* ps = sm + L::X_OFF + n % 2 * 2 * BQ * XP;  // P^T, then dS^T
+    if (half == 0) {
+      // P^T; 0 for queries past sq and (causal) keys after the query
+      const bool need_mask =
+          (a.causal && q0 < k0 + BK - 1) || q0 + BQ > a.sq;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+        const float lq = x[j] * kLog2e;
+#pragma unroll
+        for (int i = 0; i < SR; ++i) {
+          float pr = fast_exp2(fmaf(sd[0][i][j], a.scale_log2, -lq));
+          if (need_mask &&
+              (q0 + c >= a.sq || (a.causal && k0 + gr + 16 * i > q0 + c)))
+            pr = 0.f;
+          ps[c * XP + gr + 16 * i] = pr;
+        }
+      }
+    }
+    __syncthreads();  // P^T is in
+    if (half == 1) {
+      // dS^T = P^T (dP^T - delta), at the same elements
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int c = gc + 8 * j;
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          ps[BQ * XP + c * XP + gr + 16 * i] =
+              ps[c * XP + gr + 16 * i] * (sd[0][i][j] - x[j]);
+      }
+    }
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the last item's dS^T and Q and dO columns are in
+  product(items - 1, 0);
+  product(items - 1, HQ);
+
+  float* out = half ? f32_head(a.o, a.o_s, ib, ikv)
+                    : f32_head(a.o2, a.o2_s, ib, ikv);
+  const int64_t ss = half ? a.o_s[2] : a.o2_s[2];
+  L::X::end([&] {
+    f32_store<W, TR, 8>(out + k0 * ss + col0, ss, acc, half ? a.scale : 1.f,
+                        TR * gr, a.sk - k0, gc, cols);
+  });
 }
 
 // ------------------------------------------------------------ host
@@ -1598,16 +2043,28 @@ cudaError_t run_bwd_f32(bool dkv, const void* q, const void* k,
   f32_strides(a.do_s, st[DO]);
   f32_strides(a.o_s, st[dkv ? DK : DQ]);
   if (dkv) f32_strides(a.o2_s, st[DV]);
+  // kF32Cluster: a cluster of a.groups blocks a row tile (consecutive
+  // blocks); a launch the card cannot place is refused and returned
   if (dkv) {
     using L = DkvWideF32<DKV_W_F32>;
     a.tiles = (sk + L::BK - 1) / L::BK;
-    return launch(dkv_wide_f32<DKV_W_F32>, a.tiles * a.groups * hkv * batch,
-                  F32_THREADS, L::BYTES, stream, a);
+    const int blocks = a.tiles * a.groups * hkv * batch;
+    if (f32_design(2, d) == kF32Cluster)
+      return launch_cluster(dkv_wide_f32<DKV_W_F32>, blocks, a.groups,
+                            F32_THREADS, L::BYTES, stream, a);
+    static_assert(DkvWideF32Groups<DKV_W_F32>::BK == L::BK, "key tiles");
+    return launch(dkv_wide_f32_groups<DKV_W_F32>, blocks, F32_THREADS,
+                  DkvWideF32Groups<DKV_W_F32>::BYTES, stream, a);
   }
   using L = DqWideF32<DQ_W_F32>;
   a.tiles = (sq + L::BQ - 1) / L::BQ;
-  return launch(dq_wide_f32<DQ_W_F32>, a.tiles * a.groups * h * batch,
-                F32_THREADS, L::BYTES, stream, a);
+  const int blocks = a.tiles * a.groups * h * batch;
+  if (f32_design(1, d) == kF32Cluster)
+    return launch_cluster(dq_wide_f32<DQ_W_F32>, blocks, a.groups,
+                          F32_THREADS, L::BYTES, stream, a);
+  static_assert(DqWideF32Groups<DQ_W_F32>::BQ == L::BQ, "row tiles");
+  return launch(dq_wide_f32_groups<DQ_W_F32>, blocks, F32_THREADS,
+                DqWideF32Groups<DQ_W_F32>::BYTES, stream, a);
 }
 
 }  // namespace
@@ -1686,6 +2143,28 @@ extern "C" int flash_wide_dkv(const void* q, const void* k, const void* v,
 extern "C" int flash_wide_columns(int kernel) {
   const int w[6] = {FWD_W, DQ_W, DKV_W, FWD_W_F32, DQ_W_F32, DKV_W_F32};
   return kernel >= 0 && kernel < 6 ? w[kernel] : -1;
+}
+
+// The f32 design (F32Design: kF32Tiled 1, kF32Cluster 2) K1 (`kernel` 0),
+// K2 (1) or K3 (2) runs at head dim d in this build; chip_smoke.py labels
+// its timings by it.
+extern "C" int flash_wide_f32_design(int kernel, int d) {
+  return f32_design(kernel, d);
+}
+
+// The clusters of ceil(d / W) blocks the f32 K2 (`kernel` 1) or K3 (2) of
+// head dim d holds on the current card at once
+// (cudaOccupancyMaxActiveClusters; 0: its launch would be refused), or -1
+// where that kernel is not launched in clusters.
+extern "C" int flash_wide_f32_clusters(int kernel, int d) {
+  if ((kernel != 1 && kernel != 2) || f32_design(kernel, d) != kF32Cluster)
+    return -1;
+  const int n = (d + DQ_W_F32 - 1) / DQ_W_F32;
+  return kernel == 1
+             ? max_clusters(dq_wide_f32<DQ_W_F32>, n, F32_THREADS,
+                            DqWideF32<DQ_W_F32>::BYTES)
+             : max_clusters(dkv_wide_f32<DKV_W_F32>, n, F32_THREADS,
+                            DkvWideF32<DKV_W_F32>::BYTES);
 }
 
 // The workspace K2 (`dkv` 0) or K3 (1) takes here: none, in either dtype

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
-// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): mbarriers, TMA loads, thread
-// block clusters (remote stores and arrivals, the cluster barrier), wgmma
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_wide.cu): mbarriers,
+// TMA loads, thread block clusters (remote stores and arrivals, the cluster
+// barrier, the pairs' PairExchange and the n-block ClusterSum), wgmma
 // descriptors and instructions, setmaxnreg, and the host-side tensor maps
 // and launches.
 // Raw inline PTX, no CUTLASS: the whole header compiles in seconds.
@@ -860,6 +861,208 @@ struct PairExchange {
     r[4 * j + 1] += v.y;
     r[4 * j + 2] += v.z;
     r[4 * j + 3] += v.w;
+  }
+};
+
+// ------------------------------------------------------------ clusters of n
+//
+// csrc/flash_wide.cu's f32 K2 and K3 (dq_wide_f32, dkv_wide_f32) run a row
+// tile on a cluster of n blocks (1 <= n <= NMAX = 8, the portable cluster
+// size), the block of rank r holding a share of the head dim. Each thread
+// forms a partial sum of its score registers over that share: the same
+// registers, by thread and index, in every block. ClusterSum adds the n
+// partials and hands every block the sum, as a reduce-scatter then an
+// all-gather through distributed shared memory:
+//   units     a thread's scores are UNITS 16-byte units; unit k of thread t
+//             is u = k 256 + t, of TOTAL = 256 UNITS; rank r owns units
+//             [lo(r), lo(r + 1)), lo(r) = r TOTAL / n, at most
+//             ceil(TOTAL / n);
+//   init      thread 0, before the kernel's fence_mbar_init: the `rs`
+//             barrier (every peer's partials of the units this block owns
+//             have landed) and the `ag` barrier (every sum it does not
+//             own has), each armed with its first round's bytes;
+//   begin     the cluster barrier once every block's barriers are set up;
+//   scatter   each thread st.asyncs each unit it does not own into its
+//             owner's `rs` buffer (row: the sender among the owner's
+//             peers, column u - lo(owner)), completing the owner's `rs`;
+//   gather    each thread that owns units waits for `rs` and adds the n
+//             partials of each in rank order, rank 0's first (its own from
+//             its registers), keeps the sum and st.asyncs it into every
+//             peer's `ag` buffer at u, completing the peer's `ag`;
+//   collect   every thread waits for `ag` and loads the sums it does not
+//             own into its registers;
+//   end       the cluster barrier around the block's own stores.
+// Each sum is formed once, by its owner, so every block holds the same bits;
+// there are no atomics, and a rerun gives the same bits. A round's phase
+// parity is the kernel's round count & 1, the same in every block. Between
+// scatter and gather, and between gather and collect, the kernel works on
+// (the last tile's output product), while the stores land.
+//
+// No buffer is handed back by an arrival of its own, because every read of
+// a receive buffer is a load into a register (gather's and collect's only)
+// whose value the thread has used before its next store into a peer: a
+// partial read in gather feeds the sum that gather then sends; a sum read
+// in collect feeds the scores the kernel stores to shared memory before the
+// __syncthreads of its next tile's first chunk, which comes before that
+// tile's scatter. So a peer stores into `rs` again only after its `ag` wait
+// has seen every sum this block owns, each sent after that sum's partials
+// were loaded, and into `ag` again only after its `rs` wait has seen this
+// block's next partials, sent after the last sums were loaded: no read is
+// outstanding when the next store lands. The same orders keep a waiter
+// from missing a phase: `rs` (waited on by the owners alone) and `ag`
+// (every thread) cannot complete a second round before each of their
+// waiters has passed the first.
+// Shared memory: the `rs` buffer (RS_UNITS 16-byte slots, the most any n
+// needs), the `ag` buffer (TOTAL slots), then BARS mbarriers at `bar`.
+template <int UNITS, int NMAX = 8>
+struct ClusterSum {
+  static constexpr int THREADS = 256;
+  static constexpr int TOTAL = UNITS * THREADS;  // units of a block
+  __host__ __device__ static constexpr int share(int n) {
+    return (TOTAL + n - 1) / n;
+  }
+  __host__ __device__ static constexpr int rs_units(int n) {
+    return (n - 1) * share(n);
+  }
+  // the largest rs_units up to n
+  __host__ __device__ static constexpr int most(int n) {
+    return n < 2 ? 0
+                 : (rs_units(n) > most(n - 1) ? rs_units(n) : most(n - 1));
+  }
+  static constexpr int RS_UNITS = most(NMAX);
+  static constexpr int BYTES = (RS_UNITS + TOTAL) * 16;
+  static constexpr int BARS = 2;  // rs, ag
+  static_assert(NMAX >= 1 && NMAX <= 8, "a portable cluster");
+
+  uint32_t rs_addr, ag_addr;  // this block's buffers (shared addresses)
+  uint32_t bar;               // its `rs` barrier; `ag` at bar + 8
+  const float4* rs;           // the same buffers, generic
+  const float4* ag;
+  int n, rank, t, lo;  // cluster size, this block, thread, first owned
+
+  static __device__ __forceinline__ int first(int r, int n) {
+    return r * TOTAL / n;
+  }
+  static __device__ __forceinline__ int owner(int u, int n) {
+    return ((u + 1) * n - 1) / TOTAL;
+  }
+  // the bytes of one round into `rs` and into `ag` of rank r
+  static __device__ __forceinline__ uint32_t rs_bytes(int r, int n) {
+    return (n - 1) * (first(r + 1, n) - first(r, n)) * 16;
+  }
+  static __device__ __forceinline__ uint32_t ag_bytes(int r, int n) {
+    return (TOTAL - (first(r + 1, n) - first(r, n))) * 16;
+  }
+
+  // Thread t's view in the block of rank `rank` of n: the buffers at
+  // shared address x_addr (generic pointer x), the barriers at bar.
+  __device__ __forceinline__ ClusterSum(uint32_t x_addr, const void* x,
+                                        uint32_t bar, int n, int rank, int t)
+      : rs_addr(x_addr),
+        ag_addr(x_addr + RS_UNITS * 16),
+        bar(bar),
+        rs(static_cast<const float4*>(x)),
+        ag(static_cast<const float4*>(x) + RS_UNITS),
+        n(n),
+        rank(rank),
+        t(t),
+        lo(first(rank, n)) {}
+
+  static __device__ __forceinline__ void init(uint32_t bar, int n, int r) {
+    mbar_init(bar, 1);
+    mbar_arrive_expect_tx(bar, rs_bytes(r, n));
+    mbar_init(bar + 8, 1);
+    mbar_arrive_expect_tx(bar + 8, ag_bytes(r, n));
+  }
+
+  static __device__ __forceinline__ void begin() {
+    cluster_arrive();
+    cluster_wait();
+  }
+
+  template <typename F>
+  static __device__ __forceinline__ void end(F&& stores) {
+    cluster_arrive();  // no more stores into a peer
+    stores();
+    cluster_wait();
+  }
+
+  // This thread's partials (r[4k] .. r[4k + 3] is unit k) that it does not
+  // own, to their owners.
+  template <int N>
+  __device__ __forceinline__ void scatter(const float (&r)[N]) const {
+    static_assert(N == 4 * UNITS, "UNITS units a thread");
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const int u = k * THREADS + t, o = owner(u, n);
+      if (o == rank) continue;
+      const int row = rank < o ? rank : rank - 1;
+      const int slot = row * share(n) + u - first(o, n);
+      st_async_16(cluster_map(rs_addr + slot * 16, o), r[4 * k],
+                  r[4 * k + 1], r[4 * k + 2], r[4 * k + 3],
+                  cluster_map(bar, o));
+    }
+  }
+
+  // The sums of the units this thread owns, in rank order, into r and to
+  // every peer; `more`: another round follows (re-arm `rs`).
+  template <int N>
+  __device__ __forceinline__ void gather(float (&r)[N], uint32_t phase,
+                                         bool more) const {
+    bool mine = false;
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) mine |= owner(k * THREADS + t, n) == rank;
+    if (!mine) return;
+    mbar_wait_cluster(bar, phase);
+    // the thread that holds the first owned unit re-arms: an owner, so it
+    // has passed this round's wait
+    if (more && lo % THREADS == t)
+      mbar_arrive_expect_tx(bar, rs_bytes(rank, n));
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const int u = k * THREADS + t;
+      if (owner(u, n) != rank) continue;
+      const float4 own = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2],
+                                     r[4 * k + 3]);
+      float4 s = rank == 0 ? own : rs[u - lo];
+#pragma unroll
+      for (int src = 1; src < NMAX; ++src) {
+        if (src >= n) break;
+        const float4 v =
+            src == rank ? own
+                        : rs[(src < rank ? src : src - 1) * share(n) + u - lo];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      r[4 * k] = s.x, r[4 * k + 1] = s.y, r[4 * k + 2] = s.z,
+      r[4 * k + 3] = s.w;
+#pragma unroll
+      for (int p = 0; p < NMAX; ++p) {
+        if (p >= n) break;
+        if (p != rank)
+          st_async_16(cluster_map(ag_addr + u * 16, p), s.x, s.y, s.z, s.w,
+                      cluster_map(bar + 8, p));
+      }
+    }
+  }
+
+  // The sums this thread does not own, from `ag` into r; `more`: another
+  // round follows (thread 0 re-arms `ag`).
+  template <int N>
+  __device__ __forceinline__ void collect(float (&r)[N], uint32_t phase,
+                                          bool more) const {
+    mbar_wait_cluster(bar + 8, phase);
+    if (more && t == 0) mbar_arrive_expect_tx(bar + 8, ag_bytes(rank, n));
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const int u = k * THREADS + t;
+      if (owner(u, n) == rank) continue;
+      const float4 v = ag[u];
+      r[4 * k] = v.x, r[4 * k + 1] = v.y, r[4 * k + 2] = v.z,
+      r[4 * k + 3] = v.w;
+    }
   }
 };
 

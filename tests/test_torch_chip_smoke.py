@@ -951,28 +951,46 @@ def test_recompute_factors_of_the_streamed_kernels():
         assert chip_smoke.streamed_numbers(kernel, 512) == {}
         assert chip_smoke.streamed_numbers(kernel, 1024) == {
             "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
-            "recompute": chip_smoke.recompute(1024, kernel)}
+            "recompute": chip_smoke.recompute(1024, kernel), "cluster": 1}
 
 
 def test_streamed_numbers_name_the_f32_kernels():
     """Above the per-dim bound phase 3 records, beside an f32 timing, the
-    streamed f32 kernel at its group's width and the same recompute factor
-    as bf16's (both dtypes' groups are WIDE_COLUMNS wide, and each group
-    forms the whole head dim's scores); nothing up to the bound."""
+    streamed f32 kernel at its group's width, its recompute factor and its
+    cluster: K1 the column groups (bf16's factor: each group forms the
+    whole head dim's scores); K2 and K3 a cluster of ceil(d / 256) blocks
+    up to d 2048 (each score formed once, each block multiplying only its
+    own columns: 1.0, a last narrower block too), and the column groups
+    past it (the column groups, bf16's factor); nothing up to the bound."""
     import torch
 
     assert set(chip_smoke.WIDE_F32_KERNELS) == set(chip_smoke.KERNELS)
+    assert set(chip_smoke.WIDE_F32_GROUPS) == {"flash_bwd_dq",
+                                               "flash_bwd_dkv"}
     for kernel, template in chip_smoke.WIDE_F32_KERNELS.items():
         assert template == f"{chip_smoke.WIDE_KERNELS[kernel]}_f32"
-        for d in (576, 768, 1024, 2048):
-            assert chip_smoke.streamed_numbers(kernel, d, torch.float32) == {
-                "kernel": f"{template}<256>",
-                "recompute": chip_smoke.recompute(d, kernel)}
+        for d in (576, 768, 832, 1024, 2048, 2112):
+            clustered = kernel != "flash_fwd" and d <= 2048
+            want = {"kernel": f"{template}<256>",
+                    "recompute": 1.0 if clustered
+                    else chip_smoke.recompute(d, kernel),
+                    "cluster": -(-d // 256) if clustered else 1}
+            if kernel != "flash_fwd" and d > 2048:
+                want["kernel"] = (f"{chip_smoke.WIDE_F32_GROUPS[kernel]}"
+                                  "<256>")
+            assert chip_smoke.streamed_numbers(kernel, d,
+                                               torch.float32) == want
+            assert chip_smoke.recompute(d, kernel, torch.float32) == (
+                want["recompute"])
             assert chip_smoke.streamed_numbers(kernel, d) == {
                 "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
-                "recompute": chip_smoke.recompute(d, kernel)}
+                "recompute": chip_smoke.recompute(d, kernel), "cluster": 1}
         assert chip_smoke.streamed_numbers(kernel, 512, torch.float32) == {}
     assert chip_smoke.recompute(768, "flash_fwd") == 2.0
+    assert chip_smoke.recompute(2048, "flash_bwd_dq") == 8 * (
+        2 * 2048 + 256) / (3 * 2048)
+    assert chip_smoke.streamed_numbers(
+        "flash_bwd_dkv", 576, torch.float32)["cluster"] == 3
     assert chip_smoke._streamed_dims() == [768, 576, 640, 704, 1024, 2048]
     assert all(d > chip_smoke.PER_DIM_MAX for d in chip_smoke._streamed_dims())
 
@@ -1000,19 +1018,43 @@ def _wide_f32_numbers():
     return numbers
 
 
+def _wide_f32_designs():
+    """Fake phase_f32_designs numbers of the streamed f32 K2 and K3 at
+    F32_CLUSTER_DIMS, and phase 2's ptxas numbers of every streamed f32
+    kernel in either build."""
+    streamed = {d: {name: {"shipped_design": chip_smoke.F32_DESIGNS[2],
+                           "other_design": chip_smoke.F32_DESIGNS[1],
+                           "shipped_ms": 1.0, "other_ms": 2.0,
+                           "shipped_clusters": 39 if d == 768 else 15,
+                           "other_clusters": -1}
+                    for name in chip_smoke.WIDE_F32_GROUPS}
+                for d in chip_smoke.F32_CLUSTER_DIMS}
+    ptxas = {(which, kernel): {"registers": 200 + i, "spill_stores": 0,
+                               "notes": []}
+             for which in ("shipped", "other")
+             for i, kernel in enumerate((
+                 *chip_smoke.WIDE_F32_KERNELS.values(),
+                 *chip_smoke.WIDE_F32_GROUPS.values()))}
+    return {"streamed": streamed}, ptxas
+
+
 def test_wide_f32_entries_carry_recompute_and_paths():
     """The streamed f32 kernels' ``kernels`` entries: one per kernel at
     bench_800m_d768's heads, every key the line's contract names, source
-    csrc/flash_wide.cu, the f32 kernel and its recompute factor, the
-    kernel-only dims under ``more_shapes``, launches summed over the paths
-    that ran each kernel (K1 also the f32 greedy decode); a path that
+    csrc/flash_wide.cu, the f32 kernel, its recompute factor and cluster,
+    its registers and spills, the kernel-only dims under ``more_shapes``,
+    launches summed over the paths that ran each kernel (K1 also the f32
+    greedy decode); K2's and K3's also their design, the clusters a card
+    holds and both designs in turns at F32_CLUSTER_DIMS; a path that
     launched none of a kernel raises."""
     numbers = _wide_f32_numbers()
+    designs, ptxas = _wide_f32_designs()
     paths = {"flash vs dense grads d768": {"flash_fwd": 40,
                                             "flash_bwd_dq": 20,
                                             "flash_bwd_dkv": 20},
              "greedy f32 d768": {"flash_fwd": 20}}
-    entries = chip_smoke.wide_f32_kernel_entries(numbers, paths)
+    entries = chip_smoke.wide_f32_kernel_entries(numbers, paths, designs,
+                                                 ptxas)
     assert [e["name"] for e in entries] == [
         f"{name} f32 d768" for name in chip_smoke.KERNELS]
     contract = {"name", "route", "source", "replaces", "launches",
@@ -1023,55 +1065,93 @@ def test_wide_f32_entries_carry_recompute_and_paths():
         assert contract <= set(entry) and entry["route"] == "cuda"
         assert entry["source"].endswith("/csrc/flash_wide.cu")
         assert entry["replaces"].endswith(f"flash_attention.py:{line}")
-        assert entry["kernel"] == f"{chip_smoke.WIDE_F32_KERNELS[name]}<256>"
-        assert entry["recompute"] == chip_smoke.recompute(768, name)
+        kernel = chip_smoke.WIDE_F32_KERNELS[name]
+        assert entry["kernel"] == f"{kernel}<256>"
+        assert entry["registers"] == ptxas["shipped", kernel]["registers"]
+        assert entry["spill_stores"] == 0
         assert ("pair_ms" in entry) == (name != "flash_fwd")
+        if name == "flash_fwd":
+            assert entry["recompute"] == chip_smoke.recompute(768, name)
+            assert entry["cluster"] == 1 and "design" not in entry
+        else:
+            assert entry["recompute"] == 1.0 and entry["cluster"] == 3
+            assert entry["design"] == chip_smoke.F32_DESIGNS[2]
+            assert entry["clusters_a_card"] == 39
+            assert entry["designs_in_turns"] == {
+                f"d{d}": designs["streamed"][d][name]
+                for d in chip_smoke.F32_CLUSTER_DIMS}
         want = {path: n[name] for path, n in paths.items() if name in n}
         assert entry["launches_by_path"] == want
         assert entry["launches"] == sum(want.values())
         assert set(entry["more_shapes"]) == {
             "d576", "d640", "d704", "d1024", "d2048"}
         for n in entry["more_shapes"].values():
-            assert {"kernel", "recompute", "ms", "bound_ms"} <= set(n)
+            assert {"kernel", "recompute", "cluster", "ms",
+                    "bound_ms"} <= set(n)
+        if name != "flash_fwd":
+            assert entry["more_shapes"]["d2048"]["cluster"] == 8
     assert entries[0]["launches"] == 60 and entries[1]["launches"] == 20
     paths["greedy f32 d768"]["flash_fwd"] = 0
     with pytest.raises(AssertionError, match="launched no kernel"):
-        chip_smoke.wide_f32_kernel_entries(numbers, paths)
+        chip_smoke.wide_f32_kernel_entries(numbers, paths, designs, ptxas)
     with pytest.raises(AssertionError, match="launched no kernel"):
-        chip_smoke.wide_f32_kernel_entries(numbers, {})
+        chip_smoke.wide_f32_kernel_entries(numbers, {}, designs, ptxas)
 
 
 def test_streamed_f32_kernels_are_held_clean():
-    """Phase 2 fails if a streamed f32 kernel spills or has a C75xx note:
-    it finds each by its template at the column group's width in the
-    ptxas report (the mangled name of an ``F32Args`` kernel), and each is
-    launched at the source's constant, which is WIDE_COLUMNS; their W =
-    512 variants (timed at d 768 and 2048) edit that constant."""
+    """Phase 2 fails if a streamed f32 kernel spills or has a C75xx note,
+    in either build: it finds each by its template at the column group's
+    width in the ptxas report (the mangled name of an ``F32Args`` kernel),
+    K2's and K3's column groups (WIDE_F32_GROUPS) too; each is launched at
+    the source's constant, which is WIDE_COLUMNS, K2 and K3 on a cluster of
+    the row tile's groups. K1's W = 512 variant edits that constant; K2's
+    and K3's variants run the exchange's rounds in a row (the overlap they
+    time); all at d 768 and 2048."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
     wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
+    launches = {"flash_fwd": "launch(flash_fwd_wide_f32<FWD_W_F32>,",
+                "flash_bwd_dq": "launch_cluster(dq_wide_f32<DQ_W_F32>, "
+                                "blocks, a.groups,",
+                "flash_bwd_dkv": "launch_cluster(dkv_wide_f32<DKV_W_F32>, "
+                                 "blocks, a.groups,"}
     for (name, kernel), const in zip(chip_smoke.WIDE_F32_KERNELS.items(),
                                      ("FWD_W_F32", "DQ_W_F32", "DKV_W_F32")):
         assert kernel in _global_kernels()
-        assert f"launch({kernel}<{const}>," in wide
+        assert launches[name] in wide
+        if name in chip_smoke.WIDE_F32_GROUPS:
+            groups = chip_smoke.WIDE_F32_GROUPS[name]
+            assert groups in _global_kernels()
+            assert f"launch({groups}<{const}>, blocks," in wide
         w = fa.WIDE_COLUMNS[name]
         assert f"constexpr int {const} = {w};" in wide
-        mangled = (f"_ZN46_GLOBAL__N__687d0614_13_flash_wide_cu_0598c693"
-                   f"{len(kernel)}{kernel}ILi{w}EEEvNS_7F32ArgsE")
-        assert chip_smoke._template_name(mangled, w) == kernel
-        report = ("ptxas info    : Compiling entry function "
-                  f"'{mangled}' for 'sm_90a'\n"
-                  "ptxas info    : Function properties for x\n"
-                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                  "spill loads\nptxas info    : Used 244 registers\n")
-        assert chip_smoke.ptxas_summary(report) == {mangled: {
-            "registers": 244, "spill_stores": 0, "notes": []}}
-        variant = kernel_variants.VARIANTS[f"{kernel}_w512"]
+        for template in (kernel, chip_smoke.WIDE_F32_GROUPS.get(name)):
+            if template is None:
+                continue
+            mangled = (f"_ZN46_GLOBAL__N__687d0614_13_flash_wide_cu_0598c693"
+                       f"{len(template)}{template}ILi{w}EEEvNS_7F32ArgsE")
+            assert chip_smoke._template_name(mangled, w) == template
+            report = ("ptxas info    : Compiling entry function "
+                      f"'{mangled}' for 'sm_90a'\n"
+                      "ptxas info    : Function properties for x\n"
+                      "    0 bytes stack frame, 0 bytes spill stores, 0 "
+                      "bytes spill loads\nptxas info    : Used 244 "
+                      "registers\n")
+            assert chip_smoke.ptxas_summary(report) == {mangled: {
+                "registers": 244, "spill_stores": 0, "notes": []}}
+        if name == "flash_fwd":
+            variant = kernel_variants.VARIANTS[f"{kernel}_w512"]
+            assert variant[1] == [(f"constexpr int {const} = 256;",
+                                   f"constexpr int {const} = 512;")]
+        else:
+            variant = kernel_variants.VARIANTS[f"{kernel}_in_line"]
+            (old, new), = variant[1]
+            assert old.count("xc.") == new.count("xc.") == 3
+            assert old.index("product(") < old.index("xc.collect(")
+            assert new.index("product(") > new.index("xc.collect(")
         assert variant[2] == kernel
-        assert variant[1] == [(f"constexpr int {const} = 256;",
-                               f"constexpr int {const} = 512;")]
         assert kernel_variants.source_of(kernel) == chip_smoke.WIDE_SOURCE
         assert kernel_variants.KERNEL_HEADS[kernel] == chip_smoke.WIDE_HEADS[
             "bench_800m_d768"]
@@ -1081,16 +1161,23 @@ def test_streamed_f32_kernels_are_held_clean():
 
 def test_f32_design_labels_name_every_design():
     """chip_smoke.py labels each id of K1's, K2's and K3's f32 design
-    functions, and no other; each source's rule: the register-tiled
-    kernels at every head dim, the scalar ones at d 128 in a
-    -DFLASH_OTHER_DESIGNS=1 build (F32_DESIGN_DIM, the dim
-    phase_f32_designs times in turns)."""
-    assert chip_smoke.F32_DESIGNS == {0: "scalar", 1: "register-tiled"}
+    functions, and no other; each source's rule: in the per-dim sources
+    the register-tiled kernels at every head dim, the scalar ones at d 128
+    in a -DFLASH_OTHER_DESIGNS=1 build (F32_DESIGN_DIM, the dim
+    phase_f32_designs times in turns); in the streamed source K1 the
+    column groups everywhere, K2 and K3 a cluster up to F32_CLUSTER_MAX
+    groups and the column groups past it and in the other build (both
+    named by ``wide_f32_designs``)."""
+    assert chip_smoke.F32_DESIGNS == {
+        0: "scalar", 1: "register-tiled",
+        2: "register-tiled on a cluster of ceil(d / 256) blocks"}
     assert chip_smoke.F32_DESIGN_DIM == 128
+    labelled = set()
     for source, fn in (("flash_fwd", "flash_fwd_f32_design"),
                        ("flash_bwd", "flash_bwd_f32_design")):
         ids = _designs(source, "F32Design")
         assert ids == {"kF32Scalar": 0, "kF32Tiled": 1}
+        labelled |= set(ids.values())
         text = (CSRC / f"{source}.cu").read_text()
         rule = re.search(r"constexpr int f32_design\(int d\) \{(.*?)\}",
                          text, re.S).group(1)
@@ -1099,6 +1186,16 @@ def test_f32_design_labels_name_every_design():
             "kF32Tiled;")
         assert (f'extern "C" int {fn}(int d) {{ return f32_design(d); }}'
                 in text)
+    wide_ids = _designs(chip_smoke.WIDE_SOURCE, "F32Design")
+    assert wide_ids == {"kF32Tiled": 1, "kF32Cluster": 2}
+    assert wide_ids["kF32Cluster"] == chip_smoke.F32_CLUSTER_DESIGN
+    assert labelled | set(wide_ids.values()) == set(chip_smoke.F32_DESIGNS)
+    wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
+    rule = re.search(r"constexpr int f32_design\(int kernel, int d\) \{"
+                     r"(.*?)\}", wide, re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return kernel == 0 || FLASH_OTHER_DESIGNS || (d + DQ_W_F32 - 1) / "
+        "DQ_W_F32 > F32_CLUSTER_MAX ? kF32Tiled : kF32Cluster;")
 
     class Lib:
         def __init__(self, other):
@@ -1114,6 +1211,29 @@ def test_f32_design_labels_name_every_design():
         dict.fromkeys(names, "scalar"))
     assert chip_smoke.f32_design_names(Lib(True), Lib(True), 256) == (
         dict.fromkeys(names, "register-tiled"))
+
+    class Wide:
+        def __init__(self, other):
+            self.other = other
+
+        def flash_wide_f32_design(self, kernel, d):
+            return 1 if self.other or kernel == 0 or d > 2048 else 2
+
+        def flash_wide_f32_clusters(self, kernel, d):
+            return -1 if self.flash_wide_f32_design(kernel, d) == 1 else 39
+
+    for d in (768, 2048):
+        assert chip_smoke.wide_f32_designs(Wide(False), d) == {
+            name: {"design": chip_smoke.F32_DESIGNS[2],
+                   "kernel": f"{chip_smoke.WIDE_F32_KERNELS[name]}<256>",
+                   "clusters": 39}
+            for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for lib, d in ((Wide(True), 768), (Wide(False), 2112)):
+        assert chip_smoke.wide_f32_designs(lib, d) == {
+            name: {"design": chip_smoke.F32_DESIGNS[1],
+                   "kernel": f"{chip_smoke.WIDE_F32_GROUPS[name]}<256>",
+                   "clusters": -1}
+            for name in ("flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def test_f32_settings():
@@ -1465,6 +1585,54 @@ def test_pairs_release_their_receive_buffers_one_way(kernel, source):
                  ".release(", "L::X::end("):
         assert call in body, call
     assert body.count("L::X_OFF") == 2  # the helper's two views of them
+
+
+@pytest.mark.parametrize("kernel", ["dq_wide_f32", "dkv_wide_f32"])
+def test_cluster_sum_adds_in_rank_order_and_reads_into_registers(kernel):
+    """The f32 K2 and K3 on a cluster exchange their partial scores through
+    hopper.cuh's ClusterSum alone: its gather adds the n partials of an
+    owned unit in rank order, rank 0's first, the owner's own from its
+    registers, and sends the sum on; its receive buffers are read only by
+    loads into registers, `rs` in gather and `ag` in collect, and handed
+    back by no arrival of their own (the comment states the rule that makes
+    that sound); the kernel stores into no peer and waits on no remote
+    barrier itself, and runs the last tile's product between scatter and
+    gather and between gather and collect."""
+    hopper = (CSRC / "hopper.cuh").read_text()
+    helper = hopper[hopper.index("struct ClusterSum {"):]
+    helper = helper[:helper.index("\n};\n") + 1]
+    gather = _helper_body(helper, "gather")
+    order = [gather.index(s) for s in (
+        "mbar_wait_cluster(bar, phase);",
+        "float4 s = rank == 0 ? own : rs[u - lo];",
+        "for (int src = 1; src < NMAX; ++src) {",
+        "src == rank ? own",
+        "s.x += v.x;",
+        "st_async_16(cluster_map(ag_addr + u * 16, p), s.x, s.y, s.z, s.w,")]
+    assert order == sorted(order)
+    reads = {m: re.findall(r"\b(rs|ag)\[", _helper_body(helper, m))
+             for m in ("scatter", "gather", "collect")}
+    assert reads == {"scatter": [], "gather": ["rs", "rs"],
+                     "collect": ["ag"]}
+    assert "mbar_arrive_remote_cta" not in helper
+    head = hopper[:hopper.index("struct ClusterSum {")]
+    head = head[head.rindex("// ---"):]
+    comment = " ".join(line.lstrip("/ ") for line in head.splitlines())
+    for rule in ("load into a register", "before its next store into a peer",
+                 "rank order", "no read is outstanding"):
+        assert rule in comment, rule
+    body = _kernel_body((CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text(),
+                        kernel)
+    for call in ("st_async_16(", "mbar_wait_cluster(",
+                 "mbar_arrive_remote_cta(", "cluster_arrive(", "cluster_wait(",
+                 "cluster_map("):
+        assert call not in body, call
+    steps = [body.index(s) for s in (
+        "L::X::init(", "L::X::begin();", "xc.scatter(r);", "product(",
+        "xc.gather(r,", "product(", "xc.collect(r,", "L::X::end(")]
+    assert body.count("xc.scatter(") == body.count("xc.gather(") == 1
+    assert steps[3] < steps[4] < body.index("product(", steps[4]) < steps[6]
+    assert steps[:3] == sorted(steps[:3]) and steps[6] < steps[7]
 
 
 @pytest.mark.parametrize("variant,d", [

@@ -444,7 +444,11 @@ def test_greedy_generate_wide_head_flash_equals_dense_on_cuda(cuda):
 # K3) ones, the serving prompt length, s 2047, non-causal aligned, GQA
 # groups 1 to 2; d 576, 704 and 832 end in a group of 64 columns, d 704
 # and 832 are 11 and 13 bf16 chunks; bench_800m_d768's training shape
-# (bf16) and its f32 greedy prompt (b 2, s 256)
+# (bf16) and its f32 greedy prompt (b 2, s 256). f32's K2 and K3 run a row
+# tile on a cluster of ceil(d / 256) blocks up to d 2048 (3 at d 576 to
+# 768, 4 at d 832, the last block 64 columns wide, and 1024, 8 at d 2048),
+# the column groups past it (d 2112): the rows after the first f32 ones
+# hold the clusters at each size and the groups past them
 WIDE_SHAPES = [
     (2, 1, 2, 1, 576, True, "bfloat16"),
     (2, 65, 4, 2, 576, True, "bfloat16"),
@@ -468,6 +472,14 @@ WIDE_SHAPES = [
     (2, 129, 2, 1, 832, True, "float32"),
     (2, 97, 2, 1, 1024, True, "float32"),
     (1, 300, 1, 1, 2048, True, "float32"),
+    (2, 191, 4, 2, 576, True, "float32"),
+    (2, 300, 2, 1, 640, True, "float32"),
+    (2, 512, 2, 1, 768, False, "float32"),
+    (2, 65, 2, 1, 832, True, "float32"),
+    (1, 1000, 2, 1, 832, True, "float32"),
+    (2, 300, 2, 1, 1024, True, "float32"),
+    (1, 1000, 1, 1, 2048, True, "float32"),
+    (2, 65, 1, 1, 2112, True, "float32"),
 ]
 
 
@@ -511,13 +523,16 @@ def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal, dtype):
 @pytest.mark.parametrize("b,s,h,hkv,d,dtype", [
     (2, 300, 4, 2, 576, "bfloat16"), (2, 127, 2, 1, 832, "bfloat16"),
     (8, 2048, 2, 1, 768, "bfloat16"), (2, 300, 4, 2, 576, "float32"),
-    (2, 127, 2, 1, 832, "float32"), (2, 1000, 2, 1, 768, "float32")])
+    (2, 127, 2, 1, 832, "float32"), (2, 1000, 2, 1, 768, "float32"),
+    (2, 1000, 2, 1, 1024, "float32"), (1, 1000, 1, 1, 2048, "float32"),
+    (2, 65, 1, 1, 2112, "float32")])
 def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d,
                                             dtype):
     """Each output element of the streamed kernels belongs to one block
     and every sum runs in a fixed order (the column groups form the same
-    scores in the same chunk order): two launches give the same bits, in
-    bf16 and in f32."""
+    scores in the same chunk order; f32's K2 and K3 on a cluster add the
+    blocks' partial scores in rank order, each sum formed once): two
+    launches give the same bits, in bf16 and in f32."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )

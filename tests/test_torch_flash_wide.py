@@ -303,3 +303,125 @@ def test_llama_head_dim_576_matches_jax(counter):
             assert bad.mean() <= 1e-3, f"{what}: {int(bad.sum())} outside"
             np.testing.assert_allclose(b, a, atol=loose, rtol=1e-5,
                                        err_msg=what)
+
+
+HOPPER = SOURCE.with_name("hopper.cuh")
+
+
+@pytest.mark.parametrize("d", (*ROUTED_DIMS, 2112, 4096))
+def test_f32_backward_clusters_up_to_2048_then_groups(d):
+    """The f32 K2 and K3 above 512 run a row tile on a cluster of
+    ceil(d / 256) blocks, one a column group, while that is at most
+    WIDE_F32_CLUSTER_MAX (the source's F32_CLUSTER_MAX, the portable 8:
+    d 2048), and as independent column groups past it, a route by head
+    dim that the source's f32_design states; K1 never runs on a cluster."""
+    text = SOURCE.read_text()
+    assert tfa.WIDE_F32_CLUSTER_MAX == 8
+    assert re.search(rf"constexpr int F32_CLUSTER_MAX = "
+                     rf"{tfa.WIDE_F32_CLUSTER_MAX};", text)
+    rule = re.search(r"constexpr int f32_design\(int kernel, int d\) \{"
+                     r"(.*?)\}", text, re.S).group(1)
+    assert "(d + DQ_W_F32 - 1) / DQ_W_F32 > F32_CLUSTER_MAX" in rule
+    groups = -(-d // tfa.WIDE_COLUMNS["flash_bwd_dq"])
+    assert tfa.wide_f32_cluster(d, "flash_fwd") == 1
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        got = tfa.wide_f32_cluster(d, name)
+        assert (got > 1) == (d <= 2048)
+        if d <= 2048:
+            assert got == groups == len(tfa.wide_groups(d, name))
+            assert 3 <= got <= 8
+    assert tfa.wide_f32_cluster(832, "flash_bwd_dq") == 4
+    assert tfa.wide_groups(832, "flash_bwd_dq")[-1] == (768, 64)
+
+
+def _cluster_sum(units):
+    """hopper.cuh's ClusterSum sizing for UNITS 16-byte units a thread:
+    its TOTAL units a block, a rank's largest share at n, the `rs` slots a
+    rank needs at n and the most any n up to 8 needs (RS_UNITS), mirrored
+    from the source's expressions (checked to be there)."""
+    text = HOPPER.read_text()
+    helper = text[text.index("struct ClusterSum {"):]
+    helper = helper[:helper.index("\n};\n")]
+    for expr in ("return (TOTAL + n - 1) / n;", "return (n - 1) * share(n);",
+                 "return r * TOTAL / n;", "return ((u + 1) * n - 1) / TOTAL;",
+                 "static constexpr int BYTES = (RS_UNITS + TOTAL) * 16;",
+                 "const int slot = row * share(n) + u - first(o, n);",
+                 "rs[(src < rank ? src : src - 1) * share(n) + u - lo]",
+                 "static constexpr int RS_UNITS = most(NMAX);"):
+        assert expr in helper, expr
+    total = 256 * units
+    share = lambda n: -(-total // n)  # noqa: E731
+    rs = lambda n: (n - 1) * share(n)  # noqa: E731
+    return total, share, rs, max(rs(n) for n in range(2, 9))
+
+
+@pytest.mark.parametrize("units", [2, 4])
+@pytest.mark.parametrize("n", range(1, 9))
+def test_cluster_sum_owns_each_unit_once(units, n):
+    """ClusterSum's index arithmetic for K3's 2 and K2's 4 units a thread
+    at every cluster size: each unit has one owner, whose range holds it;
+    every rank owns some; the partials sent to an owner land in distinct
+    `rs` slots inside the buffer and its `rs` barrier expects exactly their
+    bytes, its `ag` barrier the sums it does not own; the thread that
+    re-arms `rs` owns a unit (so it waits on `rs` too); the receive
+    buffers are at most 2 (n - 1) / n of a tile's partials, slots rounded
+    up."""
+    total, share, rs, rs_units = _cluster_sum(units)
+    first = [r * total // n for r in range(n + 1)]
+    owner = [((u + 1) * n - 1) // total for u in range(total)]
+    for u, o in enumerate(owner):
+        assert first[o] <= u < first[o + 1]
+    for r in range(n):
+        cnt = first[r + 1] - first[r]
+        assert 0 < cnt <= share(n)
+        slots = {(src if src < r else src - 1) * share(n) + u - first[r]
+                 for src in range(n) if src != r
+                 for u in range(first[r], first[r + 1])}
+        assert len(slots) == (n - 1) * cnt  # the rs barrier's bytes / 16
+        assert all(0 <= s < rs_units for s in slots)
+        t = first[r] % 256
+        assert owner[(first[r] // 256) * 256 + t] == r
+        received = (n - 1) * cnt + (total - cnt)
+        assert received <= 2 * (n - 1) / n * total + n
+    assert rs(n) <= rs_units
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+@pytest.mark.parametrize("kernel", ["DqWideF32", "DkvWideF32"])
+def test_cluster_tiles_fit_with_their_exchange(kernel, n):
+    """dq_wide_f32's and dkv_wide_f32's shared memory at clusters of 3 (d
+    768), 4 (d 1024) and 8 (d 2048): the ring's stages, two tiles' (K2) or
+    items' (K3) W columns of the output product's row operand and of its
+    score operand, and ClusterSum's buffers and barriers (sized for any n
+    up to 8) within SMEM_MAX; one stage more does not fit (K2 keeps the
+    ring's 4); and a buffer for every peer's whole partials in place of
+    the reduce-scatter's would not fit beside them at n 8."""
+    text = SOURCE.read_text()
+    struct = text[text.index(f"struct {kernel} {{"):]
+    struct = struct[:struct.index("\n};\n")]
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = "
+                                               r"(\d+);", text)}
+    smem_max, c = consts["SMEM_MAX"], consts["F32_C"]
+    cp, max_st, w = c + 4, consts["F32_MAX_ST"], consts["DQ_W_F32"]
+    dq = kernel == "DqWideF32"
+    rows, keys = ((64, 32) if dq else (32, 32))
+    assert f"BQ = {rows if dq else keys}, BK = {keys}" in struct or (
+        f"BK = {keys}, BQ = {rows}" in struct)
+    units = 2 * (rows // 16) * (keys // 16) // 4 if dq else (
+        (keys // 16) * (rows // 8) // 4)
+    assert units == (4 if dq else 2)
+    total, share, rs, rs_units = _cluster_sum(units)
+    assert rs(n) <= rs_units
+    step = 2 * (rows + keys) * cp * 4
+    # K2: K's columns [2][BK][W + 4], dS^T [2][BK][BQ + 4]; K3: Q's and
+    # dO's columns [2][2][BQ][W + 4], P^T and dS^T [2][2][BQ][BK + 4]
+    fixed = (4 * 2 * keys * ((w + 4) + (rows + 4)) if dq
+             else 4 * 4 * rows * ((w + 4) + (keys + 4)))
+    exchange = (rs_units + total) * 16 + 16
+    st = min((smem_max - fixed - exchange) // step, max_st)
+    assert st == (4 if dq else 3)
+    assert st * step + fixed + exchange <= smem_max
+    assert (st + 1) * step + fixed + exchange > smem_max or st == max_st
+    if n == 8:
+        assert (st * step + fixed + (7 * total + total) * 16 + 16
+                > smem_max)

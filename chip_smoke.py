@@ -60,7 +60,13 @@ no network. Phases, each of which raises on failure:
    (K2 and K3 each launched twice, bitwise), timed there beside SDPA's
    f32 forward and backward, and the scalar f32 design (the other
    build) held against the plain versions and timed in turns with the
-   shipped one at the first two of them;
+   shipped one at the first two of them; above d 512 the kernels that run
+   on a cluster of ceil(d / 256) blocks up to d 2048 (f32 K1, K2 and K3,
+   bf16 K3) at WIDE_EDGES at each streamed dim, twice bitwise, their
+   column groups at d 2112, and both designs (the other build: the column
+   groups) in turns at d 768 and 2048 (f32 at b 2 s 1000 beside SDPA's f32
+   forward and backward) and at every streamed dim (bf16 K3 at b 8 s 2048
+   beside SDPA's backward), with the clusters a card holds;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -207,12 +213,14 @@ WIDE_KERNELS = {"flash_fwd": "flash_fwd_wide", "flash_bwd_dq": "dq_wide",
 WIDE_F32_KERNELS = {"flash_fwd": "flash_fwd_wide_f32",
                     "flash_bwd_dq": "dq_wide_f32",
                     "flash_bwd_dkv": "dkv_wide_f32"}
-# f32's K2 and K3 as independent column groups (the first streamed f32
-# design: the -DFLASH_OTHER_DESIGNS=1 build's at every dim, the port's
-# above a cluster of F32_CLUSTER_MAX blocks); WIDE_F32_KERNELS' K2 and K3
-# run a row tile on a cluster of ops/flash_attention.py's wide_f32_cluster
-# blocks
-WIDE_F32_GROUPS = {"flash_bwd_dq": "dq_wide_f32_groups",
+# the streamed kernels as independent column groups, bf16's K3 and f32's
+# K1, K2 and K3 (the first streamed design: the -DFLASH_OTHER_DESIGNS=1
+# build's at every dim, the port's above a cluster of CLUSTER_MAX blocks);
+# WIDE_KERNELS' K3 and WIDE_F32_KERNELS run a row tile on a cluster of
+# ops/flash_attention.py's wide_cluster and wide_f32_cluster blocks
+WIDE_GROUPS = {"flash_bwd_dkv": "dkv_wide_groups"}
+WIDE_F32_GROUPS = {"flash_fwd": "flash_fwd_wide_f32_groups",
+                   "flash_bwd_dq": "dq_wide_f32_groups",
                    "flash_bwd_dkv": "dkv_wide_f32_groups"}
 # each kernel of the main paths: its source under csrc/, and the TPU kernel
 # it replaces, by function name and line in the JAX package's
@@ -240,7 +248,8 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "flash_fwd_wide": "K1 flash_fwd (head dim streamed, "
                                      "d > 512)",
                    "dq_wide": "K2 dq (head dim streamed, d > 512)",
-                   "dkv_wide": "K3 dkv (head dim streamed, d > 512)"}
+                   "dkv_wide": "K3 dkv (head dim streamed, d > 512; on a "
+                               "cluster up to d 2048)"}
 # K1's bf16 designs by the id flash_fwd_design returns (csrc/flash_fwd.cu's
 # FwdDesign), K2's and K3's by the id flash_bwd_dq_design and
 # flash_bwd_dkv_design return (csrc/flash_bwd.cu's BwdDesign)
@@ -275,12 +284,18 @@ F32_DESIGNS = {0: "scalar", 1: "register-tiled",
                2: "register-tiled on a cluster of ceil(d / 256) blocks"}
 F32_CLUSTER_DESIGN = 2  # csrc/flash_wide.cu's kF32Cluster
 F32_DESIGN_DIM = 128
-# the streamed head dims at which phase_f32_designs times the f32 K2 and K3
-# of both builds in turns (a cluster of 3 and of 8 blocks against the
-# column groups), at b 2 s 1000 and each dim's heads (_kernel_heads)
+# the bf16 streamed designs by the id flash_wide_design returns
+# (csrc/flash_wide.cu's WideDesign)
+WIDE_DESIGNS = {1: "column groups of 256", 2: "a cluster of ceil(d / 256) "
+                                              "blocks"}
+WIDE_CLUSTER_DESIGN = 2  # csrc/flash_wide.cu's kWideCluster
+# the streamed head dims at which phase_f32_designs times the f32 K1, K2
+# and K3 of both builds in turns (a cluster of 3 and of 8 blocks against
+# the column groups), at b 2 s 1000, and phase_wide_designs the bf16 K3 at
+# the training shape, each dim's heads (_kernel_heads)
 F32_CLUSTER_DIMS = (768, 2048)
-# a head dim past the largest cluster, where the port's f32 K2 and K3 are
-# the column groups (phase 3 holds them there)
+# a head dim past the largest cluster, where the port's f32 K1, K2 and K3
+# and bf16 K3 are the column groups (phase 3 holds them there)
 F32_PAST_CLUSTER = 2112
 # the f32 kernels phase 2 reports ptxas's registers, spills and C75xx notes
 # for, at every head dim (the scalar ones only in the other build); the
@@ -637,12 +652,13 @@ def phase_build() -> None:
     port builds it, and the per-dim sources also with the other designs
     (bf16 at d 64, 192, 256, 384 and 512, f32 at d 128; phase 3 times
     both). Raises if a register-tiled f32 kernel spills, a kernel of
-    CLEAN_KERNELS or a streamed f32 kernel spills or has a C75xx note (a
+    CLEAN_KERNELS or a streamed kernel spills or has a C75xx note (a
     wgmma serialised and the like), or the streamed kernels' column groups
     are not ops/flash_attention.py's WIDE_COLUMNS in both dtypes. The
-    streamed source is built with the other designs too (f32 K2 and K3 as
-    column groups at every dim); each streamed kernel's registers and
-    spills, in either build, go to WIDE_PTXAS for the ``kernels`` line."""
+    streamed source is built with the other designs too (bf16 K3 and f32
+    K1, K2 and K3 as column groups at every dim); each streamed kernel's
+    registers and spills, in either build, go to WIDE_PTXAS for the
+    ``kernels`` line."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -661,8 +677,8 @@ def phase_build() -> None:
         *others, wide_other = list(other)
     _log(f"build: {', '.join(sources)}, each also with the other designs "
          f"(bf16 at d {', '.join(map(str, DESIGN_DIMS))}, f32 at d "
-         f"{F32_DESIGN_DIM}, and f32 K2 and K3 above d {PER_DIM_MAX}), in "
-         f"{time.perf_counter() - t0:.1f} s")
+         f"{F32_DESIGN_DIM}, and above d {PER_DIM_MAX} bf16 K3 and f32 K1, "
+         f"K2 and K3), in {time.perf_counter() - t0:.1f} s")
     # bf16's K1, K2 and K3, then f32's
     columns = [ctypes.CDLL(str(wide)).flash_wide_columns(i)
                for i in range(2 * len(KERNELS))]
@@ -705,8 +721,8 @@ def phase_build() -> None:
     for which, lib in (("shipped", wide), ("other", wide_other)):
         report = ptxas_summary(lib.with_name(lib.name + ".log").read_text())
         for name, kernel in ((name, kernel) for kernels in (
-                WIDE_KERNELS, WIDE_F32_KERNELS, WIDE_F32_GROUPS)
-                             for name, kernel in kernels.items()):
+                WIDE_KERNELS, WIDE_GROUPS, WIDE_F32_KERNELS,
+                WIDE_F32_GROUPS) for name, kernel in kernels.items()):
             w = fa.WIDE_COLUMNS[name]
             (n,) = [n for fn, n in report.items()
                     if _template_name(fn, w) == kernel]
@@ -909,6 +925,15 @@ def phase_kernels() -> dict:
                                       else ""), 2, PROMPT, h, hkv, d,
            torch.float32, True, d <= PER_DIM_MAX)
           for name, (h, hkv, d) in _kernel_heads().items()),
+        # the streamed f32 K1 (a cluster of ceil(d / 256) blocks up to d
+        # 2048) at WIDE_EDGES at each streamed dim's heads, twice bitwise,
+        # and the column groups past the largest cluster
+        *((f"{name} s{s} causal {causal} f32", b, s, h, hkv, d,
+           torch.float32, causal, False)
+          for name, (h, hkv, d) in _kernel_heads().items()
+          if d > PER_DIM_MAX for b, s, causal in WIDE_EDGES),
+        (f"d{F32_PAST_CLUSTER} s65 f32 column groups", 2, 65, 1, 1,
+         F32_PAST_CLUSTER, torch.float32, True, False),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False, True),
         # K1's 128-row blocks at d 192 (64-key tiles) and d 256 (80-key
@@ -939,7 +964,10 @@ def phase_kernels() -> dict:
     # streamed head dim
     worst_wide = {d: 0.0 for _, _, d in _kernel_heads().values()}
     worst_f32 = 0.0
-    worst_f32_wide = dict.fromkeys(_streamed_dims(), 0.0)
+    # (and of the column groups past the largest cluster, apart)
+    worst_f32_wide = dict.fromkeys((*_streamed_dims(), F32_PAST_CLUSTER),
+                                   0.0)
+    worst_wide[F32_PAST_CLUSTER] = 0.0
     # and of the bf16 cases at the fine-tuning head dims
     worst_ft = {d: 0.0 for _, d in FT_HEAD_DIMS}
     for name, b, s, h, hkv, d, dtype, causal, wrapper in cases:
@@ -1073,9 +1101,9 @@ def recompute(d: int, kernel: str, dtype=torch.bfloat16) -> float:
     scores over the whole head dim (K1 S, K2 S and dP, K3 S^T and dP^T)
     and multiplies against its group's W columns, a last narrower group
     too (its columns past d are zeros); 2·d flops a causal pair a product
-    either way, as W flops for a group's product. A cluster (f32 K2 and K3,
-    ``wide_f32_cluster``) forms each score once, each block over its own
-    columns, and multiplies only its own columns: 1.0."""
+    either way, as W flops for a group's product. A cluster (``wide_cluster``
+    in bf16, ``wide_f32_cluster`` in f32) forms each score once, each block
+    over its own columns, and multiplies only its own columns: 1.0."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1083,7 +1111,7 @@ def recompute(d: int, kernel: str, dtype=torch.bfloat16) -> float:
     scores, outputs = {"flash_fwd": (1, 1), "flash_bwd_dq": (2, 1),
                        "flash_bwd_dkv": (2, 2)}[kernel]
     groups = len(fa.wide_groups(d, kernel))
-    if dtype == torch.float32 and fa.wide_f32_cluster(d, kernel) == groups:
+    if _cluster(d, kernel, dtype) == groups:
         return (scores * d + outputs * d) / ((scores + outputs) * d)
     done = groups * (scores * d + outputs * fa.WIDE_COLUMNS[kernel])
     return done / ((scores + outputs) * d)
@@ -1093,8 +1121,8 @@ def streamed_numbers(kernel: str, d: int, dtype=torch.bfloat16) -> dict:
     """What phase 3 records beside a timing at head dim ``d`` where the
     streamed kernel runs (above the per-dim bound): the kernel of
     ``dtype``, as ``<template><<W>>``, its recompute factor and the blocks
-    of its cluster (1: none; f32 K2 and K3 on a cluster up to
-    ``WIDE_F32_CLUSTER_MAX`` groups, the column groups above); else
+    of its cluster (1: none; f32 K1, K2 and K3 and bf16 K3 on a cluster up
+    to ``WIDE_CLUSTER_MAX`` groups, the column groups above); else
     nothing."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
@@ -1102,13 +1130,25 @@ def streamed_numbers(kernel: str, d: int, dtype=torch.bfloat16) -> dict:
 
     if d <= PER_DIM_MAX:
         return {}
-    cluster = 1 if dtype == torch.bfloat16 else fa.wide_f32_cluster(d,
-                                                                   kernel)
-    templates = (WIDE_KERNELS if dtype == torch.bfloat16
-                 else WIDE_F32_KERNELS if cluster > 1 or kernel == "flash_fwd"
-                 else WIDE_F32_GROUPS)
-    return {"kernel": f"{templates[kernel]}<{fa.WIDE_COLUMNS[kernel]}>",
+    cluster = _cluster(d, kernel, dtype)
+    kernels, groups = ((WIDE_KERNELS, WIDE_GROUPS) if dtype == torch.bfloat16
+                       else (WIDE_F32_KERNELS, WIDE_F32_GROUPS))
+    template = (groups[kernel] if cluster == 1 and kernel in groups
+                else kernels[kernel])
+    return {"kernel": f"{template}<{fa.WIDE_COLUMNS[kernel]}>",
             "recompute": recompute(d, kernel, dtype), "cluster": cluster}
+
+
+def _cluster(d: int, kernel: str, dtype) -> int:
+    """The blocks of a cluster of the streamed ``kernel`` of ``dtype`` at
+    head dim ``d`` (1: none), ops/flash_attention.py's ``wide_cluster`` or
+    ``wide_f32_cluster``."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    return (fa.wide_cluster if dtype == torch.bfloat16
+            else fa.wide_f32_cluster)(d, kernel)
 
 
 def _sdpa_backend(q, k, v) -> str:
@@ -1228,6 +1268,15 @@ def phase_bwd_kernels() -> dict:
           if d > PER_DIM_MAX for b, s, causal in WIDE_EDGES),
         (f"d{F32_PAST_CLUSTER} s65 f32 column groups", 2, 65, 1, 1,
          F32_PAST_CLUSTER, torch.float32, True),
+        # the streamed bf16 K3 (a cluster of ceil(d / 256) blocks up to d
+        # 2048; K2 beside it) at WIDE_EDGES at each streamed dim's heads,
+        # and the column groups past the largest cluster
+        *((f"{name} s{s} causal {causal} bf16", b, s, h, hkv, d,
+           torch.bfloat16, causal)
+          for name, (h, hkv, d) in _kernel_heads().items()
+          if d > PER_DIM_MAX for b, s, causal in WIDE_EDGES),
+        (f"d{F32_PAST_CLUSTER} s65 bf16 column groups", 2, 65, 1, 1,
+         F32_PAST_CLUSTER, torch.bfloat16, True),
         ("non-causal s512 d512 bf16", 2, 512, 3, 1, 512, torch.bfloat16,
          False),
         # d 256's 64-key K3 blocks and 128-row K2 blocks at ragged ends,
@@ -1270,8 +1319,10 @@ def phase_bwd_kernels() -> dict:
     worst_f32, worst_d64 = dict(worst), dict(worst)
     # the largest error of the bf16 cases at each wide head dim, and of the
     # f32 ones at each streamed head dim
+    # (and of the column groups past the largest cluster, apart)
     worst_wide = {(kernel, d): 0.0 for kernel in worst
-                  for _, _, d in _kernel_heads().values()}
+                  for d in (*(d for _, _, d in _kernel_heads().values()),
+                            F32_PAST_CLUSTER)}
     worst_f32_wide = {(kernel, d): 0.0 for kernel in worst
                       for d in _streamed_dims()}
     for name, b, s, h, hkv, d, dtype, causal in cases:
@@ -1761,6 +1812,101 @@ def phase_wide_designs() -> dict:
             del q, k, v, do, o, lse, delta, calls
     finally:
         _build._libs.update(libs["shipped"])
+    out.update(_streamed_k3_designs(libs, bwd, gen))
+    return out
+
+
+def _streamed_k3_designs(libs, bwd, gen) -> dict:
+    """The bf16 K3 above d 512 in both designs (``flash_wide_design``): a
+    key tile on a cluster of ceil(d / 256) blocks (dkv_wide) and the column
+    groups (dkv_wide_groups). At each streamed dim (the training shape,
+    each dim's heads; the port runs the groups at d 576 and 640, where the
+    cluster lost) the other build's held against the plain version (twice,
+    bitwise), both timed in turns, beside SDPA's backward, with the
+    clusters a card holds; the other build's also at WIDE_EDGES at d 768's
+    heads, twice bitwise. ``bwd`` builds phase_wide_designs' K2 and K3
+    calls. Returns {head dim: {"flash_bwd_dkv": numbers}}."""
+    from service_account_auth_improvements_tpu_torch.ops import _build
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    dtype, name = torch.bfloat16, "flash_bwd_dkv"
+    heads = {d: (h, hkv) for h, hkv, d in _kernel_heads().values()}
+    out = {}
+    for d in sorted(_streamed_dims()):
+        (h, hkv), b, s = heads[d], TRAIN_BATCH, TRAIN_SEQ
+        q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
+        delta = fa.flash_bwd_delta(o, do)
+        calls = {name: bwd(q, k, v, do, lse, delta)[name]}
+        wide = {which: wide_designs(libs[which][WIDE_SOURCE], d)[name]
+                for which in libs}
+        named = {which: {name: wide[which]["design"]} for which in libs}
+        shape = f"b{b} s{s} h{h} hkv{hkv} d{d} bf16 causal"
+        n = _in_turns(libs, named, calls, shape)[name]
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        so = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+        n.update(library_ms=_time_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True), iters=5,
+            queue_ahead=True), library_backend=_sdpa_backend(q, k, v),
+            **{f"{which}_{key}": wide[which][key] for which in libs
+               for key in ("kernel", "clusters")})
+        out[d] = {name: n}
+        _log(f"time d{d} designs K3 {shape}, in turns: shipped "
+             f"({n['shipped_kernel']}, clusters a card "
+             f"{n['shipped_clusters']}) {n['shipped_ms']:.4f} ms, other "
+             f"({n['other_kernel']}) {n['other_ms']:.4f} ms, sdpa backward "
+             f"(dQ, dK and dV) {n['library_ms']:.4f} ms "
+             f"({n['library_backend']})")
+        del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
+        torch.cuda.empty_cache()
+    # the other build's K3 at WIDE_EDGES (phase 3 holds the shipped one)
+    h, hkv, d = WIDE_HEADS["bench_800m_d768"]
+    n = out[d][name]
+    try:
+        _build._libs.update(libs["other"])
+        for b, s, causal in WIDE_EDGES:
+            q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
+                                              causal)
+            delta = fa.flash_bwd_delta(o, do)
+            kern, plain, tols = bwd(q, k, v, do, lse, delta, causal)[name]
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            label = (f"d{d} {n['other_kernel']} (the design not shipped) "
+                     f"b{b} s{s} h{h} hkv{hkv} causal {causal}")
+            err = max(_check(f"{label} {name}", g, w, *tol)
+                      for g, w, tol in zip(got, want, tols))
+            if not all(map(torch.equal, got, again)):
+                raise AssertionError(f"{label}: {name} is not deterministic")
+            _log(f"kernel {label}: {name} max abs err {err:.3e}, twice "
+                 "bitwise equal")
+            n["other_max_abs_err"] = max(n["other_max_abs_err"], err)
+            del q, k, v, do, o, lse, delta, got, again, want
+    finally:
+        _build._libs.update(libs["shipped"])
+    return out
+
+
+def wide_designs(lib, d: int) -> dict:
+    """The bf16 K1, K2 and K3 this flash_wide library runs at head dim
+    ``d``: {kernel: {"design": its WIDE_DESIGNS name, "kernel":
+    ``<template><<W>>``, "clusters": the clusters a card holds (-1: not a
+    cluster kernel)}}, by ``flash_wide_design`` and
+    ``flash_wide_clusters``."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    out = {}
+    for i, name in enumerate(KERNELS):
+        design = lib.flash_wide_design(i, d)
+        kernels = (WIDE_KERNELS if design == WIDE_CLUSTER_DESIGN
+                   or name not in WIDE_GROUPS else WIDE_GROUPS)
+        out[name] = {"design": WIDE_DESIGNS[design],
+                     "kernel": f"{kernels[name]}<{fa.WIDE_COLUMNS[name]}>",
+                     "clusters": lib.flash_wide_clusters(i, d)}
     return out
 
 
@@ -1789,11 +1935,12 @@ def phase_f32_designs() -> dict:
     and K3 also launched twice on one input, bitwise), then both are timed
     in turns (shipped, other, other, shipped), K1 beside SDPA's f32
     forward and K2 + K3 as a pair beside SDPA's f32 backward. Above d 512
-    K2 and K3 have two designs too (``flash_wide_f32_design``): a row tile
-    on a cluster of ceil(d / 256) blocks (dq_wide_f32, dkv_wide_f32) and
-    the column groups (dq_wide_f32_groups, dkv_wide_f32_groups); at
-    F32_CLUSTER_DIMS (b 2 s 1000, each dim's heads) the same, the pair
-    beside SDPA's f32 backward, with the clusters a card holds. Returns
+    K1, K2 and K3 have two designs too (``flash_wide_f32_design``): a row
+    tile on a cluster of ceil(d / 256) blocks (flash_fwd_wide_f32,
+    dq_wide_f32, dkv_wide_f32) and the column groups (WIDE_F32_GROUPS); at
+    F32_CLUSTER_DIMS (b 2 s 1000, each dim's heads) the same, K1 beside
+    SDPA's f32 forward and the pair beside its f32 backward, with the
+    clusters a card holds. Returns
     {shape label: {kernel: numbers}}, the streamed dims' under
     ``"streamed"`` as {head dim: {kernel: numbers}}."""
     from service_account_auth_improvements_tpu_torch.ops import (
@@ -1860,7 +2007,7 @@ def phase_f32_designs() -> dict:
              f"({backend})")
         del q, k, v, do, o, lse, delta, sq, sk, sv, so, calls
         torch.cuda.empty_cache()
-    # the streamed K2 and K3: a cluster against the column groups
+    # the streamed K1, K2 and K3: a cluster against the column groups
     out["streamed"] = {}
     heads = {d: (h, hkv) for h, hkv, d in _kernel_heads().values()}
     for d in F32_CLUSTER_DIMS:
@@ -1868,6 +2015,10 @@ def phase_f32_designs() -> dict:
         q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen, True)
         delta = fa.flash_bwd_delta(o, do)
         calls = {
+            "flash_fwd": (
+                lambda: fa.flash_fwd(q, k, v, True),
+                lambda: fa.flash_fwd_reference(q, k, v, True),
+                [TOL[dtype], (LSE_ATOL, 0.0)]),
             "flash_bwd_dq": (
                 lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, True),),
                 lambda: (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
@@ -1885,6 +2036,9 @@ def phase_f32_designs() -> dict:
         named = {which: {name: n["design"] for name, n in wide[which].items()}
                  for which in libs}
         n_out = out["streamed"][d] = _in_turns(libs, named, calls, shape)
+        fwd_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E501
+            q, k, v, is_causal=True, enable_gqa=True), iters=5,
+            queue_ahead=True)
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         so = torch.nn.functional.scaled_dot_product_attention(
@@ -1895,13 +2049,22 @@ def phase_f32_designs() -> dict:
         pair = {which: sum(n_out[name][f"{which}_ms"] for name in bwd)
                 for which in ("shipped", "other")}
         backend = _sdpa_backend(q, k, v)
-        for name in bwd:
-            n_out[name].update(shipped_pair_ms=pair["shipped"],
-                               other_pair_ms=pair["other"],
-                               library_ms=lib_ms, library_backend=backend,
+        for name in calls:
+            n_out[name].update(library_backend=backend,
                                **{f"{which}_{key}": wide[which][name][key]
                                   for which in libs
                                   for key in ("kernel", "clusters")})
+        n_out["flash_fwd"]["library_ms"] = fwd_ms
+        for name in bwd:
+            n_out[name].update(shipped_pair_ms=pair["shipped"],
+                               other_pair_ms=pair["other"],
+                               library_ms=lib_ms)
+        k1 = n_out["flash_fwd"]
+        _log(f"time f32 designs K1 {shape}, in turns: shipped "
+             f"({k1['shipped_kernel']}, clusters a card "
+             f"{k1['shipped_clusters']}) {k1['shipped_ms']:.4f} ms, other "
+             f"({k1['other_kernel']}) {k1['other_ms']:.4f} ms, sdpa forward "
+             f"{fwd_ms:.4f} ms ({backend})")
         _log(f"time f32 designs K2 + K3 {shape}, in turns: shipped "
              f"({wide['shipped']['flash_bwd_dq']['kernel']} + "
              f"{wide['shipped']['flash_bwd_dkv']['kernel']}, clusters a "
@@ -1918,8 +2081,8 @@ def phase_f32_designs() -> dict:
 
 
 def wide_f32_designs(lib, d: int) -> dict:
-    """The f32 K2 and K3 this flash_wide library runs at head dim ``d``:
-    {kernel: {"design": its F32_DESIGNS name, "kernel":
+    """The f32 K1, K2 and K3 this flash_wide library runs at head dim
+    ``d``: {kernel: {"design": its F32_DESIGNS name, "kernel":
     ``<template><<W>>``, "clusters": the clusters a card holds (-1: not a
     cluster kernel)}}, by ``flash_wide_f32_design`` and
     ``flash_wide_f32_clusters``."""
@@ -1928,7 +2091,7 @@ def wide_f32_designs(lib, d: int) -> dict:
     )
 
     out = {}
-    for i, name in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv")):
+    for i, name in enumerate(KERNELS):
         design = lib.flash_wide_f32_design(i, d)
         kernels = (WIDE_F32_KERNELS if design == F32_CLUSTER_DESIGN
                    else WIDE_F32_GROUPS)
@@ -5455,7 +5618,8 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     512) the other design's numbers beside the shipped one's, K2's and
     K3's with the pair's sum beside SDPA's backward; above the per-dim bound
     the streamed kernel (``source`` csrc/flash_wide.cu) and its recompute
-    factor (bf16's: the f32 ones are ``wide_f32_kernel_entries``'); the
+    factor (bf16's: the f32 ones are ``wide_f32_kernel_entries``'), K3's
+    with both its designs in turns at F32_CLUSTER_DIMS; the
     kernel-only dims (no model, so no launches on a main
     path) under the entries of their kind: d 320 and 448 under d 512's,
     the streamed ones under d 768's."""
@@ -5486,7 +5650,11 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
             if "pair_ms" in n:
                 entry["pair_ms"] = n["pair_ms"]
             both = designs.get(d, {}).get(name)
-            if both and both["shipped_kernel"] != both["other_kernel"]:
+            if d > PER_DIM_MAX and name in WIDE_GROUPS:
+                # the streamed K3's two designs at F32_CLUSTER_DIMS
+                entry["designs_in_turns"] = {
+                    f"d{dim}": designs[dim][name] for dim in F32_CLUSTER_DIMS}
+            elif both and both["shipped_kernel"] != both["other_kernel"]:
                 entry["designs_in_turns"] = both
             if d in under:
                 entry["more_shapes"] = {
@@ -5507,10 +5675,10 @@ def wide_f32_kernel_entries(numbers: dict, paths: dict, designs: dict,
     factor and cluster, its registers and spills (``ptxas[("shipped",
     template)]``, phase 2), and the launches of each path that runs it
     (``paths[path][kernel]``: phase 12's d 768 flash against dense f32
-    step, K1 also its f32 greedy decode). K2's and K3's carry the pair's
-    sum, their design and the clusters a card holds, and both designs in
-    turns at F32_CLUSTER_DIMS (``designs["streamed"][d][kernel]``,
-    ``phase_f32_designs``). Raises if a path launched none of a kernel."""
+    step, K1 also its f32 greedy decode). Each carries its design and the
+    clusters a card holds, and both designs in turns at F32_CLUSTER_DIMS
+    (``designs["streamed"][d][kernel]``, ``phase_f32_designs``); K2's and
+    K3's the pair's sum. Raises if a path launched none of a kernel."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share",
             "kernel", "recompute", "cluster")
@@ -5541,12 +5709,11 @@ def wide_f32_kernel_entries(numbers: dict, paths: dict, designs: dict,
             "more_shapes": {other: {key: n[other][key] for key in these}
                             for other in n if other != label},
         }
-        if name != "flash_fwd":
-            turns = designs["streamed"]
-            entry.update(design=turns[d][name]["shipped_design"],
-                         clusters_a_card=turns[d][name]["shipped_clusters"],
-                         designs_in_turns={f"d{dim}": turns[dim][name]
-                                           for dim in turns})
+        turns = designs["streamed"]
+        entry.update(design=turns[d][name]["shipped_design"],
+                     clusters_a_card=turns[d][name]["shipped_clusters"],
+                     designs_in_turns={f"d{dim}": turns[dim][name]
+                                       for dim in turns})
         entries.append(entry)
     return entries
 

@@ -8,9 +8,9 @@ d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
 (``dkv_keys8`` at d 64,
 ``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
 ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``), and the
-streamed f32 kernels above d 512 (``flash_fwd_wide_f32`` at d 768, in
-``csrc/flash_wide.cu``: its group width; ``dq_wide_f32`` and
-``dkv_wide_f32``, on a cluster: the exchange's overlap) and time them
+streamed kernels above d 512 on a cluster (``flash_fwd_wide_f32``,
+``dq_wide_f32`` and ``dkv_wide_f32`` and bf16's ``dkv_wide`` at d 768 and
+2048, in ``csrc/flash_wide.cu``: the exchange's overlap) and time them
 against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
@@ -518,29 +518,46 @@ NEXT_SCORES = [("""  mbar_wait(q_full, 0);
 # the kernel it edits, as a key of KERNEL_HEADS[, the kernel whose ptxas
 # lines to print when the edit runs another in its place])
 VARIANTS = {
-    "flash_fwd_wide_f32_w512": (
-        "f32 above d 512: 512 output columns a block (twice the registers "
-        "of the output; recompute 1.67x at d 768, 2.5x at d 2048)",
-        [("constexpr int FWD_W_F32 = 256;", "constexpr int FWD_W_F32 = 512;")],
-        "flash_fwd_wide_f32"),
     **{f"{kernel}_in_line": (
-        "f32 K2 / K3 on a cluster: the exchange's two rounds in a row, the "
-        "last tile's output product after them (not between them: what "
+        "f32 K1 / K2 / K3 on a cluster: the exchange's two rounds in a row, "
+        "the last tile's output product after them (not between them: what "
         "the overlap hides)",
         [(f"""    xc.scatter(r);
-    if ({i} > 0) product({i} - 1, 0);
+    if ({i} > 0) {fn}({i} - 1, 0);
     xc.gather(r, {i} & 1, more);
-    if ({i} > 0) product({i} - 1, {half});
+    if ({i} > 0) {fn}({i} - 1, {half});
     xc.collect(r, {i} & 1, more);
 """, f"""    xc.scatter(r);
     xc.gather(r, {i} & 1, more);
     xc.collect(r, {i} & 1, more);
-    if ({i} > 0) product({i} - 1, 0);
-    if ({i} > 0) product({i} - 1, {half});
+    if ({i} > 0) {fn}({i} - 1, 0);
+    if ({i} > 0) {fn}({i} - 1, {half});
 """)],
         kernel)
-       for kernel, i, half in (("dq_wide_f32", "ik", "HK"),
-                               ("dkv_wide_f32", "n", "HQ"))},
+       for kernel, i, half, fn in (("flash_fwd_wide_f32", "ik", "HK", "pv"),
+                                   ("dq_wide_f32", "ik", "HK", "product"),
+                                   ("dkv_wide_f32", "n", "HQ", "product"))},
+    "dkv_wide_product_in_flight": (
+        "bf16 K3 on a cluster: the last stage's dV / dK product in flight "
+        "through this stage's exchange, waited for (and its stage refilled) "
+        "after the sums are collected",
+        [("""    wgmma_wait<0>();  // the scores and the last stage's product
+    fence_regs(sn);
+    fence_regs(acc);""", """    wgmma_wait<1>();  // the scores; the product in flight
+    fence_regs(sn);"""),
+         ("""    bar_sync(2, THREADS);
+    load_stage(lead && n >= 1 && n - 1 + STAGES < tiles, n - 1 + STAGES);
+    if (next) xc(n + 1).scatter(sn);""", """    if (next) xc(n + 1).scatter(sn);"""),
+         ("""      x_n.collect(st, (n >> 1) & 1, n + 2 < tiles);
+    }
+""", """      x_n.collect(st, (n >> 1) & 1, n + 2 < tiles);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    bar_sync(2, THREADS);
+    load_stage(lead && n >= 1 && n - 1 + STAGES < tiles, n - 1 + STAGES);
+""")],
+        "dkv_wide"),
     "bk128": (
         "128-key K/V stages (m64n128 score products), 2 in the ring",
         [("constexpr int DQ_BK = 64;", "constexpr int DQ_BK = 128;")],
@@ -1301,7 +1318,7 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128),
                 **{key: cs.WIDE_HEADS["bench_800m_d768"]
-                   for key in cs.WIDE_F32_KERNELS.values()}}
+                   for key in (*cs.WIDE_F32_KERNELS.values(), "dkv_wide")}}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
 # heads, KV heads, head dim) it is timed at (the training shape at its
 # KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
@@ -1310,7 +1327,8 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
 # s 2048; the streamed f32 kernels at b 2 s 1000, as phase 3 times them,
 # at bench_800m_d768's heads and at d 2048's: K1's group width changes its
 # recompute most there (4.5x at W 256, 2.5x at W 512), and K2 and K3 run
-# their largest cluster, 8 blocks)
+# their largest cluster, 8 blocks; bf16's dkv_wide at the training shape
+# at the same heads)
 KERNEL_DTYPES = {"dq_f32": torch.float32, "dkv_f32": torch.float32,
                  "flash_fwd_f32": torch.float32,
                  **{key: torch.float32
@@ -1333,7 +1351,9 @@ KERNEL_SHAPES = {
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                           *cs.WIDE_HEADS["bench_800m_d192"])],
-    **{key: WIDE_F32_SHAPES for key in cs.WIDE_F32_KERNELS.values()}}
+    **{key: WIDE_F32_SHAPES for key in cs.WIDE_F32_KERNELS.values()},
+    "dkv_wide": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *shape[2:])
+                 for shape in WIDE_F32_SHAPES]}
 
 
 def template_of(kernel: str) -> str:
@@ -1486,11 +1506,12 @@ def main() -> int:
         fn, plain, tols = _calls(kind, fa, dtype)
         for name in ["committed", *group]:
             _use(built[name, source][0], source)
-            if kind == "fwd" and dtype == torch.bfloat16:
+            per_dim = source != cs.WIDE_SOURCE
+            if kind == "fwd" and dtype == torch.bfloat16 and per_dim:
                 cs._log(f"variant {name}: K1 at d{d} holds "
                         f"{_build._libs[source].flash_fwd_blocks_per_sm(d)} "
                         "blocks a SM")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and per_dim:
                 n = getattr(_build._libs[source],
                             "flash_fwd_clusters" if kind == "fwd" else
                             f"flash_bwd_{kind}_clusters")(d)

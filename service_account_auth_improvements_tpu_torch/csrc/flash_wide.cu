@@ -16,10 +16,12 @@
 // "f32" below); masked scores are -2e38; rows and keys past s load as
 // zeros and are masked or not written; the causal mask is start-aligned.
 //
-// The bf16 kernels first; the f32 ones after them: flash_fwd_wide_f32,
-// dq_wide_f32_groups and dkv_wide_f32_groups take the same design on the
-// CUDA cores, and dq_wide_f32 and dkv_wide_f32 run a row tile on a cluster
-// of blocks that form the scores once (the section "f32").
+// The bf16 kernels first; the f32 ones after them. Two designs: the
+// column groups below (bf16 flash_fwd_wide, dq_wide and dkv_wide_groups;
+// f32 flash_fwd_wide_f32_groups, dq_wide_f32_groups, dkv_wide_f32_groups),
+// and a row tile on a cluster of ceil(d / W) blocks that form the scores
+// once (bf16 dkv_wide, the K3 section; f32 flash_fwd_wide_f32, dq_wide_f32
+// and dkv_wide_f32, the section "f32 clusters"), up to CLUSTER_MAX blocks.
 //
 // Why a design of its own: every per-dim kernel keeps Q (K2: and dO; K3: K
 // and V) resident at the whole head dim, in one block or by halves in the
@@ -69,10 +71,11 @@
 // byte of q, k, v and dO. The streamed design also reads each score tile's
 // operands from L2 once per tile and group, tens of flops per byte, and
 // that bounds it: at d 768 the three load 7-8 TB/s from L2 (counted from
-// their loads) and reach 0.10-0.16 of their bound (PERF.md §6). ROADMAP
-// queue 2's lever 8, a cluster of ceil(d / 256) blocks that add their
-// partial scores through distributed shared memory (the f32 K2 and K3's
-// design below), would read each chunk and form the scores once.
+// their loads) and reach 0.10-0.16 of their bound (PERF.md §6). A cluster
+// of ceil(d / 256) blocks that add their partial scores through
+// distributed shared memory reads each chunk and forms the scores once:
+// K3's dkv_wide; it pays an exchange of 16 KB a 32-query stage a block
+// instead (PERF.md §6 has the times of both designs).
 
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
@@ -101,6 +104,11 @@ constexpr int ROW = 128;          // bytes of a 64-column chunk's row
 constexpr int FWD_W = 256;
 constexpr int DQ_W = 256;
 constexpr int DKV_W = 256;
+
+// The most blocks a cluster of the streamed kernels has, the portable
+// cluster size: a row tile on a cluster of ceil(d / W) blocks (the f32 K1,
+// K2 and K3, the bf16 K3) reaches d 8 W = 2048.
+constexpr int CLUSTER_MAX = 8;
 
 // S (64 x N) = A B^T over one 64-column chunk (four k steps of 16), or
 // S += A B^T with `acc`: A (64 rows) and B (N rows), both K-major with the
@@ -638,8 +646,8 @@ dq_wide(const __grid_constant__ DqArgs a) {
 
 // ------------------------------------------------------------ K3
 //
-// `dkv_wide<W>`: a block owns 64 keys of one (b, KV head) and columns
-// [grp W, grp W + W) of dK and dV: warpgroup 0 holds dV, warpgroup 1 dK
+// `dkv_wide_groups<W>`: a block owns 64 keys of one (b, KV head) and
+// columns [grp W, grp W + W) of dK and dV: warpgroup 0 holds dV, warpgroup 1 dK
 // (dkv_onepass's split, 128 registers a thread each). It runs over stages
 // of 64 query rows, each query head of the KV group from the diagonal on,
 // in a fixed order. Per stage, one instruction stream for both warpgroups,
@@ -663,7 +671,8 @@ dq_wide(const __grid_constant__ DqArgs a) {
 struct DkvArgs {
   CUtensorMap tk, tv;     // 64-column chunks of 64 keys
   CUtensorMap tq, tdo;    // 64-column chunks of 64 query rows
-  CUtensorMap tqg, tdog;  // a group's W columns of 64 query rows
+  CUtensorMap tqg, tdog;  // a group's W columns of the stage's query rows
+  CUtensorMap tkg, tvg;   // dkv_wide: a block's W columns of 64 keys
   const float* lse;       // [b, h, sq] contiguous
   const float* delta;
   void* dk;
@@ -674,7 +683,7 @@ struct DkvArgs {
 };
 
 template <int W>
-struct DkvWide {
+struct DkvWideGroups {
   static constexpr int BK = 64;  // keys a block
   static constexpr int BQ = 64;  // query rows a stage
   static constexpr int CH = 64 * ROW;  // a chunk of K, V, Q or dO
@@ -696,8 +705,8 @@ struct DkvWide {
 
 template <int W>
 __global__ void __launch_bounds__(THREADS, 1)
-dkv_wide(const __grid_constant__ DkvArgs a) {
-  using L = DkvWide<W>;
+dkv_wide_groups(const __grid_constant__ DkvArgs a) {
+  using L = DkvWideGroups<W>;
   constexpr int BK = L::BK, BQ = L::BQ, STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -856,6 +865,263 @@ dkv_wide(const __grid_constant__ DkvArgs a) {
                  a.sk, tq, grp * W, a.d);
 }
 
+// `dkv_wide<W>`: K3 on a cluster of n = ceil(d / W) blocks (launched by
+// hopper::launch_cluster, the n column groups of a key tile as consecutive
+// blocks; Block's `grp` is the cluster rank), dkv_pair's layout (csrc/
+// flash_bwd.cu) from a pair to n blocks. A cluster owns 64 keys of one (b,
+// KV head); the block of rank r holds columns [r W, min(r W + W, d)) of K,
+// V, Q, dO, dK and dV: its K and V columns resident, one TMA box each, and
+// per stage of BQ query rows its Q and dO columns, one box each, in a ring.
+// Per stage, dkv_wide_groups's split and instruction stream, on the
+// block's columns only:
+//   t = A B^T   over the block's W columns (wgmma m64nBQk16 x W / 16): the
+//               partial S^T = K Q^T on warpgroup 0, dP^T = V dO^T on
+//               warpgroup 1;
+//   ClusterSum (hopper.cuh) adds the n partials of both warpgroups' 256
+//               threads in rank order, rank 0 first, so every block holds
+//               the same S^T and dP^T bit for bit;
+//   P^T, f = P^T or dS^T as dkv_wide_groups (bf16 rounding in the same
+//               places; P^T through a buffer of its own, never a
+//               ClusterSum buffer);
+//   acc += f Y  Y the stage's dO (warpgroup 0) or Q (warpgroup 1) columns,
+//               the chunks its scores read, read MN-major: no second load.
+// The exchange is two hops between the cluster's SMs a stage (the
+// partials to their owners, the sums back), longer than the stage's
+// products, so two stages' exchanges overlap, on two ClusterSums (stage m
+// takes instance m & 1): stage n + 1's scores and the last stage's product
+// are issued together, and stage n + 1's partials scattered, before stage
+// n's sums are gathered and collected. Every read of a ClusterSum buffer
+// still comes before this block's next store into the same instance:
+// stage n's sums feed P^T and f before stage n + 2's partials are sent,
+// one loop turn later. The last stage's Q and dO are refilled once both
+// warpgroups have waited for its product, before the exchange, a loop turn
+// ahead of their use (waiting for that product after the exchange, so that
+// it ran through it, left the refill half a turn and was slower:
+// kernel_variants.py's dkv_wide_product_in_flight); the first turn's
+// product takes f = 0 (it adds zeros: no branch around a wgmma), the last
+// turn's scores form their own stage again, unused. Recompute 1.0: every score is formed
+// once, over each block's own columns. A block narrower than W (the last
+// at d 704) multiplies the zeros TMA brings past d, in both products
+// (exact: they add zeros), and does not store them; where it would hold
+// only 64 or 128 columns the port runs the column groups (wide_design). Stages of 32
+// query rows: 64 KB of resident K and V, three 32 KB stages, two
+// ClusterSum<4>s of 30 KB and a 4 KB P^T buffer fit (64-row stages: 64 KB a
+// stage and ClusterSum<8>'s 60 KB leave room for one).
+template <int W>
+struct DkvWide {
+  static constexpr int BK = 64;  // keys a cluster
+  static constexpr int BQ = 32;  // query rows a stage
+  using X = ClusterSum<BQ / 8, CLUSTER_MAX>;  // S^T or dP^T, BQ / 2 a thread
+  static constexpr int KV_CB = BK * ROW;  // K's and V's column block stride
+  static constexpr int KV_BYTES = W / 64 * KV_CB;
+  static constexpr int G_CB = BQ * ROW;  // Q's and dO's column block stride
+  static constexpr int G_BYTES = W / 64 * G_CB;
+  static constexpr int STEP = 2 * G_BYTES;  // Q, dO
+  static constexpr int XCH = BQ / 4 * WG;   // 32-bit words of P^T
+  static constexpr int FIXED = 2 * KV_BYTES + 2 * X::BYTES + XCH * 4 +
+                               8 * (1 + 6 + 2 * X::BARS) + 1024;
+  static constexpr int FIT = (SMEM_MAX - FIXED) / STEP;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int Q_OFF = 2 * KV_BYTES;  // K, V, then the stages
+  static constexpr int XCH_OFF = Q_OFF + STAGES * STEP;  // two ClusterSums
+  static constexpr int P_OFF = XCH_OFF + 2 * X::BYTES;
+  static constexpr int BAR_OFF = P_OFF + XCH * 4;
+  // mbarriers: kv_full, full[STAGES], then the two ClusterSums'
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (1 + STAGES + 2 * X::BARS) + 1024;
+  static_assert(W % 64 == 0 && W <= 256, "dK, dV: 256 columns a warpgroup");
+  static_assert(STAGES >= 3 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, 1)
+dkv_wide(const __grid_constant__ DkvArgs a) {
+  using L = DkvWide<W>;
+  constexpr int BK = L::BK, BQ = L::BQ, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(smem + L::P_OFF);
+  const uint32_t kv_full = base + L::BAR_OFF, full = kv_full + 8;
+  const uint32_t xbar = full + 8 * STAGES;
+
+  // heaviest key tiles (the first, under causal masking) first
+  const Block blk(a.nk, a.groups, a.hkv * a.batch, false);
+  const int rank = blk.grp, ikv = blk.head % a.hkv, ib = blk.head / a.hkv;
+  const int k0 = blk.tile * BK, cb0 = rank * (W / 64);
+  const int nq = (a.sq + BQ - 1) / BQ;
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int nqt = nq - iq0;
+  const int group = a.h / a.hkv;
+  const int tiles = group * nqt;  // stages: each query head, each tile
+  const bool lead = threadIdx.x == 0;
+
+  // stage n's Q and dO columns (where p holds)
+  auto load_stage = [&](bool p, int n) {
+    const int s = n % STAGES, ih = ikv * group + n / nqt;
+    const int q0 = (iq0 + n % nqt) * BQ;
+    const uint32_t dst = base + L::Q_OFF + s * L::STEP, bar = full + 8 * s;
+    expect_tx_if(p, bar, L::STEP);
+    tma_5d_if(p, dst, &a.tqg, bar, 0, q0, cb0, ih, ib);
+    tma_5d_if(p, dst + L::G_BYTES, &a.tdog, bar, 0, q0, cb0, ih, ib);
+  };
+
+  if (lead) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + 8 * s, 1);
+    L::X::init(xbar, a.groups, rank);
+    L::X::init(xbar + 8 * L::X::BARS, a.groups, rank);
+    fence_mbar_init();
+  }
+  L::X::begin();
+  if (lead) {
+    mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+    tma_load_5d(base, &a.tkg, kv_full, 0, k0, cb0, ikv, ib);
+    tma_load_5d(base + L::KV_BYTES, &a.tvg, kv_full, 0, k0, cb0, ikv, ib);
+    for (int n = 0; n < STAGES && n < tiles; ++n) load_stage(true, n);
+  }
+
+  const int c = threadIdx.x / WG;  // 0: dV, 1: dK
+  const int t = threadIdx.x % WG, w = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int key0 = k0 + 16 * w + g, key1 = key0 + 8;
+  // this warpgroup's operands, by address: the score product's A (K or V)
+  // and B (Q or dO in a stage), and the accumulated product's B (dO or Q)
+  const uint32_t a_addr = base + c * L::KV_BYTES;
+  const uint32_t b_off = c * L::G_BYTES, y_off = (1 - c) * L::G_BYTES;
+  const float* xs = c == 0 ? a.lse : a.delta;
+  float acc[W / 2];
+#pragma unroll
+  for (int r = 0; r < W / 2; ++r) acc[r] = 0.f;
+  // the last stage's P^T or dS^T, its product's A (zeros before the first)
+  uint32_t f[BQ / 16][4] = {};
+
+  // stage m's side of the exchange, ClusterSum instance m & 1, built where
+  // it is used: its indices and addresses hoisted out of the loop held
+  // registers beside the 128 of acc, and ptxas spilled
+  auto xc = [&](int m) {
+    const uint32_t off = (m & 1) * L::X::BYTES;
+    return typename L::X(base + L::XCH_OFF + off, smem + L::XCH_OFF + off,
+                         xbar + (m & 1) * 8 * L::X::BARS, a.groups, rank,
+                         threadIdx.x);
+  };
+  // this block's partial S^T (warpgroup 0) or dP^T (warpgroup 1) of stage
+  // n over its W columns, issued (one unrolled chain: a chain over a
+  // run-time count of chunks made ptxas serialise the wgmmas, C7511)
+  auto scores = [&](float (&st)[BQ / 2], int n) {
+    const int s = n % STAGES;
+    mbar_wait(full + 8 * s, (n / STAGES) & 1);
+    wgmma_fence();
+    wgmma_ss<BQ, W / 16, L::KV_CB, L::G_CB>(
+        st, desc_sw128(a_addr, 16, 1024),
+        desc_sw128(base + L::Q_OFF + s * L::STEP + b_off, 16, 1024));
+    wgmma_commit();
+  };
+  // dV[:, own] += P^T dO[:, own] (warpgroup 0) or dK[:, own] += dS^T
+  // Q[:, own] (warpgroup 1) of stage n, issued
+  auto product = [&](int n) {
+    fence_regs(acc);
+    fence_regs(f);
+    wgmma_fence();
+    wgmma_rs_t_cols<W, BQ / 16, L::G_CB>(
+        acc, f, base + L::Q_OFF + (n % STAGES) * L::STEP + y_off);
+    wgmma_commit();
+  };
+
+  mbar_wait(kv_full, 0);
+  // stage n's partials, then its sums; stage n + 1's partials
+  float st[BQ / 2], sn[BQ / 2];
+  scores(st, 0);
+  wgmma_wait<0>();
+  fence_regs(st);
+  xc(0).scatter(st);
+#pragma unroll 1
+  for (int n = 0; n < tiles; ++n) {
+    const int ih = ikv * group + n / nqt, q0 = (iq0 + n % nqt) * BQ;
+    const bool next = n + 1 < tiles;
+    // stage n + 1's partials, and the last stage's product, issued
+    scores(sn, next ? n + 1 : n);
+    product(n > 0 ? n - 1 : 0);
+    // the lse (warpgroup 0) or delta (warpgroup 1) of this thread's
+    // queries q0 + 8j + 2 tq and the next
+    const float* xr = xs + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+    float2 x[BQ / 8];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int q = q0 + 8 * j + 2 * tq;
+      x[j].x = q < a.sq ? xr[q] : 0.f;
+      x[j].y = q + 1 < a.sq ? xr[q + 1] : 0.f;
+    }
+    wgmma_wait<0>();  // the scores and the last stage's product
+    fence_regs(sn);
+    fence_regs(acc);
+    // both warpgroups are past that product (its stage is free) and past
+    // their reads of the last P^T: thread 0 refills the stage, a whole loop
+    // turn ahead of its scores
+    bar_sync(2, THREADS);
+    load_stage(lead && n >= 1 && n - 1 + STAGES < tiles, n - 1 + STAGES);
+    if (next) xc(n + 1).scatter(sn);
+    // stage n's sums
+    {
+      const auto x_n = xc(n);
+      x_n.gather(st, (n >> 1) & 1, n + 2 < tiles);
+      x_n.collect(st, (n >> 1) & 1, n + 2 < tiles);
+    }
+
+    // P^T in bf16, from warpgroup 0's S^T, through the buffer: the register
+    // pair r of the A fragments is word r * 128 + t. Warpgroup 1's
+    // arithmetic here (on dP^T and delta) is discarded.
+    const bool need_mask = (a.causal && q0 < k0 + BK) || q0 + BQ > a.sq;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xl = (e & 1) ? x[j].y : x[j].x;
+        p[e] = fast_exp2(fmaf(st[4 * j + e], a.scale_log2, -xl * kLog2e));
+        if (need_mask) {
+          const int query = q0 + 8 * j + 2 * tq + (e & 1);
+          const int key = e < 2 ? key0 : key1;
+          if (query >= a.sq || (a.causal && key > query)) p[e] = 0.f;
+        }
+      }
+      if (c == 0) {
+        pbuf[(2 * j) * WG + t] = pack_bf16x2(p[0], p[1]);
+        pbuf[(2 * j + 1) * WG + t] = pack_bf16x2(p[2], p[3]);
+      }
+    }
+    bar_sync(1, THREADS);
+
+    // f = P^T (warpgroup 0) or dS^T = P^T (dP^T - delta), P rounded to
+    // bf16 first and dS by the packing (warpgroup 1)
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t pk = pbuf[(2 * j + hh) * WG + t];
+        const float p0 = __uint_as_float(pk << 16);
+        const float p1 = __uint_as_float(pk & 0xffff0000u);
+        const uint32_t ds =
+            pack_bf16x2(p0 * (st[4 * j + 2 * hh] - x[j].x),
+                        p1 * (st[4 * j + 2 * hh + 1] - x[j].y));
+        f[j / 2][2 * (j % 2) + hh] = c == 0 ? pk : ds;
+      }
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) st[r] = sn[r];
+  }
+  product(tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  bf16* out = static_cast<bf16*>(c == 0 ? a.dv : a.dk) +
+              ib * (c == 0 ? a.dv_sb : a.dk_sb) +
+              ikv * (c == 0 ? a.dv_sh : a.dk_sh);
+  const float scale = c == 0 ? 1.f : a.scale;
+  L::X::end([&] {
+    store_group<W>(out, c == 0 ? a.dv_ss : a.dk_ss, acc, scale, key0, key1,
+                   a.sk, tq, rank * W, a.d);
+  });
+}
+
 // ------------------------------------------------------------ f32
 //
 // float32 inputs run on the CUDA cores in true f32 FMA (no TF32, no tensor
@@ -863,18 +1129,19 @@ dkv_wide(const __grid_constant__ DkvArgs a) {
 // dq_f32 and dkv_f32 do at the head dims they are built for, from the
 // register-tiled pieces of csrc/f32_tiles.cuh. Two designs (F32Design; the
 // C function flash_wide_f32_design reports the one a build runs):
-//   kF32Tiled    flash_fwd_wide_f32, dq_wide_f32_groups, dkv_wide_f32_groups:
-//                this file's bf16 layout, one block a group of W output
-//                columns, each forming the scores over the whole head dim;
-//   kF32Cluster  dq_wide_f32, dkv_wide_f32: a row tile on a cluster
-//                of ceil(d / W) blocks, each holding W columns of the head
-//                dim, the partial scores summed through distributed shared
-//                memory (hopper::ClusterSum), so that they are formed once.
-// K1 runs kF32Tiled at every d. K2 and K3 run kF32Cluster up to d
-// F32_CLUSTER_MAX W = 2048 (a portable cluster of at most 8 blocks) and
-// kF32Tiled above it, a route chosen by the head dim, not a fallback; a
-// build with -DFLASH_OTHER_DESIGNS=1 runs kF32Tiled at every d, so that
-// chip_smoke.py times both in turns.
+//   kF32Tiled    flash_fwd_wide_f32_groups, dq_wide_f32_groups,
+//                dkv_wide_f32_groups: this file's bf16 layout, one block a
+//                group of W output columns, each forming the scores over
+//                the whole head dim;
+//   kF32Cluster  flash_fwd_wide_f32, dq_wide_f32, dkv_wide_f32: a row tile
+//                on a cluster of ceil(d / W) blocks, each holding W
+//                columns of the head dim, the partial scores summed through
+//                distributed shared memory (hopper::ClusterSum), so that
+//                they are formed once.
+// K1, K2 and K3 run kF32Cluster up to d CLUSTER_MAX W = 2048 (a portable
+// cluster of at most 8 blocks) and kF32Tiled above it, a route chosen by
+// the head dim, not a fallback; a build with -DFLASH_OTHER_DESIGNS=1 runs
+// kF32Tiled at every d, so that chip_smoke.py times both in turns.
 //
 // What both share:
 // - a block owns a tile of rows (K1, K2: query rows; K3: keys) and one
@@ -914,18 +1181,19 @@ dkv_wide(const __grid_constant__ DkvArgs a) {
 // partial scores over them; ClusterSum adds the cluster's partials in rank
 // order, rank 0 first, once, and every block takes the same sums; each
 // block then multiplies against its own columns of the row operand, which
-// are the chunks it streamed: each chunk is copied from its stage into a
-// buffer of the tile's W columns as it is used, so each chunk of each
-// operand is read from L2 once a tile, and a block narrower than W forms
-// only its own columns (f32_outer's LIMIT). Recompute 1.0 at every d.
+// are the chunks it streamed (K1's V streams beside Q and K): each chunk is
+// copied from its stage into a buffer of the tile's W columns as it is
+// used, so each chunk of each operand is read from L2 once a tile, and a
+// block narrower than W forms only its own columns (f32_outer's LIMIT).
+// Recompute 1.0 at every d.
 //
 // What bounds them on an H100: the f32 FMA rate (67 TF/s), not L2 as in
 // bf16 (per 4 columns a thread's 8 float4 loads from shared memory feed 64
 // FMAs in K1's scores): kF32Tiled pays for every score it recomputes;
-// kF32Cluster pays for the exchange instead, 16 KB of partials a K2 tile
-// and 8 KB a K3 item, hidden behind half of the last tile's output product
-// each way (PERF.md §6 states the times, the share of bound and the factor
-// at each dim it measures).
+// kF32Cluster pays for the exchange instead, 8 KB of partials a K1 tile, 16
+// KB a K2 tile and 8 KB a K3 item, hidden behind half of the last tile's
+// output product each way (PERF.md §6 states the times, the share of bound
+// and the factor at each dim it measures).
 
 constexpr int F32_C = 32;           // columns a chunk
 constexpr int F32_CP = F32_C + 4;   // a chunk's row pitch, floats
@@ -943,25 +1211,23 @@ constexpr int FWD_W_F32 = 256;
 constexpr int DQ_W_F32 = 256;
 constexpr int DKV_W_F32 = 256;
 
-// The f32 designs (the notes above), and the most blocks a cluster of
-// kF32Cluster has: the portable cluster size, so K2 and K3 take it up to
-// d 8 W = 2048.
+// The f32 designs (the notes above).
 enum F32Design { kF32Tiled = 1, kF32Cluster = 2 };
-constexpr int F32_CLUSTER_MAX = 8;
 
 #ifndef FLASH_OTHER_DESIGNS
 #define FLASH_OTHER_DESIGNS 0
 #endif
-// The design f32 K1 (`kernel` 0), K2 (1) or K3 (2) runs at head dim d: K1
-// kF32Tiled; K2 and K3 kF32Cluster while ceil(d / W) blocks make a
-// portable cluster, kF32Tiled above (and at every d in the other build).
+// The design f32 K1 (`kernel` 0), K2 (1) or K3 (2) runs at head dim d:
+// kF32Cluster while ceil(d / W) blocks make a portable cluster, kF32Tiled
+// above (and at every d in the other build), the same rule for all three.
 constexpr int f32_design(int kernel, int d) {
-  return kernel == 0 || FLASH_OTHER_DESIGNS ||
-                 (d + DQ_W_F32 - 1) / DQ_W_F32 > F32_CLUSTER_MAX
+  return FLASH_OTHER_DESIGNS ||
+                 (d + DQ_W_F32 - 1) / DQ_W_F32 > CLUSTER_MAX
              ? kF32Tiled
              : kF32Cluster;
 }
-static_assert(DQ_W_F32 == DKV_W_F32, "one cluster rule for K2 and K3");
+static_assert(FWD_W_F32 == DQ_W_F32 && DQ_W_F32 == DKV_W_F32,
+              "one cluster rule for K1, K2 and K3");
 
 struct F32Args {
   const float* q;
@@ -996,14 +1262,14 @@ __device__ __forceinline__ bool group_step(int j, int nc, int& tile) {
   return g >= 0 && g % nc == 0;
 }
 
-// `flash_fwd_wide_f32<W>`: a block owns 64 query rows of one (b, h) and
-// columns [grp W, grp W + W) of O; key tiles of 64. flash_fwd_f32's thread
-// grid: a query row's 16 threads are one half-warp (row max and sum by
-// shuffles), 4 x 4 scores and 4 rows x W / 16 columns of O a thread.
-// Shared memory: ST steps of (a chunk of Q's 64 rows, of the tile's 64
-// keys of K), the tile's W columns of V, P^T.
+// `flash_fwd_wide_f32_groups<W>` (kF32Tiled's K1): a block owns 64 query
+// rows of one (b, h) and columns [grp W, grp W + W) of O; key tiles of 64.
+// flash_fwd_f32's thread grid: a query row's 16 threads are one half-warp
+// (row max and sum by shuffles), 4 x 4 scores and 4 rows x W / 16 columns
+// of O a thread. Shared memory: ST steps of (a chunk of Q's 64 rows, of the
+// tile's 64 keys of K), the tile's W columns of V, P^T.
 template <int W>
-struct FwdWideF32 {
+struct FwdWideF32Groups {
   static constexpr int BQ = 64, BK = 64;  // query rows a block, keys a tile
   static constexpr int CT = 16, RT = F32_THREADS / CT;
   static constexpr int SR = BQ / RT, SC = BK / CT;
@@ -1020,8 +1286,8 @@ struct FwdWideF32 {
 
 template <int W>
 __global__ void __launch_bounds__(F32_THREADS, 1)
-flash_fwd_wide_f32(const __grid_constant__ F32Args a) {
-  using L = FwdWideF32<W>;
+flash_fwd_wide_f32_groups(const __grid_constant__ F32Args a) {
+  using L = FwdWideF32Groups<W>;
   constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
   constexpr int CT = L::CT, RT = L::RT, XP = L::XP, C = F32_C, CP = F32_CP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1478,7 +1744,7 @@ dkv_wide_f32_groups(const __grid_constant__ F32Args a) {
 // consecutive blocks (Block's `grp` is the cluster rank). The block of rank
 // r holds columns [r W, min(r W + W, d)) of the reduction and of its
 // outputs (cols of them, nc = cols / F32_C chunks) and streams only those.
-// Per tile (K2) or item (K3):
+// Per tile (K1, K2) or item (K3):
 //   the partial scores over its chunks, the chain carried on as in
 //   kF32Tiled, each chunk of the output product's row operand copied from
 //   its stage into the tile's W columns of it as the step uses it;
@@ -1501,6 +1767,217 @@ __device__ __forceinline__ void chunk_to_cols(float* dst, const float* src,
       *reinterpret_cast<const float4*>(src + row * F32_CP + c);
 }
 
+// `flash_fwd_wide_f32<W>`: a cluster owns 64 query rows of one (b, h);
+// key tiles of 32; flash_fwd_f32's thread grid (a query row's 16 threads one
+// half-warp, row max and sum by shuffles; 4 x 2 scores a thread, 2 units;
+// O rows gr + 16 i, P^T's columns 4 gr + i, and W / 16 columns). The row
+// operand of its output product, V, is no score operand: each step brings
+// the block's chunk of V's tile beside Q's and K's, copied into the tile's
+// W columns as the step uses it. The online softmax needs a tile's whole S
+// before its max, so the last tile's P V runs in this tile's exchange, and
+// O is rescaled by this tile's alpha after it: the arithmetic and order of
+// flash_fwd_wide_f32_groups. Shared memory: ST steps of (chunks of the
+// block's columns of Q's 64 rows and of the tile's 32 keys of K and V), two
+// tiles' W columns of V, two P^T, the exchange's buffers and barriers (at
+// 64-key tiles two V tiles, two P^T and ClusterSum<4> leave room for one
+// stage).
+template <int W>
+struct FwdWideF32 {
+  static constexpr int BQ = 64, BK = 32;  // query rows a cluster, keys a tile
+  static constexpr int CT = 16, RT = F32_THREADS / CT;
+  static constexpr int SR = BQ / RT, SC = BK / CT;
+  using X = ClusterSum<SR * SC / 4, CLUSTER_MAX>;  // S
+  static constexpr int STEP = (BQ + 2 * BK) * F32_CP;  // Q, K, V
+  static constexpr int K_OFF = BQ * F32_CP, V_OFF = K_OFF + BK * F32_CP;
+  static constexpr int VP = W + 4;   // the block's columns of V, [BK][VP]
+  static constexpr int XP = BQ + 4;  // P^T, [BK][XP]
+  static constexpr int FIXED = 4 * 2 * BK * (VP + XP) + X::BYTES + 8 * X::BARS;
+  static constexpr int FIT = (SMEM_MAX - FIXED) / (4 * STEP);
+  static constexpr int ST = FIT < F32_MAX_ST ? FIT : F32_MAX_ST;
+  static constexpr int VG_OFF = ST * STEP, X_OFF = VG_OFF + 2 * BK * VP;
+  static constexpr int XCH_OFF = X_OFF + 2 * BK * XP;     // floats
+  static constexpr int BAR_OFF = 4 * XCH_OFF + X::BYTES;  // bytes
+  static constexpr int BYTES = BAR_OFF + 8 * X::BARS;
+  static_assert(W % 64 == 0 && SR * RT == BQ && SC * CT == BK, "threads");
+  static_assert(ST >= 2 && BYTES <= SMEM_MAX, "227 KB a block");
+};
+
+template <int W>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+flash_fwd_wide_f32(const __grid_constant__ F32Args a) {
+  using L = FwdWideF32<W>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = L::ST, SR = L::SR, SC = L::SC;
+  constexpr int CT = L::CT, RT = L::RT, XP = L::XP, VP = L::VP;
+  constexpr int C = F32_C, CP = F32_CP;
+  constexpr int HK = BK / 2;  // keys of each half of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const uint32_t bar = smem_u32(smem_raw) + L::BAR_OFF;
+
+  const Block blk(a.tiles, a.groups, a.h * a.batch, true);
+  const int rank = blk.grp, ih = blk.head % a.h, ib = blk.head / a.h;
+  const int ikv = ih / (a.h / a.hkv);
+  const int q0 = blk.tile * BQ, col0 = rank * W;
+  const int cols = min(W, a.d - col0), nc = cols / C;
+  int nk = (a.sk + BK - 1) / BK;
+  if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
+  const int steps = nk * nc;
+  const int tid = threadIdx.x, gr = tid / CT, gc = tid % CT;
+  // the block's columns of each operand
+  const float* q = f32_head(a.q, a.q_s, ib, ih) + col0;
+  const float* k = f32_head(a.k, a.k_s, ib, ikv) + col0;
+  const float* v = f32_head(a.v, a.v_s, ib, ikv) + col0;
+
+  if (tid == 0) {
+    L::X::init(bar, a.groups, rank);
+    fence_mbar_init();
+  }
+  L::X::begin();
+  const typename L::X xc(smem_u32(sm + L::XCH_OFF), sm + L::XCH_OFF, bar,
+                         a.groups, rank, tid);
+
+  // step j: chunk j % nc of the block's columns of its Q rows and of key
+  // tile j / nc's K and V
+  auto issue = [&](int j) {
+    float* s = sm + j % ST * L::STEP;
+    const int c0 = j % nc * C, k0 = j / nc * BK;
+    f32_rows_async<C, BQ, CP>(s, q + c0, a.q_s[2], q0, a.sq, tid);
+    f32_rows_async<C, BK, CP>(s + L::K_OFF, k + c0, a.k_s[2], k0, a.sk, tid);
+    f32_rows_async<C, BK, CP>(s + L::V_OFF, v + c0, a.v_s[2], k0, a.sk, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    hopper::cp_async_commit();
+  }
+
+  float o[SR][W / CT];
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int c = 0; c < W / CT; ++c) o[i][c] = 0.f;
+  // running max in raw (unscaled) score units; per-thread partial row sums
+  float m[SR], l[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) m[i] = kNegInf, l[i] = 0.f;
+  // O[:, own] += P V[:, own] over keys [r0, r0 + HK) of tile t
+  auto pv = [&](int t, int r0) {
+    const float* x = sm + L::X_OFF + (t % 2 * BK + r0) * XP;
+    const float* y = sm + L::VG_OFF + (t % 2 * BK + r0) * VP;
+    if (cols == W)
+      f32_outer<W, SR, HK, XP, CT>(o, x, y, SR * gr, gc);
+    else
+      f32_outer<W, SR, HK, XP, CT, true>(o, x, y, SR * gr, gc, cols);
+  };
+
+#pragma unroll 1
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    float* vg = sm + L::VG_OFF + ik % 2 * BK * VP;
+    // the partial S = Q K^T over the block's columns; the tile's V chunks
+    // kept for its product
+    float s[1][SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[0][i][j] = 0.f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const int j = ik * nc + cc;
+      f32_next_stage<ST>(j, steps, issue);  // step j is in
+      const float* st = sm + j % ST * L::STEP;
+      chunk_to_cols<BK, VP>(vg, st + L::V_OFF, cc * C, tid);
+      f32_dots<C, SR, SC, RT, CT, 1, CP, true>(s, {st}, {st + L::K_OFF}, gr,
+                                               gc);
+    }
+
+    // the cluster's sums, the last tile's P V while they land
+    auto& r = reinterpret_cast<float(&)[SR * SC]>(s);
+    const bool more = ik + 1 < nk;
+    xc.scatter(r);
+    if (ik > 0) pv(ik - 1, 0);
+    xc.gather(r, ik & 1, more);
+    if (ik > 0) pv(ik - 1, HK);
+    xc.collect(r, ik & 1, more);
+
+    // mask only tiles that cross the diagonal or the ragged end
+    const bool need_mask = (a.causal && k0 + BK - 1 > q0) || k0 + BK > a.sk;
+    float alpha[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = q0 + gr + RT * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int col = k0 + gc + CT * j;
+        if (need_mask && (col >= a.sk || (a.causal && col > row)))
+          s[0][i][j] = kNegInf;
+        mx = fmaxf(mx, s[0][i][j]);
+      }
+#pragma unroll
+      for (int off = CT / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      alpha[i] = fast_exp2((m[i] - mx) * a.scale_log2);
+      m[i] = mx;
+      l[i] *= alpha[i];
+    }
+    // O[:, own] = alpha O[:, own] (the last tile's P V is in it), then P =
+    // exp2((S - m) scale log2 e), 0 where masked, into P^T
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int c = 0; c < W / CT; ++c) o[i][c] *= alpha[i];
+    float* xs = sm + L::X_OFF + ik % 2 * BK * XP;
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+      float pr[SR];
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const float x = s[0][i][j];
+        pr[i] = x == kNegInf
+                    ? 0.f
+                    : fast_exp2(fmaf(x, a.scale_log2, -m[i] * a.scale_log2));
+        l[i] += pr[i];
+      }
+      f32_xstore<SR>(xs + (gc + CT * j) * XP + SR * gr, pr);
+    }
+  }
+  // nothing in flight at exit
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the last tile's P^T and V columns are in
+  pv(nk - 1, 0);
+  pv(nk - 1, HK);
+
+  // the row sums over the row's lanes; O / l and (rank 0) LSE = m scale +
+  // log l
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int off = CT / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  L::X::end([&] {
+    float* out = f32_head(a.o, a.o_s, ib, ih) + col0;
+    float* lse = a.lse_out + (static_cast<int64_t>(ib) * a.h + ih) * a.sq;
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = q0 + gr + RT * i;
+      if (row >= a.sq) continue;
+      const float inv = 1.f / l[i];
+      float* orow = out + row * a.o_s[2];
+#pragma unroll
+      for (int n = 0; n < W / (4 * CT); ++n) {
+        const int col = 4 * (gc + CT * n);
+        if (col < cols)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(o[i][4 * n] * inv, o[i][4 * n + 1] * inv,
+                          o[i][4 * n + 2] * inv, o[i][4 * n + 3] * inv);
+      }
+      if (rank == 0 && gc == 0) lse[row] = m[i] * a.scale + logf(l[i]);
+    }
+  });
+}
+
 // `dq_wide_f32<W>`: a cluster owns 64 query rows of one (b, h); key tiles
 // of 32; dq_f32's 16 x 16 thread grid (4 x 2 scores of S and of dP a
 // thread, 4 units; dQ rows 4 gr .. 4 gr + 3 and W / 16 columns). Shared
@@ -1511,7 +1988,7 @@ template <int W>
 struct DqWideF32 {
   static constexpr int BQ = 64, BK = 32;  // query rows a cluster, keys a tile
   static constexpr int SR = BQ / 16, SC = BK / 16, TR = BQ / 16;
-  using X = ClusterSum<2 * SR * SC / 4, F32_CLUSTER_MAX>;  // S and dP
+  using X = ClusterSum<2 * SR * SC / 4, CLUSTER_MAX>;  // S and dP
   static constexpr int STEP = 2 * (BQ + BK) * F32_CP;  // Q, dO, K, V
   static constexpr int DO_OFF = BQ * F32_CP, K_OFF = 2 * BQ * F32_CP,
                        V_OFF = K_OFF + BK * F32_CP;  // in a step
@@ -1680,7 +2157,7 @@ struct DkvWideF32 {
   static constexpr int BK = 32, BQ = 32;  // keys a cluster, query rows an item
   static constexpr int HALF = F32_THREADS / 2;
   static constexpr int SR = BK / 16, SC = BQ / 8, TR = BK / 16;
-  using X = ClusterSum<SR * SC / 4, F32_CLUSTER_MAX>;  // S^T or dP^T
+  using X = ClusterSum<SR * SC / 4, CLUSTER_MAX>;  // S^T or dP^T
   static constexpr int STEP = 2 * (BK + BQ) * F32_CP;  // K, V, Q, dO
   static constexpr int V_OFF = BK * F32_CP, Q_OFF = 2 * BK * F32_CP,
                        DO_OFF = Q_OFF + BQ * F32_CP;  // in a step
@@ -1959,12 +2436,31 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
                 L::BYTES, stream, a);
 }
 
+// The bf16 designs (WideDesign; the C function flash_wide_design reports
+// the one a build runs): K1 and K2 the column groups at every d; K3 on a
+// cluster of ceil(d / W) blocks (dkv_wide) while that makes a portable
+// cluster and its last block holds at least 3 W / 4 columns, the column
+// groups (dkv_wide_groups) otherwise and, at every d, in a build with
+// -DFLASH_OTHER_DESIGNS=1, so that chip_smoke.py times both in turns. A
+// narrower last block forms both products over W columns of zeros past d,
+// and the cluster lost in turns where it holds 64 or 128 (d 576, 640;
+// PERF.md §6).
+enum WideDesign { kWideGroups = 1, kWideCluster = 2 };
+constexpr int wide_design(int kernel, int d) {
+  return kernel == 2 && !FLASH_OTHER_DESIGNS &&
+                 (d + DKV_W - 1) / DKV_W <= CLUSTER_MAX &&
+                 (d % DKV_W == 0 || d % DKV_W >= 3 * DKV_W / 4)
+             ? kWideCluster
+             : kWideGroups;
+}
+
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, const int64_t (*st)[3], int batch,
                     int h, int hkv, int sq, int sk, int d, int causal,
                     float scale, cudaStream_t stream) {
-  using L = DkvWide<DKV_W>;
+  using L = DkvWideGroups<DKV_W>;
+  static_assert(DkvWide<DKV_W>::BK == L::BK, "key tiles");
   DkvArgs a;
   fill_shape(a, batch, h, hkv, sq, sk, d, causal, scale, DKV_W);
   a.nk = (sk + L::BK - 1) / L::BK;
@@ -1978,7 +2474,23 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
   a.dv_sb = st[DV][0];
   a.dv_sh = st[DV][1];
   a.dv_ss = st[DV][2];
+  const int blocks = a.nk * a.groups * hkv * batch;
   cudaError_t err;
+  // kWideCluster: a cluster of a.groups blocks a key tile (consecutive
+  // blocks); a launch the card cannot place is refused and returned
+  if (wide_design(2, d) == kWideCluster) {
+    using C = DkvWide<DKV_W>;
+    if ((err = group_map(&a.tkg, k, st[K], d, sk, hkv, batch, C::BK,
+                         DKV_W)) ||
+        (err = group_map(&a.tvg, v, st[V], d, sk, hkv, batch, C::BK,
+                         DKV_W)) ||
+        (err = group_map(&a.tqg, q, st[Q], d, sq, h, batch, C::BQ, DKV_W)) ||
+        (err = group_map(&a.tdog, dout, st[DO], d, sq, h, batch, C::BQ,
+                         DKV_W)))
+      return err;
+    return launch_cluster(dkv_wide<DKV_W>, blocks, a.groups, THREADS,
+                          C::BYTES, stream, a);
+  }
   if ((err = chunk_map(&a.tk, k, st[K], d, sk, hkv, batch, L::BK)) ||
       (err = chunk_map(&a.tv, v, st[V], d, sk, hkv, batch, L::BK)) ||
       (err = chunk_map(&a.tq, q, st[Q], d, sq, h, batch, L::BQ)) ||
@@ -1987,8 +2499,8 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
       (err = group_map(&a.tdog, dout, st[DO], d, sq, h, batch, L::BQ,
                        DKV_W)))
     return err;
-  return launch(dkv_wide<DKV_W>, a.nk * a.groups * hkv * batch, THREADS,
-                L::BYTES, stream, a);
+  return launch(dkv_wide_groups<DKV_W>, blocks, THREADS, L::BYTES, stream,
+                a);
 }
 
 // The f32 kernels' arguments: the strides (batch, head, seq) of q, k, v,
@@ -2005,6 +2517,7 @@ cudaError_t run_fwd_f32(const void* q, const void* k, const void* v,
   F32Args a = {};
   fill_shape(a, batch, h, hkv, sq, sk, d, causal, scale, FWD_W_F32, F32_C);
   a.tiles = (sq + L::BQ - 1) / L::BQ;
+  const int blocks = a.tiles * a.groups * h * batch;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
@@ -2014,8 +2527,14 @@ cudaError_t run_fwd_f32(const void* q, const void* k, const void* v,
   f32_strides(a.k_s, st[FK]);
   f32_strides(a.v_s, st[FV]);
   f32_strides(a.o_s, st[FO]);
-  return launch(flash_fwd_wide_f32<FWD_W_F32>, a.tiles * a.groups * h * batch,
-                F32_THREADS, L::BYTES, stream, a);
+  // kF32Cluster: a cluster of a.groups blocks a row tile (consecutive
+  // blocks); a launch the card cannot place is refused and returned
+  if (f32_design(0, d) == kF32Cluster)
+    return launch_cluster(flash_fwd_wide_f32<FWD_W_F32>, blocks, a.groups,
+                          F32_THREADS, L::BYTES, stream, a);
+  static_assert(FwdWideF32Groups<FWD_W_F32>::BQ == L::BQ, "row tiles");
+  return launch(flash_fwd_wide_f32_groups<FWD_W_F32>, blocks, F32_THREADS,
+                FwdWideF32Groups<FWD_W_F32>::BYTES, stream, a);
 }
 
 // K2 (`dkv` false: dQ into `out`) or K3 (dK into `out`, dV into `out2`)
@@ -2145,6 +2664,22 @@ extern "C" int flash_wide_columns(int kernel) {
   return kernel >= 0 && kernel < 6 ? w[kernel] : -1;
 }
 
+// The bf16 design (WideDesign: kWideGroups 1, kWideCluster 2) K1 (`kernel`
+// 0), K2 (1) or K3 (2) runs at head dim d in this build; chip_smoke.py
+// labels its timings by it.
+extern "C" int flash_wide_design(int kernel, int d) {
+  return wide_design(kernel, d);
+}
+
+// The clusters of ceil(d / W) blocks the bf16 K3 (`kernel` 2) of head dim d
+// holds on the current card at once (0: its launch would be refused), or
+// -1 where that kernel is not launched in clusters.
+extern "C" int flash_wide_clusters(int kernel, int d) {
+  if (wide_design(kernel, d) != kWideCluster) return -1;
+  return max_clusters(dkv_wide<DKV_W>, (d + DKV_W - 1) / DKV_W, THREADS,
+                      DkvWide<DKV_W>::BYTES);
+}
+
 // The f32 design (F32Design: kF32Tiled 1, kF32Cluster 2) K1 (`kernel` 0),
 // K2 (1) or K3 (2) runs at head dim d in this build; chip_smoke.py labels
 // its timings by it.
@@ -2152,19 +2687,22 @@ extern "C" int flash_wide_f32_design(int kernel, int d) {
   return f32_design(kernel, d);
 }
 
-// The clusters of ceil(d / W) blocks the f32 K2 (`kernel` 1) or K3 (2) of
-// head dim d holds on the current card at once
+// The clusters of ceil(d / W) blocks the f32 K1 (`kernel` 0), K2 (1) or
+// K3 (2) of head dim d holds on the current card at once
 // (cudaOccupancyMaxActiveClusters; 0: its launch would be refused), or -1
 // where that kernel is not launched in clusters.
 extern "C" int flash_wide_f32_clusters(int kernel, int d) {
-  if ((kernel != 1 && kernel != 2) || f32_design(kernel, d) != kF32Cluster)
+  if (kernel < 0 || kernel > 2 || f32_design(kernel, d) != kF32Cluster)
     return -1;
   const int n = (d + DQ_W_F32 - 1) / DQ_W_F32;
-  return kernel == 1
-             ? max_clusters(dq_wide_f32<DQ_W_F32>, n, F32_THREADS,
-                            DqWideF32<DQ_W_F32>::BYTES)
-             : max_clusters(dkv_wide_f32<DKV_W_F32>, n, F32_THREADS,
-                            DkvWideF32<DKV_W_F32>::BYTES);
+  return kernel == 0   ? max_clusters(flash_fwd_wide_f32<FWD_W_F32>, n,
+                                      F32_THREADS,
+                                      FwdWideF32<FWD_W_F32>::BYTES)
+         : kernel == 1 ? max_clusters(dq_wide_f32<DQ_W_F32>, n, F32_THREADS,
+                                      DqWideF32<DQ_W_F32>::BYTES)
+                       : max_clusters(dkv_wide_f32<DKV_W_F32>, n,
+                                      F32_THREADS,
+                                      DkvWideF32<DKV_W_F32>::BYTES);
 }
 
 // The workspace K2 (`dkv` 0) or K3 (1) takes here: none, in either dtype

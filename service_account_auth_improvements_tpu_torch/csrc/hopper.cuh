@@ -866,9 +866,11 @@ struct PairExchange {
 
 // ------------------------------------------------------------ clusters of n
 //
-// csrc/flash_wide.cu's f32 K2 and K3 (dq_wide_f32, dkv_wide_f32) run a row
-// tile on a cluster of n blocks (1 <= n <= NMAX = 8, the portable cluster
-// size), the block of rank r holding a share of the head dim. Each thread
+// csrc/flash_wide.cu's f32 K1, K2 and K3 (flash_fwd_wide_f32, dq_wide_f32,
+// dkv_wide_f32) and bf16 K3 (dkv_wide, on wgmma accumulators of both
+// warpgroups) run a row tile on a cluster of n blocks (1 <= n <= NMAX = 8,
+// the portable cluster size), the block of rank r holding a share of the
+// head dim. Each thread
 // forms a partial sum of its score registers over that share: the same
 // registers, by thread and index, in every block. ClusterSum adds the n
 // partials and hands every block the sum, as a reduce-scatter then an
@@ -904,8 +906,10 @@ struct PairExchange {
 // partial read in gather feeds the sum that gather then sends; a sum read
 // in collect feeds the scores the kernel stores to shared memory before the
 // __syncthreads of its next tile's first chunk, which comes before that
-// tile's scatter. So a peer stores into `rs` again only after its `ag` wait
-// has seen every sum this block owns, each sent after that sum's partials
+// tile's scatter (dkv_wide: P^T stored before a named barrier, dS^T into
+// the A fragments of a product issued before the next scatter). So a
+// peer stores into `rs` again only after its `ag` wait has seen every sum
+// this block owns, each sent after that sum's partials
 // were loaded, and into `ag` again only after its `rs` wait has seen this
 // block's next partials, sent after the last sums were loaded: no read is
 // outstanding when the next store lands. The same orders keep a waiter
@@ -1049,7 +1053,10 @@ struct ClusterSum {
   }
 
   // The sums this thread does not own, from `ag` into r; `more`: another
-  // round follows (thread 0 re-arms `ag`).
+  // round follows (thread 0 re-arms `ag`). Every unit's slot is loaded and
+  // the owned ones' values (a slot no peer writes) are selected away: r
+  // written under a branch made ptxas serialise the wgmmas of a kernel
+  // whose r are wgmma accumulators (C7511, csrc/flash_wide.cu's dkv_wide).
   template <int N>
   __device__ __forceinline__ void collect(float (&r)[N], uint32_t phase,
                                           bool more) const {
@@ -1058,10 +1065,12 @@ struct ClusterSum {
 #pragma unroll
     for (int k = 0; k < UNITS; ++k) {
       const int u = k * THREADS + t;
-      if (owner(u, n) == rank) continue;
+      const bool own = owner(u, n) == rank;
       const float4 v = ag[u];
-      r[4 * k] = v.x, r[4 * k + 1] = v.y, r[4 * k + 2] = v.z,
-      r[4 * k + 3] = v.w;
+      r[4 * k] = own ? r[4 * k] : v.x;
+      r[4 * k + 1] = own ? r[4 * k + 1] : v.y;
+      r[4 * k + 2] = own ? r[4 * k + 2] : v.z;
+      r[4 * k + 3] = own ? r[4 * k + 3] : v.w;
     }
   }
 };

@@ -34,16 +34,19 @@ rows at the whole head dim (or half of it in each block of a pair), so
 Pallas kernels set no upper bound) admit every multiple of 64, and so does
 the port, in both dtypes: ``csrc/flash_wide.cu`` streams the head dim and
 gives each block ``WIDE_COLUMNS`` output columns, so what a block holds
-does not grow with d; bf16 runs ``flash_fwd_wide``, ``dq_wide`` and
-``dkv_wide`` (wgmma over 64-column chunks), float32 ``flash_fwd_wide_f32``
-(register-tiled FFMA over 32-column chunks, true f32) and, up to
-``WIDE_F32_CLUSTER_MAX`` groups, ``dq_wide_f32`` and ``dkv_wide_f32``: a
-row tile on a cluster of ``wide_f32_cluster(d, name)`` blocks, one a
-column group, whose partial scores are summed through distributed shared
-memory, so each score is formed once; above it the column groups run as
-independent blocks (``dq_wide_f32_groups``, ``dkv_wide_f32_groups``), each
-forming the scores over the whole head dim. None splits a row tile over
-a workspace. A CUDA tensor whose head dim is no multiple of 64 raises;
+does not grow with d; bf16 runs ``flash_fwd_wide`` and ``dq_wide``
+(wgmma over 64-column chunks) and, up to ``WIDE_CLUSTER_MAX`` groups,
+``dkv_wide`` (where its last column group is at least three quarters
+full), float32 (register-tiled FFMA over 32-column chunks, true f32)
+``flash_fwd_wide_f32``, ``dq_wide_f32`` and ``dkv_wide_f32``: a row tile on
+a cluster of ``wide_cluster(d, name)`` (bf16) or ``wide_f32_cluster(d,
+name)`` (f32) blocks, one a column group, whose partial scores are summed
+through distributed shared memory, so each score is formed once; above it
+those kernels' column groups run as independent blocks
+(``dkv_wide_groups``; ``flash_fwd_wide_f32_groups``,
+``dq_wide_f32_groups``, ``dkv_wide_f32_groups``), each forming the scores
+over the whole head dim, as ``flash_fwd_wide`` and ``dq_wide`` do at
+every d. None splits a row tile over a workspace. A CUDA tensor whose head dim is no multiple of 64 raises;
 there is no other refusal by head dim, and the design is chosen by the
 head dim alone, never by catching an error. All count under the same
 counters.
@@ -92,15 +95,18 @@ WIDE_FUNCTIONS = {"flash_fwd": "flash_wide_fwd",
 #: the output columns one block of each of those kernels owns, in both
 #: dtypes (its C constants FWD_W, DQ_W and DKV_W, and FWD_W_F32, DQ_W_F32
 #: and DKV_W_F32, which ``flash_wide_columns`` reports): ``wide_groups``
-#: lists the blocks' column groups at a head dim. The f32 K2 and K3 run a
-#: row tile's groups as one cluster, each block streaming only its own
-#: columns of the head dim (``wide_f32_cluster``); every other streamed
-#: kernel's blocks each form the scores over the whole head dim
+#: lists the blocks' column groups at a head dim. The f32 K1, K2 and K3 and
+#: the bf16 K3 run a row tile's groups as one cluster, each block streaming
+#: only its own columns of the head dim (``wide_f32_cluster``,
+#: ``wide_cluster``); the bf16 K1's and K2's blocks each form the scores
+#: over the whole head dim
 WIDE_COLUMNS = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
-#: the most blocks a cluster of the f32 K2 and K3 above 512 has (the
-#: portable cluster size, the C constant F32_CLUSTER_MAX): up to 8 groups
-#: (d 2048) they run on a cluster, above it as independent groups
-WIDE_F32_CLUSTER_MAX = 8
+#: the most blocks a cluster of a streamed kernel has (the portable cluster
+#: size, the C constant CLUSTER_MAX): up to 8 groups (d 2048) those kernels
+#: run on a cluster, above it as independent groups
+WIDE_CLUSTER_MAX = 8
+#: the bf16 streamed kernels that run on a cluster (C ``wide_design``)
+WIDE_CLUSTER_KERNELS = ("flash_bwd_dkv",)
 
 #: kernel launches since the last reset (tests and chip_smoke.py read
 #: them): K1 (forward), K2 (dQ) and K3 (dK/dV)
@@ -258,11 +264,23 @@ def wide_groups(d, name) -> list[tuple[int, int]]:
 def wide_f32_cluster(d, name) -> int:
     """The blocks of one cluster of kernel ``name``'s f32 streamed kernel at
     head dim ``d`` (its ``flash_wide_f32_design`` is then kF32Cluster): the
-    column groups of a row tile (``wide_groups``) for K2 and K3 while they
-    are at most ``WIDE_F32_CLUSTER_MAX``; 1 (no cluster, each group its own
-    block) for K1 and above it."""
+    column groups of a row tile (``wide_groups``) while they are at most
+    ``WIDE_CLUSTER_MAX``; 1 (no cluster, each group its own block) above
+    it."""
     n = len(wide_groups(d, name))
-    return n if name != "flash_fwd" and n <= WIDE_F32_CLUSTER_MAX else 1
+    return n if n <= WIDE_CLUSTER_MAX else 1
+
+
+def wide_cluster(d, name) -> int:
+    """The blocks of one cluster of kernel ``name``'s bf16 streamed kernel
+    at head dim ``d`` (its ``flash_wide_design`` is then kWideCluster): the
+    column groups of a row tile for ``WIDE_CLUSTER_KERNELS`` while they are
+    at most ``WIDE_CLUSTER_MAX`` and the last holds at least three quarters
+    of ``WIDE_COLUMNS``; 1 (no cluster) otherwise."""
+    groups = wide_groups(d, name)
+    full = groups[-1][1] >= 3 * WIDE_COLUMNS[name] // 4
+    return (len(groups) if name in WIDE_CLUSTER_KERNELS and full
+            and len(groups) <= WIDE_CLUSTER_MAX else 1)
 
 
 def _aligned(t) -> bool:

@@ -707,7 +707,8 @@ def test_clean_kernels_hold_every_pair():
     group, each launched in clusters with a C function giving the clusters
     a card holds at both dims; and so does each streamed kernel (bf16
     above d 512), which phase 2 finds by its template at its column
-    group's width."""
+    group's width, K3 on a cluster of the key tile's groups and its column
+    groups (WIDE_GROUPS) beside it."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -716,11 +717,23 @@ def test_clean_kernels_hold_every_pair():
         "flash_fwd_pair", "dq_pair", "dkv_pair",
         *chip_smoke.WIDE_KERNELS.values()}
     assert set(chip_smoke.WIDE_KERNELS) == set(chip_smoke.KERNELS)
+    assert chip_smoke.WIDE_GROUPS == {"flash_bwd_dkv": "dkv_wide_groups"}
     wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
     for (name, kernel), const in zip(chip_smoke.WIDE_KERNELS.items(),
                                      ("FWD_W", "DQ_W", "DKV_W")):
         assert kernel in _global_kernels()
-        assert f"launch({kernel}<{const}>," in wide
+        if name in chip_smoke.WIDE_GROUPS:
+            groups = chip_smoke.WIDE_GROUPS[name]
+            assert groups in _global_kernels()
+            assert f"launch_cluster({kernel}<{const}>, blocks, a.groups," in (
+                wide)
+            assert f"launch({groups}<{const}>, blocks," in wide
+            assert chip_smoke._template_name(
+                f"_ZN46_GLOBAL__N__0_13_flash_wide_cu_0598c693{len(groups)}"
+                f"{groups}ILi{fa.WIDE_COLUMNS[name]}EEEvNS_7ArgsE",
+                fa.WIDE_COLUMNS[name]) == groups
+        else:
+            assert f"launch({kernel}<{const}>," in wide
         assert f"constexpr int {const} = {fa.WIDE_COLUMNS[name]};" in wide
         assert chip_smoke._template_name(
             f"_ZN46_GLOBAL__N__0_13_flash_wide_cu_0598c693{len(kernel)}"
@@ -866,9 +879,10 @@ def test_wide_entries_carry_designs_and_pair():
     two builds run different kernels (all three at d 192, 256, 384 and
     512) the designs timed in turns, and K2's
     and K3's the pair's sum beside SDPA's backward; at d 768 the streamed
-    kernel, its source csrc/flash_wide.cu, and its recompute factor; the
-    split kernels' kernel-only dims under d 512, the streamed kernels'
-    under d 768."""
+    kernel, its source csrc/flash_wide.cu, and its recompute factor, K3's
+    with both its designs in turns at d 768 and 2048 (a cluster against
+    the column groups); the split kernels' kernel-only dims under d 512,
+    the streamed kernels' under d 768."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -893,6 +907,11 @@ def test_wide_entries_carry_designs_and_pair():
                           "other_kernel": kernels[d]["other"][name]}
                    for name in chip_smoke.KERNELS}
                for d in chip_smoke.DESIGN_DIMS}
+    for d in chip_smoke.F32_CLUSTER_DIMS:
+        designs[d] = {"flash_bwd_dkv": {
+            "shipped_ms": 1.0, "other_ms": 2.0,
+            "shipped_kernel": "dkv_wide<256>",
+            "other_kernel": "dkv_wide_groups<256>"}}
     entries = chip_smoke.wide_kernel_entries(numbers, wide, designs)
     assert len(entries) == len(chip_smoke.WIDE_HEADS) * len(
         chip_smoke.KERNELS)
@@ -904,11 +923,16 @@ def test_wide_entries_carry_designs_and_pair():
         assert entry["route"] == "cuda" and entry["launches"] == 20
         d = int(entry["name"].rsplit("d", 1)[1])
         kernel = entry["name"].split()[0]
-        assert ("designs_in_turns" in entry) == (d in (192, 256, 384, 512))
+        assert ("designs_in_turns" in entry) == (
+            d in (192, 256, 384, 512) or (d, kernel) == (768, "flash_bwd_dkv"))
         assert ("pair_ms" in entry) == (kernel != "flash_fwd")
         assert ("more_shapes" in entry) == (d in (512, 768))
         assert ("recompute" in entry) == (d == 768)
-        if "designs_in_turns" in entry:
+        if d == 768 and "designs_in_turns" in entry:
+            assert entry["designs_in_turns"] == {
+                f"d{dim}": designs[dim][kernel]
+                for dim in chip_smoke.F32_CLUSTER_DIMS}
+        elif "designs_in_turns" in entry:
             assert entry["designs_in_turns"] is designs[d][kernel]
         only = {label for label, (_, _, x) in
                 chip_smoke.KERNEL_ONLY_HEADS.items() if (x > 512) == (d > 512)}
@@ -934,59 +958,79 @@ def test_recompute_factors_of_the_streamed_kernels():
     (3 + 1) / 2 = 2x; a last group narrower than 256 still multiplies 256
     columns (zeros past d), so d 576 costs more than d 768; at multiples
     of 256 more groups cost more; phase 3 records the factor only above
-    f32's bound."""
+    f32's bound. The bf16 K3 runs on a cluster up to d 2048 (each score
+    formed once: 1.0) where its last block holds at least 192 columns, and
+    as column groups elsewhere (S^T and dP^T over d, two products over
+    W)."""
     assert chip_smoke.recompute(768, "flash_fwd") == 2.0
-    # K2: S and dP over d, dS K over W; K3: S^T and dP^T, two products
+    # K2: S and dP over d, dS K over W
     assert chip_smoke.recompute(768, "flash_bwd_dq") == 3 * (2 * 768 + 256) / (
         3 * 768)
-    assert chip_smoke.recompute(768, "flash_bwd_dkv") == 3 * (
-        2 * 768 + 2 * 256) / (4 * 768)
     assert chip_smoke.recompute(576, "flash_fwd") == 3 * (576 + 256) / 1152
-    for kernel in chip_smoke.KERNELS:
+    for kernel in ("flash_fwd", "flash_bwd_dq"):
         factors = [chip_smoke.recompute(d, kernel)
                    for d in (768, 1024, 2048)]
         assert all(f > 1 for f in factors)
         assert factors == sorted(factors)
         assert chip_smoke.recompute(576, kernel) > factors[0]
+    for d in (704, 768, 1024, 2048):
+        assert chip_smoke.recompute(d, "flash_bwd_dkv") == 1.0
+        assert chip_smoke.streamed_numbers("flash_bwd_dkv", d) == {
+            "kernel": "dkv_wide<256>", "recompute": 1.0,
+            "cluster": -(-d // 256)}
+    for d in (576, 640, 2112):
+        groups = -(-d // 256)
+        assert chip_smoke.recompute(d, "flash_bwd_dkv") == groups * (
+            2 * d + 2 * 256) / (4 * d)
+        assert chip_smoke.streamed_numbers("flash_bwd_dkv", d) == {
+            "kernel": "dkv_wide_groups<256>",
+            "recompute": chip_smoke.recompute(d, "flash_bwd_dkv"),
+            "cluster": 1}
+    for kernel in chip_smoke.KERNELS:
         assert chip_smoke.streamed_numbers(kernel, 512) == {}
-        assert chip_smoke.streamed_numbers(kernel, 1024) == {
-            "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
-            "recompute": chip_smoke.recompute(1024, kernel), "cluster": 1}
+        if kernel != "flash_bwd_dkv":
+            assert chip_smoke.streamed_numbers(kernel, 1024) == {
+                "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
+                "recompute": chip_smoke.recompute(1024, kernel),
+                "cluster": 1}
 
 
 def test_streamed_numbers_name_the_f32_kernels():
     """Above the per-dim bound phase 3 records, beside an f32 timing, the
     streamed f32 kernel at its group's width, its recompute factor and its
-    cluster: K1 the column groups (bf16's factor: each group forms the
-    whole head dim's scores); K2 and K3 a cluster of ceil(d / 256) blocks
-    up to d 2048 (each score formed once, each block multiplying only its
-    own columns: 1.0, a last narrower block too), and the column groups
-    past it (the column groups, bf16's factor); nothing up to the bound."""
+    cluster: K1, K2 and K3 a cluster of ceil(d / 256) blocks up to d 2048
+    (each score formed once, each block multiplying only its own columns:
+    1.0, a last narrower block too), and the column groups past it (bf16's
+    factor: each group forms the whole head dim's scores); nothing up to
+    the bound."""
     import torch
 
     assert set(chip_smoke.WIDE_F32_KERNELS) == set(chip_smoke.KERNELS)
-    assert set(chip_smoke.WIDE_F32_GROUPS) == {"flash_bwd_dq",
-                                               "flash_bwd_dkv"}
+    assert set(chip_smoke.WIDE_F32_GROUPS) == set(chip_smoke.KERNELS)
     for kernel, template in chip_smoke.WIDE_F32_KERNELS.items():
         assert template == f"{chip_smoke.WIDE_KERNELS[kernel]}_f32"
+        assert chip_smoke.WIDE_F32_GROUPS[kernel] == f"{template}_groups"
         for d in (576, 768, 832, 1024, 2048, 2112):
-            clustered = kernel != "flash_fwd" and d <= 2048
+            clustered = d <= 2048
             want = {"kernel": f"{template}<256>",
                     "recompute": 1.0 if clustered
                     else chip_smoke.recompute(d, kernel),
                     "cluster": -(-d // 256) if clustered else 1}
-            if kernel != "flash_fwd" and d > 2048:
+            if d > 2048:
                 want["kernel"] = (f"{chip_smoke.WIDE_F32_GROUPS[kernel]}"
                                   "<256>")
             assert chip_smoke.streamed_numbers(kernel, d,
                                                torch.float32) == want
             assert chip_smoke.recompute(d, kernel, torch.float32) == (
                 want["recompute"])
-            assert chip_smoke.streamed_numbers(kernel, d) == {
-                "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
-                "recompute": chip_smoke.recompute(d, kernel), "cluster": 1}
+            if kernel != "flash_bwd_dkv":
+                assert chip_smoke.streamed_numbers(kernel, d) == {
+                    "kernel": f"{chip_smoke.WIDE_KERNELS[kernel]}<256>",
+                    "recompute": chip_smoke.recompute(d, kernel),
+                    "cluster": 1}
         assert chip_smoke.streamed_numbers(kernel, 512, torch.float32) == {}
     assert chip_smoke.recompute(768, "flash_fwd") == 2.0
+    assert chip_smoke.recompute(768, "flash_fwd", torch.float32) == 1.0
     assert chip_smoke.recompute(2048, "flash_bwd_dq") == 8 * (
         2 * 2048 + 256) / (3 * 2048)
     assert chip_smoke.streamed_numbers(
@@ -1019,7 +1063,7 @@ def _wide_f32_numbers():
 
 
 def _wide_f32_designs():
-    """Fake phase_f32_designs numbers of the streamed f32 K2 and K3 at
+    """Fake phase_f32_designs numbers of the streamed f32 K1, K2 and K3 at
     F32_CLUSTER_DIMS, and phase 2's ptxas numbers of every streamed f32
     kernel in either build."""
     streamed = {d: {name: {"shipped_design": chip_smoke.F32_DESIGNS[2],
@@ -1045,7 +1089,7 @@ def test_wide_f32_entries_carry_recompute_and_paths():
     its registers and spills, the kernel-only dims under ``more_shapes``,
     launches summed over the paths that ran each kernel (K1 also the f32
     greedy decode); K2's and K3's also their design, the clusters a card
-    holds and both designs in turns at F32_CLUSTER_DIMS; a path that
+    holds and both designs in turns at F32_CLUSTER_DIMS (K1's too); a path that
     launched none of a kernel raises."""
     numbers = _wide_f32_numbers()
     designs, ptxas = _wide_f32_designs()
@@ -1070,16 +1114,12 @@ def test_wide_f32_entries_carry_recompute_and_paths():
         assert entry["registers"] == ptxas["shipped", kernel]["registers"]
         assert entry["spill_stores"] == 0
         assert ("pair_ms" in entry) == (name != "flash_fwd")
-        if name == "flash_fwd":
-            assert entry["recompute"] == chip_smoke.recompute(768, name)
-            assert entry["cluster"] == 1 and "design" not in entry
-        else:
-            assert entry["recompute"] == 1.0 and entry["cluster"] == 3
-            assert entry["design"] == chip_smoke.F32_DESIGNS[2]
-            assert entry["clusters_a_card"] == 39
-            assert entry["designs_in_turns"] == {
-                f"d{d}": designs["streamed"][d][name]
-                for d in chip_smoke.F32_CLUSTER_DIMS}
+        assert entry["recompute"] == 1.0 and entry["cluster"] == 3
+        assert entry["design"] == chip_smoke.F32_DESIGNS[2]
+        assert entry["clusters_a_card"] == 39
+        assert entry["designs_in_turns"] == {
+            f"d{d}": designs["streamed"][d][name]
+            for d in chip_smoke.F32_CLUSTER_DIMS}
         want = {path: n[name] for path, n in paths.items() if name in n}
         assert entry["launches_by_path"] == want
         assert entry["launches"] == sum(want.values())
@@ -1088,8 +1128,7 @@ def test_wide_f32_entries_carry_recompute_and_paths():
         for n in entry["more_shapes"].values():
             assert {"kernel", "recompute", "cluster", "ms",
                     "bound_ms"} <= set(n)
-        if name != "flash_fwd":
-            assert entry["more_shapes"]["d2048"]["cluster"] == 8
+        assert entry["more_shapes"]["d2048"]["cluster"] == 8
     assert entries[0]["launches"] == 60 and entries[1]["launches"] == 20
     paths["greedy f32 d768"]["flash_fwd"] = 0
     with pytest.raises(AssertionError, match="launched no kernel"):
@@ -1102,17 +1141,17 @@ def test_streamed_f32_kernels_are_held_clean():
     """Phase 2 fails if a streamed f32 kernel spills or has a C75xx note,
     in either build: it finds each by its template at the column group's
     width in the ptxas report (the mangled name of an ``F32Args`` kernel),
-    K2's and K3's column groups (WIDE_F32_GROUPS) too; each is launched at
-    the source's constant, which is WIDE_COLUMNS, K2 and K3 on a cluster of
-    the row tile's groups. K1's W = 512 variant edits that constant; K2's
-    and K3's variants run the exchange's rounds in a row (the overlap they
-    time); all at d 768 and 2048."""
+    their column groups (WIDE_F32_GROUPS) too; each is launched at the
+    source's constant, which is WIDE_COLUMNS, on a cluster of the row
+    tile's groups. Their variants run the exchange's rounds in a row (the
+    overlap they time); all at d 768 and 2048."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )
 
     wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
-    launches = {"flash_fwd": "launch(flash_fwd_wide_f32<FWD_W_F32>,",
+    launches = {"flash_fwd": "launch_cluster(flash_fwd_wide_f32<FWD_W_F32>, "
+                             "blocks, a.groups,",
                 "flash_bwd_dq": "launch_cluster(dq_wide_f32<DQ_W_F32>, "
                                 "blocks, a.groups,",
                 "flash_bwd_dkv": "launch_cluster(dkv_wide_f32<DKV_W_F32>, "
@@ -1121,15 +1160,12 @@ def test_streamed_f32_kernels_are_held_clean():
                                      ("FWD_W_F32", "DQ_W_F32", "DKV_W_F32")):
         assert kernel in _global_kernels()
         assert launches[name] in wide
-        if name in chip_smoke.WIDE_F32_GROUPS:
-            groups = chip_smoke.WIDE_F32_GROUPS[name]
-            assert groups in _global_kernels()
-            assert f"launch({groups}<{const}>, blocks," in wide
+        groups = chip_smoke.WIDE_F32_GROUPS[name]
+        assert groups in _global_kernels()
+        assert f"launch({groups}<{const}>, blocks," in wide
         w = fa.WIDE_COLUMNS[name]
         assert f"constexpr int {const} = {w};" in wide
-        for template in (kernel, chip_smoke.WIDE_F32_GROUPS.get(name)):
-            if template is None:
-                continue
+        for template in (kernel, groups):
             mangled = (f"_ZN46_GLOBAL__N__687d0614_13_flash_wide_cu_0598c693"
                        f"{len(template)}{template}ILi{w}EEEvNS_7F32ArgsE")
             assert chip_smoke._template_name(mangled, w) == template
@@ -1141,16 +1177,12 @@ def test_streamed_f32_kernels_are_held_clean():
                       "registers\n")
             assert chip_smoke.ptxas_summary(report) == {mangled: {
                 "registers": 244, "spill_stores": 0, "notes": []}}
-        if name == "flash_fwd":
-            variant = kernel_variants.VARIANTS[f"{kernel}_w512"]
-            assert variant[1] == [(f"constexpr int {const} = 256;",
-                                   f"constexpr int {const} = 512;")]
-        else:
-            variant = kernel_variants.VARIANTS[f"{kernel}_in_line"]
-            (old, new), = variant[1]
-            assert old.count("xc.") == new.count("xc.") == 3
-            assert old.index("product(") < old.index("xc.collect(")
-            assert new.index("product(") > new.index("xc.collect(")
+        variant = kernel_variants.VARIANTS[f"{kernel}_in_line"]
+        (old, new), = variant[1]
+        product = "pv(" if name == "flash_fwd" else "product("
+        assert old.count("xc.") == new.count("xc.") == 3
+        assert old.index(product) < old.index("xc.collect(")
+        assert new.index(product) > new.index("xc.collect(")
         assert variant[2] == kernel
         assert kernel_variants.source_of(kernel) == chip_smoke.WIDE_SOURCE
         assert kernel_variants.KERNEL_HEADS[kernel] == chip_smoke.WIDE_HEADS[
@@ -1164,10 +1196,9 @@ def test_f32_design_labels_name_every_design():
     functions, and no other; each source's rule: in the per-dim sources
     the register-tiled kernels at every head dim, the scalar ones at d 128
     in a -DFLASH_OTHER_DESIGNS=1 build (F32_DESIGN_DIM, the dim
-    phase_f32_designs times in turns); in the streamed source K1 the
-    column groups everywhere, K2 and K3 a cluster up to F32_CLUSTER_MAX
-    groups and the column groups past it and in the other build (both
-    named by ``wide_f32_designs``)."""
+    phase_f32_designs times in turns); in the streamed source K1, K2 and
+    K3 a cluster up to CLUSTER_MAX groups and the column groups past it
+    and in the other build (all named by ``wide_f32_designs``)."""
     assert chip_smoke.F32_DESIGNS == {
         0: "scalar", 1: "register-tiled",
         2: "register-tiled on a cluster of ceil(d / 256) blocks"}
@@ -1194,8 +1225,8 @@ def test_f32_design_labels_name_every_design():
     rule = re.search(r"constexpr int f32_design\(int kernel, int d\) \{"
                      r"(.*?)\}", wide, re.S).group(1)
     assert " ".join(rule.split()) == (
-        "return kernel == 0 || FLASH_OTHER_DESIGNS || (d + DQ_W_F32 - 1) / "
-        "DQ_W_F32 > F32_CLUSTER_MAX ? kF32Tiled : kF32Cluster;")
+        "return FLASH_OTHER_DESIGNS || (d + DQ_W_F32 - 1) / "
+        "DQ_W_F32 > CLUSTER_MAX ? kF32Tiled : kF32Cluster;")
 
     class Lib:
         def __init__(self, other):
@@ -1217,7 +1248,7 @@ def test_f32_design_labels_name_every_design():
             self.other = other
 
         def flash_wide_f32_design(self, kernel, d):
-            return 1 if self.other or kernel == 0 or d > 2048 else 2
+            return 1 if self.other or d > 2048 else 2
 
         def flash_wide_f32_clusters(self, kernel, d):
             return -1 if self.flash_wide_f32_design(kernel, d) == 1 else 39
@@ -1227,13 +1258,57 @@ def test_f32_design_labels_name_every_design():
             name: {"design": chip_smoke.F32_DESIGNS[2],
                    "kernel": f"{chip_smoke.WIDE_F32_KERNELS[name]}<256>",
                    "clusters": 39}
-            for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+            for name in chip_smoke.KERNELS}
     for lib, d in ((Wide(True), 768), (Wide(False), 2112)):
         assert chip_smoke.wide_f32_designs(lib, d) == {
             name: {"design": chip_smoke.F32_DESIGNS[1],
                    "kernel": f"{chip_smoke.WIDE_F32_GROUPS[name]}<256>",
                    "clusters": -1}
-            for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+            for name in chip_smoke.KERNELS}
+
+
+def test_wide_design_labels_name_every_design():
+    """chip_smoke.py labels each id of the streamed source's bf16 design
+    function (flash_wide_design: WideDesign), and no other; the other
+    build's rule runs the column groups everywhere; ``wide_designs`` names
+    K3's cluster (dkv_wide) or column groups (dkv_wide_groups) by it, with
+    the clusters a card holds, and K1's and K2's column groups
+    (flash_fwd_wide, dq_wide) at every d. phase_wide_designs times K3's
+    two designs at F32_CLUSTER_DIMS (``_streamed_k3_designs``)."""
+    ids = _designs(chip_smoke.WIDE_SOURCE, "WideDesign")
+    assert ids == {"kWideGroups": 1, "kWideCluster": 2}
+    assert set(ids.values()) == set(chip_smoke.WIDE_DESIGNS)
+    assert ids["kWideCluster"] == chip_smoke.WIDE_CLUSTER_DESIGN
+    wide = (CSRC / f"{chip_smoke.WIDE_SOURCE}.cu").read_text()
+    for fn in ("flash_wide_design", "flash_wide_clusters"):
+        assert f'extern "C" int {fn}(int kernel, int d) {{' in wide
+    assert chip_smoke.F32_CLUSTER_DIMS == (768, 2048)
+    assert "out.update(_streamed_k3_designs(libs, bwd, gen))" in (
+        ROOT / "chip_smoke.py").read_text()
+
+    class Wide:
+        def __init__(self, other):
+            self.other = other
+
+        def flash_wide_design(self, kernel, d):
+            return 2 if kernel == 2 and not self.other and d <= 2048 else 1
+
+        def flash_wide_clusters(self, kernel, d):
+            return 44 if self.flash_wide_design(kernel, d) == 2 else -1
+
+    for lib, d in ((Wide(False), 768), (Wide(False), 2048),
+                   (Wide(True), 768), (Wide(False), 2112)):
+        got = chip_smoke.wide_designs(lib, d)
+        cluster = not lib.other and d <= 2048
+        assert got["flash_bwd_dkv"] == {
+            "design": chip_smoke.WIDE_DESIGNS[2 if cluster else 1],
+            "kernel": "dkv_wide<256>" if cluster else "dkv_wide_groups<256>",
+            "clusters": 44 if cluster else -1}
+        for name in ("flash_fwd", "flash_bwd_dq"):
+            assert got[name] == {
+                "design": chip_smoke.WIDE_DESIGNS[1],
+                "kernel": f"{chip_smoke.WIDE_KERNELS[name]}<256>",
+                "clusters": -1}
 
 
 def test_f32_settings():
@@ -1587,17 +1662,23 @@ def test_pairs_release_their_receive_buffers_one_way(kernel, source):
     assert body.count("L::X_OFF") == 2  # the helper's two views of them
 
 
-@pytest.mark.parametrize("kernel", ["dq_wide_f32", "dkv_wide_f32"])
+@pytest.mark.parametrize("kernel", ["dq_wide_f32", "dkv_wide_f32",
+                                    "flash_fwd_wide_f32", "dkv_wide"])
 def test_cluster_sum_adds_in_rank_order_and_reads_into_registers(kernel):
-    """The f32 K2 and K3 on a cluster exchange their partial scores through
-    hopper.cuh's ClusterSum alone: its gather adds the n partials of an
-    owned unit in rank order, rank 0's first, the owner's own from its
-    registers, and sends the sum on; its receive buffers are read only by
-    loads into registers, `rs` in gather and `ag` in collect, and handed
-    back by no arrival of their own (the comment states the rule that makes
-    that sound); the kernel stores into no peer and waits on no remote
-    barrier itself, and runs the last tile's product between scatter and
-    gather and between gather and collect."""
+    """The f32 K1, K2 and K3 and the bf16 K3 on a cluster exchange their
+    partial scores through hopper.cuh's ClusterSum alone: its gather adds
+    the n partials of an owned unit in rank order, rank 0's first, the
+    owner's own from its registers, and sends the sum on; its receive
+    buffers are read only by loads into registers, `rs` in gather and `ag`
+    in collect (every slot, the owned units' selected away, with no branch
+    around a register write), and handed back by no arrival of their own
+    (the comment states the rule that makes that sound); the kernel stores
+    into no peer and waits on no remote barrier itself. The f32 kernels run
+    the last tile's product (K1: P V, ``pv``) between scatter and gather
+    and between gather and collect; the bf16 K3 runs two instances (stage
+    m on m & 1): it issues the next stage's scores and the last stage's
+    product, waits for both (refilling that stage), scatters the next
+    stage's partials, then gathers and collects this stage's sums."""
     hopper = (CSRC / "hopper.cuh").read_text()
     helper = hopper[hopper.index("struct ClusterSum {"):]
     helper = helper[:helper.index("\n};\n") + 1]
@@ -1614,6 +1695,9 @@ def test_cluster_sum_adds_in_rank_order_and_reads_into_registers(kernel):
              for m in ("scatter", "gather", "collect")}
     assert reads == {"scatter": [], "gather": ["rs", "rs"],
                      "collect": ["ag"]}
+    collect = _helper_body(helper, "collect")
+    assert "continue" not in collect and "if (own" not in collect
+    assert "r[4 * k] = own ? r[4 * k] : v.x;" in collect
     assert "mbar_arrive_remote_cta" not in helper
     head = hopper[:hopper.index("struct ClusterSum {")]
     head = head[head.rindex("// ---"):]
@@ -1627,11 +1711,30 @@ def test_cluster_sum_adds_in_rank_order_and_reads_into_registers(kernel):
                  "mbar_arrive_remote_cta(", "cluster_arrive(", "cluster_wait(",
                  "cluster_map("):
         assert call not in body, call
-    steps = [body.index(s) for s in (
-        "L::X::init(", "L::X::begin();", "xc.scatter(r);", "product(",
-        "xc.gather(r,", "product(", "xc.collect(r,", "L::X::end(")]
+    if kernel == "dkv_wide":
+        # two instances, stage m on m & 1: stage n + 1's partials go out
+        # before stage n's sums are gathered
+        assert body.count(".scatter(") == 2
+        assert body.count(".gather(") == body.count(".collect(") == 1
+        steps = [body.index(s) for s in (
+            "L::X::init(xbar, a.groups, rank);",
+            "L::X::init(xbar + 8 * L::X::BARS, a.groups, rank);",
+            "L::X::begin();", "xc(0).scatter(st);",
+            "scores(sn, next ? n + 1 : n);", "product(n > 0 ? n - 1 : 0);",
+            "wgmma_wait<0>();  // the scores and the last stage's product",
+            "bar_sync(2, THREADS);", "if (next) xc(n + 1).scatter(sn);",
+            "x_n.gather(st, (n >> 1) & 1, n + 2 < tiles);",
+            "x_n.collect(st, (n >> 1) & 1, n + 2 < tiles);",
+            "bar_sync(1, THREADS);", "L::X::end(")]
+        assert steps == sorted(steps)
+        assert "(m & 1) * L::X::BYTES" in body
+        return
     assert body.count("xc.scatter(") == body.count("xc.gather(") == 1
-    assert steps[3] < steps[4] < body.index("product(", steps[4]) < steps[6]
+    product = "pv(" if kernel == "flash_fwd_wide_f32" else "product("
+    steps = [body.index(s) for s in (
+        "L::X::init(", "L::X::begin();", "xc.scatter(r);", product,
+        "xc.gather(r,", product, "xc.collect(r,", "L::X::end(")]
+    assert steps[3] < steps[4] < body.index(product, steps[4]) < steps[6]
     assert steps[:3] == sorted(steps[:3]) and steps[6] < steps[7]
 
 
@@ -1698,7 +1801,7 @@ def test_wide_steps_takes_each_wide_configuration(name):
     order, and all of them, in WIDE_HEADS's order, if none is named."""
     args = wide_steps.parse_args(["--profile", name, name])
     assert args.names == [name] and args.profile == name
-    assert not args.other_k1 and not args.watch
+    assert not args.other_k1 and not args.other_wide and not args.watch
     assert args.steps == chip_smoke.WIDE_STEPS
     assert wide_steps.parse_args([]).names == list(chip_smoke.WIDE_HEADS)
 
@@ -1737,3 +1840,39 @@ def test_wide_steps_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["wide_steps.py", "--other-k1"])
     assert wide_steps.main() == 1
+
+
+def test_wide_steps_other_wide_runs_the_other_streamed_build(monkeypatch):
+    """--other-wide builds csrc/flash_wide.cu with the other designs and
+    runs phase 12 with that library in the streamed source's place (the
+    per-dim ones as shipped, and K1's unless --other-k1)."""
+    import torch
+
+    from service_account_auth_improvements_tpu_torch.ops import _build
+
+    built, loaded, ran = [], [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(wide_steps.cs, "phase_device", lambda: None)
+    monkeypatch.setattr(wide_steps.cs, "_log", lambda msg: None)
+    monkeypatch.setattr(wide_steps.cs, "_build_other_designs",
+                        lambda name: built.append(name) or ROOT / f"lib{name}")
+    monkeypatch.setattr(_build, "load", loaded.append)
+    monkeypatch.setattr(wide_steps.ctypes, "CDLL", lambda path: ("other", path))
+    monkeypatch.setattr(wide_steps.cs, "_timed",
+                        lambda label, fn, window: ran.append(label))
+    # main narrows both; the test puts them back
+    monkeypatch.setattr(wide_steps.cs, "WIDE_HEADS",
+                        dict(chip_smoke.WIDE_HEADS))
+    monkeypatch.setattr(wide_steps.cs, "WIDE_STEPS", chip_smoke.WIDE_STEPS)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr("sys.argv", ["wide_steps.py", "--other-wide",
+                                     "--steps", "16", "bench_800m_d768"])
+    assert wide_steps.main() == 0
+    assert built == [chip_smoke.WIDE_SOURCE]
+    assert _build._libs == {chip_smoke.WIDE_SOURCE: (
+        "other", str(ROOT / f"lib{chip_smoke.WIDE_SOURCE}"))}
+    assert loaded == list(chip_smoke.KERNEL_SOURCES)
+    assert ran == ["wide heads"]
+    assert wide_steps.cs.WIDE_HEADS == {
+        "bench_800m_d768": chip_smoke.WIDE_HEADS["bench_800m_d768"]}
+    assert wide_steps.cs.WIDE_STEPS == 16

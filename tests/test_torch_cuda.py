@@ -448,7 +448,13 @@ def test_greedy_generate_wide_head_flash_equals_dense_on_cuda(cuda):
 # tile on a cluster of ceil(d / 256) blocks up to d 2048 (3 at d 576 to
 # 768, 4 at d 832, the last block 64 columns wide, and 1024, 8 at d 2048),
 # the column groups past it (d 2112): the rows after the first f32 ones
-# hold the clusters at each size and the groups past them
+# hold the clusters at each size and the groups past them. The f32 K1
+# runs on a cluster of the same size too (64 query rows, 32-key tiles),
+# and so does the bf16 K3 (64 keys, 32-query stages) where its last block
+# holds at least 192 columns (d 704, 768, 1024, 2048; the column groups at
+# d 576, 640, 832 and past d 2048): the last rows hold both at ragged ends
+# one short of and one past those tiles, and bf16's K3 as column groups at
+# d 576 and 2112
 WIDE_SHAPES = [
     (2, 1, 2, 1, 576, True, "bfloat16"),
     (2, 65, 4, 2, 576, True, "bfloat16"),
@@ -480,6 +486,14 @@ WIDE_SHAPES = [
     (2, 300, 2, 1, 1024, True, "float32"),
     (1, 1000, 1, 1, 2048, True, "float32"),
     (2, 65, 1, 1, 2112, True, "float32"),
+    (2, 95, 4, 2, 576, True, "bfloat16"),
+    (2, 97, 2, 1, 704, True, "bfloat16"),
+    (2, 33, 2, 1, 768, True, "bfloat16"),
+    (1, 191, 1, 1, 2048, True, "bfloat16"),
+    (2, 65, 1, 1, 2112, True, "bfloat16"),
+    (2, 63, 4, 2, 576, True, "float32"),
+    (2, 31, 2, 1, 768, True, "float32"),
+    (2, 97, 1, 1, 2048, True, "float32"),
 ]
 
 
@@ -525,14 +539,15 @@ def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal, dtype):
     (8, 2048, 2, 1, 768, "bfloat16"), (2, 300, 4, 2, 576, "float32"),
     (2, 127, 2, 1, 832, "float32"), (2, 1000, 2, 1, 768, "float32"),
     (2, 1000, 2, 1, 1024, "float32"), (1, 1000, 1, 1, 2048, "float32"),
-    (2, 65, 1, 1, 2112, "float32")])
+    (2, 65, 1, 1, 2112, "float32"), (1, 1000, 1, 1, 2048, "bfloat16"),
+    (2, 65, 1, 1, 2112, "bfloat16")])
 def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d,
                                             dtype):
     """Each output element of the streamed kernels belongs to one block
     and every sum runs in a fixed order (the column groups form the same
-    scores in the same chunk order; f32's K2 and K3 on a cluster add the
-    blocks' partial scores in rank order, each sum formed once): two
-    launches give the same bits, in bf16 and in f32."""
+    scores in the same chunk order; f32's K1, K2 and K3 and bf16's K3 on a
+    cluster add the blocks' partial scores in rank order, each sum formed
+    once): two launches give the same bits, in bf16 and in f32."""
     from service_account_auth_improvements_tpu_torch.ops import (
         flash_attention as fa,
     )

@@ -310,28 +310,63 @@ HOPPER = SOURCE.with_name("hopper.cuh")
 
 @pytest.mark.parametrize("d", (*ROUTED_DIMS, 2112, 4096))
 def test_f32_backward_clusters_up_to_2048_then_groups(d):
-    """The f32 K2 and K3 above 512 run a row tile on a cluster of
+    """The f32 K1, K2 and K3 above 512 run a row tile on a cluster of
     ceil(d / 256) blocks, one a column group, while that is at most
-    WIDE_F32_CLUSTER_MAX (the source's F32_CLUSTER_MAX, the portable 8:
-    d 2048), and as independent column groups past it, a route by head
-    dim that the source's f32_design states; K1 never runs on a cluster."""
+    WIDE_CLUSTER_MAX (the source's CLUSTER_MAX, the portable 8: d 2048),
+    and as independent column groups past it, a route by head dim that the
+    source's f32_design states for all three kernels alike."""
     text = SOURCE.read_text()
-    assert tfa.WIDE_F32_CLUSTER_MAX == 8
-    assert re.search(rf"constexpr int F32_CLUSTER_MAX = "
-                     rf"{tfa.WIDE_F32_CLUSTER_MAX};", text)
+    assert tfa.WIDE_CLUSTER_MAX == 8
+    assert re.search(rf"constexpr int CLUSTER_MAX = "
+                     rf"{tfa.WIDE_CLUSTER_MAX};", text)
     rule = re.search(r"constexpr int f32_design\(int kernel, int d\) \{"
                      r"(.*?)\}", text, re.S).group(1)
-    assert "(d + DQ_W_F32 - 1) / DQ_W_F32 > F32_CLUSTER_MAX" in rule
+    assert "(d + DQ_W_F32 - 1) / DQ_W_F32 > CLUSTER_MAX" in rule
+    assert "kernel" not in rule
+    assert re.search(r"FWD_W_F32 == DQ_W_F32 && DQ_W_F32 == DKV_W_F32", text)
     groups = -(-d // tfa.WIDE_COLUMNS["flash_bwd_dq"])
-    assert tfa.wide_f32_cluster(d, "flash_fwd") == 1
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in KERNELS:
         got = tfa.wide_f32_cluster(d, name)
         assert (got > 1) == (d <= 2048)
         if d <= 2048:
             assert got == groups == len(tfa.wide_groups(d, name))
             assert 3 <= got <= 8
     assert tfa.wide_f32_cluster(832, "flash_bwd_dq") == 4
+    assert tfa.wide_f32_cluster(832, "flash_fwd") == 4
     assert tfa.wide_groups(832, "flash_bwd_dq")[-1] == (768, 64)
+
+
+@pytest.mark.parametrize("d", (*ROUTED_DIMS, 2112, 4096))
+def test_bf16_k3_clusters_up_to_2048_then_groups(d):
+    """The bf16 K3 above 512 (``wide_cluster``, the mirror of the source's
+    wide_design) runs a key tile on a cluster of ceil(d / 256) blocks up to
+    WIDE_CLUSTER_MAX of them where the last holds at least 192 columns, and
+    as column groups past it and where the last holds 64 or 128 (d 576,
+    640, 832); the bf16 K1 and K2 are column groups at every d; a
+    -DFLASH_OTHER_DESIGNS=1 build runs the column groups everywhere. The
+    launch is the cluster's, with the groups' key tiles."""
+    text = SOURCE.read_text()
+    rule = re.search(r"constexpr int wide_design\(int kernel, int d\) \{"
+                     r"(.*?)\}", text, re.S).group(1)
+    assert " ".join(rule.split()) == (
+        "return kernel == 2 && !FLASH_OTHER_DESIGNS && (d + DKV_W - 1) / "
+        "DKV_W <= CLUSTER_MAX && (d % DKV_W == 0 || d % DKV_W >= 3 * DKV_W "
+        "/ 4) ? kWideCluster : kWideGroups;")
+    assert tfa.WIDE_CLUSTER_KERNELS == ("flash_bwd_dkv",)
+    w = tfa.WIDE_COLUMNS["flash_bwd_dkv"]
+    groups = -(-d // w)
+    full = d % w == 0 or d % w >= 3 * w // 4
+    for name in KERNELS:
+        got = tfa.wide_cluster(d, name)
+        clustered = (name == "flash_bwd_dkv" and full
+                     and groups <= tfa.WIDE_CLUSTER_MAX)
+        assert got == (groups if clustered else 1)
+    assert [tfa.wide_cluster(x, "flash_bwd_dkv")
+            for x in (576, 640, 704, 768, 832, 1024, 2048, 2112)] == [
+        1, 1, 3, 3, 1, 4, 8, 1]
+    assert "return launch_cluster(dkv_wide<DKV_W>, blocks, a.groups," in text
+    assert "return launch(dkv_wide_groups<DKV_W>, blocks," in text
+    assert "static_assert(DkvWide<DKV_W>::BK == L::BK" in text
 
 
 def _cluster_sum(units):
@@ -358,7 +393,8 @@ def _cluster_sum(units):
 @pytest.mark.parametrize("units", [2, 4])
 @pytest.mark.parametrize("n", range(1, 9))
 def test_cluster_sum_owns_each_unit_once(units, n):
-    """ClusterSum's index arithmetic for K3's 2 and K2's 4 units a thread
+    """ClusterSum's index arithmetic for the f32 K1's and K3's 2 and the f32
+    K2's and bf16 K3's 4 units a thread
     at every cluster size: each unit has one owner, whose range holds it;
     every rank owns some; the partials sent to an owner land in distinct
     `rs` slots inside the buffer and its `rs` barrier expects exactly their
@@ -387,7 +423,8 @@ def test_cluster_sum_owns_each_unit_once(units, n):
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])
-@pytest.mark.parametrize("kernel", ["DqWideF32", "DkvWideF32"])
+@pytest.mark.parametrize("kernel", ["DqWideF32", "DkvWideF32", "FwdWideF32",
+                                    "DkvWide"])
 def test_cluster_tiles_fit_with_their_exchange(kernel, n):
     """dq_wide_f32's and dkv_wide_f32's shared memory at clusters of 3 (d
     768), 4 (d 1024) and 8 (d 2048): the ring's stages, two tiles' (K2) or
@@ -395,12 +432,16 @@ def test_cluster_tiles_fit_with_their_exchange(kernel, n):
     score operand, and ClusterSum's buffers and barriers (sized for any n
     up to 8) within SMEM_MAX; one stage more does not fit (K2 keeps the
     ring's 4); and a buffer for every peer's whole partials in place of
-    the reduce-scatter's would not fit beside them at n 8."""
+    the reduce-scatter's would not fit beside them at n 8. flash_fwd_wide_f32
+    (K1) and dkv_wide (bf16 K3): ``_fwd_and_bf16_k3_budgets``."""
     text = SOURCE.read_text()
     struct = text[text.index(f"struct {kernel} {{"):]
     struct = struct[:struct.index("\n};\n")]
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = "
                                                r"(\d+);", text)}
+    if kernel in ("FwdWideF32", "DkvWide"):
+        _fwd_and_bf16_k3_budgets(kernel, n, struct, consts)
+        return
     smem_max, c = consts["SMEM_MAX"], consts["F32_C"]
     cp, max_st, w = c + 4, consts["F32_MAX_ST"], consts["DQ_W_F32"]
     dq = kernel == "DqWideF32"
@@ -425,3 +466,57 @@ def test_cluster_tiles_fit_with_their_exchange(kernel, n):
     if n == 8:
         assert (st * step + fixed + (7 * total + total) * 16 + 16
                 > smem_max)
+
+
+def _fwd_and_bf16_k3_budgets(kernel, n, struct, consts):
+    """The f32 K1's and the bf16 K3's shared memory on a cluster of n.
+    flash_fwd_wide_f32: 32-key tiles (4 x 2 scores a thread, 2 units), a
+    step of Q's 64 rows and 32 keys of K and V (36-float pitch), two tiles'
+    256 columns of V, two P^T and ClusterSum<2> fit with the ring's 4
+    stages; at 64-key tiles two V tiles, two P^T and ClusterSum<4> leave
+    room for one stage. dkv_wide: K and V's 256 columns of 64 keys resident
+    (64 KB), 32-query stages of Q's and dO's 256 columns (32 KB), a 4 KB
+    P^T buffer and two ClusterSum<4>s (both warpgroups' 16 partial scores
+    a thread; two stages' exchanges in flight) fit three stages and not
+    four; 64-query stages (two ClusterSum<8>s) fit none."""
+    smem_max = consts["SMEM_MAX"]
+    if kernel == "FwdWideF32":
+        assert "BQ = 64, BK = 32" in struct
+        assert "using X = ClusterSum<SR * SC / 4, CLUSTER_MAX>;" in struct
+        cp, max_st, w = consts["F32_C"] + 4, consts["F32_MAX_ST"], 256
+
+        def budget(keys):
+            units = (64 // 16) * (keys // 16) // 4
+            total, share, rs, rs_units = _cluster_sum(units)
+            assert rs(n) <= rs_units
+            step = (64 + 2 * keys) * cp * 4
+            fixed = 4 * 2 * keys * ((w + 4) + (64 + 4))
+            exchange = (rs_units + total) * 16 + 16
+            return units, step, fixed + exchange
+
+        units, step, fixed = budget(32)
+        assert units == 2
+        st = min((smem_max - fixed) // step, max_st)
+        assert st == max_st == 4 and st * step + fixed <= smem_max
+        units, step, fixed = budget(64)
+        assert units == 4 and (smem_max - fixed) // step == 1
+        return
+    assert "BK = 64;" in struct and "BQ = 32;" in struct
+    assert "using X = ClusterSum<BQ / 8, CLUSTER_MAX>;" in struct
+    assert "2 * KV_BYTES + 2 * X::BYTES + XCH * 4 +" in struct
+
+    def budget(rows):
+        units = rows // 8  # BQ / 2 scores a thread
+        total, share, rs, rs_units = _cluster_sum(units)
+        assert rs(n) <= rs_units
+        step = 2 * rows * 256 * 2
+        fixed = (2 * 64 * 256 * 2 + 2 * (rs_units + total) * 16
+                 + rows // 4 * 128 * 4 + 8 * (1 + 6 + 2 * 2) + 1024)
+        return units, step, fixed
+
+    units, step, fixed = budget(32)
+    assert units == 4
+    assert (smem_max - fixed) // step == 3
+    assert 3 * step + fixed <= smem_max < 4 * step + fixed
+    units, step, fixed = budget(64)
+    assert units == 8 and (smem_max - fixed) // step == 0

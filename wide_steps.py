@@ -8,12 +8,15 @@ where phase 12 runs them.
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
-    python3 wide_steps.py [--other-k1] [--profile NAME] [--steps N]
-                          [--watch] [NAME ...]
+    python3 wide_steps.py [--other-k1] [--other-wide] [--profile NAME]
+                          [--steps N] [--watch] [NAME ...]
 
 ``--other-k1`` runs K1 from the ``-DFLASH_OTHER_DESIGNS=1`` build of
 ``csrc/flash_fwd.cu`` (at d 384 ``flash_fwd_split`` in place of
-``flash_fwd_pair``), K2 and K3 from the shipped build. ``--profile NAME``
+``flash_fwd_pair``), K2 and K3 from the shipped build. ``--other-wide``
+runs the head dims above 512 from that build of ``csrc/flash_wide.cu``
+(the column groups in place of the clusters: at d 768 bf16's
+``dkv_wide_groups`` for ``dkv_wide``, f32's ``*_wide_f32_groups``). ``--profile NAME``
 runs NAME's timed steps under ``torch.profiler`` and prints the card's
 busy time by kernel and the host's calls that took the most time.
 ``--steps N`` takes N training steps a configuration (chip_smoke's
@@ -131,10 +134,12 @@ def _watched(name: str):
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line: names of ``chip_smoke.WIDE_HEADS`` (all of
-    them, in their order, if none), ``--other-k1``, ``--profile NAME``."""
+    them, in their order, if none), ``--other-k1``, ``--other-wide``,
+    ``--profile NAME``, ``--steps N``, ``--watch``."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("names", nargs="*", metavar="NAME")
     parser.add_argument("--other-k1", action="store_true")
+    parser.add_argument("--other-wide", action="store_true")
     parser.add_argument("--profile", choices=list(cs.WIDE_HEADS))
     parser.add_argument("--steps", type=int, default=cs.WIDE_STEPS)
     parser.add_argument("--watch", action="store_true")
@@ -163,6 +168,10 @@ def main() -> int:
         path = cs._build_other_designs("flash_fwd")
         _build._libs["flash_fwd"] = ctypes.CDLL(str(path))
         cs._log(f"K1 from the other build: {path.name}")
+    if args.other_wide:
+        path = cs._build_other_designs(cs.WIDE_SOURCE)
+        _build._libs[cs.WIDE_SOURCE] = ctypes.CDLL(str(path))
+        cs._log(f"the streamed kernels from the other build: {path.name}")
     cs.WIDE_HEADS = {n: cs.WIDE_HEADS[n] for n in args.names}
     cs.WIDE_STEPS = args.steps
 

@@ -66,7 +66,9 @@ no network. Phases, each of which raises on failure:
    column groups at d 2112, and both designs (the other build: the column
    groups) in turns at d 768 and 2048 (f32 at b 2 s 1000 beside SDPA's f32
    forward and backward) and at every streamed dim (bf16 K3 at b 8 s 2048
-   beside SDPA's backward), with the clusters a card holds;
+   beside SDPA's backward), with the clusters a card holds; the streamed
+   kernels at d 1280, 1536 and 1728 too (clusters of 5, 6 and 7 blocks for
+   K3), through autograd against the plain versions at CLUSTER_SIZE_EDGES;
 4. serving: ``GenerationService`` at ``bench_800m`` with per-length
    prefill, behind ``make_server`` on 127.0.0.1, answering one-shot,
    repeated, sampled and streamed completions and /healthz and /metrics;
@@ -474,6 +476,16 @@ PER_DIM_MAX = 512
 # prompt length, s 2047, non-causal aligned
 STREAMED_EDGES = ((2, 1, True), (2, 65, True), (2, 129, True),
                   (2, 1000, True), (1, 2047, True), (2, 512, False))
+# the streamed head dims whose clusters of 5, 6 and 7 blocks (d 1280, the
+# last block full; 1536; 1728, the last block 192 columns) are held at small
+# shapes only: phase 3 through autograd against the plain versions, twice
+# bitwise, in bf16 and at CLUSTER_SIZE_F32 in f32. (heads, KV heads) each,
+# and the edges (b, s, causal): one row, one past a 128-row block, s 300,
+# non-causal
+CLUSTER_SIZE_HEADS = {1280: (2, 1), 1536: (2, 1), 1728: (2, 1)}
+CLUSTER_SIZE_F32 = (1280, 1728)
+CLUSTER_SIZE_EDGES = ((2, 1, True), (2, 129, True), (2, 300, True),
+                      (2, 256, False))
 WIDE_STEPS = TRAIN_STEPS
 # the causal shape (b, s, heads, KV heads) each of DESIGN_DIMS is timed at
 # in turns: Llama-3.2-1B's at the fine-tuning shape (phase 8's
@@ -1411,14 +1423,20 @@ def phase_bwd_kernels() -> dict:
         del q, k, v, do, o, want, ro, rlse
 
     # the streamed kernels (above the per-dim bound) at STREAMED_EDGES, at
-    # each of their dims' heads, in bf16 and f32, through autograd over
-    # flash_attention: O against K1's plain version, the gradients against
+    # each of their dims' heads, in bf16 and f32, and at CLUSTER_SIZE_EDGES
+    # at CLUSTER_SIZE_HEADS, through autograd over flash_attention: O
+    # against K1's plain version, the gradients against
     # flash_bwd_reference, and the whole of it again, bitwise
-    for label, (h, hkv, d) in _kernel_heads().items():
-        if d <= PER_DIM_MAX:
-            continue
-        for dtype, (b, s, causal) in itertools.product(
-                (torch.bfloat16, torch.float32), STREAMED_EDGES):
+    streamed = [(label, h, hkv, d, (torch.bfloat16, torch.float32),
+                 STREAMED_EDGES)
+                for label, (h, hkv, d) in _kernel_heads().items()
+                if d > PER_DIM_MAX]
+    streamed += [(f"d{d}", h, hkv, d, (torch.bfloat16, torch.float32)
+                  if d in CLUSTER_SIZE_F32 else (torch.bfloat16,),
+                  CLUSTER_SIZE_EDGES)
+                 for d, (h, hkv) in CLUSTER_SIZE_HEADS.items()]
+    for label, h, hkv, d, dtypes, edges in streamed:
+        for dtype, (b, s, causal) in itertools.product(dtypes, edges):
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             name = f"{label} s{s} causal {causal} {tag} autograd"
             q, k, v = _qkv(b, s, h, hkv, d, dtype, gen)
@@ -1446,9 +1464,10 @@ def phase_bwd_kernels() -> dict:
                            *BWD_TOL[dtype])
                     for g, w, n in zip(runs[0][1:], want, "qkv")]
             into = worst_wide if dtype == torch.bfloat16 else worst_f32_wide
-            into["flash_bwd_dq", d] = max(into["flash_bwd_dq", d], errs[0])
-            into["flash_bwd_dkv", d] = max(into["flash_bwd_dkv", d],
-                                           *errs[1:])
+            into["flash_bwd_dq", d] = max(into.get(("flash_bwd_dq", d), 0.0),
+                                          errs[0])
+            into["flash_bwd_dkv", d] = max(
+                into.get(("flash_bwd_dkv", d), 0.0), *errs[1:])
             _log(f"kernel {name} (b{b} h{h} hkv{hkv}): O {eo:.3e}, dq "
                  f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; twice, "
                  "bitwise equal")

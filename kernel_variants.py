@@ -10,8 +10,10 @@ d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
 ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``), and the
 streamed kernels above d 512 on a cluster (``flash_fwd_wide_f32``,
 ``dq_wide_f32`` and ``dkv_wide_f32`` and bf16's ``dkv_wide`` at d 768 and
-2048, in ``csrc/flash_wide.cu``: the exchange's overlap) and time them
-against the committed kernels on one CUDA card.
+2048, in ``csrc/flash_wide.cu``: the exchange's overlap) and bf16's column
+groups there (``flash_fwd_wide``, ``dq_wide``: the ring's layout, where
+its refills are issued, and the groups launched as clusters), and time
+them against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 ``python3 kernel_variants.py [kernel ...]`` (the kernels of
@@ -1300,6 +1302,92 @@ VARIANTS["dq_d192_one_commit"] = (
     "d 192 K2: S and dP in one commit group, waited for together (SPLIT "
     "off), as at d 64 and 256",
     [(DQ_SPLIT, DQ_SPLIT.replace("D == 192", "false"))], "dq_rows8<192>")
+# the streamed bf16 K1 and K2 (column groups): their ring's layout and
+# refill, and the cost of launching a row tile's groups as one cluster
+# (the placement a cluster design of them would have)
+WIDE_K1_RING = """  static constexpr int V_STAGES = 1;
+  static constexpr int FIT = (SMEM_MAX - 2048 - V_STAGES * V_BYTES) / STEP;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;"""
+WIDE_K1_TILE = """  static constexpr int BK = 128;  // keys a tile
+  static constexpr int Q_BYTES = BQ * ROW;  // a chunk of Q"""
+WIDE_K2_RING = """  static constexpr int KG_STAGES = 1;
+  static constexpr int FIT =
+      (SMEM_MAX - 2048 - KG_STAGES * KG_BYTES) / STEP;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;"""
+
+
+def wide_refill_after_barrier(own: str, product: str) -> list:
+    """The streamed K1's (``own`` "v") or K2's ("kg") refills after the
+    step's named barrier, of the step's own stage (as before they moved
+    into the next step's wgmma window), and its output product's tile
+    loaded at the tile's first step."""
+    fill, pad = ("VS", 13) if own == "v" else ("KS", 14)
+    return [(f"""      // while they run: step j - 1's stage (both warpgroups read it before
+      // the named barrier that ended step j - 1) takes step j - 1 + STAGES,
+      // and past the last tile's {product} in both (step j - 1's barrier at cc
+      // 1), its {"V stage" if own == "v" else "stage of K"} takes tile i + {fill} - 1
+      load_step(issuer && j >= 1 && j - 1 + STAGES < steps, j - 1 + STAGES);
+      load_{own}(issuer && part == 1 && cc == 1 && i >= 1 && i + {fill} - 1 < nk,
+{" " * pad}i + {fill} - 1);
+      wgmma_wait<0>();       // this warpgroup has read step j
+      bar_sync(1, THREADS);  // and so has the other
+""", f"""      wgmma_wait<0>();
+      bar_sync(1, THREADS);
+      // (variant: the refills after the barrier)
+      load_step(issuer && j + STAGES < steps, j + STAGES);
+      load_{own}(issuer && part == 1 && cc == 0 && i >= 1 && i + {fill} - 1 < nk,
+{" " * pad}i + {fill} - 1);
+""")]
+
+
+VARIANTS.update({
+    "flash_fwd_wide_two_v": (
+        "streamed K1 with two V tiles and 3 ring steps",
+        [(WIDE_K1_RING, WIDE_K1_RING.replace("V_STAGES = 1", "V_STAGES = 2")
+          .replace("FIT < 8 ? FIT : 8", "FIT < 6 ? FIT : 6"))],
+        "flash_fwd_wide"),
+    "flash_fwd_wide_refill_after_barrier": (
+        "streamed K1 refilling past the named barrier",
+        wide_refill_after_barrier("v", "P V"), "flash_fwd_wide"),
+    **{f"flash_fwd_wide_bk{bk}": (
+        f"streamed K1 on {bk}-key tiles (m64n{bk} scores)",
+        [(WIDE_K1_TILE, WIDE_K1_TILE.replace("BK = 128;", f"BK = {bk};"))],
+        "flash_fwd_wide") for bk in (64, 96)},
+    "flash_fwd_wide_bk64_two_v_after_barrier": (
+        "streamed K1 as it was on 64-key tiles: two V tiles, 6 ring steps, "
+        "the refills after the named barrier",
+        [(WIDE_K1_TILE, WIDE_K1_TILE.replace("BK = 128;", "BK = 64; ")),
+         (WIDE_K1_RING, WIDE_K1_RING.replace("V_STAGES = 1", "V_STAGES = 2")
+          .replace("FIT < 8 ? FIT : 8", "FIT < 6 ? FIT : 6")),
+         *wide_refill_after_barrier("v", "P V")],
+        "flash_fwd_wide"),
+    "flash_fwd_wide_on_clusters": (
+        "streamed K1's column groups launched as clusters of a row tile's "
+        "groups (a cluster's placement, nothing shared)",
+        [("  return launch(flash_fwd_wide<FWD_W>, a.nq * a.groups * h * "
+          "batch, THREADS,\n                L::BYTES, stream, a);",
+          "  return launch_cluster(flash_fwd_wide<FWD_W>, a.nq * a.groups * "
+          "h * batch,\n                        a.groups, THREADS, L::BYTES, "
+          "stream, a);")],
+        "flash_fwd_wide"),
+    "dq_wide_two_kg": (
+        "streamed K2 with two tiles of K's columns and 4 ring steps",
+        [(WIDE_K2_RING, WIDE_K2_RING.replace("KG_STAGES = 1",
+                                             "KG_STAGES = 2"))],
+        "dq_wide"),
+    "dq_wide_refill_after_barrier": (
+        "streamed K2 refilling past the named barrier",
+        wide_refill_after_barrier("kg", "dS K"), "dq_wide"),
+    "dq_wide_on_clusters": (
+        "streamed K2's column groups launched as clusters of a row tile's "
+        "groups (a cluster's placement, nothing shared)",
+        [("  return launch(dq_wide<DQ_W>, a.nq * a.groups * h * batch, "
+          "THREADS,\n                L::BYTES, stream, a);",
+          "  return launch_cluster(dq_wide<DQ_W>, a.nq * a.groups * h * "
+          "batch,\n                        a.groups, THREADS, L::BYTES, "
+          "stream, a);")],
+        "dq_wide"),
+})
 # the heads (query, KV, head dim) each edited kernel is checked and timed
 # at: bench_800m's, phase 12's and Llama-3.2-1B's (a kernel template at a
 # head dim other than its first, or timed at two, is keyed
@@ -1318,7 +1406,8 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_f32": (12, 4, 128), "dkv_f32": (12, 4, 128),
                 "flash_fwd_f32": (12, 4, 128),
                 **{key: cs.WIDE_HEADS["bench_800m_d768"]
-                   for key in (*cs.WIDE_F32_KERNELS.values(), "dkv_wide")}}
+                   for key in (*cs.WIDE_F32_KERNELS.values(), "dkv_wide",
+                               "flash_fwd_wide", "dq_wide")}}
 # the dtype each kernel runs in (bf16 unless named) and the shapes (b, s,
 # heads, KV heads, head dim) it is timed at (the training shape at its
 # KERNEL_HEADS unless named: the f32 kernels at chip_smoke.py's
@@ -1352,8 +1441,9 @@ KERNEL_SHAPES = {
         "dkv_onepass"]), (cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                           *cs.WIDE_HEADS["bench_800m_d192"])],
     **{key: WIDE_F32_SHAPES for key in cs.WIDE_F32_KERNELS.values()},
-    "dkv_wide": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *shape[2:])
-                 for shape in WIDE_F32_SHAPES]}
+    **{key: [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *shape[2:])
+             for shape in WIDE_F32_SHAPES]
+       for key in ("dkv_wide", "flash_fwd_wide", "dq_wide")}}
 
 
 def template_of(kernel: str) -> str:

@@ -57,25 +57,36 @@
 // A block is two warpgroups, 8 warps, so a thread may hold 255 registers
 // (a producer warp beside them makes ptxas give every thread 168, and the
 // accumulators spill). Per chunk step each warpgroup waits for its chunk's
-// wgmmas, then a named barrier of both says the step is read, and thread 0
-// reloads its stage with a TMA copy predicated inside the instruction
-// (tma_4d_if), not behind a branch: the ring needs no `empty` barriers,
-// and no thread branches in a score chain (ptxas serialised every wgmma
-// when thread 0 refilled the ring behind a branch with a wgmma in flight).
+// wgmmas, then a named barrier of both says the step is read. The stage is
+// refilled during the next step, while its wgmmas run: the first thread
+// of each warpgroup issues its share of the step's TMA copies, predicated
+// inside the instruction (tma_4d_if), not behind a branch: the ring needs
+// no `empty` barriers, and no thread branches beside a wgmma in flight
+// (ptxas serialised every wgmma when thread 0 refilled the ring behind a
+// branch with a wgmma in flight).
+// In the wgmma window rather than after the named barrier, K2 is 1.5-3.7%
+// faster at d 768 and 2048 on an H100 and K1 no slower (PERF.md §6).
 // Keeping one chunk's wgmmas in flight while the next one's are issued
-// made ptxas inject waits (C7517) and ran 3-6% slower than this, with the
-// chunk loop unrolled twice, at d 768 on an H100 (PERF.md §6).
+// made ptxas inject waits (C7517) and ran 3-6% slower, with the chunk loop
+// unrolled twice, at d 768 on an H100 (PERF.md §6).
 //
 // What bounds it on an H100: the useful work is operations, 2 d flops per
 // causal pair for each product (K1 2, K2 3, K3 4), hundreds of flops per
 // byte of q, k, v and dO. The streamed design also reads each score tile's
-// operands from L2 once per tile and group, tens of flops per byte, and
-// that bounds it: at d 768 the three load 7-8 TB/s from L2 (counted from
-// their loads) and reach 0.10-0.16 of their bound (PERF.md §6). A cluster
-// of ceil(d / 256) blocks that add their partial scores through
-// distributed shared memory reads each chunk and forms the scores once:
-// K3's dkv_wide; it pays an exchange of 16 KB a 32-query stage a block
-// instead (PERF.md §6 has the times of both designs).
+// operands from L2 once per tile and group, tens of flops per byte: at d
+// 768 the three load 7-8 TB/s from L2 (counted from their loads) and reach
+// 0.10-0.16 of their bound (PERF.md §6). Yet K1's and K2's blocks wait on
+// their chunks for a small share of their time: a step is a chain of four
+// small wgmmas, a wait and a named barrier, and the chain, not L2, takes
+// most of it. Reading each chunk once a row tile and multicasting it to
+// the tile's groups on a cluster lost to these groups at every d (the
+// cluster's placement leaves SMs idle, and freeing a stage across blocks
+// costs every step), while K1's 128-key tiles (half the steps a key) took
+// a third off K1 (PERF.md §6). A cluster of ceil(d / 256) blocks that add
+// their partial scores through distributed shared memory reads each chunk
+// and forms the scores once: K3's dkv_wide; it pays an exchange of 16 KB a
+// 32-query stage a block instead (PERF.md §6 has the times of both
+// designs).
 
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
@@ -227,21 +238,27 @@ __device__ __forceinline__ void store_group(bf16* out, int64_t ss,
 // ------------------------------------------------------------ K1
 //
 // `flash_fwd_wide<W>`: a block owns 128 query rows (64 a warpgroup) of one
-// (b, h) and columns [grp W, grp W + W) of O. Per key tile of 64 keys:
-//   S = Q K^T   over the head dim, chunk by chunk (wgmma m64n64k16 x 4 a
+// (b, h) and columns [grp W, grp W + W) of O. Per key tile of 128 keys:
+//   S = Q K^T   over the head dim, chunk by chunk (wgmma m64n128k16 x 4 a
 //               chunk, Q's and K's chunks of the step from one stage);
 //   the online softmax of flash_fwd_wgmma in f32 (exp2, log2 e folded into
 //   the scale, the row max over a quad of lanes, the row sum reduced once,
 //   at the end);
 //   O[:, own] += P V[:, own]   P rounded to bf16 and re-packed in
 //               registers as the A operand, V's W columns of the tile one
-//               TMA box in a ring of two.
-// Shared memory: STAGES steps of (a 128-row chunk of Q, a 64-key chunk of
-// K) and two V tiles of 64 keys x W columns.
+//               TMA box.
+// Shared memory: STAGES steps of (a 128-row chunk of Q, a 128-key chunk
+// of K) and one V tile of 128 keys x W columns, loaded at the tile's
+// second step (past the last tile's P V). 128-key tiles halve the chunk
+// steps, their waits and named barriers a key, and the shared-memory
+// bytes the score wgmmas read a flop (m64n128 against m64n64): 0.41 ms
+// against 0.61 at d 768 (PERF.md §6; S takes 64 registers, 250 in all, no
+// spill). One V tile rather than two leaves room for 5 ring steps rather
+// than 3: 8-11% faster.
 
 struct FwdArgs {
-  CUtensorMap tq, tk;  // 64-column chunks of 128 query rows, of 64 keys
-  CUtensorMap tv;      // a group's W columns of 64 keys
+  CUtensorMap tq, tk;  // 64-column chunks of 128 query rows, of BK keys
+  CUtensorMap tv;      // a group's W columns of BK keys
   void* o;
   float* lse;
   int64_t o_sb, o_sh, o_ss;
@@ -252,18 +269,18 @@ struct FwdArgs {
 template <int W>
 struct FwdWide {
   static constexpr int BQ = 128;  // query rows a block: 64 a warpgroup
-  static constexpr int BK = 64;   // keys a tile
+  static constexpr int BK = 128;  // keys a tile
   static constexpr int Q_BYTES = BQ * ROW;  // a chunk of Q
   static constexpr int K_BYTES = BK * ROW;  // a chunk of K
   static constexpr int STEP = Q_BYTES + K_BYTES;
   static constexpr int V_CB = BK * ROW;  // V's column block stride
   static constexpr int V_BYTES = W / 64 * V_CB;
-  static constexpr int V_STAGES = 2;
+  static constexpr int V_STAGES = 1;
   static constexpr int FIT = (SMEM_MAX - 2048 - V_STAGES * V_BYTES) / STEP;
-  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int V_OFF = STAGES * STEP;
   static constexpr int BAR_OFF = V_OFF + V_STAGES * V_BYTES;
-  // mbarriers: full[STAGES], v_full[2]
+  // mbarriers: full[STAGES], v_full[V_STAGES]
   static constexpr int BYTES = BAR_OFF + 8 * (STAGES + V_STAGES) + 1024;
   static_assert(W % 64 == 0 && W <= 256, "O: 256 columns a warpgroup");
   static_assert(STAGES >= 3 && BYTES <= SMEM_MAX, "227 KB a block");
@@ -352,15 +369,21 @@ flash_fwd_wide(const __grid_constant__ FwdArgs a) {
   if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
   const int nc = a.chunks, steps = nk * nc;
   const bool lead = threadIdx.x == 0;
+  // a step's loads are split between the first threads of the two
+  // warpgroups (`part` 0 and 1), each issuing in its own warpgroup's wgmma
+  // window
+  const int part = threadIdx.x / WG;
+  const bool issuer = threadIdx.x % WG == 0;
 
   // step j (where p holds): chunk j % nc of the block's Q rows and of key
   // tile j / nc's keys
   auto load_step = [&](bool p, int j) {
     const int s = j % STAGES, col = j % nc * 64;
     const uint32_t dst = base + s * L::STEP, bar = full + 8 * s;
-    expect_tx_if(p, bar, L::STEP);
-    tma_4d_if(p, dst, &a.tq, bar, col, q0, ih, ib);
-    tma_4d_if(p, dst + L::Q_BYTES, &a.tk, bar, col, j / nc * BK, ikv, ib);
+    const bool p0 = p && part == 0, p1 = p && part == 1;
+    expect_tx_if(p0, bar, L::STEP);
+    tma_4d_if(p0, dst, &a.tq, bar, col, q0, ih, ib);
+    tma_4d_if(p1, dst + L::Q_BYTES, &a.tk, bar, col, j / nc * BK, ikv, ib);
   };
   // key tile i's W columns of V
   auto load_v = [&](bool p, int i) {
@@ -376,9 +399,9 @@ flash_fwd_wide(const __grid_constant__ FwdArgs a) {
     fence_mbar_init();
   }
   __syncthreads();
-  if (lead) {
+  if (issuer) {
     for (int j = 0; j < STAGES && j < steps; ++j) load_step(true, j);
-    for (int i = 0; i < VS && i < nk; ++i) load_v(true, i);
+    for (int i = 0; i < VS && i < nk; ++i) load_v(part == 1, i);
   }
 
   const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
@@ -405,11 +428,15 @@ flash_fwd_wide(const __grid_constant__ FwdArgs a) {
       wgmma_fence();
       chunk_ss<BK>(sc, at + c * 64 * ROW, at + L::Q_BYTES, cc);
       wgmma_commit();
+      // while they run: step j - 1's stage (both warpgroups read it before
+      // the named barrier that ended step j - 1) takes step j - 1 + STAGES,
+      // and past the last tile's P V in both (step j - 1's barrier at cc
+      // 1), its V stage takes tile i + VS - 1
+      load_step(issuer && j >= 1 && j - 1 + STAGES < steps, j - 1 + STAGES);
+      load_v(issuer && part == 1 && cc == 1 && i >= 1 && i + VS - 1 < nk,
+             i + VS - 1);
       wgmma_wait<0>();       // this warpgroup has read step j
-      bar_sync(1, THREADS);  // and so has the other: its stage takes
-      load_step(lead && j + STAGES < steps, j + STAGES);
-      // past the last tile's P V in both: its V stage takes tile i + 1
-      load_v(lead && cc == 0 && i >= 1 && i + 1 < nk, i + 1);
+      bar_sync(1, THREADS);  // and so has the other
     }
     fence_regs(sc);
 
@@ -475,11 +502,13 @@ flash_fwd_wide(const __grid_constant__ FwdArgs a) {
 //       that cross the diagonal or the ragged end), dS = P (dP - delta),
 //       rounded to bf16 and re-packed in registers as A fragments;
 //   dQ[:, own] += dS K[:, own]  K's W columns of the tile one TMA box, read
-//       MN-major, in a ring of two.
+//       MN-major, loaded at the tile's second step (past the last tile's
+//       dS K).
 // 32-key tiles keep S and dP at 16 registers each beside dQ's 128
 // (dq_rows8<256>'s choice). dQ is scaled once, at the end. Shared memory:
 // STAGES steps of (128-row chunks of Q and dO, 32-key chunks of K and V)
-// and two tiles of K's W columns.
+// and one tile of K's W columns: one tile rather than two leaves room for
+// a fifth ring step, 4.5-6.5% faster at d 768 and 2048 (PERF.md §6).
 
 struct DqArgs {
   CUtensorMap tq, tdo;  // 64-column chunks of 128 query rows
@@ -505,13 +534,13 @@ struct DqWide {
   static constexpr int STEP = 2 * Q_BYTES + 2 * K_BYTES;
   static constexpr int KG_CB = BK * ROW;  // K tile's column block stride
   static constexpr int KG_BYTES = W / 64 * KG_CB;
-  static constexpr int KG_STAGES = 2;
+  static constexpr int KG_STAGES = 1;
   static constexpr int FIT =
       (SMEM_MAX - 2048 - KG_STAGES * KG_BYTES) / STEP;
   static constexpr int STAGES = FIT < 6 ? FIT : 6;
   static constexpr int KG_OFF = STAGES * STEP;
   static constexpr int BAR_OFF = KG_OFF + KG_STAGES * KG_BYTES;
-  // mbarriers: full[STAGES], kg_full[2]
+  // mbarriers: full[STAGES], kg_full[KG_STAGES]
   static constexpr int BYTES = BAR_OFF + 8 * (STAGES + KG_STAGES) + 1024;
   static_assert(W % 64 == 0 && W <= 256, "dQ: 256 columns a warpgroup");
   static_assert(STAGES >= 3 && BYTES <= SMEM_MAX, "227 KB a block");
@@ -537,17 +566,23 @@ dq_wide(const __grid_constant__ DqArgs a) {
   if (a.causal) nk = min(nk, (q0 + BQ + BK - 1) / BK);
   const int nc = a.chunks, steps = nk * nc;
   const bool lead = threadIdx.x == 0;
+  // a step's loads are split between the first threads of the two
+  // warpgroups (`part` 0 and 1), each issuing in its own warpgroup's wgmma
+  // window
+  const int part = threadIdx.x / WG;
+  const bool issuer = threadIdx.x % WG == 0;
 
   // step j (where p holds): chunk j % nc of the block's Q and dO rows and
   // of key tile j / nc's K and V
   auto load_step = [&](bool p, int j) {
     const int s = j % STAGES, col = j % nc * 64, k0 = j / nc * BK;
     const uint32_t dst = base + s * L::STEP, bar = full + 8 * s;
-    expect_tx_if(p, bar, L::STEP);
-    tma_4d_if(p, dst, &a.tq, bar, col, q0, ih, ib);
-    tma_4d_if(p, dst + L::DO_OFF, &a.tdo, bar, col, q0, ih, ib);
-    tma_4d_if(p, dst + L::K_OFF, &a.tk, bar, col, k0, ikv, ib);
-    tma_4d_if(p, dst + L::V_OFF, &a.tv, bar, col, k0, ikv, ib);
+    const bool p0 = p && part == 0, p1 = p && part == 1;
+    expect_tx_if(p0, bar, L::STEP);
+    tma_4d_if(p0, dst, &a.tq, bar, col, q0, ih, ib);
+    tma_4d_if(p1, dst + L::DO_OFF, &a.tdo, bar, col, q0, ih, ib);
+    tma_4d_if(p0, dst + L::K_OFF, &a.tk, bar, col, k0, ikv, ib);
+    tma_4d_if(p1, dst + L::V_OFF, &a.tv, bar, col, k0, ikv, ib);
   };
   // key tile i's W columns of K
   auto load_kg = [&](bool p, int i) {
@@ -563,9 +598,9 @@ dq_wide(const __grid_constant__ DqArgs a) {
     fence_mbar_init();
   }
   __syncthreads();
-  if (lead) {
+  if (issuer) {
     for (int j = 0; j < STAGES && j < steps; ++j) load_step(true, j);
-    for (int i = 0; i < KS && i < nk; ++i) load_kg(true, i);
+    for (int i = 0; i < KS && i < nk; ++i) load_kg(part == 1, i);
   }
 
   const int c = threadIdx.x / WG;  // this warpgroup's 64 query rows
@@ -599,11 +634,15 @@ dq_wide(const __grid_constant__ DqArgs a) {
       chunk_ss<BK>(sc, at + c * 64 * ROW, at + L::K_OFF, cc);
       chunk_ss<BK>(dp, at + L::DO_OFF + c * 64 * ROW, at + L::V_OFF, cc);
       wgmma_commit();
+      // while they run: step j - 1's stage (both warpgroups read it before
+      // the named barrier that ended step j - 1) takes step j - 1 + STAGES,
+      // and past the last tile's dS K in both (step j - 1's barrier at cc
+      // 1), its stage of K takes tile i + KS - 1
+      load_step(issuer && j >= 1 && j - 1 + STAGES < steps, j - 1 + STAGES);
+      load_kg(issuer && part == 1 && cc == 1 && i >= 1 && i + KS - 1 < nk,
+              i + KS - 1);
       wgmma_wait<0>();       // this warpgroup has read step j
-      bar_sync(1, THREADS);  // and so has the other: its stage takes
-      load_step(lead && j + STAGES < steps, j + STAGES);
-      // past the last tile's dS K in both: its stage of K takes tile i + 1
-      load_kg(lead && cc == 0 && i >= 1 && i + 1 < nk, i + 1);
+      bar_sync(1, THREADS);  // and so has the other
     }
     fence_regs(sc);
     fence_regs(dp);
@@ -2381,11 +2420,12 @@ void fill_shape(Args& a, int batch, int h, int hkv, int sq, int sk, int d,
   a.scale_log2 = scale * kLog2e;
 }
 
-// bf16 and f32 at any multiple of 64 (f32 from F32_MIN_D: a tile's steps
-// must outnumber the ring's stages)
+// bf16 and f32 at any multiple of 64 from two chunks (bf16: a tile's
+// second step loads the output product's tile; f32 from F32_MIN_D: a
+// tile's steps must outnumber the ring's stages)
 bool shape_ok(int bf16_in, int batch, int h, int hkv, int sq, int sk, int d) {
-  return batch > 0 && sq > 0 && sk > 0 && hkv > 0 && h % hkv == 0 && d > 0 &&
-         d % 64 == 0 && (bf16_in || d >= F32_MIN_D);
+  return batch > 0 && sq > 0 && sk > 0 && hkv > 0 && h % hkv == 0 &&
+         d >= 128 && d % 64 == 0 && (bf16_in || d >= F32_MIN_D);
 }
 
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
@@ -2444,7 +2484,9 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
 // -DFLASH_OTHER_DESIGNS=1, so that chip_smoke.py times both in turns. A
 // narrower last block forms both products over W columns of zeros past d,
 // and the cluster lost in turns where it holds 64 or 128 (d 576, 640;
-// PERF.md §6).
+// PERF.md §6). K1's and K2's groups of a row tile on one cluster, each
+// chunk read from L2 once and multicast to them, lost to the groups at
+// every d from 576 to 2048 (PERF.md §6), and are not kept.
 enum WideDesign { kWideGroups = 1, kWideCluster = 2 };
 constexpr int wide_design(int kernel, int d) {
   return kernel == 2 && !FLASH_OTHER_DESIGNS &&

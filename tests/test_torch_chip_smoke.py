@@ -219,6 +219,34 @@ def test_wide_head_settings():
     assert chip_smoke.PER_DIM_MAX == fa.KERNEL_HEAD_DIMS[-1] == 512
 
 
+
+@pytest.mark.parametrize("d", sorted(chip_smoke.CLUSTER_SIZE_HEADS))
+def test_cluster_size_dims_run_at_small_shapes(d):
+    """Phase 3 runs the streamed kernels at d 1280, 1536 and 1728, where
+    the bf16 K3 runs on clusters of 5, 6 and 7 blocks (the last block full,
+    full, 192 columns) and the f32 kernels at d 1280 and 1728 too, through
+    autograd against the plain versions at CLUSTER_SIZE_EDGES: small shapes
+    (b 2, s up to 300, one row, one past a 128-row block, non-causal), so
+    the run stays short."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    h, hkv = chip_smoke.CLUSTER_SIZE_HEADS[d]
+    assert h % hkv == 0 and d > chip_smoke.PER_DIM_MAX and d % 64 == 0
+    n = {1280: 5, 1536: 6, 1728: 7}[d]
+    assert fa.wide_cluster(d, "flash_bwd_dkv") == n
+    assert fa.wide_f32_cluster(d, "flash_bwd_dq") == n
+    assert fa.wide_cluster(d, "flash_fwd") == 1
+    assert set(chip_smoke.CLUSTER_SIZE_F32) == {1280, 1728}
+    assert all(b == 2 and s <= 300
+               for b, s, _ in chip_smoke.CLUSTER_SIZE_EDGES)
+    assert {s for _, s, _ in chip_smoke.CLUSTER_SIZE_EDGES} >= {1, 129}
+    assert not all(c for _, _, c in chip_smoke.CLUSTER_SIZE_EDGES)
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "for d, (h, hkv) in CLUSTER_SIZE_HEADS.items()]" in src
+    assert "CLUSTER_SIZE_EDGES)" in src
+
 def test_kernel_only_head_settings():
     """Phase 3 checks and times K1, K2 and K3 at every head dim the split
     kernels take (d 320 and 448 with no model, 4 / 2 heads), at the

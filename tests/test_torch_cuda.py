@@ -454,7 +454,8 @@ def test_greedy_generate_wide_head_flash_equals_dense_on_cuda(cuda):
 # holds at least 192 columns (d 704, 768, 1024, 2048; the column groups at
 # d 576, 640, 832 and past d 2048): the last rows hold both at ragged ends
 # one short of and one past those tiles, and bf16's K3 as column groups at
-# d 576 and 2112
+# d 576 and 2112. Clusters of 5, 6 and 7 blocks: d 1280 (the last block
+# full) and 1728 (the last block 192 columns) in both dtypes, 1536 in bf16
 WIDE_SHAPES = [
     (2, 1, 2, 1, 576, True, "bfloat16"),
     (2, 65, 4, 2, 576, True, "bfloat16"),
@@ -494,6 +495,11 @@ WIDE_SHAPES = [
     (2, 63, 4, 2, 576, True, "float32"),
     (2, 31, 2, 1, 768, True, "float32"),
     (2, 97, 1, 1, 2048, True, "float32"),
+    (2, 129, 2, 1, 1280, True, "bfloat16"),
+    (2, 300, 2, 1, 1280, True, "float32"),
+    (2, 256, 2, 1, 1536, False, "bfloat16"),
+    (2, 300, 2, 1, 1728, True, "bfloat16"),
+    (2, 65, 2, 1, 1728, True, "float32"),
 ]
 
 
@@ -540,7 +546,9 @@ def test_streamed_kernels_match_plain(cuda, b, s, h, hkv, d, causal, dtype):
     (2, 127, 2, 1, 832, "float32"), (2, 1000, 2, 1, 768, "float32"),
     (2, 1000, 2, 1, 1024, "float32"), (1, 1000, 1, 1, 2048, "float32"),
     (2, 65, 1, 1, 2112, "float32"), (1, 1000, 1, 1, 2048, "bfloat16"),
-    (2, 65, 1, 1, 2112, "bfloat16")])
+    (2, 65, 1, 1, 2112, "bfloat16"), (2, 300, 2, 1, 1280, "bfloat16"),
+    (2, 300, 2, 1, 1280, "float32"), (2, 300, 2, 1, 1728, "bfloat16"),
+    (2, 300, 2, 1, 1728, "float32")])
 def test_streamed_kernels_are_deterministic(cuda, kernel, b, s, h, hkv, d,
                                             dtype):
     """Each output element of the streamed kernels belongs to one block

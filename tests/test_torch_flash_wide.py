@@ -369,6 +369,69 @@ def test_bf16_k3_clusters_up_to_2048_then_groups(d):
     assert "static_assert(DkvWide<DKV_W>::BK == L::BK" in text
 
 
+
+@pytest.mark.parametrize("d", (*ROUTED_DIMS, 1280, 1536, 1728, 2112))
+def test_bf16_k1_k2_stream_column_groups_at_every_d(d):
+    """The bf16 K1 and K2 above 512 run ceil(d / 256) independent column
+    groups at every d (``wide_cluster`` 1, a plain launch; a row tile's
+    groups on one cluster, each chunk multicast to them, lost to this in
+    turns at every d it was timed at), each group forming the scores over
+    the whole head dim. Inside the chunk loop the ring's refill of the
+    previous step's stage is issued while this step's wgmmas run,
+    predicated inside the copies and split between the two warpgroups'
+    first threads, with no branch; it needs a tile's second step, so the
+    bf16 route starts at two chunks (d 128)."""
+    text = SOURCE.read_text()
+    for name in ("flash_fwd", "flash_bwd_dq"):
+        assert tfa.wide_cluster(d, name) == 1
+        assert len(tfa.wide_groups(d, name)) == -(-d // 256)
+    for kernel, const in (("flash_fwd_wide", "FWD_W"), ("dq_wide", "DQ_W")):
+        assert (f"  return launch({kernel}<{const}>, a.nq * a.groups * h * "
+                "batch, THREADS,") in text
+        assert f"launch_cluster({kernel}<" not in text
+        start = text.index(f"{kernel}(const __grid_constant__ ")
+        body = text[start:text.index("\n}\n", start)]
+        loop = body[body.index("for (int cc = 0; cc < nc; ++cc) {"):]
+        loop = loop[:loop.index("bar_sync(1, THREADS);")]
+        refill = ("load_step(issuer && j >= 1 && j - 1 + STAGES < steps, "
+                  "j - 1 + STAGES);")
+        assert loop.index("wgmma_commit();") < loop.index(refill) < (
+            loop.index("wgmma_wait<0>();"))
+        assert "if (" not in loop
+        assert "const bool p0 = p && part == 0, p1 = p && part == 1;" in body
+    assert "d >= 128 && d % 64 == 0 && (bf16_in || d >= F32_MIN_D)" in text
+
+
+@pytest.mark.parametrize("kernel", ["FwdWide", "DqWide"])
+def test_streamed_k1_k2_rings_fit(kernel):
+    """K1's and K2's shared memory: the ring's steps, the output product's
+    tile, a `full` mbarrier a step and one for the tile, within SMEM_MAX.
+    K1 holds one V tile of 128 keys x 256 columns and 5 steps of a 128-row
+    Q chunk and a 128-key K chunk; K2 one tile of K's 256 columns of 32
+    keys and 5 steps of Q, dO, K and V chunks (each tile loaded at its
+    tile's second step); one step more fits in neither."""
+    text = SOURCE.read_text()
+    struct = text[text.index(f"struct {kernel} {{"):]
+    struct = struct[:struct.index("\n};\n")]
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = "
+                                               r"(\d+);", text)}
+    smem_max, row = consts["SMEM_MAX"], consts["ROW"]
+    assert "BQ = 128;" in struct
+    if kernel == "FwdWide":
+        assert "V_STAGES = 1;" in struct and "FIT < 8 ? FIT : 8;" in struct
+        assert "BK = 128;" in struct
+        step, fixed, cap, tiles = 2 * 128 * row, 4 * 128 * row, 8, 1
+    else:
+        assert "KG_STAGES = 1;" in struct and "FIT < 6 ? FIT : 6;" in struct
+        assert "BK = 32;" in struct
+        step, fixed, cap, tiles = 2 * 128 * row + 2 * 32 * row, 4 * 32 * row, 6, 1
+    assert "8 * (STAGES + " in struct and "STAGES) + 1024;" in struct
+    stages = min((smem_max - 2048 - tiles * fixed) // step, cap)
+    assert stages == 5
+    assert stages * step + tiles * fixed + 8 * (stages + tiles) + 1024 <= (
+        smem_max)
+    assert (stages + 1) * step + tiles * fixed > smem_max - 2048
+
 def _cluster_sum(units):
     """hopper.cuh's ClusterSum sizing for UNITS 16-byte units a thread:
     its TOTAL units a block, a rank's largest share at n, the `rs` slots a

@@ -11,10 +11,10 @@ no network. Phases, each of which raises on failure:
 2. build: every kernel source, one nvcc each, all started together, the
    per-dim ones also with -DFLASH_OTHER_DESIGNS=1 (the designs not
    shipped); ptxas's registers, spills and C75xx notes of the d 64, 192,
-   256, 384 and 512 kernels, of the f32 K1, K2 and K3 at every head dim
+   256 and 320 to 512 kernels, of the f32 K1, K2 and K3 at every head dim
    and of the streamed kernels of csrc/flash_wide.cu (above d 512, bf16
    and f32) (the register-tiled ones must not spill, the pairs of blocks,
-   K1's at d 384, K2's at d 512 and K3's at d 384 and 512, and the six
+   K1's at d 384, K2's at d 512 and K3's at d 320 to 512, and the six
    streamed kernels must compile clean);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, in bf16 and f32, with stated tolerances, timed
@@ -39,20 +39,23 @@ no network. Phases, each of which raises on failure:
    dtypes; K1, K2 and K3 at
    d 64, 192 and 256 also at ragged lengths (s 1, 63 (K2, K3 at d 192),
    65, 127, 191, 2047; group 4 at s 300; non-causal s 512, at d 64 s
-   256), the pairs of blocks at d 384 and 512 at their edges
+   256), the pairs of blocks at d 384 and 512 (K3's also at d 320 and
+   448) at their edges
    (PAIR_EDGE_SETS: K3 at PAIR_EDGES, s 1, 65, 129, 300, 1000, 2047, GQA
    groups 1 to 3, non-causal s 256; K1 and K2 at ROWS_PAIR_EDGES, s 1,
    127, 129, 255, 300 at GQA groups 1 to 3, 1000, 2047, non-causal s 256;
    K1 there also twice on one input, bitwise); the design not shipped at
-   d 64, 192, 256, 384 and 512 (K1, K2 and K3 at d 64, K2 at d 192, K1, K2
-   and K3 at d 256: the 12-warp row split; K1 at d 192: the rows on 8
-   warps; K3 at d 192: the one pass; K1 and K3 at d 384 and 512 and K2
-   at d 512: the D split; K2 at d 384: the pair of blocks)
+   d 64, 192, 256 and 320 to 512 (K1, K2 and K3 at d 64, K2 at d 192, K1,
+   K2 and K3 at d 256: the 12-warp row split; K1 at d 192: the rows on 8
+   warps; K3 at d 192: the one pass; K1 and K3 at d 384 and 512, K3 at
+   d 320 and 448 and K2 at d 512: the D split; K2 at d 384: the pair of
+   blocks)
    against the plain versions and timed in turns with the shipped one at
    DESIGN_SHAPES (d 64 at the fine-tuning shape; K1 also at d 256's
    prefill shape), K1 beside SDPA's forward with the blocks an SM holds,
    the K2 + K3 pair beside SDPA's backward, K1, K2 and K3 at d 384 and
-   512 with the clusters of two blocks a card holds; K1,
+   512 and K3 at d 320 and 448 with the clusters of two blocks a card
+   holds; K1,
    K2 and K3 in f32 (the
    register-tiled
    flash_fwd_f32, dq_f32 and dkv_f32) against their plain versions at
@@ -238,8 +241,8 @@ PROFILE_KERNELS = {"flash_fwd_wgmma": "K1 flash_fwd", "dq_wgmma": "K2 dq",
                    "flash_fwd_twin": "K1 flash_fwd (twin 8-warp blocks, d 64)",
                    "dq_rows8": "K2 dq (8 warps, d 64, 192 and 256)",
                    "dkv_onepass": "K3 dkv (one pass, d 256)",
-                   "dkv_pair": "K3 dkv (one pass on a cluster of two, d 384 "
-                               "and 512)",
+                   "dkv_pair": "K3 dkv (one pass on a cluster of two, d 320 "
+                               "to 512)",
                    "flash_fwd_pair": "K1 flash_fwd (rows on a cluster of two, "
                                      "d 384 and 512)",
                    "dq_pair": "K2 dq (rows on a cluster of two, d 512)",
@@ -272,13 +275,14 @@ DESIGN_KERNELS = {
     "flash_bwd_dkv": {0: "dkv_wgmma", 1: "dkv_split", 3: "dkv_onepass",
                       4: "dkv_keys8", 6: "dkv_pair", 8: "dkv_wide"}}
 # the other designs (all three at d 64, K1 and K3 at d 192 and 256, K2 at
-# d 192 and 256, all three at d 384 and 512 in bf16, and all three at d
-# 128 in f32; phase 3 times them beside the shipped ones in turns):
+# d 192 and 256, all three at d 384 and 512 and K3 at d 320 and 448 in
+# bf16, and all three at d 128 in f32; phase 3 times them beside the
+# shipped ones in turns):
 # every kernel source built with -DFLASH_OTHER_DESIGNS=1 into here
 OTHER_DESIGNS_DIR = ROOT / "build" / "chip_smoke_other_designs"
 # the head dims at which some bf16 kernel ships one of two designs
 # (DESIGN_SHAPES: where phase 3 times both)
-DESIGN_DIMS = (64, 192, 256, 384, 512)
+DESIGN_DIMS = (64, 192, 256, 320, 384, 448, 512)
 # K1's, K2's and K3's f32 designs by the id flash_fwd_f32_design and
 # flash_bwd_f32_design return (csrc/flash_fwd.cu's and csrc/flash_bwd.cu's
 # F32Design), and the head dim at which the other build runs the other one
@@ -489,13 +493,15 @@ CLUSTER_SIZE_EDGES = ((2, 1, True), (2, 129, True), (2, 300, True),
 WIDE_STEPS = TRAIN_STEPS
 # the causal shape (b, s, heads, KV heads) each of DESIGN_DIMS is timed at
 # in turns: Llama-3.2-1B's at the fine-tuning shape (phase 8's
-# distillation student) and phase 12's d 192, 256, 384 and 512 heads at
-# the training shape
+# distillation student), phase 12's d 192, 256, 384 and 512 heads and
+# KERNEL_ONLY_HEADS' d 320 and 448 ones at the training shape
 DESIGN_SHAPES = {
     64: (FT_BATCH, FT_SEQ, HF_LLAMA32_1B["num_attention_heads"],
          HF_LLAMA32_1B["num_key_value_heads"]),
     **{d: (TRAIN_BATCH, TRAIN_SEQ, *WIDE_HEADS[f"bench_800m_d{d}"][:2])
-       for d in (192, 256, 384, 512)}}
+       for d in (192, 256, 384, 512)},
+    **{d: (TRAIN_BATCH, TRAIN_SEQ, *KERNEL_ONLY_HEADS[f"d{d}"][:2])
+       for d in (320, 448)}}
 # d 64's K1 and K2 blocks of 128 query rows (over 128- and 64-key tiles)
 # and K3 blocks of 128 keys at their edges, (b, s, heads, KV heads,
 # causal): one row, ragged ends inside and one past a block, s 2047 at
@@ -510,11 +516,12 @@ D64_EDGES = ((2, 1, 4, 4, True), (2, 65, 4, 4, True), (2, 127, 8, 2, True),
 # s 2047, non-causal aligned
 WIDE_EDGES = ((2, 1, True), (2, 65, True), (2, 191, True), (1, 2047, True),
               (2, 512, False))
-# K3's pairs of blocks at d 384 and 512 (dkv_pair: 64 keys a pair, 64-query
-# stages) at their edges, (b, s, heads, KV heads, causal): one row, ragged
-# ends one past a 64-key block and past two, s 300 at GQA groups 1 and 2,
-# s 1000 and 2047, non-causal aligned; groups 1 to 3. Phase 3 holds the
-# shipped K3 there at both dims, phase_wide_designs the other build's
+# K3's pairs of blocks at d 320 to 512 (dkv_pair: 64 keys a pair, 64-query
+# stages; DKV_PAIR_DIMS) at their edges, (b, s, heads, KV heads, causal):
+# one row, ragged ends one past a 64-key block and past two, s 300 at GQA
+# groups 1 and 2, s 1000 and 2047, non-causal aligned; groups 1 to 3.
+# Phase 3 holds the shipped K3 there at each dim, phase_wide_designs the
+# other build's
 PAIR_EDGES = ((2, 1, 3, 1, True), (2, 65, 4, 2, True), (2, 129, 3, 1, True),
               (2, 300, 3, 3, True), (2, 300, 4, 2, True),
               (2, 1000, 3, 1, True), (1, 2047, 4, 2, True),
@@ -536,6 +543,10 @@ ROWS_PAIR_EDGES = ((2, 1, 3, 1, True), (2, 127, 4, 2, True),
 # side by side, at both kernels' edges), phase_wide_designs the other
 # build's
 PAIR_DIMS = (384, 512)
+# the head dims at which K3 has a pair of blocks (dkv_pair; dkv_split in the
+# other build): PAIR_DIMS, and d 320 and 448, where each block holds 64
+# ceil(d / 128) columns and the second block's last 64 are TMA's zeros
+DKV_PAIR_DIMS = (320, 384, 448, 512)
 PAIR_EDGE_SETS = {"flash_fwd": ROWS_PAIR_EDGES,
                   "flash_bwd_dq": ROWS_PAIR_EDGES,
                   "flash_bwd_dkv": PAIR_EDGES}
@@ -662,7 +673,7 @@ def phase_device() -> None:
 def phase_build() -> None:
     """Every kernel source, one nvcc each, all started together: as the
     port builds it, and the per-dim sources also with the other designs
-    (bf16 at d 64, 192, 256, 384 and 512, f32 at d 128; phase 3 times
+    (bf16 at d 64, 192, 256 and 320 to 512, f32 at d 128; phase 3 times
     both). Raises if a register-tiled f32 kernel spills, a kernel of
     CLEAN_KERNELS or a streamed kernel spills or has a C75xx note (a
     wgmma serialised and the like), or the streamed kernels' column groups
@@ -1309,13 +1320,15 @@ def phase_bwd_kernels() -> dict:
          False),
         # K2's and K3's pairs of blocks at d 384 and 512 (dq_pair: 128
         # query rows a pair, 32-key stages; dkv_pair: 64 keys a pair) at
-        # both kernels' edges, side by side
+        # both kernels' edges, side by side, and K3's at d 320 and 448 at
+        # its own
         *((f"d{d} s{s} h{h} hkv{hkv} causal {causal} bf16", b, s, h, hkv, d,
            torch.bfloat16, causal)
-          for d in PAIR_DIMS
+          for d in DKV_PAIR_DIMS
           for b, s, h, hkv, causal in dict.fromkeys(
               PAIR_EDGE_SETS["flash_bwd_dkv"]
-              + PAIR_EDGE_SETS["flash_bwd_dq"])),
+              + (PAIR_EDGE_SETS["flash_bwd_dq"] if d in PAIR_DIMS
+                 else ()))),
         # the f32 kernels' tiles (dq_f32: 64 rows at d 128, 32 at d 512;
         # dkv_f32: 64 keys and 32-row query tiles at d 128, 32 keys and
         # 8-row query tiles at d 512) one row short of and one past their
@@ -1614,8 +1627,8 @@ def _time_k2_k3(label, b, s, h, hkv, d, gen, dtype=torch.bfloat16) -> dict:
 
 
 def phase_wide_designs() -> dict:
-    """At d 64, 192, 256, 384 and 512 some kernels have two designs each.
-    K1 at d
+    """At d 64, 192, 256 and 320 to 512 some kernels have two designs
+    each. K1 at d
     64, 192 and 256: the row split (flash_fwd_wgmma: 12-warp blocks of
     128 rows, 64 a consumer, a producer warpgroup) and, at d 192 and 256,
     the rows on 8 warps (flash_fwd_rows8: the same rows without the
@@ -1628,14 +1641,15 @@ def phase_wide_designs() -> dict:
     dkv_onepass: 64 keys a block, dV on one warpgroup and dK on the
     other, one pass; dkv_keys8 at d 64: 128 keys a block, 64 a warpgroup,
     each holding dK and dV of its keys, one pass); K1, K2 and K3 at d 384
-    and 512 (K2's pair ships at d 512 only): the D split (dkv_split: 64
-    keys a block, the
-    output's columns split between the warpgroups, two passes;
-    flash_fwd_split and dq_split: 64 rows a block) and a cluster of two
-    (dkv_pair: dkv_onepass on each block of a pair; flash_fwd_pair and
-    dq_pair: 128 rows a pair, as flash_fwd_wgmma and dq_rows8; each block
-    holding half of the head dim, the score products' partial sums
-    exchanged between the pair's shared memories). The port ships, per
+    and 512 (K2's pair ships at d 512 only) and K3 at d 320 and 448: the D
+    split (dkv_split: 64 keys a block, the output's columns split between
+    the warpgroups, two passes; flash_fwd_split and dq_split: 64 rows a
+    block) and a cluster of two (dkv_pair: dkv_onepass on each block of a
+    pair; flash_fwd_pair and dq_pair: 128 rows a pair, as flash_fwd_wgmma
+    and dq_rows8; each block holding half of the head dim, at d 320 and
+    448 K3's 64 ceil(d / 128) columns a block, the second block's last 64
+    TMA's zeros; the score products' partial sums exchanged between the
+    pair's shared memories). The port ships, per
     kernel and head dim, the one its sources name (``flash_fwd_design``,
     ``flash_bwd_dq_design``, ``flash_bwd_dkv_design`` in each library);
     the other is built with -DFLASH_OTHER_DESIGNS=1 (phase 2). At each
@@ -1646,10 +1660,11 @@ def phase_wide_designs() -> dict:
     other, other, shipped), K1 beside SDPA's forward with the blocks an SM
     holds of each, K2 + K3 as a pair beside SDPA's backward, each kernel
     that either build launches in clusters (K1, K2 and K3 at d 384 and
-    512) with the clusters of two a card holds of each (-1:
-    not a cluster kernel); the other K1 at d 192 and 256 and K2 at d 192
-    (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES) and at d
-    384 and 512 (PAIR_EDGE_SETS) are also held against the plain versions
+    512, K3 at d 320 and 448) with the clusters of two a card holds of
+    each (-1: not a cluster kernel); the other K1 at d 192 and 256 and K2
+    at d 192 (WIDE_EDGES), the other K1, K2 and K3 at d 64 (D64_EDGES) and
+    at d 384 and 512 and K3 at d 320 and 448 (PAIR_EDGE_SETS) are also
+    held against the plain versions
     at ragged lengths, GQA groups and non-causal. Returns {head
     dim: {kernel: numbers}}, K1's prefill numbers under ``"prefill"``."""
     from service_account_auth_improvements_tpu_torch.ops import (
@@ -1795,8 +1810,9 @@ def phase_wide_designs() -> dict:
             out[d]["flash_fwd"]["other_max_abs_err"] = max(
                 out[d]["flash_fwd"]["other_max_abs_err"], err)
         # K2's and K3's other design at d 64 at D64_EDGES, K2's at d 192
-        # at WIDE_EDGES, and each one's at d 384 and 512 at its pair edges
-        # (phase 3 holds the shipped ones there), each twice on one input
+        # at WIDE_EDGES, and each one's at its pair dims (K2 at d 384 and
+        # 512, K3 at d 320 to 512) at its pair edges (phase 3 holds the
+        # shipped ones there), each twice on one input
         h, hkv, _ = WIDE_HEADS["bench_800m_d192"]
         bwd_edges = [(b, s, h, hkv, 192, causal, ("flash_bwd_dq",))
                      for b, s, causal in WIDE_EDGES]
@@ -1804,8 +1820,9 @@ def phase_wide_designs() -> dict:
                        ("flash_bwd_dq", "flash_bwd_dkv"))
                       for b, s, h, hkv, causal in D64_EDGES]
         bwd_edges += [(b, s, h, hkv, d, causal, (name,))
-                      for name in ("flash_bwd_dq", "flash_bwd_dkv")
-                      for d in PAIR_DIMS
+                      for name, dims in (("flash_bwd_dq", PAIR_DIMS),
+                                         ("flash_bwd_dkv", DKV_PAIR_DIMS))
+                      for d in dims
                       for b, s, h, hkv, causal in PAIR_EDGE_SETS[name]]
         for b, s, h, hkv, d, causal, names in bwd_edges:
             q, k, v, do, o, lse = _bwd_inputs(b, s, h, hkv, d, dtype, gen,
@@ -5641,7 +5658,10 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
     with both its designs in turns at F32_CLUSTER_DIMS; the
     kernel-only dims (no model, so no launches on a main
     path) under the entries of their kind: d 320 and 448 under d 512's,
-    the streamed ones under d 768's."""
+    K2's and K3's with the kernel each ran (``designs[d][kernel]``; K1
+    has the same design in both builds there, so phase_wide_designs does
+    not time it) and, K3's, both designs in turns, the streamed ones
+    under d 768's."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     streamed = ("kernel", "recompute")
@@ -5680,6 +5700,17 @@ def wide_kernel_entries(numbers: dict, wide: dict, designs: dict) -> list:
                     other: {key: numbers[name]["wide"][other][key]
                             for key in these}
                     for other in under[d]}
+            # the kernel each split dim ran where phase_wide_designs timed
+            # it (K2 and K3; K1 only where the builds differ), and both
+            # designs in turns where they differ (K3's pair at d 320, 448)
+            for other in under.get(d, []) if d <= PER_DIM_MAX else []:
+                turns = designs[KERNEL_ONLY_HEADS[other][2]].get(name)
+                if turns is None:
+                    continue
+                shape = entry["more_shapes"][other]
+                shape["kernel"] = turns["shipped_kernel"]
+                if turns["shipped_kernel"] != turns["other_kernel"]:
+                    shape["designs_in_turns"] = turns
             entries.append(entry)
     return entries
 

@@ -6,7 +6,7 @@
 K2 (``dq_wgmma`` at d 128, ``dq_rows8`` at d 64, 192 and 256, ``dq_pair`` at
 d 512 and, in the other build, 384, ``dq_f32`` at d 128 in f32) and K3
 (``dkv_keys8`` at d 64,
-``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 384 and 512,
+``dkv_onepass`` at d 192 and 256, ``dkv_pair`` at d 320 to 512,
 ``dkv_f32`` at d 128 in f32, all in ``csrc/flash_bwd.cu``), and the
 streamed kernels above d 512 on a cluster (``flash_fwd_wide_f32``,
 ``dq_wide_f32`` and ``dkv_wide_f32`` and bf16's ``dkv_wide`` at d 768 and
@@ -16,9 +16,14 @@ its refills are issued, and the groups launched as clusters), and time
 them against the committed kernels on one CUDA card.
 
 Run from the repository root on a machine with a card and ``nvcc``:
-``python3 kernel_variants.py [kernel ...]`` (the kernels of
-``KERNEL_HEADS`` whose variants to run, e.g. ``'dkv_pair<512>'
-'dkv_pair<384>'``; all without arguments). Each
+``python3 kernel_variants.py [--baseline DIR] [--no-variants] [kernel
+...]`` (the kernels of ``KERNEL_HEADS`` whose variants to run, e.g.
+``'dkv_pair<512>' 'dkv_pair<384>'``; all without arguments). With
+``--baseline DIR`` the sources of another tree's csrc/ directory (say the
+parent commit's, unpacked by ``git archive`` into a gitignored directory)
+are built too and checked and timed as one more variant, ``baseline``;
+``--no-variants`` leaves out the edited builds, so only the committed
+source and the baseline are timed. Each
 variant is the committed source of
 the kernel it edits with the text edits listed in ``VARIANTS``, each
 made in the source or in a header beside it (an edit whose text is not
@@ -39,6 +44,7 @@ spin on the card as chip_smoke.py times its kernels.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -51,6 +57,8 @@ import torch
 import chip_smoke as cs
 
 OUT = cs.ROOT / "build" / "kernel_variants"
+# another tree's csrc/ (``--baseline``), built as the variant "baseline"
+BASELINE: list[Path] = []
 
 # edits shared by several variants: K3 at d 192 on the one pass; K3 at d
 # 64's stage count; K1 f32's key tiles and stages
@@ -62,11 +70,13 @@ F32_K1_TILES = ("  static constexpr int BK = D <= 256 ? 64 : 32;\n"
                 "  static constexpr int ST = D <= 64 ? 3 : D <= 128 ? 2 : "
                 "1;\n")
 
-# K3 at d 384 and 512 (dkv_pair): its stage size, stages, the prefetch,
-# and the design ids there (the pair ships; dkv_split, the other build's)
+# K3 at d 320 to 512 (dkv_pair): its stage size, stages, the prefetch
+# (keyed on the columns a block holds, DH: 192 at d 320 and 384, 256 at d
+# 448 and 512), and the design ids there (the pair ships; dkv_split, the
+# other build's)
 PAIR_BQ = "  static constexpr int BQ = 64;     // queries a stage\n"
-PAIR_STAGES = "  static constexpr int STAGES = D == 384 ? 3 : 2;  // Q and dO stages\n"
-PAIR_PREFETCH = "  static constexpr bool PREFETCH = D == 384;\n"
+PAIR_STAGES = "  static constexpr int STAGES = DH == 192 ? 3 : 2;  // Q and dO stages\n"
+PAIR_PREFETCH = "  static constexpr bool PREFETCH = DH == 192;\n"
 # the prefetch on two stages reads the next tile before the exchange
 # barrier that a deferred refill waits for: the first warp then waits for
 # the other warpgroup's release instead of deferring
@@ -149,8 +159,8 @@ DQ_PAIR_STAGES = "  static constexpr int STAGES = D == 384 ? 4 : 2;\n"
 
 
 def pair_at(d: int, **edits) -> list:
-    """dkv_pair's constants at head dim ``d`` only (the other dim's
-    instance keeps its own): ``bq``, ``stages``, ``prefetch``."""
+    """dkv_pair's constants at head dim ``d`` only (the other dims'
+    instances keep their own): ``bq``, ``stages``, ``prefetch``."""
     texts = {"bq": PAIR_BQ, "stages": PAIR_STAGES, "prefetch": PAIR_PREFETCH}
     out = []
     for key, value in edits.items():
@@ -1212,6 +1222,35 @@ VARIANTS.update({
         "stages; the other build's design)",
         [design_at("dkv", 512)], "dkv_pair<512>", "dkv_split"),
 })
+# K3 at d 320 and 448: the pair padded to d 384's and d 512's columns a
+# block (rank 1's last 64 are TMA's zeros), its stages and prefetch as at
+# those dims and the other way, and dkv_split (the other build's design)
+VARIANTS.update({
+    "pair_d320_plain_3_stages": (
+        "d 320 K3: three stages without the prefetch",
+        pair_at(320, prefetch=False), "dkv_pair<320>"),
+    "pair_d320_plain": (
+        "d 320 K3: two stages, no prefetch",
+        pair_at(320, stages=2, prefetch=False), "dkv_pair<320>"),
+    "pair_d320_prefetch_2_stages": (
+        "d 320 K3: the prefetch on two stages",
+        [*pair_at(320, stages=2), PAIR_PREFETCH_WAIT], "dkv_pair<320>"),
+    "pair_d320_split": (
+        "d 320 K3 on the D split (dkv_split<320>: two passes, 32-query "
+        "stages; the other build's design)",
+        [design_at("dkv", 320)], "dkv_pair<320>", "dkv_split"),
+    "pair_d448_prefetch": (
+        "d 448 K3: the next stage's partial in flight during the exchange "
+        "(32 more registers a thread beside the 128 of the accumulator)",
+        [*pair_at(448, prefetch=True), PAIR_PREFETCH_WAIT], "dkv_pair<448>"),
+    "pair_d448_bq32": (
+        "d 448 K3: 32-query stages, 4",
+        pair_at(448, bq=32, stages=4), "dkv_pair<448>"),
+    "pair_d448_split": (
+        "d 448 K3 on the D split (dkv_split<448>: two passes, 16-query "
+        "stages; the other build's design)",
+        [design_at("dkv", 448)], "dkv_pair<448>", "dkv_split"),
+})
 # K1 and K2 at d 384 and 512 on a pair of blocks (flash_fwd_pair,
 # dq_pair): K1's stages, key tiles and prefetch; who arrives on the twin's
 # `freed` barrier (thread 0 of the warpgroup past a named barrier of it,
@@ -1389,7 +1428,8 @@ VARIANTS.update({
         "dq_wide"),
 })
 # the heads (query, KV, head dim) each edited kernel is checked and timed
-# at: bench_800m's, phase 12's and Llama-3.2-1B's (a kernel template at a
+# at: bench_800m's, phase 12's, chip_smoke.py's KERNEL_ONLY_HEADS' (d 320
+# and 448) and Llama-3.2-1B's (a kernel template at a
 # head dim other than its first, or timed at two, is keyed
 # "<kernel><<d>>", quoted on the command line)
 KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
@@ -1399,6 +1439,8 @@ KERNEL_HEADS = {"dq_wgmma": (12, 4, 128), "dq_rows8": (6, 2, 256),
                 "dq_rows8<192>": cs.WIDE_HEADS["bench_800m_d192"],
                 "dkv_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dkv_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
+                "dkv_pair<320>": cs.KERNEL_ONLY_HEADS["d320"],
+                "dkv_pair<448>": cs.KERNEL_ONLY_HEADS["d448"],
                 "flash_fwd_pair<384>": cs.WIDE_HEADS["bench_800m_d384"],
                 "flash_fwd_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
                 "dq_pair<512>": cs.WIDE_HEADS["bench_800m_d512"],
@@ -1434,7 +1476,8 @@ KERNEL_SHAPES = {
     "dq_rows8<192>": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                        *KERNEL_HEADS["dq_rows8<192>"])],
     **{key: [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[key])]
-       for key in ("dkv_pair<512>", "dkv_pair<384>", "flash_fwd_pair<384>",
+       for key in ("dkv_pair<512>", "dkv_pair<384>", "dkv_pair<320>",
+                   "dkv_pair<448>", "flash_fwd_pair<384>",
                    "flash_fwd_pair<512>", "dq_pair<512>", "dq_pair<384>")},
     "dkv_keys8": [(cs.FT_BATCH, cs.FT_SEQ, *KERNEL_HEADS["dkv_keys8"])],
     "dkv_onepass": [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, *KERNEL_HEADS[
@@ -1486,15 +1529,16 @@ def variant_files(name: str, files: dict) -> dict:
 
 
 def _compile(job: tuple[str, str]) -> tuple[Path, str]:
-    """Build ``source`` as committed or with variant ``name``'s edits."""
+    """Build ``source`` as committed, with variant ``name``'s edits, or
+    (``baseline``) from the ``--baseline`` tree's csrc/."""
     from service_account_auth_improvements_tpu_torch.ops import _build
 
     name, source = job
     d = OUT / name / source
     if d.exists():
         shutil.rmtree(d)
-    shutil.copytree(_build.CSRC, d)
-    if name != "committed":
+    shutil.copytree(BASELINE[0] if name == "baseline" else _build.CSRC, d)
+    if name in VARIANTS:
         for f, text in variant_files(name,
                                      committed_files(source, d)).items():
             (d / f).write_text(text)
@@ -1559,20 +1603,35 @@ def main() -> int:
         flash_attention as fa,
     )
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("kernels", nargs="*", metavar="kernel")
+    parser.add_argument("--baseline", type=Path, metavar="DIR",
+                        help="another tree's csrc/ directory, built, checked "
+                             "and timed as the variant 'baseline'")
+    parser.add_argument("--no-variants", action="store_true",
+                        help="time only the committed source (and the "
+                             "baseline)")
+    args = parser.parse_args()
     cs.phase_device()
-    chosen = sys.argv[1:] or list(KERNEL_HEADS)
+    chosen = args.kernels or list(KERNEL_HEADS)
     unknown = set(chosen) - set(KERNEL_HEADS)
     if unknown:
         raise SystemExit(f"kernel_variants: no such kernels {unknown}")
-    names = [n for n in VARIANTS if VARIANTS[n][2] in chosen]
-    jobs = [*(("committed", src)
-              for src in ("flash_fwd", "flash_bwd", cs.WIDE_SOURCE)
-              if any(source_of(k) == src for k in chosen)),
+    names = [] if args.no_variants else [
+        n for n in VARIANTS if VARIANTS[n][2] in chosen]
+    sources = [src for src in ("flash_fwd", "flash_bwd", cs.WIDE_SOURCE)
+               if any(source_of(k) == src for k in chosen)]
+    if args.baseline:
+        BASELINE.append(args.baseline.resolve())
+    jobs = [*(("committed", src) for src in sources),
+            *(("baseline", src) for src in sources if BASELINE),
             *((name, source_of(VARIANTS[name][2])) for name in names)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(_compile, jobs)))
     for name, source in jobs:
-        what = VARIANTS[name][0] if name in VARIANTS else "as committed"
+        what = (VARIANTS[name][0] if name in VARIANTS else
+                f"as in {BASELINE[0]}" if name == "baseline" else
+                "as committed")
         cs._log(f"variant {name} ({source}.cu): {what}")
         kernels = ([VARIANTS[name][-1]] if name in VARIANTS else
                    [k for k in chosen if source_of(k) == source])
@@ -1587,7 +1646,8 @@ def main() -> int:
             kernel, [(cs.TRAIN_BATCH, cs.TRAIN_SEQ, h, hkv, d)])
         dtype = KERNEL_DTYPES.get(kernel, torch.bfloat16)
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        group = [n for n in names if VARIANTS[n][2] == kernel]
+        group = [*(["baseline"] if BASELINE else []),
+                 *(n for n in names if VARIANTS[n][2] == kernel)]
         source = source_of(kernel)
         # K1 (O, LSE), K2 (dQ) or K3 (dK, dV): the wrapper, its plain
         # version, the tolerances and the bound

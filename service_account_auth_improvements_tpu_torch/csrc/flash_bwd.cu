@@ -47,10 +47,11 @@
 // `dq_wgmma` (d 128), `dkv_wgmma` (d 128 and 192), `dq_rows8` (d 64, 192
 // and 256), `dkv_keys8` (d 64) and `dkv_onepass` (d 256), `dq_split` and
 // `dkv_split` (d 320 to 512, the output's D columns split between the
-// consumers; K2 at d 320, 384 and 448, K3 at d 320 and 448), `dkv_pair`
-// (K3 at d 384 and 512: dkv_onepass on a cluster of two blocks, each
-// holding half of the head dim) and `dq_pair` (K2 at d 512: dq_rows8 on a
-// cluster of two blocks, the same way; at d 384 in the other build).
+// consumers; K2 at d 320, 384 and 448, K3 only in the other build),
+// `dkv_pair` (K3 at d 320 to 512: dkv_onepass on a cluster of two blocks,
+// each holding half of the head dim, at d 320 and 448 padded to whole
+// 64-column blocks) and `dq_pair` (K2 at d 512: dq_rows8 on a cluster of
+// two blocks, the same way; at d 384 in the other build).
 //
 // float32 inputs take register-tiled FFMA kernels (dq_f32, dkv_f32): true
 // f32 FMA on CUDA cores, no TF32, so f32 parity with the reference holds;
@@ -118,8 +119,8 @@ constexpr int SMEM_MAX = 232448;
 //              a consumer warpgroup, a producer warpgroup (K2 at d 128,
 //              K3 at d 128 and 192);
 //   kDSplit    dq_split, dkv_split: 8-warp blocks of 64 rows or keys, the
-//              output's columns split between the warpgroups (d 320 to 512;
-//              K3 at d 320 and 448);
+//              output's columns split between the warpgroups (K2 at d 320
+//              to 448; K3 in the other build);
 //   kRows8     dq_rows8: dq_wgmma's rows on an 8-warp block (d 64, 192,
 //              256);
 //   kOnePass   dkv_onepass: 8-warp blocks of 64 keys, warpgroup 0 owning dV
@@ -127,22 +128,22 @@ constexpr int SMEM_MAX = 232448;
 //   kKeys8     dkv_keys8: 8-warp blocks of 128 keys, 64 a warpgroup, each
 //              owning dK and dV of its keys, one pass (d 64);
 //   kPair      a cluster of two 8-warp blocks, each holding half of the
-//              head dim: K3's dkv_pair (dkv_onepass on each block; d 384
-//              and 512) and K2's dq_pair (dq_rows8 on each block; d 512,
+//              head dim: K3's dkv_pair (dkv_onepass on each block; d 320
+//              to 512) and K2's dq_pair (dq_rows8 on each block; d 512,
 //              and d 384 in the other build);
 //   kWide      dq_wide, dkv_wide, in csrc/flash_wide.cu: 8-warp blocks of
 //              128 rows (K2) or 64 keys (K3) and 256 output columns, the
 //              head dim streamed in 64-column chunks (every multiple of 64
 //              above 512; this library builds no kernel past 512, the
 //              wrappers call that one's, and the id only names them).
-// At d 64, 192, 256, 384 and 512 each of K2 and K3 ships the faster of two
-// designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on one
-// card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the row
-// split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
-// dq_rows8 and dkv_onepass at d 256, K3's dkv_pair at d 384 and 512, K2's
+// At d 64, 192, 256 and 320 to 512 each of K2 and K3 ships the faster of
+// two designs on the H100 (chip_smoke.py's phase_wide_designs, in turns on
+// one card; PERF.md §6): dq_rows8 and dkv_keys8 at d 64, dq_rows8 and the
+// row split's dkv_wgmma at d 192 (dkv_onepass<192> lost to it in turns),
+// dq_rows8 and dkv_onepass at d 256, K3's dkv_pair at d 320 to 512, K2's
 // dq_split at d 384 (its dq_pair lost to it in turns) and dq_pair at d
 // 512. A build with -DFLASH_OTHER_DESIGNS=1 takes the other design at each
-// (dq_pair at d 384, dq_split at d 512, dkv_split at d 384 and 512; K1's
+// (dq_pair at d 384, dq_split at d 512, dkv_split at d 320 to 512; K1's
 // other design at d 64, 192, 256, 384 and 512, and the scalar f32 kernels
 // at d 128: F32Design). The ids 5 and 7 are K1's (FwdDesign's kTwin and
 // kPair); 8 is K1's kWide too.
@@ -168,7 +169,7 @@ constexpr int dkv_design(int d) {
          : d <= 128 ? kRowSplit
          : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : kRowSplit)
          : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kOnePass)
-         : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
+         : d >= 320 && d <= 512 ? (FLASH_OTHER_DESIGNS ? kDSplit : kPair)
          : d > 512              ? kWide
                                 : kDSplit;
 }
@@ -481,8 +482,7 @@ struct DkvArgs {
 // delta stages and the mbarriers. Each bf16 tile is D / 64 column blocks of
 // (rows x 128 bytes). A stage holds BQ query rows: 128 in 2 stages up to
 // d 128, 32 above in as many stages as fit (at most 4). At d 256 K3
-// ships as dkv_onepass, at d 320 and 448 as dkv_split and at d 384 and 512
-// as dkv_pair (BwdDesign).
+// ships as dkv_onepass and at d 320 to 512 as dkv_pair (BwdDesign).
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = D <= 128 ? 128 : 32;  // query rows per stage
@@ -549,15 +549,17 @@ __device__ __forceinline__ void dkv_pack(uint32_t (&f)[NQ / 16][4],
 }
 
 // Write a consumer's 64 keys x D accumulator, times `scale`, as bf16 rows
-// of `out` (element row stride `ss`), skipping keys at or past sk.
+// of `out` (element row stride `ss`), skipping keys at or past sk and
+// columns at or past `cols` (a dkv_pair block's columns past d).
 template <int D>
 __device__ __forceinline__ void dkv_store(bf16* out, int64_t ss,
                                           const float (&acc)[D / 2],
                                           float scale, int key0, int key1,
-                                          int sk, int tq) {
+                                          int sk, int tq, int cols = D) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * tq;
+    if (cols < D && col >= cols) continue;
     if (key0 < sk)
       *reinterpret_cast<uint32_t*>(out + key0 * ss + col) = hopper::pack_bf16x2(
           acc[4 * j] * scale, acc[4 * j + 1] * scale);
@@ -782,7 +784,7 @@ dkv_wgmma(const __grid_constant__ DkvArgs a) {
 // ------------------------------------------------ bf16: the D-split kernels
 //
 // From d 320 K2 is `dq_split<D>` and K3 `dkv_split<D>` (but K3 ships as
-// dkv_pair at d 384 and 512 and K2 as dq_pair at d 512, below, and those
+// dkv_pair at d 320 to 512 and K2 as dq_pair at d 512, below, and those
 // split kernels run only in the -DFLASH_OTHER_DESIGNS=1 build).
 // dq_wgmma and dkv_wgmma hold a D / 2-register accumulator a thread (256
 // at d 512, past the 255 a thread may have), and their resident tiles (Q
@@ -1502,26 +1504,33 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
                key0, key1, a.sk, tq);
 }
 
-// ------------------------------------------------ bf16 at d 384, 512: clusters
+// ------------------------------------------------ bf16 at d 320 to 512: clusters
 //
 // K3, `dkv_pair<D>` (replaces `_dkv_kernel` in the JAX package's
-// ops/flash_attention.py): dkv_onepass at D / 2 on each block of a cluster
-// of two. dkv_onepass cannot run at d 384 or 512 as it is: its accumulator
-// would be 192 or 256 registers a thread, and K and V with two Q and dO
-// stages at the full head dim overflow 227 KB. dkv_split, the design it
+// ops/flash_attention.py): dkv_onepass at about D / 2 on each block of a
+// cluster of two. dkv_onepass cannot run at d 320 to 512 as it is: its
+// accumulator would be 160 to 256 registers a thread, and K and V with two
+// Q and dO stages at the full head dim overflow 227 KB. dkv_split, the design it
 // replaces here, keeps the whole head dim in one block and so streams
-// 16- (d 512) or 32-query (d 384) stages, forms S^T twice (a pass for dV,
-// one for dK: five products) and exchanges score halves between its
-// warpgroups on every stage, on m64n8 or m64n16 score products.
+// 16- (d 448, 512) or 32-query (d 320, 384) stages, forms S^T twice (a
+// pass for dV, one for dK: five products) and exchanges score halves
+// between its warpgroups on every stage, on m64n8 or m64n16 score
+// products.
 //
 // A pair (two blocks on neighbouring SMs, launched as one cluster) owns 64
-// keys of one (batch, KV head); the block of rank r holds columns
-// [r D/2, (r + 1) D/2) of K, V, Q, dO, dK and dV (each block's tensor maps
-// and output pointers start at its half: DkvPairArgs). Within a block it
-// is dkv_onepass at D / 2 (d 512: dkv_onepass<256>'s registers and
-// shared memory; d 384: dkv_onepass<192>'s), with one step added: the
-// score products over half the head dim give partial sums, so per stage
-//   t = A_c[:, half] B_c[:, half]^T   m64n64k16 x D/32: warpgroup 0 the
+// keys of one (batch, KV head); the block of rank r holds DH = 64
+// ceil(D / 128) columns from r DH of K, V, Q, dO, dK and dV (each block's
+// tensor maps and output pointers start at its columns: DkvPairArgs). At
+// d 320 and 448, where D / 2 is no whole number of 64-column blocks, rank
+// 1 holds only D - DH real columns (128 at d 320, 192 at d 448): its
+// tensor maps span those, with the box still DH wide, so TMA brings zeros
+// for the column blocks past d; they add exact zeros to its partial S^T
+// and dP^T, and its dK and dV columns past d are not stored. Within a
+// block it is dkv_onepass at DH (d 448, 512: dkv_onepass<256>'s registers
+// and shared memory; d 320, 384: dkv_onepass<192>'s), with one step
+// added: the score products over the block's columns give partial sums,
+// so per stage
+//   t = A_c[:, half] B_c[:, half]^T   m64n64k16 x DH/16: warpgroup 0 the
 //                   partial S^T = K Q^T, warpgroup 1 the partial dP^T
 //                   = V dO^T
 //   each warpgroup sums its t with its twin warpgroup's in the peer block
@@ -1540,32 +1549,34 @@ dkv_onepass(const __grid_constant__ DkvArgs a) {
 // fixed order in one pair: deterministic, no atomics.
 // Bound on an H100: operations (four products, as dkv_onepass); what the
 // pair adds is the exchange, 32 KB each way per stage between two SMs, in
-// series with the tensor work. At d 384 the next stage's partial is
-// issued as soon as this stage's is sent (PREFETCH: 32 registers more, on 3
-// stages so its Q and dO are in ahead of it), so the next stage's tensor
-// work overlaps this one's exchange; at d 512 its 32 registers do not fit
-// beside the 128 of the accumulator (PERF.md §6; kernel_variants.py times
+// series with the tensor work. At DH 192 (d 320, 384) the next stage's
+// partial is issued as soon as this stage's is sent (PREFETCH: 32
+// registers more, on 3 stages so its Q and dO are in ahead of it), so the
+// next stage's tensor work overlaps this one's exchange; at DH 256 (d 448,
+// 512) its 32 registers do not fit beside the 128 of the accumulator
+// (PERF.md §6; kernel_variants.py times
 // the alternatives: two stages, a third stage without the prefetch,
 // 32-query stages, the prefetch at d 512, where and by how many warps the
 // arrival on `freed` is made).
 
-// Shared memory: dkv_onepass's at D / 2 (K and V halves resident, the Q and
+// Shared memory: dkv_onepass's at DH (K and V halves resident, the Q and
 // dO stages, their lse and delta), then the receive buffers, holding the
 // two warpgroups' 64 x BQ f32 partials (16 KB each at BQ 64), and the
 // mbarriers: kv_full, q_full[S], q_empty[S] (as DkvSplit, so
 // dkv_stage_load fills them), then the exchange's (recv[2], freed).
 template <int D>
 struct DkvPair {
-  static constexpr int DH = D / 2;  // head-dim columns a block holds
+  // head-dim columns a block holds (rank 1's past d are TMA's zeros)
+  static constexpr int DH = 64 * ((D + 127) / 128);
   static constexpr int BK = 64;     // keys a pair owns
   static constexpr int BQ = 64;     // queries a stage
   // PREFETCH: the next stage's partial issued as soon as this one's is
   // sent, in flight during the exchange (32 more registers a thread: at
-  // d 384, where a third stage keeps its tile in ahead of it; beside d
-  // 512's 128 accumulator registers it hit 255 with an injected wait and
+  // DH 192, where a third stage keeps its tile in ahead of it; beside DH
+  // 256's 128 accumulator registers it hit 255 with an injected wait and
   // lost)
-  static constexpr bool PREFETCH = D == 384;
-  static constexpr int STAGES = D == 384 ? 3 : 2;  // Q and dO stages
+  static constexpr bool PREFETCH = DH == 192;
+  static constexpr int STAGES = DH == 192 ? 3 : 2;  // Q and dO stages
   static constexpr int KV_BYTES = BK * DH * 2, KV_CB = BK * 128;
   static constexpr int QT_BYTES = BQ * DH * 2, QT_CB = BQ * 128;
   static constexpr int ROW_BYTES = BQ * 4;
@@ -1582,11 +1593,12 @@ struct DkvPair {
   static constexpr int BAR_OFF = X_OFF + 2 * X::BYTES;
   static constexpr int BYTES =
       BAR_OFF + 8 * (1 + 2 * STAGES + X::BARS) + 1024;
-  static_assert(DH % 64 == 0 && DH <= 256, "dK, dV: 256 columns a block");
+  static_assert(DH % 64 == 0 && DH <= 256 && D > DH,
+                "dK, dV: whole 64-column blocks, 256 a block");
   static_assert(BYTES <= SMEM_MAX, "227 KB a block");
 };
 
-// Each block's arguments: DkvArgs over its half of the head dim.
+// Each block's arguments: DkvArgs over its columns of the head dim.
 struct DkvPairArgs {
   DkvArgs half[2];
 };
@@ -1787,7 +1799,8 @@ dkv_pair(const __grid_constant__ DkvPairArgs pa) {
                 ib * (c == 0 ? a.dv_sb : a.dk_sb) +
                 ikv * (c == 0 ? a.dv_sh : a.dk_sh);
     dkv_store<DH>(dst, c == 0 ? a.dv_ss : a.dk_ss, acc,
-                  c == 0 ? 1.f : a.scale, key0, key1, a.sk, tq);
+                  c == 0 ? 1.f : a.scale, key0, key1, a.sk, tq,
+                  rank == 0 ? DH : D - DH);
   });
 }
 
@@ -3325,11 +3338,21 @@ cudaError_t run_dq(const Params& p, int batch, int bf16_in, void* ws,
 
 // The tensor maps and arguments K3 takes, for each bf16 design: Q and dO
 // in boxes of BQ rows, K and V in boxes of BK keys; one column block a box
-// (dkv_wgmma), or with TILE whole tiles (hopper::tmap_bf16_tile,
-// dkv_keys8, dkv_onepass and dkv_split).
+// (dkv_wgmma), or with TILE whole tiles of `box` columns (d unless given;
+// hopper::tmap_cols, dkv_keys8, dkv_onepass, dkv_split and dkv_pair,
+// whose rank 1 at d 320 and 448 reads a box wider than its d columns).
 template <int BQ, int BK, bool TILE>
-cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
-  const auto map = TILE ? hopper::tmap_bf16_tile : hopper::tmap_bf16;
+cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d,
+                     int box = 0) {
+  const int cols = box ? box : d;
+  const auto map = [cols](CUtensorMap* m, const void* base, int n, int s,
+                          int heads, int b, int64_t ss, int64_t sh,
+                          int64_t sb, int rows) {
+    return TILE ? hopper::tmap_cols(m, base, n, s, heads, b, ss, sh, sb,
+                                    rows, cols)
+                : hopper::tmap_bf16(m, base, n, s, heads, b, ss, sh, sb,
+                                    rows);
+  };
   const int64_t(&st)[NSTRIDE][3] = p.st;
   cudaError_t err;
   if ((err = map(&a.tq, p.q, d, p.sq, p.h, batch, st[Q][2], st[Q][1],
@@ -3363,8 +3386,9 @@ cudaError_t dkv_args(DkvArgs& a, const Params& p, int batch, int d) {
 }
 
 // dkv_pair's arguments: for the block of rank r, dkv_args over columns
-// [r D / 2, (r + 1) D / 2) of Q, K, V, dO, dK and dV (each pointer moved to
-// its half; the tensor maps' boxes D / 2 columns wide).
+// [r DH, min((r + 1) DH, D)) of Q, K, V, dO, dK and dV (each pointer moved
+// to its first column; the tensor maps' boxes DH columns wide, so rank 1's
+// at d 320 and 448 reach past its D - DH columns, where TMA brings zeros).
 template <int D>
 cudaError_t dkv_pair_args(DkvPairArgs& pa, const Params& p, int batch) {
   using L = DkvPair<D>;
@@ -3374,7 +3398,7 @@ cudaError_t dkv_pair_args(DkvPairArgs& pa, const Params& p, int batch) {
             hopper::at_column(p, int64_t{r} * L::DH, &Params::q, &Params::k,
                               &Params::v, &Params::dout, &Params::dk,
                               &Params::dv),
-            batch, L::DH))
+            batch, r == 0 ? L::DH : D - L::DH, L::DH))
       return err;
   return cudaSuccess;
 }
@@ -3566,7 +3590,9 @@ int dq_clusters() {
 // would be refused), or -1 where that kernel is not launched in clusters.
 extern "C" int flash_bwd_dkv_clusters(int d) {
   switch (d) {
+    case 320: return dkv_clusters<320>();
     case 384: return dkv_clusters<384>();
+    case 448: return dkv_clusters<448>();
     case 512: return dkv_clusters<512>();
     default: return -1;
   }

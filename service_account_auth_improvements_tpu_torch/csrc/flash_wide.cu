@@ -193,25 +193,6 @@ struct Block {
   }
 };
 
-// A 5-D map over a bf16 [b, heads, s, d] tensor whose box is `cols`
-// columns (cols / 64 column blocks) of `rows` rows: hopper::tmap_bf16_tile's
-// layout for one group of columns, the group's first column block at
-// coordinate 2. Column blocks past d arrive as zeros.
-cudaError_t tmap_cols(CUtensorMap* map, const void* base, int d, int s,
-                      int heads, int b, int64_t ss, int64_t sh, int64_t sb,
-                      int rows, int cols) {
-  const cuuint64_t dims[5] = {64, static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(d / 64),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(ss) * 2, 128,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows),
-                             static_cast<cuuint32_t>(cols / 64), 1, 1};
-  return tmap_encode(map, base, 5, dims, strides, box);
-}
-
 // Store a 64-row accumulator of W columns (this thread's rows or keys r0
 // and r1), times `scale`, as bf16 at columns col0 +
 // 8j + 2 (t % 4) of `out` (element row stride `ss`), skipping rows at or

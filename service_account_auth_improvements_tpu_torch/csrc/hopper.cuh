@@ -1190,15 +1190,17 @@ inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int d, int s,
   return tmap_encode(map, base, 4, dims, strides, box);
 }
 
-// The same tensor as a 5-D map whose box is a whole tile of `rows` rows:
-// dims (64 columns, s, d / 64 column blocks, heads, b), the column block's
-// stride 128 bytes, box (64, rows, d / 64, 1, 1). One copy (coordinates
-// {0, row, 0, head, batch}) lands the tile as its d / 64 column blocks of
-// rows x 128 bytes side by side, the layout above, with the 128-byte
-// swizzle: one TMA instruction a tile instead of one a column block.
-inline cudaError_t tmap_bf16_tile(CUtensorMap* map, const void* base, int d,
-                                  int s, int heads, int b, int64_t ss,
-                                  int64_t sh, int64_t sb, int rows) {
+// The same tensor as a 5-D map whose box is `cols` columns (cols / 64
+// column blocks) of `rows` rows: dims (64 columns, s, d / 64 column
+// blocks, heads, b), the column block's stride 128 bytes, box (64, rows,
+// cols / 64, 1, 1). One copy (coordinates {0, row, block, head, batch})
+// lands the box as its cols / 64 column blocks of rows x 128 bytes side by
+// side, the layout above, with the 128-byte swizzle: one TMA instruction a
+// tile instead of one a column block. Column blocks of the box past d
+// arrive as zeros (a box may be wider than the tensor).
+inline cudaError_t tmap_cols(CUtensorMap* map, const void* base, int d, int s,
+                             int heads, int b, int64_t ss, int64_t sh,
+                             int64_t sb, int rows, int cols) {
   const cuuint64_t dims[5] = {64, static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(d / 64),
                               static_cast<cuuint64_t>(heads),
@@ -1207,8 +1209,15 @@ inline cudaError_t tmap_bf16_tile(CUtensorMap* map, const void* base, int d,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows),
-                             static_cast<cuuint32_t>(d / 64), 1, 1};
+                             static_cast<cuuint32_t>(cols / 64), 1, 1};
   return tmap_encode(map, base, 5, dims, strides, box);
+}
+
+// tmap_cols with the box a whole tile of `rows` rows: all d columns.
+inline cudaError_t tmap_bf16_tile(CUtensorMap* map, const void* base, int d,
+                                  int s, int heads, int b, int64_t ss,
+                                  int64_t sh, int64_t sb, int rows) {
+  return tmap_cols(map, base, d, s, heads, b, ss, sh, sb, rows, d);
 }
 
 // `p` with each named pointer (a bf16 tensor's, `const void*` or `void*`

@@ -19,11 +19,15 @@ dim, never by catching an error: in bf16 up to d 192, K1 is
 into an mbarrier ring, a producer warp, consumer warpgroups on wgmma, with
 the pieces in ``csrc/hopper.cuh``); at d 256 they are ``flash_fwd_rows8``,
 ``dq_rows8`` and ``dkv_onepass`` (8-warp blocks, no producer warpgroup);
-from d 320 to 512 they are
-``flash_fwd_split``, ``dq_split`` and ``dkv_split``, which split the
-output's D columns between the two consumer warpgroups and exchange the
-halves of each score tile through shared memory; each is built for every
-head dim in ``KERNEL_HEAD_DIMS`` with tiles chosen per dim. float32 runs
+from d 320 to 512 K1 and K2 are ``flash_fwd_split`` and ``dq_split``,
+which split the output's D columns between the two consumer warpgroups
+and exchange the halves of each score tile through shared memory (but
+``flash_fwd_pair`` at d 384 and 512 and ``dq_pair`` at d 512), and K3 is
+``dkv_pair``: ``dkv_onepass`` on each block of a cluster of two, each
+holding 64 ceil(d / 128) columns (at d 320 and 448 the second block's
+last 64 are TMA's zeros, not stored), the partial scores summed through
+distributed shared memory; each is built for every head dim in
+``KERNEL_HEAD_DIMS`` with tiles chosen per dim. float32 runs
 ``flash_fwd_f32`` and the register-tiled FFMA kernels ``dq_f32`` and
 ``dkv_f32`` (true f32 FMA, no TF32; when a launch has fewer than two
 blocks a SM, K2 splits its blocks' key ranges and K3 its key tiles' query

@@ -283,7 +283,7 @@ def test_kernel_only_head_settings():
         assert f'extern "C" int {fn}' in src[name]
     for text in src.values():
         assert "#ifndef FLASH_OTHER_DESIGNS" in text
-    assert chip_smoke.DESIGN_DIMS == (64, 192, 256, 384, 512)
+    assert chip_smoke.DESIGN_DIMS == (64, 192, 256, 320, 384, 448, 512)
     assert "dkv_pair" in chip_smoke.PROFILE_KERNELS
 
 
@@ -372,8 +372,8 @@ class _Bwd:
     """A flash_bwd library's design functions, as csrc/flash_bwd.cu states
     them: K2's dq_rows8 at d 64, 192 and 256 and its pair of blocks at d
     512 (dq_pair), K3's 8-warp designs at d 64 (dkv_keys8) and 256
-    (dkv_onepass) and its pair of blocks at d 384 and 512 (dkv_pair), the
-    row split at d 128 (and K3's at d 192), the D split above (the row
+    (dkv_onepass) and its pair of blocks at d 320 to 512 (dkv_pair), the
+    row split at d 128 (and K3's at d 192), K2's D split above (the row
     split at d 64, 192 and 256, K3's one pass at d 192, the D split for
     the shipped pairs and K2's pair at d 384 in the other build), and the
     streamed kernels of csrc/flash_wide.cu above 512 (in both builds)."""
@@ -394,7 +394,7 @@ class _Bwd:
             keys8 if d == 64 else ids["kRowSplit"] if d <= 128
             else one if d == 256
             else ids["kOnePass" if other else "kRowSplit"] if d == 192
-            else pair if d in (384, 512)
+            else pair if d in (320, 384, 448, 512)
             else ids["kWide"] if d > 512
             else ids["kDSplit"])
 
@@ -407,8 +407,10 @@ def test_bwd_design_labels_name_every_design():
     K1's rows on 8 warps and K3's one pass at d 192, where their row
     split ships); at d 384 and 512 K1 and K3 ship their pairs of blocks
     and K2 at d 512, and the other build runs the D split there; at d 384
-    K2 ships the D split and the other build its pair; above 512 all
-    three stream the head dim in both builds."""
+    K2 ships the D split and the other build its pair; at d 320 and 448
+    K3 ships its pair (the second block's last 64 columns TMA's zeros)
+    and the other build the D split, which K1 and K2 run in both; above
+    512 all three stream the head dim in both builds."""
     ids = _bwd_designs()
     assert ids == {"kRowSplit": 0, "kDSplit": 1, "kRows8": 2, "kOnePass": 3,
                    "kKeys8": 4, "kPair": 6, "kWide": 8}
@@ -449,7 +451,10 @@ def test_bwd_design_labels_name_every_design():
             "flash_bwd_dq": pair if d == 384 else "D split",
             "flash_bwd_dkv": "D split"}
     for d in (320, 448):
-        assert set(chip_smoke.design_names(_Fwd(False), _Bwd(False), d)
+        assert chip_smoke.design_names(_Fwd(False), _Bwd(False), d) == {
+            "flash_fwd": "D split", "flash_bwd_dq": "D split",
+            "flash_bwd_dkv": pair}
+        assert set(chip_smoke.design_names(_Fwd(True), _Bwd(True), d)
                    .values()) == {"D split"}
     for d in (576, 704, 768, 2048):
         for other in (False, True):
@@ -472,7 +477,7 @@ def test_bwd_design_labels_name_every_design():
         "return d == 64 ? (FLASH_OTHER_DESIGNS ? kRowSplit : kKeys8) : d <= "
         "128 ? kRowSplit : d == 192 ? (FLASH_OTHER_DESIGNS ? kOnePass : "
         "kRowSplit) : d == 256 ? (FLASH_OTHER_DESIGNS ? kRowSplit : "
-        "kOnePass) : d == 384 || d == 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
+        "kOnePass) : d >= 320 && d <= 512 ? (FLASH_OTHER_DESIGNS ? kDSplit "
         ": kPair) : d > 512 ? kWide : kDSplit;")
 
 
@@ -484,7 +489,8 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
     dq_rows8, the other build runs dq_wgmma; at d 384 and 512 K1 and K3
     ship flash_fwd_pair and dkv_pair and the other build runs the split
     kernels there; K2 ships dq_pair at d 512 and dq_split at d 384, the
-    other build the other one."""
+    other build the other one; at d 320 and 448 K3 ships dkv_pair and the
+    other build dkv_split, K1 and K2 the split kernels in both."""
     fwd_ids = _designs("flash_fwd", "FwdDesign")
     bwd_ids = _bwd_designs()
     kernels = chip_smoke.DESIGN_KERNELS
@@ -522,6 +528,12 @@ def test_design_kernels_name_the_shipped_and_other_kernels():
             "flash_fwd": f"flash_fwd_split<{d}>",
             "flash_bwd_dq": f"{dq[1]}<{d}>",
             "flash_bwd_dkv": f"dkv_split<{d}>"}
+    for d in (320, 448):
+        for other, dkv in ((False, "dkv_pair"), (True, "dkv_split")):
+            assert chip_smoke.design_kernels(_Fwd(other), _Bwd(other), d) == {
+                "flash_fwd": f"flash_fwd_split<{d}>",
+                "flash_bwd_dq": f"dq_split<{d}>",
+                "flash_bwd_dkv": f"{dkv}<{d}>"}
 
 
 def test_d64_design_settings():
@@ -677,11 +689,12 @@ def test_wide_edges_cover_the_blocks():
 
 
 def test_pair_edges_cover_the_blocks():
-    """phase 3 and phase_wide_designs hold K3's pairs of blocks at d 384
-    and 512 (dkv_pair: 64 keys a pair, 64-query stages) at one row, ragged
+    """phase 3 and phase_wide_designs hold K3's pairs of blocks at d 320 to
+    512 (dkv_pair: 64 keys a pair, 64-query stages) at one row, ragged
     ends past one and two 64-key blocks, s 2047, GQA groups 1 to 3 and
-    non-causal aligned, at both dims; the dims are the ones K3 ships the
-    pair at."""
+    non-causal aligned, at each dim; the dims are the ones K3 ships the
+    pair at, d 320 and 448 among them (the padded halves), each timed in
+    turns at DESIGN_SHAPES."""
     edges = chip_smoke.PAIR_EDGES
     lengths = {s for _, s, _, _, _ in edges}
     assert {1, 65, 129, 2047} <= lengths
@@ -690,12 +703,23 @@ def test_pair_edges_cover_the_blocks():
     assert all(h % hkv == 0 for _, _, h, hkv, _ in edges)
     assert any(not causal and s % 64 == 0 for _, s, _, _, causal in edges)
     assert chip_smoke.PAIR_DIMS == (384, 512)
+    assert chip_smoke.DKV_PAIR_DIMS == (320, 384, 448, 512)
+    assert set(chip_smoke.PAIR_DIMS) < set(chip_smoke.DKV_PAIR_DIMS)
     assert chip_smoke.PAIR_EDGE_SETS["flash_bwd_dkv"] == edges
-    assert set(chip_smoke.PAIR_DIMS) <= set(chip_smoke.DESIGN_DIMS)
+    assert set(chip_smoke.DKV_PAIR_DIMS) <= set(chip_smoke.DESIGN_DIMS)
     assert "dkv_pair" in chip_smoke.CLEAN_KERNELS
-    for d in chip_smoke.PAIR_DIMS:
+    for d in chip_smoke.DKV_PAIR_DIMS:
         assert chip_smoke.design_kernels(_Fwd(False), _Bwd(False), d)[
             "flash_bwd_dkv"] == f"dkv_pair<{d}>"
+        assert chip_smoke.design_kernels(_Fwd(True), _Bwd(True), d)[
+            "flash_bwd_dkv"] == f"dkv_split<{d}>"
+    for d in (320, 448):
+        assert chip_smoke.DESIGN_SHAPES[d] == (
+            chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ,
+            *chip_smoke.KERNEL_ONLY_HEADS[f"d{d}"][:2])
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert src.count("for d in DKV_PAIR_DIMS") == 1
+    assert '("flash_bwd_dkv", DKV_PAIR_DIMS)' in src
 
 
 def test_rows_pair_edges_cover_the_blocks():
@@ -782,7 +806,8 @@ def test_clean_kernels_hold_every_pair():
             ("flash_bwd_dkv_clusters", "flash_bwd", "dkv")):
         body = text[source].split(f'extern "C" int {fn}(int d) {{', 1)[1]
         body = body.split("\n}\n", 1)[0]
-        for d in chip_smoke.PAIR_DIMS:
+        for d in (chip_smoke.DKV_PAIR_DIMS if kernel == "dkv"
+                  else chip_smoke.PAIR_DIMS):
             assert f"case {d}: return {kernel}_clusters<{d}>();" in body
 
 
@@ -838,13 +863,15 @@ def test_rows_pair_variant_keys_name_their_template_and_shape(key, d,
 
 
 @pytest.mark.parametrize("key,d", [("dkv_pair<512>", 512),
-                                   ("dkv_pair<384>", 384)])
+                                   ("dkv_pair<384>", 384),
+                                   ("dkv_pair<448>", 448),
+                                   ("dkv_pair<320>", 320)])
 def test_pair_variant_keys_name_their_template_and_shape(key, d):
     """kernel_variants.py's keys for K3's pair of blocks name the template
     (``template_of``) at each of its head dims, are timed at the shape
     phase_wide_designs times the two designs at (DESIGN_SHAPES: phase 12's
-    heads at the training shape), and have variants, among them the other
-    build's dkv_split."""
+    heads, or KERNEL_ONLY_HEADS' at d 320 and 448, at the training shape),
+    and have variants, among them the other build's dkv_split."""
     kernel = kernel_variants.template_of(key)
     assert kernel == "dkv_pair" and key == f"{kernel}<{d}>"
     assert kernel in _global_kernels()
@@ -859,19 +886,76 @@ def test_pair_variant_keys_name_their_template_and_shape(key, d):
     assert "dkv_split" in {kernel_variants.VARIANTS[n][-1] for n in edits}
 
 
-def _constexpr(expr, d):
-    """The value at ``D == d`` of one of DkvPair's constants: an int, a
-    bool, ``D == n``, or right-nested ``?:`` of those."""
+def _constexpr(expr, d, dh=None):
+    """The value at ``D == d`` (and ``DH == dh``) of one of DkvPair's
+    constants: an int, a bool, ``D == n``, ``DH == n``, or right-nested
+    ``?:`` of those."""
     expr = expr.strip()
     if " ? " in expr:
         cond, rest = expr.split(" ? ", 1)
         then, other = rest.split(" : ", 1)
-        return _constexpr(then if _constexpr(cond, d) else other, d)
+        return _constexpr(then if _constexpr(cond, d, dh) else other, d, dh)
     if expr.startswith("D == "):
         return d == int(expr[5:])
+    if expr.startswith("DH == "):
+        assert dh is not None
+        return dh == int(expr[6:])
     if expr in ("true", "false"):
         return expr == "true"
     return int(expr)
+
+
+def _pair_columns(struct, d):
+    """DkvPair's DH at ``D == d``: the head-dim columns each block of the
+    pair holds, from the source's expression (integer arithmetic)."""
+    expr = re.search(r"int DH = ([^;]*);", struct).group(1)
+    assert re.fullmatch(r"[\dD+*/() ]+", expr), expr
+    return eval(expr.replace("/", "//"), {"D": d})
+
+
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+def test_dkv_pair_columns_tile_the_head_dim(d):
+    """dkv_pair at d 320 to 512, as csrc/flash_bwd.cu states it: each block
+    holds DH columns, a multiple of 64 (whole column blocks of the 128-byte
+    swizzle); the block of rank r reads from column r DH (its pointers
+    moved there), rank 0 its DH columns and rank 1 the d - DH left, so the
+    two tile [0, d) with no overlap; rank 1's box is DH wide all the same
+    (at d 320 and 448 its last 64 columns are TMA's zeros) and its stores
+    stop at d - DH; K and V, the Q and dO stages with their lse and delta,
+    the two receive buffers and the mbarriers fit 227 KB; the stages and
+    the prefetch follow DH, so d 320 runs d 384's and d 448 d 512's."""
+    source = (CSRC / "flash_bwd.cu").read_text()
+    struct = source[source.index("struct DkvPair {"):]
+    struct = struct[:struct.index("\n};\n")]
+    dh = _pair_columns(struct, d)
+    const = {name: _constexpr(re.search(rf"{kind} {name} = ([^;]*);",
+                                        struct).group(1), d, dh)
+             for kind, name in (("int", "BK"), ("int", "BQ"),
+                                ("int", "STAGES"), ("bool", "PREFETCH"))}
+    assert dh % 64 == 0 and dh <= 256
+    args = source[source.index("cudaError_t dkv_pair_args("):]
+    args = args[:args.index("\n}\n")]
+    assert "hopper::at_column(p, int64_t{r} * L::DH," in args
+    assert "batch, r == 0 ? L::DH : D - L::DH, L::DH))" in args
+    kernel = source[source.index("dkv_pair(const __grid_constant__"):]
+    assert "rank == 0 ? DH : D - DH);" in kernel[:kernel.index("\n}\n")]
+    covered = []
+    for r in range(2):
+        first, real = r * dh, dh if r == 0 else d - dh
+        assert 0 < real <= dh
+        covered += range(first, first + real)
+    assert covered == list(range(d))
+    assert (d - dh < dh) == (d in (320, 448))
+    smem_max = int(re.search(r"SMEM_MAX = (\d+);", source).group(1))
+    assert smem_max == 227 * 1024
+    assert "using X = hopper::PairExchange<BQ / 8, 2 * WG>;" in struct
+    bq, stages = const["BQ"], const["STAGES"]
+    smem = (2 * const["BK"] * dh * 2 + 2 * stages * bq * dh * 2
+            + 2 * stages * bq * 4 + 2 * (bq // 8) * 16 * 128
+            + 8 * (1 + 2 * stages + 3) + 1024)
+    assert smem <= smem_max
+    assert (stages, const["PREFETCH"]) == {192: (3, True),
+                                           256: (2, False)}[dh]
 
 
 @pytest.mark.parametrize("variant", [None, *sorted(
@@ -891,11 +975,12 @@ def test_pair_prefetch_on_two_stages_waits_for_its_refill(variant):
         d = kernel_variants.KERNEL_HEADS[kernel_variants.VARIANTS[variant][2]][2]
     source = files["flash_bwd.cu"]
     struct = source[source.index("struct DkvPair {"):]
-    for dim in {d, 384, 512}:
+    for dim in {d, *chip_smoke.DKV_PAIR_DIMS}:
+        dh = _pair_columns(struct, dim)
         prefetch = _constexpr(
-            re.search(r"bool PREFETCH = (.*);", struct).group(1), dim)
+            re.search(r"bool PREFETCH = (.*);", struct).group(1), dim, dh)
         stages = _constexpr(
-            re.search(r"int STAGES = ([^;]*);", struct).group(1), dim)
+            re.search(r"int STAGES = ([^;]*);", struct).group(1), dim, dh)
         waits = "if (L::PREFETCH && STAGES == 2)" in source
         assert stages >= 2
         assert waits or not (prefetch and stages == 2), dim
@@ -910,7 +995,9 @@ def test_wide_entries_carry_designs_and_pair():
     kernel, its source csrc/flash_wide.cu, and its recompute factor, K3's
     with both its designs in turns at d 768 and 2048 (a cluster against
     the column groups); the split kernels' kernel-only dims under d 512,
-    the streamed kernels' under d 768."""
+    each naming the kernel it ran, K3's (the pair, dkv_split in the other
+    build) with both designs in turns, the streamed kernels' under d
+    768."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops", "bound_share")
     labels = {**chip_smoke.WIDE_HEADS, **chip_smoke.KERNEL_ONLY_HEADS}
@@ -930,11 +1017,16 @@ def test_wide_entries_carry_designs_and_pair():
         _Fwd(which == "other"), _Bwd(which == "other"), d)
         for which in ("shipped", "other")}
         for d in chip_smoke.DESIGN_DIMS}
+    # as phase_wide_designs returns them: K2 and K3 at every dim, K1
+    # only where the two builds run different kernels
     designs = {d: {name: {"shipped_ms": 1.0, "other_ms": 2.0,
                           "shipped_kernel": kernels[d]["shipped"][name],
                           "other_kernel": kernels[d]["other"][name]}
-                   for name in chip_smoke.KERNELS}
+                   for name in chip_smoke.KERNELS
+                   if name != "flash_fwd" or kernels[d]["shipped"][name]
+                   != kernels[d]["other"][name]}
                for d in chip_smoke.DESIGN_DIMS}
+    assert "flash_fwd" not in designs[320] | designs[448]
     for d in chip_smoke.F32_CLUSTER_DIMS:
         designs[d] = {"flash_bwd_dkv": {
             "shipped_ms": 1.0, "other_ms": 2.0,
@@ -966,6 +1058,19 @@ def test_wide_entries_carry_designs_and_pair():
                 chip_smoke.KERNEL_ONLY_HEADS.items() if (x > 512) == (d > 512)}
         if d == 512:
             assert set(entry["more_shapes"]) == only == {"d320", "d448"}
+            # K2's and K3's with the kernel each ran; K3's pair with both
+            # designs
+            for label, n in entry["more_shapes"].items():
+                turns = designs[int(label[1:])].get(kernel)
+                assert ("kernel" in n) == (turns is not None) == (
+                    kernel != "flash_fwd")
+                assert ("designs_in_turns" in n) == (
+                    kernel == "flash_bwd_dkv")
+                if turns is not None:
+                    assert n["kernel"] == turns["shipped_kernel"]
+                if kernel == "flash_bwd_dkv":
+                    assert n["kernel"] == f"dkv_pair<{label[1:]}>"
+                    assert n["designs_in_turns"] is turns
         if d == 768:
             assert entry["source"].endswith("/csrc/flash_wide.cu")
             assert entry["kernel"] == (

@@ -110,6 +110,20 @@ SHAPES = [
     (2, 63, 3, 1, 512, True),
     (2, 65, 3, 1, 512, True),
     (2, 127, 3, 1, 512, True),
+    # K3's pairs of blocks at d 320 and 448 (dkv_pair, each block 64
+    # ceil(d / 128) columns, the second block's last 64 TMA's zeros): one
+    # row, one short of, one past and past two 64-key blocks, s 300 at GQA
+    # groups 1 to 3, s 2047, non-causal aligned, and KERNEL_ONLY_HEADS' 4 /
+    # 2 heads at the training shape (d 320's s 2047 and d 448's s 300 at
+    # group 2 and non-causal s 256 are above)
+    *((b, s, h, hkv, d, causal) for d in (320, 448)
+      for b, s, h, hkv, causal in (
+          (2, 1, 3, 1, True), (2, 63, 4, 2, True), (2, 65, 4, 2, True),
+          (2, 129, 3, 1, True), (2, 300, 3, 3, True),
+          (8, 2048, 4, 2, True))),
+    (1, 2047, 4, 2, 320, True),
+    (2, 256, 3, 1, 320, False),
+    (2, 300, 4, 2, 448, True),
     # K1's pairs of blocks at d 384 (flash_fwd_pair) and K2's at d 512
     # (dq_pair), 128 query rows a pair: one past a pair and one short of
     # two, at phase 12's heads (s 127 is above)
@@ -265,7 +279,13 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, b, s, h, hkv, d,
                                          (2, 255, 3, 1, 512),
                                          (2, 255, 4, 2, 384),
                                          (2, 127, 4, 2, 384),
-                                         (2, 129, 3, 1, 512)])
+                                         (2, 129, 3, 1, 512),
+                                         (2, 65, 4, 2, 320),
+                                         (2, 300, 3, 3, 320),
+                                         (8, 2048, 4, 2, 320),
+                                         (2, 129, 3, 1, 448),
+                                         (1, 2047, 4, 2, 448),
+                                         (8, 2048, 4, 2, 448)])
 def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
                                            d):
     """K2 sums over the key tiles and K3 over the group's heads and the
@@ -274,8 +294,9 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
     dkv_keys8, whose warpgroups share the streamed stages; at d 192
     dq_rows8 on 64-key stages; at d 256
     dq_rows8 and dkv_onepass, whose warpgroups exchange P^T through shared
-    memory; at d 384 and 512 dkv_pair, whose two blocks each add the
-    other's partial scores to their own, the same two f32 values on both,
+    memory; at d 320 to 512 dkv_pair, whose two blocks each add the
+    other's partial scores to their own, the same two f32 values on both
+    (at d 320 and 448 the second block's padding adds exact zeros),
     and so do K1's flash_fwd_pair and K2's dq_pair there, through the one
     exchange of csrc/hopper.cuh (the rows at s 127 and 129: one short of
     and one past a pair's 128 query rows, K2 at d 384 and K1 at d 512);
@@ -304,6 +325,43 @@ def test_flash_bwd_kernel_is_deterministic(cuda, dtype, kernel, b, s, h, hkv,
         first, second = (first,), (second,)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+def test_k3_pair_reads_and_stores_no_column_past_d(cuda, d):
+    """K3's pair of blocks (dkv_pair) on rows padded past d with NaN, in
+    every input and output: the second block's tensor maps end at d (at d
+    320 and 448 its box reaches 64 columns past, where TMA brings zeros,
+    not the padding), and it stores no column past d. dK and dV match the
+    plain version; the padding is still NaN."""
+    from service_account_auth_improvements_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q, k, v = _qkv(2, 129, 4, 2, d, torch.bfloat16)
+    do = _qkv(2, 129, 4, 4, d, torch.bfloat16, seed=1)[0]
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_bwd_delta(o, do)
+
+    def padded(t):
+        buf = torch.full((*t.shape[:3], d + 64), float("nan"),
+                         dtype=t.dtype, device=t.device)
+        buf[..., :d] = t
+        return buf
+
+    ins = [padded(t)[..., :d] for t in (q, k, v, do)]
+    outs = [padded(torch.zeros_like(t)) for t in (k, v)]
+    assert ins[0].stride(2) == d + 64
+    fa._launch_bwd("flash_bwd_dkv", *ins, lse, delta, None,
+                   outs[0][..., :d], outs[1][..., :d], True)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)
+    atol, rtol = BWD_TOL[torch.bfloat16]
+    for got, w in zip(outs, want):
+        assert torch.isnan(got[..., d:]).all()
+        torch.testing.assert_close(got[..., :d].float(), w.float(),
+                                   atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
